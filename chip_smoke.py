@@ -1,0 +1,683 @@
+#!/usr/bin/env python3
+"""Drive hive_tpu_torch's main path on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and the script exits non-zero):
+
+1. the card's name and power limit (``nvidia-smi``);
+2. build both CUDA kernels from ``hive_tpu_torch/csrc`` (one ``nvcc`` each,
+   started together);
+3. refine-query kernel vs its plain version on a VGA depth map (10% invalid
+   pixels) with the refine pass's 4096 block AABBs: bit-exact, timed;
+4. band-sampler kernel vs its plain version on one 128-block trip and on a
+   whole frame's band: bit-exact, timed beside ``torch.take``;
+5. integration at the TSDF bench shape (VGA x 64 frames into a 256^3
+   volume, the wavy-wall scene made on the card): the kernel path and the
+   plain path give bit-identical states; voxel-updates/s, median of 5 reps;
+   plus the sparse-vs-dense self-check on a small volume;
+6. the main path through the CLI entry point (``python -m hive_tpu_torch
+   ... --background_only``, run in this process) on a 30-frame 640x480
+   synthetic HIVE dataset this script writes, at the default 5 mm / 320M
+   voxel budget: ``bg.glb`` must load and carry the scene's colour
+   gradients. Kernel launch counts are reset just before and read just
+   after this run; both kernels must have launched. Every kernel call of
+   the run is also made through its plain version on the same tensors and
+   must agree bit for bit; the kernels are then timed on the run's largest
+   call;
+7. one ``{"kernels": [...]}`` line (times, errors and bounds at the main
+   path's shapes, and under ``bench`` at the bench shape), then the card's
+   ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last
+   line.
+
+Kernel and plain times are device time from torch.profiler's CUPTI trace;
+``loop_ms`` is a Python loop of launches timed with CUDA events, host cost
+included. ``bound_ms`` is the larger of the bytes the call must move over
+the HBM rate and its integer operations over the SIMT peak.
+
+It needs one CUDA card and exits non-zero without one, printing no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import runpy
+import struct
+import subprocess
+import sys
+import tempfile
+import time
+import zlib
+from unittest import mock
+
+import numpy as np
+import torch
+
+SEED = 0
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+# Published H100 SXM peaks (NVIDIA data sheet), for the bounds: HBM rate,
+# and the float32 rate outside the tensor cores, the nearest listed peak for
+# the kernels' integer work.
+HBM_BYTES_PER_S = 3.35e12
+SIMT_OPS_PER_S = 67e12
+
+BENCH_FRAMES, BENCH_H, BENCH_W, BENCH_GRID = 64, 480, 640, 256
+E2E_FRAMES, E2E_H, E2E_W = 30, 480, 640
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
+    """Mean device time of ``fn()`` in ms over ``reps`` launches (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _device_us(prof) -> float:
+    """Summed device time (us) of every kernel and copy a profile recorded."""
+    total = 0.0
+    for event in prof.key_averages():
+        total += getattr(event, "self_device_time_total",
+                         getattr(event, "self_cuda_time_total", 0.0))
+    return total
+
+
+def device_time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
+    """Device ms per call of ``fn()``: the kernels' own device time from
+    torch.profiler's CUPTI trace, which leaves out the host's launch cost."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device_us = _device_us(prof)
+    if device_us <= 0:
+        raise RuntimeError("the profiler's trace holds no device time")
+    return device_us / reps / 1e3
+
+
+def bound(num_bytes: float, int_ops: float):
+    """(bound ms, what bounds it): the larger of the bytes over the HBM rate
+    and the integer operations over the card's non-tensor-core peak."""
+    bytes_ms = 1e3 * num_bytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * int_ops / SIMT_OPS_PER_S
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def refine_bound(cells):
+    """The refine query's least time on these cell bounds. Bytes: each
+    distinct pyramid word any block reads (blocks that share cells share
+    words), the six int32 bounds in and dmin/dmax/valid out per block.
+    Operations per cell: index (2 min, mul, 2 add), three fields (5 shifts
+    and masks), three reductions; ten more per block to decode."""
+    from hive_tpu_torch.ops.refine_query import GRID
+
+    off, w_l, cu0, cu1, cv0, cv1 = (c.long() for c in cells)
+    step = torch.arange(GRID, device=off.device)
+    cv = torch.minimum(cv0[:, None] + step, cv1[:, None])
+    cu = torch.minimum(cu0[:, None] + step, cu1[:, None])
+    idx = off[:, None, None] + cv[:, :, None] * w_l[:, None, None] + cu[:, None, :]
+    n = off.numel()
+    return bound(torch.unique(idx).numel() * 4 + n * (6 * 4 + 9),
+                 n * (GRID * GRID * 13 + 10))
+
+
+def sampler_bound(frame, vc, uc):
+    """The sampler's least time on these coordinates. Bytes: v, u in and the
+    word out per voxel, plus each distinct frame word once. Operations per
+    voxel: two clamps (4), the flat index (2)."""
+    flat = vc.long() * frame.shape[1] + uc.long()
+    n = vc.numel()
+    return bound(n * 12 + torch.unique(flat).numel() * 4, n * 6)
+
+
+def max_abs_err(got, want) -> torch.Tensor:
+    """Largest |got - want| on the card; equal values (equal infinities
+    included) count 0, so it stays finite when the two agree."""
+    g, w = got.double(), want.double()
+    return torch.where(g == w, 0.0, (g - w).abs()).max()
+
+
+def bit_differences(got, want) -> torch.Tensor:
+    """How many elements differ in their bit patterns, on the card."""
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x.to(torch.int32)
+    return (bits(got) != bits(want)).sum()
+
+
+def time_refine(pyramid, cells):
+    """Kernel, plain and launch-loop times of one refine query, and its bound."""
+    from hive_tpu_torch.ops import refine_query as rq
+
+    bound_ms, bound_by = refine_bound(cells)
+    return dict(
+        ms=device_time_ms(lambda: rq.refine_query_cells(pyramid, *cells)),
+        plain_ms=device_time_ms(lambda: rq.refine_query_plain(pyramid, *cells), reps=20),
+        loop_ms=cuda_time_ms(lambda: rq.refine_query_cells(pyramid, *cells)),
+        library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+        shape=f"pyramid {tuple(pyramid.shape)} int32, {cells[0].numel()} blocks x 25 cells")
+
+
+def time_sampler(frame, vc, uc):
+    """Kernel, plain, ``torch.take`` and launch-loop times of one sampler
+    call, and its bound."""
+    from hive_tpu_torch.ops import band_sampler as bs
+
+    flat = (vc.long() * frame.shape[1] + uc.long()).contiguous()
+    frame_flat = frame.reshape(-1)
+    bound_ms, bound_by = sampler_bound(frame, vc, uc)
+    return dict(
+        ms=device_time_ms(lambda: bs.band_sample(frame, vc, uc), reps=200),
+        plain_ms=device_time_ms(lambda: bs.band_sample_plain(frame, vc, uc), reps=200),
+        loop_ms=cuda_time_ms(lambda: bs.band_sample(frame, vc, uc), reps=200),
+        library_ms=device_time_ms(lambda: torch.take(frame_flat, flat), reps=200),
+        bound_ms=bound_ms, bound_by=bound_by,
+        shape=f"frame {tuple(frame.shape)} int32, coordinates {tuple(vc.shape)} int32")
+
+
+def log_times(tag: str, times: dict) -> None:
+    library = ("" if times["library_ms"] is None
+               else f" take={times['library_ms']:.6f} ms")
+    log(f"[{tag}] {times['shape']}: kernel={times['ms']:.6f} ms "
+        f"plain={times['plain_ms']:.6f} ms{library} (profiler); launch loop "
+        f"{times['loop_ms']:.6f} ms/call (events); bound={times['bound_ms']:.7f} ms "
+        f"({times['bound_by']})")
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# Scenes.
+# ---------------------------------------------------------------------------
+
+def bench_frames(device):
+    """The TSDF bench's wavy wall 1.5-3.5 m away, textured, made on the card."""
+    f = torch.arange(BENCH_FRAMES, device=device, dtype=torch.float32)[:, None, None]
+    v = torch.arange(BENCH_H, device=device, dtype=torch.float32)[None, :, None]
+    u = torch.arange(BENCH_W, device=device, dtype=torch.float32)[None, None, :]
+    depths = 2.5 + 0.3 * torch.sin(u * 0.02 + f * 0.3) * torch.cos(v * 0.03)
+    shape = (BENCH_FRAMES, BENCH_H, BENCH_W)
+    colors = torch.stack([((u * 0.4) % 255.0).expand(shape),
+                          ((v * 0.5) % 255.0).expand(shape),
+                          ((u + v + 30.0 * f) % 255.0).expand(shape)], dim=-1)
+    K = np.array([[580.0, 0, 319.5], [0, 580.0, 239.5], [0, 0, 1.0]], np.float32)
+    poses = np.tile(np.eye(4, dtype=np.float32), (BENCH_FRAMES, 1, 1))
+    poses[:, 0, 3] = np.linspace(0.0, 0.5, BENCH_FRAMES) + 0.0123
+    return depths.contiguous(), colors.contiguous(), K, poses
+
+
+def write_png(path: str, image: np.ndarray) -> None:
+    """Write an 8-bit grey/RGB or 16-bit grey PNG (filter 0) with zlib."""
+    height, width = image.shape[:2]
+    if image.dtype == np.uint16:
+        depth, colour, raw = 16, 0, image.astype(">u2").tobytes()
+    else:
+        depth, colour = 8, (2 if image.ndim == 3 else 0)
+        raw = np.ascontiguousarray(image, np.uint8).tobytes()
+    stride = len(raw) // height
+    rows = np.frombuffer(raw, np.uint8).reshape(height, stride)
+    body = np.concatenate([np.zeros((height, 1), np.uint8), rows], axis=1).tobytes()
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, depth, colour,
+                                           0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(body, 1)))
+        f.write(chunk(b"IEND", b""))
+
+
+def write_hive_dataset(base: str, num_frames: int, width: int, height: int) -> None:
+    """A synthetic HIVE-format dataset: a camera sliding sideways in front of a
+    wall at z = 2 m (R = 60, G = x gradient, B = y gradient) with a moving
+    masked blob at 1.5 m, and +-1 mm seeded sensor noise on the depth."""
+    from hive_tpu_torch.options import COLMAPOptions
+
+    rng = np.random.default_rng(SEED)
+    for sub in ("rgb", "depth", "mask"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+
+    fx = fy = 100.0
+    cx, cy = (width - 1) / 2.0, (height - 1) / 2.0
+    np.savetxt(os.path.join(base, "camera_matrix.txt"),
+               np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]]))
+
+    poses = np.zeros((num_frames, 7))
+    poses[:, 3] = 1.0
+    poses[:, 4] = -0.02 * np.arange(num_frames)
+    np.savetxt(os.path.join(base, "camera_trajectory.txt"), poses)
+
+    us, vs = np.meshgrid(np.arange(width), np.arange(height))
+    for i in range(num_frames):
+        rgb = np.zeros((height, width, 3), dtype=np.uint8)
+        rgb[..., 0] = 60
+        rgb[..., 1] = (us * 255 // width).astype(np.uint8)
+        rgb[..., 2] = (vs * 255 // height).astype(np.uint8)
+        depth_mm = 2000 + rng.integers(-1, 2, size=(height, width))
+        mask = np.zeros((height, width), dtype=np.uint8)
+
+        blob = (us - (width // 4 + i * 6)) ** 2 + (vs - height // 2) ** 2 \
+            < (height // 5) ** 2
+        depth_mm[blob] = 1500
+        mask[blob] = 1
+        rgb[blob] = [200, 64, 64]
+
+        name = f"{i:06d}.png"
+        write_png(os.path.join(base, "rgb", name), rgb)
+        write_png(os.path.join(base, "depth", name), depth_mm.astype(np.uint16))
+        write_png(os.path.join(base, "mask", name), mask)
+
+    metadata = dict(num_frames=num_frames, fps=30.0, frame_step=1, width=width,
+                    height=height, depth_scale=1.0 / 1000.0, max_depth=10.0,
+                    depth_mask_dilation_iterations=10, estimate_pose=False,
+                    estimate_depth=False, colmap_options=COLMAPOptions().to_json())
+    with open(os.path.join(base, "metadata.json"), "w") as f:
+        json.dump(metadata, f)
+
+
+# ---------------------------------------------------------------------------
+# Phases.
+# ---------------------------------------------------------------------------
+
+def plain_paths():
+    """Patch the integrator onto the kernels' plain versions (on the card)."""
+    from hive_tpu_torch.ops import tsdf_sparse
+    from hive_tpu_torch.ops.band_sampler import band_sample_plain
+    from hive_tpu_torch.ops.refine_query import LEVEL_BIAS, refine_query_plain
+
+    def refine(pyramid, layout, u0, u1, v0, v1, height, width):
+        return refine_query_plain(pyramid, *tsdf_sparse.pyramid_cell_bounds(
+            layout, u0, u1, v0, v1, height, width, LEVEL_BIAS))
+
+    return (mock.patch.object(tsdf_sparse, "band_sample", band_sample_plain),
+            mock.patch.object(tsdf_sparse, "refine_query", refine))
+
+
+def check_refine(device, frames):
+    from hive_tpu_torch.ops import refine_query as rq
+    from hive_tpu_torch.ops.tsdf_sparse import (SparseTSDFVolume, build_flat_pyramid,
+                                                pyramid_cell_bounds)
+
+    depths, _, K, poses = frames
+    rng = np.random.default_rng(SEED)
+    depth = depths[0].clone()
+    invalid = torch.as_tensor(rng.random((BENCH_H, BENCH_W)) < 0.1, device=device)
+    depth[invalid] = 0.0
+
+    volume = SparseTSDFVolume([[-2.0, 2.0], [-2.0, 2.0], [0.0, 4.0]],
+                              voxel_size=4.0 / BENCH_GRID, device=device)
+    integ = volume._integrator(BENCH_H, BENCH_W, None)
+    w2c = torch.linalg.inv(torch.as_tensor(poses[0], device=device))
+    R, t = w2c[:3, :3], w2c[:3, 3]
+    intr = tuple(torch.tensor([K[0, 0], K[1, 1], K[0, 2], K[1, 2]], device=device))
+    pyramid = build_flat_pyramid(depth, BENCH_H, BENCH_W, packed_u16=True)
+    classes = integ.classify(volume.block_origins_device, pyramid, R, t, intr)
+    band_ids = torch.nonzero(classes == SparseTSDFVolume.BAND).reshape(-1)
+    band_ids = band_ids[:integ.refine_cap]
+    _, _, _, u0, u1, v0, v1, _ = integ.project_corners(
+        volume.block_origins_device[band_ids], R, t, intr)
+    cells = pyramid_cell_bounds(integ.layout, u0, u1, v0, v1, BENCH_H, BENCH_W,
+                                rq.LEVEL_BIAS)
+
+    got = rq.refine_query_cells(pyramid, *cells)
+    want = rq.refine_query_plain(pyramid, *cells)
+    for name, g, w in zip(("dmin", "dmax", "valid"), got, want):
+        if int(bit_differences(g, w)):
+            raise AssertionError(f"refine_query kernel differs from plain in {name}")
+
+    times = time_refine(pyramid, cells)
+    log_times("refine, bench shape, exact", times)
+    return times
+
+
+def check_sampler(device, frames):
+    from hive_tpu_torch.ops import band_sampler as bs
+    from hive_tpu_torch.ops.tsdf_sparse import SparseTSDFVolume, build_flat_pyramid
+
+    depths, colors, K, poses = frames
+    volume = SparseTSDFVolume([[-2.0, 2.0], [-2.0, 2.0], [0.0, 4.0]],
+                              voxel_size=4.0 / BENCH_GRID, device=device)
+    integ = volume._integrator(BENCH_H, BENCH_W, None)
+    w2c = torch.linalg.inv(torch.as_tensor(poses[0], device=device))
+    R, t = w2c[:3, :3], w2c[:3, 3]
+    intr = tuple(torch.tensor([K[0, 0], K[1, 1], K[0, 2], K[1, 2]], device=device))
+    origins = volume.block_origins_device
+
+    (packed,) = integ.pack_frame(depths[0], colors[0])
+    pyramid = build_flat_pyramid(depths[0], BENCH_H, BENCH_W, packed_u16=True)
+    classes, dmin, dmax, free_ok = integ.classify_refined(origins, pyramid, R, t, intr)
+    band_flat, _, _ = integ.slab_masks(origins, classes, dmin, dmax, free_ok, R, t,
+                                       torch.tensor(1.0, device=device))
+    band_ids = torch.nonzero(band_flat).reshape(-1)
+
+    def coords(ids):
+        cam_x, cam_y, cam_z = integ.slab_camera_coords(origins, ids, R, t)
+        u, v, _ = integ.project_voxels(cam_x, cam_y, cam_z, intr)
+        return (torch.clamp(v, 0, BENCH_H - 1).contiguous(),
+                torch.clamp(u, 0, BENCH_W - 1).contiguous())
+
+    vc_all, uc_all = coords(band_ids)
+    if int(bit_differences(bs.band_sample(packed, vc_all, uc_all),
+                           bs.band_sample_plain(packed, vc_all, uc_all))):
+        raise AssertionError("band_sampler kernel differs from plain on the frame's band")
+
+    vc, uc = coords(band_ids[:integ.chunk])
+    if int(bit_differences(bs.band_sample(packed, vc, uc),
+                           bs.band_sample_plain(packed, vc, uc))):
+        raise AssertionError("band_sampler kernel differs from plain on one trip")
+
+    times = time_sampler(packed, vc, uc)
+    log_times(f"sampler, bench shape (frame band {band_ids.numel()} rows), exact", times)
+    return times
+
+
+def check_integration(device, frames, launches):
+    from hive_tpu_torch.ops import band_sampler, refine_query
+    from hive_tpu_torch.ops.tsdf_sparse import SparseTSDFVolume
+
+    depths, colors, K, poses = frames
+    bounds = np.array([[-2.0, 2.0], [-2.0, 2.0], [0.0, 4.0]], np.float32)
+
+    def volume():
+        return SparseTSDFVolume(bounds, voxel_size=4.0 / BENCH_GRID, device=device)
+
+    band_sampler.launches = refine_query.launches = 0
+    kernel_vol = volume()
+    kernel_vol.integrate_frames(colors, depths, K, poses)
+    torch.cuda.synchronize()
+    launches["bench"] = {"band_sampler": band_sampler.launches,
+                         "refine_query": refine_query.launches}
+
+    plain_vol = volume()
+    patch_sample, patch_refine = plain_paths()
+    with patch_sample, patch_refine:
+        start = time.perf_counter()
+        plain_vol.integrate_frames(colors, depths, K, poses)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - start
+
+    for name in ("tsdf", "weight", "color"):
+        if not torch.equal(getattr(kernel_vol.state, name), getattr(plain_vol.state, name)):
+            raise AssertionError(f"kernel and plain integration differ in {name}")
+    if min(launches["bench"].values()) == 0:
+        raise AssertionError(f"bench integration skipped a kernel: {launches['bench']}")
+
+    samples = []
+    for _ in range(5):
+        start = time.perf_counter()
+        kernel_vol.integrate_frames(colors, depths, K, poses)
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - start)
+    median = sorted(samples)[len(samples) // 2]
+    rate = kernel_vol.num_voxels * BENCH_FRAMES / median
+
+    from torch.profiler import ProfilerActivity, profile
+
+    start = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        kernel_vol.integrate_frames(colors, depths, K, poses)
+        torch.cuda.synchronize()
+    traced_s = time.perf_counter() - start
+    busy_s = _device_us(prof) / 1e6
+    top = sorted(prof.key_averages(),
+                 key=lambda e: -getattr(e, "self_device_time_total",
+                                        getattr(e, "self_cuda_time_total", 0.0)))[:6]
+    # torch.nonzero sizes every trip stream and compaction on the host: each
+    # call waits for the device (the .item()-class sync of the trip counts).
+    syncs = [e for e in prof.key_averages() if e.key == "aten::nonzero"]
+    sync_ms = sum(e.cpu_time_total for e in syncs) / 1e3
+    log(f"[integrate] aten::nonzero x{sum(e.count for e in syncs)} in the traced rep, "
+        f"{sync_ms:.1f} ms of host time including its device waits")
+    log(f"[integrate] traced rep {traced_s * 1e3:.1f} ms, device busy "
+        f"{busy_s * 1e3:.1f} ms ({100 * busy_s / traced_s:.1f}%; "
+        f"{'not measured' if busy_s == 0 else 'profiler'}); top device time: "
+        + "; ".join(f"{e.key[:40]} x{e.count} "
+                    f"{getattr(e, 'self_device_time_total', getattr(e, 'self_cuda_time_total', 0.0)) / 1e3:.2f} ms"
+                    for e in top))
+    log(f"[integrate] VGA x {BENCH_FRAMES} frames into {kernel_vol.dims} "
+        f"({kernel_vol.num_voxels} voxels): kernel == plain bit-identical; "
+        f"launches {launches['bench']}; {rate / 1e6:.1f}M voxel-updates/s "
+        f"(median of 5: {median * 1e3:.1f} ms; reps "
+        f"{[round(s * 1e3, 1) for s in samples]} ms); plain path "
+        f"{plain_s * 1e3:.1f} ms")
+    return rate
+
+
+def check_sparse_vs_dense(device):
+    """The JAX package's sparse-vs-dense self-check (random depth, 3 frames,
+    rgb888) on the card: at most 1e-3 of voxels may differ."""
+    from hive_tpu_torch.ops.tsdf import TSDFVolume
+    from hive_tpu_torch.ops.tsdf_sparse import SparseTSDFVolume
+
+    rng = np.random.default_rng(SEED)
+    h, w = 96, 128
+    K = np.array([[100.0, 0.0, 63.5], [0.0, 100.0, 47.5], [0.0, 0.0, 1.0]], np.float32)
+    depths = rng.uniform(0.8, 2.5, size=(3, h, w)).astype(np.float32)
+    colors = rng.integers(0, 255, size=(3, h, w, 3)).astype(np.uint8)
+    poses = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
+    poses[:, 0, 3] = np.linspace(0.0, 0.3, 3) + 0.01237
+    poses[:, 1, 3] = 0.00731
+    bounds = np.array([[-1.6, 1.6], [-1.6, 1.6], [0.0, 3.2]], np.float32)
+
+    dense = TSDFVolume(bounds, voxel_size=0.05, device=device)
+    dense.integrate_frames(colors, depths, K, poses)
+    sparse = SparseTSDFVolume(bounds, voxel_size=0.05, color_mode="rgb888", device=device)
+    sparse.integrate_frames(colors, depths, K, poses)
+    tsdf_d, w_d, _ = dense.get_volume()
+    tsdf_s, w_s, _ = sparse.get_volume()
+    w_frac = float((np.abs(w_s - w_d) > 1e-5).mean())
+    t_frac = float((np.abs(tsdf_s - tsdf_d) > 1e-4).mean())
+    if w_frac >= 1e-3 or t_frac >= 2e-3:
+        raise AssertionError(f"sparse vs dense: weight {w_frac}, tsdf {t_frac} differ")
+    log(f"[self-check] sparse vs dense on {sparse.dims}: weight differs at "
+        f"{w_frac:.2e}, tsdf at {t_frac:.2e} of voxels")
+
+
+class MainPathCheck:
+    """Stands in for the integrator's two kernel calls during the CLI run.
+
+    Each call goes through the kernel's own wrapper (which counts the
+    launch) and, on the same tensors, through its plain version (no launch).
+    The bit differences and the largest |difference| add up on the card, so
+    the run gains no host syncs; the largest call's inputs are kept so the
+    kernels are timed at the main path's own shapes afterwards."""
+
+    NAMES = ("refine_query", "band_sampler")
+
+    def __init__(self, device):
+        self.differences = {n: torch.zeros((), dtype=torch.int64, device=device)
+                            for n in self.NAMES}
+        self.max_abs_err = {n: torch.zeros((), dtype=torch.float64, device=device)
+                            for n in self.NAMES}
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        self.largest = {}
+
+    def _compare(self, name, got, want, size, inputs):
+        for g, w in zip(got, want):
+            self.differences[name] += bit_differences(g, w)
+            self.max_abs_err[name] = torch.maximum(self.max_abs_err[name],
+                                                   max_abs_err(g, w))
+        self.calls[name] += 1
+        if size > self.largest.get(name, (0, None))[0]:
+            self.largest[name] = (size, tuple(x.clone() for x in inputs))
+
+    def refine(self, pyramid, layout, u0, u1, v0, v1, height, width):
+        from hive_tpu_torch.ops import refine_query as rq
+        from hive_tpu_torch.ops.tsdf_sparse import pyramid_cell_bounds
+
+        cells = pyramid_cell_bounds(layout, u0, u1, v0, v1, height, width, rq.LEVEL_BIAS)
+        got = rq.refine_query_cells(pyramid, *cells)
+        self._compare("refine_query", got, rq.refine_query_plain(pyramid, *cells),
+                      int(u0.numel()), (pyramid, *cells))
+        return got
+
+    def sample(self, frame, v, u):
+        from hive_tpu_torch.ops import band_sampler as bs
+
+        got = bs.band_sample(frame, v, u)
+        self._compare("band_sampler", (got,), (bs.band_sample_plain(frame, v, u),),
+                      int(v.numel()), (frame, v, u))
+        return got
+
+    def results(self):
+        """Per kernel: calls checked, bit differences, largest |difference|,
+        and the times at the largest call's inputs."""
+        out = {}
+        for name in self.NAMES:
+            differences = int(self.differences[name])
+            if self.calls[name] == 0 or differences:
+                raise AssertionError(f"{name} on the main path: {self.calls[name]} calls "
+                                     f"checked, {differences} values differ from plain")
+            inputs = self.largest[name][1]
+            times = (time_refine(inputs[0], inputs[1:]) if name == "refine_query"
+                     else time_sampler(*inputs))
+            log_times(f"{name}, main path's largest call, exact in "
+                      f"{self.calls[name]} calls", times)
+            out[name] = dict(times, calls_checked=self.calls[name],
+                             max_abs_err=float(self.max_abs_err[name]))
+        return out
+
+
+def run_main_path(device, launches):
+    from hive_tpu_torch.meshing.gltf import load_glb
+    from hive_tpu_torch.ops import band_sampler, refine_query, tsdf_sparse
+
+    check = MainPathCheck(device)
+    with tempfile.TemporaryDirectory(prefix="hive_smoke_") as tmp:
+        dataset = os.path.join(tmp, "synthetic")
+        start = time.perf_counter()
+        write_hive_dataset(dataset, E2E_FRAMES, E2E_W, E2E_H)
+        log(f"[e2e] wrote {E2E_FRAMES} frames of {E2E_W}x{E2E_H} in "
+            f"{time.perf_counter() - start:.1f} s")
+
+        argv = ["hive_tpu_torch", "--dataset_path", dataset, "--output_path", dataset,
+                "--background_only", "--num_frames", str(E2E_FRAMES),
+                "--key_frame_threshold", "1.0", "--overwrite_ok",
+                "--webxr_path", os.path.join(tmp, "webxr"),
+                "--log_file", os.path.join(tmp, "pipeline.log")]
+        band_sampler.launches = refine_query.launches = 0
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with mock.patch.object(sys, "argv", argv), \
+                mock.patch.object(tsdf_sparse, "refine_query", check.refine), \
+                mock.patch.object(tsdf_sparse, "band_sample", check.sample):
+            runpy.run_module("hive_tpu_torch", run_name="__main__", alter_sys=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches["main"] = {"band_sampler": band_sampler.launches,
+                            "refine_query": refine_query.launches}
+
+        with open(os.path.join(dataset, "profiling.json")) as f:
+            profiling = json.load(f)
+        scene = load_glb(os.path.join(dataset, "mesh", "bg.glb"))
+        mesh = next(iter(scene.geometry.values()))
+        verts, cols = mesh.vertices, mesh.vertex_colors
+
+    if len(verts) == 0 or not np.isfinite(verts).all():
+        raise AssertionError("bg.glb holds no (finite) vertices")
+    corr_x = float(np.corrcoef(verts[:, 0], cols[:, 1].astype(np.float64))[0, 1])
+    corr_y = float(np.corrcoef(verts[:, 1], cols[:, 2].astype(np.float64))[0, 1])
+    if abs(corr_x) < 0.9 or abs(corr_y) < 0.9:
+        raise AssertionError(f"bg.glb colour gradients lost: corr(x, G) {corr_x:.3f}, "
+                             f"corr(y, B) {corr_y:.3f}")
+    if min(launches["main"].values()) == 0:
+        raise AssertionError(f"main path skipped a kernel: {launches['main']}")
+
+    def rounded(tree):
+        return {k: rounded(v) if isinstance(v, dict) else round(v, 4)
+                for k, v in tree.items() if not isinstance(v, bool)}
+
+    volume = profiling["background_volume"]
+    log(f"[e2e] bg.glb {len(verts)} vertices, corr(x, G) {corr_x:.4f}, "
+        f"corr(y, B) {corr_y:.4f}")
+    log(f"[e2e] volume {volume['num_voxels']} voxels at {volume['voxel_size']:.5f} m, "
+        f"{volume['dtype']}; {profiling['elapsed_time']['per_frame']:.4f} s/frame "
+        f"(run {wall:.1f} s); {profiling['mesh_tri_count']['total']} triangles; "
+        f"peak device memory {profiling['peak_vram_usage']['allocated']} B; "
+        f"launches {launches['main']}; each call also ran its plain version")
+    log("[e2e] profiling.json timing (s): " + json.dumps(rounded(profiling["timing"])))
+    return check.results()
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from hive_tpu_torch import get_device
+    from hive_tpu_torch.ops import cuda_build
+
+    device = get_device()
+    smi = nvidia_smi_line()
+    log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+        f"torch {torch.__version__} cuda {torch.version.cuda}; nvidia-smi: {smi}")
+
+    start = time.perf_counter()
+    cuda_build.build(["refine_query", "band_sampler"])
+    log(f"[build] both kernels in {time.perf_counter() - start:.1f} s")
+
+    frames = bench_frames(device)
+    bench = {"refine_query": check_refine(device, frames),
+             "band_sampler": check_sampler(device, frames)}
+    launches = {}
+    check_integration(device, frames, launches)
+    check_sparse_vs_dense(device)
+    del frames
+    torch.cuda.empty_cache()
+    main_path = run_main_path(device, launches)
+
+    # Times, errors and bounds are the main path's own (its largest call);
+    # "bench" holds the same at the TSDF bench shape.
+    kernels = []
+    for name, source, replaces in (
+            ("refine_query", "hive_tpu_torch/csrc/refine_query.cu",
+             "hive_tpu/ops/pallas_refine.py:72"),
+            ("band_sampler", "hive_tpu_torch/csrc/band_sampler.cu",
+             "hive_tpu/ops/pallas_sampler.py:66")):
+        result = main_path[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches["main"][name], launches_bench=launches["bench"][name],
+            exact=True, calls_checked=result["calls_checked"],
+            max_abs_err=result["max_abs_err"], ms=result["ms"], kernel_ms=result["ms"],
+            plain_ms=result["plain_ms"], loop_ms=result["loop_ms"],
+            bound_ms=result["bound_ms"], bound_by=result["bound_by"],
+            library_ms=result["library_ms"], shape=result["shape"],
+            bench={k: bench[name][k] for k in ("ms", "plain_ms", "library_ms",
+                                               "loop_ms", "bound_ms", "shape")}))
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,665 @@
+"""The HIVE dataset format: the read path.
+
+Counterpart of ``hive_tpu/io.py``: the raw float32 codec (:56, :81),
+``ImageFolderDataset`` (:111), ``DatasetMetadata`` (:626),
+``make_depth_map_transform`` (:733), the ``HiveDataset`` read path (:746)
+with ``select_key_frames`` (:986), and ``temporary_trajectory``. Conversion
+from other formats (``COLMAPProcessor``, ``create_masks``,
+``create_masked_depth``) comes with a later slice.
+
+The port depends on neither Pillow nor OpenCV, so PNGs — the
+format the HIVE layout stores its frames in — are decoded here with
+``zlib`` and ``struct``: 8/16-bit grey, grey+alpha, RGB and RGBA,
+non-interlaced, all five scanline filters.
+"""
+
+from __future__ import annotations
+
+import abc
+import contextlib
+import datetime
+import json
+import logging
+import os
+import struct
+import zlib
+from os.path import join as pjoin
+from pathlib import Path
+from typing import Callable, IO, Iterator, List, Optional, Tuple, Union
+
+import numpy as np
+
+from hive_tpu_torch.custom_types import File
+from hive_tpu_torch.geometric import (Trajectory, get_pose_components, point_cloud_from_depth,
+                                      pose_vec2mat, world2image)
+from hive_tpu_torch.options import COLMAPOptions
+from hive_tpu_torch.utils import Domain, check_domain, tqdm_imap
+
+
+# ---------------------------------------------------------------------------
+# Raw float32 image codec (bit-compatible with the reference's C++ freadimg
+# format, hive/io.py:52-132).
+# ---------------------------------------------------------------------------
+
+_CV_CN_SHIFT = 3
+_CV_32F = 5
+_CV_CN_MAX = 512
+
+
+def load_raw_float32_image(file_name: File) -> np.ndarray:
+    """Load a `.raw` float32 image written by :func:`save_raw_float32_image`."""
+    with open(file_name, "rb") as f:
+        h, w, cv_type = struct.unpack("iii", f.read(12))
+        (pixel_size,) = struct.unpack("Q", f.read(8))
+
+        channels = ((cv_type - _CV_32F) >> _CV_CN_SHIFT) + 1
+        if channels < 1 or channels != pixel_size // 4:
+            raise ValueError(f"Incompatible pixel_size({pixel_size}) and cv_type({cv_type})")
+        if channels > _CV_CN_MAX:
+            raise ValueError("Cannot load image with more than 512 channels")
+
+        data = np.frombuffer(f.read(), dtype=np.float32)
+
+    # The body is plain C-order (h, w[, c]) float32.
+    if channels == 1:
+        return data.reshape((h, w)).copy()
+
+    return data.reshape((h, w, channels)).copy()
+
+
+def save_raw_float32_image(file_name: File, image: np.ndarray):
+    """Save an image as raw float32 binary (C++ `freadimg`-compatible)."""
+    image = np.asarray(image)
+
+    if image.ndim == 2:
+        h, w = image.shape
+        channels = 1
+    else:
+        h, w, channels = image.shape
+
+    if channels > _CV_CN_MAX:
+        raise ValueError("The raw-float codec supports at most 512 channels per image.")
+
+    cv_type = _CV_32F + ((channels - 1) << _CV_CN_SHIFT)
+
+    with open(file_name, "wb") as f:
+        f.write(struct.pack("iii", h, w, cv_type))
+        f.write(struct.pack("Q", channels * 4))
+        f.write(np.ascontiguousarray(image.astype(np.float32)).tobytes())
+
+
+# ---------------------------------------------------------------------------
+# PNG decoding (zlib + struct).
+# ---------------------------------------------------------------------------
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# Colour type -> samples per pixel: grey, RGB, grey+alpha, RGBA.
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
+def _png_unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-scanline PNG filters; returns (height, stride) uint8.
+
+    A byte depends on its left, upper and upper-left neighbours, so the
+    reconstruction walks anti-diagonals of pixel columns: every pixel on one
+    wavefront only reads pixels of earlier wavefronts, which makes each step
+    a vectorised numpy pass over up to ``height`` pixels instead of a Python
+    loop per byte.
+    """
+    data = np.frombuffer(raw, np.uint8)
+    if data.size != height * (stride + 1):
+        raise ValueError(f"PNG image data holds {data.size} bytes; expected "
+                         f"{height * (stride + 1)}")
+    data = data.reshape(height, stride + 1)
+    ftype = data[:, 0]
+    if ftype.max() > 4:
+        raise ValueError(f"unknown PNG filter type {int(ftype.max())}")
+    filtered = data[:, 1:]
+    if not ftype.any():
+        return filtered.copy()
+
+    # out[r + 1, bpp + i] holds byte i of row r; the zero row/columns are the
+    # "outside the image" neighbours the filters define as 0.
+    out = np.zeros((height + 1, stride + bpp), np.int32)
+    f = filtered.astype(np.int32)
+    ncols = stride // bpp
+    lanes = np.arange(bpp)
+    for d in range(height + ncols - 1):
+        rows = np.arange(max(0, d - ncols + 1), min(height - 1, d) + 1)
+        bi = (d - rows)[:, None] * bpp + lanes            # (n, bpp) byte index
+        r = rows[:, None]
+        a = out[r + 1, bi]                                 # left
+        b = out[r, bi + bpp]                               # up
+        c = out[r, bi]                                     # up-left
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        t = ftype[rows][:, None]
+        pred = np.select([t == 0, t == 1, t == 2, t == 3],
+                         [np.zeros_like(a), a, b, (a + b) >> 1], paeth)
+        out[r + 1, bi + bpp] = (f[r, bi] + pred) & 0xFF
+    return out[1:, bpp:].astype(np.uint8)
+
+
+def decode_png(blob: bytes) -> np.ndarray:
+    """Decode a non-interlaced PNG into the arrays the HIVE loader returns:
+    8-bit grey (H, W) uint8, 16-bit grey (H, W) uint16, and colour images as
+    (H, W, 3) uint8 RGB (alpha dropped, grey+alpha replicated, 16-bit colour
+    reduced to its high byte)."""
+    if blob[:8] != _PNG_SIGNATURE:
+        raise ValueError("not a PNG file")
+
+    pos = 8
+    header = None
+    idat = []
+    while pos < len(blob):
+        (length,) = struct.unpack(">I", blob[pos:pos + 4])
+        kind = blob[pos + 4:pos + 8]
+        body = blob[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+
+    if header is None:
+        raise ValueError("PNG has no IHDR chunk")
+    width, height, depth, colour, _, _, interlace = header
+    if colour not in _PNG_CHANNELS or depth not in (8, 16):
+        raise NotImplementedError(f"PNG colour type {colour} at bit depth "
+                                  f"{depth} is not supported")
+    if interlace:
+        raise NotImplementedError("interlaced PNGs are not supported")
+
+    channels = _PNG_CHANNELS[colour]
+    bpp = channels * depth // 8
+    pixels = _png_unfilter(zlib.decompress(b"".join(idat)), height,
+                           width * bpp, bpp)
+
+    if depth == 16:
+        pixels = pixels.reshape(height, width * channels, 2)
+        if colour == 0:
+            return (pixels[..., 0].astype(np.uint16) << 8) | pixels[..., 1]
+        pixels = pixels[..., 0]                        # high byte
+    image = pixels.reshape(height, width, channels)
+
+    if colour == 0:
+        return image[..., 0].copy()
+    if colour == 4:
+        return np.repeat(image[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(image[..., :3])
+
+
+def load_image(path: str) -> np.ndarray:
+    """Load a PNG or raw float32 frame."""
+    if path.endswith(".raw"):
+        return load_raw_float32_image(path)
+    with open(path, "rb") as f:
+        return decode_png(f.read())
+
+
+# ---------------------------------------------------------------------------
+# Frame loading.
+# ---------------------------------------------------------------------------
+
+class ImageFolderDataset:
+    """A lazily-loaded, indexable folder of images (PNG or raw float32).
+
+    16-bit PNGs load as uint16 (depth maps); colour images load as RGB.
+    """
+
+    def __init__(self, base_dir: File, transform: Optional[Callable] = None):
+        if not os.path.isdir(base_dir):
+            raise NotADirectoryError(f"Missing folder: {base_dir}")
+
+        self.base_dir = str(base_dir)
+        self.transform = transform
+
+        filenames = sorted(os.listdir(base_dir))
+        if len(filenames) == 0:
+            raise FileNotFoundError(f"Folder {base_dir} is empty - no files to load")
+
+        self.image_filenames = filenames
+        self.image_paths = [pjoin(self.base_dir, name) for name in filenames]
+
+    def __len__(self):
+        return len(self.image_paths)
+
+    def __getitem__(self, idx: int) -> np.ndarray:
+        image = load_image(self.image_paths[idx])
+
+        if self.transform:
+            image = self.transform(image)
+
+        return image
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        for i in range(len(self)):
+            yield self[i]
+
+    def load_all(self, num_workers: Optional[int] = None, show_progress: bool = False) -> np.ndarray:
+        """Load every frame with a thread pool and stack into one (N, H, W, ...) array."""
+        frames = tqdm_imap(self.__getitem__, range(len(self)),
+                           num_workers=num_workers, show_progress=show_progress)
+        return np.stack(frames)
+
+
+class InvalidDatasetFormatError(Exception):
+    """The folder structure/files of a dataset do not match the expected format."""
+
+
+class Dataset(abc.ABC):
+    """Base class enforcing a dataset's on-disk folder contract."""
+
+    required_files: List[str] = []
+    required_folders: List[str] = []
+
+    def __init__(self, base_path: File):
+        self.base_path = base_path
+        type(self)._validate_dataset(base_path)
+
+    @classmethod
+    def is_valid_folder_structure(cls, path: File) -> bool:
+        try:
+            cls._validate_dataset(path)
+            return True
+        except InvalidDatasetFormatError:
+            return False
+
+    @classmethod
+    def _validate_dataset(cls, base_path: File):
+        files_to_find = set(cls.required_files)
+        folders_to_find = set(cls.required_folders)
+
+        if not os.path.isdir(base_path):
+            raise InvalidDatasetFormatError(f"Dataset folder {base_path} is missing.")
+
+        for filename in os.listdir(base_path):
+            file_path = pjoin(str(base_path), filename)
+
+            if os.path.isfile(file_path):
+                files_to_find.discard(filename)
+            elif os.path.isdir(file_path):
+                if len(os.listdir(file_path)) == 0 and filename in folders_to_find:
+                    raise InvalidDatasetFormatError(f"Folder {filename} under {base_path} is empty.")
+
+                folders_to_find.discard(filename)
+
+        if files_to_find:
+            raise InvalidDatasetFormatError(
+                f"The dataset at {base_path} is missing required files: {files_to_find}.")
+
+        if folders_to_find:
+            raise InvalidDatasetFormatError(
+                f"The dataset at {base_path} is missing required folders: {folders_to_find}.")
+
+    def __str__(self):
+        return f"<{type(self).__name__} {Path(self.base_path).stem}>"
+
+
+class DatasetMetadata:
+    """JSON metadata describing a converted HIVE dataset (same schema as
+    ``hive_tpu.io.DatasetMetadata``, so datasets are interchangeable)."""
+
+    def __init__(self, num_frames: int, fps: float, width: int, height: int,
+                 estimate_pose: bool, estimate_depth: bool,
+                 depth_mask_dilation_iterations: int, depth_scale: float,
+                 max_depth: float = 10.0, frame_step: int = 1,
+                 colmap_options: COLMAPOptions = COLMAPOptions()):
+        if not isinstance(estimate_pose, bool):
+            raise ValueError(f"estimate_pose expects a bool; got {type(estimate_pose).__name__}.")
+
+        if not isinstance(estimate_depth, bool):
+            raise ValueError(f"estimate_depth expects a bool; got {type(estimate_depth).__name__}.")
+
+        check_domain(num_frames, "num_frames", int, Domain.Positive)
+        check_domain(frame_step, "frame_step", int, Domain.Positive)
+        check_domain(width, "width", int, Domain.Positive)
+        check_domain(height, "height", int, Domain.Positive)
+        check_domain(depth_scale, "depth_scale", float)
+        check_domain(max_depth, "max_depth", float, Domain.Positive)
+        check_domain(depth_mask_dilation_iterations, "depth_mask_dilation_iterations",
+                     int, Domain.Positive)
+
+        self.num_frames = num_frames
+        self.fps = fps
+        self.frame_step = frame_step
+        self.width = width
+        self.height = height
+        self.depth_scale = depth_scale
+        self.max_depth = max_depth
+        self.depth_mask_dilation_iterations = depth_mask_dilation_iterations
+        self.estimate_pose = estimate_pose
+        self.estimate_depth = estimate_depth
+        self.colmap_options = colmap_options
+
+    def __eq__(self, other: "DatasetMetadata") -> bool:
+        return (self.num_frames == other.num_frames
+                and np.isclose(self.fps, other.fps)
+                and self.frame_step == other.frame_step
+                and self.width == other.width
+                and self.height == other.height
+                and np.isclose(self.depth_scale, other.depth_scale)
+                and np.isclose(self.max_depth, other.max_depth)
+                and self.depth_mask_dilation_iterations == other.depth_mask_dilation_iterations
+                and self.estimate_pose == other.estimate_pose
+                and self.estimate_depth == other.estimate_depth
+                and self.colmap_options == other.colmap_options)
+
+    @property
+    def duration(self) -> datetime.timedelta:
+        return datetime.timedelta(seconds=self.num_frames / self.fps)
+
+    def to_json(self) -> dict:
+        return dict(num_frames=self.num_frames, fps=self.fps, frame_step=self.frame_step,
+                    width=self.width, height=self.height, depth_scale=self.depth_scale,
+                    max_depth=self.max_depth,
+                    depth_mask_dilation_iterations=self.depth_mask_dilation_iterations,
+                    estimate_pose=self.estimate_pose, estimate_depth=self.estimate_depth,
+                    colmap_options=self.colmap_options.to_json())
+
+    @staticmethod
+    def from_json(json_dict: dict) -> "DatasetMetadata":
+        return DatasetMetadata(
+            num_frames=int(json_dict["num_frames"]),
+            frame_step=int(json_dict["frame_step"]),
+            fps=float(json_dict["fps"]),
+            width=int(json_dict["width"]),
+            height=int(json_dict["height"]),
+            estimate_pose=bool(json_dict["estimate_pose"]),
+            estimate_depth=bool(json_dict["estimate_depth"]),
+            depth_scale=float(json_dict["depth_scale"]),
+            max_depth=float(json_dict["max_depth"]),
+            depth_mask_dilation_iterations=int(json_dict["depth_mask_dilation_iterations"]),
+            colmap_options=COLMAPOptions.from_json(json_dict["colmap_options"]),
+        )
+
+    def save(self, f: Union[File, IO]):
+        if isinstance(f, (str, Path)):
+            with open(f, "w") as fh:
+                json.dump(self.to_json(), fh)
+        else:
+            json.dump(self.to_json(), f)
+
+    @staticmethod
+    def load(f: Union[File, IO]) -> "DatasetMetadata":
+        if isinstance(f, (str, Path)):
+            with open(f) as fh:
+                json_dict = json.load(fh)
+        else:
+            json_dict = json.load(f)
+
+        return DatasetMetadata.from_json(json_dict)
+
+
+# ---------------------------------------------------------------------------
+# HiveDataset — the converted dataset consumed by the pipeline.
+# ---------------------------------------------------------------------------
+
+def make_depth_map_transform(depth_scaling_factor: float, max_depth: float):
+    """THE depth decode: stored u16 units -> float32 metres, with values
+    past ``max_depth`` zeroed (invalid)."""
+    def transform(depth_map: np.ndarray) -> np.ndarray:
+        depth_map = depth_scaling_factor * depth_map.astype(np.float32)
+        depth_map[depth_map > max_depth] = 0.0
+        return depth_map
+
+    return transform
+
+
+class HiveDataset(Dataset):
+    """The on-disk HIVE dataset: RGB + depth + instance masks + camera params.
+
+    Folder layout, filenames and units are those of ``hive_tpu.io.HiveDataset``:
+    depth maps are 16-bit PNG millimetres (scale 1/1000), masks encode
+    instance IDs, camera files are plain-text matrices.
+    """
+
+    metadata_filename = "metadata.json"
+    camera_matrix_filename = "camera_matrix.txt"
+    camera_trajectory_filename = "camera_trajectory.txt"
+
+    required_files = [metadata_filename, camera_trajectory_filename, camera_matrix_filename]
+
+    rgb_folder = "rgb"
+    depth_folder = "depth"
+    mask_folder = "mask"
+
+    inpainted_rgb_folder = f"{rgb_folder}_inpainted"
+    inpainted_depth_folder = f"{depth_folder}_inpainted"
+    inpainted_mask_folder = f"{mask_folder}_inpainted"
+
+    required_folders = [rgb_folder, depth_folder, mask_folder]
+
+    # Converts stored millimetre depth to meters.
+    depth_scaling_factor = 1.0 / 1000.0
+
+    def __init__(self, base_path: File):
+        super().__init__(base_path=base_path)
+
+        self.metadata = DatasetMetadata.load(self.path_to_metadata)
+        self.camera_matrix, self.camera_trajectory = self._load_camera_parameters()
+
+        self.rgb_dataset = ImageFolderDataset(self.path_to_rgb_frames)
+        self.depth_dataset = ImageFolderDataset(self.path_to_depth_maps,
+                                                transform=self._get_depth_map_transform())
+        self.mask_dataset = ImageFolderDataset(self.path_to_masks)
+
+        self.inpainted_rgb_dataset, self.inpainted_depth_dataset = self._get_inpainted_frame_data()
+
+    # -- paths ---------------------------------------------------------------
+    @property
+    def path_to_metadata(self):
+        return pjoin(str(self.base_path), self.metadata_filename)
+
+    @property
+    def path_to_camera_matrix(self):
+        return pjoin(str(self.base_path), self.camera_matrix_filename)
+
+    @property
+    def path_to_camera_trajectory(self):
+        return pjoin(str(self.base_path), self.camera_trajectory_filename)
+
+    @property
+    def path_to_rgb_frames(self):
+        return pjoin(str(self.base_path), self.rgb_folder)
+
+    @property
+    def path_to_depth_maps(self):
+        return pjoin(str(self.base_path), self.depth_folder)
+
+    @property
+    def path_to_masks(self):
+        return pjoin(str(self.base_path), self.mask_folder)
+
+    @property
+    def path_to_inpainted_rgb_frames(self):
+        return pjoin(str(self.base_path), self.inpainted_rgb_folder)
+
+    @property
+    def path_to_inpainted_depth_maps(self):
+        return pjoin(str(self.base_path), self.inpainted_depth_folder)
+
+    @property
+    def path_to_inpainted_masks(self):
+        return pjoin(str(self.base_path), self.inpainted_mask_folder)
+
+    # -- inpainted variants --------------------------------------------------
+    def _get_inpainted_frame_data(self):
+        if not (os.path.isdir(self.path_to_inpainted_rgb_frames)
+                and os.path.isdir(self.path_to_inpainted_depth_maps)
+                and os.path.isdir(self.path_to_inpainted_masks)):
+            return None, None
+
+        inpainted_rgb = ImageFolderDataset(self.path_to_inpainted_rgb_frames)
+        inpainted_depth = ImageFolderDataset(self.path_to_inpainted_depth_maps,
+                                             transform=self._get_depth_map_transform())
+
+        if len(inpainted_rgb) != self.num_frames or len(inpainted_depth) != self.num_frames:
+            raise RuntimeError(f"Inpainted frame counts ({len(inpainted_rgb)} rgb, "
+                               f"{len(inpainted_depth)} depth) do not match the dataset's "
+                               f"{self.num_frames} frames.")
+
+        return inpainted_rgb, inpainted_depth
+
+    @property
+    def bg_rgb_dataset(self) -> ImageFolderDataset:
+        """RGB frames for the background (inpainted if available)."""
+        return self.inpainted_rgb_dataset or self.rgb_dataset
+
+    @property
+    def bg_depth_dataset(self) -> ImageFolderDataset:
+        """Depth maps for the background (inpainted if available)."""
+        return self.inpainted_depth_dataset or self.depth_dataset
+
+    @property
+    def has_inpainted_frame_data(self) -> bool:
+        return self.inpainted_rgb_dataset is not None and self.inpainted_depth_dataset is not None
+
+    # -- camera accessors ----------------------------------------------------
+    @property
+    def num_frames(self) -> int:
+        return self.metadata.num_frames
+
+    @property
+    def frame_width(self) -> int:
+        return self.metadata.width
+
+    @property
+    def frame_height(self) -> int:
+        return self.metadata.height
+
+    @property
+    def fps(self) -> float:
+        return self.metadata.fps
+
+    @property
+    def fx(self) -> float:
+        return self.camera_matrix[0, 0]
+
+    @property
+    def fy(self) -> float:
+        return self.camera_matrix[1, 1]
+
+    @property
+    def cx(self) -> float:
+        return self.camera_matrix[0, 2]
+
+    @property
+    def cy(self) -> float:
+        return self.camera_matrix[1, 2]
+
+    @property
+    def fov_x(self) -> float:
+        """Horizontal field of view in degrees."""
+        return float(np.rad2deg(2.0 * np.arctan2(self.frame_width, 2.0 * self.fx)))
+
+    @property
+    def fov_y(self) -> float:
+        """Vertical field of view in degrees."""
+        return float(np.rad2deg(2.0 * np.arctan2(self.frame_height, 2.0 * self.fy)))
+
+    def __len__(self):
+        return self.num_frames
+
+    # -- loading -------------------------------------------------------------
+    def _get_depth_map_transform(self):
+        return make_depth_map_transform(self.depth_scaling_factor,
+                                        self.metadata.max_depth)
+
+    def _load_camera_parameters(self) -> Tuple[np.ndarray, Trajectory]:
+        camera_matrix = np.loadtxt(self.path_to_camera_matrix, dtype=np.float32)
+        camera_trajectory = Trajectory.load(self.path_to_camera_trajectory)
+
+        if camera_matrix.shape != (3, 3):
+            raise RuntimeError(f"The camera matrix should be 3x3; its shape is "
+                               f"{camera_matrix.shape}.")
+
+        if camera_trajectory.values.ndim != 2 or camera_trajectory.shape[1] != 7:
+            raise RuntimeError(f"The camera trajectory should be Nx7; its shape is "
+                               f"{camera_trajectory.shape}.")
+
+        return camera_matrix, camera_trajectory
+
+    @staticmethod
+    def index_to_filename(index: int, file_extension: str = "png") -> str:
+        return f"{index:06d}.{file_extension}"
+
+    def select_key_frames(self, threshold: float = 0.3, frame_step: int = 30) -> List[int]:
+        """Greedy key-frame selection by view-overlap ratio.
+
+        A sampled frame joins the key-frame set iff its point cloud, projected
+        into every existing key frame, covers less than ``threshold`` of that
+        view (hive/io.py:1117-1189 behaviour).
+        """
+        logging.info(f"Choosing key frames at overlap threshold {threshold}...")
+
+        if not (0.0 <= threshold <= 1.0):
+            raise ValueError(
+                f"The key-frame overlap threshold {threshold} is outside "
+                f"[0, 1].")
+
+        if threshold == 0.0:
+            return [0]
+        if threshold == 1.0:
+            return list(range(self.num_frames))
+
+        if threshold > 0.8:
+            logging.warning("Key-frame thresholds above 0.8 admit nearly "
+                            "every sampled frame; expect long runtimes.")
+
+        if frame_step < 1:
+            raise ValueError(
+                f"frame_step must be >= 1 (got {frame_step}).")
+
+        width, height = self.metadata.width, self.metadata.height
+        K = self.camera_matrix
+
+        key_frames = [0]
+        key_poses = [get_pose_components(pose_vec2mat(self.camera_trajectory[0]))]
+
+        for frame in range(1, self.num_frames, frame_step):
+            depth = self.bg_depth_dataset[frame]
+            mask = self.mask_dataset[frame] == 0
+            R, t = get_pose_components(pose_vec2mat(self.camera_trajectory[frame]))
+
+            frame_points = point_cloud_from_depth(depth, mask, K=K, R=R, t=t)
+
+            is_key_frame = True
+
+            for key_R, key_t in key_poses:
+                projected, _ = world2image(frame_points, K=K, R=key_R, t=key_t)
+
+                visible = projected[(projected[:, 0] >= 0) & (projected[:, 0] < width)
+                                    & (projected[:, 1] >= 0) & (projected[:, 1] < height)]
+
+                if len(visible) == 0:
+                    continue
+
+                extent = visible.max(axis=0) - visible.min(axis=0)
+                overlap_ratio = np.prod(extent) / (width * height)
+
+                if overlap_ratio >= threshold:
+                    is_key_frame = False
+                    break
+
+            if is_key_frame:
+                key_frames.append(frame)
+                key_poses.append((R, t))
+
+        logging.debug(f"Key-frame set: {key_frames}.")
+        return key_frames
+
+
+@contextlib.contextmanager
+def temporary_trajectory(dataset: HiveDataset, trajectory: Trajectory):
+    """Temporarily swap a dataset's camera trajectory."""
+    backup = dataset.camera_trajectory.copy()
+
+    try:
+        dataset.camera_trajectory = trajectory
+        yield
+    finally:
+        dataset.camera_trajectory = backup

@@ -1,0 +1,252 @@
+"""Native (C++) host weld, loaded via ctypes.
+
+Counterpart of ``hive_tpu/native`` for the extraction weld only
+(``src/weld.cpp`` is a copy of the JAX package's). The shared library builds
+on demand with g++ the first time it is needed, into
+``hive_tpu_torch/_build/``. Callers fall back to numpy when no toolchain is
+available. This is host code, not a device kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import logging
+import os
+import subprocess
+import threading
+from typing import Optional
+
+_NATIVE_DIR = os.path.dirname(os.path.abspath(__file__))
+_SRC_DIR = os.path.join(_NATIVE_DIR, "src")
+_BUILD_DIR = os.path.join(os.path.dirname(_NATIVE_DIR), "_build")
+_LIB_PATH = os.path.join(_BUILD_DIR, "libhive_weld.so")
+
+_SOURCES = ["weld.cpp"]
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_build_failed = False
+
+
+def _needs_rebuild() -> bool:
+    if not os.path.isfile(_LIB_PATH):
+        return True
+
+    lib_mtime = os.path.getmtime(_LIB_PATH)
+    return any(os.path.getmtime(os.path.join(_SRC_DIR, src)) > lib_mtime
+               for src in _SOURCES)
+
+
+def _build() -> bool:
+    sources = [os.path.join(_SRC_DIR, src) for src in _SOURCES]
+    # Compile to a per-process temp file and rename into place: os.rename
+    # is atomic on one filesystem, so a concurrent process never dlopens a
+    # half-written library.
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp_path = f"{_LIB_PATH}.build-{os.getpid()}"
+    command = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
+               "-o", tmp_path, *sources]
+
+    logging.info(f"Building native library: {' '.join(command)}")
+
+    try:
+        result = subprocess.run(command, capture_output=True, text=True, timeout=300)
+    except (OSError, subprocess.TimeoutExpired) as exc:
+        logging.warning(f"Native build failed to run: {exc}")
+        return False
+
+    if result.returncode != 0:
+        logging.warning(f"Native build failed:\n{result.stderr}")
+        return False
+
+    try:
+        os.rename(tmp_path, _LIB_PATH)
+    except OSError as exc:
+        logging.warning(f"Could not move the built library into place: {exc}")
+        return False
+
+    return True
+
+
+def get_native_lib() -> Optional[ctypes.CDLL]:
+    """The loaded native library, building it first if necessary.
+
+    Returns ``None`` when unavailable (callers must fall back to Python).
+    """
+    global _lib, _build_failed
+
+    with _lock:
+        if _lib is not None:
+            return _lib
+
+        if _build_failed:
+            return None
+
+        if _needs_rebuild() and not _build():
+            _build_failed = True
+            return None
+
+        try:
+            lib = ctypes.CDLL(_LIB_PATH)
+        except OSError as exc:
+            logging.warning(f"Could not load native library: {exc}")
+            _build_failed = True
+            return None
+
+        import ctypes as ct
+
+        lib.hive_weld_unique.restype = ct.c_int64
+        lib.hive_weld_unique.argtypes = [
+            ct.POINTER(ct.c_uint64), ct.c_int64,
+            ct.POINTER(ct.c_int64), ct.POINTER(ct.c_int64),
+        ]
+
+        lib.hive_oct_average.restype = None
+        lib.hive_oct_average.argtypes = [
+            ct.POINTER(ct.c_uint32), ct.POINTER(ct.c_int64),
+            ct.c_int64, ct.c_int64, ct.POINTER(ct.c_float),
+        ]
+
+        lib.hive_weld_unique_lanes.restype = ct.c_int64
+        lib.hive_weld_unique_lanes.argtypes = [
+            ct.POINTER(ct.c_int32), ct.POINTER(ct.c_uint32), ct.c_int64,
+            ct.POINTER(ct.c_int64), ct.POINTER(ct.c_int64),
+        ]
+
+        lib.hive_extract_assemble.restype = ct.c_int64
+        lib.hive_extract_assemble.argtypes = [
+            ct.POINTER(ct.c_int32), ct.POINTER(ct.c_uint32),
+            ct.POINTER(ct.c_uint32), ct.POINTER(ct.c_int64),
+            ct.POINTER(ct.c_int64), ct.c_int64, ct.c_int64,
+            ct.c_int64, ct.c_int64, ct.c_double, ct.POINTER(ct.c_double),
+            ct.POINTER(ct.c_float), ct.POINTER(ct.c_uint8),
+            ct.POINTER(ct.c_float),
+        ]
+
+        _lib = lib
+        return _lib
+
+
+def weld_unique(keys):
+    """np.unique(keys, return_index=True, return_inverse=True) — native
+    radix-sort weld when the library is available, numpy otherwise.
+
+    :param keys: (N,) uint64 array.
+    :return: (first_index (U,) int64, inverse (N,) int64) with unique values
+        ascending and first_index holding the smallest original index per
+        unique value (np.unique semantics).
+    """
+    import numpy as np
+
+    keys = np.ascontiguousarray(keys, dtype=np.uint64)
+    lib = get_native_lib()
+
+    if lib is None or len(keys) == 0:
+        _, first_index, inverse = np.unique(keys, return_index=True,
+                                            return_inverse=True)
+        return first_index.astype(np.int64), inverse.astype(np.int64)
+
+    first_index = np.empty(len(keys), dtype=np.int64)
+    inverse = np.empty(len(keys), dtype=np.int64)
+
+    count = lib.hive_weld_unique(
+        keys.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        len(keys),
+        first_index.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        inverse.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+
+    if count < 0:  # native allocation failure — numpy fallback
+        _, first_index, inverse = np.unique(keys, return_index=True,
+                                            return_inverse=True)
+        return first_index.astype(np.int64), inverse.astype(np.int64)
+
+    return first_index[:count].copy(), inverse
+
+
+def extract_assemble(klo, colcode, fracnrm, dims, voxel_size: float, origin):
+    """Weld + assemble an extracted mesh from the raw isosurface lanes
+    (hive_tpu_torch/ops/marching.py 3-lane layout) in one native pass: key
+    build, radix-sort weld, position/colour decode for unique vertices,
+    oct-normal averaging, degenerate-face compaction.
+
+    :param klo: (N,) int32 lane 0 — global lo-corner ids.
+    :param colcode: (N,) uint32 lane 1 — colour | edge code << 24.
+    :param fracnrm: (N,) uint32 lane 2 — frac16 | oct8x8 << 16.
+    :param dims: (X, Y, Z) volume extents in voxels.
+    :param voxel_size: voxel edge length (meters).
+    :param origin: (3,) world position of voxel (0, 0, 0).
+    :return: (vertices (U, 3) f32 world, faces (F, 3) int64,
+        colors (U, 3) uint8, normals (U, 3) f32 unit), or ``None`` when the
+        native library is unavailable (callers fall back to numpy).
+    """
+    import numpy as np
+
+    lib = get_native_lib()
+    if lib is None:
+        return None
+
+    n = len(klo)
+    if n == 0:
+        return (np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int64),
+                np.zeros((0, 3), np.uint8), np.zeros((0, 3), np.float32))
+
+    klo = np.ascontiguousarray(klo, dtype=np.int32)
+    colcode = np.ascontiguousarray(colcode, dtype=np.uint32)
+    fracnrm = np.ascontiguousarray(fracnrm, dtype=np.uint32)
+
+    first_index = np.empty(n, dtype=np.int64)
+    inverse = np.empty(n, dtype=np.int64)
+
+    def ptr(a, t):
+        return a.ctypes.data_as(ctypes.POINTER(t))
+
+    num_unique = lib.hive_weld_unique_lanes(
+        ptr(klo, ctypes.c_int32), ptr(colcode, ctypes.c_uint32), n,
+        ptr(first_index, ctypes.c_int64), ptr(inverse, ctypes.c_int64))
+    if num_unique < 0:  # allocation failure — numpy fallback
+        return None
+
+    vertices = np.empty((num_unique, 3), dtype=np.float32)
+    colors = np.empty((num_unique, 3), dtype=np.uint8)
+    normals = np.empty((num_unique, 3), dtype=np.float32)
+    origin64 = np.ascontiguousarray(origin, dtype=np.float64)
+
+    kept = lib.hive_extract_assemble(
+        ptr(klo, ctypes.c_int32), ptr(colcode, ctypes.c_uint32),
+        ptr(fracnrm, ctypes.c_uint32), ptr(first_index, ctypes.c_int64),
+        ptr(inverse, ctypes.c_int64), n, num_unique,
+        int(dims[1]), int(dims[2]), float(voxel_size),
+        ptr(origin64, ctypes.c_double),
+        ptr(vertices, ctypes.c_float), ptr(colors, ctypes.c_uint8),
+        ptr(normals, ctypes.c_float))
+
+    faces = inverse[:3 * kept].reshape(-1, 3).copy()
+    return vertices, faces, colors, normals
+
+
+def oct_average(packed, inverse, num_unique: int):
+    """Average oct-encoded normals per welded vertex (one native pass).
+
+    :param packed: (N,) uint32 oct-encoded normals (snorm16 x, y halves).
+    :param inverse: (N,) int64 welded ranks from :func:`weld_unique`.
+    :param num_unique: number of welded vertices.
+    :return: (num_unique, 3) float32 unit normals, or ``None`` when the
+        native library is unavailable (callers fall back to numpy).
+    """
+    import numpy as np
+
+    lib = get_native_lib()
+    if lib is None:
+        return None
+
+    packed = np.ascontiguousarray(packed, dtype=np.uint32)
+    inverse = np.ascontiguousarray(inverse, dtype=np.int64)
+    out = np.empty((num_unique, 3), dtype=np.float32)
+
+    lib.hive_oct_average(
+        packed.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        inverse.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        len(packed), num_unique,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+
+    return out

@@ -1,0 +1,174 @@
+"""hive_tpu_torch stands alone: it (and chip_smoke.py) imports neither JAX nor
+hive_tpu, its entry points run on the card unless the CPU is asked for, and
+its kernel wrappers take their plain versions only for CPU tensors."""
+
+import importlib
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import hive_tpu_torch
+from hive_tpu_torch.ops import band_sampler, refine_query
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "hive_tpu_torch")
+
+
+def _port_modules():
+    return sorted(name for _, name, _ in pkgutil.walk_packages([PORT], "hive_tpu_torch."))
+
+
+def _port_sources():
+    for root, _, files in os.walk(PORT):
+        for name in files:
+            if name.endswith(".py"):
+                yield os.path.join(root, name)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_imports_with_jax_and_hive_tpu_blocked():
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['hive_tpu'] = None\n"
+            "import importlib\n"
+            f"for name in {_port_modules()!r} + ['chip_smoke']:\n"
+            "    importlib.import_module(name)\n"
+            "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib')) or m == 'hive_tpu'\n"
+            "               or m.startswith('hive_tpu.') for m in sys.modules\n"
+            "               if sys.modules[m] is not None)\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_sources_import_nothing_of_jax_or_hive_tpu():
+    banned = re.compile(r"^\s*(import\s+(jax|jaxlib|hive_tpu)\b(?!_torch)"
+                        r"|from\s+(jax|jaxlib|hive_tpu)\b(?!_torch))", re.MULTILINE)
+    offenders = [path for path in _port_sources() if banned.search(open(path).read())]
+    assert offenders == []
+
+
+def test_every_module_imports_here():
+    for name in _port_modules():
+        importlib.import_module(name)
+
+
+def test_device_helper_refuses_missing_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        hive_tpu_torch.get_device()
+    with pytest.raises(RuntimeError):
+        hive_tpu_torch.get_device("cuda:0")
+    assert hive_tpu_torch.get_device("cpu") == torch.device("cpu")
+    assert hive_tpu_torch.get_device(torch.device("cpu")).type == "cpu"
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    from hive_tpu_torch.ops.tsdf import TSDFVolume
+    from hive_tpu_torch.ops.tsdf_sparse import SparseTSDFVolume
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bounds = np.array([[0, 1], [0, 1], [0, 1]], np.float32)
+    for cls in (SparseTSDFVolume, TSDFVolume):
+        with pytest.raises(RuntimeError):
+            cls(bounds, voxel_size=0.25)
+        assert cls(bounds, voxel_size=0.25, device="cpu").state.tsdf.device.type == "cpu"
+
+
+def test_tf32_is_off():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_chip_smoke_refuses_without_cuda(monkeypatch, capsys):
+    import chip_smoke
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main() != 0
+    assert capsys.readouterr().out == ""
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """In a directory holding chip_smoke.py and nothing else of the repo, the
+    script exits non-zero and prints no result."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        (tmp_path / "chip_smoke.py").write_text(f.read())
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": ""})
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_wrappers_take_plain_versions_on_cpu():
+    """CPU tensors go through the plain versions and count no launch."""
+    band_sampler.launches = refine_query.launches = 0
+    frame = torch.arange(12, dtype=torch.int32).reshape(3, 4)
+    v = torch.tensor([[0, 2, 5]], dtype=torch.int32)
+    u = torch.tensor([[3, -1, 1]], dtype=torch.int32)
+    np.testing.assert_array_equal(band_sampler.band_sample(frame, v, u).numpy(),
+                                  [[3, 8, 9]])
+
+    from hive_tpu_torch.ops.tsdf_sparse import build_flat_pyramid, pyramid_layout
+
+    depth = torch.full((8, 8), 2.0)
+    pyramid = build_flat_pyramid(depth, 8, 8, packed_u16=True)
+    box = torch.tensor([1.0])
+    dmin, dmax, valid = refine_query.refine_query(pyramid, pyramid_layout(8, 8),
+                                                  box, box + 2, box, box + 2, 8, 8)
+    assert float(dmin) == pytest.approx(2.0) and float(dmax) == pytest.approx(2.0)
+    assert bool(valid)
+    assert band_sampler.launches == 0 and refine_query.launches == 0
+
+
+def test_wrappers_check_their_inputs():
+    frame = torch.zeros((3, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        band_sampler.band_sample(frame.float(), frame[:, :1], frame[:, :1])
+    with pytest.raises(ValueError):
+        band_sampler.band_sample(frame, frame[:, :1].long(), frame[:, :1].long())
+    meta = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        band_sampler.band_sample(meta.reshape(2, 2), meta, meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        refine_query.refine_query_cells(meta, *[meta[:1]] * 6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["refine_query", "band_sampler"])
+def test_kernel_matches_plain_on_card(kernel):
+    """On the card each kernel equals its plain version bit for bit (the
+    same check chip_smoke.py makes at the main path's shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: a CUDA kernel has no CPU mode")
+    from hive_tpu_torch.ops.tsdf_sparse import build_flat_pyramid, pyramid_cell_bounds, pyramid_layout
+
+    rng = np.random.default_rng(0)
+    dev = torch.device("cuda", 0)
+    if kernel == "band_sampler":
+        frame = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, (480, 640)),
+                                dtype=torch.int32, device=dev)
+        v = torch.as_tensor(rng.integers(-5, 490, (128, 512)), dtype=torch.int32, device=dev)
+        u = torch.as_tensor(rng.integers(-5, 650, (128, 512)), dtype=torch.int32, device=dev)
+        assert torch.equal(band_sampler.band_sample(frame, v, u),
+                           band_sampler.band_sample_plain(frame, v, u))
+        return
+    depth = torch.as_tensor(rng.uniform(0.5, 4.0, (480, 640)), dtype=torch.float32, device=dev)
+    depth[torch.as_tensor(rng.random((480, 640)) < 0.1, device=dev)] = 0.0
+    pyramid = build_flat_pyramid(depth, 480, 640, packed_u16=True)
+    u0 = torch.as_tensor(rng.uniform(-20, 640, 4096), dtype=torch.float32, device=dev)
+    v0 = torch.as_tensor(rng.uniform(-20, 480, 4096), dtype=torch.float32, device=dev)
+    ext = torch.as_tensor(rng.uniform(1, 60, 4096), dtype=torch.float32, device=dev)
+    cells = pyramid_cell_bounds(pyramid_layout(480, 640), u0, u0 + ext, v0, v0 + ext,
+                                480, 640, refine_query.LEVEL_BIAS)
+    for got, want in zip(refine_query.refine_query_cells(pyramid, *cells),
+                         refine_query.refine_query_plain(pyramid, *cells)):
+        assert torch.equal(got, want)
