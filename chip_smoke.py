@@ -6,8 +6,8 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build both CUDA kernels from ``hive_tpu_torch/csrc`` (one ``nvcc`` each,
-   started together);
+2. build all five CUDA kernels from ``hive_tpu_torch/csrc`` (one ``nvcc``
+   each, started together);
 3. refine-query kernel vs its plain version on a VGA depth map (10% invalid
    pixels) with the refine pass's 4096 block AABBs: bit-exact, timed;
 4. band-sampler kernel vs its plain version on one 128-block trip and on a
@@ -25,15 +25,30 @@ Phases (any failure raises and the script exits non-zero):
    the run is also made through its plain version on the same tensors and
    must agree bit for bit; the kernels are then timed on the run's largest
    call;
-7. one ``{"kernels": [...]}`` line (times, errors and bounds at the main
-   path's shapes, and under ``bench`` at the bench shape), then the card's
+7. the tile-gather kernel, both axes, on the gather probe's (8, 128) tile:
+   bit-exact vs its plain version, timed beside ``torch.gather``;
+8. the patch-gather kernel on the probe's 1024 blocks x 512 samples, with
+   one sample in eight moved out of its window: bit-exact vs its plain
+   version, timed beside ``torch.take`` and the band sampler;
+9. both fused band-trip variants on the fused-trip probe's 128-row trip:
+   bit-exact vs the plain version, timed;
+10. the two measurement entry points, each run in this process with the
+   launch counts reset just before and read just after:
+   ``hive_tpu_torch.micro.gather`` (Q1 tile gathers, Q2 patch gather timed
+   beside ``torch.take`` and the band sampler) and
+   ``hive_tpu_torch.micro.fused_band`` (Q2: both fused trips equal the
+   production trip; Q3: fused, production and take trips timed, their final
+   states bit-identical on the rows that fit); each of its kernels must have
+   launched;
+11. one ``{"kernels": [...]}`` line (times, errors and bounds at the main
+   paths' shapes, and under ``bench`` at the bench shape), then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last
    line.
 
 Kernel and plain times are device time from torch.profiler's CUPTI trace;
 ``loop_ms`` is a Python loop of launches timed with CUDA events, host cost
 included. ``bound_ms`` is the larger of the bytes the call must move over
-the HBM rate and its integer operations over the SIMT peak.
+the HBM rate and its operations over the card's non-tensor-core peak.
 
 It needs one CUDA card and exits non-zero without one, printing no result.
 """
@@ -54,6 +69,9 @@ from unittest import mock
 import numpy as np
 import torch
 
+from hive_tpu_torch.micro import timing
+from hive_tpu_torch.micro.timing import device_profile, device_us, events_ms, self_device_us
+
 SEED = 0
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -71,46 +89,10 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
-    """Mean device time of ``fn()`` in ms over ``reps`` launches (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def _device_us(prof) -> float:
-    """Summed device time (us) of every kernel and copy a profile recorded."""
-    total = 0.0
-    for event in prof.key_averages():
-        total += getattr(event, "self_device_time_total",
-                         getattr(event, "self_cuda_time_total", 0.0))
-    return total
-
-
 def device_time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     """Device ms per call of ``fn()``: the kernels' own device time from
     torch.profiler's CUPTI trace, which leaves out the host's launch cost."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    device_us = _device_us(prof)
-    if device_us <= 0:
-        raise RuntimeError("the profiler's trace holds no device time")
-    return device_us / reps / 1e3
+    return device_profile(fn, reps, warmup)[0]
 
 
 def bound(num_bytes: float, int_ops: float):
@@ -170,7 +152,7 @@ def time_refine(pyramid, cells):
     return dict(
         ms=device_time_ms(lambda: rq.refine_query_cells(pyramid, *cells)),
         plain_ms=device_time_ms(lambda: rq.refine_query_plain(pyramid, *cells), reps=20),
-        loop_ms=cuda_time_ms(lambda: rq.refine_query_cells(pyramid, *cells)),
+        loop_ms=events_ms(lambda: rq.refine_query_cells(pyramid, *cells)),
         library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
         shape=f"pyramid {tuple(pyramid.shape)} int32, {cells[0].numel()} blocks x 25 cells")
 
@@ -186,7 +168,7 @@ def time_sampler(frame, vc, uc):
     return dict(
         ms=device_time_ms(lambda: bs.band_sample(frame, vc, uc), reps=200),
         plain_ms=device_time_ms(lambda: bs.band_sample_plain(frame, vc, uc), reps=200),
-        loop_ms=cuda_time_ms(lambda: bs.band_sample(frame, vc, uc), reps=200),
+        loop_ms=events_ms(lambda: bs.band_sample(frame, vc, uc), reps=200),
         library_ms=device_time_ms(lambda: torch.take(frame_flat, flat), reps=200),
         bound_ms=bound_ms, bound_by=bound_by,
         shape=f"frame {tuple(frame.shape)} int32, coordinates {tuple(vc.shape)} int32")
@@ -194,7 +176,7 @@ def time_sampler(frame, vc, uc):
 
 def log_times(tag: str, times: dict) -> None:
     library = ("" if times["library_ms"] is None
-               else f" take={times['library_ms']:.6f} ms")
+               else f" {times.get('library', 'take')}={times['library_ms']:.6f} ms")
     log(f"[{tag}] {times['shape']}: kernel={times['ms']:.6f} ms "
         f"plain={times['plain_ms']:.6f} ms{library} (profiler); launch loop "
         f"{times['loop_ms']:.6f} ms/call (events); bound={times['bound_ms']:.7f} ms "
@@ -443,10 +425,8 @@ def check_integration(device, frames, launches):
         kernel_vol.integrate_frames(colors, depths, K, poses)
         torch.cuda.synchronize()
     traced_s = time.perf_counter() - start
-    busy_s = _device_us(prof) / 1e6
-    top = sorted(prof.key_averages(),
-                 key=lambda e: -getattr(e, "self_device_time_total",
-                                        getattr(e, "self_cuda_time_total", 0.0)))[:6]
+    busy_s = device_us(prof) / 1e6
+    top = sorted(prof.key_averages(), key=lambda e: -self_device_us(e))[:6]
     # torch.nonzero sizes every trip stream and compaction on the host: each
     # call waits for the device (the .item()-class sync of the trip counts).
     syncs = [e for e in prof.key_averages() if e.key == "aten::nonzero"]
@@ -456,8 +436,7 @@ def check_integration(device, frames, launches):
     log(f"[integrate] traced rep {traced_s * 1e3:.1f} ms, device busy "
         f"{busy_s * 1e3:.1f} ms ({100 * busy_s / traced_s:.1f}%; "
         f"{'not measured' if busy_s == 0 else 'profiler'}); top device time: "
-        + "; ".join(f"{e.key[:40]} x{e.count} "
-                    f"{getattr(e, 'self_device_time_total', getattr(e, 'self_cuda_time_total', 0.0)) / 1e3:.2f} ms"
+        + "; ".join(f"{e.key[:40]} x{e.count} {self_device_us(e) / 1e3:.2f} ms"
                     for e in top))
     log(f"[integrate] VGA x {BENCH_FRAMES} frames into {kernel_vol.dims} "
         f"({kernel_vol.num_voxels} voxels): kernel == plain bit-identical; "
@@ -623,6 +602,197 @@ def run_main_path(device, launches):
     log("[e2e] profiling.json timing (s): " + json.dumps(rounded(profiling["timing"])))
     return check.results()
 
+# ---------------------------------------------------------------------------
+# The measurement entry points' kernels.
+# ---------------------------------------------------------------------------
+
+# Operations per voxel of the fused trip (csrc/fused_band.cu), each f32 or
+# integer instruction-level operation counted once (a division as one):
+# projection 27 (3 adds, 3 x (mul, 2 FMAs, add), the z guard, 2 x (mul, div,
+# add, round, convert)); view test, clamps and window address 19; unpack 15;
+# update 26 (sdf, 4 tests, dist, clamp, weights, 4 x (mul, FMA, div, select)).
+FUSED_OPS_PER_VOXEL = {True: 87, False: 60}
+
+
+def exact_or_raise(name, pairs):
+    """Largest |difference| over (got, want) pairs, raising if any bit differs."""
+    worst = 0.0
+    for got, want in pairs:
+        if int(bit_differences(got, want)):
+            raise AssertionError(f"{name} kernel differs from its plain version")
+        worst = max(worst, float(max_abs_err(got, want)))
+    return worst
+
+
+def check_tile_gather(device):
+    from hive_tpu_torch.micro.gather import q1_inputs
+    from hive_tpu_torch.ops import tile_gather as tg
+
+    src, idx, ridx = (torch.as_tensor(x, device=device) for x in q1_inputs())
+    err = exact_or_raise("tile_gather", [(tg.tile_gather(src, i, axis),
+                                          tg.tile_gather_plain(src, i, axis))
+                                         for axis, i in ((1, idx), (0, ridx))])
+    index = idx.long()
+    n = src.numel()
+    # Bytes: tile, indices and output once. Operations per element: clamp
+    # (2), row/column split (2), address (2).
+    bound_ms, bound_by = bound(n * 12, n * 6)
+    times = dict(
+        ms=device_time_ms(lambda: tg.tile_gather(src, idx, 1), reps=200),
+        ms_axis0=device_time_ms(lambda: tg.tile_gather(src, ridx, 0), reps=200),
+        plain_ms=device_time_ms(lambda: tg.tile_gather_plain(src, idx, 1), reps=200),
+        loop_ms=events_ms(lambda: tg.tile_gather(src, idx, 1), reps=200),
+        library_ms=device_time_ms(lambda: torch.gather(src, 1, index), reps=200),
+        library="torch.gather", bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+        shape="tile (8, 128) int32, indices (8, 128) int32, axis 1 (axis 0: ms_axis0)")
+    log_times("tile_gather, gather probe's tile, exact on both axes", times)
+    return times
+
+
+def check_patch_gather(device):
+    from hive_tpu_torch.micro import gather as mg
+    from hive_tpu_torch.ops import band_sampler as bs
+    from hive_tpu_torch.ops import patch_gather as pg
+
+    img, v0, u0, vv, uu = mg.q2_inputs()
+    rng = np.random.default_rng(SEED)
+    # One sample in eight leaves its window by a whole window height or width.
+    away = rng.random(vv.shape) < 1 / 8
+    down = rng.random(vv.shape) < 0.5
+    vv_out = np.where(away & down, vv + rng.choice([-mg.PH, mg.PH], vv.shape), vv)
+    uu_out = np.where(away & ~down, uu + rng.choice([-mg.PW, mg.PW], uu.shape), uu)
+    frame, v0, u0, vv, uu, vv_out, uu_out = (
+        torch.as_tensor(x.astype(np.int32), device=device)
+        for x in (img, v0, u0, vv, uu, vv_out, uu_out))
+    args = (v0, u0, frame, vv_out, uu_out, mg.PH, mg.PW)
+    got = pg.patch_gather(*args)
+    away = torch.as_tensor(away, device=device)
+    if not (torch.equal(got[away], torch.zeros_like(got[away]))
+            and torch.equal(got[~away], frame[vv.long(), uu.long()][~away])):
+        raise AssertionError("patch_gather's words differ from the frame's")
+    err = exact_or_raise("patch_gather", [(got, pg.patch_gather_plain(*args)),
+                                          (pg.patch_gather(v0, u0, frame, vv, uu, mg.PH, mg.PW),
+                                           pg.patch_gather_plain(v0, u0, frame, vv, uu,
+                                                                 mg.PH, mg.PW))])
+
+    flat = (vv.long() * frame.shape[1] + uu.long()).contiguous()
+    n = vv.numel()
+    # Bytes: each distinct sampled word once, v0/u0 per block, vv/uu in and
+    # the word out per sample. Operations per sample: two offsets, four
+    # window tests, the shared-memory address and select (8).
+    bound_ms, bound_by = bound(torch.unique(flat).numel() * 4 + v0.numel() * 8 + n * 12,
+                               n * 8)
+    times = dict(
+        ms=device_time_ms(lambda: pg.patch_gather(v0, u0, frame, vv, uu, mg.PH, mg.PW)),
+        plain_ms=device_time_ms(lambda: pg.patch_gather_plain(v0, u0, frame, vv, uu,
+                                                              mg.PH, mg.PW), reps=20),
+        loop_ms=events_ms(lambda: pg.patch_gather(v0, u0, frame, vv, uu, mg.PH, mg.PW)),
+        library_ms=device_time_ms(lambda: torch.take(frame, flat)), library="torch.take",
+        band_sampler_ms=device_time_ms(lambda: bs.band_sample(frame, vv, uu)),
+        bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+        shape=f"frame {tuple(frame.shape)} int32, {v0.numel()} blocks x "
+              f"{n // v0.numel()} samples, {mg.PH}x{mg.PW} windows")
+    log_times("patch_gather, gather probe's Q2, exact (1/8 of samples outside their "
+              f"windows give 0); band_sample {times['band_sampler_ms']:.6f} ms", times)
+    return times
+
+
+def check_fused_band(device):
+    from hive_tpu_torch.micro import fused_band as mf
+    from hive_tpu_torch.ops import fused_band as fb
+
+    s = mf.setup(device)
+    st, sw, sc = s["state"]
+    ids, frame = s["ids"], s["frame"]
+    valid = (ids < mf.NBS).to(torch.int32)
+    rid = torch.clamp(ids, max=mf.NBS - 1)
+    scal = torch.cat([s["obs_weight"].reshape(1), s["R"].reshape(-1), s["t"].reshape(-1)])
+    iota = s["iota"]
+    cz, uu, vv = mf.project(s["origins"], s["R"], s["t"], iota)
+    options = dict(intr=mf.INTR, trunc=mf.TRUNC, window=(mf.PH, mf.PW))
+
+    def rows():
+        return st[rid], sw[rid], sc[rid]
+
+    def call(fn, pik, state):
+        coords = iota if pik else (vv, uu, cz)
+        return fn(s["win_v0"], s["win_u0"], valid, scal, s["origins"], frame, coords, *state,
+                  project_in_kernel=pik, **options)
+
+    pairs = []
+    for pik in (True, False):
+        pairs += zip(call(fb.fused_band, pik, rows()), call(fb.fused_band_plain, pik, rows()))
+    err = exact_or_raise("fused_band", pairs)
+
+    # Bytes: each distinct frame word the trip reads (at its window-clamped
+    # pixel) once, 40 B of row state per voxel in and out, the row's window
+    # origin, valid flag and block origin, the 13 scalars, and the offsets
+    # (full) or v, u, cam_z per voxel (half-fused).
+    height, width = frame.shape
+    pixel = torch.arange(height * width, device=device, dtype=torch.int32).view(height, width)
+    words = torch.unique(fb.window_sample(pixel, s["win_v0"], s["win_u0"], vv, uu,
+                                          mf.PH, mf.PW)).numel()
+    k, n = ids.numel(), vv.numel()
+    common = words * 4 + n * 40 + k * (12 + 12) + 13 * 4
+
+    def timed(pik):
+        state_k, state_p = rows(), rows()
+        return (device_time_ms(lambda: call(fb.fused_band, pik, state_k)),
+                device_time_ms(lambda: call(fb.fused_band_plain, pik, state_p), reps=20),
+                events_ms(lambda: call(fb.fused_band, pik, state_k)),
+                bound(common + (iota.numel() * 4 if pik else n * 12),
+                      n * FUSED_OPS_PER_VOXEL[pik]))
+
+    ms, plain_ms, loop_ms, (bound_ms, bound_by) = timed(True)
+    half_ms, half_plain_ms, half_loop_ms, (half_bound_ms, _) = timed(False)
+    times = dict(ms=ms, plain_ms=plain_ms, loop_ms=loop_ms, library_ms=None,
+                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                 half_fused=dict(ms=half_ms, plain_ms=half_plain_ms, loop_ms=half_loop_ms,
+                                 bound_ms=half_bound_ms),
+                 shape=f"{k} rows x {mf.BV} voxels, frame {tuple(frame.shape)} int32, "
+                       f"{mf.PH}x{mf.PW} windows, projection in the kernel")
+    log_times("fused_band, fused-trip probe's trip, both variants exact", times)
+    log(f"[fused_band] half-fused: kernel={half_ms:.6f} ms plain={half_plain_ms:.6f} ms "
+        f"(profiler); launch loop {half_loop_ms:.6f} ms/call; bound={half_bound_ms:.7f} ms")
+    return times
+
+
+def run_entry_points(device, launches):
+    """Both measurement entry points, each with its kernels' launch counts
+    reset just before and read just after its run."""
+    from hive_tpu_torch.micro import fused_band as mf
+    from hive_tpu_torch.micro import gather as mg
+    from hive_tpu_torch.ops import band_sampler, fused_band, patch_gather, tile_gather
+
+    tile_gather.launches = patch_gather.launches = band_sampler.launches = 0
+    torch.cuda.synchronize()
+    gather = mg.run(device)
+    torch.cuda.synchronize()
+    launches["micro.gather"] = {"tile_gather": tile_gather.launches,
+                                "patch_gather": patch_gather.launches,
+                                "band_sampler": band_sampler.launches}
+
+    fused_band.launches = band_sampler.launches = 0
+    torch.cuda.synchronize()
+    fused = mf.run(device)
+    torch.cuda.synchronize()
+    launches["micro.fused_band"] = {"fused_band": fused_band.launches,
+                                    "band_sampler": band_sampler.launches}
+
+    for entry, result in (("micro.gather", gather), ("micro.fused_band", fused)):
+        if not result["ok"]:
+            raise AssertionError(f"{entry} found a wrong result: {result}")
+    if fused["fits"] != mf.K:
+        raise AssertionError(f"only {fused['fits']}/{mf.K} rows fit their windows")
+    for entry, counts in (("micro.gather", launches["micro.gather"]),
+                          ("micro.fused_band", launches["micro.fused_band"])):
+        if min(counts.values()) == 0:
+            raise AssertionError(f"{entry} skipped a kernel: {counts}")
+    log(f"[entry points] launches {launches['micro.gather']} (micro.gather), "
+        f"{launches['micro.fused_band']} (micro.fused_band); {timing.retakes} profiler "
+        f"traces retaken so far in this process")
+    return {"micro.gather": gather, "micro.fused_band": fused}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -638,8 +808,9 @@ def main() -> int:
         f"torch {torch.__version__} cuda {torch.version.cuda}; nvidia-smi: {smi}")
 
     start = time.perf_counter()
-    cuda_build.build(["refine_query", "band_sampler"])
-    log(f"[build] both kernels in {time.perf_counter() - start:.1f} s")
+    cuda_build.build(["refine_query", "band_sampler", "tile_gather", "patch_gather",
+                      "fused_band"])
+    log(f"[build] all five kernels in {time.perf_counter() - start:.1f} s")
 
     frames = bench_frames(device)
     bench = {"refine_query": check_refine(device, frames),
@@ -650,6 +821,10 @@ def main() -> int:
     del frames
     torch.cuda.empty_cache()
     main_path = run_main_path(device, launches)
+    probes = {"tile_gather": check_tile_gather(device),
+              "patch_gather": check_patch_gather(device),
+              "fused_band": check_fused_band(device)}
+    entry_points = run_entry_points(device, launches)
 
     # Times, errors and bounds are the main path's own (its largest call);
     # "bench" holds the same at the TSDF bench shape.
@@ -670,6 +845,21 @@ def main() -> int:
             library_ms=result["library_ms"], shape=result["shape"],
             bench={k: bench[name][k] for k in ("ms", "plain_ms", "library_ms",
                                                "loop_ms", "bound_ms", "shape")}))
+    # The measurement entry points' kernels: launches are the entry point's
+    # run, times and errors those of the probe phases at its shapes.
+    entry_results = {"tile_gather": entry_points["micro.gather"]["q1"],
+                     "patch_gather": entry_points["micro.gather"]["q2"],
+                     "fused_band": entry_points["micro.fused_band"]["q3"]}
+    for name, entry_point, replaces in (
+            ("tile_gather", "micro.gather", "scripts/micro_pallas_gather.py:72"),
+            ("patch_gather", "micro.gather", "scripts/micro_pallas_gather.py:113"),
+            ("fused_band", "micro.fused_band", "scripts/micro_pallas_fused_band.py:134")):
+        kernels.append(dict(
+            name=name, route="cuda", source=f"hive_tpu_torch/csrc/{name}.cu",
+            replaces=replaces, entry_point=f"hive_tpu_torch.{entry_point}",
+            launches=launches[entry_point][name], exact=True,
+            **{k: v for k, v in probes[name].items() if k != "library"},
+            entry_point_result=entry_results[name]))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,11 @@
 """hive_tpu_torch — the PyTorch/CUDA port of hive_tpu for one NVIDIA H100.
 
 The JAX package ``hive_tpu`` is the reference; each module here carries the
-name of its counterparts there. Device code is plain PyTorch, except the two
-hand-written CUDA kernels under ``csrc/`` (the integrator's refine query and
-band sampler), which replace the TPU package's two Pallas kernels.
+name of its counterparts there. Device code is plain PyTorch, except the
+hand-written CUDA kernels under ``csrc/``, one for each Pallas kernel of the
+repository: the integrator's refine query and band sampler, and the tile
+gather, patch gather and fused band trip of the measurement entry points
+under ``micro/``.
 
 Entry points run on the card unless the caller asks for the CPU with
 ``device="cpu"``; there is no silent CPU fallback.

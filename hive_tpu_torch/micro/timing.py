@@ -1,0 +1,91 @@
+"""Timing on the card for the measurement entry points and ``chip_smoke.py``.
+
+Device time comes from ``torch.profiler``'s CUPTI trace (the kernels' own
+time, without the host's launch cost); a launch loop's time comes from CUDA
+events around it (host cost included). Both need a CUDA device.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+
+# The kernel of torch.cuda._sleep, which brackets each trace's calls.
+MARKER = "spin_kernel"
+# Opening markers: more than the kernels a trace has been seen to lose.
+OPENING = 64
+ATTEMPTS = 3
+# Traces taken again because they lost a marker, in this process.
+retakes = 0
+
+
+def events_ms(fn: Callable[[], object], reps: int = 50, warmup: int = 5) -> float:
+    """Mean ms per call of ``fn()`` over ``reps`` calls between two CUDA
+    events: the launch loop's pace, host cost included."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def self_device_us(event) -> float:
+    return getattr(event, "self_device_time_total", getattr(event, "self_cuda_time_total", 0.0))
+
+
+def device_us(prof) -> float:
+    """Summed device time (us) of every kernel and copy a profile recorded."""
+    return sum(self_device_us(e) for e in prof.key_averages())
+
+
+def device_events(prof):
+    """The kernels and copies of a trace, in the order they started."""
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted(events, key=lambda e: e.time_range.start)
+
+
+def device_profile(fn: Callable[[], object], reps: int = 50,
+                   warmup: int = 5) -> Tuple[float, float]:
+    """(device ms, device operations) per call of ``fn()``: the summed
+    device time and the count of kernels and copies in torch.profiler's
+    CUPTI trace of ``reps`` calls.
+
+    Late in a long process a trace can miss its first kernels (up to a few
+    dozen), which would drop calls from the sums. So the calls run between
+    OPENING marker kernels and one closing marker, and a trace counts only
+    if its earliest and its latest device events are markers; otherwise it
+    is taken again, so ``fn`` may run more than ``warmup + reps`` times.
+    Raises if ATTEMPTS traces all failed that, or if the trace holds no
+    device time."""
+    global retakes
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for attempt in range(ATTEMPTS):
+        retakes += attempt > 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(OPENING):
+                torch.cuda._sleep(100)
+            for _ in range(reps):
+                fn()
+            torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        if events and MARKER in events[0].name and MARKER in events[-1].name:
+            break
+    else:
+        raise RuntimeError(f"{ATTEMPTS} profiler traces lost their first or last kernels")
+    calls = [e for e in events if MARKER not in e.name]
+    total_us = sum(e.time_range.elapsed_us() for e in calls)
+    if total_us <= 0:
+        raise RuntimeError("the profiler's trace holds no device time")
+    return total_us / reps / 1e3, len(calls) / reps

@@ -1,2 +1,3 @@
 """Device code: TSDF integration, the refine-query and band-sampler kernels,
-isosurface extraction."""
+isosurface extraction, and the tile-gather, patch-gather and fused band-trip
+kernels of the measurement entry points."""

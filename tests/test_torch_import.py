@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import hive_tpu_torch
-from hive_tpu_torch.ops import band_sampler, refine_query
+from hive_tpu_torch.ops import band_sampler, fused_band, patch_gather, refine_query, tile_gather
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "hive_tpu_torch")
@@ -111,6 +111,7 @@ def test_chip_smoke_alone_fails(tmp_path):
 def test_wrappers_take_plain_versions_on_cpu():
     """CPU tensors go through the plain versions and count no launch."""
     band_sampler.launches = refine_query.launches = 0
+    tile_gather.launches = patch_gather.launches = fused_band.launches = 0
     frame = torch.arange(12, dtype=torch.int32).reshape(3, 4)
     v = torch.tensor([[0, 2, 5]], dtype=torch.int32)
     u = torch.tensor([[3, -1, 1]], dtype=torch.int32)
@@ -126,7 +127,39 @@ def test_wrappers_take_plain_versions_on_cpu():
                                                   box, box + 2, box, box + 2, 8, 8)
     assert float(dmin) == pytest.approx(2.0) and float(dmax) == pytest.approx(2.0)
     assert bool(valid)
-    assert band_sampler.launches == 0 and refine_query.launches == 0
+
+    tile = torch.arange(8, dtype=torch.int32).reshape(2, 4)
+    idx = torch.tensor([[3, 0, 1, 1], [1, 0, 0, 1]], dtype=torch.int32)
+    np.testing.assert_array_equal(tile_gather.tile_gather(tile, idx, 1).numpy(),
+                                  [[3, 0, 1, 1], [5, 4, 4, 5]])
+    np.testing.assert_array_equal(tile_gather.tile_gather(tile, idx % 2, 0).numpy(),
+                                  [[4, 1, 6, 7], [4, 1, 2, 7]])
+
+    origin = torch.tensor([1, 0], dtype=torch.int32)
+    np.testing.assert_array_equal(
+        patch_gather.patch_gather(origin[:1], origin[1:], frame, v[:, :2] + 1, u[:, :2] + 1,
+                                  ph=2, pw=3).numpy(), [[0, 0]])
+    np.testing.assert_array_equal(
+        patch_gather.patch_gather(origin[:1], origin[1:], frame,
+                                  torch.tensor([[1, 2]], dtype=torch.int32),
+                                  torch.tensor([[2, 0]], dtype=torch.int32), ph=2, pw=3).numpy(),
+        [[6, 8]])
+
+    k, bv = 2, 4
+    rows = [torch.zeros(k, bv), torch.zeros(k, bv), torch.zeros(k, 3 * bv)]
+    cz = torch.full((k, bv), 1.0)
+    depth_word = torch.full((2, 4), 1000, dtype=torch.int32)  # 1 m, black
+    out = fused_band.fused_band(
+        torch.zeros(k, dtype=torch.int32), torch.zeros(k, dtype=torch.int32),
+        torch.tensor([1, 0], dtype=torch.int32),
+        torch.cat([torch.ones(1), torch.eye(3).reshape(-1), torch.zeros(3)]),
+        torch.zeros(k, 3), depth_word,
+        (torch.zeros(k, bv, dtype=torch.int32), torch.zeros(k, bv, dtype=torch.int32), cz),
+        *rows, project_in_kernel=False, intr=(1.0, 1.0, 0.0, 0.0), trunc=0.1, window=(2, 4))
+    np.testing.assert_array_equal(out[1].numpy(), [[1.0] * bv, [0.0] * bv])
+    assert out[0] is rows[0] and float(out[0].abs().max()) == 0.0
+    assert (band_sampler.launches, refine_query.launches, tile_gather.launches,
+            patch_gather.launches, fused_band.launches) == (0, 0, 0, 0, 0)
 
 
 def test_wrappers_check_their_inputs():
@@ -141,9 +174,41 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="unsupported device"):
         refine_query.refine_query_cells(meta, *[meta[:1]] * 6)
 
+    tile = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tile_gather.tile_gather(tile, tile.long(), 1)
+    with pytest.raises(ValueError):
+        tile_gather.tile_gather(tile, tile, 2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tile_gather.tile_gather(meta.reshape(2, 2), meta.reshape(2, 2), 0)
+
+    origin = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        patch_gather.patch_gather(origin, origin, frame, frame[:1].long(), frame[:1].long())
+    with pytest.raises(ValueError, match="does not fit"):
+        patch_gather.patch_gather(origin, origin, frame, frame[:1], frame[:1], ph=4, pw=4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        patch_gather.patch_gather(meta[:1], meta[:1], meta.reshape(2, 2), meta[None, :1],
+                                  meta[None, :1], ph=1, pw=1)
+
+    k = 2
+    args = [torch.zeros(k, dtype=torch.int32)] * 3 + [torch.zeros(13), torch.zeros(k, 3),
+                                                      frame, torch.zeros(3, 4)]
+    rows = [torch.zeros(k, 4), torch.zeros(k, 4), torch.zeros(k, 12)]
+    options = dict(project_in_kernel=True, intr=(1.0, 1.0, 0.0, 0.0), trunc=0.1, window=(2, 2))
+    with pytest.raises(ValueError, match="color"):
+        fused_band.fused_band(*args, rows[0], rows[1], rows[0], **options)
+    with pytest.raises(ValueError, match="offsets"):
+        fused_band.fused_band(*args[:-1], torch.zeros(3, 5), *rows, **options)
+    with pytest.raises(ValueError, match="does not fit"):
+        fused_band.fused_band(*args, *rows, **dict(options, window=(4, 4)))
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_band.fused_band(*[x.to("meta") for x in args + rows], **options)
+
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["refine_query", "band_sampler"])
+@pytest.mark.parametrize("kernel", ["refine_query", "band_sampler", "tile_gather",
+                                    "patch_gather", "fused_band"])
 def test_kernel_matches_plain_on_card(kernel):
     """On the card each kernel equals its plain version bit for bit (the
     same check chip_smoke.py makes at the main path's shapes)."""
@@ -153,6 +218,9 @@ def test_kernel_matches_plain_on_card(kernel):
 
     rng = np.random.default_rng(0)
     dev = torch.device("cuda", 0)
+    if kernel in ("tile_gather", "patch_gather", "fused_band"):
+        _check_probe_kernel_on_card(kernel, rng, dev)
+        return
     if kernel == "band_sampler":
         frame = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, (480, 640)),
                                 dtype=torch.int32, device=dev)
@@ -172,3 +240,46 @@ def test_kernel_matches_plain_on_card(kernel):
     for got, want in zip(refine_query.refine_query_cells(pyramid, *cells),
                          refine_query.refine_query_plain(pyramid, *cells)):
         assert torch.equal(got, want)
+
+
+def _check_probe_kernel_on_card(kernel, rng, dev):
+    """The measurement entry points' kernels on random inputs at their shapes."""
+    from hive_tpu_torch.micro import fused_band as mf
+
+    def words(shape):
+        return torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, shape), dtype=torch.int32,
+                               device=dev)
+
+    def ints(low, high, shape):
+        return torch.as_tensor(rng.integers(low, high, shape), dtype=torch.int32, device=dev)
+
+    if kernel == "tile_gather":
+        src = words((8, 128))
+        for axis, high in ((1, 128), (0, 8)):
+            idx = ints(0, high, (8, 128))
+            assert torch.equal(tile_gather.tile_gather(src, idx, axis),
+                               tile_gather.tile_gather_plain(src, idx, axis))
+        return
+    frame = words((480, 640))
+    if kernel == "patch_gather":
+        v0, u0 = ints(-4, 470, (1024,)), ints(-4, 390, (1024,))
+        vv = v0[:, None, None] + ints(-4, 20, (1024, 4, 128))
+        uu = u0[:, None, None] + ints(-8, 264, (1024, 4, 128))
+        assert torch.equal(patch_gather.patch_gather(v0, u0, frame, vv, uu),
+                           patch_gather.patch_gather_plain(v0, u0, frame, vv, uu))
+        return
+    s = mf.setup(dev)
+    ids = s["ids"]
+    rid = torch.clamp(ids, max=mf.NBS - 1)
+    scal = torch.cat([s["obs_weight"].reshape(1), s["R"].reshape(-1), s["t"].reshape(-1)])
+    cz, uu, vv = mf.project(s["origins"], s["R"], s["t"], s["iota"])
+    # Windows moved up or down by 8 rows: some lanes leave them and read the edge.
+    v0 = torch.clamp(s["win_v0"] + ints(-1, 2, (mf.K,)) * 8, 0, 480 - mf.PH)
+    for pik, coords in ((True, s["iota"]), (False, (vv, uu, cz))):
+        outs = [fn(v0, s["win_u0"], (ids < mf.NBS).int(), scal,
+                   s["origins"], frame, coords, s["state"][0][rid], s["state"][1][rid],
+                   s["state"][2][rid], project_in_kernel=pik, intr=mf.INTR, trunc=mf.TRUNC,
+                   window=(mf.PH, mf.PW))
+                for fn in (fused_band.fused_band, fused_band.fused_band_plain)]
+        for got, want in zip(*outs):
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
