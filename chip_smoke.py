@@ -6,12 +6,16 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build all five CUDA kernels from ``hive_tpu_torch/csrc`` (one ``nvcc``
+2. build all six CUDA kernels from ``hive_tpu_torch/csrc`` (one ``nvcc``
    each, started together);
 3. refine-query kernel vs its plain version on a VGA depth map (10% invalid
    pixels) with the refine pass's 4096 block AABBs: bit-exact, timed;
-4. band-sampler kernel vs its plain version on one 128-block trip and on a
-   whole frame's band: bit-exact, timed beside ``torch.take``;
+4. band-update kernel vs its plain version on a whole frame's band at the
+   bench shape (f32 state, after two frames), timed; the same bit-exact
+   check on a small volume in each of the four {f32, bf16} x {rgb565d16,
+   rgb888} states at SUB = 1 and at SUB = 2; and the band-sampler kernel vs
+   its plain version on one 128-block trip and on a whole frame's band:
+   bit-exact, timed beside ``torch.take``;
 5. integration at the TSDF bench shape (VGA x 64 frames into a 256^3
    volume, the wavy-wall scene made on the card): the kernel path and the
    plain path give bit-identical states; voxel-updates/s, median of 5 reps;
@@ -21,10 +25,12 @@ Phases (any failure raises and the script exits non-zero):
    synthetic HIVE dataset this script writes, at the default 5 mm / 320M
    voxel budget: ``bg.glb`` must load and carry the scene's colour
    gradients. Kernel launch counts are reset just before and read just
-   after this run; both kernels must have launched. Every kernel call of
-   the run is also made through its plain version on the same tensors and
-   must agree bit for bit; the kernels are then timed on the run's largest
-   call;
+   after this run; both kernels (refine query, band update) must have
+   launched. Every kernel call of the run is also made through its plain
+   version on the same inputs and must agree bit for bit (the band update's
+   plain version runs on a snapshot of the frame's band rows, which raises
+   the run's peak device memory); the kernels are then timed on the run's
+   largest call;
 7. the tile-gather kernel, both axes, on the gather probe's (8, 128) tile:
    bit-exact vs its plain version, timed beside ``torch.gather``;
 8. the patch-gather kernel on the probe's 1024 blocks x 512 samples, with
@@ -140,7 +146,9 @@ def max_abs_err(got, want) -> torch.Tensor:
 def bit_differences(got, want) -> torch.Tensor:
     """How many elements differ in their bit patterns, on the card."""
     def bits(x):
-        return x.view(torch.int32) if x.dtype == torch.float32 else x.to(torch.int32)
+        if x.dtype in (torch.float32, torch.bfloat16):
+            return x.view(torch.int32 if x.dtype == torch.float32 else torch.int16)
+        return x.to(torch.int32)
     return (bits(got) != bits(want)).sum()
 
 
@@ -172,6 +180,132 @@ def time_sampler(frame, vc, uc):
         library_ms=device_time_ms(lambda: torch.take(frame_flat, flat), reps=200),
         bound_ms=bound_ms, bound_by=bound_by,
         shape=f"frame {tuple(frame.shape)} int32, coordinates {tuple(vc.shape)} int32")
+
+
+# Operations per voxel of the band update (csrc/band_update.cu), each f32 or
+# integer instruction-level operation counted once (a division as one):
+# in-slab offsets 7; camera coordinates 18 (3 x (3 mul, 3 add)); z guard 2;
+# u and v 10 (2 x (mul, div, add, round, convert)); view test 5; clamps and
+# address 6; unpack 15 (rgb565d16) or 8 (rgb888); update 31 (sdf, 3 tests,
+# scale and clamp, 5 for the weights, 4 x (convert, mul, FMA, div, convert)
+# for tsdf and the colours). Keyed by the frame words per pixel.
+BAND_UPDATE_OPS_PER_VOXEL = {1: 94, 2: 87}
+# Rows per trip where the band update's plain version runs on the card.
+PLAIN_TRIP_ROWS = 4096
+
+
+def band_update_in_trips(state, ids, base, scal, frames, *, block, sub):
+    """The band update's plain version in trips of PLAIN_TRIP_ROWS rows,
+    which bounds its temporaries on the card."""
+    from hive_tpu_torch.ops.band_update import band_update_plain
+
+    for start in range(0, ids.numel(), PLAIN_TRIP_ROWS):
+        end = start + PLAIN_TRIP_ROWS
+        band_update_plain(state, ids[start:end], base[start:end], scal, frames, block=block,
+                          sub=sub)
+
+
+def band_call(volume, frames, f: int, device) -> dict:
+    """The band update's inputs for frame ``f`` on ``volume``, built by its
+    integrator's stages as ``integrate`` builds them (weight 1)."""
+    from hive_tpu_torch.ops.tsdf_sparse import build_flat_pyramid
+
+    depths, colors, K, poses = frames
+    height, width = depths.shape[1:]
+    integ = volume._integrator(height, width, None)
+    origins = volume.block_origins_device
+    w2c = torch.linalg.inv(torch.as_tensor(poses[f], device=device))
+    R, t = w2c[:3, :3], w2c[:3, 3]
+    intr = torch.tensor([K[0, 0], K[1, 1], K[0, 2], K[1, 2]], device=device)
+    one = torch.tensor(1.0, device=device)
+    sample = integ.pack_frame(depths[f], colors[f])
+    pyramid = build_flat_pyramid(depths[f], height, width,
+                                 packed_u16=volume.color_mode == "rgb565d16")
+    classes, dmin, dmax, free_ok = integ.classify_refined(origins, pyramid, R, t, tuple(intr))
+    band_flat, _, _ = integ.slab_masks(origins, classes, dmin, dmax, free_ok, R, t, one)
+    ids = torch.nonzero(band_flat).reshape(-1)
+    return dict(state=integ.to_slabs(volume.state), ids=ids,
+                base=integ.slab_base(origins, ids, R, t), scal=integ.band_scalars(intr, R, one),
+                frames=sample, block=integ.block, sub=integ.SUB)
+
+
+def compact_call(call: dict) -> dict:
+    """The same band update on a copy of just its rows: ids 0..K-1 and the
+    SUB = 1 colour layout (each row's R|G|B segments), which give every
+    voxel the same inputs and so the same result."""
+    from hive_tpu_torch.ops.band_update import gather_rows
+
+    tsdf, weight, color = gather_rows(call["state"], call["ids"], call["sub"])
+    n = tsdf.shape[0]
+    return dict(call, state=(tsdf, weight, color.reshape(n * 3, -1)),
+                ids=torch.arange(n, device=tsdf.device), sub=1)
+
+
+def band_update_args(call: dict):
+    return ((call["ids"], call["base"], call["scal"], call["frames"]),
+            dict(block=call["block"], sub=call["sub"]))
+
+
+def band_update_exact(call: dict) -> float:
+    """The kernel on ``call``'s state in place vs the plain version on a
+    copy: every value bit for bit. Returns the largest |difference| (0)."""
+    from hive_tpu_torch.ops import band_update as bu
+
+    args, options = band_update_args(call)
+    want = tuple(x.clone() for x in call["state"])
+    bu.band_update_plain(want, *args, **options)
+    bu.band_update(call["state"], *args, **options)
+    return exact_or_raise("band_update", zip(call["state"], want))
+
+
+def band_update_bound(call: dict, after):
+    """The band update's least time on this call. Bytes: every voxel's
+    state read once, each value that changes written once (``after`` is the
+    plain version's result), the id and base of each row, the 64 B of
+    scalars, and each distinct frame word the voxels sample once."""
+    from hive_tpu_torch.ops import band_update as bu
+
+    before, frames, scal = call["state"], call["frames"], call["scal"]
+    n, bvs = before[0].shape
+    elem = before[0].element_size()
+    changed = sum(int(bit_differences(a, b)) for a, b in zip(after, before))
+    height, width = frames[0].shape
+    cam = bu.camera_coords(call["base"], scal[7:].reshape(3, 3),
+                           bu.voxel_offsets(call["block"], bvs, scal.device))
+    u, v, _ = bu.project(*cam, tuple(scal[:4]), height, width)
+    pixels = torch.unique(torch.clamp(v, 0, height - 1).long() * width
+                          + torch.clamp(u, 0, width - 1)).numel()
+    return bound(n * bvs * 5 * elem + changed * elem + n * 20 + 64 + pixels * 4 * len(frames),
+                 n * bvs * BAND_UPDATE_OPS_PER_VOXEL[len(frames)])
+
+
+def time_band_update(call: dict, tag: str) -> dict:
+    """Kernel, plain and launch-loop times of one band update and its
+    bound; each runs on its own copy of the call's rows, which its reps
+    update again and again."""
+    from hive_tpu_torch.ops import band_update as bu
+
+    args, options = band_update_args(call)
+
+    def fresh():
+        return tuple(x.clone() for x in call["state"])
+
+    after = fresh()
+    bu.band_update_plain(after, *args, **options)
+    bound_ms, bound_by = band_update_bound(call, after)
+    del after
+    kernel_state, plain_state = fresh(), fresh()
+    n, bvs = call["state"][0].shape
+    times = dict(
+        ms=device_time_ms(lambda: bu.band_update(kernel_state, *args, **options), reps=20),
+        plain_ms=device_time_ms(lambda: bu.band_update_plain(plain_state, *args, **options),
+                                reps=3, warmup=1),
+        loop_ms=events_ms(lambda: bu.band_update(kernel_state, *args, **options), reps=20),
+        library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+        shape=f"{n} slab rows x {bvs} voxels, {call['state'][0].dtype} state, "
+              f"{len(call['frames'])} frame word(s) per pixel")
+    log_times(tag, times)
+    return times
 
 
 def log_times(tag: str, times: dict) -> None:
@@ -289,14 +423,13 @@ def write_hive_dataset(base: str, num_frames: int, width: int, height: int) -> N
 def plain_paths():
     """Patch the integrator onto the kernels' plain versions (on the card)."""
     from hive_tpu_torch.ops import tsdf_sparse
-    from hive_tpu_torch.ops.band_sampler import band_sample_plain
     from hive_tpu_torch.ops.refine_query import LEVEL_BIAS, refine_query_plain
 
     def refine(pyramid, layout, u0, u1, v0, v1, height, width):
         return refine_query_plain(pyramid, *tsdf_sparse.pyramid_cell_bounds(
             layout, u0, u1, v0, v1, height, width, LEVEL_BIAS))
 
-    return (mock.patch.object(tsdf_sparse, "band_sample", band_sample_plain),
+    return (mock.patch.object(tsdf_sparse, "band_update", band_update_in_trips),
             mock.patch.object(tsdf_sparse, "refine_query", refine))
 
 
@@ -364,22 +497,67 @@ def check_sampler(device, frames):
                 torch.clamp(u, 0, BENCH_W - 1).contiguous())
 
     vc_all, uc_all = coords(band_ids)
-    if int(bit_differences(bs.band_sample(packed, vc_all, uc_all),
-                           bs.band_sample_plain(packed, vc_all, uc_all))):
-        raise AssertionError("band_sampler kernel differs from plain on the frame's band")
-
     vc, uc = coords(band_ids[:integ.chunk])
-    if int(bit_differences(bs.band_sample(packed, vc, uc),
-                           bs.band_sample_plain(packed, vc, uc))):
-        raise AssertionError("band_sampler kernel differs from plain on one trip")
+    err = exact_or_raise("band_sampler", [
+        (bs.band_sample(packed, vc_all, uc_all), bs.band_sample_plain(packed, vc_all, uc_all)),
+        (bs.band_sample(packed, vc, uc), bs.band_sample_plain(packed, vc, uc))])
 
     times = time_sampler(packed, vc, uc)
-    log_times(f"sampler, bench shape (frame band {band_ids.numel()} rows), exact", times)
-    return times
+    log_times(f"sampler, bench shape, one trip (frame band {band_ids.numel()} rows), exact "
+              "on the trip and the frame's band", times)
+    return dict(times, max_abs_err=err)
+
+
+def check_band_update(device, frames):
+    """The band update of frame 2 on the bench volume (f32) after two
+    integrated frames: bit-exact on the frame's whole band, timed."""
+    from hive_tpu_torch.ops.tsdf_sparse import SparseTSDFVolume
+
+    depths, colors, K, poses = frames
+    volume = SparseTSDFVolume([[-2.0, 2.0], [-2.0, 2.0], [0.0, 4.0]],
+                              voxel_size=4.0 / BENCH_GRID, device=device)
+    volume.integrate_frames(colors[:2], depths[:2], K, poses[:2])
+    call = band_call(volume, frames, 2, device)
+    timed = compact_call(call)
+    err = band_update_exact(call)
+    times = time_band_update(timed, f"band_update, bench shape (frame band "
+                                    f"{call['ids'].numel()} rows), exact")
+    return dict(times, max_abs_err=err)
+
+
+def check_band_update_states(device):
+    """The band update bit-exact in each state dtype and colour mode, at
+    SUB = 1 and 2, on a small volume (random depth, 96 x 128): frame 2's
+    band after two integrated frames."""
+    from hive_tpu_torch.ops.tsdf_sparse import SparseTSDFVolume
+
+    rng = np.random.default_rng(SEED)
+    h, w = 96, 128
+    K = np.array([[100.0, 0.0, 63.5], [0.0, 100.0, 47.5], [0.0, 0.0, 1.0]], np.float32)
+    depths = torch.as_tensor(rng.uniform(0.8, 2.5, size=(3, h, w)), dtype=torch.float32,
+                             device=device)
+    colors = torch.as_tensor(rng.integers(0, 255, size=(3, h, w, 3)), dtype=torch.uint8,
+                             device=device)
+    poses = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
+    poses[:, 0, 3] = np.linspace(0.0, 0.3, 3) + 0.01237
+    bounds = np.array([[-1.6, 1.6], [-1.6, 1.6], [0.0, 3.2]], np.float32)
+    checked = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for mode in ("rgb565d16", "rgb888"):
+            for block in ((8, 8, 8), (8, 8, 16)):
+                volume = SparseTSDFVolume(bounds, voxel_size=0.05, color_mode=mode, dtype=dtype,
+                                          block_size=block, device=device)
+                volume.integrate_frames(colors[:2], depths[:2], K, poses[:2])
+                call = band_call(volume, (depths, colors, K, poses), 2, device)
+                band_update_exact(call)
+                checked.append(f"{str(dtype)[6:]}/{mode}/SUB={call['sub']} "
+                               f"({call['ids'].numel()} rows)")
+    log(f"[band_update] bit-exact on a small volume in {len(checked)} states: "
+        + ", ".join(checked))
 
 
 def check_integration(device, frames, launches):
-    from hive_tpu_torch.ops import band_sampler, refine_query
+    from hive_tpu_torch.ops import band_update, refine_query
     from hive_tpu_torch.ops.tsdf_sparse import SparseTSDFVolume
 
     depths, colors, K, poses = frames
@@ -388,11 +566,11 @@ def check_integration(device, frames, launches):
     def volume():
         return SparseTSDFVolume(bounds, voxel_size=4.0 / BENCH_GRID, device=device)
 
-    band_sampler.launches = refine_query.launches = 0
+    band_update.launches = refine_query.launches = 0
     kernel_vol = volume()
     kernel_vol.integrate_frames(colors, depths, K, poses)
     torch.cuda.synchronize()
-    launches["bench"] = {"band_sampler": band_sampler.launches,
+    launches["bench"] = {"band_update": band_update.launches,
                          "refine_query": refine_query.launches}
 
     plain_vol = volume()
@@ -481,12 +659,14 @@ class MainPathCheck:
     """Stands in for the integrator's two kernel calls during the CLI run.
 
     Each call goes through the kernel's own wrapper (which counts the
-    launch) and, on the same tensors, through its plain version (no launch).
+    launch) and, on the same inputs, through its plain version (no launch):
+    the refine query on the same tensors, the band update on a snapshot of
+    the frame's band rows taken before the kernel updates them in place.
     The bit differences and the largest |difference| add up on the card, so
     the run gains no host syncs; the largest call's inputs are kept so the
     kernels are timed at the main path's own shapes afterwards."""
 
-    NAMES = ("refine_query", "band_sampler")
+    NAMES = ("refine_query", "band_update")
 
     def __init__(self, device):
         self.differences = {n: torch.zeros((), dtype=torch.int64, device=device)
@@ -496,14 +676,15 @@ class MainPathCheck:
         self.calls = dict.fromkeys(self.NAMES, 0)
         self.largest = {}
 
-    def _compare(self, name, got, want, size, inputs):
+    def _compare(self, name, got, want, size, keep):
+        """``keep()`` gives the call's inputs, kept if it is the largest."""
         for g, w in zip(got, want):
             self.differences[name] += bit_differences(g, w)
             self.max_abs_err[name] = torch.maximum(self.max_abs_err[name],
                                                    max_abs_err(g, w))
         self.calls[name] += 1
         if size > self.largest.get(name, (0, None))[0]:
-            self.largest[name] = (size, tuple(x.clone() for x in inputs))
+            self.largest[name] = (size, keep())
 
     def refine(self, pyramid, layout, u0, u1, v0, v1, height, width):
         from hive_tpu_torch.ops import refine_query as rq
@@ -512,16 +693,21 @@ class MainPathCheck:
         cells = pyramid_cell_bounds(layout, u0, u1, v0, v1, height, width, rq.LEVEL_BIAS)
         got = rq.refine_query_cells(pyramid, *cells)
         self._compare("refine_query", got, rq.refine_query_plain(pyramid, *cells),
-                      int(u0.numel()), (pyramid, *cells))
+                      int(u0.numel()), lambda: tuple(x.clone() for x in (pyramid, *cells)))
         return got
 
-    def sample(self, frame, v, u):
-        from hive_tpu_torch.ops import band_sampler as bs
+    def update(self, state, ids, base, scal, frames, *, block, sub):
+        from hive_tpu_torch.ops import band_update as bu
 
-        got = bs.band_sample(frame, v, u)
-        self._compare("band_sampler", (got,), (bs.band_sample_plain(frame, v, u),),
-                      int(v.numel()), (frame, v, u))
-        return got
+        before = compact_call(dict(state=state, ids=ids, base=base, scal=scal, frames=frames,
+                                   block=block, sub=sub))
+        want = tuple(x.clone() for x in before["state"])
+        bu.band_update(state, ids, base, scal, frames, block=block, sub=sub)
+        band_update_in_trips(want, before["ids"], base, scal, frames, block=block, sub=1)
+        tsdf, weight, color = bu.gather_rows(state, ids, sub)
+        got = (tsdf, weight, color.reshape(tsdf.shape[0] * 3, -1))
+        # The snapshot, bases, scalars and packed frames are this call's own.
+        self._compare("band_update", got, want, int(ids.numel()), lambda: before)
 
     def results(self):
         """Per kernel: calls checked, bit differences, largest |difference|,
@@ -533,10 +719,12 @@ class MainPathCheck:
                 raise AssertionError(f"{name} on the main path: {self.calls[name]} calls "
                                      f"checked, {differences} values differ from plain")
             inputs = self.largest[name][1]
-            times = (time_refine(inputs[0], inputs[1:]) if name == "refine_query"
-                     else time_sampler(*inputs))
-            log_times(f"{name}, main path's largest call, exact in "
-                      f"{self.calls[name]} calls", times)
+            tag = f"{name}, main path's largest call, exact in {self.calls[name]} calls"
+            if name == "refine_query":
+                times = time_refine(inputs[0], inputs[1:])
+                log_times(tag, times)
+            else:
+                times = time_band_update(inputs, tag)
             out[name] = dict(times, calls_checked=self.calls[name],
                              max_abs_err=float(self.max_abs_err[name]))
         return out
@@ -544,7 +732,7 @@ class MainPathCheck:
 
 def run_main_path(device, launches):
     from hive_tpu_torch.meshing.gltf import load_glb
-    from hive_tpu_torch.ops import band_sampler, refine_query, tsdf_sparse
+    from hive_tpu_torch.ops import band_update, refine_query, tsdf_sparse
 
     check = MainPathCheck(device)
     with tempfile.TemporaryDirectory(prefix="hive_smoke_") as tmp:
@@ -559,16 +747,16 @@ def run_main_path(device, launches):
                 "--key_frame_threshold", "1.0", "--overwrite_ok",
                 "--webxr_path", os.path.join(tmp, "webxr"),
                 "--log_file", os.path.join(tmp, "pipeline.log")]
-        band_sampler.launches = refine_query.launches = 0
+        band_update.launches = refine_query.launches = 0
         torch.cuda.synchronize()
         start = time.perf_counter()
         with mock.patch.object(sys, "argv", argv), \
                 mock.patch.object(tsdf_sparse, "refine_query", check.refine), \
-                mock.patch.object(tsdf_sparse, "band_sample", check.sample):
+                mock.patch.object(tsdf_sparse, "band_update", check.update):
             runpy.run_module("hive_tpu_torch", run_name="__main__", alter_sys=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
-        launches["main"] = {"band_sampler": band_sampler.launches,
+        launches["main"] = {"band_update": band_update.launches,
                             "refine_query": refine_query.launches}
 
         with open(os.path.join(dataset, "profiling.json")) as f:
@@ -598,7 +786,8 @@ def run_main_path(device, launches):
         f"{volume['dtype']}; {profiling['elapsed_time']['per_frame']:.4f} s/frame "
         f"(run {wall:.1f} s); {profiling['mesh_tri_count']['total']} triangles; "
         f"peak device memory {profiling['peak_vram_usage']['allocated']} B; "
-        f"launches {launches['main']}; each call also ran its plain version")
+        f"launches {launches['main']}; each call also ran its plain version (the band "
+        f"update's on a snapshot of the frame's band rows, which raises the peak)")
     log("[e2e] profiling.json timing (s): " + json.dumps(rounded(profiling["timing"])))
     return check.results()
 
@@ -808,20 +997,23 @@ def main() -> int:
         f"torch {torch.__version__} cuda {torch.version.cuda}; nvidia-smi: {smi}")
 
     start = time.perf_counter()
-    cuda_build.build(["refine_query", "band_sampler", "tile_gather", "patch_gather",
-                      "fused_band"])
-    log(f"[build] all five kernels in {time.perf_counter() - start:.1f} s")
+    cuda_build.build(["refine_query", "band_update", "band_sampler", "tile_gather",
+                      "patch_gather", "fused_band"])
+    log(f"[build] all six kernels in {time.perf_counter() - start:.1f} s")
 
     frames = bench_frames(device)
     bench = {"refine_query": check_refine(device, frames),
-             "band_sampler": check_sampler(device, frames)}
+             "band_update": check_band_update(device, frames)}
+    check_band_update_states(device)
+    sampler = check_sampler(device, frames)
     launches = {}
     check_integration(device, frames, launches)
     check_sparse_vs_dense(device)
     del frames
     torch.cuda.empty_cache()
     main_path = run_main_path(device, launches)
-    probes = {"tile_gather": check_tile_gather(device),
+    probes = {"band_sampler": sampler,
+              "tile_gather": check_tile_gather(device),
               "patch_gather": check_patch_gather(device),
               "fused_band": check_fused_band(device)}
     entry_points = run_entry_points(device, launches)
@@ -829,14 +1021,11 @@ def main() -> int:
     # Times, errors and bounds are the main path's own (its largest call);
     # "bench" holds the same at the TSDF bench shape.
     kernels = []
-    for name, source, replaces in (
-            ("refine_query", "hive_tpu_torch/csrc/refine_query.cu",
-             "hive_tpu/ops/pallas_refine.py:72"),
-            ("band_sampler", "hive_tpu_torch/csrc/band_sampler.cu",
-             "hive_tpu/ops/pallas_sampler.py:66")):
+    for name, replaces in (("refine_query", "hive_tpu/ops/pallas_refine.py:72"),
+                           ("band_update", "hive_tpu/ops/pallas_sampler.py:66")):
         result = main_path[name]
         kernels.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
+            name=name, route="cuda", source=f"hive_tpu_torch/csrc/{name}.cu", replaces=replaces,
             launches=launches["main"][name], launches_bench=launches["bench"][name],
             exact=True, calls_checked=result["calls_checked"],
             max_abs_err=result["max_abs_err"], ms=result["ms"], kernel_ms=result["ms"],
@@ -845,19 +1034,24 @@ def main() -> int:
             library_ms=result["library_ms"], shape=result["shape"],
             bench={k: bench[name][k] for k in ("ms", "plain_ms", "library_ms",
                                                "loop_ms", "bound_ms", "shape")}))
-    # The measurement entry points' kernels: launches are the entry point's
-    # run, times and errors those of the probe phases at its shapes.
-    entry_results = {"tile_gather": entry_points["micro.gather"]["q1"],
+    # The measurement entry points' kernels: launches are the entry points'
+    # runs, times and errors those of the probe phases at their shapes (the
+    # band sampler's at the bench shape's 128-row trip, the production
+    # trip's width).
+    entry_results = {"band_sampler": entry_points["micro.fused_band"]["q3"],
+                     "tile_gather": entry_points["micro.gather"]["q1"],
                      "patch_gather": entry_points["micro.gather"]["q2"],
                      "fused_band": entry_points["micro.fused_band"]["q3"]}
-    for name, entry_point, replaces in (
-            ("tile_gather", "micro.gather", "scripts/micro_pallas_gather.py:72"),
-            ("patch_gather", "micro.gather", "scripts/micro_pallas_gather.py:113"),
-            ("fused_band", "micro.fused_band", "scripts/micro_pallas_fused_band.py:134")):
+    for name, entries, replaces in (
+            ("band_sampler", ("micro.gather", "micro.fused_band"),
+             "hive_tpu/ops/pallas_sampler.py:66"),
+            ("tile_gather", ("micro.gather",), "scripts/micro_pallas_gather.py:72"),
+            ("patch_gather", ("micro.gather",), "scripts/micro_pallas_gather.py:113"),
+            ("fused_band", ("micro.fused_band",), "scripts/micro_pallas_fused_band.py:134")):
         kernels.append(dict(
             name=name, route="cuda", source=f"hive_tpu_torch/csrc/{name}.cu",
-            replaces=replaces, entry_point=f"hive_tpu_torch.{entry_point}",
-            launches=launches[entry_point][name], exact=True,
+            replaces=replaces, entry_point=", ".join(f"hive_tpu_torch.{e}" for e in entries),
+            launches=sum(launches[e][name] for e in entries), exact=True,
             **{k: v for k, v in probes[name].items() if k != "library"},
             entry_point_result=entry_results[name]))
     print(json.dumps({"kernels": kernels}))

@@ -2,10 +2,10 @@
 
 The JAX package ``hive_tpu`` is the reference; each module here carries the
 name of its counterparts there. Device code is plain PyTorch, except the
-hand-written CUDA kernels under ``csrc/``, one for each Pallas kernel of the
-repository: the integrator's refine query and band sampler, and the tile
-gather, patch gather and fused band trip of the measurement entry points
-under ``micro/``.
+hand-written CUDA kernels under ``csrc/``, at least one for each Pallas
+kernel of the repository: the integrator's refine query and band update,
+and the band sampler, tile gather, patch gather and fused band trip of the
+measurement entry points under ``micro/``.
 
 Entry points run on the card unless the caller asks for the CPU with
 ``device="cpu"``; there is no silent CPU fallback.

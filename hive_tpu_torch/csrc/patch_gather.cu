@@ -1,5 +1,5 @@
-// Patch gather: per block, samples of a frame window staged in shared
-// memory, for sm_90a.
+// Patch gather: per block, samples of a frame window read straight from the
+// frame, for sm_90a.
 //
 // Replaces scripts/micro_pallas_gather.py:make_pallas_fn (the 16 x 256
 // window sampler prototype). Contract, for block b with window origin
@@ -11,22 +11,23 @@
 //
 // The TPU kernel kept the whole frame in VMEM and sampled each (8, 128)
 // tile with a lane gather and a sublane gather, because Mosaic gathers only
-// inside one vreg. Here one block per window copies the window (16 KB at
-// 16 x 256) into shared memory with coalesced row reads, syncs, and each of
-// the block's threads gathers one sample from shared memory.
+// inside one vreg. Hopper gathers from any address and a VGA frame (1.2 MB)
+// stays in the 50 MB L2, so there is no staging: each thread takes four
+// consecutive samples of one block (one int4 load each of vv and uu, its
+// block's origin once), reads each in-window word with __ldg at
+// (wv + pv, wu + pu) and stores the four as one int4. A block whose sample
+// count is not a multiple of four, or unaligned tensors, take the same
+// kernel one sample per thread.
 //
-// Bound: what the function must move is each distinct sampled frame word
-// once, 8 B of coordinates in and 4 B out per sample: ~12 B per sample.
-// The window copy reads ph * pw words for 512 samples (8x the samples at
-// 16 x 256), so the kernel moves ~8x more L2 traffic than a direct gather
-// (the band sampler's design); it stays to measure that trade on this card.
+// Bound: each distinct sampled frame word once, the origins once per block,
+// and 8 B of coordinates in and 4 B out per sample: ~12 B per sample.
 
-#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
+template <int kVec>
 __global__ void patch_gather_kernel(const int32_t* __restrict__ frame,
                                     int32_t height, int32_t width,
                                     const int32_t* __restrict__ v0,
@@ -34,24 +35,37 @@ __global__ void patch_gather_kernel(const int32_t* __restrict__ frame,
                                     const int32_t* __restrict__ vv,
                                     const int32_t* __restrict__ uu,
                                     int32_t ph, int32_t pw, int32_t per_block,
-                                    int32_t* __restrict__ out) {
-    extern __shared__ int32_t window[];
-    const int32_t b = blockIdx.x;
-    const int32_t v0b = v0[b];
-    const int32_t u0b = u0[b];
+                                    int64_t total, int32_t* __restrict__ out) {
+    const int64_t first = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * kVec;
+    if (first >= total) return;
+    // per_block % kVec == 0, so the kVec samples belong to one block.
+    const int64_t b = first / per_block;
+    const int32_t v0b = __ldg(v0 + b);
+    const int32_t u0b = __ldg(u0 + b);
     const int32_t wv = min(max(v0b, 0), height - ph);
     const int32_t wu = min(max(u0b, 0), width - pw);
-    for (int32_t k = threadIdx.x; k < ph * pw; k += blockDim.x) {
-        const int32_t r = k / pw;
-        window[k] = __ldg(frame + static_cast<int64_t>(wv + r) * width + wu + (k - r * pw));
+
+    int32_t v[kVec], u[kVec], o[kVec];
+    if constexpr (kVec == 4) {
+        const int4 v4 = __ldg(reinterpret_cast<const int4*>(vv + first));
+        const int4 u4 = __ldg(reinterpret_cast<const int4*>(uu + first));
+        v[0] = v4.x; v[1] = v4.y; v[2] = v4.z; v[3] = v4.w;
+        u[0] = u4.x; u[1] = u4.y; u[2] = u4.z; u[3] = u4.w;
+    } else {
+        v[0] = vv[first];
+        u[0] = uu[first];
     }
-    __syncthreads();
-    for (int32_t i = threadIdx.x; i < per_block; i += blockDim.x) {
-        const int64_t at = static_cast<int64_t>(b) * per_block + i;
-        const int32_t pv = vv[at] - v0b;
-        const int32_t pu = uu[at] - u0b;
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+        const int32_t pv = v[k] - v0b;
+        const int32_t pu = u[k] - u0b;
         const bool inside = pv >= 0 && pv < ph && pu >= 0 && pu < pw;
-        out[at] = inside ? window[pv * pw + pu] : 0;
+        o[k] = inside ? __ldg(frame + static_cast<int64_t>(wv + pv) * width + (wu + pu)) : 0;
+    }
+    if constexpr (kVec == 4) {
+        *reinterpret_cast<int4*>(out + first) = make_int4(o[0], o[1], o[2], o[3]);
+    } else {
+        out[first] = o[0];
     }
 }
 
@@ -61,16 +75,24 @@ extern "C" int patch_gather_launch(const void* frame, int32_t height,
                                    int32_t width, const void* v0,
                                    const void* u0, const void* vv,
                                    const void* uu, int32_t blocks, int32_t ph,
-                                   int32_t pw, int32_t per_block, void* out,
-                                   void* stream) {
-    const int threads = std::min(1024, (per_block + 31) / 32 * 32);
-    // <= 48 KB, the default dynamic shared memory, checked by the wrapper.
-    const size_t smem = static_cast<size_t>(ph) * pw * sizeof(int32_t);
-    patch_gather_kernel<<<blocks, threads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(frame), height, width,
-        static_cast<const int32_t*>(v0), static_cast<const int32_t*>(u0),
-        static_cast<const int32_t*>(vv), static_cast<const int32_t*>(uu),
-        ph, pw, per_block, static_cast<int32_t*>(out));
+                                   int32_t pw, int32_t per_block, int32_t vec4,
+                                   void* out, void* stream) {
+    constexpr int kThreads = 256;
+    const int64_t total = static_cast<int64_t>(blocks) * per_block;
+    const int vec = vec4 ? 4 : 1;
+    const int64_t grid = (total / vec + kThreads - 1) / kThreads;
+    const auto s = static_cast<cudaStream_t>(stream);
+    const auto launch = [&](auto kernel) {
+        kernel<<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
+            static_cast<const int32_t*>(frame), height, width,
+            static_cast<const int32_t*>(v0), static_cast<const int32_t*>(u0),
+            static_cast<const int32_t*>(vv), static_cast<const int32_t*>(uu),
+            ph, pw, per_block, total, static_cast<int32_t*>(out));
+    };
+    if (vec4) {
+        launch(patch_gather_kernel<4>);
+    } else {
+        launch(patch_gather_kernel<1>);
+    }
     return static_cast<int>(cudaGetLastError());
 }

@@ -3,11 +3,13 @@
 
     python -m hive_tpu_torch.micro.fused_band [--device cpu]
 
-The sparse integrator's band pass updates state rows in trips of K rows:
-row gather, projection, frame sampling, unpack, TSDF / weight / colour
-update, row scatter, each a torch operation or a small kernel. The fused
-trip (``ops/fused_band.py``) does everything between gather and scatter in
-one launch.
+The JAX package's sparse integrator (and the port's on the CPU) runs the
+band pass in trips of K rows: row gather, projection, frame sampling,
+unpack, TSDF / weight / colour update, row scatter, each a torch operation
+or a small kernel. The fused trip (``ops/fused_band.py``) does everything
+between gather and scatter in one launch. (On the card the port's
+integrator updates a frame's whole band in one launch of its own,
+``ops/band_update.py``.)
 
 Q1  Both fused variants run: the full one projects in the kernel, the
     half-fused one takes torch's coordinates.

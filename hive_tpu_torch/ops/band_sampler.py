@@ -9,10 +9,14 @@ it twice, on the f32 depth's bits and on the packed 8-bit colour.
 Design: the TPU kernel DMA'd a tile-aligned 64x256 window per block because
 Mosaic cannot gather arbitrarily, and routed blocks that did not fit to the
 XLA take. Hopper gathers from any address, so ``csrc/band_sampler.cu`` runs
-one thread per voxel with no window and serves every band block; the frame
-(1.2 MB at VGA) stays in L2. Projection stays in torch, so the sampled
-pixel is the plain path's. Bound on the card: ~12 B per voxel, so at the
-main path's 128-block trips the launch itself, not memory, bounds it.
+one thread per voxel with no window; the frame (1.2 MB at VGA) stays in
+L2. Bound on the card: ~12 B per voxel, so at a 128-block trip the launch
+itself, not memory, bounds it.
+
+The integrator's band pass on the card goes through the frame-wide band
+update (:mod:`hive_tpu_torch.ops.band_update`) instead; this sampler serves
+the measurement entry points, as the sampler of their production trip, and
+the band update's plain version uses its plain version.
 """
 
 from __future__ import annotations

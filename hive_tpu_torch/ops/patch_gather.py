@@ -6,11 +6,11 @@ coordinates ``(vv[b], uu[b])`` from the ``ph x pw`` window at
 ``(v0[b], u0[b])``, and a coordinate outside the window gives 0. The port
 serves the gather-probe entry point (``hive_tpu_torch.micro.gather``).
 
-Design: one block per window copies the window into shared memory, then
-each thread gathers one sample (``csrc/patch_gather.cu``). Bound on the
-card: ~12 B per sample; the window copy reads 8x the sampled words at
-16 x 256 and 512 samples per block, which the entry point sets beside the
-band sampler's direct gather.
+Design: no staging (``csrc/patch_gather.cu``). Each thread takes four
+consecutive samples of one block, loads their coordinates as one int4 each
+and its block's origin once, reads each in-window word straight from the
+frame (in L2) and stores the four as one int4. Bound on the card: ~12 B
+per sample.
 """
 
 from __future__ import annotations
@@ -23,10 +23,6 @@ from hive_tpu_torch.ops import cuda_build
 
 # Kernel launches (not plain-version calls) since the last reset.
 launches = 0
-
-# A block's window lives in shared memory, within the default 48 KB per block
-# (the probe's 16 x 256 window takes 16 KB).
-MAX_WINDOW_BYTES = 48 * 1024
 
 
 def patch_gather_plain(v0, u0, frame, vv, uu, ph: int = 16, pw: int = 256):
@@ -53,16 +49,20 @@ def _launch(v0, u0, frame, vv, uu, ph, pw):
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
-                   ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
-                   ctypes.c_void_p]
+                   ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+                   ctypes.c_void_p, ctypes.c_void_p]
 
     out = torch.empty(vv.shape, dtype=torch.int32, device=frame.device)
     blocks = v0.shape[0]
     if vv.numel() == 0:
         return out
+    per_block = vv.numel() // blocks
+    # Four samples per thread (int4 loads and stores) where each block's
+    # samples start on a 16-byte boundary.
+    vec4 = per_block % 4 == 0 and all(x.data_ptr() % 16 == 0 for x in (vv, uu, out))
     height, width = frame.shape
     err = fn(frame.data_ptr(), height, width, v0.data_ptr(), u0.data_ptr(), vv.data_ptr(),
-             uu.data_ptr(), blocks, ph, pw, vv.numel() // blocks, out.data_ptr(),
+             uu.data_ptr(), blocks, ph, pw, per_block, int(vec4), out.data_ptr(),
              torch.cuda.current_stream(frame.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"patch_gather kernel launch failed: CUDA error {err}")
@@ -92,6 +92,4 @@ def patch_gather(v0, u0, frame, vv, uu, ph: int = 16, pw: int = 256):
         return patch_gather_plain(v0, u0, frame, vv, uu, ph, pw)
     if frame.device.type != "cuda":
         raise ValueError(f"unsupported device {frame.device}")
-    if ph * pw * 4 > MAX_WINDOW_BYTES:
-        raise ValueError(f"a {ph} x {pw} window exceeds a block's shared memory")
     return _launch(*(x.contiguous() for x in (v0, u0, frame, vv, uu)), ph, pw)

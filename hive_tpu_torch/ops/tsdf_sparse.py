@@ -17,12 +17,14 @@ re-queried with 5x5 cells two pyramid levels finer (the refine pass):
 * **free edge** — provably free but only partly inside the image: the same
   update behind a per-voxel visibility mask (projection only, no gather);
 * **band** — everything else: per voxel, project, sample the packed frame
-  word, update. Band blocks are processed in trips of ``chunk`` slab rows.
+  word, update. On the card one kernel launch updates a frame's whole band
+  in place; on the CPU the plain version runs in trips of ``chunk`` slab
+  rows, which bounds its temporaries.
 
 Two steps run as hand-written CUDA kernels on the card: the refine pass's
 5x5 pyramid query (:mod:`hive_tpu_torch.ops.refine_query`) and the band
-pass's per-voxel frame sampling (:mod:`hive_tpu_torch.ops.band_sampler`).
-On CPU tensors their wrappers take the plain PyTorch versions.
+update (:mod:`hive_tpu_torch.ops.band_update`). On CPU tensors their
+wrappers take the plain PyTorch versions.
 
 Layout (as in the JAX package): block-major state, tsdf/weight ``(nb, BV)``
 and colour ``(nb, 3*BV)`` with per-block R|G|B segments; the in-block voxel
@@ -48,7 +50,8 @@ import numpy as np
 import torch
 
 from hive_tpu_torch import get_device
-from hive_tpu_torch.ops.band_sampler import band_sample
+from hive_tpu_torch.ops.band_update import (band_scalars, band_update, camera_coords,
+                                            project)
 from hive_tpu_torch.ops.refine_query import refine_query
 
 
@@ -305,7 +308,9 @@ class SparseTSDFVolume:
         """
         :param band_capacity_fraction: upper bound on the banded update's
             per-trip width, as a fraction of the block count.
-        :param chunk_voxels: voxel budget per banded-update trip.
+        :param chunk_voxels: voxel budget per banded-update trip of the
+            CPU's plain version (the card updates a frame's band in one
+            launch).
         :param color_mode: ``"rgb565d16"`` (default: u16-mm depth + dithered
             RGB565 in one 32-bit word per pixel) or ``"rgb888"`` (exact f32
             depth + 8-bit colour, two words).
@@ -554,6 +559,7 @@ class _Integrator:
                 SUB = d
                 break
         self.SUB, self.BV, self.BVS = SUB, BV, BV // SUB
+        self.block = (Bx, By)
         self.slab_z = float(np.float32((Bz // SUB) * self.voxel))
         self.voxel_f32 = float(np.float32(self.voxel))
 
@@ -568,8 +574,8 @@ class _Integrator:
         refine_cap = min(nb, max(1024, nb // 8))
         self.refine_cap = min(nb, ((refine_cap + 7) // 8) * 8)
 
-        # Per-trip width of the banded update (slab rows) and of the
-        # gather-free edge pass.
+        # Per-trip width of the banded update on the CPU (slab rows) and of
+        # the gather-free edge pass.
         self.chunk = min(volume.band_capacity * SUB,
                          max(64, volume.chunk_voxels // max(1, self.BVS)))
         self.edge_chunk = min(volume.band_capacity * SUB, 4 * self.chunk)
@@ -764,8 +770,8 @@ class _Integrator:
         return band_flat, torch.where(free_flat, obs_weight, 0.0), edge_flat
 
     # -- updates ----------------------------------------------------------------
-    def slab_camera_coords(self, block_origins, sub_ids, R, t):
-        """Camera coordinates (K, BVS) x3 of every voxel of slab rows."""
+    def slab_base(self, block_origins, sub_ids, R, t):
+        """Camera coordinates (K, 3) of the first voxel of each slab row."""
         SUB = self.SUB
         rows = torch.div(sub_ids, SUB, rounding_mode="floor")
         s = (sub_ids % SUB).to(torch.float32)
@@ -773,23 +779,16 @@ class _Integrator:
         origins = block_origins[rows]                                  # (K, 3)
         base = origins @ R.T + t                                       # (K, 3)
         # A slab's origin shifts along WORLD z by s * slab_z.
-        base = base + s[:, None] * (self.slab_z * R[:, 2])[None, :]
-        step = R * self.voxel_f32
+        return base + s[:, None] * (self.slab_z * R[:, 2])[None, :]
 
-        ia = self.iota_axes
-        return tuple(base[:, axis][:, None] + ia[0] * step[axis, 0]
-                     + ia[1] * step[axis, 1] + ia[2] * step[axis, 2]
-                     for axis in range(3))
+    def slab_camera_coords(self, block_origins, sub_ids, R, t):
+        """Camera coordinates (K, BVS) x3 of every voxel of slab rows."""
+        return camera_coords(self.slab_base(block_origins, sub_ids, R, t),
+                             R * self.voxel_f32, self.iota_axes)
 
     def project_voxels(self, cam_x, cam_y, cam_z, intr):
         """Nearest pixel (u, v) int32 and the in-view mask."""
-        fx, fy, cx, cy = intr
-        safe_z = torch.where(cam_z > 1e-6, cam_z, 1.0)
-        u = torch.round(fx * cam_x / safe_z + cx).to(torch.int32)
-        v = torch.round(fy * cam_y / safe_z + cy).to(torch.int32)
-        in_view = ((cam_z > 1e-6) & (u >= 0) & (u < self.width) & (v >= 0)
-                   & (v < self.height))
-        return u, v, in_view
+        return project(cam_x, cam_y, cam_z, intr, self.height, self.width)
 
     def pack_frame(self, depth, color_im):
         """Per-frame sampling words: rgb565d16 gives one int32 word per pixel
@@ -822,80 +821,16 @@ class _Integrator:
 
         return (_to_int32_bits(d_mm | (r5 << 16) | (g6 << 21) | (b5 << 27)),)
 
-    def sample_values(self, sample, vc, uc):
-        """(depth (K, BVS) f32, rgb (K, 3, BVS) f32) at the clamped pixels,
-        fetched with the band-sampler kernel on the card."""
-        if self.color_mode == "rgb888":
-            depth_val = band_sample(sample[0], vc, uc).view(torch.float32)
-            packed = band_sample(sample[1], vc, uc)
-            rgb = torch.stack([(packed & 0xFF).to(torch.float32),
-                               ((packed >> 8) & 0xFF).to(torch.float32),
-                               ((packed >> 16) & 0xFF).to(torch.float32)], dim=1)
-            return depth_val, rgb
+    def band_scalars(self, intr, R, obs_weight):
+        """The band update's (16,) f32 scalars of one frame."""
+        return band_scalars(intr, self.trunc_t, self.inv_trunc, obs_weight,
+                            R * self.voxel_f32)
 
-        w = band_sample(sample[0], vc, uc)
-        depth_val = (w & 0xFFFF).to(torch.float32) * 1e-3
-        rgb = torch.stack(
-            [((w >> 16) & 31).to(torch.float32) * (255.0 / 31.0),
-             ((w >> 21) & 63).to(torch.float32) * (255.0 / 63.0),
-             ((w >> 27) & 31).to(torch.float32) * (255.0 / 31.0)], dim=1)
-        return depth_val, rgb
-
-    def update_band(self, state, block_origins, sub_ids, sample, R, t, intr,
-                    obs_weight):
-        """One banded trip over slab rows ``sub_ids``; updates the slab-shaped
-        ``state`` in place (index_copy_: the trip's rows are distinct, and
-        the state is the largest allocation of the run)."""
-        SUB, BVS, trunc = self.SUB, self.BVS, self.trunc_t
-        store = state.tsdf.dtype
-        k = sub_ids.shape[0]
-
-        slab_tsdf = state.tsdf[sub_ids].to(torch.float32)
-        slab_weight = state.weight[sub_ids].to(torch.float32)
-        if SUB == 1:
-            slab_color = state.color[sub_ids].to(torch.float32).reshape(k, 3, BVS)
-            color_ids = None
-        else:
-            rows = torch.div(sub_ids, SUB, rounding_mode="floor")
-            subs = sub_ids % SUB
-            color_ids = [(rows * 3 + ch) * SUB + subs for ch in range(3)]
-            slab_color = torch.stack([state.color[ids] for ids in color_ids],
-                                     dim=1).to(torch.float32)
-
-        cam_x, cam_y, cam_z = self.slab_camera_coords(block_origins, sub_ids, R, t)
-        u, v, in_view = self.project_voxels(cam_x, cam_y, cam_z, intr)
-        vc = torch.clamp(v, 0, self.height - 1)
-        uc = torch.clamp(u, 0, self.width - 1)
-        depth_val, rgb = self.sample_values(sample, vc, uc)
-
-        sdf = depth_val - cam_z
-        valid = in_view & (depth_val > 0.0) & (sdf >= -trunc)
-
-        dist = torch.clamp(sdf * self.inv_trunc, max=1.0)
-        w_obs = torch.where(valid, obs_weight, 0.0)
-
-        w_new = slab_weight + w_obs
-        safe_w = torch.clamp(w_new, min=1e-12)
-
-        # w_obs > 0 guard: a zero obs_weight frame must be a no-op. The
-        # running means are one FMA each (old * w + new * w_obs), as XLA
-        # contracts them on the CPU, so the CPU tests see the JAX package's
-        # rounding.
-        upd = valid & (w_obs > 0.0)
-        tsdf_new = torch.where(upd, torch.addcmul(dist * w_obs, slab_tsdf, slab_weight)
-                               / safe_w, slab_tsdf)
-        color_new = torch.where(upd[:, None],
-                                torch.addcmul(rgb * w_obs[:, None], slab_color,
-                                              slab_weight[:, None]) / safe_w[:, None],
-                                slab_color)
-
-        state.tsdf.index_copy_(0, sub_ids, tsdf_new.to(store))
-        state.weight.index_copy_(0, sub_ids, w_new.to(store))
-        if SUB == 1:
-            state.color.index_copy_(0, sub_ids, color_new.reshape(k, 3 * BVS).to(store))
-        else:
-            for ch in range(3):
-                state.color.index_copy_(0, color_ids[ch], color_new[:, ch].to(store))
+    def update_band(self, state, block_origins, sub_ids, sample, R, t, scal):
+        """Update the band slab rows ``sub_ids`` of the slab-shaped ``state``
+        in place with one frame (:func:`band_update`)."""
+        band_update(state, sub_ids, self.slab_base(block_origins, sub_ids, R, t), scal,
+                    sample, block=self.block, sub=self.SUB)
 
     def update_edge(self, state, block_origins, sub_ids, R, t, intr, obs_weight):
         """One gather-free trip over FREE_EDGE slab rows: every in-view voxel
@@ -935,10 +870,11 @@ class _Integrator:
             state.tsdf.index_copy_(0, ids, tsdf_new.to(store))
             state.weight.index_copy_(0, ids, w_new.to(store))
 
-    def _trips(self, mask, width: int):
-        """The ascending ids of ``mask`` in trips of ``width`` (one host sync
-        for the stream's size)."""
+    def _trips(self, mask, width: Optional[int]):
+        """The ascending ids of ``mask`` in trips of ``width``, or in one trip
+        when ``width`` is None (one host sync for the stream's size)."""
         ids = torch.nonzero(mask).reshape(-1)
+        width = width or max(1, ids.numel())
         return [ids[i:i + width] for i in range(0, ids.numel(), width)]
 
     def to_slabs(self, state: SparseTSDFState) -> SparseTSDFState:
@@ -958,8 +894,9 @@ class _Integrator:
 
     def integrate(self, state: SparseTSDFState, block_origins, depths, colors,
                   world_to_cams, intr, obs_weights) -> None:
-        """Fuse a frame stack into ``state`` in place: band and edge trips per
-        frame, every frame's free weights applied once at the end."""
+        """Fuse a frame stack into ``state`` in place: the band update and
+        the edge trips per frame, every frame's free weights applied once at
+        the end."""
         slabs = self.to_slabs(state)
         free_weights = torch.zeros((state.tsdf.shape[0] * self.SUB,),
                                    dtype=torch.float32, device=state.tsdf.device)
@@ -980,9 +917,13 @@ class _Integrator:
                 block_origins, classes, dmin_blk, dmax_blk, free_ok, R, t,
                 obs_weight)
 
-            for ids in self._trips(band_flat, self.chunk):
-                self.update_band(slabs, block_origins, ids, sample, R, t, intr_s,
-                                 obs_weight)
+            # On the card one kernel launch updates the frame's whole band;
+            # on the CPU the plain version goes in trips of ``chunk`` rows,
+            # which bounds its temporaries.
+            scal = self.band_scalars(intr, R, obs_weight)
+            band_trip = None if slabs.tsdf.is_cuda else self.chunk
+            for ids in self._trips(band_flat, band_trip):
+                self.update_band(slabs, block_origins, ids, sample, R, t, scal)
             # Edge updates carry a per-voxel visibility mask, so unlike
             # whole-block FREE weights they cannot batch across frames.
             for ids in self._trips(edge_flat, self.edge_chunk):

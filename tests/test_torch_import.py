@@ -14,7 +14,8 @@ import pytest
 import torch
 
 import hive_tpu_torch
-from hive_tpu_torch.ops import band_sampler, fused_band, patch_gather, refine_query, tile_gather
+from hive_tpu_torch.ops import (band_sampler, band_update, fused_band, patch_gather, refine_query,
+                                tile_gather)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "hive_tpu_torch")
@@ -162,6 +163,26 @@ def test_wrappers_take_plain_versions_on_cpu():
             patch_gather.launches, fused_band.launches) == (0, 0, 0, 0, 0)
 
 
+KERNEL_MODULES = (band_sampler, band_update, fused_band, patch_gather, refine_query, tile_gather)
+
+
+def test_wrappers_never_fall_back_on_the_card():
+    """A wrapper given CUDA tensors launches its kernel or raises: no kernel
+    module (nor the integrator that calls the band update) catches an
+    exception, and each launcher raises on a non-zero CUDA error."""
+    from hive_tpu_torch.ops import tsdf_sparse
+
+    handler = re.compile(r"^\s*(try\s*:|except\b)", re.MULTILINE)
+    for module in KERNEL_MODULES + (tsdf_sparse,):
+        source = open(module.__file__).read()
+        assert not handler.search(source), module.__name__
+    for module in KERNEL_MODULES:
+        launcher = open(module.__file__).read().split("def _launch(", 1)[1].split("\ndef ", 1)[0]
+        assert re.search(r"if err != 0:\n\s+raise RuntimeError", launcher), module.__name__
+        assert "launches += 1" in launcher, module.__name__
+        assert "_plain(" not in launcher, module.__name__
+
+
 def test_wrappers_check_their_inputs():
     frame = torch.zeros((3, 4), dtype=torch.int32)
     with pytest.raises(ValueError):
@@ -207,8 +228,8 @@ def test_wrappers_check_their_inputs():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["refine_query", "band_sampler", "tile_gather",
-                                    "patch_gather", "fused_band"])
+@pytest.mark.parametrize("kernel", ["refine_query", "band_sampler", "band_update",
+                                    "tile_gather", "patch_gather", "fused_band"])
 def test_kernel_matches_plain_on_card(kernel):
     """On the card each kernel equals its plain version bit for bit (the
     same check chip_smoke.py makes at the main path's shapes)."""
@@ -220,6 +241,9 @@ def test_kernel_matches_plain_on_card(kernel):
     dev = torch.device("cuda", 0)
     if kernel in ("tile_gather", "patch_gather", "fused_band"):
         _check_probe_kernel_on_card(kernel, rng, dev)
+        return
+    if kernel == "band_update":
+        _check_band_update_on_card(rng, dev)
         return
     if kernel == "band_sampler":
         frame = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, (480, 640)),
@@ -240,6 +264,49 @@ def test_kernel_matches_plain_on_card(kernel):
     for got, want in zip(refine_query.refine_query_cells(pyramid, *cells),
                          refine_query.refine_query_plain(pyramid, *cells)):
         assert torch.equal(got, want)
+
+
+def _check_band_update_on_card(rng, dev):
+    """The band update on random states in both dtypes and colour modes, at
+    SUB = 1 and 2, against its plain version: every value bit for bit."""
+    from hive_tpu_torch.ops.tsdf_sparse import SparseTSDFState
+
+    height, width, bvs = 120, 160, 512
+    for dtype in (torch.float32, torch.bfloat16):
+        for words in (1, 2):
+            for sub in (1, 2):
+                rows = 64 * sub
+                state = SparseTSDFState(
+                    torch.as_tensor(rng.uniform(-1, 1, (rows, bvs)), dtype=dtype, device=dev),
+                    torch.as_tensor(rng.integers(0, 4, (rows, bvs)), dtype=dtype, device=dev),
+                    torch.as_tensor(rng.uniform(0, 255, (rows * 3, bvs)), dtype=dtype,
+                                    device=dev))
+                ids = torch.as_tensor(rng.choice(rows, rows // 2, replace=False), device=dev)
+                base = torch.as_tensor(rng.uniform(-0.6, 0.6, (rows // 2, 3)) + [0, 0, 1.5],
+                                       dtype=torch.float32, device=dev)
+                angle = rng.uniform(-0.3, 0.3)
+                rot = torch.tensor([[np.cos(angle), 0, np.sin(angle)], [0, 1, 0],
+                                    [-np.sin(angle), 0, np.cos(angle)]], dtype=torch.float32)
+                scal = band_update.band_scalars(
+                    torch.tensor([100.0, 100.0, 79.5, 59.5]), torch.tensor(0.05),
+                    torch.tensor(1.0) / torch.tensor(0.05), torch.tensor(1.0),
+                    rot * 0.02).to(dev)
+                depth = torch.as_tensor(rng.uniform(1.0, 2.2, (height, width)),
+                                        dtype=torch.float32, device=dev)
+                frames = ((depth.view(torch.int32), torch.as_tensor(
+                    rng.integers(0, 2 ** 24, (height, width)), dtype=torch.int32, device=dev))
+                    if words == 2 else (torch.as_tensor(
+                        rng.integers(-2 ** 31, 2 ** 31, (height, width)), dtype=torch.int32,
+                        device=dev),))
+                want = SparseTSDFState(*(x.clone() for x in state))
+                band_update.band_update_plain(want, ids, base, scal, frames, block=(8, 8),
+                                              sub=sub)
+                band_update.band_update(state, ids, base, scal, frames, block=(8, 8), sub=sub)
+                torch.cuda.synchronize()
+                assert not torch.equal(want.weight, state.weight.new_zeros(state.weight.shape))
+                for got, exp in zip(state, want):
+                    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                    assert torch.equal(got.view(bits), exp.view(bits))
 
 
 def _check_probe_kernel_on_card(kernel, rng, dev):
@@ -265,6 +332,10 @@ def _check_probe_kernel_on_card(kernel, rng, dev):
         v0, u0 = ints(-4, 470, (1024,)), ints(-4, 390, (1024,))
         vv = v0[:, None, None] + ints(-4, 20, (1024, 4, 128))
         uu = u0[:, None, None] + ints(-8, 264, (1024, 4, 128))
+        assert torch.equal(patch_gather.patch_gather(v0, u0, frame, vv, uu),
+                           patch_gather.patch_gather_plain(v0, u0, frame, vv, uu))
+        # 15 samples per block: one sample per thread, no int4.
+        vv, uu = vv[:, :3, :5], uu[:, :3, :5]
         assert torch.equal(patch_gather.patch_gather(v0, u0, frame, vv, uu),
                            patch_gather.patch_gather_plain(v0, u0, frame, vv, uu))
         return
