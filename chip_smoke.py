@@ -30,7 +30,7 @@ Phases (any failure raises and the script exits non-zero):
    version on the same inputs and must agree bit for bit (the band update's
    plain version runs on a snapshot of the frame's band rows, which raises
    the run's peak device memory); the kernels are then timed on the run's
-   largest call;
+   largest call (the band update on the volume's own state);
 7. the tile-gather kernel, both axes, on the gather probe's (8, 128) tile:
    bit-exact vs its plain version, timed beside ``torch.gather``;
 8. the patch-gather kernel on the probe's 1024 blocks x 512 samples, with
@@ -53,8 +53,13 @@ Phases (any failure raises and the script exits non-zero):
 
 Kernel and plain times are device time from torch.profiler's CUPTI trace;
 ``loop_ms`` is a Python loop of launches timed with CUDA events, host cost
-included. ``bound_ms`` is the larger of the bytes the call must move over
-the HBM rate and its operations over the card's non-tensor-core peak.
+included. The band update changes the state it runs on, so each of its
+timed launches runs on its rows as they were before the update, written
+back (and the L2 flushed) before it; it runs once per frame, so it has no
+``loop_ms``. ``bound_ms`` is the larger of the bytes the call must move
+over the HBM rate and its operations over the card's non-tensor-core peak;
+the band update's counts the state of the voxels the frame updates, not of
+every band voxel.
 
 It needs one CUDA card and exits non-zero without one, printing no result.
 """
@@ -183,15 +188,21 @@ def time_sampler(frame, vc, uc):
 
 
 # Operations per voxel of the band update (csrc/band_update.cu), each f32 or
-# integer instruction-level operation counted once (a division as one):
-# in-slab offsets 7; camera coordinates 18 (3 x (3 mul, 3 add)); z guard 2;
-# u and v 10 (2 x (mul, div, add, round, convert)); view test 5; clamps and
-# address 6; unpack 15 (rgb565d16) or 8 (rgb888); update 31 (sdf, 3 tests,
-# scale and clamp, 5 for the weights, 4 x (convert, mul, FMA, div, convert)
-# for tsdf and the colours). Keyed by the frame words per pixel.
-BAND_UPDATE_OPS_PER_VOXEL = {1: 94, 2: 87}
+# integer instruction-level operation counted once (a division as one): for
+# every voxel, in-slab offsets 7, camera coordinates 18 (3 x (3 mul, 3 add)),
+# z guard 2, u and v 10 (2 x (mul, div, add, round, convert)), view test 5;
+# for a voxel in view, clamps and address 6 and the unpack, 15 (rgb565d16)
+# or 8 (rgb888), keyed by the frame words per pixel; for a valid voxel, the
+# update 31 (sdf, 3 tests, scale and clamp, 5 for the weights, 4 x
+# (convert, mul, FMA, div, convert) for tsdf and the colours).
+BAND_UPDATE_OPS = dict(voxel=42, in_view={1: 21, 2: 14}, valid=31)
+# What the band update's bound counts, reported beside its times.
+BAND_UPDATE_COUNTS = ("voxels", "in_view", "valid", "values_changed")
 # Rows per trip where the band update's plain version runs on the card.
 PLAIN_TRIP_ROWS = 4096
+# An L2 flush: reading twice the H100's 50 MB L2 evicts what a setup left
+# there (and leaves clean lines, so no write-back lands in the timed call).
+L2_FLUSH_INTS = 25 << 20
 
 
 def band_update_in_trips(state, ids, base, scal, frames, *, block, sub):
@@ -258,63 +269,88 @@ def band_update_exact(call: dict) -> float:
     return exact_or_raise("band_update", zip(call["state"], want))
 
 
-def band_update_bound(call: dict, after):
-    """The band update's least time on this call. Bytes: every voxel's
-    state read once, each value that changes written once (``after`` is the
-    plain version's result), the id and base of each row, the 64 B of
-    scalars, and each distinct frame word the voxels sample once."""
+def band_update_bound(compact: dict, after):
+    """The band update's least time on this call (``compact``: its rows
+    before the update, as :func:`compact_call` gives them; ``after``: the
+    plain version's result). Whether a voxel is updated depends only on its
+    geometry and the frame, so the function reads the state of the valid
+    voxels only. Bytes: those voxels' 5 values read once, each value that
+    changes written once, the id and base of each row, the 64 B of scalars,
+    and each distinct frame word that a voxel in view samples once."""
     from hive_tpu_torch.ops import band_update as bu
 
-    before, frames, scal = call["state"], call["frames"], call["scal"]
+    before, frames = compact["state"], compact["frames"]
     n, bvs = before[0].shape
     elem = before[0].element_size()
     changed = sum(int(bit_differences(a, b)) for a, b in zip(after, before))
-    height, width = frames[0].shape
-    cam = bu.camera_coords(call["base"], scal[7:].reshape(3, 3),
-                           bu.voxel_offsets(call["block"], bvs, scal.device))
-    u, v, _ = bu.project(*cam, tuple(scal[:4]), height, width)
-    pixels = torch.unique(torch.clamp(v, 0, height - 1).long() * width
-                          + torch.clamp(u, 0, width - 1)).numel()
-    return bound(n * bvs * 5 * elem + changed * elem + n * 20 + 64 + pixels * 4 * len(frames),
-                 n * bvs * BAND_UPDATE_OPS_PER_VOXEL[len(frames)])
+    pixel, in_view, valid, _, _ = bu.observe(compact["base"], compact["scal"], frames,
+                                             block=compact["block"], bvs=bvs)
+    seen, updated = int(in_view.sum()), int(valid.sum())
+    pixels = torch.unique(pixel[in_view]).numel()
+    ops = (n * bvs * BAND_UPDATE_OPS["voxel"] + seen * BAND_UPDATE_OPS["in_view"][len(frames)]
+           + updated * BAND_UPDATE_OPS["valid"])
+    bound_ms, bound_by = bound(updated * 5 * elem + changed * elem + n * 20 + 64
+                               + pixels * 4 * len(frames), ops)
+    return bound_ms, bound_by, dict(zip(BAND_UPDATE_COUNTS, (n * bvs, seen, updated, changed)))
 
 
-def time_band_update(call: dict, tag: str) -> dict:
-    """Kernel, plain and launch-loop times of one band update and its
-    bound; each runs on its own copy of the call's rows, which its reps
-    update again and again."""
+def time_band_update(call: dict, compact: dict, tag: str) -> dict:
+    """Kernel and plain times of one band update, and its bound.
+
+    ``call`` is the update on its own state (scattered slab ids, the
+    integrator's layout), ``compact`` its rows before the update. Each timed
+    launch runs on ``call``'s state after its rows were written back from
+    ``compact`` and the L2 flushed, so every launch makes the whole update
+    from a cold cache; the state after the last launch must equal one update
+    by the plain version, bit for bit. The plain version's work does not
+    depend on the state's values, so it runs again and again on one copy."""
     from hive_tpu_torch.ops import band_update as bu
 
     args, options = band_update_args(call)
+    compact_args, compact_options = band_update_args(compact)
+    after = tuple(x.clone() for x in compact["state"])
+    bu.band_update_plain(after, *compact_args, **compact_options)
+    bound_ms, bound_by, counts = band_update_bound(compact, after)
+    n, bvs = compact["state"][0].shape
+    before = (*compact["state"][:2], compact["state"][2].view(n, 3, bvs))
+    flush = torch.zeros(L2_FLUSH_INTS, dtype=torch.int32, device=call["ids"].device)
 
-    def fresh():
-        return tuple(x.clone() for x in call["state"])
+    def setup():
+        bu.scatter_rows(call["state"], call["ids"], call["sub"], before)
+        flush.sum()
 
-    after = fresh()
-    bu.band_update_plain(after, *args, **options)
-    bound_ms, bound_by = band_update_bound(call, after)
-    del after
-    kernel_state, plain_state = fresh(), fresh()
-    n, bvs = call["state"][0].shape
+    def launch():
+        bu.band_update(call["state"], *args, **options)
+
+    ms, _ = device_profile(launch, reps=10, warmup=2, setup=setup, kernel="band_update_kernel")
+    tsdf, weight, color = bu.gather_rows(call["state"], call["ids"], call["sub"])
+    exact_or_raise("band_update (the state after its timed launches)",
+                   zip((tsdf, weight, color.reshape(n * 3, bvs)), after))
+    plain_state = tuple(x.clone() for x in compact["state"])
     times = dict(
-        ms=device_time_ms(lambda: bu.band_update(kernel_state, *args, **options), reps=20),
-        plain_ms=device_time_ms(lambda: bu.band_update_plain(plain_state, *args, **options),
+        ms=ms, loop_ms=None, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+        plain_ms=device_time_ms(lambda: bu.band_update_plain(plain_state, *compact_args,
+                                                             **compact_options),
                                 reps=3, warmup=1),
-        loop_ms=events_ms(lambda: bu.band_update(kernel_state, *args, **options), reps=20),
-        library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-        shape=f"{n} slab rows x {bvs} voxels, {call['state'][0].dtype} state, "
-              f"{len(call['frames'])} frame word(s) per pixel")
+        **counts,
+        shape=f"{n} slab rows x {bvs} voxels, {compact['state'][0].dtype} state, "
+              f"{len(call['frames'])} frame word(s) per pixel; each launch on the rows as "
+              "before the update, L2 flushed")
     log_times(tag, times)
+    log(f"[{tag}] {counts['voxels']} voxels, {counts['in_view']} in view, {counts['valid']} "
+        f"valid; {counts['values_changed']} values changed (every timed launch: the state "
+        f"after them equals one update)")
     return times
 
 
 def log_times(tag: str, times: dict) -> None:
     library = ("" if times["library_ms"] is None
                else f" {times.get('library', 'take')}={times['library_ms']:.6f} ms")
+    loop = ("" if times["loop_ms"] is None
+            else f"; launch loop {times['loop_ms']:.6f} ms/call (events)")
     log(f"[{tag}] {times['shape']}: kernel={times['ms']:.6f} ms "
-        f"plain={times['plain_ms']:.6f} ms{library} (profiler); launch loop "
-        f"{times['loop_ms']:.6f} ms/call (events); bound={times['bound_ms']:.7f} ms "
-        f"({times['bound_by']})")
+        f"plain={times['plain_ms']:.6f} ms{library} (profiler){loop}; "
+        f"bound={times['bound_ms']:.7f} ms ({times['bound_by']})")
 
 
 def nvidia_smi_line() -> str:
@@ -518,10 +554,10 @@ def check_band_update(device, frames):
                               voxel_size=4.0 / BENCH_GRID, device=device)
     volume.integrate_frames(colors[:2], depths[:2], K, poses[:2])
     call = band_call(volume, frames, 2, device)
-    timed = compact_call(call)
+    compact = compact_call(call)
     err = band_update_exact(call)
-    times = time_band_update(timed, f"band_update, bench shape (frame band "
-                                    f"{call['ids'].numel()} rows), exact")
+    times = time_band_update(call, compact, f"band_update, bench shape (frame band "
+                                            f"{call['ids'].numel()} rows), exact")
     return dict(times, max_abs_err=err)
 
 
@@ -699,15 +735,17 @@ class MainPathCheck:
     def update(self, state, ids, base, scal, frames, *, block, sub):
         from hive_tpu_torch.ops import band_update as bu
 
-        before = compact_call(dict(state=state, ids=ids, base=base, scal=scal, frames=frames,
-                                   block=block, sub=sub))
+        call = dict(state=state, ids=ids, base=base, scal=scal, frames=frames, block=block,
+                    sub=sub)
+        before = compact_call(call)
         want = tuple(x.clone() for x in before["state"])
         bu.band_update(state, ids, base, scal, frames, block=block, sub=sub)
         band_update_in_trips(want, before["ids"], base, scal, frames, block=block, sub=1)
         tsdf, weight, color = bu.gather_rows(state, ids, sub)
         got = (tsdf, weight, color.reshape(tsdf.shape[0] * 3, -1))
-        # The snapshot, bases, scalars and packed frames are this call's own.
-        self._compare("band_update", got, want, int(ids.numel()), lambda: before)
+        # The snapshot, ids, bases, scalars and packed frames are this call's
+        # own; the state is the volume's, which stays alive with them.
+        self._compare("band_update", got, want, int(ids.numel()), lambda: (call, before))
 
     def results(self):
         """Per kernel: calls checked, bit differences, largest |difference|,
@@ -724,7 +762,7 @@ class MainPathCheck:
                 times = time_refine(inputs[0], inputs[1:])
                 log_times(tag, times)
             else:
-                times = time_band_update(inputs, tag)
+                times = time_band_update(*inputs, tag)
             out[name] = dict(times, calls_checked=self.calls[name],
                              max_abs_err=float(self.max_abs_err[name]))
         return out
@@ -1032,8 +1070,10 @@ def main() -> int:
             plain_ms=result["plain_ms"], loop_ms=result["loop_ms"],
             bound_ms=result["bound_ms"], bound_by=result["bound_by"],
             library_ms=result["library_ms"], shape=result["shape"],
-            bench={k: bench[name][k] for k in ("ms", "plain_ms", "library_ms",
-                                               "loop_ms", "bound_ms", "shape")}))
+            **{k: result[k] for k in BAND_UPDATE_COUNTS if k in result},
+            bench={k: bench[name][k] for k in ("ms", "plain_ms", "library_ms", "loop_ms",
+                                               "bound_ms", "shape", *BAND_UPDATE_COUNTS)
+                   if k in bench[name]}))
     # The measurement entry points' kernels: launches are the entry points'
     # runs, times and errors those of the probe phases at their shapes (the
     # band sampler's at the bench shape's 128-row trip, the production

@@ -32,15 +32,19 @@
 // projected, sampled, unpacked and updated in registers. A thread keeps one
 // (ix, iy) column and steps along z, so it divides no index per voxel and
 // adds one term per coordinate. It loads its voxel's state before it
-// samples the frame, so the two loads overlap. The frame (1.2 MB at VGA)
-// stays in the 50 MB L2 and is read with __ldg; a row's tsdf, weight and
-// colour segments are contiguous, so state reads and writes are coalesced.
-// A value that does not change is not written.
+// samples the frame, so the two loads overlap; that reads the state of
+// voxels the frame leaves as they are too, but reading it only for a valid
+// voxel, after the frame word, was slower on an H100 (the two loads in
+// series). The frame (1.2 MB at VGA) stays in the 50 MB L2 and is read
+// with __ldg; a row's tsdf, weight and colour segments are contiguous, so
+// state reads and writes are coalesced. A value that does not change is
+// not written.
 //
-// Bound: device memory. Per voxel, the state read once (10 B for bf16,
-// 20 B for f32) and each changed value written once; per row, its id and
-// base (20 B); each distinct frame word once. The float work (~90
-// operations per voxel) is under a third of that at the card's f32 rate.
+// Bound: device memory. Per valid voxel, its state read once (10 B for
+// bf16, 20 B for f32); each changed value written once; per row, its id and
+// base (20 B); each distinct frame word a voxel in view samples once. The
+// float work (~90 operations per voxel) is under a third of that at the
+// card's f32 rate.
 
 #include <algorithm>
 #include <cstdint>
@@ -85,7 +89,8 @@ __global__ void band_update_kernel(const int64_t* __restrict__ ids,
                                    T* __restrict__ weight, T* __restrict__ color,
                                    int32_t bx, int32_t by, int32_t bvs, int32_t sub) {
     __shared__ float s[kScalars];
-    if (threadIdx.x < kScalars) s[threadIdx.x] = scal[threadIdx.x];
+    // Strided: a slab of fewer than kScalars voxels runs fewer threads.
+    for (int j = threadIdx.x; j < kScalars; j += blockDim.x) s[j] = scal[j];
     const int64_t k = blockIdx.x;
     const int64_t id = ids[k];
     const float b[3] = {base[k * 3], base[k * 3 + 1], base[k * 3 + 2]};

@@ -15,9 +15,8 @@
 // stays in the 50 MB L2, so there is no staging: each thread takes four
 // consecutive samples of one block (one int4 load each of vv and uu, its
 // block's origin once), reads each in-window word with __ldg at
-// (wv + pv, wu + pu) and stores the four as one int4. A block whose sample
-// count is not a multiple of four, or unaligned tensors, take the same
-// kernel one sample per thread.
+// (wv + pv, wu + pu) and stores the four as one int4. The wrapper admits
+// only blocks of a multiple of four samples in 16-byte aligned tensors.
 //
 // Bound: each distinct sampled frame word once, the origins once per block,
 // and 8 B of coordinates in and 4 B out per sample: ~12 B per sample.
@@ -27,7 +26,8 @@
 
 namespace {
 
-template <int kVec>
+constexpr int kVec = 4;
+
 __global__ void patch_gather_kernel(const int32_t* __restrict__ frame,
                                     int32_t height, int32_t width,
                                     const int32_t* __restrict__ v0,
@@ -45,16 +45,11 @@ __global__ void patch_gather_kernel(const int32_t* __restrict__ frame,
     const int32_t wv = min(max(v0b, 0), height - ph);
     const int32_t wu = min(max(u0b, 0), width - pw);
 
-    int32_t v[kVec], u[kVec], o[kVec];
-    if constexpr (kVec == 4) {
-        const int4 v4 = __ldg(reinterpret_cast<const int4*>(vv + first));
-        const int4 u4 = __ldg(reinterpret_cast<const int4*>(uu + first));
-        v[0] = v4.x; v[1] = v4.y; v[2] = v4.z; v[3] = v4.w;
-        u[0] = u4.x; u[1] = u4.y; u[2] = u4.z; u[3] = u4.w;
-    } else {
-        v[0] = vv[first];
-        u[0] = uu[first];
-    }
+    const int4 v4 = __ldg(reinterpret_cast<const int4*>(vv + first));
+    const int4 u4 = __ldg(reinterpret_cast<const int4*>(uu + first));
+    const int32_t v[kVec] = {v4.x, v4.y, v4.z, v4.w};
+    const int32_t u[kVec] = {u4.x, u4.y, u4.z, u4.w};
+    int32_t o[kVec];
 #pragma unroll
     for (int k = 0; k < kVec; ++k) {
         const int32_t pv = v[k] - v0b;
@@ -62,11 +57,7 @@ __global__ void patch_gather_kernel(const int32_t* __restrict__ frame,
         const bool inside = pv >= 0 && pv < ph && pu >= 0 && pu < pw;
         o[k] = inside ? __ldg(frame + static_cast<int64_t>(wv + pv) * width + (wu + pu)) : 0;
     }
-    if constexpr (kVec == 4) {
-        *reinterpret_cast<int4*>(out + first) = make_int4(o[0], o[1], o[2], o[3]);
-    } else {
-        out[first] = o[0];
-    }
+    *reinterpret_cast<int4*>(out + first) = make_int4(o[0], o[1], o[2], o[3]);
 }
 
 }  // namespace
@@ -75,24 +66,16 @@ extern "C" int patch_gather_launch(const void* frame, int32_t height,
                                    int32_t width, const void* v0,
                                    const void* u0, const void* vv,
                                    const void* uu, int32_t blocks, int32_t ph,
-                                   int32_t pw, int32_t per_block, int32_t vec4,
-                                   void* out, void* stream) {
+                                   int32_t pw, int32_t per_block, void* out,
+                                   void* stream) {
     constexpr int kThreads = 256;
     const int64_t total = static_cast<int64_t>(blocks) * per_block;
-    const int vec = vec4 ? 4 : 1;
-    const int64_t grid = (total / vec + kThreads - 1) / kThreads;
-    const auto s = static_cast<cudaStream_t>(stream);
-    const auto launch = [&](auto kernel) {
-        kernel<<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
-            static_cast<const int32_t*>(frame), height, width,
-            static_cast<const int32_t*>(v0), static_cast<const int32_t*>(u0),
-            static_cast<const int32_t*>(vv), static_cast<const int32_t*>(uu),
-            ph, pw, per_block, total, static_cast<int32_t*>(out));
-    };
-    if (vec4) {
-        launch(patch_gather_kernel<4>);
-    } else {
-        launch(patch_gather_kernel<1>);
-    }
+    const int64_t grid = (total / kVec + kThreads - 1) / kThreads;
+    patch_gather_kernel<<<static_cast<unsigned>(grid), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(frame), height, width,
+        static_cast<const int32_t*>(v0), static_cast<const int32_t*>(u0),
+        static_cast<const int32_t*>(vv), static_cast<const int32_t*>(uu),
+        ph, pw, per_block, total, static_cast<int32_t*>(out));
     return static_cast<int>(cudaGetLastError());
 }

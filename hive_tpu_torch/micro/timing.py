@@ -7,7 +7,7 @@ events around it (host cost included). Both need a CUDA device.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -53,11 +53,17 @@ def device_events(prof):
     return sorted(events, key=lambda e: e.time_range.start)
 
 
-def device_profile(fn: Callable[[], object], reps: int = 50,
-                   warmup: int = 5) -> Tuple[float, float]:
+def device_profile(fn: Callable[[], object], reps: int = 50, warmup: int = 5, *,
+                   setup: Optional[Callable[[], object]] = None,
+                   kernel: Optional[str] = None) -> Tuple[float, float]:
     """(device ms, device operations) per call of ``fn()``: the summed
     device time and the count of kernels and copies in torch.profiler's
     CUPTI trace of ``reps`` calls.
+
+    ``setup()``, if given, runs before every call (to give each call fresh
+    inputs); its device work is in the trace, so it needs ``kernel``: only
+    device events whose name holds it are summed, and the trace must hold
+    exactly one of them per call.
 
     Late in a long process a trace can miss its first kernels (up to a few
     dozen), which would drop calls from the sums. So the calls run between
@@ -67,8 +73,16 @@ def device_profile(fn: Callable[[], object], reps: int = 50,
     Raises if ATTEMPTS traces all failed that, or if the trace holds no
     device time."""
     global retakes
-    for _ in range(warmup):
+    if setup is not None and kernel is None:
+        raise ValueError("a setup's device work needs a kernel name to leave it out")
+
+    def call():
+        if setup is not None:
+            setup()
         fn()
+
+    for _ in range(warmup):
+        call()
     torch.cuda.synchronize()
     for attempt in range(ATTEMPTS):
         retakes += attempt > 0
@@ -76,7 +90,7 @@ def device_profile(fn: Callable[[], object], reps: int = 50,
             for _ in range(OPENING):
                 torch.cuda._sleep(100)
             for _ in range(reps):
-                fn()
+                call()
             torch.cuda._sleep(100)
             torch.cuda.synchronize()
         events = device_events(prof)
@@ -84,7 +98,9 @@ def device_profile(fn: Callable[[], object], reps: int = 50,
             break
     else:
         raise RuntimeError(f"{ATTEMPTS} profiler traces lost their first or last kernels")
-    calls = [e for e in events if MARKER not in e.name]
+    calls = [e for e in events if MARKER not in e.name and (kernel is None or kernel in e.name)]
+    if kernel is not None and len(calls) != reps:
+        raise RuntimeError(f"{len(calls)} {kernel} kernels traced in {reps} calls")
     total_us = sum(e.time_range.elapsed_us() for e in calls)
     if total_us <= 0:
         raise RuntimeError("the profiler's trace holds no device time")

@@ -31,9 +31,9 @@ Design (``csrc/band_update.cu``): one launch per frame over every band row,
 one block per slab row, each thread one (x, y) column of the row stepping
 along z. Each voxel is projected, sampled, unpacked and updated in
 registers; the frame (1.2 MB at VGA) stays in L2. Bound on the card: the
-state read once and the changed values written once (20 B per voxel for a
-bf16 state, 40 B for f32), plus 20 B per row and each distinct frame word
-once.
+state of the voxels the frame updates read once and the changed values
+written once (up to 20 B per voxel for a bf16 state, 40 B for f32), plus
+20 B per row and each distinct frame word once.
 """
 
 from __future__ import annotations
@@ -120,23 +120,42 @@ def gather_rows(state, ids: torch.Tensor, sub: int):
             torch.stack([rows[c] for c in color_row_ids(ids, sub)], dim=1))
 
 
+def scatter_rows(state, ids: torch.Tensor, sub: int, rows) -> None:
+    """Write ``rows`` = (tsdf, weight, colour) as :func:`gather_rows` gives
+    them back into slab ids ``ids`` of ``state``, in place."""
+    tsdf, weight, color = state
+    t_rows, w_rows, c_rows = (x.to(tsdf.dtype) for x in rows)
+    # index_copy_: the ids are distinct, and the state is the largest
+    # allocation of the run.
+    tsdf.index_copy_(0, ids, t_rows)
+    weight.index_copy_(0, ids, w_rows)
+    flat = color.view(-1, tsdf.shape[1])
+    for ch, c_ids in enumerate(color_row_ids(ids, sub)):
+        flat.index_copy_(0, c_ids, c_rows[:, ch])
+
+
+def observe(base, scal, frames, *, block: Tuple[int, int], bvs: int):
+    """What the frame says of each voxel of the rows, all (K, BVS): its
+    clamped pixel (flat index), the in-view and valid masks, the sdf, and
+    the colour there (K, 3, BVS)."""
+    height, width = frames[0].shape
+    fx, fy, cx, cy, trunc = scal[:5]
+    cam_x, cam_y, cam_z = camera_coords(base, scal[7:].reshape(3, 3),
+                                        voxel_offsets(block, bvs, base.device))
+    u, v, in_view = project(cam_x, cam_y, cam_z, (fx, fy, cx, cy), height, width)
+    vc, uc = torch.clamp(v, 0, height - 1), torch.clamp(u, 0, width - 1)
+    depth, rgb = sample_words(frames, vc, uc)
+    sdf = depth - cam_z
+    valid = in_view & (depth > 0.0) & (sdf >= -trunc)
+    return vc.long() * width + uc, in_view, valid, sdf, rgb
+
+
 def band_update_plain(state, ids, base, scal, frames, *, block: Tuple[int, int],
                       sub: int) -> None:
     """The plain PyTorch version; see :func:`band_update` for the arguments."""
-    tsdf, weight, color = state
-    store, bvs = tsdf.dtype, tsdf.shape[1]
-    height, width = frames[0].shape
     t_old, w_old, c_old = (x.to(torch.float32) for x in gather_rows(state, ids, sub))
-    fx, fy, cx, cy, trunc, inv_trunc, obs_weight = scal[:7]
-
-    cam_x, cam_y, cam_z = camera_coords(base, scal[7:].reshape(3, 3),
-                                        voxel_offsets(block, bvs, tsdf.device))
-    u, v, in_view = project(cam_x, cam_y, cam_z, (fx, fy, cx, cy), height, width)
-    depth, rgb = sample_words(frames, torch.clamp(v, 0, height - 1),
-                              torch.clamp(u, 0, width - 1))
-
-    sdf = depth - cam_z
-    valid = in_view & (depth > 0.0) & (sdf >= -trunc)
+    inv_trunc, obs_weight = scal[5:7]
+    _, _, valid, sdf, rgb = observe(base, scal, frames, block=block, bvs=t_old.shape[1])
     dist = torch.clamp(sdf * inv_trunc, max=1.0)
     w_obs = torch.where(valid, obs_weight, 0.0)
     w_new = w_old + w_obs
@@ -150,14 +169,7 @@ def band_update_plain(state, ids, base, scal, frames, *, block: Tuple[int, int],
     c_new = torch.where(upd[:, None],
                         torch.addcmul(rgb * w_obs[:, None], c_old, w_old[:, None])
                         / safe_w[:, None], c_old)
-
-    # In place (index_copy_: the ids are distinct, and the state is the
-    # largest allocation of the run).
-    tsdf.index_copy_(0, ids, t_new.to(store))
-    weight.index_copy_(0, ids, w_new.to(store))
-    rows = color.view(-1, bvs)
-    for ch, c_ids in enumerate(color_row_ids(ids, sub)):
-        rows.index_copy_(0, c_ids, c_new[:, ch].to(store))
+    scatter_rows(state, ids, sub, (t_new, w_new, c_new))
 
 
 def _launch(state, ids, base, scal, frames, block, sub):

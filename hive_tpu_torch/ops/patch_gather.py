@@ -49,20 +49,16 @@ def _launch(v0, u0, frame, vv, uu, ph, pw):
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
-                   ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
+                   ctypes.c_void_p]
 
     out = torch.empty(vv.shape, dtype=torch.int32, device=frame.device)
     blocks = v0.shape[0]
     if vv.numel() == 0:
         return out
-    per_block = vv.numel() // blocks
-    # Four samples per thread (int4 loads and stores) where each block's
-    # samples start on a 16-byte boundary.
-    vec4 = per_block % 4 == 0 and all(x.data_ptr() % 16 == 0 for x in (vv, uu, out))
     height, width = frame.shape
     err = fn(frame.data_ptr(), height, width, v0.data_ptr(), u0.data_ptr(), vv.data_ptr(),
-             uu.data_ptr(), blocks, ph, pw, per_block, int(vec4), out.data_ptr(),
+             uu.data_ptr(), blocks, ph, pw, vv.numel() // blocks, out.data_ptr(),
              torch.cuda.current_stream(frame.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"patch_gather kernel launch failed: CUDA error {err}")
@@ -75,7 +71,8 @@ def patch_gather(v0, u0, frame, vv, uu, ph: int = 16, pw: int = 256):
     origins ``v0``/``u0`` (NB,) int32, absolute pixel coordinates
     ``vv``/``uu`` int32 of shape (NB, ...). Returns the words at the
     coordinates, 0 where a coordinate leaves its block's window: the kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+    for CUDA tensors (a multiple of four samples per block), the plain
+    version for CPU tensors."""
     if frame.dim() != 2 or frame.dtype != torch.int32:
         raise ValueError("frame must be a 2-D int32 tensor")
     if any(x.dtype != torch.int32 for x in (v0, u0, vv, uu)):
@@ -92,4 +89,9 @@ def patch_gather(v0, u0, frame, vv, uu, ph: int = 16, pw: int = 256):
         return patch_gather_plain(v0, u0, frame, vv, uu, ph, pw)
     if frame.device.type != "cuda":
         raise ValueError(f"unsupported device {frame.device}")
-    return _launch(*(x.contiguous() for x in (v0, u0, frame, vv, uu)), ph, pw)
+    v0, u0, frame, vv, uu = (x.contiguous() for x in (v0, u0, frame, vv, uu))
+    # The kernel loads and stores four samples of one block as an int4.
+    if vv.numel() // max(1, v0.numel()) % 4 or any(x.data_ptr() % 16 for x in (vv, uu)):
+        raise ValueError("the kernel takes a multiple of 4 samples per block, in "
+                         "16-byte aligned coordinates")
+    return _launch(v0, u0, frame, vv, uu, ph, pw)
