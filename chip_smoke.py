@@ -7,7 +7,8 @@ Phases (any failure raises and the script exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build all six CUDA kernels from ``hive_tpu_torch/csrc`` (one ``nvcc``
-   each, started together);
+   each, started together), then the native host library (``g++``: the
+   extraction weld and the QEM decimation);
 3. the block classification, both instantiations (pass 1 and the refine
    pass, one launch each) vs the plain classification on a bench frame with
    10% invalid depth pixels, without compaction, with the 0.375 cap and
@@ -26,11 +27,18 @@ Phases (any failure raises and the script exits non-zero):
    reps; one traced rep logs the device busy share and the counts of
    ``aten::nonzero``, ``aten::add`` and ``aten::mul``; plus the
    sparse-vs-dense self-check on a small volume;
-6. the main path through the CLI entry point (``python -m hive_tpu_torch
-   ... --background_only``, run in this process) on a 30-frame 640x480
+6. the main path through the CLI entry point (``python -m hive_tpu_torch``,
+   foreground and background, run in this process) on a 30-frame 640x480
    synthetic HIVE dataset this script writes, at the default 5 mm / 320M
    voxel budget: ``bg.glb`` must load and carry the scene's colour
-   gradients. Kernel launch counts are reset just before and read just
+   gradients; ``fg.glb`` must hold one textured mesh per frame (nodes
+   ``000000``-``000029``, UVs in [0, 1], median texel the blob's
+   (200, 64, 64) +- 2) with the blob 0.2-0.8 m in front of the wall;
+   ``profiling.json`` must carry the foreground roll-ups (count >= 30), a
+   native QEM decimation far below the triangulated face count, and both
+   meshes compressed by quantization. The foreground stage runs on host
+   threads beside the background stage and launches nothing on the card.
+   Kernel launch counts are reset just before and read just
    after this run: two classification launches (pass 1, refine) and one
    band update per frame. Every kernel call of the run is also made
    through its plain version on the same inputs and must agree bit for bit
@@ -982,6 +990,86 @@ class MainPathCheck:
         return out
 
 
+def time_png_decode(dataset: str) -> None:
+    """Host time of the port's PNG decoder on one e2e frame as this script
+    writes it (filter 0) and re-encoded with per-row adaptive filters, as
+    Pillow and OpenCV write PNGs: the decoder's cost on a real dataset."""
+    from hive_tpu_torch.image_codecs import encode_png
+    from hive_tpu_torch.io import decode_png
+
+    with open(os.path.join(dataset, "rgb", "000000.png"), "rb") as f:
+        plain = f.read()
+    blobs = {"filter 0": plain, "adaptive filters": encode_png(decode_png(plain))}
+    times = {}
+    for name, blob in blobs.items():
+        start = time.perf_counter()
+        for _ in range(3):
+            decode_png(blob)
+        times[name] = (time.perf_counter() - start) / 3 * 1e3
+    log(f"[io] decode_png of one {E2E_W}x{E2E_H} RGB frame (host): "
+        + ", ".join(f"{name} {ms:.2f} ms" for name, ms in times.items()))
+
+
+FOREGROUND_STAGES = ("binary_mask_creation", "per_object_mesh", "face_filtering",
+                     "mesh_decimation", "floater_removal", "billboard", "texturing",
+                     "texture_atlas_packing")
+
+
+def check_foreground(foreground, background_mesh, profiling) -> None:
+    """The e2e run's fg.glb and its profiling: one textured mesh per frame
+    with the blob's colour, in front of the wall; the foreground roll-ups;
+    native QEM decimation; both parts compressed by quantization."""
+    from hive_tpu_torch import native
+
+    names = [f"{i:06d}" for i in range(E2E_FRAMES)]
+    if foreground.node_names != names:
+        raise AssertionError(f"fg.glb nodes {foreground.node_names}, want {names[0]}-{names[-1]}")
+    for name in names:
+        mesh = foreground.geometry[name]
+        if mesh.num_faces == 0 or mesh.texture is None or mesh.uv is None:
+            raise AssertionError(f"fg.glb frame {name}: no textured faces")
+        if not np.isfinite(mesh.vertices).all() or mesh.uv.min() < 0.0 or mesh.uv.max() > 1.0:
+            raise AssertionError(f"fg.glb frame {name}: vertices not finite or UVs outside "
+                                 f"[0, 1] ({mesh.uv.min()}, {mesh.uv.max()})")
+        median = np.median(mesh.texture.reshape(-1, 3), axis=0)
+        if np.abs(median - (200, 64, 64)).max() > 2:
+            raise AssertionError(f"fg.glb frame {name}: median texel {median}, "
+                                 f"want (200, 64, 64) +- 2")
+    # After the upright flip and centring the wall lies at the largest z and
+    # the blob 0.5 m nearer the camera.
+    gap = float(background_mesh.bounds[1][2] - foreground.geometry[names[0]].bounds[1][2])
+    if not 0.2 < gap < 0.8:
+        raise AssertionError(f"the blob sits {gap:.3f} m in front of the wall, want 0.2-0.8")
+
+    timing = profiling["timing"]["foreground_reconstruction"]
+    rollups = {stage: timing[stage] for stage in FOREGROUND_STAGES}
+    rollups["per_object_mesh"] = rollups["per_object_mesh"]["total"]
+    rollups["face_triangulation"] = timing["per_object_mesh"]["face_triangulation"]
+    for stage, rollup in rollups.items():
+        if set(rollup) != {"count", "total", "mean"} or rollup["count"] < E2E_FRAMES:
+            raise AssertionError(f"foreground roll-up {stage}: {rollup}")
+    faces = profiling["mesh_decimation"]["face_count"]
+    lib = native.get_native_lib()
+    if lib is None or not faces["after"]["total"] * 10 < faces["before"]["total"]:
+        raise AssertionError(f"decimation: native library {lib}, faces {faces}")
+    for part in ("foreground", "background"):
+        stats = profiling["mesh_compression"].get(part, {})
+        if stats.get("method") != "quantization" or not (
+                stats["compressed_file_size"] < stats["uncompressed_file_size"]):
+            raise AssertionError(f"{part} mesh not compressed by quantization: {stats}")
+
+    sizes = profiling["file_size"]["foreground"]
+    log(f"[e2e] fg.glb {len(names)} textured frames, blob {gap:.4f} m in front of the wall; "
+        f"faces per frame {faces['before']['mean']:.1f} before decimation, "
+        f"{faces['after']['mean']:.1f} after (native QEM); fg.glb {sizes['total']} B, "
+        f"{sizes['per_frame']} B per frame, quantized from "
+        f"{profiling['mesh_compression']['foreground']['uncompressed_file_size']} B")
+    log(f"[e2e] foreground stage {timing['total']:.4f} s beside the background stage "
+        f"{profiling['timing']['background_reconstruction']['total']:.4f} s (overlapped: "
+        f"{profiling['timing']['stages_overlapped']}); sub-stages, total / mean per object (s): "
+        + ", ".join(f"{stage} {r['total']:.4f} / {r['mean']:.6f}" for stage, r in rollups.items()))
+
+
 def run_main_path(device, launches):
     from hive_tpu_torch.meshing.gltf import load_glb
     from hive_tpu_torch.ops import tsdf_sparse
@@ -993,10 +1081,10 @@ def run_main_path(device, launches):
         write_hive_dataset(dataset, E2E_FRAMES, E2E_W, E2E_H)
         log(f"[e2e] wrote {E2E_FRAMES} frames of {E2E_W}x{E2E_H} in "
             f"{time.perf_counter() - start:.1f} s")
+        time_png_decode(dataset)
 
         argv = ["hive_tpu_torch", "--dataset_path", dataset, "--output_path", dataset,
-                "--background_only", "--num_frames", str(E2E_FRAMES),
-                "--key_frame_threshold", "1.0", "--overwrite_ok",
+                "--num_frames", str(E2E_FRAMES), "--key_frame_threshold", "1.0", "--overwrite_ok",
                 "--webxr_path", os.path.join(tmp, "webxr"),
                 "--log_file", os.path.join(tmp, "pipeline.log")]
         reset_launch_counts()
@@ -1014,6 +1102,7 @@ def run_main_path(device, launches):
         with open(os.path.join(dataset, "profiling.json")) as f:
             profiling = json.load(f)
         scene = load_glb(os.path.join(dataset, "mesh", "bg.glb"))
+        foreground = load_glb(os.path.join(dataset, "mesh", "fg.glb"))
         mesh = next(iter(scene.geometry.values()))
         verts, cols = mesh.vertices, mesh.vertex_colors
 
@@ -1025,6 +1114,7 @@ def run_main_path(device, launches):
         raise AssertionError(f"bg.glb colour gradients lost: corr(x, G) {corr_x:.3f}, "
                              f"corr(y, B) {corr_y:.3f}")
     check_launches("the main path", launches["main"], E2E_FRAMES)
+    check_foreground(foreground, mesh, profiling)
 
     def rounded(tree):
         return {k: rounded(v) if isinstance(v, dict) else round(v, 4)
@@ -1239,7 +1329,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from hive_tpu_torch import get_device
+    from hive_tpu_torch import get_device, native
     from hive_tpu_torch.ops import cuda_build
 
     device = get_device()
@@ -1251,6 +1341,12 @@ def main() -> int:
     cuda_build.build(["classify_blocks", "band_update", "band_sampler", "tile_gather",
                       "patch_gather", "fused_band"])
     log(f"[build] all six kernels in {time.perf_counter() - start:.1f} s")
+    # The host library (extraction weld, QEM decimation) builds at first
+    # use; built here, its g++ time stays out of the e2e run's stage times.
+    start = time.perf_counter()
+    if native.get_native_lib() is None:
+        raise RuntimeError("the native host library did not build")
+    log(f"[build] the native host library (g++) in {time.perf_counter() - start:.1f} s")
 
     frames = bench_frames(device)
     bench = {**check_classify(device, frames),

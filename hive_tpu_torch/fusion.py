@@ -1,13 +1,19 @@
 """Static background reconstruction: TSDF fusion on the card.
 
-Counterpart of ``hive_tpu/fusion.py`` ``adjust_voxel_size`` (:30) and
-``tsdf_fusion`` (:91). BundleFusion and multi-device sharding are not part
-of this slice.
+Counterpart of ``hive_tpu/fusion.py`` ``adjust_voxel_size`` (:30),
+``tsdf_fusion`` (:91), and the code that configures and runs the external
+BundleFusion binary (``BundleFusionConfig`` :264, ``get_bundle_fusion_path``
+:361, ``bundle_fusion`` :370). Multi-device sharding is not part of the port yet.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import re
+import subprocess
+from collections import OrderedDict
+from os.path import join as pjoin
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -17,7 +23,9 @@ from hive_tpu_torch import get_device
 from hive_tpu_torch.image_processing import dilate_mask
 from hive_tpu_torch.io import HiveDataset
 from hive_tpu_torch.meshing.mesh import TriangleMesh
-from hive_tpu_torch.options import BackgroundMeshOptions, MaskDilationOptions
+from hive_tpu_torch.meshing.ply import load_ply
+from hive_tpu_torch.options import (BackgroundMeshOptions, MaskDilationOptions,
+                                    MeshReconstructionMethod)
 from hive_tpu_torch.ops.tsdf import TSDFVolume, estimate_volume_bounds_from_max_depths
 from hive_tpu_torch.utils import timed_block, tqdm_imap
 
@@ -176,3 +184,187 @@ def tsdf_fusion(dataset: HiveDataset, options: BackgroundMeshOptions = Backgroun
 
     return TriangleMesh(vertices=verts, faces=faces, vertex_colors=colors,
                         vertex_normals=norms)
+
+
+class BundleFusionConfig:
+    """Parser/writer for BundleFusion's ``key = value;`` config format.
+
+    File-format compatible with ``hive_tpu.fusion.BundleFusionConfig`` so
+    generated configs drive the stock BundleFusion binary.
+    """
+
+    _DELIMITER_PATTERN = re.compile(r"[;#]|(//)")
+
+    def __init__(self, **kwargs):
+        self.config_dict = OrderedDict(**kwargs)
+
+    def __getitem__(self, key):
+        return self.config_dict[key]
+
+    def __setitem__(self, key, value):
+        if key in self.config_dict and type(value) is not type(self.config_dict[key]):
+            logging.warning(f'Config entry "{key}" changes type: '
+                            f"{type(self.config_dict[key]).__name__} -> "
+                            f"{type(value).__name__}.")
+
+        self.config_dict[key] = value
+
+    @staticmethod
+    def load(f) -> "BundleFusionConfig":
+        if isinstance(f, str):
+            with open(f) as fp:
+                return BundleFusionConfig._parse(fp)
+
+        return BundleFusionConfig._parse(f)
+
+    @staticmethod
+    def _convert_value(text: str):
+        if text.startswith('"') and text.endswith('"'):
+            return text.strip('"')
+        if text == "true":
+            return True
+        if text == "false":
+            return False
+        if text.endswith("f"):
+            return float(text[:-1])
+        return int(text)
+
+    @classmethod
+    def _parse(cls, fp) -> "BundleFusionConfig":
+        config = OrderedDict()
+
+        for line in fp:
+            line = line.strip()
+
+            if match := re.search(cls._DELIMITER_PATTERN, line):
+                line = line[:match.start()]
+
+            if "=" not in line:
+                continue
+
+            name, _, values = line.partition("=")
+            name = name.strip()
+            values = values.strip()
+
+            if not name or not values:
+                continue
+
+            parts = values.split(" ")
+            config[name] = ([cls._convert_value(part) for part in parts]
+                            if len(parts) > 1 else cls._convert_value(values))
+
+        return BundleFusionConfig(**config)
+
+    @staticmethod
+    def _to_string(value) -> str:
+        if isinstance(value, list):
+            return " ".join(BundleFusionConfig._to_string(item) for item in value)
+        if isinstance(value, bool):
+            return str(value).lower()
+        if isinstance(value, float):
+            return f"{value}f"
+        if isinstance(value, int):
+            return str(value)
+        if isinstance(value, str):
+            return f'"{value}"'
+
+        raise ValueError(f"The type '{type(value)}' is not supported for serialisation. "
+                         f"Supported types are list, float, int, bool and str.")
+
+    def save(self, f):
+        if isinstance(f, str):
+            with open(f, "w") as fp:
+                self._write(fp)
+        else:
+            self._write(f)
+
+    def _write(self, fp):
+        for name, value in self.config_dict.items():
+            fp.write(f"{name} = {self._to_string(value)};\n")
+
+
+def get_bundle_fusion_path() -> str:
+    try:
+        return os.environ["BUNDLE_FUSION_PATH"]
+    except KeyError:
+        logging.error("BUNDLE_FUSION_PATH is not set in the environment; point it "
+                      "at the folder holding BundleFusion's default config files.")
+        raise
+
+
+def bundle_fusion(output_folder: str, dataset: HiveDataset,
+                  options: BackgroundMeshOptions = BackgroundMeshOptions(
+                      MeshReconstructionMethod.BundleFusion),
+                  num_frames: int = -1) -> TriangleMesh:
+    """Run the external BundleFusion binary on a dataset and load its mesh.
+
+    Same contract as ``hive_tpu.fusion.bundle_fusion``: configures
+    intrinsics/voxel parameters, runs the binary (``BUNDLE_FUSION_BIN``), loads
+    `mesh.ply` and undoes BundleFusion's x-axis reflection. Runs on the host;
+    the card does nothing here.
+    """
+    if num_frames == -1:
+        num_frames = dataset.num_frames
+
+    frame_set = list(range(num_frames))
+    bundle_fusion_path = get_bundle_fusion_path()
+
+    logging.info("Masking dynamic objects out of the depth maps for BundleFusion...")
+    dataset.create_masked_depth(
+        MaskDilationOptions(num_iterations=options.depth_mask_dilation_iterations))
+
+    dataset_path = os.path.abspath(dataset.base_path)
+    output_path = pjoin(dataset_path, output_folder)
+    os.makedirs(output_path, exist_ok=True)
+
+    voxel_size, volume_bounds = adjust_voxel_size(dataset=dataset, options=options,
+                                                  frame_set=frame_set)
+    max_distance = float(np.ceil(np.max(volume_bounds[:, 1] - volume_bounds[:, 0])))
+
+    logging.info("Writing the BundleFusion config files...")
+    config = BundleFusionConfig.load(pjoin(bundle_fusion_path, "zParametersDefault.txt"))
+    config["s_SDFMaxIntegrationDistance"] = max_distance
+    config["s_SDFVoxelSize"] = float(voxel_size)
+    config["s_cameraIntrinsicFx"] = int(dataset.fx)
+    config["s_cameraIntrinsicFy"] = int(dataset.fy)
+    config["s_cameraIntrinsicCx"] = int(dataset.cx)
+    config["s_cameraIntrinsicCy"] = int(dataset.cy)
+    config["s_generateMeshDir"] = output_path
+    config_output_path = pjoin(output_path, "bundleFusionConfig.txt")
+    config.save(config_output_path)
+
+    bundling_config = BundleFusionConfig.load(
+        pjoin(bundle_fusion_path, "zParametersBundlingDefault.txt"))
+    submap_size = bundling_config["s_submapSize"]
+    # `+ submap_size` avoids off-by-one errors in BundleFusion's submap logic.
+    bundling_config["s_maxNumImages"] = (num_frames + submap_size) // submap_size
+    bundling_config_output_path = pjoin(output_path, "bundleFusionBundlingConfig.txt")
+    bundling_config.save(bundling_config_output_path)
+
+    if dataset.has_inpainted_frame_data:
+        rgb_folder = dataset.inpainted_rgb_folder
+        depth_folder = dataset.inpainted_depth_folder
+    else:
+        rgb_folder = dataset.rgb_folder
+        depth_folder = dataset.masked_depth_folder
+
+    cmd = [os.environ["BUNDLE_FUSION_BIN"], config_output_path, bundling_config_output_path,
+           dataset_path, rgb_folder, depth_folder]
+    log_path = pjoin(output_path, "log.txt")
+    logging.info(f"Launching BundleFusion: {' '.join(cmd)}")
+
+    with subprocess.Popen(cmd, stdout=subprocess.PIPE, bufsize=1,
+                          universal_newlines=True) as p, open(log_path, "w") as log_file:
+        for line in p.stdout:
+            log_file.write(line)
+
+    if p.returncode != 0:
+        raise RuntimeError(f"BundleFusion exited with an error; see its log at "
+                           f"{os.path.abspath(log_path)}.")
+
+    mesh = load_ply(pjoin(output_path, "mesh.ply"))
+
+    # BundleFusion meshes come out reflected along the x-axis; reflect back.
+    mesh.apply_transform(np.diag([-1.0, 1.0, 1.0, 1.0]))
+
+    return mesh

@@ -3,14 +3,15 @@
 Counterpart of ``hive_tpu/io.py``: the raw float32 codec (:56, :81),
 ``ImageFolderDataset`` (:111), ``DatasetMetadata`` (:626),
 ``make_depth_map_transform`` (:733), the ``HiveDataset`` read path (:746)
-with ``select_key_frames`` (:986), and ``temporary_trajectory``. Conversion
-from other formats (``COLMAPProcessor``, ``create_masks``,
-``create_masked_depth``) comes with a later slice.
+with ``create_masked_depth`` (:936) and ``select_key_frames`` (:986), and
+``temporary_trajectory``. Conversion from other formats (``COLMAPProcessor``,
+``create_masks``) comes with a later slice.
 
 The port depends on neither Pillow nor OpenCV, so PNGs — the
 format the HIVE layout stores its frames in — are decoded here with
 ``zlib`` and ``struct``: 8/16-bit grey, grey+alpha, RGB and RGBA,
-non-interlaced, all five scanline filters.
+non-interlaced, all five scanline filters; the masked depth maps are
+written with :func:`hive_tpu_torch.image_codecs.encode_png`.
 """
 
 from __future__ import annotations
@@ -32,7 +33,9 @@ import numpy as np
 from hive_tpu_torch.custom_types import File
 from hive_tpu_torch.geometric import (Trajectory, get_pose_components, point_cloud_from_depth,
                                       pose_vec2mat, world2image)
-from hive_tpu_torch.options import COLMAPOptions
+from hive_tpu_torch.image_codecs import encode_png
+from hive_tpu_torch.image_processing import dilate_mask
+from hive_tpu_torch.options import COLMAPOptions, MaskDilationOptions
 from hive_tpu_torch.utils import Domain, check_domain, tqdm_imap
 
 
@@ -426,6 +429,7 @@ class HiveDataset(Dataset):
     rgb_folder = "rgb"
     depth_folder = "depth"
     mask_folder = "mask"
+    masked_depth_folder = "masked_depth"
 
     inpainted_rgb_folder = f"{rgb_folder}_inpainted"
     inpainted_depth_folder = f"{depth_folder}_inpainted"
@@ -448,6 +452,8 @@ class HiveDataset(Dataset):
         self.mask_dataset = ImageFolderDataset(self.path_to_masks)
 
         self.inpainted_rgb_dataset, self.inpainted_depth_dataset = self._get_inpainted_frame_data()
+
+        self._masked_depth_path: Optional[str] = None
 
     # -- paths ---------------------------------------------------------------
     @property
@@ -561,6 +567,14 @@ class HiveDataset(Dataset):
         """Vertical field of view in degrees."""
         return float(np.rad2deg(2.0 * np.arctan2(self.frame_height, 2.0 * self.fy)))
 
+    @property
+    def masked_depth_path(self) -> str:
+        if self._masked_depth_path:
+            return self._masked_depth_path
+
+        raise RuntimeError("This dataset has no masked depth maps; call "
+                           "`.create_masked_depth()` first.")
+
     def __len__(self):
         return self.num_frames
 
@@ -586,6 +600,56 @@ class HiveDataset(Dataset):
     @staticmethod
     def index_to_filename(index: int, file_extension: str = "png") -> str:
         return f"{index:06d}.{file_extension}"
+
+    # -- derived data --------------------------------------------------------
+    def create_masked_depth(self,
+                            dilation_options=MaskDilationOptions(num_iterations=64)) -> "HiveDataset":
+        """Write depth maps with (dilated) dynamic-object regions zeroed out,
+        as 16-bit millimetre PNGs.
+
+        Cached on disk, keyed on the dilation iteration count recorded in the
+        metadata (the contract of ``hive_tpu.io.HiveDataset.create_masked_depth``).
+        """
+        start = datetime.datetime.now()
+
+        masked_depth_path = pjoin(str(self.base_path), self.masked_depth_folder)
+
+        if os.path.isdir(masked_depth_path) and len(os.listdir(masked_depth_path)) == len(self):
+            if self.metadata.depth_mask_dilation_iterations == dilation_options.num_iterations:
+                logging.info(f"Reusing cached masked depth maps from {masked_depth_path}")
+                self._masked_depth_path = masked_depth_path
+                return self
+
+            logging.warning(
+                f"Cached masked depth maps used "
+                f"{self.metadata.depth_mask_dilation_iterations} dilation iterations but "
+                f"{dilation_options.num_iterations} were requested — regenerating them.")
+
+        logging.info(f"Writing masked depth maps into {masked_depth_path}")
+        os.makedirs(masked_depth_path, exist_ok=True)
+
+        def save_masked_depth(i):
+            depth_map = self.depth_dataset[i]
+            mask = self.mask_dataset[i]
+            binary_mask = dilate_mask(mask > 0, dilation_options)
+
+            depth_map = depth_map.copy()
+            depth_map[binary_mask] = 0.0
+            as_mm = (depth_map / self.depth_scaling_factor).astype(np.uint16)
+            with open(pjoin(masked_depth_path, f"{i:06d}.png"), "wb") as f:
+                f.write(encode_png(as_mm))
+
+        tqdm_imap(save_masked_depth, range(len(self)))
+
+        self.metadata.depth_mask_dilation_iterations = dilation_options.num_iterations
+        self.metadata.save(self.path_to_metadata)
+        self._masked_depth_path = masked_depth_path
+
+        elapsed = datetime.datetime.now() - start
+        logging.info(f"Masked depth maps written: {len(os.listdir(masked_depth_path))} "
+                     f"(took {elapsed})")
+
+        return self
 
     def select_key_frames(self, threshold: float = 0.3, frame_step: int = 30) -> List[int]:
         """Greedy key-frame selection by view-overlap ratio.

@@ -5,11 +5,13 @@ is a self-contained writer producing the same renderer-facing contract: one
 node per frame mesh (named ``000000``, ``000001``, ...), textured primitives
 with a baseColorTexture, or vertex-coloured primitives for TSDF meshes. A
 reader is included for round-trip tests and for re-ingesting exported scenes.
+Textures are PNG or JPEG, written and read with the port's own codecs
+(:mod:`hive_tpu_torch.image_codecs`, ``hive_tpu_torch.io.decode_png``): the
+JAX package's counterpart, ``hive_tpu/meshing/gltf.py``, uses Pillow.
 """
 
 from __future__ import annotations
 
-import io
 import json
 import shutil
 import struct
@@ -17,6 +19,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from hive_tpu_torch.image_codecs import decode_jpeg, encode_jpeg, encode_png
+from hive_tpu_torch.io import decode_png
 from hive_tpu_torch.meshing.mesh import Scene, TriangleMesh
 
 _GLB_MAGIC = 0x46546C67  # 'glTF'
@@ -183,31 +187,24 @@ def export_scene(scene: Scene, output_path: str, quantize: bool = False):
             # mesh size) — and keeps whichever is smaller per texture (PNG
             # wins on flat synthetic content). A payload cached by load_glb
             # (same texture array object) skips the PNG re-encode entirely.
-            # Pillow only for textured meshes: vertex-coloured export needs
-            # nothing beyond numpy.
-            from PIL import Image
-
-            image = Image.fromarray(mesh.texture.astype(np.uint8))
+            texture = np.asarray(mesh.texture).astype(np.uint8)
             cached = getattr(mesh, "_texture_payload", None)
 
             if cached is not None and cached[2] is mesh.texture:
                 payload, mime = cached[0], cached[1]
             else:
-                png = io.BytesIO()
-                image.save(png, format="PNG")
-                payload, mime = png.getvalue(), "image/png"
+                payload, mime = encode_png(texture), "image/png"
 
             # JPEG cannot carry alpha; only offer it for RGB textures — and
             # never re-encode an already-JPEG cached payload: a fresh q92
             # encode of decoded JPEG pixels is usually byte-smaller (double
             # compression), so the size test would accept another
-            # generation of loss on EVERY quantize pass (review finding,
-            # r5).
-            if quantize and image.mode == "RGB" and mime != "image/jpeg":
-                jpeg = io.BytesIO()
-                image.save(jpeg, format="JPEG", quality=92)
-                if jpeg.getbuffer().nbytes < len(payload):
-                    payload, mime = jpeg.getvalue(), "image/jpeg"
+            # generation of loss on every quantize pass.
+            is_rgb = texture.ndim == 3 and texture.shape[2] == 3
+            if quantize and is_rgb and mime != "image/jpeg":
+                jpeg = encode_jpeg(texture, quality=92)
+                if len(jpeg) < len(payload):
+                    payload, mime = jpeg, "image/jpeg"
 
             img_view = builder.add_view(payload)
 
@@ -394,6 +391,19 @@ def _patch_glb_json(path: str, updates: dict) -> None:
         fh.write(rest)
 
 
+def _decode_texture(image_bytes: bytes) -> np.ndarray:
+    """A PNG or JPEG texture, told apart by its signature, as (H, W, 3) RGB."""
+    if image_bytes[:8] == b"\x89PNG\r\n\x1a\n":
+        texture = decode_png(image_bytes)
+    elif image_bytes[:2] == b"\xff\xd8":
+        texture = decode_jpeg(image_bytes)
+    else:
+        raise ValueError("a glTF texture must be a PNG or a JPEG image")
+    if texture.ndim == 2:
+        texture = np.repeat(texture[..., None], 3, axis=-1)
+    return texture
+
+
 def load_glb(path: str) -> Scene:
     """Read a .glb file written by :func:`export_scene` (or any simple glTF)."""
     with open(path, "rb") as fh:
@@ -510,10 +520,7 @@ def load_glb(path: str) -> Scene:
 
                     start = image_view.get("byteOffset", 0)
                     image_bytes = binary[start:start + image_view["byteLength"]]
-                    from PIL import Image
-
-                    texture = np.asarray(
-                        Image.open(io.BytesIO(image_bytes)).convert("RGB"))
+                    texture = _decode_texture(image_bytes)
                     texture_payload = (image_bytes, image_spec["mimeType"],
                                        texture)
 
@@ -547,7 +554,8 @@ def write_gzip_sibling(path: str) -> int:
     return its size in bytes.
 
     The transfer-side half of the native compression fallback: the in-tree
-    viewer server (hive_tpu.viewer, not yet ported) serves ``X.glb`` from ``X.glb.gz`` with
+    viewer server (``hive_tpu.viewer``; its port is ROADMAP.md Queue 1 item
+    14) serves ``X.glb`` from ``X.glb.gz`` with
     ``Content-Encoding: gzip`` when the client accepts it (every browser
     does, decoding transparently) — so over the wire the quantized fallback
     reaches the external draco_transcoder's compression class

@@ -1,8 +1,10 @@
-"""Native (C++) host weld, loaded via ctypes.
+"""Native (C++) host code, loaded via ctypes: the extraction weld and the
+QEM decimation.
 
-Counterpart of ``hive_tpu/native`` for the extraction weld only
-(``src/weld.cpp`` is a copy of the JAX package's). The shared library builds
-on demand with g++ the first time it is needed, into
+Counterpart of ``hive_tpu/native`` (``src/weld.cpp`` and
+``src/qem_decimate.cpp`` are copies of the JAX package's, built with the same
+flags, so both packages decimate a mesh to the same bits). The shared library
+builds on demand with g++ the first time it is needed, into
 ``hive_tpu_torch/_build/``. Callers fall back to numpy when no toolchain is
 available. This is host code, not a device kernel.
 """
@@ -19,9 +21,9 @@ from typing import Optional
 _NATIVE_DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_NATIVE_DIR, "src")
 _BUILD_DIR = os.path.join(os.path.dirname(_NATIVE_DIR), "_build")
-_LIB_PATH = os.path.join(_BUILD_DIR, "libhive_weld.so")
+_LIB_PATH = os.path.join(_BUILD_DIR, "libhive_native.so")
 
-_SOURCES = ["weld.cpp"]
+_SOURCES = ["qem_decimate.cpp", "weld.cpp"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -94,6 +96,15 @@ def get_native_lib() -> Optional[ctypes.CDLL]:
             return None
 
         import ctypes as ct
+
+        lib.hive_qem_decimate.restype = ct.c_int
+        lib.hive_qem_decimate.argtypes = [
+            ct.POINTER(ct.c_double), ct.c_int,
+            ct.POINTER(ct.c_int), ct.c_int,
+            ct.c_int, ct.c_double,
+            ct.POINTER(ct.c_double), ct.POINTER(ct.c_int),
+            ct.POINTER(ct.c_int), ct.POINTER(ct.c_int),
+        ]
 
         lib.hive_weld_unique.restype = ct.c_int64
         lib.hive_weld_unique.argtypes = [

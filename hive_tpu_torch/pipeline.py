@@ -1,12 +1,16 @@
-"""End-to-end pipeline: RGB-D sequence → bg.glb + metadata, on the card.
+"""End-to-end pipeline: RGB-D sequence → fg.glb + bg.glb + metadata.
 
-Counterpart of ``hive_tpu/pipeline.py``'s background path: ``run``,
-``_create_background_scene``, ``create_static_mesh``, ``_center_scenes``
-(non-BundleFusion branch), ``_write_meshes_to_disk``,
-``_compress_with_draco`` (the quantize branch), the WebXR export and
-``profiling.json``. The CLI flag roster is the JAX package's; options whose
-stages are not ported yet raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+Counterpart of ``hive_tpu/pipeline.py``: ``run`` with the foreground stage
+overlapping the background stage (:195-250), the TSDF, RGBD and BundleFusion
+background methods, per-frame foreground meshing (``_create_scene``,
+``process_frame``, ``_mesh_single_frame``, :372-599), ``_center_scenes``
+with ``--align_scene`` and the BundleFusion alignment, the export with its
+draco or quantize compression (:806-904), the WebXR copy and
+``profiling.json`` with its per-frame roll-ups (:1045-1096). The background's
+TSDF fusion runs on the card; the foreground stays host numpy, scipy and
+native C++ in worker threads, as in the JAX package. The CLI flag roster is
+the JAX package's; options whose stages are not ported yet raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -18,26 +22,36 @@ import logging
 import os
 import resource
 import shutil
+import subprocess
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from os.path import join as pjoin
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import Any, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from hive_tpu_torch import get_device
+from hive_tpu_torch.geometric import get_pose_components, point_cloud_from_depth
+from hive_tpu_torch.image_processing import dilate_mask
 from hive_tpu_torch.io import HiveDataset
-from hive_tpu_torch.meshing.gltf import export_scene
+from hive_tpu_torch.meshing.components import cleanup_with_connected_components
+from hive_tpu_torch.meshing.decimate import decimate_mesh
+from hive_tpu_torch.meshing.gltf import export_scene, quantize_glb, write_gzip_sibling
 from hive_tpu_torch.meshing.mesh import Scene, TriangleMesh
+from hive_tpu_torch.meshing.texture import get_mesh_texture_and_uv, pack_textures
+from hive_tpu_torch.meshing.triangulate import (filter_faces, triangulate_grid,
+                                                triangulate_points)
 from hive_tpu_torch.options import (BackgroundMeshOptions, COLMAPOptions,
                                     ForegroundTrajectorySmoothingOptions, InpaintingMode,
                                     MaskDilationOptions, MeshDecimationOptions,
                                     MeshFilteringOptions, MeshReconstructionMethod,
                                     PipelineOptions, StorageOptions, WebXROptions)
-from hive_tpu_torch.utils import format_bytes, set_key_path, setup_logger, timed_block
+from hive_tpu_torch.utils import (format_bytes, get_key_path, set_key_path, setup_logger,
+                                  timed_block, tqdm_imap)
 
 
 def _not_ported(what: str, item: str):
@@ -46,10 +60,10 @@ def _not_ported(what: str, item: str):
 
 
 class Pipeline:
-    """Converts an RGB-D sequence with known poses into a 3D mesh video
-    (background reconstruction in this slice)."""
+    """Converts an RGB-D sequence with known poses into a 3D mesh video."""
 
     mesh_folder = "mesh"
+    bundle_fusion_folder = "bundle_fusion"
 
     def __init__(self, options: PipelineOptions, storage_options: StorageOptions,
                  decimation_options=MeshDecimationOptions(),
@@ -120,10 +134,7 @@ class Pipeline:
             yield timer
 
     def _check_ported(self):
-        """Refuse the options whose stages this slice does not port."""
-        if not self.options.background_only:
-            raise _not_ported("Foreground meshing (run with --background_only)",
-                              "Queue 1 item 8")
+        """Refuse the options whose stages are not ported yet."""
         if self.options.estimate_pose:
             raise _not_ported("--estimate_pose", "Queue 1 item 12")
         if self.options.estimate_depth:
@@ -132,15 +143,8 @@ class Pipeline:
             raise _not_ported("--inpainting_mode", "Queue 1 item 11")
         if self.options.num_devices != 1:
             raise _not_ported("--num_devices", "Queue 1 item 14")
-        if self.options.align_scene:
-            raise _not_ported("--align_scene", "Queue 1 item 8")
         if self.fts_options.num_epochs > 0:
             raise _not_ported("Foreground trajectory smoothing", "Queue 1 item 12")
-        if self.background_mesh_options.reconstruction_method \
-                != MeshReconstructionMethod.TSDFFusion:
-            raise _not_ported(f"--mesh_reconstruction_method "
-                              f"{self.background_mesh_options.reconstruction_method.name}",
-                              "Queue 1 item 8")
         if self.webxr_options.webxr_run_server:
             raise _not_ported("--webxr_run_server (the viewer)", "Queue 1 item 14")
 
@@ -165,22 +169,48 @@ class Pipeline:
             else:
                 self.options.num_frames = min(self.num_frames, dataset.num_frames)
 
-        # The foreground stage is empty under --background_only; the stages
-        # run one after the other.
-        set_key_path(self.profiling, ["timing", "stages_overlapped"], False)
+        # Foreground meshing is host work (numpy, scipy and the native
+        # decimator release the GIL); the background stage mostly waits on
+        # the card. They run concurrently, each with its own wall-clock
+        # timer (their sum can exceed the run's wall time). The JAX package
+        # runs them one after the other under foreground trajectory
+        # smoothing, which swaps the trajectory the background reads; that
+        # option is not ported, so here they always overlap.
+        set_key_path(self.profiling, ["timing", "stages_overlapped"], True)
 
-        with self.timed_block("Reconstructing the static background...",
-                              ["timing", "background_reconstruction", "total"]):
-            background_scene = self._create_background_scene(dataset)
+        def foreground_job():
+            with self.timed_block("Meshing the dynamic foreground...",
+                                  ["timing", "foreground_reconstruction", "total"]):
+                return self._create_foreground_scene(dataset)
 
-        with self.timed_block("Meshing the dynamic foreground...",
-                              ["timing", "foreground_reconstruction", "total"]):
-            foreground_scene = self._create_empty_scene(dataset)
+        overlap_pool = ThreadPoolExecutor(max_workers=1)
+        foreground_future = overlap_pool.submit(foreground_job)
+
+        try:
+            with self.timed_block("Reconstructing the static background...",
+                                  ["timing", "background_reconstruction", "total"]):
+                background_scene = self._create_background_scene(dataset)
+        except BaseException:
+            # Surface the background error now instead of blocking on the
+            # rest of the foreground stage, and don't drop a concurrent
+            # foreground failure: a running job can't be cancelled, so log
+            # it whenever it finishes.
+            def _log_foreground_failure(future):
+                if not future.cancelled() and future.exception() is not None:
+                    logging.error("Foreground stage also failed: "
+                                  f"{future.exception()!r}")
+
+            foreground_future.add_done_callback(_log_foreground_failure)
+            overlap_pool.shutdown(wait=False, cancel_futures=True)
+            raise
+
+        foreground_scene = foreground_future.result()
+        overlap_pool.shutdown()
 
         with self.timed_block("Recentring the foreground/background scenes...",
                               ["timing", "scene_centering"]):
             foreground_scene, background_scene = self._center_scenes(
-                foreground_scene, background_scene)
+                dataset, foreground_scene, background_scene)
 
         with self.timed_block("Saving meshes to disk...", ["timing", "mesh_export"]):
             foreground_scene_path, background_scene_path = self._write_meshes_to_disk(
@@ -236,19 +266,255 @@ class Pipeline:
 
     # -- scene creation -------------------------------------------------------
     def _create_background_scene(self, dataset: HiveDataset) -> Scene:
+        if self.background_mesh_options.reconstruction_method == MeshReconstructionMethod.RGBD:
+            return self._create_scene(dataset, num_frames=self.num_frames,
+                                      include_background=True, background_only=True)
+
         background_scene = self._create_empty_scene(dataset)
         static_mesh = self.create_static_mesh(dataset, num_frames=self.num_frames,
                                               options=self.background_mesh_options,
                                               profiling=self.profiling,
                                               device=self.device)
 
-        # The renderer expects sRGB for vertex-coloured meshes.
+        # The renderer expects sRGB for vertex-coloured meshes (three.js does
+        # not convert vertex colours automatically; it does for textures).
         if static_mesh.vertex_colors is not None:
             rgb = static_mesh.vertex_colors[:, :3].astype(np.float64)
             static_mesh.vertex_colors[:, :3] = (255 * np.power(rgb / 255, 2.2)).astype(np.uint8)
 
         background_scene.add_geometry(static_mesh, node_name="000000")
         return background_scene
+
+    def _create_foreground_scene(self, dataset: HiveDataset) -> Scene:
+        if self.options.background_only:
+            return self._create_empty_scene(dataset)
+
+        return self._create_scene(dataset, num_frames=self.num_frames)
+
+    def _create_scene(self, dataset: HiveDataset, num_frames: int,
+                      include_background: bool = False, background_only: bool = False) -> Scene:
+        """Mesh each frame (per dynamic object) into a Scene.
+
+        Host-side, as in the JAX package: per-object vertex counts are
+        dynamic, so triangulation, filtering, decimation and texturing run
+        on CPU threads, one frame per worker. Nothing here runs on the card.
+        """
+        if num_frames == -1:
+            num_frames = dataset.num_frames
+
+        if background_only:
+            rgb_dataset = dataset.bg_rgb_dataset
+            depth_dataset = dataset.bg_depth_dataset
+        else:
+            rgb_dataset = dataset.rgb_dataset
+            depth_dataset = dataset.depth_dataset
+
+        mask_dataset = dataset.mask_dataset
+        camera_matrix = dataset.camera_matrix
+
+        scene = self._create_empty_scene(dataset)
+        poses = dataset.camera_trajectory.to_homogenous_transforms()
+
+        def process_frame(index: int) -> TriangleMesh:
+            return self._mesh_single_frame(
+                index=index,
+                rgb=rgb_dataset[index],
+                depth=depth_dataset[index],
+                mask_encoded=mask_dataset[index],
+                pose=poses[index],
+                camera_matrix=camera_matrix,
+                include_background=include_background,
+                background_only=background_only,
+                has_inpainted_frame_data=dataset.has_inpainted_frame_data,
+                profile=True,
+            )
+
+        if background_only:
+            frames = dataset.select_key_frames(
+                threshold=self.background_mesh_options.key_frame_threshold)
+        else:
+            frames = list(range(num_frames))
+
+        logging.info("Building per-frame meshes...")
+        meshes = tqdm_imap(process_frame, frames)
+
+        for i, mesh in zip(frames, meshes):
+            if not mesh.is_empty:
+                scene.add_geometry(mesh, node_name=f"{i:06d}")
+
+        return scene
+
+    def process_frame(self, dataset: HiveDataset, index: int, background_only: bool = False,
+                      include_background: bool = False,
+                      enable_cc_analysis: bool = True) -> TriangleMesh:
+        """Mesh a single frame without profiling (for experiments)."""
+        if background_only:
+            rgb_dataset = dataset.bg_rgb_dataset
+            depth_dataset = dataset.bg_depth_dataset
+        else:
+            rgb_dataset = dataset.rgb_dataset
+            depth_dataset = dataset.depth_dataset
+
+        pose = dataset.camera_trajectory.to_homogenous_transforms()[index]
+
+        return self._mesh_single_frame(
+            index=index, rgb=rgb_dataset[index], depth=depth_dataset[index],
+            mask_encoded=dataset.mask_dataset[index], pose=pose,
+            camera_matrix=dataset.camera_matrix, include_background=include_background,
+            background_only=background_only,
+            has_inpainted_frame_data=dataset.has_inpainted_frame_data,
+            profile=False, enable_cc_analysis=enable_cc_analysis)
+
+    def _mesh_single_frame(self, index: int, rgb, depth, mask_encoded, pose, camera_matrix,
+                           include_background: bool, background_only: bool,
+                           has_inpainted_frame_data: bool, profile: bool,
+                           enable_cc_analysis: bool = True) -> TriangleMesh:
+        frame_vertices = np.zeros((0, 3))
+        frame_faces = np.zeros((0, 3), dtype=np.int64)
+        uv_atlas: List[np.ndarray] = []
+        texture_atlas: List[np.ndarray] = []
+        vertex_count = 0
+
+        rgb = np.ascontiguousarray(rgb[:, :, :3])
+        rotation, translation = get_pose_components(pose)
+
+        profiling = self.profiling if profile else None
+
+        mask_start = 0 if include_background else 1
+        mask_end = 1 if background_only else int(mask_encoded.max()) + 1
+
+        for object_id in range(mask_start, mask_end):
+            with timed_block(None, profiling,
+                             ["timing", "foreground_reconstruction", "binary_mask_creation",
+                              index, object_id]):
+                is_object = object_id > 0
+
+                if is_object:
+                    mask = dilate_mask(mask_encoded == object_id, self.dilation_options)
+                else:
+                    mask = (np.ones_like(mask_encoded, dtype=bool)
+                            if has_inpainted_frame_data else mask_encoded == 0)
+
+                coverage_ratio = mask.mean()
+
+                if coverage_ratio < 0.01 and not self.options.disable_coverage_constraint:
+                    logging.debug(f"Object #{object_id}, frame {index + 1}: mask coverage below "
+                                  f"the 1% floor — skipped.")
+                    continue
+
+            with timed_block(None, profiling,
+                             ["timing", "foreground_reconstruction", "per_object_mesh", "total",
+                              index, object_id]):
+                vertices = point_cloud_from_depth(depth, mask, camera_matrix,
+                                                  rotation, translation)
+
+                if len(vertices) < 9:
+                    logging.debug(f"Object #{object_id}, frame {index + 1}: only {len(vertices)} "
+                                  f"vertices — too few to mesh, skipped.")
+                    continue
+
+                valid_pixels = mask & (depth > 0.0)
+                use_grid = self.filtering_options.triangulation == "grid"
+
+                with timed_block(None, profiling,
+                                 ["timing", "foreground_reconstruction", "per_object_mesh",
+                                  "face_triangulation", index, object_id]):
+                    if use_grid:
+                        points2d, faces, masked_depth = triangulate_grid(
+                            valid_pixels, depth, self.filtering_options)
+                    else:
+                        v, u = valid_pixels.nonzero()
+                        points2d = np.stack([u, v], axis=-1)
+                        masked_depth = depth[valid_pixels]
+                        faces = triangulate_points(points2d)
+
+            with timed_block(None, profiling,
+                             ["timing", "foreground_reconstruction", "face_filtering",
+                              index, object_id]):
+                if not use_grid:
+                    faces = filter_faces(points2d, masked_depth, faces,
+                                         self.filtering_options)
+
+                if len(faces) < 1:
+                    logging.debug(f"Object #{object_id}, frame {index + 1}: triangulation produced "
+                                  f"{len(faces)} faces — skipped.")
+                    continue
+
+            with timed_block(None, profiling,
+                             ["timing", "foreground_reconstruction", "mesh_decimation",
+                              index, object_id]):
+                if profile:
+                    set_key_path(self.profiling,
+                                 ["mesh_decimation", "vertex_count", "before", index, object_id],
+                                 len(vertices))
+                    set_key_path(self.profiling,
+                                 ["mesh_decimation", "face_count", "before", index, object_id],
+                                 len(faces))
+
+                target = (self.decimation_options.num_faces_object if is_object
+                          else self.decimation_options.num_faces_background)
+                vertices, faces = decimate_mesh(vertices, faces, target,
+                                                self.decimation_options.max_error)
+
+                if profile:
+                    set_key_path(self.profiling,
+                                 ["mesh_decimation", "vertex_count", "after", index, object_id],
+                                 len(vertices))
+                    set_key_path(self.profiling,
+                                 ["mesh_decimation", "face_count", "after", index, object_id],
+                                 len(faces))
+
+            with timed_block(None, profiling,
+                             ["timing", "foreground_reconstruction", "floater_removal",
+                              index, object_id]):
+                if enable_cc_analysis:
+                    vertices, faces = cleanup_with_connected_components(
+                        vertices, faces, is_object,
+                        min_components=self.filtering_options.min_num_components)
+
+            if len(vertices) == 0 or len(faces) == 0:
+                # Floater removal legitimately empties a noise object whose
+                # largest component is under min_num_components: skip just
+                # this object.
+                logging.debug(f"Object {object_id} of frame {index} is empty "
+                              f"after filtering; skipping.")
+                continue
+
+            with timed_block(None, profiling,
+                             ["timing", "foreground_reconstruction", "billboard",
+                              index, object_id]):
+                if is_object and self.options.billboard:
+                    # Flatten the object to its median camera-space depth.
+                    # World -> camera is x_cam = R v + t (the codebase
+                    # convention, geometric.world2image).
+                    camera_space = rotation @ vertices.T + translation
+                    camera_space[2, :] = np.median(camera_space[2, :])
+                    vertices = (rotation.T @ (camera_space - translation)).T
+
+            with timed_block(None, profiling,
+                             ["timing", "foreground_reconstruction", "texturing",
+                              index, object_id]):
+                texture, uv = get_mesh_texture_and_uv(vertices, rgb, camera_matrix,
+                                                      rotation, translation)
+                texture_atlas.append(texture)
+                uv_atlas.append(uv)
+
+                frame_vertices = np.vstack((frame_vertices, vertices))
+                frame_faces = np.vstack((frame_faces, faces + vertex_count))
+                vertex_count += len(vertices)
+
+        with timed_block(None, profiling,
+                         ["timing", "foreground_reconstruction", "texture_atlas_packing", index]):
+            if len(texture_atlas) == 0:
+                logging.debug(f"Frame #{index + 1} produced an empty mesh.")
+                return TriangleMesh()
+
+            packed_texture, packed_uv = pack_textures(texture_atlas, uv_atlas, n_rows=1)
+
+            return TriangleMesh(vertices=frame_vertices.astype(np.float32),
+                                faces=frame_faces.astype(np.int64),
+                                uv=packed_uv.astype(np.float32),
+                                texture=packed_texture)
 
     @staticmethod
     def _create_empty_scene(dataset: HiveDataset) -> Scene:
@@ -262,8 +528,9 @@ class Pipeline:
                            frame_set: Optional[List[int]] = None,
                            profiling: Optional[dict] = None,
                            device=None) -> TriangleMesh:
-        """Reconstruct the static background mesh by TSDF fusion."""
-        from hive_tpu_torch.fusion import tsdf_fusion
+        """Reconstruct the static background mesh: TSDF fusion on the card,
+        or the external BundleFusion binary."""
+        from hive_tpu_torch.fusion import bundle_fusion, tsdf_fusion
 
         if num_frames < 1:
             num_frames = dataset.num_frames
@@ -278,19 +545,27 @@ class Pipeline:
         if frame_set is not None and len(frame_set) < 1:
             raise RuntimeError("`frame_set`, if not `None`, must have at least one element.")
 
-        if options.reconstruction_method != MeshReconstructionMethod.TSDFFusion:
-            raise _not_ported(f"Reconstruction method {options.reconstruction_method.name}",
-                              "Queue 1 item 8")
+        if options.reconstruction_method == MeshReconstructionMethod.BundleFusion:
+            return bundle_fusion(cls.bundle_fusion_folder, dataset, options, num_frames)
 
-        return tsdf_fusion(dataset, options, num_frames, frame_set=frame_set,
-                           profiling=profiling, device=device)
+        if options.reconstruction_method == MeshReconstructionMethod.TSDFFusion:
+            return tsdf_fusion(dataset, options, num_frames, frame_set=frame_set,
+                               profiling=profiling, device=device)
+
+        raise RuntimeError(f"No reconstruction backend for method "
+                           f"{options.reconstruction_method}.")
 
     # -- scene post-processing ------------------------------------------------
-    def _center_scenes(self, foreground_scene: Scene,
+    def _center_scenes(self, dataset: HiveDataset, foreground_scene: Scene,
                        background_scene: Scene) -> Tuple[Scene, Scene]:
         """Center the scenes at the origin, upright for the renderer."""
         foreground_scene = foreground_scene.copy()
         background_scene = background_scene.copy()
+
+        if self.background_mesh_options.reconstruction_method \
+                == MeshReconstructionMethod.BundleFusion:
+            background_scene = self._align_bundle_fusion_reconstruction(dataset,
+                                                                        background_scene)
 
         # 180° z-rotation flips the scene the right way up for the renderer.
         rotate_upright = np.eye(4, dtype=np.float32)
@@ -299,6 +574,11 @@ class Pipeline:
 
         foreground_scene.apply_transform(rotate_upright)
         background_scene.apply_transform(rotate_upright)
+
+        if self.options.align_scene:
+            transform = self._ground_plane_alignment(background_scene)
+            foreground_scene.apply_transform(transform)
+            background_scene.apply_transform(transform)
 
         scene_bounds = self._get_scene_bounds(foreground_scene, background_scene)
         if scene_bounds is None:  # both scenes empty: nothing to center
@@ -316,8 +596,93 @@ class Pipeline:
         return foreground_scene, background_scene
 
     @staticmethod
+    def _ground_plane_alignment(background_scene: Scene) -> np.ndarray:
+        """Estimate a transform that levels the scene with the ground plane.
+
+        PCA of the background vertices gives the dominant plane; the smallest
+        principal axis is rotated onto +y (``hive_tpu``'s
+        ``Pipeline._ground_plane_alignment``, line for line).
+        """
+        all_vertices = [mesh.vertices for mesh in background_scene.geometry.values()
+                        if len(mesh.vertices)]
+
+        if not all_vertices:
+            return np.eye(4)
+
+        points = np.concatenate(all_vertices)
+        centroid = points.mean(axis=0)
+        _, _, vt = np.linalg.svd(points - centroid, full_matrices=False)
+
+        up = vt[2]  # normal of the dominant plane
+        if up[1] < 0:
+            up = -up
+
+        target = np.array([0.0, 1.0, 0.0])
+        axis = np.cross(up, target)
+        s = np.linalg.norm(axis)
+        c = float(up @ target)
+
+        if s < 1e-8:
+            return np.eye(4)
+
+        axis = axis / s
+        K = np.array([[0, -axis[2], axis[1]],
+                      [axis[2], 0, -axis[0]],
+                      [-axis[1], axis[0], 0]])
+        R = np.eye(3) + s * K + (1 - c) * (K @ K)
+
+        transform = np.eye(4)
+        transform[:3, :3] = R
+        return transform
+
+    def _align_bundle_fusion_reconstruction(self, dataset: HiveDataset, scene: Scene) -> Scene:
+        """Undo BundleFusion's mirroring/rotation so its mesh lines up with the
+        foreground (the constants of ``hive_tpu``'s
+        ``Pipeline._align_bundle_fusion_reconstruction``)."""
+        from scipy.spatial.transform import Rotation
+
+        # +-inf init, tightened by observations: a zeros init would always
+        # include the origin, biasing the centroid toward 0 for scenes
+        # strictly one side of an axis.
+        pcd_bounds = np.stack([np.full(3, np.inf), np.full(3, -np.inf)])
+        poses = dataset.camera_trajectory.to_homogenous_transforms()
+
+        for i in range(min(self.num_frames, dataset.num_frames)):
+            depth_map = dataset.depth_dataset[i]
+            mask = dataset.mask_dataset[i] == 0
+            rotation, translation = get_pose_components(poses[i])
+
+            points3d = point_cloud_from_depth(depth_map, mask, dataset.camera_matrix,
+                                              rotation, translation)
+
+            if len(points3d):
+                pcd_bounds[0] = np.minimum(pcd_bounds[0], points3d.min(axis=0))
+                pcd_bounds[1] = np.maximum(pcd_bounds[1], points3d.max(axis=0))
+
+        if not np.isfinite(pcd_bounds).all():  # no valid points at all
+            pcd_bounds = np.zeros((2, 3))
+        pcd_centroid = pcd_bounds.mean(axis=0)
+
+        aligned = scene.copy()
+        aligned.apply_transform(np.diag([-1.0, 1.0, 1.0, 1.0]))
+
+        scene_bounds = scene.bounds
+        scene_centroid = (scene_bounds.mean(axis=0) if scene_bounds is not None
+                          else np.zeros(3))
+
+        transform = np.eye(4)
+        transform[:3, :3] = Rotation.from_euler("xyz", [105.0, 0.0, -5.0],
+                                                degrees=True).as_matrix()
+        transform[:3, 3] = scene_centroid - pcd_centroid
+        aligned.apply_transform(transform)
+        aligned.apply_translation([1.25, 2.0, 1.0])  # empirical vertical offset fix
+
+        return aligned
+
+    @staticmethod
     def _get_scene_bounds(foreground_scene: Scene, background_scene: Scene) -> Optional[np.ndarray]:
-        """Union of the scene bounds; either scene may be empty."""
+        """Union of the scene bounds; either scene may be empty (bounds
+        None)."""
         fg_bounds = foreground_scene.bounds
         bg_bounds = background_scene.bounds
 
@@ -352,24 +717,58 @@ class Pipeline:
         return output_path
 
     def _compress_mesh(self, path_to_glb: str):
-        """Compress a .glb with the native quantized re-encode
-        (KHR_mesh_quantization) plus a pre-gzipped sibling: the JAX package's
-        fallback when ``draco_transcoder`` is absent. The draco route is not
-        ported yet (ROADMAP.md Queue 1 item 8)."""
-        from hive_tpu_torch.meshing.gltf import quantize_glb, write_gzip_sibling
-
+        """Compress a .glb: external draco_transcoder when available, else a
+        native quantized re-encode (KHR_mesh_quantization — any conforming
+        renderer decodes it). The ``method`` recorded in ``profiling.json``
+        says which route ran. A failed compression keeps the uncompressed
+        mesh and records no stats for it."""
         src_path = Path(path_to_glb)
         tmp_path = src_path.parent / f"{src_path.stem}_tmp{src_path.suffix}"
-        method = "quantization"
 
-        try:
-            quantize_glb(str(src_path), str(tmp_path))
-        except Exception as exc:
-            # Keep the uncompressed mesh, never abort a finished reconstruction.
-            logging.warning(f"Native mesh compression failed ({exc!r}); "
-                            "keeping the uncompressed mesh.")
-            tmp_path.unlink(missing_ok=True)
-            return
+        if shutil.which("draco_transcoder") is not None:
+            method = "draco"
+            command = ["draco_transcoder", "-i", str(src_path), "-o", str(tmp_path)]
+
+            with subprocess.Popen(command, stdout=subprocess.PIPE, bufsize=1,
+                                  universal_newlines=True) as p:
+                for line in p.stdout:
+                    logging.debug(line.rstrip("\n"))
+
+            if (return_code := p.wait()) != 0:
+                logging.warning(f"draco_transcoder failed (exit status {return_code}).")
+                # Same cleanup as the quantization-failure path: a partial
+                # tmp write must not linger in the user-facing mesh folder.
+                tmp_path.unlink(missing_ok=True)
+                return
+
+            # The dependency-free in-tree viewer decodes
+            # KHR_mesh_quantization but not KHR_draco_mesh_compression, so
+            # keep a quantized sibling for it (the WebXR export prefers it;
+            # the canonical draco .glb stays for external renderers), plus
+            # a pre-gzipped copy the viewer server ships over the wire.
+
+            viewer_path = src_path.with_suffix(".viewer.glb")
+            try:
+                quantize_glb(str(src_path), str(viewer_path))
+                write_gzip_sibling(str(viewer_path))
+            except Exception as exc:
+                logging.warning("Could not produce the in-tree-viewer copy "
+                                f"of {src_path} ({exc!r}); the viewer cannot "
+                                "play draco-compressed meshes.")
+        else:
+            method = "quantization"
+            logging.info("draco_transcoder not found on PATH; compressing with "
+                         "native vertex quantization (KHR_mesh_quantization).")
+
+            try:
+                quantize_glb(str(src_path), str(tmp_path))
+            except Exception as exc:
+                # Same degradation contract as a failed draco transcode: keep
+                # the uncompressed mesh, never abort a finished reconstruction.
+                logging.warning(f"Native mesh compression failed ({exc!r}); "
+                                "keeping the uncompressed mesh.")
+                tmp_path.unlink(missing_ok=True)
+                return
 
         size_before = os.path.getsize(src_path)
         size_after = os.path.getsize(tmp_path)
@@ -387,19 +786,30 @@ class Pipeline:
             "method": method,
         }
 
-        try:
-            gzip_size = write_gzip_sibling(str(src_path))
-        except OSError as exc:
-            logging.warning(f"Could not write {src_path}.gz ({exc!r}).")
-        else:
-            stats["gzip_file_size"] = gzip_size
-            stats["gzip_transfer_ratio"] = size_before / gzip_size
+        if method == "quantization":
+            # Transfer-side half of the native fallback: a deterministic
+            # pre-gzipped sibling the viewer server ships with
+            # Content-Encoding: gzip (browsers decode transparently), while
+            # the on-disk .glb stays a plain conforming KHR_mesh_quantization
+            # file.
+            try:
+                gzip_size = write_gzip_sibling(str(src_path))
+            except OSError as exc:
+                logging.warning(f"Could not write {src_path}.gz ({exc!r}).")
+            else:
+                stats["gzip_file_size"] = gzip_size
+                stats["gzip_transfer_ratio"] = size_before / gzip_size
 
-        logging.info(f"Compressed {src_path} with {method} "
+        logging.info(f"Compressed {src_path} with {method} successfully "
                      f"({format_bytes(size_before)} before, {format_bytes(size_after)} after, "
-                     f"ratio {compression_ratio:.2f}:1).")
+                     f"{data_saving * 100:.2f}% data saving, "
+                     f"ratio {compression_ratio:.2f}:1"
+                     + (f"; wire ratio {stats['gzip_transfer_ratio']:.2f}:1 "
+                        f"via the gzip sibling"
+                        if "gzip_file_size" in stats else "") + ").")
 
         name = {"fg": "foreground", "bg": "background"}.get(src_path.stem, src_path.stem)
+
         set_key_path(self.profiling, ["mesh_compression", name], stats)
 
     @staticmethod
@@ -429,7 +839,12 @@ class Pipeline:
             json.dump(metadata, f)
 
         for filename in (metadata_filename, f"{fg_scene_name}.glb", f"{bg_scene_name}.glb"):
-            src = pjoin(mesh_path, filename)
+            # Prefer the quantized in-tree-viewer sibling a draco transcode
+            # leaves behind — the viewer that serves this folder cannot
+            # decode KHR_draco (see _compress_mesh).
+            viewer_copy = pjoin(mesh_path, filename.removesuffix(".glb") + ".viewer.glb")
+            src = viewer_copy if (filename.endswith(".glb")
+                                  and os.path.isfile(viewer_copy)) else pjoin(mesh_path, filename)
             shutil.copy(src, pjoin(webxr_output_path, filename))
             # Ship the pre-gzipped copy alongside, and drop a stale one.
             dest_gz = pjoin(webxr_output_path, filename + ".gz")
@@ -508,17 +923,80 @@ class Pipeline:
                      f"{num_bg_frames} bg) in {elapsed} - {per_frame} each.")
         logging.info(f"    Triangles (all meshes): {total_num_tris:>9,d} "
                      f"- {tris_per_frame:,.1f}/frame")
+        logging.info(f"        foreground: {fg_num_tris:>9,d} "
+                     f"- {fg_tris_per_frame:,.1f}/frame")
+        logging.info(f"        background: {bg_num_tris:>9,d} "
+                     f"- {bg_tris_per_frame:,.1f}/frame")
         logging.info(f"    On-disk mesh size: {format_bytes(total_file_size)} "
                      f"- {format_bytes(size_per_frame)}/frame")
+        logging.info(f"        foreground: {format_bytes(fg_file_size)} "
+                     f"- {format_bytes(fg_size_per_frame)}/frame")
+        logging.info(f"        background: {format_bytes(bg_file_size)} "
+                     f"- {format_bytes(bg_size_per_frame)}/frame")
         logging.info(f"Peak Device Memory Usage: {format_bytes(vram['allocated'])} "
                      f"({vram['allocated']:,d} Bytes)")
 
     def _write_profiling_data(self, path: str):
-        """Write ``profiling.json``. The JAX package also rolls per-frame
-        foreground timings up into count/total/mean; the background path
-        records none, so its file is written as collected."""
+        """Write ``profiling.json``, with the per-frame, per-object
+        foreground timings and decimation counts rolled up into
+        count/total/mean."""
+        profiling = self._calculate_profiling_statistics(self.profiling)
+
         with open(path, "w") as f:
-            json.dump(self.profiling, f)
+            json.dump(profiling, f)
+
+    def _calculate_profiling_statistics(self, profiling: dict) -> dict:
+        """Roll per-frame/per-object timing trees up into count/total/mean.
+
+        Output schema matches ``hive_tpu``'s ``profiling.json``, the
+        benchmark contract consumed by the experiments harness.
+        """
+        key_paths = [
+            ["timing", "foreground_reconstruction", "binary_mask_creation"],
+            ["timing", "foreground_reconstruction", "per_object_mesh", "total"],
+            ["timing", "foreground_reconstruction", "per_object_mesh", "face_triangulation"],
+            ["timing", "foreground_reconstruction", "face_filtering"],
+            ["timing", "foreground_reconstruction", "mesh_decimation"],
+            ["timing", "foreground_reconstruction", "floater_removal"],
+            ["timing", "foreground_reconstruction", "billboard"],
+            ["timing", "foreground_reconstruction", "texturing"],
+            ["timing", "foreground_reconstruction", "texture_atlas_packing"],
+            ["mesh_decimation", "vertex_count", "before"],
+            ["mesh_decimation", "vertex_count", "after"],
+            ["mesh_decimation", "face_count", "before"],
+            ["mesh_decimation", "face_count", "after"],
+        ]
+
+        result = profiling.copy()
+
+        for key_path in key_paths:
+            try:
+                entry = get_key_path(result, key_path)
+            except KeyError:
+                continue
+
+            count, total = self._traverse_dictionary(entry)
+            set_key_path(result, key_path, {
+                "count": count,
+                "total": total,
+                "mean": total / count if count > 0 else 0.0,
+            })
+
+        return result
+
+    def _traverse_dictionary(self, node: Union[dict, Any], count: int = 0, total: float = 0):
+        if isinstance(node, (float, int)):
+            return 1, node
+
+        if not isinstance(node, dict):
+            return count, total
+
+        for key in node:
+            sub_count, sub_total = self._traverse_dictionary(node[key])
+            count += sub_count
+            total += sub_total
+
+        return count, total
 
 
 def main(argv=None):

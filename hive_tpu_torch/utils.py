@@ -1,9 +1,9 @@
 """Host-side utilities: shape validation, parallel map, profiling, logging.
 
-Counterpart of ``hive_tpu/utils.py`` — the host helpers the background path
-uses (reference hive/utils.py validate_shape:38, tqdm_imap:77,
-setup_logger:186, format_bytes:242, Timer:253, set_key_path:302,
-timed_block:356).
+Counterpart of ``hive_tpu/utils.py`` — the host helpers the pipeline uses:
+``validate_shape``, ``tqdm_imap`` (:100), ``setup_logger``, ``format_bytes``,
+``Timer``, ``set_key_path`` (:443), ``get_key_path`` (:453) and
+``timed_block`` (:466).
 """
 
 from __future__ import annotations
@@ -102,10 +102,15 @@ def tqdm_imap(func, args: Sequence, num_workers: Optional[int] = None,
 
     Frames are independent on the host side, so a thread pool (numpy and
     zlib release the GIL) is the right tool; device work is batched
-    separately. Pool width: ``num_workers``, else ``os.cpu_count()``.
+    separately.
+
+    Pool width: explicit ``num_workers`` > the ``HIVE_NUM_WORKERS`` env var >
+    ``os.cpu_count()``. The env var pins a width for benchmarking or for
+    overlapping host meshing with device work on many-core machines.
     """
     args = list(args)
-    workers = num_workers or os.cpu_count() or 1
+    workers = (num_workers or int(os.environ.get("HIVE_NUM_WORKERS", 0) or 0)
+               or os.cpu_count() or 1)
 
     with ThreadPoolExecutor(max_workers=workers) as pool:
         it = pool.map(func, args)
@@ -209,6 +214,18 @@ def set_key_path(dictionary: dict, path: Sequence, value: Any):
         node = node.setdefault(key, {})
 
     node[path[-1]] = value
+
+
+def get_key_path(dictionary: dict, path: Sequence) -> Any:
+    """Get the value at a nested key path; raises ``KeyError`` if absent."""
+    node = dictionary
+
+    for key in path[:-1]:
+        if key not in node:
+            raise KeyError(f"Key path {list(path)} missing at {key!r}")
+        node = node[key]
+
+    return node[path[-1]]
 
 
 @contextlib.contextmanager

@@ -91,11 +91,18 @@ def test_pipeline_writes_bg_glb_both_packages_read(dataset_path, tmp_path):
 @pytest.mark.parametrize("extra", [[], ["--estimate_depth"], ["--num_devices", "2"]],
                          ids=["foreground", "estimate_depth", "num_devices"])
 def test_unported_options_name_their_roadmap_item(dataset_path, tmp_path, extra):
+    """The foreground stage is ported; its trajectory smoothing (set through
+    the constructor, it has no CLI flag) is not."""
+    from hive_tpu_torch.options import ForegroundTrajectorySmoothingOptions
+
     argv = _argv(dataset_path, tmp_path, *extra)
     if not extra:
         argv.remove("--background_only")
+    pipeline = Pipeline.from_command_line(argv, device="cpu")
+    if not extra:
+        pipeline.fts_options = ForegroundTrajectorySmoothingOptions(num_epochs=1)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        Pipeline.from_command_line(argv, device="cpu").run()
+        pipeline.run()
 
 
 def test_cli_flag_roster_is_the_jax_packages():
