@@ -8,7 +8,8 @@ Phases (any failure raises and the script exits non-zero):
 1. the card's name and power limit (``nvidia-smi``);
 2. build all six CUDA kernels from ``hive_tpu_torch/csrc`` (one ``nvcc``
    each, started together), then the native host library (``g++``: the
-   extraction weld and the QEM decimation);
+   extraction weld, the QEM decimation, the JPEG scan decode and the PNG
+   unfilter);
 3. the block classification, both instantiations (pass 1 and the refine
    pass, one launch each) vs the plain classification on a bench frame with
    10% invalid depth pixels, without compaction, with the 0.375 cap and
@@ -46,15 +47,33 @@ Phases (any failure raises and the script exits non-zero):
    snapshot of the frame's band rows, which raises the run's peak device
    memory); the kernels are then timed on the run's largest call (the
    classification's by the blocks that read the pyramid; the band update
-   on the volume's own state);
-7. the tile-gather kernel, both axes, on the gather probe's (8, 128) tile:
+   on the volume's own state). The ``[io]`` line times the host's frame
+   decoders on one of its frames: PNG with filter 0 and with adaptive
+   filters, and the frame as a quality-75 JPEG, native and plain (which
+   must agree);
+7. a user's run on a TUM sequence: the script writes a 30-frame 640x480
+   TUM folder (adaptive PNGs, depth at 5000 units a metre, ground truth at
+   100 Hz, a static camera, a blob jumping about in front of a textured
+   wall), times one MOG2 step and the open and close on the card, then runs
+   ``python -m hive_tpu_torch --dataset_path <tum> --output_path <new>
+   --key_frame_threshold 1.0`` (every frame fused: the camera is static)
+   in this process with nothing patched: it converts the folder (JPEG
+   frames, motion masks on the card) and meshes it. Launch counts are reset
+   just before and read just after: two classifications and one band
+   update a frame. The converted folder must be a HIVE dataset of ``.jpg``
+   frames; its masks must equal the CPU path's on the same frames; the blob
+   found in each frame after the priming batch with IoU >= 0.7 against its
+   silhouette; ``fg.glb`` must hold a textured node for each of those
+   frames and ``bg.glb`` finite vertices. Logs the ``load_dataset`` stages
+   and both CLI runs' stage times side by side;
+8. the tile-gather kernel, both axes, on the gather probe's (8, 128) tile:
    bit-exact vs its plain version, timed beside ``torch.gather``;
-8. the patch-gather kernel on the probe's 1024 blocks x 512 samples, with
+9. the patch-gather kernel on the probe's 1024 blocks x 512 samples, with
    one sample in eight moved out of its window: bit-exact vs its plain
    version, timed beside ``torch.take`` and the band sampler;
-9. both fused band-trip variants on the fused-trip probe's 128-row trip:
+10. both fused band-trip variants on the fused-trip probe's 128-row trip:
    bit-exact vs the plain version, timed;
-10. the two measurement entry points, each run in this process with the
+11. the two measurement entry points, each run in this process with the
    launch counts reset just before and read just after:
    ``hive_tpu_torch.micro.gather`` (Q1 tile gathers, Q2 patch gather timed
    beside ``torch.take`` and the band sampler) and
@@ -62,7 +81,7 @@ Phases (any failure raises and the script exits non-zero):
    production trip; Q3: fused, production and take trips timed, their final
    states bit-identical on the rows that fit); each of its kernels must have
    launched;
-11. one ``{"kernels": [...]}`` line (times, errors and bounds at the main
+12. one ``{"kernels": [...]}`` line (times, errors and bounds at the main
    paths' shapes, and under ``bench`` at the bench shape), then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last
    line.
@@ -990,24 +1009,39 @@ class MainPathCheck:
         return out
 
 
-def time_png_decode(dataset: str) -> None:
-    """Host time of the port's PNG decoder on one e2e frame as this script
-    writes it (filter 0) and re-encoded with per-row adaptive filters, as
-    Pillow and OpenCV write PNGs: the decoder's cost on a real dataset."""
-    from hive_tpu_torch.image_codecs import encode_png
+def host_ms(fn, reps: int = 3) -> float:
+    start = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - start) / reps * 1e3
+
+
+def time_decoders(dataset: str) -> dict:
+    """Host ms of the port's frame decoders on one e2e frame: the PNG as
+    this script writes it (filter 0) and re-encoded with per-row adaptive
+    filters, as Pillow, OpenCV and TUM write PNGs; and the frame as a
+    quality-75 4:2:0 JPEG, as hive_tpu converts frames. Adaptive PNGs and
+    JPEGs decode natively by default; the plain versions are numpy and a
+    Python symbol loop."""
+    from hive_tpu_torch.image_codecs import decode_jpeg, encode_jpeg, encode_png
     from hive_tpu_torch.io import decode_png
 
     with open(os.path.join(dataset, "rgb", "000000.png"), "rb") as f:
         plain = f.read()
-    blobs = {"filter 0": plain, "adaptive filters": encode_png(decode_png(plain))}
-    times = {}
-    for name, blob in blobs.items():
-        start = time.perf_counter()
-        for _ in range(3):
-            decode_png(blob)
-        times[name] = (time.perf_counter() - start) / 3 * 1e3
-    log(f"[io] decode_png of one {E2E_W}x{E2E_H} RGB frame (host): "
+    image = decode_png(plain)
+    adaptive, jpeg = encode_png(image), encode_jpeg(image, quality=75)
+    if not (np.array_equal(decode_png(adaptive, native=True), image)
+            and np.array_equal(decode_png(adaptive, native=False), image)
+            and np.array_equal(decode_jpeg(jpeg, native=True), decode_jpeg(jpeg, native=False))):
+        raise AssertionError("a native frame decoder disagrees with its plain version")
+    times = {"png filter 0": host_ms(lambda: decode_png(plain)),
+             "png adaptive native": host_ms(lambda: decode_png(adaptive, native=True)),
+             "png adaptive plain": host_ms(lambda: decode_png(adaptive, native=False)),
+             "jpeg q75 native": host_ms(lambda: decode_jpeg(jpeg, native=True)),
+             "jpeg q75 plain": host_ms(lambda: decode_jpeg(jpeg, native=False), reps=1)}
+    log(f"[io] host decode of one {E2E_W}x{E2E_H} RGB frame ({len(jpeg)} B as JPEG): "
         + ", ".join(f"{name} {ms:.2f} ms" for name, ms in times.items()))
+    return times
 
 
 FOREGROUND_STAGES = ("binary_mask_creation", "per_object_mesh", "face_filtering",
@@ -1081,7 +1115,7 @@ def run_main_path(device, launches):
         write_hive_dataset(dataset, E2E_FRAMES, E2E_W, E2E_H)
         log(f"[e2e] wrote {E2E_FRAMES} frames of {E2E_W}x{E2E_H} in "
             f"{time.perf_counter() - start:.1f} s")
-        time_png_decode(dataset)
+        time_decoders(dataset)
 
         argv = ["hive_tpu_torch", "--dataset_path", dataset, "--output_path", dataset,
                 "--num_frames", str(E2E_FRAMES), "--key_frame_threshold", "1.0", "--overwrite_ok",
@@ -1130,7 +1164,197 @@ def run_main_path(device, launches):
         f"launches {launches['main']}; each call also ran its plain version (the band "
         f"update's on a snapshot of the frame's band rows, which raises the peak)")
     log("[e2e] profiling.json timing (s): " + json.dumps(rounded(profiling["timing"])))
-    return check.results()
+    return check.results(), profiling
+
+
+# ---------------------------------------------------------------------------
+# Conversion of a TUM sequence, and a user's run.
+# ---------------------------------------------------------------------------
+
+TUM_FRAMES, TUM_H, TUM_W = 30, 480, 640
+# create_masks' first batch of 8 primes the motion segmenter: the blob's
+# silhouette is held to the masks of the frames after it.
+TUM_PRIMED = 8
+# Least IoU of each such frame's mask with the blob's silhouette; a CPU
+# rehearsal of this scene at this size read 0.752 to 0.925.
+TUM_IOU = 0.7
+
+
+def write_tum_dataset(base: str, num_frames: int, width: int, height: int,
+                      seed: int = SEED) -> np.ndarray:
+    """A TUM RGB-D folder seen through TUMAdaptor's fixed intrinsics (fx =
+    fy = 580 px, cx 319.5, cy 239.5) from a static camera: a textured wall
+    at 2 m, and a (200, 64, 64) blob at 1.5 m that jumps about the frame, a
+    diameter or more a frame, so background subtraction does not absorb it;
+    noise of a few levels from ``seed``. RGB at 30 Hz, depth 4 ms after it at
+    5000 units a metre, ground truth at 100 Hz; PNGs with adaptive row
+    filters, as TUM ships them. Returns the blob's silhouette per frame."""
+    from hive_tpu_torch.image_codecs import encode_png
+
+    rng = np.random.default_rng(seed)
+    for sub in ("rgb", "depth"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    ys, xs = np.mgrid[0:height, 0:width]
+    wall = np.stack([60 + 40 * np.sin(xs / 7.0), xs * 255.0 / width, ys * 255.0 / height], -1)
+    lists = {"rgb.txt": ["# color images"], "depth.txt": ["# depth maps"],
+             "groundtruth.txt": ["# timestamp tx ty tz qx qy qz qw"]}
+    t0 = 1305031102.0
+    for k in range(int((num_frames / 30.0 + 0.1) * 100)):
+        lists["groundtruth.txt"].append(f"{t0 - 0.05 + k / 100:.4f} 0 0 0 0 0 0 1")
+    radius = height / 12
+    silhouettes = []
+    for i in range(num_frames):
+        cx = width / 2 + (width / 2 - 2 * radius) * np.sin(0.9 * i)
+        cy = height / 2 + (height / 2 - 2 * radius) * np.sin(0.55 * i + 1.0)
+        blob = (xs - cx) ** 2 + (ys - cy) ** 2 < radius ** 2
+        rgb = wall.copy()
+        rgb[blob] = (200, 64, 64)
+        rgb = np.clip(rgb + rng.normal(0, 2, rgb.shape), 0, 255).astype(np.uint8)
+        depth = np.where(blob, 7500, 10000).astype(np.uint16)
+        t = t0 + i / 30.0
+        for sub, stamp, image in (("rgb", t, rgb), ("depth", t + 0.004, depth)):
+            name = f"{stamp:.6f}.png"
+            with open(os.path.join(base, sub, name), "wb") as f:
+                f.write(encode_png(image))
+            lists[f"{sub}.txt"].append(f"{stamp:.6f} {sub}/{name}")
+        silhouettes.append(blob)
+    for name, lines in lists.items():
+        with open(os.path.join(base, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return np.stack(silhouettes)
+
+
+def time_mog2(device, tum: str) -> dict:
+    """Device ms of one MOG2 step and of the open and close at TUM's width,
+    on the folder's frame after the priming batch; MOG2 also as a launch
+    loop (CUDA events, host cost included)."""
+    from hive_tpu_torch.io import load_image
+    from hive_tpu_torch.models.segmentation import _MotionBackend, open_close
+
+    names = sorted(os.listdir(os.path.join(tum, "rgb")))[:TUM_PRIMED + 1]
+    frames = torch.from_numpy(np.stack([load_image(os.path.join(tum, "rgb", name))
+                                        for name in names])).to(device)
+    backend = _MotionBackend(device=device)
+    backend.prime(frames[:TUM_PRIMED])
+    bgr = frames[TUM_PRIMED].flip(-1).contiguous()
+    mog2_ms, mog2_ops = device_profile(lambda: backend.apply(bgr), reps=20, warmup=3)
+    loop_ms = events_ms(lambda: backend.apply(bgr), reps=20, warmup=0)
+    fg = (backend.apply(bgr) >= 200)[None]
+    morph_ms, morph_ops = device_profile(lambda: open_close(fg), reps=20, warmup=3)
+    times = dict(mog2_ms=mog2_ms, mog2_device_ops=mog2_ops, mog2_loop_ms=loop_ms,
+                 open_close_ms=morph_ms, open_close_device_ops=morph_ops)
+    log(f"[convert] MOG2 step at {TUM_W}x{TUM_H}: {mog2_ms:.6f} ms device ({mog2_ops:.0f} "
+        f"kernels), {loop_ms:.6f} ms launch loop (events); open + close "
+        f"{morph_ms:.6f} ms device ({morph_ops:.0f} kernels)")
+    return times
+
+
+def flat_totals(tree, prefix=""):
+    """Stage -> seconds of a profiling.json ``timing`` tree (roll-ups by
+    their totals)."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            if set(value) == {"count", "total", "mean"}:
+                out[prefix + key] = value["total"]
+            else:
+                out.update(flat_totals(value, f"{prefix}{key}."))
+        elif not isinstance(value, bool):
+            out[prefix + key] = value
+    return out
+
+
+def run_conversion(device, launches, main_profiling) -> dict:
+    """A user's run on a TUM folder: ``python -m hive_tpu_torch`` converts it
+    (JPEG frames, motion masks on the card) and meshes it, in this process,
+    with no check patched in. Checks the converted folder, the launch
+    counts, the card's masks against the CPU's on the same frames, the blob
+    found in each frame after priming, and both meshes."""
+    from hive_tpu_torch.io import HiveDataset, ImageFolderDataset, create_masks
+    from hive_tpu_torch.meshing.gltf import load_glb
+
+    with tempfile.TemporaryDirectory(prefix="hive_tum_") as tmp:
+        tum, out = os.path.join(tmp, "tum"), os.path.join(tmp, "converted")
+        start = time.perf_counter()
+        silhouettes = write_tum_dataset(tum, TUM_FRAMES, TUM_W, TUM_H)
+        log(f"[convert] wrote a {TUM_FRAMES}-frame {TUM_W}x{TUM_H} TUM folder in "
+            f"{time.perf_counter() - start:.1f} s")
+        mog2 = time_mog2(device, tum)
+
+        # Every frame is a key frame: with the default overlap threshold a
+        # static camera's frames all overlap frame 0, which alone is fused.
+        argv = ["hive_tpu_torch", "--dataset_path", tum, "--output_path", out,
+                "--key_frame_threshold", "1.0", "--webxr_path", os.path.join(tmp, "webxr"),
+                "--log_file", os.path.join(tmp, "pipeline.log")]
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with mock.patch.object(sys, "argv", argv):
+            runpy.run_module("hive_tpu_torch", run_name="__main__", alter_sys=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches["converted"] = main_launch_counts()
+        check_launches("the converted run", launches["converted"], TUM_FRAMES)
+
+        dataset = HiveDataset(out)
+        names = dataset.rgb_dataset.image_filenames
+        if dataset.num_frames != TUM_FRAMES or names != [f"{i:06d}.jpg"
+                                                          for i in range(TUM_FRAMES)]:
+            raise AssertionError(f"converted {dataset.num_frames} frames: {names[:3]}...")
+        with open(os.path.join(out, "profiling.json")) as f:
+            profiling = json.load(f)
+
+        card = np.stack([dataset.mask_dataset[i] for i in range(TUM_FRAMES)])
+        start = time.perf_counter()
+        create_masks(ImageFolderDataset(dataset.path_to_rgb_frames),
+                     os.path.join(tmp, "cpu_masks"), device="cpu")
+        cpu_s = time.perf_counter() - start
+        cpu = np.stack(list(ImageFolderDataset(os.path.join(tmp, "cpu_masks"))))
+        if not np.array_equal(card, cpu):
+            raise AssertionError(f"the card's masks differ from the CPU's at "
+                                 f"{int((card != cpu).sum())} pixels")
+        found = card > 0
+        ious = (found & silhouettes).sum(axis=(1, 2)) / np.maximum(
+            (found | silhouettes).sum(axis=(1, 2)), 1)
+        if ious[TUM_PRIMED:].min() < TUM_IOU:
+            raise AssertionError(f"blob IoU after priming {np.round(ious[TUM_PRIMED:], 3)}, "
+                                 f"want >= {TUM_IOU} in each frame")
+
+        foreground = load_glb(os.path.join(out, "mesh", "fg.glb"))
+        background = next(iter(load_glb(os.path.join(out, "mesh", "bg.glb")).geometry.values()))
+        with_object = [f"{i:06d}" for i in range(TUM_FRAMES) if card[i].any()]
+        after = {f"{i:06d}" for i in range(TUM_PRIMED, TUM_FRAMES)}
+        if not after <= set(foreground.node_names) <= set(with_object):
+            raise AssertionError(f"fg.glb nodes {foreground.node_names}; frames with an "
+                                 f"object {with_object}")
+        for name in foreground.node_names:
+            mesh = foreground.geometry[name]
+            if mesh.num_faces == 0 or mesh.texture is None or not np.isfinite(
+                    mesh.vertices).all():
+                raise AssertionError(f"fg.glb frame {name}: no finite textured faces")
+        if len(background.vertices) == 0 or not np.isfinite(background.vertices).all():
+            raise AssertionError("bg.glb holds no (finite) vertices")
+
+    load = profiling["timing"]["load_dataset"]
+    log(f"[convert] {TUM_FRAMES} frames converted and meshed in {wall:.1f} s, "
+        f"{profiling['elapsed_time']['per_frame']:.4f} s/frame; load_dataset (s): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in load.items()))
+    log(f"[convert] launches {launches['converted']}; masks from the card equal the CPU's "
+        f"(CPU create_masks {cpu_s:.1f} s); blob IoU after priming "
+        f"{ious[TUM_PRIMED:].min():.4f}-{ious[TUM_PRIMED:].max():.4f} (mean "
+        f"{ious[TUM_PRIMED:].mean():.4f}), in priming {np.round(ious[:TUM_PRIMED], 3).tolist()}; "
+        f"fg.glb {len(foreground.node_names)} textured frames; bg.glb "
+        f"{len(background.vertices)} vertices; peak device memory "
+        f"{profiling['peak_vram_usage']['allocated']} B")
+    ours, theirs = flat_totals(main_profiling["timing"]), flat_totals(profiling["timing"])
+    log(f"[convert] stage s, e2e run with the check's plain versions ({E2E_FRAMES} synthetic "
+        f"frames) | this run without ({TUM_FRAMES} TUM frames): per frame "
+        f"{main_profiling['elapsed_time']['per_frame']:.4f} | "
+        f"{profiling['elapsed_time']['per_frame']:.4f}; "
+        + "; ".join(f"{k} {ours.get(k, float('nan')):.4f} | {theirs.get(k, float('nan')):.4f}"
+                    for k in sorted(set(ours) | set(theirs))))
+    return dict(mog2, wall_s=wall, per_frame_s=profiling["elapsed_time"]["per_frame"],
+                load_dataset=load, iou_min=float(ious[TUM_PRIMED:].min()))
 
 # ---------------------------------------------------------------------------
 # The measurement entry points' kernels.
@@ -1341,8 +1565,9 @@ def main() -> int:
     cuda_build.build(["classify_blocks", "band_update", "band_sampler", "tile_gather",
                       "patch_gather", "fused_band"])
     log(f"[build] all six kernels in {time.perf_counter() - start:.1f} s")
-    # The host library (extraction weld, QEM decimation) builds at first
-    # use; built here, its g++ time stays out of the e2e run's stage times.
+    # The host library (extraction weld, QEM decimation, frame decoders)
+    # builds at first use; built here, its g++ time stays out of the e2e
+    # run's stage times.
     start = time.perf_counter()
     if native.get_native_lib() is None:
         raise RuntimeError("the native host library did not build")
@@ -1358,7 +1583,8 @@ def main() -> int:
     check_sparse_vs_dense(device)
     del frames
     torch.cuda.empty_cache()
-    main_path = run_main_path(device, launches)
+    main_path, main_profiling = run_main_path(device, launches)
+    conversion = run_conversion(device, launches, main_profiling)
     probes = {"band_sampler": sampler,
               "tile_gather": check_tile_gather(device),
               "patch_gather": check_patch_gather(device),
@@ -1379,6 +1605,7 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=f"hive_tpu_torch/csrc/{source}.cu",
             replaces=replaces, launches=launches["main"][name],
+            launches_converted=launches["converted"][name],
             launches_bench=launches["bench"][name], exact=True,
             calls_checked=result["calls_checked"], max_abs_err=result["max_abs_err"],
             ms=result["ms"], kernel_ms=result["ms"], plain_ms=result["plain_ms"],
@@ -1408,6 +1635,7 @@ def main() -> int:
             launches=sum(launches[e][name] for e in entries), exact=True,
             **{k: v for k, v in probes[name].items() if k != "library"},
             entry_point_result=entry_results[name]))
+    log("[convert] summary " + json.dumps(conversion))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

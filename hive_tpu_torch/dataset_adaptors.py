@@ -1,0 +1,496 @@
+"""Dataset adaptors: convert TUM and Unreal RGB-D inputs into the HIVE
+dataset format.
+
+Counterpart of ``hive_tpu/dataset_adaptors.py``: ``create_folder`` (:44),
+``DatasetAdaptor`` (:50-230) with ``convert``, the cache check and the
+folder set-up, ``TUMAdaptor`` (:467-581), ``UnrealAdaptor`` (:584-643) and
+``get_dataset`` (:1054-1097), with the same sniffing order, ``profiling``
+keys and output files. RGB frames are written as quality-75 4:2:0 JPEGs and
+depth as 16-bit PNGs through :mod:`hive_tpu_torch.image_codecs`, where the
+JAX package writes them through imageio and Pillow: the JPEG bytes are
+Pillow's. The instance masks come from the motion segmenter on the card.
+
+Not ported yet, each refused with its ROADMAP item: StrayScanner and plain
+video inputs (Queue 1 item 9b), ``--estimate_depth`` (item 10), inpainting
+(item 11) and ``--estimate_pose`` (item 12).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import shutil
+from abc import ABC
+from os.path import join as pjoin
+from pathlib import Path
+from typing import Optional, Tuple
+
+import numpy as np
+
+from hive_tpu_torch.custom_types import File
+from hive_tpu_torch.geometric import Trajectory
+from hive_tpu_torch.image_codecs import encode_jpeg, encode_png
+from hive_tpu_torch.io import (Dataset, DatasetMetadata, HiveDataset, ImageFolderDataset,
+                               InvalidDatasetFormatError, create_masks, load_image)
+from hive_tpu_torch.options import (BackgroundMeshOptions, COLMAPOptions, InpaintingMode,
+                                    PipelineOptions, StorageOptions)
+from hive_tpu_torch.sensor import KinectSensor
+from hive_tpu_torch.utils import not_ported, timed_block, tqdm_imap
+
+# The quality imageio's Pillow writer uses by default for the converted
+# frames (Pillow's own default, 4:2:0).
+JPEG_QUALITY = 75
+
+
+def create_folder(*args, exist_ok: bool = False) -> str:
+    path = pjoin(*args)
+    os.makedirs(path, exist_ok=exist_ok)
+    return str(path)
+
+
+def write_image(path: str, image: np.ndarray):
+    """Write a frame as ``hive_tpu``'s ``iio.imwrite`` does, picked by the
+    extension: JPEG at Pillow's default quality, otherwise PNG."""
+    if Path(path).suffix.lower() in (".jpg", ".jpeg"):
+        blob = encode_jpeg(image, quality=JPEG_QUALITY)
+    else:
+        blob = encode_png(image)
+
+    with open(path, "wb") as f:
+        f.write(blob)
+
+
+class DatasetAdaptor(Dataset, ABC):
+    """Converts an input dataset into the HIVE format (rgb/depth/mask folders,
+    camera files, metadata) — the dataset-creation pipeline."""
+
+    def __init__(self, base_path: File, output_path: File, num_frames: int = -1,
+                 frame_step: int = 1, colmap_options: COLMAPOptions = COLMAPOptions()):
+        super().__init__(base_path=base_path)
+
+        # realpath comparison: a trailing slash, './' prefix, or symlink
+        # spelling of the same directory must not slip past this guard —
+        # convert(no_cache=True) rmtree's output_path, which would DELETE
+        # the user's input dataset.
+        if os.path.realpath(str(output_path)) == os.path.realpath(str(base_path)):
+            raise RuntimeError(
+                "A dataset adaptor must write to a different folder than it reads from.")
+
+        self.output_path = output_path
+        self.num_frames = num_frames
+        self.frame_step = frame_step
+        self.colmap_options = colmap_options
+
+    # -- per-format API -------------------------------------------------------
+    def get_full_num_frames(self) -> int:
+        """Number of frames in the non-truncated dataset."""
+        raise NotImplementedError
+
+    def get_metadata(self, estimate_pose: bool, estimate_depth: bool) -> DatasetMetadata:
+        raise NotImplementedError
+
+    def get_camera_matrix(self) -> np.ndarray:
+        """Ground-truth (3, 3) intrinsics, if the format provides them."""
+        raise NotImplementedError
+
+    def get_pose(self, index: int) -> np.ndarray:
+        """Ground-truth pose 7-vector for a frame, if the format provides it."""
+        raise NotImplementedError
+
+    def get_camera_trajectory(self) -> Trajectory:
+        return Trajectory(np.vstack([self.get_pose(i) for i in range(self.num_frames)]))
+
+    def get_frame(self, index: int) -> np.ndarray:
+        """The RGB frame at ``index``."""
+        raise NotImplementedError
+
+    def get_depth_map(self, index: int) -> np.ndarray:
+        """Ground-truth uint16 millimetre depth at ``index``, if provided."""
+        raise NotImplementedError
+
+    def _resolve_num_frames(self, num_frames: int):
+        """Clamp the requested frame count to what the dataset actually has."""
+        full = self.get_full_num_frames()
+        self.num_frames = full if num_frames == -1 else min(num_frames, full)
+
+    # -- bulk copies ----------------------------------------------------------
+    def copy_frames(self, output_path: str, num_frames: int = -1, file_extension: str = "png"):
+        num_frames = self.num_frames if num_frames == -1 else num_frames
+
+        def copy_image(index: int):
+            write_image(pjoin(output_path, HiveDataset.index_to_filename(index, file_extension)),
+                        self.get_frame(index))
+
+        tqdm_imap(copy_image, range(num_frames))
+
+    def copy_depth_maps(self, output_path: str):
+        def copy_image(index: int):
+            write_image(pjoin(output_path, HiveDataset.index_to_filename(index)),
+                        self.get_depth_map(index))
+
+        tqdm_imap(copy_image, range(self.num_frames))
+
+    # -- conversion pipeline --------------------------------------------------
+    def convert(self, estimate_pose: bool, estimate_depth: bool,
+                inpainting_mode: InpaintingMode, static_camera: bool = False,
+                no_cache: bool = False, profiling: Optional[dict] = None,
+                device=None) -> HiveDataset:
+        """Create the HIVE dataset: metadata → frames → masks → depth →
+        camera parameters → optional inpainting.
+
+        :param device: where the instance masks are computed; default
+            ``cuda:0``.
+        """
+        if estimate_pose:
+            raise not_ported("Pose estimation (--estimate_pose)", "Queue 1 item 12")
+        if estimate_depth:
+            raise not_ported("Depth estimation (--estimate_depth)", "Queue 1 item 10")
+        if inpainting_mode != InpaintingMode.Off:
+            raise not_ported("Inpainting (--inpainting_mode)", "Queue 1 item 11")
+
+        if no_cache and os.path.exists(self.output_path):
+            logging.warning(f"`no_cache` requested — deleting the cached conversion at "
+                            f"{self.output_path}.")
+            shutil.rmtree(self.output_path)
+        elif cached := self._try_get_cached_dataset(estimate_pose, estimate_depth):
+            logging.info(f"Reusing the cached converted dataset at {self.output_path}.")
+            return cached
+
+        logging.info(f"Converting {self.base_path} -> {self.output_path} (HIVE format).")
+
+        image_folder, depth_folder, mask_folder = self._setup_folders(exist_ok=not no_cache)
+
+        with timed_block("Writing dataset metadata.", profiling,
+                         ["timing", "load_dataset", "create_metadata"]):
+            metadata = self.get_metadata(estimate_pose, estimate_depth)
+            metadata.save(pjoin(str(self.output_path), HiveDataset.metadata_filename))
+
+        with timed_block("Copying RGB frames.", profiling,
+                         ["timing", "load_dataset", "copy_frames"]):
+            self.copy_frames(image_folder, file_extension="jpg")
+
+        with timed_block(None, profiling,
+                         ["timing", "load_dataset", "create_instance_segmentation_masks"]):
+            create_masks(ImageFolderDataset(image_folder), mask_folder=mask_folder,
+                         device=device)
+
+        with timed_block(None, profiling, ["timing", "load_dataset", "get_depth_maps"]):
+            logging.info("Copying depth maps.")
+            self.copy_depth_maps(depth_folder)
+
+        with timed_block(None, profiling, ["timing", "load_dataset", "get_camera_parameters"]):
+            if static_camera:
+                # The DPT depth model was trained on Kinect data, so the Kinect
+                # intrinsics are the sensible static-camera default.
+                camera = KinectSensor.get_camera_matrix()
+
+                if metadata.height > metadata.width:
+                    camera = camera.transpose()
+
+                camera_matrix = camera.scale((metadata.height, metadata.width)).matrix
+                camera_trajectory = Trajectory(
+                    np.tile([0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0], (metadata.num_frames, 1)))
+            else:
+                camera_matrix = self.get_camera_matrix()
+                camera_trajectory = self.get_camera_trajectory()
+
+            np.savetxt(pjoin(str(self.output_path), HiveDataset.camera_matrix_filename),
+                       camera_matrix)
+            camera_trajectory.save(
+                pjoin(str(self.output_path), HiveDataset.camera_trajectory_filename))
+
+        with timed_block(None, profiling, ["timing", "load_dataset", "inpainting"]):
+            pass  # InpaintingMode.Off: nothing to inpaint
+
+        logging.info(f"Converted dataset ready at {self.output_path}.")
+        return HiveDataset(self.output_path)
+
+    def _try_get_cached_dataset(self, estimate_pose: bool,
+                                estimate_depth: bool) -> Optional[HiveDataset]:
+        """Reuse a previous conversion iff folder structure, frame counts and
+        metadata all match."""
+        if not HiveDataset.is_valid_folder_structure(self.output_path):
+            return None
+
+        dataset = HiveDataset(self.output_path)
+
+        num_frames = len(os.listdir(dataset.path_to_rgb_frames))
+        num_depth_maps = len(os.listdir(dataset.path_to_depth_maps))
+        same_num_frames = self.num_frames in (num_frames, num_depth_maps)
+        same_trajectory_length = len(dataset.camera_trajectory) == self.num_frames
+        same_metadata = dataset.metadata == self.get_metadata(estimate_pose, estimate_depth)
+
+        if same_num_frames and same_trajectory_length and same_metadata:
+            return dataset
+
+        return None
+
+    def _setup_folders(self, exist_ok: bool = False) -> Tuple[str, str, str]:
+        if not exist_ok and os.path.isdir(self.output_path):
+            raise RuntimeError(f"Output path {self.output_path} exists already — "
+                               f"pick another output path or pass `--no_cache` to replace it.")
+
+        os.makedirs(self.output_path, exist_ok=exist_ok)
+
+        return (create_folder(self.output_path, HiveDataset.rgb_folder, exist_ok=exist_ok),
+                create_folder(self.output_path, HiveDataset.depth_folder, exist_ok=exist_ok),
+                create_folder(self.output_path, HiveDataset.mask_folder, exist_ok=exist_ok))
+
+
+class TUMAdaptor(DatasetAdaptor):
+    """Ingests TUM RGB-D sequences (timestamped rgb/depth/groundtruth lists).
+
+    Format docs: https://cvg.cit.tum.de/data/datasets/rgbd-dataset/file_formats
+    """
+
+    fx, fy = 580.0, 580.0
+    cx, cy = 319.5, 239.5
+    width, height = 640, 480
+    fps = 30.0
+
+    intrinsic_matrix = np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]])
+
+    pose_path = "groundtruth.txt"
+    rgb_files_path = "rgb.txt"
+    depth_map_files_path = "depth.txt"
+
+    required_files = [pose_path, rgb_files_path, depth_map_files_path]
+    required_folders = ["rgb", "depth"]
+
+    def __init__(self, base_path: File, output_path: File, num_frames: int = -1,
+                 frame_step: int = 1, colmap_options: COLMAPOptions = COLMAPOptions(),
+                 is_16_bit: bool = True):
+        super().__init__(base_path=base_path, output_path=output_path, num_frames=num_frames,
+                         frame_step=frame_step, colmap_options=colmap_options)
+
+        self.is_16_bit = is_16_bit
+        # 16-bit PNGs store depth in units of 1/5000 m; 32-bit floats are meters.
+        self.depth_scale_factor = 1.0 / 5000.0 if is_16_bit else 1.0
+
+        (self.image_filenames, self.depth_filenames,
+         self.camera_trajectory) = self._get_synced_frame_data()
+
+        self._resolve_num_frames(num_frames)
+
+        # TUM poses are cam-to-world; the pipeline wants world-to-cam, with the
+        # scene upright (the dataset's convention leaves it rotated 90° about
+        # x).
+        self.camera_trajectory = self.camera_trajectory.normalise_position().inverse()
+
+        rotation = np.eye(4)
+        rotation[1, 1] = 0.0
+        rotation[1, 2] = 1.0
+        rotation[2, 1] = -1.0
+        rotation[2, 2] = 0.0  # -90° about x
+        self.camera_trajectory = self.camera_trajectory.apply(rotation)
+
+    def _get_synced_frame_data(self):
+        """Associate RGB frames, depth maps and poses by nearest timestamp.
+
+        The Kinect's three streams are unsynchronised; depth timestamps anchor
+        the association.
+        """
+
+        def load_list(path):
+            timestamps, payloads = [], []
+
+            with open(pjoin(str(self.base_path), path)) as fh:
+                for line in fh:
+                    line = line.strip()
+
+                    if not line or line.startswith("#"):
+                        continue
+
+                    parts = line.split(" ")
+                    timestamps.append(float(parts[0]))
+                    payloads.append(parts[1:])
+
+            return np.asarray(timestamps), payloads
+
+        image_ts, image_rows = load_list(self.rgb_files_path)
+        depth_ts, depth_rows = load_list(self.depth_map_files_path)
+        pose_ts, pose_rows = load_list(self.pose_path)
+
+        def nearest(query_ts, anchor_ts):
+            deltas = np.abs(query_ts.reshape(-1, 1) - anchor_ts.reshape(1, -1))
+            return deltas.argmin(axis=0)
+
+        image_indices = nearest(image_ts, depth_ts)
+        image_filenames = [Path(image_rows[i][0]).name for i in image_indices]
+        depth_filenames = [Path(row[0]).name for row in depth_rows]
+
+        pose_indices = nearest(pose_ts, depth_ts)
+        poses = []
+        for i in pose_indices:
+            tx, ty, tz, qx, qy, qz, qw = map(float, pose_rows[i])
+            poses.append((qx, qy, qz, qw, tx, ty, tz))
+
+        return image_filenames, depth_filenames, Trajectory(np.asarray(poses))
+
+    def get_full_num_frames(self) -> int:
+        return len(self.image_filenames)
+
+    def get_metadata(self, estimate_pose: bool, estimate_depth: bool) -> DatasetMetadata:
+        return DatasetMetadata(
+            num_frames=self.num_frames, frame_step=self.frame_step, fps=self.fps,
+            width=self.width, height=self.height,
+            estimate_pose=estimate_pose, estimate_depth=estimate_depth,
+            depth_mask_dilation_iterations=BackgroundMeshOptions().depth_mask_dilation_iterations,
+            depth_scale=HiveDataset.depth_scaling_factor, colmap_options=self.colmap_options)
+
+    def get_camera_matrix(self) -> np.ndarray:
+        return self.intrinsic_matrix
+
+    def get_pose(self, index: int) -> np.ndarray:
+        return self.camera_trajectory[index]
+
+    def get_frame(self, index: int) -> np.ndarray:
+        return load_image(pjoin(str(self.base_path), "rgb", self.image_filenames[index]))
+
+    def get_depth_map(self, index: int) -> np.ndarray:
+        depth = load_image(pjoin(str(self.base_path), "depth", self.depth_filenames[index]))
+        meters = depth * self.depth_scale_factor
+        return (1000 * meters).astype(np.uint16)
+
+
+class UnrealAdaptor(DatasetAdaptor):
+    """Ingests synthetic captures from Unreal Engine / UnrealCV."""
+
+    metadata_filename = "info.json"
+    camera_matrix_filename = "camera.txt"
+    camera_trajectory_filename = "trajectory.txt"
+
+    required_files = [metadata_filename, camera_matrix_filename, camera_trajectory_filename]
+
+    rgb_folder = "colour"
+    depth_folder = "depth"
+    required_folders = [rgb_folder, depth_folder]
+
+    depth_scale_factor = 1.0 / 1000.0
+
+    def __init__(self, base_path: File, output_path: File, num_frames: int = -1,
+                 frame_step: int = 1, colmap_options: COLMAPOptions = COLMAPOptions()):
+        super().__init__(base_path=base_path, output_path=output_path, num_frames=num_frames,
+                         frame_step=frame_step, colmap_options=colmap_options)
+
+        import json
+
+        with open(pjoin(str(base_path), self.metadata_filename)) as fh:
+            self.info = json.load(fh)
+
+        self.camera_matrix = np.loadtxt(pjoin(str(base_path), self.camera_matrix_filename))
+
+        trajectory = np.loadtxt(pjoin(str(base_path), self.camera_trajectory_filename))
+        self.camera_trajectory = Trajectory(trajectory).inverse().normalise()
+
+        self._resolve_num_frames(num_frames)
+
+    def get_full_num_frames(self) -> int:
+        return int(self.info["num_frames"])
+
+    def get_metadata(self, estimate_pose: bool, estimate_depth: bool) -> DatasetMetadata:
+        return DatasetMetadata(
+            num_frames=self.num_frames,
+            fps=float(self.info.get("fps", 30.0)),
+            width=int(self.info["width"]), height=int(self.info["height"]),
+            estimate_pose=estimate_pose, estimate_depth=estimate_depth,
+            depth_mask_dilation_iterations=BackgroundMeshOptions().depth_mask_dilation_iterations,
+            depth_scale=self.depth_scale_factor, frame_step=self.frame_step,
+            colmap_options=self.colmap_options)
+
+    def get_camera_matrix(self) -> np.ndarray:
+        return self.camera_matrix
+
+    def get_pose(self, index: int) -> np.ndarray:
+        return self.camera_trajectory[index]
+
+    def get_frame(self, index: int) -> np.ndarray:
+        return load_image(pjoin(str(self.base_path), self.rgb_folder,
+                                HiveDataset.index_to_filename(index)))
+
+    def get_depth_map(self, index: int) -> np.ndarray:
+        depth = load_image(pjoin(str(self.base_path), self.depth_folder,
+                                 HiveDataset.index_to_filename(index)))
+        return depth.astype(np.uint16)  # already millimetres
+
+
+class StrayScannerAdaptor(DatasetAdaptor):
+    """A 'Stray Scanner' capture (iOS LiDAR): recognised, not converted yet.
+    Its video decode needs a decoder the card's machine lacks (ROADMAP.md
+    Queue 1 item 9b)."""
+
+    required_files = ["rgb.mp4", "camera_matrix.csv", "odometry.csv"]
+    required_folders = ["depth", "confidence"]
+
+    def __init__(self, base_path: File, *args, **kwargs):
+        raise not_ported(f"Converting the StrayScanner capture {base_path}", "Queue 1 item 9b")
+
+
+class VideoAdaptor(DatasetAdaptor):
+    """A plain RGB video (.mp4, or a folder holding one): recognised, not
+    converted yet (ROADMAP.md Queue 1 item 9b)."""
+
+    def __init__(self, base_path: File, *args, **kwargs):
+        raise not_ported(f"Converting the video {base_path}", "Queue 1 item 9b")
+
+    @classmethod
+    def _validate_dataset(cls, base_path):
+        if os.path.isfile(base_path) and Path(base_path).suffix == ".mp4":
+            return
+
+        if os.path.isdir(base_path):
+            files = [f for f in os.listdir(base_path)
+                     if os.path.isfile(pjoin(str(base_path), f))]
+
+            if not files:
+                raise InvalidDatasetFormatError(f"Nothing to load: {base_path} has no files.")
+
+            if not any(Path(f).suffix == ".mp4" for f in files):
+                raise InvalidDatasetFormatError(
+                    f"The folder {base_path} contains no .mp4 video.")
+        else:
+            raise InvalidDatasetFormatError(f"Dataset folder {base_path} is missing.")
+
+
+def get_dataset(storage_options: StorageOptions,
+                colmap_options: COLMAPOptions = COLMAPOptions(),
+                pipeline_options: PipelineOptions = PipelineOptions(),
+                profiling: Optional[dict] = None, device=None) -> HiveDataset:
+    """Load a HIVE dataset, converting from a recognised input format if needed.
+
+    Format sniffing order is ``hive_tpu``'s: HIVE cache → TUM → Unreal →
+    StrayScanner → plain video.
+
+    :param device: where the instance masks are computed; default ``cuda:0``.
+    """
+    dataset_path = storage_options.dataset_path
+    output_path = storage_options.output_path
+
+    if not storage_options.no_cache and HiveDataset.is_valid_folder_structure(output_path):
+        return HiveDataset(output_path)
+
+    base_kwargs = dict(base_path=dataset_path, output_path=output_path,
+                       num_frames=pipeline_options.num_frames,
+                       frame_step=pipeline_options.frame_step,
+                       colmap_options=colmap_options)
+
+    if TUMAdaptor.is_valid_folder_structure(dataset_path):
+        adaptor = TUMAdaptor(**base_kwargs)
+    elif UnrealAdaptor.is_valid_folder_structure(dataset_path):
+        adaptor = UnrealAdaptor(**base_kwargs)
+    elif StrayScannerAdaptor.is_valid_folder_structure(dataset_path):
+        adaptor = StrayScannerAdaptor(**base_kwargs)
+    elif VideoAdaptor.is_valid_folder_structure(dataset_path):
+        adaptor = VideoAdaptor(**base_kwargs)
+    elif not os.path.isdir(dataset_path):
+        raise RuntimeError(f"{dataset_path} is unreadable or not a directory.")
+    else:
+        raise RuntimeError(f"The folder {dataset_path} matches no known dataset layout "
+                           f"(TUM, Unreal, StrayScanner, video, or HIVE).")
+
+    return adaptor.convert(estimate_pose=pipeline_options.estimate_pose,
+                           estimate_depth=pipeline_options.estimate_depth,
+                           inpainting_mode=pipeline_options.inpainting_mode,
+                           static_camera=pipeline_options.static_camera,
+                           no_cache=storage_options.no_cache, profiling=profiling,
+                           device=device)

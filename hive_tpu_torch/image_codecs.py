@@ -1,7 +1,8 @@
 """PNG and JPEG codecs in numpy and zlib, where the JAX package uses Pillow.
 
 The card's machine has no Pillow, OpenCV or imageio, so the port encodes the
-textures of its glTF files and its 16-bit depth PNGs itself:
+textures of its glTF files, its depth PNGs and its converted frames itself,
+and decodes the frames it reads:
 
 * :func:`encode_png`: 8-bit grey, grey+alpha, RGB and RGBA, and 16-bit grey;
   non-interlaced, one filter per row picked by the smallest sum of absolute
@@ -9,24 +10,26 @@ textures of its glTF files and its 16-bit depth PNGs itself:
   is ``hive_tpu_torch.io.decode_png``.
 * :func:`encode_jpeg`: baseline sequential JFIF, YCbCr 4:2:0, the IJG
   quality-scaled quantisation tables and the standard Huffman tables of the
-  JPEG specification (Annex K): what Pillow writes for
-  ``save(format="JPEG", quality=q)``. The DCT is computed in float64, so the
-  bytes differ from libjpeg's integer DCT, not the format.
+  JPEG specification (Annex K), libjpeg's fixed-point colour conversion,
+  downsampling, edge padding and integer "islow" DCT: the bytes Pillow
+  (libjpeg-turbo) writes for ``save(format="JPEG", quality=q)``.
 * :func:`decode_jpeg`: baseline and extended sequential Huffman JPEGs with one
   or three components, any sampling factors of 1 or 2, restart intervals;
-  libjpeg's fancy chroma upsampling and fixed-point YCbCr -> RGB, a float
-  inverse DCT.
+  libjpeg's integer "islow" IDCT, fancy chroma upsampling and fixed-point
+  YCbCr -> RGB, so the pixels are those Pillow (libjpeg-turbo) decodes.
 
 Entropy coding is vectorised: every Huffman code and its extra bits become
 one token, the tokens are sorted into scan order and expanded into bits with
-numpy. Decoding is a Python loop over symbols with a 16-bit lookup table.
+numpy. Decoding runs the Huffman decode, dequantisation and IDCT in the
+native library (``native/src/jpeg_decode.cpp``); its plain version is a
+Python loop over symbols with a 16-bit lookup table and a numpy IDCT.
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -181,15 +184,13 @@ def _dht_segment(table_class: int, table_id: int, spec) -> bytes:
     return b"\xff\xc4" + struct.pack(">H", len(body) + 2) + body
 
 
-def _dct_matrix() -> np.ndarray:
-    k = np.arange(8)[:, None]
-    n = np.arange(8)[None, :]
-    m = np.cos((2 * n + 1) * k * np.pi / 16) * np.sqrt(2 / 8)
-    m[0] /= np.sqrt(2)
-    return m
+# libjpeg's 13-bit fixed-point constants of the islow DCTs (jfdctint.c,
+# jidctint.c).
+_CONST_BITS, _PASS1_BITS = 13, 2
 
 
-_DCT = _dct_matrix()
+def _descale(x: np.ndarray, n: int) -> np.ndarray:
+    return (x + (1 << (n - 1))) >> n
 
 
 # ---------------------------------------------------------------------------
@@ -216,14 +217,50 @@ def _blocks(plane: np.ndarray) -> np.ndarray:
     return plane.reshape(h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3)
 
 
+def _fdct_pass(x: np.ndarray, axis: int, first: bool) -> np.ndarray:
+    """One 8-point pass of libjpeg's integer "islow" forward DCT
+    (jfdctint.c) along ``axis``: rows first, scaled up by 2**PASS1_BITS,
+    then columns, which leave the result scaled up by 8."""
+    d = [np.take(x, k, axis=axis) for k in range(8)]
+    tmp0, tmp7 = d[0] + d[7], d[0] - d[7]
+    tmp1, tmp6 = d[1] + d[6], d[1] - d[6]
+    tmp2, tmp5 = d[2] + d[5], d[2] - d[5]
+    tmp3, tmp4 = d[3] + d[4], d[3] - d[4]
+
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    out = [None] * 8
+    if first:
+        out[0], out[4] = (tmp10 + tmp11) << _PASS1_BITS, (tmp10 - tmp11) << _PASS1_BITS
+        shift = _CONST_BITS - _PASS1_BITS
+    else:
+        out[0], out[4] = _descale(tmp10 + tmp11, _PASS1_BITS), _descale(tmp10 - tmp11, _PASS1_BITS)
+        shift = _CONST_BITS + _PASS1_BITS
+    z1 = (tmp12 + tmp13) * 4433                 # FIX_0_541196100
+    out[2] = _descale(z1 + tmp13 * 6270, shift)  # FIX_0_765366865
+    out[6] = _descale(z1 + tmp12 * -15137, shift)  # FIX_1_847759065
+
+    z1, z2, z3, z4 = tmp4 + tmp7, tmp5 + tmp6, tmp4 + tmp6, tmp5 + tmp7
+    z5 = (z3 + z4) * 9633                       # FIX_1_175875602
+    tmp4, tmp5, tmp6, tmp7 = tmp4 * 2446, tmp5 * 16819, tmp6 * 25172, tmp7 * 12299
+    z1, z2 = z1 * -7373, z2 * -20995
+    z3, z4 = z3 * -16069 + z5, z4 * -3196 + z5
+    out[7] = _descale(tmp4 + z1 + z3, shift)
+    out[5] = _descale(tmp5 + z2 + z4, shift)
+    out[3] = _descale(tmp6 + z2 + z3, shift)
+    out[1] = _descale(tmp7 + z1 + z4, shift)
+    return np.stack(out, axis=axis)
+
+
 def _forward_dct_quantised(plane: np.ndarray, table: np.ndarray) -> np.ndarray:
-    """Level-shifted float DCT of each 8x8 block, quantised with rounding
-    half away from zero (libjpeg's quantiser); (H/8, W/8, 64) in zigzag."""
-    coeffs = _DCT @ (_blocks(plane).astype(np.float64) - 128.0) @ _DCT.T
-    q = table.reshape(8, 8)
-    quantised = np.sign(coeffs) * np.floor(np.abs(coeffs) / q + 0.5)
-    flat = quantised.reshape(*quantised.shape[:2], 64).astype(np.int64)
-    return flat[..., ZIGZAG]
+    """libjpeg's islow DCT of each level-shifted 8x8 block, quantised as
+    jcdctmgr.c does (divide by 8 * q, rounding half away from zero);
+    (H/8, W/8, 64) in zigzag order."""
+    blocks = _blocks(plane).astype(np.int64) - 128
+    coeffs = _fdct_pass(_fdct_pass(blocks, axis=-1, first=True), axis=-2, first=False)
+    divisor = table.reshape(8, 8) * 8
+    quantised = np.sign(coeffs) * ((np.abs(coeffs) + (divisor >> 1)) // divisor)
+    return quantised.reshape(*quantised.shape[:2], 64)[..., ZIGZAG]
 
 
 def _bit_size(values: np.ndarray) -> np.ndarray:
@@ -333,20 +370,36 @@ def encode_jpeg(image: np.ndarray, quality: int = 92) -> bytes:
     if not (0 < height < 65536 and 0 < width < 65536):
         raise ValueError(f"a JPEG cannot hold a {width}x{height} image")
 
-    # Pad to whole 16x16 MCUs by repeating the last row and column.
-    padded = np.pad(image, ((0, (-height) % 16), (0, (-width) % 16), (0, 0)), mode="edge")
-    ycc = _rgb_to_ycbcr(padded)
+    ycc = _rgb_to_ycbcr(image)
     luma_table, chroma_table = quality_tables(quality)
+    my, mx = -(-height // 16), -(-width // 16)                      # MCUs
+    luma_rows, luma_cols = -(-height // 8), -(-width // 8)          # luma blocks
 
-    # 2x2 chroma averaging with libjpeg's alternating 1, 2 rounding bias.
-    h2, w2 = padded.shape[0] // 2, padded.shape[1] // 2
-    bias = np.tile([1, 2], w2 // 2 + 1)[:w2]
-    chroma = [(ycc[..., c].reshape(h2, 2, w2, 2).sum(axis=(1, 3)) + bias) >> 2
-              for c in (1, 2)]
+    # The edges as libjpeg pads them (jcsample.c, jcprepct.c): the luma plane
+    # repeats its last column to whole blocks and its last row to whole MCUs.
+    luma = np.pad(ycc[..., 0], ((0, 16 * my - height), (0, 8 * luma_cols - width)),
+                  mode="edge")
+    # Chroma repeats the last column to whole MCUs and the last row to an
+    # even count, is averaged 2x2 with the alternating 1, 2 rounding bias,
+    # then repeats its own last row to whole MCUs.
+    full = np.pad(ycc[..., 1:], ((0, height % 2), (0, 16 * mx - width), (0, 0)), mode="edge")
+    h2 = full.shape[0] // 2
+    bias = np.tile([1, 2], mx * 4)[:, None]
+    halves = (full.reshape(h2, 2, 8 * mx, 2, 2).sum(axis=(1, 3)) + bias) >> 2
+    halves = np.pad(halves, ((0, 8 * my - h2), (0, 0), (0, 0)), mode="edge")
 
-    y_blocks = _forward_dct_quantised(ycc[..., 0], luma_table)      # (2M, 2N, 64)
-    cb_blocks, cr_blocks = (_forward_dct_quantised(c, chroma_table) for c in chroma)
-    my, mx = cb_blocks.shape[:2]
+    y_blocks = np.zeros((2 * my, 2 * mx, 64), np.int64)
+    y_blocks[:, :luma_cols] = _forward_dct_quantised(luma, luma_table)
+    # libjpeg codes the luma blocks of an MCU that lie past the image as
+    # dummies (jccoefct.c): all AC zero, the DC of the block before them in
+    # the MCU, which for a bottom row is the MCU's top right block.
+    if luma_cols % 2:
+        y_blocks[:, -1, 0] = y_blocks[:, -2, 0]
+    if luma_rows % 2:
+        y_blocks[-1] = 0
+        y_blocks[-1, :, 0] = np.repeat(y_blocks[-2, 1::2, 0], 2)
+    cb_blocks, cr_blocks = (_forward_dct_quantised(halves[..., c], chroma_table)
+                            for c in (0, 1))
 
     # Scan order: per MCU the four luminance blocks row by row, Cb, Cr.
     y_mcu = y_blocks.reshape(my, 2, mx, 2, 64).transpose(0, 2, 1, 3, 4).reshape(my * mx, 4, 64)
@@ -364,8 +417,8 @@ def encode_jpeg(image: np.ndarray, quality: int = 92) -> bytes:
         return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
 
     jfif = segment(0xE0, b"JFIF\x00\x01\x01\x00" + struct.pack(">HH", 1, 1) + b"\x00\x00")
-    dqt = segment(0xDB, b"\x00" + bytes(luma_table[ZIGZAG].tolist())
-                  + b"\x01" + bytes(chroma_table[ZIGZAG].tolist()))
+    dqt = (segment(0xDB, b"\x00" + bytes(luma_table[ZIGZAG].tolist()))
+           + segment(0xDB, b"\x01" + bytes(chroma_table[ZIGZAG].tolist())))
     sof = segment(0xC0, struct.pack(">BHHB", 8, height, width, 3)
                   + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1]))
     dht = (_dht_segment(0, 0, _DC_LUMA) + _dht_segment(1, 0, _AC_LUMA)
@@ -441,6 +494,8 @@ def _decode_scan(segments: List[bytes], comps: list, mcus: Tuple[int, int],
                         size = dc_sym[w]
                         if dc_len[w] == 0:
                             raise ValueError("corrupt JPEG: no DC code matches")
+                        if size > 15:
+                            raise ValueError("corrupt JPEG: DC magnitude category over 15")
                         pos += dc_len[w]
                         diff = 0
                         if size:
@@ -491,26 +546,60 @@ def _scan_segments(blob: bytes, start: int) -> Tuple[List[bytes], int]:
     raise ValueError("JPEG scan has no end marker")
 
 
+def _islow_pass(x: np.ndarray, axis: int) -> np.ndarray:
+    """One 8-point pass of libjpeg's integer "islow" IDCT along ``axis``,
+    before its descale."""
+    c = [np.take(x, k, axis=axis) for k in range(8)]
+    z2, z3 = c[2], c[6]
+    z1 = (z2 + z3) * 4433                       # FIX_0_541196100
+    tmp2 = z1 + z3 * -15137                     # FIX_1_847759065
+    tmp3 = z1 + z2 * 6270                       # FIX_0_765366865
+    tmp0 = (c[0] + c[4]) << _CONST_BITS
+    tmp1 = (c[0] - c[4]) << _CONST_BITS
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+
+    t0, t1, t2, t3 = c[7], c[5], c[3], c[1]
+    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z5 = (z3 + z4) * 9633                       # FIX_1_175875602
+    t0, t1, t2, t3 = t0 * 2446, t1 * 16819, t2 * 25172, t3 * 12299
+    z1, z2 = z1 * -7373, z2 * -20995
+    z3, z4 = z3 * -16069 + z5, z4 * -3196 + z5
+    t0, t1, t2, t3 = t0 + z1 + z3, t1 + z2 + z4, t2 + z2 + z3, t3 + z1 + z4
+    return np.stack([tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+                     tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3], axis=axis)
+
+
+# libjpeg's range limit after the IDCT (jdmaster.c): the value wrapped to 10
+# bits, then clamped around the level shift of 128.
+_RANGE_LIMIT = np.concatenate([np.arange(128, 256), np.full(384, 255), np.zeros(384),
+                               np.arange(0, 128)]).astype(np.uint8)
+
+
 def _idct_planes(coeffs: np.ndarray, table: np.ndarray) -> np.ndarray:
     """Dequantise and inverse-DCT (rows, cols, 64) zigzag blocks into one
-    (8 rows, 8 cols) uint8 plane."""
-    natural = np.zeros(coeffs.shape, np.float64)
+    (8 rows, 8 cols) uint8 plane with libjpeg's islow IDCT, the one Pillow
+    decodes with."""
+    natural = np.zeros(coeffs.shape, np.int64)
     natural[..., ZIGZAG] = coeffs * table[ZIGZAG]
     blocks = natural.reshape(*coeffs.shape[:2], 8, 8)
-    pixels = _DCT.T @ blocks @ _DCT + 128.0
+    work = _descale(_islow_pass(blocks, axis=-2), _CONST_BITS - _PASS1_BITS)
+    pixels = _RANGE_LIMIT[_descale(_islow_pass(work, axis=-1),
+                                   _CONST_BITS + _PASS1_BITS + 3) & 1023]
     rows, cols = coeffs.shape[:2]
-    plane = pixels.transpose(0, 2, 1, 3).reshape(rows * 8, cols * 8)
-    return np.clip(np.round(plane), 0, 255).astype(np.int64)
+    return pixels.transpose(0, 2, 1, 3).reshape(rows * 8, cols * 8)
 
 
 def _fancy_upsample(plane: np.ndarray, vertical: bool) -> np.ndarray:
-    """libjpeg's triangle-filter 2x upsampling (jdsample.c h2v1 / h2v2)."""
+    """libjpeg's triangle-filter 2x upsampling (jdsample.c h2v1 / h2v2) of an
+    int32 plane."""
     if vertical:
         up = np.concatenate([plane[:1], plane[:-1]])
         down = np.concatenate([plane[1:], plane[-1:]])
-        sums = np.empty((plane.shape[0] * 2, plane.shape[1]), np.int64)
-        sums[0::2] = 3 * plane + up
-        sums[1::2] = 3 * plane + down
+        sums = np.empty((plane.shape[0] * 2, plane.shape[1]), np.int32)
+        triple = 3 * plane
+        np.add(triple, up, out=sums[0::2])
+        np.add(triple, down, out=sums[1::2])
         even_bias, odd_bias = 8, 7
         shift = 4
     else:
@@ -519,39 +608,116 @@ def _fancy_upsample(plane: np.ndarray, vertical: bool) -> np.ndarray:
         shift = 2
     left = np.concatenate([sums[:, :1], sums[:, :-1]], axis=1)
     right = np.concatenate([sums[:, 1:], sums[:, -1:]], axis=1)
-    out = np.empty((sums.shape[0], sums.shape[1] * 2), np.int64)
-    out[:, 0::2] = (3 * sums + left + even_bias) >> shift
-    out[:, 1::2] = (3 * sums + right + odd_bias) >> shift
+    out = np.empty((sums.shape[0], sums.shape[1] * 2), np.int32)
+    triple = 3 * sums
+    out[:, 0::2] = (triple + left + even_bias) >> shift
+    out[:, 1::2] = (triple + right + odd_bias) >> shift
     return out
 
 
-def _ycbcr_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
-    """libjpeg's fixed-point JFIF conversion (jdcolor.c)."""
+def _colour_tables():
+    """libjpeg's YCbCr -> RGB tables (jdcolor.c build_ycc_rgb_table), indexed
+    by Cb or Cr, and its clamp to [0, 255], indexed by value + 512."""
     half = 1 << 15
 
     def fix(x):
         return int(x * 65536 + 0.5)
 
-    cb, cr = cb - 128, cr - 128
-    r = y + ((fix(1.40200) * cr + half) >> 16)
-    g = y + ((-fix(0.34414) * cb - fix(0.71414) * cr + half) >> 16)
-    b = y + ((fix(1.77200) * cb + half) >> 16)
-    return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
+    x = np.arange(256, dtype=np.int64) - 128
+    cr_r = (fix(1.40200) * x + half) >> 16
+    cb_b = (fix(1.77200) * x + half) >> 16
+    cr_g = -fix(0.71414) * x
+    cb_g = -fix(0.34414) * x + half
+    clamp = np.clip(np.arange(1024) - 512, 0, 255).astype(np.uint8)
+    return cr_r, cb_b, cr_g, cb_g, clamp
 
 
-def decode_jpeg(blob: bytes) -> np.ndarray:
-    """Decode a baseline (or extended sequential Huffman) JPEG.
+_CR_R, _CB_B, _CR_G, _CB_G, _CLAMP = _colour_tables()
 
+
+def _ycbcr_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
+    """libjpeg's fixed-point JFIF conversion (jdcolor.c)."""
+    y = y + 512
+    rgb = np.empty((*y.shape, 3), np.uint8)
+    rgb[..., 0] = _CLAMP[y + _CR_R[cr]]
+    rgb[..., 1] = _CLAMP[y + ((_CB_G[cb] + _CR_G[cr]) >> 16)]
+    rgb[..., 2] = _CLAMP[y + _CB_B[cb]]
+    return rgb
+
+
+def _decode_scan_native(segments: List[bytes], comps: list, mcus: Tuple[int, int],
+                        restart: int, planes: Dict[int, np.ndarray]) -> None:
+    """:func:`_decode_scan` and :func:`_idct_planes` in the native library:
+    decode the scan's blocks straight into ``planes`` (component id ->
+    (rows * 8, cols * 8) uint8, filled in place)."""
+    import ctypes
+
+    from hive_tpu_torch import native
+
+    lib = native.get_native_lib()
+    if lib is None:
+        raise RuntimeError("the native library did not build; decode with native=False")
+    offsets = np.cumsum([0] + [len(s) for s in segments]).astype(np.int64)
+    data = np.frombuffer(b"".join(segments) or b"\0", np.uint8)
+    h = np.array([c["h"] for c in comps], np.int32)
+    v = np.array([c["v"] for c in comps], np.int32)
+    outputs = [planes[c["id"]] for c in comps]
+    if any(not (p.flags.c_contiguous and p.dtype == np.uint8 and p.shape[0] % 8 == 0
+                and p.shape[1] % 8 == 0 and p.shape[0] // 8 >= mcus[0] * c["v"]
+                and p.shape[1] // 8 >= mcus[1] * c["h"]) for p, c in zip(outputs, comps)):
+        raise ValueError("JPEG planes do not hold the scan's blocks")
+    cols = np.array([p.shape[1] // 8 for p in outputs], np.int64)
+    dc = np.stack([c["dc"] for c in comps])
+    ac = np.stack([c["ac"] for c in comps])
+    quant = np.stack([c["quant"] for c in comps]).astype(np.int32)
+    pointers = (ctypes.c_void_p * len(comps))(*(p.ctypes.data for p in outputs))
+
+    def ptr(a, kind):
+        return a.ctypes.data_as(ctypes.POINTER(kind))
+
+    status = lib.hive_jpeg_decode_scan(
+        ptr(data, ctypes.c_uint8), ptr(offsets, ctypes.c_int64), len(segments), len(comps),
+        ptr(h, ctypes.c_int32), ptr(v, ctypes.c_int32), ptr(cols, ctypes.c_int64),
+        ptr(dc, ctypes.c_uint8), ptr(ac, ctypes.c_uint8), ptr(quant, ctypes.c_int32),
+        mcus[0], mcus[1], restart, pointers)
+    if status:
+        raise ValueError({-1: "corrupt JPEG: no DC code matches",
+                          -2: "corrupt JPEG: no AC code matches",
+                          -3: "corrupt JPEG: coefficient past 63",
+                          -4: "JPEG scan ends before its last MCU",
+                          -5: "corrupt JPEG: DC magnitude category over 15"}[status])
+
+
+def _huffman_spec(counts: List[int], symbols: List[int]) -> np.ndarray:
+    """16 code counts, then the symbols padded to 256: the native layout."""
+    spec = np.zeros(16 + 256, np.uint8)
+    spec[:16] = counts
+    spec[16:16 + len(symbols)] = symbols
+    return spec
+
+
+def decode_jpeg(blob: bytes, native: Optional[bool] = None) -> np.ndarray:
+    """Decode a baseline (or extended sequential Huffman) JPEG to the pixels
+    libjpeg's default decode gives (islow IDCT, fancy upsampling), which are
+    Pillow's.
+
+    :param native: decode the scans in the native library (True) or with
+        the Python symbol loop and numpy (False); by default native when the
+        library builds.
     :return: (H, W, 3) uint8 RGB for a three-component file, (H, W) uint8
         for a greyscale one.
     """
     if blob[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file")
+    if native is None:
+        from hive_tpu_torch import native as native_lib
+
+        native = native_lib.get_native_lib() is not None
 
     quant: Dict[int, np.ndarray] = {}
-    huffman: Dict[Tuple[int, int], Tuple[list, list]] = {}
+    huffman: Dict[Tuple[int, int], Tuple[List[int], List[int]]] = {}
     frame = None
-    coeffs: Dict[int, np.ndarray] = {}
+    planes: Dict[int, np.ndarray] = {}
     restart = 0
     pos = 2
     while pos < len(blob):
@@ -584,7 +750,7 @@ def decode_jpeg(blob: bytes) -> np.ndarray:
                 table_class, table_id = body[at] >> 4, body[at] & 15
                 counts = list(body[at + 1:at + 17])
                 symbols = list(body[at + 17:at + 17 + sum(counts)])
-                huffman[table_class, table_id] = _lookup_table(counts, symbols)
+                huffman[table_class, table_id] = (counts, symbols)
                 at += 17 + sum(counts)
         elif marker in (0xC0, 0xC1):                        # SOF0 / SOF1
             precision, height, width, count = struct.unpack(">BHHB", body[:6])
@@ -611,38 +777,48 @@ def decode_jpeg(blob: bytes) -> np.ndarray:
             scan = []
             for i in range(body[0]):
                 c = dict(by_id[body[1 + 2 * i]])
-                c["dc"] = huffman[0, body[2 + 2 * i] >> 4]
-                c["ac"] = huffman[1, body[2 + 2 * i] & 15]
+                dc, ac = huffman[0, body[2 + 2 * i] >> 4], huffman[1, body[2 + 2 * i] & 15]
+                if native:
+                    c["dc"], c["ac"] = _huffman_spec(*dc), _huffman_spec(*ac)
+                    c["quant"] = quant[c["q"]]
+                else:
+                    c["dc"], c["ac"] = _lookup_table(*dc), _lookup_table(*ac)
                 scan.append(c)
-                coeffs.setdefault(c["id"], np.zeros(
-                    (mcu_rows * c["v"], mcu_cols * c["h"], 64), np.int64))
             if len(scan) != len(frame["comps"]):
                 raise NotImplementedError("non-interleaved JPEG scans are not supported")
             if len(scan) == 1:
                 # One component is coded block by block, not in MCUs.
                 c = scan[0]
+                mcus = (-(-frame["height"] * c["v"] // (8 * v_max)),
+                        -(-frame["width"] * c["h"] // (8 * h_max)))
                 c["h"] = c["v"] = 1
-                rows = -(-frame["height"] * by_id[c["id"]]["v"] // (8 * v_max))
-                cols = -(-frame["width"] * by_id[c["id"]]["h"] // (8 * h_max))
-                coeffs[c["id"]] = np.zeros((rows, cols, 64), np.int64)
-                mcus = (rows, cols)
             else:
                 mcus = (mcu_rows, mcu_cols)
             segments, pos = _scan_segments(blob, pos)
-            _decode_scan(segments, scan, mcus, restart, coeffs)
+            if native:
+                for c in scan:
+                    planes[c["id"]] = np.zeros((mcus[0] * c["v"] * 8, mcus[1] * c["h"] * 8),
+                                               np.uint8)
+                _decode_scan_native(segments, scan, mcus, restart, planes)
+            else:
+                coeffs = {c["id"]: np.zeros((mcus[0] * c["v"], mcus[1] * c["h"], 64), np.int64)
+                          for c in scan}
+                _decode_scan(segments, scan, mcus, restart, coeffs)
+                for c in scan:
+                    planes[c["id"]] = _idct_planes(coeffs[c["id"]], quant[c["q"]])
 
-    if frame is None or not coeffs:
+    if frame is None or not planes:
         raise ValueError("corrupt JPEG: no frame or no scan")
 
     height, width = frame["height"], frame["width"]
     h_max = max(c["h"] for c in frame["comps"])
     v_max = max(c["v"] for c in frame["comps"])
-    planes = []
+    out = []
     for c in frame["comps"]:
         # Crop to the component's own size first: upsampling repeats its
         # last row and column, not the blocks' padding.
-        plane = _idct_planes(coeffs[c["id"]], quant[c["q"]])[
-            :-(-height * c["v"] // v_max), :-(-width * c["h"] // h_max)]
+        plane = planes[c["id"]][:-(-height * c["v"] // v_max),
+                                :-(-width * c["h"] // h_max)].astype(np.int32)
         fy, fx = v_max // c["v"], h_max // c["h"]
         if (fy, fx) == (2, 2):
             plane = _fancy_upsample(plane, vertical=True)
@@ -650,8 +826,8 @@ def decode_jpeg(blob: bytes) -> np.ndarray:
             plane = _fancy_upsample(plane, vertical=False)
         elif (fy, fx) != (1, 1):
             plane = np.repeat(np.repeat(plane, fy, axis=0), fx, axis=1)
-        planes.append(plane[:height, :width])
+        out.append(plane[:height, :width])
 
-    if len(planes) == 1:
-        return planes[0].astype(np.uint8)
-    return _ycbcr_to_rgb(*planes)
+    if len(out) == 1:
+        return out[0].astype(np.uint8)
+    return _ycbcr_to_rgb(*out)

@@ -1,17 +1,17 @@
-"""The HIVE dataset format: the read path.
+"""The HIVE dataset format: the read path and the instance masks.
 
 Counterpart of ``hive_tpu/io.py``: the raw float32 codec (:56, :81),
-``ImageFolderDataset`` (:111), ``DatasetMetadata`` (:626),
-``make_depth_map_transform`` (:733), the ``HiveDataset`` read path (:746)
-with ``create_masked_depth`` (:936) and ``select_key_frames`` (:986), and
-``temporary_trajectory``. Conversion from other formats (``COLMAPProcessor``,
-``create_masks``) comes with a later slice.
+``ImageFolderDataset`` (:111), ``create_masks`` (:177), ``DatasetMetadata``
+(:626), ``make_depth_map_transform`` (:733), the ``HiveDataset`` read path
+(:746) with ``create_masked_depth`` (:936) and ``select_key_frames`` (:986),
+and ``temporary_trajectory``. ``COLMAPProcessor`` comes with a later slice.
 
-The port depends on neither Pillow nor OpenCV, so PNGs — the
-format the HIVE layout stores its frames in — are decoded here with
-``zlib`` and ``struct``: 8/16-bit grey, grey+alpha, RGB and RGBA,
-non-interlaced, all five scanline filters; the masked depth maps are
-written with :func:`hive_tpu_torch.image_codecs.encode_png`.
+The port depends on neither Pillow nor OpenCV. PNGs (depth maps, masks,
+the frames of other formats) are decoded here with ``zlib`` and ``struct``:
+1- to 16-bit grey, grey+alpha, RGB, RGBA and palettes, non-interlaced, all
+five scanline filters; JPEGs (the converted RGB frames) with
+:func:`hive_tpu_torch.image_codecs.decode_jpeg`; masks and masked depth
+maps are written with :func:`hive_tpu_torch.image_codecs.encode_png`.
 """
 
 from __future__ import annotations
@@ -33,8 +33,9 @@ import numpy as np
 from hive_tpu_torch.custom_types import File
 from hive_tpu_torch.geometric import (Trajectory, get_pose_components, point_cloud_from_depth,
                                       pose_vec2mat, world2image)
-from hive_tpu_torch.image_codecs import encode_png
+from hive_tpu_torch.image_codecs import decode_jpeg, encode_png
 from hive_tpu_torch.image_processing import dilate_mask
+from hive_tpu_torch.native import png_unfilter
 from hive_tpu_torch.options import COLMAPOptions, MaskDilationOptions
 from hive_tpu_torch.utils import Domain, check_domain, tqdm_imap
 
@@ -96,18 +97,23 @@ def save_raw_float32_image(file_name: File, image: np.ndarray):
 # ---------------------------------------------------------------------------
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# Colour type -> samples per pixel: grey, RGB, grey+alpha, RGBA.
-_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+# Colour type -> samples per pixel: grey, RGB, palette, grey+alpha, RGBA.
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# Colour type -> the bit depths PNG allows for it.
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 
 
-def _png_unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
+def _png_unfilter(raw: bytes, height: int, stride: int, bpp: int,
+                  native: Optional[bool] = None) -> np.ndarray:
     """Undo the per-scanline PNG filters; returns (height, stride) uint8.
 
-    A byte depends on its left, upper and upper-left neighbours, so the
-    reconstruction walks anti-diagonals of pixel columns: every pixel on one
-    wavefront only reads pixels of earlier wavefronts, which makes each step
-    a vectorised numpy pass over up to ``height`` pixels instead of a Python
-    loop per byte.
+    Natively (one C++ pass without the interpreter lock) when the native
+    library builds or ``native`` is True. Otherwise, and as the plain
+    version: a byte depends on its left, upper and upper-left neighbours, so
+    the reconstruction walks anti-diagonals of pixel columns: every pixel on
+    one wavefront only reads pixels of earlier wavefronts, which makes each
+    step a vectorised numpy pass over up to ``height`` pixels instead of a
+    Python loop per byte.
     """
     data = np.frombuffer(raw, np.uint8)
     if data.size != height * (stride + 1):
@@ -120,6 +126,12 @@ def _png_unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     filtered = data[:, 1:]
     if not ftype.any():
         return filtered.copy()
+    if native is not False:
+        out = png_unfilter(data, height, stride, bpp)
+        if out is not None:
+            return out
+        if native:
+            raise RuntimeError("the native library did not build; decode with native=False")
 
     # out[r + 1, bpp + i] holds byte i of row r; the zero row/columns are the
     # "outside the image" neighbours the filters define as 0.
@@ -144,16 +156,29 @@ def _png_unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out[1:, bpp:].astype(np.uint8)
 
 
-def decode_png(blob: bytes) -> np.ndarray:
-    """Decode a non-interlaced PNG into the arrays the HIVE loader returns:
-    8-bit grey (H, W) uint8, 16-bit grey (H, W) uint16, and colour images as
-    (H, W, 3) uint8 RGB (alpha dropped, grey+alpha replicated, 16-bit colour
-    reduced to its high byte)."""
+def _unpack_samples(rows: np.ndarray, width: int, depth: int) -> np.ndarray:
+    """(H, stride) bytes of 1-, 2- or 4-bit samples -> (H, width) values."""
+    bits = np.unpackbits(rows, axis=1).reshape(rows.shape[0], -1, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=-1, dtype=np.uint8)[:, :width]
+
+
+def decode_png(blob: bytes, native: Optional[bool] = None) -> np.ndarray:
+    """Decode a non-interlaced PNG into the arrays Pillow gives the HIVE
+    loader: 8-bit grey (H, W) uint8, 2- and 4-bit grey scaled to it, 16-bit
+    grey (H, W) uint16, and everything else as (H, W, 3) uint8 RGB (alpha
+    dropped, grey+alpha replicated, 1-bit grey as 0 / 255, palettes looked
+    up, 16-bit colour reduced to its high byte).
+
+    :param native: unfilter natively (True) or in numpy (False); by default
+        natively when the native library builds.
+    """
     if blob[:8] != _PNG_SIGNATURE:
         raise ValueError("not a PNG file")
 
     pos = 8
     header = None
+    palette = np.zeros((256, 3), np.uint8)
     idat = []
     while pos < len(blob):
         (length,) = struct.unpack(">I", blob[pos:pos + 4])
@@ -162,6 +187,9 @@ def decode_png(blob: bytes) -> np.ndarray:
         pos += 12 + length
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            entries = np.frombuffer(body, np.uint8)[:768].reshape(-1, 3)
+            palette[:len(entries)] = entries
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -170,16 +198,26 @@ def decode_png(blob: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("PNG has no IHDR chunk")
     width, height, depth, colour, _, _, interlace = header
-    if colour not in _PNG_CHANNELS or depth not in (8, 16):
+    if colour not in _PNG_CHANNELS or depth not in _PNG_DEPTHS[colour]:
         raise NotImplementedError(f"PNG colour type {colour} at bit depth "
                                   f"{depth} is not supported")
     if interlace:
         raise NotImplementedError("interlaced PNGs are not supported")
 
     channels = _PNG_CHANNELS[colour]
-    bpp = channels * depth // 8
+    bpp = max(1, channels * depth // 8)
     pixels = _png_unfilter(zlib.decompress(b"".join(idat)), height,
-                           width * bpp, bpp)
+                           -(-width * channels * depth // 8), bpp, native)
+
+    if depth < 8:
+        samples = _unpack_samples(pixels, width, depth)
+        if colour == 3:
+            return palette[samples]
+        if depth == 1:
+            return np.repeat(samples[..., None] * np.uint8(255), 3, axis=-1)
+        return samples * np.uint8(255 // ((1 << depth) - 1))
+    if colour == 3:
+        return palette[pixels]
 
     if depth == 16:
         pixels = pixels.reshape(height, width * channels, 2)
@@ -196,11 +234,17 @@ def decode_png(blob: bytes) -> np.ndarray:
 
 
 def load_image(path: str) -> np.ndarray:
-    """Load a PNG or raw float32 frame."""
+    """Load a PNG, JPEG or raw float32 frame, PNG and JPEG told apart by
+    their signatures, as Pillow loads them for ``hive_tpu``: 8-bit grey as
+    (H, W) uint8, 16-bit grey as (H, W) uint16, everything else as (H, W, 3)
+    uint8 RGB."""
     if path.endswith(".raw"):
         return load_raw_float32_image(path)
     with open(path, "rb") as f:
-        return decode_png(f.read())
+        blob = f.read()
+    if blob[:3] == b"\xff\xd8\xff":
+        return decode_jpeg(blob)
+    return decode_png(blob)
 
 
 # ---------------------------------------------------------------------------
@@ -208,7 +252,8 @@ def load_image(path: str) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 class ImageFolderDataset:
-    """A lazily-loaded, indexable folder of images (PNG or raw float32).
+    """A lazily-loaded, indexable folder of images (PNG, JPEG or raw
+    float32), read as ``hive_tpu``'s Pillow reads them.
 
     16-bit PNGs load as uint16 (depth maps); colour images load as RGB.
     """
@@ -247,6 +292,77 @@ class ImageFolderDataset:
         frames = tqdm_imap(self.__getitem__, range(len(self)),
                            num_workers=num_workers, show_progress=show_progress)
         return np.stack(frames)
+
+    def batches(self, batch_size: int, num_workers: Optional[int] = None) -> Iterator[np.ndarray]:
+        """Yield stacked (B, H, W, ...) batches in order (threaded loads)."""
+        for start in range(0, len(self), batch_size):
+            indices = range(start, min(start + batch_size, len(self)))
+            frames = tqdm_imap(self.__getitem__, indices,
+                               num_workers=num_workers, show_progress=False)
+            yield np.stack(frames)
+
+
+# ---------------------------------------------------------------------------
+# Instance segmentation mask creation.
+# ---------------------------------------------------------------------------
+
+def create_masks(rgb_source, mask_folder: File, for_colmap: bool = False,
+                 filename_fmt: Optional[Callable[[int], str]] = None,
+                 batch_size: int = 8, device=None):
+    """Create person instance-segmentation masks for an RGB sequence.
+
+    Mask-ID contract (that of ``hive_tpu.io.create_masks``):
+
+    * default: background = 0, object instances = 1..N (uint8, one PNG/frame);
+    * ``for_colmap=True``: white (255) = keep, black (0) = dynamic object, and
+      files are named ``<source filename>.png``.
+
+    :param rgb_source: An :class:`ImageFolderDataset` (or any indexable frame
+        source with ``image_filenames``).
+    :param mask_folder: Where to write the PNG masks (8-bit grey).
+    :param device: where the segmenter runs; default ``cuda:0``.
+    """
+    from hive_tpu_torch.models.segmentation import PersonSegmenter
+
+    logging.info("Running instance segmentation over the frames...")
+
+    os.makedirs(mask_folder, exist_ok=True)
+    segmenter = PersonSegmenter(device=device)
+
+    index = 0
+
+    for batch in rgb_source.batches(batch_size) if hasattr(rgb_source, "batches") \
+            else _iter_batches(rgb_source, batch_size):
+        instance_masks = segmenter.predict_batch(batch)
+
+        for masks in instance_masks:
+            if for_colmap:
+                combined = np.full(masks.shape[-2:], 255, dtype=np.uint8)
+                combined[masks > 0] = 0
+            else:
+                combined = masks.astype(np.uint8)
+
+            if filename_fmt:
+                output_filename = filename_fmt(index)
+            elif for_colmap:
+                output_filename = f"{rgb_source.image_filenames[index]}.png"
+            else:
+                output_filename = f"{index:06d}.png"
+
+            with open(pjoin(str(mask_folder), output_filename), "wb") as f:
+                f.write(encode_png(combined))
+            index += 1
+
+
+def _iter_batches(source, batch_size):
+    batch = []
+    for item in source:
+        batch.append(item)
+        if len(batch) == batch_size:
+            yield np.stack(batch)
+            batch = []
+    if batch:
+        yield np.stack(batch)
 
 
 class InvalidDatasetFormatError(Exception):

@@ -7,6 +7,8 @@ events around it (host cost included). Both need a CUDA device.
 
 from __future__ import annotations
 
+import logging
+import time
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -15,9 +17,11 @@ from torch.profiler import ProfilerActivity, profile
 
 # The kernel of torch.cuda._sleep, which brackets each trace's calls.
 MARKER = "spin_kernel"
-# Opening markers: more than the kernels a trace has been seen to lose.
-OPENING = 64
-ATTEMPTS = 3
+# Markers on each side of the calls: more than the kernels a trace has been
+# seen to lose at either end, and launched for at least BRACKET_S seconds.
+MARKERS = 64
+BRACKET_S = 0.01
+ATTEMPTS = 5
 # Traces taken again because they lost a marker, in this process.
 retakes = 0
 
@@ -65,13 +69,13 @@ def device_profile(fn: Callable[[], object], reps: int = 50, warmup: int = 5, *,
     device events whose name holds it are summed, and the trace must hold
     exactly one of them per call.
 
-    Late in a long process a trace can miss its first kernels (up to a few
-    dozen), which would drop calls from the sums. So the calls run between
-    OPENING marker kernels and one closing marker, and a trace counts only
-    if its earliest and its latest device events are markers; otherwise it
-    is taken again, so ``fn`` may run more than ``warmup + reps`` times.
-    Raises if ATTEMPTS traces all failed that, or if the trace holds no
-    device time."""
+    Late in a long process a trace can miss its first or its last kernels
+    (a few, up to a few dozen), which would drop calls from the sums. So the
+    calls run between two runs of marker kernels (MARKERS of them, and more
+    until BRACKET_S has passed), and a trace counts only if its earliest and
+    its latest device events are markers; otherwise it is taken again, so
+    ``fn`` may run more than ``warmup + reps`` times. Raises if ATTEMPTS
+    traces all failed that, or if the trace holds no device time."""
     global retakes
     if setup is not None and kernel is None:
         raise ValueError("a setup's device work needs a kernel name to leave it out")
@@ -81,23 +85,37 @@ def device_profile(fn: Callable[[], object], reps: int = 50, warmup: int = 5, *,
             setup()
         fn()
 
+    def bracket():
+        began = time.perf_counter()
+        for _ in range(MARKERS):
+            torch.cuda._sleep(100)
+        while time.perf_counter() - began < BRACKET_S:
+            torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+        torch.cuda.synchronize()
+
     for _ in range(warmup):
         call()
     torch.cuda.synchronize()
+    lost = []
     for attempt in range(ATTEMPTS):
         retakes += attempt > 0
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(OPENING):
-                torch.cuda._sleep(100)
+            bracket()
             for _ in range(reps):
                 call()
-            torch.cuda._sleep(100)
-            torch.cuda.synchronize()
+            bracket()
         events = device_events(prof)
         if events and MARKER in events[0].name and MARKER in events[-1].name:
             break
+        lost.append((len(events), sum(MARKER in e.name for e in events),
+                     events[0].name[:40] if events else None,
+                     events[-1].name[:40] if events else None))
+        logging.warning(f"profiler trace {attempt + 1} lost its first or last kernels "
+                        f"(events, markers, first, last): {lost[-1]}")
     else:
-        raise RuntimeError(f"{ATTEMPTS} profiler traces lost their first or last kernels")
+        raise RuntimeError(f"{ATTEMPTS} profiler traces lost their first or last kernels "
+                           f"(events, markers, first, last): {lost}")
     calls = [e for e in events if MARKER not in e.name and (kernel is None or kernel in e.name)]
     if kernel is not None and len(calls) != reps:
         raise RuntimeError(f"{len(calls)} {kernel} kernels traced in {reps} calls")

@@ -1,9 +1,12 @@
-"""Native (C++) host code, loaded via ctypes: the extraction weld and the
-QEM decimation.
+"""Native (C++) host code, loaded via ctypes: the extraction weld, the
+QEM decimation, the JPEG scan decode and the PNG unfilter.
 
 Counterpart of ``hive_tpu/native`` (``src/weld.cpp`` and
 ``src/qem_decimate.cpp`` are copies of the JAX package's, built with the same
-flags, so both packages decimate a mesh to the same bits). The shared library
+flags, so both packages decimate a mesh to the same bits);
+``src/jpeg_decode.cpp`` and ``src/png_unfilter.cpp`` are the port's own, in
+place of the libjpeg and zlib-based decoders of Pillow, which the JAX
+package reads its frames with. The shared library
 builds on demand with g++ the first time it is needed, into
 ``hive_tpu_torch/_build/``. Callers fall back to numpy when no toolchain is
 available. This is host code, not a device kernel.
@@ -23,7 +26,7 @@ _SRC_DIR = os.path.join(_NATIVE_DIR, "src")
 _BUILD_DIR = os.path.join(os.path.dirname(_NATIVE_DIR), "_build")
 _LIB_PATH = os.path.join(_BUILD_DIR, "libhive_native.so")
 
-_SOURCES = ["qem_decimate.cpp", "weld.cpp"]
+_SOURCES = ["jpeg_decode.cpp", "png_unfilter.cpp", "qem_decimate.cpp", "weld.cpp"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -132,6 +135,21 @@ def get_native_lib() -> Optional[ctypes.CDLL]:
             ct.c_int64, ct.c_int64, ct.c_double, ct.POINTER(ct.c_double),
             ct.POINTER(ct.c_float), ct.POINTER(ct.c_uint8),
             ct.POINTER(ct.c_float),
+        ]
+
+        lib.hive_jpeg_decode_scan.restype = ct.c_int
+        lib.hive_jpeg_decode_scan.argtypes = [
+            ct.POINTER(ct.c_uint8), ct.POINTER(ct.c_int64), ct.c_int64,
+            ct.c_int32, ct.POINTER(ct.c_int32), ct.POINTER(ct.c_int32),
+            ct.POINTER(ct.c_int64), ct.POINTER(ct.c_uint8), ct.POINTER(ct.c_uint8),
+            ct.POINTER(ct.c_int32), ct.c_int64, ct.c_int64, ct.c_int64,
+            ct.POINTER(ct.c_void_p),
+        ]
+
+        lib.hive_png_unfilter.restype = ct.c_int
+        lib.hive_png_unfilter.argtypes = [
+            ct.POINTER(ct.c_uint8), ct.c_int64, ct.c_int64, ct.c_int64,
+            ct.POINTER(ct.c_uint8),
         ]
 
         _lib = lib
@@ -260,4 +278,32 @@ def oct_average(packed, inverse, num_unique: int):
         len(packed), num_unique,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
 
+    return out
+
+
+def png_unfilter(data, height: int, stride: int, bpp: int):
+    """Undo PNG scanline filters in one native pass.
+
+    :param data: (height, stride + 1) uint8: each row's filter type, then
+        its filtered bytes.
+    :return: (height, stride) uint8, or ``None`` when the native library is
+        unavailable (callers fall back to numpy).
+    :raises ValueError: for an unknown filter type.
+    """
+    import numpy as np
+
+    lib = get_native_lib()
+    if lib is None:
+        return None
+
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    if data.shape != (height, stride + 1) or bpp < 1:
+        raise ValueError(f"PNG rows of shape {data.shape} do not hold {height} rows of "
+                         f"{stride} bytes")
+    out = np.empty((height, stride), dtype=np.uint8)
+    status = lib.hive_png_unfilter(data.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                                   height, stride, bpp,
+                                   out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    if status:
+        raise ValueError("unknown PNG filter type")
     return out

@@ -1,15 +1,17 @@
 """End-to-end pipeline: RGB-D sequence → fg.glb + bg.glb + metadata.
 
-Counterpart of ``hive_tpu/pipeline.py``: ``run`` with the foreground stage
-overlapping the background stage (:195-250), the TSDF, RGBD and BundleFusion
-background methods, per-frame foreground meshing (``_create_scene``,
-``process_frame``, ``_mesh_single_frame``, :372-599), ``_center_scenes``
-with ``--align_scene`` and the BundleFusion alignment, the export with its
-draco or quantize compression (:806-904), the WebXR copy and
-``profiling.json`` with its per-frame roll-ups (:1045-1096). The background's
-TSDF fusion runs on the card; the foreground stays host numpy, scipy and
-native C++ in worker threads, as in the JAX package. The CLI flag roster is
-the JAX package's; options whose stages are not ported yet raise
+Counterpart of ``hive_tpu/pipeline.py``: ``run`` with its dataset
+conversion (``adaptor=`` or the input's format sniffed, :176-187) and the
+foreground stage overlapping the background stage (:195-250), the TSDF,
+RGBD and BundleFusion background methods, per-frame foreground meshing
+(``_create_scene``, ``process_frame``, ``_mesh_single_frame``, :372-599),
+``_center_scenes`` with ``--align_scene`` and the BundleFusion alignment,
+the export with its draco or quantize compression (:806-904), the WebXR
+copy and ``profiling.json`` with its per-frame roll-ups (:1045-1096). The
+conversion's masks and the background's TSDF fusion run on the card; the
+foreground stays host numpy, scipy and native C++ in worker threads, as in
+the JAX package. The CLI flag roster is the JAX package's; options whose
+stages are not ported yet raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
@@ -50,13 +52,8 @@ from hive_tpu_torch.options import (BackgroundMeshOptions, COLMAPOptions,
                                     MaskDilationOptions, MeshDecimationOptions,
                                     MeshFilteringOptions, MeshReconstructionMethod,
                                     PipelineOptions, StorageOptions, WebXROptions)
-from hive_tpu_torch.utils import (format_bytes, get_key_path, set_key_path, setup_logger,
-                                  timed_block, tqdm_imap)
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to hive_tpu_torch yet "
-                               f"(ROADMAP.md {item}); use hive_tpu for it.")
+from hive_tpu_torch.utils import (format_bytes, get_key_path, not_ported, set_key_path,
+                                  setup_logger, timed_block, tqdm_imap)
 
 
 class Pipeline:
@@ -136,23 +133,24 @@ class Pipeline:
     def _check_ported(self):
         """Refuse the options whose stages are not ported yet."""
         if self.options.estimate_pose:
-            raise _not_ported("--estimate_pose", "Queue 1 item 12")
+            raise not_ported("--estimate_pose", "Queue 1 item 12")
         if self.options.estimate_depth:
-            raise _not_ported("--estimate_depth", "Queue 1 item 10")
+            raise not_ported("--estimate_depth", "Queue 1 item 10")
         if self.options.inpainting_mode != InpaintingMode.Off:
-            raise _not_ported("--inpainting_mode", "Queue 1 item 11")
+            raise not_ported("--inpainting_mode", "Queue 1 item 11")
         if self.options.num_devices != 1:
-            raise _not_ported("--num_devices", "Queue 1 item 14")
+            raise not_ported("--num_devices", "Queue 1 item 14")
         if self.fts_options.num_epochs > 0:
-            raise _not_ported("Foreground trajectory smoothing", "Queue 1 item 12")
+            raise not_ported("Foreground trajectory smoothing", "Queue 1 item 12")
         if self.webxr_options.webxr_run_server:
-            raise _not_ported("--webxr_run_server (the viewer)", "Queue 1 item 14")
+            raise not_ported("--webxr_run_server (the viewer)", "Queue 1 item 14")
 
     # -- main entry ----------------------------------------------------------
-    def run(self, dataset: Optional[HiveDataset] = None, compress: bool = True):
+    def run(self, dataset: Optional[HiveDataset] = None, adaptor=None, compress: bool = True):
         """Run the pipeline.
 
         :param dataset: Use this dataset instead of loading from CLI options.
+        :param adaptor: Use this dataset adaptor instead of auto-detection.
         :param compress: Whether to compress the exported meshes.
         """
         self._check_ported()
@@ -161,7 +159,14 @@ class Pipeline:
             torch.cuda.reset_peak_memory_stats(self.device)
 
         with self.timed_block("Loading dataset...", ["timing", "load_dataset", "total"]):
-            if dataset is None:
+            if adaptor is not None:
+                dataset = adaptor.convert(estimate_pose=self.options.estimate_pose,
+                                          estimate_depth=self.options.estimate_depth,
+                                          inpainting_mode=self.options.inpainting_mode,
+                                          static_camera=self.options.static_camera,
+                                          no_cache=self.storage_options.no_cache,
+                                          profiling=self.profiling, device=self.device)
+            elif dataset is None:
                 dataset = self.get_dataset()
 
             if self.num_frames == -1:
@@ -247,14 +252,12 @@ class Pipeline:
     def get_dataset(self) -> HiveDataset:
         """The HIVE-format dataset named on the command line. As in
         ``hive_tpu``, a converted dataset is looked up at ``--output_path``;
-        converting other formats (TUM, Unreal, StrayScanner, video) is not
-        ported yet."""
-        output_path = self.storage_options.output_path
-        if not self.storage_options.no_cache and HiveDataset.is_valid_folder_structure(output_path):
-            return HiveDataset(output_path)
-        raise _not_ported(f"Converting {self.storage_options.dataset_path} "
-                          f"(no HIVE-format dataset at {output_path})",
-                          "Queue 1 item 9")
+        otherwise ``--dataset_path`` is converted into it (TUM and Unreal
+        inputs; StrayScanner and video inputs are refused)."""
+        from hive_tpu_torch.dataset_adaptors import get_dataset
+
+        return get_dataset(self.storage_options, self.colmap_options, self.options,
+                           profiling=self.profiling, device=self.device)
 
     # -- device stats ---------------------------------------------------------
     def _get_peak_device_memory(self) -> dict:

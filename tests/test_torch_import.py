@@ -100,16 +100,55 @@ def test_device_helper_refuses_missing_cuda(monkeypatch):
     assert hive_tpu_torch.get_device(torch.device("cpu")).type == "cpu"
 
 
-def test_entry_points_default_to_the_card(monkeypatch):
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    from hive_tpu_torch.models.segmentation import PersonSegmenter
     from hive_tpu_torch.ops.tsdf import TSDFVolume
     from hive_tpu_torch.ops.tsdf_sparse import SparseTSDFVolume
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("WEIGHTS_PATH", str(tmp_path))
     bounds = np.array([[0, 1], [0, 1], [0, 1]], np.float32)
     for cls in (SparseTSDFVolume, TSDFVolume):
         with pytest.raises(RuntimeError):
             cls(bounds, voxel_size=0.25)
         assert cls(bounds, voxel_size=0.25, device="cpu").state.tsdf.device.type == "cpu"
+    with pytest.raises(RuntimeError):
+        PersonSegmenter()
+    assert PersonSegmenter(device="cpu")._classical.device.type == "cpu"
+
+
+def test_conversion_with_missing_packages_blocked(tmp_path):
+    """The CLI converts a TUM folder (PNG frames in, JPEG frames and motion
+    masks out) with JAX, hive_tpu, Pillow, OpenCV, imageio and tqdm blocked,
+    then reads its own JPEG frames back."""
+    from chip_smoke import write_tum_dataset
+
+    tum = str(tmp_path / "tum")
+    write_tum_dataset(tum, num_frames=4, width=64, height=48)
+    out = str(tmp_path / "out")
+    argv = ["--dataset_path", tum, "--output_path", out, "--num_frames", "4",
+            "--key_frame_threshold", "1.0", "--sdf_max_voxels", "100000", "--background_only",
+            "--webxr_path", str(tmp_path / "webxr"), "--log_file", str(tmp_path / "log.txt")]
+    blocked = ("jax", "hive_tpu") + MISSING_ON_CARD_MACHINE
+    code = ("import sys\n"
+            f"for name in {blocked!r}:\n"
+            "    sys.modules[name] = None\n"
+            "from hive_tpu_torch.io import HiveDataset\n"
+            "from hive_tpu_torch.pipeline import Pipeline\n"
+            f"pipeline = Pipeline.from_command_line({argv!r}, device='cpu')\n"
+            "pipeline.run()\n"
+            f"dataset = HiveDataset({out!r})\n"
+            "assert dataset.rgb_dataset.image_filenames[0] == '000000.jpg'\n"
+            "assert dataset.rgb_dataset[3].shape == (48, 64, 3)\n"
+            "assert dataset.mask_dataset[3].shape == (48, 64)\n"
+            "assert set(pipeline.profiling['timing']['load_dataset']) >= {'copy_frames',\n"
+            "    'create_instance_segmentation_masks', 'get_depth_maps'}\n"
+            "print('ok')\n")
+    env = dict(os.environ, WEIGHTS_PATH=str(tmp_path / "no_weights"))
+    done = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300, env=env)
+    assert done.returncode == 0, done.stderr[-4000:]
+    assert done.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_tf32_is_off():
@@ -371,6 +410,36 @@ def test_kernel_matches_plain_on_card(kernel):
                            band_sampler.band_sample_plain(frame, v, u))
         return
     _check_classify_on_card(kernel, rng, dev)
+
+
+@pytest.mark.cuda
+def test_motion_segmenter_on_card_equals_cpu(tmp_path):
+    """MOG2, the open and close and the instance ids on the card equal the
+    CPU's, frame by frame, on chip_smoke.py's VGA TUM scene (a noisy wall, a
+    blob that jumps about) with its last four frames dimmed (shadows)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the segmenter's device path runs there")
+    from chip_smoke import write_tum_dataset
+    from hive_tpu_torch.io import load_image
+    from hive_tpu_torch.models.segmentation import _MotionBackend
+
+    write_tum_dataset(str(tmp_path), num_frames=16, width=640, height=480)
+    names = sorted(os.listdir(tmp_path / "rgb"))
+    frames = np.stack([load_image(str(tmp_path / "rgb" / name)) for name in names])
+    frames[12:] = (frames[12:] * 0.6).astype(np.uint8)
+    frames = torch.from_numpy(frames)
+    card, cpu = _MotionBackend(device="cuda"), _MotionBackend(device="cpu")
+    for name, batch in (("prime", frames[:8]), ("first", frames[:8]), ("second", frames[8:])):
+        if name == "prime":
+            card.prime(batch.cuda())
+            cpu.prime(batch)
+            continue
+        got, want = card.foreground(batch.cuda()).cpu(), cpu.foreground(batch)
+        assert torch.equal(got, want), name
+        for g, w in zip(got.numpy(), want.numpy()):
+            np.testing.assert_array_equal(card.instances(g), cpu.instances(w))
+        for state in ("weight", "variance", "mean", "modes_used"):
+            assert torch.equal(getattr(card, state).cpu(), getattr(cpu, state)), (name, state)
 
 
 def _check_classify_on_card(kernel, rng, dev):
