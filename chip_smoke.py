@@ -5,7 +5,8 @@
 
 Phases (any failure raises and the script exits non-zero):
 
-1. the card's name and power limit (``nvidia-smi``);
+1. the card's name and power limit (``nvidia-smi``), and whether ``ffmpeg``
+   and ``ffprobe`` are on PATH (the video inputs need a decoder);
 2. build all six CUDA kernels from ``hive_tpu_torch/csrc`` (one ``nvcc``
    each, started together), then the native host library (``g++``: the
    extraction weld, the QEM decimation, the JPEG scan decode and the PNG
@@ -66,14 +67,32 @@ Phases (any failure raises and the script exits non-zero):
    silhouette; ``fg.glb`` must hold a textured node for each of those
    frames and ``bg.glb`` finite vertices. Logs the ``load_dataset`` stages
    and both CLI runs' stage times side by side;
-8. the tile-gather kernel, both axes, on the gather probe's (8, 128) tile:
+8. depth from RGB. DPT-Hybrid at full width on the card (R50 stem, ViT-B/16,
+   256-wide fusion, NYU head), with the check weights from the seed
+   (``check_flax_params``): its float32 logits equal the CPU's on a
+   (2, 64, 96) batch within the CPU parity test's tolerance, its bf16
+   logits the CPU's bf16 within DPT_CPU_BF16_TOL; at the graft entry's
+   2x256x320 and the CLI's 8x480x640, bf16 and float32 logits finite and
+   within DPT_BF16_TOL of each other; one forward timed per shape and dtype
+   (device ms, launch loop), with frames/s, the analytic FLOPs
+   (``dpt_flops``), TFLOP/s, its share of the data-sheet peak and peak
+   device memory. Then a user's run with ``--estimate_depth`` on phase 7's
+   TUM folder, nothing patched, with the check weights written as
+   ``$WEIGHTS_PATH/dpt_hybrid_nyu.npz`` (the head mapped to ~2 m by the
+   NYU calibration): 30 uint16 640x480 depth PNGs spanning at least
+   DEPTH_MIN_SPAN_MM, each within 1 mm of this script's own
+   ``predict_batch`` on the converted frames; ``metadata.json`` says
+   ``estimate_depth``; two classifications and one band update a frame;
+   both meshes finite; ``get_depth_maps`` logged beside the GT-depth run's
+   stages;
+9. the tile-gather kernel, both axes, on the gather probe's (8, 128) tile:
    bit-exact vs its plain version, timed beside ``torch.gather``;
-9. the patch-gather kernel on the probe's 1024 blocks x 512 samples, with
+10. the patch-gather kernel on the probe's 1024 blocks x 512 samples, with
    one sample in eight moved out of its window: bit-exact vs its plain
    version, timed beside ``torch.take`` and the band sampler;
-10. both fused band-trip variants on the fused-trip probe's 128-row trip:
+11. both fused band-trip variants on the fused-trip probe's 128-row trip:
    bit-exact vs the plain version, timed;
-11. the two measurement entry points, each run in this process with the
+12. the two measurement entry points, each run in this process with the
    launch counts reset just before and read just after:
    ``hive_tpu_torch.micro.gather`` (Q1 tile gathers, Q2 patch gather timed
    beside ``torch.take`` and the band sampler) and
@@ -81,7 +100,7 @@ Phases (any failure raises and the script exits non-zero):
    production trip; Q3: fused, production and take trips timed, their final
    states bit-identical on the rows that fit); each of its kernels must have
    launched;
-12. one ``{"kernels": [...]}`` line (times, errors and bounds at the main
+13. one ``{"kernels": [...]}`` line (times, errors and bounds at the main
    paths' shapes, and under ``bench`` at the bench shape), then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last
    line.
@@ -108,6 +127,7 @@ from __future__ import annotations
 import json
 import os
 import runpy
+import shutil
 import struct
 import subprocess
 import sys
@@ -118,6 +138,8 @@ from unittest import mock
 
 import numpy as np
 import torch
+
+from torch.profiler import ProfilerActivity, profile
 
 from hive_tpu_torch.micro import timing
 from hive_tpu_torch.micro.timing import device_profile, device_us, events_ms, self_device_us
@@ -503,6 +525,20 @@ def log_times(tag: str, times: dict) -> None:
     log(f"[{tag}] {times['shape']}: kernel={times['ms']:.6f} ms "
         f"plain={times['plain_ms']:.6f} ms{library} (profiler){loop}; "
         f"bound={times['bound_ms']:.7f} ms ({times['bound_by']})")
+
+
+def video_tools() -> dict:
+    """Where ``ffmpeg`` and ``ffprobe`` are on PATH, with the first line of
+    their ``-version`` (None if absent): the video inputs need a decoder."""
+    found = {}
+    for name in ("ffmpeg", "ffprobe"):
+        path = shutil.which(name)
+        if path is None:
+            found[name] = None
+            continue
+        done = subprocess.run([path, "-version"], capture_output=True, text=True, timeout=60)
+        found[name] = f"{path}: {(done.stdout.splitlines() or [''])[0]}"
+    return found
 
 
 def nvidia_smi_line() -> str:
@@ -1264,76 +1300,77 @@ def flat_totals(tree, prefix=""):
     return out
 
 
-def run_conversion(device, launches, main_profiling) -> dict:
+def run_conversion(device, launches, main_profiling, tmp: str):
     """A user's run on a TUM folder: ``python -m hive_tpu_torch`` converts it
     (JPEG frames, motion masks on the card) and meshes it, in this process,
     with no check patched in. Checks the converted folder, the launch
     counts, the card's masks against the CPU's on the same frames, the blob
-    found in each frame after priming, and both meshes."""
+    found in each frame after priming, and both meshes. The TUM folder is
+    written to ``<tmp>/tum``; returns the run's summary and its
+    ``profiling.json``."""
     from hive_tpu_torch.io import HiveDataset, ImageFolderDataset, create_masks
     from hive_tpu_torch.meshing.gltf import load_glb
 
-    with tempfile.TemporaryDirectory(prefix="hive_tum_") as tmp:
-        tum, out = os.path.join(tmp, "tum"), os.path.join(tmp, "converted")
-        start = time.perf_counter()
-        silhouettes = write_tum_dataset(tum, TUM_FRAMES, TUM_W, TUM_H)
-        log(f"[convert] wrote a {TUM_FRAMES}-frame {TUM_W}x{TUM_H} TUM folder in "
-            f"{time.perf_counter() - start:.1f} s")
-        mog2 = time_mog2(device, tum)
+    tum, out = os.path.join(tmp, "tum"), os.path.join(tmp, "converted")
+    start = time.perf_counter()
+    silhouettes = write_tum_dataset(tum, TUM_FRAMES, TUM_W, TUM_H)
+    log(f"[convert] wrote a {TUM_FRAMES}-frame {TUM_W}x{TUM_H} TUM folder in "
+        f"{time.perf_counter() - start:.1f} s")
+    mog2 = time_mog2(device, tum)
 
-        # Every frame is a key frame: with the default overlap threshold a
-        # static camera's frames all overlap frame 0, which alone is fused.
-        argv = ["hive_tpu_torch", "--dataset_path", tum, "--output_path", out,
-                "--key_frame_threshold", "1.0", "--webxr_path", os.path.join(tmp, "webxr"),
-                "--log_file", os.path.join(tmp, "pipeline.log")]
-        reset_launch_counts()
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        with mock.patch.object(sys, "argv", argv):
-            runpy.run_module("hive_tpu_torch", run_name="__main__", alter_sys=True)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - start
-        launches["converted"] = main_launch_counts()
-        check_launches("the converted run", launches["converted"], TUM_FRAMES)
+    # Every frame is a key frame: with the default overlap threshold a
+    # static camera's frames all overlap frame 0, which alone is fused.
+    argv = ["hive_tpu_torch", "--dataset_path", tum, "--output_path", out,
+            "--key_frame_threshold", "1.0", "--webxr_path", os.path.join(tmp, "webxr"),
+            "--log_file", os.path.join(tmp, "pipeline.log")]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with mock.patch.object(sys, "argv", argv):
+        runpy.run_module("hive_tpu_torch", run_name="__main__", alter_sys=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches["converted"] = main_launch_counts()
+    check_launches("the converted run", launches["converted"], TUM_FRAMES)
 
-        dataset = HiveDataset(out)
-        names = dataset.rgb_dataset.image_filenames
-        if dataset.num_frames != TUM_FRAMES or names != [f"{i:06d}.jpg"
-                                                          for i in range(TUM_FRAMES)]:
-            raise AssertionError(f"converted {dataset.num_frames} frames: {names[:3]}...")
-        with open(os.path.join(out, "profiling.json")) as f:
-            profiling = json.load(f)
+    dataset = HiveDataset(out)
+    names = dataset.rgb_dataset.image_filenames
+    if dataset.num_frames != TUM_FRAMES or names != [f"{i:06d}.jpg"
+                                                      for i in range(TUM_FRAMES)]:
+        raise AssertionError(f"converted {dataset.num_frames} frames: {names[:3]}...")
+    with open(os.path.join(out, "profiling.json")) as f:
+        profiling = json.load(f)
 
-        card = np.stack([dataset.mask_dataset[i] for i in range(TUM_FRAMES)])
-        start = time.perf_counter()
-        create_masks(ImageFolderDataset(dataset.path_to_rgb_frames),
-                     os.path.join(tmp, "cpu_masks"), device="cpu")
-        cpu_s = time.perf_counter() - start
-        cpu = np.stack(list(ImageFolderDataset(os.path.join(tmp, "cpu_masks"))))
-        if not np.array_equal(card, cpu):
-            raise AssertionError(f"the card's masks differ from the CPU's at "
-                                 f"{int((card != cpu).sum())} pixels")
-        found = card > 0
-        ious = (found & silhouettes).sum(axis=(1, 2)) / np.maximum(
-            (found | silhouettes).sum(axis=(1, 2)), 1)
-        if ious[TUM_PRIMED:].min() < TUM_IOU:
-            raise AssertionError(f"blob IoU after priming {np.round(ious[TUM_PRIMED:], 3)}, "
-                                 f"want >= {TUM_IOU} in each frame")
+    card = np.stack([dataset.mask_dataset[i] for i in range(TUM_FRAMES)])
+    start = time.perf_counter()
+    create_masks(ImageFolderDataset(dataset.path_to_rgb_frames),
+                 os.path.join(tmp, "cpu_masks"), device="cpu")
+    cpu_s = time.perf_counter() - start
+    cpu = np.stack(list(ImageFolderDataset(os.path.join(tmp, "cpu_masks"))))
+    if not np.array_equal(card, cpu):
+        raise AssertionError(f"the card's masks differ from the CPU's at "
+                             f"{int((card != cpu).sum())} pixels")
+    found = card > 0
+    ious = (found & silhouettes).sum(axis=(1, 2)) / np.maximum(
+        (found | silhouettes).sum(axis=(1, 2)), 1)
+    if ious[TUM_PRIMED:].min() < TUM_IOU:
+        raise AssertionError(f"blob IoU after priming {np.round(ious[TUM_PRIMED:], 3)}, "
+                             f"want >= {TUM_IOU} in each frame")
 
-        foreground = load_glb(os.path.join(out, "mesh", "fg.glb"))
-        background = next(iter(load_glb(os.path.join(out, "mesh", "bg.glb")).geometry.values()))
-        with_object = [f"{i:06d}" for i in range(TUM_FRAMES) if card[i].any()]
-        after = {f"{i:06d}" for i in range(TUM_PRIMED, TUM_FRAMES)}
-        if not after <= set(foreground.node_names) <= set(with_object):
-            raise AssertionError(f"fg.glb nodes {foreground.node_names}; frames with an "
-                                 f"object {with_object}")
-        for name in foreground.node_names:
-            mesh = foreground.geometry[name]
-            if mesh.num_faces == 0 or mesh.texture is None or not np.isfinite(
-                    mesh.vertices).all():
-                raise AssertionError(f"fg.glb frame {name}: no finite textured faces")
-        if len(background.vertices) == 0 or not np.isfinite(background.vertices).all():
-            raise AssertionError("bg.glb holds no (finite) vertices")
+    foreground = load_glb(os.path.join(out, "mesh", "fg.glb"))
+    background = next(iter(load_glb(os.path.join(out, "mesh", "bg.glb")).geometry.values()))
+    with_object = [f"{i:06d}" for i in range(TUM_FRAMES) if card[i].any()]
+    after = {f"{i:06d}" for i in range(TUM_PRIMED, TUM_FRAMES)}
+    if not after <= set(foreground.node_names) <= set(with_object):
+        raise AssertionError(f"fg.glb nodes {foreground.node_names}; frames with an "
+                             f"object {with_object}")
+    for name in foreground.node_names:
+        mesh = foreground.geometry[name]
+        if mesh.num_faces == 0 or mesh.texture is None or not np.isfinite(
+                mesh.vertices).all():
+            raise AssertionError(f"fg.glb frame {name}: no finite textured faces")
+    if len(background.vertices) == 0 or not np.isfinite(background.vertices).all():
+        raise AssertionError("bg.glb holds no (finite) vertices")
 
     load = profiling["timing"]["load_dataset"]
     log(f"[convert] {TUM_FRAMES} frames converted and meshed in {wall:.1f} s, "
@@ -1354,7 +1391,234 @@ def run_conversion(device, launches, main_profiling) -> dict:
         + "; ".join(f"{k} {ours.get(k, float('nan')):.4f} | {theirs.get(k, float('nan')):.4f}"
                     for k in sorted(set(ours) | set(theirs))))
     return dict(mog2, wall_s=wall, per_frame_s=profiling["elapsed_time"]["per_frame"],
-                load_dataset=load, iou_min=float(ious[TUM_PRIMED:].min()))
+                load_dataset=load, iou_min=float(ious[TUM_PRIMED:].min())), profiling
+
+# ---------------------------------------------------------------------------
+# Depth from RGB: DPT-Hybrid on the card.
+# ---------------------------------------------------------------------------
+
+# (batch, height, width): the graft entry's shape and the CLI's at VGA.
+DPT_SHAPES = ((2, 256, 320), (8, 480, 640))
+# The card's float32 logits against the CPU's, max |difference| over max
+# |logit|: the tolerance of the CPU parity test against hive_tpu
+# (tests/test_torch_dpt.py).
+DPT_CPU_TOL = 1e-3
+# The card's bf16 logits against the CPU's (the same code; each rounds every
+# op to bf16, in its own summation order), as DPT_CPU_TOL: measured 0.01395
+# on an H100 80GB HBM3 (700 W); a zeroed head gives 1.
+DPT_CPU_BF16_TOL = 0.02
+# bf16 against float32 logits on the card, |difference| over |fp32| in the
+# L2 norm, with the check weights: measured 0.008234 at 2x256x320 and
+# 0.009111 at 8x480x640 on an H100 80GB HBM3 (700 W); about 1.6 times the
+# larger.
+DPT_BF16_TOL = 0.015
+# The head's last conv in the weights file of the --estimate_depth run maps
+# the check weights' logits x (0.2-2.5 on the TUM scene) to GAIN x + OFFSET,
+# where the NYU calibration 1 / (0.000305 x + 0.1378) gives ~1.6-2.2 m,
+# about the scene's wall, with ~5 mm steps between neighbouring pixels (a
+# CPU forward of one frame). At x1000 alone the depth spanned 0.9-4.3 m
+# with ~29 mm steps, and the TSDF meshed a 6.8M-vertex rough surface.
+DPT_HEAD_GAIN = 200.0
+DPT_HEAD_OFFSET = 1000.0
+# The depth maps of that run must span this much: a plane at one depth
+# (the reference's random initialisation gives 7.256 m everywhere) fails.
+DEPTH_MIN_SPAN_MM = 200
+# Published dense peaks of an H100 SXM (NVIDIA data sheet): bf16 on the
+# tensor cores; float32 off them (TF32 is off).
+DPT_PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+
+
+def top_kernels(fn, count: int = 5) -> str:
+    """The ``count`` kernels with the most device time in one call of
+    ``fn()``, with their launches (one profiler trace; a breakdown, not a
+    timing)."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted(prof.key_averages(), key=self_device_us, reverse=True)[:count]
+    return "; ".join(f"{e.key[:70]} x{e.count} {self_device_us(e) / 1e3:.3f} ms" for e in events)
+
+
+def check_dpt(device) -> dict:
+    """DPT-Hybrid at full width on the card, with the check weights from
+    the seed, in bf16 and in float32: the card's logits against the CPU's
+    in both dtypes on a (2, 64, 96) batch; at each of DPT_SHAPES finite
+    logits in both dtypes, bf16 against float32, one forward's device ms
+    (profiler) and launch-loop ms (events), frames/s, achieved TFLOP/s
+    and its share of the dtype's peak, peak device memory."""
+    from hive_tpu_torch.models import dpt
+    from hive_tpu_torch.ops.resize import prepare_model_input
+
+    start = time.perf_counter()
+    flat = dpt.check_flax_params(seed=SEED)
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    models = {}
+    for name, dtype in dtypes.items():
+        with torch.device(device):
+            models[name] = dpt.DPTHybrid(dtype=dtype)
+        dpt.load_flax_params(models[name], flat).eval()
+    rng = np.random.default_rng(SEED)
+    small = torch.from_numpy(rng.uniform(-1, 1, (2, 3, 64, 96)).astype(np.float32))
+    results = {}
+    for name, tol in (("fp32", DPT_CPU_TOL), ("bf16", DPT_CPU_BF16_TOL)):
+        with torch.inference_mode():
+            want = dpt.load_flax_params(dpt.DPTHybrid(dtype=dtypes[name]), flat).eval()(small)
+            got = models[name](small.to(device)).cpu()
+        err = float((got - want).abs().max() / want.abs().max())
+        results[f"cpu_rel_err_{name}"] = err
+        log(f"[dpt] {name} card vs CPU at 2x64x96: {err:.4g} relative (max |logit| "
+            f"{float(want.abs().max()):.4f}), want < {tol}")
+        if not err < tol:
+            raise AssertionError(f"DPT {name} on the card vs the CPU: {err:.3g} relative, "
+                                 f"want < {tol}")
+    log(f"[dpt] weights, models and CPU checks in {time.perf_counter() - start:.1f} s")
+
+    for batch, h, w in DPT_SHAPES:
+        frames = torch.from_numpy(rng.integers(0, 256, (batch, h, w, 3), dtype=np.uint8))
+        images = prepare_model_input(frames.to(device), (h, w)).permute(0, 3, 1, 2)
+        flops = dpt.dpt_flops((h, w), batch)
+        shape = f"{batch}x{h}x{w}"
+        logits = {}
+        for name, model in models.items():
+            with torch.inference_mode():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(device)
+                logits[name] = model(images)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated(device)
+                ms, ops = device_profile(lambda: model(images), reps=3, warmup=1)
+                loop_ms = events_ms(lambda: model(images), reps=3, warmup=0)
+                top = top_kernels(lambda: model(images))
+            if not torch.isfinite(logits[name]).all():
+                raise AssertionError(f"DPT {name} at {shape}: non-finite logits")
+            rate = flops / (ms * 1e-3)
+            results[f"{name}_{shape}"] = dict(
+                ms=ms, device_ops=ops, loop_ms=loop_ms, frames_per_s=batch / (ms * 1e-3),
+                flops=flops, tflops_per_s=rate / 1e12, peak_share=rate / DPT_PEAK_FLOPS[name],
+                peak_bytes=peak)
+            log(f"[dpt] {name} {shape}: {ms:.4f} ms device ({ops:.0f} kernels), "
+                f"{loop_ms:.4f} ms launch loop (events), {batch / (ms * 1e-3):.2f} frames/s; "
+                f"{flops / 1e9:.1f} GFLOP, {rate / 1e12:.2f} TFLOP/s = "
+                f"{100 * rate / DPT_PEAK_FLOPS[name]:.2f}% of the "
+                f"{DPT_PEAK_FLOPS[name] / 1e12:.0f} TFLOP/s {name} data-sheet peak; "
+                f"peak device memory {peak} B")
+            log(f"[dpt] {name} {shape} top kernels by device time: {top}")
+        diff = float(torch.linalg.vector_norm(logits["bf16"] - logits["fp32"])
+                     / torch.linalg.vector_norm(logits["fp32"]))
+        worst = float((logits["bf16"] - logits["fp32"]).abs().max()
+                      / logits["fp32"].abs().max())
+        results[f"bf16_vs_fp32_{shape}"] = diff
+        log(f"[dpt] bf16 vs fp32 logits at {shape}: {diff:.4g} relative (L2), {worst:.4g} "
+            f"(max), want < {DPT_BF16_TOL} (L2); fp32 logits mean "
+            f"{float(logits['fp32'].mean()):.4f}, max {float(logits['fp32'].max()):.4f}")
+        if not diff < DPT_BF16_TOL:
+            raise AssertionError(f"DPT bf16 vs fp32 at {shape}: {diff:.3g}, "
+                                 f"want < {DPT_BF16_TOL}")
+    del models
+    torch.cuda.empty_cache()
+    return results
+
+
+def write_dpt_weights(weights_dir: str) -> None:
+    """The check weights from the seed as ``dpt_hybrid_nyu.npz`` in
+    ``weights_dir``, the file a user's ``$WEIGHTS_PATH`` holds, with the
+    head's last conv mapping its output x to DPT_HEAD_GAIN x +
+    DPT_HEAD_OFFSET."""
+    from hive_tpu_torch.models import dpt
+
+    flat = dpt.check_flax_params(seed=SEED)
+    flat["head_conv3/kernel"] *= np.float32(DPT_HEAD_GAIN)
+    flat["head_conv3/bias"] *= np.float32(DPT_HEAD_GAIN)
+    flat["head_conv3/bias"] += np.float32(DPT_HEAD_OFFSET)
+    np.savez(os.path.join(weights_dir, dpt.WEIGHTS_FILENAME), **flat)
+
+
+def run_depth_conversion(device, launches, gt_profiling, tmp: str) -> dict:
+    """A user's run with ``--estimate_depth`` on phase 7's TUM folder, with
+    a weights file in ``$WEIGHTS_PATH`` (``write_dpt_weights``): ``python -m
+    hive_tpu_torch`` converts it with DPT-Hybrid on the card and meshes it,
+    in this process, nothing patched. Checks 30 uint16 640x480 depth PNGs
+    spanning DEPTH_MIN_SPAN_MM or more, each within 1 mm of this script's
+    own ``predict_batch`` on the converted frames, the metadata, the launch
+    counts, both meshes and the ``get_depth_maps`` stage."""
+    from hive_tpu_torch.io import HiveDataset, ImageFolderDataset, load_image
+    from hive_tpu_torch.meshing.gltf import load_glb
+    from hive_tpu_torch.models.dpt import DPTDepthEstimator
+    from hive_tpu_torch.ops.resize import keep_aspect_multiple_of
+
+    tum, out = os.path.join(tmp, "tum"), os.path.join(tmp, "estimated")
+    weights_dir = os.path.join(tmp, "weights")
+    os.makedirs(weights_dir)
+    start = time.perf_counter()
+    write_dpt_weights(weights_dir)
+    log(f"[depth] wrote the weights file in {time.perf_counter() - start:.1f} s")
+    argv = ["hive_tpu_torch", "--dataset_path", tum, "--output_path", out, "--estimate_depth",
+            "--key_frame_threshold", "1.0", "--webxr_path", os.path.join(tmp, "webxr_depth"),
+            "--log_file", os.path.join(tmp, "pipeline_depth.log")]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with mock.patch.object(sys, "argv", argv), \
+            mock.patch.dict(os.environ, {"WEIGHTS_PATH": weights_dir}):
+        runpy.run_module("hive_tpu_torch", run_name="__main__", alter_sys=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches["estimated_depth"] = main_launch_counts()
+    check_launches("the --estimate_depth run", launches["estimated_depth"], TUM_FRAMES)
+
+    dataset = HiveDataset(out)
+    if not dataset.metadata.estimate_depth:
+        raise AssertionError("metadata.json does not say estimate_depth")
+    depth_paths = dataset.depth_dataset.image_paths
+    if [os.path.basename(p) for p in depth_paths] != [f"{i:06d}.png" for i in range(TUM_FRAMES)]:
+        raise AssertionError(f"depth maps {depth_paths[:3]}... ({len(depth_paths)})")
+    depth = np.stack([load_image(p) for p in depth_paths])
+    if depth.dtype != np.uint16 or depth.shape != (TUM_FRAMES, TUM_H, TUM_W):
+        raise AssertionError(f"depth maps {depth.dtype} {depth.shape}")
+    span = int(depth.max()) - int(depth.min())
+    if span < DEPTH_MIN_SPAN_MM:
+        raise AssertionError(f"the depth maps span {span} mm, want >= {DEPTH_MIN_SPAN_MM}")
+
+    start = time.perf_counter()
+    with mock.patch.dict(os.environ, {"WEIGHTS_PATH": weights_dir}):
+        estimator = DPTDepthEstimator(keep_aspect_multiple_of((TUM_H, TUM_W)), device)
+    if not estimator.weights_loaded:
+        raise AssertionError("the weights file was not loaded")
+    want = np.concatenate([(estimator.predict_batch(batch) * 1000.0).astype(np.uint16)
+                           for batch in ImageFolderDataset(dataset.path_to_rgb_frames).batches(8)])
+    recompute_s = time.perf_counter() - start
+    worst = int(np.abs(depth.astype(np.int64) - want.astype(np.int64)).max())
+    if worst > 1:
+        raise AssertionError(f"depth PNGs differ from predict_batch by up to {worst} mm")
+
+    foreground = load_glb(os.path.join(out, "mesh", "fg.glb"))
+    background = next(iter(load_glb(os.path.join(out, "mesh", "bg.glb")).geometry.values()))
+    for name in foreground.node_names:
+        if not np.isfinite(foreground.geometry[name].vertices).all():
+            raise AssertionError(f"fg.glb frame {name}: non-finite vertices")
+    if len(background.vertices) == 0 or not np.isfinite(background.vertices).all():
+        raise AssertionError("bg.glb holds no (finite) vertices")
+    with open(os.path.join(out, "profiling.json")) as f:
+        profiling = json.load(f)
+    stage = profiling["timing"]["load_dataset"]["get_depth_maps"]
+
+    log(f"[depth] {TUM_FRAMES} frames converted with --estimate_depth and meshed in "
+        f"{wall:.1f} s, {profiling['elapsed_time']['per_frame']:.4f} s/frame; get_depth_maps "
+        f"{stage:.4f} s; launches {launches['estimated_depth']}; depth {int(depth.min())}-"
+        f"{int(depth.max())} mm, within {worst} mm of predict_batch (fresh estimator and "
+        f"recompute {recompute_s:.1f} s); fg.glb {len(foreground.node_names)} frames, bg.glb "
+        f"{len(background.vertices)} vertices; peak device memory "
+        f"{profiling['peak_vram_usage']['allocated']} B")
+    ours, theirs = flat_totals(gt_profiling["timing"]), flat_totals(profiling["timing"])
+    log(f"[depth] stage s, TUM run with its depth maps | with --estimate_depth: per frame "
+        f"{gt_profiling['elapsed_time']['per_frame']:.4f} | "
+        f"{profiling['elapsed_time']['per_frame']:.4f}; "
+        + "; ".join(f"{k} {ours.get(k, float('nan')):.4f} | {theirs.get(k, float('nan')):.4f}"
+                    for k in sorted(set(ours) | set(theirs))))
+    return dict(wall_s=wall, per_frame_s=profiling["elapsed_time"]["per_frame"],
+                get_depth_maps_s=stage, max_mm_diff=worst, depth_span_mm=span,
+                load_dataset=profiling["timing"]["load_dataset"])
+
 
 # ---------------------------------------------------------------------------
 # The measurement entry points' kernels.
@@ -1560,6 +1824,7 @@ def main() -> int:
     smi = nvidia_smi_line()
     log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}; nvidia-smi: {smi}")
+    log(f"[device] video tools on PATH: {video_tools()}")
 
     start = time.perf_counter()
     cuda_build.build(["classify_blocks", "band_update", "band_sampler", "tile_gather",
@@ -1584,7 +1849,10 @@ def main() -> int:
     del frames
     torch.cuda.empty_cache()
     main_path, main_profiling = run_main_path(device, launches)
-    conversion = run_conversion(device, launches, main_profiling)
+    with tempfile.TemporaryDirectory(prefix="hive_tum_") as tmp:
+        conversion, conversion_profiling = run_conversion(device, launches, main_profiling, tmp)
+        dpt_results = check_dpt(device)
+        depth_run = run_depth_conversion(device, launches, conversion_profiling, tmp)
     probes = {"band_sampler": sampler,
               "tile_gather": check_tile_gather(device),
               "patch_gather": check_patch_gather(device),
@@ -1606,6 +1874,7 @@ def main() -> int:
             name=name, route="cuda", source=f"hive_tpu_torch/csrc/{source}.cu",
             replaces=replaces, launches=launches["main"][name],
             launches_converted=launches["converted"][name],
+            launches_estimated_depth=launches["estimated_depth"][name],
             launches_bench=launches["bench"][name], exact=True,
             calls_checked=result["calls_checked"], max_abs_err=result["max_abs_err"],
             ms=result["ms"], kernel_ms=result["ms"], plain_ms=result["plain_ms"],
@@ -1636,6 +1905,7 @@ def main() -> int:
             **{k: v for k, v in probes[name].items() if k != "library"},
             entry_point_result=entry_results[name]))
     log("[convert] summary " + json.dumps(conversion))
+    log("[dpt] summary " + json.dumps({"model": dpt_results, "estimate_depth_run": depth_run}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,11 +8,13 @@ folder set-up, ``TUMAdaptor`` (:467-581), ``UnrealAdaptor`` (:584-643) and
 keys and output files. RGB frames are written as quality-75 4:2:0 JPEGs and
 depth as 16-bit PNGs through :mod:`hive_tpu_torch.image_codecs`, where the
 JAX package writes them through imageio and Pillow: the JPEG bytes are
-Pillow's. The instance masks come from the motion segmenter on the card.
+Pillow's. The instance masks come from the motion segmenter on the card;
+with ``--estimate_depth`` the depth maps come from DPT-Hybrid on the card
+(``estimate_depth_dpt``, counterpart of :1018-1051).
 
 Not ported yet, each refused with its ROADMAP item: StrayScanner and plain
-video inputs (Queue 1 item 9b), ``--estimate_depth`` (item 10), inpainting
-(item 11) and ``--estimate_pose`` (item 12).
+video inputs (Queue 1 item 9b), inpainting (item 11) and
+``--estimate_pose`` (item 12).
 """
 
 from __future__ import annotations
@@ -32,8 +34,10 @@ from hive_tpu_torch.geometric import Trajectory
 from hive_tpu_torch.image_codecs import encode_jpeg, encode_png
 from hive_tpu_torch.io import (Dataset, DatasetMetadata, HiveDataset, ImageFolderDataset,
                                InvalidDatasetFormatError, create_masks, load_image)
+from hive_tpu_torch.models.dpt import DPTDepthEstimator
 from hive_tpu_torch.options import (BackgroundMeshOptions, COLMAPOptions, InpaintingMode,
                                     PipelineOptions, StorageOptions)
+from hive_tpu_torch.ops.resize import keep_aspect_multiple_of
 from hive_tpu_torch.sensor import KinectSensor
 from hive_tpu_torch.utils import not_ported, timed_block, tqdm_imap
 
@@ -138,13 +142,11 @@ class DatasetAdaptor(Dataset, ABC):
         """Create the HIVE dataset: metadata → frames → masks → depth →
         camera parameters → optional inpainting.
 
-        :param device: where the instance masks are computed; default
-            ``cuda:0``.
+        :param device: where the instance masks and estimated depth maps
+            are computed; default ``cuda:0``.
         """
         if estimate_pose:
             raise not_ported("Pose estimation (--estimate_pose)", "Queue 1 item 12")
-        if estimate_depth:
-            raise not_ported("Depth estimation (--estimate_depth)", "Queue 1 item 10")
         if inpainting_mode != InpaintingMode.Off:
             raise not_ported("Inpainting (--inpainting_mode)", "Queue 1 item 11")
 
@@ -175,8 +177,12 @@ class DatasetAdaptor(Dataset, ABC):
                          device=device)
 
         with timed_block(None, profiling, ["timing", "load_dataset", "get_depth_maps"]):
-            logging.info("Copying depth maps.")
-            self.copy_depth_maps(depth_folder)
+            if estimate_depth:
+                logging.info("Estimating depth maps.")
+                estimate_depth_dpt(ImageFolderDataset(image_folder), depth_folder, device=device)
+            else:
+                logging.info("Copying depth maps.")
+                self.copy_depth_maps(depth_folder)
 
         with timed_block(None, profiling, ["timing", "load_dataset", "get_camera_parameters"]):
             if static_camera:
@@ -452,6 +458,26 @@ class VideoAdaptor(DatasetAdaptor):
             raise InvalidDatasetFormatError(f"Dataset folder {base_path} is missing.")
 
 
+def estimate_depth_dpt(rgb_dataset: ImageFolderDataset, output_path: str, device=None):
+    """Estimate metric depth for every frame with DPT-Hybrid, in batches of
+    8, and write it as uint16 millimetre PNGs named ``{index:06d}.png``.
+
+    The net size keeps the source's aspect ('minimal' resize to a multiple
+    of 32 near 480 x 640), one size for the whole sequence.
+
+    :param device: where the network runs; default ``cuda:0``.
+    """
+    os.makedirs(output_path, exist_ok=True)
+    estimator = DPTDepthEstimator(keep_aspect_multiple_of(rgb_dataset[0].shape[:2]), device)
+
+    index = 0
+    for batch in rgb_dataset.batches(8):
+        for depth in estimator.predict_batch(batch):  # (H, W) metres
+            write_image(pjoin(output_path, f"{index:06d}.png"),
+                        (depth * 1000.0).astype(np.uint16))
+            index += 1
+
+
 def get_dataset(storage_options: StorageOptions,
                 colmap_options: COLMAPOptions = COLMAPOptions(),
                 pipeline_options: PipelineOptions = PipelineOptions(),
@@ -461,7 +487,8 @@ def get_dataset(storage_options: StorageOptions,
     Format sniffing order is ``hive_tpu``'s: HIVE cache → TUM → Unreal →
     StrayScanner → plain video.
 
-    :param device: where the instance masks are computed; default ``cuda:0``.
+    :param device: where the instance masks and estimated depth maps are
+        computed; default ``cuda:0``.
     """
     dataset_path = storage_options.dataset_path
     output_path = storage_options.output_path

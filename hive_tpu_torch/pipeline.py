@@ -134,8 +134,6 @@ class Pipeline:
         """Refuse the options whose stages are not ported yet."""
         if self.options.estimate_pose:
             raise not_ported("--estimate_pose", "Queue 1 item 12")
-        if self.options.estimate_depth:
-            raise not_ported("--estimate_depth", "Queue 1 item 10")
         if self.options.inpainting_mode != InpaintingMode.Off:
             raise not_ported("--inpainting_mode", "Queue 1 item 11")
         if self.options.num_devices != 1:

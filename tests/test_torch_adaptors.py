@@ -54,7 +54,7 @@ def make_unreal_dataset(base, num_frames=12, width=64, height=48):
     return base
 
 
-def convert_both(kind, root, **options):
+def convert_both(kind, root, estimate_depth=False, **options):
     """Convert one input folder with each package; return the two outputs.
 
     The packages' default COLMAP vocabulary paths differ (the port's lies
@@ -71,13 +71,13 @@ def convert_both(kind, root, **options):
     vocab = "colmap/vocab.bin"
     getattr(jax_adaptors, cls)(base_path=base, output_path=outputs["jax"],
                                colmap_options=JaxCOLMAPOptions(vocab_path=vocab)).convert(
-        estimate_pose=False, estimate_depth=False, inpainting_mode=JaxInpaintingMode.Off,
+        estimate_pose=False, estimate_depth=estimate_depth, inpainting_mode=JaxInpaintingMode.Off,
         **options)
     profiling = {}
     dataset = getattr(dataset_adaptors, cls)(
         base_path=base, output_path=outputs["torch"],
         colmap_options=COLMAPOptions(vocab_path=vocab)).convert(
-        estimate_pose=False, estimate_depth=False, inpainting_mode=InpaintingMode.Off,
+        estimate_pose=False, estimate_depth=estimate_depth, inpainting_mode=InpaintingMode.Off,
         profiling=profiling, device="cpu", **options)
     assert isinstance(dataset, HiveDataset) and dataset.num_frames == frames
     assert list(profiling["timing"]["load_dataset"]) == [
@@ -229,7 +229,38 @@ def test_get_dataset_sniffs_like_hive_tpu(tmp_path):
                                                         output_path=str(tmp_path / "y")))
 
 
-@pytest.mark.parametrize("option", ["estimate_pose", "estimate_depth", "inpainting_mode"])
+def test_estimate_depth_conversion_matches_hive_tpu(tmp_path, monkeypatch):
+    """With ``estimate_depth`` both packages write DPT-Hybrid depth maps at
+    its weights-absent random initialisation (the same weights in both),
+    here at a 64 x 96 net size in both: the policy would upsample these
+    64 x 48 frames to a 480 x 640 forward. Depth PNGs within 1 mm; the
+    metadata (``estimate_depth: true``) and masks equal."""
+    from hive_tpu.ops import resize as jax_resize
+
+    def net_size(*args, **kwargs):
+        return 64, 96
+
+    monkeypatch.setattr(jax_resize, "keep_aspect_multiple_of", net_size)
+    monkeypatch.setattr(dataset_adaptors, "keep_aspect_multiple_of", net_size)
+    outputs = convert_both("tum", tmp_path, estimate_depth=True)
+    with open(pjoin(outputs["torch"], "metadata.json")) as f, \
+            open(pjoin(outputs["jax"], "metadata.json")) as g:
+        metadata = json.load(f)
+        assert metadata == json.load(g) and metadata["estimate_depth"] is True
+    for name in ("depth", "mask"):
+        names = sorted(os.listdir(pjoin(outputs["jax"], name)))
+        assert sorted(os.listdir(pjoin(outputs["torch"], name))) == names and len(names) == 5
+        for png in names:
+            ours, theirs = (pillow(pjoin(outputs[p], name, png)) for p in ("torch", "jax"))
+            assert ours.dtype == theirs.dtype and ours.shape == theirs.shape == (48, 64)
+            if name == "mask":
+                np.testing.assert_array_equal(ours, theirs)
+            else:
+                assert ours.dtype == np.uint16 and theirs.min() > 1000
+                np.testing.assert_allclose(ours.astype(int), theirs.astype(int), atol=1, rtol=0)
+
+
+@pytest.mark.parametrize("option", ["estimate_pose", "inpainting_mode"])
 def test_unported_conversion_options_refused(tmp_path, option):
     base = make_tum_dataset(tmp_path / "tum", num_frames=2)
     kwargs = dict(estimate_pose=False, estimate_depth=False, inpainting_mode=InpaintingMode.Off)

@@ -88,8 +88,39 @@ def test_pipeline_writes_bg_glb_both_packages_read(dataset_path, tmp_path):
     assert os.path.isfile(tmp_path / "webxr" / "ds" / "bg.glb")
 
 
-@pytest.mark.parametrize("extra", [[], ["--estimate_depth"], ["--num_devices", "2"]],
-                         ids=["foreground", "estimate_depth", "num_devices"])
+def test_estimate_depth_on_a_hive_dataset_runs_as_in_hive_tpu(dataset_path, tmp_path):
+    """On a folder that is already a HIVE dataset ``--estimate_depth`` only
+    concerns conversion, so both CLIs mesh the given depth maps: the same
+    bg.glb, and no conversion stage."""
+    import shutil
+    import sys
+    from unittest import mock
+
+    from hive_tpu.pipeline import Pipeline as JaxPipeline
+
+    meshes = {}
+    for name in ("jax", "torch"):
+        path = str(tmp_path / name)
+        shutil.copytree(dataset_path, path)
+        argv = _argv(path, tmp_path / name, "--estimate_depth")
+        if name == "jax":
+            with mock.patch.object(sys, "argv", ["hive", *argv]):
+                JaxPipeline.from_command_line().run(compress=False)
+        else:
+            pipeline = Pipeline.from_command_line(argv, device="cpu")
+            pipeline.run(compress=False)
+            assert pipeline.options.estimate_depth
+            assert "get_depth_maps" not in pipeline.profiling["timing"]["load_dataset"]
+        meshes[name] = next(iter(load_glb(os.path.join(path, "mesh", "bg.glb"))
+                                 .geometry.values()))
+    assert len(meshes["torch"].vertices) > 1000
+    for attribute in ("faces", "vertices", "vertex_colors"):
+        np.testing.assert_array_equal(getattr(meshes["torch"], attribute),
+                                      getattr(meshes["jax"], attribute))
+
+
+@pytest.mark.parametrize("extra", [[], ["--num_devices", "2"]],
+                         ids=["foreground", "num_devices"])
 def test_unported_options_name_their_roadmap_item(dataset_path, tmp_path, extra):
     """The foreground stage is ported; its trajectory smoothing (set through
     the constructor, it has no CLI flag) is not."""

@@ -35,7 +35,8 @@ def _port_sources():
 
 
 # What the card's machine lacks besides JAX: the port must run without them.
-MISSING_ON_CARD_MACHINE = ("PIL", "cv2", "imageio", "tqdm")
+MISSING_ON_CARD_MACHINE = ("PIL", "cv2", "imageio", "tqdm", "transformers", "timm",
+                           "torchvision")
 
 
 def test_imports_with_jax_and_hive_tpu_blocked(tmp_path):
@@ -77,10 +78,12 @@ def test_imports_with_jax_and_hive_tpu_blocked(tmp_path):
 
 
 def test_sources_import_nothing_of_jax_or_hive_tpu():
-    """Nor Pillow, OpenCV or imageio, which the card's machine lacks."""
+    """Nor Pillow, OpenCV, imageio, transformers, timm or torchvision, which
+    the card's machine lacks."""
     banned = re.compile(r"^\s*(import\s+(jax|jaxlib|hive_tpu)\b(?!_torch)"
                         r"|from\s+(jax|jaxlib|hive_tpu)\b(?!_torch)"
-                        r"|(import|from)\s+(PIL|cv2|imageio)\b)", re.MULTILINE)
+                        r"|(import|from)\s+(PIL|cv2|imageio|transformers|timm|torchvision)\b)",
+                        re.MULTILINE)
     offenders = [path for path in _port_sources() if banned.search(open(path).read())]
     assert offenders == []
 
@@ -143,6 +146,42 @@ def test_conversion_with_missing_packages_blocked(tmp_path):
             "assert dataset.mask_dataset[3].shape == (48, 64)\n"
             "assert set(pipeline.profiling['timing']['load_dataset']) >= {'copy_frames',\n"
             "    'create_instance_segmentation_masks', 'get_depth_maps'}\n"
+            "print('ok')\n")
+    env = dict(os.environ, WEIGHTS_PATH=str(tmp_path / "no_weights"))
+    done = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300, env=env)
+    assert done.returncode == 0, done.stderr[-4000:]
+    assert done.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_depth_estimation_with_missing_packages_blocked(tmp_path):
+    """The CLI converts a TUM folder with ``--estimate_depth`` (DPT-Hybrid at
+    its random initialisation, on the CPU at a 64 x 96 net size) with JAX,
+    hive_tpu and the packages the card's machine lacks blocked."""
+    from chip_smoke import write_tum_dataset
+
+    tum = str(tmp_path / "tum")
+    write_tum_dataset(tum, num_frames=4, width=64, height=48)
+    out = str(tmp_path / "out")
+    argv = ["--dataset_path", tum, "--output_path", out, "--num_frames", "4", "--estimate_depth",
+            "--key_frame_threshold", "1.0", "--sdf_max_voxels", "100000", "--background_only",
+            "--webxr_path", str(tmp_path / "webxr"), "--log_file", str(tmp_path / "log.txt")]
+    blocked = ("jax", "hive_tpu") + MISSING_ON_CARD_MACHINE
+    code = ("import sys\n"
+            f"for name in {blocked!r}:\n"
+            "    sys.modules[name] = None\n"
+            "from hive_tpu_torch import dataset_adaptors\n"
+            "from hive_tpu_torch.io import HiveDataset\n"
+            "from hive_tpu_torch.pipeline import Pipeline\n"
+            "dataset_adaptors.keep_aspect_multiple_of = lambda *args, **kwargs: (64, 96)\n"
+            f"pipeline = Pipeline.from_command_line({argv!r}, device='cpu')\n"
+            "pipeline.run()\n"
+            f"dataset = HiveDataset({out!r})\n"
+            "assert dataset.metadata.estimate_depth is True\n"
+            "from hive_tpu_torch.io import load_image\n"
+            "depth = load_image(dataset.depth_dataset.image_paths[3])\n"
+            "assert depth.dtype.name == 'uint16' and depth.shape == (48, 64), depth.dtype\n"
+            "assert 'get_depth_maps' in pipeline.profiling['timing']['load_dataset']\n"
             "print('ok')\n")
     env = dict(os.environ, WEIGHTS_PATH=str(tmp_path / "no_weights"))
     done = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -410,6 +449,28 @@ def test_kernel_matches_plain_on_card(kernel):
                            band_sampler.band_sample_plain(frame, v, u))
         return
     _check_classify_on_card(kernel, rng, dev)
+
+
+@pytest.mark.cuda
+def test_dpt_fp32_on_card_equals_cpu():
+    """The full-width DPT-Hybrid in float32 (TF32 off) on the card against
+    the CPU's on a (2, 64, 96) batch, with the check weights: the logits
+    within 1e-3 relative, the tolerance of the CPU parity test
+    against hive_tpu (tests/test_torch_dpt.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: compares the card's forward with the CPU's")
+    from hive_tpu_torch.models import dpt
+
+    flat = dpt.check_flax_params(seed=11)
+    images = torch.from_numpy(np.random.default_rng(12).uniform(
+        -1, 1, (2, 3, 64, 96)).astype(np.float32))
+    with torch.no_grad():
+        want = dpt.load_flax_params(dpt.DPTHybrid(), flat).eval()(images)
+        with torch.device("cuda"):
+            model = dpt.DPTHybrid()
+        got = dpt.load_flax_params(model, flat).eval()(images.cuda()).cpu()
+    assert float(want.abs().max()) > 0.1
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-3
 
 
 @pytest.mark.cuda
