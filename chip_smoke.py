@@ -85,14 +85,34 @@ Phases (any failure raises and the script exits non-zero):
    ``estimate_depth``; two classifications and one band update a frame;
    both meshes finite; ``get_depth_maps`` logged beside the GT-depth run's
    stages;
-9. the tile-gather kernel, both axes, on the gather probe's (8, 128) tile:
+9. the weighted person segmenters, with check weights from the seed
+   (``maskrcnn.check_params``, ``segmentation.unet_check_params``): Mask
+   R-CNN (ResNet-50 FPN, 91 classes, float32) on the card against the CPU
+   on phase 7's frames subsampled to 120 x 160 (the CPU tests' 192 x 256
+   canvas): validity equal, scores, boxes and masks within the CPU tests'
+   tolerances, instance ids equal away from 0.5; the U-Net's probabilities
+   within UNET_CPU_TOL of the CPU's; then a batch of 8 VGA frames through
+   each (Mask R-CNN at its 832 x 1088 canvas, where cuDNN picks other
+   algorithms), the batch's first frame held to its result alone and to
+   the CPU's forward of it at the same tolerances, and timed: device ms,
+   launch loop, frames/s, the analytic FLOPs (``maskrcnn_flops``,
+   ``unet_flops``), TFLOP/s and its share of the float32 peak, peak
+   device memory, the top kernels and cuDNN's FFT
+   and Winograd kernels. Then a user's run on phase 7's TUM folder with the
+   check weights written as ``$WEIGHTS_PATH/maskrcnn_coco.npz``, nothing
+   patched: the 30 mask PNGs equal this script's own ``predict_batch`` on
+   the converted frames, an instance in more than half the frames, two
+   classifications and one band update a frame, both meshes finite;
+   ``create_instance_segmentation_masks`` logged beside phase 7's motion
+   masks;
+10. the tile-gather kernel, both axes, on the gather probe's (8, 128) tile:
    bit-exact vs its plain version, timed beside ``torch.gather``;
-10. the patch-gather kernel on the probe's 1024 blocks x 512 samples, with
+11. the patch-gather kernel on the probe's 1024 blocks x 512 samples, with
    one sample in eight moved out of its window: bit-exact vs its plain
    version, timed beside ``torch.take`` and the band sampler;
-11. both fused band-trip variants on the fused-trip probe's 128-row trip:
+12. both fused band-trip variants on the fused-trip probe's 128-row trip:
    bit-exact vs the plain version, timed;
-12. the two measurement entry points, each run in this process with the
+13. the two measurement entry points, each run in this process with the
    launch counts reset just before and read just after:
    ``hive_tpu_torch.micro.gather`` (Q1 tile gathers, Q2 patch gather timed
    beside ``torch.take`` and the band sampler) and
@@ -100,7 +120,7 @@ Phases (any failure raises and the script exits non-zero):
    production trip; Q3: fused, production and take trips timed, their final
    states bit-identical on the rows that fit); each of its kernels must have
    launched;
-13. one ``{"kernels": [...]}`` line (times, errors and bounds at the main
+14. one ``{"kernels": [...]}`` line (times, errors and bounds at the main
    paths' shapes, and under ``bench`` at the bench shape), then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last
    line.
@@ -1621,6 +1641,289 @@ def run_depth_conversion(device, launches, gt_profiling, tmp: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The weighted person segmenters: Mask R-CNN and the U-Net on the card.
+# ---------------------------------------------------------------------------
+
+# The card against the port's CPU, at the CPU tests' canvas (TUM frames
+# subsampled to 120 x 160, a 192 x 256 canvas) and at full width (a VGA
+# frame, the 832 x 1088 canvas, where cuDNN picks other algorithms), with
+# the tolerances the CPU tests hold the port to against hive_tpu
+# (tests/test_torch_maskrcnn.py): scores, canvas px, mask probabilities;
+# instance ids equal except where a mask's probability lies within
+# SEG_MASK_TOL of 0.5.
+SEG_SMALL_CANVAS = dict(canvas_min_side=160, canvas_max_side=224)
+SEG_SCORE_TOL, SEG_BOX_TOL, SEG_MASK_TOL = 5e-5, 5e-3, 1e-3
+# The U-Net's probabilities on the card against the CPU's, at 120 x 160 and
+# at 480 x 640 (tests/test_torch_segmentation.py's tolerance against
+# hive_tpu).
+UNET_CPU_TOL = 1e-4
+SEG_BATCH = 8
+# The user's run must find an instance in more than half its frames.
+SEG_MIN_FRAMES = TUM_FRAMES // 2 + 1
+FP32_PEAK_FLOPS = 67e12
+
+
+def compare_detections(name: str, got: dict, want: dict) -> dict:
+    """Validity equal; scores, boxes (valid slots) and masks within the
+    SEG_* tolerances; returns the largest differences."""
+    if not np.array_equal(got["valid"], want["valid"]):
+        raise AssertionError(f"{name}: valid slots differ")
+    valid = want["valid"]
+    errs = dict(score=float(np.abs(got["scores"] - want["scores"]).max()),
+                box=float(np.abs(got["boxes"][valid] - want["boxes"][valid]).max(initial=0.0)),
+                mask=float(np.abs(got["masks"] - want["masks"]).max()))
+    for key, tol in (("score", SEG_SCORE_TOL), ("box", SEG_BOX_TOL), ("mask", SEG_MASK_TOL)):
+        if not errs[key] <= tol:
+            raise AssertionError(f"{name}: {key}s differ by {errs[key]:.3g}, want <= {tol}")
+    return errs
+
+
+def compare_instance_ids(name: str, detectors: dict, outs: dict) -> tuple:
+    """Each frame's instance ids from the card's and the CPU's ``forward``
+    outputs: equal away from the pixels whose mask probability lies within
+    SEG_MASK_TOL of 0.5; returns (such pixels, those of them that differ)."""
+    near_px = differ_px = 0
+    for i in range(len(outs["cpu"]["scores"])):
+        want_det = detectors["cpu"].select(outs["cpu"], i)
+        got = detectors["card"].paste(detectors["card"].select(outs["card"], i))
+        want = detectors["cpu"].paste(want_det)
+        near = detectors["cpu"].threshold_distance(want_det) <= SEG_MASK_TOL
+        if not np.array_equal(got[~near], want[~near]):
+            raise AssertionError(f"{name}: instance ids on the card differ from the CPU's "
+                                 f"in frame {i} away from the threshold")
+        near_px += int(near.sum())
+        differ_px += int((got != want).sum())
+    return near_px, differ_px
+
+
+def over_threshold(out: dict) -> list:
+    """Detections over the score threshold in each frame of a forward."""
+    from hive_tpu_torch.models.maskrcnn import SCORE_THRESHOLD
+    return [int((valid & (scores >= SCORE_THRESHOLD)).sum())
+            for valid, scores in zip(out["valid"], out["scores"])]
+
+
+def conv_algorithms(fn) -> str:
+    """Device ms and launches of cuDNN's FFT and Winograd kernels in one
+    call of ``fn()`` (one profiler trace), by kernel name."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    found = {"fft": [0, 0.0], "winograd": [0, 0.0]}
+    for event in prof.key_averages():
+        for key in found:
+            if key in event.key.lower():
+                found[key][0] += event.count
+                found[key][1] += self_device_us(event) / 1e3
+    return ", ".join(f"{key} x{n} {ms:.3f} ms" for key, (n, ms) in found.items())
+
+
+def time_forward(name: str, fn, flops: int, batch: int, device) -> dict:
+    """One forward's device ms (profiler) and launch loop (events), frames/s,
+    TFLOP/s and its share of the float32 peak, peak device memory, its top
+    kernels and cuDNN's FFT / Winograd kernels."""
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(device)
+        ms, ops = device_profile(fn, reps=3, warmup=1)
+        loop_ms = events_ms(fn, reps=3, warmup=0)
+        top = top_kernels(fn, count=8)
+        algorithms = conv_algorithms(fn)
+    rate = flops / (ms * 1e-3)
+    log(f"[segment] {name}: {ms:.4f} ms device ({ops:.0f} kernels), {loop_ms:.4f} ms launch "
+        f"loop (events), {batch / (ms * 1e-3):.2f} frames/s; {flops / 1e9:.1f} GFLOP, "
+        f"{rate / 1e12:.2f} TFLOP/s = {100 * rate / FP32_PEAK_FLOPS:.2f}% of the 67 TFLOP/s "
+        f"float32 data-sheet peak; peak device memory {peak} B")
+    log(f"[segment] {name} top kernels by device time: {top}")
+    log(f"[segment] {name} cuDNN algorithms by kernel name: {algorithms}")
+    return dict(ms=ms, device_ops=ops, loop_ms=loop_ms, frames_per_s=batch / (ms * 1e-3),
+                flops=flops, tflops_per_s=rate / 1e12, peak_share=rate / FP32_PEAK_FLOPS,
+                peak_bytes=peak, conv_algorithms=algorithms)
+
+
+def check_segmenters(device, tum: str) -> dict:
+    """Mask R-CNN and the U-Net at full width on the card, with check
+    weights from the seed (``maskrcnn.check_params``,
+    ``segmentation.unet_check_params``): the card against the CPU on TUM
+    frames subsampled to 120 x 160 (the CPU tests' canvas), then a batch of
+    SEG_BATCH VGA frames (Mask R-CNN at its 832 x 1088 canvas) whose first
+    frame is held against the CPU's result for it alone, and timed."""
+    from hive_tpu_torch.io import load_image
+    from hive_tpu_torch.models import maskrcnn, segmentation
+
+    start = time.perf_counter()
+    names = sorted(os.listdir(os.path.join(tum, "rgb")))[TUM_PRIMED:TUM_PRIMED + SEG_BATCH]
+    frames = np.stack([load_image(os.path.join(tum, "rgb", name)) for name in names])
+    small = np.ascontiguousarray(frames[:3, ::4, ::4])
+    flat = maskrcnn.check_params(SEED)
+    models = {"card": maskrcnn.load_params(flat, device), "cpu": maskrcnn.load_params(flat, "cpu")}
+    detectors = {k: maskrcnn.MaskRCNNDetector(m, small.shape[1:3], **SEG_SMALL_CANVAS)
+                 for k, m in models.items()}
+    outs = {k: d.forward(small) for k, d in detectors.items()}
+    results = {"maskrcnn_card_vs_cpu": compare_detections("Mask R-CNN card vs CPU", outs["card"],
+                                                          outs["cpu"])}
+    near_px, differ_px = compare_instance_ids("Mask R-CNN", detectors, outs)
+    log(f"[segment] Mask R-CNN card vs CPU at {small.shape[1]}x{small.shape[2]}: "
+        f"{results['maskrcnn_card_vs_cpu']}; detections over 0.5 {over_threshold(outs['cpu'])}; "
+        f"instance ids equal away from 0.5 ({near_px} px within {SEG_MASK_TOL}, {differ_px} of "
+        f"them differ)")
+
+    # Full width: a batch of VGA frames in the 832 x 1088 canvas; its first
+    # frame against the CPU's forward of that frame alone.
+    detectors = {k: maskrcnn.MaskRCNNDetector(m, frames.shape[1:3]) for k, m in models.items()}
+    detector = detectors["card"]
+    batch = detector.forward(frames)
+    single = detector.forward(frames[:1])
+    results["maskrcnn_batch_vs_single"] = compare_detections(
+        "Mask R-CNN batch vs single frame", {k: v[:1] for k, v in batch.items()}, single)
+    if not all(np.isfinite(v).all() for v in batch.values() if v.dtype != bool):
+        raise AssertionError("Mask R-CNN at full width: non-finite outputs")
+    cpu_start = time.perf_counter()
+    outs = {"card": {k: v[:1] for k, v in batch.items()}, "cpu": detectors["cpu"].forward(frames[:1])}
+    cpu_s = time.perf_counter() - cpu_start
+    results["maskrcnn_full_card_vs_cpu"] = compare_detections(
+        "Mask R-CNN card batch vs CPU at full width", outs["card"], outs["cpu"])
+    near_px, differ_px = compare_instance_ids("Mask R-CNN at full width", detectors, outs)
+    log(f"[segment] Mask R-CNN card (slot 0 of the batch of {len(frames)}) vs CPU at "
+        f"{frames.shape[1]}x{frames.shape[2]} ({detector.canvas_hw[0]}x{detector.canvas_hw[1]} "
+        f"canvas; CPU forward {cpu_s:.1f} s): {results['maskrcnn_full_card_vs_cpu']}; detections "
+        f"over 0.5 {over_threshold(outs['cpu'])}; instance ids equal away from 0.5 ({near_px} px "
+        f"within {SEG_MASK_TOL}, {differ_px} of them differ)")
+    del models["cpu"], detectors, outs
+    images = detector.canvas(torch.from_numpy(frames).to(device))
+    count = len(frames)
+    shape = f"{count}x{detector.canvas_hw[0]}x{detector.canvas_hw[1]}"
+    results[f"maskrcnn_{shape}"] = time_forward(
+        f"Mask R-CNN fp32 {shape}", lambda: models["card"](images, detector.scaled_hw),
+        maskrcnn.maskrcnn_flops(detector.canvas_hw, count), count, device)
+    log(f"[segment] Mask R-CNN at full width: detections over 0.5 {over_threshold(batch)}; "
+        f"batch vs single frame {results['maskrcnn_batch_vs_single']}; weights, models and "
+        f"checks in {time.perf_counter() - start:.1f} s")
+    del models, detector, images
+    torch.cuda.empty_cache()
+
+    # The U-Net.
+    with tempfile.TemporaryDirectory(prefix="hive_unet_") as tmp:
+        path = os.path.join(tmp, "person_unet.npz")
+        np.savez(path, **segmentation.unet_check_params(SEED))
+        unets = {"card": segmentation._UNetBackend(path, device),
+                 "cpu": segmentation._UNetBackend(path, "cpu")}
+    got, want = (unets[k].person_probabilities(small).cpu().numpy() for k in ("card", "cpu"))
+    err = float(np.abs(got - want).max())
+    results["unet_card_vs_cpu"] = err
+    log(f"[segment] U-Net card vs CPU at {small.shape[1]}x{small.shape[2]}: probabilities "
+        f"within {err:.3g} (want <= {UNET_CPU_TOL}), {float((want > 0.5).mean()):.3f} over 0.5")
+    if not err <= UNET_CPU_TOL:
+        raise AssertionError(f"U-Net card vs CPU: {err:.3g}, want <= {UNET_CPU_TOL}")
+    unet = unets["card"]
+    inputs = unet.inputs(frames)
+    probability = unet.person_probabilities(frames)
+    if not torch.isfinite(probability).all() or probability.shape != frames.shape[:3]:
+        raise AssertionError(f"U-Net at full width: {tuple(probability.shape)}, finite "
+                             f"{bool(torch.isfinite(probability).all())}")
+    # Full width: the batch's first frame against the CPU's for it alone.
+    want = unets["cpu"].person_probabilities(frames[:1]).numpy()
+    err = float(np.abs(probability[:1].cpu().numpy() - want).max())
+    results["unet_full_card_vs_cpu"] = err
+    log(f"[segment] U-Net card (slot 0 of the batch of {len(frames)}) vs CPU at "
+        f"{frames.shape[1]}x{frames.shape[2]}: probabilities within {err:.3g} (want <= "
+        f"{UNET_CPU_TOL}), {float((want > 0.5).mean()):.3f} over 0.5")
+    if not err <= UNET_CPU_TOL:
+        raise AssertionError(f"U-Net card vs CPU at full width: {err:.3g}, want <= "
+                             f"{UNET_CPU_TOL}")
+    shape = "x".join(str(n) for n in frames.shape[:3])
+    results[f"unet_{shape}"] = time_forward(
+        f"U-Net fp32 {shape}", lambda: unet.model(inputs),
+        segmentation.unet_flops(tuple(inputs.shape[2:]), count), count, device)
+    del unets, unet, inputs
+    torch.cuda.empty_cache()
+    return results
+
+
+def run_segmented_conversion(device, launches, gt_profiling, tmp: str) -> dict:
+    """A user's run with Mask R-CNN weights: the check weights written as
+    ``$WEIGHTS_PATH/maskrcnn_coco.npz``, then ``python -m hive_tpu_torch``
+    converts phase 7's TUM folder (the masks from Mask R-CNN on the card)
+    and meshes it, in this process, nothing patched. Checks 30 mask PNGs
+    equal to this script's own ``predict_batch`` on the converted frames,
+    an instance in more than half the frames, the launch counts, both
+    meshes, and logs the stages beside phase 7's motion-mask run."""
+    from hive_tpu_torch.io import HiveDataset, ImageFolderDataset
+    from hive_tpu_torch.meshing.gltf import load_glb
+    from hive_tpu_torch.models import maskrcnn
+    from hive_tpu_torch.models.segmentation import PersonSegmenter
+
+    tum, out = os.path.join(tmp, "tum"), os.path.join(tmp, "segmented")
+    weights_dir = os.path.join(tmp, "seg_weights")
+    os.makedirs(weights_dir)
+    np.savez(os.path.join(weights_dir, maskrcnn.WEIGHTS_FILENAME), **maskrcnn.check_params(SEED))
+    argv = ["hive_tpu_torch", "--dataset_path", tum, "--output_path", out,
+            "--key_frame_threshold", "1.0", "--webxr_path", os.path.join(tmp, "webxr_seg"),
+            "--log_file", os.path.join(tmp, "pipeline_seg.log")]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with mock.patch.object(sys, "argv", argv), \
+            mock.patch.dict(os.environ, {"WEIGHTS_PATH": weights_dir}):
+        runpy.run_module("hive_tpu_torch", run_name="__main__", alter_sys=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches["segmented"] = main_launch_counts()
+    check_launches("the Mask R-CNN run", launches["segmented"], TUM_FRAMES)
+
+    dataset = HiveDataset(out)
+    card = np.stack([dataset.mask_dataset[i] for i in range(TUM_FRAMES)])
+    start = time.perf_counter()
+    with mock.patch.dict(os.environ, {"WEIGHTS_PATH": weights_dir}):
+        segmenter = PersonSegmenter(device=device)
+    if segmenter.backend != "maskrcnn":
+        raise AssertionError(f"the weights file selected the {segmenter.backend} backend")
+    want = np.stack([m for batch in ImageFolderDataset(dataset.path_to_rgb_frames).batches(8)
+                     for m in segmenter.predict_batch(batch)])
+    recompute_s = time.perf_counter() - start
+    if card.shape != want.shape or not np.array_equal(card, want):
+        raise AssertionError(f"mask PNGs differ from predict_batch at "
+                             f"{int((card != want).sum())} pixels")
+    instances = card.reshape(TUM_FRAMES, -1).max(axis=1)
+    if int((instances > 0).sum()) < SEG_MIN_FRAMES:
+        raise AssertionError(f"instances a frame {instances.tolist()}: want one in at least "
+                             f"{SEG_MIN_FRAMES} frames")
+
+    foreground = load_glb(os.path.join(out, "mesh", "fg.glb"))
+    background = next(iter(load_glb(os.path.join(out, "mesh", "bg.glb")).geometry.values()))
+    for name in foreground.node_names:
+        if not np.isfinite(foreground.geometry[name].vertices).all():
+            raise AssertionError(f"fg.glb frame {name}: non-finite vertices")
+    if len(background.vertices) == 0 or not np.isfinite(background.vertices).all():
+        raise AssertionError("bg.glb holds no (finite) vertices")
+    with open(os.path.join(out, "profiling.json")) as f:
+        profiling = json.load(f)
+    stage = profiling["timing"]["load_dataset"]["create_instance_segmentation_masks"]
+    mog2 = gt_profiling["timing"]["load_dataset"]["create_instance_segmentation_masks"]
+
+    log(f"[segment] {TUM_FRAMES} frames converted with Mask R-CNN masks and meshed in {wall:.1f} "
+        f"s, {profiling['elapsed_time']['per_frame']:.4f} s/frame; "
+        f"create_instance_segmentation_masks {stage:.4f} s (motion masks, phase 7: {mog2:.4f} "
+        f"s); launches {launches['segmented']}; instances a frame {instances.tolist()} "
+        f"({float((card > 0).mean()):.3f} of the pixels), the PNGs "
+        f"equal predict_batch (fresh segmenter and recompute {recompute_s:.1f} s); fg.glb "
+        f"{len(foreground.node_names)} frames, bg.glb {len(background.vertices)} vertices; "
+        f"peak device memory {profiling['peak_vram_usage']['allocated']} B")
+    ours, theirs = flat_totals(gt_profiling["timing"]), flat_totals(profiling["timing"])
+    log(f"[segment] stage s, TUM run with motion masks | with Mask R-CNN masks: per frame "
+        f"{gt_profiling['elapsed_time']['per_frame']:.4f} | "
+        f"{profiling['elapsed_time']['per_frame']:.4f}; "
+        + "; ".join(f"{k} {ours.get(k, float('nan')):.4f} | {theirs.get(k, float('nan')):.4f}"
+                    for k in sorted(set(ours) | set(theirs))))
+    return dict(wall_s=wall, per_frame_s=profiling["elapsed_time"]["per_frame"],
+                masks_s=stage, motion_masks_s=mog2, instances=instances.tolist(),
+                load_dataset=profiling["timing"]["load_dataset"])
+
+
+# ---------------------------------------------------------------------------
 # The measurement entry points' kernels.
 # ---------------------------------------------------------------------------
 
@@ -1853,6 +2156,8 @@ def main() -> int:
         conversion, conversion_profiling = run_conversion(device, launches, main_profiling, tmp)
         dpt_results = check_dpt(device)
         depth_run = run_depth_conversion(device, launches, conversion_profiling, tmp)
+        segmenters = check_segmenters(device, os.path.join(tmp, "tum"))
+        segmented_run = run_segmented_conversion(device, launches, conversion_profiling, tmp)
     probes = {"band_sampler": sampler,
               "tile_gather": check_tile_gather(device),
               "patch_gather": check_patch_gather(device),
@@ -1875,6 +2180,7 @@ def main() -> int:
             replaces=replaces, launches=launches["main"][name],
             launches_converted=launches["converted"][name],
             launches_estimated_depth=launches["estimated_depth"][name],
+            launches_segmented=launches["segmented"][name],
             launches_bench=launches["bench"][name], exact=True,
             calls_checked=result["calls_checked"], max_abs_err=result["max_abs_err"],
             ms=result["ms"], kernel_ms=result["ms"], plain_ms=result["plain_ms"],
@@ -1906,6 +2212,7 @@ def main() -> int:
             entry_point_result=entry_results[name]))
     log("[convert] summary " + json.dumps(conversion))
     log("[dpt] summary " + json.dumps({"model": dpt_results, "estimate_depth_run": depth_run}))
+    log("[segment] summary " + json.dumps({"models": segmenters, "maskrcnn_run": segmented_run}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

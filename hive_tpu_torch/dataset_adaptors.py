@@ -8,12 +8,13 @@ folder set-up, ``TUMAdaptor`` (:467-581), ``UnrealAdaptor`` (:584-643) and
 keys and output files. RGB frames are written as quality-75 4:2:0 JPEGs and
 depth as 16-bit PNGs through :mod:`hive_tpu_torch.image_codecs`, where the
 JAX package writes them through imageio and Pillow: the JPEG bytes are
-Pillow's. The instance masks come from the motion segmenter on the card;
+Pillow's. The instance masks come from the person segmenter on the card
+(Mask R-CNN or the U-Net with weights in ``$WEIGHTS_PATH``, else motion);
 with ``--estimate_depth`` the depth maps come from DPT-Hybrid on the card
 (``estimate_depth_dpt``, counterpart of :1018-1051).
 
 Not ported yet, each refused with its ROADMAP item: StrayScanner and plain
-video inputs (Queue 1 item 9b), inpainting (item 11) and
+video inputs (Queue 1 item 9b), inpainting (item 11b) and
 ``--estimate_pose`` (item 12).
 """
 
@@ -148,7 +149,7 @@ class DatasetAdaptor(Dataset, ABC):
         if estimate_pose:
             raise not_ported("Pose estimation (--estimate_pose)", "Queue 1 item 12")
         if inpainting_mode != InpaintingMode.Off:
-            raise not_ported("Inpainting (--inpainting_mode)", "Queue 1 item 11")
+            raise not_ported("Inpainting (--inpainting_mode)", "Queue 1 item 11b")
 
         if no_cache and os.path.exists(self.output_path):
             logging.warning(f"`no_cache` requested — deleting the cached conversion at "

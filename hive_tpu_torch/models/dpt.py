@@ -27,7 +27,7 @@ from __future__ import annotations
 import logging
 import math
 import os
-from typing import Dict, Iterator, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +35,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from hive_tpu_torch import get_device
+from hive_tpu_torch.models.flax_layers import (Conv, Dense, FlaxModule, GroupNorm, same_pad,
+                                               flax_leaves, load_flax_params)
 from hive_tpu_torch.ops.resize import prepare_model_input, resize
 
 # NYU head calibration: depth = 1 / (scale * head_output + shift).
@@ -60,72 +62,8 @@ _RESIDUAL_GAIN = 0.2
 
 
 # ---------------------------------------------------------------------------
-# Leaf modules: each maps its parameters between the torch layout and Flax's.
+# Leaf modules (the shared ones are in flax_layers).
 # ---------------------------------------------------------------------------
-
-class FlaxModule(nn.Module):
-    """A module whose parameters are leaves of the reference's Flax tree.
-    By default a parameter has the same layout in both."""
-
-    def flax_shape(self, name: str) -> Tuple[int, ...]:
-        return tuple(getattr(self, name).shape)
-
-    def to_torch(self, name: str, array: np.ndarray) -> np.ndarray:
-        return array
-
-    def fan_in(self, name: str) -> int:
-        return int(np.prod(self.flax_shape(name)[:-1]))
-
-
-def _same_pad(k: int, s: int) -> Tuple[int, int]:
-    """timm "same" padding, low side first: (2, 3) for 7x7/2, (0, 1) for
-    3x3/2, (k - 1) / 2 on both sides at stride 1."""
-    total = max(k - s, 0) if s > 1 else k - 1
-    return total // 2, total - total // 2
-
-
-class Conv(FlaxModule):
-    """``flax.linen.Conv`` (HWIO kernel there, OIHW here): the input and the
-    kernel cast to ``dtype``, the bias added after the convolution in
-    ``dtype``. ``padding`` is ((top, bottom), (left, right))."""
-
-    def __init__(self, in_features: int, features: int, kernel_size: int, strides: int = 1,
-                 padding: Optional[Tuple[Tuple[int, int], Tuple[int, int]]] = None,
-                 use_bias: bool = True, dtype: torch.dtype = torch.float32):
-        super().__init__()
-        self.kernel = nn.Parameter(torch.zeros(features, in_features, kernel_size, kernel_size),
-                                   requires_grad=False)
-        self.bias = (nn.Parameter(torch.zeros(features), requires_grad=False)
-                     if use_bias else None)
-        self.strides = strides
-        if padding is None:  # flax "SAME" at stride 1
-            padding = (_same_pad(kernel_size, 1),) * 2
-        self.padding = padding
-        self.dtype = dtype
-
-    def flax_shape(self, name):
-        shape = tuple(getattr(self, name).shape)
-        return (shape[2], shape[3], shape[1], shape[0]) if name == "kernel" else shape
-
-    def to_torch(self, name, array):
-        return array.transpose(3, 2, 0, 1) if name == "kernel" else array
-
-    def weight(self) -> torch.Tensor:
-        return self.kernel
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        (top, bottom), (left, right) = self.padding
-        x = x.to(self.dtype)
-        pad = 0
-        if top == bottom and left == right:
-            pad = (top, left)
-        else:
-            x = F.pad(x, (left, right, top, bottom))
-        y = F.conv2d(x, self.weight().to(self.dtype), stride=self.strides, padding=pad)
-        if self.bias is not None:
-            y = y + self.bias.to(self.dtype)[:, None, None]
-        return y
-
 
 class StdConv(Conv):
     """Conv2D with weight standardisation (BiT / ResNetV2): the kernel
@@ -134,7 +72,7 @@ class StdConv(Conv):
 
     def __init__(self, in_features: int, features: int, kernel_size: int, strides: int = 1,
                  dtype: torch.dtype = torch.float32):
-        pad = _same_pad(kernel_size, strides)
+        pad = same_pad(kernel_size, strides)
         super().__init__(in_features, features, kernel_size, strides, padding=(pad, pad),
                          use_bias=False, dtype=dtype)
 
@@ -143,27 +81,6 @@ class StdConv(Conv):
         mean = kernel.mean(dim=(1, 2, 3), keepdim=True)
         var = kernel.var(dim=(1, 2, 3), unbiased=False, keepdim=True)
         return (kernel - mean) / torch.sqrt(var + 1e-8)
-
-
-class Dense(FlaxModule):
-    """``flax.linen.Dense`` ((in, out) kernel there, (out, in) here),
-    computed in ``dtype``."""
-
-    def __init__(self, in_features: int, features: int, dtype: torch.dtype = torch.float32):
-        super().__init__()
-        self.kernel = nn.Parameter(torch.zeros(features, in_features), requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(features), requires_grad=False)
-        self.dtype = dtype
-
-    def flax_shape(self, name):
-        return tuple(self.kernel.shape[::-1]) if name == "kernel" else tuple(self.bias.shape)
-
-    def to_torch(self, name, array):
-        return array.T if name == "kernel" else array
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.linear(x.to(self.dtype), self.kernel.to(self.dtype))
-        return y + self.bias.to(self.dtype)
 
 
 class HeadsIn(Dense):
@@ -201,20 +118,6 @@ class HeadsOut(Dense):
 
     def to_torch(self, name, array):
         return array.reshape(-1, array.shape[-1]).T if name == "kernel" else array
-
-
-class GroupNorm(FlaxModule):
-    """``flax.linen.GroupNorm(num_groups=32, epsilon=1e-5)``: float32 out,
-    whatever comes in."""
-
-    def __init__(self, features: int, num_groups: int = 32):
-        super().__init__()
-        self.scale = nn.Parameter(torch.ones(features), requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(features), requires_grad=False)
-        self.num_groups = num_groups
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x.float(), self.num_groups, self.scale, self.bias, eps=1e-5)
 
 
 class LayerNorm(FlaxModule):
@@ -487,37 +390,6 @@ class DPTHybrid(FlaxModule):
 # ---------------------------------------------------------------------------
 # The weight carrier: hive_tpu's flat "a/b/c" -> array mapping.
 # ---------------------------------------------------------------------------
-
-def flax_leaves(model: nn.Module) -> Iterator[Tuple[str, FlaxModule, str]]:
-    """(Flax path, owning module, parameter name) of every parameter of
-    ``model``, the path relative to ``model`` as in the reference's tree."""
-    for module_name, module in model.named_modules():
-        for name, _ in module.named_parameters(recurse=False):
-            yield "/".join([*module_name.split("."), name] if module_name else [name]), module, name
-
-
-def load_flax_params(model: nn.Module, flat) -> nn.Module:
-    """Load ``hive_tpu``'s flat ``a/b/c`` -> array mapping (a dict, or the
-    ``np.load`` of ``dpt_hybrid_nyu.npz``) into ``model`` (a port module,
-    the paths relative to it), transposing conv and dense kernels and
-    reshaping the attention's. Refuses a missing or unused key, or a wrong
-    shape, naming it."""
-    leaves = {path: (module, name) for path, module, name in flax_leaves(model)}
-    keys = set(flat.files if hasattr(flat, "files") else flat)
-    missing, unused = sorted(set(leaves) - keys), sorted(keys - set(leaves))
-    if missing or unused:
-        raise KeyError(f"DPT parameters do not fit the model: missing {missing}, "
-                       f"unused {unused}")
-    for path, (module, name) in leaves.items():
-        array = np.asarray(flat[path], dtype=np.float32)
-        if array.shape != module.flax_shape(name):
-            raise ValueError(f"DPT parameter {path} has shape {array.shape}, the model "
-                             f"expects {module.flax_shape(name)}")
-        param = getattr(module, name)
-        with torch.no_grad():
-            param.copy_(torch.from_numpy(np.ascontiguousarray(module.to_torch(name, array))))
-    return model
-
 
 def _flax_shapes(model: Optional[nn.Module]):
     """(path, module, name, Flax shape) of each leaf in the order in which

@@ -1,32 +1,44 @@
-"""Person instance segmentation: the motion backend.
+"""Person instance segmentation.
 
-Counterpart of ``hive_tpu/models/segmentation.py``: ``_MotionBackend``
-(:156-208) and ``PersonSegmenter`` (:215-278), with the same mask contract
-(0 = background, 1..N = instances, uint8). Without model weights the JAX
-package always takes its motion backend: OpenCV's MOG2 background
-subtractor, a 5x5 morphological open and close, and 8-connected components.
-The card's machine has no OpenCV, so here MOG2 and the morphology run in
-torch on the pipeline's device, vectorised over pixels with a loop over the
-five mixture modes, in OpenCV's float32 operation order (its CPU path is a
-scalar loop per pixel, ``bgfg_gaussmix2.cpp``), so the masks are OpenCV's
-bit for bit. The components are labelled on the host with scipy and renumbered
-into OpenCV's order. The weighted backends (Mask R-CNN, the U-Net) are not
-ported: a weights file that would select one is refused.
+Counterpart of ``hive_tpu/models/segmentation.py``, with the same mask
+contract (0 = background, 1..N = instances, uint8) and its three backends,
+picked by the weights in ``$WEIGHTS_PATH`` as ``PersonSegmenter`` picks
+them (:215-278):
+
+* **Mask R-CNN** (:mod:`hive_tpu_torch.models.maskrcnn`) from
+  ``maskrcnn_coco.npz``: instances in score order, a batch of frames a
+  forward on the device.
+* **The U-Net** (:func:`build_unet`) from ``person_unet.npz``: a person
+  probability, thresholded, split into 8-connected components.
+* **Motion** without weights: OpenCV's MOG2 background subtractor, a 5x5
+  morphological open and close, and 8-connected components. The card's
+  machine has no OpenCV, so here MOG2 and the morphology run in torch on
+  the pipeline's device, vectorised over pixels with a loop over the five
+  mixture modes, in OpenCV's float32 operation order (its CPU path is a
+  scalar loop per pixel, ``bgfg_gaussmix2.cpp``), so the masks are
+  OpenCV's bit for bit.
+
+Components are labelled on the host with scipy and renumbered into
+OpenCV's order (:func:`instances_from_foreground`).
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import zipfile
 from typing import List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from scipy import ndimage
+from torch import nn
 
 from hive_tpu_torch import get_device
-from hive_tpu_torch.utils import not_ported
+from hive_tpu_torch.models import maskrcnn
+from hive_tpu_torch.models.flax_layers import (Conv, FlaxModule, GroupNorm, fan_in_params,
+                                               load_flax_params)
 
 _FLT_EPSILON = float(np.finfo(np.float32).eps)
 
@@ -243,73 +255,284 @@ class _MotionBackend:
         return open_close(torch.stack([self.apply(frame.flip(-1)) >= 200 for frame in frames]))
 
     def instances(self, fg: np.ndarray) -> np.ndarray:
-        """(H, W) bool foreground -> (H, W) uint8 instance ids, numbered as
-        ``cv2.connectedComponents(..., connectivity=8)`` numbers them: by
-        the first 2x2 block, in a raster scan of blocks, that holds one of
-        their pixels. Components under ``min_area_fraction`` of the frame
-        are dropped, and ids stop at 255."""
-        labels, count = ndimage.label(fg, structure=np.ones((3, 3), dtype=bool))
-        instance_mask = np.zeros(fg.shape, dtype=np.uint8)
-        if count == 0:
-            return instance_mask
+        """(H, W) bool foreground -> (H, W) uint8 instance ids
+        (:func:`instances_from_foreground`)."""
+        return instances_from_foreground(fg, self.min_area_fraction)
 
-        rows, cols = np.nonzero(labels)
-        component = labels[rows, cols]
-        block = (rows // 2) * ((fg.shape[1] + 1) // 2) + cols // 2
-        first_block = np.full(count + 1, np.iinfo(np.int64).max)
-        np.minimum.at(first_block, component, block)
-        sizes = np.bincount(component, minlength=count + 1)
 
-        lookup = np.zeros(count + 1, dtype=np.uint8)
-        next_id = 1
-        for label in np.argsort(first_block[1:], kind="stable") + 1:
-            if sizes[label] < self.min_area_fraction * fg.size:
-                continue
-
-            if next_id > 255:
-                break
-            lookup[label] = next_id
-            next_id += 1
-
-        instance_mask[rows, cols] = lookup[component]
+def instances_from_foreground(fg: np.ndarray, min_area_fraction: float) -> np.ndarray:
+    """(H, W) bool foreground -> (H, W) uint8 instance ids, numbered as
+    ``cv2.connectedComponents(..., connectivity=8)`` numbers them: by the
+    first 2x2 block, in a raster scan of blocks, that holds one of their
+    pixels. Components under ``min_area_fraction`` of the frame are
+    dropped, and ids stop at 255."""
+    labels, count = ndimage.label(fg, structure=np.ones((3, 3), dtype=bool))
+    instance_mask = np.zeros(fg.shape, dtype=np.uint8)
+    if count == 0:
         return instance_mask
+
+    rows, cols = np.nonzero(labels)
+    component = labels[rows, cols]
+    block = (rows // 2) * ((fg.shape[1] + 1) // 2) + cols // 2
+    first_block = np.full(count + 1, np.iinfo(np.int64).max)
+    np.minimum.at(first_block, component, block)
+    sizes = np.bincount(component, minlength=count + 1)
+
+    lookup = np.zeros(count + 1, dtype=np.uint8)
+    next_id = 1
+    for label in np.argsort(first_block[1:], kind="stable") + 1:
+        if sizes[label] < min_area_fraction * fg.size:
+            continue
+
+        if next_id > 255:
+            break
+        lookup[label] = next_id
+        next_id += 1
+
+    instance_mask[rows, cols] = lookup[component]
+    return instance_mask
+
+
+# ---------------------------------------------------------------------------
+# The U-Net.
+# ---------------------------------------------------------------------------
+
+class ConvBlock(FlaxModule):
+    """Two 3x3 convs, each followed by flax's GroupNorm(num_groups=8)
+    (epsilon 1e-6) and a ReLU."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.Conv_0 = Conv(in_features, features, 3)
+        self.GroupNorm_0 = GroupNorm(features, num_groups=8, epsilon=1e-6)
+        self.Conv_1 = Conv(features, features, 3)
+        self.GroupNorm_1 = GroupNorm(features, num_groups=8, epsilon=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.GroupNorm_0(self.Conv_0(x)))
+        return F.relu(self.GroupNorm_1(self.Conv_1(x)))
+
+
+class ConvTranspose2x(FlaxModule):
+    """``flax.linen.ConvTranspose(features, (2, 2), strides=(2, 2))`` with
+    its defaults (``padding="SAME"``, ``transpose_kernel=False``): a
+    correlation of the stride-2 dilated input padded by one on each side,
+    so ``out[2i + d] = x[i] . kernel[1 - d]``, torch's transposed
+    convolution with the kernel flipped. Kernel (2, 2, in, out) there, (in,
+    out, 2, 2) here."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(in_features, features, 2, 2), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(features), requires_grad=False)
+
+    def flax_shape(self, name):
+        c_in, out = self.kernel.shape[:2]
+        return (2, 2, c_in, out) if name == "kernel" else tuple(self.bias.shape)
+
+    def to_torch(self, name, array):
+        return array[::-1, ::-1].transpose(2, 3, 0, 1) if name == "kernel" else array
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, self.kernel, self.bias, stride=2)
+
+
+# The U-Net's width at full resolution; it doubles at each level.
+_BASE_FEATURES = 32
+# A pixel is a person where the U-Net's probability passes this.
+PERSON_THRESHOLD = 0.5
+
+
+class UNet(FlaxModule):
+    """The reference's small U-Net (4 down, 4 up) emitting a 1-channel
+    person logit map; modules named as flax names them in ``build_unet``."""
+
+    def __init__(self):
+        super().__init__()
+        f = _BASE_FEATURES
+        widths = [3] + [f << level for level in range(5)]
+        for level in range(5):
+            self.add_module(f"ConvBlock_{level}", ConvBlock(widths[level], widths[level + 1]))
+        for k, level in enumerate(reversed(range(4))):
+            self.add_module(f"ConvTranspose_{k}", ConvTranspose2x(f << (level + 1), f << level))
+            self.add_module(f"ConvBlock_{5 + k}", ConvBlock(f << (level + 1), f << level))
+        self.Conv_0 = Conv(f, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, 3, H, W), H and W multiples of 16 -> (B, 1, H, W) logits."""
+        skips = []
+        for level in range(4):
+            x = getattr(self, f"ConvBlock_{level}")(x)
+            skips.append(x)
+            x = F.max_pool2d(x, 2, 2)
+        x = self.ConvBlock_4(x)
+        for k, level in enumerate(reversed(range(4))):
+            x = getattr(self, f"ConvTranspose_{k}")(x)
+            x = getattr(self, f"ConvBlock_{5 + k}")(torch.cat([x, skips[level]], dim=1))
+        return self.Conv_0(x)
+
+
+def build_unet(device=None) -> UNet:
+    """The U-Net on ``device`` (default ``cuda:0``), parameters zero until
+    loaded."""
+    with torch.device(get_device(device)):
+        return UNet().eval()
+
+
+def unet_check_params(seed: int = 0) -> dict:
+    """Informative random U-Net weights for checks (``fan_in_params``)."""
+    with torch.device("meta"):
+        return fan_in_params(UNet(), seed)
+
+
+def unet_flops(hw, batch: int = 1) -> int:
+    """Floating-point operations of one UNet forward on a batch at ``hw``
+    (multiples of 16): 2 per multiply-add of every conv and transposed
+    conv. GroupNorm, pooling and the sigmoid are left out."""
+    h, w = hw
+    f = _BASE_FEATURES
+    flops = 0
+    widths = [3] + [f << level for level in range(5)]
+    for level in range(5):                                   # down path and bottleneck
+        cin, cout = widths[level], widths[level + 1]
+        flops += 2 * 9 * (cin + cout) * cout * (h >> level) * (w >> level)
+    for level in reversed(range(4)):                         # up path
+        cout = f << level
+        pixels = (h >> level) * (w >> level)
+        flops += 2 * (2 * cout) * cout * pixels                # 2x2/2 transposed conv
+        flops += 2 * 9 * (2 * cout + cout) * cout * pixels     # ConvBlock on the concat
+    flops += 2 * f * h * w                                   # the 1x1 head
+    return batch * flops
+
+
+# What a weights file that cannot be read or does not fit its model raises.
+_LOAD_ERRORS = (OSError, EOFError, KeyError, ValueError, zipfile.BadZipFile)
+
+
+class _UNetBackend:
+    """Batched inference of the U-Net person segmenter on the device."""
+
+    INPUT_MULTIPLE = 16  # four 2x poolings
+
+    def __init__(self, weights_path: str, device=None):
+        self.model = build_unet(device)
+        self.device = next(self.model.parameters()).device
+        with np.load(weights_path) as flat:
+            load_flax_params(self.model, flat, network="U-Net")
+
+    def inputs(self, batch: np.ndarray) -> torch.Tensor:
+        """(B, H, W, 3) uint8 RGB -> the network's (B, 3, H', W') input on
+        the device: / 255, zero-padded to multiples of 16."""
+        h, w = batch.shape[1:3]
+        images = torch.from_numpy(np.ascontiguousarray(batch)).to(self.device).float()
+        images = torch.div(images, torch.full_like(images, 255.0)).permute(0, 3, 1, 2)
+        return F.pad(images, (0, -w % self.INPUT_MULTIPLE, 0, -h % self.INPUT_MULTIPLE))
+
+    @torch.inference_mode()
+    def person_probabilities(self, batch: np.ndarray) -> torch.Tensor:
+        """(B, H, W, 3) uint8 RGB -> (B, H, W) person probability in [0, 1]
+        on the device, cropped back from the padded input."""
+        h, w = batch.shape[1:3]
+        return torch.sigmoid(self.model(self.inputs(batch))[:, 0, :h, :w])
+
+
+class _MaskRCNNBackend:
+    """Instance masks from Mask R-CNN, a batch of frames a forward. The
+    model is loaded once; a detector (its canvas) is made per frame shape."""
+
+    def __init__(self, weights_path: str, device=None):
+        self.model = maskrcnn.load_params(weights_path, device)
+        self._detectors = {}
+
+    def _detector(self, input_hw) -> "maskrcnn.MaskRCNNDetector":
+        det = self._detectors.get(input_hw)
+        if det is None:
+            det = self._detectors[input_hw] = maskrcnn.MaskRCNNDetector(self.model, input_hw)
+        return det
+
+    def segment_batch(self, batch: np.ndarray) -> List[np.ndarray]:
+        return self._detector(tuple(batch.shape[1:3])).instance_masks(batch)
 
 
 class PersonSegmenter:
     """Produces per-frame instance masks (0 = background, 1..N = people)."""
 
     def __init__(self, weights_path: Optional[str] = None, device=None):
-        """:param weights_path: U-Net weights, which select that backend.
-        :param device: where MOG2 and the morphology run; default ``cuda:0``.
-        :raises NotImplementedError: when a weights file would select one of
-            the JAX package's weighted backends, which are not ported.
+        """The reference's choice of backend: Mask R-CNN from
+        ``$WEIGHTS_PATH/maskrcnn_coco.npz`` unless ``weights_path`` asks for
+        the U-Net; the U-Net from ``weights_path`` (default
+        ``$WEIGHTS_PATH/person_unet.npz``); else motion. A weights file that
+        cannot be read or does not fit its model is passed over with a
+        warning; an error of the device is not caught.
+
+        :param weights_path: U-Net weights, which select that backend.
+        :param device: where the models, MOG2 and the morphology run;
+            default ``cuda:0``.
         """
         weights_dir = os.environ.get("WEIGHTS_PATH", "weights")
+        # An explicitly passed weights_path is a request for the U-Net
+        # backend: it must not be overridden by an ambient Mask R-CNN file.
         explicit_unet = weights_path is not None
         if weights_path is None:
             weights_path = os.path.join(weights_dir, "person_unet.npz")
 
-        maskrcnn_path = os.path.join(weights_dir, "maskrcnn_coco.npz")
-        for path, backend in ((maskrcnn_path, "Mask R-CNN"), (weights_path, "U-Net")):
-            if os.path.isfile(path) and (backend == "U-Net" or not explicit_unet):
-                raise not_ported(f"The {backend} person segmenter ({path})", "Queue 1 item 11")
+        self._maskrcnn: Optional[_MaskRCNNBackend] = None
+        self._unet: Optional[_UNetBackend] = None
 
-        if explicit_unet:
+        maskrcnn_path = os.path.join(weights_dir, maskrcnn.WEIGHTS_FILENAME)
+        if not explicit_unet and os.path.isfile(maskrcnn_path):
+            try:
+                self._maskrcnn = _MaskRCNNBackend(maskrcnn_path, device)
+                logging.info(f"Person segmentation: Mask R-CNN backend ({maskrcnn_path}).")
+            except _LOAD_ERRORS as exc:
+                logging.warning(f"Could not load Mask R-CNN weights ({exc}); "
+                                f"trying the U-Net backend.")
+
+        if self._maskrcnn is None and os.path.isfile(weights_path):
+            try:
+                self._unet = _UNetBackend(weights_path, device)
+                logging.info(f"Person segmentation: U-Net backend ({weights_path}).")
+            except _LOAD_ERRORS as exc:
+                logging.warning(f"Could not load U-Net weights ({exc}); "
+                                f"falling back to motion masks.")
+        elif explicit_unet and not os.path.isfile(weights_path):
             logging.warning(f"Requested U-Net weights not found at "
                             f"{weights_path}; falling back to motion masks.")
-        logging.info("Person segmentation: motion (MOG2) fallback backend "
-                     "(no model weights found).")
+
+        if self._maskrcnn is None and self._unet is None:
+            logging.info("Person segmentation: motion (MOG2) fallback backend "
+                         "(no model weights found).")
 
         self._classical = _MotionBackend(device=device)
+
+    @property
+    def backend(self) -> str:
+        """``"maskrcnn"``, ``"unet"`` or ``"motion"``."""
+        if self._maskrcnn is not None:
+            return "maskrcnn"
+        return "unet" if self._unet is not None else "motion"
 
     def predict_batch(self, batch: np.ndarray) -> List[np.ndarray]:
         """(B, H, W, 3) RGB → list of (H, W) uint8 instance-id masks.
 
-        Batches must arrive in video order.
+        With the motion backend, batches must arrive in video order.
         """
+        if self._maskrcnn is not None:
+            return self._maskrcnn.segment_batch(batch)
+
+        if self._unet is not None:
+            probabilities = self._unet.person_probabilities(batch).cpu().numpy()
+            return [self._instances_from_probability(p) for p in probabilities]
+
         frames = torch.from_numpy(np.ascontiguousarray(batch)).to(self._classical.device)
         if not self._classical._primed:
             self._classical.prime(frames)
 
         foreground = self._classical.foreground(frames).cpu().numpy()
         return [self._classical.instances(fg) for fg in foreground]
+
+    def _instances_from_probability(self, probability: np.ndarray) -> np.ndarray:
+        """(H, W) person probability -> instance ids: the 8-connected
+        components over PERSON_THRESHOLD in OpenCV's order, those under
+        0.1% of the frame dropped."""
+        return instances_from_foreground(probability > PERSON_THRESHOLD, 0.001)

@@ -135,7 +135,7 @@ class Pipeline:
         if self.options.estimate_pose:
             raise not_ported("--estimate_pose", "Queue 1 item 12")
         if self.options.inpainting_mode != InpaintingMode.Off:
-            raise not_ported("--inpainting_mode", "Queue 1 item 11")
+            raise not_ported("--inpainting_mode", "Queue 1 item 11b")
         if self.options.num_devices != 1:
             raise not_ported("--num_devices", "Queue 1 item 14")
         if self.fts_options.num_epochs > 0:

@@ -474,6 +474,35 @@ def test_dpt_fp32_on_card_equals_cpu():
 
 
 @pytest.mark.cuda
+def test_weighted_segmenters_on_card_equal_cpu(tmp_path):
+    """Mask R-CNN and the U-Net with check weights on the card against the
+    CPU, at the CPU tests' small canvas: Mask R-CNN's validity equal, its
+    scores within 5e-5, boxes within 5e-3 px and masks within 1e-3
+    (tests/test_torch_maskrcnn.py's tolerances against hive_tpu); the
+    U-Net's probabilities within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: compares the card's forwards with the CPU's")
+    from hive_tpu_torch.models import maskrcnn, segmentation
+
+    frames = np.random.default_rng(13).integers(0, 256, (2, 120, 160, 3)).astype(np.uint8)
+    flat = maskrcnn.check_params(0)
+    outs = [maskrcnn.MaskRCNNDetector(maskrcnn.load_params(flat, device), (120, 160),
+                                      canvas_min_side=160, canvas_max_side=224).forward(frames)
+            for device in ("cuda", "cpu")]
+    got, want = outs
+    np.testing.assert_array_equal(got["valid"], want["valid"])
+    np.testing.assert_allclose(got["scores"], want["scores"], atol=5e-5, rtol=0)
+    np.testing.assert_allclose(got["boxes"][want["valid"]], want["boxes"][want["valid"]],
+                               atol=5e-3, rtol=0)
+    np.testing.assert_allclose(got["masks"], want["masks"], atol=1e-3, rtol=0)
+
+    np.savez(tmp_path / "person_unet.npz", **segmentation.unet_check_params(0))
+    got, want = (segmentation._UNetBackend(str(tmp_path / "person_unet.npz"), device)
+                 .person_probabilities(frames).cpu().numpy() for device in ("cuda", "cpu"))
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
 def test_motion_segmenter_on_card_equals_cpu(tmp_path):
     """MOG2, the open and close and the instance ids on the card equal the
     CPU's, frame by frame, on chip_smoke.py's VGA TUM scene (a noisy wall, a
