@@ -9,8 +9,8 @@ Phases (any failure raises and the script exits non-zero):
    and ``ffprobe`` are on PATH (the video inputs need a decoder);
 2. build all six CUDA kernels from ``hive_tpu_torch/csrc`` (one ``nvcc``
    each, started together), then the native host library (``g++``: the
-   extraction weld, the QEM decimation, the JPEG scan decode and the PNG
-   unfilter);
+   extraction weld, the QEM decimation, the JPEG scan decode, the PNG
+   unfilter and Telea's inpainting);
 3. the block classification, both instantiations (pass 1 and the refine
    pass, one launch each) vs the plain classification on a bench frame with
    10% invalid depth pixels, without compaction, with the 0.375 cap and
@@ -105,14 +105,44 @@ Phases (any failure raises and the script exits non-zero):
    classifications and one band update a frame, both meshes finite;
    ``create_instance_segmentation_masks`` logged beside phase 7's motion
    masks;
-10. the tile-gather kernel, both axes, on the gather probe's (8, 128) tile:
+10. inpainting behind moving objects. big-lama at full width on the card
+   (ngf 64, 3 downsamples, 18 FFC residual blocks, global ratio 0.75), with
+   the check weights from the seed (``lama.check_params``), on two 60 x 84
+   frames (padded to 64 x 88): float32 equals the CPU's within the CPU
+   parity test's tolerance (LAMA_F32_TOL); bf16 the CPU's within
+   LAMA_BF16_TOL, and no further from the CPU's float32 than
+   LAMA_BF16_ERROR_RATIO times the CPU's bf16 is (LAMA_BF16_TOL says why
+   the CPU tests' bf16 tolerance cannot hold on the card); both outputs
+   float32; each convolution and folded norm of the bf16 generator, fed
+   the CPU's input to it, within the leaf check (LAMA_LEAF_SHARE,
+   LAMA_LEAF_REL, LAMA_BF16_LEAF_DTYPES), and two bf16 faults planted on
+   the card (the Fourier unit's conv in float32, the folded norms in bf16)
+   must fail it; then in bf16, as the CLI runs it, a batch of 8 of phase
+   7's VGA frames, each with a 255-valued hole over 25% of it: each frame
+   within LAMA_BF16_TOL of its forward alone, known pixels passed through
+   exactly, one forward timed (device ms, launch loop, frames/s,
+   ``lama_flops``, TFLOP/s and its share of the bf16 peak, peak device
+   memory, the top kernels, the FFT kernels' share).
+   Then a user's run with ``--inpainting_mode 2`` (LaMa for RGB, TELEA for
+   depth) on phase 7's TUM folder, the check weights written as
+   ``$WEIGHTS_PATH/big-lama.npz``, nothing patched: ``rgb_inpainted/``,
+   ``depth_inpainted/`` and ``mask_inpainted/`` with 30 files each, the
+   masks there all zero, the RGB frames equal this script's own
+   ``LamaInpainter`` on the converted frames and dilated masks (as
+   quality-95 JPEG bytes), known depth kept and, in the frames after
+   priming whose dilated mask covers the whole blob (at least half of
+   them), the hole's depth within INPAINT_DEPTH_TOL_MM of the 2 m wall, one frame's
+   depth equal to ``inpaint_telea``'s, two classifications and one band
+   update a frame, both meshes finite; ``inpainting`` logged beside phase
+   7's stages;
+11. the tile-gather kernel, both axes, on the gather probe's (8, 128) tile:
    bit-exact vs its plain version, timed beside ``torch.gather``;
-11. the patch-gather kernel on the probe's 1024 blocks x 512 samples, with
+12. the patch-gather kernel on the probe's 1024 blocks x 512 samples, with
    one sample in eight moved out of its window: bit-exact vs its plain
    version, timed beside ``torch.take`` and the band sampler;
-12. both fused band-trip variants on the fused-trip probe's 128-row trip:
+13. both fused band-trip variants on the fused-trip probe's 128-row trip:
    bit-exact vs the plain version, timed;
-13. the two measurement entry points, each run in this process with the
+14. the two measurement entry points, each run in this process with the
    launch counts reset just before and read just after:
    ``hive_tpu_torch.micro.gather`` (Q1 tile gathers, Q2 patch gather timed
    beside ``torch.take`` and the band sampler) and
@@ -120,7 +150,7 @@ Phases (any failure raises and the script exits non-zero):
    production trip; Q3: fused, production and take trips timed, their final
    states bit-identical on the rows that fit); each of its kernels must have
    launched;
-14. one ``{"kernels": [...]}`` line (times, errors and bounds at the main
+15. one ``{"kernels": [...]}`` line (times, errors and bounds at the main
    paths' shapes, and under ``bench`` at the bench shape), then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last
    line.
@@ -1924,6 +1954,400 @@ def run_segmented_conversion(device, launches, gt_profiling, tmp: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Inpainting: big-lama on the card, TELEA and the mask dilation on the host.
+# ---------------------------------------------------------------------------
+
+# The card's generator against the CPU's, with the check weights, over the
+# hole, two frames of 60 x 84 (the inpainter pads them to 64 x 88). float32:
+# max |difference| within the CPU parity test's tolerance against hive_tpu
+# (tests/test_torch_lama.py), measured 1.4e-6 on an H100 80GB HBM3 (700 W).
+LAMA_F32_TOL = 1e-5
+# bf16 as the CLI runs it: (max, mean) |difference|. The card's bf16
+# convolutions round one output in 10^3-10^4 to the other bf16 value than
+# the CPU's do (the leaf check below), and one such rounding in the Fourier
+# unit's spectrum moves the whole map through irfft2: measured 0.0075 max,
+# 0.0014 mean on an H100 80GB HBM3 (700 W), with cuFFT and with the CPU's
+# FFT alike, about as far as bf16 lies from float32 on the CPU (0.0085
+# max). So the network's output is held to LAMA_BF16_TOL, and to the CPU's
+# float32 no further than LAMA_BF16_ERROR_RATIO times the CPU's bf16; the
+# dtype flow and each layer's arithmetic are held by the leaf check.
+LAMA_BF16_TOL = (0.02, 0.003)
+LAMA_BF16_ERROR_RATIO = 2.0
+# The leaf check: each convolution, transposed convolution and folded norm
+# of the card's bf16 generator fed the CPU's input to it, against the CPU's
+# output. Per leaf, the share of outputs that differ at all, and the
+# largest |difference| over the map's largest |value| (two bf16 ulps).
+# Measured: convolutions 0.01-0.13% by one bf16 ulp, norms none. A leaf
+# run in another dtype differs almost everywhere.
+LAMA_LEAF_SHARE = 0.01
+LAMA_LEAF_REL = 2.0 ** -6
+# The dtype of each leaf's output in bf16, as the reference's: convolutions
+# give bf16, the folded norms' float32 parameters promote to float32.
+LAMA_BF16_LEAF_DTYPES = {"Conv": "bfloat16", "ConvTranspose3x3": "bfloat16",
+                         "FoldedBN": "float32"}
+# Faults planted in the card's bf16 generator, each of which the leaf
+# check must catch.
+LAMA_FAULTS = ("fourier_conv_fp32", "bn_bf16")
+LAMA_SMALL = (2, 60, 84)
+LAMA_BATCH = 8
+# The user's run fills the dilated blob's depth from the wall at 2 m.
+INPAINT_WALL_MM = 2000
+INPAINT_DEPTH_TOL_MM = 5
+
+
+def fft_kernels(fn) -> tuple:
+    """(launches, device ms) of the kernels named ``*fft*`` in one call of
+    ``fn()`` (one profiler trace): cuFFT's, and cuDNN's FFT convolutions."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if "fft" in e.key.lower()]
+    return sum(e.count for e in events), sum(self_device_us(e) for e in events) / 1e3
+
+
+def lama_leaf_check(card, cpu, frames, masks) -> dict:
+    """Each leaf (convolution, transposed convolution, folded norm) of the
+    card inpainter's generator fed the input that the same leaf of the
+    CPU's got in one forward of ``frames``, against the CPU leaf's output.
+    By leaf kind: the largest share of outputs that differ, the largest
+    |difference| over the map's largest |value|, the dtypes of the card's
+    and the CPU's outputs, and whether it breaks LAMA_LEAF_SHARE,
+    LAMA_LEAF_REL or LAMA_BF16_LEAF_DTYPES."""
+    from hive_tpu_torch.models import lama
+
+    seen = {}
+    handles = [module.register_forward_hook(
+        lambda _, args, out, name=name: seen.__setitem__(name, (args[0], out)))
+        for name, module in cpu.model.named_modules()
+        if isinstance(module, (lama.Conv, lama.ConvTranspose3x3, lama.FoldedBN))]
+    try:
+        cpu.forward(frames, masks)
+    finally:
+        for handle in handles:
+            handle.remove()
+    modules = dict(card.model.named_modules())
+    kinds = {}
+    with torch.inference_mode():
+        for name, (x, want) in seen.items():
+            got = modules[name](x.to(card.device)).cpu()
+            diff = (got.float() - want.float()).abs()
+            kind = kinds.setdefault(type(modules[name]).__name__,
+                                    dict(leaves=0, share=0.0, rel=0.0, card=set(), cpu=set()))
+            kind["leaves"] += 1
+            kind["share"] = max(kind["share"], float((diff > 0).float().mean()))
+            kind["rel"] = max(kind["rel"], float(diff.max() / want.float().abs().max()))
+            kind["card"].add(str(got.dtype)[6:])
+            kind["cpu"].add(str(want.dtype)[6:])
+    for name, kind in kinds.items():
+        kind["card"], kind["cpu"] = sorted(kind["card"]), sorted(kind["cpu"])
+        kind["fails"] = bool(kind["share"] > LAMA_LEAF_SHARE or kind["rel"] > LAMA_LEAF_REL
+                             or kind["card"] != [LAMA_BF16_LEAF_DTYPES[name]]
+                             or kind["cpu"] != kind["card"])
+    return kinds
+
+
+def plant_lama_fault(inpainter, fault: str):
+    """``fourier_conv_fp32``: each Fourier unit's 1x1 conv runs in float32
+    (the reference's runs in bf16). ``bn_bf16``: each folded norm computes
+    in its input's dtype, bf16 after a conv (the reference's promotes to
+    float32)."""
+    from hive_tpu_torch.models import lama
+
+    for module in inpainter.model.modules():
+        if fault == "fourier_conv_fp32" and isinstance(module, lama.FourierUnit):
+            module.conv.dtype = torch.float32
+        elif fault == "bn_bf16" and isinstance(module, lama.FoldedBN):
+            module.forward = lambda x, bn=module: torch.addcmul(
+                bn.bias.to(x.dtype)[:, None, None], x, bn.scale.to(x.dtype)[:, None, None])
+    return inpainter
+
+
+def check_lama_small(device, flat) -> tuple:
+    """The card's generator against the CPU's on LAMA_SMALL frames (not a
+    multiple of 8: the inpainter pads them), over the hole: float32 within
+    LAMA_F32_TOL; bf16 within LAMA_BF16_TOL and LAMA_BF16_ERROR_RATIO;
+    both outputs float32; every leaf of the bf16 generator within the leaf
+    check (:func:`lama_leaf_check`). Then each of LAMA_FAULTS planted in
+    the card's bf16 generator must fail the leaf check; whether the
+    network's tolerances catch it too is logged. Returns the readings and
+    the bf16 inpainter."""
+    from hive_tpu_torch.models import lama
+
+    rng = np.random.default_rng(SEED)
+    b, h, w = LAMA_SMALL
+    frames = rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)
+    masks = np.zeros((b, h, w), np.uint8)
+    masks[:, h // 4:3 * h // 4, w // 4:3 * w // 4] = 255
+    hole = np.broadcast_to(masks[:, None] > 127, (b, 3, h, w))
+    results, outs, inpainters, cpus = {}, {}, {}, {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        inpainters[name] = lama.LamaInpainter(device, dtype=dtype, params=flat)
+        cpus[name] = lama.LamaInpainter("cpu", dtype=dtype, params=flat)
+        card_out = inpainters[name].forward(frames, masks)
+        cpu_out = cpus[name].forward(frames, masks)
+        if card_out.dtype != torch.float32 or cpu_out.dtype != torch.float32:
+            raise AssertionError(f"LaMa {name} output: card {card_out.dtype}, CPU {cpu_out.dtype}")
+        outs[name] = card_out.cpu().numpy()[hole], cpu_out.numpy()[hole]
+    card_f32, cpu_f32 = outs["fp32"]
+    card_bf16, cpu_bf16 = outs["bf16"]
+    err = {"fp32 card vs CPU": np.abs(card_f32 - cpu_f32),
+           "bf16 card vs CPU": np.abs(card_bf16 - cpu_bf16),
+           "bf16 card vs CPU fp32": np.abs(card_bf16 - cpu_f32),
+           "bf16 CPU vs CPU fp32": np.abs(cpu_bf16 - cpu_f32)}
+    results["cpu_err"] = {k: dict(max=float(v.max()), mean=float(v.mean())) for k, v in err.items()}
+    results["leaves"] = lama_leaf_check(inpainters["bf16"], cpus["bf16"], frames, masks)
+    log(f"[lama] card vs CPU at {b}x{h}x{w} over the hole (max, mean): "
+        + "; ".join(f"{k} {v.max():.4g}, {v.mean():.4g}" for k, v in err.items())
+        + f"; want fp32 <= {LAMA_F32_TOL}, bf16 <= {LAMA_BF16_TOL} and the card's bf16 within "
+        f"{LAMA_BF16_ERROR_RATIO}x the CPU's bf16 error; outputs float32; CPU fill "
+        f"{float(cpu_f32.min()):.4f}-{float(cpu_f32.max()):.4f}")
+    log(f"[lama] bf16 leaves fed the CPU's inputs (want share <= {LAMA_LEAF_SHARE}, "
+        f"|difference| <= {LAMA_LEAF_REL} of the map's max, dtypes {LAMA_BF16_LEAF_DTYPES}): "
+        + json.dumps(results["leaves"]))
+
+    def network_fails(e, e_f32):
+        ratio, reference = LAMA_BF16_ERROR_RATIO, err["bf16 CPU vs CPU fp32"]
+        return bool(e.max() > LAMA_BF16_TOL[0] or e.mean() > LAMA_BF16_TOL[1]
+                    or e_f32.max() > ratio * reference.max()
+                    or e_f32.mean() > ratio * reference.mean())
+
+    if (err["fp32 card vs CPU"].max() > LAMA_F32_TOL
+            or network_fails(err["bf16 card vs CPU"], err["bf16 card vs CPU fp32"])
+            or any(kind["fails"] for kind in results["leaves"].values())):
+        raise AssertionError(f"LaMa on the card vs the CPU: {results['cpu_err']}, leaves "
+                             f"{results['leaves']}")
+
+    for fault in LAMA_FAULTS:
+        faulty = plant_lama_fault(lama.LamaInpainter(device, dtype=torch.bfloat16, params=flat),
+                                  fault)
+        out = faulty.forward(frames, masks)
+        if out.dtype != torch.float32:
+            raise AssertionError(f"LaMa with {fault}: {out.dtype} output")
+        out = out.cpu().numpy()[hole]
+        e_card, e_f32 = np.abs(out - cpu_bf16), np.abs(out - cpu_f32)
+        leaves = lama_leaf_check(faulty, cpus["bf16"], frames, masks)
+        caught = dict(network=network_fails(e_card, e_f32),
+                      leaves=sorted(name for name, kind in leaves.items() if kind["fails"]))
+        results[f"fault_{fault}"] = dict(
+            network=dict(max=float(e_card.max()), mean=float(e_card.mean())),
+            network_vs_cpu_fp32=dict(max=float(e_f32.max()), mean=float(e_f32.mean())),
+            leaves={name: kind for name, kind in leaves.items() if kind["fails"]}, caught=caught)
+        log(f"[lama] planted fault {fault}: bf16 vs CPU {e_card.max():.4g}, "
+            f"{e_card.mean():.4g} (vs the CPU's fp32 {e_f32.max():.4g}, {e_f32.mean():.4g}); "
+            f"caught by {caught}; failing leaves {json.dumps(results[f'fault_{fault}']['leaves'])}")
+        if not caught["leaves"]:
+            raise AssertionError(f"LaMa planted fault {fault} passes the leaf check")
+        del faulty
+    return results, inpainters["bf16"]
+
+
+def check_lama(device, tum: str) -> dict:
+    """big-lama at full width (ngf 64, 3 downsamples, 18 FFC blocks) with
+    the check weights from the seed: the card against the CPU on small
+    frames (:func:`check_lama_small`); then a batch of LAMA_BATCH of phase
+    7's VGA frames, each with a 255-valued hole over 25% of it, in bf16 as
+    the CLI runs it: each frame held to its forward alone (LAMA_BF16_TOL),
+    known pixels passed through exactly, and timed: device ms, launch loop,
+    frames/s, ``lama_flops``, TFLOP/s and its share of the bf16 peak, peak
+    device memory, the top kernels and the FFT kernels' share."""
+    from hive_tpu_torch.io import load_image
+    from hive_tpu_torch.models import lama
+
+    start = time.perf_counter()
+    results, inpainter = check_lama_small(device, lama.check_params(SEED))
+    log(f"[lama] weights, models and CPU checks in {time.perf_counter() - start:.1f} s")
+
+    names = sorted(os.listdir(os.path.join(tum, "rgb")))[:LAMA_BATCH]
+    frames = np.stack([load_image(os.path.join(tum, "rgb", name)) for name in names])
+    masks = np.zeros((LAMA_BATCH, TUM_H, TUM_W), np.uint8)
+    for i in range(LAMA_BATCH):
+        masks[i, TUM_H // 4:3 * TUM_H // 4, TUM_W // 4 + 8 * i:3 * TUM_W // 4 + 8 * i] = 255
+    batch = inpainter.forward(frames, masks).cpu().numpy()
+    if batch.dtype != np.float32 or not np.isfinite(batch).all():
+        raise AssertionError(f"LaMa at full width: {batch.dtype} output, or not finite")
+    hole = np.broadcast_to(masks[:, None] > 127, batch.shape)
+    image = frames.transpose(0, 3, 1, 2).astype(np.float32) / 255.0
+    if not np.array_equal(batch[~hole], image[~hole]):
+        raise AssertionError("LaMa changed known pixels")
+    worst, mean = 0.0, 0.0
+    for i in range(LAMA_BATCH):
+        single = inpainter.forward(frames[i:i + 1], masks[i:i + 1]).cpu().numpy()[0]
+        diff = np.abs(single - batch[i])[hole[i]]
+        worst, mean = max(worst, float(diff.max())), max(mean, float(diff.mean()))
+    atol, mean_tol = LAMA_BF16_TOL
+    results["batch_vs_single"] = dict(max=worst, mean=mean)
+    log(f"[lama] bf16 {LAMA_BATCH}x{TUM_H}x{TUM_W}, a 255-valued hole over "
+        f"{float(hole.mean()):.3f} of each frame: known pixels passed through exactly; each "
+        f"frame vs its forward alone within {worst:.4g} (max), {mean:.4g} (mean of a frame's "
+        f"hole, the worst frame), want <= {atol}, {mean_tol}; fill "
+        f"{float(batch[hole].min()):.4f}-{float(batch[hole].max()):.4f}, std "
+        f"{float(batch[hole].std()):.4f}")
+    if worst > atol or mean > mean_tol:
+        raise AssertionError(f"LaMa batch vs single frame: {worst:.3g} max, {mean:.3g} mean")
+
+    image, hole = inpainter.inputs(frames, masks)
+    model = inpainter.model
+    flops = lama.lama_flops((TUM_H, TUM_W), LAMA_BATCH)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        model(image, hole)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(device)
+        ms, ops = device_profile(lambda: model(image, hole), reps=3, warmup=1)
+        loop_ms = events_ms(lambda: model(image, hole), reps=3, warmup=0)
+        top = top_kernels(lambda: model(image, hole), count=8)
+        fft_count, fft_ms = fft_kernels(lambda: model(image, hole))
+        started = time.perf_counter()
+        inpainter.inpaint_batch(frames, masks)
+        inpaint_s = time.perf_counter() - started
+    rate = flops / (ms * 1e-3)
+    shape = f"{LAMA_BATCH}x{TUM_H}x{TUM_W}"
+    results[f"bf16_{shape}"] = dict(
+        ms=ms, device_ops=ops, loop_ms=loop_ms, frames_per_s=LAMA_BATCH / (ms * 1e-3),
+        flops=flops, tflops_per_s=rate / 1e12, peak_share=rate / DPT_PEAK_FLOPS["bf16"],
+        peak_bytes=peak, fft_launches=fft_count, fft_ms=fft_ms, inpaint_batch_s=inpaint_s)
+    log(f"[lama] bf16 {shape}: {ms:.4f} ms device ({ops:.0f} kernels), {loop_ms:.4f} ms launch "
+        f"loop (events), {LAMA_BATCH / (ms * 1e-3):.2f} frames/s; {flops / 1e9:.1f} GFLOP "
+        f"(lama_flops: the convolutions, the transposed ones without the reference's zero "
+        f"terms), {rate / 1e12:.2f} TFLOP/s = {100 * rate / DPT_PEAK_FLOPS['bf16']:.2f}% of the "
+        f"989 TFLOP/s bf16 data-sheet peak; peak device memory {peak} B; FFT kernels x{fft_count} "
+        f"{fft_ms:.4f} ms ({100 * fft_ms / ms:.1f}% of the device time); inpaint_batch "
+        f"(host padding, transfers, uint8 out) {inpaint_s:.3f} s")
+    log(f"[lama] bf16 {shape} top kernels by device time: {top}")
+    del inpainter, model, image, hole
+    torch.cuda.empty_cache()
+    return results
+
+
+def run_inpainting_conversion(device, launches, gt_profiling, tmp: str) -> dict:
+    """A user's run with ``--inpainting_mode 2`` (LaMa for RGB, TELEA for
+    depth) on phase 7's TUM folder, the check weights written as
+    ``$WEIGHTS_PATH/big-lama.npz``, in this process, nothing patched.
+    Checks the three inpainted folders (30 files each, the masks there
+    blacked out), the RGB frames against this script's own
+    ``LamaInpainter`` on the converted frames and dilated masks, the
+    dilated blob's depth filled from the 2 m wall where the mask covers the
+    blob, the native TELEA against
+    a recompute on one frame, the launch counts and both meshes, and logs
+    the ``inpainting`` stage beside phase 7's stages."""
+    from hive_tpu_torch.image_codecs import CV2_JPEG_QUALITY, encode_jpeg
+    from hive_tpu_torch.image_processing import TELEA_RADIUS, dilate_ids, inpaint_telea
+    from hive_tpu_torch.io import HiveDataset, load_image
+    from hive_tpu_torch.meshing.gltf import load_glb
+    from hive_tpu_torch.models import lama
+
+    tum, out = os.path.join(tmp, "tum"), os.path.join(tmp, "inpainted")
+    weights_dir = os.path.join(tmp, "lama_weights")
+    os.makedirs(weights_dir)
+    flat = lama.check_params(SEED)
+    np.savez(os.path.join(weights_dir, lama.WEIGHTS_FILENAME), **flat)
+    argv = ["hive_tpu_torch", "--dataset_path", tum, "--output_path", out, "--inpainting_mode",
+            "2", "--key_frame_threshold", "1.0", "--webxr_path",
+            os.path.join(tmp, "webxr_inpaint"), "--log_file",
+            os.path.join(tmp, "pipeline_inpaint.log")]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with mock.patch.object(sys, "argv", argv), \
+            mock.patch.dict(os.environ, {"WEIGHTS_PATH": weights_dir}):
+        runpy.run_module("hive_tpu_torch", run_name="__main__", alter_sys=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches["inpainted"] = main_launch_counts()
+    check_launches("the --inpainting_mode 2 run", launches["inpainted"], TUM_FRAMES)
+
+    dataset = HiveDataset(out)
+    if not dataset.has_inpainted_frame_data:
+        raise AssertionError("the run wrote no inpainted frames")
+    folders = {}
+    for folder in ("rgb_inpainted", "depth_inpainted", "mask_inpainted"):
+        folders[folder] = sorted(os.listdir(os.path.join(out, folder)))
+        if len(folders[folder]) != TUM_FRAMES:
+            raise AssertionError(f"{folder} holds {len(folders[folder])} files")
+    for name in folders["mask_inpainted"]:
+        if load_image(os.path.join(out, "mask_inpainted", name)).any():
+            raise AssertionError(f"mask_inpainted/{name} is not blacked out")
+
+    masks = np.stack([dilate_ids(dataset.mask_dataset[i]) for i in range(TUM_FRAMES)])
+    frames = np.stack([dataset.rgb_dataset[i] for i in range(TUM_FRAMES)])
+    start = time.perf_counter()
+    inpainter = lama.LamaInpainter(device, params=flat)
+    want = np.concatenate([inpainter.inpaint_batch(frames[i:i + lama.BATCH_SIZE],
+                                                   masks[i:i + lama.BATCH_SIZE])
+                           for i in range(0, TUM_FRAMES, lama.BATCH_SIZE)])
+    for i, name in enumerate(folders["rgb_inpainted"]):
+        with open(os.path.join(out, "rgb_inpainted", name), "rb") as f:
+            if f.read() != encode_jpeg(want[i], quality=CV2_JPEG_QUALITY):
+                raise AssertionError(f"rgb_inpainted/{name} differs from LamaInpainter's frame")
+    recompute_s = time.perf_counter() - start
+    lama_hole_px = int((masks > 127).sum())
+
+    depth = np.stack([load_image(p) for p in dataset.depth_dataset.image_paths])
+    filled = np.stack([load_image(os.path.join(out, "depth_inpainted", name))
+                       for name in folders["depth_inpainted"]])
+    if not np.array_equal(filled[masks == 0], depth[masks == 0]):
+        raise AssertionError("depth_inpainted changed depth outside the dilated masks")
+    # After priming, in each frame whose dilated mask covers the whole blob
+    # (TELEA then sees only the wall), the fill must be the wall's depth.
+    # Where part of the blob lies outside the mask, TELEA rightly draws
+    # from it too.
+    covered, fills = [], {}
+    for i in range(TUM_PRIMED, TUM_FRAMES):
+        grown, blob = masks[i] > 0, depth[i] < INPAINT_WALL_MM - 250
+        fill = filled[i][grown].astype(np.int64)
+        fills[i] = (int(fill.min()), int(fill.max())) if fill.size else None
+        if blob.any() and not (blob & ~grown).any():
+            covered.append(i)
+    worst = max((max(abs(lo - INPAINT_WALL_MM), abs(hi - INPAINT_WALL_MM))
+                 for lo, hi in (fills[i] for i in covered)), default=None)
+    fill_log = (f"{len(covered)} of {TUM_FRAMES - TUM_PRIMED} frames after priming have the "
+                f"whole blob under the dilated mask, their fill within {worst} mm of the wall; "
+                f"fill (min, max) mm a frame: {fills}")
+    if len(covered) < (TUM_FRAMES - TUM_PRIMED) // 2 or worst > INPAINT_DEPTH_TOL_MM:
+        raise AssertionError(f"depth fill: {fill_log}; want half the frames covered, within "
+                             f"{INPAINT_DEPTH_TOL_MM} mm")
+    frame = TUM_PRIMED
+    start = time.perf_counter()
+    again = inpaint_telea(depth[frame], masks[frame], TELEA_RADIUS)
+    telea_s = time.perf_counter() - start
+    if not np.array_equal(again, filled[frame]):
+        raise AssertionError(f"depth_inpainted frame {frame} differs from inpaint_telea's")
+
+    foreground = load_glb(os.path.join(out, "mesh", "fg.glb"))
+    background = next(iter(load_glb(os.path.join(out, "mesh", "bg.glb")).geometry.values()))
+    for name in foreground.node_names:
+        if not np.isfinite(foreground.geometry[name].vertices).all():
+            raise AssertionError(f"fg.glb frame {name}: non-finite vertices")
+    if len(background.vertices) == 0 or not np.isfinite(background.vertices).all():
+        raise AssertionError("bg.glb holds no (finite) vertices")
+    with open(os.path.join(out, "profiling.json")) as f:
+        profiling = json.load(f)
+    stage = profiling["timing"]["load_dataset"]["inpainting"]
+
+    log(f"[inpaint] {TUM_FRAMES} frames converted with --inpainting_mode 2 and meshed in "
+        f"{wall:.1f} s, {profiling['elapsed_time']['per_frame']:.4f} s/frame; inpainting "
+        f"{stage:.4f} s; launches {launches['inpainted']}; dilated masks over "
+        f"{float((masks > 0).mean()):.4f} of the pixels, {lama_hole_px} of them > 127 (LaMa's "
+        f"hole: the instance ids are 1, the reference's threshold, ROADMAP Queue 3 item 3); "
+        f"rgb_inpainted equals LamaInpainter's frames as quality-95 JPEGs (fresh inpainter "
+        f"and recompute {recompute_s:.1f} s); {fill_log}; frame {frame}'s depth equals "
+        f"inpaint_telea's ({telea_s:.3f} s); fg.glb {len(foreground.node_names)} frames, "
+        f"bg.glb {len(background.vertices)} vertices; peak device memory "
+        f"{profiling['peak_vram_usage']['allocated']} B")
+    ours, theirs = flat_totals(gt_profiling["timing"]), flat_totals(profiling["timing"])
+    log(f"[inpaint] stage s, TUM run without inpainting | with --inpainting_mode 2: per frame "
+        f"{gt_profiling['elapsed_time']['per_frame']:.4f} | "
+        f"{profiling['elapsed_time']['per_frame']:.4f}; "
+        + "; ".join(f"{k} {ours.get(k, float('nan')):.4f} | {theirs.get(k, float('nan')):.4f}"
+                    for k in sorted(set(ours) | set(theirs))))
+    return dict(wall_s=wall, per_frame_s=profiling["elapsed_time"]["per_frame"],
+                inpainting_s=stage, covered_frames=covered, depth_fill_mm=worst,
+                lama_hole_px=lama_hole_px, telea_frame_s=telea_s,
+                load_dataset=profiling["timing"]["load_dataset"])
+
+
+# ---------------------------------------------------------------------------
 # The measurement entry points' kernels.
 # ---------------------------------------------------------------------------
 
@@ -2158,6 +2582,8 @@ def main() -> int:
         depth_run = run_depth_conversion(device, launches, conversion_profiling, tmp)
         segmenters = check_segmenters(device, os.path.join(tmp, "tum"))
         segmented_run = run_segmented_conversion(device, launches, conversion_profiling, tmp)
+        lama_results = check_lama(device, os.path.join(tmp, "tum"))
+        inpainted_run = run_inpainting_conversion(device, launches, conversion_profiling, tmp)
     probes = {"band_sampler": sampler,
               "tile_gather": check_tile_gather(device),
               "patch_gather": check_patch_gather(device),
@@ -2181,6 +2607,7 @@ def main() -> int:
             launches_converted=launches["converted"][name],
             launches_estimated_depth=launches["estimated_depth"][name],
             launches_segmented=launches["segmented"][name],
+            launches_inpainted=launches["inpainted"][name],
             launches_bench=launches["bench"][name], exact=True,
             calls_checked=result["calls_checked"], max_abs_err=result["max_abs_err"],
             ms=result["ms"], kernel_ms=result["ms"], plain_ms=result["plain_ms"],
@@ -2213,6 +2640,7 @@ def main() -> int:
     log("[convert] summary " + json.dumps(conversion))
     log("[dpt] summary " + json.dumps({"model": dpt_results, "estimate_depth_run": depth_run}))
     log("[segment] summary " + json.dumps({"models": segmenters, "maskrcnn_run": segmented_run}))
+    log("[inpaint] summary " + json.dumps({"lama": lama_results, "inpainting_run": inpainted_run}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

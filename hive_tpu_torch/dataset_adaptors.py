@@ -11,11 +11,14 @@ JAX package writes them through imageio and Pillow: the JPEG bytes are
 Pillow's. The instance masks come from the person segmenter on the card
 (Mask R-CNN or the U-Net with weights in ``$WEIGHTS_PATH``, else motion);
 with ``--estimate_depth`` the depth maps come from DPT-Hybrid on the card
-(``estimate_depth_dpt``, counterpart of :1018-1051).
+(``estimate_depth_dpt``, counterpart of :1018-1051). With
+``--inpainting_mode`` the frames are inpainted behind the dilated masks
+(``DatasetAdaptor._inpaint_frame_data``, counterpart of :392-464): TELEA on
+the host, LaMa on the card; those frames are written as the reference's
+``cv2.imwrite`` writes them (JPEG at quality 95, PNG).
 
 Not ported yet, each refused with its ROADMAP item: StrayScanner and plain
-video inputs (Queue 1 item 9b), inpainting (item 11b) and
-``--estimate_pose`` (item 12).
+video inputs (Queue 1 item 9b) and ``--estimate_pose`` (item 12).
 """
 
 from __future__ import annotations
@@ -32,37 +35,23 @@ import numpy as np
 
 from hive_tpu_torch.custom_types import File
 from hive_tpu_torch.geometric import Trajectory
-from hive_tpu_torch.image_codecs import encode_jpeg, encode_png
+from hive_tpu_torch.image_codecs import CV2_JPEG_QUALITY, write_image
+from hive_tpu_torch.image_processing import TELEA_RADIUS, dilate_ids, inpaint_telea
 from hive_tpu_torch.io import (Dataset, DatasetMetadata, HiveDataset, ImageFolderDataset,
                                InvalidDatasetFormatError, create_masks, load_image)
 from hive_tpu_torch.models.dpt import DPTDepthEstimator
+from hive_tpu_torch.models.lama import lama_inpaint_folder
 from hive_tpu_torch.options import (BackgroundMeshOptions, COLMAPOptions, InpaintingMode,
                                     PipelineOptions, StorageOptions)
 from hive_tpu_torch.ops.resize import keep_aspect_multiple_of
 from hive_tpu_torch.sensor import KinectSensor
 from hive_tpu_torch.utils import not_ported, timed_block, tqdm_imap
 
-# The quality imageio's Pillow writer uses by default for the converted
-# frames (Pillow's own default, 4:2:0).
-JPEG_QUALITY = 75
-
 
 def create_folder(*args, exist_ok: bool = False) -> str:
     path = pjoin(*args)
     os.makedirs(path, exist_ok=exist_ok)
     return str(path)
-
-
-def write_image(path: str, image: np.ndarray):
-    """Write a frame as ``hive_tpu``'s ``iio.imwrite`` does, picked by the
-    extension: JPEG at Pillow's default quality, otherwise PNG."""
-    if Path(path).suffix.lower() in (".jpg", ".jpeg"):
-        blob = encode_jpeg(image, quality=JPEG_QUALITY)
-    else:
-        blob = encode_png(image)
-
-    with open(path, "wb") as f:
-        f.write(blob)
 
 
 class DatasetAdaptor(Dataset, ABC):
@@ -143,13 +132,11 @@ class DatasetAdaptor(Dataset, ABC):
         """Create the HIVE dataset: metadata → frames → masks → depth →
         camera parameters → optional inpainting.
 
-        :param device: where the instance masks and estimated depth maps
-            are computed; default ``cuda:0``.
+        :param device: where the instance masks, estimated depth maps and
+            LaMa's inpainting are computed; default ``cuda:0``.
         """
         if estimate_pose:
             raise not_ported("Pose estimation (--estimate_pose)", "Queue 1 item 12")
-        if inpainting_mode != InpaintingMode.Off:
-            raise not_ported("Inpainting (--inpainting_mode)", "Queue 1 item 11b")
 
         if no_cache and os.path.exists(self.output_path):
             logging.warning(f"`no_cache` requested — deleting the cached conversion at "
@@ -207,7 +194,7 @@ class DatasetAdaptor(Dataset, ABC):
                 pjoin(str(self.output_path), HiveDataset.camera_trajectory_filename))
 
         with timed_block(None, profiling, ["timing", "load_dataset", "inpainting"]):
-            pass  # InpaintingMode.Off: nothing to inpaint
+            self._inpaint_frame_data(inpainting_mode, device=device)
 
         logging.info(f"Converted dataset ready at {self.output_path}.")
         return HiveDataset(self.output_path)
@@ -231,6 +218,76 @@ class DatasetAdaptor(Dataset, ABC):
             return dataset
 
         return None
+
+    def _inpaint_frame_data(self, mode: InpaintingMode, device=None):
+        """Inpaint RGB frames and depth maps behind the dilated instance
+        masks, into the ``*_inpainted`` folders, as ``hive_tpu`` does: the
+        masks dilated (21 x 21 window) into ``mask_inpainted/``, RGB by
+        TELEA or LaMa, depth by TELEA or LaMa's depth branch (TELEA on the
+        ``/ 256`` image), then the masks there blacked out: inpainted data
+        holds no dynamic object."""
+        if mode == InpaintingMode.Off:
+            return
+
+        logging.info("Inpainting masked frame regions.")
+
+        rgb_path = pjoin(str(self.output_path), HiveDataset.rgb_folder)
+        depth_path = pjoin(str(self.output_path), HiveDataset.depth_folder)
+        mask_path = pjoin(str(self.output_path), HiveDataset.mask_folder)
+
+        rgb_filenames = sorted(os.listdir(rgb_path))
+        depth_filenames = sorted(os.listdir(depth_path))
+        mask_filenames = sorted(os.listdir(mask_path))
+
+        inpainted_rgb_path = create_folder(self.output_path, HiveDataset.inpainted_rgb_folder,
+                                           exist_ok=True)
+        inpainted_depth_path = create_folder(self.output_path,
+                                             HiveDataset.inpainted_depth_folder, exist_ok=True)
+        inpainted_mask_path = create_folder(self.output_path,
+                                            HiveDataset.inpainted_mask_folder, exist_ok=True)
+
+        def create_mask(mask_filename):
+            mask = load_image(pjoin(mask_path, mask_filename))
+            write_image(pjoin(inpainted_mask_path, mask_filename), dilate_ids(mask))
+
+        def inpaint_with_telea(input_path, output_path, image_filename):
+            mask = load_image(pjoin(inpainted_mask_path, f"{Path(image_filename).stem}.png"))
+            image = load_image(pjoin(input_path, image_filename))
+            write_image(pjoin(output_path, image_filename),
+                        inpaint_telea(image, mask, TELEA_RADIUS), CV2_JPEG_QUALITY)
+
+        logging.info("Creating inpainting masks (dilated object masks)...")
+        tqdm_imap(create_mask, mask_filenames)
+
+        if InpaintingMode.CV2_Image in mode:
+            logging.info("Inpainting RGB frames with TELEA...")
+            tqdm_imap(lambda f: inpaint_with_telea(rgb_path, inpainted_rgb_path, f),
+                      rgb_filenames)
+        elif InpaintingMode.Lama_Image in mode:
+            logging.info("Inpainting RGB frames with LaMa...")
+            lama_inpaint_folder(image_dir=rgb_path, mask_dir=inpainted_mask_path,
+                                output_dir=inpainted_rgb_path, device=device)
+        else:
+            raise RuntimeError(f"Inpainting mode {mode} names no image inpainter "
+                               f"(and is not {InpaintingMode.Off}).")
+
+        if InpaintingMode.CV2_Depth in mode:
+            logging.info("Inpainting depth maps with TELEA...")
+            tqdm_imap(lambda f: inpaint_with_telea(depth_path, inpainted_depth_path, f),
+                      depth_filenames)
+        elif InpaintingMode.Lama_Depth in mode:
+            logging.info("Inpainting depth maps with LaMa...")
+            lama_inpaint_folder(image_dir=depth_path, mask_dir=inpainted_mask_path,
+                                output_dir=inpainted_depth_path, depth=True, device=device)
+        else:
+            raise RuntimeError(f"Inpainting mode should be {InpaintingMode.Off} or name a "
+                               f"depth-inpainting backend.")
+
+        def write_black_mask(filename):
+            mask = load_image(pjoin(inpainted_mask_path, filename))
+            write_image(pjoin(inpainted_mask_path, filename), np.zeros(mask.shape, np.uint8))
+
+        tqdm_imap(write_black_mask, mask_filenames)
 
     def _setup_folders(self, exist_ok: bool = False) -> Tuple[str, str, str]:
         if not exist_ok and os.path.isdir(self.output_path):

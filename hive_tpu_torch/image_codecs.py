@@ -13,6 +13,7 @@ and decodes the frames it reads:
   JPEG specification (Annex K), libjpeg's fixed-point colour conversion,
   downsampling, edge padding and integer "islow" DCT: the bytes Pillow
   (libjpeg-turbo) writes for ``save(format="JPEG", quality=q)``.
+* :func:`write_image`: a frame to a file, JPEG or PNG by its extension.
 * :func:`decode_jpeg`: baseline and extended sequential Huffman JPEGs with one
   or three components, any sampling factors of 1 or 2, restart intervals;
   libjpeg's integer "islow" IDCT, fancy chroma upsampling and fixed-point
@@ -29,6 +30,7 @@ from __future__ import annotations
 
 import struct
 import zlib
+from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -831,3 +833,25 @@ def decode_jpeg(blob: bytes, native: Optional[bool] = None) -> np.ndarray:
     if len(out) == 1:
         return out[0].astype(np.uint8)
     return _ycbcr_to_rgb(*out)
+
+
+# ---------------------------------------------------------------------------
+# Files.
+# ---------------------------------------------------------------------------
+
+# The JPEG quality of hive_tpu's frame writers: imageio's Pillow plugin
+# (Pillow's default) for converted frames; cv2.imwrite for inpainted ones.
+PILLOW_JPEG_QUALITY = 75
+CV2_JPEG_QUALITY = 95
+
+
+def write_image(path: str, image: np.ndarray, jpeg_quality: int = PILLOW_JPEG_QUALITY):
+    """Write a frame as ``hive_tpu``'s ``imageio.imwrite`` or ``cv2.imwrite``
+    does, picked by the extension: JPEG (4:2:0) at ``jpeg_quality``,
+    otherwise PNG."""
+    if Path(path).suffix.lower() in (".jpg", ".jpeg"):
+        blob = encode_jpeg(image, quality=jpeg_quality)
+    else:
+        blob = encode_png(image)
+    with open(path, "wb") as f:
+        f.write(blob)

@@ -35,8 +35,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from hive_tpu_torch import get_device
+from hive_tpu_torch.models import flax_layers
 from hive_tpu_torch.models.flax_layers import (Conv, Dense, FlaxModule, GroupNorm, same_pad,
-                                               flax_leaves, load_flax_params)
+                                               load_flax_params, tree_order)
 from hive_tpu_torch.ops.resize import prepare_model_input, resize
 
 # NYU head calibration: depth = 1 / (scale * head_output + shift).
@@ -392,34 +393,21 @@ class DPTHybrid(FlaxModule):
 # ---------------------------------------------------------------------------
 
 def _flax_shapes(model: Optional[nn.Module]):
-    """(path, module, name, Flax shape) of each leaf in the order in which
-    ``jax.tree_util`` visits the reference's tree (its dict keys sorted at
-    every level). Without a model, the full DPTHybrid, built on the meta
+    """(path, module, name, Flax shape) of each leaf in the reference
+    tree's order. Without a model, the full DPTHybrid, built on the meta
     device."""
     if model is None:
         with torch.device("meta"):
             model = DPTHybrid()
-    leaves = sorted(flax_leaves(model), key=lambda leaf: tuple(leaf[0].split("/")))
-    return [(path, module, name, module.flax_shape(name)) for path, module, name in leaves]
+    return [(path, module, name, module.flax_shape(name))
+            for path, module, name in tree_order(model)]
 
 
 def random_flax_params() -> Dict[str, np.ndarray]:
     """The reference's weights-absent initialisation of the full DPTHybrid
-    (``hive_tpu/models/initialisation.py``) without JAX, leaf for leaf and
-    bit for bit: norm scales 1, biases 0, everything else N(0, 1) * 0.02
-    from one ``np.random.default_rng(0)`` in the tree's order."""
-    rng = np.random.default_rng(0)
-    flat = {}
-    for path, _, name, shape in _flax_shapes(None):
-        if name == "scale":
-            flat[path] = np.ones(shape, np.float32)
-        elif name == "bias":
-            flat[path] = np.zeros(shape, np.float32)
-        else:
-            host = rng.standard_normal(shape, dtype=np.float32)
-            host *= 0.02
-            flat[path] = host
-    return flat
+    (``flax_layers.random_flax_params``)."""
+    with torch.device("meta"):
+        return flax_layers.random_flax_params(DPTHybrid())
 
 
 def check_flax_params(model: Optional[nn.Module] = None, seed: int = 0) -> Dict[str, np.ndarray]:

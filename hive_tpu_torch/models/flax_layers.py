@@ -1,6 +1,6 @@
 """Leaf modules whose parameters are leaves of a ``hive_tpu`` Flax tree.
 
-The port's networks (DPT-Hybrid, Mask R-CNN, the person U-Net) keep the
+The port's networks (DPT-Hybrid, Mask R-CNN, the person U-Net, big-lama) keep the
 reference's module names, so the parameters of a module here are the leaves
 of ``hive_tpu``'s Flax tree at the same ``/``-joined path, and one converted
 npz serves both packages (:func:`load_flax_params`). Each leaf module maps
@@ -121,12 +121,52 @@ class GroupNorm(FlaxModule):
         return F.group_norm(x.float(), self.num_groups, self.scale, self.bias, eps=self.epsilon)
 
 
+class FoldedBN(FlaxModule):
+    """Per-channel scale and bias (FrozenBatchNorm folded at conversion):
+    ``x * scale + bias`` as one FMA, as XLA:CPU fuses it."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(features), requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.addcmul(self.bias[:, None, None], x, self.scale[:, None, None])
+
+
 def flax_leaves(model: nn.Module) -> Iterator[Tuple[str, FlaxModule, str]]:
     """(Flax path, owning module, parameter name) of every parameter of
     ``model``, the path relative to ``model`` as in the reference's tree."""
     for module_name, module in model.named_modules():
         for name, _ in module.named_parameters(recurse=False):
             yield "/".join([*module_name.split("."), name] if module_name else [name]), module, name
+
+
+def tree_order(model: nn.Module):
+    """:func:`flax_leaves` in the order in which ``jax.tree_util`` visits
+    the reference's tree (its dict keys sorted at every level)."""
+    return sorted(flax_leaves(model), key=lambda leaf: tuple(leaf[0].split("/")))
+
+
+def random_flax_params(model: nn.Module) -> Dict[str, np.ndarray]:
+    """The reference's weights-absent initialisation
+    (``hive_tpu/models/initialisation.py``) without JAX, leaf for leaf and
+    bit for bit: norm scales 1, biases 0, everything else N(0, 1) * 0.02
+    from one ``np.random.default_rng(0)`` in the tree's order. Build
+    ``model`` on the meta device: only its shapes are read."""
+    rng = np.random.default_rng(0)
+    flat = {}
+    for path, module, name in tree_order(model):
+        shape = module.flax_shape(name)
+        if name == "scale":
+            flat[path] = np.ones(shape, np.float32)
+        elif name == "bias":
+            flat[path] = np.zeros(shape, np.float32)
+        else:
+            host = rng.standard_normal(shape, dtype=np.float32)
+            host *= 0.02
+            flat[path] = host
+    return flat
 
 
 def load_flax_params(model: nn.Module, flat, network: str = "DPT") -> nn.Module:

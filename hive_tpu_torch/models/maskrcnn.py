@@ -43,8 +43,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from hive_tpu_torch import get_device
-from hive_tpu_torch.models.flax_layers import (Conv, Dense, FlaxModule, fan_in_params,
-                                               load_flax_params)
+from hive_tpu_torch.models.flax_layers import (Conv, Dense, FlaxModule, FoldedBN,
+                                               fan_in_params, load_flax_params)
 from hive_tpu_torch.ops.resize import resize
 
 # COCO class index for "person" in the 91-class torchvision head.
@@ -91,19 +91,6 @@ _LOG2_RECIPROCAL = _reciprocal(float(np.log(np.float32(2.0))))
 # ---------------------------------------------------------------------------
 # Backbone: ResNet-50 with folded (frozen) batch norm.
 # ---------------------------------------------------------------------------
-
-class FoldedBN(FlaxModule):
-    """Per-channel scale and bias (FrozenBatchNorm folded at conversion):
-    ``x * scale + bias`` as one FMA, as XLA:CPU fuses it."""
-
-    def __init__(self, features: int):
-        super().__init__()
-        self.scale = nn.Parameter(torch.ones(features), requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(features), requires_grad=False)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.addcmul(self.bias[:, None, None], x, self.scale[:, None, None])
-
 
 class Bottleneck(FlaxModule):
     """torchvision's bottleneck: the stride on the 3x3 conv, a projection

@@ -1,12 +1,16 @@
 """Native (C++) host code, loaded via ctypes: the extraction weld, the
-QEM decimation, the JPEG scan decode and the PNG unfilter.
+QEM decimation, the JPEG scan decode, the PNG unfilter and Telea's
+inpainting.
 
 Counterpart of ``hive_tpu/native`` (``src/weld.cpp`` and
 ``src/qem_decimate.cpp`` are copies of the JAX package's, built with the same
 flags, so both packages decimate a mesh to the same bits);
 ``src/jpeg_decode.cpp`` and ``src/png_unfilter.cpp`` are the port's own, in
 place of the libjpeg and zlib-based decoders of Pillow, which the JAX
-package reads its frames with. The shared library
+package reads its frames with; ``src/telea_inpaint.cpp`` computes what
+OpenCV's ``cv2.inpaint(..., INPAINT_TELEA)`` computes, and is built with
+``-ffp-contract=off`` so that no fused multiply-add rounds its sums
+differently from OpenCV's build. The shared library
 builds on demand with g++ the first time it is needed, into
 ``hive_tpu_torch/_build/``. Callers fall back to numpy when no toolchain is
 available. This is host code, not a device kernel.
@@ -26,7 +30,11 @@ _SRC_DIR = os.path.join(_NATIVE_DIR, "src")
 _BUILD_DIR = os.path.join(os.path.dirname(_NATIVE_DIR), "_build")
 _LIB_PATH = os.path.join(_BUILD_DIR, "libhive_native.so")
 
-_SOURCES = ["jpeg_decode.cpp", "png_unfilter.cpp", "qem_decimate.cpp", "weld.cpp"]
+_SOURCES = ["jpeg_decode.cpp", "png_unfilter.cpp", "qem_decimate.cpp", "telea_inpaint.cpp",
+            "weld.cpp"]
+# Flags beyond the common ones, per source.
+_EXTRA_FLAGS = {"telea_inpaint.cpp": ["-ffp-contract=off"]}
+_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -42,27 +50,38 @@ def _needs_rebuild() -> bool:
                for src in _SOURCES)
 
 
-def _build() -> bool:
-    sources = [os.path.join(_SRC_DIR, src) for src in _SOURCES]
-    # Compile to a per-process temp file and rename into place: os.rename
-    # is atomic on one filesystem, so a concurrent process never dlopens a
-    # half-written library.
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp_path = f"{_LIB_PATH}.build-{os.getpid()}"
-    command = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-               "-o", tmp_path, *sources]
-
+def _run(command) -> bool:
     logging.info(f"Building native library: {' '.join(command)}")
-
     try:
         result = subprocess.run(command, capture_output=True, text=True, timeout=300)
     except (OSError, subprocess.TimeoutExpired) as exc:
         logging.warning(f"Native build failed to run: {exc}")
         return False
-
     if result.returncode != 0:
         logging.warning(f"Native build failed:\n{result.stderr}")
         return False
+    return True
+
+
+def _build() -> bool:
+    # Each source compiles to its own object (its flags may differ), then
+    # one link to a per-process temp file, renamed into place: os.rename
+    # is atomic on one filesystem, so a concurrent process never dlopens a
+    # half-written library.
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp_path = f"{_LIB_PATH}.build-{os.getpid()}"
+    objects = [f"{tmp_path}.{os.path.splitext(src)[0]}.o" for src in _SOURCES]
+    try:
+        for src, obj in zip(_SOURCES, objects):
+            if not _run(["g++", *_FLAGS, *_EXTRA_FLAGS.get(src, []), "-c", "-o", obj,
+                         os.path.join(_SRC_DIR, src)]):
+                return False
+        if not _run(["g++", "-shared", "-o", tmp_path, *objects]):
+            return False
+    finally:
+        for obj in objects:
+            if os.path.exists(obj):
+                os.remove(obj)
 
     try:
         os.rename(tmp_path, _LIB_PATH)
@@ -150,6 +169,12 @@ def get_native_lib() -> Optional[ctypes.CDLL]:
         lib.hive_png_unfilter.argtypes = [
             ct.POINTER(ct.c_uint8), ct.c_int64, ct.c_int64, ct.c_int64,
             ct.POINTER(ct.c_uint8),
+        ]
+
+        lib.hive_telea_inpaint.restype = ct.c_int
+        lib.hive_telea_inpaint.argtypes = [
+            ct.POINTER(ct.c_uint8), ct.c_int, ct.c_int, ct.c_int, ct.c_int,
+            ct.c_void_p, ct.c_double,
         ]
 
         _lib = lib
@@ -306,4 +331,36 @@ def png_unfilter(data, height: int, stride: int, bpp: int):
                                    out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
     if status:
         raise ValueError("unknown PNG filter type")
+    return out
+
+
+def telea_inpaint(image, hole, radius: float):
+    """Telea's inpainting of ``image`` where ``hole`` is non-zero, as
+    ``cv2.inpaint(image, hole, radius, cv2.INPAINT_TELEA)``.
+
+    :param image: (H, W) or (H, W, 3) uint8, or (H, W) uint16.
+    :param hole: (H, W) uint8.
+    :return: the inpainted copy, or ``None`` when the native library is
+        unavailable.
+    :raises ValueError: for another layout.
+    """
+    import numpy as np
+
+    lib = get_native_lib()
+    if lib is None:
+        return None
+
+    out = np.array(image, order="C", copy=True)
+    hole = np.ascontiguousarray(hole, dtype=np.uint8)
+    channels = 1 if out.ndim == 2 else out.shape[2]
+    depth = {np.dtype(np.uint8): 8, np.dtype(np.uint16): 16}.get(out.dtype, 0)
+    if hole.shape != out.shape[:2] or out.ndim not in (2, 3):
+        raise ValueError(f"a hole of shape {hole.shape} does not fit an image of shape "
+                         f"{out.shape}")
+    status = lib.hive_telea_inpaint(hole.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                                    out.shape[0], out.shape[1], channels, depth,
+                                    out.ctypes.data_as(ctypes.c_void_p), float(radius))
+    if status:
+        raise ValueError(f"Telea inpainting takes uint8 images of 1 or 3 channels or uint16 "
+                         f"images of 1 channel, not {out.dtype} x {channels}")
     return out

@@ -48,7 +48,7 @@ from hive_tpu_torch.meshing.texture import get_mesh_texture_and_uv, pack_texture
 from hive_tpu_torch.meshing.triangulate import (filter_faces, triangulate_grid,
                                                 triangulate_points)
 from hive_tpu_torch.options import (BackgroundMeshOptions, COLMAPOptions,
-                                    ForegroundTrajectorySmoothingOptions, InpaintingMode,
+                                    ForegroundTrajectorySmoothingOptions,
                                     MaskDilationOptions, MeshDecimationOptions,
                                     MeshFilteringOptions, MeshReconstructionMethod,
                                     PipelineOptions, StorageOptions, WebXROptions)
@@ -134,8 +134,6 @@ class Pipeline:
         """Refuse the options whose stages are not ported yet."""
         if self.options.estimate_pose:
             raise not_ported("--estimate_pose", "Queue 1 item 12")
-        if self.options.inpainting_mode != InpaintingMode.Off:
-            raise not_ported("--inpainting_mode", "Queue 1 item 11b")
         if self.options.num_devices != 1:
             raise not_ported("--num_devices", "Queue 1 item 14")
         if self.fts_options.num_epochs > 0:

@@ -260,11 +260,11 @@ def test_estimate_depth_conversion_matches_hive_tpu(tmp_path, monkeypatch):
                 np.testing.assert_allclose(ours.astype(int), theirs.astype(int), atol=1, rtol=0)
 
 
-@pytest.mark.parametrize("option", ["estimate_pose", "inpainting_mode"])
+@pytest.mark.parametrize("option", ["estimate_pose"])
 def test_unported_conversion_options_refused(tmp_path, option):
     base = make_tum_dataset(tmp_path / "tum", num_frames=2)
     kwargs = dict(estimate_pose=False, estimate_depth=False, inpainting_mode=InpaintingMode.Off)
-    kwargs[option] = InpaintingMode.CV2_Image if option == "inpainting_mode" else True
+    kwargs[option] = True
     adaptor = dataset_adaptors.TUMAdaptor(base_path=base, output_path=str(tmp_path / "out"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 1"):
         adaptor.convert(device="cpu", **kwargs)

@@ -154,6 +154,53 @@ def test_conversion_with_missing_packages_blocked(tmp_path):
     assert done.stdout.strip().splitlines()[-1] == "ok"
 
 
+@pytest.mark.parametrize("mode", [1, 2])
+def test_inpainting_with_missing_packages_blocked(tmp_path, mode):
+    """The CLI converts a TUM folder with ``--inpainting_mode`` 1 (TELEA for
+    both) and 2 (LaMa for RGB, with a small generator's check weights as
+    ``$WEIGHTS_PATH/big-lama.npz``) with JAX, hive_tpu and the packages
+    the card's machine lacks blocked: the three inpainted folders hold a
+    frame each, the masks there are blacked out."""
+    from chip_smoke import write_tum_dataset
+    from hive_tpu_torch.models import lama
+
+    tum = str(tmp_path / "tum")
+    write_tum_dataset(tum, num_frames=10, width=64, height=48)
+    weights = tmp_path / "weights"
+    weights.mkdir()
+    small = dict(base_features=8, num_downsamples=2, num_blocks=2)
+    if mode == 2:
+        np.savez(weights / "big-lama.npz", **lama.check_params(0, **small))
+    out = str(tmp_path / "out")
+    argv = ["--dataset_path", tum, "--output_path", out, "--num_frames", "10",
+            "--inpainting_mode", str(mode), "--key_frame_threshold", "1.0", "--sdf_max_voxels",
+            "100000", "--background_only", "--webxr_path", str(tmp_path / "webxr"),
+            "--log_file", str(tmp_path / "log.txt")]
+    blocked = ("jax", "hive_tpu") + MISSING_ON_CARD_MACHINE
+    code = ("import functools, os, sys\n"
+            f"for name in {blocked!r}:\n"
+            "    sys.modules[name] = None\n"
+            "from hive_tpu_torch.io import HiveDataset, load_image\n"
+            "from hive_tpu_torch.models import lama\n"
+            "from hive_tpu_torch.pipeline import Pipeline\n"
+            f"lama.LamaGenerator = functools.partial(lama.LamaGenerator, **{small!r})\n"
+            f"pipeline = Pipeline.from_command_line({argv!r}, device='cpu')\n"
+            "pipeline.run()\n"
+            f"dataset = HiveDataset({out!r})\n"
+            "assert dataset.has_inpainted_frame_data\n"
+            "for folder in ('rgb_inpainted', 'depth_inpainted', 'mask_inpainted'):\n"
+            f"    assert len(os.listdir(os.path.join({out!r}, folder))) == 10, folder\n"
+            f"mask = load_image(os.path.join({out!r}, 'mask_inpainted', '000009.png'))\n"
+            "assert mask.shape == (48, 64) and not mask.any()\n"
+            "assert pipeline.profiling['timing']['load_dataset']['inpainting'] > 0\n"
+            "print('ok')\n")
+    env = dict(os.environ, WEIGHTS_PATH=str(weights))
+    done = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300, env=env)
+    assert done.returncode == 0, done.stderr[-4000:]
+    assert done.stdout.strip().splitlines()[-1] == "ok"
+
+
 def test_depth_estimation_with_missing_packages_blocked(tmp_path):
     """The CLI converts a TUM folder with ``--estimate_depth`` (DPT-Hybrid at
     its random initialisation, on the CPU at a 64 x 96 net size) with JAX,
@@ -471,6 +518,43 @@ def test_dpt_fp32_on_card_equals_cpu():
         got = dpt.load_flax_params(model, flat).eval()(images.cuda()).cpu()
     assert float(want.abs().max()) > 0.1
     assert float((got - want).abs().max() / want.abs().max()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_lama_on_card_equals_cpu():
+    """The full-width big-lama with the check weights on the card against
+    the CPU, on two 60 x 84 frames (padded to 64 x 88) with a 255-valued
+    hole, as ``chip_smoke.py``'s phase 10 holds it: float32 outputs;
+    float32 within 1e-5 (the CPU parity test's tolerance against
+    hive_tpu); bf16 within 0.02 (0.003 on average) of the CPU's bf16, and
+    no further from the CPU's float32 than twice the CPU's bf16 is. The
+    card's bf16 convolutions round one output in 10^3-10^4 to the other
+    side, and one such rounding in the Fourier unit's spectrum moves the
+    whole map (chip_smoke.py ``LAMA_BF16_TOL``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: compares the card's forward with the CPU's")
+    from hive_tpu_torch.models import lama
+
+    rng = np.random.default_rng(14)
+    frames = rng.integers(0, 256, (2, 60, 84, 3)).astype(np.uint8)
+    masks = np.zeros((2, 60, 84), np.uint8)
+    masks[:, 15:45, 20:60] = 255
+    flat = lama.check_params(0)
+    hole = np.broadcast_to(masks[:, None] > 127, (2, 3, 60, 84))
+    outs = {(device, name): lama.LamaInpainter(device, dtype=dtype, params=flat)
+            .forward(frames, masks)
+            for device in ("cuda", "cpu")
+            for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    assert {out.dtype for out in outs.values()} == {torch.float32}
+    outs = {key: out.cpu().numpy()[hole] for key, out in outs.items()}
+    assert np.abs(outs["cuda", "f32"] - outs["cpu", "f32"]).max() <= 1e-5
+    card = np.abs(outs["cuda", "bf16"] - outs["cpu", "bf16"])
+    assert card.max() <= 0.02 and card.mean() <= 0.003, (card.max(), card.mean())
+    card_error = np.abs(outs["cuda", "bf16"] - outs["cpu", "f32"])
+    cpu_error = np.abs(outs["cpu", "bf16"] - outs["cpu", "f32"])
+    assert card_error.max() <= 2 * cpu_error.max()
+    assert card_error.mean() <= 2 * cpu_error.mean()
+    assert outs["cpu", "f32"].max() - outs["cpu", "f32"].min() > 0.3
 
 
 @pytest.mark.cuda
