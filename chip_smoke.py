@@ -135,14 +135,53 @@ Phases (any failure raises and the script exits non-zero):
    depth equal to ``inpaint_telea``'s, two classifications and one band
    update a frame, both meshes finite; ``inpainting`` logged beside phase
    7's stages;
-11. the tile-gather kernel, both axes, on the gather probe's (8, 128) tile:
+11. the pose optimiser's training loop (no kernel of its own: plain
+   PyTorch and autograd, Adam in optax's order). First
+   tests/test_pose_optimisation.py's 8-frame, 120-landmark problem on the
+   card against the CPU port: one 25-epoch chunk's losses within
+   POSE_LOSS_RTOL and parameters within POSE_CHUNK_TOL (frame 0
+   unmoved); two steps and the fine-tune through
+   ``optimise_packed_features`` in float64 with the same epochs a loop,
+   within POSE_RUN_TOL, the ATE RMSE under POSE_ATE_RATIO of the perturbed
+   input's. Then pose-optimise at a user's size: a 300-frame VGA sweep
+   (fx = 525), 593 hierarchical pairs, about 300 correspondences a pair
+   (0.5 px noise), the ground truth perturbed by 0.05 m and 1 degree,
+   held to the CPU port at this size (``check_pose_user_chunk``: the first
+   25-epoch chunk in float64 within POSE_LOSS_RTOL and POSE_CHUNK_TOL, the
+   float32 loss within POSE_LOSS_RTOL of the CPU's float64 and the float32
+   gradients within POSE_F32_GRAD_RATIO x the CPU's own float32 error),
+   then through ``PoseOptimiser`` with ``OptimisationOptions()``
+   (PairWise3D, Global3D, the fine-tune): per loop the epochs, wall s and
+   peak device memory, and a chunk of its configuration profiled (device
+   ms and kernels an epoch) and as a launch loop (CUDA events); the final
+   ATE RMSE beside the perturbed input's;
+12. tum-fts: a user's run with ``--fts_num_epochs 100`` on a copy of phase
+   7's TUM folder whose ground truth is jittered (FTS_JITTER_M,
+   FTS_JITTER_ROT), nothing patched: two classifications and one band
+   update a frame, both meshes finite, ``stages_overlapped`` false,
+   ``foreground_reconstruction`` logged beside phase 7's; the foreground
+   optimiser on the converted folder on the card (timed) within FTS_TOL of
+   the CPU port's, the trajectory moved by more than FTS_MIN_MOVE_TOLS x
+   FTS_TOL;
+13. tum-colmap-pose: a user's run with ``--estimate_pose`` on a copy of
+   phase 7's TUM folder whose camera moves COLMAP_STEP_M along x between
+   frames, ``--binary_path`` a stand-in ``colmap`` the phase writes (a
+   sparse model of the staged frames from the TUM ground truth in units of
+   COLMAP_SCALE metres, points on the wall): two classifications and one
+   band update a frame, both meshes finite, ``camera_matrix.txt`` the
+   model's, the trajectory and each step between frames within
+   COLMAP_POSE_TOL_M of the ground truth's (a missing scale would leave
+   steps of COLMAP_SCALE x COLMAP_STEP_M), the metric scale (recomputed
+   from the sparse depth maps) within 1% of 1 / COLMAP_SCALE;
+   ``get_camera_parameters`` logged;
+14. the tile-gather kernel, both axes, on the gather probe's (8, 128) tile:
    bit-exact vs its plain version, timed beside ``torch.gather``;
-12. the patch-gather kernel on the probe's 1024 blocks x 512 samples, with
+15. the patch-gather kernel on the probe's 1024 blocks x 512 samples, with
    one sample in eight moved out of its window: bit-exact vs its plain
    version, timed beside ``torch.take`` and the band sampler;
-13. both fused band-trip variants on the fused-trip probe's 128-row trip:
+16. both fused band-trip variants on the fused-trip probe's 128-row trip:
    bit-exact vs the plain version, timed;
-14. the two measurement entry points, each run in this process with the
+17. the two measurement entry points, each run in this process with the
    launch counts reset just before and read just after:
    ``hive_tpu_torch.micro.gather`` (Q1 tile gathers, Q2 patch gather timed
    beside ``torch.take`` and the band sampler) and
@@ -150,7 +189,7 @@ Phases (any failure raises and the script exits non-zero):
    production trip; Q3: fused, production and take trips timed, their final
    states bit-identical on the rows that fit); each of its kernels must have
    launched;
-15. one ``{"kernels": [...]}`` line (times, errors and bounds at the main
+18. one ``{"kernels": [...]}`` line (times, errors and bounds at the main
    paths' shapes, and under ``bench`` at the bench shape), then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last
    line.
@@ -1310,6 +1349,108 @@ def write_tum_dataset(base: str, num_frames: int, width: int, height: int,
     return np.stack(silhouettes)
 
 
+# The stand-in ``colmap`` of the --estimate_pose runs: it writes a sparse
+# model of the staged frames from given world-to-camera poses and wall
+# points, in COLMAP's units (metres x COLMAP_SCALE), as a real COLMAP run
+# lands at an arbitrary scale.
+COLMAP_SCALE = 0.37
+COLMAP_STAND_IN = """#!{python}
+import argparse, json, os, sys
+
+import numpy as np
+
+sys.path.insert(0, {repo!r})
+from hive_tpu_torch.data import colmap_model as cm
+from hive_tpu_torch.geometric import pose_vec2mat
+
+parser = argparse.ArgumentParser()
+parser.add_argument("command")
+parser.add_argument("--workspace_path")
+parser.add_argument("--image_path")
+args, _ = parser.parse_known_args()
+with open({spec!r}) as f:
+    spec = json.load(f)
+K, (width, height), scale = np.array(spec["K"]), spec["size"], spec["scale"]
+names = sorted(os.listdir(args.image_path))
+# The staged frames are the adaptor's subset, renumbered densely.
+subset = list(range(0, len(spec["poses"]), spec["frame_step"]))
+subset += [len(spec["poses"]) - 1] if subset[-1] != len(spec["poses"]) - 1 else []
+points = np.array(spec["points"])
+cameras = {{1: cm.ColmapCamera(1, "PINHOLE", width, height,
+                               np.array([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]))}}
+images = {{}}
+for i, name in enumerate(names):
+    pose = spec["poses"][subset[int(name.split(".")[0])]]
+    M = pose_vec2mat(np.array(pose))
+    cam = points @ M[:3, :3].T + M[:3, 3]
+    uv = cam[:, :2] / cam[:, 2:] * K[[0, 1], [0, 1]] + K[:2, 2]
+    seen = ((cam[:, 2] > 0) & (uv[:, 0] > 0) & (uv[:, 0] < width) & (uv[:, 1] > 0)
+            & (uv[:, 1] < height))
+    q = pose[:4]
+    images[i + 1] = cm.ColmapImage(i + 1, np.array([q[3], q[0], q[1], q[2]]),
+                                   scale * M[:3, 3], 1, name, uv[seen],
+                                   np.flatnonzero(seen).astype(np.int64))
+points3d = {{j: cm.ColmapPoint3D(j, scale * p, np.array([128, 128, 128]), 0.5)
+            for j, p in enumerate(points)}}
+model = os.path.join(args.workspace_path, "sparse", "0")
+os.makedirs(model, exist_ok=True)
+cm.write_model(model, cameras, images, points3d)
+print(f"stand-in colmap: {{len(images)}} images, {{len(points3d)}} points")
+"""
+
+
+def write_colmap_stand_in(folder: str, poses: np.ndarray, K: np.ndarray, size,
+                          depth: float, frame_step: int, grid: int = 24) -> str:
+    """Write the stand-in ``colmap`` (an executable Python script) and its
+    spec into ``folder``; returns the script's path. ``poses`` are the
+    frames' world-to-camera 7-vectors in metres, of which the adaptor stages
+    every ``frame_step``-th and the last; the points are a ``grid`` x
+    ``grid`` lattice over frame 0's view at ``depth`` metres (the wall), in
+    world coordinates."""
+    from hive_tpu_torch.geometric import pose_vec2mat
+
+    os.makedirs(folder, exist_ok=True)
+    width, height = size
+    us, vs = np.meshgrid(np.linspace(2, width - 3, grid), np.linspace(2, height - 3, grid))
+    cam = np.stack([(us.ravel() - K[0, 2]) / K[0, 0] * depth,
+                    (vs.ravel() - K[1, 2]) / K[1, 1] * depth,
+                    np.full(us.size, depth)], axis=-1)
+    M = pose_vec2mat(np.asarray(poses[0], dtype=np.float64))
+    points = (cam - M[:3, 3]) @ M[:3, :3]
+    spec = os.path.join(folder, "colmap.json")
+    with open(spec, "w") as f:
+        json.dump({"K": np.asarray(K).tolist(), "size": [int(width), int(height)],
+                   "scale": COLMAP_SCALE, "frame_step": frame_step,
+                   "poses": np.asarray(poses).tolist(),
+                   "points": points.tolist()}, f)
+    script = os.path.join(folder, "colmap")
+    with open(script, "w") as f:
+        f.write(COLMAP_STAND_IN.format(python=sys.executable, repo=REPO, spec=spec))
+    os.chmod(script, 0o755)
+    return script
+
+
+def copy_tum_with_poses(tum: str, dest: str, poses: np.ndarray) -> None:
+    """Copy a TUM folder to ``dest`` with its ground truth rewritten so
+    that TUMAdaptor, which takes each frame's pose from the 100 Hz row
+    nearest its depth stamp, reads ``poses[i]`` (qx qy qz qw tx ty tz,
+    camera to world, as TUM stores it) for frame i: each row holds the pose
+    of the frame whose depth stamp is nearest to it."""
+    shutil.copytree(tum, dest)
+
+    def rows(name):
+        with open(os.path.join(dest, name)) as f:
+            return [line.split() for line in f if line.strip() and not line.startswith("#")]
+
+    depth_stamps = np.array([float(row[0]) for row in rows("depth.txt")])
+    lines = ["# timestamp tx ty tz qx qy qz qw"]
+    for row in rows("groundtruth.txt"):
+        qx, qy, qz, qw, tx, ty, tz = poses[np.abs(depth_stamps - float(row[0])).argmin()]
+        lines.append(" ".join([row[0]] + [repr(float(v)) for v in (tx, ty, tz, qx, qy, qz, qw)]))
+    with open(os.path.join(dest, "groundtruth.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
 def time_mog2(device, tum: str) -> dict:
     """Device ms of one MOG2 step and of the open and close at TUM's width,
     on the folder's frame after the priming batch; MOG2 also as a launch
@@ -2348,6 +2489,550 @@ def run_inpainting_conversion(device, launches, gt_profiling, tmp: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The pose optimiser's training loop on the card.
+# ---------------------------------------------------------------------------
+
+# pose-optimise: a 10 s TUM clip at 30 fps (fx = 525, VGA), a handheld sweep
+# in front of a wall, POSE_PER_PAIR noisy correspondences a hierarchical
+# pair (593 pairs), the ground truth perturbed by a smooth drift of up to
+# POSE_PERTURB_M and POSE_PERTURB_DEG.
+POSE_FRAMES, POSE_H, POSE_W, POSE_FOCAL = 300, 480, 640, 525.0
+POSE_LANDMARKS, POSE_PER_PAIR, POSE_NOISE_PX = 8000, 300, 0.5
+POSE_PERTURB_M, POSE_PERTURB_DEG = 0.05, 1.0
+# The CPU tests' tolerances (tests/test_torch_pose.py): a 25-epoch chunk's
+# losses (relative) and parameters, and a float64 run's trajectory.
+POSE_LOSS_RTOL, POSE_CHUNK_TOL, POSE_RUN_TOL = 1e-5, 1e-6, 1e-4
+# pose-optimise's float32 gradients on the card against the CPU's float64,
+# as a multiple of the CPU's own float32 error (4e-5 of the largest entry
+# at this size: sums of thousands of residuals a frame).
+POSE_F32_GRAD_RATIO = 3
+# The optimised trajectory's ATE RMSE against the perturbed input's.
+POSE_ATE_RATIO = 0.35
+# tum-fts: the smoothed trajectory on the card against the CPU port's. Its
+# folder is phase 7's with a ground truth jittered by FTS_JITTER_M and
+# FTS_JITTER_ROT (quaternion x, y, z before normalising), so the smoothing
+# has real gradients; it must move the trajectory by more than
+# FTS_MIN_MOVE_TOLS x FTS_TOL (about 1e-3 at the CLI's lr of 1e-5).
+FTS_EPOCHS, FTS_TOL, FTS_MIN_MOVE_TOLS = 100, 1e-4, 5
+FTS_JITTER_M, FTS_JITTER_ROT = 0.01, 0.02
+# tum-colmap-pose: phase 7's folder with a camera that moves COLMAP_STEP_M
+# along x between frames; the recovered trajectory, and each of its steps,
+# against the ground truth's, m.
+COLMAP_STEP_M, COLMAP_POSE_TOL_M = 0.01, 1e-3
+
+
+def quat_product(q1: np.ndarray, q2: np.ndarray) -> np.ndarray:
+    from hive_tpu_torch.core import transforms as T
+
+    return T.quat_multiply(torch.as_tensor(q1), torch.as_tensor(q2)).numpy()
+
+
+def quat_about(axis: np.ndarray, angles: np.ndarray) -> np.ndarray:
+    """Scalar-last quaternions of rotations by ``angles`` (rad) about unit
+    ``axis`` rows (or one axis)."""
+    half = np.asarray(angles)[..., None] / 2
+    return np.concatenate([np.sin(half) * axis, np.cos(half)], axis=-1)
+
+
+def synthetic_features(gt: np.ndarray, K: np.ndarray, size, landmarks: np.ndarray, pairs,
+                       rng, per_pair=None, noise_px: float = 0.0):
+    """The port's FeatureSet of the landmarks both frames of each pair see
+    (at most ``per_pair`` of them, drawn from ``rng``), projected with the
+    world-to-camera poses ``gt``, pixel noise from ``rng``."""
+    from hive_tpu_torch import pose_optimisation as P
+    from hive_tpu_torch.geometric import pose_vec2mat
+
+    width, height = size
+    mats = np.stack([pose_vec2mat(p) for p in gt])
+    cam = np.einsum("fij,lj->fli", mats[:, :3, :3], landmarks) + mats[:, None, :3, 3]
+    depth = cam[..., 2]
+    uv = cam[..., :2] / depth[..., None] * K[[0, 1], [0, 1]] + K[:2, 2]
+    visible = ((depth > 0.1) & (uv[..., 0] >= 0) & (uv[..., 0] < width)
+               & (uv[..., 1] >= 0) & (uv[..., 1] < height))
+    sides = {"i": ([], [], []), "j": ([], [], [])}
+    for i, j in pairs:
+        both = np.flatnonzero(visible[i] & visible[j])
+        if per_pair is not None and len(both) > per_pair:
+            both = rng.choice(both, per_pair, replace=False)
+        for side, frame in (("i", i), ("j", j)):
+            index, points, depths = sides[side]
+            index.append(np.full(len(both), frame, np.int64))
+            points.append(uv[frame, both] + rng.normal(0, noise_px, (len(both), 2))
+                          if noise_px else uv[frame, both])
+            depths.append(depth[frame, both])
+    data = {side: P.FeatureData(np.concatenate(index), np.concatenate(points).astype(np.float32),
+                                np.concatenate(depths).astype(np.float32))
+            for side, (index, points, depths) in sides.items()}
+    return P.FeatureSet(np.asarray(K, np.float64), data["i"], data["j"])
+
+
+def small_pose_problem(seed: int, scale: float):
+    """tests/test_pose_optimisation.py's 8-frame problem: 120 landmarks,
+    exact correspondences of the hierarchical pairs, positions perturbed."""
+    from hive_tpu_torch import pose_optimisation as P
+
+    K = np.array([[100.0, 0, 64.0], [0, 100.0, 48.0], [0, 0, 1.0]])
+    angles = np.radians(np.linspace(0, 8, 8))
+    gt = np.hstack([quat_about(np.array([0.0, 1.0, 0.0]), angles),
+                    np.stack([np.linspace(0, 0.5, 8), np.zeros(8), np.zeros(8)], -1)])
+    landmarks = np.random.default_rng(0).uniform([-1.5, -1.0, 2.0], [1.5, 1.0, 4.0], (120, 3))
+    pairs = P.sample_frame_pairs(P.FrameSamplingMode.Hierarchical, 8)
+    features = synthetic_features(gt, K, (128, 96), landmarks, pairs, np.random.default_rng(0))
+    perturbed = gt.copy()
+    perturbed[1:, 4:] += np.random.default_rng(seed).normal(scale=scale, size=(7, 3))
+    return gt, features, perturbed
+
+
+class PoseDataset:
+    """What PoseOptimiser reads of a dataset, for a synthetic problem."""
+
+    def __init__(self, trajectory, K, size, fps=30.0):
+        from hive_tpu_torch.geometric import Trajectory
+
+        self.camera_matrix = K
+        self.camera_trajectory = Trajectory(trajectory)
+        self.num_frames = len(trajectory)
+        self.frame_width, self.frame_height = size
+        self.fps = fps
+        self.base_path = None
+
+
+def ate_rmse(gt, estimate) -> float:
+    from hive_tpu_torch.geometric import Trajectory
+
+    err = Trajectory(gt).calculate_ate(Trajectory(estimate))
+    return float(np.sqrt(np.mean(np.sum(err ** 2, axis=-1))))
+
+
+def packed_on(features, device, dtype=torch.float32):
+    from hive_tpu_torch import pose_optimisation as P
+
+    packed = P.PoseOptimiser._pack_features(features, device=device)
+    K = features.camera_matrix
+    return ({k: v.to(dtype) if v.is_floating_point() else v for k, v in packed.items()},
+            torch.tensor([K[0, 0], K[1, 1], K[0, 2], K[1, 2]], dtype=dtype, device=device))
+
+
+def chunk_loss_fn(frame_size):
+    """The CPU test's chunk configuration: World3D, rigid, smoothing."""
+    from hive_tpu_torch import pose_optimisation as P
+
+    return P._make_loss_fn(P.ResidualType.World3D, P.AlignmentType.Rigid, True, False,
+                           0.5, 1.0, 0.5, frame_size)
+
+
+def pose_chunk(device, features, start: dict, frame_size=(128, 96), dtype=torch.float32):
+    """One 25-epoch chunk of the CPU test's configuration (lr 1e-2, the
+    1/30 m clip): (params, losses) on the host."""
+    from hive_tpu_torch import pose_optimisation as P
+
+    feats, intrinsics = packed_on(features, device, dtype)
+    params = {k: torch.as_tensor(v, device=device).to(dtype) for k, v in start.items()}
+    out, _, losses = P._run_epoch_chunk(
+        params, P.adam_init(params), feats, intrinsics,
+        torch.tensor(1e-2, dtype=dtype, device=device),
+        torch.tensor(1 / 30, dtype=dtype, device=device),
+        loss_fn=chunk_loss_fn(frame_size), num_epochs=25, position_only=False, use_clip=True)
+    return {k: v.cpu().numpy() for k, v in out.items()}, losses.cpu().numpy()
+
+
+def compare_chunks(name: str, start: dict, card, cpu) -> tuple:
+    """The card's chunk against the CPU's: losses within POSE_LOSS_RTOL,
+    parameters within POSE_CHUNK_TOL, frame 0 unmoved."""
+    (card, card_losses), (cpu, cpu_losses) = card, cpu
+    loss_err = float(np.max(np.abs(card_losses - cpu_losses) / np.abs(cpu_losses)))
+    param_err = max(float(np.abs(card[k] - cpu[k]).max()) for k in ("q", "t"))
+    if loss_err > POSE_LOSS_RTOL or param_err > POSE_CHUNK_TOL:
+        raise AssertionError(f"{name}: losses {loss_err:.3e} (rtol {POSE_LOSS_RTOL}), "
+                             f"params {param_err:.3e} (tol {POSE_CHUNK_TOL}) from the CPU's")
+    if not np.array_equal(card["t"][0], start["t"][0]):
+        raise AssertionError(f"{name}: frame 0 moved on the card")
+    return loss_err, param_err
+
+
+def pose_float64_run(device, features, start: dict):
+    """Two steps and the fine-tune through optimise_packed_features in
+    float64 (World3D, Image2D, World3D without smoothing; 200 epochs a loop
+    at most): (trajectory, epochs a loop)."""
+    from hive_tpu_torch import pose_optimisation as P
+
+    feats, intrinsics = packed_on(features, device, torch.float64)
+    params = {k: np.asarray(v, np.float64) for k, v in start.items()}
+    epochs = []
+    real = P._run_epoch_chunk
+
+    def counting(*args, **kwargs):
+        epochs.append(kwargs["num_epochs"])
+        return real(*args, **kwargs)
+
+    with mock.patch.object(P, "_run_epoch_chunk", counting):
+        for residual, smooth in (("World3D", True), ("Image2D", True), ("World3D", False)):
+            options = P.OptimisationOptions(num_epochs=200, learning_rate=5e-3,
+                                            clip_distance=None, lr_scheduler_patience=10,
+                                            early_stopping_patience=15)
+            params = P.optimise_packed_features(
+                feats, intrinsics, params, options, residual_type=P.ResidualType[residual],
+                frame_size=(128, 96), fps=30.0, smooth_trajectory=smooth)
+    values = np.hstack([params["q"].cpu().numpy(), params["t"].cpu().numpy()])
+    return values, epochs
+
+
+def check_pose_small(device) -> dict:
+    """The 8-frame problem on the card against the CPU port: the first
+    chunk within the CPU test's chunk tolerance (frame 0 bit-equal), a
+    float64 run of two steps and the fine-tune within POSE_RUN_TOL with the
+    same epochs, its ATE under POSE_ATE_RATIO of the perturbed input's."""
+    gt, features, perturbed = small_pose_problem(seed=1, scale=0.05)
+    start = {"q": perturbed[:, :4].astype(np.float32), "t": perturbed[:, 4:].astype(np.float32),
+             "scale": np.zeros(0, np.float32), "shift": np.zeros(0, np.float32)}
+    loss_err, param_err = compare_chunks("pose chunk", start, *(
+        pose_chunk(d, features, start) for d in (device, "cpu")))
+
+    gt, features, perturbed = small_pose_problem(seed=4, scale=0.04)
+    start.update(q=perturbed[:, :4], t=perturbed[:, 4:])
+    (card_run, card_epochs), (cpu_run, cpu_epochs) = (pose_float64_run(d, features, start)
+                                                      for d in (device, "cpu"))
+    run_err = float(np.abs(card_run - cpu_run).max())
+    ate, before = ate_rmse(gt, card_run), ate_rmse(gt, perturbed)
+    if card_epochs != cpu_epochs or run_err > POSE_RUN_TOL or ate > POSE_ATE_RATIO * before:
+        raise AssertionError(f"pose float64 run: epochs {card_epochs} vs {cpu_epochs}, "
+                             f"{run_err:.3e} from the CPU's (tol {POSE_RUN_TOL}), ATE {ate:.4f} "
+                             f"against {before:.4f} perturbed")
+    log(f"[pose] 8-frame problem: first chunk on the card vs the CPU losses {loss_err:.3e} "
+        f"(rtol {POSE_LOSS_RTOL}), params {param_err:.3e} (tol {POSE_CHUNK_TOL}), frame 0 "
+        f"pinned; float64 two steps + fine-tune {sum(card_epochs)} epochs "
+        f"({len(card_epochs)} chunks) as on the CPU, {run_err:.3e} from it (tol "
+        f"{POSE_RUN_TOL}), ATE RMSE {ate:.6f} m against {before:.6f} perturbed")
+    return dict(chunk_loss_rel_err=loss_err, chunk_param_err=param_err, f64_run_err=run_err,
+                f64_epochs=sum(card_epochs), f64_ate_m=ate, f64_perturbed_ate_m=before)
+
+
+def pose_user_problem(seed: int = SEED):
+    """pose-optimise's inputs: the ground truth, the feature set and the
+    perturbed trajectory."""
+    from hive_tpu_torch import pose_optimisation as P
+    from hive_tpu_torch.geometric import pose_vec2mat
+
+    rng = np.random.default_rng(seed)
+    s = np.linspace(0.0, 1.0, POSE_FRAMES)
+    yaw = np.radians(15.0) * np.sin(2 * np.pi * s)
+    pitch = np.radians(5.0) * np.sin(4 * np.pi * s + 0.3)
+    q = quat_product(quat_about(np.array([0.0, 1.0, 0.0]), yaw),
+                     quat_about(np.array([1.0, 0.0, 0.0]), pitch))
+    centres = np.stack([1.5 * s, 0.1 * np.sin(6 * np.pi * s), 0.2 * np.sin(2 * np.pi * s)], -1)
+    t = np.stack([-pose_vec2mat(np.r_[qi, 0, 0, 0])[:3, :3] @ c for qi, c in zip(q, centres)])
+    gt = np.hstack([q, t])
+    K = np.array([[POSE_FOCAL, 0, (POSE_W - 1) / 2], [0, POSE_FOCAL, (POSE_H - 1) / 2],
+                  [0, 0, 1.0]])
+    landmarks = rng.uniform([-2.5, -1.6, 2.5], [4.0, 1.6, 5.0], (POSE_LANDMARKS, 3))
+    pairs = P.sample_frame_pairs(P.FrameSamplingMode.Hierarchical, POSE_FRAMES)
+    features = synthetic_features(gt, K, (POSE_W, POSE_H), landmarks, pairs, rng,
+                                  per_pair=POSE_PER_PAIR, noise_px=POSE_NOISE_PX)
+    # A drift, as odometry's: smooth (under the 1 m/s distance clip), zero at
+    # frame 0 (the pinned frame), POSE_PERTURB_M and POSE_PERTURB_DEG at its
+    # largest on each axis.
+    drift = np.stack([np.sin(np.pi * s * f + p) - np.sin(p) for f, p in
+                      zip(rng.uniform(0.5, 2.0, 6), rng.uniform(0, 2 * np.pi, 6))], -1)
+    drift /= np.abs(drift).max(axis=0)
+    perturbed = gt.copy()
+    perturbed[:, 4:] += POSE_PERTURB_M * drift[:, :3]
+    angles = np.radians(POSE_PERTURB_DEG) * drift[:, 3:]
+    for axis in range(3):
+        perturbed[:, :4] = quat_product(quat_about(np.eye(3)[axis], angles[:, axis]),
+                                        perturbed[:, :4])
+    return gt, K, features, pairs, perturbed
+
+
+def check_pose_user_chunk(device, features, perturbed) -> dict:
+    """pose-optimise's correspondences through the CPU test's chunk
+    configuration, on the card and on the CPU. Its first 25-epoch chunk in
+    float64, within POSE_LOSS_RTOL and POSE_CHUNK_TOL (in float32 the
+    chunk is not reproducible at this size: Adam turns the rounding noise
+    of the quaternions' radial gradients into steps of about lr, and the
+    CPU's own float32 chunk lands 4e-3 from its float64 one). Then, in
+    float32 at the perturbed start, the loss within POSE_LOSS_RTOL of the
+    CPU's float64 loss and each gradient no further from the CPU's float64
+    gradient than POSE_F32_GRAD_RATIO x the CPU's float32 gradient is (of
+    the largest entry), which holds the card's float32 scatter of 178k rows
+    in the backward."""
+    from hive_tpu_torch import pose_optimisation as P
+
+    start = {"q": perturbed[:, :4], "t": perturbed[:, 4:], "scale": np.zeros(0),
+             "shift": np.zeros(0)}
+    loss_err, param_err = compare_chunks("pose-optimise f64 chunk", start, *(
+        pose_chunk(d, features, start, (POSE_W, POSE_H), torch.float64)
+        for d in (device, "cpu")))
+
+    loss_fn = chunk_loss_fn((POSE_W, POSE_H))
+
+    def loss_and_grads(where, dtype):
+        feats, intrinsics = packed_on(features, where, dtype)
+        params = {k: torch.as_tensor(v, device=where).to(dtype) for k, v in start.items()}
+        loss, grads = P._loss_and_grads(loss_fn, params, feats, intrinsics)
+        return float(loss), {k: grads[k].double().cpu().numpy() for k in ("q", "t")}
+
+    (ref_loss, ref), (card_loss, card), (_, cpu) = (
+        loss_and_grads(where, dtype) for where, dtype in
+        (("cpu", torch.float64), (device, torch.float32), ("cpu", torch.float32)))
+    f32_loss_err = abs(card_loss - ref_loss) / abs(ref_loss)
+    grad_err = {k: float(np.abs(card[k] - ref[k]).max() / np.abs(ref[k]).max()) for k in ref}
+    cpu_grad_err = {k: float(np.abs(cpu[k] - ref[k]).max() / np.abs(ref[k]).max()) for k in ref}
+    if f32_loss_err > POSE_LOSS_RTOL or any(
+            grad_err[k] > POSE_F32_GRAD_RATIO * cpu_grad_err[k] for k in ref):
+        raise AssertionError(f"pose-optimise float32: loss {f32_loss_err:.3e} from the CPU's "
+                             f"float64 (rtol {POSE_LOSS_RTOL}), gradients {grad_err} against "
+                             f"the CPU's float32 {cpu_grad_err} (ratio {POSE_F32_GRAD_RATIO})")
+    log(f"[pose] pose-optimise first chunk in float64, card vs CPU: losses {loss_err:.3e} "
+        f"(rtol {POSE_LOSS_RTOL}), params {param_err:.3e} (tol {POSE_CHUNK_TOL}), frame 0 "
+        f"pinned; float32 loss {f32_loss_err:.3e} from the CPU's float64, gradients "
+        f"{grad_err} of the largest entry (the CPU's float32 {cpu_grad_err})")
+    return dict(f64_chunk_loss_rel_err=loss_err, f64_chunk_param_err=param_err,
+                f32_loss_rel_err=f32_loss_err, f32_grad_err=grad_err,
+                cpu_f32_grad_err=cpu_grad_err)
+
+
+def run_pose_optimise(device) -> dict:
+    """pose-optimise: PoseOptimiser's steps at the user's size with
+    OptimisationOptions() (PairWise3D, Global3D, the fine-tune; 4,000 epochs
+    a loop at most, 25 a chunk). Per loop: epochs, wall s, peak device
+    memory; then one 25-epoch chunk of the loop's configuration on its
+    result, profiled (device ms and kernels a epoch) and as a launch loop
+    (CUDA events). The trajectory must be finite; its ATE RMSE is logged
+    beside the perturbed input's."""
+    from hive_tpu_torch import pose_optimisation as P
+
+    start = time.perf_counter()
+    gt, K, features, pairs, perturbed = pose_user_problem()
+    setup_s = time.perf_counter() - start
+    parity = check_pose_user_chunk(device, features, perturbed)
+    loops = []
+
+    class MeasuredPoseOptimiser(P.PoseOptimiser):
+        def _optimisation_loop(self, feature_set, params, options, residual_type,
+                               smooth_trajectory=True):
+            epochs = []
+            real = P._run_epoch_chunk
+
+            def counting(*args, **kwargs):
+                epochs.append(kwargs["num_epochs"])
+                return real(*args, **kwargs)
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            begin = time.perf_counter()
+            with mock.patch.object(P, "_run_epoch_chunk", counting):
+                out = super()._optimisation_loop(feature_set, params, options, residual_type,
+                                                 smooth_trajectory)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - begin
+            peak = torch.cuda.max_memory_allocated()
+
+            feats, intrinsics = packed_on(feature_set, self.device)
+            loss_fn = P._make_loss_fn(residual_type, options.alignment_type, smooth_trajectory,
+                                      options.position_only, options.pose_t_reg,
+                                      options.pose_r_reg, options.l2_regularisation,
+                                      (POSE_W, POSE_H))
+            lr = torch.tensor(options.learning_rate, device=self.device)
+            clip = torch.tensor((options.clip_distance or 0.0) / self.dataset.fps,
+                                dtype=torch.float32, device=self.device)
+
+            def chunk():
+                return P._run_epoch_chunk(out, P.adam_init(out), feats, intrinsics, lr, clip,
+                                          loss_fn=loss_fn, num_epochs=25,
+                                          position_only=options.position_only,
+                                          use_clip=options.clip_distance is not None)
+
+            device_ms, kernels = device_profile(chunk, reps=2, warmup=1)
+            loop_ms = events_ms(chunk, reps=2, warmup=0)
+            loops.append(dict(correspondences=len(feature_set), epochs=sum(epochs),
+                              wall_s=wall, peak_bytes=int(peak),
+                              device_ms_per_epoch=device_ms / 25, kernels_per_epoch=kernels / 25,
+                              loop_ms_per_epoch=loop_ms / 25))
+            return out
+
+    optimiser = MeasuredPoseOptimiser(PoseDataset(perturbed, K, (POSE_W, POSE_H)), debug=False,
+                                      optimisation_options=P.OptimisationOptions(),
+                                      device=device)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    params = optimiser._optimise_pose(features, optimiser._init_params(perturbed), POSE_FRAMES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    result = optimiser._params_to_trajectory(params).values
+    ate, before = ate_rmse(gt, result), ate_rmse(gt, perturbed)
+    if not np.isfinite(result).all() or len(loops) != 4:
+        raise AssertionError(f"pose-optimise: {len(loops)} loops, finite "
+                             f"{np.isfinite(result).all()}")
+    names = ["PairWise3D pass 1", "PairWise3D pass 2", "Global3D", "fine-tune"]
+    for name, loop in zip(names, loops):
+        loop["step"] = name
+        log(f"[pose] {name}: {loop['correspondences']} correspondences, {loop['epochs']} "
+            f"epochs in {loop['wall_s']:.3f} s; a 25-epoch chunk: "
+            f"{loop['device_ms_per_epoch']:.6f} ms device and "
+            f"{loop['kernels_per_epoch']:.1f} kernels an epoch, "
+            f"{loop['loop_ms_per_epoch']:.6f} ms launch loop an epoch; peak device memory "
+            f"{loop['peak_bytes']} B")
+    log(f"[pose] pose-optimise: {POSE_FRAMES} frames, {len(pairs)} pairs, {len(features)} "
+        f"correspondences (made in {setup_s:.1f} s), {len(loops)} loops, "
+        f"{sum(loop['epochs'] for loop in loops)} epochs in {wall:.3f} s; ATE RMSE "
+        f"{ate:.6f} m from {before:.6f} m perturbed")
+    return dict(frames=POSE_FRAMES, pairs=len(pairs), correspondences=len(features),
+                wall_s=wall, ate_m=ate, perturbed_ate_m=before, loops=loops, parity=parity)
+
+
+def run_fts_conversion(device, launches, gt_profiling, tmp: str) -> dict:
+    """tum-fts: a user's run with ``--fts_num_epochs FTS_EPOCHS`` on phase
+    7's TUM folder with a jittered ground truth, nothing patched. Checks the
+    launch counts, both meshes, the stages run one after the other; then
+    the foreground optimiser on the converted dataset on the card (timed)
+    against the CPU port's within FTS_TOL, and moving the trajectory by
+    more than FTS_MIN_MOVE_TOLS x FTS_TOL."""
+    from hive_tpu_torch.io import HiveDataset
+    from hive_tpu_torch.pose_optimisation import ForegroundPoseOptimiser
+
+    tum, out = os.path.join(tmp, "tum_jittered"), os.path.join(tmp, "smoothed")
+    rng = np.random.default_rng(SEED)
+    q = np.hstack([FTS_JITTER_ROT * rng.normal(size=(TUM_FRAMES, 3)), np.ones((TUM_FRAMES, 1))])
+    copy_tum_with_poses(os.path.join(tmp, "tum"), tum, np.hstack([
+        q / np.linalg.norm(q, axis=1, keepdims=True),
+        FTS_JITTER_M * rng.normal(size=(TUM_FRAMES, 3))]))
+    argv = ["hive_tpu_torch", "--dataset_path", tum, "--output_path", out, "--fts_num_epochs",
+            str(FTS_EPOCHS), "--key_frame_threshold", "1.0", "--webxr_path",
+            os.path.join(tmp, "webxr_fts"), "--log_file", os.path.join(tmp, "pipeline_fts.log")]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with mock.patch.object(sys, "argv", argv):
+        runpy.run_module("hive_tpu_torch", run_name="__main__", alter_sys=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches["fts"] = main_launch_counts()
+    check_launches("the --fts_num_epochs run", launches["fts"], TUM_FRAMES)
+    with open(os.path.join(out, "profiling.json")) as f:
+        profiling = json.load(f)
+    if profiling["timing"]["stages_overlapped"] is not False:
+        raise AssertionError("the --fts_num_epochs run overlapped its stages")
+    check_meshes_finite(out)
+
+    dataset = HiveDataset(out)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    card = ForegroundPoseOptimiser(dataset, num_epochs=FTS_EPOCHS, device=device).run().values
+    torch.cuda.synchronize()
+    optimiser_s = time.perf_counter() - start
+    cpu = ForegroundPoseOptimiser(dataset, num_epochs=FTS_EPOCHS, device="cpu").run().values
+    err = float(np.abs(card - cpu).max())
+    if err > FTS_TOL:
+        raise AssertionError(f"smoothed trajectory {err:.3e} from the CPU port's "
+                             f"(tol {FTS_TOL})")
+    moved = float(np.abs(card - dataset.camera_trajectory.values).max())
+    if moved <= FTS_MIN_MOVE_TOLS * FTS_TOL:
+        raise AssertionError(f"the smoothing moved the trajectory by {moved:.3e}, not more "
+                             f"than {FTS_MIN_MOVE_TOLS} x {FTS_TOL}")
+    fg = profiling["timing"]["foreground_reconstruction"]["total"]
+    log(f"[fts] {TUM_FRAMES} frames meshed with --fts_num_epochs {FTS_EPOCHS} in {wall:.1f} s, "
+        f"{profiling['elapsed_time']['per_frame']:.4f} s/frame; stages_overlapped false; "
+        f"launches {launches['fts']}; foreground_reconstruction {fg:.4f} s (phase 7's "
+        f"{gt_profiling['timing']['foreground_reconstruction']['total']:.4f}); the optimiser "
+        f"alone on the card {optimiser_s:.3f} s; smoothed trajectory {err:.3e} from the CPU "
+        f"port's (tol {FTS_TOL}), {moved:.3e} from the input")
+    return dict(wall_s=wall, per_frame_s=profiling["elapsed_time"]["per_frame"],
+                foreground_reconstruction_s=fg, optimiser_s=optimiser_s, cpu_err=err,
+                moved=moved)
+
+
+def check_meshes_finite(out: str) -> None:
+    from hive_tpu_torch.meshing.gltf import load_glb
+
+    foreground = load_glb(os.path.join(out, "mesh", "fg.glb"))
+    background = next(iter(load_glb(os.path.join(out, "mesh", "bg.glb")).geometry.values()))
+    for name in foreground.node_names:
+        if not np.isfinite(foreground.geometry[name].vertices).all():
+            raise AssertionError(f"{out} fg.glb frame {name}: non-finite vertices")
+    if len(background.vertices) == 0 or not np.isfinite(background.vertices).all():
+        raise AssertionError(f"{out} bg.glb holds no (finite) vertices")
+
+
+def run_colmap_pose_conversion(device, launches, gt_profiling, tmp: str) -> dict:
+    """tum-colmap-pose: a user's run with ``--estimate_pose`` on phase 7's
+    TUM folder, its camera moving COLMAP_STEP_M along x between frames, and
+    ``--binary_path`` a stand-in ``colmap`` this phase writes (a sparse
+    model of the staged frames from the TUM ground truth, in units of
+    COLMAP_SCALE metres, its points on the wall), nothing else patched.
+    Checks the launch counts, both meshes, the trajectory back at metric
+    scale: each pose and each step between frames within COLMAP_POSE_TOL_M
+    of the ground truth's (a missing scale would leave COLMAP_SCALE x
+    COLMAP_STEP_M steps); and recomputes the scale the adaptor recovered."""
+    from hive_tpu_torch.dataset_adaptors import TUMAdaptor
+    from hive_tpu_torch.geometric import Trajectory
+    from hive_tpu_torch.io import (COLMAPProcessor, HiveDataset, ImageFolderDataset,
+                                   make_depth_map_transform)
+
+    tum, out = os.path.join(tmp, "tum_moving"), os.path.join(tmp, "posed")
+    copy_tum_with_poses(os.path.join(tmp, "tum"), tum, np.array(
+        [[0, 0, 0, 1, COLMAP_STEP_M * i, 0, 0] for i in range(TUM_FRAMES)], dtype=np.float64))
+    truth = TUMAdaptor(tum, os.path.join(tmp, "unused")).camera_trajectory.values[:TUM_FRAMES]
+    frame_step = 15  # the CLI's default
+    stand_in = write_colmap_stand_in(os.path.join(tmp, "colmap_bin"), truth,
+                                     TUMAdaptor.intrinsic_matrix, (TUM_W, TUM_H), depth=2.0,
+                                     frame_step=frame_step)
+    argv = ["hive_tpu_torch", "--dataset_path", tum, "--output_path", out, "--estimate_pose",
+            "--binary_path", stand_in, "--key_frame_threshold", "1.0", "--webxr_path",
+            os.path.join(tmp, "webxr_pose"), "--log_file", os.path.join(tmp, "pipeline_pose.log")]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with mock.patch.object(sys, "argv", argv):
+        runpy.run_module("hive_tpu_torch", run_name="__main__", alter_sys=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches["colmap_pose"] = main_launch_counts()
+    check_launches("the --estimate_pose run", launches["colmap_pose"], TUM_FRAMES)
+    check_meshes_finite(out)
+    with open(os.path.join(out, "profiling.json")) as f:
+        profiling = json.load(f)
+
+    dataset = HiveDataset(out)
+    if not dataset.metadata.estimate_pose:
+        raise AssertionError("metadata.json does not say estimate_pose")
+    want = Trajectory(truth).normalise().values
+    got = dataset.camera_trajectory.values
+    err = float(np.abs(got - want).max())
+    steps = np.linalg.norm(np.diff(got[:, 4:], axis=0), axis=1)
+    step_err = float(np.abs(steps - np.linalg.norm(np.diff(want[:, 4:], axis=0), axis=1)).max())
+    workspace = os.path.join(out, "debug", "colmap", "workspace")
+    processor = COLMAPProcessor(os.path.join(out, "debug", "colmap", "rgb"), workspace)
+    K, poses = processor.load_camera_params()
+    sparse = processor.get_sparse_depth_maps(K, poses)
+    depth = ImageFolderDataset(dataset.path_to_depth_maps, transform=make_depth_map_transform(
+        HiveDataset.depth_scaling_factor, dataset.metadata.max_depth))
+    subset = TUMAdaptor._get_frame_subset(TUM_FRAMES, frame_step)[1]
+    est = np.stack([depth[i] for i in subset])
+    both = (sparse > 0) & (est > 0)
+    scale = float(np.median(est[both] / sparse[both]))
+    if err > COLMAP_POSE_TOL_M or step_err > COLMAP_POSE_TOL_M \
+            or abs(scale * COLMAP_SCALE - 1) > 0.01 \
+            or not np.allclose(np.loadtxt(os.path.join(out, "camera_matrix.txt")), K):
+        raise AssertionError(f"--estimate_pose: trajectory {err:.3e} m from the ground truth, "
+                             f"its steps {step_err:.3e} m from the truth's (tol "
+                             f"{COLMAP_POSE_TOL_M}), scale {scale:.6f} (want "
+                             f"{1 / COLMAP_SCALE:.6f})")
+    stage = profiling["timing"]["load_dataset"]["get_camera_parameters"]
+    log(f"[colmap] {TUM_FRAMES} frames converted with --estimate_pose (stand-in colmap, "
+        f"frames {subset} staged) and meshed in {wall:.1f} s, "
+        f"{profiling['elapsed_time']['per_frame']:.4f} s/frame; get_camera_parameters "
+        f"{stage:.4f} s (phase 7's "
+        f"{gt_profiling['timing']['load_dataset']['get_camera_parameters']:.4f}); metric "
+        f"scale {scale:.6f} ({int(both.sum())} sparse depths; 1 / {COLMAP_SCALE} = "
+        f"{1 / COLMAP_SCALE:.6f}); trajectory {err:.3e} m from the ground truth, steps of "
+        f"{steps.min():.6f}-{steps.max():.6f} m ({step_err:.3e} from the truth's "
+        f"{COLMAP_STEP_M} m); launches {launches['colmap_pose']}")
+    return dict(wall_s=wall, per_frame_s=profiling["elapsed_time"]["per_frame"],
+                get_camera_parameters_s=stage, scale=scale, trajectory_err_m=err,
+                step_err_m=step_err)
+
+
+# ---------------------------------------------------------------------------
 # The measurement entry points' kernels.
 # ---------------------------------------------------------------------------
 
@@ -2584,6 +3269,9 @@ def main() -> int:
         segmented_run = run_segmented_conversion(device, launches, conversion_profiling, tmp)
         lama_results = check_lama(device, os.path.join(tmp, "tum"))
         inpainted_run = run_inpainting_conversion(device, launches, conversion_profiling, tmp)
+        pose_results = {"small": check_pose_small(device), "user": run_pose_optimise(device)}
+        fts_run = run_fts_conversion(device, launches, conversion_profiling, tmp)
+        colmap_run = run_colmap_pose_conversion(device, launches, conversion_profiling, tmp)
     probes = {"band_sampler": sampler,
               "tile_gather": check_tile_gather(device),
               "patch_gather": check_patch_gather(device),
@@ -2608,6 +3296,7 @@ def main() -> int:
             launches_estimated_depth=launches["estimated_depth"][name],
             launches_segmented=launches["segmented"][name],
             launches_inpainted=launches["inpainted"][name],
+            launches_fts=launches["fts"][name], launches_colmap_pose=launches["colmap_pose"][name],
             launches_bench=launches["bench"][name], exact=True,
             calls_checked=result["calls_checked"], max_abs_err=result["max_abs_err"],
             ms=result["ms"], kernel_ms=result["ms"], plain_ms=result["plain_ms"],
@@ -2641,6 +3330,8 @@ def main() -> int:
     log("[dpt] summary " + json.dumps({"model": dpt_results, "estimate_depth_run": depth_run}))
     log("[segment] summary " + json.dumps({"models": segmenters, "maskrcnn_run": segmented_run}))
     log("[inpaint] summary " + json.dumps({"lama": lama_results, "inpainting_run": inpainted_run}))
+    log("[pose] summary " + json.dumps({"pose_optimise": pose_results, "fts_run": fts_run,
+                                        "colmap_pose_run": colmap_run}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -15,10 +15,15 @@ with ``--estimate_depth`` the depth maps come from DPT-Hybrid on the card
 ``--inpainting_mode`` the frames are inpainted behind the dilated masks
 (``DatasetAdaptor._inpaint_frame_data``, counterpart of :392-464): TELEA on
 the host, LaMa on the card; those frames are written as the reference's
-``cv2.imwrite`` writes them (JPEG at quality 95, PNG).
+``cv2.imwrite`` writes them (JPEG at quality 95, PNG). With
+``--estimate_pose`` a COLMAP binary estimates the intrinsics and trajectory
+on the frames (``_estimate_camera_parameters``, counterpart of :237-296),
+scaled to metres by the median ratio of the depth maps to COLMAP's
+(``_get_scaled_colmap_camera_params``, :331-390).
 
 Not ported yet, each refused with its ROADMAP item: StrayScanner and plain
-video inputs (Queue 1 item 9b) and ``--estimate_pose`` (item 12).
+video inputs (Queue 1 item 9b), and ``--estimate_pose`` without a COLMAP
+binary, which ``hive_tpu`` runs as PnP odometry with OpenCV (item 12b).
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import shutil
 from abc import ABC
 from os.path import join as pjoin
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -37,8 +42,9 @@ from hive_tpu_torch.custom_types import File
 from hive_tpu_torch.geometric import Trajectory
 from hive_tpu_torch.image_codecs import CV2_JPEG_QUALITY, write_image
 from hive_tpu_torch.image_processing import TELEA_RADIUS, dilate_ids, inpaint_telea
-from hive_tpu_torch.io import (Dataset, DatasetMetadata, HiveDataset, ImageFolderDataset,
-                               InvalidDatasetFormatError, create_masks, load_image)
+from hive_tpu_torch.io import (COLMAPProcessor, Dataset, DatasetMetadata, HiveDataset,
+                               ImageFolderDataset, InvalidDatasetFormatError, create_masks,
+                               load_image, make_depth_map_transform)
 from hive_tpu_torch.models.dpt import DPTDepthEstimator
 from hive_tpu_torch.models.lama import lama_inpaint_folder
 from hive_tpu_torch.options import (BackgroundMeshOptions, COLMAPOptions, InpaintingMode,
@@ -135,8 +141,13 @@ class DatasetAdaptor(Dataset, ABC):
         :param device: where the instance masks, estimated depth maps and
             LaMa's inpainting are computed; default ``cuda:0``.
         """
-        if estimate_pose:
-            raise not_ported("Pose estimation (--estimate_pose)", "Queue 1 item 12")
+        if estimate_pose and not static_camera \
+                and not os.path.isfile(self.colmap_options.binary_path) \
+                and (no_cache or self._try_get_cached_dataset(estimate_pose,
+                                                              estimate_depth) is None):
+            raise not_ported(f"Pose estimation without COLMAP (PnP odometry; no COLMAP "
+                             f"binary at {self.colmap_options.binary_path})",
+                             "Queue 1 item 12b")
 
         if no_cache and os.path.exists(self.output_path):
             logging.warning(f"`no_cache` requested — deleting the cached conversion at "
@@ -184,6 +195,10 @@ class DatasetAdaptor(Dataset, ABC):
                 camera_matrix = camera.scale((metadata.height, metadata.width)).matrix
                 camera_trajectory = Trajectory(
                     np.tile([0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0], (metadata.num_frames, 1)))
+            elif estimate_pose:
+                debug_folder = pjoin(str(self.output_path), "debug")
+                camera_matrix, camera_trajectory = self._estimate_camera_parameters(
+                    debug_folder, depth_folder, metadata, device=device)
             else:
                 camera_matrix = self.get_camera_matrix()
                 camera_trajectory = self.get_camera_trajectory()
@@ -218,6 +233,126 @@ class DatasetAdaptor(Dataset, ABC):
             return dataset
 
         return None
+
+    @staticmethod
+    def _get_frame_subset(num_frames: int, frame_step: int):
+        """All frame indices + the frame_step subsample (always keeping the
+        last frame so interpolation has both endpoints)."""
+        frames = list(range(num_frames))
+        subset = frames[::frame_step]
+
+        if subset[-1] != frames[-1]:
+            subset.append(frames[-1])
+
+        return frames, subset
+
+    # -- pose estimation ------------------------------------------------------
+    def _estimate_camera_parameters(self, output_folder: str, output_depth_folder: str,
+                                    metadata: DatasetMetadata,
+                                    device=None) -> Tuple[np.ndarray, Trajectory]:
+        """Estimate intrinsics + trajectory with COLMAP on a frame subset,
+        then scale to metres and re-densify.
+
+        :param device: where COLMAP's exclusion masks are segmented; default
+            ``cuda:0``.
+        """
+        if os.path.exists(output_folder):
+            shutil.rmtree(output_folder)
+
+        colmap_folder = create_folder(output_folder, "colmap")
+        colmap_rgb_path = create_folder(colmap_folder, "rgb")
+        colmap_workspace_path = create_folder(colmap_folder, "workspace")
+
+        frames, frames_subset = self._get_frame_subset(self.num_frames, self.frame_step)
+
+        logging.info("Staging RGB frames for the COLMAP run...")
+        self.copy_frames(colmap_rgb_path, self.num_frames, file_extension="jpg")
+
+        if self.frame_step > 1:
+            # Keep only the subset, renumbered densely for COLMAP.
+            for index in set(frames).difference(frames_subset):
+                os.remove(pjoin(colmap_rgb_path,
+                                HiveDataset.index_to_filename(index, "jpg")))
+
+            for dst_index, src_index in enumerate(frames_subset):
+                shutil.move(
+                    pjoin(colmap_rgb_path,
+                          HiveDataset.index_to_filename(src_index, "jpg")),
+                    pjoin(colmap_rgb_path,
+                          HiveDataset.index_to_filename(dst_index, "jpg")))
+
+        logging.info("Starting the COLMAP reconstruction (this can take a long time)...")
+        processor = COLMAPProcessor(image_path=colmap_rgb_path,
+                                    workspace_path=colmap_workspace_path,
+                                    colmap_options=self.colmap_options)
+        processor.run(device=device)
+
+        camera_matrix, camera_poses_scaled = self._get_scaled_colmap_camera_params(
+            processor, output_depth_folder, metadata, frames_subset)
+
+        if self.frame_step > 1:
+            pose_mapping = {frame_index: pose for frame_index, pose
+                            in zip(frames_subset, camera_poses_scaled)}
+            camera_poses_scaled = Trajectory.create_by_interpolating(
+                pose_mapping, frame_count=self.num_frames)
+
+        camera_poses_scaled = Trajectory(camera_poses_scaled[:self.num_frames])
+        return camera_matrix, camera_poses_scaled.normalise()
+
+    def _get_scaled_colmap_camera_params(self, processor: COLMAPProcessor,
+                                         output_depth_folder: str,
+                                         metadata: DatasetMetadata,
+                                         frames_subset: List[int]) -> Tuple[np.ndarray, Trajectory]:
+        """Scale COLMAP's arbitrary-unit poses to metric using the median
+        ratio of the dataset's depth to COLMAP's."""
+        logging.info("Scaling COLMAP poses to metric depth...")
+        camera_matrix, camera_poses = processor.load_camera_params()
+
+        if processor.colmap_options.dense:
+            colmap_depth = processor.get_dense_depth_maps(
+                resize_to=(metadata.height, metadata.width))
+        else:
+            colmap_depth = processor.get_sparse_depth_maps(camera_matrix, camera_poses)
+
+        transform = make_depth_map_transform(HiveDataset.depth_scaling_factor,
+                                             metadata.max_depth)
+        depth_dataset = ImageFolderDataset(output_depth_folder, transform=transform)
+        subset = [i for i in frames_subset if i < len(depth_dataset)]
+        est_depth = np.asarray(tqdm_imap(depth_dataset.__getitem__, subset))
+        if len(colmap_depth) != len(est_depth):
+            # Misaligned frames would scale every pose wrongly.
+            raise ValueError(
+                f"COLMAP produced {len(colmap_depth)} dense depth maps but "
+                f"{len(est_depth)} frames were estimated — cannot pair "
+                f"frames for metric pose scaling")
+
+        nonzero = (colmap_depth > 0.0) & (est_depth > 0.0)
+
+        if not nonzero.any():
+            logging.warning("No pixel has both COLMAP and estimated depth — "
+                            "cannot recover metric scale; keeping COLMAP's "
+                            "arbitrary scale (factor 1.0).")
+            scaling_factor = 1.0
+        else:
+            scaling_factor = float(
+                np.median(est_depth[nonzero] / colmap_depth[nonzero]))
+        logging.info(f"Depth scale: {scaling_factor:.4f}")
+
+        scaled = camera_poses.copy()
+        scaled.values[:, 4:] *= scaling_factor
+
+        if processor.colmap_options.dense:
+            colmap_depth_output = create_folder(Path(output_depth_folder).parent,
+                                                "colmap_depth", exist_ok=True)
+
+            def save_depth(args):
+                index, depth_map = args
+                write_image(pjoin(colmap_depth_output, HiveDataset.index_to_filename(index)),
+                            (1000 * scaling_factor * depth_map).astype(np.uint16))
+
+            tqdm_imap(save_depth, list(zip(subset, colmap_depth)))
+
+        return camera_matrix, scaled
 
     def _inpaint_frame_data(self, mode: InpaintingMode, device=None):
         """Inpaint RGB frames and depth maps behind the dilated instance

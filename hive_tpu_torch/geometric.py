@@ -3,7 +3,7 @@
 Capability parity with reference hive/geometric.py (pose_vec2mat:34,
 pose_mat2vec:52, get_pose_components:66, add/subtract_pose:81/91,
 point_cloud_from_depth:107, world2image:155, image2world:183, Quaternion:209,
-Trajectory:302, CameraMatrix:652), re-designed so that:
+Trajectory:302 with its plot, CameraMatrix:652), re-designed so that:
 
 * small host-side helpers stay NumPy (no device dispatch overhead for tiny
   point sets used during meshing);
@@ -474,6 +474,27 @@ class Trajectory:
             values[i] = poses[i]
 
         return Trajectory(values)
+
+    # -- plotting -----------------------------------------------------------
+    def plot(self, output_path: str):
+        """Save a plot of the camera positions on the XY and XZ planes."""
+        from matplotlib import pyplot as plt
+
+        positions = self.normalise().positions
+        _, (ax1, ax2) = plt.subplots(1, 2, figsize=(12.8, 4.8))
+        self._plot_positions(positions, ax1, "y")
+        self._plot_positions(positions, ax2, "z")
+        plt.tight_layout()
+        plt.savefig(output_path, dpi=90)
+        plt.close()
+
+    @staticmethod
+    def _plot_positions(positions: np.ndarray, axis, secondary: str):
+        idx = {"y": 1, "z": 2}[secondary]
+        axis.plot(positions[:, 0], positions[:, idx], "-", color="black")
+        axis.set_xlabel("x [m]")
+        axis.set_ylabel(f"{secondary} [m]")
+        axis.set_title(f"Trajectory, X{secondary.upper()} plane")
 
 
 # ---------------------------------------------------------------------------

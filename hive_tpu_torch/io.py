@@ -4,7 +4,9 @@ Counterpart of ``hive_tpu/io.py``: the raw float32 codec (:56, :81),
 ``ImageFolderDataset`` (:111), ``create_masks`` (:177), ``DatasetMetadata``
 (:626), ``make_depth_map_transform`` (:733), the ``HiveDataset`` read path
 (:746) with ``create_masked_depth`` (:936) and ``select_key_frames`` (:986),
-and ``temporary_trajectory``. ``COLMAPProcessor`` comes with a later slice.
+``temporary_trajectory``, and ``COLMAPProcessor`` (:238-525), which runs a
+``colmap`` binary and reads its model with
+:mod:`hive_tpu_torch.data.colmap_model`.
 
 The port depends on neither Pillow nor OpenCV. PNGs (depth maps, masks,
 the frames of other formats) are decoded here with ``zlib`` and ``struct``:
@@ -23,6 +25,7 @@ import json
 import logging
 import os
 import struct
+import subprocess
 import zlib
 from os.path import join as pjoin
 from pathlib import Path
@@ -31,8 +34,9 @@ from typing import Callable, IO, Iterator, List, Optional, Tuple, Union
 import numpy as np
 
 from hive_tpu_torch.custom_types import File
+from hive_tpu_torch.data import colmap_model
 from hive_tpu_torch.geometric import (Trajectory, get_pose_components, point_cloud_from_depth,
-                                      pose_vec2mat, world2image)
+                                      pose_mat2vec, pose_vec2mat, world2image)
 from hive_tpu_torch.image_codecs import decode_jpeg, encode_png
 from hive_tpu_torch.image_processing import dilate_mask
 from hive_tpu_torch.native import png_unfilter
@@ -363,6 +367,286 @@ def _iter_batches(source, batch_size):
             batch = []
     if batch:
         yield np.stack(batch)
+
+
+# ---------------------------------------------------------------------------
+# COLMAP: running the binary and reading its models.
+# ---------------------------------------------------------------------------
+
+def resize_nearest_exact(image: np.ndarray, target_hw: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(image, (w, h), interpolation=cv2.INTER_NEAREST_EXACT)``
+    in numpy, index for index as OpenCV 5.0.0 picks them: along each axis the
+    source coordinate of output ``x`` is ``s / 2`` plus ``x`` additions of
+    ``s = size / out``, accumulated in float64 (rounding included), then
+    floored and clamped to the last row or column."""
+
+    def offsets(size: int, out: int) -> np.ndarray:
+        step = size / out
+        coords = np.cumsum(np.concatenate([[step / 2], np.full(out - 1, step)]))
+        return np.minimum(np.floor(coords).astype(np.int64), size - 1)
+
+    height, width = target_hw
+    return image[offsets(image.shape[0], height)[:, None], offsets(image.shape[1], width)]
+
+
+# The camera whose frames are read from a model: COLMAP numbers cameras from 1,
+# and by default every frame shares one (``COLMAPOptions.is_single_camera``).
+COLMAP_CAMERA_ID = 1
+
+
+class COLMAPProcessor:
+    """Runs COLMAP (an external binary, optional) and reads its sparse and
+    dense models.
+
+    The reading path (:meth:`load_camera_params`, :meth:`get_sparse_depth_maps`,
+    :meth:`get_dense_depth_maps`) has no external dependency.
+    """
+
+    def __init__(self, image_path: File, workspace_path: File,
+                 colmap_options: COLMAPOptions = COLMAPOptions()):
+        self.image_path = str(image_path)
+        self.workspace_path = str(workspace_path)
+        self.colmap_options = colmap_options
+        self._model_cache = None
+
+    @property
+    def mask_path(self) -> str:
+        return pjoin(self.workspace_path, "masks")
+
+    @property
+    def sparse_path(self) -> str:
+        return pjoin(self.workspace_path, "sparse")
+
+    @property
+    def dense_path(self) -> str:
+        return pjoin(self.workspace_path, "dense")
+
+    @property
+    def probably_has_results(self) -> bool:
+        recon_result_path = pjoin(self.sparse_path, "0")
+        min_files_for_recon = 3
+
+        return (os.path.isdir(self.sparse_path) and len(os.listdir(self.sparse_path)) > 0
+                and os.path.isdir(recon_result_path)
+                and len(os.listdir(recon_result_path)) >= min_files_for_recon)
+
+    def run(self, device=None):
+        """Run ``colmap automatic_reconstructor`` on the image folder, with
+        exclusion masks of the moving objects.
+
+        :param device: where the exclusion masks are segmented, when the
+            mask folder is empty; default ``cuda:0``.
+        """
+        os.makedirs(self.workspace_path, exist_ok=True)
+        os.makedirs(self.mask_path, exist_ok=True)
+
+        if len(os.listdir(self.mask_path)) == 0:
+            logging.info(f"No masks present under {self.mask_path}.")
+            logging.info("Generating COLMAP exclusion masks...")
+            create_masks(ImageFolderDataset(self.image_path), self.mask_path, for_colmap=True,
+                         device=device)
+        else:
+            logging.info(f"Using {len(os.listdir(self.mask_path))} existing masks from "
+                         f"{self.mask_path}.")
+
+        logging.info("Running COLMAP, this may take a while...")
+        command = self.get_command()
+
+        with subprocess.Popen(command, stdout=subprocess.PIPE, bufsize=1,
+                              universal_newlines=True) as p:
+            for line in p.stdout:
+                logging.debug(line.rstrip("\n"))
+
+        if (return_code := p.wait()) != 0:
+            raise RuntimeError(f"COLMAP failed (exit status {return_code}).")
+
+    def get_command(self) -> List[str]:
+        """Build the ``colmap automatic_reconstructor`` command."""
+        options = self.colmap_options
+
+        assert os.path.isfile(options.binary_path), \
+            f"No COLMAP executable at {options.binary_path}."
+        assert os.path.isdir(self.workspace_path), \
+            f"Could not open workspace path: {self.workspace_path}."
+        assert os.path.isdir(self.image_path), \
+            f"Could not open image folder: {self.image_path}."
+
+        command = [options.binary_path, "automatic_reconstructor",
+                   "--workspace_path", self.workspace_path,
+                   "--image_path", self.image_path,
+                   "--vocab_tree_path", options.vocab_path,
+                   "--single_camera", 1 if options.is_single_camera else 0,
+                   "--single_camera_per_folder", 1 if options.single_camera_per_folder else 0,
+                   "--dense", 1 if options.dense else 0,
+                   "--quality", options.quality]
+
+        assert os.path.isdir(self.mask_path), f"Mask folder {self.mask_path} is not a directory."
+        command += ["--mask_path", self.mask_path]
+
+        return list(map(str, command))
+
+    def _load_model(self):
+        models = sorted(item for item in os.listdir(self.sparse_path)
+                        if os.path.isdir(pjoin(self.sparse_path, item)))
+
+        if len(models) != 1:
+            raise RuntimeError(
+                f"COLMAP produced {len(models)} sub-models instead of one, meaning the "
+                f"camera trajectory could not be estimated for the entire video. This may be due "
+                f"to COLMAP using a bad random initial guess of the camera parameters and can "
+                f"sometimes be fixed by running the program again, or by increasing the quality "
+                f"setting (e.g. `--quality medium`). Otherwise, the video likely lacks the camera "
+                f"movement COLMAP needs.")
+
+        sparse_recon_path = pjoin(self.sparse_path, models[0])
+
+        # Parsed once per processor: load_camera_params and
+        # get_sparse_depth_maps both run during one conversion.
+        if self._model_cache is None or self._model_cache[0] != sparse_recon_path:
+            logging.debug(f"Loading the sparse COLMAP model at {sparse_recon_path}...")
+            self._model_cache = (sparse_recon_path,
+                                 colmap_model.read_model(sparse_recon_path))
+
+        return self._model_cache[1]
+
+    def load_camera_params(self) -> Tuple[np.ndarray, Trajectory]:
+        """Load intrinsics + camera trajectory (COLMAP's world-to-camera
+        poses as they are) from the sparse model.
+
+        :return: ((3, 3) intrinsics, (N, 7) trajectory — scalar-last
+            quaternion + translation, missing frames slerp-interpolated).
+        """
+        cameras, images, _ = self._load_model()
+
+        camera = cameras[COLMAP_CAMERA_ID]
+        params = camera.params
+        # SIMPLE_* models are (f, cx, cy, ...); PINHOLE and the OPENCV family
+        # (fx, fy, cx, cy, ...).
+        model = getattr(camera, "model", "SIMPLE_RADIAL")
+        if model.startswith("SIMPLE_") or model in ("RADIAL", "RADIAL_FISHEYE"):
+            fx = fy = params[0]
+            cx, cy = params[1], params[2]
+        elif model in ("PINHOLE", "OPENCV", "OPENCV_FISHEYE", "FULL_OPENCV",
+                       "FOV", "THIN_PRISM_FISHEYE"):
+            fx, fy, cx, cy = params[0], params[1], params[2], params[3]
+        else:
+            raise NotImplementedError(
+                f"COLMAP camera model {model!r} is not supported")
+
+        intrinsic = np.eye(3)
+        intrinsic[0, 0] = fx
+        intrinsic[1, 1] = fy
+        intrinsic[0, 2] = cx
+        intrinsic[1, 2] = cy
+
+        extrinsic = {}
+
+        for image in images.values():
+            if image.camera_id != COLMAP_CAMERA_ID:
+                continue
+
+            M = np.eye(4)
+            M[:3, :3] = image.rotation_matrix()
+            M[:3, 3] = np.asarray(image.tvec).reshape(3)
+            extrinsic[self._get_index_from_image(image)] = pose_mat2vec(M)
+
+        frame_count = self._get_frame_count()
+
+        if len(extrinsic) < frame_count:
+            logging.info(f"COLMAP registered {len(extrinsic)} of {frame_count} frames; "
+                         f"filling the gaps by interpolation.")
+            trajectory = Trajectory.create_by_interpolating(extrinsic, frame_count=frame_count)
+        else:
+            trajectory = Trajectory(
+                np.asarray([extrinsic[i] for i in sorted(extrinsic)]))
+
+        return intrinsic, trajectory
+
+    def _get_frame_count(self) -> int:
+        files = sorted(os.listdir(self.image_path))
+
+        if os.path.isdir(pjoin(self.image_path, files[0])):
+            files = sorted(os.listdir(pjoin(self.image_path, files[0])))
+
+        return max(self._get_index_from_filename(name) for name in files) + 1
+
+    @staticmethod
+    def _get_index_from_filename(filename: str) -> int:
+        return int(Path(filename).stem)
+
+    def _get_index_from_image(self, image) -> int:
+        return self._get_index_from_filename(image.name)
+
+    def get_sparse_depth_maps(self, camera_matrix: np.ndarray,
+                              camera_poses: Trajectory) -> np.ndarray:
+        """Splat the sparse 3D points into per-frame depth maps."""
+        _, images, points3d = self._load_model()
+        K = camera_matrix.copy()
+        poses_homogeneous = camera_poses.to_homogenous_transforms()
+
+        first_image = next(iter(images.values()))
+        source_shape = load_image(pjoin(self.image_path, first_image.name)).shape[:2]
+
+        depth_maps = np.zeros((len(camera_poses), *source_shape), dtype=np.float32)
+
+        for image_data in images.values():
+            if image_data.camera_id != COLMAP_CAMERA_ID:
+                continue
+
+            pids = [pid for pid in image_data.point3d_ids if pid != -1]
+            if not pids:
+                continue
+
+            points = np.asarray([points3d[pid].xyz for pid in pids])
+
+            index = self._get_index_from_image(image_data)
+            R, t = get_pose_components(poses_homogeneous[index])
+            projected, depth = world2image(points, K, R, t)
+
+            h, w = source_shape
+            valid = ((projected[:, 0] > 0) & (projected[:, 0] < w)
+                     & (projected[:, 1] > 0) & (projected[:, 1] < h))
+
+            if valid.sum() < 1:
+                logging.debug(f"Frame {image_data.name}: every reprojected COLMAP point fell "
+                              f"outside the image/depth gates - skipped.")
+                continue
+
+            u, v = projected[valid].T
+            depth_maps[index, v, u] = depth[valid]
+
+        return depth_maps
+
+    def get_dense_depth_maps(self, resize_to: Tuple[int, int]) -> np.ndarray:
+        """Load COLMAP dense-stereo depth maps (the geometric ones where
+        present), resized nearest-exact to ``resize_to`` (height, width),
+        with the 95th-percentile outlier clamp."""
+        path_to_depth_maps = pjoin(self.dense_path, "0", "stereo", "depth_maps")
+
+        if not os.path.isdir(path_to_depth_maps):
+            raise NotADirectoryError(f"No folder at {path_to_depth_maps} — dense stereo output is missing "
+                                     f"(was COLMAP run with dense reconstruction enabled?).")
+
+        filenames = sorted(f for f in os.listdir(path_to_depth_maps)
+                           if f.endswith(".geometric.bin"))
+        if not filenames:  # older/configured runs may emit photometric only
+            filenames = sorted(os.listdir(path_to_depth_maps))
+
+        if len(filenames) == 0:
+            raise FileNotFoundError(f"The folder {path_to_depth_maps} holds no depth maps — was COLMAP "
+                                    f"run with dense reconstruction enabled?")
+
+        def load_depth_map(filename: str) -> np.ndarray:
+            depth_map = colmap_model.read_colmap_depth_map(pjoin(path_to_depth_maps, filename))
+            return resize_nearest_exact(depth_map, resize_to)
+
+        depth_maps = np.asarray(tqdm_imap(load_depth_map, filenames))
+
+        max_depth = np.quantile(depth_maps, 0.95)
+        depth_maps[depth_maps < 0] = 0
+        depth_maps[depth_maps > max_depth] = 0
+
+        return depth_maps
 
 
 class InvalidDatasetFormatError(Exception):

@@ -10,9 +10,12 @@ the export with its draco or quantize compression (:806-904), the WebXR
 copy and ``profiling.json`` with its per-frame roll-ups (:1045-1096). The
 conversion's masks and the background's TSDF fusion run on the card; the
 foreground stays host numpy, scipy and native C++ in worker threads, as in
-the JAX package. The CLI flag roster is the JAX package's; options whose
-stages are not ported yet raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+the JAX package, after foreground trajectory smoothing
+(``--fts_num_epochs``, :360-368) on the card, with the stages then run
+one after the other. The CLI flags are the JAX package's option groups
+(its parser leaves the smoothing group out; this one registers it);
+options whose stages are not ported yet raise ``NotImplementedError``
+naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ import torch
 from hive_tpu_torch import get_device
 from hive_tpu_torch.geometric import get_pose_components, point_cloud_from_depth
 from hive_tpu_torch.image_processing import dilate_mask
-from hive_tpu_torch.io import HiveDataset
+from hive_tpu_torch.io import HiveDataset, temporary_trajectory
 from hive_tpu_torch.meshing.components import cleanup_with_connected_components
 from hive_tpu_torch.meshing.decimate import decimate_mesh
 from hive_tpu_torch.meshing.gltf import export_scene, quantize_glb, write_gzip_sibling
@@ -100,6 +103,9 @@ class Pipeline:
         COLMAPOptions.add_args(parser)
         BackgroundMeshOptions.add_args(parser)
         WebXROptions.add_args(parser)
+        # hive_tpu's parser leaves this group out, so its CLI rejects
+        # --fts_num_epochs; here the flags reach the pipeline.
+        ForegroundTrajectorySmoothingOptions.add_args(parser)
 
         args = parser.parse_args(argv)
         logging.debug(args)
@@ -113,6 +119,7 @@ class Pipeline:
             colmap_options=COLMAPOptions.from_args(args),
             static_mesh_options=BackgroundMeshOptions.from_args(args),
             webxr_options=WebXROptions.from_args(args),
+            fts_options=ForegroundTrajectorySmoothingOptions.from_args(args),
             device=device,
         )
 
@@ -132,12 +139,8 @@ class Pipeline:
 
     def _check_ported(self):
         """Refuse the options whose stages are not ported yet."""
-        if self.options.estimate_pose:
-            raise not_ported("--estimate_pose", "Queue 1 item 12")
         if self.options.num_devices != 1:
             raise not_ported("--num_devices", "Queue 1 item 14")
-        if self.fts_options.num_epochs > 0:
-            raise not_ported("Foreground trajectory smoothing", "Queue 1 item 12")
         if self.webxr_options.webxr_run_server:
             raise not_ported("--webxr_run_server (the viewer)", "Queue 1 item 14")
 
@@ -173,40 +176,47 @@ class Pipeline:
         # Foreground meshing is host work (numpy, scipy and the native
         # decimator release the GIL); the background stage mostly waits on
         # the card. They run concurrently, each with its own wall-clock
-        # timer (their sum can exceed the run's wall time). The JAX package
-        # runs them one after the other under foreground trajectory
-        # smoothing, which swaps the trajectory the background reads; that
-        # option is not ported, so here they always overlap.
-        set_key_path(self.profiling, ["timing", "stages_overlapped"], True)
+        # timer (their sum can exceed the run's wall time), EXCEPT under
+        # foreground trajectory smoothing: it swaps the dataset's trajectory
+        # (temporary_trajectory), which the background integration reads.
+        overlap = self.fts_options.num_epochs <= 0
+        set_key_path(self.profiling, ["timing", "stages_overlapped"], overlap)
 
         def foreground_job():
             with self.timed_block("Meshing the dynamic foreground...",
                                   ["timing", "foreground_reconstruction", "total"]):
                 return self._create_foreground_scene(dataset)
 
-        overlap_pool = ThreadPoolExecutor(max_workers=1)
-        foreground_future = overlap_pool.submit(foreground_job)
-
-        try:
+        def background_job():
             with self.timed_block("Reconstructing the static background...",
                                   ["timing", "background_reconstruction", "total"]):
-                background_scene = self._create_background_scene(dataset)
-        except BaseException:
-            # Surface the background error now instead of blocking on the
-            # rest of the foreground stage, and don't drop a concurrent
-            # foreground failure: a running job can't be cancelled, so log
-            # it whenever it finishes.
-            def _log_foreground_failure(future):
-                if not future.cancelled() and future.exception() is not None:
-                    logging.error("Foreground stage also failed: "
-                                  f"{future.exception()!r}")
+                return self._create_background_scene(dataset)
 
-            foreground_future.add_done_callback(_log_foreground_failure)
-            overlap_pool.shutdown(wait=False, cancel_futures=True)
-            raise
+        if overlap:
+            overlap_pool = ThreadPoolExecutor(max_workers=1)
+            foreground_future = overlap_pool.submit(foreground_job)
 
-        foreground_scene = foreground_future.result()
-        overlap_pool.shutdown()
+            try:
+                background_scene = background_job()
+            except BaseException:
+                # Surface the background error now instead of blocking on the
+                # rest of the foreground stage, and don't drop a concurrent
+                # foreground failure: a running job can't be cancelled, so log
+                # it whenever it finishes.
+                def _log_foreground_failure(future):
+                    if not future.cancelled() and future.exception() is not None:
+                        logging.error("Foreground stage also failed: "
+                                      f"{future.exception()!r}")
+
+                foreground_future.add_done_callback(_log_foreground_failure)
+                overlap_pool.shutdown(wait=False, cancel_futures=True)
+                raise
+
+            foreground_scene = foreground_future.result()
+            overlap_pool.shutdown()
+        else:
+            background_scene = background_job()
+            foreground_scene = foreground_job()
 
         with self.timed_block("Recentring the foreground/background scenes...",
                               ["timing", "scene_centering"]):
@@ -287,6 +297,16 @@ class Pipeline:
     def _create_foreground_scene(self, dataset: HiveDataset) -> Scene:
         if self.options.background_only:
             return self._create_empty_scene(dataset)
+
+        if self.fts_options.num_epochs > 0:
+            from hive_tpu_torch.pose_optimisation import ForegroundPoseOptimiser
+
+            smoothed = ForegroundPoseOptimiser(
+                dataset, learning_rate=self.fts_options.learning_rate,
+                num_epochs=self.fts_options.num_epochs, device=self.device).run()
+
+            with temporary_trajectory(dataset, smoothed):
+                return self._create_scene(dataset, num_frames=self.num_frames)
 
         return self._create_scene(dataset, num_frames=self.num_frames)
 

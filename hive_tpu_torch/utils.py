@@ -122,6 +122,19 @@ def tqdm_imap(func, args: Sequence, num_workers: Optional[int] = None,
         return list(it)
 
 
+@contextlib.contextmanager
+def temp_seed(seed: int):
+    """Temporarily seed NumPy's global RNG."""
+    import numpy as np
+
+    state = np.random.get_state()
+    try:
+        np.random.seed(seed)
+        yield
+    finally:
+        np.random.set_state(state)
+
+
 def not_ported(what: str, item: str) -> NotImplementedError:
     """The error that refuses a stage of ``hive_tpu`` not yet in this port,
     naming the ROADMAP item that ports it."""

@@ -262,11 +262,15 @@ def test_estimate_depth_conversion_matches_hive_tpu(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("option", ["estimate_pose"])
 def test_unported_conversion_options_refused(tmp_path, option):
+    """``--estimate_pose`` without a COLMAP binary, which hive_tpu runs as
+    PnP odometry with OpenCV, refuses before the output folder is made."""
     base = make_tum_dataset(tmp_path / "tum", num_frames=2)
     kwargs = dict(estimate_pose=False, estimate_depth=False, inpainting_mode=InpaintingMode.Off)
     kwargs[option] = True
-    adaptor = dataset_adaptors.TUMAdaptor(base_path=base, output_path=str(tmp_path / "out"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 1"):
+    adaptor = dataset_adaptors.TUMAdaptor(
+        base_path=base, output_path=str(tmp_path / "out"),
+        colmap_options=COLMAPOptions(binary_path=str(tmp_path / "no_colmap")))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12b"):
         adaptor.convert(device="cpu", **kwargs)
     assert not os.path.exists(tmp_path / "out")
 

@@ -119,20 +119,13 @@ def test_estimate_depth_on_a_hive_dataset_runs_as_in_hive_tpu(dataset_path, tmp_
                                       getattr(meshes["jax"], attribute))
 
 
-@pytest.mark.parametrize("extra", [[], ["--num_devices", "2"]],
-                         ids=["foreground", "num_devices"])
+@pytest.mark.parametrize("extra", [["--webxr_run_server"], ["--num_devices", "2"]],
+                         ids=["webxr_run_server", "num_devices"])
 def test_unported_options_name_their_roadmap_item(dataset_path, tmp_path, extra):
-    """The foreground stage is ported; its trajectory smoothing (set through
-    the constructor, it has no CLI flag) is not."""
-    from hive_tpu_torch.options import ForegroundTrajectorySmoothingOptions
-
-    argv = _argv(dataset_path, tmp_path, *extra)
-    if not extra:
-        argv.remove("--background_only")
-    pipeline = Pipeline.from_command_line(argv, device="cpu")
-    if not extra:
-        pipeline.fts_options = ForegroundTrajectorySmoothingOptions(num_epochs=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+    """The viewer and the multi-device layer are not ported (Queue 1 item
+    14)."""
+    pipeline = Pipeline.from_command_line(_argv(dataset_path, tmp_path, *extra), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 14"):
         pipeline.run()
 
 

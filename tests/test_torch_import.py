@@ -80,8 +80,8 @@ def test_imports_with_jax_and_hive_tpu_blocked(tmp_path):
 def test_sources_import_nothing_of_jax_or_hive_tpu():
     """Nor Pillow, OpenCV, imageio, transformers, timm or torchvision, which
     the card's machine lacks."""
-    banned = re.compile(r"^\s*(import\s+(jax|jaxlib|hive_tpu)\b(?!_torch)"
-                        r"|from\s+(jax|jaxlib|hive_tpu)\b(?!_torch)"
+    banned = re.compile(r"^\s*(import\s+(jax|jaxlib|optax|hive_tpu)\b(?!_torch)"
+                        r"|from\s+(jax|jaxlib|optax|hive_tpu)\b(?!_torch)"
                         r"|(import|from)\s+(PIL|cv2|imageio|transformers|timm|torchvision)\b)",
                         re.MULTILINE)
     offenders = [path for path in _port_sources() if banned.search(open(path).read())]
@@ -119,6 +119,13 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
         PersonSegmenter()
     assert PersonSegmenter(device="cpu")._classical.device.type == "cpu"
 
+    from hive_tpu_torch.pose_optimisation import ForegroundPoseOptimiser, PoseOptimiser
+
+    for cls in (PoseOptimiser, ForegroundPoseOptimiser):
+        with pytest.raises(RuntimeError):
+            cls(None)
+        assert cls(None, device="cpu").device.type == "cpu"
+
 
 def test_conversion_with_missing_packages_blocked(tmp_path):
     """The CLI converts a TUM folder (PNG frames in, JPEG frames and motion
@@ -152,6 +159,78 @@ def test_conversion_with_missing_packages_blocked(tmp_path):
                           text=True, timeout=300, env=env)
     assert done.returncode == 0, done.stderr[-4000:]
     assert done.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_pose_paths_with_missing_packages_blocked(tmp_path):
+    """With JAX, optax, hive_tpu, OpenCV and Pillow blocked, the CLI converts
+    a moving TUM folder with --estimate_pose through a stand-in ``colmap``
+    and meshes it with --fts_num_epochs; PoseOptimiser runs from a cached
+    feature set and checkpoints; and a missing COLMAP binary refuses with
+    Queue 1 item 12b."""
+    from chip_smoke import write_colmap_stand_in
+    from hive_tpu_torch.dataset_adaptors import TUMAdaptor
+    from tests.test_adaptors import make_tum_dataset
+
+    tum = make_tum_dataset(tmp_path / "tum", num_frames=4)
+    poses = TUMAdaptor(tum, str(tmp_path / "unused")).camera_trajectory.values
+    K = np.array([[58.0, 0, 31.5], [0, 58.0, 23.5], [0, 0, 1]])
+    stand_in = write_colmap_stand_in(str(tmp_path / "bin"), poses, K, (64, 48), depth=1.0,
+                                     frame_step=15)
+    out = str(tmp_path / "out")
+    argv = ["--dataset_path", tum, "--output_path", out, "--estimate_pose", "--binary_path",
+            stand_in, "--fts_num_epochs", "3", "--key_frame_threshold", "1.0",
+            "--sdf_max_voxels", "100000", "--webxr_path", str(tmp_path / "webxr"),
+            "--log_file", str(tmp_path / "log.txt")]
+    blocked = ("jax", "optax", "hive_tpu") + MISSING_ON_CARD_MACHINE
+    code = ("import sys\n"
+            f"for name in {blocked!r}:\n"
+            "    sys.modules[name] = None\n"
+            "import numpy as np\n"
+            "from hive_tpu_torch import pose_optimisation as P\n"
+            "from hive_tpu_torch.dataset_adaptors import TUMAdaptor\n"
+            "from hive_tpu_torch.io import HiveDataset\n"
+            "from hive_tpu_torch.options import COLMAPOptions\n"
+            "from hive_tpu_torch.pipeline import Pipeline\n"
+            f"pipeline = Pipeline.from_command_line({argv!r}, device='cpu')\n"
+            "pipeline.run()\n"
+            "assert pipeline.profiling['timing']['stages_overlapped'] is False\n"
+            f"dataset = HiveDataset({out!r})\n"
+            "assert dataset.metadata.estimate_pose and dataset.num_frames == 4\n"
+            "steps = np.diff(dataset.camera_trajectory.positions, axis=0)\n"
+            "assert np.allclose(np.abs(steps[:, 0]), 0.01, atol=1e-6), steps\n"
+            "try:\n"
+            "    P.PoseOptimiser(dataset, device='cpu').run()\n"
+            "except NotImplementedError as e:\n"
+            "    assert 'Queue 1 item 12b' in str(e)\n"
+            "else:\n"
+            "    raise AssertionError('feature extraction ran')\n"
+            "rng = np.random.default_rng(0)\n"
+            "features = P.FeatureSet(dataset.camera_matrix, P.FeatureData(\n"
+            "    np.zeros(30, np.int64), rng.uniform(5, 40, (30, 2)).astype(np.float32),\n"
+            "    np.ones(30, np.float32)), P.FeatureData(np.ones(30, np.int64),\n"
+            "    rng.uniform(5, 40, (30, 2)).astype(np.float32), np.ones(30, np.float32)))\n"
+            "options = P.OptimisationOptions(num_epochs=50, checkpoint_dir="
+            f"{str(tmp_path / 'ckpt')!r}, checkpoint_every_chunks=1)\n"
+            "optimiser = P.PoseOptimiser(dataset, optimisation_options=options, device='cpu')\n"
+            "params = optimiser._optimisation_loop(features, optimiser._init_params(\n"
+            "    dataset.camera_trajectory.values), options, P.ResidualType.World3D)\n"
+            "assert params['t'].shape == (4, 3)\n"
+            "adaptor = TUMAdaptor(" f"{tum!r}, {str(tmp_path / 'refused')!r}, colmap_options="
+            f"COLMAPOptions(binary_path={str(tmp_path / 'none')!r}))\n"
+            "try:\n"
+            "    adaptor.convert(True, False, 0, device='cpu')\n"
+            "except NotImplementedError as e:\n"
+            "    assert 'Queue 1 item 12b' in str(e)\n"
+            "else:\n"
+            "    raise AssertionError('PnP odometry ran')\n"
+            "print('ok')\n")
+    env = dict(os.environ, WEIGHTS_PATH=str(tmp_path / "no_weights"))
+    done = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300, env=env)
+    assert done.returncode == 0, done.stderr[-4000:]
+    assert done.stdout.strip().splitlines()[-1] == "ok"
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["step_000000025.npz", "step_000000050.npz"]
+    assert not os.path.exists(tmp_path / "refused")
 
 
 @pytest.mark.parametrize("mode", [1, 2])
