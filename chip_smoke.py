@@ -174,13 +174,35 @@ Phases (any failure raises and the script exits non-zero):
    steps of COLMAP_SCALE x COLMAP_STEP_M), the metric scale (recomputed
    from the sparse depth maps) within 1% of 1 / COLMAP_SCALE;
    ``get_camera_parameters`` logged;
-14. the tile-gather kernel, both axes, on the gather probe's (8, 128) tile:
-   bit-exact vs its plain version, timed beside ``torch.gather``;
-15. the patch-gather kernel on the probe's 1024 blocks x 512 samples, with
-   one sample in eight moved out of its window: bit-exact vs its plain
-   version, timed beside ``torch.take`` and the band sampler;
-16. both fused band-trip variants on the fused-trip probe's 128-row trip:
-   bit-exact vs the plain version, timed;
+14. the probe kernels at the measurement entry points' shapes: the
+   tile-gather kernel, both axes, on the gather probe's (8, 128) tile,
+   bit-exact vs its plain version, timed beside ``torch.gather``; the
+   patch-gather kernel on the probe's 1024 blocks x 512 samples, with one
+   sample in eight moved out of its window, bit-exact vs its plain
+   version, timed beside ``torch.take`` and the band sampler; both fused
+   band-trip variants on the fused-trip probe's 128-row trip, bit-exact vs
+   the plain version, timed;
+15. [sift]: the feature and pose layer (no kernel of its own: plain
+   PyTorch) at full width on two VGA frames of the textured wall
+   (``render_wall``): SIFT with 2048 features on the card against the
+   port's CPU run on the same frames, TF32 off (KP_SHARE of each side's
+   keypoints within 0.5 px of the other's, DESC_SHARE of the common ones'
+   descriptors within DESC_L2); the exact k-NN of the CPU's descriptors on
+   the card equal to the CPU's; the extractor's homography filter
+   (H_SYMDIFF) and the odometry's RANSAC PnP (PNP_SYMDIFF, PNP_ROT_DEG,
+   PNP_T_M) on the card against the CPU on the same matches; each stage
+   timed (device ms and kernels, launch loop), keypoints, matches and
+   inliers, peak device memory, with the card's name and power limit;
+16. tum-pnp-pose: a user's run with ``--estimate_pose`` and no COLMAP
+   binary on a 30-frame VGA TUM folder of the textured wall, the camera
+   sliding 1 cm and turning 0.15 degrees a frame (``write_wall_tum``),
+   nothing patched: PnP odometry on the card at the CLI's frame step 15,
+   two classifications and one band update a frame, both meshes finite,
+   the ATE within PNP_ATE_M of the ground truth, ``get_camera_parameters``
+   logged beside phase 13's stand-in COLMAP; then ``python -m
+   hive_tpu_torch.pose_optimisation`` on the converted folder with no
+   cached feature set: the extraction time, the pairs kept and the whole
+   CLI's time logged;
 17. the two measurement entry points, each run in this process with the
    launch counts reset just before and read just after:
    ``hive_tpu_torch.micro.gather`` (Q1 tile gathers, Q2 patch gather timed
@@ -214,6 +236,7 @@ It needs one CUDA card and exits non-zero without one, printing no result.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import runpy
 import shutil
@@ -1347,6 +1370,135 @@ def write_tum_dataset(base: str, num_frames: int, width: int, height: int,
         with open(os.path.join(base, name), "w") as f:
             f.write("\n".join(lines) + "\n")
     return np.stack(silhouettes)
+
+
+# The textured wall of the feature phases: blurred noise at several scales
+# (corners for SIFT at every octave), TEXTURE_PPM texels a metre, on the
+# plane z = WALL_Z_M of the world.
+WALL_Z_M, TEXTURE_PPM = 2.0, 400
+
+
+def wall_texture(seed: int = SEED, extent=(-2.5, 2.5, -2.0, 2.0)) -> np.ndarray:
+    """A grey float texture in [0, 255] over ``extent`` (x0, x1, y0, y1 in
+    metres): the sum of bicubically upsampled noise with cells of 4 to 64
+    texels, equally weighted (about 4,800 SIFT keypoints in a VGA view)."""
+    rng = np.random.default_rng(seed)
+    height = int((extent[3] - extent[2]) * TEXTURE_PPM)
+    width = int((extent[1] - extent[0]) * TEXTURE_PPM)
+    texture = torch.zeros((height, width), dtype=torch.float64)
+    for cell in (4, 8, 16, 32, 64):
+        noise = torch.from_numpy(rng.standard_normal((height // cell + 3, width // cell + 3)))
+        up = torch.nn.functional.interpolate(noise[None, None], scale_factor=cell,
+                                             mode="bicubic", align_corners=False)[0, 0]
+        texture += up[cell:cell + height, cell:cell + width]
+    texture = (texture - texture.min()) / (texture.max() - texture.min()) * 255
+    return texture.numpy()
+
+
+def wall_camera() -> np.ndarray:
+    """The intrinsics that ``--estimate_pose`` assumes without COLMAP on a
+    TUM folder: the Kinect prior scaled to the adaptor's 640x480 metadata,
+    whatever the frames' size."""
+    from hive_tpu_torch.sensor import KinectSensor
+
+    return KinectSensor.get_camera_matrix().scale((480, 640)).matrix
+
+
+def wall_trajectory(num_frames: int, step_m: float = 0.01, yaw_deg: float = 0.15) -> np.ndarray:
+    """World-to-camera 7-vectors (qx qy qz qw tx ty tz) of a camera looking
+    at the wall while it slides ``step_m`` along x and ``step_m / 3`` along
+    y a frame and turns ``yaw_deg`` about y a frame."""
+    poses = []
+    for i in range(num_frames):
+        half = np.radians(yaw_deg * i) / 2
+        q_cw = np.array([0.0, np.sin(half), 0.0, np.cos(half)])       # camera to world
+        c, s = np.cos(2 * half), np.sin(2 * half)
+        R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]]).T              # world to camera
+        centre = np.array([step_m * i, step_m * i / 3, 0.0])
+        q = q_cw * np.array([-1, -1, -1, 1])
+        poses.append(np.concatenate([q, -R @ centre]))
+    return np.asarray(poses)
+
+
+def render_wall(texture: np.ndarray, pose: np.ndarray, K: np.ndarray, width: int, height: int,
+                extent=(-2.5, 2.5, -2.0, 2.0)):
+    """The wall seen from a world-to-camera 7-vector: (H, W, 3) uint8 RGB
+    (the texture bilinearly sampled, tinted per channel) and (H, W) float64
+    depth in metres."""
+    from hive_tpu_torch.geometric import pose_vec2mat
+
+    M = pose_vec2mat(pose)
+    R, t = M[:3, :3], M[:3, 3]
+    vs, us = np.mgrid[0:height, 0:width].astype(np.float64)
+    rays = np.stack([(us - K[0, 2]) / K[0, 0], (vs - K[1, 2]) / K[1, 1], np.ones_like(us)], -1)
+    origin = -R.T @ t
+    world = rays @ R                                   # R^T applied to each ray
+    depth = (WALL_Z_M - origin[2]) / world[..., 2]
+    x = (origin[0] + depth * world[..., 0] - extent[0]) * TEXTURE_PPM
+    y = (origin[1] + depth * world[..., 1] - extent[2]) * TEXTURE_PPM
+    x0 = np.clip(np.floor(x).astype(np.int64), 0, texture.shape[1] - 2)
+    y0 = np.clip(np.floor(y).astype(np.int64), 0, texture.shape[0] - 2)
+    fx, fy = np.clip(x - x0, 0, 1), np.clip(y - y0, 0, 1)
+    grey = ((texture[y0, x0] * (1 - fx) + texture[y0, x0 + 1] * fx) * (1 - fy)
+            + (texture[y0 + 1, x0] * (1 - fx) + texture[y0 + 1, x0 + 1] * fx) * fy)
+    rgb = np.stack([grey * 0.9 + 20, grey, grey * 0.8 + 30], -1)
+    return np.clip(np.rint(rgb), 0, 255).astype(np.uint8), depth
+
+
+def write_wall_tum(base: str, num_frames: int, width: int, height: int,
+                   poses: np.ndarray, seed: int = SEED) -> None:
+    """A TUM RGB-D folder of the textured wall seen from the world-to-camera
+    ``poses``: RGB at 30 Hz, depth 4 ms after it at 5000 units a metre,
+    ground truth at 100 Hz (camera to world, as TUM stores it; each row the
+    pose of the frame whose depth stamp is nearest)."""
+    from hive_tpu_torch.geometric import Trajectory
+    from hive_tpu_torch.image_codecs import encode_png
+
+    texture = wall_texture(seed)
+    K = wall_camera()
+    cam_to_world = Trajectory(np.asarray(poses, dtype=np.float64)).inverse().values
+    for sub in ("rgb", "depth"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    lists = {"rgb.txt": ["# color images"], "depth.txt": ["# depth maps"],
+             "groundtruth.txt": ["# timestamp tx ty tz qx qy qz qw"]}
+    t0 = 1305031102.0
+    depth_stamps = t0 + np.arange(num_frames) / 30.0 + 0.004
+    for i in range(num_frames):
+        rgb, depth = render_wall(texture, poses[i], K, width, height)
+        t = t0 + i / 30.0
+        for sub, stamp, image in (("rgb", t, rgb),
+                                  ("depth", t + 0.004, np.rint(depth * 5000).astype(np.uint16))):
+            name = f"{stamp:.6f}.png"
+            with open(os.path.join(base, sub, name), "wb") as f:
+                f.write(encode_png(image))
+            lists[f"{sub}.txt"].append(f"{stamp:.6f} {sub}/{name}")
+    for k in range(int((num_frames / 30.0 + 0.1) * 100)):
+        stamp = t0 - 0.05 + k / 100
+        qx, qy, qz, qw, tx, ty, tz = cam_to_world[int(np.abs(depth_stamps - stamp).argmin())]
+        lists["groundtruth.txt"].append(
+            " ".join([f"{stamp:.4f}"] + [repr(float(v)) for v in (tx, ty, tz, qx, qy, qz, qw)]))
+    for name, lines in lists.items():
+        with open(os.path.join(base, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+def camera_centres(values: np.ndarray) -> np.ndarray:
+    """Camera centres of world-to-camera 7-vectors, in the frame of the
+    first camera (each pose rebased as ``M_i @ inv(M_0)``)."""
+    from hive_tpu_torch.geometric import pose_vec2mat
+
+    mats = [pose_vec2mat(v) for v in np.asarray(values, dtype=np.float64)]
+    first = np.linalg.inv(mats[0])
+    return np.stack([-(m @ first)[:3, :3].T @ (m @ first)[:3, 3] for m in mats])
+
+
+def ate_m(truth: np.ndarray, estimate: np.ndarray) -> float:
+    """Absolute trajectory error (RMSE of the camera centres, metres) of two
+    metric world-to-camera trajectories, both seen from their first camera
+    (no alignment: the odometry's scale is metric and its first pose the
+    identity)."""
+    a, b = camera_centres(truth), camera_centres(estimate)
+    return float(np.sqrt(((a - b) ** 2).sum(axis=1).mean()))
 
 
 # The stand-in ``colmap`` of the --estimate_pose runs: it writes a sparse
@@ -3033,6 +3185,252 @@ def run_colmap_pose_conversion(device, launches, gt_profiling, tmp: str) -> dict
 
 
 # ---------------------------------------------------------------------------
+# The feature and pose layer (SIFT, k-NN, homography, PnP): no kernel of its
+# own, plain PyTorch on the card.
+# ---------------------------------------------------------------------------
+
+FEATURE_W, FEATURE_H, FEATURE_NFEATURES = 640, 480, 2048
+# The CPU tests' tolerances, which hold the port to OpenCV
+# (tests/test_torch_sift.py, tests/test_torch_sfm.py import them), here for
+# the card against the port's CPU run: keypoints within 0.5 px, descriptors
+# of the same keypoints within an L2 distance, inlier sets within a share
+# of their size, the PnP pose within a rotation and a translation.
+KP_SHARE = 0.99
+DESC_L2, DESC_SHARE = 2.0, 0.98
+H_SYMDIFF = 0.02
+PNP_SYMDIFF, PNP_ROT_DEG, PNP_T_M = 0.02, 1e-4, 1e-6
+# tum-pnp-pose: twice the ATE of hive_tpu's own native path on the same
+# 30-frame VGA folder at the CLI's frame step (1.07 mm, run on the CPU with
+# OpenCV 5.0.0).
+PNP_TUM_FRAMES = 30
+PNP_ATE_M = 2.2e-3
+
+
+def keypoint_agreement(card, cpu) -> dict:
+    """The share of each side's keypoints within 0.5 px of the other's, and
+    the descriptor distances of the keypoints that both found (position
+    within 0.01 px, angle within 0.01 degrees)."""
+    a, b = card.xy.cpu().double(), cpu.xy.double()
+    dist = torch.cdist(a, b)
+    share = min(float((dist.min(dim=1).values < 0.5).double().mean()),
+                float((dist.min(dim=0).values < 0.5).double().mean()))
+    turn = (card.angle.cpu()[:, None] - cpu.angle[None]).abs()
+    same = (dist < 0.01) & (torch.minimum(turn, 360 - turn) < 0.01)
+    rows = torch.nonzero(same.any(dim=1))[:, 0]
+    cols = same[rows].double().argmax(dim=1)
+    l2 = (card.descriptors.cpu()[rows] - cpu.descriptors[cols]).norm(dim=1)
+    return dict(share=share, paired=int(len(rows)),
+                desc_share=float((l2 <= DESC_L2).double().mean()) if len(rows) else 0.0,
+                desc_max=float(l2.max()) if len(rows) else 0.0)
+
+
+def stage_times(fn) -> dict:
+    """Device ms and device operations of one call (torch.profiler), and
+    the launch loop's ms (CUDA events, host cost included)."""
+    ms, ops = device_profile(fn, reps=3, warmup=1)
+    return dict(ms=ms, kernels=ops, loop_ms=events_ms(fn, reps=3, warmup=1))
+
+
+def check_features(device) -> dict:
+    """[sift]: the feature layer at full width on the card, on two VGA
+    frames of the textured wall (the camera 1 cm and 0.15 degrees apart):
+    SIFT with 2048 features, the exact k-NN, the homography filter of the
+    feature extractor and the odometry's RANSAC PnP, each held to the port's
+    CPU run on the same inputs (TF32 off) and timed."""
+    from hive_tpu_torch.ops import homography, matching, pnp, sift
+
+    phase_start = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on: the card would not compute the CPU's float32")
+    texture, K = wall_texture(), wall_camera()
+    frames = [render_wall(texture, pose, K, FEATURE_W, FEATURE_H)
+              for pose in wall_trajectory(2)]
+    greys = [sift.rgb_to_grey(torch.from_numpy(rgb)) for rgb, _ in frames]
+    depth = torch.from_numpy(frames[0][1].astype(np.float32))
+
+    torch.cuda.reset_peak_memory_stats()
+    card = [sift.detect_and_compute(g.to(device), nfeatures=FEATURE_NFEATURES) for g in greys]
+    torch.cuda.synchronize()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    cpu = [sift.detect_and_compute(g, nfeatures=FEATURE_NFEATURES) for g in greys]
+    agreement = [keypoint_agreement(c, h) for c, h in zip(card, cpu)]
+    for frame, got in enumerate(agreement):
+        if got["share"] < KP_SHARE or got["desc_share"] < DESC_SHARE:
+            raise AssertionError(f"SIFT on the card vs the CPU, frame {frame}: {got} (want "
+                                 f"keypoints {KP_SHARE}, descriptors {DESC_SHARE} within "
+                                 f"{DESC_L2})")
+
+    # The k-NN of the CPU's descriptors on the card: exact, so equal.
+    desc = [c.descriptors.to(device) for c in cpu]
+    indices, distances = matching.knn2(*desc)
+    cpu_indices, cpu_distances = matching.knn2(cpu[0].descriptors, cpu[1].descriptors)
+    if not (torch.equal(indices.cpu(), cpu_indices)
+            and torch.equal(distances.cpu(), cpu_distances)):
+        raise AssertionError("the k-NN on the card differs from the CPU's")
+
+    # The extractor's pair (ratio 0.7) through the homography filter, and
+    # the odometry's (ratio 0.75) lifted with frame 0's depth through PnP.
+    def generator(where):
+        g = torch.Generator(device=where)
+        g.manual_seed(SEED)
+        return g
+
+    pairs = matching.match_descriptors(cpu[0].descriptors, cpu[1].descriptors, 0.7, strict=False)
+    pts = (cpu[0].xy[pairs[:, 0]], cpu[1].xy[pairs[:, 1]])
+    _, mask = homography.find_homography(*(p.to(device) for p in pts), generator=generator(device))
+    _, cpu_mask = homography.find_homography(*pts, generator=generator("cpu"))
+    h_diff = int((mask.cpu() ^ cpu_mask).sum())
+    if h_diff > H_SYMDIFF * int(cpu_mask.sum()):
+        raise AssertionError(f"homography inliers: {h_diff} differ of {int(cpu_mask.sum())}")
+
+    odometry = matching.match_descriptors(cpu[0].descriptors, cpu[1].descriptors, 0.75)
+    uv = cpu[0].xy[odometry[:, 0]].double()
+    z = depth[torch.round(uv[:, 1]).long(), torch.round(uv[:, 0]).long()].double()
+    K64 = torch.from_numpy(K)
+    objects = torch.stack([(uv[:, 0] - K64[0, 2]) * z / K64[0, 0],
+                           (uv[:, 1] - K64[1, 2]) * z / K64[1, 1], z], dim=1)
+    pixels = cpu[1].xy[odometry[:, 1]].double()
+
+    def solve(where):
+        o, x, k = objects.to(where), pixels.to(where), K64.to(where)
+        ok, r, t, inliers = pnp.solve_pnp_ransac(o, x, k, generator=generator(where))
+        r, t = pnp.refine_pose(o[inliers], x[inliers], k, r, t)
+        return pnp.rodrigues_to_matrix(r).cpu(), t.cpu(), inliers
+
+    (R, t, inliers), (cpu_R, cpu_t, cpu_inliers) = solve(device), solve("cpu")
+    p_diff = len(set(inliers.cpu().tolist()) ^ set(cpu_inliers.tolist()))
+    angle = float(np.degrees(np.arccos(np.clip((float(torch.trace(cpu_R.T @ R)) - 1) / 2,
+                                               -1, 1))))
+    t_err = float((t - cpu_t).abs().max())
+    if p_diff > PNP_SYMDIFF * len(cpu_inliers) or angle > PNP_ROT_DEG or t_err > PNP_T_M:
+        raise AssertionError(f"PnP on the card vs the CPU: {p_diff} inliers differ of "
+                             f"{len(cpu_inliers)}, rotation {angle:.3e} deg, translation "
+                             f"{t_err:.3e} m")
+
+    grey0 = greys[0].to(device)
+    points = tuple(p.to(device) for p in pts)
+    o64, x64, k64 = objects.to(device), pixels.to(device), K64.to(device)
+    times = {
+        "sift": stage_times(lambda: sift.detect_and_compute(grey0, nfeatures=FEATURE_NFEATURES)),
+        "knn": stage_times(lambda: matching.knn2(*desc)),
+        "homography": stage_times(lambda: homography.find_homography(
+            *points, generator=generator(device))),
+        "pnp": stage_times(lambda: pnp.solve_pnp_ransac(o64, x64, k64,
+                                                         generator=generator(device))),
+    }
+    smi = nvidia_smi_line()
+    counts = dict(keypoints=[len(c) for c in card], matches=len(pairs),
+                  homography_inliers=int(mask.sum()), pnp_matches=len(odometry),
+                  pnp_inliers=len(inliers))
+    log(f"[sift] {smi}: {FEATURE_W}x{FEATURE_H}, {FEATURE_NFEATURES} features: {counts}; "
+        + "; ".join(f"{name} {v['ms']:.4f} ms device, {v['kernels']:.0f} kernels, launch loop "
+                    f"{v['loop_ms']:.4f} ms" for name, v in times.items())
+        + f"; peak device memory {peak_mb:.1f} MiB (SIFT on two frames)")
+    log(f"[sift] card vs CPU: keypoints {[round(a['share'], 6) for a in agreement]} within "
+        f"0.5 px, descriptors {[round(a['desc_share'], 6) for a in agreement]} within "
+        f"{DESC_L2} (max {max(a['desc_max'] for a in agreement):.3f}); k-NN equal; homography "
+        f"inliers {h_diff} differ; PnP inliers {p_diff} differ, rotation {angle:.3e} deg, "
+        f"translation {t_err:.3e} m; the phase took {time.perf_counter() - phase_start:.1f} s")
+    return dict(counts=counts, times=times, peak_mib=peak_mb, agreement=agreement,
+                homography_diff=h_diff, pnp_diff=p_diff, pnp_rotation_deg=angle,
+                pnp_translation_m=t_err)
+
+
+class LogTimes(logging.Handler):
+    """The time of each INFO record whose message starts with a given
+    prefix, and the messages themselves."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append((record.created, record.getMessage()))
+
+    def first(self, prefix: str):
+        return next(((t, m) for t, m in self.records if m.startswith(prefix)), (None, None))
+
+
+def run_pnp_pose_conversion(device, launches, gt_profiling, colmap_run, tmp: str) -> dict:
+    """tum-pnp-pose: a user's run with ``--estimate_pose`` and no COLMAP
+    binary on a 30-frame VGA TUM folder of the textured wall, the camera
+    sliding 1 cm a frame and turning 0.15 degrees, nothing patched: PnP
+    odometry on the card at the CLI's frame step. Checks the launch counts,
+    both meshes, the ATE against the ground truth (PNP_ATE_M); then
+    ``python -m hive_tpu_torch.pose_optimisation`` on the converted folder
+    with no cached feature set: its extraction time and the pairs kept."""
+    from hive_tpu_torch.io import HiveDataset
+
+    phase_start = time.perf_counter()
+    tum, out = os.path.join(tmp, "tum_wall"), os.path.join(tmp, "pnp_posed")
+    poses = wall_trajectory(PNP_TUM_FRAMES)
+    write_wall_tum(tum, PNP_TUM_FRAMES, FEATURE_W, FEATURE_H, poses)
+    argv = ["hive_tpu_torch", "--dataset_path", tum, "--output_path", out, "--estimate_pose",
+            "--binary_path", os.path.join(tmp, "no_colmap"), "--key_frame_threshold", "1.0",
+            "--webxr_path", os.path.join(tmp, "webxr_pnp"), "--log_file",
+            os.path.join(tmp, "pipeline_pnp.log")]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with mock.patch.object(sys, "argv", argv):
+        runpy.run_module("hive_tpu_torch", run_name="__main__", alter_sys=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches["pnp_pose"] = main_launch_counts()
+    check_launches("the --estimate_pose run without COLMAP", launches["pnp_pose"],
+                   PNP_TUM_FRAMES)
+    check_meshes_finite(out)
+    with open(os.path.join(out, "profiling.json")) as f:
+        profiling = json.load(f)
+    dataset = HiveDataset(out)
+    if not dataset.metadata.estimate_pose:
+        raise AssertionError("metadata.json does not say estimate_pose")
+    ate = ate_m(poses, dataset.camera_trajectory.values)
+    if not ate <= PNP_ATE_M:
+        raise AssertionError(f"--estimate_pose without COLMAP: ATE {ate:.6f} m (bound "
+                             f"{PNP_ATE_M} m)")
+    stage = profiling["timing"]["load_dataset"]["get_camera_parameters"]
+    log(f"[pnp] {PNP_TUM_FRAMES} frames converted with --estimate_pose and no COLMAP (PnP "
+        f"odometry on the card) and meshed in {wall:.1f} s, "
+        f"{profiling['elapsed_time']['per_frame']:.4f} s/frame; get_camera_parameters "
+        f"{stage:.4f} s (phase 13's stand-in COLMAP {colmap_run['get_camera_parameters_s']:.4f} "
+        f"s, phase 7's GT {gt_profiling['timing']['load_dataset']['get_camera_parameters']:.4f}"
+        f" s); ATE {ate:.6f} m (bound {PNP_ATE_M}); launches {launches['pnp_pose']}")
+
+    # The pose optimiser's CLI on the converted folder, no cached features.
+    debug = os.path.join(out, "pose_optim")
+    if os.path.exists(os.path.join(debug, "feature_set.npz")):
+        raise AssertionError("a feature set was cached before the run")
+    handler, root = LogTimes(), logging.getLogger()
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    start = time.perf_counter()
+    try:
+        with mock.patch.object(sys, "argv", ["hive_tpu_torch.pose_optimisation", out]):
+            runpy.run_module("hive_tpu_torch.pose_optimisation", run_name="__main__",
+                             alter_sys=True)
+        torch.cuda.synchronize()
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+    optimise_s = time.perf_counter() - start
+    began, _ = handler.first("Detecting and matching image features")
+    ended, kept = handler.first("Usable frame pairs")
+    if began is None or ended is None or not os.path.isfile(os.path.join(debug,
+                                                                           "feature_set.npz")):
+        raise AssertionError("pose_optimisation did not extract features from the frames")
+    with np.load(os.path.join(debug, "feature_set.npz")) as cached:
+        correspondences = len(cached["index_i"])
+    log(f"[pnp] python -m hive_tpu_torch.pose_optimisation with no cache: extraction "
+        f"{ended - began:.3f} s ({kept}; {correspondences} correspondences), whole CLI "
+        f"{optimise_s:.1f} s; the phase took {time.perf_counter() - phase_start:.1f} s")
+    return dict(wall_s=wall, per_frame_s=profiling["elapsed_time"]["per_frame"],
+                get_camera_parameters_s=stage, ate_m=ate, extraction_s=ended - began,
+                pairs_kept=kept, correspondences=correspondences, optimise_cli_s=optimise_s)
+
+
+# ---------------------------------------------------------------------------
 # The measurement entry points' kernels.
 # ---------------------------------------------------------------------------
 
@@ -3272,10 +3670,13 @@ def main() -> int:
         pose_results = {"small": check_pose_small(device), "user": run_pose_optimise(device)}
         fts_run = run_fts_conversion(device, launches, conversion_profiling, tmp)
         colmap_run = run_colmap_pose_conversion(device, launches, conversion_profiling, tmp)
-    probes = {"band_sampler": sampler,
-              "tile_gather": check_tile_gather(device),
-              "patch_gather": check_patch_gather(device),
-              "fused_band": check_fused_band(device)}
+        probes = {"band_sampler": sampler,
+                  "tile_gather": check_tile_gather(device),
+                  "patch_gather": check_patch_gather(device),
+                  "fused_band": check_fused_band(device)}
+        features = check_features(device)
+        pnp_run = run_pnp_pose_conversion(device, launches, conversion_profiling, colmap_run,
+                                          tmp)
     entry_points = run_entry_points(device, launches)
 
     # Times, errors and bounds are the main path's own (its largest call);
@@ -3297,6 +3698,7 @@ def main() -> int:
             launches_segmented=launches["segmented"][name],
             launches_inpainted=launches["inpainted"][name],
             launches_fts=launches["fts"][name], launches_colmap_pose=launches["colmap_pose"][name],
+            launches_pnp_pose=launches["pnp_pose"][name],
             launches_bench=launches["bench"][name], exact=True,
             calls_checked=result["calls_checked"], max_abs_err=result["max_abs_err"],
             ms=result["ms"], kernel_ms=result["ms"], plain_ms=result["plain_ms"],
@@ -3332,6 +3734,7 @@ def main() -> int:
     log("[inpaint] summary " + json.dumps({"lama": lama_results, "inpainting_run": inpainted_run}))
     log("[pose] summary " + json.dumps({"pose_optimise": pose_results, "fts_run": fts_run,
                                         "colmap_pose_run": colmap_run}))
+    log("[features] summary " + json.dumps({"sift_phase": features, "pnp_pose_run": pnp_run}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -19,11 +19,12 @@ the host, LaMa on the card; those frames are written as the reference's
 ``--estimate_pose`` a COLMAP binary estimates the intrinsics and trajectory
 on the frames (``_estimate_camera_parameters``, counterpart of :237-296),
 scaled to metres by the median ratio of the depth maps to COLMAP's
-(``_get_scaled_colmap_camera_params``, :331-390).
+(``_get_scaled_colmap_camera_params``, :331-390); without a COLMAP binary,
+by PnP odometry on the card (``_estimate_camera_parameters_native``,
+counterpart of :296-329, through :mod:`hive_tpu_torch.sfm`).
 
-Not ported yet, each refused with its ROADMAP item: StrayScanner and plain
-video inputs (Queue 1 item 9b), and ``--estimate_pose`` without a COLMAP
-binary, which ``hive_tpu`` runs as PnP odometry with OpenCV (item 12b).
+Not ported yet, refused with their ROADMAP item: StrayScanner and plain
+video inputs (Queue 1 item 9b).
 """
 
 from __future__ import annotations
@@ -141,14 +142,6 @@ class DatasetAdaptor(Dataset, ABC):
         :param device: where the instance masks, estimated depth maps and
             LaMa's inpainting are computed; default ``cuda:0``.
         """
-        if estimate_pose and not static_camera \
-                and not os.path.isfile(self.colmap_options.binary_path) \
-                and (no_cache or self._try_get_cached_dataset(estimate_pose,
-                                                              estimate_depth) is None):
-            raise not_ported(f"Pose estimation without COLMAP (PnP odometry; no COLMAP "
-                             f"binary at {self.colmap_options.binary_path})",
-                             "Queue 1 item 12b")
-
         if no_cache and os.path.exists(self.output_path):
             logging.warning(f"`no_cache` requested — deleting the cached conversion at "
                             f"{self.output_path}.")
@@ -253,9 +246,20 @@ class DatasetAdaptor(Dataset, ABC):
         """Estimate intrinsics + trajectory with COLMAP on a frame subset,
         then scale to metres and re-densify.
 
-        :param device: where COLMAP's exclusion masks are segmented; default
-            ``cuda:0``.
+        Falls back to PnP odometry against the depth maps
+        (:mod:`hive_tpu_torch.sfm`) when the COLMAP binary is unavailable,
+        as ``hive_tpu`` does.
+
+        :param device: where COLMAP's exclusion masks are segmented, or the
+            odometry runs; default ``cuda:0``.
         """
+        if not os.path.isfile(self.colmap_options.binary_path):
+            logging.warning(f"COLMAP binary not found at "
+                            f"{self.colmap_options.binary_path}; using the native "
+                            f"PnP-odometry pose estimator instead.")
+            return self._estimate_camera_parameters_native(output_depth_folder, metadata,
+                                                           device=device)
+
         if os.path.exists(output_folder):
             shutil.rmtree(output_folder)
 
@@ -298,6 +302,43 @@ class DatasetAdaptor(Dataset, ABC):
 
         camera_poses_scaled = Trajectory(camera_poses_scaled[:self.num_frames])
         return camera_matrix, camera_poses_scaled.normalise()
+
+    def _estimate_camera_parameters_native(self, output_depth_folder: str,
+                                           metadata: DatasetMetadata,
+                                           device=None) -> Tuple[np.ndarray, Trajectory]:
+        """Pose estimation without external binaries: PnP odometry against
+        the (estimated) depth maps, on ``device``. Intrinsics use the Kinect
+        prior scaled to the frame size, the static-camera path's prior."""
+        from hive_tpu_torch.sfm import estimate_camera_poses_native
+
+        camera = KinectSensor.get_camera_matrix()
+
+        if metadata.height > metadata.width:
+            camera = camera.transpose()
+
+        camera_matrix = camera.scale((metadata.height, metadata.width)).matrix
+
+        rgb_folder = pjoin(str(self.output_path), HiveDataset.rgb_folder)
+        mask_folder = pjoin(str(self.output_path), HiveDataset.mask_folder)
+
+        rgb_dataset = ImageFolderDataset(rgb_folder)
+        mask_dataset = ImageFolderDataset(mask_folder)
+
+        depth_transform = make_depth_map_transform(
+            HiveDataset.depth_scaling_factor, metadata.max_depth)
+        depth_dataset = ImageFolderDataset(output_depth_folder, transform=depth_transform)
+
+        n = min(self.num_frames, len(rgb_dataset), len(depth_dataset))
+
+        rgb_frames = tqdm_imap(rgb_dataset.__getitem__, range(n), show_progress=False)
+        depth_maps = tqdm_imap(depth_dataset.__getitem__, range(n), show_progress=False)
+        masks = tqdm_imap(mask_dataset.__getitem__, range(n), show_progress=False)
+
+        trajectory = estimate_camera_poses_native(
+            rgb_frames, depth_maps, camera_matrix, masks=masks,
+            frame_step=self.frame_step, device=device)
+
+        return camera_matrix, trajectory.normalise()
 
     def _get_scaled_colmap_camera_params(self, processor: COLMAPProcessor,
                                          output_depth_folder: str,

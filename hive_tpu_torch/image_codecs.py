@@ -14,16 +14,22 @@ and decodes the frames it reads:
   downsampling, edge padding and integer "islow" DCT: the bytes Pillow
   (libjpeg-turbo) writes for ``save(format="JPEG", quality=q)``.
 * :func:`write_image`: a frame to a file, JPEG or PNG by its extension.
-* :func:`decode_jpeg`: baseline and extended sequential Huffman JPEGs with one
-  or three components, any sampling factors of 1 or 2, restart intervals;
-  libjpeg's integer "islow" IDCT, fancy chroma upsampling and fixed-point
-  YCbCr -> RGB, so the pixels are those Pillow (libjpeg-turbo) decodes.
+* :func:`decode_jpeg`: baseline, extended sequential and progressive Huffman
+  JPEGs with one or three components, interleaved or not, any sampling
+  factors of 1 or 2, restart intervals; libjpeg's integer "islow" IDCT,
+  fancy chroma upsampling and fixed-point YCbCr -> RGB, so the pixels are
+  those Pillow (libjpeg-turbo) decodes. Progressive scans (DC and AC, first
+  and refinement, with end-of-band runs) fill the quantised coefficients of
+  every block, which then take the baseline path's IDCT. Arithmetic-coded,
+  lossless, hierarchical and four-component files are refused.
 
 Entropy coding is vectorised: every Huffman code and its extra bits become
 one token, the tokens are sorted into scan order and expanded into bits with
 numpy. Decoding runs the Huffman decode, dequantisation and IDCT in the
 native library (``native/src/jpeg_decode.cpp``); its plain version is a
-Python loop over symbols with a 16-bit lookup table and a numpy IDCT.
+Python loop over symbols with a 16-bit lookup table and a numpy IDCT. A
+progressive file's scans are Huffman-decoded into coefficients the same two
+ways, and its IDCT is the numpy one in both.
 """
 
 from __future__ import annotations
@@ -530,6 +536,159 @@ def _decode_scan(segments: List[bytes], comps: list, mcus: Tuple[int, int],
             coeffs[c["id"]].shape)
 
 
+def _progressive_blocks(comps: list, mcus: Tuple[int, int]):
+    """For each MCU of a scan, the (component id, block row, block col) of
+    its blocks, in coding order."""
+    mcu_rows, mcu_cols = mcus
+    for mcu in range(mcu_rows * mcu_cols):
+        row, col = divmod(mcu, mcu_cols)
+        yield [(c["id"], row * c["v"] + by, col * c["h"] + bx)
+               for c in comps for by in range(c["v"]) for bx in range(c["h"])]
+
+
+def _decode_progressive_scan(segments: List[bytes], comps: list, mcus: Tuple[int, int],
+                             restart: int, spectral: Tuple[int, int, int, int],
+                             coeffs: Dict[int, np.ndarray]) -> None:
+    """Huffman-decode one scan of a progressive JPEG (jdphuff.c: DC first
+    and refinement, AC first and refinement with end-of-band runs) into the
+    quantised zigzag coefficients ``coeffs`` (component id -> (rows, cols,
+    64) int32, updated in place)."""
+    ss, se, ah, al = spectral
+    p1, m1 = 1 << al, -1 << al
+    blocks = list(_progressive_blocks(comps, mcus))
+    tables = {c["id"]: c for c in comps}
+    at, segment = 0, 0
+    while at < len(blocks):
+        if segment >= len(segments):
+            raise ValueError("JPEG scan ends before its last MCU")
+        window = _windows(segments[segment])
+        segment += 1
+        pos, eobrun = 0, 0
+        predictions = {c["id"]: 0 for c in comps}
+        stop = len(blocks) if not restart else min(len(blocks), at + restart)
+
+        def bits(n):
+            nonlocal pos
+            value = window[pos] >> (16 - n) if n else 0
+            pos += n
+            return value
+
+        def symbol(table):
+            nonlocal pos
+            sym, length = table
+            w = window[pos]
+            if length[w] == 0:
+                raise ValueError("corrupt JPEG: no Huffman code matches")
+            pos += length[w]
+            return sym[w]
+
+        for mcu in blocks[at:stop]:
+            for cid, brow, bcol in mcu:
+                block = coeffs[cid][brow, bcol]
+                c = tables[cid]
+                if ss == 0:                                     # DC scans
+                    if ah == 0:
+                        size = symbol(c["dc"])
+                        if size > 15:
+                            raise ValueError("corrupt JPEG: DC magnitude category over 15")
+                        diff = _extend(bits(size), size) if size else 0
+                        predictions[cid] += diff
+                        block[0] = predictions[cid] * p1
+                    elif bits(1):
+                        block[0] |= p1
+                    continue
+                if ah == 0:                                     # AC first
+                    if eobrun:
+                        eobrun -= 1
+                        continue
+                    k = ss
+                    while k <= se:
+                        sym = symbol(c["ac"])
+                        run, size = sym >> 4, sym & 15
+                        if size:
+                            k += run
+                            if k > 63:
+                                raise ValueError("corrupt JPEG: coefficient past 63")
+                            block[k] = _extend(bits(size), size) * p1
+                        elif run == 15:
+                            k += 15
+                        else:
+                            eobrun = (1 << run) + bits(run) - 1
+                            break
+                        k += 1
+                    continue
+                k = ss                                          # AC refinement
+                if eobrun == 0:
+                    while k <= se:
+                        sym = symbol(c["ac"])
+                        run, size = sym >> 4, sym & 15
+                        value = 0
+                        if size:
+                            value = p1 if bits(1) else m1
+                        elif run != 15:
+                            eobrun = (1 << run) + bits(run)
+                            break
+                        while k <= se:
+                            if block[k]:
+                                if bits(1) and not block[k] & p1:
+                                    block[k] += p1 if block[k] >= 0 else m1
+                            else:
+                                run -= 1
+                                if run < 0:
+                                    break
+                            k += 1
+                        if value and k <= se:
+                            block[k] = value
+                        k += 1
+                if eobrun > 0:
+                    while k <= se:
+                        if block[k] and bits(1) and not block[k] & p1:
+                            block[k] += p1 if block[k] >= 0 else m1
+                        k += 1
+                    eobrun -= 1
+        at = stop
+
+
+def _decode_progressive_scan_native(segments: List[bytes], comps: list,
+                                    mcus: Tuple[int, int], restart: int,
+                                    spectral: Tuple[int, int, int, int],
+                                    coeffs: Dict[int, np.ndarray]) -> None:
+    """:func:`_decode_progressive_scan` in the native library."""
+    import ctypes
+
+    from hive_tpu_torch import native
+
+    lib = native.get_native_lib()
+    if lib is None:
+        raise RuntimeError("the native library did not build; decode with native=False")
+    offsets = np.cumsum([0] + [len(s) for s in segments]).astype(np.int64)
+    data = np.frombuffer(b"".join(segments) or b"\0", np.uint8)
+    h = np.array([c["h"] for c in comps], np.int32)
+    v = np.array([c["v"] for c in comps], np.int32)
+    outputs = [coeffs[c["id"]] for c in comps]
+    if any(not (o.flags.c_contiguous and o.dtype == np.int32 and o.shape[0] >= mcus[0] * c["v"]
+                and o.shape[1] >= mcus[1] * c["h"]) for o, c in zip(outputs, comps)):
+        raise ValueError("JPEG coefficient arrays do not hold the scan's blocks")
+    cols = np.array([o.shape[1] for o in outputs], np.int64)
+    dc = np.stack([c["dc"] for c in comps])
+    ac = np.stack([c["ac"] for c in comps])
+    pointers = (ctypes.c_void_p * len(comps))(*(o.ctypes.data for o in outputs))
+
+    def ptr(a, kind):
+        return a.ctypes.data_as(ctypes.POINTER(kind))
+
+    status = lib.hive_jpeg_decode_progressive_scan(
+        ptr(data, ctypes.c_uint8), ptr(offsets, ctypes.c_int64), len(segments), len(comps),
+        ptr(h, ctypes.c_int32), ptr(v, ctypes.c_int32), ptr(cols, ctypes.c_int64),
+        ptr(dc, ctypes.c_uint8), ptr(ac, ctypes.c_uint8), mcus[0], mcus[1], restart,
+        *spectral, pointers)
+    if status:
+        raise ValueError({-1: "corrupt JPEG: no Huffman code matches",
+                          -3: "corrupt JPEG: coefficient past 63",
+                          -4: "JPEG scan ends before its last MCU",
+                          -5: "corrupt JPEG: DC magnitude category over 15"}[status])
+
+
 def _scan_segments(blob: bytes, start: int) -> Tuple[List[bytes], int]:
     """Split the entropy-coded data from ``start`` at restart markers and
     remove byte stuffing; return the segments and the position of the
@@ -699,9 +858,9 @@ def _huffman_spec(counts: List[int], symbols: List[int]) -> np.ndarray:
 
 
 def decode_jpeg(blob: bytes, native: Optional[bool] = None) -> np.ndarray:
-    """Decode a baseline (or extended sequential Huffman) JPEG to the pixels
-    libjpeg's default decode gives (islow IDCT, fancy upsampling), which are
-    Pillow's.
+    """Decode a baseline, extended sequential or progressive Huffman JPEG to
+    the pixels libjpeg's default decode gives (islow IDCT, fancy upsampling),
+    which are Pillow's.
 
     :param native: decode the scans in the native library (True) or with
         the Python symbol loop and numpy (False); by default native when the
@@ -720,6 +879,10 @@ def decode_jpeg(blob: bytes, native: Optional[bool] = None) -> np.ndarray:
     huffman: Dict[Tuple[int, int], Tuple[List[int], List[int]]] = {}
     frame = None
     planes: Dict[int, np.ndarray] = {}
+    # A progressive frame's quantised coefficients, and each component's
+    # quantisation table as latched at its first scan.
+    coeffs: Dict[int, np.ndarray] = {}
+    latched: Dict[int, np.ndarray] = {}
     restart = 0
     pos = 2
     while pos < len(blob):
@@ -754,7 +917,7 @@ def decode_jpeg(blob: bytes, native: Optional[bool] = None) -> np.ndarray:
                 symbols = list(body[at + 17:at + 17 + sum(counts)])
                 huffman[table_class, table_id] = (counts, symbols)
                 at += 17 + sum(counts)
-        elif marker in (0xC0, 0xC1):                        # SOF0 / SOF1
+        elif marker in (0xC0, 0xC1, 0xC2):                  # SOF0 / SOF1 / SOF2
             precision, height, width, count = struct.unpack(">BHHB", body[:6])
             if precision != 8:
                 raise NotImplementedError(f"{precision}-bit JPEG samples are not supported")
@@ -762,9 +925,16 @@ def decode_jpeg(blob: bytes, native: Optional[bool] = None) -> np.ndarray:
                 raise NotImplementedError(f"JPEG with {count} components is not supported")
             comps = [dict(id=body[6 + 3 * i], h=body[7 + 3 * i] >> 4,
                           v=body[7 + 3 * i] & 15, q=body[8 + 3 * i]) for i in range(count)]
-            frame = dict(height=height, width=width, comps=comps)
-        elif 0xC2 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-            raise NotImplementedError(f"JPEG frame type 0x{marker:02X} (progressive, lossless "
+            frame = dict(height=height, width=width, comps=comps, progressive=marker == 0xC2)
+            if frame["progressive"]:
+                h_max = max(c["h"] for c in comps)
+                v_max = max(c["v"] for c in comps)
+                for c in comps:
+                    coeffs[c["id"]] = np.zeros(
+                        (-(-height // (8 * v_max)) * c["v"], -(-width // (8 * h_max)) * c["h"],
+                         64), np.int32)
+        elif 0xC3 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            raise NotImplementedError(f"JPEG frame type 0x{marker:02X} (lossless, hierarchical "
                                       f"or arithmetic) is not supported")
         elif marker == 0xDD:                                # DRI
             (restart,) = struct.unpack(">H", body[:2])
@@ -777,17 +947,21 @@ def decode_jpeg(blob: bytes, native: Optional[bool] = None) -> np.ndarray:
             mcu_cols = -(-frame["width"] // (8 * h_max))
             by_id = {c["id"]: c for c in frame["comps"]}
             scan = []
-            for i in range(body[0]):
+            count = body[0]
+            spectral = (body[1 + 2 * count], body[2 + 2 * count],
+                        body[3 + 2 * count] >> 4, body[3 + 2 * count] & 15)
+            for i in range(count):
                 c = dict(by_id[body[1 + 2 * i]])
-                dc, ac = huffman[0, body[2 + 2 * i] >> 4], huffman[1, body[2 + 2 * i] & 15]
+                dc = huffman.get((0, body[2 + 2 * i] >> 4))
+                ac = huffman.get((1, body[2 + 2 * i] & 15))
                 if native:
-                    c["dc"], c["ac"] = _huffman_spec(*dc), _huffman_spec(*ac)
+                    c["dc"], c["ac"] = (_huffman_spec(*t) if t else _huffman_spec([0] * 16, [])
+                                        for t in (dc, ac))
                     c["quant"] = quant[c["q"]]
                 else:
-                    c["dc"], c["ac"] = _lookup_table(*dc), _lookup_table(*ac)
+                    c["dc"], c["ac"] = (_lookup_table(*t) if t else _lookup_table([0] * 16, [])
+                                        for t in (dc, ac))
                 scan.append(c)
-            if len(scan) != len(frame["comps"]):
-                raise NotImplementedError("non-interleaved JPEG scans are not supported")
             if len(scan) == 1:
                 # One component is coded block by block, not in MCUs.
                 c = scan[0]
@@ -797,17 +971,26 @@ def decode_jpeg(blob: bytes, native: Optional[bool] = None) -> np.ndarray:
             else:
                 mcus = (mcu_rows, mcu_cols)
             segments, pos = _scan_segments(blob, pos)
-            if native:
+            if frame["progressive"]:
+                for c in scan:
+                    latched.setdefault(c["id"], quant[c["q"]])
+                decode = _decode_progressive_scan_native if native else _decode_progressive_scan
+                decode(segments, scan, mcus, restart, spectral, coeffs)
+            elif native:
                 for c in scan:
                     planes[c["id"]] = np.zeros((mcus[0] * c["v"] * 8, mcus[1] * c["h"] * 8),
                                                np.uint8)
                 _decode_scan_native(segments, scan, mcus, restart, planes)
             else:
-                coeffs = {c["id"]: np.zeros((mcus[0] * c["v"], mcus[1] * c["h"], 64), np.int64)
-                          for c in scan}
-                _decode_scan(segments, scan, mcus, restart, coeffs)
+                scan_coeffs = {c["id"]: np.zeros((mcus[0] * c["v"], mcus[1] * c["h"], 64),
+                                                 np.int64) for c in scan}
+                _decode_scan(segments, scan, mcus, restart, scan_coeffs)
                 for c in scan:
-                    planes[c["id"]] = _idct_planes(coeffs[c["id"]], quant[c["q"]])
+                    planes[c["id"]] = _idct_planes(scan_coeffs[c["id"]], quant[c["q"]])
+
+    if frame is not None and frame["progressive"] and latched:
+        for c in frame["comps"]:
+            planes[c["id"]] = _idct_planes(coeffs[c["id"]], latched.get(c["id"], quant.get(c["q"])))
 
     if frame is None or not planes:
         raise ValueError("corrupt JPEG: no frame or no scan")

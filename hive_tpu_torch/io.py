@@ -167,12 +167,27 @@ def _unpack_samples(rows: np.ndarray, width: int, depth: int) -> np.ndarray:
     return (bits * weights).sum(axis=-1, dtype=np.uint8)[:, :width]
 
 
+# Adam7's passes: (first column, first row, column step, row step).
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+
+
+def _png_rows(raw: bytes, height: int, width: int, channels: int, depth: int,
+              native: Optional[bool]) -> np.ndarray:
+    """Unfilter one (sub)image: (H, W) samples for depths under 8 bits,
+    (H, W * bytes per pixel) bytes otherwise."""
+    bpp = max(1, channels * depth // 8)
+    rows = _png_unfilter(raw, height, -(-width * channels * depth // 8), bpp, native)
+    return _unpack_samples(rows, width, depth) if depth < 8 else rows
+
+
 def decode_png(blob: bytes, native: Optional[bool] = None) -> np.ndarray:
-    """Decode a non-interlaced PNG into the arrays Pillow gives the HIVE
-    loader: 8-bit grey (H, W) uint8, 2- and 4-bit grey scaled to it, 16-bit
-    grey (H, W) uint16, and everything else as (H, W, 3) uint8 RGB (alpha
-    dropped, grey+alpha replicated, 1-bit grey as 0 / 255, palettes looked
-    up, 16-bit colour reduced to its high byte).
+    """Decode a PNG, interlaced (Adam7, each pass unfiltered on its own) or
+    not, into the arrays Pillow gives the HIVE loader: 8-bit grey (H, W)
+    uint8, 2- and 4-bit grey scaled to it, 16-bit grey (H, W) uint16, and
+    everything else as (H, W, 3) uint8 RGB (alpha dropped, grey+alpha
+    replicated, 1-bit grey as 0 / 255, palettes looked up, 16-bit colour
+    reduced to its high byte).
 
     :param native: unfilter natively (True) or in numpy (False); by default
         natively when the native library builds.
@@ -205,16 +220,26 @@ def decode_png(blob: bytes, native: Optional[bool] = None) -> np.ndarray:
     if colour not in _PNG_CHANNELS or depth not in _PNG_DEPTHS[colour]:
         raise NotImplementedError(f"PNG colour type {colour} at bit depth "
                                   f"{depth} is not supported")
-    if interlace:
-        raise NotImplementedError("interlaced PNGs are not supported")
-
     channels = _PNG_CHANNELS[colour]
-    bpp = max(1, channels * depth // 8)
-    pixels = _png_unfilter(zlib.decompress(b"".join(idat)), height,
-                           -(-width * channels * depth // 8), bpp, native)
+    raw = zlib.decompress(b"".join(idat))
+    if not interlace:
+        pixels = _png_rows(raw, height, width, channels, depth, native)
+    else:
+        unit = 1 if depth < 8 else channels * depth // 8
+        full = np.zeros((height, width, unit), np.uint8)
+        at = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pass_w, pass_h = -(-(width - x0) // dx), -(-(height - y0) // dy)
+            if pass_w <= 0 or pass_h <= 0:
+                continue
+            size = pass_h * (-(-pass_w * channels * depth // 8) + 1)
+            rows = _png_rows(raw[at:at + size], pass_h, pass_w, channels, depth, native)
+            full[y0::dy, x0::dx] = rows.reshape(pass_h, pass_w, unit)
+            at += size
+        pixels = full.reshape(height, width * unit)
 
     if depth < 8:
-        samples = _unpack_samples(pixels, width, depth)
+        samples = pixels
         if colour == 3:
             return palette[samples]
         if depth == 1:

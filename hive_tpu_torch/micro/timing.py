@@ -73,9 +73,10 @@ def device_profile(fn: Callable[[], object], reps: int = 50, warmup: int = 5, *,
     (a few, up to a few dozen), which would drop calls from the sums. So the
     calls run between two runs of marker kernels (MARKERS of them, and more
     until BRACKET_S has passed), and a trace counts only if its earliest and
-    its latest device events are markers; otherwise it is taken again, so
-    ``fn`` may run more than ``warmup + reps`` times. Raises if ATTEMPTS
-    traces all failed that, or if the trace holds no device time."""
+    its latest device events are markers and the calls between them hold
+    device time (a late trace has also dropped every call between intact
+    markers); otherwise it is taken again, so ``fn`` may run more than
+    ``warmup + reps`` times. Raises if ATTEMPTS traces all failed that."""
     global retakes
     if setup is not None and kernel is None:
         raise ValueError("a setup's device work needs a kernel name to leave it out")
@@ -106,20 +107,20 @@ def device_profile(fn: Callable[[], object], reps: int = 50, warmup: int = 5, *,
                 call()
             bracket()
         events = device_events(prof)
-        if events and MARKER in events[0].name and MARKER in events[-1].name:
+        calls = [e for e in events
+                 if MARKER not in e.name and (kernel is None or kernel in e.name)]
+        total_us = sum(e.time_range.elapsed_us() for e in calls)
+        if events and MARKER in events[0].name and MARKER in events[-1].name and total_us > 0:
             break
         lost.append((len(events), sum(MARKER in e.name for e in events),
                      events[0].name[:40] if events else None,
-                     events[-1].name[:40] if events else None))
-        logging.warning(f"profiler trace {attempt + 1} lost its first or last kernels "
-                        f"(events, markers, first, last): {lost[-1]}")
+                     events[-1].name[:40] if events else None, total_us))
+        logging.warning(f"profiler trace {attempt + 1} lost its first or last kernels, or "
+                        f"every call's (events, markers, first, last, call us): {lost[-1]}")
     else:
-        raise RuntimeError(f"{ATTEMPTS} profiler traces lost their first or last kernels "
-                           f"(events, markers, first, last): {lost}")
-    calls = [e for e in events if MARKER not in e.name and (kernel is None or kernel in e.name)]
+        raise RuntimeError(f"{ATTEMPTS} profiler traces lost their first or last kernels, or "
+                           f"held no device time for the calls (events, markers, first, "
+                           f"last, call us): {lost}")
     if kernel is not None and len(calls) != reps:
         raise RuntimeError(f"{len(calls)} {kernel} kernels traced in {reps} calls")
-    total_us = sum(e.time_range.elapsed_us() for e in calls)
-    if total_us <= 0:
-        raise RuntimeError("the profiler's trace holds no device time")
     return total_us / reps / 1e3, len(calls) / reps

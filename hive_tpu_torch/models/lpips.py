@@ -94,15 +94,21 @@ class LPIPSScorer:
         return float(self.model(prepare(image_a), prepare(image_b))[0])
 
 
-def load_scorer(device=None) -> Optional[LPIPSScorer]:
-    """The scorer with ``$WEIGHTS_PATH/lpips_alex.npz``, or ``None`` without
-    the file (or with a file that does not load, with a warning)."""
-    path = os.path.join(os.environ.get("WEIGHTS_PATH", "weights"), WEIGHTS_FILENAME)
+def load_scorer(weights_filename: str = WEIGHTS_FILENAME, *,
+                device=None) -> Optional[LPIPSScorer]:
+    """The scorer with ``$WEIGHTS_PATH/<weights_filename>``, or ``None``
+    without the file (or with a file that does not load, with a warning).
+
+    :param device: where the scorer runs; default ``cuda:0``.
+    """
+    from hive_tpu_torch.models.segmentation import _LOAD_ERRORS
+
+    path = os.path.join(os.environ.get("WEIGHTS_PATH", "weights"), weights_filename)
     if not os.path.isfile(path):
         return None
     try:
         return LPIPSScorer(path, device)
-    except (KeyError, ValueError, OSError) as exc:
+    except _LOAD_ERRORS as exc:
         logging.warning(f"Could not load LPIPS weights ({exc}).")
         return None
 

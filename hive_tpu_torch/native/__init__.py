@@ -1,6 +1,6 @@
 """Native (C++) host code, loaded via ctypes: the extraction weld, the
-QEM decimation, the JPEG scan decode, the PNG unfilter and Telea's
-inpainting.
+QEM decimation, the JPEG scan decodes (baseline and progressive), the PNG
+unfilter and Telea's inpainting.
 
 Counterpart of ``hive_tpu/native`` (``src/weld.cpp`` and
 ``src/qem_decimate.cpp`` are copies of the JAX package's, built with the same
@@ -163,6 +163,15 @@ def get_native_lib() -> Optional[ctypes.CDLL]:
             ct.POINTER(ct.c_int64), ct.POINTER(ct.c_uint8), ct.POINTER(ct.c_uint8),
             ct.POINTER(ct.c_int32), ct.c_int64, ct.c_int64, ct.c_int64,
             ct.POINTER(ct.c_void_p),
+        ]
+
+        lib.hive_jpeg_decode_progressive_scan.restype = ct.c_int
+        lib.hive_jpeg_decode_progressive_scan.argtypes = [
+            ct.POINTER(ct.c_uint8), ct.POINTER(ct.c_int64), ct.c_int64,
+            ct.c_int32, ct.POINTER(ct.c_int32), ct.POINTER(ct.c_int32),
+            ct.POINTER(ct.c_int64), ct.POINTER(ct.c_uint8), ct.POINTER(ct.c_uint8),
+            ct.c_int64, ct.c_int64, ct.c_int64, ct.c_int32, ct.c_int32, ct.c_int32,
+            ct.c_int32, ct.POINTER(ct.c_void_p),
         ]
 
         lib.hive_png_unfilter.restype = ct.c_int

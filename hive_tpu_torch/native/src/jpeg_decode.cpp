@@ -238,3 +238,132 @@ extern "C" int hive_jpeg_decode_scan(
     }
     return 0;
 }
+
+// Decode one scan of a progressive JPEG (jdphuff.c) into quantised
+// coefficients: DC first (Ss = 0, Ah = 0) and refinement (Ah > 0) scans,
+// AC first and refinement scans with end-of-band runs.
+//
+// Native counterpart of hive_tpu_torch/image_codecs.py's
+// `_decode_progressive_scan`; the same segments, components and MCU grid
+// as `hive_jpeg_decode_scan`, and per component an int32 array of
+// (rows, block_cols[c], 64) zigzag coefficients, updated in place.
+// Returns 0, or -1 when no Huffman code matches, -3 for a coefficient past
+// 63, -4 when the scan ends before its last MCU, -5 for a DC magnitude
+// category over 15.
+extern "C" int hive_jpeg_decode_progressive_scan(
+    const uint8_t* data, const int64_t* seg_offsets, int64_t num_segments,
+    int32_t ncomp, const int32_t* h, const int32_t* v, const int64_t* block_cols,
+    const uint8_t* dc_specs, const uint8_t* ac_specs, int64_t mcu_rows, int64_t mcu_cols,
+    int64_t restart, int32_t ss, int32_t se, int32_t ah, int32_t al,
+    int32_t* const* coeffs) {
+    const int kSpec = 16 + 256;
+    std::vector<Huffman> dc, ac;
+    dc.reserve(ncomp);
+    ac.reserve(ncomp);
+    for (int c = 0; c < ncomp; ++c) {
+        dc.emplace_back(dc_specs + c * kSpec);
+        ac.emplace_back(ac_specs + c * kSpec);
+    }
+    const int32_t p1 = 1 << al;
+    const int32_t m1 = -p1;
+
+    const int64_t total = mcu_rows * mcu_cols;
+    int64_t mcu = 0;
+    for (int64_t segment = 0; mcu < total; ++segment) {
+        if (segment >= num_segments) {
+            return -4;
+        }
+        Bits bits{data + seg_offsets[segment], seg_offsets[segment + 1] - seg_offsets[segment]};
+        std::vector<int32_t> prediction(ncomp, 0);
+        int64_t eobrun = 0;
+        const int64_t stop = restart ? (total < mcu + restart ? total : mcu + restart) : total;
+        for (; mcu < stop; ++mcu) {
+            const int64_t mrow = mcu / mcu_cols, mcol = mcu % mcu_cols;
+            for (int c = 0; c < ncomp; ++c) {
+                for (int by = 0; by < v[c]; ++by) {
+                    for (int bx = 0; bx < h[c]; ++bx) {
+                        const int64_t row = mrow * v[c] + by, col = mcol * h[c] + bx;
+                        int32_t* block = coeffs[c] + (row * block_cols[c] + col) * 64;
+                        if (ss == 0) {  // DC scans
+                            if (ah == 0) {
+                                uint32_t w = bits.peek16();
+                                if (dc[c].length[w] == 0) return -1;
+                                bits.skip(dc[c].length[w]);
+                                const int size = dc[c].symbol[w];
+                                if (size > 15) return -5;
+                                if (size) prediction[c] += extend(bits.get(size), size);
+                                block[0] = prediction[c] * p1;
+                            } else if (bits.get(1)) {
+                                block[0] |= p1;
+                            }
+                            continue;
+                        }
+                        if (ah == 0) {  // AC first
+                            if (eobrun) {
+                                --eobrun;
+                                continue;
+                            }
+                            for (int k = ss; k <= se; ++k) {
+                                uint32_t w = bits.peek16();
+                                if (ac[c].length[w] == 0) return -1;
+                                bits.skip(ac[c].length[w]);
+                                const int symbol = ac[c].symbol[w];
+                                const int run = symbol >> 4, size = symbol & 15;
+                                if (size) {
+                                    k += run;
+                                    if (k > 63) return -3;
+                                    block[k] = extend(bits.get(size), size) * p1;
+                                } else if (run == 15) {
+                                    k += 15;
+                                } else {
+                                    eobrun = (int64_t(1) << run) + (run ? bits.get(run) : 0) - 1;
+                                    break;
+                                }
+                            }
+                            continue;
+                        }
+                        int k = ss;  // AC refinement
+                        if (eobrun == 0) {
+                            for (; k <= se; ++k) {
+                                uint32_t w = bits.peek16();
+                                if (ac[c].length[w] == 0) return -1;
+                                bits.skip(ac[c].length[w]);
+                                const int symbol = ac[c].symbol[w];
+                                int run = symbol >> 4;
+                                const int size = symbol & 15;
+                                int32_t value = 0;
+                                if (size) {
+                                    value = bits.get(1) ? p1 : m1;
+                                } else if (run != 15) {
+                                    eobrun = (int64_t(1) << run) + (run ? bits.get(run) : 0);
+                                    break;
+                                }
+                                for (; k <= se; ++k) {
+                                    int32_t& coef = block[k];
+                                    if (coef != 0) {
+                                        if (bits.get(1) && (coef & p1) == 0) {
+                                            coef += coef >= 0 ? p1 : m1;
+                                        }
+                                    } else if (--run < 0) {
+                                        break;
+                                    }
+                                }
+                                if (value && k <= se) block[k] = value;
+                            }
+                        }
+                        if (eobrun > 0) {
+                            for (; k <= se; ++k) {
+                                int32_t& coef = block[k];
+                                if (coef != 0 && bits.get(1) && (coef & p1) == 0) {
+                                    coef += coef >= 0 ? p1 : m1;
+                                }
+                            }
+                            --eobrun;
+                        }
+                    }
+                }
+            }
+        }
+    }
+    return 0;
+}

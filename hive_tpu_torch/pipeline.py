@@ -129,6 +129,14 @@ class Pipeline:
         return self.options.num_frames
 
     @property
+    def estimate_pose(self) -> bool:
+        return self.options.estimate_pose
+
+    @property
+    def estimate_depth(self) -> bool:
+        return self.options.estimate_depth
+
+    @property
     def mesh_path(self) -> str:
         return pjoin(str(self.storage_options.output_path), self.mesh_folder)
 

@@ -18,10 +18,10 @@ losses on the device and the host reads them once per chunk, as
 scalar. ReduceLROnPlateau, early stopping and checkpoints run on the host
 between chunks, as in the JAX package.
 
-Not ported yet: SIFT + FLANN + MAGSAC feature extraction (``hive_tpu`` runs
-it with OpenCV on the host, which the card's machine lacks). A cached
-``feature_set.npz`` from either package is read; where extraction would run,
-:class:`FeatureExtractor` refuses naming ROADMAP Queue 1 item 12b.
+:class:`FeatureExtractor` detects SIFT features, matches them and filters
+them with a robust homography on the device (``hive_tpu`` runs those steps
+with OpenCV on the host); a cached ``feature_set.npz`` from either package is
+reused.
 """
 
 from __future__ import annotations
@@ -42,7 +42,10 @@ from hive_tpu_torch import get_device
 from hive_tpu_torch.core import transforms as T
 from hive_tpu_torch.geometric import (Trajectory, add_pose, get_identity_pose,
                                       point_cloud_from_depth, subtract_pose)
+from hive_tpu_torch.image_codecs import CV2_JPEG_QUALITY, write_image
 from hive_tpu_torch.io import HiveDataset
+from hive_tpu_torch.ops import homography, matching, sift
+from hive_tpu_torch.sfm import RANSAC_SEED
 from hive_tpu_torch.utils import Domain, check_domain, not_ported, temp_seed, tqdm_imap
 
 
@@ -181,7 +184,7 @@ class FeatureSet:
 
 
 # ---------------------------------------------------------------------------
-# Feature extraction (the cached feature set).
+# Feature extraction.
 # ---------------------------------------------------------------------------
 
 class FeatureExtractionOptions:
@@ -212,42 +215,72 @@ class FeatureExtractionOptions:
 
 
 class FeatureExtractor:
-    """The correspondences of the frame pairs, from the feature-set cache.
+    """SIFT + exact k-NN matching with ratio / depth / homography filtering,
+    on the device.
 
-    ``hive_tpu``'s extractor detects SIFT features, matches them with FLANN
-    and filters them with a MAGSAC homography, with OpenCV on the host. The
-    port keeps its cache exactly (``frame_pairs.txt``, ``feature_options.json``
-    and ``feature_set.npz`` under ``debug_path``): a cache that is valid for
-    these frame pairs and options loads. Extraction itself is not ported
-    (ROADMAP Queue 1 item 12b) and is refused before anything is written.
+    ``hive_tpu``'s extractor runs SIFT, FLANN and a MAGSAC homography with
+    OpenCV on the host; here they are :mod:`hive_tpu_torch.ops.sift`,
+    :mod:`~hive_tpu_torch.ops.matching` and
+    :mod:`~hive_tpu_torch.ops.homography` on ``device``. The cache is
+    ``hive_tpu``'s (``frame_pairs.txt``, ``feature_options.json`` and
+    ``feature_set.npz`` under ``debug_path``), so either package reuses the
+    other's feature set.
     """
 
     def __init__(self, dataset: HiveDataset, frame_pairs: FramePairs,
                  feature_extraction_options=FeatureExtractionOptions(),
-                 debug_path: Optional[str] = None):
+                 debug_path: Optional[str] = None, device=None):
+        """:param device: where features are detected and matched; default
+        ``cuda:0``. Each pair's homography samples come from a generator
+        seeded with ``sfm.RANSAC_SEED``."""
         self.dataset = dataset
         self.frame_pairs = frame_pairs
         self.options = feature_extraction_options
         self.debug_path = debug_path
         self.feature_set_path: Optional[str] = None
         self.frame_pairs_path: Optional[str] = None
+        self.device = get_device(device)
+
+        self.frames: Optional[List[torch.Tensor]] = None
+        self.depth_maps: Optional[List[torch.Tensor]] = None
+        self.masks: Optional[List[torch.Tensor]] = None
+        self._detect_cache: Dict[int, "sift.SiftFeatures"] = {}
 
     def extract_feature_points(self) -> FeatureSet:
         logging.info("Detecting and matching image features...")
+        self._setup_cache()
 
-        if self._cache_is_valid():
+        if self.feature_set_path and os.path.isfile(self.feature_set_path):
             logging.info(f"Reusing the cached feature set {self.feature_set_path}")
             return FeatureSet.load(self.feature_set_path)
 
-        raise not_ported("Feature extraction (SIFT/FLANN/MAGSAC)", "Queue 1 item 12b")
+        self._load_frame_data()
 
-    def _cache_is_valid(self) -> bool:
-        """Whether ``hive_tpu``'s ``_setup_cache`` would keep the cached
-        feature set: the same frame pairs, the same options fingerprint, and
-        the file there."""
+        good = [r for r in map(self._match_pair, self.frame_pairs) if r is not None]
+        if good:
+            frame_i = FeatureData.concatenate([g.frame_i for g in good])
+            frame_j = FeatureData.concatenate([g.frame_j for g in good])
+        else:
+            frame_i = frame_j = FeatureData(np.zeros(0, np.int64), np.zeros((0, 2), np.float32),
+                                            np.zeros(0, np.float32))
+        feature_set = FeatureSet(camera_matrix=self.dataset.camera_matrix.copy(),
+                                 frame_i=frame_i, frame_j=frame_j)
+
+        self._log_stats(feature_set, num_good_pairs=len(good))
+
+        if self.feature_set_path:
+            feature_set.save(self.feature_set_path)
+
+        return feature_set
+
+    def _setup_cache(self):
+        """``hive_tpu``'s cache check: keep ``feature_set.npz`` only for the
+        same frame pairs and options fingerprint; otherwise delete it and
+        write this run's pairs and fingerprint."""
         if self.debug_path is None:
-            return False
+            return
 
+        os.makedirs(self.debug_path, exist_ok=True)
         self.frame_pairs_path = pjoin(self.debug_path, "frame_pairs.txt")
         self.feature_set_path = pjoin(self.debug_path, "feature_set.npz")
         options_path = pjoin(self.debug_path, "feature_options.json")
@@ -266,7 +299,163 @@ class FeatureExtractor:
             except OSError:
                 keep_cache = False
 
-        return keep_cache and os.path.isfile(self.feature_set_path)
+        if not keep_cache:
+            if os.path.isfile(self.feature_set_path):
+                os.remove(self.feature_set_path)
+            np.savetxt(self.frame_pairs_path, np.asarray(self.frame_pairs))
+            with open(options_path, "w") as f:
+                f.write(options_fingerprint)
+
+    def _load_frame_data(self):
+        """Grey frames, depth maps and (with ``ignore_dynamic_objects``) the
+        SIFT masks of the static regions, on the device."""
+        logging.info("Loading frames...")
+        num_frames = self.dataset.num_frames
+
+        def to_device(image):
+            return torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
+
+        self.frames = [sift.rgb_to_grey(to_device(frame)) for frame in
+                       tqdm_imap(self.dataset.rgb_dataset.__getitem__, range(num_frames))]
+
+        logging.info("Reading the depth maps into memory...")
+        self.depth_maps = [to_device(depth) for depth in
+                           tqdm_imap(self.dataset.depth_dataset.__getitem__, range(num_frames))]
+
+        if self.options.ignore_dynamic_objects:
+            logging.info("Loading masks...")
+            # SIFT mask: nonzero = detect here; exclude dynamic objects.
+            self.masks = [torch.where(to_device(mask) > 0, 0, 255).to(torch.uint8) for mask in
+                          tqdm_imap(self.dataset.mask_dataset.__getitem__, range(num_frames))]
+        else:
+            self.masks = None
+
+    def _detect(self, index: int) -> "sift.SiftFeatures":
+        """SIFT of frame ``index``, once per frame (each frame appears in
+        several pairs)."""
+        cache = getattr(self, "_detect_cache", None)
+        if cache is None:
+            cache = self._detect_cache = {}
+        cached = cache.get(index)
+        if cached is None:
+            mask = self.masks[index] if self.masks is not None else None
+            cached = sift.detect_and_compute(self.frames[index], mask,
+                                             nfeatures=self.options.max_features or 0)
+            cache[index] = cached
+        return cached
+
+    def _match_pair(self, frame_pair: FramePair) -> Optional[FeatureSet]:
+        i, j = frame_pair
+
+        kp_i, kp_j = self._detect(i), self._detect(j)
+        if min(len(kp_i), len(kp_j)) < self.options.min_features:
+            return None
+
+        # Lowe's ratio test: reject m > 0.7 n.
+        matches = matching.match_descriptors(kp_i.descriptors, kp_j.descriptors, 0.7,
+                                             strict=False)
+        pt_i, pt_j = kp_i.xy[matches[:, 0]], kp_j.xy[matches[:, 1]]
+        depth_i = self.depth_maps[i][torch.round(pt_i[:, 1]).long(), torch.round(pt_i[:, 0]).long()]
+        depth_j = self.depth_maps[j][torch.round(pt_j[:, 1]).long(), torch.round(pt_j[:, 0]).long()]
+        keep = (depth_i != 0) & (depth_j != 0)
+        if int(keep.sum()) < self.options.min_features:
+            return None
+
+        pt_i, pt_j = pt_i[keep], pt_j[keep]
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(RANSAC_SEED)
+        # Robust geometric filter (the MAGSAC homography of hive_tpu).
+        _, inlier_mask = homography.find_homography(pt_i, pt_j, generator=generator)
+        if inlier_mask is None:
+            return None
+
+        points_i = pt_i.cpu().numpy().astype(np.float32)
+        points_j = pt_j.cpu().numpy().astype(np.float32)
+        depths_i = depth_i[keep].cpu().numpy().astype(np.float32)
+        depths_j = depth_j[keep].cpu().numpy().astype(np.float32)
+        inliers = inlier_mask.cpu().numpy()
+
+        if self.options.save_match_visualisations and self.debug_path:
+            self._save_matches_visualisation(frame_pair, points_i, points_j, inliers)
+
+        if inliers.sum() < self.options.min_features:
+            return None
+
+        n_matches = int(inliers.sum())
+        return FeatureSet(
+            camera_matrix=self.dataset.camera_matrix.copy(),
+            frame_i=FeatureData(np.full(n_matches, i, dtype=np.int64),
+                                points_i[inliers], depths_i[inliers]),
+            frame_j=FeatureData(np.full(n_matches, j, dtype=np.int64),
+                                points_j[inliers], depths_j[inliers]),
+        )
+
+    def _save_matches_visualisation(self, frame_pair: FramePair, points_i: np.ndarray,
+                                    points_j: np.ndarray, inliers: np.ndarray):
+        """Side-by-side accepted (green) and rejected (red) match JPEGs of a
+        frame pair under ``<debug_path>/matches/``, named, sized and drawn
+        between the same endpoints as ``hive_tpu``'s; drawn by
+        :func:`draw_matches` and written at OpenCV's JPEG quality."""
+        i, j = frame_pair
+        viz_dir = pjoin(self.debug_path, "matches")
+        os.makedirs(viz_dir, exist_ok=True)
+
+        frame_i, frame_j = self.frames[i].cpu().numpy(), self.frames[j].cpu().numpy()
+        for mask, colour, suffix in ((inliers, (0, 192, 0), "accepted"),
+                                     (~inliers, (224, 0, 0), "rejected")):
+            canvas = draw_matches(frame_i, frame_j, points_i[mask], points_j[mask], colour)
+            write_image(pjoin(viz_dir, f"{i:06d}-{j:06d}-{suffix}.jpg"), canvas,
+                        jpeg_quality=CV2_JPEG_QUALITY)
+
+    def _log_stats(self, feature_set: FeatureSet, num_good_pairs: int):
+        covered = set(feature_set.frame_i.index.tolist()) \
+            | set(feature_set.frame_j.index.tolist())
+        coverage = len(covered) / max(self.dataset.num_frames, 1)
+
+        logging.info(f"Usable frame pairs: {num_good_pairs} of {len(self.frame_pairs)}")
+        logging.info(f"Pair coverage: {100 * coverage:.2f}% of all frames.")
+
+
+def _raster_line(a: np.ndarray, b: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The pixels (rows, cols) of the 1-pixel segments from each a to each b
+    ((N, 2) integer (x, y) points): one sample a pixel along the longer axis."""
+    steps = np.maximum(np.abs(b - a).max(axis=1), 1)
+    t = np.arange(steps.max() + 1)[None, :] / steps[:, None]
+    t = np.where(t <= 1, t, 1.0)
+    xy = np.rint(a[:, None, :] + (b - a)[:, None, :] * t[..., None]).astype(np.int64)
+    return xy[..., 1].ravel(), xy[..., 0].ravel()
+
+
+def _raster_circle(centres: np.ndarray, radius: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The pixels of 1-pixel circles of ``radius`` around (N, 2) centres."""
+    angles = np.linspace(0, 2 * np.pi, 8 * radius + 1)[:-1]
+    ring = np.rint(np.stack([np.cos(angles), np.sin(angles)], 1) * radius).astype(np.int64)
+    xy = centres[:, None, :] + ring[None]
+    return xy[..., 1].ravel(), xy[..., 0].ravel()
+
+
+def draw_matches(frame_i: np.ndarray, frame_j: np.ndarray, points_i: np.ndarray,
+                 points_j: np.ndarray, colour: Tuple[int, int, int]) -> np.ndarray:
+    """Two grey frames side by side as RGB, each match a circle of radius 3
+    at both ends and a line between them in ``colour``: the endpoints of
+    ``hive_tpu``'s ``cv2.circle`` / ``cv2.line`` drawing (rounded points, the
+    second frame offset by the first's width), drawn without anti-aliasing."""
+    h = max(frame_i.shape[0], frame_j.shape[0])
+    offset_u = frame_i.shape[1]
+    canvas = np.zeros((h, offset_u + frame_j.shape[1], 3), np.uint8)
+    canvas[:frame_i.shape[0], :offset_u] = frame_i[..., None]
+    canvas[:frame_j.shape[0], offset_u:] = frame_j[..., None]
+    if len(points_i):
+        a = np.rint(points_i).astype(np.int64)
+        b = np.rint(points_j).astype(np.int64) + np.array([offset_u, 0])
+        rows, cols = [], []
+        for r, c in (_raster_circle(a, 3), _raster_circle(b, 3), _raster_line(a, b)):
+            rows.append(r)
+            cols.append(c)
+        rows, cols = np.concatenate(rows), np.concatenate(cols)
+        inside = (rows >= 0) & (rows < canvas.shape[0]) & (cols >= 0) & (cols < canvas.shape[1])
+        canvas[rows[inside], cols[inside]] = colour
+    return canvas
 
 
 # ---------------------------------------------------------------------------
@@ -750,7 +939,7 @@ def optimise_packed_features(features: dict, intrinsics, params,
 class PoseOptimiser:
     """Optimises the camera trajectory of an RGB-D sequence.
 
-    Pipeline: sample frame pairs → extract features (the cached feature set)
+    Pipeline: sample frame pairs → extract features (or reuse their cache)
     → pairwise alignment → global alignment → optional fine-tune →
     interpolate uncovered frames → optional EMA smoothing.
     """
@@ -817,7 +1006,7 @@ class PoseOptimiser:
     def _extract_feature_points(self, frame_pairs: FramePairs) -> FeatureSet:
         extractor = FeatureExtractor(self.dataset, frame_pairs,
                                      self.feature_extraction_options,
-                                     debug_path=self.debug_path)
+                                     debug_path=self.debug_path, device=self.device)
         feature_set = extractor.extract_feature_points()
         return feature_set.subset_from(frame_pairs)
 
@@ -1168,10 +1357,12 @@ class ForegroundPoseOptimiser:
 
 def main(argv=None, device=None):
     """``python -m hive_tpu_torch.pose_optimisation <dataset>``: optimise a
-    HIVE dataset's trajectory from its cached feature set, then fuse debug
-    meshes from the poses before and after.
+    HIVE dataset's trajectory from its frames' features (extracted, or its
+    cached feature set), then fuse debug meshes from the poses before and
+    after.
 
-    :param device: where the optimisation and fusion run; default ``cuda:0``.
+    :param device: where the extraction, optimisation and fusion run;
+        default ``cuda:0``.
     """
     parser = argparse.ArgumentParser()
     parser.add_argument("dataset_path", type=str, help="Path to the HIVE formatted dataset.")

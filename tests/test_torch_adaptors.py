@@ -261,18 +261,27 @@ def test_estimate_depth_conversion_matches_hive_tpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("option", ["estimate_pose"])
-def test_unported_conversion_options_refused(tmp_path, option):
-    """``--estimate_pose`` without a COLMAP binary, which hive_tpu runs as
-    PnP odometry with OpenCV, refuses before the output folder is made."""
+def test_unported_conversion_options_refused(tmp_path, option, monkeypatch):
+    """``--estimate_pose`` without a COLMAP binary (refused here before)
+    now runs PnP odometry as hive_tpu does: the same warning, the Kinect
+    prior as the intrinsics, and on these random frames, which give no
+    pose, the same constant-velocity trajectory in both packages."""
+    monkeypatch.setenv("WEIGHTS_PATH", str(tmp_path / "no_weights"))
     base = make_tum_dataset(tmp_path / "tum", num_frames=2)
     kwargs = dict(estimate_pose=False, estimate_depth=False, inpainting_mode=InpaintingMode.Off)
     kwargs[option] = True
     adaptor = dataset_adaptors.TUMAdaptor(
         base_path=base, output_path=str(tmp_path / "out"),
         colmap_options=COLMAPOptions(binary_path=str(tmp_path / "no_colmap")))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12b"):
-        adaptor.convert(device="cpu", **kwargs)
-    assert not os.path.exists(tmp_path / "out")
+    ours = adaptor.convert(device="cpu", **kwargs)
+    theirs = jax_adaptors.TUMAdaptor(base_path=base, output_path=str(tmp_path / "jax"),
+                           colmap_options=JaxCOLMAPOptions(
+                               binary_path=str(tmp_path / "no_colmap"))).convert(
+        estimate_pose=True, estimate_depth=False, inpainting_mode=JaxInpaintingMode.Off)
+    assert ours.metadata.estimate_pose and theirs.metadata.estimate_pose
+    np.testing.assert_array_equal(ours.camera_matrix, theirs.camera_matrix)
+    np.testing.assert_allclose(ours.camera_trajectory.values, theirs.camera_trajectory.values,
+                               rtol=0, atol=1e-12)
 
 
 def test_pipeline_run_takes_an_adaptor(tmp_path):

@@ -1,8 +1,9 @@
 """The port's PNG and JPEG codecs (hive_tpu_torch.image_codecs, io.decode_png)
 against Pillow, which the JAX package uses for the same files: PNG pixels
-round-trip exactly, and palette and 1/2/4-bit grey PNGs decode to Pillow's
-arrays; JPEG decodes to Pillow's pixels bit for bit (libjpeg's islow IDCT and
-fancy upsampling), natively and with the plain Python decoder; the encoder
+round-trip exactly, and palette, 1/2/4-bit grey and interlaced (Adam7) PNGs
+decode to Pillow's arrays; JPEG (baseline, progressive, non-interleaved)
+decodes to Pillow's pixels bit for bit (libjpeg's islow IDCT and fancy
+upsampling), natively and with the plain Python decoder; the encoder
 writes Pillow's bytes (libjpeg's islow DCT and edge handling); and
 ImageFolderDataset reads a folder of JPEGs as hive_tpu's does."""
 
@@ -169,14 +170,92 @@ def test_jpeg_decode_grey_and_restart_intervals():
 
 
 def test_jpeg_refuses_progressive_and_non_rgb():
+    """Progressive files decode (as Pillow does); what stays refused, each
+    a difference by design (ROADMAP): arithmetic-coded (SOF9), lossless
+    (SOF3) and four-component (CMYK) JPEGs."""
+    blob = pillow_jpeg(natural_crop(10, 32, 32), 75, progressive=True)
+    assert b"\xff\xc2" in blob
+    assert_decodes_as_pillow(blob)
+    baseline = pillow_jpeg(natural_crop(10, 32, 32), 75)
+    at = baseline.index(b"\xff\xc0")
+    for marker, name in ((b"\xff\xc9", "arithmetic"), (b"\xff\xc3", "lossless")):
+        with pytest.raises(NotImplementedError, match=name):
+            decode_jpeg(baseline[:at] + marker + baseline[at + 2:])
     out = io.BytesIO()
-    Image.fromarray(natural_crop(10, 32, 32)).save(out, format="JPEG", progressive=True)
-    with pytest.raises(NotImplementedError, match="progressive"):
+    Image.fromarray(natural_crop(10, 32, 32)).convert("CMYK").save(out, format="JPEG")
+    with pytest.raises(NotImplementedError, match="4 components"):
         decode_jpeg(out.getvalue())
     with pytest.raises(ValueError):
         encode_jpeg(np.zeros((8, 8), np.uint8))
     with pytest.raises(ValueError):
         decode_jpeg(b"not a jpeg")
+
+
+@pytest.mark.parametrize("case", ["q75_420", "q95_420", "q90_422", "q90_444", "grey",
+                                  "restart_blocks", "odd_37x53_420", "odd_37x53_444",
+                                  "q100_noise"])
+def test_progressive_jpeg_decodes_as_pillow(case):
+    """Pillow's progressive script (jpeg_simple_progression): DC first and
+    refinement scans, AC first and refinement scans with end-of-band runs,
+    natively and in the plain decoder, bit for bit."""
+    rng = np.random.default_rng(17)
+    image = natural_crop(15, 48, 64)
+    blob = {
+        "q75_420": lambda: pillow_jpeg(image, 75, progressive=True),
+        "q95_420": lambda: pillow_jpeg(image, 95, progressive=True),
+        "q90_422": lambda: pillow_jpeg(image, 90, subsampling=1, progressive=True),
+        "q90_444": lambda: pillow_jpeg(image, 90, subsampling=0, progressive=True),
+        "grey": lambda: pillow_jpeg(image[..., 1], 75, progressive=True),
+        "restart_blocks": lambda: pillow_jpeg(image, 75, restart_marker_blocks=3,
+                                              progressive=True),
+        "odd_37x53_420": lambda: pillow_jpeg(natural_crop(16, 37, 53), 75, progressive=True),
+        "odd_37x53_444": lambda: pillow_jpeg(natural_crop(16, 37, 53), 75, subsampling=0,
+                                             progressive=True),
+        "q100_noise": lambda: pillow_jpeg(rng.integers(0, 256, (29, 35, 3), dtype=np.uint8),
+                                          100, progressive=True),
+    }[case]()
+    assert blob.count(b"\xff\xda") > 3            # several scans
+    assert_decodes_as_pillow(blob)
+
+
+def non_interleaved_jpeg(image, quality=90):
+    """``encode_jpeg``'s headers (4:2:0) followed by one baseline scan per
+    component: Y, then Cb, then Cr, each block by block over the component's
+    own block grid (libjpeg reads such files; Pillow cannot write them)."""
+    from hive_tpu_torch.image_codecs import (_entropy_tokens, _forward_dct_quantised,
+                                             _pack_tokens, _rgb_to_ycbcr)
+
+    height, width = image.shape[:2]
+    ycc = _rgb_to_ycbcr(image)
+    luma_table, chroma_table = quality_tables(quality)
+
+    def blocks(plane, table):
+        h, w = plane.shape
+        padded = np.pad(plane, ((0, -h % 8), (0, -w % 8)), mode="edge")
+        return _forward_dct_quantised(padded, table).reshape(-1, 64)
+
+    header = encode_jpeg(image, quality)
+    header = header[:header.index(b"\xff\xda")]
+    scans = b""
+    for cid, plane, table in ((1, ycc[..., 0], luma_table),
+                              (2, ycc[::2, ::2, 1], chroma_table),
+                              (3, ycc[::2, ::2, 2], chroma_table)):
+        zz = blocks(plane, table)
+        zz[1:, 0] = zz[1:, 0] - zz[:-1, 0].copy()
+        data = _pack_tokens(*_entropy_tokens(zz, np.full(len(zz), cid == 1)))
+        selector = 0x00 if cid == 1 else 0x11
+        body = bytes([1, cid, selector, 0, 63, 0])
+        scans += b"\xff\xda" + struct.pack(">H", len(body) + 2) + body + data
+    return header + scans + b"\xff\xd9"
+
+
+@pytest.mark.parametrize("shape", [(48, 64), (37, 53)])
+def test_non_interleaved_jpeg_decodes_as_pillow(shape):
+    """A baseline file in three single-component scans: each component's
+    blocks over its own grid (the luma's without the MCU padding)."""
+    blob = non_interleaved_jpeg(natural_crop(18, *shape))
+    assert blob.count(b"\xff\xda") == 3
+    assert_decodes_as_pillow(blob)
 
 
 def test_jpeg_refuses_a_dc_category_over_15():
@@ -241,6 +320,68 @@ def raw_png(samples, depth, colour, palette=None):
         chunks += chunk(b"PLTE", palette.astype(np.uint8).tobytes())
     return (b"\x89PNG\r\n\x1a\n" + chunks + chunk(b"IDAT", zlib.compress(b"".join(body)))
             + chunk(b"IEND", b""))
+
+
+# Adam7's passes: (first column, first row, column step, row step).
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def filter_rows(rows, bpp):
+    """PNG-filter (H, stride) bytes, the row's filter type cycling through
+    None, Sub, Up, Average and Paeth."""
+    out, prev = [], np.zeros(rows.shape[1], np.int64)
+    for r, row in enumerate(rows.astype(np.int64)):
+        kind = r % 5
+        left = np.concatenate([np.zeros(bpp, np.int64), row[:-bpp]])
+        upleft = np.concatenate([np.zeros(bpp, np.int64), prev[:-bpp]])
+        p = left + prev - upleft
+        pa, pb, pc = abs(p - left), abs(p - prev), abs(p - upleft)
+        paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, upleft))
+        predictor = [0, left, prev, (left + prev) // 2, paeth][kind]
+        out.append(bytes([kind]) + ((row - predictor) % 256).astype(np.uint8).tobytes())
+        prev = row
+    return b"".join(out)
+
+
+def adam7_png(image, colour, depth):
+    """An interlaced PNG written by hand: each of Adam7's seven passes a
+    sub-image of its own, filtered on its own."""
+    height, width = image.shape[:2]
+    channels = {0: 1, 2: 3, 4: 2, 6: 4}[colour]
+    raw = b""
+    for x0, y0, dx, dy in ADAM7:
+        sub = image[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        data = sub.astype(">u2" if depth == 16 else np.uint8).tobytes()
+        raw += filter_rows(np.frombuffer(data, np.uint8).reshape(sub.shape[0], -1),
+                           max(1, channels * depth // 8))
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    header = struct.pack(">IIBBBBB", width, height, depth, colour, 0, 0, 1)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header) + chunk(b"IDAT", zlib.compress(raw))
+            + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("colour, depth", [(0, 8), (2, 8), (4, 8), (6, 8), (0, 16), (2, 16)])
+def test_adam7_png_decodes_as_pillow(colour, depth):
+    """Interlaced PNGs, natively and in numpy, at sizes where some of the
+    seven passes are empty (1x1, 3x5) and where all are whole."""
+    rng = np.random.default_rng(colour * 100 + depth)
+    channels = {0: 1, 2: 3, 4: 2, 6: 4}[colour]
+    for height, width in ((1, 1), (3, 5), (13, 17), (48, 64)):
+        shape = (height, width, channels) if channels > 1 else (height, width)
+        blob = adam7_png(rng.integers(0, 1 << depth, shape), colour, depth)
+        with Image.open(io.BytesIO(blob)) as image:
+            want = np.asarray(image if image.mode in ("L", "I;16") else image.convert("RGB"))
+        for native in (True, False):
+            got = decode_png(blob, native=native)
+            assert got.dtype == want.dtype and got.shape == want.shape
+            np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("colour, depth", [(0, 1), (0, 2), (0, 4), (3, 1), (3, 2), (3, 4),

@@ -165,12 +165,15 @@ def test_pose_paths_with_missing_packages_blocked(tmp_path):
     """With JAX, optax, hive_tpu, OpenCV and Pillow blocked, the CLI converts
     a moving TUM folder with --estimate_pose through a stand-in ``colmap``
     and meshes it with --fts_num_epochs; PoseOptimiser runs from a cached
-    feature set and checkpoints; and a missing COLMAP binary refuses with
-    Queue 1 item 12b."""
-    from chip_smoke import write_colmap_stand_in
+    feature set and checkpoints; and with no COLMAP binary a textured
+    wall's TUM folder converts through the PnP odometry and its features
+    are extracted from the frames (both refused here before)."""
+    from chip_smoke import wall_trajectory, write_colmap_stand_in, write_wall_tum
     from hive_tpu_torch.dataset_adaptors import TUMAdaptor
     from tests.test_adaptors import make_tum_dataset
 
+    wall = str(tmp_path / "wall")
+    write_wall_tum(wall, 4, 160, 120, wall_trajectory(4))
     tum = make_tum_dataset(tmp_path / "tum", num_frames=4)
     poses = TUMAdaptor(tum, str(tmp_path / "unused")).camera_trajectory.values
     K = np.array([[58.0, 0, 31.5], [0, 58.0, 23.5], [0, 0, 1]])
@@ -198,12 +201,6 @@ def test_pose_paths_with_missing_packages_blocked(tmp_path):
             "assert dataset.metadata.estimate_pose and dataset.num_frames == 4\n"
             "steps = np.diff(dataset.camera_trajectory.positions, axis=0)\n"
             "assert np.allclose(np.abs(steps[:, 0]), 0.01, atol=1e-6), steps\n"
-            "try:\n"
-            "    P.PoseOptimiser(dataset, device='cpu').run()\n"
-            "except NotImplementedError as e:\n"
-            "    assert 'Queue 1 item 12b' in str(e)\n"
-            "else:\n"
-            "    raise AssertionError('feature extraction ran')\n"
             "rng = np.random.default_rng(0)\n"
             "features = P.FeatureSet(dataset.camera_matrix, P.FeatureData(\n"
             "    np.zeros(30, np.int64), rng.uniform(5, 40, (30, 2)).astype(np.float32),\n"
@@ -215,14 +212,17 @@ def test_pose_paths_with_missing_packages_blocked(tmp_path):
             "params = optimiser._optimisation_loop(features, optimiser._init_params(\n"
             "    dataset.camera_trajectory.values), options, P.ResidualType.World3D)\n"
             "assert params['t'].shape == (4, 3)\n"
-            "adaptor = TUMAdaptor(" f"{tum!r}, {str(tmp_path / 'refused')!r}, colmap_options="
+            "import torch\n"
+            "torch.set_num_threads(1)  # the feature stages' small ops, beside other workers\n"
+            "adaptor = TUMAdaptor(" f"{wall!r}, {str(tmp_path / 'pnp')!r}, colmap_options="
             f"COLMAPOptions(binary_path={str(tmp_path / 'none')!r}))\n"
-            "try:\n"
-            "    adaptor.convert(True, False, 0, device='cpu')\n"
-            "except NotImplementedError as e:\n"
-            "    assert 'Queue 1 item 12b' in str(e)\n"
-            "else:\n"
-            "    raise AssertionError('PnP odometry ran')\n"
+            "from hive_tpu_torch.options import InpaintingMode\n"
+            "posed = adaptor.convert(True, False, InpaintingMode.Off, device='cpu')\n"
+            "assert posed.metadata.estimate_pose and len(posed.camera_trajectory) == 4\n"
+            "assert np.abs(posed.camera_trajectory.positions[1:]).max() > 1e-3\n"
+            "pairs = P.sample_frame_pairs(P.FrameSamplingMode.Consecutive, 4)\n"
+            "found = P.FeatureExtractor(posed, pairs, device='cpu').extract_feature_points()\n"
+            "assert len(found) > 0\n"
             "print('ok')\n")
     env = dict(os.environ, WEIGHTS_PATH=str(tmp_path / "no_weights"))
     done = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -230,7 +230,7 @@ def test_pose_paths_with_missing_packages_blocked(tmp_path):
     assert done.returncode == 0, done.stderr[-4000:]
     assert done.stdout.strip().splitlines()[-1] == "ok"
     assert sorted(os.listdir(tmp_path / "ckpt")) == ["step_000000025.npz", "step_000000050.npz"]
-    assert not os.path.exists(tmp_path / "refused")
+    assert os.path.isfile(tmp_path / "pnp" / "camera_trajectory.txt")
 
 
 @pytest.mark.parametrize("mode", [1, 2])

@@ -463,3 +463,24 @@ def test_overlap_error_handling(base_dataset, tmp_path):
                    for m in records)
     finally:
         logging.getLogger().removeHandler(collector)
+
+
+@pytest.mark.parametrize("flags", [[], ["--estimate_pose", "--estimate_depth"]])
+def test_pipeline_roster_matches_hive_tpu(tmp_path, flags):
+    """Every public name of hive_tpu's Pipeline, on the class and on an
+    instance from the same command line, exists on the port's, and the
+    properties read the same values."""
+    def public(obj):
+        return {name for name in dir(obj) if not name.startswith("_")}
+
+    assert public(JaxPipeline) - public(Pipeline) == set()
+    argv = ["--dataset_path", str(tmp_path / "data"), "--output_path", str(tmp_path / "out"),
+            "--webxr_path", str(tmp_path / "webxr"), "--log_file", str(tmp_path / "log.txt"),
+            *flags]
+    ours = Pipeline.from_command_line(argv, device="cpu")
+    with mock.patch.object(sys, "argv", ["hive_tpu", *argv]):
+        theirs = JaxPipeline.from_command_line()
+    assert public(theirs) - public(ours) == set()
+    for name in ("num_frames", "estimate_pose", "estimate_depth", "mesh_path"):
+        assert getattr(ours, name) == getattr(theirs, name), name
+    assert ours.estimate_pose == ours.estimate_depth == bool(flags)

@@ -557,22 +557,74 @@ def write_feature_cache(path, num_frames, problem):
     return debug
 
 
-def test_extraction_refused_without_a_valid_cache(tmp_path):
-    path = make_synthetic_hive_dataset(tmp_path / "ds", num_frames=4)
-    optimiser = P.PoseOptimiser(HiveDataset(path), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12b"):
-        optimiser.run()
-    debug = os.path.join(path, P.PoseOptimiser.DEBUG_FOLDER)
-    assert os.listdir(debug) == []  # refused before writing anything
+def wall_hive_dataset(path, num_frames=6, width=160, height=120):
+    """A HIVE dataset of the textured wall (chip_smoke's random-texture
+    wall, camera sliding 1 cm a frame), converted from a TUM folder by the
+    port on the CPU with the ground-truth poses."""
+    from chip_smoke import wall_trajectory, write_wall_tum
+    from hive_tpu_torch.dataset_adaptors import TUMAdaptor
+    from hive_tpu_torch.options import InpaintingMode
 
-    # A cache for other options is not valid either.
-    write_feature_cache(path, 4, _SyntheticProblem(num_frames=4))
-    options = P.FeatureExtractionOptions(min_features=40)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12b"):
-        P.PoseOptimiser(HiveDataset(path), feature_extraction_options=options,
-                        device="cpu").run()
+    tum = str(path) + "_tum"
+    write_wall_tum(tum, num_frames, width, height, wall_trajectory(num_frames))
+    TUMAdaptor(tum, str(path)).convert(False, False, InpaintingMode.Off, device="cpu")
+    return str(path)
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the feature stages' many small tensor ops,
+    which stall behind each other's thread barriers when test workers share
+    the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_extraction_refused_without_a_valid_cache(tmp_path, monkeypatch, one_thread):
+    """Without a valid cache the extractor now detects and matches the
+    frames itself (it refused before) and writes hive_tpu's cache; a cache
+    for other options is replaced. The pairs it keeps are hive_tpu's on the
+    same dataset (both packages extract; cv2 in hive_tpu)."""
+    monkeypatch.setenv("WEIGHTS_PATH", str(tmp_path / "no_weights"))
+    path = wall_hive_dataset(tmp_path / "ds")
+    debug = os.path.join(path, P.PoseOptimiser.DEBUG_FOLDER)
+    pairs = P.sample_frame_pairs(P.FrameSamplingMode.Hierarchical, 6)
+    extractor = P.FeatureExtractor(HiveDataset(path), pairs, debug_path=debug, device="cpu")
+    features = extractor.extract_feature_points()
     assert sorted(os.listdir(debug)) == ["feature_options.json", "feature_set.npz",
                                          "frame_pairs.txt"]
+    theirs = J.FeatureExtractor(JaxHiveDataset(path), pairs,
+                                debug_path=str(tmp_path / "jax_debug")).extract_feature_points()
+
+    def kept(feature_set):
+        return set(zip(feature_set.frame_i.index.tolist(), feature_set.frame_j.index.tolist()))
+
+    assert kept(features) == kept(theirs) and len(kept(features)) >= 5
+    assert abs(len(features) - len(theirs)) <= 0.1 * len(theirs)
+
+    # A cache for other options is not valid: it is extracted again.
+    options = P.FeatureExtractionOptions(min_features=40)
+    again = P.FeatureExtractor(HiveDataset(path), pairs, options, debug_path=debug,
+                               device="cpu").extract_feature_points()
+    with open(os.path.join(debug, "feature_options.json")) as f:
+        assert json.load(f)["min_features"] == 40
+    assert kept(again) <= kept(features)
+    reloaded = P.FeatureSet.load(os.path.join(debug, "feature_set.npz"))
+    np.testing.assert_array_equal(reloaded.frame_i.points, again.frame_i.points)
+
+
+def test_pose_optimiser_extracts_features_from_frames(tmp_path, monkeypatch, one_thread):
+    """PoseOptimiser.run on a dataset with no cached feature set: features
+    from the frames, then the optimisation, as in hive_tpu."""
+    monkeypatch.setenv("WEIGHTS_PATH", str(tmp_path / "no_weights"))
+    path = wall_hive_dataset(tmp_path / "ds")
+    options = P.OptimisationOptions(num_epochs=25, steps=(P.OptimisationStep.Global3D,))
+    trajectory, _, _ = P.PoseOptimiser(HiveDataset(path), optimisation_options=options,
+                                       device="cpu").run()
+    assert len(trajectory) == 6 and np.isfinite(trajectory.values).all()
+    assert os.path.isfile(os.path.join(path, "pose_optim", "feature_set.npz"))
 
 
 def test_run_from_cached_features_matches(tmp_path):
