@@ -5,8 +5,10 @@
 
 Phases (any failure raises and the script exits non-zero):
 
-1. the card's name and power limit (``nvidia-smi``), and whether ``ffmpeg``
-   and ``ffprobe`` are on PATH (the video inputs need a decoder);
+1. the card's name and power limit (``nvidia-smi``), whether ``ffmpeg``
+   and ``ffprobe`` are on PATH, and what ``ctypes.util.find_library`` finds
+   for ``avcodec``, ``avformat``, ``avutil``, ``swscale`` and ``nvcuvid``
+   (the video inputs need a decoder; logged, never failing);
 2. build all six CUDA kernels from ``hive_tpu_torch/csrc`` (one ``nvcc``
    each, started together), then the native host library (``g++``: the
    extraction weld, the QEM decimation, the JPEG scan decode, the PNG
@@ -203,7 +205,28 @@ Phases (any failure raises and the script exits non-zero):
    hive_tpu_torch.pose_optimisation`` on the converted folder with no
    cached feature set: the extraction time, the pairs kept and the whole
    CLI's time logged;
-17. the two measurement entry points, each run in this process with the
+17. [eval]: the evaluation path and the player on phase 7's export (no
+   kernel of its own: plain PyTorch and host code). ``bg.glb`` with each
+   frame's ``fg.glb`` node rendered from the 30 ground-truth poses at
+   640x480 on the card (the export's upright turn undone, its centring
+   offset estimated from the depth maps' bounds): each view covering at
+   least 90% of the frame, its depth within EVAL_DEPTH_MEDIAN_M (median) of
+   the input depth away from the masks; one view timed (device ms,
+   kernels, launch loop, candidate pixels, peak device memory) and
+   rendered on the CPU too, differing at no more than EVAL_EDGE_PIXELS
+   pixels; three frames scored against the input frames:
+   ``batch_ssim_psnr`` on the card within EVAL_SSIM_TOL / EVAL_PSNR_TOL_DB
+   of the host's ``ssim`` / ``psnr``, LPIPS with check weights
+   (``lpips.check_params``) and MIFD within EVAL_LPIPS_RTOL /
+   EVAL_MIFD_RTOL of the CPU's (MIFD also on two of phase 16's textured
+   wall frames, where it must be finite), each timed; an LLFF folder at fern's
+   factor-8 size (504x378, 20 JPEG views, the poses in the export's frame)
+   through ``LLFFDataset`` and ``evaluate_renders`` on its held-out views
+   (SSIM, PSNR and LPIPS finite); one view of phase 6's ``bg.glb`` (5.9M vertices)
+   timed with its candidate pixels and peak memory; then the viewer's
+   server on a free local port: the page and ``bg.glb`` plain and
+   gzip-encoded byte for byte, a missing file 404;
+18. the two measurement entry points, each run in this process with the
    launch counts reset just before and read just after:
    ``hive_tpu_torch.micro.gather`` (Q1 tile gathers, Q2 patch gather timed
    beside ``torch.take`` and the band sampler) and
@@ -211,7 +234,7 @@ Phases (any failure raises and the script exits non-zero):
    production trip; Q3: fused, production and take trips timed, their final
    states bit-identical on the rows that fit); each of its kernels must have
    launched;
-18. one ``{"kernels": [...]}`` line (times, errors and bounds at the main
+19. one ``{"kernels": [...]}`` line (times, errors and bounds at the main
    paths' shapes, and under ``bench`` at the bench shape), then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last
    line.
@@ -1252,7 +1275,9 @@ def check_foreground(foreground, background_mesh, profiling) -> None:
         + ", ".join(f"{stage} {r['total']:.4f} / {r['mean']:.6f}" for stage, r in rollups.items()))
 
 
-def run_main_path(device, launches):
+def run_main_path(device, launches, keep: str):
+    """Phase 6; the dataset folder, with its meshes, is moved to ``keep``
+    for the [eval] phase."""
     from hive_tpu_torch.meshing.gltf import load_glb
     from hive_tpu_torch.ops import tsdf_sparse
 
@@ -1287,6 +1312,7 @@ def run_main_path(device, launches):
         foreground = load_glb(os.path.join(dataset, "mesh", "fg.glb"))
         mesh = next(iter(scene.geometry.values()))
         verts, cols = mesh.vertices, mesh.vertex_colors
+        shutil.move(dataset, keep)
 
     if len(verts) == 0 or not np.isfinite(verts).all():
         raise AssertionError("bg.glb holds no (finite) vertices")
@@ -3431,6 +3457,361 @@ def run_pnp_pose_conversion(device, launches, gt_profiling, colmap_run, tmp: str
 
 
 # ---------------------------------------------------------------------------
+# [eval]: the evaluation path and the player.
+# ---------------------------------------------------------------------------
+
+# The card's render of a view against the port's CPU render of it: both
+# evaluate the same candidate pixels with the same float32 operations (the
+# FMAs through float64), so no pixel may differ.
+EVAL_EDGE_PIXELS = 0
+# batch_ssim_psnr (float32, on the card) against the host's float64 ssim /
+# psnr: the CPU tests' tolerances (tests/test_torch_render_metrics.py); a
+# CPU run of three VGA pairs read 7.5e-7 and 1.9e-7 dB.
+EVAL_SSIM_TOL, EVAL_PSNR_TOL_DB = 1e-5, 1e-4
+# LPIPS and MIFD on the card against the CPU, relative: float32 convs in
+# other orders; SIFT's card-vs-CPU differences of phase 15 (keypoints within
+# 0.5 px, a descriptor entry rounding the other way).
+EVAL_LPIPS_RTOL, EVAL_MIFD_RTOL = 1e-4, 0.01
+# The rendered background's depth against the input depth maps, median over
+# the pixels where both are valid and no object is masked: the export's
+# centring offset is estimated from the depth maps' bounds (export_pose),
+# so this is loose; a wrong pose or a broken z-buffer misses it by far more.
+EVAL_DEPTH_MEDIAN_M = 0.05
+# Frames scored against the input frames.
+EVAL_SCORED = (10, 20, 29)
+# The LLFF folder: fern's images_8 size and count.
+LLFF_W, LLFF_H, LLFF_VIEWS, LLFF_FACTOR = 504, 378, 20, 8
+# The 180-degree z rotation the export applies (Pipeline._center_scenes).
+UPRIGHT = np.diag([-1.0, -1.0, 1.0])
+
+
+def decoder_libraries() -> dict:
+    """What ``ctypes.util.find_library`` finds for the libraries a video
+    decoder could use (FFmpeg's and NVIDIA's NVDEC): the next step of the
+    video inputs depends on it. Logs only."""
+    import ctypes.util
+
+    return {name: ctypes.util.find_library(name)
+            for name in ("avcodec", "avformat", "avutil", "swscale", "nvcuvid")}
+
+
+def export_offset(dataset, stride: int = 4) -> np.ndarray:
+    """The translation the export adds after turning the scene upright:
+    minus the x centre and the y and z minima of the upright scene's bounds,
+    estimated from the valid depth of every frame back-projected with the
+    ground-truth poses (the meshes themselves were not kept uncentred)."""
+    K_inv = np.linalg.inv(dataset.camera_matrix.astype(np.float64))
+    poses = dataset.camera_trajectory.to_homogenous_transforms()
+    lo, hi = np.full(3, np.inf), np.full(3, -np.inf)
+    for i in range(dataset.num_frames):
+        depth = np.asarray(dataset.depth_dataset[i], np.float64)[::stride, ::stride]
+        v, u = np.nonzero(depth > 0)
+        rays = K_inv @ np.stack([u * stride, v * stride, np.ones_like(u)]).astype(np.float64)
+        cam = rays * depth[v, u]
+        world = poses[i, :3, :3].T @ (cam - poses[i, :3, 3:4])
+        upright = UPRIGHT @ world
+        lo, hi = np.minimum(lo, upright.min(axis=1)), np.maximum(hi, upright.max(axis=1))
+    return -np.array([(lo[0] + hi[0]) / 2, lo[1], lo[2]])
+
+
+def export_pose(pose: np.ndarray, offset: np.ndarray):
+    """(R, t) of a world-to-camera pose for the exported (upright, centred)
+    scene: p_export = U p_world + offset."""
+    R, t = pose[:3, :3], pose[:3, 3:4]
+    return R @ UPRIGHT, t - R @ UPRIGHT @ offset.reshape(3, 1)
+
+
+def view_scene(background, foreground, frame: int):
+    from hive_tpu_torch.meshing.mesh import Scene
+
+    scene = Scene()
+    for name, mesh in background.geometry.items():
+        scene.add_geometry(mesh, node_name=f"bg_{name}")
+    if f"{frame:06d}" in foreground.geometry:
+        scene.add_geometry(foreground.geometry[f"{frame:06d}"], node_name=f"{frame:06d}")
+    return scene
+
+
+def time_view(fn, device) -> dict:
+    """One view's device ms and kernels (profiler), launch loop (events)
+    and peak device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device)
+    ms, ops = device_profile(fn, reps=2, warmup=0)
+    return dict(ms=ms, kernels=ops, loop_ms=events_ms(fn, reps=2, warmup=0), peak_bytes=peak)
+
+
+def write_llff_folder(base: str, dataset, offset: np.ndarray) -> None:
+    """An LLFF capture at fern's images_8 size: LLFF_VIEWS centre crops of
+    the converted frames as JPEGs (the port's encoder, Pillow's bytes) in
+    ``images_8/`` and ``poses_bounds.npy`` with the full-size h, w, f and
+    the ground-truth poses expressed in the exported scene's frame, LLFF's
+    [down, right, back] axes."""
+    from hive_tpu_torch.image_codecs import write_image
+
+    folder = os.path.join(base, f"images_{LLFF_FACTOR}")
+    os.makedirs(folder)
+    K = dataset.camera_matrix
+    # The crop whose centre is nearest the principal point.
+    x0 = int(round(K[0, 2] - LLFF_W / 2))
+    y0 = int(round(K[1, 2] - LLFF_H / 2))
+    poses = dataset.camera_trajectory.to_homogenous_transforms()
+    rows = []
+    for i in range(LLFF_VIEWS):
+        frame = dataset.rgb_dataset[i][y0:y0 + LLFF_H, x0:x0 + LLFF_W]
+        write_image(os.path.join(folder, f"image{i:03d}.jpg"), frame)
+        R, t = export_pose(poses[i], offset)
+        c2w_R, c2w_t = R.T, -R.T @ t
+        pose = np.zeros((3, 5))
+        pose[:, :3] = np.stack([c2w_R[:, 1], c2w_R[:, 0], -c2w_R[:, 2]], axis=-1)
+        pose[:, 3] = c2w_t[:, 0]
+        pose[:, 4] = [LLFF_H * LLFF_FACTOR, LLFF_W * LLFF_FACTOR, K[0, 0] * LLFF_FACTOR]
+        rows.append(np.concatenate([pose.reshape(-1), [0.5, 5.0]]))
+    np.save(os.path.join(base, "poses_bounds.npy"), np.stack(rows))
+
+
+def fetch(port: int, path: str, headers: dict):
+    import http.client
+
+    conn = http.client.HTTPConnection("localhost", port, timeout=60)
+    try:
+        conn.request("GET", path, headers=headers)
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def check_viewer(webxr: str, name: str) -> dict:
+    """The player's server on a free local port: the page and an exported
+    ``bg.glb``, plain and gzip-encoded, byte for byte."""
+    import gzip
+    import threading
+
+    from hive_tpu_torch import viewer
+
+    server = viewer.make_server(webxr, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    try:
+        status, _, page = fetch(port, f"/?video={name}", {})
+        if status != 200 or page != viewer.VIEWER_HTML.read_bytes():
+            raise AssertionError(f"the viewer's page: status {status}, {len(page)} bytes")
+        bg = open(os.path.join(webxr, name, "bg.glb"), "rb").read()
+        status, headers, plain = fetch(port, f"/{name}/bg.glb", {})
+        if status != 200 or plain != bg or "Content-Encoding" in headers:
+            raise AssertionError(f"bg.glb without gzip: status {status}, {len(plain)} bytes")
+        status, headers, packed = fetch(port, f"/{name}/bg.glb", {"Accept-Encoding": "gzip"})
+        if (status != 200 or headers.get("Content-Encoding") != "gzip"
+                or gzip.decompress(packed) != bg):
+            raise AssertionError(f"bg.glb with gzip: status {status}, headers {headers}")
+        missing, _, _ = fetch(port, f"/{name}/missing.glb", {})
+        if missing != 404:
+            raise AssertionError(f"a missing file gave {missing}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    return dict(port=port, page_bytes=len(page), bg_bytes=len(bg), bg_gzip_bytes=len(packed))
+
+
+def check_eval(device, tmp: str, e2e: str) -> dict:
+    """[eval]: the evaluation path and the player on phase 7's export.
+    Renders ``bg.glb`` with each frame's ``fg.glb`` node from the 30
+    ground-truth poses at 640x480 on the card (one view also on the CPU,
+    equal), scores three frames against the input frames (``batch_ssim_psnr``
+    on the card against the host's ``ssim`` / ``psnr``; LPIPS with check
+    weights and MIFD, card against CPU; MIFD also on two frames of phase
+    16's textured wall), renders one view of phase 6's e2e
+    ``bg.glb``, writes an LLFF folder at fern's factor-8 size and runs
+    ``evaluate_renders`` on its held-out views, then serves the export with
+    the viewer."""
+    from hive_tpu_torch import metrics
+    from hive_tpu_torch.data import llff
+    from hive_tpu_torch.io import HiveDataset, load_image
+    from hive_tpu_torch.meshing.gltf import load_glb
+    from hive_tpu_torch.meshing.render import render_scene_counted
+    from hive_tpu_torch.models import lpips as lpips_model
+
+    phase_start = time.perf_counter()
+    out = os.path.join(tmp, "converted")
+    dataset = HiveDataset(out)
+    K, width, height = dataset.camera_matrix, dataset.frame_width, dataset.frame_height
+    background = load_glb(os.path.join(out, "mesh", "bg.glb"))
+    foreground = load_glb(os.path.join(out, "mesh", "fg.glb"))
+    offset = export_offset(dataset)
+    poses = dataset.camera_trajectory.to_homogenous_transforms()
+
+    def render(frame, on=device):
+        R, t = export_pose(poses[frame], offset)
+        return render_scene_counted(view_scene(background, foreground, frame), K, R, t, width,
+                                    height, device=on)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    start = time.perf_counter()
+    views = [render(i) for i in range(dataset.num_frames)]
+    torch.cuda.synchronize()
+    views_s = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated(device)
+    coverage = [float((depth > 0).mean()) for _, depth, _ in views]
+    if min(coverage) < 0.9:
+        raise AssertionError(f"the views cover {min(coverage):.3f} of the frame at least")
+    residuals = []
+    for i, (_, depth, _) in enumerate(views):
+        measured = np.asarray(dataset.depth_dataset[i], np.float64)
+        valid = (depth > 0) & (measured > 0) & (np.asarray(dataset.mask_dataset[i]) == 0)
+        residuals.append(float(np.median(np.abs(depth[valid] - measured[valid]))))
+    if max(residuals) > EVAL_DEPTH_MEDIAN_M:
+        raise AssertionError(f"rendered depth misses the input depth by a median of "
+                             f"{max(residuals):.4f} m (bound {EVAL_DEPTH_MEDIAN_M})")
+    timed = time_view(lambda: render(15), device)
+    view_faces = sum(m.num_faces for m in view_scene(background, foreground, 15).geometry.values())
+    start = time.perf_counter()
+    cpu_image, cpu_depth, _ = render(15, on="cpu")
+    cpu_s = time.perf_counter() - start
+    differing = int(((cpu_image != views[15][0]).any(axis=-1) | (cpu_depth != views[15][1])).sum())
+    if differing > EVAL_EDGE_PIXELS:
+        raise AssertionError(f"the card's view 15 differs from the CPU's at {differing} pixels")
+    log(f"[eval] {dataset.num_frames} views of bg.glb + each frame's fg.glb node (view 15: "
+        f"{view_faces} faces) "
+        f"at {width}x{height} on the card in {views_s:.2f} s ({1e3 * views_s / len(views):.1f} "
+        f"ms a view with the host's copies), peak device memory {peak} B; view 15: "
+        f"{timed['ms']:.4f} ms device, {timed['kernels']:.0f} kernels, {timed['loop_ms']:.4f} ms "
+        f"launch loop, {views[15][2]} candidate pixels (the reference's scan: "
+        f"{width * height * view_faces:.3e} pixel-triangle pairs), peak {timed['peak_bytes']} B; "
+        f"coverage {min(coverage):.4f}-{max(coverage):.4f}; depth against the input's, median "
+        f"|diff| {min(residuals):.5f}-{max(residuals):.5f} m; the CPU's view 15 ({cpu_s:.1f} s) "
+        f"differs at {differing} pixels (bound {EVAL_EDGE_PIXELS})")
+
+    # Scores of three frames against the input frames.
+    photos = np.stack([dataset.rgb_dataset[i] for i in EVAL_SCORED])
+    renders = np.stack([views[i][0] for i in EVAL_SCORED])
+    batch_ssim, batch_psnr = metrics.batch_ssim_psnr(photos, renders, device=device)
+    host_ssim = np.array([metrics.ssim(p, r) for p, r in zip(photos, renders)])
+    host_psnr = np.array([metrics.psnr(p, r) for p, r in zip(photos, renders)])
+    ssim_err = float(np.abs(batch_ssim - host_ssim).max())
+    psnr_err = float(np.abs(batch_psnr - host_psnr).max())
+    if not (ssim_err <= EVAL_SSIM_TOL and psnr_err <= EVAL_PSNR_TOL_DB):
+        raise AssertionError(f"batch_ssim_psnr on the card vs the host: SSIM {ssim_err:.3e}, "
+                             f"PSNR {psnr_err:.3e} dB")
+    batch_ms, batch_ops = device_profile(
+        lambda: metrics.batch_ssim_psnr(photos, renders, device=device), reps=3, warmup=1)
+
+    weights = os.path.join(tmp, "eval_weights")
+    os.makedirs(weights)
+    np.savez(os.path.join(weights, lpips_model.WEIGHTS_FILENAME),
+             **lpips_model.check_params(SEED))
+    with mock.patch.dict(os.environ, {"WEIGHTS_PATH": weights}), \
+            mock.patch.dict(metrics._lpips_models, clear=True):
+        lpips_card = [metrics.lpips(p, r, device=device) for p, r in zip(photos, renders)]
+        lpips_ms, lpips_ops = device_profile(
+            lambda: metrics.lpips(photos[0], renders[0], device=device), reps=3, warmup=1)
+        lpips_cpu = [metrics.lpips(p, r, device="cpu") for p, r in zip(photos, renders)]
+        # MIFD of the scored frames (the striped wall gives SIFT few
+        # matches: NaN where none passes the ratio test, on either device),
+        # and of two VGA frames of phase 16's textured wall 1 cm apart.
+        wall = os.path.join(tmp, "tum_wall", "rgb")
+        wall_pair = [load_image(os.path.join(wall, name)) for name in sorted(os.listdir(wall))[:2]]
+        pairs = list(zip(photos, renders)) + [tuple(wall_pair)]
+        mifd_card = [metrics.mifd(a, b, device=device) for a, b in pairs]
+        mifd_ms, mifd_ops = device_profile(lambda: metrics.mifd(*wall_pair, device=device),
+                                           reps=1, warmup=0)
+        mifd_cpu = [metrics.mifd(*pairs[i], device="cpu") for i in (0, len(pairs) - 1)]
+        mifd_err = 0.0
+        for card, cpu in zip((mifd_card[0], mifd_card[-1]), mifd_cpu):
+            if np.isnan(card) != np.isnan(cpu):
+                raise AssertionError(f"MIFD on the card {mifd_card} vs the CPU's {mifd_cpu}")
+            if not np.isnan(cpu):
+                mifd_err = max(mifd_err, abs(card - cpu) / abs(cpu))
+        lpips_err = max(abs(c - h) / abs(h) for c, h in zip(lpips_card, lpips_cpu))
+        if not (np.isfinite(lpips_card).all() and lpips_err <= EVAL_LPIPS_RTOL):
+            raise AssertionError(f"LPIPS on the card {lpips_card} vs the CPU {lpips_cpu}")
+        if not (np.isfinite(mifd_card[-1]) and mifd_err <= EVAL_MIFD_RTOL):
+            raise AssertionError(f"MIFD on the card {mifd_card} vs the CPU's {mifd_cpu}")
+        log(f"[eval] frames {list(EVAL_SCORED)} against the input frames: SSIM "
+            f"{np.round(batch_ssim, 4).tolist()}, PSNR {np.round(batch_psnr, 3).tolist()} dB "
+            f"(batch_ssim_psnr {batch_ms:.4f} ms device, {batch_ops:.0f} kernels; the host's "
+            f"within {ssim_err:.2e} / {psnr_err:.2e} dB); LPIPS (check weights) "
+            f"{np.round(lpips_card, 4).tolist()} ({lpips_ms:.4f} ms device a pair, "
+            f"{lpips_ops:.0f} kernels; the CPU's within {lpips_err:.2e} relative); MIFD "
+            f"{np.round(mifd_card[:-1], 3).tolist()} px, the wall pair {mifd_card[-1]:.3f} px "
+            f"({mifd_ms:.4f} ms device, {mifd_ops:.0f} kernels; the CPU's "
+            f"{np.round(mifd_cpu, 3).tolist()} for the first and the wall pair, "
+            f"{mifd_err:.2e} relative)")
+
+        # evaluate_renders on an LLFF capture of the same scene.
+        capture = os.path.join(tmp, "llff_fern_8")
+        write_llff_folder(capture, dataset, offset)
+        loaded = llff.LLFFDataset(capture, factor=LLFF_FACTOR)
+        if (loaded.num_images, int(loaded.hwf[0]), int(loaded.hwf[1])) != (LLFF_VIEWS, LLFF_H,
+                                                                           LLFF_W):
+            raise AssertionError(f"the LLFF folder loads as {loaded.num_images} x {loaded.hwf}")
+        _, held_out = loaded.train_test_split()
+        start = time.perf_counter()
+        scores = llff.evaluate_renders(background, loaded, held_out,
+                                       output_folder=os.path.join(tmp, "llff_renders"),
+                                       device=device)
+        llff_s = time.perf_counter() - start
+    # The striped wall leaves MIFD without matches (labelled, as on the
+    # scored frames); the other metrics must be finite.
+    if (set(scores.get("skipped", {})) - {"mifd"}
+            or not all(np.isfinite(scores["mean"][k]) for k in ("ssim", "psnr", "lpips"))):
+        raise AssertionError(f"evaluate_renders: {scores}")
+    log(f"[eval] LLFF folder {LLFF_VIEWS} x {LLFF_W}x{LLFF_H} JPEG views, held out "
+        f"{held_out}: evaluate_renders in {llff_s:.2f} s, means "
+        + ", ".join(f"{k} {v:.4f}" for k, v in scores["mean"].items())
+        + f"; skipped {scores.get('skipped', {})}")
+
+    # One view of the e2e run's bg.glb.
+    start = time.perf_counter()
+    e2e_scene = load_glb(os.path.join(e2e, "mesh", "bg.glb"))
+    load_s = time.perf_counter() - start
+    e2e_data = HiveDataset(e2e)
+    e2e_mesh = next(iter(e2e_scene.geometry.values()))
+    e2e_R, e2e_t = export_pose(e2e_data.camera_trajectory.to_homogenous_transforms()[0],
+                               export_offset(e2e_data))
+
+    def render_e2e():
+        return render_scene_counted(e2e_scene, e2e_data.camera_matrix, e2e_R, e2e_t,
+                                    e2e_data.frame_width, e2e_data.frame_height, device=device)
+
+    _, e2e_depth, e2e_candidates = render_e2e()
+    e2e_timed = time_view(render_e2e, device)
+    e2e_cover = float((e2e_depth > 0).mean())
+    if e2e_cover < 0.5:
+        raise AssertionError(f"the e2e view covers {e2e_cover:.3f} of the frame")
+    log(f"[eval] one view of the e2e bg.glb ({e2e_mesh.num_vertices} vertices, "
+        f"{e2e_mesh.num_faces} faces; load_glb {load_s:.1f} s) at "
+        f"{e2e_data.frame_width}x{e2e_data.frame_height}: {e2e_timed['ms']:.4f} ms device, "
+        f"{e2e_timed['kernels']:.0f} kernels, {e2e_timed['loop_ms']:.4f} ms launch loop, peak "
+        f"device memory {e2e_timed['peak_bytes']} B; {e2e_candidates} candidate pixels "
+        f"({e2e_candidates / e2e_mesh.num_faces:.2f} a face; the reference's scan: "
+        f"{e2e_data.frame_width * e2e_data.frame_height * e2e_mesh.num_faces:.3e}); coverage "
+        f"{e2e_cover:.4f}")
+
+    served = check_viewer(os.path.join(tmp, "webxr"), os.path.basename(out))
+    log(f"[eval] viewer on localhost:{served['port']}: the page ({served['page_bytes']} B) "
+        f"and bg.glb plain ({served['bg_bytes']} B) and gzip-encoded "
+        f"({served['bg_gzip_bytes']} B) byte for byte, a missing file 404; the phase took "
+        f"{time.perf_counter() - phase_start:.1f} s")
+    return dict(views=len(views), views_s=views_s, view=timed, peak_bytes=peak,
+                candidates=views[15][2], faces=view_faces, coverage_min=min(coverage),
+                depth_median_m=max(residuals), cpu_differing=differing,
+                ssim=batch_ssim.tolist(), psnr_db=batch_psnr.tolist(), ssim_err=ssim_err,
+                psnr_err_db=psnr_err, batch_ms=batch_ms, lpips=lpips_card, lpips_ms=lpips_ms,
+                lpips_err=lpips_err, mifd_px=mifd_card, mifd_ms=mifd_ms, mifd_err=mifd_err,
+                llff=scores["mean"], llff_s=llff_s,
+                e2e=dict(e2e_timed, candidates=e2e_candidates, faces=e2e_mesh.num_faces,
+                         vertices=e2e_mesh.num_vertices, load_s=load_s, coverage=e2e_cover),
+                viewer=served)
+
+
+# ---------------------------------------------------------------------------
 # The measurement entry points' kernels.
 # ---------------------------------------------------------------------------
 
@@ -3635,6 +4016,7 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}; nvidia-smi: {smi}")
     log(f"[device] video tools on PATH: {video_tools()}")
+    log(f"[device] video decoder libraries (ctypes.util.find_library): {decoder_libraries()}")
 
     start = time.perf_counter()
     cuda_build.build(["classify_blocks", "band_update", "band_sampler", "tile_gather",
@@ -3658,8 +4040,9 @@ def main() -> int:
     check_sparse_vs_dense(device)
     del frames
     torch.cuda.empty_cache()
-    main_path, main_profiling = run_main_path(device, launches)
     with tempfile.TemporaryDirectory(prefix="hive_tum_") as tmp:
+        e2e = os.path.join(tmp, "e2e")
+        main_path, main_profiling = run_main_path(device, launches, keep=e2e)
         conversion, conversion_profiling = run_conversion(device, launches, main_profiling, tmp)
         dpt_results = check_dpt(device)
         depth_run = run_depth_conversion(device, launches, conversion_profiling, tmp)
@@ -3677,6 +4060,7 @@ def main() -> int:
         features = check_features(device)
         pnp_run = run_pnp_pose_conversion(device, launches, conversion_profiling, colmap_run,
                                           tmp)
+        evaluation = check_eval(device, tmp, e2e)
     entry_points = run_entry_points(device, launches)
 
     # Times, errors and bounds are the main path's own (its largest call);
@@ -3735,6 +4119,7 @@ def main() -> int:
     log("[pose] summary " + json.dumps({"pose_optimise": pose_results, "fts_run": fts_run,
                                         "colmap_pose_run": colmap_run}))
     log("[features] summary " + json.dumps({"sift_phase": features, "pnp_pose_run": pnp_run}))
+    log("[eval] summary " + json.dumps(evaluation))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -477,21 +477,41 @@ class Trajectory:
 
     # -- plotting -----------------------------------------------------------
     def plot(self, output_path: str):
-        """Save a plot of the camera positions on the XY and XZ planes."""
+        """Plot the camera positions on the XY and XZ planes into
+        ``output_path``."""
+        positions = self.normalise().positions
+        self._save_plot(positions, None, output_path)
+
+    def plot_comparison(self, other: "Trajectory", output_path: str):
+        """Overlay this trajectory (ground truth) and another (estimate) in
+        ``output_path``."""
+        if len(self) != len(other):
+            raise RuntimeError(
+                f"Trajectory lengths differ: {len(self)} vs {len(other)}.")
+
+        self._save_plot(self.normalise().positions, other.normalise().positions, output_path)
+
+    @staticmethod
+    def _save_plot(gt: np.ndarray, pred: Optional[np.ndarray], output_path: str):
         from matplotlib import pyplot as plt
 
-        positions = self.normalise().positions
         _, (ax1, ax2) = plt.subplots(1, 2, figsize=(12.8, 4.8))
-        self._plot_positions(positions, ax1, "y")
-        self._plot_positions(positions, ax2, "z")
+        Trajectory._plot_positions(gt, pred, ax1, "y")
+        Trajectory._plot_positions(gt, pred, ax2, "z")
         plt.tight_layout()
         plt.savefig(output_path, dpi=90)
         plt.close()
 
     @staticmethod
-    def _plot_positions(positions: np.ndarray, axis, secondary: str):
+    def _plot_positions(gt: np.ndarray, pred: Optional[np.ndarray], axis, secondary: str):
         idx = {"y": 1, "z": 2}[secondary]
-        axis.plot(positions[:, 0], positions[:, idx], "-", color="black")
+        axis.plot(gt[:, 0], gt[:, idx], "-", color="black",
+                  label="ground truth" if pred is not None else None)
+
+        if pred is not None:
+            axis.plot(pred[:, 0], pred[:, idx], "-", color="blue", label="estimated")
+            axis.legend()
+
         axis.set_xlabel("x [m]")
         axis.set_ylabel(f"{secondary} [m]")
         axis.set_title(f"Trajectory, X{secondary.upper()} plane")

@@ -1,14 +1,19 @@
-"""Image-domain helpers: mask dilation, inpainting and resolution math.
+"""Image-domain helpers: mask dilation, depth filtering and binning,
+inpainting and resolution math.
 
-Counterpart of ``hive_tpu/image_processing.py`` (``dilate_mask`` and
+Counterpart of ``hive_tpu/image_processing.py`` (``dilate_mask``,
+``median_filter``, ``get_bins``, ``bin_depth`` and
 ``calculate_target_resolution``) and of the two OpenCV calls of
 ``hive_tpu/dataset_adaptors.py``'s inpainting (``cv2.dilate`` of the
 instance masks, :func:`dilate_ids`, and ``cv2.inpaint`` with
 ``INPAINT_TELEA``, :func:`inpaint_telea`). The JAX package dilates with
 OpenCV; the port has no OpenCV, so a dilation by the all-ones rectangular
 element becomes ``max_pool2d`` passes (stride 1, -inf padding), which is
-what ``cv2.dilate`` computes with its default border. Telea's inpainting is
-a sequential fast march, host code in the native library.
+what ``cv2.dilate`` computes with its default border. ``cv2.medianBlur``
+becomes the exact median on the card with OpenCV's replicated border (a
+count over the 256 levels from integral images for 8-bit maps, a sort of
+each window for the 3x3 and 5x5 float filters). Telea's inpainting is a
+sequential fast march, host code in the native library.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from hive_tpu_torch import get_device
 from hive_tpu_torch.native import telea_inpaint
 from hive_tpu_torch.options import MaskDilationOptions
 from hive_tpu_torch.utils import validate_shape
@@ -65,6 +71,96 @@ def dilate_ids(mask: np.ndarray) -> np.ndarray:
     validate_shape(mask, "mask", expected_shape=(None, None))
     x = _dilate(torch.from_numpy(np.asarray(mask, np.float32)), 5, 5)
     return x.numpy().astype(np.uint8)
+
+
+def _replicated(x: torch.Tensor, r: int) -> torch.Tensor:
+    """(H, W) ``x`` padded by ``r`` on each side, edges replicated."""
+    height, width = x.shape
+    rows = torch.clamp(torch.arange(-r, height + r, device=x.device), 0, height - 1)
+    cols = torch.clamp(torch.arange(-r, width + r, device=x.device), 0, width - 1)
+    return x[rows][:, cols]
+
+
+# Levels counted at once by _median_u8.
+_MEDIAN_LEVELS = 32
+
+
+def _median_u8(x: torch.Tensor, k: int) -> torch.Tensor:
+    """``cv2.medianBlur`` of an (H, W) uint8 map, any odd ``k``: the median
+    of each k x k window is the number of levels L < 255 whose count of
+    window values <= L stays below (k^2 + 1) / 2; the counts are box sums of
+    an integral image per level."""
+    height, width = x.shape
+    padded = _replicated(x, k // 2)
+    half = (k * k + 1) // 2
+    median = torch.zeros((height, width), dtype=torch.int32, device=x.device)
+    for start in range(0, 255, _MEDIAN_LEVELS):
+        levels = torch.arange(start, min(start + _MEDIAN_LEVELS, 255), device=x.device,
+                              dtype=torch.uint8)
+        below = (padded[None] <= levels[:, None, None]).to(torch.int32)
+        integral = F.pad(below.cumsum(1, dtype=torch.int32).cumsum(2, dtype=torch.int32),
+                         (1, 0, 1, 0))
+        box = (integral[:, k:, k:] - integral[:, :height, k:] - integral[:, k:, :width]
+               + integral[:, :height, :width])
+        median += (box < half).sum(dim=0, dtype=torch.int32)
+    return median.to(torch.uint8)
+
+
+def _median_sorted(x: torch.Tensor, k: int) -> torch.Tensor:
+    """``cv2.medianBlur`` with a 3x3 or 5x5 window, any dtype: the middle
+    value of each window."""
+    height, width = x.shape
+    windows = _replicated(x, k // 2).unfold(0, k, 1).unfold(1, k, 1)
+    return windows.reshape(height, width, k * k).median(dim=-1).values
+
+
+def median_filter(depth_map: np.ndarray, kernel_size: int = 63, device=None) -> np.ndarray:
+    """Median-filter a depth map (NYU convention: invalid = 0, max = 10.0).
+
+    Kernels larger than 5 px filter the map rescaled to uint8, then rescale
+    back to float32, as ``hive_tpu`` does for ``cv2.medianBlur``; numpy's
+    dtypes are kept (float32 minus a Python float stays float32).
+
+    :param device: where the filter runs; default ``cuda:0``.
+    """
+    device = get_device(device)
+    depth = torch.as_tensor(np.ascontiguousarray(depth_map), device=device)
+
+    if kernel_size > 5:
+        min_depth = float(depth_map.min())
+        max_depth = float(depth_map.max())
+        span = max(max_depth - min_depth, 1e-12)
+
+        # (255 * (depth - min) / span).astype(uint8), a true division by
+        # span as numpy's dtype.
+        scaled = 255 * (depth - min_depth) / torch.full_like(depth, span)
+        filtered = _median_u8(scaled.to(torch.uint8), kernel_size).to(torch.float32)
+        out = (filtered / torch.full_like(filtered, 255.0)) * span + min_depth
+        return out.cpu().numpy()
+
+    return _median_sorted(depth, kernel_size).cpu().numpy()
+
+
+def get_bins(min_value: float = 0.0, max_value: float = 10.0, num_bins: int = 128) -> np.ndarray:
+    """Log-spaced depth bins following "Deep Ordinal Regression Network for
+    Monocular Depth Estimation" (https://arxiv.org/abs/1806.02446)."""
+    epsilon = 1.0 - min_value
+    alpha = min_value + epsilon
+    beta = max_value + epsilon
+
+    i = np.arange(num_bins)
+    thresholds = np.exp(np.log(alpha) + np.log(beta / alpha) * i / num_bins) - epsilon
+
+    return np.append(thresholds, max_value)
+
+
+def bin_depth(depth_map: np.ndarray, min_depth: float = 0.0, max_depth: float = 10.0,
+              num_bins: int = 128) -> np.ndarray:
+    """Quantise depth values into ordered bins of increasing size; depths at
+    or above the last edge (the NYU cap) fall in the last bin."""
+    bins = get_bins(min_depth, max_depth, num_bins=num_bins)
+    indices = np.minimum(np.digitize(depth_map, bins), len(bins) - 1)
+    return bins[indices]
 
 
 # The inpainting radius hive_tpu passes to cv2.inpaint.

@@ -4,8 +4,9 @@ Counterpart of ``hive_tpu/io.py``: the raw float32 codec (:56, :81),
 ``ImageFolderDataset`` (:111), ``create_masks`` (:177), ``DatasetMetadata``
 (:626), ``make_depth_map_transform`` (:733), the ``HiveDataset`` read path
 (:746) with ``create_masked_depth`` (:936) and ``select_key_frames`` (:986),
-``temporary_trajectory``, and ``COLMAPProcessor`` (:238-525), which runs a
-``colmap`` binary and reads its model with
+``temporary_trajectory``, ``temporary_camera_matrix`` and
+``disable_inpainted_data`` (:1053-1091), and ``COLMAPProcessor``
+(:238-525), which runs a ``colmap`` binary and reads its model with
 :mod:`hive_tpu_torch.data.colmap_model`.
 
 The port depends on neither Pillow nor OpenCV. PNGs (depth maps, masks,
@@ -1152,3 +1153,31 @@ def temporary_trajectory(dataset: HiveDataset, trajectory: Trajectory):
         yield
     finally:
         dataset.camera_trajectory = backup
+
+
+@contextlib.contextmanager
+def temporary_camera_matrix(dataset: HiveDataset, camera_matrix: np.ndarray):
+    """Temporarily swap a dataset's camera matrix."""
+    backup = dataset.camera_matrix.copy()
+
+    try:
+        dataset.camera_matrix = camera_matrix
+        yield
+    finally:
+        dataset.camera_matrix = backup
+
+
+@contextlib.contextmanager
+def disable_inpainted_data(dataset: HiveDataset):
+    """Temporarily hide a dataset's inpainted RGB/depth so consumers fall back
+    to the raw frames."""
+    rgb_backup = dataset.inpainted_rgb_dataset
+    depth_backup = dataset.inpainted_depth_dataset
+
+    try:
+        dataset.inpainted_rgb_dataset = None
+        dataset.inpainted_depth_dataset = None
+        yield
+    finally:
+        dataset.inpainted_rgb_dataset = rgb_backup
+        dataset.inpainted_depth_dataset = depth_backup

@@ -554,8 +554,8 @@ def write_gzip_sibling(path: str) -> int:
     return its size in bytes.
 
     The transfer-side half of the native compression fallback: the in-tree
-    viewer server (``hive_tpu.viewer``; its port is ROADMAP.md Queue 1 item
-    14) serves ``X.glb`` from ``X.glb.gz`` with
+    viewer server (``hive_tpu_torch.viewer``) serves ``X.glb`` from
+    ``X.glb.gz`` with
     ``Content-Encoding: gzip`` when the client accepts it (every browser
     does, decoding transparently) — so over the wire the quantized fallback
     reaches the external draco_transcoder's compression class

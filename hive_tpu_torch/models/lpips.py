@@ -6,8 +6,9 @@ weighted per channel by the learned linear heads, averaged over the pixels
 and summed over the taps (Zhang et al. 2018, v0.1 weights). The modules
 keep the reference's names, so one ``lpips_alex.npz`` serves both packages;
 :func:`convert_torch_checkpoint` writes it from torchvision's AlexNet and the
-``lpips`` package's linear heads. The evaluation metrics that use it are
-not ported yet (ROADMAP.md Queue 1 item 13).
+``lpips`` package's linear heads, and :func:`check_params` makes check
+weights in that layout from a seed. ``hive_tpu_torch.metrics.lpips`` scores
+with it.
 """
 
 from __future__ import annotations
@@ -46,8 +47,10 @@ class LPIPSAlex(FlaxModule):
             self.add_module(f"conv{i}", Conv(cin, features, kernel, stride, ((pad, pad),) * 2))
             self.register_parameter(f"lin{i}", nn.Parameter(torch.ones(features),
                                                             requires_grad=False))
-        self.register_buffer("shift", torch.from_numpy(_SHIFT)[:, None, None])
-        self.register_buffer("scale", torch.from_numpy(_SCALE)[:, None, None])
+        # torch.tensor, not torch.from_numpy: the buffers follow a
+        # ``torch.device`` context, as the parameters do.
+        self.register_buffer("shift", torch.tensor(_SHIFT)[:, None, None])
+        self.register_buffer("scale", torch.tensor(_SCALE)[:, None, None])
 
     def taps(self, x: torch.Tensor):
         x = (x - self.shift) / self.scale
@@ -92,6 +95,25 @@ class LPIPSScorer:
             return torch.from_numpy(x).to(self.device).permute(2, 0, 1)[None]
 
         return float(self.model(prepare(image_a), prepare(image_b))[0])
+
+
+def check_params(seed: int = 0) -> Dict[str, np.ndarray]:
+    """Informative random weights in the converted file's layout
+    (``conv{i}/kernel`` HWIO, ``conv{i}/bias``, ``lin{i}``), drawn from
+    ``np.random.default_rng(seed)``: kernels at std sqrt(2 / fan_in), biases
+    N(0, 0.1), and the linear heads |N(0, 1)| (LPIPS's learned heads are
+    non-negative, so the distance is too)."""
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for i, (cin, features, kernel, *_) in enumerate(_CONVS):
+        fan_in = cin * kernel * kernel
+        flat[f"conv{i}/kernel"] = (rng.standard_normal((kernel, kernel, cin, features),
+                                                       dtype=np.float32)
+                                   * np.float32(np.sqrt(2.0 / fan_in)))
+        flat[f"conv{i}/bias"] = rng.standard_normal(features, dtype=np.float32) * np.float32(0.1)
+    for i, (_, features, *_) in enumerate(_CONVS):
+        flat[f"lin{i}"] = np.abs(rng.standard_normal(features, dtype=np.float32))
+    return flat
 
 
 def load_scorer(weights_filename: str = WEIGHTS_FILENAME, *,

@@ -7,7 +7,8 @@ RGBD and BundleFusion background methods, per-frame foreground meshing
 (``_create_scene``, ``process_frame``, ``_mesh_single_frame``, :372-599),
 ``_center_scenes`` with ``--align_scene`` and the BundleFusion alignment,
 the export with its draco or quantize compression (:806-904), the WebXR
-copy and ``profiling.json`` with its per-frame roll-ups (:1045-1096). The
+copy, ``profiling.json`` with its per-frame roll-ups (:1045-1096) and
+``--webxr_run_server`` (:293-314, the viewer in ``hive_tpu_torch.viewer``). The
 conversion's masks and the background's TSDF fusion run on the card; the
 foreground stays host numpy, scipy and native C++ in worker threads, as in
 the JAX package, after foreground trajectory smoothing
@@ -149,8 +150,6 @@ class Pipeline:
         """Refuse the options whose stages are not ported yet."""
         if self.options.num_devices != 1:
             raise not_ported("--num_devices", "Queue 1 item 14")
-        if self.webxr_options.webxr_run_server:
-            raise not_ported("--webxr_run_server (the viewer)", "Queue 1 item 14")
 
     # -- main entry ----------------------------------------------------------
     def run(self, dataset: Optional[HiveDataset] = None, adaptor=None, compress: bool = True):
@@ -262,6 +261,34 @@ class Pipeline:
                             elapsed_time_seconds)
 
         self._write_profiling_data(path=pjoin(str(dataset.base_path), "profiling.json"))
+
+        logging.info(f"Start the viewer (python -m hive_tpu_torch.viewer --webxr_path "
+                     f"{self.webxr_options.webxr_path}) and go to this URL: "
+                     f"{self.webxr_options.webxr_url}?video={self._get_dataset_name(dataset)}")
+
+        if self.webxr_options.webxr_run_server:
+            self._run_viewer()
+
+    def _run_viewer(self):
+        """``--webxr_run_server``: ``npm run start`` in an external renderer's
+        checkout (``--webxr_source_path`` with ``node_modules``), else the
+        in-tree player on the port of ``--webxr_url``. As in ``hive_tpu``, a
+        URL without a scheme (``localhost:9000``) parses to no port, so the
+        server then binds 8080."""
+        if os.path.isdir(pjoin(self.webxr_options.webxr_source_path, "node_modules")):
+            subprocess.run(["npm", "run", "start"], cwd=self.webxr_options.webxr_source_path)
+            return
+
+        from urllib.parse import urlsplit
+
+        from hive_tpu_torch.viewer import main as viewer_main
+
+        try:
+            port = urlsplit(self.webxr_options.webxr_url).port
+        except ValueError:
+            port = None
+        viewer_main(["--webxr_path", self.webxr_options.webxr_path,
+                     "--port", str(port or 8080)])
 
     def get_dataset(self) -> HiveDataset:
         """The HIVE-format dataset named on the command line. As in

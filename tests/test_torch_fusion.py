@@ -122,11 +122,22 @@ def test_estimate_depth_on_a_hive_dataset_runs_as_in_hive_tpu(dataset_path, tmp_
 @pytest.mark.parametrize("extra", [["--webxr_run_server"], ["--num_devices", "2"]],
                          ids=["webxr_run_server", "num_devices"])
 def test_unported_options_name_their_roadmap_item(dataset_path, tmp_path, extra):
-    """The viewer and the multi-device layer are not ported (Queue 1 item
-    14)."""
+    """The multi-device layer is not ported (Queue 1 item 14). The viewer
+    is: ``--webxr_run_server`` runs, then starts the port's viewer (its
+    ``main`` patched here) on the export folder."""
+    from unittest import mock
+
+    from hive_tpu_torch import viewer
+
     pipeline = Pipeline.from_command_line(_argv(dataset_path, tmp_path, *extra), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 14"):
-        pipeline.run()
+    if extra == ["--num_devices", "2"]:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 14"):
+            pipeline.run()
+        return
+    with mock.patch.object(viewer, "main") as viewer_main:
+        pipeline.run(compress=False)
+    viewer_main.assert_called_once_with(["--webxr_path", pipeline.webxr_options.webxr_path,
+                                         "--port", "8080"])
 
 
 def test_cli_flag_roster_is_the_jax_packages():

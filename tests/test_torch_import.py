@@ -77,6 +77,15 @@ def test_imports_with_jax_and_hive_tpu_blocked(tmp_path):
     assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
+def test_blocked_import_check_covers_the_evaluation_path():
+    """The JAX-blocked import above walks every module of the package; the
+    evaluation path's and the player's are among them."""
+    modules = set(_port_modules())
+    for name in ("metrics", "meshing.render", "data.llff", "data.hypernerf", "viewer",
+                 "viewer.__main__", "interface"):
+        assert f"hive_tpu_torch.{name}" in modules, name
+
+
 def test_sources_import_nothing_of_jax_or_hive_tpu():
     """Nor Pillow, OpenCV, imageio, transformers, timm or torchvision, which
     the card's machine lacks."""
@@ -693,6 +702,97 @@ def test_motion_segmenter_on_card_equals_cpu(tmp_path):
             np.testing.assert_array_equal(card.instances(g), cpu.instances(w))
         for state in ("weight", "variance", "mean", "modes_used"):
             assert torch.equal(getattr(card, state).cpu(), getattr(cpu, state)), (name, state)
+
+
+@pytest.mark.cuda
+def test_render_and_batch_metrics_on_card_equal_cpu():
+    """The card's render equals the CPU's (image and depth, 0 pixels
+    differ: the same float32 operations, FMAs through float64); its
+    ``batch_ssim_psnr`` is within 1e-5 / 1e-4 dB of the CPU's (the CPU
+    tolerance against hive_tpu, tests/test_torch_render_metrics.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: compares the card's render with the CPU's")
+    from hive_tpu_torch import metrics
+    from hive_tpu_torch.meshing import render
+    from hive_tpu_torch.meshing.mesh import TriangleMesh
+
+    rng = np.random.default_rng(21)
+    K = np.array([[580.0, 0.0, 319.5], [0.0, 580.0, 239.5], [0.0, 0.0, 1.0]])
+    R = np.linalg.qr(np.eye(3) + 0.1 * rng.normal(size=(3, 3)))[0]
+    R[:, 0] *= np.sign(np.linalg.det(R))
+    t = rng.normal(0, 0.1, (3, 1))
+    centres = np.stack([rng.uniform(-1.5, 1.5, 2000), rng.uniform(-1, 1, 2000),
+                        rng.uniform(1.0, 4.0, 2000)], 1)
+    vertices = (centres[:, None] + rng.normal(0, 0.15, (2000, 3, 3))).reshape(-1, 3)
+    arrays = dict(vertices=vertices.astype(np.float32), faces=np.arange(6000).reshape(2000, 3))
+    for colours in (dict(vertex_colors=rng.integers(0, 256, (6000, 3)).astype(np.uint8)),
+                    dict(uv=rng.uniform(0, 1, (6000, 2)).astype(np.float32),
+                         texture=rng.integers(0, 256, (16, 24, 3)).astype(np.uint8))):
+        mesh = TriangleMesh(**arrays, **colours)
+        card = render.render_mesh(mesh, K, R, t, 640, 480, device="cuda")
+        cpu = render.render_mesh(mesh, K, R, t, 640, 480, device="cpu")
+        assert (cpu[1] > 0).sum() > 100_000
+        for got, want in zip(card, cpu):
+            np.testing.assert_array_equal(got, want)
+    # Edge-on slivers in the plane X = Y, drawn by their bands along the
+    # diagonal (tests/test_torch_render_metrics.py holds them to the scan).
+    x = rng.uniform(-0.8, 0.8, (256, 1)) + rng.uniform(-0.02, 0.02, (256, 3))
+    z = rng.uniform(1, 4, (256, 1)) + rng.uniform(-0.02, 0.02, (256, 3))
+    slivers = TriangleMesh(vertices=np.stack([x, x, z], -1).reshape(-1, 3).astype(np.float32),
+                           faces=np.arange(768).reshape(256, 3),
+                           vertex_colors=rng.integers(0, 256, (768, 3)).astype(np.uint8))
+    K_diagonal = np.array([[525.0, 0.0, 320.0], [0.0, 525.0, 240.0], [0.0, 0.0, 1.0]])
+    card, cpu = (render.render_mesh(slivers, K_diagonal, np.eye(3), np.zeros((3, 1)), 640, 480,
+                                    device=device) for device in ("cuda", "cpu"))
+    assert (cpu[1] > 0).sum() >= 400
+    for got, want in zip(card, cpu):
+        np.testing.assert_array_equal(got, want)
+    a = rng.integers(0, 256, (4, 480, 640, 3)).astype(np.uint8)
+    b = np.clip(a + rng.normal(0, 12, a.shape), 0, 255).astype(np.uint8)
+    card = metrics.batch_ssim_psnr(a, b, device="cuda")
+    cpu = metrics.batch_ssim_psnr(a, b, device="cpu")
+    np.testing.assert_allclose(card[0], cpu[0], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(card[1], cpu[1], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_lpips_scorer_on_card_equals_cpu():
+    """LPIPS with check weights on the card against the CPU, within 1e-4
+    relative (float32 convolutions in other orders; TF32 off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: compares the card's scorer with the CPU's")
+    from hive_tpu_torch.models import lpips
+
+    flat = lpips.check_params(0)
+    rng = np.random.default_rng(23)
+    a = rng.integers(0, 256, (120, 160, 3)).astype(np.uint8)
+    b = np.clip(a + rng.normal(0, 20, a.shape), 0, 255).astype(np.uint8)
+    card, cpu = (lpips.LPIPSScorer(flat, device)(a, b) for device in ("cuda", "cpu"))
+    assert cpu > 0 and abs(card - cpu) <= 1e-4 * cpu
+
+
+@pytest.mark.cuda
+def test_lpips_metric_scores_on_the_device_asked_for(monkeypatch, tmp_path):
+    """``metrics.lpips`` on the card, then on the CPU: each call scores
+    with a scorer on the device it asked for, within 1e-4 relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: scores on the card and then the CPU")
+    from hive_tpu_torch import metrics
+    from hive_tpu_torch.models import lpips
+
+    np.savez(tmp_path / lpips.WEIGHTS_FILENAME, **lpips.check_params(1))
+    monkeypatch.setenv("WEIGHTS_PATH", str(tmp_path))
+    monkeypatch.setattr(metrics, "_lpips_models", {})
+    rng = np.random.default_rng(29)
+    a = rng.integers(0, 256, (96, 128, 3)).astype(np.uint8)
+    b = np.clip(a + rng.normal(0, 20, a.shape), 0, 255).astype(np.uint8)
+    card = metrics.lpips(a, b, device="cuda")
+    cpu = metrics.lpips(a, b, device="cpu")
+    devices = {d: next(scorer.model.parameters()).device.type
+               for d, scorer in metrics._lpips_models.items()}
+    assert devices == {torch.device("cuda", torch.cuda.current_device()): "cuda",
+                       torch.device("cpu"): "cpu"}
+    assert cpu > 0 and abs(card - cpu) <= 1e-4 * cpu
 
 
 def _check_classify_on_card(kernel, rng, dev):

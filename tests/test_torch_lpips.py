@@ -79,3 +79,13 @@ def test_wrong_key_warns_at_load_in_the_port(weights, caplog):
     image = np.zeros((32, 32, 3), np.uint8)
     with pytest.raises(Exception, match="conv0"):
         scorer(image, image)
+
+
+def test_model_state_follows_the_device_context():
+    """Every parameter and buffer of ``LPIPSAlex`` is made on the device of
+    the ``torch.device`` context it is built in, as ``LPIPSScorer`` builds it
+    (the normalisation buffers came from ``torch.from_numpy`` and stayed on
+    the CPU, so a scorer on the card failed at its first call)."""
+    with torch.device("meta"):
+        model = lpips.LPIPSAlex()
+    assert {t.device.type for t in (*model.parameters(), *model.buffers())} == {"meta"}
