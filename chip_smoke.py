@@ -6,9 +6,11 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``), whether ``ffmpeg``
-   and ``ffprobe`` are on PATH, and what ``ctypes.util.find_library`` finds
-   for ``avcodec``, ``avformat``, ``avutil``, ``swscale`` and ``nvcuvid``
-   (the video inputs need a decoder; logged, never failing);
+   and ``ffprobe`` are on PATH, what ``ctypes.util.find_library`` finds
+   for ``avcodec``, ``avformat``, ``avutil``, ``swscale`` and ``nvcuvid``,
+   the container's ``NVIDIA_DRIVER_CAPABILITIES`` and what
+   ``cuvidGetDecoderCaps`` says of 8-bit 4:2:0 H.264, HEVC, MPEG-4, VP9 and
+   AV1 at 1920x1440 (logged, never failing);
 2. build all six CUDA kernels from ``hive_tpu_torch/csrc`` (one ``nvcc``
    each, started together), then the native host library (``g++``: the
    extraction weld, the QEM decimation, the JPEG scan decode, the PNG
@@ -205,7 +207,28 @@ Phases (any failure raises and the script exits non-zero):
    hive_tpu_torch.pose_optimisation`` on the converted folder with no
    cached feature set: the extraction time, the pairs kept and the whole
    CLI's time logged;
-17. [eval]: the evaluation path and the player on phase 7's export (no
+17. [video]: video and Stray Scanner inputs (no kernel of their own:
+   host demuxing, NVDEC, plain PyTorch). Three seeded I_PCM H.264 MP4s
+   (640x480 x 30 frames in display order, the same coded out of order with
+   ``ctts``, 1920x1080 x 10 frames, cropped from 1088 lines): the demuxer's
+   size, count and rate as written, the CPU reader's planes equal to the
+   seeded samples; through NVDEC on the card the same planes exactly, or,
+   where the card's machine does not open NVDEC, the capture's refusal
+   naming the call's CUresult and ROADMAP item 9b (logged); the card's
+   YUV -> BGR conversion equal to the CPU's on the same planes (device ms,
+   kernels, peak memory); the card's rotation and uint8 resize equal to the
+   CPU's at the phone clip's (1920x1080 -> 640x360) and the Stray Scanner
+   capture's (1920x1440, turned to portrait, -> 480x640) shapes, timed.
+   Then a user's runs through ``python -m hive_tpu_torch`` in this
+   process: where NVDEC opens, a 30-frame 1080p phone clip of phase 16's
+   textured wall with ``--estimate_pose --estimate_depth`` (PnP odometry,
+   DPT with phase 8's check weights) and a 30-frame Stray Scanner capture
+   (1920x1440 video, 256x192 depth and confidence, the first pose rolled
+   -90 degrees) with its own poses, each with two classifications and one
+   band update a frame, finite meshes and frames equal to the CPU path's
+   JPEG bytes; where it does not, both inputs refused by the CLI naming
+   item 9b and the CUresult, before anything is written;
+18. [eval]: the evaluation path and the player on phase 7's export (no
    kernel of its own: plain PyTorch and host code). ``bg.glb`` with each
    frame's ``fg.glb`` node rendered from the 30 ground-truth poses at
    640x480 on the card (the export's upright turn undone, its centring
@@ -226,7 +249,7 @@ Phases (any failure raises and the script exits non-zero):
    timed with its candidate pixels and peak memory; then the viewer's
    server on a free local port: the page and ``bg.glb`` plain and
    gzip-encoded byte for byte, a missing file 404;
-18. the two measurement entry points, each run in this process with the
+19. the two measurement entry points, each run in this process with the
    launch counts reset just before and read just after:
    ``hive_tpu_torch.micro.gather`` (Q1 tile gathers, Q2 patch gather timed
    beside ``torch.take`` and the band sampler) and
@@ -234,7 +257,7 @@ Phases (any failure raises and the script exits non-zero):
    production trip; Q3: fused, production and take trips timed, their final
    states bit-identical on the rows that fit); each of its kernels must have
    launched;
-19. one ``{"kernels": [...]}`` line (times, errors and bounds at the main
+20. one ``{"kernels": [...]}`` line (times, errors and bounds at the main
    paths' shapes, and under ``bench`` at the bench shape), then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last
    line.
@@ -3457,6 +3480,318 @@ def run_pnp_pose_conversion(device, launches, gt_profiling, colmap_run, tmp: str
 
 
 # ---------------------------------------------------------------------------
+# [video]: video and Stray Scanner inputs.
+# ---------------------------------------------------------------------------
+
+# The decoder check's I_PCM fixtures: (name, frames, width, height, options).
+VIDEO_FIXTURES = (("vga", 30, 640, 480, {}), ("vga_out_of_order", 30, 640, 480,
+                                                dict(reorder=True)),
+                  ("1080p", 10, 1920, 1080, {}))
+# The phone clip (1080p at 30 fps) and the Stray Scanner capture (rgb.mp4 at
+# 1920 x 1440, depth and confidence at 256 x 192), and their frames once the
+# CLI has resized them to a long side of 640 (the capture's rotated first).
+PHONE_W, PHONE_H, STRAY_W, STRAY_H, STRAY_DEPTH_HW = 1920, 1080, 1920, 1440, (192, 256)
+VIDEO_FRAMES = 30
+
+
+def nvdec_caps_log() -> dict:
+    """cuvidGetDecoderCaps for 8-bit 4:2:0 H.264, HEVC, MPEG-4, VP9 and AV1 at
+    1920 x 1440 on the card, or the error each call gave; logs only."""
+    from hive_tpu_torch.video import nvdec
+
+    caps = {}
+    for name, codec in nvdec.CODECS.items():
+        try:
+            caps[name] = nvdec.decoder_caps("cuda:0", codec, STRAY_W, STRAY_H)
+        except nvdec.NvdecError as e:
+            caps[name] = str(e)
+    return caps
+
+
+def nvdec_parser_log(folder: str) -> dict:
+    """What NVDEC's parser reports for an I_PCM stream (1920x1080, cropped
+    from 1088 lines), which checks the parser's structures even where the
+    decoder cannot be made; logs only."""
+    from hive_tpu_torch.video import h264_pcm, mp4, nvdec
+
+    path = os.path.join(folder, "parser_check.mp4")
+    h264_pcm.write_pcm_mp4(path, video_planes(1, PHONE_W, PHONE_H, SEED))
+    track = mp4.read_track(path)
+    length_size, sps, pps = mp4.parse_avcc(track.config)
+    with open(path, "rb") as f:
+        f.seek(int(track.offsets[0]))
+        units = mp4.split_nal_units(f.read(int(track.sizes[0])), length_size)
+    try:
+        decoder = nvdec.NvdecDecoder("cuda:0")
+    except nvdec.NvdecError as e:
+        return dict(error=str(e))
+    try:
+        decoder.decode(mp4.annex_b(sps + pps + units), 0)
+        error = None
+    except nvdec.NvdecError as e:
+        error = str(e)
+    finally:
+        decoder.close()
+    return dict(reported=decoder.reported, error=error)
+
+
+def video_planes(num_frames: int, width: int, height: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, 256, (height, width), dtype=np.uint8),
+             rng.integers(0, 256, (height // 2, width // 2), dtype=np.uint8),
+             rng.integers(0, 256, (height // 2, width // 2), dtype=np.uint8))
+            for _ in range(num_frames)]
+
+
+def write_stray_capture(base: str, num_frames: int) -> None:
+    """A Stray Scanner capture at the app's sizes: rgb.mp4 (I_PCM, the
+    textured wall), uint16 millimetre depth and 0-2 confidence PNGs,
+    camera_matrix.csv and odometry.csv, the first pose rolled -90 degrees
+    (portrait)."""
+    from scipy.spatial.transform import Rotation
+
+    from hive_tpu_torch.video import color, h264_pcm
+
+    os.makedirs(os.path.join(base, "depth"))
+    os.makedirs(os.path.join(base, "confidence"))
+    texture = wall_texture()
+    K = wall_camera() * np.array([[STRAY_W / FEATURE_W], [STRAY_W / FEATURE_W], [1.0]])
+    poses = wall_trajectory(num_frames)
+
+    class Frames:
+        def __len__(self):
+            return num_frames
+
+        def __getitem__(self, i):
+            return color.rgb_to_yuv420(render_wall(texture, poses[i], K, STRAY_W, STRAY_H)[0])
+
+    h264_pcm.write_pcm_mp4(os.path.join(base, "rgb.mp4"), Frames())
+    rng = np.random.default_rng(SEED)
+    for i in range(num_frames):
+        depth = np.full(STRAY_DEPTH_HW, 2000, np.uint16) + rng.integers(0, 5, STRAY_DEPTH_HW)
+        write_png(os.path.join(base, "depth", f"{i:06d}.png"), depth.astype(np.uint16))
+        write_png(os.path.join(base, "confidence", f"{i:06d}.png"),
+                  rng.choice([1, 2, 2, 2], STRAY_DEPTH_HW).astype(np.uint8))
+    np.savetxt(os.path.join(base, "camera_matrix.csv"), K, delimiter=",")
+    with open(os.path.join(base, "odometry.csv"), "w") as f:
+        f.write("timestamp, frame, x, y, z, qx, qy, qz, qw\n")
+        for i in range(num_frames):
+            q = Rotation.from_euler("xyz", [0.0, 0.0, -np.pi / 2]).as_quat()
+            f.write(", ".join(repr(float(x)) for x in (i / 30, i, 0.01 * i, 0.0, 0.0, *q))
+                    + "\n")
+
+
+def check_video(device, launches, tmp: str) -> dict:
+    """[video]: the demuxer, the decoders and the conversion on the card, then
+    a user's plain video and Stray Scanner capture through the CLI."""
+    from hive_tpu_torch.image_processing import (ROTATE_90_CLOCKWISE, resize_linear_u8,
+                                                 rotate)
+    from hive_tpu_torch.video import color, h264_pcm
+    from hive_tpu_torch.video.capture import VideoCapture
+
+    phase_start = time.perf_counter()
+    folder = os.path.join(tmp, "video")
+    os.makedirs(folder)
+    results, refusal = {}, None
+    for index, (name, count, width, height, options) in enumerate(VIDEO_FIXTURES):
+        planes = video_planes(count, width, height, SEED + index)
+        path = os.path.join(folder, f"{name}.mp4")
+        h264_pcm.write_pcm_mp4(path, planes, **options)
+        cpu = VideoCapture(path, device="cpu")
+        if (cpu.width, cpu.height, cpu.frame_count, cpu.fps) != (width, height, count, 30.0):
+            raise AssertionError(f"[video] the demuxer reads {name} as {cpu.width}x"
+                                 f"{cpu.height}, {cpu.frame_count} frames at {cpu.fps} fps")
+        start = time.perf_counter()
+        decoded = list(cpu.planes())
+        cpu_ms = 1e3 * (time.perf_counter() - start) / count
+        for got, want in zip(decoded, planes):
+            if not all(np.array_equal(g.numpy(), w) for g, w in zip(got, want)):
+                raise AssertionError(f"[video] the CPU reader's planes of {name} differ from "
+                                     f"the seeded samples")
+        try:
+            card = VideoCapture(path, device=device)
+        except NotImplementedError as e:
+            if "Queue 1 item 9b" not in str(e) or "CUresult" not in str(e):
+                raise
+            refusal = str(e)
+        else:
+            if (card.width, card.height, card.frame_count, card.fps) != (
+                    cpu.width, cpu.height, cpu.frame_count, cpu.fps):
+                raise AssertionError(f"[video] {name}: NVDEC's capture disagrees with the "
+                                     f"demuxer")
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            on_card = list(card.planes())
+            torch.cuda.synchronize()
+            results[f"{name}_nvdec_ms_per_frame"] = (
+                1e3 * (time.perf_counter() - start) / count)
+            if len(on_card) != count or not all(
+                    np.array_equal(g.cpu().numpy(), w)
+                    for got, want in zip(on_card, planes) for g, w in zip(got, want)):
+                raise AssertionError(f"[video] NVDEC's planes of {name} differ from the "
+                                     f"seeded samples")
+        # The card's conversion against the CPU's on the same planes.
+        torch.cuda.reset_peak_memory_stats(device)
+        y, u, v = (torch.from_numpy(p) for p in planes[0])
+        on_device = [p.to(device) for p in (y, u, v)]
+        if not torch.equal(color.yuv420_to_bgr(*on_device).cpu(), color.yuv420_to_bgr(y, u, v)):
+            raise AssertionError(f"[video] the card's BGR of {name} differs from the CPU's")
+        ms, kernels = device_profile(lambda: color.yuv420_to_bgr(*on_device), reps=10,
+                                     warmup=2)
+        results[name] = dict(cpu_reader_ms_per_frame=cpu_ms, conversion_ms=ms,
+                             conversion_kernels=kernels,
+                             peak_bytes=int(torch.cuda.max_memory_allocated(device)))
+        log(f"[video] {name}: {count} frames {width}x{height} at 30 fps, the demuxer's "
+            f"properties and the CPU reader's planes exact ({cpu_ms:.3f} ms a frame on the "
+            f"host); NVDEC "
+            + (f"{results[f'{name}_nvdec_ms_per_frame']:.3f} ms a frame, planes exact"
+               if refusal is None else "refused (below)")
+            + f"; the card's conversion equals the CPU's, {ms:.6f} ms device in {kernels} "
+            f"kernels, peak {results[name]['peak_bytes']} B")
+    if refusal is not None:
+        log(f"[video] NVDEC does not open on this card: {refusal}")
+        parser = nvdec_parser_log(folder)
+        results["nvdec_parser"] = parser
+        log(f"[video] NVDEC's parser alone on a 1920x1080 I_PCM stream (coded 1088 lines): "
+            f"{parser}")
+    results["nvdec_refusal"] = refusal
+
+    # The card's rotation and resize at the user runs' shapes, against the CPU.
+    rng = np.random.default_rng(SEED)
+    for name, (height, width), rotation, target in (
+            ("phone", (PHONE_H, PHONE_W), None, (360, 640)),
+            ("stray", (STRAY_H, STRAY_W), ROTATE_90_CLOCKWISE, (640, 480))):
+        frame = torch.from_numpy(rng.integers(0, 256, (height, width, 3), dtype=np.uint8))
+        on_card = frame.to(device)
+
+        def card_step():
+            turned = on_card if rotation is None else rotate(on_card, rotation)
+            return resize_linear_u8(turned, target[1], target[0])
+
+        want = resize_linear_u8(frame if rotation is None else rotate(frame, rotation),
+                                target[1], target[0])
+        if not torch.equal(card_step().cpu(), want):
+            raise AssertionError(f"[video] the card's rotate + resize ({name}) differs from "
+                                 f"the CPU's")
+        ms, kernels = device_profile(card_step, reps=10, warmup=2)
+        results[f"{name}_rotate_resize"] = dict(ms=ms, kernels=kernels)
+        log(f"[video] {name}: {'rotate 90 degrees clockwise, ' if rotation is not None else ''}"
+            f"resize {width}x{height} -> {target[1]}x{target[0]} on the card equals the CPU's, "
+            f"{ms:.6f} ms device in {kernels} kernels")
+
+    # A user's plain video and Stray Scanner capture through the CLI.
+    clip = os.path.join(folder, "phone.mp4")
+    stray = os.path.join(folder, "stray")
+    if refusal is not None:
+        # Small inputs: the CLI must refuse both before converting anything.
+        h264_pcm.write_pcm_mp4(clip, video_planes(3, 64, 48, SEED))
+        os.makedirs(os.path.join(stray, "depth"))
+        os.makedirs(os.path.join(stray, "confidence"))
+        shutil.copy(clip, os.path.join(stray, "rgb.mp4"))
+        for sub in ("depth", "confidence"):
+            write_png(os.path.join(stray, sub, "000000.png"), np.ones((4, 4), np.uint8))
+        for csv in ("camera_matrix.csv", "odometry.csv"):
+            with open(os.path.join(stray, csv), "w") as f:
+                f.write("0\n")
+        for name, source, extra in (("plain video", clip, ["--estimate_pose",
+                                                            "--estimate_depth"]),
+                                    ("Stray Scanner capture", stray, [])):
+            out = os.path.join(folder, f"converted_{len(name)}")
+            argv = ["hive_tpu_torch", "--dataset_path", source, "--output_path", out, *extra,
+                    "--webxr_path", out + "_webxr", "--log_file", out + ".log"]
+            try:
+                with mock.patch.object(sys, "argv", argv):
+                    runpy.run_module("hive_tpu_torch", run_name="__main__", alter_sys=True)
+            except NotImplementedError as e:
+                if "Queue 1 item 9b" not in str(e) or "CUresult" not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"[video] the CLI converted a {name} without NVDEC")
+            if os.path.exists(out):
+                raise AssertionError(f"[video] the refused {name} left {out}")
+            log(f"[video] the CLI refuses a {name} on this card, naming ROADMAP item 9b and "
+                f"the CUresult, before writing anything")
+    else:
+        results["runs"] = run_video_conversions(device, launches, folder, clip, stray)
+    log(f"[video] the phase took {time.perf_counter() - phase_start:.1f} s")
+    return results
+
+
+def run_video_conversions(device, launches, folder: str, clip: str, stray: str) -> dict:
+    """The user's runs where NVDEC opens: the phone clip with
+    ``--estimate_pose --estimate_depth`` (PnP odometry; DPT with the check
+    weights, as phase 8 writes them) and the Stray Scanner capture with its
+    own poses, each through ``python -m hive_tpu_torch`` in this process:
+    two classifications and one band update a fused frame, both meshes
+    finite, the frames equal to the CPU path's."""
+    from hive_tpu_torch.dataset_adaptors import VideoAdaptorBase
+    from hive_tpu_torch.image_processing import ROTATE_90_CLOCKWISE
+    from hive_tpu_torch.io import HiveDataset
+    from hive_tpu_torch.video import color, h264_pcm
+
+    texture, K = wall_texture(), wall_camera() * np.array([[3.0], [3.0], [1.0]])
+    poses = wall_trajectory(VIDEO_FRAMES)
+
+    class Frames:
+        def __len__(self):
+            return VIDEO_FRAMES
+
+        def __getitem__(self, i):
+            return color.rgb_to_yuv420(render_wall(texture, poses[i], K, PHONE_W, PHONE_H)[0])
+
+    h264_pcm.write_pcm_mp4(clip, Frames())
+    write_stray_capture(stray, VIDEO_FRAMES)
+    weights = os.path.join(folder, "weights")
+    os.makedirs(weights)
+    write_dpt_weights(weights)
+    runs = {}
+    for name, source, extra, size in (
+            ("phone", clip, ["--estimate_pose", "--estimate_depth", "--binary_path",
+                             os.path.join(folder, "no_colmap")], (360, 640)),
+            ("stray", stray, [], (640, 480))):
+        out = os.path.join(folder, f"{name}_converted")
+        argv = ["hive_tpu_torch", "--dataset_path", source, "--output_path", out, *extra,
+                "--webxr_path", out + "_webxr", "--log_file", out + ".log"]
+        reset_launch_counts()
+        start = time.perf_counter()
+        with mock.patch.dict(os.environ, {"WEIGHTS_PATH": weights}), \
+                mock.patch.object(sys, "argv", argv):
+            runpy.run_module("hive_tpu_torch", run_name="__main__", alter_sys=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches[f"video_{name}"] = main_launch_counts()
+        check_launches(f"the {name} CLI run", launches[f"video_{name}"], VIDEO_FRAMES)
+        check_meshes_finite(out)
+        dataset = HiveDataset(out)
+        first = dataset.rgb_dataset[0]
+        if first.shape[:2] != size:
+            raise AssertionError(f"[video] {name}: frames of {first.shape[:2]}, not {size}")
+        # The frames against the CPU path's: the same file decoded by the I_PCM
+        # reader, rotated, resized and encoded on the host.
+        cpu_frames = os.path.join(folder, f"{name}_cpu_rgb")
+        os.makedirs(cpu_frames)
+        VideoAdaptorBase.extract_video(
+            os.path.join(source, "rgb.mp4") if name == "stray" else source, cpu_frames,
+            VIDEO_FRAMES, target_resolution=size,
+            rotation=ROTATE_90_CLOCKWISE if name == "stray" else None, file_extension="jpg",
+            device="cpu")
+        for frame in sorted(os.listdir(cpu_frames)):
+            with open(os.path.join(cpu_frames, frame), "rb") as f, \
+                    open(os.path.join(out, "rgb", frame), "rb") as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"[video] {name}: frame {frame} differs from the CPU "
+                                         f"path's")
+        with open(os.path.join(out, "profiling.json")) as f:
+            profiling = json.load(f)
+        runs[name] = dict(wall_s=wall, per_frame_s=profiling["elapsed_time"]["per_frame"],
+                          load_dataset=profiling["timing"]["load_dataset"])
+        log(f"[video] {name}: {VIDEO_FRAMES} frames converted and meshed in {wall:.1f} s; "
+            f"load_dataset {json.dumps(profiling['timing']['load_dataset'])}; launches "
+            f"{launches[f'video_{name}']}")
+    return runs
+
+
+# ---------------------------------------------------------------------------
 # [eval]: the evaluation path and the player.
 # ---------------------------------------------------------------------------
 
@@ -4017,6 +4352,8 @@ def main() -> int:
         f"torch {torch.__version__} cuda {torch.version.cuda}; nvidia-smi: {smi}")
     log(f"[device] video tools on PATH: {video_tools()}")
     log(f"[device] video decoder libraries (ctypes.util.find_library): {decoder_libraries()}")
+    log(f"[device] NVIDIA_DRIVER_CAPABILITIES={os.environ.get('NVIDIA_DRIVER_CAPABILITIES')}; "
+        f"cuvidGetDecoderCaps, 8-bit 4:2:0 at {STRAY_W}x{STRAY_H}: {nvdec_caps_log()}")
 
     start = time.perf_counter()
     cuda_build.build(["classify_blocks", "band_update", "band_sampler", "tile_gather",
@@ -4060,6 +4397,7 @@ def main() -> int:
         features = check_features(device)
         pnp_run = run_pnp_pose_conversion(device, launches, conversion_profiling, colmap_run,
                                           tmp)
+        video = check_video(device, launches, tmp)
         evaluation = check_eval(device, tmp, e2e)
     entry_points = run_entry_points(device, launches)
 
@@ -4119,6 +4457,7 @@ def main() -> int:
     log("[pose] summary " + json.dumps({"pose_optimise": pose_results, "fts_run": fts_run,
                                         "colmap_pose_run": colmap_run}))
     log("[features] summary " + json.dumps({"sift_phase": features, "pnp_pose_run": pnp_run}))
+    log("[video] summary " + json.dumps(video))
     log("[eval] summary " + json.dumps(evaluation))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,9 +1,11 @@
-"""Dataset adaptors: convert TUM and Unreal RGB-D inputs into the HIVE
-dataset format.
+"""Dataset adaptors: convert TUM, Unreal, StrayScanner and plain-video
+inputs into the HIVE dataset format.
 
 Counterpart of ``hive_tpu/dataset_adaptors.py``: ``create_folder`` (:44),
 ``DatasetAdaptor`` (:50-230) with ``convert``, the cache check and the
-folder set-up, ``TUMAdaptor`` (:467-581), ``UnrealAdaptor`` (:584-643) and
+folder set-up, ``TUMAdaptor`` (:467-581), ``UnrealAdaptor`` (:584-643),
+``VideoAdaptorBase`` (:646-787), ``VideoAdaptor`` (:790-847),
+``DeviceOrientation`` (:850-882), ``StrayScannerAdaptor`` (:885-1015) and
 ``get_dataset`` (:1054-1097), with the same sniffing order, ``profiling``
 keys and output files. RGB frames are written as quality-75 4:2:0 JPEGs and
 depth as 16-bit PNGs through :mod:`hive_tpu_torch.image_codecs`, where the
@@ -23,36 +25,49 @@ scaled to metres by the median ratio of the depth maps to COLMAP's
 by PnP odometry on the card (``_estimate_camera_parameters_native``,
 counterpart of :296-329, through :mod:`hive_tpu_torch.sfm`).
 
-Not ported yet, refused with their ROADMAP item: StrayScanner and plain
-video inputs (Queue 1 item 9b).
+Videos (a plain ``.mp4``, a StrayScanner capture's ``rgb.mp4``) are read
+by :class:`hive_tpu_torch.video.capture.VideoCapture` as ``cv2.VideoCapture``
+reads them: H.264 in MP4, decoded through NVDEC on a CUDA device (a device
+whose NVDEC does not open refuses the video, ROADMAP.md Queue 1 item 9b) or
+through the I_PCM reader on the CPU; rotated and resized on the device
+(``image_processing.rotate`` / ``resize_linear_u8``, cv2's bytes) and
+written as ``cv2.imwrite`` writes JPEGs (quality 95). StrayScanner depth is
+rotated and resized as float32 as cv2 does it
+(``maskrcnn.resize_linear_f32``).
 """
 
 from __future__ import annotations
 
+import enum
 import logging
 import os
 import shutil
 from abc import ABC
 from os.path import join as pjoin
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 
-from hive_tpu_torch.custom_types import File
-from hive_tpu_torch.geometric import Trajectory
+from hive_tpu_torch.custom_types import File, Size
+from hive_tpu_torch.geometric import CameraMatrix, Trajectory
 from hive_tpu_torch.image_codecs import CV2_JPEG_QUALITY, write_image
-from hive_tpu_torch.image_processing import TELEA_RADIUS, dilate_ids, inpaint_telea
+from hive_tpu_torch.image_processing import (ROTATE_90_CLOCKWISE, ROTATE_90_COUNTERCLOCKWISE,
+                                             ROTATE_180, TELEA_RADIUS,
+                                             calculate_target_resolution, dilate_ids,
+                                             inpaint_telea, resize_linear_u8, rotate)
 from hive_tpu_torch.io import (COLMAPProcessor, Dataset, DatasetMetadata, HiveDataset,
                                ImageFolderDataset, InvalidDatasetFormatError, create_masks,
                                load_image, make_depth_map_transform)
 from hive_tpu_torch.models.dpt import DPTDepthEstimator
 from hive_tpu_torch.models.lama import lama_inpaint_folder
+from hive_tpu_torch.models.maskrcnn import resize_linear_f32
 from hive_tpu_torch.options import (BackgroundMeshOptions, COLMAPOptions, InpaintingMode,
                                     PipelineOptions, StorageOptions)
 from hive_tpu_torch.ops.resize import keep_aspect_multiple_of
 from hive_tpu_torch.sensor import KinectSensor
-from hive_tpu_torch.utils import not_ported, timed_block, tqdm_imap
+from hive_tpu_torch.utils import timed_block, tqdm_imap
+from hive_tpu_torch.video.capture import VideoCapture
 
 
 def create_folder(*args, exist_ok: bool = False) -> str:
@@ -654,24 +669,151 @@ class UnrealAdaptor(DatasetAdaptor):
         return depth.astype(np.uint16)  # already millimetres
 
 
-class StrayScannerAdaptor(DatasetAdaptor):
-    """A 'Stray Scanner' capture (iOS LiDAR): recognised, not converted yet.
-    Its video decode needs a decoder the card's machine lacks (ROADMAP.md
-    Queue 1 item 9b)."""
+class VideoAdaptorBase(DatasetAdaptor, ABC):
+    """Shared machinery for video-file-backed datasets. The video is read
+    by :class:`hive_tpu_torch.video.capture.VideoCapture` on ``device``:
+    demuxed on the host, decoded through NVDEC on a CUDA device (the I_PCM
+    reader on the CPU), converted to BGR, rotated and resized on the
+    device; only the final uint8 frames reach the host, to be encoded.
 
-    required_files = ["rgb.mp4", "camera_matrix.csv", "odometry.csv"]
-    required_folders = ["depth", "confidence"]
+    :param device: where the frames are decoded, converted, rotated and
+        resized; default ``cuda:0``. On a CUDA device that NVDEC does not
+        open, the adaptor refuses the video, naming the call's ``CUresult``
+        (ROADMAP.md Queue 1 item 9b).
+    """
 
-    def __init__(self, base_path: File, *args, **kwargs):
-        raise not_ported(f"Converting the StrayScanner capture {base_path}", "Queue 1 item 9b")
+    def __init__(self, base_path: File, output_path: File, video_path: Union[str, Path],
+                 num_frames: int = -1, frame_step: int = 1,
+                 colmap_options: COLMAPOptions = COLMAPOptions(),
+                 resize_to: Optional[Union[int, Size]] = None, device=None):
+        super().__init__(base_path=base_path, output_path=output_path, num_frames=num_frames,
+                         frame_step=frame_step, colmap_options=colmap_options)
+
+        self.video_path = str(video_path)
+        self.capture = VideoCapture(self.video_path, device)
+        self.device = self.capture.device
+
+        self._resolve_num_frames(num_frames)
+
+        self.source_width = self.capture.width
+        self.source_height = self.capture.height
+        self.fps = float(self.capture.fps) or 30.0
+
+        if resize_to is not None:
+            self.target_height, self.target_width = calculate_target_resolution(
+                (self.source_height, self.source_width),
+                resize_to if isinstance(resize_to, int) else tuple(resize_to))
+        else:
+            self.target_height, self.target_width = self.source_height, self.source_width
+
+        if (self.target_height, self.target_width) != (self.source_height, self.source_width):
+            logging.info(f"Frames will be resized {self.source_width}x{self.source_height} -> "
+                         f"{self.target_width}x{self.target_height} (w x h).")
+
+    def _count_frames(self) -> int:
+        """The frame count a ``cv2.VideoCapture.grab()`` loop finds: the
+        demuxer's frames in display order, the edit list applied."""
+        return self.capture.frame_count
+
+    def get_full_num_frames(self) -> int:
+        return self._count_frames()
+
+    def get_metadata(self, estimate_pose: bool, estimate_depth: bool) -> DatasetMetadata:
+        return DatasetMetadata(
+            num_frames=self.num_frames, fps=self.fps,
+            width=self.target_width, height=self.target_height,
+            frame_step=self.frame_step, estimate_pose=estimate_pose,
+            estimate_depth=estimate_depth,
+            depth_mask_dilation_iterations=BackgroundMeshOptions().depth_mask_dilation_iterations,
+            depth_scale=HiveDataset.depth_scaling_factor, colmap_options=self.colmap_options)
+
+    def get_frame(self, index: int) -> np.ndarray:
+        """The RGB frame at ``index``, decoded from the sync sample before
+        it and resized on the device."""
+        if not 0 <= index < self.capture.frame_count:
+            raise RuntimeError(f"Failed to decode frame index {index} (0-based) of "
+                               f"{self.video_path}.")
+        frame = resize_linear_u8(self.capture.frame(index), self.target_width,
+                                 self.target_height)
+        return frame.flip(-1).cpu().numpy()
+
+    def copy_frames(self, output_path: str, num_frames: int = -1, file_extension: str = "png"):
+        num_frames = self.num_frames if num_frames == -1 else num_frames
+        self.extract_video(self.video_path, output_path, num_frames,
+                           target_resolution=(self.target_height, self.target_width),
+                           file_extension=file_extension, device=self.device)
+
+    @staticmethod
+    def extract_video(path_to_video: str, output_path: str, num_frames: int = -1,
+                      target_resolution: Optional[Tuple[int, int]] = None,
+                      rotation: Optional[int] = None, file_extension: str = "png", device=None):
+        """Write the video's frames as ``{index:06d}.{file_extension}``, as
+        ``cv2.imwrite`` writes them (JPEG at quality 95): decode stays
+        sequential and each frame is rotated and resized on ``device``
+        (default ``cuda:0``); the encode and write run on worker threads, at
+        most 4 x workers frames in flight."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        capture = VideoCapture(path_to_video, device)
+
+        def write(index, bgr):
+            write_image(pjoin(output_path, f"{index:06d}.{file_extension}"),
+                        np.ascontiguousarray(bgr[..., ::-1]), CV2_JPEG_QUALITY)
+
+        count = capture.frame_count if num_frames == -1 else min(num_frames, capture.frame_count)
+        workers = os.cpu_count() or 1
+        # Decode outruns the encodes, and each queued frame pins its pixels:
+        # draining the oldest future once 4 x workers are in flight bounds
+        # memory at O(workers) frames while keeping every worker busy.
+        max_in_flight = 4 * workers
+        futures = []
+        index = 0
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            for frame in capture.frames(0, count):
+                if rotation is not None:
+                    frame = rotate(frame, rotation)
+                if target_resolution is not None:
+                    height, width = target_resolution
+                    frame = resize_linear_u8(frame, width, height)
+                futures.append(pool.submit(write, index, frame.cpu().numpy()))
+                if len(futures) >= max_in_flight:
+                    futures.pop(0).result()
+                index += 1
+
+            for future in futures:
+                future.result()
+
+        if num_frames != -1 and index < num_frames:
+            raise RuntimeError(f"Video {path_to_video} only yielded {index} frames "
+                               f"({num_frames} requested).")
 
 
-class VideoAdaptor(DatasetAdaptor):
-    """A plain RGB video (.mp4, or a folder holding one): recognised, not
-    converted yet (ROADMAP.md Queue 1 item 9b)."""
+class VideoAdaptor(VideoAdaptorBase):
+    """Ingests a plain RGB video (.mp4, or the first .mp4 of a folder);
+    depth and pose must be estimated."""
 
-    def __init__(self, base_path: File, *args, **kwargs):
-        raise not_ported(f"Converting the video {base_path}", "Queue 1 item 9b")
+    _no_ground_truth_error_message = (
+        "Plain video inputs carry no ground-truth poses or depth; pass "
+        "'--estimate_pose' and '--estimate_depth' so both are estimated.")
+
+    def __init__(self, base_path: File, output_path: File, num_frames: int = -1,
+                 frame_step: int = 1, colmap_options: COLMAPOptions = COLMAPOptions(),
+                 resize_to: Optional[Union[int, Size]] = None, device=None):
+        path = Path(base_path)
+
+        if os.path.isfile(path):
+            video_path = str(path)
+            base_path = str(path.parent)
+        else:
+            # Sorted, so that the chosen video does not depend on the file system.
+            mp4s = sorted(f for f in os.listdir(path) if f.endswith(".mp4"))
+            if not mp4s:
+                raise InvalidDatasetFormatError(f"No .mp4 file found in {path}.")
+            video_path = pjoin(str(path), mp4s[0])
+
+        super().__init__(base_path=base_path, output_path=output_path, video_path=video_path,
+                         num_frames=num_frames, frame_step=frame_step,
+                         colmap_options=colmap_options, resize_to=resize_to, device=device)
 
     @classmethod
     def _validate_dataset(cls, base_path):
@@ -690,6 +832,185 @@ class VideoAdaptor(DatasetAdaptor):
                     f"The folder {base_path} contains no .mp4 video.")
         else:
             raise InvalidDatasetFormatError(f"Dataset folder {base_path} is missing.")
+
+    def get_camera_matrix(self) -> np.ndarray:
+        raise NotImplementedError(self._no_ground_truth_error_message)
+
+    def get_pose(self, index: int) -> np.ndarray:
+        raise NotImplementedError(self._no_ground_truth_error_message)
+
+    def get_camera_trajectory(self) -> Trajectory:
+        raise NotImplementedError(self._no_ground_truth_error_message)
+
+    def get_depth_map(self, index: int) -> np.ndarray:
+        raise NotImplementedError(self._no_ground_truth_error_message)
+
+
+class DeviceOrientation(enum.Enum):
+    """Capture-device orientation inferred from the first pose's roll."""
+
+    Landscape = enum.auto()         # no rotation needed
+    Portrait = enum.auto()          # rotate 90° CW
+    LandscapeReverse = enum.auto()  # rotate 180°
+    PortraitReverse = enum.auto()   # rotate 90° CCW
+
+    @classmethod
+    def from_angle(cls, angle: float, degrees: bool = False) -> "DeviceOrientation":
+        if not degrees:
+            angle = np.rad2deg(angle)
+
+        if abs(angle) <= 45:
+            return cls.Landscape
+        if -135 <= angle < -45:
+            return cls.Portrait
+        if 45 < angle <= 135:
+            return cls.PortraitReverse
+        if 135 < abs(angle) <= 180:
+            return cls.LandscapeReverse
+
+        raise ValueError(f"Roll angle {angle} lies outside [-180, 180]"
+                         + ("." if degrees else " (after radians-to-degrees conversion)."))
+
+    @classmethod
+    def to_opencv_rotation(cls, orientation: "DeviceOrientation") -> Optional[int]:
+        """The ``cv2.rotate`` code (:func:`image_processing.rotate`) that
+        turns a frame upright."""
+        return {
+            cls.Portrait: ROTATE_90_CLOCKWISE,
+            cls.LandscapeReverse: ROTATE_180,
+            cls.PortraitReverse: ROTATE_90_COUNTERCLOCKWISE,
+        }.get(orientation)
+
+
+class StrayScannerAdaptor(VideoAdaptorBase):
+    """Ingests 'Stray Scanner' captures from iOS LiDAR devices: ``rgb.mp4``,
+    uint16 millimetre depth and 0-2 confidence PNGs at the LiDAR's size,
+    ``camera_matrix.csv`` and ``odometry.csv``."""
+
+    video_filename = "rgb.mp4"
+    camera_matrix_filename = "camera_matrix.csv"
+    camera_trajectory_filename = "odometry.csv"
+    required_files = [video_filename, camera_matrix_filename, camera_trajectory_filename]
+
+    depth_folder = "depth"
+    confidence_map_folder = "confidence"
+    required_folders = [depth_folder, confidence_map_folder]
+
+    depth_confidence_levels = (0, 1, 2)
+    valid_depth_map_types = {np.dtype("uint16"), np.dtype("uint32"), np.dtype("uint64"),
+                             np.dtype("int32"), np.dtype("int64")}
+
+    def __init__(self, base_path: File, output_path: File, num_frames: int = -1,
+                 frame_step: int = 1, colmap_options: COLMAPOptions = COLMAPOptions(),
+                 resize_to: Optional[Union[int, Size]] = None,
+                 depth_confidence_filter_level: int = 0, fix_orientation: bool = True,
+                 device=None):
+        video_path = pjoin(str(base_path), StrayScannerAdaptor.video_filename)
+
+        super().__init__(base_path=base_path, output_path=output_path, video_path=video_path,
+                         num_frames=num_frames, frame_step=frame_step,
+                         colmap_options=colmap_options, resize_to=resize_to, device=device)
+
+        if depth_confidence_filter_level not in self.depth_confidence_levels:
+            raise ValueError(f"Confidence filter must be one of: "
+                             f"{self.depth_confidence_levels}.")
+
+        self.depth_confidence_filter_level = depth_confidence_filter_level
+        self.fix_orientation = fix_orientation
+
+        (self.device_orientation,
+         self.camera_trajectory) = self._get_device_orientation_and_trajectory()
+
+        if self.device_orientation in (DeviceOrientation.Portrait,
+                                       DeviceOrientation.PortraitReverse):
+            # A 90° frame rotation swaps width and height.
+            self.target_height, self.target_width = self.target_width, self.target_height
+
+    def _get_device_orientation_and_trajectory(self) -> Tuple[DeviceOrientation, Trajectory]:
+        from scipy.spatial.transform import Rotation
+
+        trajectory = self._load_camera_trajectory()
+
+        if self.fix_orientation:
+            # The orientation is read off the raw first pose (normalisation
+            # resets rotations).
+            roll = Rotation.from_quat(trajectory.rotations[0]).as_euler("xyz")[-1]
+            orientation = DeviceOrientation.from_angle(roll)
+        else:
+            orientation = DeviceOrientation.Landscape
+
+        if orientation != DeviceOrientation.Landscape:
+            angle = {DeviceOrientation.LandscapeReverse: 180,
+                     DeviceOrientation.Portrait: -90,
+                     DeviceOrientation.PortraitReverse: 90}[orientation]
+
+            rotation = np.eye(4)
+            rotation[:3, :3] = Rotation.from_euler("z", angle, degrees=True).as_matrix()
+            trajectory = trajectory.apply(rotation)
+
+        trajectory = trajectory.normalise_position().inverse()
+
+        # Scenes from this adaptor end up upside down without this final 180°
+        # about x.
+        flip = np.eye(4)
+        flip[1, 1] = -1.0
+        flip[2, 2] = -1.0
+        trajectory = trajectory.apply(flip)
+
+        return orientation, trajectory
+
+    def _load_camera_trajectory(self) -> Trajectory:
+        # odometry.csv rows: timestamp, frame, tx, ty, tz, qx, qy, qz, qw.
+        raw = np.loadtxt(pjoin(str(self.base_path), self.camera_trajectory_filename),
+                         delimiter=",", skiprows=1)
+
+        poses = np.zeros((len(raw), 7))
+        poses[:, :4] = raw[:, 5:9]  # qx qy qz qw
+        poses[:, 4:] = raw[:, 2:5]  # tx ty tz
+
+        return Trajectory(poses)
+
+    def get_camera_matrix(self) -> np.ndarray:
+        raw = np.loadtxt(pjoin(str(self.base_path), self.camera_matrix_filename),
+                         delimiter=",")
+
+        camera = CameraMatrix(fx=raw[0, 0], fy=raw[1, 1], cx=raw[0, 2], cy=raw[1, 2],
+                              width=self.source_width, height=self.source_height)
+
+        return camera.scale((self.target_height, self.target_width)).matrix
+
+    def get_pose(self, index: int) -> np.ndarray:
+        return self.camera_trajectory[index]
+
+    def copy_frames(self, output_path: str, num_frames: int = -1, file_extension: str = "png"):
+        num_frames = self.num_frames if num_frames == -1 else num_frames
+        self.extract_video(self.video_path, output_path, num_frames,
+                           target_resolution=(self.target_height, self.target_width),
+                           rotation=DeviceOrientation.to_opencv_rotation(self.device_orientation),
+                           file_extension=file_extension, device=self.device)
+
+    def get_depth_map(self, index: int) -> np.ndarray:
+        filename = HiveDataset.index_to_filename(index)
+        depth_map = load_image(pjoin(str(self.base_path), self.depth_folder, filename))
+
+        if depth_map.dtype not in self.valid_depth_map_types:
+            raise RuntimeError(f"Depth maps must be one of {self.valid_depth_map_types}; "
+                               f"this one is {depth_map.dtype}.")
+
+        confidence = load_image(pjoin(str(self.base_path), self.confidence_map_folder,
+                                      filename))
+        depth_map = depth_map.copy()
+        depth_map[confidence < self.depth_confidence_filter_level] = 0
+
+        # Rotate before resizing so orientation fixes land correctly.
+        if (rotation := DeviceOrientation.to_opencv_rotation(self.device_orientation)) \
+                is not None:
+            depth_map = rotate(depth_map, rotation)
+
+        resized = resize_linear_f32(depth_map.astype(np.float32), self.target_width,
+                                    self.target_height)
+
+        return np.round(resized).astype(depth_map.dtype)
 
 
 def estimate_depth_dpt(rgb_dataset: ImageFolderDataset, output_path: str, device=None):
@@ -715,14 +1036,20 @@ def estimate_depth_dpt(rgb_dataset: ImageFolderDataset, output_path: str, device
 def get_dataset(storage_options: StorageOptions,
                 colmap_options: COLMAPOptions = COLMAPOptions(),
                 pipeline_options: PipelineOptions = PipelineOptions(),
+                resize_to: Optional[Union[int, Size]] = 640,
+                depth_confidence_filter_level: int = 0,
                 profiling: Optional[dict] = None, device=None) -> HiveDataset:
     """Load a HIVE dataset, converting from a recognised input format if needed.
 
     Format sniffing order is ``hive_tpu``'s: HIVE cache → TUM → Unreal →
-    StrayScanner → plain video.
+    StrayScanner → plain video. ``resize_to`` (the long side, or a (height,
+    width)) and ``depth_confidence_filter_level`` apply to video inputs; a
+    StrayScanner capture's orientation is fixed from its odometry unless
+    the poses are estimated.
 
-    :param device: where the instance masks and estimated depth maps are
-        computed; default ``cuda:0``.
+    :param device: where the video frames are decoded and resized and the
+        instance masks and estimated depth maps computed; default
+        ``cuda:0``.
     """
     dataset_path = storage_options.dataset_path
     output_path = storage_options.output_path
@@ -740,9 +1067,12 @@ def get_dataset(storage_options: StorageOptions,
     elif UnrealAdaptor.is_valid_folder_structure(dataset_path):
         adaptor = UnrealAdaptor(**base_kwargs)
     elif StrayScannerAdaptor.is_valid_folder_structure(dataset_path):
-        adaptor = StrayScannerAdaptor(**base_kwargs)
+        adaptor = StrayScannerAdaptor(
+            **base_kwargs, resize_to=resize_to,
+            depth_confidence_filter_level=depth_confidence_filter_level,
+            fix_orientation=not pipeline_options.estimate_pose, device=device)
     elif VideoAdaptor.is_valid_folder_structure(dataset_path):
-        adaptor = VideoAdaptor(**base_kwargs)
+        adaptor = VideoAdaptor(resize_to=resize_to, device=device, **base_kwargs)
     elif not os.path.isdir(dataset_path):
         raise RuntimeError(f"{dataset_path} is unreadable or not a directory.")
     else:

@@ -6,7 +6,9 @@ Counterpart of ``hive_tpu/image_processing.py`` (``dilate_mask``,
 ``calculate_target_resolution``) and of the two OpenCV calls of
 ``hive_tpu/dataset_adaptors.py``'s inpainting (``cv2.dilate`` of the
 instance masks, :func:`dilate_ids`, and ``cv2.inpaint`` with
-``INPAINT_TELEA``, :func:`inpaint_telea`). The JAX package dilates with
+``INPAINT_TELEA``, :func:`inpaint_telea`) and of its video frames
+(``cv2.resize`` of uint8 frames, :func:`resize_linear_u8`, and
+``cv2.rotate``, :func:`rotate`). The JAX package dilates with
 OpenCV; the port has no OpenCV, so a dilation by the all-ones rectangular
 element becomes ``max_pool2d`` passes (stride 1, -inf padding), which is
 what ``cv2.dilate`` computes with its default border. ``cv2.medianBlur``
@@ -188,6 +190,71 @@ def inpaint_telea(image: np.ndarray, hole: np.ndarray, radius: float = TELEA_RAD
 def _orientation(hw) -> str:
     """'portrait' when height is the long (or tied) side, else 'landscape'."""
     return "portrait" if hw[0] >= hw[1] else "landscape"
+
+
+# cv2.rotate's codes (cv2.ROTATE_90_CLOCKWISE, ROTATE_180,
+# ROTATE_90_COUNTERCLOCKWISE) as quarter turns counterclockwise.
+ROTATE_90_CLOCKWISE, ROTATE_180, ROTATE_90_COUNTERCLOCKWISE = 0, 1, 2
+_QUARTER_TURNS = {ROTATE_90_CLOCKWISE: -1, ROTATE_180: 2, ROTATE_90_COUNTERCLOCKWISE: 1}
+
+
+def rotate(image, code: int):
+    """``cv2.rotate(image, code)``: a numpy array or a tensor (on any
+    device), (H, W) or (H, W, C); the same type comes back."""
+    if isinstance(image, np.ndarray):
+        return np.ascontiguousarray(np.rot90(image, _QUARTER_TURNS[code]))
+    return torch.rot90(image, _QUARTER_TURNS[code], dims=(0, 1)).contiguous()
+
+
+# OpenCV's INTER_RESIZE_COEF_BITS: the linear weights in 11-bit fixed point.
+_COEF_SCALE = 2048
+
+
+def _linear_taps(n_in: int, n_out: int, clamp: bool, device):
+    """cv2.resize's INTER_LINEAR taps along one axis (``resize.cpp``): the
+    source coordinate ``(d + 0.5) * scale - 0.5`` rounded to float32 (the
+    scale is ``1 / (n_out / n_in)`` in double), its floor and fraction, the
+    two weights ``saturate_cast<short>(w * 2048)``. Along x (``clamp``) a
+    tap left of 0 or right of the last pixel takes that pixel with weight
+    2048; along y the weights stay and only the rows are clamped."""
+    position = ((np.arange(n_out) + 0.5) * (1.0 / (n_out / n_in)) - 0.5).astype(np.float32)
+    low = np.floor(position).astype(np.int64)
+    frac = (position - low.astype(np.float32)).astype(np.float32)
+    if clamp:
+        outside = (low < 0) | (low >= n_in - 1)
+        frac[outside] = 0
+        low = np.clip(low, 0, n_in - 1)
+    w1 = np.rint(frac * np.float32(_COEF_SCALE)).astype(np.int32)
+    w0 = np.rint((np.float32(1) - frac) * np.float32(_COEF_SCALE)).astype(np.int32)
+    taps = (np.clip(low, 0, n_in - 1), np.clip(low + 1, 0, n_in - 1), w0, w1)
+    return [torch.from_numpy(t).to(device) for t in taps]
+
+
+def resize_linear_u8(image, width: int, height: int):
+    """``cv2.resize(image, (width, height))`` (INTER_LINEAR) of a uint8
+    image, (H, W) or (H, W, C), bit for bit as OpenCV 5.0.0
+    computes it: the horizontal pass in exact integers with 11-bit weights,
+    then the vertical pass in its SIMD form, ``(((S0 >> 4) * b0 >> 16) +
+    ((S1 >> 4) * b1 >> 16) + 2) >> 2``, saturated to uint8. A numpy array
+    is resized on the CPU and comes back as one; a tensor on its device."""
+    as_numpy = isinstance(image, np.ndarray)
+    x = torch.from_numpy(np.ascontiguousarray(image)) if as_numpy else image
+    if x.dtype != torch.uint8:
+        raise TypeError(f"resize_linear_u8 takes uint8 images, not {x.dtype}")
+    in_h, in_w = x.shape[:2]
+    if (in_w, in_h) == (width, height):
+        out = x.clone()
+    else:
+        x0, x1, a0, a1 = _linear_taps(in_w, width, True, x.device)
+        y0, y1, b0, b1 = _linear_taps(in_h, height, False, x.device)
+        src = x.to(torch.int32)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        rows = src[:, x0] * a0.view(shape) + src[:, x1] * a1.view(shape)
+        shape = (-1,) + (1,) * (x.dim() - 1)
+        out = ((((rows[y0] >> 4) * b0.view(shape)) >> 16)
+               + (((rows[y1] >> 4) * b1.view(shape)) >> 16) + 2) >> 2
+        out = out.clamp_(0, 255).to(torch.uint8)
+    return out.numpy() if as_numpy else out
 
 
 def calculate_target_resolution(source_hw, target_hw):

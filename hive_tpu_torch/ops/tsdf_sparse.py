@@ -56,6 +56,7 @@ from hive_tpu_torch.ops.band_update import (band_scalars, band_update, camera_co
                                             project)
 from hive_tpu_torch.ops.classify_blocks import (Geometry, classify_pass1, classify_refine,
                                                classify_scalars)
+from hive_tpu_torch.ops.tsdf import world_to_camera
 
 
 class SparseTSDFState(NamedTuple):
@@ -381,8 +382,7 @@ class SparseTSDFVolume:
         K = np.asarray(camera_matrix, dtype=np.float32)
         intr = torch.tensor([K[0, 0], K[1, 1], K[0, 2], K[1, 2]],
                             dtype=torch.float32, device=dev)
-        world_to_cams = torch.linalg.inv(
-            torch.as_tensor(np.asarray(cam_to_world_poses, np.float32), device=dev))
+        world_to_cams = torch.as_tensor(world_to_camera(cam_to_world_poses), device=dev)
         if obs_weights is None:
             obs_weights = np.ones((n,), np.float32)
         obs_weights = torch.as_tensor(np.asarray(obs_weights, np.float32), device=dev)

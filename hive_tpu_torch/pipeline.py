@@ -293,12 +293,14 @@ class Pipeline:
     def get_dataset(self) -> HiveDataset:
         """The HIVE-format dataset named on the command line. As in
         ``hive_tpu``, a converted dataset is looked up at ``--output_path``;
-        otherwise ``--dataset_path`` is converted into it (TUM and Unreal
-        inputs; StrayScanner and video inputs are refused)."""
+        otherwise ``--dataset_path`` is converted into it (TUM, Unreal,
+        StrayScanner and video inputs; video frames scaled to a long side of
+        640 unless ``--disable_scaling``)."""
         from hive_tpu_torch.dataset_adaptors import get_dataset
 
+        resize_to = None if self.options.disable_scaling else 640
         return get_dataset(self.storage_options, self.colmap_options, self.options,
-                           profiling=self.profiling, device=self.device)
+                           resize_to=resize_to, profiling=self.profiling, device=self.device)
 
     # -- device stats ---------------------------------------------------------
     def _get_peak_device_memory(self) -> dict:

@@ -1,0 +1,425 @@
+"""An ISO-BMFF (MP4 / MOV) demuxer and muxer, written by hand.
+
+The demuxer reads a file's first video track as ``cv2.VideoCapture``'s
+FFmpeg backend sees it: the ``moov`` sample tables (``stsd``, ``stts``,
+``ctts``, ``stsc``, ``stsz`` / ``stz2``, ``stco`` / ``co64``, ``stss``),
+``mdhd``'s timescale, ``tkhd``'s display matrix and ``elst``. It gives
+
+* the frame size after the SPS's cropping (1080 lines coded as 1088 read as
+  1080) and after the display matrix's rotation, which OpenCV applies to
+  the frames and to ``CAP_PROP_FRAME_WIDTH`` / ``HEIGHT``
+  (``CAP_PROP_ORIENTATION_AUTO`` is on by default);
+* ``CAP_PROP_FPS`` as FFmpeg's MP4 reader computes ``avg_frame_rate``: the
+  media timescale times the sample count over the sum of the ``stts``
+  durations;
+* the frames in display order (composition time, ``dts + ctts``), less
+  those a single ``elst`` edit cuts: a frame is kept when its composition
+  time lies in ``[media_time, media_time + segment duration)``;
+* each ``avc1`` / ``avc3`` sample (length-prefixed NAL units) as an Annex-B
+  access unit, the SPS and PPS from ``avcC`` put before each sync sample.
+
+Refused, naming the codec and the ROADMAP item: ``hvc1`` / ``hev1`` (HEVC),
+``mp4v`` (MPEG-4 Part 2) and any other sample entry, and more than one
+edit. The muxer (:func:`write_mp4`) writes the same boxes, for the I_PCM
+writer of :mod:`hive_tpu_torch.video.h264_pcm`.
+"""
+
+from __future__ import annotations
+
+import math
+import struct
+from dataclasses import dataclass, field
+from typing import BinaryIO, Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+# The ROADMAP items of what the port does not decode yet.
+HEVC_ITEM = "Queue 1 item 9c"
+OTHER_CODEC_ITEM = "Queue 1 item 9d"
+EDIT_LIST_ITEM = "Queue 1 item 9e"
+
+CODEC_NAMES = {b"hvc1": "HEVC (H.265)", b"hev1": "HEVC (H.265)",
+               b"mp4v": "MPEG-4 Part 2 (mp4v)", b"av01": "AV1", b"vp09": "VP9",
+               b"mjpa": "Motion JPEG", b"jpeg": "Motion JPEG", b"apch": "ProRes",
+               b"apcn": "ProRes"}
+
+START_CODE = b"\x00\x00\x00\x01"
+
+
+class UnsupportedVideoError(ValueError):
+    """A video the port does not decode, named with its ROADMAP item."""
+
+
+def _refuse_codec(fourcc: bytes) -> UnsupportedVideoError:
+    name = CODEC_NAMES.get(fourcc, fourcc.decode("latin-1"))
+    item = HEVC_ITEM if fourcc in (b"hvc1", b"hev1") else OTHER_CODEC_ITEM
+    return UnsupportedVideoError(
+        f"The video's codec is {name} (sample entry '{fourcc.decode('latin-1')}'); "
+        f"hive_tpu_torch decodes only H.264 (avc1 / avc3) so far (ROADMAP.md {item}).")
+
+
+def _boxes(data: bytes, start: int = 0, end: Optional[int] = None):
+    """(type, payload start, payload end) of the boxes in ``data[start:end]``."""
+    end = len(data) if end is None else end
+    pos = start
+    while pos + 8 <= end:
+        size, kind = struct.unpack_from(">I4s", data, pos)
+        header = 8
+        if size == 1:
+            size = struct.unpack_from(">Q", data, pos + 8)[0]
+            header = 16
+        elif size == 0:
+            size = end - pos
+        if size < header or pos + size > end:
+            raise ValueError(f"MP4 box '{kind.decode('latin-1')}' at byte {pos} overruns "
+                             f"its parent")
+        yield kind, pos + header, pos + size
+        pos += size
+
+
+def _find(data: bytes, path: Sequence[bytes], start: int = 0, end: Optional[int] = None):
+    """Payload bounds of the first box at ``path`` below ``data[start:end]``."""
+    for kind, s, e in _boxes(data, start, end):
+        if kind == path[0]:
+            return (s, e) if len(path) == 1 else _find(data, path[1:], s, e)
+    return None
+
+
+def _top_level_moov(f: BinaryIO) -> bytes:
+    """The ``moov`` box's payload, read without reading ``mdat``."""
+    f.seek(0, 2)
+    file_size = f.tell()
+    pos = 0
+    while pos + 8 <= file_size:
+        f.seek(pos)
+        size, kind = struct.unpack(">I4s", f.read(8))
+        header = 8
+        if size == 1:
+            size = struct.unpack(">Q", f.read(8))[0]
+            header = 16
+        elif size == 0:
+            size = file_size - pos
+        if size < header:
+            raise ValueError(f"corrupt MP4: box of size {size} at byte {pos}")
+        if kind == b"moov":
+            f.seek(pos + header)
+            return f.read(size - header)
+        pos += size
+    raise ValueError("no 'moov' box: not an MP4 / MOV file, or a fragmented one")
+
+
+def _full_box(data: bytes, start: int) -> Tuple[int, int]:
+    """(version, flags) of a full box whose payload starts at ``start``."""
+    word = struct.unpack_from(">I", data, start)[0]
+    return word >> 24, word & 0xFFFFFF
+
+
+def _table(data: bytes, bounds, fmt: str, header: int = 8) -> np.ndarray:
+    """The entries of a sample table box: ``entry_count`` after the full
+    box header, then ``fmt`` (a numpy dtype string) per entry."""
+    s, e = bounds
+    count = struct.unpack_from(">I", data, s + 4)[0]
+    dtype = np.dtype(fmt)
+    if s + header + count * dtype.itemsize > e:
+        raise ValueError("corrupt MP4 sample table")
+    return np.frombuffer(data, dtype, count, s + header)
+
+
+@dataclass
+class VideoTrack:
+    """The first video track of an MP4 file."""
+
+    fourcc: bytes
+    coded_width: int            # the sample entry's width and height
+    coded_height: int
+    timescale: int
+    offsets: np.ndarray         # file offset of each sample, decode order
+    sizes: np.ndarray
+    dts: np.ndarray             # decode times, media timescale
+    cts: np.ndarray             # composition times (dts + ctts)
+    sync: np.ndarray            # bool per sample
+    matrix: Tuple[int, ...]     # tkhd's nine 16.16 / 2.30 words
+    edits: List[Tuple[int, int]] = field(default_factory=list)  # (duration, media_time)
+    movie_timescale: int = 1000
+    config: bytes = b""         # the avcC record
+    fps: float = 0.0
+
+    @property
+    def rotation(self) -> int:
+        """OpenCV's ``rotation_angle``: ``-round(av_display_rotation_get)``
+        of the display matrix, in [0, 360)."""
+        a, b, _, c, d = (x / 65536.0 for x in self.matrix[:5])
+        scale0, scale1 = math.hypot(a, c), math.hypot(b, d)
+        if scale0 == 0.0 or scale1 == 0.0:
+            return 0
+        angle = -round(-math.degrees(math.atan2(b / scale1, a / scale0)))
+        return angle + 360 if angle < 0 else angle
+
+    def display_order(self) -> np.ndarray:
+        """Sample indices (decode order) of the frames a reader returns, in
+        display order: sorted by composition time, the edit applied."""
+        order = np.argsort(self.cts, kind="stable")
+        if self.edits:
+            duration, media_time = self.edits[0]
+            # FFmpeg's av_rescale: the duration in media units, rounded.
+            end = media_time + (2 * duration * self.timescale + self.movie_timescale) // (
+                2 * self.movie_timescale)
+            cts = self.cts[order]
+            order = order[(cts >= media_time) & (cts < end)]
+        return order
+
+
+def read_track(path: str) -> VideoTrack:
+    """Parse the first video track of the MP4 / MOV file at ``path``."""
+    with open(path, "rb") as f:
+        moov = _top_level_moov(f)
+
+    mvhd = _find(moov, [b"mvhd"])
+    movie_timescale = 1000
+    if mvhd is not None:
+        version, _ = _full_box(moov, mvhd[0])
+        movie_timescale = struct.unpack_from(">I", moov, mvhd[0] + (20 if version else 12))[0]
+
+    for kind, s, e in _boxes(moov):
+        if kind != b"trak":
+            continue
+        hdlr = _find(moov, [b"mdia", b"hdlr"], s, e)
+        if hdlr is None or moov[hdlr[0] + 8:hdlr[0] + 12] != b"vide":
+            continue
+        return _parse_trak(moov, s, e, movie_timescale)
+    raise ValueError(f"{path} holds no video track")
+
+
+def _parse_trak(moov: bytes, s: int, e: int, movie_timescale: int) -> VideoTrack:
+    tkhd = _find(moov, [b"tkhd"], s, e)
+    version, _ = _full_box(moov, tkhd[0])
+    matrix = struct.unpack_from(">9i", moov, tkhd[0] + (52 if version else 40))
+
+    edits = []
+    elst = _find(moov, [b"edts", b"elst"], s, e)
+    if elst is not None:
+        version, _ = _full_box(moov, elst[0])
+        entries = _table(moov, elst, ">u8,>i8,>i2,>i2" if version else ">u4,>i4,>i2,>i2")
+        edits = [(int(d), int(t)) for d, t, _, _ in entries.tolist()]
+        if len(edits) > 1:
+            raise UnsupportedVideoError(
+                f"The video's track carries {len(edits)} edits; hive_tpu_torch reads one "
+                f"edit at most so far (ROADMAP.md {EDIT_LIST_ITEM}).")
+        if edits and edits[0][1] < 0:
+            raise UnsupportedVideoError(
+                "The video's edit list starts with an empty edit; hive_tpu_torch reads "
+                f"one edit with a media time so far (ROADMAP.md {EDIT_LIST_ITEM}).")
+
+    mdhd = _find(moov, [b"mdia", b"mdhd"], s, e)
+    version, _ = _full_box(moov, mdhd[0])
+    timescale = struct.unpack_from(">I", moov, mdhd[0] + (20 if version else 12))[0]
+
+    stbl = _find(moov, [b"mdia", b"minf", b"stbl"], s, e)
+    stsd = _find(moov, [b"stsd"], *stbl)
+    entry = stsd[0] + 8
+    fourcc = moov[entry + 4:entry + 8]
+    if fourcc not in (b"avc1", b"avc3"):
+        raise _refuse_codec(fourcc)
+    entry_size = struct.unpack_from(">I", moov, entry)[0]
+    coded_width, coded_height = struct.unpack_from(">HH", moov, entry + 8 + 24)
+    avcc = _find(moov, [b"avcC"], entry + 8 + 78, entry + entry_size)
+    if avcc is None:
+        raise ValueError("the H.264 sample entry has no avcC box")
+    config = moov[avcc[0]:avcc[1]]
+
+    durations = _table(moov, _find(moov, [b"stts"], *stbl), ">u4,>u4")
+    counts, deltas = durations["f0"].astype(np.int64), durations["f1"].astype(np.int64)
+    num_samples = int(counts.sum())
+    dts = np.concatenate([[0], np.cumsum(np.repeat(deltas, counts))])[:num_samples]
+
+    cts = dts.copy()
+    ctts = _find(moov, [b"ctts"], *stbl)
+    if ctts is not None:
+        entries = _table(moov, ctts, ">u4,>i4")
+        offsets = np.repeat(entries["f1"].astype(np.int64), entries["f0"].astype(np.int64))
+        cts = dts + offsets[:num_samples]
+
+    stsz = _find(moov, [b"stsz"], *stbl)
+    if stsz is not None:
+        size, count = struct.unpack_from(">II", moov, stsz[0] + 4)
+        sizes = (np.full(count, size, np.int64) if size else
+                 np.frombuffer(moov, ">u4", count, stsz[0] + 12).astype(np.int64))
+    else:
+        stz2 = _find(moov, [b"stz2"], *stbl)
+        field_bits = moov[stz2[0] + 7]
+        count = struct.unpack_from(">I", moov, stz2[0] + 8)[0]
+        raw = np.frombuffer(moov, np.uint8, -(-count * field_bits // 8), stz2[0] + 12)
+        if field_bits == 4:
+            sizes = np.stack([raw >> 4, raw & 15], 1).reshape(-1)[:count].astype(np.int64)
+        else:
+            sizes = np.frombuffer(raw.tobytes(), f">u{field_bits // 8}", count).astype(np.int64)
+
+    chunk_box = _find(moov, [b"stco"], *stbl)
+    chunks = (_table(moov, chunk_box, ">u4") if chunk_box is not None else
+              _table(moov, _find(moov, [b"co64"], *stbl), ">u8")).astype(np.int64)
+    stsc = _table(moov, _find(moov, [b"stsc"], *stbl), ">u4,>u4,>u4")
+    first = stsc["f0"].astype(np.int64) - 1
+    per_chunk = stsc["f1"].astype(np.int64)
+    runs = np.diff(np.append(first, len(chunks)))
+    chunk_samples = np.repeat(per_chunk, runs)                  # samples in each chunk
+    chunk_of = np.repeat(np.arange(len(chunks)), chunk_samples)[:num_samples]
+    chunk_first = np.concatenate([[0], np.cumsum(chunk_samples)])[chunk_of]
+    csum = np.concatenate([[0], np.cumsum(sizes)])
+    offsets = chunks[chunk_of] + csum[:num_samples] - csum[chunk_first]
+
+    sync = np.ones(num_samples, bool)
+    stss = _find(moov, [b"stss"], *stbl)
+    if stss is not None:
+        sync[:] = False
+        sync[_table(moov, stss, ">u4").astype(np.int64) - 1] = True
+
+    total = int(deltas @ counts) if len(counts) else 0
+    fps = timescale * num_samples / total if total > 0 and num_samples > 0 else 0.0
+    return VideoTrack(fourcc=fourcc, coded_width=coded_width, coded_height=coded_height,
+                      timescale=timescale, offsets=offsets, sizes=sizes[:num_samples],
+                      dts=dts, cts=cts, sync=sync, matrix=tuple(matrix), edits=edits,
+                      movie_timescale=movie_timescale, config=config, fps=fps)
+
+
+def parse_avcc(config: bytes) -> Tuple[int, List[bytes], List[bytes]]:
+    """(NAL length size, SPS NAL units, PPS NAL units) of an avcC record."""
+    if len(config) < 7 or config[0] != 1:
+        raise ValueError("corrupt avcC record")
+    length_size = (config[4] & 3) + 1
+    pos, sets = 5, []
+    for mask in (0x1F, 0xFF):
+        count = config[pos] & mask
+        pos += 1
+        units = []
+        for _ in range(count):
+            n = struct.unpack_from(">H", config, pos)[0]
+            units.append(bytes(config[pos + 2:pos + 2 + n]))
+            pos += 2 + n
+        sets.append(units)
+    return length_size, sets[0], sets[1]
+
+
+def split_nal_units(sample: bytes, length_size: int) -> List[bytes]:
+    """The NAL units of a length-prefixed sample."""
+    units, pos = [], 0
+    while pos + length_size <= len(sample):
+        n = int.from_bytes(sample[pos:pos + length_size], "big")
+        pos += length_size
+        if pos + n > len(sample):
+            raise ValueError("a NAL unit overruns its sample")
+        units.append(sample[pos:pos + n])
+        pos += n
+    return units
+
+
+def annex_b(units: Iterable[bytes]) -> bytes:
+    """NAL units as an Annex-B byte stream (4-byte start codes)."""
+    return b"".join(START_CODE + unit for unit in units)
+
+
+# ---------------------------------------------------------------------------
+# The muxer.
+# ---------------------------------------------------------------------------
+
+def box(kind: bytes, *payload: bytes) -> bytes:
+    body = b"".join(payload)
+    return struct.pack(">I4s", 8 + len(body), kind) + body
+
+
+def full_box(kind: bytes, version: int, flags: int, *payload: bytes) -> bytes:
+    return box(kind, struct.pack(">I", (version << 24) | flags), *payload)
+
+
+def rotation_matrix(rotation: int, width: int, height: int) -> Tuple[int, ...]:
+    """The tkhd matrix FFmpeg's muxer writes for a clockwise display
+    rotation of 0, 90, 180 or 270 degrees."""
+    a, b, c, d, tx, ty = {0: (1, 0, 0, 1, 0, 0), 90: (0, 1, -1, 0, height, 0),
+                          180: (-1, 0, 0, -1, width, height),
+                          270: (0, -1, 1, 0, 0, width)}[rotation]
+    return (a << 16, b << 16, 0, c << 16, d << 16, 0, tx << 16, ty << 16, 1 << 30)
+
+
+def avc1_entry(width: int, height: int, sps: bytes, pps: bytes) -> bytes:
+    """An ``avc1`` visual sample entry with its ``avcC`` record (4-byte NAL
+    lengths)."""
+    avcc = (bytes([1, sps[1], sps[2], sps[3], 0xFF, 0xE1]) + struct.pack(">H", len(sps)) + sps
+            + bytes([1]) + struct.pack(">H", len(pps)) + pps)
+    return visual_entry(b"avc1", width, height, box(b"avcC", avcc))
+
+
+def visual_entry(fourcc: bytes, width: int, height: int, *children: bytes) -> bytes:
+    return box(fourcc, bytes(6), struct.pack(">H", 1), bytes(16),
+               struct.pack(">HHIIIH", width, height, 0x00480000, 0x00480000, 0, 1),
+               bytes(32), struct.pack(">Hh", 0x18, -1), *children)
+
+
+def _table_box(kind: bytes, rows: np.ndarray, version: int = 0) -> bytes:
+    return full_box(kind, version, 0, struct.pack(">I", len(rows)), rows.tobytes())
+
+
+def write_mp4(path: str, sample_entry: bytes, samples: Iterable[bytes], *, width: int,
+              height: int, timescale: int, durations: Sequence[int],
+              cts_offsets: Optional[Sequence[int]] = None,
+              sync: Optional[Sequence[bool]] = None, rotation: int = 0,
+              edit: Optional[Tuple[int, int]] = None) -> None:
+    """Write one video track: ``ftyp``, ``mdat`` (each sample its own
+    chunk), then ``moov``. Times are in ``timescale`` units, the movie's
+    timescale too; ``edit`` is one (segment duration, media time) entry."""
+    durations = np.asarray(durations, np.int64)
+    with open(path, "wb") as f:
+        f.write(box(b"ftyp", b"isom", struct.pack(">I", 512), b"isomiso2avc1mp41"))
+        mdat_at = f.tell()
+        f.write(struct.pack(">I4sQ", 1, b"mdat", 0))
+        offsets, sizes = [], []
+        for sample in samples:
+            offsets.append(f.tell())
+            sizes.append(len(sample))
+            f.write(sample)
+        end = f.tell()
+        f.seek(mdat_at + 8)
+        f.write(struct.pack(">Q", end - mdat_at))
+        f.seek(end)
+
+        n = len(sizes)
+        if len(durations) != n:
+            raise ValueError(f"{n} samples but {len(durations)} durations")
+        total = int(durations.sum())
+        matrix = struct.pack(">9i", *rotation_matrix(rotation, width, height))
+        stts = np.array([(1, d) for d in durations.tolist()], ">u4")
+        tables = [full_box(b"stsd", 0, 0, struct.pack(">I", 1), sample_entry),
+                  _table_box(b"stts", stts)]
+        if cts_offsets is not None:
+            tables.append(_table_box(b"ctts", np.array([(1, c) for c in cts_offsets],
+                                                       dtype=[("n", ">u4"), ("c", ">i4")]),
+                                     version=1))
+        if sync is not None and not all(sync):
+            tables.append(_table_box(b"stss", (np.flatnonzero(np.asarray(sync)) + 1)
+                                     .astype(">u4")))
+        tables += [_table_box(b"stsc", np.array([(1, 1, 1)], ">u4")),
+                   full_box(b"stsz", 0, 0, struct.pack(">II", 0, n),
+                            np.asarray(sizes, ">u4").tobytes())]
+        large = offsets and offsets[-1] >= 1 << 32
+        tables.append(_table_box(b"co64" if large else b"stco",
+                                 np.asarray(offsets, ">u8" if large else ">u4")))
+
+        track = [full_box(b"tkhd", 0, 3, struct.pack(">IIIII", 0, 0, 1, 0, total), bytes(8),
+                          struct.pack(">hhhH", 0, 0, 0, 0), matrix,
+                          struct.pack(">II", width << 16, height << 16))]
+        if edit is not None:
+            track.append(box(b"edts", full_box(b"elst", 0, 0, struct.pack(
+                ">IIihh", 1, edit[0], edit[1], 1, 0))))
+        track.append(box(b"mdia",
+                         full_box(b"mdhd", 0, 0, struct.pack(">IIIIHH", 0, 0, timescale,
+                                                             total, 0x55C4, 0)),
+                         full_box(b"hdlr", 0, 0, bytes(4), b"vide", bytes(12), b"Video\x00"),
+                         box(b"minf", full_box(b"vmhd", 0, 1, bytes(8)),
+                             box(b"dinf", full_box(b"dref", 0, 0, struct.pack(">I", 1),
+                                                   full_box(b"url ", 0, 1))),
+                             box(b"stbl", *tables))))
+        f.write(box(b"moov",
+                    full_box(b"mvhd", 0, 0, struct.pack(">IIII", 0, 0, timescale, total),
+                             struct.pack(">IH", 0x00010000, 0x0100), bytes(10),
+                             struct.pack(">9i", *rotation_matrix(0, 0, 0)), bytes(24),
+                             struct.pack(">I", 2)),
+                    box(b"trak", *track)))
+

@@ -17,6 +17,7 @@ from hive_tpu import dataset_adaptors as jax_adaptors
 from hive_tpu.io import create_masks as jax_create_masks
 from hive_tpu.options import COLMAPOptions as JaxCOLMAPOptions
 from hive_tpu.options import InpaintingMode as JaxInpaintingMode
+from hive_tpu.options import StorageOptions as JaxStorageOptions
 from hive_tpu_torch import dataset_adaptors
 from hive_tpu_torch.io import HiveDataset, ImageFolderDataset, create_masks
 from hive_tpu_torch.options import (COLMAPOptions, InpaintingMode, PipelineOptions,
@@ -193,7 +194,10 @@ def test_cache_reuse_and_no_cache(tmp_path):
 
 def test_get_dataset_sniffs_like_hive_tpu(tmp_path):
     """TUM is converted, an existing HIVE dataset is reused, and the
-    StrayScanner and video layouts are recognised and refused."""
+    StrayScanner and video layouts are recognised by both packages; with
+    empty files both packages raise: the port when its demuxer finds no
+    ``moov`` box; hive_tpu where its cv2 reads a 0-frame, 0 x 0 video or
+    its numpy an empty odometry.csv."""
     tum = make_tum_dataset(tmp_path / "tum", num_frames=2)
     storage = StorageOptions(dataset_path=tum, output_path=str(tmp_path / "out"))
     dataset = dataset_adaptors.get_dataset(storage, pipeline_options=PipelineOptions(num_frames=2),
@@ -215,10 +219,15 @@ def test_get_dataset_sniffs_like_hive_tpu(tmp_path):
     for path in (stray, video, video / "clip.mp4"):
         assert jax_adaptors.TUMAdaptor.is_valid_folder_structure(str(path)) is False
         storage = StorageOptions(dataset_path=str(path), output_path=str(tmp_path / "x"))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):
-            dataset_adaptors.get_dataset(storage)
+        with pytest.raises(ValueError, match="no 'moov' box"):
+            dataset_adaptors.get_dataset(storage, device="cpu")
+        with pytest.raises((ValueError, ZeroDivisionError, IndexError)):
+            jax_adaptors.get_dataset(JaxStorageOptions(dataset_path=str(path),
+                                                       output_path=str(tmp_path / "y")))
     assert jax_adaptors.StrayScannerAdaptor.is_valid_folder_structure(str(stray))
+    assert dataset_adaptors.StrayScannerAdaptor.is_valid_folder_structure(str(stray))
     assert jax_adaptors.VideoAdaptor.is_valid_folder_structure(str(video))
+    assert dataset_adaptors.VideoAdaptor.is_valid_folder_structure(str(video))
 
     empty = tmp_path / "empty"
     os.makedirs(empty)

@@ -86,6 +86,15 @@ def test_blocked_import_check_covers_the_evaluation_path():
         assert f"hive_tpu_torch.{name}" in modules, name
 
 
+def test_blocked_import_check_covers_the_video_modules():
+    """The JAX-blocked import above walks the video input's modules too:
+    none may need cv2, Pillow or imageio, which the card's machine lacks."""
+    modules = set(_port_modules())
+    for name in ("video.mp4", "video.h264_pcm", "video.nvdec", "video.color",
+                 "video.capture"):
+        assert f"hive_tpu_torch.{name}" in modules, name
+
+
 def test_sources_import_nothing_of_jax_or_hive_tpu():
     """Nor Pillow, OpenCV, imageio, transformers, timm or torchvision, which
     the card's machine lacks."""
@@ -931,3 +940,68 @@ def _check_probe_kernel_on_card(kernel, rng, dev):
                 for fn in (fused_band.fused_band, fused_band.fused_band_plain)]
         for got, want in zip(*outs):
             assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# The video path on the card (tests/test_torch_video.py holds the same
+# functions to cv2 on the CPU; this file imports no cv2, which the card's
+# machine lacks).
+
+@pytest.mark.cuda
+def test_video_conversion_resize_and_rotation_on_card_equal_cpu():
+    """On the card the YUV -> BGR conversion, the uint8 resize and the
+    rotation give the CPU's bytes at the phone clip's and the Stray Scanner
+    capture's sizes."""
+    from hive_tpu_torch.image_processing import (ROTATE_90_CLOCKWISE,
+                                                 ROTATE_90_COUNTERCLOCKWISE, ROTATE_180,
+                                                 resize_linear_u8, rotate)
+    from hive_tpu_torch.video import color
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    rng = np.random.default_rng(5)
+    for (height, width), target in (((1080, 1920), (360, 640)), ((1440, 1920), (640, 480))):
+        planes = [torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
+                  for shape in ((height, width), (height // 2, width // 2),
+                                (height // 2, width // 2))]
+        for full_range, matrix in ((False, 2), (True, 1)):
+            cpu = color.yuv420_to_bgr(*planes, full_range, matrix)
+            card = color.yuv420_to_bgr(*(p.cuda() for p in planes), full_range, matrix)
+            assert torch.equal(card.cpu(), cpu)
+        for code in (ROTATE_90_CLOCKWISE, ROTATE_180, ROTATE_90_COUNTERCLOCKWISE):
+            assert torch.equal(rotate(cpu.cuda(), code).cpu(), rotate(cpu, code))
+        upright = rotate(cpu, ROTATE_90_CLOCKWISE) if target[0] > target[1] else cpu
+        assert torch.equal(resize_linear_u8(upright.cuda(), target[1], target[0]).cpu(),
+                           resize_linear_u8(upright, target[1], target[0]))
+
+
+@pytest.mark.cuda
+def test_nvdec_decodes_the_seeded_planes_or_refuses_by_name(tmp_path):
+    """Through NVDEC the planes are the seeded samples of I_PCM streams (in
+    order, out of order, cropped); where NVDEC does not open on the card's
+    machine, the capture refuses, naming the call, its CUresult and ROADMAP
+    item 9b."""
+    from hive_tpu_torch.video import h264_pcm
+    from hive_tpu_torch.video.capture import VideoCapture
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    rng = np.random.default_rng(0)
+    for name, (width, height), options in (("in_order", (64, 48), {}),
+                                           ("out_of_order", (64, 48), dict(reorder=True)),
+                                           ("cropped", (160, 120), {})):
+        planes = [(rng.integers(0, 256, (height, width), dtype=np.uint8),
+                   rng.integers(0, 256, (height // 2, width // 2), dtype=np.uint8),
+                   rng.integers(0, 256, (height // 2, width // 2), dtype=np.uint8))
+                  for _ in range(7)]
+        path = str(tmp_path / f"{name}.mp4")
+        h264_pcm.write_pcm_mp4(path, planes, **options)
+        try:
+            capture = VideoCapture(path, device="cuda:0")
+        except NotImplementedError as e:
+            assert "Queue 1 item 9b" in str(e) and "CUresult" in str(e), str(e)
+            continue
+        got = list(capture.planes())
+        assert len(got) == len(planes)
+        for decoded, want in zip(got, planes):
+            for plane, expected in zip(decoded, want):
+                np.testing.assert_array_equal(plane.cpu().numpy(), expected)

@@ -1,0 +1,295 @@
+"""Video input of hive_tpu_torch (``hive_tpu_torch.video``) against cv2
+5.0.0, whose bundled FFmpeg decodes H.264: the MP4 demuxer's sizes, rate,
+frame count and order; the I_PCM writer and the CPU reader (lossless, so
+the seeded planes come back exactly); the YUV 4:2:0 -> BGR conversion; the
+uint8 resize and the rotation; the codecs and layouts refused by name. All
+of them are exact: no tolerance is stated because none is needed."""
+
+import struct
+
+import cv2
+import numpy as np
+import pytest
+import torch
+
+from hive_tpu_torch.image_processing import resize_linear_u8, rotate
+from hive_tpu_torch.video import color, h264_pcm, mp4
+from hive_tpu_torch.video.capture import VideoCapture
+
+
+def seeded_planes(num_frames, width, height, seed=0):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, 256, (height, width), dtype=np.uint8),
+             rng.integers(0, 256, (height // 2, width // 2), dtype=np.uint8),
+             rng.integers(0, 256, (height // 2, width // 2), dtype=np.uint8))
+            for _ in range(num_frames)]
+
+
+def write_clip(path, num_frames=6, width=64, height=48, seed=0, **options):
+    """A seeded I_PCM MP4; returns its planes in display order."""
+    frames = seeded_planes(num_frames, width, height, seed)
+    frames[1][0][:] = 0            # long zero runs: emulation prevention
+    frames[2][1][:, ::3] = 3
+    h264_pcm.write_pcm_mp4(str(path), frames, **options)
+    return frames
+
+
+def cv2_read(path):
+    """cv2's properties and every frame a read() loop returns."""
+    capture = cv2.VideoCapture(str(path))
+    try:
+        props = (int(capture.get(cv2.CAP_PROP_FRAME_WIDTH)),
+                 int(capture.get(cv2.CAP_PROP_FRAME_HEIGHT)), capture.get(cv2.CAP_PROP_FPS))
+        frames = []
+        while True:
+            ok, frame = capture.read()
+            if not ok:
+                break
+            frames.append(frame)
+    finally:
+        capture.release()
+    return props, frames
+
+
+# Each layout the demuxer must read as cv2 does: out of order (ctts and an
+# elst that shifts the presentation), NTSC rates, heights that SPS cropping
+# trims (40 and 120 are not multiples of 16), one edit with a media-time
+# offset, and display matrices (cv2 5.0.0 turns the frames and swaps the
+# reported size for 90 and 270 degrees).
+LAYOUTS = {
+    "in_order": dict(),
+    "out_of_order": dict(reorder=True),
+    "ntsc": dict(fps=(30000, 1001)),
+    "ntsc_out_of_order": dict(fps=(30000, 1001), reorder=True),
+    "cropped_40": dict(height=40),
+    "cropped_120": dict(width=160, height=120),
+    "edit": dict(edit_frames=2),
+    "edit_out_of_order": dict(edit_frames=3, reorder=True),
+    "rotated_90": dict(rotation=90),
+    "rotated_180": dict(rotation=180),
+    "rotated_270": dict(rotation=270, height=40),
+}
+
+
+def split_options(options):
+    sizes = {k: options[k] for k in ("width", "height") if k in options}
+    return sizes, {k: v for k, v in options.items() if k not in sizes}
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_demuxer_properties_match_cv2(tmp_path, layout):
+    """CAP_PROP_FRAME_WIDTH / HEIGHT (cropped, then rotated), CAP_PROP_FPS
+    (the stts rate as FFmpeg's avg_frame_rate) and the grab-loop count
+    (the edit applied) equal cv2's."""
+    sizes, options = split_options(LAYOUTS[layout])
+    path = tmp_path / "clip.mp4"
+    write_clip(path, num_frames=7, **sizes, **options)
+    (width, height, fps), frames = cv2_read(path)
+    capture = VideoCapture(str(path), device="cpu")
+    assert (capture.width, capture.height) == (width, height)
+    assert capture.fps == fps
+    assert capture.frame_count == len(frames)
+    assert frames[0].shape == (height, width, 3)
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_cpu_reader_returns_the_seeded_planes_and_cv2s_frames(tmp_path, layout):
+    """I_PCM is lossless: the CPU reader's planes are the seeded samples, in
+    display order, less the frames the edit cuts; their BGR conversion
+    (rotated as cv2 rotates) equals cv2's frames byte for byte."""
+    sizes, options = split_options(LAYOUTS[layout])
+    path = tmp_path / "clip.mp4"
+    planes = write_clip(path, num_frames=7, **sizes, **options)
+    _, frames = cv2_read(path)
+    capture = VideoCapture(str(path), device="cpu")
+    first = options.get("edit_frames", 0)
+    got = list(capture.planes())
+    assert len(got) == len(frames) == 7 - first
+    for (y, u, v), want in zip(got, planes[first:]):
+        for plane, expected in zip((y, u, v), want):
+            np.testing.assert_array_equal(plane.numpy(), expected)
+    for index, (bgr, want) in enumerate(zip(capture.frames(), frames)):
+        np.testing.assert_array_equal(bgr.numpy(), want, err_msg=f"frame {index}")
+
+
+@pytest.mark.parametrize("index", [0, 3, 6])
+def test_single_frame_seeks_from_the_sync_sample(tmp_path, index):
+    """``frame(i)`` equals cv2's ``set(CAP_PROP_POS_FRAMES, i)`` + ``read()``
+    in an out-of-order stream."""
+    path = tmp_path / "clip.mp4"
+    write_clip(path, num_frames=7, reorder=True)
+    capture = cv2.VideoCapture(str(path))
+    capture.set(cv2.CAP_PROP_POS_FRAMES, index)
+    ok, want = capture.read()
+    capture.release()
+    assert ok
+    np.testing.assert_array_equal(VideoCapture(str(path), device="cpu").frame(index).numpy(),
+                                  want)
+
+
+@pytest.mark.parametrize("full_range,matrix", [(False, None), (True, None), (False, 1),
+                                               (True, 1), (False, 6), (False, 4), (False, 7)])
+def test_colour_conversion_equals_cv2(tmp_path, full_range, matrix):
+    """The YUV -> BGR conversion equals cv2's, pixel for pixel, on seeded
+    planes and on 16,384 seeded (Y, U, V) triples; cv2 honours the VUI's
+    full-range flag and colour matrix (BT.709, SMPTE 170M, FCC, SMPTE 240M),
+    and so does the port. A sweep of all 16.7M triples
+    (tests/torch_video_sweep.py) finds the formula exact."""
+    rng = np.random.default_rng(7)
+    y = rng.integers(0, 256, (2, 128, 128), dtype=np.uint8)
+    u = rng.integers(0, 256, (2, 64, 64), dtype=np.uint8)
+    v = rng.integers(0, 256, (2, 64, 64), dtype=np.uint8)
+    # Frame 1: a seeded sample of triples, each 2 x 2 block one (U, V) pair
+    # with four Y values.
+    triples = rng.integers(0, 256, (64 * 64, 6), dtype=np.uint8)
+    u[1], v[1] = triples[:, 0].reshape(64, 64), triples[:, 1].reshape(64, 64)
+    y[1] = triples[:, 2:].reshape(64, 64, 2, 2).transpose(0, 2, 1, 3).reshape(128, 128)
+    frames = [(y[i], u[i], v[i]) for i in range(2)]
+    path = tmp_path / "colour.mp4"
+    h264_pcm.write_pcm_mp4(str(path), frames, full_range=full_range, matrix=matrix)
+    _, want = cv2_read(path)
+    for (yi, ui, vi), expected in zip(frames, want):
+        got = color.yuv420_to_bgr(torch.from_numpy(yi), torch.from_numpy(ui),
+                                  torch.from_numpy(vi), full_range,
+                                  color.UNSPECIFIED if matrix is None else matrix)
+        np.testing.assert_array_equal(got.numpy(), expected)
+
+
+def test_colour_matrices_outside_the_table_are_refused():
+    with pytest.raises(ValueError, match="matrix_coefficients 9"):
+        color.coefficients(False, 9)
+
+
+@pytest.mark.parametrize("source,target", [
+    ((48, 64), (480, 640)), ((120, 160), (360, 640)), ((1080 // 8, 1920 // 8), (45, 80)),
+    ((37, 53), (61, 29)), ((31, 47), (16, 23)), ((64, 48), (480, 360)), ((2, 3), (7, 5)),
+    ((100, 100), (50, 50)), ((25, 17), (25, 40))])
+@pytest.mark.parametrize("channels", [0, 1, 3])
+def test_resize_linear_u8_equals_cv2(source, target, channels):
+    """INTER_LINEAR on uint8 frames, up- and downscale, odd sizes, 1 and 3
+    channels: cv2's bytes, from numpy and from a CPU tensor alike."""
+    rng = np.random.default_rng(sum(source) + sum(target) + channels)
+    shape = source + ((channels,) if channels else ())
+    image = rng.integers(0, 256, shape, dtype=np.uint8)
+    want = cv2.resize(image, (target[1], target[0])).reshape(target + shape[2:])
+    got = resize_linear_u8(image, target[1], target[0])
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(resize_linear_u8(torch.from_numpy(image), target[1],
+                                                   target[0]).numpy(), want)
+
+
+@pytest.mark.parametrize("code", [cv2.ROTATE_90_CLOCKWISE, cv2.ROTATE_180,
+                                  cv2.ROTATE_90_COUNTERCLOCKWISE])
+@pytest.mark.parametrize("dtype,shape", [(np.uint8, (5, 7, 3)), (np.uint16, (6, 9)),
+                                         (np.float32, (4, 3))])
+def test_rotate_equals_cv2(code, dtype, shape):
+    image = np.random.default_rng(code).integers(0, 5000, shape).astype(dtype)
+    np.testing.assert_array_equal(rotate(image, code), cv2.rotate(image, code))
+    if dtype != np.uint16:                         # torch's flip has no uint16 kernel
+        np.testing.assert_array_equal(rotate(torch.from_numpy(image), code).numpy(),
+                                      cv2.rotate(image, code))
+
+
+def write_other_codec(path, fourcc, config_box):
+    entry = mp4.visual_entry(fourcc, 64, 48, mp4.box(config_box, bytes(23)))
+    mp4.write_mp4(str(path), entry, [bytes(16)], width=64, height=48, timescale=30,
+                  durations=[1])
+
+
+def test_hevc_and_mp4v_are_refused_by_name(tmp_path):
+    """HEVC (hvc1 / hev1) and MPEG-4 Part 2 (mp4v), whether written by the
+    port's muxer or by cv2's own VideoWriter, are refused naming the codec
+    and the ROADMAP item, before any decode."""
+    for fourcc, item in ((b"hvc1", "Queue 1 item 9c"), (b"hev1", "Queue 1 item 9c"),
+                         (b"mp4v", "Queue 1 item 9d")):
+        path = tmp_path / f"{fourcc.decode()}.mp4"
+        write_other_codec(path, fourcc, b"hvcC" if fourcc != b"mp4v" else b"esds")
+        name = "HEVC" if fourcc != b"mp4v" else "MPEG-4 Part 2"
+        with pytest.raises(mp4.UnsupportedVideoError, match=f"{name}.*{item}"):
+            VideoCapture(str(path), device="cpu")
+
+    path = str(tmp_path / "cv2.mp4")
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 30, (64, 48))
+    for i in range(3):
+        writer.write(np.full((48, 64, 3), 40 * i, np.uint8))
+    writer.release()
+    with pytest.raises(mp4.UnsupportedVideoError, match=r"MPEG-4 Part 2 \(mp4v\).*item 9d"):
+        VideoCapture(path, device="cpu")
+
+
+def test_more_than_one_edit_is_refused(tmp_path):
+    path = tmp_path / "clip.mp4"
+    write_clip(path, num_frames=3, edit_frames=1)
+    data = bytearray(path.read_bytes())
+    at = data.index(b"elst")
+    entry = bytes(data[at + 12:at + 24])
+    # Two edits: the entry count and a second entry (box sizes patched).
+    data[at + 8:at + 12] = struct.pack(">I", 2)
+    data[at + 24:at + 24] = entry
+    for name in (b"elst", b"edts", b"trak", b"moov"):
+        start = data.rindex(name, 0, at + 4) - 4
+        size = struct.unpack(">I", data[start:start + 4])[0]
+        data[start:start + 4] = struct.pack(">I", size + 12)
+    path.write_bytes(bytes(data))
+    with pytest.raises(mp4.UnsupportedVideoError, match="2 edits.*Queue 1 item 9e"):
+        VideoCapture(str(path), device="cpu")
+
+
+def slice_nal(first_mb_type, later_mb_type=None, slice_type=7, width=32, height=16):
+    """An IDR slice whose first (and optionally second) macroblock has the
+    given mb_type: the reader must name it."""
+    y, u, v = seeded_planes(1, width, height)[0]
+    nal = h264_pcm.encode_picture(y, u, v, idr=True, reference=True, frame_num=0, poc=0)
+    rbsp = bytearray(h264_pcm.unescape(nal))
+    bits = h264_pcm.BitWriter().ue(0).ue(slice_type).ue(0).u(h264_pcm.LOG2_MAX_FRAME_NUM, 0)
+    bits.ue(0).u(h264_pcm.LOG2_MAX_POC_LSB, 0).u(1, 0).u(1, 0).se(0).ue(1).ue(first_mb_type)
+    header = bits.align(False)
+    old = len(h264_pcm.BitWriter().ue(0).ue(7).ue(0).u(h264_pcm.LOG2_MAX_FRAME_NUM, 0).ue(0)
+              .u(h264_pcm.LOG2_MAX_POC_LSB, 0).u(1, 0).u(1, 0).se(0).ue(1).ue(25)
+              .align(False))
+    rbsp[1:1 + old] = header
+    if later_mb_type is not None:
+        position = 1 + len(header) + 384
+        rbsp[position:position + 2] = h264_pcm.BitWriter().ue(later_mb_type).align(False)[:2] \
+            .ljust(2, b"\x00")
+    return bytes([rbsp[0]]) + h264_pcm.escape(np.frombuffer(bytes(rbsp[1:]), np.uint8)).tobytes()
+
+
+@pytest.mark.parametrize("first,later,name", [(0, None, "I_NxN"),
+                                              (1, None, "I_16x16_0_0_0"),
+                                              (25, 0, "I_NxN"), (25, 13, "I_16x16_0_0_15")])
+def test_cpu_reader_refuses_other_macroblocks_by_name(first, later, name):
+    decoder = h264_pcm.PcmDecoder()
+    decoder.decode([h264_pcm.encode_sps(32, 16), h264_pcm.encode_pps()])
+    with pytest.raises(h264_pcm.UnsupportedStreamError, match=f"type {name}:.*I_PCM subset"):
+        decoder.decode([slice_nal(first, later)])
+
+
+def test_cpu_reader_refuses_p_slices_and_cabac():
+    decoder = h264_pcm.PcmDecoder()
+    decoder.decode([h264_pcm.encode_sps(32, 16), h264_pcm.encode_pps()])
+    with pytest.raises(h264_pcm.UnsupportedStreamError, match="P slices"):
+        decoder.decode([slice_nal(25, slice_type=5)])
+    bits = h264_pcm.BitWriter().ue(0).ue(0).u(1, 1)
+    cabac = h264_pcm.nal_unit(3, h264_pcm.NAL_PPS, np.frombuffer(bits.align(True), np.uint8))
+    with pytest.raises(h264_pcm.UnsupportedStreamError, match="CABAC"):
+        decoder.decode([cabac])
+
+
+def test_emulation_prevention_round_trips():
+    """Escaped payloads hold no 0x000000, 0x000001 or 0x000002 and unescape
+    to the input, whatever their runs of zeros."""
+    rng = np.random.default_rng(3)
+    for _ in range(300):
+        data = rng.choice(np.array([0, 0, 0, 1, 2, 3, 4, 255], np.uint8), rng.integers(1, 60))
+        escaped = h264_pcm.escape(data).tobytes()
+        for k in range(len(escaped) - 2):
+            assert escaped[k:k + 2] != b"\x00\x00" or escaped[k + 2] >= 3, escaped
+        assert h264_pcm.unescape(b"\x65" + escaped)[1:] == data.tobytes()
+
+
+def test_sps_parse_reads_the_written_fields():
+    sps = h264_pcm.parse_sps(h264_pcm.unescape(
+        h264_pcm.encode_sps(1920, 1080, reorder=True, full_range=True, matrix=1)))
+    assert (sps["width"], sps["height"], sps["mbs_h"]) == (1920, 1080, 68)
+    assert (sps["full_range"], sps["matrix"], sps["reorder"]) == (True, 1, 1)
