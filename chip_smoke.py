@@ -56,6 +56,25 @@ Phases (any failure raises and the script exits non-zero):
    decoders on one of its frames: PNG with filter 0 and with adaptive
    filters, and the frame as a quality-75 JPEG, native and plain (which
    must agree);
+6a. [shard]: the multi-device layer (``--num_devices``) split k ways on
+   this one card (a mesh that names it k times), every number labelled as
+   k shards on one card beside the card's name and power limit, none a
+   multi-card one. The bench integration split 2 and 4 ways in both
+   placements: states bit-identical to the unsplit kernel path (and, for
+   the cyclic splits, to their plain paths), two classification launches
+   per frame and shard, and (cyclic) one band update; on bench frame 0
+   each slab's classification and band update bit-exact against their
+   plain versions. The e2e dataset of phase 6 through ``fusion.tsdf_fusion``
+   at the 320M budget, unsplit and split 2 ways: equal meshes. The CLI with
+   ``--num_devices`` on a small dataset: 2 refused before anything is
+   written on one card (naming the device counts), else ``bg.glb`` equal
+   to 1's; -1 runs the single-device path on one card, ``bg.glb`` equal to
+   1's. DPT bf16 ``predict_batch`` at 8x480x640 split 2 ways within
+   DPT_CPU_BF16_TOL of the unsplit depth, and pose-optimise's problem in
+   float64 split 2 ways within POSE_SHARD_TOL of the unsplit run (two
+   unsplit runs' spread logged beside it). Device ms (the bench's a frame,
+   from a traced rep of SHARD_TRACED_FRAMES frames), launches and peak
+   memory of each split and of the unsplit runs;
 7. a user's run on a TUM sequence: the script writes a 30-frame 640x480
    TUM folder (adaptive PNGs, depth at 5000 units a metre, ground truth at
    100 Hz, a static camera, a blob jumping about in front of a textured
@@ -548,15 +567,20 @@ def band_update_in_trips(state, ids, base, scal, frames, *, block, sub):
                           sub=sub)
 
 
-def band_call(volume, frames, f: int, device) -> dict:
-    """The band update's inputs for frame ``f`` on ``volume``, built by its
-    integrator's stages as ``integrate`` builds them (weight 1)."""
+def band_call(volume, frames, f: int, device, slab=None) -> dict:
+    """The band update's inputs for frame ``f`` on ``volume`` (or on one
+    ``slab`` of its split rows), built by its integrator's stages as
+    ``integrate_frame`` builds them (weight 1)."""
     from hive_tpu_torch.ops.tsdf_sparse import build_flat_pyramid
 
     depths, colors, K, poses = frames
     height, width = depths.shape[1:]
-    integ = volume._integrator(height, width, None)
-    origins = volume.block_origins_device
+    if slab is None:
+        integ = volume._integrator(height, width, None)
+        origins, state = volume.block_origins_device, volume.state
+    else:
+        integ = volume._integrator(height, width, None, slab.origins.shape[0], slab.device)
+        origins, state = slab.origins, slab.state
     w2c = torch.linalg.inv(torch.as_tensor(poses[f], device=device))
     R, t = w2c[:3, :3], w2c[:3, 3]
     intr = torch.tensor([K[0, 0], K[1, 1], K[0, 2], K[1, 2]], device=device)
@@ -567,7 +591,7 @@ def band_call(volume, frames, f: int, device) -> dict:
     classes, dmin, dmax, free_ok = integ.classify_refined(origins, pyramid, R, t, tuple(intr))
     band_flat, _, _ = integ.slab_masks(origins, classes, dmin, dmax, free_ok, R, t, one)
     ids = torch.nonzero(band_flat).reshape(-1)
-    return dict(state=integ.to_slabs(volume.state), ids=ids,
+    return dict(state=integ.to_slabs(state), ids=ids,
                 base=integ.slab_base(origins, ids, R, t), scal=integ.band_scalars(intr, R, one),
                 frames=sample, block=integ.block, sub=integ.SUB)
 
@@ -828,12 +852,15 @@ def main_launch_counts() -> dict:
             "classify_refine": cb.refine_launches}
 
 
-def check_launches(path: str, counts: dict, frames: int) -> None:
-    """Exactly one launch of each classification pass per frame, and the
-    band update launched (once per frame with a band)."""
-    if (counts["classify_pass1"], counts["classify_refine"]) != (frames, frames) or not (
-            0 < counts["band_update"] <= frames):
-        raise AssertionError(f"{path} launched {counts} in {frames} frames")
+def check_launches(path: str, counts: dict, frames: int, shards: int = 1) -> None:
+    """Exactly one launch of each classification pass per frame and shard
+    of the volume's rows, and the band update launched (once per frame and
+    shard with a band)."""
+    launches = frames * shards
+    if (counts["classify_pass1"], counts["classify_refine"]) != (launches, launches) or not (
+            0 < counts["band_update"] <= launches):
+        raise AssertionError(f"{path} launched {counts} in {frames} frames over {shards} "
+                             f"shard(s)")
 
 
 def classify_exact(origins, scal, pyramid, geom, cap: int, refine_cap: int, windows: bool):
@@ -1362,6 +1389,390 @@ def run_main_path(device, launches, keep: str):
         f"update's on a snapshot of the frame's band rows, which raises the peak)")
     log("[e2e] profiling.json timing (s): " + json.dumps(rounded(profiling["timing"])))
     return check.results(), profiling
+
+
+# ---------------------------------------------------------------------------
+# The multi-device layer, split k ways on one card.
+# ---------------------------------------------------------------------------
+
+SHARD_SPLITS = (2, 4)
+SHARD_TRACED_FRAMES = 8
+# The split pose optimisation (float64, pose-optimise's 178k correspondences,
+# POSE_SHARD_EPOCHS epochs, no plateau or early stop) against the unsplit
+# run, max |difference| of q and t: the shards' partial loss sums meet in
+# another order, and Adam grows that last-bit difference over the epochs:
+# measured 8.56e-8 on an H100 80GB HBM3 (700 W), where two unsplit runs
+# were bit-equal (the CPU test holds 2 and 8 CPU shards within 1e-9 on a
+# 64-correspondence problem, tests/test_torch_parallel.py). A split that
+# loses a shard moves t by about as much as the run does (0.135 m).
+POSE_SHARD_TOL = 1e-6
+POSE_SHARD_EPOCHS = 100
+# The CLI runs of [shard]: frames, width, height, and a voxel budget that
+# keeps each run to a few seconds.
+SHARD_CLI = (4, 128, 96)
+SHARD_CLI_VOXELS = 2_000_000
+
+
+def one_card_mesh(device, k: int):
+    """A k-shard mesh that names ``device`` k times."""
+    from hive_tpu_torch.parallel.mesh import get_device_mesh
+
+    return get_device_mesh(devices=[device] * k)
+
+
+def integration_run(label: str, volume, mesh, frames, device) -> dict:
+    """One integration of the bench ``frames`` into ``volume`` (its rows
+    split over ``mesh``, unless None), the launch counts reset before and
+    read after: its wall s, launches, peak device memory and the state
+    after it; then an integration of the first SHARD_TRACED_FRAMES frames,
+    profiled (device ms and kernels a frame: the trace's processing on the
+    host grows with its kernels, and a 4-way split of all 64 frames has
+    57k)."""
+    from hive_tpu_torch.parallel.fusion import integrate_frames_sharded
+
+    def integrate(count=None):
+        depths, colors, K, poses = frames
+        depths, colors, poses = depths[:count], colors[:count], poses[:count]
+        if mesh is None:
+            volume.integrate_frames(colors, depths, K, poses)
+        else:
+            integrate_frames_sharded(volume, mesh, colors, depths, K, poses)
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    start = time.perf_counter()
+    integrate()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = main_launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    state = [x.clone() for x in volume.state]
+    start = time.perf_counter()
+    ms, ops = device_profile(lambda: integrate(SHARD_TRACED_FRAMES), reps=1, warmup=0)
+    return dict(label=label, wall_s=wall, launches=counts, peak_bytes=int(peak),
+                device_ms_per_frame=ms / SHARD_TRACED_FRAMES,
+                kernels_per_frame=ops / SHARD_TRACED_FRAMES, state=state,
+                profile_s=time.perf_counter() - start)
+
+
+def check_shard_frame(device, frames, k: int) -> float:
+    """Bench frame 0 on each slab of a fresh k-way cyclic split: both
+    classification passes and the band update bit-exact against their
+    plain versions on the slab's rows, origins and caps."""
+    from hive_tpu_torch.ops import classify_blocks as cb
+    from hive_tpu_torch.ops.tsdf_sparse import (SparseTSDFVolume, build_flat_pyramid,
+                                                pick_compact_cap)
+    from hive_tpu_torch.parallel.fusion import shard_sparse_state
+
+    depths, _, K, poses = frames
+    volume = SparseTSDFVolume([[-2.0, 2.0], [-2.0, 2.0], [0.0, 4.0]],
+                              voxel_size=4.0 / BENCH_GRID, device=device)
+    shard_sparse_state(volume, one_card_mesh(device, k))
+    level = pick_compact_cap(volume.estimate_candidate_fraction(K, poses, BENCH_H, BENCH_W))
+    w2c = torch.linalg.inv(torch.as_tensor(poses[0], device=device))
+    intr = torch.tensor([K[0, 0], K[1, 1], K[0, 2], K[1, 2]], device=device)
+    scal = cb.classify_scalars(w2c[:3, :3], w2c[:3, 3], intr)
+    pyramid = build_flat_pyramid(depths[0], BENCH_H, BENCH_W, packed_u16=True)
+    err = 0.0
+    for slab in volume.shards:
+        integ = volume._integrator(BENCH_H, BENCH_W, level, slab.origins.shape[0], slab.device)
+        err = max(err, classify_exact(slab.origins, scal, pyramid, integ.geometry,
+                                      integ.pass1_cap, integ.refine_cap, integ.SUB > 1)[2])
+        call = band_call(volume, frames, 0, device, slab=slab)
+        if call["ids"].numel() == 0:
+            raise AssertionError(f"a slab of the {k}-way split has no band on bench frame 0")
+        err = max(err, band_update_exact(call))
+    return err
+
+
+def check_shards(device, launches, e2e: str, tmp: str, smi: str) -> dict:
+    """[shard]: the multi-device layer (``--num_devices``) split k ways on
+    one card (a mesh naming the card k times): every number is a k-shard
+    run on one card, not a multi-card one."""
+    from hive_tpu_torch import fusion
+    from hive_tpu_torch.io import HiveDataset
+    from hive_tpu_torch.ops.tsdf_sparse import SparseTSDFVolume
+    from hive_tpu_torch.options import BackgroundMeshOptions
+    from hive_tpu_torch.parallel import runtime
+    from hive_tpu_torch.parallel.fusion import integrate_frames_sharded, shard_sparse_state
+
+    phase_start = time.perf_counter()
+    label = f"on one card ({smi})"
+    out = {"card": smi, "device_count": torch.cuda.device_count()}
+
+    # Bench-shape integration, split 2 and 4 ways in both placements.
+    frames = bench_frames(device)
+    depths, colors, K, poses = frames
+    bounds = np.array([[-2.0, 2.0], [-2.0, 2.0], [0.0, 4.0]], np.float32)
+
+    def volume():
+        return SparseTSDFVolume(bounds, voxel_size=4.0 / BENCH_GRID, device=device)
+
+    runs = [integration_run("unsplit", volume(), None, frames, device)]
+    want = runs[0].pop("state")
+    check_launches("[shard] unsplit bench integration", runs[0]["launches"], BENCH_FRAMES)
+    shard_launches = dict.fromkeys(MainPathCheck.NAMES, 0)
+    for k in SHARD_SPLITS:
+        for placement in ("contiguous", "cyclic"):
+            mesh = one_card_mesh(device, k)
+            split = volume()
+            shard_sparse_state(split, mesh, placement=placement)
+            run = integration_run(f"{k} shards, {placement}", split, mesh, frames,
+                                  device)
+            state = run.pop("state")
+            del split
+            for name, got, exp in zip(("tsdf", "weight", "color"), state, want):
+                if not torch.equal(got, exp):
+                    raise AssertionError(f"[shard] {k}-way {placement} split differs from the "
+                                         f"unsplit kernel path in {name}")
+            counts = run["launches"]
+            check_launches(f"[shard] {k}-way {placement} bench integration", counts,
+                           BENCH_FRAMES, shards=k)
+            # Cyclic placement spreads the band: every slab has some each frame.
+            if placement == "cyclic" and counts["band_update"] != k * BENCH_FRAMES:
+                raise AssertionError(f"[shard] {k}-way cyclic: {counts['band_update']} band "
+                                     f"updates in {BENCH_FRAMES} frames")
+            for name in shard_launches:
+                shard_launches[name] += counts[name]
+            if placement == "cyclic":
+                plain = volume()
+                shard_sparse_state(plain, mesh)
+                patches = plain_paths()
+                with patches[0], patches[1], patches[2]:
+                    integrate_frames_sharded(plain, mesh, colors, depths, K, poses)
+                for name, got, exp in zip(("tsdf", "weight", "color"), plain.state, state):
+                    if not torch.equal(got, exp):
+                        raise AssertionError(f"[shard] {k}-way split: kernel and plain paths "
+                                             f"differ in {name}")
+                del plain
+            del state
+            runs.append(run)
+    del want
+    torch.cuda.empty_cache()
+    frame_err = max(check_shard_frame(device, frames, k) for k in SHARD_SPLITS)
+    del frames
+    torch.cuda.empty_cache()
+    for run in runs:
+        log(f"[shard] bench integration (VGA x {BENCH_FRAMES} into {BENCH_GRID}^3), "
+            f"{run['label']} {label}: {run['wall_s'] * 1e3:.1f} ms wall, launches "
+            f"{run['launches']}, peak device memory {run['peak_bytes']} B; "
+            f"{run['device_ms_per_frame']:.4f} ms device and {run['kernels_per_frame']:.1f} "
+            f"kernels a frame (a traced rep of {SHARD_TRACED_FRAMES} frames)")
+    log(f"[shard] every split state bit-identical to the unsplit kernel path; the cyclic "
+        f"splits' also to their plain paths; 2k classification launches and (cyclic) k band "
+        f"updates a frame; bench frame 0 on each slab of the {SHARD_SPLITS} cyclic splits "
+        f"bit-exact against the plain versions (max |difference| {frame_err})")
+    out["bench"] = runs
+    out["frame_max_abs_err"] = frame_err
+    launches["shard"] = shard_launches
+
+    parts = {"bench": time.perf_counter() - phase_start,
+             "of which profiling": sum(run.pop("profile_s") for run in runs)}
+    e2e_start = time.perf_counter()
+
+    # The e2e dataset at the default 320M budget through fusion.tsdf_fusion.
+    dataset = HiveDataset(e2e)
+    meshes = {}
+    for name, mesh in (("unsplit", None), ("2 shards", one_card_mesh(device, 2))):
+        runtime.set_runtime_mesh(mesh)
+        try:
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            start = time.perf_counter()
+            profiling = {}
+            meshes[name] = fusion.tsdf_fusion(dataset, BackgroundMeshOptions(),
+                                              num_frames=E2E_FRAMES, profiling=profiling,
+                                              device=device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+        finally:
+            runtime.set_runtime_mesh(None)
+        counts = main_launch_counts()
+        check_launches(f"[shard] e2e tsdf_fusion, {name}", counts, E2E_FRAMES,
+                       shards=1 if mesh is None else mesh.size)
+        stages = profiling["timing"]["background_reconstruction"]
+        out[f"e2e_{name}"] = dict(wall_s=wall, launches=counts,
+                                  peak_bytes=int(torch.cuda.max_memory_allocated(device)),
+                                  stages=stages)
+        log(f"[shard] e2e tsdf_fusion at the 320M budget, {name} {label}: {wall:.3f} s "
+            f"(integration {stages['integration']:.3f} s, mesh_extraction "
+            f"{stages['mesh_extraction']:.3f} s), launches {counts}, peak device memory "
+            f"{out[f'e2e_{name}']['peak_bytes']} B")
+    for attribute in ("vertices", "faces", "vertex_colors", "vertex_normals"):
+        if not np.array_equal(getattr(meshes["unsplit"], attribute),
+                              getattr(meshes["2 shards"], attribute)):
+            raise AssertionError(f"[shard] e2e mesh split 2 ways differs in {attribute}")
+    log(f"[shard] e2e mesh split 2 ways equals the unsplit one: "
+        f"{len(meshes['unsplit'].vertices)} vertices, {len(meshes['unsplit'].faces)} faces")
+    del meshes, dataset
+    torch.cuda.empty_cache()
+
+    parts["e2e"] = time.perf_counter() - e2e_start
+    for name, check in (("cli", lambda: check_shard_cli(device, tmp)),
+                        ("dpt", lambda: check_shard_dpt(device, tmp, label)),
+                        ("pose", lambda: check_shard_pose(device, label))):
+        start = time.perf_counter()
+        out[name] = check()
+        parts[name] = time.perf_counter() - start
+    log(f"[shard] the phase took {time.perf_counter() - phase_start:.1f} s ("
+        + ", ".join(f"{name} {s:.1f} s" for name, s in parts.items()) + ")")
+    return out
+
+
+def glb_mesh(path: str):
+    from hive_tpu_torch.meshing.gltf import load_glb
+
+    return next(iter(load_glb(os.path.join(path, "mesh", "bg.glb")).geometry.values()))
+
+
+def check_shard_cli(device, tmp: str) -> dict:
+    """The CLI with ``--num_devices`` on a small dataset (SHARD_CLI),
+    ``--background_only``: 1 as the baseline; 2 refused before anything is
+    written on one card (naming the counts), else equal to 1's ``bg.glb``;
+    -1 equal to 1's (the single-device path on one card: no split)."""
+    from hive_tpu_torch import fusion
+    from hive_tpu_torch.parallel import runtime
+
+    count = torch.cuda.device_count()
+    source = os.path.join(tmp, "shard_cli")
+    write_hive_dataset(source, *SHARD_CLI)
+
+    def cli(num_devices: str):
+        path = f"{source}_{num_devices}"
+        shutil.copytree(source, path)
+        argv = ["hive_tpu_torch", "--dataset_path", path, "--output_path", path,
+                "--background_only", "--num_frames", str(SHARD_CLI[0]),
+                "--key_frame_threshold", "1.0", "--overwrite_ok",
+                "--sdf_max_voxels", str(SHARD_CLI_VOXELS),
+                "--webxr_path", os.path.join(path, "webxr"),
+                "--log_file", os.path.join(path, "pipeline.log"), "--num_devices", num_devices]
+        with mock.patch.object(sys, "argv", argv), \
+                mock.patch.object(fusion, "shard_sparse_state",
+                                  wraps=fusion.shard_sparse_state) as shard:
+            runpy.run_module("hive_tpu_torch", run_name="__main__", alter_sys=True)
+        if runtime.runtime_mesh() is not None:
+            raise AssertionError("the runtime mesh outlived the run")
+        return path, shard.call_count
+
+    base, _ = cli("1")
+    want = glb_mesh(base)
+    result = {"device_count": count}
+    if count < 2:
+        try:
+            cli("2")
+        except ValueError as exc:
+            if "Requested 2 CUDA devices but only 1" not in str(exc):
+                raise
+            if os.path.exists(os.path.join(f"{source}_2", "mesh")):
+                raise AssertionError("--num_devices 2 wrote a mesh folder before refusing")
+            result["num_devices_2"] = f"refused: {exc}"
+        else:
+            raise AssertionError("--num_devices 2 ran on one card")
+    else:
+        path, splits = cli("2")
+        got = glb_mesh(path)
+        if splits != 1 or not all(np.array_equal(getattr(got, a), getattr(want, a))
+                                  for a in ("vertices", "faces", "vertex_colors")):
+            raise AssertionError("--num_devices 2: bg.glb differs from --num_devices 1's")
+        result["num_devices_2"] = "bg.glb equal to --num_devices 1's"
+    path, splits = cli("-1")
+    got = glb_mesh(path)
+    if (splits != 0) != (count >= 2) or not all(
+            np.array_equal(getattr(got, a), getattr(want, a))
+            for a in ("vertices", "faces", "vertex_colors")):
+        raise AssertionError(f"--num_devices -1 on {count} cards: split {splits} times, or "
+                             f"bg.glb differs from --num_devices 1's")
+    result["num_devices_-1"] = (f"{'split' if splits else 'single-device'}, bg.glb equal to "
+                                f"--num_devices 1's ({len(want.vertices)} vertices)")
+    log(f"[shard] CLI on {count} card(s), {SHARD_CLI[0]} frames of {SHARD_CLI[1]}x"
+        f"{SHARD_CLI[2]}: --num_devices 2 {result['num_devices_2']}; --num_devices -1 "
+        f"{result['num_devices_-1']}")
+    return result
+
+
+def check_shard_dpt(device, tmp: str, label: str) -> dict:
+    """DPT bf16 at the CLI's 8x480x640 batch through ``predict_batch``,
+    split 2 ways on the card, against the unsplit estimator: depth within
+    DPT_CPU_BF16_TOL of the unsplit's, max |difference| over max depth."""
+    from hive_tpu_torch.models import dpt
+
+    weights = os.path.join(tmp, "shard_weights")
+    os.makedirs(weights, exist_ok=True)
+    write_dpt_weights(weights)
+    frames = np.random.default_rng(SEED).integers(0, 256, (8, 480, 640, 3), dtype=np.uint8)
+    result = {}
+    depths = {}
+    with mock.patch.dict(os.environ, {"WEIGHTS_PATH": weights}):
+        estimator = dpt.DPTDepthEstimator(device=device, mesh=None)
+    for name, mesh in (("unsplit", None), ("2 shards", one_card_mesh(device, 2))):
+        # One estimator (one load of the weights): on one card both shards
+        # run its own model.
+        estimator.mesh = mesh
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        depths[name] = estimator.predict_batch(frames)
+        peak = int(torch.cuda.max_memory_allocated(device))
+        ms, ops = device_profile(lambda: estimator.predict_batch(frames), reps=2, warmup=1)
+        result[name] = dict(device_ms=ms, device_ops=ops, peak_bytes=peak)
+        log(f"[shard] DPT bf16 predict_batch 8x480x640, {name} {label}: {ms:.4f} ms "
+            f"device ({ops:.0f} kernels), peak device memory {peak} B")
+    del estimator
+    torch.cuda.empty_cache()
+    err = float(np.abs(depths["2 shards"] - depths["unsplit"]).max()
+                / np.abs(depths["unsplit"]).max())
+    result["rel_err"] = err
+    log(f"[shard] DPT split 2 ways vs unsplit: {err:.4g} relative (max depth "
+        f"{float(depths['unsplit'].max()):.4f} m), want < {DPT_CPU_BF16_TOL}")
+    if not (np.isfinite(depths["2 shards"]).all() and err < DPT_CPU_BF16_TOL):
+        raise AssertionError(f"[shard] DPT split 2 ways: {err:.3g} relative to the unsplit "
+                             f"depth, want < {DPT_CPU_BF16_TOL}")
+    return result
+
+
+def check_shard_pose(device, label: str) -> dict:
+    """pose-optimise's problem through optimise_packed_features in float64
+    (World3D with smoothing, POSE_SHARD_EPOCHS epochs, no plateau or early
+    stop), split 2 ways on the card, against the unsplit run: q and t
+    within POSE_SHARD_TOL; the spread of two unsplit runs is logged."""
+    from hive_tpu_torch import pose_optimisation as P
+
+    _, _, features, _, perturbed = pose_user_problem()
+    feats, intrinsics = packed_on(features, device, torch.float64)
+    start = {"q": perturbed[:, :4], "t": perturbed[:, 4:], "scale": np.zeros(0),
+             "shift": np.zeros(0)}
+    options = P.OptimisationOptions(num_epochs=POSE_SHARD_EPOCHS, lr_scheduler_patience=10 ** 6,
+                                    early_stopping_patience=10 ** 6)
+    result, params = {}, {}
+    for name, mesh in (("unsplit", None), ("unsplit again", None),
+                       ("2 shards", one_card_mesh(device, 2))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        begin = time.perf_counter()
+        out = P.optimise_packed_features(feats, intrinsics, start, options,
+                                         residual_type=P.ResidualType.World3D,
+                                         frame_size=(POSE_W, POSE_H), fps=30.0, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - begin
+        params[name] = {k: out[k].cpu().numpy() for k in ("q", "t")}
+        result[name] = dict(wall_s=wall, peak_bytes=int(torch.cuda.max_memory_allocated(device)))
+        log(f"[shard] pose-optimise float64, {len(features)} correspondences, "
+            f"{POSE_SHARD_EPOCHS} epochs, {name} {label}: {wall:.3f} s wall, peak device "
+            f"memory {result[name]['peak_bytes']} B")
+    def difference(a, b):
+        return max(float(np.abs(params[a][k] - params[b][k]).max()) for k in ("q", "t"))
+
+    err, repeat = difference("2 shards", "unsplit"), difference("unsplit again", "unsplit")
+    moved = float(np.abs(params["unsplit"]["t"] - perturbed[:, 4:]).max())
+    result.update(max_abs_err=err, repeat_max_abs_err=repeat, moved=moved)
+    log(f"[shard] pose split 2 ways vs unsplit: max |difference| {err:.3e} (tol "
+        f"{POSE_SHARD_TOL}; two unsplit runs {repeat:.3e} apart); the unsplit run moved t "
+        f"by {moved:.4f} m")
+    if not err <= POSE_SHARD_TOL or not moved > 1e-3:
+        raise AssertionError(f"[shard] pose split 2 ways: {err:.3e} from the unsplit run (tol "
+                             f"{POSE_SHARD_TOL}), t moved {moved:.3e}")
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -4380,6 +4791,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="hive_tum_") as tmp:
         e2e = os.path.join(tmp, "e2e")
         main_path, main_profiling = run_main_path(device, launches, keep=e2e)
+        shards = check_shards(device, launches, e2e, tmp, smi)
         conversion, conversion_profiling = run_conversion(device, launches, main_profiling, tmp)
         dpt_results = check_dpt(device)
         depth_run = run_depth_conversion(device, launches, conversion_profiling, tmp)
@@ -4421,7 +4833,8 @@ def main() -> int:
             launches_inpainted=launches["inpainted"][name],
             launches_fts=launches["fts"][name], launches_colmap_pose=launches["colmap_pose"][name],
             launches_pnp_pose=launches["pnp_pose"][name],
-            launches_bench=launches["bench"][name], exact=True,
+            launches_bench=launches["bench"][name], launches_shard=launches["shard"][name],
+            exact=True,
             calls_checked=result["calls_checked"], max_abs_err=result["max_abs_err"],
             ms=result["ms"], kernel_ms=result["ms"], plain_ms=result["plain_ms"],
             loop_ms=result["loop_ms"], bound_ms=result["bound_ms"],
@@ -4450,6 +4863,7 @@ def main() -> int:
             launches=sum(launches[e][name] for e in entries), exact=True,
             **{k: v for k, v in probes[name].items() if k != "library"},
             entry_point_result=entry_results[name]))
+    log("[shard] summary " + json.dumps(shards))
     log("[convert] summary " + json.dumps(conversion))
     log("[dpt] summary " + json.dumps({"model": dpt_results, "estimate_depth_run": depth_run}))
     log("[segment] summary " + json.dumps({"models": segmenters, "maskrcnn_run": segmented_run}))

@@ -8,11 +8,16 @@ and the band sampler, tile gather, patch gather and fused band trip of the
 measurement entry points under ``micro/``.
 
 Entry points run on the card unless the caller asks for the CPU with
-``device="cpu"``; there is no silent CPU fallback.
+``device="cpu"``; there is no silent CPU fallback. ``parallel`` splits the
+sparse volume's block rows, DPT batches and pose correspondences over a
+mesh of CUDA devices (``--num_devices``; ``get_device_mesh``,
+``shard_batch``, ``shard_volume``, ``replicate``, ``shard_sparse_state``,
+``integrate_frames_sharded``, ``get_mesh_sharded``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -41,3 +46,9 @@ def get_device(device: Optional[Union[str, torch.device]] = None) -> torch.devic
         raise RuntimeError("hive_tpu_torch runs on a CUDA device and none is "
                            "available; pass device='cpu' to run on the CPU.")
     return device if device is not None else torch.device("cuda", 0)
+
+
+def on_device(device: torch.device):
+    """A context that makes ``device`` current when it is a CUDA device (a
+    kernel launched through the runtime API runs on the current device)."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()

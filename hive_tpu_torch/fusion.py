@@ -3,7 +3,9 @@
 Counterpart of ``hive_tpu/fusion.py`` ``adjust_voxel_size`` (:30),
 ``tsdf_fusion`` (:91), and the code that configures and runs the external
 BundleFusion binary (``BundleFusionConfig`` :264, ``get_bundle_fusion_path``
-:361, ``bundle_fusion`` :370). Multi-device sharding is not part of the port yet.
+:361, ``bundle_fusion`` :370). Under a runtime mesh (``--num_devices``) the
+sparse volume's block rows split over its devices
+(:mod:`hive_tpu_torch.parallel.fusion`), with the same mesh as result.
 """
 
 from __future__ import annotations
@@ -27,6 +29,9 @@ from hive_tpu_torch.meshing.ply import load_ply
 from hive_tpu_torch.options import (BackgroundMeshOptions, MaskDilationOptions,
                                     MeshReconstructionMethod)
 from hive_tpu_torch.ops.tsdf import TSDFVolume, estimate_volume_bounds_from_max_depths
+from hive_tpu_torch.parallel.fusion import (get_mesh_sharded, integrate_frames_sharded,
+                                            shard_sparse_state)
+from hive_tpu_torch.parallel.runtime import runtime_mesh
 from hive_tpu_torch.utils import timed_block, tqdm_imap
 
 
@@ -112,9 +117,12 @@ def tsdf_fusion(dataset: HiveDataset, options: BackgroundMeshOptions = Backgroun
         return timed_block(None, profiling,
                            ["timing", "background_reconstruction", name])
 
+    mesh = runtime_mesh()
+
     def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        for d in dict.fromkeys([device, *(mesh.devices if mesh is not None else ())]):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     with stage("voxel_sizing"):
         voxel_size, volume_bounds = adjust_voxel_size(dataset=dataset, options=options,
@@ -136,6 +144,22 @@ def tsdf_fusion(dataset: HiveDataset, options: BackgroundMeshOptions = Backgroun
             volume = TSDFVolume(volume_bounds, voxel_size=voxel_size,
                                 dtype=dtype, device=device)
         sync()
+
+    # Multi-device runtime: split the sparse volume's block rows over the
+    # mesh, each device integrating its own slab (bit-identical to one
+    # device: blocks are independent, no collectives).
+    if mesh is not None and use_sparse:
+        if volume.num_blocks % mesh.size == 0:
+            shard_sparse_state(volume, mesh)
+            logging.info(f"Sparse TSDF volume sharded over {mesh.size} devices "
+                         f"({volume.num_blocks} blocks, block-cyclic).")
+        else:
+            logging.warning(
+                f"Cannot shard the TSDF volume: {volume.num_blocks} blocks "
+                f"do not divide over {mesh.size} devices; running single-device.")
+            mesh = None
+    else:
+        mesh = None
 
     logging.info(f"Voxel volume dims {volume.dims} "
                  f"({volume.num_voxels:,d} voxels at {voxel_size:.4f} m, {dtype})")
@@ -171,16 +195,24 @@ def tsdf_fusion(dataset: HiveDataset, options: BackgroundMeshOptions = Backgroun
             colors = np.stack([np.ascontiguousarray(f[0][..., :3], dtype=np.uint8)
                                for f in frames])
             depths = np.stack([f[1] for f in frames]).astype(np.float32, copy=False)
-            volume.integrate_frames(
-                colors=torch.from_numpy(colors).to(device),
-                depths=torch.from_numpy(depths).to(device),
-                camera_matrix=dataset.camera_matrix,
-                cam_to_world_poses=cam_to_world[batch])
+            inputs = dict(colors=torch.from_numpy(colors).to(device),
+                          depths=torch.from_numpy(depths).to(device),
+                          camera_matrix=dataset.camera_matrix,
+                          cam_to_world_poses=cam_to_world[batch])
+            if mesh is not None:
+                integrate_frames_sharded(volume, mesh, **inputs)
+            else:
+                volume.integrate_frames(**inputs)
         sync()
 
     logging.info("Extracting mesh...")
     with stage("mesh_extraction"):
-        verts, faces, norms, colors = volume.get_mesh()
+        if mesh is not None:
+            # Device-parallel emission over the mesh, byte-identical to
+            # get_mesh.
+            verts, faces, norms, colors = get_mesh_sharded(volume, mesh)
+        else:
+            verts, faces, norms, colors = volume.get_mesh()
 
     return TriangleMesh(vertices=verts, faces=faces, vertex_colors=colors,
                         vertex_normals=norms)

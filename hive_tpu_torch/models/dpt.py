@@ -24,6 +24,7 @@ kernel here.
 
 from __future__ import annotations
 
+import copy
 import logging
 import math
 import os
@@ -34,11 +35,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from hive_tpu_torch import get_device
+from hive_tpu_torch import get_device, on_device
 from hive_tpu_torch.models import flax_layers
 from hive_tpu_torch.models.flax_layers import (Conv, Dense, FlaxModule, GroupNorm, same_pad,
                                                load_flax_params, tree_order)
 from hive_tpu_torch.ops.resize import prepare_model_input, resize
+from hive_tpu_torch.parallel.mesh import pad_to_multiple, shard_batch
+from hive_tpu_torch.parallel.runtime import runtime_mesh
 
 # NYU head calibration: depth = 1 / (scale * head_output + shift).
 NYU_SCALE = 0.000305
@@ -56,6 +59,8 @@ _FEATURES = 256
 
 # The weights file in $WEIGHTS_PATH, shared with hive_tpu.
 WEIGHTS_FILENAME = "dpt_hybrid_nyu.npz"
+# DPTDepthEstimator's default mesh: the pipeline's runtime mesh.
+_RUNTIME_MESH = object()
 
 # check_flax_params: the scale of each residual branch, about 1/sqrt(2 * 12)
 # for the ViT's 12 blocks (as GPT-2 initialises its residual projections).
@@ -510,14 +515,33 @@ class DPTDepthEstimator:
     (``hive_tpu``'s converted npz; :func:`convert_torch_checkpoint` writes
     it from the released checkpoint); without the file the model is
     initialised at random as the reference does, with the same values.
+
+    With a device mesh (by default the pipeline's ``--num_devices`` mesh;
+    ``mesh=None`` opts out) each batch splits over the mesh's devices, one
+    replica of the model on each distinct device.
     """
 
-    def __init__(self, net_size: Tuple[int, int] = (480, 640), device=None):
+    def __init__(self, net_size: Tuple[int, int] = (480, 640), device=None,
+                 mesh=_RUNTIME_MESH):
         self.net_height, self.net_width = net_size
         self.device = get_device(device)
         with torch.device(self.device):
             self.model = DPTHybrid(dtype=torch.bfloat16).eval()
         load_flax_params(self.model, self._load_or_init_params())
+
+        if mesh is _RUNTIME_MESH:
+            mesh = runtime_mesh()
+        self.mesh = mesh
+        self._replicas: Dict[torch.device, nn.Module] = {}
+
+    def _replica(self, device: torch.device) -> nn.Module:
+        """The model on ``device``: ``self.model`` on its own device, else a
+        copy made at first use (one per distinct device of a mesh)."""
+        if device == self.device:
+            return self.model
+        if device not in self._replicas:
+            self._replicas[device] = copy.deepcopy(self.model).to(device)
+        return self._replicas[device]
 
     def _load_or_init_params(self):
         weights_path = os.path.join(os.environ.get("WEIGHTS_PATH", "weights"), WEIGHTS_FILENAME)
@@ -532,14 +556,29 @@ class DPTDepthEstimator:
         self.weights_loaded = False
         return random_flax_params()
 
+    def _forward(self, model: nn.Module, frames: torch.Tensor) -> torch.Tensor:
+        """Metric depth (B, net H, net W) of uint8 frames on ``model``'s device."""
+        images = prepare_model_input(frames, (self.net_height, self.net_width))
+        inverse_depth = model(images.permute(0, 3, 1, 2))
+        return 1.0 / torch.clamp_min(NYU_SCALE * inverse_depth + NYU_SHIFT, 1e-6)
+
     @torch.inference_mode()
     def predict_batch(self, frames: np.ndarray) -> np.ndarray:
         """(B, H, W, 3) uint8 RGB -> (B, H, W) float32 metric depth (metres)."""
         b, h, w = frames.shape[:3]
-        images = prepare_model_input(torch.from_numpy(np.ascontiguousarray(frames)).to(self.device),
-                                     (self.net_height, self.net_width))
-        inverse_depth = self.model(images.permute(0, 3, 1, 2))
-        depth = 1.0 / torch.clamp_min(NYU_SCALE * inverse_depth + NYU_SHIFT, 1e-6)
+        frames = np.ascontiguousarray(frames)
+        if self.mesh is None:
+            depth = self._forward(self.model, torch.from_numpy(frames).to(self.device))
+        else:
+            # Edge-pad (repeat the last frame): padding rows run the same
+            # compute without touching the real outputs.
+            padded = pad_to_multiple(frames, self.mesh.size, axis=0)
+            padded[b:] = frames[b - 1]
+            parts = []
+            for part, d in zip(shard_batch(self.mesh, padded), self.mesh.devices):
+                with on_device(d):
+                    parts.append(self._forward(self._replica(d), part))
+            depth = torch.cat([p.to(self.device) for p in parts])[:b]
         if depth.shape[1:] != (h, w):
             depth = resize(depth, (b, h, w), "nearest")
         return depth.cpu().numpy()

@@ -51,8 +51,11 @@ def _launch(frame, v, u):
     if v.numel() == 0:
         return out
     height, width = frame.shape
-    err = fn(frame.data_ptr(), height, width, v.data_ptr(), u.data_ptr(), v.numel(),
-             out.data_ptr(), torch.cuda.current_stream(frame.device).cuda_stream)
+    # The runtime API launches on the current device: make the tensors' own
+    # device current (another device's context cannot use their pointers).
+    with torch.cuda.device(frame.device):
+        err = fn(frame.data_ptr(), height, width, v.data_ptr(), u.data_ptr(), v.numel(),
+                 out.data_ptr(), torch.cuda.current_stream(frame.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"band_sampler kernel launch failed: CUDA error {err}")
     launches += 1

@@ -186,11 +186,14 @@ def _launch(state, ids, base, scal, frames, block, sub):
         return
     height, width = frames[0].shape
     rgb888 = len(frames) == 2
-    err = fn(ids.data_ptr(), base.data_ptr(), scal.data_ptr(), ids.numel(),
-             frames[0].data_ptr(), frames[1].data_ptr() if rgb888 else None, height, width,
-             tsdf.data_ptr(), weight.data_ptr(), color.data_ptr(),
-             int(tsdf.dtype == torch.bfloat16), int(rgb888), *block, tsdf.shape[1], sub,
-             torch.cuda.current_stream(tsdf.device).cuda_stream)
+    # The runtime API launches on the current device: make the tensors' own
+    # device current (another device's context cannot use their pointers).
+    with torch.cuda.device(tsdf.device):
+        err = fn(ids.data_ptr(), base.data_ptr(), scal.data_ptr(), ids.numel(),
+                 frames[0].data_ptr(), frames[1].data_ptr() if rgb888 else None, height, width,
+                 tsdf.data_ptr(), weight.data_ptr(), color.data_ptr(),
+                 int(tsdf.dtype == torch.bfloat16), int(rgb888), *block, tsdf.shape[1], sub,
+                 torch.cuda.current_stream(tsdf.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"band_update kernel launch failed: CUDA error {err}")
     launches += 1

@@ -360,10 +360,13 @@ def _launch(entry: str, origins, scal, pyramid, geom: Geometry, *outputs):
     fn.argtypes = _ARGTYPES[entry]
 
     layout = np.ascontiguousarray(np.concatenate(geom.layout), dtype=np.int32)
-    err = fn(origins.data_ptr(), origins.shape[0], scal.data_ptr(), pyramid.data_ptr(),
-             pyramid.numel(), layout.ctypes.data, len(geom.layout[0]), geom.height,
-             geom.width, geom.trunc, *geom.corner, *outputs,
-             torch.cuda.current_stream(origins.device).cuda_stream)
+    # The runtime API launches on the current device: make the tensors' own
+    # device current (another device's context cannot use their pointers).
+    with torch.cuda.device(origins.device):
+        err = fn(origins.data_ptr(), origins.shape[0], scal.data_ptr(), pyramid.data_ptr(),
+                 pyramid.numel(), layout.ctypes.data, len(geom.layout[0]), geom.height,
+                 geom.width, geom.trunc, *geom.corner, *outputs,
+                 torch.cuda.current_stream(origins.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"classify_blocks {entry} kernel launch failed: CUDA error {err}")
     if entry == "pass1":

@@ -145,10 +145,13 @@ def _launch(project_in_kernel, win_v0, win_u0, valid, scal, origins, frame, coor
     else:
         pointers = [None, None] + [x.data_ptr() for x in coords]
     height, width = frame.shape
-    err = fn(int(project_in_kernel), frame.data_ptr(), height, width, win_v0.data_ptr(),
-             win_u0.data_ptr(), valid.data_ptr(), scal.data_ptr(), *pointers,
-             tsdf.data_ptr(), weight.data_ptr(), color.data_ptr(), k, bv, *window, *intr,
-             trunc, f32_reciprocal(trunc), torch.cuda.current_stream(frame.device).cuda_stream)
+    # The runtime API launches on the current device: make the tensors' own
+    # device current (another device's context cannot use their pointers).
+    with torch.cuda.device(frame.device):
+        err = fn(int(project_in_kernel), frame.data_ptr(), height, width, win_v0.data_ptr(),
+                 win_u0.data_ptr(), valid.data_ptr(), scal.data_ptr(), *pointers,
+                 tsdf.data_ptr(), weight.data_ptr(), color.data_ptr(), k, bv, *window, *intr,
+                 trunc, f32_reciprocal(trunc), torch.cuda.current_stream(frame.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_band kernel launch failed: CUDA error {err}")
     launches += 1

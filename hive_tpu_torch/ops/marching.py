@@ -33,6 +33,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from hive_tpu_torch import on_device
+
 # ---------------------------------------------------------------------------
 # Static geometry tables.
 # ---------------------------------------------------------------------------
@@ -383,14 +385,21 @@ def check_blocked_colour_addressing(num_voxels: int) -> None:
             f"int32; {num_voxels:,d} voxels overflows it (limit ~715M)")
 
 
-def _extract(lin, emit, dims, origin, voxel_size: float, chunk_size: int):
-    """Chunked emission over sorted active-cube ids, then the host weld."""
+def _extract(lin, emits, dims, origin, voxel_size: float, chunk_size: int):
+    """Chunked emission over sorted active-cube ids, then the host weld.
+
+    ``emits``: (device, emit) pairs; chunk i goes to ``emits[i % len]``, its
+    ids copied to that device and the emission queued with it current.
+    Emission keeps the cubes' order, so the lanes, taken back in chunk
+    order, are the same stream whatever the split."""
     if lin.numel() == 0:
         return _empty_mesh()
     parts = []
-    for start in range(0, lin.numel(), chunk_size):
-        cube_idx = decode_active_coords(lin[start:start + chunk_size], dims)
-        parts.append(emit(cube_idx).cpu())
+    for i, start in enumerate(range(0, lin.numel(), chunk_size)):
+        device, emit = emits[i % len(emits)]
+        with on_device(device):
+            cube_idx = decode_active_coords(lin[start:start + chunk_size].to(device), dims)
+            parts.append(emit(cube_idx).cpu())
     lanes = torch.cat(parts, dim=1).numpy()
     flat = {"klo": lanes[0].astype(np.int32),
             "colcode": lanes[1].astype(np.uint32),
@@ -432,17 +441,23 @@ def extract_isosurface(tsdf, weight, color, origin, voxel_size: float,
         s8 = tsdf_flat[corner_lin].to(torch.float32)
         return _emit_core(s8, color_flat[corner_lin], corner_lin, cube_idx, tables)
 
-    return _extract(lin, emit, dims, origin, voxel_size, chunk_size)
+    return _extract(lin, [(tsdf.device, emit)], dims, origin, voxel_size, chunk_size)
 
 
 def extract_isosurface_blocked(tsdf_b, weight_b, color_b, *, grid_blocks,
                                block_size, origin, voxel_size: float,
-                               chunk_size: int = 1 << 16):
+                               chunk_size: int = 1 << 16, devices=None):
     """Extract the zero level set straight from block-major sparse state
     (tsdf/weight ``(nb, BV)``, colour ``(nb, 3*BV)`` channel segments,
     canonical x-major block order). Emission gathers its cube corners from
     the blocked arrays; only the boolean active-cube planes go dense.
 
+    :param devices: the devices of a mesh (one may repeat): the state is
+        copied once to each, and chunk i of the active cubes emits on
+        ``devices[i % len(devices)]``, each chunk a power of two of at
+        least 512 and at most ``chunk_size`` cubes that splits the cubes
+        evenly where it can (``hive_tpu``'s ``get_mesh_sharded`` sizing).
+        Default: the state's device alone, in chunks of ``chunk_size``.
     :return: (vertices (V, 3) f32 world coords, faces (F, 3) int64,
         vertex colors (V, 3) uint8, vertex normals (V, 3) f32).
     """
@@ -450,7 +465,6 @@ def extract_isosurface_blocked(tsdf_b, weight_b, color_b, *, grid_blocks,
     block_size = tuple(int(b) for b in block_size)
     dims = tuple(g * b for g, b in zip(grid_blocks, block_size))
     check_blocked_colour_addressing(int(np.prod(dims)))
-    tables = _Tables(tsdf_b.device)
     bv = int(np.prod(block_size))
 
     observed = weight_b > 0
@@ -459,21 +473,33 @@ def extract_isosurface_blocked(tsdf_b, weight_b, color_b, *, grid_blocks,
                         blocked_to_dense(inside, grid_blocks, block_size))
     del observed, inside
 
-    tsdf_flat = tsdf_b.reshape(-1)
-    color_flat = color_b.reshape(-1)
+    def emitter(device):
+        tables = _Tables(device)
+        tsdf_flat = tsdf_b.reshape(-1).to(device)
+        color_flat = color_b.reshape(-1).to(device)
 
-    def emit(cube_idx):
-        xyz = cube_idx[:, :, None] + tables.corner_offsets.T[None]       # (M, 3, 8)
-        block, off = _state_voxel_address(xyz[:, 0], xyz[:, 1], xyz[:, 2],
-                                          grid_blocks=grid_blocks,
-                                          block_size=block_size)
-        s8 = tsdf_flat[block * bv + off].to(torch.float32)
-        packed8 = _pack_colour([color_flat[(block * 3 + ch) * bv + off]
-                                for ch in range(3)])
-        return _emit_core(s8, packed8, _corner_lin(cube_idx, dims, tables),
-                          cube_idx, tables)
+        def emit(cube_idx):
+            xyz = cube_idx[:, :, None] + tables.corner_offsets.T[None]   # (M, 3, 8)
+            block, off = _state_voxel_address(xyz[:, 0], xyz[:, 1], xyz[:, 2],
+                                              grid_blocks=grid_blocks,
+                                              block_size=block_size)
+            s8 = tsdf_flat[block * bv + off].to(torch.float32)
+            packed8 = _pack_colour([color_flat[(block * 3 + ch) * bv + off]
+                                    for ch in range(3)])
+            return _emit_core(s8, packed8, _corner_lin(cube_idx, dims, tables),
+                              cube_idx, tables)
 
-    return _extract(lin, emit, dims, origin, voxel_size, chunk_size)
+        return emit
+
+    if devices is None:
+        devices = [tsdf_b.device]
+    else:
+        devices = [torch.device(d) for d in devices]
+        per_device = -(-lin.numel() // len(devices))
+        chunk_size = min(chunk_size, 1 << max(9, (max(per_device, 1) - 1).bit_length()))
+    replicas = {d: emitter(d) for d in dict.fromkeys(devices)}
+    return _extract(lin, [(d, replicas[d]) for d in devices], dims, origin, voxel_size,
+                    chunk_size)
 
 
 # ---------------------------------------------------------------------------

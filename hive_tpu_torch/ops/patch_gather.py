@@ -57,9 +57,12 @@ def _launch(v0, u0, frame, vv, uu, ph, pw):
     if vv.numel() == 0:
         return out
     height, width = frame.shape
-    err = fn(frame.data_ptr(), height, width, v0.data_ptr(), u0.data_ptr(), vv.data_ptr(),
-             uu.data_ptr(), blocks, ph, pw, vv.numel() // blocks, out.data_ptr(),
-             torch.cuda.current_stream(frame.device).cuda_stream)
+    # The runtime API launches on the current device: make the tensors' own
+    # device current (another device's context cannot use their pointers).
+    with torch.cuda.device(frame.device):
+        err = fn(frame.data_ptr(), height, width, v0.data_ptr(), u0.data_ptr(), vv.data_ptr(),
+                 uu.data_ptr(), blocks, ph, pw, vv.numel() // blocks, out.data_ptr(),
+                 torch.cuda.current_stream(frame.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"patch_gather kernel launch failed: CUDA error {err}")
     launches += 1

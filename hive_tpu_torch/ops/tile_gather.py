@@ -44,8 +44,11 @@ def _launch(src, idx, axis):
     if src.numel() == 0:
         return out
     rows, cols = src.shape
-    err = fn(src.data_ptr(), idx.data_ptr(), rows, cols, axis, out.data_ptr(),
-             torch.cuda.current_stream(src.device).cuda_stream)
+    # The runtime API launches on the current device: make the tensors' own
+    # device current (another device's context cannot use their pointers).
+    with torch.cuda.device(src.device):
+        err = fn(src.data_ptr(), idx.data_ptr(), rows, cols, axis, out.data_ptr(),
+                 torch.cuda.current_stream(src.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"tile_gather kernel launch failed: CUDA error {err}")
     launches += 1

@@ -51,7 +51,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from hive_tpu_torch import get_device
+from hive_tpu_torch import get_device, on_device
 from hive_tpu_torch.ops.band_update import (band_scalars, band_update, camera_coords,
                                             project)
 from hive_tpu_torch.ops.classify_blocks import (Geometry, classify_pass1, classify_refine,
@@ -63,6 +63,14 @@ class SparseTSDFState(NamedTuple):
     tsdf: torch.Tensor    # (nb, BV) where BV = Bx * By * Bz
     weight: torch.Tensor  # (nb, BV)
     color: torch.Tensor   # (nb, 3*BV): per-block R|G|B channel segments
+
+
+class BlockRows(NamedTuple):
+    """One slab of a volume's block rows on one device: its state rows and
+    the world origins (rows, 3) f32 of the blocks they hold."""
+    device: torch.device
+    state: SparseTSDFState
+    origins: torch.Tensor
 
 
 # Pass-1 classification compaction capacities, as fractions of the block
@@ -79,6 +87,24 @@ def pick_compact_cap(candidate_fraction: float):
         if candidate_fraction + COMPACT_MARGIN <= level:
             return level
     return None
+
+
+def prepare_integration_inputs(colors, depths, camera_matrix, cam_to_world_poses,
+                               obs_weights, device):
+    """The frame stack as the integrator takes it, on ``device``: (depths
+    (N, H, W) f32, colors (N, H, W, 3), world_to_cams (N, 4, 4) f32, intr (4,)
+    f32, obs_weights (N,) f32). The one definition for the single-device
+    and the block-sharded paths, whose bit-equality depends on it."""
+    depths = torch.as_tensor(depths, device=device).to(torch.float32)
+    colors = torch.as_tensor(colors, device=device)[..., :3]
+    K = np.asarray(camera_matrix, dtype=np.float32)
+    intr = torch.tensor([K[0, 0], K[1, 1], K[0, 2], K[1, 2]], dtype=torch.float32,
+                        device=device)
+    world_to_cams = torch.as_tensor(world_to_camera(cam_to_world_poses), device=device)
+    if obs_weights is None:
+        obs_weights = np.ones((depths.shape[0],), np.float32)
+    obs_weights = torch.as_tensor(np.asarray(obs_weights, np.float32), device=device)
+    return depths, colors, world_to_cams, intr, obs_weights
 
 
 def _next_pow2(n: int) -> int:
@@ -274,11 +300,63 @@ class SparseTSDFVolume:
                               device=self.device),
         )
 
-        self._integrators = {}  # built lazily, keyed on (height, width, cap)
+        # built lazily, keyed on (height, width, cap, rows, device)
+        self._integrators = {}
 
     @property
     def num_voxels(self) -> int:
         return int(np.prod(self.dims))
+
+    # -- block-row placement ----------------------------------------------------
+    @property
+    def state(self) -> SparseTSDFState:
+        """The state in canonical x-major block order on ``self.device``. For
+        a volume whose rows are split over devices (:meth:`place_block_rows`)
+        this is a gathered, un-permuted copy; the slabs stay in ``shards``
+        (a list of :class:`BlockRows`, else None) and row r of the split
+        holds block ``block_perm[r]`` (None: block r)."""
+        if self.shards is None:
+            return self._state
+        gathered = SparseTSDFState(*(torch.cat([s.state[i].to(self.device) for s in self.shards])
+                                     for i in range(3)))
+        if self.block_perm is None:
+            return gathered
+        inverse = torch.as_tensor(np.argsort(self.block_perm), device=self.device)
+        return SparseTSDFState(*(x[inverse] for x in gathered))
+
+    @state.setter
+    def state(self, state: SparseTSDFState) -> None:
+        """Replace the state (canonical block order, on ``self.device``);
+        a split of the rows over devices ends."""
+        self._state = state
+        self.shards = None
+        self.block_perm = None
+
+    def place_block_rows(self, devices: Sequence[torch.device], perm=None) -> None:
+        """Split the block rows into ``len(devices)`` equal slabs, slab k on
+        ``devices[k]`` (a device may repeat). Row r of the split holds block
+        ``perm[r]`` (default: block r). Integration runs on every slab with
+        its own rows and origins (blocks are independent and carry their
+        origins), so the result does not depend on the split."""
+        nb, n = self.num_blocks, len(devices)
+        if n == 0 or nb % n:
+            raise ValueError(f"num_blocks={nb} must divide over {n} devices")
+        perm = np.arange(nb) if perm is None else np.asarray(perm, np.int64)
+        if perm.shape != (nb,) or not np.array_equal(np.sort(perm), np.arange(nb)):
+            raise ValueError("perm must be a permutation of arange(num_blocks)")
+        state = self.state
+        rows = nb // n
+        shards = []
+        for k, device in enumerate(devices):
+            ids = perm[k * rows:(k + 1) * rows]
+            index = torch.as_tensor(ids, device=self.device)
+            shards.append(BlockRows(
+                torch.device(device),
+                SparseTSDFState(*(x[index].to(device) for x in state)),
+                torch.as_tensor(self.block_origins[ids], device=device)))
+        self._state = None
+        self.shards = shards
+        self.block_perm = None if np.array_equal(perm, np.arange(nb)) else perm
 
     def load_state(self, tsdf, weight, color, block_perm=None) -> None:
         """Replace the state with numpy arrays in the ``hive_tpu``
@@ -300,10 +378,17 @@ class SparseTSDFVolume:
 
     # -- frame integration ----------------------------------------------------
     def _integrator(self, height: int, width: int,
-                    compact_cap: Optional[float] = COMPACT_LEVELS[0]):
-        key = (height, width, compact_cap)
+                    compact_cap: Optional[float] = COMPACT_LEVELS[0],
+                    rows: Optional[int] = None, device=None):
+        """The stages for one frame size and compaction level, on a slab of
+        ``rows`` block rows (default: all) on ``device`` (default: the
+        volume's)."""
+        rows = self.num_blocks if rows is None else rows
+        device = self.device if device is None else torch.device(device)
+        key = (height, width, compact_cap, rows, device)
         if key not in self._integrators:
-            self._integrators[key] = _Integrator(self, height, width, compact_cap)
+            self._integrators[key] = _Integrator(self, height, width, compact_cap, rows,
+                                                 device)
         return self._integrators[key]
 
     def integrate(self, color_image, depth_image, camera_matrix, cam_to_world_pose,
@@ -374,24 +459,30 @@ class SparseTSDFVolume:
         :param cam_to_world_poses: (N, 4, 4) camera-to-world transforms.
         :param obs_weights: optional (N,) per-frame weights (default 1).
         """
-        dev = self.device
-        depths = torch.as_tensor(depths, device=dev).to(torch.float32)
-        colors = torch.as_tensor(colors, device=dev)[..., :3]
-        n, height, width = depths.shape
-
-        K = np.asarray(camera_matrix, dtype=np.float32)
-        intr = torch.tensor([K[0, 0], K[1, 1], K[0, 2], K[1, 2]],
-                            dtype=torch.float32, device=dev)
-        world_to_cams = torch.as_tensor(world_to_camera(cam_to_world_poses), device=dev)
-        if obs_weights is None:
-            obs_weights = np.ones((n,), np.float32)
-        obs_weights = torch.as_tensor(np.asarray(obs_weights, np.float32), device=dev)
-
+        inputs = prepare_integration_inputs(colors, depths, camera_matrix, cam_to_world_poses,
+                                            obs_weights, self.device)
+        n, height, width = inputs[0].shape
+        # One cap for every slab, from the global candidate fraction; each
+        # slab's capacities derive from its own row count.
         cap = pick_compact_cap(self.estimate_candidate_fraction(
             camera_matrix, cam_to_world_poses, height, width))
-        self._integrator(height, width, cap).integrate(
-            self.state, self.block_origins_device, depths, colors,
-            world_to_cams, intr, obs_weights)
+
+        slabs = self.shards or [BlockRows(self.device, self._state, self.block_origins_device)]
+        copies = {self.device: inputs}  # the frames, once on each device
+        runs = []
+        for slab in slabs:
+            if slab.device not in copies:
+                copies[slab.device] = tuple(x.to(slab.device) for x in inputs)
+            integ = self._integrator(height, width, cap, slab.origins.shape[0], slab.device)
+            runs.append((integ, integ.start(slab.state), slab.origins, copies[slab.device]))
+        # Frame by frame over the slabs, each queued with its device current.
+        for f in range(n):
+            for integ, run, origins, frames in runs:
+                with on_device(integ.device):
+                    integ.integrate_frame(run, origins, frames, f)
+        for integ, run, _, _ in runs:
+            with on_device(integ.device):
+                integ.finish(run)
         return self
 
     # -- extraction -----------------------------------------------------------
@@ -428,23 +519,24 @@ class SparseTSDFVolume:
 
 
 class _Integrator:
-    """The integration stages for one (frame size, compaction level).
+    """The integration stages for one (frame size, compaction level) on a
+    slab of block rows on one device.
 
     The counterpart of the closures ``hive_tpu``'s ``_build_integrator``
-    returns; ``integrate`` is its ``integrate_one.scan`` with a Python loop
-    over frames in place of ``lax.scan``.
+    returns; :meth:`start`, :meth:`integrate_frame` for each frame and
+    :meth:`finish` are its ``integrate_one.scan`` with a Python loop over
+    frames in place of ``lax.scan``.
     """
 
     def __init__(self, volume: SparseTSDFVolume, height: int, width: int,
-                 compact_cap: Optional[float]):
+                 compact_cap: Optional[float], rows: int, device: torch.device):
         self.height, self.width = height, width
         self.compact_cap = compact_cap
         self.trunc = volume.trunc_margin
         self.voxel = volume.voxel_size
         self.color_mode = volume.color_mode
         self.layout = pyramid_layout(height, width)
-        dev = volume.device
-        self.device = dev
+        self.device = dev = device
         self.trunc_t = torch.tensor(self.trunc, dtype=torch.float32, device=dev)
         # The band update scales by the f32 reciprocal of the truncation, as
         # XLA compiles the JAX package's division by that constant.
@@ -478,12 +570,16 @@ class _Integrator:
             torch.as_tensor((flat_s % By).astype(np.float32), device=dev),
             torch.as_tensor((flat_s // (Bx * By)).astype(np.float32), device=dev)]
 
+        # The caps of a slab of ``rows`` block rows, as the JAX package's
+        # integrator derives them inside ``shard_map``. Pass 1's compaction
+        # capacity comes from the slab's rows (``rows``: every block is
+        # queried). The refine capacity (band blocks beyond it stay
+        # unrefined band) comes from the whole volume, 8-aligned, and is at
+        # most the slab's rows.
+        self.pass1_cap = rows if compact_cap is None else max(1024, int(rows * compact_cap))
         nb = volume.num_blocks
-        # Pass-1 compaction capacity (``nb``: every block is queried).
-        self.pass1_cap = nb if compact_cap is None else max(1024, int(nb * compact_cap))
-        # Refine capacity: band blocks beyond it stay (unrefined) band.
         refine_cap = min(nb, max(1024, nb // 8))
-        self.refine_cap = min(nb, ((refine_cap + 7) // 8) * 8)
+        self.refine_cap = min(rows, ((refine_cap + 7) // 8) * 8)
 
         # Per-trip width of the banded update on the CPU (slab rows) and of
         # the gather-free edge pass.
@@ -673,43 +769,47 @@ class _Integrator:
                                weight=state.weight.view(nb * SUB, BVS),
                                color=state.color.view(nb * 3 * SUB, BVS))
 
-    def integrate(self, state: SparseTSDFState, block_origins, depths, colors,
-                  world_to_cams, intr, obs_weights) -> None:
-        """Fuse a frame stack into ``state`` in place: the band update and
-        the edge trips per frame, every frame's free weights applied once at
-        the end."""
-        slabs = self.to_slabs(state)
-        free_weights = torch.zeros((state.tsdf.shape[0] * self.SUB,),
-                                   dtype=torch.float32, device=state.tsdf.device)
+    def start(self, state: SparseTSDFState):
+        """A run over a frame stack: the slab views of ``state`` and the
+        frames' summed free weights, applied by :meth:`finish`."""
+        free_weights = torch.zeros((state.tsdf.shape[0] * self.SUB,), dtype=torch.float32,
+                                   device=state.tsdf.device)
+        return self.to_slabs(state), free_weights
+
+    def integrate_frame(self, run, block_origins, frames, f: int) -> None:
+        """Fuse frame ``f`` of ``frames`` (:func:`prepare_integration_inputs`)
+        into the run's state in place: the band update and the edge trips;
+        its free weights add up for :meth:`finish`."""
+        slabs, free_weights = run
+        depths, colors, world_to_cams, intr, obs_weights = frames
         packed_u16 = self.color_mode == "rgb565d16"
         intr_s = tuple(intr[i] for i in range(4))
+        depth, color_im = depths[f], colors[f]
+        R, t = world_to_cams[f, :3, :3], world_to_cams[f, :3, 3]
+        obs_weight = obs_weights[f]
 
-        for f in range(depths.shape[0]):
-            depth, color_im = depths[f], colors[f]
-            R, t = world_to_cams[f, :3, :3], world_to_cams[f, :3, 3]
-            obs_weight = obs_weights[f]
+        sample = self.pack_frame(depth, color_im)
+        pyramid = build_flat_pyramid(depth, self.height, self.width, packed_u16=packed_u16)
+        classes, dmin_blk, dmax_blk, free_ok = self.classify_refined(
+            block_origins, pyramid, R, t, intr_s)
+        band_flat, free_w, edge_flat = self.slab_masks(
+            block_origins, classes, dmin_blk, dmax_blk, free_ok, R, t, obs_weight)
 
-            sample = self.pack_frame(depth, color_im)
-            pyramid = build_flat_pyramid(depth, self.height, self.width,
-                                         packed_u16=packed_u16)
-            classes, dmin_blk, dmax_blk, free_ok = self.classify_refined(
-                block_origins, pyramid, R, t, intr_s)
-            band_flat, free_w, edge_flat = self.slab_masks(
-                block_origins, classes, dmin_blk, dmax_blk, free_ok, R, t,
-                obs_weight)
+        # On the card one kernel launch updates the frame's whole band; on
+        # the CPU the plain version goes in trips of ``chunk`` rows, which
+        # bounds its temporaries.
+        scal = self.band_scalars(intr, R, obs_weight)
+        band_trip = None if slabs.tsdf.is_cuda else self.chunk
+        for ids in self._trips(band_flat, band_trip):
+            self.update_band(slabs, block_origins, ids, sample, R, t, scal)
+        # Edge updates carry a per-voxel visibility mask, so unlike
+        # whole-block FREE weights they cannot batch across frames.
+        for ids in self._trips(edge_flat, self.edge_chunk):
+            self.update_edge(slabs, block_origins, ids, R, t, intr_s, obs_weight)
 
-            # On the card one kernel launch updates the frame's whole band;
-            # on the CPU the plain version goes in trips of ``chunk`` rows,
-            # which bounds its temporaries.
-            scal = self.band_scalars(intr, R, obs_weight)
-            band_trip = None if slabs.tsdf.is_cuda else self.chunk
-            for ids in self._trips(band_flat, band_trip):
-                self.update_band(slabs, block_origins, ids, sample, R, t, scal)
-            # Edge updates carry a per-voxel visibility mask, so unlike
-            # whole-block FREE weights they cannot batch across frames.
-            for ids in self._trips(edge_flat, self.edge_chunk):
-                self.update_edge(slabs, block_origins, ids, R, t, intr_s, obs_weight)
+        free_weights += free_w
 
-            free_weights += free_w
+    def finish(self, run) -> None:
+        """Apply the run's summed free weights."""
+        self.apply_free_weights(*run)
 
-        self.apply_free_weights(slabs, free_weights)

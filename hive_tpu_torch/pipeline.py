@@ -56,7 +56,8 @@ from hive_tpu_torch.options import (BackgroundMeshOptions, COLMAPOptions,
                                     MaskDilationOptions, MeshDecimationOptions,
                                     MeshFilteringOptions, MeshReconstructionMethod,
                                     PipelineOptions, StorageOptions, WebXROptions)
-from hive_tpu_torch.utils import (format_bytes, get_key_path, not_ported, set_key_path,
+from hive_tpu_torch.parallel.runtime import configure, set_runtime_mesh
+from hive_tpu_torch.utils import (format_bytes, get_key_path, set_key_path,
                                   setup_logger, timed_block, tqdm_imap)
 
 
@@ -146,11 +147,6 @@ class Pipeline:
         with timed_block(log_msg=log_msg, profiling=self.profiling, key_path=key_path) as timer:
             yield timer
 
-    def _check_ported(self):
-        """Refuse the options whose stages are not ported yet."""
-        if self.options.num_devices != 1:
-            raise not_ported("--num_devices", "Queue 1 item 14")
-
     # -- main entry ----------------------------------------------------------
     def run(self, dataset: Optional[HiveDataset] = None, adaptor=None, compress: bool = True):
         """Run the pipeline.
@@ -159,7 +155,17 @@ class Pipeline:
         :param adaptor: Use this dataset adaptor instead of auto-detection.
         :param compress: Whether to compress the exported meshes.
         """
-        self._check_ported()
+        # Multi-device runtime: the stages that split (TSDF integration and
+        # extraction, DPT batches, pose correspondences) pick this mesh up.
+        # A count the machine cannot give is refused here, before anything
+        # is read or written; the mesh is cleared when the run ends.
+        configure(self.options.num_devices, device=self.device)
+        try:
+            self._run(dataset, adaptor, compress)
+        finally:
+            set_runtime_mesh(None)
+
+    def _run(self, dataset: Optional[HiveDataset], adaptor, compress: bool):
         start_time = time.time()
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.device)

@@ -45,8 +45,10 @@ from hive_tpu_torch.geometric import (Trajectory, add_pose, get_identity_pose,
 from hive_tpu_torch.image_codecs import CV2_JPEG_QUALITY, write_image
 from hive_tpu_torch.io import HiveDataset
 from hive_tpu_torch.ops import homography, matching, sift
+from hive_tpu_torch.parallel.mesh import replicate, shard_batch
+from hive_tpu_torch.parallel.runtime import runtime_mesh
 from hive_tpu_torch.sfm import RANSAC_SEED
-from hive_tpu_torch.utils import Domain, check_domain, not_ported, temp_seed, tqdm_imap
+from hive_tpu_torch.utils import Domain, check_domain, temp_seed, tqdm_imap
 
 
 # ---------------------------------------------------------------------------
@@ -667,7 +669,8 @@ def _make_loss_fn(residual_type: ResidualType, alignment: AlignmentType, smooth:
     """Build the loss function of one optimisation configuration:
     ``loss_fn(params, features, intrinsics)`` on tensors."""
 
-    def loss_fn(params, features, intrinsics):
+    def data_sums(params, features, intrinsics):
+        """(sum of weight x distance, sum of weight) over ``features``."""
         quats, trans, scale, shift = (params["q"], params["t"],
                                       params["scale"], params["shift"])
 
@@ -692,7 +695,27 @@ def _make_loss_fn(residual_type: ResidualType, alignment: AlignmentType, smooth:
         # Safe L2: the norm's gradient is NaN at exactly zero, which
         # residuals reach once pairwise alignment converges.
         distances = torch.sqrt(torch.sum(torch.square(residuals), dim=-1) + 1e-12)
-        loss = torch.sum(weights * distances) / torch.clamp(torch.sum(weights), min=1.0)
+        return torch.sum(weights * distances), torch.sum(weights)
+
+    def loss_fn(params, features, intrinsics):
+        """``features`` and ``intrinsics``: one dict and tensor, or lists of
+        them, one per shard of a device mesh. Each shard's partial sums are
+        taken on its device (the parameters copied there) and summed on the
+        parameters' device in shard order; autograd carries the gradient
+        back across devices."""
+        quats, trans, scale, shift = (params["q"], params["t"],
+                                      params["scale"], params["shift"])
+        if isinstance(features, dict):
+            features, intrinsics = [features], [intrinsics]
+
+        weighted = weight_sum = None
+        for shard, intr in zip(features, intrinsics):
+            device = shard["weight"].device
+            sums = data_sums({k: v.to(device) for k, v in params.items()}, shard, intr)
+            sums = [x.to(quats.device) for x in sums]
+            weighted = sums[0] if weighted is None else weighted + sums[0]
+            weight_sum = sums[1] if weight_sum is None else weight_sum + sums[1]
+        loss = weighted / torch.clamp(weight_sum, min=1.0)
 
         if smooth:
             # Each difference order only where the trajectory is long enough:
@@ -838,13 +861,13 @@ def optimise_packed_features(features: dict, intrinsics, params,
 
     :param features: packed correspondences from ``PoseOptimiser._pack_features``
         (``hive_tpu``'s packing, whose rows of weight 0 count for nothing).
+        With ``mesh``, their count must divide by the mesh size.
     :param params: ``{"q", "t", "scale", "shift"}`` tensors or arrays.
-    :param mesh: a device mesh is not ported (ROADMAP Queue 1 item 14).
+    :param mesh: optional device mesh. The correspondences split over its
+        devices; the parameters, the Adam state, the learning rate and the
+        clip stay on its first device, where the shards' partial loss sums
+        meet (in shard order, so the loss is not bit-equal to one device's).
     """
-    if mesh is not None:
-        raise not_ported("Sharding the pose optimisation over a device mesh",
-                         "Queue 1 item 14")
-
     loss_fn = _make_loss_fn(
         residual_type=residual_type, alignment=options.alignment_type,
         smooth=smooth_trajectory, position_only=options.position_only,
@@ -853,6 +876,15 @@ def optimise_packed_features(features: dict, intrinsics, params,
 
     device = features["weight"].device
     dtype = features["points_i"].dtype
+    if mesh is not None:
+        m = len(features["weight"])
+        if m % mesh.size != 0:
+            raise ValueError(f"{m} correspondences do not divide over {mesh.size} "
+                             f"devices; pad first.")
+        device = mesh.devices[0]
+        chunks = {k: shard_batch(mesh, v) for k, v in features.items()}
+        features = [{k: chunks[k][i] for k in chunks} for i in range(mesh.size)]
+        intrinsics = replicate(mesh, intrinsics)
     params = {k: torch.as_tensor(params[k], dtype=dtype, device=device) for k in PARAM_KEYS}
     opt_state = adam_init(params)
 
@@ -1041,14 +1073,21 @@ class PoseOptimiser:
 
     # -- feature packing -------------------------------------------------------
     @staticmethod
-    def _pack_features(feature_set: FeatureSet, device=None) -> dict:
-        """Correspondence arrays → device tensors with a validity weight (1
-        for each; ``hive_tpu`` pads with weight-0 rows for a device mesh,
-        which is not ported)."""
+    def _pack_features(feature_set: FeatureSet, device=None,
+                       pad_to: Optional[int] = None) -> dict:
+        """Correspondence arrays → device tensors with a validity weight: 1
+        for each correspondence, 0 for the zero rows that pad them to
+        ``pad_to`` (a multiple of a device mesh's size)."""
+        m = len(feature_set)
+        size = pad_to if pad_to is not None else m
 
         def tensor(a):
-            return torch.as_tensor(np.ascontiguousarray(a), device=device)
+            out = np.zeros((size, *a.shape[1:]), dtype=a.dtype)
+            out[:m] = a
+            return torch.as_tensor(out, device=device)
 
+        weight = np.zeros(size, dtype=np.float32)
+        weight[:m] = 1.0
         return {
             "idx_i": tensor(feature_set.frame_i.index.astype(np.int64)),
             "points_i": tensor(feature_set.frame_i.points.astype(np.float32)),
@@ -1056,7 +1095,7 @@ class PoseOptimiser:
             "idx_j": tensor(feature_set.frame_j.index.astype(np.int64)),
             "points_j": tensor(feature_set.frame_j.points.astype(np.float32)),
             "depth_j": tensor(np.maximum(feature_set.frame_j.depth.astype(np.float32), 1e-6)),
-            "weight": torch.ones(len(feature_set), dtype=torch.float32, device=device),
+            "weight": torch.as_tensor(weight, device=device),
         }
 
     # -- optimisation steps ----------------------------------------------------
@@ -1161,12 +1200,19 @@ class PoseOptimiser:
                            residual_type: ResidualType,
                            smooth_trajectory: bool = True):
         """The Adam loop with host-side LR plateau + early stopping, on the
-        optimiser's device."""
+        optimiser's device. Under a multi-device runtime (``--num_devices``)
+        the correspondences pad to a multiple of the mesh size and split
+        over its devices."""
         if len(feature_set) == 0:
             logging.warning("No correspondences available; skipping optimisation loop.")
             return params
 
-        features = self._pack_features(feature_set, device=self.device)
+        mesh = runtime_mesh()
+        pad_to = None
+        if mesh is not None:
+            pad_to = -(-len(feature_set) // mesh.size) * mesh.size
+
+        features = self._pack_features(feature_set, device=self.device, pad_to=pad_to)
         K = feature_set.camera_matrix
         intrinsics = torch.as_tensor([K[0, 0], K[1, 1], K[0, 2], K[1, 2]],
                                      dtype=torch.float32, device=self.device)
@@ -1175,7 +1221,7 @@ class PoseOptimiser:
             features, intrinsics, params, options,
             residual_type=residual_type,
             frame_size=(self.dataset.frame_width, self.dataset.frame_height),
-            fps=self.dataset.fps, smooth_trajectory=smooth_trajectory)
+            fps=self.dataset.fps, smooth_trajectory=smooth_trajectory, mesh=mesh)
 
     # -- post-processing -------------------------------------------------------
     @staticmethod

@@ -3,8 +3,7 @@
 Counterpart of ``hive_tpu/utils.py`` — the host helpers the pipeline uses:
 ``validate_shape``, ``tqdm_imap`` (:100), ``setup_logger``, ``format_bytes``,
 ``Timer``, ``set_key_path`` (:443), ``get_key_path`` (:453) and
-``timed_block`` (:466); and ``not_ported``, the port's refusal of what it
-does not carry yet.
+``timed_block`` (:466).
 """
 
 from __future__ import annotations
@@ -133,13 +132,6 @@ def temp_seed(seed: int):
         yield
     finally:
         np.random.set_state(state)
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error that refuses a stage of ``hive_tpu`` not yet in this port,
-    naming the ROADMAP item that ports it."""
-    return NotImplementedError(f"{what} is not ported to hive_tpu_torch yet "
-                               f"(ROADMAP.md {item}); use hive_tpu for it.")
 
 
 def setup_logger(log_path: Optional[str] = None):

@@ -169,18 +169,30 @@ def test_estimate_depth_on_a_hive_dataset_runs_as_in_hive_tpu(dataset_path, tmp_
 @pytest.mark.parametrize("extra", [["--webxr_run_server"], ["--num_devices", "2"]],
                          ids=["webxr_run_server", "num_devices"])
 def test_unported_options_name_their_roadmap_item(dataset_path, tmp_path, extra):
-    """The multi-device layer is not ported (Queue 1 item 14). The viewer
-    is: ``--webxr_run_server`` runs, then starts the port's viewer (its
-    ``main`` patched here) on the export folder."""
+    """Once refused, both options now run. ``--num_devices 2`` on the CPU
+    splits the volume over two CPU shards and writes the same ``bg.glb`` as
+    ``--num_devices 1``. ``--webxr_run_server`` runs, then starts the
+    port's viewer (its ``main`` patched here) on the export folder."""
+    import shutil
     from unittest import mock
 
     from hive_tpu_torch import viewer
 
-    pipeline = Pipeline.from_command_line(_argv(dataset_path, tmp_path, *extra), device="cpu")
     if extra == ["--num_devices", "2"]:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 14"):
-            pipeline.run()
+        meshes = {}
+        for count in ("1", "2"):
+            path = str(tmp_path / count)
+            shutil.copytree(dataset_path, path)
+            Pipeline.from_command_line(_argv(path, tmp_path / count, "--num_devices", count),
+                                       device="cpu").run(compress=False)
+            meshes[count] = next(iter(load_glb(os.path.join(path, "mesh", "bg.glb"))
+                                      .geometry.values()))
+        assert len(meshes["2"].vertices) > 1000
+        for attribute in ("faces", "vertices", "vertex_colors"):
+            np.testing.assert_array_equal(getattr(meshes["2"], attribute),
+                                          getattr(meshes["1"], attribute))
         return
+    pipeline = Pipeline.from_command_line(_argv(dataset_path, tmp_path, *extra), device="cpu")
     with mock.patch.object(viewer, "main") as viewer_main:
         pipeline.run(compress=False)
     viewer_main.assert_called_once_with(["--webxr_path", pipeline.webxr_options.webxr_path,

@@ -596,6 +596,24 @@ def test_kernel_matches_plain_on_card(kernel):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["classify_pass1", "classify_refine", "band_update"])
+def test_main_path_kernel_on_the_last_card(kernel):
+    """A ``--num_devices`` shard's launch: each main-path kernel on the last
+    visible card while cuda:0 stays current. The wrapper makes its tensors'
+    card current, so the kernel runs there and equals its plain version."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA cards: the launch must be on a card that is not current")
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(0)
+    rng = np.random.default_rng(0)
+    if kernel == "band_update":
+        _check_band_update_on_card(rng, dev)
+    else:
+        _check_classify_on_card(kernel, rng, dev)
+    assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.cuda
 def test_dpt_fp32_on_card_equals_cpu():
     """The full-width DPT-Hybrid in float32 (TF32 off) on the card against
     the CPU's on a (2, 64, 96) batch, with the check weights: the logits

@@ -322,8 +322,24 @@ def test_external_renderer_runs_npm(tmp_path):
 
 
 def test_num_devices_still_refused(tmp_path):
+    """``--num_devices`` is no longer refused: with ``--webxr_run_server``
+    a run whose volume splits over two CPU shards exports, then starts the
+    port's viewer (its ``main`` patched) on the export folder."""
+    from hive_tpu_torch import fusion
+    from hive_tpu_torch.parallel import runtime
     from hive_tpu_torch.pipeline import Pipeline
+    from tests.helpers import make_synthetic_hive_dataset
 
-    pipeline = Pipeline.from_command_line(_argv(tmp_path, "--num_devices", "2"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    make_synthetic_hive_dataset(tmp_path / "ds", num_frames=3, width=64, height=48)
+    pipeline = Pipeline.from_command_line(
+        _argv(tmp_path, "--num_frames", "3", "--key_frame_threshold", "1.0", "--overwrite_ok",
+              "--sdf_max_voxels", "100000", "--num_devices", "2"), device="cpu")
+    with mock.patch.object(viewer, "main") as viewer_main, \
+            mock.patch.object(fusion, "shard_sparse_state",
+                              wraps=fusion.shard_sparse_state) as shard:
         pipeline.run()
+    assert shard.call_args.args[1].size == 2
+    assert runtime.runtime_mesh() is None
+    viewer_main.assert_called_once_with(["--webxr_path", str(tmp_path / "webxr"),
+                                         "--port", "8080"])
+    assert (tmp_path / "webxr" / "ds" / "bg.glb").is_file()
