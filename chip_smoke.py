@@ -268,6 +268,28 @@ Phases (any failure raises and the script exits non-zero):
    timed with its candidate pixels and peak memory; then the viewer's
    server on a free local port: the page and ``bg.glb`` plain and
    gzip-encoded byte for byte, a missing file 404;
+18a. [research]: the research entry points (no kernel of their own; the
+   harness's fusions launch the main path's three). experiments-tum:
+   ``hive_tpu_torch.scripts.experiments.main`` in this process on phase
+   7's TUM folder with the groups pipeline, export, trajectory, compression,
+   mesh_compression and inpainting and the configs gt, cm (PnP pose, no
+   COLMAP) and est (DPT-Hybrid's weights-absent init), ``--num_frames 30``
+   at the CLI's default 320M-voxel budget: each config's pipeline run
+   launches two classifications and one band update per integrated frame,
+   the gt run's ``bg.glb`` is byte-equal to a ``python -m hive_tpu_torch``
+   run with the options the harness passes (``--num_frames 30
+   --frame_step 15``), every JSON and LaTeX file the groups write parses,
+   the ATE of cm and est is finite; each group's and config's wall time and
+   the peak device memory are logged. compare-pair: ``compare_images`` on
+   the card and on the CPU, on a rendered view of the gt export against
+   the photo it replaces (640x480) and on the panoptic nodes' synced
+   1920x1080 frames: SSIM and PSNR within COMPARE_SSIM_PSNR_RTOL, MIFD
+   within EVAL_MIFD_RTOL (its difference logged), LPIPS NaN and labelled
+   without weights; device ms and kernels of each metric. panoptic: a
+   synthetic Kinoptic capture at the dataset's sizes (10 nodes, 1080p JPEGs,
+   512x424 u16 ``depthdata.dat``, drifting sync streams that drop a frame):
+   2 nodes x 5 HD frames load as the colour frame and depth row the sync
+   search must select, the host ms of each pair logged;
 19. the two measurement entry points, each run in this process with the
    launch counts reset just before and read just after:
    ``hive_tpu_torch.micro.gather`` (Q1 tile gathers, Q2 patch gather timed
@@ -300,6 +322,7 @@ It needs one CUDA card and exits non-zero without one, printing no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -4558,6 +4581,420 @@ def check_eval(device, tmp: str, e2e: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# [research]: the experiments harness, the image-pair comparisons and the
+# CMU Panoptic loader.
+# ---------------------------------------------------------------------------
+
+# The harness's groups and configs on phase 7's TUM folder.
+RESEARCH_GROUPS = ("pipeline", "export", "trajectory", "compression", "mesh_compression",
+                   "inpainting")
+RESEARCH_CONFIGS = ("gt", "cm", "est")
+# The harness's methods, one per group, timed in its run.
+RESEARCH_METHODS = ("run_pipeline_experiments", "export_pipeline_results",
+                    "run_trajectory_experiments", "run_compression_experiments",
+                    "run_mesh_compression_experiments", "run_inpainting_experiments")
+# compare_images on the card against the CPU, relative: SSIM and PSNR are
+# float64 on both with the same operations (only the means' summation
+# orders differ).
+COMPARE_SSIM_PSNR_RTOL = 1e-6
+# A synthetic Kinoptic capture at the dataset's sizes: 10 Kinect nodes,
+# 1920x1080 colour JPEGs, 512x424 uint16 depth, HD frames 1-5 loaded from
+# two nodes (each stream drops its first frame, so the frame a search
+# selects is neither the HD index nor the stream row).
+PANOPTIC_NODES, PANOPTIC_LOADED = 10, (3, 8)
+PANOPTIC_HD = range(1, 6)
+PANOPTIC_W, PANOPTIC_H = 1920, 1080
+# The loaded nodes' cameras: 4 cm apart along x, both 2 m from the wall.
+PANOPTIC_BASELINE_M = 0.04
+
+
+def panoptic_camera() -> np.ndarray:
+    """A Kinect v2 colour camera's intrinsics at 1920x1080."""
+    return np.array([[1050.0, 0.0, 959.5], [0.0, 1050.0, 539.5], [0.0, 0.0, 1.0]])
+
+
+def write_panoptic_capture(base: str, size=(PANOPTIC_H, PANOPTIC_W), hd=PANOPTIC_HD,
+                           nodes: int = PANOPTIC_NODES, loaded=PANOPTIC_LOADED,
+                           seed: int = SEED) -> dict:
+    """A CMU Panoptic (Kinoptic) capture named after ``base``'s folder: HD
+    sync table, every node's Kinect colour and depth sync streams (each
+    drops its frame number 1 and drifts by its own skew), dome and Kinect
+    calibrations, each node's colour JPEGs (the ``loaded`` nodes' frames
+    render phase 16's textured wall from cameras PANOPTIC_BASELINE_M apart,
+    the others copy the first loaded node's bytes) and ``depthdata.dat``
+    (the wall at 2 m plus seeded noise, rows mirrored as the sensor stores
+    them). Returns, for each loaded node and HD frame, the colour frame
+    number and depth row the sync search must select, the rendered frames
+    and the depth rows as written."""
+    from hive_tpu_torch.geometric import pose_mat2vec
+    from hive_tpu_torch.image_codecs import encode_jpeg
+    from hive_tpu_torch.utils import tqdm_imap
+
+    rng = np.random.default_rng(seed)
+    name = os.path.basename(base)
+    height, width = size
+    frames = max(hd) + 2
+    period, t0 = 1000.0 / 29.97, 1000.0
+    hd_times = [t0 + period * k for k in range(frames)]
+    with open(os.path.join(base, f"synctables_{name}.json"), "w") as f:
+        json.dump({"vga": {"index": list(range(frames)),
+                           "univ_time": [t0 + 40.0 * k for k in range(frames)]},
+                   "hd": {"index": list(range(frames)), "univ_time": hd_times}}, f)
+    numbers = list(range(2, frames + 1))          # frame number 1 dropped
+    streams = {"color": {}, "depth": {}}
+    for node in range(1, nodes + 1):
+        skew = 0.05 * node
+        streams["color"][f"KINECTNODE{node}"] = {
+            "index": numbers,
+            "univ_time": [t0 + period * (n - 1) + 6.25 + skew * (n - 1) for n in numbers]}
+        streams["depth"][f"KINECTNODE{node}"] = {
+            "index": numbers,
+            "univ_time": [t0 + period * (n - 1) + 3.0 + skew * (n - 1) for n in numbers]}
+    with open(os.path.join(base, f"ksynctables_{name}.json"), "w") as f:
+        json.dump({"kinect": streams}, f)
+
+    K = panoptic_camera()
+    cameras, sensors = [], []
+    for node in range(1, nodes + 1):
+        M_color = np.eye(4)
+        M_color[:3, 3] = rng.normal(0, 0.05, 3)
+        cameras.append({"name": f"50_{node:02d}", "type": "kinect-color",
+                        "resolution": [width, height], "panel": 50, "node": node,
+                        "K": K.tolist(), "distCoef": [0.0] * 5, "R": np.eye(3).tolist(),
+                        "t": [[-100.0 * PANOPTIC_BASELINE_M * node], [0.0], [0.0]]})
+        sensors.append({"K_depth": [[365.0, 0, 255.5], [0, 365.0, 211.5], [0, 0, 1]],
+                        "M_depth": np.eye(4).tolist(), "distCoeffs_depth": [0.0] * 5,
+                        "depth_width": 512, "depth_height": 424, "K_color": K.tolist(),
+                        "M_color": M_color.tolist(), "distCoeffs_color": [0.0] * 5,
+                        "color_width": width, "color_height": height,
+                        "color_time_offset": 0, "depth_time_offset": 0,
+                        "M_world2sensor": np.eye(4).tolist(), "domeCenter": [[0.0]] * 3})
+    with open(os.path.join(base, f"calibration_{name}.json"), "w") as f:
+        json.dump({"calibDataSource": "synthetic", "cameras": cameras}, f)
+    with open(os.path.join(base, f"kcalibration_{name}.json"), "w") as f:
+        json.dump({"calibDataSource": "synthetic", "panopticCalibDataSource": "synthetic",
+                   "M_world2vga": np.eye(4).tolist(), "sensors": sensors}, f)
+
+    texture = wall_texture(seed)
+    views = [(node, n) for node in loaded for n in numbers]
+
+    def render(view):
+        node, number = view
+        # A camera at x = baseline x node, moving 2 mm a frame.
+        pose = np.eye(4)
+        pose[0, 3] = -(PANOPTIC_BASELINE_M * node + 0.002 * number)
+        rgb, _ = render_wall(texture, pose_mat2vec(pose), K, width, height)
+        return rgb, encode_jpeg(rgb, quality=90)
+
+    rendered = dict(zip(views, tqdm_imap(render, views, show_progress=False)))
+    depth_rows = (2000 + rng.integers(-30, 30, (len(numbers), 424, 512))).astype("<u2")
+    for node in range(1, nodes + 1):
+        images = os.path.join(base, "kinectImgs", f"50_{node:02d}")
+        depth = os.path.join(base, "kinect_shared_depth", f"KINECTNODE{node}")
+        os.makedirs(images)
+        os.makedirs(depth)
+        source = node if node in loaded else loaded[0]
+        for number in numbers:
+            with open(os.path.join(images, f"50_{node:02d}_{number:08d}.jpg"), "wb") as f:
+                f.write(rendered[source, number][1])
+        with open(os.path.join(depth, "depthdata.dat"), "wb") as f:
+            f.write(depth_rows[:, :, ::-1].tobytes())
+    return {"selected": {(node, k): (k + 1, k - 1) for node in loaded for k in hd},
+            "rendered": {view: rgb for view, (rgb, _) in rendered.items()},
+            "depth_rows": depth_rows}
+
+
+def check_panoptic(tmp: str) -> dict:
+    """The Kinoptic capture's synced pairs for the loaded nodes and HD
+    frames: the colour frame and depth row the sync search must select, the
+    depth in metres exactly, the colour within JPEG loss of the render."""
+    from hive_tpu_torch.dataset import CMUPanopticDataset
+    from hive_tpu_torch.io import load_image
+
+    base = os.path.join(tmp, "kinoptic_synthetic")
+    os.makedirs(base)
+    start = time.perf_counter()
+    written = write_panoptic_capture(base)
+    write_s = time.perf_counter() - start
+    dataset = CMUPanopticDataset(base)
+    pairs, host_ms = {}, []
+    for (node, k), (number, row) in written["selected"].items():
+        start = time.perf_counter()
+        image, depth = dataset.get_synced_frame_data(frame_index=k, kinect_node=node)
+        host_ms.append(1e3 * (time.perf_counter() - start))
+        if not np.array_equal(image, load_image(dataset.get_image_path(node, number))):
+            raise AssertionError(f"node {node}, HD frame {k}: not colour frame {number}")
+        # Closest to its own render among the node's frames (2 mm apart).
+        losses = {n: float(np.abs(image.astype(np.int16) - rgb).mean())
+                  for (v, n), rgb in written["rendered"].items() if v == node}
+        if image.shape != (PANOPTIC_H, PANOPTIC_W, 3) or min(losses, key=losses.get) != number:
+            raise AssertionError(f"node {node}, HD frame {k}: {image.shape}, mean |difference| "
+                                 f"to each frame's render {losses}, want frame {number}'s")
+        want = written["depth_rows"][row] * CMUPanopticDataset.depth_to_meters
+        if depth.dtype != np.float64 or not np.array_equal(depth, want):
+            raise AssertionError(f"node {node}, HD frame {k}: not depth row {row}")
+        pairs[node, k] = image
+    log(f"[research] panoptic: a {PANOPTIC_NODES}-node Kinoptic capture "
+        f"({PANOPTIC_W}x{PANOPTIC_H} JPEGs, 512x424 u16 depth) written in {write_s:.1f} s; "
+        f"{len(pairs)} synced pairs of nodes {list(PANOPTIC_LOADED)} x HD frames "
+        f"{list(PANOPTIC_HD)} are the frames the sync search must select (colour frame k + 1, "
+        f"depth row k - 1); host ms a pair (the {PANOPTIC_W}x{PANOPTIC_H} JPEG decode, native, "
+        f"and the depth seek): "
+        f"{np.round(host_ms, 2).tolist()}, median {np.median(host_ms):.2f}")
+    return {"pairs": pairs, "write_s": write_s, "host_ms": host_ms}
+
+
+def compare_on_card_and_cpu(name: str, image_a, image_b, device) -> dict:
+    """compare_images on the card and on the CPU: SSIM and PSNR within
+    COMPARE_SSIM_PSNR_RTOL, MIFD equal (NaN on both, or within
+    EVAL_MIFD_RTOL, the [eval] phase's card-vs-CPU bound, logged with its
+    difference), LPIPS NaN and labelled without weights; each metric's
+    device ms and kernels."""
+    from hive_tpu_torch import metrics
+    from hive_tpu_torch.scripts.compare_image_pair import compare_images
+
+    start = time.perf_counter()
+    card = compare_images(image_a, image_b, device=device)
+    card_s = time.perf_counter() - start
+    start = time.perf_counter()
+    cpu = compare_images(image_a, image_b, device="cpu")
+    cpu_s = time.perf_counter() - start
+    for metric in ("ssim", "psnr"):
+        if not abs(card[metric] - cpu[metric]) <= COMPARE_SSIM_PSNR_RTOL * abs(cpu[metric]):
+            raise AssertionError(f"{name}: {metric} on the card {card[metric]!r}, on the CPU "
+                                 f"{cpu[metric]!r}")
+    both_nan = np.isnan(card["mifd"]) and np.isnan(cpu["mifd"])
+    mifd_err = 0.0 if both_nan else abs(card["mifd"] - cpu["mifd"]) / abs(cpu["mifd"])
+    if not mifd_err <= EVAL_MIFD_RTOL:
+        raise AssertionError(f"{name}: MIFD on the card {card['mifd']!r}, on the CPU "
+                             f"{cpu['mifd']!r}")
+    notes = metrics.metric_skip_notes({"lpips": [card["lpips"]]}, device)
+    if not (np.isnan(card["lpips"]) and np.isnan(cpu["lpips"])
+            and notes == {"lpips": "skipped: weights absent"}):
+        raise AssertionError(f"{name}: LPIPS {card['lpips']} / {cpu['lpips']}, notes {notes}")
+    timed = {"ssim_psnr": device_profile(
+        lambda: metrics.ssim_psnr(image_a, image_b, device=device), reps=3, warmup=1),
+             "mifd": device_profile(lambda: metrics.mifd(image_a, image_b, device=device),
+                                    reps=1, warmup=0)}
+    log(f"[research] compare-pair {name} ({image_a.shape[1]}x{image_a.shape[0]}): SSIM "
+        f"{card['ssim']!r}, PSNR {card['psnr']!r} dB, MIFD {card['mifd']!r} px on the card "
+        f"({card_s:.2f} s); the CPU's ({cpu_s:.2f} s) SSIM {cpu['ssim']!r}, PSNR "
+        f"{cpu['psnr']!r}, MIFD {cpu['mifd']!r} ({mifd_err:.3e} relative); "
+        f"LPIPS NaN, {notes['lpips']}; device ms / kernels: "
+        + ", ".join(f"{k} {ms:.4f} / {ops:.0f}" for k, (ms, ops) in timed.items()))
+    return dict(card=card, cpu=cpu, mifd_err=mifd_err, card_s=card_s, cpu_s=cpu_s,
+                timed={k: {"ms": ms, "kernels": ops} for k, (ms, ops) in timed.items()})
+
+
+def read_json_and_tex(out: str) -> dict:
+    """Every JSON and LaTeX file the harness wrote, parsed: the JSON by
+    ``json.load``, each table as LaTeX's tabular (begin, header, rule, rows,
+    end, caption). Returns the parsed JSON by path and the tables' rows."""
+    parsed, tables = {}, {}
+    for root, _, files in os.walk(out):
+        for name in files:
+            path = os.path.join(root, name)
+            rel = os.path.relpath(path, out)
+            if name.endswith(".json"):
+                with open(path) as f:
+                    parsed[rel] = json.load(f)
+            elif name.endswith(".tex"):
+                with open(path) as f:
+                    lines = f.read().split("\n")
+                spec = lines[0].removeprefix(r"\begin{tabular}{").removesuffix("}")
+                if not (spec[:1] == "l" and set(spec[1:]) <= {"r"} and lines[2] == r"\hline"
+                        and lines[-2] == r"\end{tabular}" and lines[-1].startswith("% ")
+                        and all(line.endswith(r" \\") and line.count(" & ") == len(spec) - 1
+                                for line in lines[1:2] + lines[3:-2])):
+                    raise AssertionError(f"{rel} is no tabular:\n" + "\n".join(lines))
+                tables[rel] = [line[:-3].split(" & ") for line in lines[3:-2]]
+    return {"json": parsed, "tables": tables}
+
+
+def run_research_experiments(device, launches, tmp: str) -> dict:
+    """experiments-tum: ``hive_tpu_torch.scripts.experiments.main`` in this
+    process on phase 7's TUM folder (``<tmp>/tum``) with every group but the
+    render-vs-photo ones and the three configs, at the CLI's default voxel
+    budget, DPT and LPIPS without weights. Each config's pipeline run and
+    the whole harness launch two classifications and one band update per
+    integrated frame; the gt run's ``bg.glb`` equals a CLI run's with the
+    options the harness passes; every JSON and LaTeX file parses; the
+    estimated trajectories' ATE is finite. Logs each group's and config's
+    wall time and the peak device memory."""
+    from hive_tpu_torch import metrics
+    from hive_tpu_torch.io import HiveDataset
+    from hive_tpu_torch.ops.tsdf_sparse import SparseTSDFVolume
+    from hive_tpu_torch.pipeline import Pipeline
+    from hive_tpu_torch.scripts import experiments
+
+    out = os.path.join(tmp, "research")
+    integrated = [0]
+    runs, groups = {}, {}
+    integrate, pipeline_run = SparseTSDFVolume.integrate_frames, Pipeline.run
+
+    def counting_integrate(self, colors, *args, **kwargs):
+        integrated[0] += len(colors)
+        return integrate(self, colors, *args, **kwargs)
+
+    def measured_run(self, *args, **kwargs):
+        config = os.path.basename(os.path.dirname(self.storage_options.output_path))
+        reset_launch_counts()
+        before = integrated[0]
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        result = pipeline_run(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        runs[config] = dict(wall_s=time.perf_counter() - start, launches=main_launch_counts(),
+                            frames=integrated[0] - before)
+        return result
+
+    def timed(method):
+        original = getattr(experiments.Experiments, method)
+
+        def call(self, *args, **kwargs):
+            start = time.perf_counter()
+            result = original(self, *args, **kwargs)
+            groups[method] = time.perf_counter() - start
+            return result
+        return call
+
+    argv = ["--data_path", tmp, "--output_path", out, "--dataset_names", "tum",
+            "--num_frames", str(TUM_FRAMES), "--experiments", *RESEARCH_GROUPS]
+    patches = [mock.patch.object(SparseTSDFVolume, "integrate_frames", counting_integrate),
+               mock.patch.object(Pipeline, "run", measured_run)]
+    patches += [mock.patch.object(experiments.Experiments, m, timed(m)) for m in RESEARCH_METHODS]
+    weights = os.path.join(tmp, "research_weights")
+    os.makedirs(weights)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    start = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        stack.enter_context(mock.patch.dict(os.environ, {"WEIGHTS_PATH": weights}))
+        stack.enter_context(mock.patch.dict(metrics._lpips_models, clear=True))
+        experiments.main(argv, device=device)
+    wall = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated(device)
+
+    if set(runs) != set(RESEARCH_CONFIGS):
+        raise AssertionError(f"the harness ran the pipeline for {sorted(runs)}; see "
+                             f"{out}/experiments.log")
+    for config, run in runs.items():
+        check_launches(f"experiments {config}", run["launches"], run["frames"])
+    found = read_json_and_tex(out)
+    profiling = found["json"]["pipeline_profiling.json"]["tum"]
+    if list(profiling) != list(RESEARCH_CONFIGS):
+        raise AssertionError(f"pipeline_profiling.json holds {list(profiling)}")
+    expected = {"pipeline_profiling.json", "trajectory_results.json",
+                "mesh_compression_results.json", "inpainting_results.json",
+                "tum/trajectory/trajectory_metrics.json", "tum/inpainting/inpainting_metrics.json",
+                *(f"tum/{c}/dataset/profiling.json" for c in RESEARCH_CONFIGS)}
+    missing = expected - set(found["json"])
+    tables = found["tables"]
+    if missing or set(tables) != {"pipeline_results.tex", "compression_results.tex"}:
+        raise AssertionError(f"missing {sorted(missing)}; tables {sorted(tables)}")
+    if [row[0] for row in tables["pipeline_results.tex"]] != [f"tum/{c}" for c in
+                                                              RESEARCH_CONFIGS]:
+        raise AssertionError(f"pipeline_results.tex rows {tables['pipeline_results.tex']}")
+    matrix = found["json"]["mesh_compression_results.json"]
+    for config in RESEARCH_CONFIGS:
+        entry = matrix.get(f"tum/{config}", {})
+        if entry.get("bg", {}).get("method") not in ("quantization", "draco") or not np.isfinite(
+                entry.get("render_comparison", {}).get("ssim", np.nan)):
+            raise AssertionError(f"mesh compression of {config}: {entry}")
+
+    gt = HiveDataset(os.path.join(out, "tum", "gt", "dataset")).camera_trajectory
+    ate = {c: ate_m(gt.values, HiveDataset(os.path.join(out, "tum", c, "dataset")
+                                           ).camera_trajectory.values) for c in ("cm", "est")}
+    if not all(np.isfinite(v) for v in ate.values()):
+        raise AssertionError(f"ATE of the estimated configs {ate}")
+
+    # The gt run against the CLI with the options the harness passes.
+    cli = os.path.join(tmp, "research_cli")
+    cli_argv = ["hive_tpu_torch", "--dataset_path", os.path.join(tmp, "tum"),
+                "--output_path", cli, "--num_frames", str(TUM_FRAMES), "--frame_step", "15",
+                "--webxr_path", os.path.join(tmp, "research_cli_webxr"),
+                "--log_file", os.path.join(tmp, "research_cli.log")]
+    reset_launch_counts()
+    before = integrated[0]
+    with mock.patch.object(sys, "argv", cli_argv), \
+            mock.patch.object(SparseTSDFVolume, "integrate_frames", counting_integrate):
+        runpy.run_module("hive_tpu_torch", run_name="__main__", alter_sys=True)
+    launches["research_cli"] = main_launch_counts()
+    check_launches("the CLI run beside the harness", launches["research_cli"],
+                   integrated[0] - before)
+    with open(os.path.join(out, "tum", "gt", "dataset", "mesh", "bg.glb"), "rb") as f:
+        harness_glb = f.read()
+    with open(os.path.join(cli, "mesh", "bg.glb"), "rb") as f:
+        cli_glb = f.read()
+    if harness_glb != cli_glb:
+        raise AssertionError(f"the harness's gt bg.glb ({len(harness_glb)} B) differs from the "
+                             f"CLI's ({len(cli_glb)} B)")
+    launches["research"] = {name: sum(run["launches"][name] for run in runs.values())
+                            for name in runs["gt"]["launches"]}
+    trajectory = found["json"]["trajectory_results.json"].get("tum", {})
+    inpainting = found["json"]["inpainting_results.json"].get("tum", {})
+    log(f"[research] experiments-tum: main({' '.join(argv[4:])}) in {wall:.1f} s, peak device "
+        f"memory {peak} B; groups (s): "
+        + ", ".join(f"{m.removeprefix('run_')} {s:.2f}" for m, s in groups.items())
+        + "; configs: " + "; ".join(
+            f"{c} {r['wall_s']:.2f} s, {r['frames']} integrated frames, launches "
+            f"{r['launches']}, {profiling[c]['elapsed_time']['per_frame']:.4f} s/frame, peak "
+            f"{profiling[c]['peak_vram_usage']['allocated']} B" for c, r in runs.items()))
+    log(f"[research] experiments-tum: the gt bg.glb ({len(harness_glb)} B) equals the CLI's "
+        f"(--num_frames {TUM_FRAMES} --frame_step 15; launches {launches['research_cli']}); "
+        f"ATE (m) cm {ate['cm']!r}, est {ate['est']!r}; the trajectory group's pose optimiser "
+        f"on gt {json.dumps(trajectory)}; inpainting means {json.dumps(inpainting)}; mesh "
+        f"compression " + json.dumps({k: {p: v[p].get("compression_ratio") for p in ("fg", "bg")
+                                          if p in v} for k, v in matrix.items() if k != "mean"})
+        + "; files: " + ", ".join(sorted(found["json"]) + sorted(tables)))
+    return dict(wall_s=wall, peak_bytes=peak, groups=groups, configs=runs, ate_m=ate,
+                trajectory=trajectory, inpainting=inpainting, glb_bytes=len(harness_glb),
+                files=sorted(found["json"]) + sorted(tables))
+
+
+def check_research(device, launches, tmp: str) -> dict:
+    """[research]: experiments-tum, compare-pair (a rendered view of the gt
+    export against the photo it replaces at 640x480; the panoptic nodes'
+    synced 1080p frames) and panoptic."""
+    from hive_tpu_torch import metrics
+    from hive_tpu_torch.io import HiveDataset
+    from hive_tpu_torch.meshing.gltf import load_glb
+    from hive_tpu_torch.meshing.render import render_scene_counted
+
+    phase_start = time.perf_counter()
+    harness = run_research_experiments(device, launches, tmp)
+
+    gt = os.path.join(tmp, "research", "tum", "gt", "dataset")
+    dataset = HiveDataset(gt)
+    background = load_glb(os.path.join(gt, "mesh", "bg.glb"))
+    foreground = load_glb(os.path.join(gt, "mesh", "fg.glb"))
+    offset = export_offset(dataset)
+    frame = 15
+    R, t = export_pose(dataset.camera_trajectory.to_homogenous_transforms()[frame], offset)
+    photo = dataset.rgb_dataset[frame]
+    view, _, _ = render_scene_counted(view_scene(background, foreground, frame),
+                                      dataset.camera_matrix, R, t, photo.shape[1],
+                                      photo.shape[0], device=device)
+    weights = os.path.join(tmp, "research_weights")
+    with mock.patch.dict(os.environ, {"WEIGHTS_PATH": weights}), \
+            mock.patch.dict(metrics._lpips_models, clear=True):
+        vga = compare_on_card_and_cpu("gt view 15 vs its photo", photo, view, device)
+        panoptic = check_panoptic(tmp)
+        hd = max(PANOPTIC_HD) - 1
+        pair = [panoptic["pairs"][node, hd] for node in PANOPTIC_LOADED]
+        full_hd = compare_on_card_and_cpu(
+            f"panoptic nodes {list(PANOPTIC_LOADED)} at HD frame {hd}", *pair, device)
+    if not np.isfinite(full_hd["card"]["mifd"]):
+        raise AssertionError(f"MIFD between the panoptic nodes' frames: {full_hd['card']}")
+    total = time.perf_counter() - phase_start
+    log(f"[research] the phase took {total:.1f} s")
+    return dict(experiments=harness, compare_vga=vga, compare_1080p=full_hd,
+                panoptic={k: v for k, v in panoptic.items() if k != "pairs"}, phase_s=total)
+
+
+# ---------------------------------------------------------------------------
 # The measurement entry points' kernels.
 # ---------------------------------------------------------------------------
 
@@ -4811,6 +5248,7 @@ def main() -> int:
                                           tmp)
         video = check_video(device, launches, tmp)
         evaluation = check_eval(device, tmp, e2e)
+        research = check_research(device, launches, tmp)
     entry_points = run_entry_points(device, launches)
 
     # Times, errors and bounds are the main path's own (its largest call);
@@ -4834,6 +5272,7 @@ def main() -> int:
             launches_fts=launches["fts"][name], launches_colmap_pose=launches["colmap_pose"][name],
             launches_pnp_pose=launches["pnp_pose"][name],
             launches_bench=launches["bench"][name], launches_shard=launches["shard"][name],
+            launches_research=launches["research"][name],
             exact=True,
             calls_checked=result["calls_checked"], max_abs_err=result["max_abs_err"],
             ms=result["ms"], kernel_ms=result["ms"], plain_ms=result["plain_ms"],
@@ -4873,6 +5312,7 @@ def main() -> int:
     log("[features] summary " + json.dumps({"sift_phase": features, "pnp_pose_run": pnp_run}))
     log("[video] summary " + json.dumps(video))
     log("[eval] summary " + json.dumps(evaluation))
+    log("[research] summary " + json.dumps(research))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,6 +13,12 @@ sparse volume's block rows, DPT batches and pose correspondences over a
 mesh of CUDA devices (``--num_devices``; ``get_device_mesh``,
 ``shard_batch``, ``shard_volume``, ``replicate``, ``shard_sparse_state``,
 ``integrate_frames_sharded``, ``get_mesh_sharded``).
+
+The research entry points live under ``scripts``: ``scripts.experiments``
+(the gt / cm / est experiment matrix and its LaTeX tables),
+``scripts.compare_image_pair`` and ``scripts.compare_image_pairs`` (SSIM,
+PSNR, LPIPS and MIFD of image pairs and folders); ``dataset`` is the CMU
+Panoptic (Kinoptic) loader.
 """
 
 from __future__ import annotations

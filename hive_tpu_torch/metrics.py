@@ -18,7 +18,7 @@ is not used here.
 from __future__ import annotations
 
 import logging
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -102,6 +102,60 @@ def ssim(image_a: np.ndarray, image_b: np.ndarray, data_range: float = 255.0) ->
         / ((mu_a2 + mu_b2 + c1) * (sigma_a2 + sigma_b2 + c2))
 
     return float(ssim_map.mean())
+
+
+def ssim_psnr(image_a: np.ndarray, image_b: np.ndarray, data_range: float = 255.0,
+              device=None) -> Tuple[float, float]:
+    """:func:`ssim` and :func:`psnr` of one pair, computed on ``device``
+    (default ``cuda:0``) in float64 with the host functions' operations in
+    their order: the same separable correlation over the same symmetric
+    pad, so only the final means' summation order differs from the host's.
+    For integer images the squared error is summed exactly in int64, which
+    makes the PSNR the host's to the bit.
+
+    :return: (SSIM, PSNR); PSNR is infinite for identical images.
+    """
+    device = get_device(device)
+    a = torch.as_tensor(np.ascontiguousarray(image_a), device=device)
+    b = torch.as_tensor(np.ascontiguousarray(image_b), device=device)
+    if a.dim() == 2:
+        a, b = a[..., None], b[..., None]
+
+    if a.is_floating_point() or b.is_floating_point():
+        mse = float(torch.mean((a.double() - b.double()) ** 2))
+    else:
+        diff = a.long() - b.long()
+        mse = int(torch.sum(diff * diff)) / diff.numel()
+    psnr_value = float("inf") if mse == 0 else float(10.0 * np.log10(data_range ** 2 / mse))
+
+    a, b = a.double(), b.double()
+    height, width, channels = a.shape
+    kernel_1d = _gaussian_kernel_1d().tolist()
+    pad = len(kernel_1d) // 2
+    rows_index = _symmetric_index(height, pad, device)
+    cols_index = _symmetric_index(width, pad, device)
+    c1 = (0.01 * data_range) ** 2
+    c2 = (0.03 * data_range) ** 2
+
+    # The five filtered quantities of every channel as (5 * C, H, W) planes.
+    planes = torch.stack([a, b, a * a, b * b, a * b]).permute(0, 3, 1, 2).reshape(
+        5 * channels, height, width)
+    padded = planes[:, rows_index][:, :, cols_index]
+    rows = sum(k * padded[:, :, j:j + width] for j, k in enumerate(kernel_1d))
+    filtered = sum(k * rows[:, i:i + height] for i, k in enumerate(kernel_1d))
+    mu_a, mu_b, filt_aa, filt_bb, filt_ab = filtered.reshape(5, channels, height, width)
+
+    mu_a2 = mu_a ** 2
+    mu_b2 = mu_b ** 2
+    mu_ab = mu_a * mu_b
+    sigma_a2 = filt_aa - mu_a2
+    sigma_b2 = filt_bb - mu_b2
+    sigma_ab = filt_ab - mu_ab
+
+    ssim_map = ((2 * mu_ab + c1) * (2 * sigma_ab + c2)) \
+        / ((mu_a2 + mu_b2 + c1) * (sigma_a2 + sigma_b2 + c2))
+
+    return float(ssim_map.mean()), psnr_value
 
 
 def _symmetric_index(length: int, pad: int, device) -> torch.Tensor:

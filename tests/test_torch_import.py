@@ -95,6 +95,78 @@ def test_blocked_import_check_covers_the_video_modules():
         assert f"hive_tpu_torch.{name}" in modules, name
 
 
+def test_blocked_import_check_covers_the_research_entry_points():
+    """The JAX-blocked import above walks the research entry points and the
+    CMU Panoptic loader too: none may need cv2, Pillow or imageio."""
+    modules = set(_port_modules())
+    for name in ("dataset", "scripts", "scripts.compare_image_pair",
+                 "scripts.compare_image_pairs", "scripts.experiments"):
+        assert f"hive_tpu_torch.{name}" in modules, name
+
+
+def test_research_entry_points_with_missing_packages_blocked(tmp_path):
+    """With JAX, hive_tpu, matplotlib and the packages the card's machine
+    lacks blocked: both comparison CLIs score PNG / JPEG files the port
+    wrote, the experiments CLI exports its tables from cached profiling, a
+    trajectory comparison writes its metrics (its plot skipped with a
+    warning), and the CMU Panoptic loader reads a synced pair."""
+    from chip_smoke import write_panoptic_capture
+    from hive_tpu_torch.image_codecs import write_image
+
+    rng = np.random.default_rng(6)
+    for folder, shift in (("a", 0), ("b", 3)):
+        os.makedirs(tmp_path / folder)
+        base = rng.integers(0, 256, (48, 64, 3)).astype(np.uint8) if shift == 0 else base
+        write_image(str(tmp_path / folder / "0.png"), np.roll(base, shift, axis=1))
+        write_image(str(tmp_path / folder / "1.jpg"), np.roll(base, shift, axis=0))
+    out = tmp_path / "experiments"
+    os.makedirs(out)
+    with open(out / "pipeline_profiling.json", "w") as fh:
+        fh.write('{"tum": {"gt": {"elapsed_time": {"total": 3.5, "per_frame": 0.1}, '
+                 '"mesh_compression": {"background": {"uncompressed_file_size": 2e6, '
+                 '"compressed_file_size": 1e6, "compression_ratio": 2.0, '
+                 '"data_saving": 0.5}}}}}')
+    capture = tmp_path / "kinoptic"
+    os.makedirs(capture)
+    write_panoptic_capture(str(capture), size=(60, 80), hd=range(1, 3), nodes=2, loaded=(1, 2))
+    blocked = ("jax", "hive_tpu", "matplotlib") + MISSING_ON_CARD_MACHINE
+    code = ("import sys\n"
+            f"for name in {blocked!r}:\n"
+            "    sys.modules[name] = None\n"
+            "import numpy as np\n"
+            "from hive_tpu_torch.dataset import CMUPanopticDataset\n"
+            "from hive_tpu_torch.geometric import Trajectory\n"
+            "from hive_tpu_torch.scripts import compare_image_pair, compare_image_pairs, "
+            "experiments\n"
+            f"a, b = {str(tmp_path / 'a')!r}, {str(tmp_path / 'b')!r}\n"
+            "compare_image_pair.main([a + '/0.png', b + '/0.png', '--json'], device='cpu')\n"
+            "compare_image_pairs.main([a, b, '--latex'], device='cpu')\n"
+            f"experiments.main(['--data_path', {str(tmp_path)!r}, '--output_path', "
+            f"{str(out)!r}, '--dataset_names', 'tum', '--experiments', 'export', "
+            "'compression'], device='cpu')\n"
+            "values = np.zeros((5, 7)); values[:, 3] = 1; values[:, 4] = np.arange(5)\n"
+            "moved = values.copy(); moved[:, 5] = 0.01 * np.arange(5) ** 2\n"
+            "metrics = experiments.run_trajectory_comparisons(None, Trajectory(moved), "
+            f"Trajectory(values), {str(tmp_path / 'trajectory')!r}, device='cpu')\n"
+            "assert metrics['ate_rmse'] > 0, metrics\n"
+            f"image, depth = CMUPanopticDataset({str(capture)!r}).get_synced_frame_data(2, 1)\n"
+            "assert image.shape == (60, 80, 3) and depth.shape == (424, 512), image.shape\n"
+            "print('ok')\n")
+    env = dict(os.environ, WEIGHTS_PATH=str(tmp_path / "no_weights"))
+    done = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300, env=env)
+    assert done.returncode == 0, done.stderr[-4000:]
+    lines = done.stdout.strip().splitlines()
+    assert lines[-1] == "ok"
+    assert '"lpips": null' in lines[0] and '"skipped": {"lpips": "skipped: weights absent"}' in \
+        lines[0]
+    assert r"\begin{tabular}{lrrrr}" in lines and r"\begin{tabular}{lrrrrr}" in lines
+    assert sorted(os.listdir(out)) == ["compression_results.tex", "experiments.log",
+                                       "pipeline_profiling.json", "pipeline_results.tex"]
+    assert os.listdir(tmp_path / "trajectory") == ["trajectory_metrics.json"]
+    assert "Trajectory plot skipped" in done.stderr + done.stdout
+
+
 def test_sources_import_nothing_of_jax_or_hive_tpu():
     """Nor Pillow, OpenCV, imageio, transformers, timm or torchvision, which
     the card's machine lacks."""
@@ -780,6 +852,32 @@ def test_render_and_batch_metrics_on_card_equal_cpu():
     cpu = metrics.batch_ssim_psnr(a, b, device="cpu")
     np.testing.assert_allclose(card[0], cpu[0], atol=1e-5, rtol=0)
     np.testing.assert_allclose(card[1], cpu[1], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_compare_images_on_card_equals_cpu(monkeypatch, tmp_path):
+    """``compare_images`` on the card against the CPU on a textured pair:
+    SSIM and PSNR (float64 on both, the same operations) within 1e-9
+    relative, MIFD within 1% (phase 15's SIFT differences), LPIPS NaN on
+    both without weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: compares the card's metrics with the CPU's")
+    from hive_tpu_torch import metrics
+    from hive_tpu_torch.scripts.compare_image_pair import compare_images
+
+    monkeypatch.setenv("WEIGHTS_PATH", str(tmp_path))
+    monkeypatch.setattr(metrics, "_lpips_models", {})
+    rng = np.random.default_rng(31)
+    coarse = rng.uniform(0, 255, (25, 33))
+    a = np.repeat(np.repeat(coarse, 8, axis=0), 8, axis=1)[:192, :256]
+    b = np.roll(a, (2, -3), axis=(0, 1))
+    a, b = (np.clip(np.stack([x, 255 - x, x / 2], -1) + rng.normal(0, 3, (192, 256, 3)), 0,
+                    255).astype(np.uint8) for x in (a, b))
+    card, cpu = (compare_images(a, b, device=device) for device in ("cuda", "cpu"))
+    for metric in ("ssim", "psnr"):
+        assert abs(card[metric] - cpu[metric]) <= 1e-9 * abs(cpu[metric]), metric
+    assert np.isfinite(cpu["mifd"]) and abs(card["mifd"] - cpu["mifd"]) <= 0.01 * cpu["mifd"]
+    assert np.isnan(card["lpips"]) and np.isnan(cpu["lpips"])
 
 
 @pytest.mark.cuda
