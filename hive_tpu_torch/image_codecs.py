@@ -18,7 +18,10 @@ and decodes the frames it reads:
   JPEGs with one or three components, interleaved or not, any sampling
   factors of 1 or 2, restart intervals; libjpeg's integer "islow" IDCT,
   fancy chroma upsampling and fixed-point YCbCr -> RGB, so the pixels are
-  those Pillow (libjpeg-turbo) decodes. Progressive scans (DC and AC, first
+  those Pillow (libjpeg-turbo) decodes. :func:`decode_jpeg_planes` stops
+  before the upsampling and takes either IDCT: islow, or FFmpeg's "simple"
+  IDCT, whose planes are those FFmpeg's MJPEG decoder (so cv2's
+  ``VideoCapture``) gives. Progressive scans (DC and AC, first
   and refinement, with end-of-band runs) fill the quantised coefficients of
   every block, which then take the baseline path's IDCT. Arithmetic-coded,
   lossless, hierarchical and four-component files are refused.
@@ -36,6 +39,7 @@ from __future__ import annotations
 
 import struct
 import zlib
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -737,16 +741,74 @@ _RANGE_LIMIT = np.concatenate([np.arange(128, 256), np.full(384, 255), np.zeros(
                                np.arange(0, 128)]).astype(np.uint8)
 
 
-def _idct_planes(coeffs: np.ndarray, table: np.ndarray) -> np.ndarray:
+def _wrap(x: np.ndarray, bits: int) -> np.ndarray:
+    """``x`` as a signed ``bits``-bit C integer stores it (two's complement
+    wrap)."""
+    half = 1 << (bits - 1)
+    return ((x + half) & ((1 << bits) - 1)) - half
+
+
+# FFmpeg's "simple" IDCT (libavcodec/simple_idct_template.c, 8-bit): the
+# cosines x sqrt(2) x 2^14, and the shifts of its row and column passes.
+_W1, _W2, _W3, _W4, _W5, _W6, _W7 = 22725, 21407, 19266, 16383, 12873, 8867, 4520
+_ROW_SHIFT, _COL_SHIFT = 11, 20
+
+
+def _simple_pass(c: List[np.ndarray], a0: np.ndarray) -> List[np.ndarray]:
+    """One 8-point pass of FFmpeg's simple IDCT over coefficients ``c[0..7]``
+    with the even part's rounding already in ``a0``; the eight sums before
+    the shift, in output order."""
+    a1, a2, a3 = a0 + _W6 * c[2], a0 - _W6 * c[2], a0 - _W2 * c[2]
+    a0 = a0 + _W2 * c[2]
+    b0 = _W1 * c[1] + _W3 * c[3] + _W5 * c[5] + _W7 * c[7]
+    b1 = _W3 * c[1] - _W7 * c[3] - _W1 * c[5] - _W5 * c[7]
+    b2 = _W5 * c[1] - _W1 * c[3] + _W7 * c[5] + _W3 * c[7]
+    b3 = _W7 * c[1] - _W5 * c[3] + _W3 * c[5] - _W1 * c[7]
+    a0 = a0 + _W4 * c[4] + _W6 * c[6]
+    a1 = a1 - _W4 * c[4] - _W2 * c[6]
+    a2 = a2 - _W4 * c[4] + _W2 * c[6]
+    a3 = a3 + _W4 * c[4] - _W6 * c[6]
+    return [_wrap(x, 32) for x in (a0 + b0, a1 + b1, a2 + b2, a3 + b3, a3 - b3, a2 - b2,
+                                   a1 - b1, a0 - b0)]
+
+
+def _simple_idct(blocks: np.ndarray) -> np.ndarray:
+    """FFmpeg's ``ff_simple_idct_put_int16_8bit`` of (..., 8, 8) int16-valued
+    coefficients (natural order, the level shift in the DC): the row pass
+    with its DC-only shortcut, stored to int16, then the column pass,
+    clipped to [0, 255]."""
+    c = [blocks[..., k] for k in range(8)]
+    rows = np.stack([x >> _ROW_SHIFT for x in _simple_pass(c, _W4 * c[0] + (1 << (_ROW_SHIFT - 1)))],
+                    axis=-1)
+    dc_only = ~np.any(blocks[..., 1:], axis=-1)
+    rows = _wrap(np.where(dc_only[..., None], (c[0] * 8)[..., None], rows), 16)
+    c = [rows[..., k, :] for k in range(8)]
+    cols = _simple_pass(c, _W4 * (c[0] + (1 << (_COL_SHIFT - 1)) // _W4))
+    return np.clip(np.stack([x >> _COL_SHIFT for x in cols], axis=-2), 0, 255).astype(np.uint8)
+
+
+# The IDCTs a decode can take: libjpeg's islow (Pillow's pixels) and FFmpeg's
+# simple IDCT (its MJPEG decoder's, so cv2.VideoCapture's pixels).
+IDCTS = ("islow", "simple")
+
+
+def _idct_planes(coeffs: np.ndarray, table: np.ndarray, idct: str = "islow") -> np.ndarray:
     """Dequantise and inverse-DCT (rows, cols, 64) zigzag blocks into one
     (8 rows, 8 cols) uint8 plane with libjpeg's islow IDCT, the one Pillow
-    decodes with."""
+    decodes with, or FFmpeg's simple IDCT (``idct="simple"``)."""
     natural = np.zeros(coeffs.shape, np.int64)
     natural[..., ZIGZAG] = coeffs * table[ZIGZAG]
     blocks = natural.reshape(*coeffs.shape[:2], 8, 8)
-    work = _descale(_islow_pass(blocks, axis=-2), _CONST_BITS - _PASS1_BITS)
-    pixels = _RANGE_LIMIT[_descale(_islow_pass(work, axis=-1),
-                                   _CONST_BITS + _PASS1_BITS + 3) & 1023]
+    if idct == "simple":
+        # FFmpeg's decoder keeps each block in int16 (the DC clipped, the AC
+        # wrapped) and starts its DC predictor at 1024: the level shift.
+        blocks = _wrap(blocks, 16)
+        blocks[..., 0, 0] = np.clip(natural[..., 0] + 1024, -32768, 32767)
+        pixels = _simple_idct(blocks)
+    else:
+        work = _descale(_islow_pass(blocks, axis=-2), _CONST_BITS - _PASS1_BITS)
+        pixels = _RANGE_LIMIT[_descale(_islow_pass(work, axis=-1),
+                                       _CONST_BITS + _PASS1_BITS + 3) & 1023]
     rows, cols = coeffs.shape[:2]
     return pixels.transpose(0, 2, 1, 3).reshape(rows * 8, cols * 8)
 
@@ -807,10 +869,10 @@ def _ycbcr_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
 
 
 def _decode_scan_native(segments: List[bytes], comps: list, mcus: Tuple[int, int],
-                        restart: int, planes: Dict[int, np.ndarray]) -> None:
+                        restart: int, planes: Dict[int, np.ndarray], idct: str) -> None:
     """:func:`_decode_scan` and :func:`_idct_planes` in the native library:
     decode the scan's blocks straight into ``planes`` (component id ->
-    (rows * 8, cols * 8) uint8, filled in place)."""
+    (rows * 8, cols * 8) uint8, filled in place) with the ``idct`` named."""
     import ctypes
 
     from hive_tpu_torch import native
@@ -840,7 +902,7 @@ def _decode_scan_native(segments: List[bytes], comps: list, mcus: Tuple[int, int
         ptr(data, ctypes.c_uint8), ptr(offsets, ctypes.c_int64), len(segments), len(comps),
         ptr(h, ctypes.c_int32), ptr(v, ctypes.c_int32), ptr(cols, ctypes.c_int64),
         ptr(dc, ctypes.c_uint8), ptr(ac, ctypes.c_uint8), ptr(quant, ctypes.c_int32),
-        mcus[0], mcus[1], restart, pointers)
+        mcus[0], mcus[1], restart, IDCTS.index(idct), pointers)
     if status:
         raise ValueError({-1: "corrupt JPEG: no DC code matches",
                           -2: "corrupt JPEG: no AC code matches",
@@ -857,26 +919,42 @@ def _huffman_spec(counts: List[int], symbols: List[int]) -> np.ndarray:
     return spec
 
 
-def decode_jpeg(blob: bytes, native: Optional[bool] = None) -> np.ndarray:
-    """Decode a baseline, extended sequential or progressive Huffman JPEG to
-    the pixels libjpeg's default decode gives (islow IDCT, fancy upsampling),
-    which are Pillow's.
+@dataclass
+class JpegPlanes:
+    """A JPEG's decoded components before upsampling: ``planes[i]`` is
+    component ``i`` (SOF order) as uint8, cropped to its own size, and
+    ``sampling[i]`` its (horizontal, vertical) sampling factors."""
+
+    width: int
+    height: int
+    sampling: List[Tuple[int, int]]
+    planes: List[np.ndarray]
+
+
+def decode_jpeg_planes(blob: bytes, native: Optional[bool] = None,
+                       idct: str = "islow") -> JpegPlanes:
+    """Decode a baseline, extended sequential or progressive Huffman JPEG's
+    scans into its component planes, with libjpeg's islow IDCT or FFmpeg's
+    simple IDCT (``idct="simple"``). Huffman tables a file does not define
+    are the standard ones of Annex K (tables 0 and 1), as libjpeg-turbo and
+    FFmpeg both assume for Motion JPEG.
 
     :param native: decode the scans in the native library (True) or with
         the Python symbol loop and numpy (False); by default native when the
         library builds.
-    :return: (H, W, 3) uint8 RGB for a three-component file, (H, W) uint8
-        for a greyscale one.
     """
     if blob[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file")
+    if idct not in IDCTS:
+        raise ValueError(f"idct must be one of {IDCTS}, not {idct!r}")
     if native is None:
         from hive_tpu_torch import native as native_lib
 
         native = native_lib.get_native_lib() is not None
 
     quant: Dict[int, np.ndarray] = {}
-    huffman: Dict[Tuple[int, int], Tuple[List[int], List[int]]] = {}
+    huffman: Dict[Tuple[int, int], Tuple[List[int], List[int]]] = {
+        (0, 0): _DC_LUMA, (0, 1): _DC_CHROMA, (1, 0): _AC_LUMA, (1, 1): _AC_CHROMA}
     frame = None
     planes: Dict[int, np.ndarray] = {}
     # A progressive frame's quantised coefficients, and each component's
@@ -980,17 +1058,18 @@ def decode_jpeg(blob: bytes, native: Optional[bool] = None) -> np.ndarray:
                 for c in scan:
                     planes[c["id"]] = np.zeros((mcus[0] * c["v"] * 8, mcus[1] * c["h"] * 8),
                                                np.uint8)
-                _decode_scan_native(segments, scan, mcus, restart, planes)
+                _decode_scan_native(segments, scan, mcus, restart, planes, idct)
             else:
                 scan_coeffs = {c["id"]: np.zeros((mcus[0] * c["v"], mcus[1] * c["h"], 64),
                                                  np.int64) for c in scan}
                 _decode_scan(segments, scan, mcus, restart, scan_coeffs)
                 for c in scan:
-                    planes[c["id"]] = _idct_planes(scan_coeffs[c["id"]], quant[c["q"]])
+                    planes[c["id"]] = _idct_planes(scan_coeffs[c["id"]], quant[c["q"]], idct)
 
     if frame is not None and frame["progressive"] and latched:
         for c in frame["comps"]:
-            planes[c["id"]] = _idct_planes(coeffs[c["id"]], latched.get(c["id"], quant.get(c["q"])))
+            planes[c["id"]] = _idct_planes(coeffs[c["id"]],
+                                           latched.get(c["id"], quant.get(c["q"])), idct)
 
     if frame is None or not planes:
         raise ValueError("corrupt JPEG: no frame or no scan")
@@ -998,13 +1077,30 @@ def decode_jpeg(blob: bytes, native: Optional[bool] = None) -> np.ndarray:
     height, width = frame["height"], frame["width"]
     h_max = max(c["h"] for c in frame["comps"])
     v_max = max(c["v"] for c in frame["comps"])
+    return JpegPlanes(width, height, [(c["h"], c["v"]) for c in frame["comps"]],
+                      [planes[c["id"]][:-(-height * c["v"] // v_max),
+                                       :-(-width * c["h"] // h_max)] for c in frame["comps"]])
+
+
+def decode_jpeg(blob: bytes, native: Optional[bool] = None) -> np.ndarray:
+    """Decode a baseline, extended sequential or progressive Huffman JPEG to
+    the pixels libjpeg's default decode gives (islow IDCT, fancy upsampling),
+    which are Pillow's.
+
+    :param native: as for :func:`decode_jpeg_planes`.
+    :return: (H, W, 3) uint8 RGB for a three-component file, (H, W) uint8
+        for a greyscale one.
+    """
+    decoded = decode_jpeg_planes(blob, native)
+    height, width = decoded.height, decoded.width
+    h_max = max(h for h, _ in decoded.sampling)
+    v_max = max(v for _, v in decoded.sampling)
     out = []
-    for c in frame["comps"]:
-        # Crop to the component's own size first: upsampling repeats its
-        # last row and column, not the blocks' padding.
-        plane = planes[c["id"]][:-(-height * c["v"] // v_max),
-                                :-(-width * c["h"] // h_max)].astype(np.int32)
-        fy, fx = v_max // c["v"], h_max // c["h"]
+    for (h, v), plane in zip(decoded.sampling, decoded.planes):
+        # Each plane is cropped to the component's own size: upsampling
+        # repeats its last row and column, not the blocks' padding.
+        plane = plane.astype(np.int32)
+        fy, fx = v_max // v, h_max // h
         if (fy, fx) == (2, 2):
             plane = _fancy_upsample(plane, vertical=True)
         elif (fy, fx) == (1, 2):

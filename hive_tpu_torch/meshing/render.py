@@ -42,10 +42,8 @@ sine of its smallest angle), so with ``c = 32u`` (a factor 2 to spare):
   frame): its offset triangle lies in that band however far it reaches,
   and pixel centres on the line far beyond the face do come out inside.
 
-A float32 fused multiply-add is computed in float64 (the product of two
-float32 values is exact there) and rounded once to float32, so the card and
-the CPU round alike; the double rounding differs from a true FMA only when
-the float64 sum lands exactly halfway between two float32 values. The
+A float32 fused multiply-add is ``core.numerics.fma_f32``, correctly
+rounded on the card and the CPU alike, as XLA:CPU's FMA rounds. The
 reference pads faces and vertices to powers of two for its jit cache; the
 padding faces are degenerate and draw nothing, so none is needed here.
 Textures are sampled on the device in float64, numpy's promotion of the
@@ -60,6 +58,7 @@ import numpy as np
 import torch
 
 from hive_tpu_torch import get_device
+from hive_tpu_torch.core.numerics import fma_f32
 from hive_tpu_torch.meshing.mesh import Scene, TriangleMesh
 
 # Candidate (face, pixel) pairs evaluated at once.
@@ -68,27 +67,22 @@ CHUNK_CANDIDATES = 1 << 23
 _FACE_MASK = 0xFFFFFFFF
 
 
-def _fma(a, b, c) -> torch.Tensor:
-    """float32 ``fma(a, b, c)`` through float64, rounded once."""
-    return (a.double() * b.double() + c.double()).float()
-
-
 def _matmul_t(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """``x @ m.T`` for (N, 3) x (3, 3) as XLA:CPU rounds it: an FMA chain
     from the first term."""
     out = x[:, 0:1] * m[:, 0]
-    out = _fma(x[:, 1:2], m[:, 1], out)
-    return _fma(x[:, 2:3], m[:, 2], out)
+    out = fma_f32(x[:, 1:2], m[:, 1], out)
+    return fma_f32(x[:, 2:3], m[:, 2], out)
 
 
 def _edge(a, b, c, d) -> torch.Tensor:
     """``a*b - c*d`` as XLA:CPU contracts it: ``fma(a, b, -(c*d))``."""
-    return _fma(a, b, -(c * d))
+    return fma_f32(a, b, -(c * d))
 
 
 def _interpolate(b0, b1, b2, v0, v1, v2) -> torch.Tensor:
     """``b0*v0 + b1*v1 + b2*v2`` as XLA:CPU contracts it."""
-    return _fma(b2, v2, _fma(b0, v0, b1 * v1))
+    return fma_f32(b2, v2, fma_f32(b0, v0, b1 * v1))
 
 
 class _Faces:

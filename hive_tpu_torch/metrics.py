@@ -234,8 +234,10 @@ def mifd(image_a: np.ndarray, image_b: np.ndarray, ratio_threshold: float = 0.7,
     if not bool(keep.any()):
         return float("nan")
 
-    pt_a = features_a.xy[keep].double()
-    pt_b = features_b.xy[indices[keep, 0]].double()
+    # The distances and their mean on the host: the card's norm and mean
+    # reduce in other orders than the CPU's.
+    pt_a = features_a.xy[keep].double().cpu()
+    pt_b = features_b.xy[indices[keep, 0]].double().cpu()
     return float(torch.linalg.norm(pt_a - pt_b, dim=1).mean())
 
 

@@ -36,16 +36,12 @@ from scipy import ndimage
 from torch import nn
 
 from hive_tpu_torch import get_device
+from hive_tpu_torch.core.numerics import f32
 from hive_tpu_torch.models import maskrcnn
 from hive_tpu_torch.models.flax_layers import (Conv, FlaxModule, GroupNorm, fan_in_params,
                                                load_flax_params)
 
 _FLT_EPSILON = float(np.finfo(np.float32).eps)
-
-
-def _f32(x: float) -> float:
-    """``x`` rounded to float32, as OpenCV stores its float parameters."""
-    return float(np.float32(x))
 
 
 def open_close(fg: torch.Tensor) -> torch.Tensor:
@@ -84,10 +80,10 @@ class _MotionBackend:
     NMIXTURES = 5
     HISTORY = 200
     VAR_THRESHOLD = 32.0                # Tb
-    BACKGROUND_RATIO = _f32(0.9)        # TB
+    BACKGROUND_RATIO = f32(0.9)        # TB
     VAR_THRESHOLD_GEN = 9.0             # Tg
     VAR_INIT, VAR_MIN, VAR_MAX = 15.0, 4.0, 75.0
-    CT = _f32(0.05)                     # complexity reduction prior
+    CT = f32(0.05)                     # complexity reduction prior
     SHADOW_VALUE = 127
     SHADOW_THRESHOLD = 0.5              # tau
 
@@ -127,9 +123,9 @@ class _MotionBackend:
             self._initialize(tuple(bgr.shape[:2]))
         self.nframes += 1
         rate = 1.0 / min(2 * self.nframes, self.HISTORY)
-        alpha = _f32(rate)
-        alpha1 = _f32(np.float32(1.0) - np.float32(alpha))
-        prune = _f32(-rate * self.CT)
+        alpha = f32(rate)
+        alpha1 = f32(np.float32(1.0) - np.float32(alpha))
+        prune = f32(-rate * self.CT)
         tb, tg, big_tb = self.VAR_THRESHOLD, self.VAR_THRESHOLD_GEN, self.BACKGROUND_RATIO
 
         data = bgr.reshape(-1, 3).T.to(torch.float32)            # (3, N)

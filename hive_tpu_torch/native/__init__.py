@@ -161,7 +161,7 @@ def get_native_lib() -> Optional[ctypes.CDLL]:
             ct.POINTER(ct.c_uint8), ct.POINTER(ct.c_int64), ct.c_int64,
             ct.c_int32, ct.POINTER(ct.c_int32), ct.POINTER(ct.c_int32),
             ct.POINTER(ct.c_int64), ct.POINTER(ct.c_uint8), ct.POINTER(ct.c_uint8),
-            ct.POINTER(ct.c_int32), ct.c_int64, ct.c_int64, ct.c_int64,
+            ct.POINTER(ct.c_int32), ct.c_int64, ct.c_int64, ct.c_int64, ct.c_int32,
             ct.POINTER(ct.c_void_p),
         ]
 

@@ -25,16 +25,18 @@ keypoints and window samples are batched, never looped over one by one.
 
 The blur reproduces OpenCV's float separable filter to the bit: the row
 pass accumulates ``fma(x_k, k_k, s)`` tap by tap from the left, the column
-pass ``fma(x_{+k} + x_{-k}, k_k, s)`` from the centre out, each FMA emulated
-in float64 (a float32 product is exact there) and rounded to float32; the
-columns past OpenCV's last whole vector take its scalar loop's separate
-roundings. ``fastAtan2`` and ``magnitude`` follow OpenCV's FMA forms the
+pass ``fma(x_{+k} + x_{-k}, k_k, s)`` from the centre out, each FMA correctly
+rounded (``core.numerics.fma_f32``); the columns past OpenCV's last whole
+vector take its scalar loop's separate roundings. ``fastAtan2`` and ``magnitude`` follow OpenCV's FMA forms the
 same way. ``exp``, ``sqrt``, ``pow``, ``sin`` and ``cos`` run in float64 and
 round once, so they give the same float32 on every device and every split
 of the work. The Newton steps, the tests and the histograms run in plain
 float32; OpenCV's vectorised build fuses some of those multiply-adds and
 uses its own ``exp``, so a keypoint near a threshold can fall the other way
-(``tests/test_torch_sift.py`` states the shares that agree).
+(``tests/test_torch_sift.py`` states the shares that agree). The orientation
+and descriptor histograms add each window's samples in OpenCV's order
+(``ops.ordered_hist``), on the card as on the CPU, so the card's keypoints
+and descriptors equal the CPU's bit for bit.
 """
 
 from __future__ import annotations
@@ -46,6 +48,9 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+
+from hive_tpu_torch.core.numerics import f32, fma_f32
+from hive_tpu_torch.ops.ordered_hist import ordered_hist
 
 N_OCTAVE_LAYERS = 3
 CONTRAST_THRESHOLD = 0.04
@@ -72,31 +77,6 @@ def _chunk_samples(device: torch.device) -> int:
     a few chunks on the card, whose memory holds them; smaller on the
     host."""
     return 1 << 24 if device.type == "cuda" else 1 << 21
-
-
-def _f32(x: float) -> float:
-    """``x`` rounded to float32, as a Python float."""
-    return float(np.float32(x))
-
-
-def _f64(x, like: torch.Tensor) -> torch.Tensor:
-    """A float64 operand: a (1,)-shaped tensor for a Python number (a
-    dimensioned float64 operand makes an op compute in float64)."""
-    if torch.is_tensor(x):
-        return x if x.dtype == torch.float64 else x.double()
-    return torch.full((1,), x, dtype=torch.float64, device=like.device)
-
-
-def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
-    """float32 ``fma(a, b, c)`` in one kernel: the product of two float32
-    values is exact in float64, so one float64 multiply-add, stored to
-    float32, rounds it once."""
-    out = torch.empty(torch.broadcast_shapes(a.shape, *(x.shape for x in (b, c)
-                                                         if torch.is_tensor(x))),
-                      dtype=torch.float32, device=a.device)
-    if not torch.is_tensor(c):
-        c = torch.full((1,), c, dtype=torch.float32, device=a.device)
-    return torch.addcmul(c, a, _f64(b, a), out=out)
 
 
 def _rounded(fn, x: torch.Tensor) -> torch.Tensor:
@@ -170,10 +150,10 @@ def gaussian_blur(image: torch.Tensor, sigma: float) -> torch.Tensor:
     height, width = image.shape
     device = image.device
 
-    # OpenCV's vector loops fuse each multiply-add (one float64 addcmul
-    # stored to float32 here); the columns past the last whole vector (4
-    # lanes in the row pass, 8 in the column pass) take its scalar loop,
-    # which rounds the product and the sum apart.
+    # OpenCV's vector loops fuse each multiply-add (a correctly rounded
+    # float32 FMA here); the columns past the last whole vector (4 lanes in
+    # the row pass, 8 in the column pass) take its scalar loop, which rounds
+    # the product and the sum apart.
     row_vec, col_vec = width // 4 * 4, width // 8 * 8
     taps = torch.tensor(kernel, dtype=torch.float64, device=device)[:, None]
 
@@ -182,7 +162,7 @@ def gaussian_blur(image: torch.Tensor, sigma: float) -> torch.Tensor:
     acc = torch.zeros((height, row_vec), dtype=torch.float32, device=device)
     tail = padded[:, row_vec:width] * float(kernel[0])
     for k in range(n):
-        torch.addcmul(acc, padded[:, k:k + row_vec], taps[k], out=acc)
+        acc = fma_f32(padded[:, k:k + row_vec], taps[k], acc)
         if k and width > row_vec:
             tail = tail + padded[:, row_vec + k:width + k] * float(kernel[k])
     acc = torch.cat([acc, tail], dim=1)
@@ -194,7 +174,7 @@ def gaussian_blur(image: torch.Tensor, sigma: float) -> torch.Tensor:
     pair = torch.empty((height, width), dtype=torch.float32, device=device)
     for k in range(1, r + 1):
         torch.add(padded[r + k:r + k + height], padded[r - k:r - k + height], out=pair)
-        torch.addcmul(out, pair[:, :col_vec], taps[r + k], out=out)
+        out = fma_f32(pair[:, :col_vec], taps[r + k], out)
         if width > col_vec:
             tail = tail + pair[:, col_vec:] * float(kernel[r + k])
     return torch.cat([out, tail], dim=1)
@@ -223,7 +203,7 @@ def resize_linear_2x(image: torch.Tensor) -> torch.Tensor:
         high_t = torch.from_numpy(high).to(x.device)
         a = torch.index_select(x, axis, low_t)
         b = torch.index_select(x, axis, high_t)
-        return _fma(b - a, t, a)
+        return fma_f32(b - a, t, a)
 
     return axis_pass(axis_pass(image, 1), 0)
 
@@ -360,9 +340,9 @@ def _derivatives(flat: _Flat, o, layer, r, c):
     """The gradient and Hessian of the DoG at integer positions
     (``adjustLocalExtrema``'s finite differences, in float32), from one
     gather of each position's 3x3x3 neighbourhood."""
-    img_scale = _f32(1.0 / 255)
-    deriv_scale = _f32(img_scale * 0.5)
-    cross_scale = _f32(img_scale * 0.25)
+    img_scale = f32(1.0 / 255)
+    deriv_scale = f32(img_scale * 0.5)
+    cross_scale = f32(img_scale * 0.25)
 
     h, w = flat.height[o], flat.width[o]
     steps = torch.tensor(_NEIGHBOURS, dtype=torch.int64, device=o.device)
@@ -444,13 +424,13 @@ def _refine(flat: _Flat, start: torch.Tensor):
     o, layer, r, c = pos.unbind(1)
     xc, xr, xi = off.unbind(1)
     centre, grad, hess = _derivatives(flat, o, layer, r, c)
-    t = _fma(grad[2], xi, _fma(grad[1], xr, grad[0] * xc))
-    contr = _fma(centre, _f32(1.0 / 255), t * 0.5)
+    t = fma_f32(grad[2], xi, fma_f32(grad[1], xr, grad[0] * xc))
+    contr = fma_f32(centre, f32(1.0 / 255), t * 0.5)
     dxx, dyy, _, dxy, _, _ = hess
     tr = dxx + dyy
     det = dxx * dyy - dxy * dxy
-    keep = ((contr.abs() * N_OCTAVE_LAYERS >= _f32(CONTRAST_THRESHOLD)) & (det > 0)
-            & (tr * tr * _f32(EDGE_THRESHOLD) < _f32((EDGE_THRESHOLD + 1) ** 2) * det))
+    keep = ((contr.abs() * N_OCTAVE_LAYERS >= f32(CONTRAST_THRESHOLD)) & (det > 0)
+            & (tr * tr * f32(EDGE_THRESHOLD) < f32((EDGE_THRESHOLD + 1) ** 2) * det))
     return pos[keep], off[keep], contr[keep]
 
 
@@ -458,12 +438,12 @@ def _fast_atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """OpenCV's ``fastAtan2`` in degrees, [0, 360): its polynomial with the
     FMAs of its vectorised form."""
     deg = 180 / math.pi
-    p1, p3 = _f32(0.9997878412794807 * _f32(deg)), _f32(-0.3258083974640975 * _f32(deg))
-    p5, p7 = _f32(0.1555786518463281 * _f32(deg)), _f32(-0.04432655554792128 * _f32(deg))
+    p1, p3 = f32(0.9997878412794807 * f32(deg)), f32(-0.3258083974640975 * f32(deg))
+    p5, p7 = f32(0.1555786518463281 * f32(deg)), f32(-0.04432655554792128 * f32(deg))
     ax, ay = x.abs(), y.abs()
-    c = torch.minimum(ax, ay) / (torch.maximum(ax, ay) + _f32(np.finfo(np.float64).eps))
+    c = torch.minimum(ax, ay) / (torch.maximum(ax, ay) + f32(np.finfo(np.float64).eps))
     cc = c * c
-    a = _fma(_fma(_fma(cc, p7, p5), cc, p3), cc, p1) * c
+    a = fma_f32(fma_f32(fma_f32(cc, p7, p5), cc, p3), cc, p1) * c
     a = torch.where(ax >= ay, a, 90 - a)
     a = torch.where(x < 0, 180 - a, a)
     return torch.where(y < 0, 360 - a, a)
@@ -471,7 +451,7 @@ def _fast_atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def _magnitude(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """OpenCV's ``magnitude``: ``sqrt(fma(x, x, y * y))``."""
-    return _rounded(torch.sqrt, _fma(x, x, y * y))
+    return _rounded(torch.sqrt, fma_f32(x, x, y * y))
 
 
 def _radius_chunks(radius: torch.Tensor, per_pixel: int = 1):
@@ -501,8 +481,8 @@ def _orientation_histograms(gauss: _Flat, o, layer, r, c, scl_octv) -> torch.Ten
     histograms."""
     n = ORI_HIST_BINS
     device = r.device
-    radius = torch.round(scl_octv * _f32(ORI_RADIUS)).long()
-    sigma = scl_octv * _f32(ORI_SIG_FCTR)
+    radius = torch.round(scl_octv * f32(ORI_RADIUS)).long()
+    sigma = scl_octv * f32(ORI_SIG_FCTR)
     expf_scale = -1 / ((sigma * 2) * sigma)
     hist = torch.zeros((len(r), n), dtype=torch.float32, device=device)
     for sel, rmax in _radius_chunks(radius):
@@ -520,21 +500,20 @@ def _orientation_histograms(gauss: _Flat, o, layer, r, c, scl_octv) -> torch.Ten
         weight = _rounded(torch.exp, (di * di + dj * dj).float() * expf_scale[sel, None])
         ori = _fast_atan2(dy, dx)
         mag = _magnitude(dx, dy)
-        bins = torch.round(ori * _f32(n / 360)).long()
+        bins = torch.round(ori * f32(n / 360)).long()
         bins = torch.where(bins >= n, bins - n, bins)
         bins = torch.where(bins < 0, bins + n, bins)
         value = torch.where(valid, weight * mag, torch.zeros_like(mag))
-        part = torch.zeros((len(sel), n), dtype=torch.float32, device=device)
-        part.scatter_add_(1, torch.where(valid, bins, torch.zeros_like(bins)), value)
-        hist[sel] = part
+        hist[sel] = ordered_hist(torch.where(valid, bins, torch.zeros_like(bins)).int(),
+                                 value, n)
 
     # [1 4 6 4 1] / 16, circular: OpenCV's vector order for the first 32
     # bins, its scalar order for the rest.
     t0 = hist
     s1 = torch.roll(hist, 1, 1) + torch.roll(hist, -1, 1)
     s2 = torch.roll(hist, 2, 1) + torch.roll(hist, -2, 1)
-    vector = (t0 * _f32(6 / 16) + s1 * 0.25) + s2 * 0.0625
-    scalar = (s2 * 0.0625 + s1 * 0.25) + t0 * _f32(6 / 16)
+    vector = (t0 * f32(6 / 16) + s1 * 0.25) + s2 * 0.0625
+    scalar = (s2 * 0.0625 + s1 * 0.25) + t0 * f32(6 / 16)
     vector[:, 32:] = scalar[:, 32:]
     return vector
 
@@ -544,14 +523,14 @@ def _orientations(hist: torch.Tensor):
     of the histogram's highest."""
     n = ORI_HIST_BINS
     omax = hist.max(dim=1, keepdim=True).values
-    thr = omax * _f32(ORI_PEAK_RATIO)
+    thr = omax * f32(ORI_PEAK_RATIO)
     left, right = torch.roll(hist, 1, 1), torch.roll(hist, -1, 1)
     peak = (hist > left) & (hist > right) & (hist >= thr)
     kp, j = torch.nonzero(peak, as_tuple=True)
     hl, hj, hr = left[kp, j], hist[kp, j], right[kp, j]
     bin_ = j.float() + 0.5 * (hl - hr) / ((hl - 2 * hj) + hr)
     bin_ = torch.where(bin_ < 0, n + bin_, torch.where(bin_ >= n, bin_ - n, bin_))
-    angle = _fma(-bin_, _f32(360 / n), 360.0)
+    angle = fma_f32(-bin_, f32(360 / n), 360.0)
     angle = torch.where((angle - 360).abs() < _F32_EPS, torch.zeros_like(angle), angle)
     return kp, angle
 
@@ -563,6 +542,17 @@ def _lexsort(keys) -> torch.Tensor:
     for key, descending in reversed(keys):
         order = order[torch.sort(key[order], stable=True, descending=descending)[1]]
     return order
+
+
+def _sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """(N, 1) float32 sums of squares of (N, 128) rows, in one fixed order
+    (the halves added pairwise): ``sum`` reduces in another order on the
+    card than on the CPU, which rounded a descriptor entry the other way."""
+    acc = x * x
+    while acc.shape[1] > 1:
+        half = acc.shape[1] // 2
+        acc = acc[:, :half] + acc[:, half:]
+    return acc
 
 
 def _descriptors(gauss: _Flat, xy, size, angle, octave) -> torch.Tensor:
@@ -586,16 +576,16 @@ def _descriptors(gauss: _Flat, xy, size, angle, octave) -> torch.Tensor:
     ori = torch.where((ori - 360).abs() < _F32_EPS, torch.zeros_like(ori), ori)
 
     pt_x, pt_y = torch.round(ptf[:, 0]).long(), torch.round(ptf[:, 1]).long()
-    rad_ori = ori * _f32(math.pi / 180)
-    hist_width = scl * _f32(DESCR_SCL_FCTR)
+    rad_ori = ori * f32(math.pi / 180)
+    hist_width = scl * f32(DESCR_SCL_FCTR)
     cos_t = _rounded(torch.cos, rad_ori) / hist_width
     sin_t = _rounded(torch.sin, rad_ori) / hist_width
-    radius = torch.round(hist_width * _f32(1.4142135623730951) * _f32((d + 1) * 0.5)).long()
+    radius = torch.round(hist_width * f32(1.4142135623730951) * f32((d + 1) * 0.5)).long()
     rows, cols = gauss.height[level], gauss.width[level]
     diag = torch.sqrt(rows.double() ** 2 + cols.double() ** 2).long()
     radius = torch.minimum(radius, diag)
-    bins_per_rad = _f32(n / 360)
-    exp_scale = _f32(-1.0 / (d * d * 0.5))
+    bins_per_rad = f32(n / 360)
+    exp_scale = f32(-1.0 / (d * d * 0.5))
     hist_len = (d + 2) * (d + 2) * (n + 2)
 
     for sel, rmax in _radius_chunks(radius, per_pixel=8):
@@ -650,19 +640,18 @@ def _descriptors(gauss: _Flat, xy, size, angle, octave) -> torch.Tensor:
         # Sample-major, then the eight corners in OpenCV's order.
         index = torch.stack([base + s for s in steps], dim=2).reshape(len(sel), -1)
         value = torch.stack(values, dim=2).reshape(len(sel), -1)
-        hist = torch.zeros((len(sel), hist_len), dtype=torch.float32, device=device)
-        hist.scatter_add_(1, index, value)
+        hist = ordered_hist(index.int(), value, hist_len)
 
         hist = hist.reshape(len(sel), d + 2, d + 2, n + 2)[:, 1:d + 1, 1:d + 1]
         wrapped = hist[..., :n].clone()
         wrapped[..., 0] += hist[..., n]
         wrapped[..., 1] += hist[..., n + 1]
         dst = wrapped.reshape(len(sel), d * d * n)
-        nrm2 = (dst * dst).sum(dim=1, keepdim=True)
-        thr = _rounded(torch.sqrt, nrm2) * _f32(DESCR_MAG_THR)
+        nrm2 = _sum_squares(dst)
+        thr = _rounded(torch.sqrt, nrm2) * f32(DESCR_MAG_THR)
         dst = torch.minimum(dst, thr)
-        nrm2 = (dst * dst).sum(dim=1, keepdim=True)
-        factor = _f32(INT_DESCR_FCTR) / torch.clamp(_rounded(torch.sqrt, nrm2), min=_F32_EPS)
+        nrm2 = _sum_squares(dst)
+        factor = f32(INT_DESCR_FCTR) / torch.clamp(_rounded(torch.sqrt, nrm2), min=_F32_EPS)
         out[sel] = torch.clamp(torch.round(dst * factor), 0, 255)
     return out
 
@@ -693,7 +682,7 @@ def detect_and_compute(grey: torch.Tensor, mask: Optional[torch.Tensor] = None,
     kp_y = (r.float() + xr) * scale_o
     size_factor = _rounded(lambda e: torch.pow(2.0, e),
                            _div(layer.float() + xi, float(N_OCTAVE_LAYERS)))
-    scl_octv = size_factor * _f32(SIGMA)
+    scl_octv = size_factor * f32(SIGMA)
     kp_size = scl_octv * scale_o * 2
     packed = (o + (layer << 8)
               + (torch.round((xi.double() + 0.5) * 255).long() << 16)).to(torch.int64)

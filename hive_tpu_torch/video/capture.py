@@ -1,17 +1,19 @@
 """Reading an MP4 video as ``cv2.VideoCapture`` reads it.
 
 :class:`VideoCapture` puts the port's pieces together: the demuxer
-(:mod:`.mp4`) for the sizes, rate, frame order and samples; NVDEC on a
-CUDA device (:mod:`.nvdec`) or the I_PCM reader on the CPU
-(:mod:`.h264_pcm`) for the planes; the conversion of OpenCV's FFmpeg
-backend (:mod:`.color`) for BGR; and OpenCV's own rotation by the display
-matrix (``CAP_PROP_ORIENTATION_AUTO``, on by default), which turns the
-frames and swaps the reported width and height for 90 and 270 degrees.
+(:mod:`.mp4`) for the codec, sizes, rate, frame selection and samples; for
+H.264, NVDEC on a CUDA device (:mod:`.nvdec`) or the I_PCM reader on the
+CPU (:mod:`.h264_pcm`); for Motion JPEG, the host decoder (:mod:`.mjpeg`)
+on any device, its planes then moved to the device; the conversion of
+OpenCV's FFmpeg backend (:mod:`.color`) for BGR, on the device; and
+OpenCV's own rotation by the display matrix (``CAP_PROP_ORIENTATION_AUTO``,
+on by default), which turns the frames and swaps the reported width and
+height for 90 and 270 degrees.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Optional, Tuple
+from typing import Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,15 +21,16 @@ import torch
 from hive_tpu_torch import get_device
 from hive_tpu_torch.image_processing import (ROTATE_90_CLOCKWISE, ROTATE_90_COUNTERCLOCKWISE,
                                              ROTATE_180, rotate)
-from hive_tpu_torch.video import color, h264_pcm, mp4
+from hive_tpu_torch.video import color, h264_pcm, mjpeg, mp4
 
 # OpenCV's rotation_angle -> the cv2.rotate it applies to each frame.
 _AUTO_ROTATION = {90: ROTATE_90_CLOCKWISE, 180: ROTATE_180, 270: ROTATE_90_COUNTERCLOCKWISE}
 
 
 class VideoCapture:
-    """An H.264 MP4 read on ``device`` (default ``cuda:0``): through NVDEC
-    on a CUDA device, through the I_PCM reader on the CPU.
+    """An H.264 or Motion JPEG MP4 read on ``device`` (default ``cuda:0``).
+    H.264 decodes through NVDEC on a CUDA device and through the I_PCM
+    reader on the CPU; Motion JPEG decodes on the host for every device.
 
     :ivar width, height: ``CAP_PROP_FRAME_WIDTH`` / ``HEIGHT``.
     :ivar fps: ``CAP_PROP_FPS``.
@@ -38,22 +41,30 @@ class VideoCapture:
         self.path = str(path)
         self.device = get_device(device)
         self.track = mp4.read_track(self.path)
-        self.length_size, sps_units, self.pps_units = mp4.parse_avcc(self.track.config)
-        self.sps_units = sps_units or [unit for unit in self._nal_units(0)
-                                       if unit[0] & 0x1F == h264_pcm.NAL_SPS]
-        if not self.sps_units:
-            raise ValueError(f"{self.path} carries no H.264 sequence parameter set")
-        self.sps = h264_pcm.parse_sps(h264_pcm.unescape(self.sps_units[0]))
+        self.codec = self.track.codec
+        if self.codec == mp4.MJPEG:
+            header = mjpeg.sample_header(self._sample(0))
+            mjpeg.check_sample(header, self.track.coded_height)
+            width, height = header["width"], header["height"]
+            # JPEG is full range, its matrix BT.601: swscale's default.
+            self.full_range, self.matrix = True, color.UNSPECIFIED
+        else:
+            self.length_size, sps_units, self.pps_units = mp4.parse_avcc(self.track.config)
+            self.sps_units = sps_units or [unit for unit in self._nal_units(0)
+                                           if unit[0] & 0x1F == h264_pcm.NAL_SPS]
+            if not self.sps_units:
+                raise ValueError(f"{self.path} carries no H.264 sequence parameter set")
+            self.sps = h264_pcm.parse_sps(h264_pcm.unescape(self.sps_units[0]))
+            width, height = self.sps["width"], self.sps["height"]
+            self.full_range, self.matrix = self.sps["full_range"], self.sps["matrix"]
         self.rotation = self.track.rotation
-        width, height = self.sps["width"], self.sps["height"]
         self.width, self.height = (height, width) if self.rotation in (90, 270) else (width,
                                                                                       height)
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and self.codec == mp4.H264:
             self._open_nvdec()
         self.fps = self.track.fps
-        self.order = self.track.display_order()
-        self.frame_count = len(self.order)
-        self._position = {int(sample): i for i, sample in enumerate(self.order)}
+        self.segments = self.track.segments()
+        self.frame_count = sum(len(segment) for segment in self.segments)
 
     def _open_nvdec(self) -> None:
         """Refuse the video at once when NVDEC does not open on the device
@@ -73,18 +84,32 @@ class VideoCapture:
                 f"NVDEC on {self.device} does not decode the 8-bit 4:2:0 H.264 video "
                 f"{self.path} at its size ({caps}) (ROADMAP.md Queue 1 item 9b).")
 
-    def _nal_units(self, sample: int, f=None):
+    def _sample(self, sample: int, f=None) -> bytes:
         if f is None:
             with open(self.path, "rb") as f:
-                return self._nal_units(sample, f)
+                return self._sample(sample, f)
         f.seek(int(self.track.offsets[sample]))
-        return mp4.split_nal_units(f.read(int(self.track.sizes[sample])), self.length_size)
+        return f.read(int(self.track.sizes[sample]))
 
-    def _planes(self, begin: int, end: int) -> Iterator[Tuple[int, tuple]]:
-        """(sample, (Y, U, V)) of the pictures that samples ``begin`` to
-        ``end - 1`` decode to, in display order; ``begin`` is a sync
-        sample."""
+    def _nal_units(self, sample: int, f=None):
+        return mp4.split_nal_units(self._sample(sample, f), self.length_size)
+
+    def _planes(self, begin: int, wanted: np.ndarray) -> Iterator[Tuple[int, tuple]]:
+        """(sample, planes) of the pictures that samples ``begin`` to the
+        last of ``wanted`` decode to, in display order; ``begin`` is a sync
+        sample at or before the first of ``wanted``. Motion JPEG decodes
+        the samples of ``wanted`` alone (each is a sync sample)."""
         with open(self.path, "rb") as f:
+            if self.codec == mp4.MJPEG:
+                for sample in wanted.tolist():
+                    planes = mjpeg.decode_sample(self._sample(sample, f),
+                                                 self.track.coded_height)
+                    yield sample, tuple(torch.from_numpy(np.ascontiguousarray(p))
+                                        .to(self.device) for p in planes)
+                return
+
+            end = int(wanted.max()) + 1
+
             def units(sample):
                 nal_units = self._nal_units(sample, f)
                 if sample == begin or self.track.sync[sample]:
@@ -114,25 +139,35 @@ class VideoCapture:
                 yield picture.sample, tuple(torch.from_numpy(p) for p in
                                             (picture.y, picture.u, picture.v))
 
-    def to_bgr(self, y: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        """A picture's planes as the BGR frame cv2 returns for it."""
-        frame = color.yuv420_to_bgr(y, u, v, self.sps["full_range"], self.sps["matrix"])
+    def to_bgr(self, *planes: torch.Tensor) -> torch.Tensor:
+        """A picture's planes (Y, U, V, or Y alone) as the BGR frame cv2
+        returns for it."""
+        frame = color.planes_to_bgr(planes, self.full_range, self.matrix)
         code = _AUTO_ROTATION.get(self.rotation)
         return frame if code is None else rotate(frame, code)
 
     def planes(self, start: int = 0, stop: Optional[int] = None) -> Iterator[tuple]:
-        """The (Y, U, V) uint8 planes of frames ``start`` to ``stop - 1`` in
-        display order, on the device, decoded from the sync sample at or
-        before the first of them."""
+        """The uint8 planes (Y, U, V, or Y alone) of frames ``start`` to
+        ``stop - 1`` on the device, each edit's frames decoded from the
+        sync sample at or before the first of them."""
         stop = self.frame_count if stop is None else min(stop, self.frame_count)
-        if start >= stop:
-            return
-        wanted = self.order[start:stop]
+        first = 0
+        for segment in self.segments:
+            lo, hi = max(start, first), min(stop, first + len(segment))
+            first += len(segment)
+            if lo >= hi:
+                continue
+            wanted = segment[lo - (first - len(segment)):hi - (first - len(segment))]
+            yield from self._segment_planes(wanted)
+
+    def _segment_planes(self, wanted: np.ndarray) -> Iterable[tuple]:
+        """The planes of ``wanted`` (samples of one edit, in display
+        order)."""
         syncs = np.flatnonzero(self.track.sync[:int(wanted.min()) + 1])
         begin = int(syncs[-1]) if len(syncs) else 0
-        for sample, picture in self._planes(begin, int(wanted.max()) + 1):
-            position = self._position.get(sample)
-            if position is not None and start <= position < stop:
+        keep = set(wanted.tolist())
+        for sample, picture in self._planes(begin, wanted):
+            if sample in keep:
                 yield picture
 
     def frames(self, start: int = 0, stop: Optional[int] = None) -> Iterator[torch.Tensor]:

@@ -1,4 +1,4 @@
-"""YUV 4:2:0 to BGR as ``cv2.VideoCapture``'s FFmpeg backend gives it.
+"""YUV to BGR as ``cv2.VideoCapture``'s FFmpeg backend gives it.
 
 OpenCV converts the decoder's ``yuv420p`` frames to ``BGR24`` with
 ``sws_scale`` at the same size. A sweep of every (Y, U, V) triple through
@@ -27,6 +27,22 @@ OpenCV 5.0.0's Python wheel (its FFmpeg has swscale 9.5) showed:
 cv2 honours the VUI's ``video_full_range_flag`` and ``matrix_coefficients``,
 so the port does too (:func:`coefficients`). Matrices this table does not
 hold (BT.2020 and later) are refused.
+
+Motion JPEG decodes to full-range ``yuvj420p``, ``yuvj422p``, ``yuvj444p``
+or ``gray``; checked against this cv2 on Pillow-written samples:
+
+* 4:2:2 takes the same arithmetic, its chroma repeated along rows only;
+* 4:4:4 takes swscale's other path: chroma that is not subsampled forces
+  its full-chroma output (``SWS_FULL_CHR_H_INT``, ``yuv2rgb_write_full``
+  in ``output.c``), 30-bit sums of the 15-bit intermediates::
+
+      Y = ((Y << 9) - y_offset) * y_coeff + 2^21
+      u = (U - 128) << 9,  v = (V - 128) << 9
+      B = Y + u * ub,  G = Y + v * vg + u * ug,  R = Y + v * vr
+      each clamped to [0, 2^30 - 1], then >> 22
+
+  with the same coefficients and ``y_offset = roundToInt16(oy << 9)``;
+* grey is the plane in all three channels.
 """
 
 from __future__ import annotations
@@ -74,10 +90,10 @@ def coefficients(full_range: bool = False, matrix: int = UNSPECIFIED) -> Tuple[i
         _round_to_int16(oy << 3),)
 
 
-def yuv420_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, full_range: bool = False,
-                  matrix: int = UNSPECIFIED) -> torch.Tensor:
-    """(H, W) Y and (H/2, W/2) U, V uint8 planes -> (H, W, 3) uint8 BGR on
-    their device, as cv2's FFmpeg backend converts them."""
+def _subsampled_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, rows: int,
+                       full_range: bool, matrix: int) -> torch.Tensor:
+    """swscale's 16-bit path, each chroma sample repeated over ``rows`` rows
+    and two columns."""
     yc, vr, ub, ug, vg, yo = coefficients(full_range, matrix)
     luma = (((y.to(torch.int32) << 3) - yo) * yc) >> 16
     cu = (u.to(torch.int32) << 3) - 1024
@@ -85,8 +101,56 @@ def yuv420_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, full_range:
     chroma = torch.stack([(cu * ub) >> 16, ((cu * ug) >> 16) + ((cv * vg) >> 16),
                           (cv * vr) >> 16], dim=-1)
     h, w = y.shape
-    chroma = chroma.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)[:h, :w]
+    chroma = chroma.repeat_interleave(rows, dim=0).repeat_interleave(2, dim=1)[:h, :w]
     return (luma[..., None] + chroma).clamp_(0, 255).to(torch.uint8)
+
+
+def yuv420_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, full_range: bool = False,
+                  matrix: int = UNSPECIFIED) -> torch.Tensor:
+    """(H, W) Y and (H/2, W/2) U, V uint8 planes -> (H, W, 3) uint8 BGR on
+    their device, as cv2's FFmpeg backend converts them."""
+    return _subsampled_to_bgr(y, u, v, 2, full_range, matrix)
+
+
+def yuv422_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, full_range: bool = False,
+                  matrix: int = UNSPECIFIED) -> torch.Tensor:
+    """(H, W) Y and (H, W/2) U, V uint8 planes -> (H, W, 3) uint8 BGR, as
+    :func:`yuv420_to_bgr` with the chroma repeated along rows only."""
+    return _subsampled_to_bgr(y, u, v, 1, full_range, matrix)
+
+
+def yuv444_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, full_range: bool = False,
+                  matrix: int = UNSPECIFIED) -> torch.Tensor:
+    """(H, W) Y, U and V uint8 planes -> (H, W, 3) uint8 BGR through
+    swscale's full-chroma output (the module's docstring)."""
+    yc, vr, ub, ug, vg, _ = coefficients(full_range, matrix)
+    yo = 0 if full_range else _round_to_int16((16 << 16) << 9)
+    luma = ((y.to(torch.int32) << 9) - yo) * yc + (1 << 21)
+    cu = (u.to(torch.int32) - 128) << 9
+    cv = (v.to(torch.int32) - 128) << 9
+    bgr = torch.stack([luma + cu * ub, luma + cv * vg + cu * ug, luma + cv * vr], dim=-1)
+    return (bgr.clamp_(0, (1 << 30) - 1) >> 22).to(torch.uint8)
+
+
+def grey_to_bgr(y: torch.Tensor) -> torch.Tensor:
+    """An (H, W) uint8 grey plane -> (H, W, 3) uint8 BGR: swscale's ``gray``
+    to ``bgr24`` copies it into each channel."""
+    return y[..., None].expand(*y.shape, 3).contiguous()
+
+
+def planes_to_bgr(planes, full_range: bool = False, matrix: int = UNSPECIFIED) -> torch.Tensor:
+    """Grey (one plane) or Y, U, V planes at 4:2:0, 4:2:2 or 4:4:4, told
+    apart by the chroma planes' size, -> (H, W, 3) uint8 BGR."""
+    if len(planes) == 1:
+        return grey_to_bgr(planes[0])
+    y, u, v = planes
+    (h, w), (ch, cw) = y.shape, u.shape
+    layout = (-(-h // ch), -(-w // cw))
+    convert = {(2, 2): yuv420_to_bgr, (1, 2): yuv422_to_bgr, (1, 1): yuv444_to_bgr}.get(layout)
+    if convert is None:
+        raise ValueError(f"chroma planes of {ch}x{cw} for a {h}x{w} picture are not 4:2:0, "
+                         f"4:2:2 or 4:4:4")
+    return convert(y, u, v, full_range, matrix)
 
 
 def rgb_to_yuv420(rgb: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -261,45 +261,54 @@ def coding_order(num_frames: int, reorder: bool) -> List[int]:
 def write_pcm_mp4(path: str, frames: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]], *,
                   fps: Tuple[int, int] = (30, 1), reorder: bool = False,
                   full_range: bool = False, matrix: Optional[int] = None, rotation: int = 0,
-                  edit_frames: Optional[int] = None) -> None:
+                  edit_frames: Optional[int] = None,
+                  edits: Optional[Sequence[Tuple[int, int]]] = None,
+                  idr_every: Optional[int] = None) -> None:
     """Write ``frames`` (uint8 Y, U, V planes in display order; ``frames``
     may be a lazy sequence) as an I_PCM H.264 MP4 at ``fps`` = (timescale,
     frame duration), e.g. (30, 1) or (30000, 1001); ``full_range`` and
     ``matrix`` go into the SPS's VUI (:func:`encode_sps`). ``rotation`` is the
     display matrix's clockwise rotation; ``edit_frames`` starts the
-    track's one edit that many frames into the media."""
+    track's one edit that many frames into the media, or ``edits`` gives
+    the edit list itself ((duration, media time) in timescale units).
+    Sample 0 is the one IDR (sync) picture, or every ``idr_every``-th is
+    (in order only)."""
     height, width = frames[0][0].shape
     n = len(frames)
+    if idr_every is not None and reorder:
+        raise ValueError("idr_every needs frames in order")
     order = coding_order(n, reorder)
+    idr = [i % idr_every == 0 if idr_every else i == 0 for i in range(n)]
     sps = encode_sps(width, height, reorder=reorder, full_range=full_range, matrix=matrix)
     timescale, duration = fps
     # Decode times are the decode index; composition times the display
     # index, shifted one frame later when reordered (ctts stays >= 0).
     delay = 1 if reorder else 0
     cts_offsets = [(k + delay - i) * duration for i, k in enumerate(order)] if reorder else None
-    edit = None
-    if edit_frames is not None:
-        edit = ((n - edit_frames) * duration, (edit_frames + delay) * duration)
-    elif reorder:
-        edit = (n * duration, delay * duration)
+    if edits is None:
+        edits = []
+        if edit_frames is not None:
+            edits = [((n - edit_frames) * duration, (edit_frames + delay) * duration)]
+        elif reorder:
+            edits = [(n * duration, delay * duration)]
 
     def samples():
         # Out of order, the odd display indices are non-reference pictures;
-        # frame_num counts reference pictures.
+        # frame_num counts reference pictures since the last IDR.
         prev_ref = 0
         for i, k in enumerate(order):
             reference = not reorder or k % 2 == 0
-            frame_num = 0 if i == 0 else (prev_ref + 1) % (1 << LOG2_MAX_FRAME_NUM)
+            frame_num = 0 if idr[i] else (prev_ref + 1) % (1 << LOG2_MAX_FRAME_NUM)
             if reference:
                 prev_ref = frame_num
-            nal = encode_picture(*frames[k], idr=i == 0, reference=reference,
+            nal = encode_picture(*frames[k], idr=idr[i], reference=reference,
                                  frame_num=frame_num, poc=2 * k)
             yield len(nal).to_bytes(4, "big") + nal
 
     mp4.write_mp4(path, mp4.avc1_entry(width, height, sps, encode_pps()), samples(),
                   width=width, height=height, timescale=timescale,
                   durations=[duration] * n, cts_offsets=cts_offsets,
-                  sync=[i == 0 for i in range(n)], rotation=rotation, edit=edit)
+                  sync=idr, rotation=rotation, edits=edits)
 
 
 # ---------------------------------------------------------------------------

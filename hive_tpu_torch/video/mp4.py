@@ -5,6 +5,12 @@ FFmpeg backend sees it: the ``moov`` sample tables (``stsd``, ``stts``,
 ``ctts``, ``stsc``, ``stsz`` / ``stz2``, ``stco`` / ``co64``, ``stss``),
 ``mdhd``'s timescale, ``tkhd``'s display matrix and ``elst``. It gives
 
+* the codec, by sample entry: H.264 for ``avc1`` / ``avc3`` (each sample's
+  length-prefixed NAL units as an Annex-B access unit, the SPS and PPS from
+  ``avcC`` put before each sync sample); Motion JPEG for ``jpeg``,
+  ``mjpa`` and ``mp4v`` whose ``esds`` names JPEG (objectTypeIndication
+  0x6C, what cv2's ``MJPG`` writer stores in an ``.mp4``), each sample one
+  JPEG and every sample a sync sample;
 * the frame size after the SPS's cropping (1080 lines coded as 1088 read as
   1080) and after the display matrix's rotation, which OpenCV applies to
   the frames and to ``CAP_PROP_FRAME_WIDTH`` / ``HEIGHT``
@@ -12,16 +18,18 @@ FFmpeg backend sees it: the ``moov`` sample tables (``stsd``, ``stts``,
 * ``CAP_PROP_FPS`` as FFmpeg's MP4 reader computes ``avg_frame_rate``: the
   media timescale times the sample count over the sum of the ``stts``
   durations;
-* the frames in display order (composition time, ``dts + ctts``), less
-  those a single ``elst`` edit cuts: a frame is kept when its composition
-  time lies in ``[media_time, media_time + segment duration)``;
-* each ``avc1`` / ``avc3`` sample (length-prefixed NAL units) as an Annex-B
-  access unit, the SPS and PPS from ``avcC`` put before each sync sample.
+* the frames a reader returns, in order (:meth:`VideoTrack.segments`): the
+  edit list applied as FFmpeg's ``mov_fix_index`` applies it. Each edit
+  decodes from the key frame at or before its media time and keeps the
+  frames whose composition time (``dts + ctts``) lies in ``[media_time,
+  media_time + segment duration)``; leading empty edits only delay the
+  track; an edit may repeat samples another one showed.
 
 Refused, naming the codec and the ROADMAP item: ``hvc1`` / ``hev1`` (HEVC),
-``mp4v`` (MPEG-4 Part 2) and any other sample entry, and more than one
-edit. The muxer (:func:`write_mp4`) writes the same boxes, for the I_PCM
-writer of :mod:`hive_tpu_torch.video.h264_pcm`.
+``mp4v`` of any other object type (MPEG-4 Part 2 is 0x20), ``mjpb`` and any
+other sample entry. The muxer (:func:`write_mp4`) writes the same boxes,
+for the I_PCM writer of :mod:`hive_tpu_torch.video.h264_pcm` and for Motion
+JPEG (:func:`mjpeg_entry`).
 """
 
 from __future__ import annotations
@@ -36,12 +44,19 @@ import numpy as np
 # The ROADMAP items of what the port does not decode yet.
 HEVC_ITEM = "Queue 1 item 9c"
 OTHER_CODEC_ITEM = "Queue 1 item 9d"
-EDIT_LIST_ITEM = "Queue 1 item 9e"
+
+# The codecs the port decodes, and the sample entries that carry them.
+H264, MJPEG = "h264", "mjpeg"
+_H264_ENTRIES = (b"avc1", b"avc3")
+_MJPEG_ENTRIES = (b"jpeg", b"mjpa")
+# ISO/IEC 14496-1 objectTypeIndication values of an mp4v entry's esds.
+JPEG_OTI, MPEG4_PART2_OTI = 0x6C, 0x20
 
 CODEC_NAMES = {b"hvc1": "HEVC (H.265)", b"hev1": "HEVC (H.265)",
                b"mp4v": "MPEG-4 Part 2 (mp4v)", b"av01": "AV1", b"vp09": "VP9",
-               b"mjpa": "Motion JPEG", b"jpeg": "Motion JPEG", b"apch": "ProRes",
-               b"apcn": "ProRes"}
+               b"mjpb": "Motion JPEG B", b"apch": "ProRes", b"apcn": "ProRes"}
+_OTI_NAMES = {0x21: "H.264 in an mp4v entry", 0x6A: "MPEG-1 video", 0x6D: "PNG",
+              **{oti: "MPEG-2 video" for oti in range(0x60, 0x66)}}
 
 START_CODE = b"\x00\x00\x00\x01"
 
@@ -50,12 +65,49 @@ class UnsupportedVideoError(ValueError):
     """A video the port does not decode, named with its ROADMAP item."""
 
 
-def _refuse_codec(fourcc: bytes) -> UnsupportedVideoError:
+def _refuse_codec(fourcc: bytes, oti: Optional[int] = None) -> UnsupportedVideoError:
     name = CODEC_NAMES.get(fourcc, fourcc.decode("latin-1"))
+    entry = f"sample entry '{fourcc.decode('latin-1')}'"
+    if fourcc == b"mp4v":
+        name = _OTI_NAMES.get(oti, name)
+        entry += (", no objectTypeIndication" if oti is None
+                  else f", objectTypeIndication 0x{oti:02X}")
     item = HEVC_ITEM if fourcc in (b"hvc1", b"hev1") else OTHER_CODEC_ITEM
     return UnsupportedVideoError(
-        f"The video's codec is {name} (sample entry '{fourcc.decode('latin-1')}'); "
-        f"hive_tpu_torch decodes only H.264 (avc1 / avc3) so far (ROADMAP.md {item}).")
+        f"The video's codec is {name} ({entry}); hive_tpu_torch decodes only H.264 (avc1 / "
+        f"avc3) and Motion JPEG (jpeg, mjpa, mp4v of objectTypeIndication 0x6C) so far "
+        f"(ROADMAP.md {item}).")
+
+
+def _descriptor(data: bytes, pos: int) -> Tuple[int, int, int]:
+    """(tag, payload start, payload size) of an ISO/IEC 14496-1 descriptor
+    at ``pos``: its size takes 1-4 bytes of 7 bits each."""
+    tag, pos, size = data[pos], pos + 1, 0
+    for _ in range(4):
+        byte = data[pos]
+        pos += 1
+        size = size << 7 | byte & 0x7F
+        if not byte & 0x80:
+            break
+    return tag, pos, size
+
+
+def esds_object_type(data: bytes, start: int) -> Optional[int]:
+    """The objectTypeIndication of the DecoderConfigDescriptor in an
+    ``esds`` box whose payload starts at ``start``; None without one."""
+    tag, pos, _ = _descriptor(data, start + 4)             # after version, flags
+    if tag != 3:                                           # ES_Descriptor
+        return None
+    flags = data[pos + 2]
+    pos += 3                                               # ES_ID, flags
+    if flags & 0x80:                                       # streamDependenceFlag
+        pos += 2
+    if flags & 0x40:                                       # URL_Flag
+        pos += 1 + data[pos]
+    if flags & 0x20:                                       # OCRstreamFlag
+        pos += 2
+    tag, pos, _ = _descriptor(data, pos)
+    return data[pos] if tag == 4 else None                 # DecoderConfigDescriptor
 
 
 def _boxes(data: bytes, start: int = 0, end: Optional[int] = None):
@@ -130,6 +182,7 @@ class VideoTrack:
     """The first video track of an MP4 file."""
 
     fourcc: bytes
+    codec: str                  # H264 or MJPEG
     coded_width: int            # the sample entry's width and height
     coded_height: int
     timescale: int
@@ -143,6 +196,8 @@ class VideoTrack:
     movie_timescale: int = 1000
     config: bytes = b""         # the avcC record
     fps: float = 0.0
+    has_ctts: bool = False
+    dts_shift: int = 0          # FFmpeg's shift that makes dts + ctts >= dts
 
     @property
     def rotation(self) -> int:
@@ -155,18 +210,66 @@ class VideoTrack:
         angle = -round(-math.degrees(math.atan2(b / scale1, a / scale0)))
         return angle + 360 if angle < 0 else angle
 
-    def display_order(self) -> np.ndarray:
-        """Sample indices (decode order) of the frames a reader returns, in
-        display order: sorted by composition time, the edit applied."""
+    def _edit_start(self, media_time: int) -> int:
+        """The sample an edit starting at ``media_time`` decodes from:
+        FFmpeg's ``find_prev_closest_index``, the last key frame whose dts is
+        at or before it (any frame if none is), moved back until its
+        composition time is too; 0 if no frame is."""
+        target = media_time - self.dts_shift
+        for key_only in (True, False):
+            index = int(np.searchsorted(self.dts, target, side="right")) - 1
+            while key_only and index >= 0 and not self.sync[index]:
+                index -= 1
+            if index < 0:
+                continue
+            i = index
+            while i > 0 and self.dts[i] == self.dts[i - 1]:
+                if not key_only or self.sync[i - 1]:
+                    index = i - 1
+                i -= 1
+            if self.has_ctts:
+                while index >= 0 and not (self.cts[index] <= target and self.sync[index]):
+                    index -= 1
+            if index >= 0:
+                return index
+        return 0
+
+    def segments(self) -> List[np.ndarray]:
+        """The frames a reader returns: for each edit FFmpeg's
+        ``mov_fix_index`` plays, the samples (decode indices) it keeps, in
+        display order. A sample may appear in more than one edit."""
         order = np.argsort(self.cts, kind="stable")
-        if self.edits:
-            duration, media_time = self.edits[0]
-            # FFmpeg's av_rescale: the duration in media units, rounded.
-            end = media_time + (2 * duration * self.timescale + self.movie_timescale) // (
+        if not self.edits:
+            return [order]
+        n = len(self.dts)
+        cts = self.cts + self.dts_shift
+        durations = np.append(np.diff(self.dts), 0)
+        out = []
+        leading = True
+        for duration, media_time in self.edits:
+            # FFmpeg's av_rescale: the duration in media units, to nearest.
+            duration = (2 * duration * self.timescale + self.movie_timescale) // (
                 2 * self.movie_timescale)
-            cts = self.cts[order]
-            order = order[(cts >= media_time) & (cts < end)]
-        return order
+            if leading and media_time == -1:
+                continue                       # a leading empty edit: a delay only
+            leading = False
+            end = media_time + duration
+            kept = []
+            waited = False
+            for index in range(self._edit_start(media_time), n):
+                if media_time <= cts[index] < end:
+                    kept.append(index)
+                frame_duration = durations[index] if index + 1 < n else duration
+                # Stop at the first key frame past the edit; with ctts, at the
+                # one after it (B-frames may follow the first).
+                if cts[index] + frame_duration >= end and self.sync[index]:
+                    if self.has_ctts and not waited:
+                        waited = True
+                        continue
+                    break
+            kept = np.asarray(kept, np.int64)
+            out.append(kept[np.argsort(self.cts[kept], kind="stable")])
+        return out
 
 
 def read_track(path: str) -> VideoTrack:
@@ -201,14 +304,6 @@ def _parse_trak(moov: bytes, s: int, e: int, movie_timescale: int) -> VideoTrack
         version, _ = _full_box(moov, elst[0])
         entries = _table(moov, elst, ">u8,>i8,>i2,>i2" if version else ">u4,>i4,>i2,>i2")
         edits = [(int(d), int(t)) for d, t, _, _ in entries.tolist()]
-        if len(edits) > 1:
-            raise UnsupportedVideoError(
-                f"The video's track carries {len(edits)} edits; hive_tpu_torch reads one "
-                f"edit at most so far (ROADMAP.md {EDIT_LIST_ITEM}).")
-        if edits and edits[0][1] < 0:
-            raise UnsupportedVideoError(
-                "The video's edit list starts with an empty edit; hive_tpu_torch reads "
-                f"one edit with a media time so far (ROADMAP.md {EDIT_LIST_ITEM}).")
 
     mdhd = _find(moov, [b"mdia", b"mdhd"], s, e)
     version, _ = _full_box(moov, mdhd[0])
@@ -218,14 +313,26 @@ def _parse_trak(moov: bytes, s: int, e: int, movie_timescale: int) -> VideoTrack
     stsd = _find(moov, [b"stsd"], *stbl)
     entry = stsd[0] + 8
     fourcc = moov[entry + 4:entry + 8]
-    if fourcc not in (b"avc1", b"avc3"):
-        raise _refuse_codec(fourcc)
     entry_size = struct.unpack_from(">I", moov, entry)[0]
+    children = (entry + 8 + 78, entry + entry_size)     # after the visual sample entry
+    config = b""
+    if fourcc in _H264_ENTRIES:
+        codec = H264
+        avcc = _find(moov, [b"avcC"], *children)
+        if avcc is None:
+            raise ValueError("the H.264 sample entry has no avcC box")
+        config = moov[avcc[0]:avcc[1]]
+    elif fourcc in _MJPEG_ENTRIES:
+        codec = MJPEG
+    elif fourcc == b"mp4v":
+        esds = _find(moov, [b"esds"], *children)
+        oti = esds_object_type(moov, esds[0]) if esds is not None else None
+        if oti != JPEG_OTI:
+            raise _refuse_codec(fourcc, oti)
+        codec = MJPEG
+    else:
+        raise _refuse_codec(fourcc)
     coded_width, coded_height = struct.unpack_from(">HH", moov, entry + 8 + 24)
-    avcc = _find(moov, [b"avcC"], entry + 8 + 78, entry + entry_size)
-    if avcc is None:
-        raise ValueError("the H.264 sample entry has no avcC box")
-    config = moov[avcc[0]:avcc[1]]
 
     durations = _table(moov, _find(moov, [b"stts"], *stbl), ">u4,>u4")
     counts, deltas = durations["f0"].astype(np.int64), durations["f1"].astype(np.int64)
@@ -233,11 +340,15 @@ def _parse_trak(moov: bytes, s: int, e: int, movie_timescale: int) -> VideoTrack
     dts = np.concatenate([[0], np.cumsum(np.repeat(deltas, counts))])[:num_samples]
 
     cts = dts.copy()
+    dts_shift = 0
     ctts = _find(moov, [b"ctts"], *stbl)
     if ctts is not None:
         entries = _table(moov, ctts, ">u4,>i4")
-        offsets = np.repeat(entries["f1"].astype(np.int64), entries["f0"].astype(np.int64))
+        shifts = entries["f1"].astype(np.int64)
+        offsets = np.repeat(shifts, entries["f0"].astype(np.int64))
         cts = dts + offsets[:num_samples]
+        # FFmpeg's mov_update_dts_shift, which skips the last two entries.
+        dts_shift = max(0, -int(shifts[:-2].min())) if len(shifts) > 2 else 0
 
     stsz = _find(moov, [b"stsz"], *stbl)
     if stsz is not None:
@@ -269,16 +380,17 @@ def _parse_trak(moov: bytes, s: int, e: int, movie_timescale: int) -> VideoTrack
 
     sync = np.ones(num_samples, bool)
     stss = _find(moov, [b"stss"], *stbl)
-    if stss is not None:
+    if stss is not None and codec != MJPEG:
         sync[:] = False
         sync[_table(moov, stss, ">u4").astype(np.int64) - 1] = True
 
     total = int(deltas @ counts) if len(counts) else 0
     fps = timescale * num_samples / total if total > 0 and num_samples > 0 else 0.0
-    return VideoTrack(fourcc=fourcc, coded_width=coded_width, coded_height=coded_height,
-                      timescale=timescale, offsets=offsets, sizes=sizes[:num_samples],
-                      dts=dts, cts=cts, sync=sync, matrix=tuple(matrix), edits=edits,
-                      movie_timescale=movie_timescale, config=config, fps=fps)
+    return VideoTrack(fourcc=fourcc, codec=codec, coded_width=coded_width,
+                      coded_height=coded_height, timescale=timescale, offsets=offsets,
+                      sizes=sizes[:num_samples], dts=dts, cts=cts, sync=sync,
+                      matrix=tuple(matrix), edits=edits, movie_timescale=movie_timescale,
+                      config=config, fps=fps, has_ctts=ctts is not None, dts_shift=dts_shift)
 
 
 def parse_avcc(config: bytes) -> Tuple[int, List[bytes], List[bytes]]:
@@ -347,6 +459,25 @@ def avc1_entry(width: int, height: int, sps: bytes, pps: bytes) -> bytes:
     return visual_entry(b"avc1", width, height, box(b"avcC", avcc))
 
 
+def _descriptor_bytes(tag: int, *payload: bytes) -> bytes:
+    body = b"".join(payload)
+    return bytes([tag, len(body)]) + body          # sizes below 128 take one byte
+
+
+def mp4v_entry(width: int, height: int, object_type: int) -> bytes:
+    """An ``mp4v`` visual sample entry whose ``esds`` names
+    ``object_type`` (its DecoderConfigDescriptor's objectTypeIndication)."""
+    config = _descriptor_bytes(4, bytes([object_type, 0x04 << 2 | 1]), bytes(11))
+    es = _descriptor_bytes(3, struct.pack(">HB", 1, 0), config, _descriptor_bytes(6, b"\x02"))
+    return visual_entry(b"mp4v", width, height, full_box(b"esds", 0, 0, es))
+
+
+def mjpeg_entry(width: int, height: int) -> bytes:
+    """The ``mp4v`` entry of JPEG (objectTypeIndication 0x6C): how FFmpeg's
+    MP4 muxer, and so cv2's ``MJPG`` writer, stores Motion JPEG."""
+    return mp4v_entry(width, height, JPEG_OTI)
+
+
 def visual_entry(fourcc: bytes, width: int, height: int, *children: bytes) -> bytes:
     return box(fourcc, bytes(6), struct.pack(">H", 1), bytes(16),
                struct.pack(">HHIIIH", width, height, 0x00480000, 0x00480000, 0, 1),
@@ -361,10 +492,11 @@ def write_mp4(path: str, sample_entry: bytes, samples: Iterable[bytes], *, width
               height: int, timescale: int, durations: Sequence[int],
               cts_offsets: Optional[Sequence[int]] = None,
               sync: Optional[Sequence[bool]] = None, rotation: int = 0,
-              edit: Optional[Tuple[int, int]] = None) -> None:
+              edits: Sequence[Tuple[int, int]] = ()) -> None:
     """Write one video track: ``ftyp``, ``mdat`` (each sample its own
     chunk), then ``moov``. Times are in ``timescale`` units, the movie's
-    timescale too; ``edit`` is one (segment duration, media time) entry."""
+    timescale too; ``edits`` are the ``elst`` entries, each a (segment
+    duration, media time) pair, media time -1 for an empty edit."""
     durations = np.asarray(durations, np.int64)
     with open(path, "wb") as f:
         f.write(box(b"ftyp", b"isom", struct.pack(">I", 512), b"isomiso2avc1mp41"))
@@ -405,9 +537,10 @@ def write_mp4(path: str, sample_entry: bytes, samples: Iterable[bytes], *, width
         track = [full_box(b"tkhd", 0, 3, struct.pack(">IIIII", 0, 0, 1, 0, total), bytes(8),
                           struct.pack(">hhhH", 0, 0, 0, 0), matrix,
                           struct.pack(">II", width << 16, height << 16))]
-        if edit is not None:
-            track.append(box(b"edts", full_box(b"elst", 0, 0, struct.pack(
-                ">IIihh", 1, edit[0], edit[1], 1, 0))))
+        if edits:
+            track.append(box(b"edts", full_box(b"elst", 0, 0, struct.pack(">I", len(edits)),
+                                               *(struct.pack(">Iihh", d, t, 1, 0)
+                                                 for d, t in edits))))
         track.append(box(b"mdia",
                          full_box(b"mdhd", 0, 0, struct.pack(">IIIIHH", 0, 0, timescale,
                                                              total, 0x55C4, 0)),

@@ -15,8 +15,8 @@ import pytest
 import torch
 
 import hive_tpu_torch
-from hive_tpu_torch.ops import (band_sampler, band_update, classify_blocks, fused_band, patch_gather,
-                                tile_gather)
+from hive_tpu_torch.ops import (band_sampler, band_update, classify_blocks, fused_band,
+                                ordered_hist, patch_gather, tile_gather)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "hive_tpu_torch")
@@ -91,7 +91,7 @@ def test_blocked_import_check_covers_the_video_modules():
     none may need cv2, Pillow or imageio, which the card's machine lacks."""
     modules = set(_port_modules())
     for name in ("video.mp4", "video.h264_pcm", "video.nvdec", "video.color",
-                 "video.capture"):
+                 "video.capture", "video.mjpeg"):
         assert f"hive_tpu_torch.{name}" in modules, name
 
 
@@ -435,6 +435,7 @@ def test_wrappers_take_plain_versions_on_cpu():
     """CPU tensors go through the plain versions and count no launch."""
     band_sampler.launches = classify_blocks.pass1_launches = classify_blocks.refine_launches = 0
     tile_gather.launches = patch_gather.launches = fused_band.launches = 0
+    ordered_hist.launches = 0
     frame = torch.arange(12, dtype=torch.int32).reshape(3, 4)
     v = torch.tensor([[0, 2, 5]], dtype=torch.int32)
     u = torch.tensor([[3, -1, 1]], dtype=torch.int32)
@@ -486,9 +487,13 @@ def test_wrappers_take_plain_versions_on_cpu():
         *rows, project_in_kernel=False, intr=(1.0, 1.0, 0.0, 0.0), trunc=0.1, window=(2, 4))
     np.testing.assert_array_equal(out[1].numpy(), [[1.0] * bv, [0.0] * bv])
     assert out[0] is rows[0] and float(out[0].abs().max()) == 0.0
+    np.testing.assert_array_equal(
+        ordered_hist.ordered_hist(torch.tensor([[1, 0, 1]], dtype=torch.int32),
+                                  torch.tensor([[0.5, 2.0, 0.25]]), 3).numpy(),
+        [[2.0, 0.75, 0.0]])
     assert (band_sampler.launches, classify_blocks.pass1_launches,
             classify_blocks.refine_launches, tile_gather.launches, patch_gather.launches,
-            fused_band.launches) == (0, 0, 0, 0, 0, 0)
+            fused_band.launches, ordered_hist.launches) == (0, 0, 0, 0, 0, 0, 0)
 
 
 def _tiny_classify_frame():
@@ -500,8 +505,8 @@ def _tiny_classify_frame():
     return geom, build_flat_pyramid(torch.full((8, 8), 2.0), 8, 8, packed_u16=True)
 
 
-KERNEL_MODULES = (band_sampler, band_update, classify_blocks, fused_band, patch_gather,
-                  tile_gather)
+KERNEL_MODULES = (band_sampler, band_update, classify_blocks, fused_band, ordered_hist,
+                  patch_gather, tile_gather)
 
 
 def test_wrappers_never_fall_back_on_the_card():
@@ -683,6 +688,51 @@ def test_main_path_kernel_on_the_last_card(kernel):
     else:
         _check_classify_on_card(kernel, rng, dev)
     assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.cuda
+def test_ordered_hist_on_card_equals_plain():
+    """The ordered histogram on the card equals its plain version (the
+    CPU's in-order scatter_add_) bit for bit, run after run, at SIFT's two
+    widths and on a long single row; scatter_add_ on the card is no such
+    sum (its atomics add in no fixed order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: a CUDA kernel has no CPU mode")
+    rng = np.random.default_rng(4)
+    for rows, entries, bins in ((300, 2000, 36), (70, 8 * 1681, 360), (1, 200000, 36),
+                                (0, 5, 36)):
+        index = torch.as_tensor(rng.integers(0, bins, (rows, entries)), dtype=torch.int32)
+        value = torch.as_tensor(rng.standard_normal((rows, entries))
+                                * np.ldexp(1.0, rng.integers(-12, 12, (rows, entries))),
+                                dtype=torch.float32)
+        want = ordered_hist.ordered_hist_plain(index, value, bins)
+        before = ordered_hist.launches
+        first = ordered_hist.ordered_hist(index.cuda(), value.cuda(), bins)
+        second = ordered_hist.ordered_hist(index.cuda(), value.cuda(), bins)
+        torch.cuda.synchronize()
+        assert ordered_hist.launches == before + (2 if rows else 0)   # no launch for no rows
+        assert torch.equal(first.cpu().view(torch.int32), want.view(torch.int32)), (rows, bins)
+        assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_sift_on_card_equals_cpu():
+    """SIFT's keypoints and descriptors on the card equal the CPU's bit for
+    bit, and two card runs are equal: the histograms sum in OpenCV's order
+    on both, and every FMA rounds once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: a CUDA kernel has no CPU mode")
+    from hive_tpu_torch.ops import sift
+
+    rng = np.random.default_rng(5)
+    noise = rng.integers(0, 256, (60, 80)).astype(np.float32)
+    grey = torch.from_numpy(np.kron(noise, np.ones((4, 4), np.float32)).astype(np.uint8))
+    cpu = sift.detect_and_compute(grey)
+    runs = [sift.detect_and_compute(grey.cuda()) for _ in range(2)]
+    assert len(cpu) > 50
+    for card in runs:
+        for field in ("xy", "size", "angle", "response", "octave", "descriptors"):
+            assert torch.equal(getattr(card, field).cpu(), getattr(cpu, field)), field
 
 
 @pytest.mark.cuda

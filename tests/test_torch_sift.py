@@ -231,3 +231,32 @@ def test_ratio_tests_match_hive_tpus():
     assert len(set(theirs) & ours) >= FLANN_AGREE * max(len(theirs), len(ours))
     assert matching.match_descriptors(torch.from_numpy(desc_a[:1]), torch.from_numpy(desc_b),
                                       0.75).shape == (0, 2)
+
+
+def test_histograms_are_summed_by_the_ordered_kernel(monkeypatch):
+    """Both histogram passes go through ``ops.ordered_hist`` (36 orientation
+    bins, (4 + 2)^2 (8 + 2) = 360 descriptor bins), whose plain version here
+    is today's in-order ``scatter_add_``: the features equal those of a run
+    that sums with ``scatter_add_`` directly."""
+    from hive_tpu_torch.ops import ordered_hist
+
+    grey = torch.from_numpy(grey_of(wall_frames(1, 160, 120)[0][0]))
+    widths = []
+
+    def recording(index, value, bins):
+        widths.append(bins)
+        return ordered_hist.ordered_hist(index, value, bins)
+
+    monkeypatch.setattr(sift, "ordered_hist", recording)
+    ours = sift.detect_and_compute(grey)
+    assert {36, 360} <= set(widths)
+
+    def scatter(index, value, bins):
+        out = torch.zeros((index.shape[0], bins), dtype=torch.float32)
+        return out.scatter_add_(1, index.long(), value)
+
+    monkeypatch.setattr(sift, "ordered_hist", scatter)
+    plain = sift.detect_and_compute(grey)
+    assert len(ours) > 10
+    for field in ("xy", "angle", "descriptors"):
+        assert torch.equal(getattr(ours, field), getattr(plain, field)), field

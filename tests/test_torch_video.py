@@ -1,19 +1,25 @@
 """Video input of hive_tpu_torch (``hive_tpu_torch.video``) against cv2
-5.0.0, whose bundled FFmpeg decodes H.264: the MP4 demuxer's sizes, rate,
-frame count and order; the I_PCM writer and the CPU reader (lossless, so
-the seeded planes come back exactly); the YUV 4:2:0 -> BGR conversion; the
-uint8 resize and the rotation; the codecs and layouts refused by name. All
-of them are exact: no tolerance is stated because none is needed."""
+5.0.0, whose bundled FFmpeg decodes H.264 and Motion JPEG: the MP4
+demuxer's sizes, rate, frame count and order, edit lists included; the
+I_PCM writer and the CPU reader (lossless, so the seeded planes come back
+exactly); Motion JPEG (cv2's own MJPG writer, and Pillow's 4:2:0, 4:2:2,
+4:4:4 and grey JPEGs muxed by the port) through FFmpeg's simple IDCT; the
+YUV -> BGR conversions; the uint8 resize and the rotation; the codecs and
+layouts refused by name. All of them are exact: no tolerance is stated
+because none is needed (FFmpeg's x86 SIMD IDCT gives its C simple IDCT's
+pixels here)."""
 
+import io
 import struct
 
 import cv2
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from hive_tpu_torch.image_processing import resize_linear_u8, rotate
-from hive_tpu_torch.video import color, h264_pcm, mp4
+from hive_tpu_torch.video import color, h264_pcm, mjpeg, mp4
 from hive_tpu_torch.video.capture import VideoCapture
 
 
@@ -191,20 +197,25 @@ def test_rotate_equals_cv2(code, dtype, shape):
 
 
 def write_other_codec(path, fourcc, config_box):
-    entry = mp4.visual_entry(fourcc, 64, 48, mp4.box(config_box, bytes(23)))
+    if fourcc == b"mp4v":
+        entry = mp4.mp4v_entry(64, 48, mp4.MPEG4_PART2_OTI)
+    else:
+        entry = mp4.visual_entry(fourcc, 64, 48, mp4.box(config_box, bytes(23)))
     mp4.write_mp4(str(path), entry, [bytes(16)], width=64, height=48, timescale=30,
                   durations=[1])
 
 
 def test_hevc_and_mp4v_are_refused_by_name(tmp_path):
-    """HEVC (hvc1 / hev1) and MPEG-4 Part 2 (mp4v), whether written by the
-    port's muxer or by cv2's own VideoWriter, are refused naming the codec
-    and the ROADMAP item, before any decode."""
+    """HEVC (hvc1 / hev1), MPEG-4 Part 2 (mp4v of objectTypeIndication
+    0x20) and Motion JPEG B (mjpb), whether written by the port's muxer or
+    by cv2's own VideoWriter, are refused naming the codec and the ROADMAP
+    item, before any decode."""
     for fourcc, item in ((b"hvc1", "Queue 1 item 9c"), (b"hev1", "Queue 1 item 9c"),
-                         (b"mp4v", "Queue 1 item 9d")):
+                         (b"mp4v", "Queue 1 item 9d"), (b"mjpb", "Queue 1 item 9d")):
         path = tmp_path / f"{fourcc.decode()}.mp4"
-        write_other_codec(path, fourcc, b"hvcC" if fourcc != b"mp4v" else b"esds")
-        name = "HEVC" if fourcc != b"mp4v" else "MPEG-4 Part 2"
+        write_other_codec(path, fourcc, b"hvcC")
+        name = {b"mp4v": r"MPEG-4 Part 2 \(mp4v\).*0x20", b"mjpb": "Motion JPEG B"}.get(
+            fourcc, "HEVC")
         with pytest.raises(mp4.UnsupportedVideoError, match=f"{name}.*{item}"):
             VideoCapture(str(path), device="cpu")
 
@@ -218,6 +229,9 @@ def test_hevc_and_mp4v_are_refused_by_name(tmp_path):
 
 
 def test_more_than_one_edit_is_refused(tmp_path):
+    """Two edits in the file written with one and patched (the entry count
+    and a copy of the entry, box sizes fixed up): once refused, now read as
+    cv2 reads them, the media played twice from frame 1."""
     path = tmp_path / "clip.mp4"
     write_clip(path, num_frames=3, edit_frames=1)
     data = bytearray(path.read_bytes())
@@ -231,7 +245,180 @@ def test_more_than_one_edit_is_refused(tmp_path):
         size = struct.unpack(">I", data[start:start + 4])[0]
         data[start:start + 4] = struct.pack(">I", size + 12)
     path.write_bytes(bytes(data))
-    with pytest.raises(mp4.UnsupportedVideoError, match="2 edits.*Queue 1 item 9e"):
+    (_, _, fps), frames = cv2_read(path)
+    capture = VideoCapture(str(path), device="cpu")
+    assert len(frames) == capture.frame_count == 4 and capture.fps == fps
+    for index, (got, want) in enumerate(zip(capture.frames(), frames)):
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"frame {index}")
+
+
+# Edit lists, as (segment duration, media time) in frames of the 30 fps
+# track (-1: an empty edit), each read by cv2 through FFmpeg's
+# mov_fix_index. "nonsync" clips have an IDR picture every third frame, so
+# their edits start on non-sync samples after a sync sample other than the
+# first; "reorder" clips are out of order (ctts).
+EDIT_LISTS = {
+    "two": dict(edits=[(3, 0), (2, 4)]),
+    "three": dict(edits=[(2, 0), (1, 5), (3, 2)]),
+    "leading_empty": dict(edits=[(5, -1), (4, 2)]),
+    "two_leading_empty": dict(edits=[(5, -1), (2, -1), (4, 1)]),
+    "nonsync": dict(edits=[(3, 4)], idr_every=3),
+    "nonsync_two": dict(edits=[(2, 1), (3, 5)], idr_every=3),
+    "repeated_range": dict(edits=[(3, 1), (3, 1)]),
+    "overlapping_ranges": dict(edits=[(4, 1), (3, 3)]),
+    "empty_in_the_middle": dict(edits=[(2, 0), (3, -1), (2, 4)]),
+    "reorder_repeated": dict(edits=[(4, 2), (2, 2)], reorder=True),
+    "past_the_end": dict(edits=[(20, 5)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EDIT_LISTS))
+def test_edit_lists_give_cv2s_frames_in_cv2s_order(tmp_path, case):
+    """Each edit list's frames, their order, the grab-loop count and the
+    rate equal cv2's; the CPU reader's planes are the seeded planes of the
+    frames cv2 shows."""
+    path = tmp_path / "clip.mp4"
+    planes = write_clip(path, num_frames=8, **EDIT_LISTS[case])
+    (width, height, fps), frames = cv2_read(path)
+    capture = VideoCapture(str(path), device="cpu")
+    assert (capture.width, capture.height, capture.fps) == (width, height, fps)
+    assert capture.frame_count == len(frames) > 0
+    got = [frame.numpy() for frame in capture.frames()]
+    assert len(got) == len(frames)
+    for index, (frame, want) in enumerate(zip(got, frames)):
+        np.testing.assert_array_equal(frame, want, err_msg=f"frame {index}")
+    shown = [next(i for i, p in enumerate(planes)
+                  if np.array_equal(color.yuv420_to_bgr(*map(torch.from_numpy, p)).numpy(), f))
+             for f in frames]
+    for (y, _, _), index in zip(capture.planes(), shown):
+        np.testing.assert_array_equal(y.numpy(), planes[index][0])
+    np.testing.assert_array_equal(capture.frame(len(frames) - 1).numpy(), frames[-1])
+
+
+def mjpeg_frames(num_frames, width, height, seed=0):
+    """Smooth seeded BGR frames: a JPEG's error stays small, its IDCT not
+    trivial."""
+    rng = np.random.default_rng(seed)
+    return [cv2.GaussianBlur(rng.integers(0, 256, (height, width, 3), dtype=np.uint8),
+                             (5, 5), 1.2) for _ in range(num_frames)]
+
+
+def pillow_jpeg(bgr, subsampling, grey=False, quality=90):
+    image = Image.fromarray(np.ascontiguousarray(bgr[..., ::-1]))
+    out = io.BytesIO()
+    if grey:
+        image.convert("L").save(out, format="JPEG", quality=quality)
+    else:
+        image.save(out, format="JPEG", quality=quality, subsampling=subsampling)
+    return out.getvalue()
+
+
+def write_mjpeg(path, samples, width, height, **options):
+    mp4.write_mp4(str(path), mp4.mjpeg_entry(width, height), samples, width=width,
+                  height=height, timescale=30, durations=[1] * len(samples), **options)
+
+
+def assert_reads_as_cv2(path, count):
+    (width, height, fps), frames = cv2_read(path)
+    capture = VideoCapture(str(path), device="cpu")
+    assert capture.codec == mp4.MJPEG
+    assert (capture.width, capture.height, capture.fps) == (width, height, fps)
+    assert capture.frame_count == len(frames) == count
+    for index, (got, want) in enumerate(zip(capture.frames(), frames)):
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"frame {index}")
+    return capture
+
+
+@pytest.mark.parametrize("width,height", [(64, 48), (160, 120)])
+def test_cv2_motion_jpeg_reads_as_cv2(tmp_path, width, height):
+    """cv2's MJPG writer stores Motion JPEG under an mp4v entry whose esds
+    names JPEG (0x6C); the port reads its frames, rate and count as cv2
+    does, bit for bit."""
+    path = str(tmp_path / "clip.mp4")
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 24, (width, height))
+    for frame in mjpeg_frames(4, width, height):
+        writer.write(frame)
+    writer.release()
+    track = mp4.read_track(path)
+    assert (track.fourcc, track.codec) == (b"mp4v", mp4.MJPEG)
+    assert assert_reads_as_cv2(path, 4).fps == 24.0
+
+
+@pytest.mark.parametrize("layout", ["420", "422", "444", "grey"])
+def test_pillow_motion_jpeg_layouts_read_as_cv2(tmp_path, layout):
+    """Pillow's 4:2:0, 4:2:2, 4:4:4 and grey JPEGs muxed by the port (a
+    90-degree display matrix on one of them) read as cv2 reads them; the
+    native and numpy decodes give the same planes."""
+    width, height = (160, 120) if layout != "422" else (64, 48)
+    frames = mjpeg_frames(3, width, height, seed=len(layout))
+    samples = [pillow_jpeg(f, {"420": 2, "422": 1}.get(layout, 0), grey=layout == "grey")
+               for f in frames]
+    path = tmp_path / "clip.mp4"
+    write_mjpeg(path, samples, width, height, rotation=90 if layout == "444" else 0)
+    assert_reads_as_cv2(path, 3)
+    native = mjpeg.decode_sample(samples[1], height, native=True)
+    plain = mjpeg.decode_sample(samples[1], height, native=False)
+    assert len(native) == (1 if layout == "grey" else 3)
+    for a, b in zip(native, plain):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_motion_jpeg_without_dht_and_with_avi1_reads_as_cv2(tmp_path):
+    """Samples with their DHT segments stripped (the standard tables then
+    hold, as Pillow wrote them) and samples with an AVI1 APP0 segment."""
+    frames = mjpeg_frames(2, 64, 48, seed=5)
+    samples = []
+    for frame in frames:
+        blob = pillow_jpeg(frame, 2)
+        pos, stripped = 2, blob[:2]
+        while blob[pos + 1] != 0xDA:
+            length = struct.unpack(">H", blob[pos + 2:pos + 4])[0]
+            if blob[pos + 1] != 0xC4:
+                stripped += blob[pos:pos + 2 + length]
+            pos += 2 + length
+        samples.append(stripped + blob[pos:])
+    avi1 = b"\xff\xe0" + struct.pack(">H", 16) + b"AVI1" + bytes(10)
+    samples += [blob[:2] + avi1 + blob[2:] for blob in (pillow_jpeg(f, 2) for f in frames)]
+    assert b"\xff\xc4" not in samples[0][:samples[0].index(b"\xff\xda")]
+    path = tmp_path / "clip.mp4"
+    write_mjpeg(path, samples, 64, 48)
+    assert_reads_as_cv2(path, 4)
+    assert mjpeg.sample_header(samples[2])["avi1"] == 0
+
+
+def test_motion_jpeg_is_not_the_libjpeg_decode():
+    """The planes differ from libjpeg's islow IDCT (Pillow's decode) on
+    these samples: the IDCT choice is what makes the frames cv2's."""
+    from hive_tpu_torch.image_codecs import decode_jpeg_planes
+
+    blob = pillow_jpeg(mjpeg_frames(1, 64, 48, seed=7)[0], 2)
+    simple = decode_jpeg_planes(blob, idct="simple").planes
+    islow = decode_jpeg_planes(blob, idct="islow").planes
+    assert any((a != b).any() for a, b in zip(simple, islow))
+
+
+def test_motion_jpeg_refusals_name_the_layout(tmp_path):
+    """Interlaced two-field samples (a frame header half the track's
+    height), subsampled chroma at an odd height, and 4:1:1 are refused by
+    name before any decode."""
+    blob = pillow_jpeg(mjpeg_frames(1, 64, 24, seed=2)[0], 2)
+    path = tmp_path / "fields.mp4"
+    write_mjpeg(path, [blob], 64, 48)
+    with pytest.raises(mp4.UnsupportedVideoError, match="interlaced.*24 of the track's 48"):
+        VideoCapture(str(path), device="cpu")
+
+    odd = pillow_jpeg(mjpeg_frames(1, 64, 49, seed=3)[0], 2)
+    path = tmp_path / "odd.mp4"
+    write_mjpeg(path, [odd], 64, 49)
+    with pytest.raises(mp4.UnsupportedVideoError, match="yuvj420p of odd height"):
+        VideoCapture(str(path), device="cpu")
+
+    sof = blob.index(b"\xff\xc0")
+    four_one_one = bytearray(blob)
+    four_one_one[sof + 11] = 0x41                       # Y sampled 4 x 1
+    path = tmp_path / "411.mp4"
+    write_mjpeg(path, [bytes(four_one_one)], 64, 24)
+    with pytest.raises(mp4.UnsupportedVideoError, match=r"sampling factors.*\(4, 1\)"):
         VideoCapture(str(path), device="cpu")
 
 

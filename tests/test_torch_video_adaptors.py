@@ -1,8 +1,8 @@
 """The video adaptors of hive_tpu_torch (``VideoAdaptor``,
 ``StrayScannerAdaptor``, ``DeviceOrientation``, ``get_dataset`` and the CLI on
-video inputs) against hive_tpu's on the same I_PCM H.264 fixtures, which
-hive_tpu reads through cv2 5.0.0 and the port through its own demuxer
-and CPU reader: sizes, metadata, frame counts and rates equal; frames and
+video inputs) against hive_tpu's on the same I_PCM H.264 and Motion JPEG
+fixtures, which hive_tpu reads through cv2 5.0.0 and the port through its
+own demuxer, CPU reader and Motion JPEG decoder: sizes, metadata, frame counts and rates equal; frames and
 the JPEG bytes ``copy_frames`` writes equal; camera matrices and
 trajectories within 1e-12 (the same float64 operations; a bound, not
 equality, in case scipy's and numpy's orders ever differ); depth maps equal
@@ -27,10 +27,11 @@ from hive_tpu.options import PipelineOptions as JaxPipelineOptions
 from hive_tpu.options import StorageOptions as JaxStorageOptions
 from hive_tpu.pipeline import Pipeline as JaxPipeline
 from hive_tpu_torch import dataset_adaptors
+from hive_tpu_torch.image_codecs import encode_jpeg
 from hive_tpu_torch.meshing.gltf import load_glb
 from hive_tpu_torch.options import COLMAPOptions, PipelineOptions, StorageOptions
 from hive_tpu_torch.pipeline import Pipeline
-from hive_tpu_torch.video import color, h264_pcm
+from hive_tpu_torch.video import color, h264_pcm, mp4
 
 VOCAB = "colmap/vocab.bin"   # the packages' defaults differ; metadata.json holds it
 TRAJECTORY_TOL = 1e-12
@@ -42,21 +43,34 @@ def no_weights(tmp_path, monkeypatch):
     monkeypatch.setenv("WEIGHTS_PATH", str(tmp_path / "no_weights"))
 
 
-def scene_frames(num_frames, width, height, seed=2):
-    """A gradient wall with a blob crossing it, as YUV planes."""
+def scene_rgb(num_frames, width, height, seed=2):
+    """A gradient wall with a blob crossing it, as RGB frames."""
     rng = np.random.default_rng(seed)
     ys, xs = np.mgrid[0:height, 0:width]
     frames = []
     for i in range(num_frames):
         rgb = np.stack([xs * 255 // width, ys * 255 // height, np.full_like(xs, 90)], -1)
         rgb[(xs - width // 8 - 4 * i) ** 2 + (ys - height // 2) ** 2 < width] = (200, 64, 64)
-        rgb = np.clip(rgb + rng.normal(0, 3, rgb.shape), 0, 255).astype(np.uint8)
-        frames.append(color.rgb_to_yuv420(rgb))
+        frames.append(np.clip(rgb + rng.normal(0, 3, rgb.shape), 0, 255).astype(np.uint8))
     return frames
+
+
+def scene_frames(num_frames, width, height, seed=2):
+    """The same frames as YUV planes."""
+    return [color.rgb_to_yuv420(rgb) for rgb in scene_rgb(num_frames, width, height, seed)]
 
 
 def make_video(path, num_frames=6, width=64, height=48, **options):
     h264_pcm.write_pcm_mp4(str(path), scene_frames(num_frames, width, height), **options)
+    return str(path)
+
+
+def make_mjpeg_video(path, num_frames=6, width=64, height=48):
+    """The same scene as Motion JPEG (the port's ``encode_jpeg``, 4:2:0) in
+    the mp4v / 0x6C entry cv2's MJPG writer uses."""
+    samples = [encode_jpeg(rgb, 90) for rgb in scene_rgb(num_frames, width, height)]
+    mp4.write_mp4(str(path), mp4.mjpeg_entry(width, height), samples, width=width,
+                  height=height, timescale=30, durations=[1] * num_frames)
     return str(path)
 
 
@@ -250,6 +264,43 @@ def test_get_dataset_estimates_pose_and_depth_of_a_video_like_hive_tpu(tmp_path,
     monkeypatch.setattr(jax_resize, "keep_aspect_multiple_of", net_size)
     monkeypatch.setattr(dataset_adaptors, "keep_aspect_multiple_of", net_size)
     video = make_video(tmp_path / "clip.mp4", num_frames=4)
+    outputs = {name: str(tmp_path / name) for name in ("ours", "theirs")}
+    binary = str(tmp_path / "no_colmap")
+    dataset_adaptors.get_dataset(
+        StorageOptions(dataset_path=video, output_path=outputs["ours"]),
+        COLMAPOptions(vocab_path=VOCAB, binary_path=binary),
+        PipelineOptions(estimate_pose=True, estimate_depth=True), resize_to=64, device="cpu")
+    jax_adaptors.get_dataset(
+        JaxStorageOptions(dataset_path=video, output_path=outputs["theirs"]),
+        JaxCOLMAPOptions(vocab_path=VOCAB, binary_path=binary),
+        JaxPipelineOptions(estimate_pose=True, estimate_depth=True), resize_to=64)
+    compare_converted(outputs["ours"], outputs["theirs"], depth_atol=1)
+
+
+def test_motion_jpeg_video_converts_with_pose_and_depth_like_hive_tpu(tmp_path, monkeypatch):
+    """A Motion JPEG clip (what cv2's MJPG writer stores in an .mp4) with
+    ``--estimate_pose --estimate_depth`` and no COLMAP binary, as the CLI
+    runs it on the card: the adaptor's frames and sizes, then the converted
+    folders, as in the H.264 test above (DPT at 64 x 96, depth within
+    1 mm)."""
+    from hive_tpu.ops import resize as jax_resize
+
+    def net_size(*args, **kwargs):
+        return 64, 96
+
+    monkeypatch.setattr(jax_resize, "keep_aspect_multiple_of", net_size)
+    monkeypatch.setattr(dataset_adaptors, "keep_aspect_multiple_of", net_size)
+    video = make_mjpeg_video(tmp_path / "clip.mp4", num_frames=4)
+    ours = dataset_adaptors.VideoAdaptor(video, str(tmp_path / "a"), resize_to=64,
+                                         colmap_options=COLMAPOptions(vocab_path=VOCAB),
+                                         device="cpu")
+    theirs = jax_adaptors.VideoAdaptor(video, str(tmp_path / "b"), resize_to=64,
+                                       colmap_options=JaxCOLMAPOptions(vocab_path=VOCAB))
+    assert (ours.target_width, ours.target_height, ours.num_frames, ours.fps) == \
+        (theirs.target_width, theirs.target_height, theirs.num_frames, theirs.fps) == \
+        (64, 48, 4, 30.0)
+    for index in range(4):
+        np.testing.assert_array_equal(ours.get_frame(index), theirs.get_frame(index))
     outputs = {name: str(tmp_path / name) for name in ("ours", "theirs")}
     binary = str(tmp_path / "no_colmap")
     dataset_adaptors.get_dataset(
