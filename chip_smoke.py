@@ -299,8 +299,12 @@ Phases (any failure raises and the script exits non-zero):
    select, the host ms of each pair logged. ordered_hist: SIFT on one
    node's 1080p frame twice on the card and once on the CPU, keypoints and
    descriptors equal bit for bit; the kernel equal to its plain version
-   (the CPU's in-order ``scatter_add_``) on the run's largest orientation
-   and descriptor calls, each timed beside ``scatter_add_`` on the card;
+   (the CPU's in-order ``scatter_add_``) on ORDERED_HIST_LAYOUTS (one bin,
+   signed zeros, indices out of range, runs, ragged and empty rows, 1 and
+   512 bins) and on the run's largest orientation and descriptor calls,
+   each call timed beside ``scatter_add_`` on the card, beside it under
+   ``torch.use_deterministic_algorithms(True)`` (its bits compared with
+   the plain version's too) and beside its bound;
 19. the two measurement entry points, each run in this process with the
    launch counts reset just before and read just after:
    ``hive_tpu_torch.micro.gather`` (Q1 tile gathers, Q2 patch gather timed
@@ -311,7 +315,10 @@ Phases (any failure raises and the script exits non-zero):
    launched;
 20. one ``{"kernels": [...]}`` line (times, errors and bounds at the main
    paths' shapes, and under ``bench`` at the bench shape; ``ordered_hist``'s
-   launches are the phone run's, its times the 1080p descriptor call's),
+   launches are the phone run's, its times the 1080p descriptor call's,
+   beside the shapes of the phone run's and tum-pnp-pose's calls; the probe
+   kernels' entries carry the launch floor, a one-element ``add_``'s
+   device time, measured before phase 15),
    then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last
    line.
@@ -3870,7 +3877,7 @@ def run_pnp_pose_conversion(device, launches, gt_profiling, colmap_run, tmp: str
     reset_launch_counts()
     torch.cuda.synchronize()
     start = time.perf_counter()
-    with mock.patch.object(sys, "argv", argv):
+    with mock.patch.object(sys, "argv", argv), recording_ordered_hist_shapes([]) as shapes:
         runpy.run_module("hive_tpu_torch", run_name="__main__", alter_sys=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
@@ -3893,7 +3900,8 @@ def run_pnp_pose_conversion(device, launches, gt_profiling, colmap_run, tmp: str
         f"{profiling['elapsed_time']['per_frame']:.4f} s/frame; get_camera_parameters "
         f"{stage:.4f} s (phase 13's stand-in COLMAP {colmap_run['get_camera_parameters_s']:.4f} "
         f"s, phase 7's GT {gt_profiling['timing']['load_dataset']['get_camera_parameters']:.4f}"
-        f" s); ATE {ate:.6f} m (bound {PNP_ATE_M}); launches {launches['pnp_pose']}")
+        f" s); ATE {ate:.6f} m (bound {PNP_ATE_M}); launches {launches['pnp_pose']}; "
+        f"ordered_hist calls (rows, entries, bins) {shapes}")
 
     # The pose optimiser's CLI on the converted folder, no cached features.
     debug = os.path.join(out, "pose_optim")
@@ -3924,6 +3932,7 @@ def run_pnp_pose_conversion(device, launches, gt_profiling, colmap_run, tmp: str
         f"{ended - began:.3f} s ({kept}; {correspondences} correspondences), whole CLI "
         f"{optimise_s:.1f} s; the phase took {time.perf_counter() - phase_start:.1f} s")
     return dict(wall_s=wall, per_frame_s=profiling["elapsed_time"]["per_frame"],
+                ordered_hist_shapes=shapes,
                 get_camera_parameters_s=stage, ate_m=ate, extraction_s=ended - began,
                 pairs_kept=kept, correspondences=correspondences, optimise_cli_s=optimise_s)
 
@@ -4276,7 +4285,7 @@ def run_video_conversions(device, launches, folder: str, runs) -> dict:
         reset_launch_counts()
         start = time.perf_counter()
         with mock.patch.dict(os.environ, {"WEIGHTS_PATH": weights}), \
-                mock.patch.object(sys, "argv", argv):
+                mock.patch.object(sys, "argv", argv), recording_ordered_hist_shapes([]) as shapes:
             runpy.run_module("hive_tpu_torch", run_name="__main__", alter_sys=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
@@ -4314,13 +4323,14 @@ def run_video_conversions(device, launches, folder: str, runs) -> dict:
             profiling = json.load(f)
         results[name] = dict(wall_s=wall, per_frame_s=profiling["elapsed_time"]["per_frame"],
                              load_dataset=profiling["timing"]["load_dataset"],
-                             peak_bytes=int(torch.cuda.max_memory_allocated(device)))
+                             peak_bytes=int(torch.cuda.max_memory_allocated(device)),
+                             ordered_hist_shapes=shapes)
         log(f"[video] {name}: {VIDEO_FRAMES} frames converted and meshed through the CLI on "
             f"the card in {wall:.1f} s ({results[name]['per_frame_s']} s a frame, "
             f"profiling.json); fg.glb, bg.glb and metadata.json written, meshes finite, the "
             f"{VIDEO_FRAMES} frames' JPEG bytes equal the CPU path's; load_dataset "
             f"{json.dumps(profiling['timing']['load_dataset'])}; launches "
-            f"{launches[f'video_{name}']}")
+            f"{launches[f'video_{name}']}; ordered_hist calls (rows, entries, bins) {shapes}")
     return results
 
 
@@ -5096,14 +5106,100 @@ def check_research(device, launches, tmp: str) -> dict:
                 ordered_hist=ordered, phase_s=total)
 
 
+# Layouts the ordered histogram must sum as the CPU does, (layout, rows,
+# entries, bins); the CPU tests (tests/test_torch_numerics.py) run them as
+# they are, the card's checks with WARPS_PER_BLOCK x rows + 3 rows (not a
+# multiple of the kernel's rows a block). Values spread over 2^-20 .. 2^20,
+# so that another order of adds gives other sums.
+ORDERED_HIST_LAYOUTS = (
+    ("random", 3, 200, 36), ("random", 5, 1000, 360), ("random", 1, 7, 4),
+    ("random", 4, 0, 36), ("one_bin", 3, 1089, 36), ("signed_zeros", 3, 1089, 36),
+    ("out_of_range", 3, 1089, 360), ("runs", 3, 1089, 360), ("runs", 2, 16200, 360),
+    ("random", 2, 1089, 1), ("random", 2, 1089, 512), ("one_bin", 2, 0, 512))
+
+
+def ordered_hist_case(layout: str, rows: int, entries: int, bins: int, rng):
+    """(index, value), int32 and float32 numpy arrays of one layout:
+    ``random`` bins; ``one_bin`` every entry of a row in one bin;
+    ``signed_zeros`` every other entry +0 or -0, the first -0, and a first
+    row of zeros alone; ``out_of_range`` a third of the indices outside
+    [0, bins) (to be skipped); ``runs`` runs of one bin 1 to 40 entries
+    long, as neighbouring SIFT samples give."""
+    index = rng.integers(0, bins, (rows, entries)).astype(np.int32)
+    value = (rng.standard_normal((rows, entries))
+             * np.ldexp(1.0, rng.integers(-20, 20, (rows, entries)))).astype(np.float32)
+    if layout == "one_bin":
+        index[:] = rng.integers(0, bins, (rows, 1))
+    elif layout == "signed_zeros":
+        value[:, 0::2] = np.where(rng.random((rows, (entries + 1) // 2)) < 0.5, -0.0, 0.0)
+        value[:, 0] = -0.0
+        value[0, 1::2] = np.where(rng.random(entries // 2) < 0.5, -0.0, 0.0)
+    elif layout == "out_of_range":
+        outside = rng.random((rows, entries)) < 1 / 3
+        index[outside] = rng.choice(np.array([-1, -bins, bins, bins + 7, -2 ** 31, 2 ** 31 - 1]),
+                                    outside.sum())
+    elif layout == "runs":
+        for r in range(rows):
+            lengths = rng.integers(1, 41, entries)
+            run_bins = rng.integers(0, bins, entries)
+            index[r] = np.repeat(run_bins, lengths)[:entries]
+    elif layout != "random":
+        raise ValueError(f"unknown layout {layout}")
+    return index, value
+
+
+def ordered_hist_in_range(index: np.ndarray, value: np.ndarray, bins: int):
+    """The entries the kernel adds, as the plain version takes them (it
+    refuses an index outside [0, bins)): others sent to bin 0 with +0,
+    which leaves every sum as it is."""
+    inside = (index >= 0) & (index < bins)
+    return (np.where(inside, index, 0).astype(np.int32),
+            np.where(inside, value, np.float32(0.0)).astype(np.float32))
+
+
+def check_ordered_hist_layouts(device, layouts=ORDERED_HIST_LAYOUTS) -> list:
+    """The kernel against its plain version on the CPU, bit for bit, on each
+    of ``layouts`` with WARPS_PER_BLOCK x rows + 3 rows."""
+    from hive_tpu_torch.ops import ordered_hist as oh
+
+    checked = []
+    for layout, rows, entries, bins in layouts:
+        rows = rows * oh.WARPS_PER_BLOCK + 3
+        rng = np.random.default_rng(rows * 1000 + entries)
+        index, value = ordered_hist_case(layout, rows, entries, bins, rng)
+        got = oh.ordered_hist(torch.from_numpy(index).to(device),
+                              torch.from_numpy(value).to(device), bins)
+        want = oh.ordered_hist_plain(*map(torch.from_numpy,
+                                          ordered_hist_in_range(index, value, bins)), bins)
+        if not torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"[ordered_hist] the kernel differs from its plain version on "
+                                 f"the {layout} layout, {rows} x {entries} -> {bins} bins")
+        checked.append(f"{layout} {rows}x{entries}->{bins}")
+    return checked
+
+
+def deterministic_scatter_add(sums, wide, value):
+    """``sums.scatter_add_(1, wide, value)`` under
+    ``torch.use_deterministic_algorithms(True)``, the mode restored after."""
+    mode = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True)
+    try:
+        return sums.scatter_add_(1, wide, value)
+    finally:
+        torch.use_deterministic_algorithms(mode[0], warn_only=mode[1])
+
+
 def check_ordered_hist(device, image: np.ndarray) -> dict:
     """[research] ordered_hist: SIFT on a 1920x1080 Kinoptic frame twice on
     the card and once on the CPU, every keypoint field and descriptor equal
     bit for bit; the kernel against its plain version (the CPU's in-order
-    ``scatter_add_``) bit for bit on the largest orientation (36-bin) and
-    descriptor (360-bin) call of the card's run, each timed beside the same
-    ``scatter_add_`` on the card (atomics: the library call, and the plain
-    version's time there) and its bound."""
+    ``scatter_add_``) bit for bit on ORDERED_HIST_LAYOUTS and on the largest
+    orientation (36-bin) and descriptor (360-bin) call of the card's run,
+    each call timed beside the same ``scatter_add_`` on the card (atomics:
+    the library call, and the plain version's time there), beside it under
+    ``torch.use_deterministic_algorithms(True)`` (whose sums are checked
+    against the plain version's bits too) and beside its bound."""
     from hive_tpu_torch.ops import ordered_hist as oh
     from hive_tpu_torch.ops import sift
 
@@ -5130,11 +5226,12 @@ def check_ordered_hist(device, image: np.ndarray) -> dict:
         if not torch.equal(a.cpu(), c):
             raise AssertionError(f"[ordered_hist] SIFT at 1080p on the card differs from the "
                                  f"CPU in {field} ({len(first)} vs {len(cpu)} keypoints)")
+    layouts = check_ordered_hist_layouts(device)
     calls = {}
     for bins, (index, value) in sorted(largest.items()):
         got = oh.ordered_hist(index, value, bins)
-        want = oh.ordered_hist_plain(index.cpu(), value.cpu(), bins)
-        if not torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)):
+        want = oh.ordered_hist_plain(index.cpu(), value.cpu(), bins).view(torch.int32)
+        if not torch.equal(got.cpu().view(torch.int32), want):
             raise AssertionError(f"[ordered_hist] the kernel differs from its plain version "
                                  f"at {tuple(index.shape)} x {bins} bins")
         rows, entries = index.shape
@@ -5142,21 +5239,52 @@ def check_ordered_hist(device, image: np.ndarray) -> dict:
         # once; operations: one add an entry.
         bound_ms, bound_by = bound(rows * entries * 8 + rows * bins * 4, rows * entries)
         sums, wide = torch.zeros((rows, bins), device=device), index.long()
+        det = deterministic_scatter_add(torch.zeros_like(sums), wide, value)
         calls[bins] = dict(
             ms=device_time_ms(lambda: oh.ordered_hist(index, value, bins), reps=5, warmup=1),
             plain_ms=device_time_ms(lambda: oh.ordered_hist_plain(index, value, bins),
                                     reps=10, warmup=2),
             library_ms=device_time_ms(lambda: sums.scatter_add_(1, wide, value), reps=10,
                                       warmup=2),
+            library_det_ms=device_time_ms(lambda: deterministic_scatter_add(sums, wide, value),
+                                          reps=10, warmup=2),
+            library_det_equal=bool(torch.equal(det.cpu().view(torch.int32), want)),
             bound_ms=bound_ms, bound_by=bound_by, max_abs_err=0.0,
             shape=f"{rows} rows x {entries} entries -> {bins} bins")
     log(f"[ordered_hist] SIFT at {image.shape[1]}x{image.shape[0]}: {len(first)} keypoints; "
         f"two card runs equal and equal to the CPU's ({cpu_s:.1f} s) in "
-        f"{', '.join(fields)}; the kernel equals its plain version bit for bit on "
+        f"{', '.join(fields)}; the kernel equals its plain version bit for bit on the layouts "
+        f"{', '.join(layouts)} and on "
         + "; ".join(f"{c['shape']}: {c['ms']:.6f} ms device (plain, scatter_add_ on the card: "
-                    f"{c['plain_ms']:.6f}; library {c['library_ms']:.6f}; bound "
-                    f"{c['bound_ms']:.7f}, {c['bound_by']})" for c in calls.values()))
-    return dict(keypoints=len(first), cpu_s=cpu_s, calls=calls)
+                    f"{c['plain_ms']:.6f}; library {c['library_ms']:.6f}; deterministic "
+                    f"scatter_add_ {c['library_det_ms']:.6f}, "
+                    f"{'equal' if c['library_det_equal'] else 'not equal'} to the plain "
+                    f"version's bits; bound {c['bound_ms']:.7f}, {c['bound_by']})"
+                    for c in calls.values()))
+    return dict(keypoints=len(first), cpu_s=cpu_s, layouts=layouts, calls=calls)
+
+
+@contextlib.contextmanager
+def recording_ordered_hist_shapes(shapes: list):
+    """Appends (rows, entries, bins) of each ordered_hist call SIFT makes
+    to ``shapes``."""
+    from hive_tpu_torch.ops import ordered_hist as oh
+    from hive_tpu_torch.ops import sift
+
+    def recording(index, value, bins):
+        shapes.append((*index.shape, bins))
+        return oh.ordered_hist(index, value, bins)
+
+    with mock.patch.object(sift, "ordered_hist", recording):
+        yield shapes
+
+
+def launch_floor_ms(device) -> float:
+    """Device ms of a one-element ``add_``: what any launch costs."""
+    one = torch.zeros(1, device=device)
+    ms = device_time_ms(lambda: one.add_(1.0), reps=50, warmup=5)
+    log(f"[launch floor] a one-element add_: {ms:.6f} ms device")
+    return ms
 
 
 # ---------------------------------------------------------------------------
@@ -5408,6 +5536,7 @@ def main() -> int:
                   "tile_gather": check_tile_gather(device),
                   "patch_gather": check_patch_gather(device),
                   "fused_band": check_fused_band(device)}
+        floor = launch_floor_ms(device)
         features = check_features(device)
         pnp_run = run_pnp_pose_conversion(device, launches, conversion_profiling, colmap_run,
                                           tmp)
@@ -5465,12 +5594,13 @@ def main() -> int:
             name=name, route="cuda", source=f"hive_tpu_torch/csrc/{name}.cu",
             replaces=replaces, entry_point=", ".join(f"hive_tpu_torch.{e}" for e in entries),
             launches=sum(launches[e][name] for e in entries), exact=True,
-            **{k: v for k, v in probes[name].items() if k != "library"},
+            **{k: v for k, v in probes[name].items() if k != "library"}, launch_floor_ms=floor,
             entry_point_result=entry_results[name]))
     # The SIFT histograms' ordered sum (no TPU kernel; it replaces the
     # scatter_add_ of the port's SIFT, hive_tpu's being cv2.SIFT_create):
     # launches are the Motion JPEG phone run's PnP, times those of the
-    # 1080p descriptor call (the orientation call's beside them).
+    # 1080p descriptor call (the orientation call's beside them); the
+    # shapes of the phone run's and tum-pnp-pose's calls beside them.
     ordered = research["ordered_hist"]["calls"]
     kernels.append(dict(
         name="ordered_hist", route="cuda", source="hive_tpu_torch/csrc/ordered_hist.cu",
@@ -5478,7 +5608,9 @@ def main() -> int:
         "cv2.SIFT_create(...).detectAndCompute, in OpenCV's sample order",
         launches=launches["video_phone"]["ordered_hist"],
         launches_pnp_pose=launches["pnp_pose"]["ordered_hist"], exact=True,
-        **ordered[360], orientation=ordered[36]))
+        **ordered[360], orientation=ordered[36],
+        shapes_phone=video["runs"]["phone"]["ordered_hist_shapes"],
+        shapes_pnp_pose=pnp_run["ordered_hist_shapes"]))
     log("[shard] summary " + json.dumps(shards))
     log("[convert] summary " + json.dumps(conversion))
     log("[dpt] summary " + json.dumps({"model": dpt_results, "estimate_depth_run": depth_run}))

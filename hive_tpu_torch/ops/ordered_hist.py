@@ -8,13 +8,18 @@ adds with atomics in no fixed order, so the card's sums, and so its
 keypoints, descriptors and MIFD, moved from run to run and off the CPU's.
 This kernel (``csrc/ordered_hist.cu``) sums in entry order on the card.
 
-Design: one thread owns one row and walks its entries in order, adding
-with ``__fadd_rn`` into the row's histogram in shared memory; a block of
-32 rows (one warp) stages each tile of its rows' entries through shared
-memory so that the global reads coalesce. The sum stays in entry order,
-so nothing parallel (tensor cores, a tree) can help. Bound on the card:
-8 bytes an entry read and 4 bytes a bin written, over 3.35 TB/s; one
-thread's serial walk of a row is far slower than that.
+Design: one warp owns one row, four rows a block, each with its own
+histogram in shared memory. The warp takes 32 consecutive entries a step,
+lane order being entry order; the lanes that hit one bin form a group
+(``__match_any_sync``), and its lowest lane adds its own value and then
+its peers' in lane order, one ``__fadd_rn`` each, into the bin's running
+value: each bin still takes its entries in entry order. Entries outside
+``[0, bins)`` or with a value of +0 or -0 are skipped, which is exact (the
+sum starts at +0, never becomes -0, and is unchanged by adding a zero).
+Each warp stages its row through a ring in shared memory with
+``cp.async``, the next 256 entries in flight while it sums the current
+256. Bound on the card: 8 bytes an entry read and 4 bytes a bin written,
+over 3.35 TB/s.
 """
 
 from __future__ import annotations
@@ -28,10 +33,10 @@ from hive_tpu_torch.ops import cuda_build
 # Kernel launches (not plain-version calls) since the last reset.
 launches = 0
 
-# Rows a block sums (one warp), and the most bins a row's histogram in
-# shared memory may hold: 32 rows x 512 bins x 4 B = 64 KB, plus the
-# staging tile, within the 227 KB a block may use.
-ROWS_PER_BLOCK = 32
+# Rows a block sums (one warp each), and the most bins a row may have:
+# 4 rows x 512 bins x 4 B = 8 KB of histograms beside 16 KB of staging
+# rings, within the 48 KB a block may use without asking.
+WARPS_PER_BLOCK = 4
 MAX_BINS = 512
 
 

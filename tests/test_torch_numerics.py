@@ -10,7 +10,11 @@ arithmetic:
   float32's subnormal range), and a seeded sweep over random exponents;
 * ``ordered_hist`` (its plain version here) equals each row's float32 sum
   in entry order, one rounded add at a time, bit for bit, on values whose
-  sums depend on the order.
+  sums depend on the order; so does a numpy model of the CUDA kernel's
+  schedule (steps of 32 entries, each step's lanes that hit one bin added
+  by the lowest in lane order, +-0 and out-of-range entries skipped), on
+  ``chip_smoke.ORDERED_HIST_LAYOUTS``'s adversarial rows. On the card
+  (``cuda`` marker) the kernel equals the plain version on those layouts.
 """
 
 from fractions import Fraction
@@ -19,7 +23,10 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import (ORDERED_HIST_LAYOUTS, check_ordered_hist_layouts, ordered_hist_case,
+                        ordered_hist_in_range)
 from hive_tpu_torch.core.numerics import f32, fma_f32
+from hive_tpu_torch.ops import ordered_hist as ordered_hist_module
 from hive_tpu_torch.ops.ordered_hist import ordered_hist, ordered_hist_plain
 
 
@@ -111,33 +118,80 @@ def test_f32_rounds_to_float32():
 
 
 def in_order_sums(index: np.ndarray, value: np.ndarray, bins: int) -> np.ndarray:
-    """Each row's bins summed in entry order, in float32, one add at a time."""
+    """Each row's bins summed in entry order, in float32, one add at a
+    time, from +0; an index outside [0, bins) is skipped."""
     out = np.zeros((len(index), bins), np.float32)
     for r in range(len(index)):
         for b, v in zip(index[r].tolist(), value[r]):
-            out[r, b] = np.float32(out[r, b] + v)
+            if 0 <= b < bins:
+                out[r, b] = np.float32(out[r, b] + v)
     return out
 
 
-@pytest.mark.parametrize("rows,entries,bins", [(3, 200, 36), (5, 1000, 360), (1, 7, 4),
-                                               (4, 0, 36)])
-def test_ordered_hist_sums_each_row_in_entry_order(rows, entries, bins):
+def kernel_schedule_sums(index: np.ndarray, value: np.ndarray, bins: int) -> np.ndarray:
+    """A model of ``csrc/ordered_hist.cu``'s schedule: a row's entries in
+    steps of 32, lane l holding entry e0 + l; an entry is skipped when its
+    index lies outside [0, bins) or its value is +0 or -0; the lanes of a
+    step that hit one bin form a group, and its lowest lane adds its own
+    value and then its peers' in lane order into the bin's running value,
+    one float32 add each."""
+    out = np.zeros((len(index), bins), np.float32)
+    for r in range(len(index)):
+        hist = out[r]
+        for e0 in range(0, index.shape[1], 32):
+            lane_bins = index[r, e0:e0 + 32].tolist()
+            lane_values = value[r, e0:e0 + 32]
+            active = [0 <= b < bins and (int(v.view(np.uint32)) << 1) & 0xFFFFFFFF != 0
+                      for b, v in zip(lane_bins, lane_values)]
+            groups = {}
+            for lane, b in enumerate(lane_bins):
+                if active[lane]:
+                    groups.setdefault(b, []).append(lane)
+            for b, lanes in groups.items():       # different bins: any order
+                total = np.float32(hist[b] + lane_values[lanes[0]])
+                for lane in lanes[1:]:
+                    total = np.float32(total + lane_values[lane])
+                hist[b] = total
+    return out
+
+
+@pytest.mark.parametrize("layout,rows,entries,bins", [
+    pytest.param(*case, id="-".join(map(str, case[1:])) if case[0] == "random"
+                 else "-".join(map(str, case))) for case in ORDERED_HIST_LAYOUTS])
+def test_ordered_hist_sums_each_row_in_entry_order(layout, rows, entries, bins):
     """Values of wildly different sizes, so that another order of adds
-    gives other float32 sums; the plain version (scatter_add_ on the CPU)
-    equals the in-order sum bit for bit."""
+    gives other float32 sums; the plain version (scatter_add_ on the CPU,
+    given the entries the kernel adds) and the model of the kernel's
+    schedule both equal the in-order sum bit for bit."""
     rng = np.random.default_rng(rows * 1000 + entries)
-    index = rng.integers(0, bins, (rows, entries)).astype(np.int32)
-    value = (rng.standard_normal((rows, entries))
-             * np.ldexp(1.0, rng.integers(-20, 20, (rows, entries)))).astype(np.float32)
+    index, value = ordered_hist_case(layout, rows, entries, bins, rng)
     want = in_order_sums(index, value, bins)
-    got = ordered_hist(torch.from_numpy(index), torch.from_numpy(value), bins)
+    np.testing.assert_array_equal(kernel_schedule_sums(index, value, bins).view(np.int32),
+                                  want.view(np.int32))
+    kept_index, kept_value = ordered_hist_in_range(index, value, bins)
+    got = ordered_hist(torch.from_numpy(kept_index), torch.from_numpy(kept_value), bins)
     assert got.dtype == torch.float32 and got.shape == (rows, bins)
     np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
-    plain = ordered_hist_plain(torch.from_numpy(index), torch.from_numpy(value), bins)
+    plain = ordered_hist_plain(torch.from_numpy(kept_index), torch.from_numpy(kept_value), bins)
     assert torch.equal(plain, got)
+    if layout == "signed_zeros":                 # a row of zeros alone sums to +0
+        assert not np.signbit(want[0]).any() and not want[0].any()
     if entries > 1:
         shuffled = in_order_sums(index[:, ::-1], value[:, ::-1], bins)
         assert (shuffled != want).any()          # the order does matter here
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [pytest.param(case, id="-".join(map(str, case)))
+                                  for case in ORDERED_HIST_LAYOUTS])
+def test_ordered_hist_kernel_on_card_equals_plain(case):
+    """The kernel on the card equals the plain version on the CPU bit for
+    bit on each layout, with rows that fill no whole block (chip_smoke's
+    check, one layout a case)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: a CUDA kernel has no CPU mode")
+    assert check_ordered_hist_layouts("cuda", [case]) == [
+        f"{case[0]} {case[1] * ordered_hist_module.WARPS_PER_BLOCK + 3}x{case[2]}->{case[3]}"]
 
 
 def test_ordered_hist_checks_its_inputs():
