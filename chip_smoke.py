@@ -14,7 +14,7 @@ Phases (any failure raises and the script exits non-zero):
 2. build all seven CUDA kernels from ``hive_tpu_torch/csrc`` (one ``nvcc``
    each, started together), then the native host library (``g++``: the
    extraction weld, the QEM decimation, the JPEG scan decode, the PNG
-   unfilter and Telea's inpainting);
+   unfilter, Telea's inpainting and the MPEG-4 Part 2 VOP decode);
 3. the block classification, both instantiations (pass 1 and the refine
    pass, one launch each) vs the plain classification on a bench frame with
    10% invalid depth pixels, without compaction, with the 0.375 cap and
@@ -226,8 +226,8 @@ Phases (any failure raises and the script exits non-zero):
    hive_tpu_torch.pose_optimisation`` on the converted folder with no
    cached feature set: the extraction time, the pairs kept and the whole
    CLI's time logged;
-17. [video]: video and Stray Scanner inputs (host demuxing and JPEG
-   decode, NVDEC, plain PyTorch; PnP's SIFT sums its histograms in the
+17. [video]: video and Stray Scanner inputs (host demuxing, JPEG and
+   MPEG-4 Part 2 decode, NVDEC, plain PyTorch; PnP's SIFT sums its histograms in the
    ordered kernel). Three seeded I_PCM H.264 MP4s (640x480 x 30 frames in
    display order, the same coded out of order with ``ctts``, 1920x1080 x 10
    frames, cropped from 1088 lines): the demuxer's size, count and rate as
@@ -249,7 +249,13 @@ Phases (any failure raises and the script exits non-zero):
    in the other CLI runs): two classifications and one band update a frame,
    the ordered histogram launched, ``fg.glb``, ``bg.glb`` and
    ``metadata.json`` written, finite meshes, the frames equal to the CPU
-   path's JPEG bytes. Where NVDEC opens, also a 30-frame Stray Scanner
+   path's JPEG bytes. The same 30 frames as an MPEG-4 Part 2 phone clip
+   (``video.mpeg4.write_mpeg4_mp4``: Simple Profile, what cv2's default
+   ``mp4v`` writer makes; an I-VOP every 12 frames, the wall's motion as
+   1MV / 4MV vectors, a video packet a row, 1088 coded lines): decoded on
+   the host (native), frames 0, 11, 12 and 29 on the card equal to the
+   CPU's, the I-VOP's and a P-VOP's host decode ms, the card's conversion,
+   then the same CLI run and checks. Where NVDEC opens, also a 30-frame Stray Scanner
    capture (1920x1440 H.264, 256x192 depth and confidence, the first pose
    rolled -90 degrees) with its own poses, the same checks; where it does
    not, a small H.264 clip and that capture refused by the CLI naming item
@@ -354,6 +360,7 @@ import sys
 import tempfile
 import time
 import zlib
+from typing import Tuple
 from unittest import mock
 
 import numpy as np
@@ -3952,6 +3959,18 @@ PHONE_W, PHONE_H, STRAY_W, STRAY_H, STRAY_DEPTH_HW = 1920, 1080, 1920, 1440, (19
 VIDEO_FRAMES = 30
 # The phone clip's JPEG quality (a phone's Motion JPEG runs at 85-95).
 PHONE_JPEG_QUALITY = 90
+# The MPEG-4 Part 2 phone clip: vop_quant and GOP length as cv2's mp4v
+# writer codes these frames (vop_quant 3 after its first I-VOP, an I-VOP
+# every 12 frames: tests/torch_mpeg4_cv2_writer.py); a video packet a row of
+# macroblocks and 4MV on every other one, which cv2's files do not hold, to
+# run those paths of the decoder; the frames whose card reads are held to
+# the CPU's (the first I-VOP, the last P-VOP of its GOP, the next I-VOP, the
+# last), and the least PSNR (dB) of their decoded luma against the renders
+# (the same script read 47.12-47.38; AC prediction in the wrong direction
+# reads 33.3 on the I-VOPs).
+PHONE_MPEG4_QSCALE, PHONE_MPEG4_GOP, PHONE_MPEG4_RESYNC = 3, 12, 120
+PHONE_MPEG4_CHECKED = (0, 11, 12, 29)
+PHONE_MPEG4_MIN_PSNR = 45.0
 
 
 def nvdec_caps_log() -> dict:
@@ -4140,13 +4159,18 @@ def check_video(device, launches, tmp: str) -> dict:
             f"{ms:.6f} ms device in {kernels} kernels")
 
     # A user's plain video and Stray Scanner capture through the CLI: the
-    # phone clip as Motion JPEG, which decodes on the host for every device;
-    # H.264 inputs need NVDEC.
+    # phone clip as Motion JPEG and as MPEG-4 Part 2 (what cv2's mp4v writer
+    # makes), both of which decode on the host for every device; H.264
+    # inputs need NVDEC.
     clip = os.path.join(folder, "phone.mp4")
+    mpeg4_clip = os.path.join(folder, "phone_mpeg4.mp4")
     stray = os.path.join(folder, "stray")
     results["mjpeg"] = check_mjpeg_clip(device, clip)
-    runs = [("phone", clip, ["--estimate_pose", "--estimate_depth", "--binary_path",
-                             os.path.join(folder, "no_colmap")], (360, 640))]
+    results["mpeg4"] = check_mpeg4_clip(device, mpeg4_clip)
+    pose_depth = ["--estimate_pose", "--estimate_depth", "--binary_path",
+                  os.path.join(folder, "no_colmap")]
+    runs = [("phone", clip, pose_depth, (360, 640)),
+            ("phone_mpeg4", mpeg4_clip, pose_depth, (360, 640))]
     if refusal is not None:
         # Small H.264 inputs: the CLI must refuse both before converting anything.
         h264_clip = os.path.join(folder, "phone_h264.mp4")
@@ -4258,11 +4282,146 @@ def check_mjpeg_clip(device, clip: str) -> dict:
     return result
 
 
+def wall_motion(poses: np.ndarray, K: np.ndarray, index: int, width: int,
+                height: int) -> np.ndarray:
+    """The wall's motion into frame ``index`` from the frame before, at the
+    centre of each 8x8 luma block: (mbh, mbw, 4, 2) half-pel vectors that
+    point into the previous frame, blocks in MPEG-4's order (top-left,
+    top-right, bottom-left, bottom-right)."""
+    from hive_tpu_torch.geometric import pose_vec2mat
+
+    mbw, mbh = -(-width // 16), -(-height // 16)
+    vs, us = np.mgrid[0:2 * mbh, 0:2 * mbw].astype(np.float64) * 8 + 3.5
+    M, M_prev = pose_vec2mat(poses[index]), pose_vec2mat(poses[index - 1])
+    R, t = M[:3, :3], M[:3, 3]
+    rays = np.stack([(us - K[0, 2]) / K[0, 0], (vs - K[1, 2]) / K[1, 1], np.ones_like(us)], -1)
+    origin, world = -R.T @ t, rays @ R
+    points = origin + ((WALL_Z_M - origin[2]) / world[..., 2])[..., None] * world
+    seen = points @ M_prev[:3, :3].T + M_prev[:3, 3]
+    u_prev = K[0, 0] * seen[..., 0] / seen[..., 2] + K[0, 2]
+    v_prev = K[1, 1] * seen[..., 1] / seen[..., 2] + K[1, 2]
+    field = np.rint(2 * np.stack([u_prev - us, v_prev - vs], -1)).astype(np.int32)
+    return field.reshape(mbh, 2, mbw, 2, 2).transpose(0, 2, 1, 3, 4).reshape(mbh, mbw, 4, 2)
+
+
+def write_mpeg4_phone_clip(path: str) -> Tuple[float, dict, list]:
+    """The phone clip as MPEG-4 Part 2 Simple Profile (``write_mpeg4_mp4``):
+    the same VIDEO_FRAMES 1920x1080 wall renders as the Motion JPEG clip (on
+    host threads), an I-VOP every PHONE_MPEG4_GOP frames, the wall's motion
+    as the motion field, 4MV on every other macroblock, a video packet
+    every row. Returns the seconds it took, the writer's counts and the
+    rendered (Y, U, V) planes it coded."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hive_tpu_torch.video import color, mpeg4
+
+    start = time.perf_counter()
+    texture, K = wall_texture(), wall_camera() * np.array([[3.0], [3.0], [1.0]])
+    poses = wall_trajectory(VIDEO_FRAMES)
+
+    def planes(i):
+        return color.rgb_to_yuv420(render_wall(texture, poses[i], K, PHONE_W, PHONE_H)[0])
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        frames = list(pool.map(planes, range(VIDEO_FRAMES)))
+    mbw, mbh = -(-PHONE_W // 16), -(-PHONE_H // 16)
+    four_mv = np.zeros((mbh, mbw), bool)
+    four_mv[:, ::2] = True
+    totals = mpeg4.write_mpeg4_mp4(
+        path, frames, qscale=PHONE_MPEG4_QSCALE, gop=PHONE_MPEG4_GOP,
+        motion=lambda i: wall_motion(poses, K, i, PHONE_W, PHONE_H), four_mv=four_mv,
+        resync_every=PHONE_MPEG4_RESYNC)
+    return time.perf_counter() - start, totals, frames
+
+
+def psnr_db(got: np.ndarray, want: np.ndarray) -> float:
+    """PSNR of uint8 ``got`` against ``want``, in dB."""
+    error = np.mean((got.astype(np.float64) - want.astype(np.float64)) ** 2)
+    return float("inf") if error == 0 else float(10 * np.log10(255.0 ** 2 / error))
+
+
+def check_mpeg4_clip(device, clip: str) -> dict:
+    """The MPEG-4 Part 2 phone clip read on the card against the CPU: the
+    demuxer's size, count and rate, frames PHONE_MPEG4_CHECKED equal, and
+    their decoded Y planes within PHONE_MPEG4_MIN_PSNR of the renders the
+    clip was written from (both captures decode on this host, so this is
+    what holds the decoder built here to the picture); the host decode
+    (native) ms of the I-VOP and of a P-VOP, the card's 4:2:0 -> BGR
+    conversion device ms and kernels, and a ``frames()`` loop's ms a frame
+    on the card."""
+    from hive_tpu_torch.video import color, mp4, mpeg4
+    from hive_tpu_torch.video.capture import VideoCapture
+
+    write_s, totals, rendered = write_mpeg4_phone_clip(clip)
+    card, cpu = VideoCapture(clip, device=device), VideoCapture(clip, device="cpu")
+    expected = (PHONE_W, PHONE_H, VIDEO_FRAMES, 30.0, mp4.MPEG4)
+    for capture in (card, cpu):
+        got = (capture.width, capture.height, capture.frame_count, capture.fps, capture.codec)
+        if got != expected:
+            raise AssertionError(f"[video] the MPEG-4 clip reads as {got}, not {expected}")
+    for index in PHONE_MPEG4_CHECKED:
+        if not torch.equal(card.frame(index).cpu(), cpu.frame(index)):
+            raise AssertionError(f"[video] the MPEG-4 clip's frame {index} on the card "
+                                 f"differs from the CPU's")
+    psnr = {}
+    for index in PHONE_MPEG4_CHECKED:
+        y = next(card.planes(index, index + 1))[0].cpu().numpy()
+        psnr[index] = psnr_db(y, rendered[index][0])
+        if not psnr[index] >= PHONE_MPEG4_MIN_PSNR:
+            raise AssertionError(f"[video] the MPEG-4 clip's frame {index} decodes "
+                                 f"{psnr[index]:.3f} dB PSNR against the luma it was "
+                                 f"written from, under {PHONE_MPEG4_MIN_PSNR} dB: the "
+                                 f"decoder is wrong on this host")
+    track = card.track
+    with open(clip, "rb") as f:
+        samples = []
+        for k in range(2):
+            f.seek(int(track.offsets[k]))
+            samples.append(f.read(int(track.sizes[k])))
+    decoder = mpeg4.Mpeg4Decoder(track.config)
+    i_vop, p_vop = (decoder.check(sample) for sample in samples)
+    if (i_vop.coding_type, p_vop.coding_type) != (mpeg4.I_VOP, mpeg4.P_VOP):
+        raise AssertionError("[video] the MPEG-4 clip does not start with an I-VOP and a P-VOP")
+    i_ms = host_ms(lambda: mpeg4.decode_macroblocks(samples[0], i_vop, decoder.headers, None),
+                   reps=5)
+    reference = mpeg4.decode_macroblocks(samples[0], i_vop, decoder.headers, None)
+    p_ms = host_ms(lambda: mpeg4.decode_macroblocks(samples[1], p_vop, decoder.headers,
+                                                    reference), reps=5)
+    planes = [torch.from_numpy(np.ascontiguousarray(p)).to(device)
+              for p in mpeg4.Mpeg4Decoder(track.config).decode(samples[0])]
+    convert_ms, kernels = device_profile(lambda: color.planes_to_bgr(planes, False), reps=10,
+                                         warmup=2)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in card.frames():
+        pass
+    torch.cuda.synchronize()
+    loop_ms = 1e3 * (time.perf_counter() - start) / VIDEO_FRAMES
+    result = dict(write_s=write_s, bytes=os.path.getsize(clip), writer=totals,
+                  luma_psnr_db=psnr, i_vop_bytes=len(samples[0]), p_vop_bytes=len(samples[1]),
+                  i_vop_decode_ms=i_ms, p_vop_decode_ms=p_ms, conversion_ms=convert_ms,
+                  conversion_kernels=kernels, frames_loop_ms=loop_ms)
+    log(f"[video] MPEG-4 Part 2 phone clip: {VIDEO_FRAMES} frames {PHONE_W}x{PHONE_H} "
+        f"({16 * -(-PHONE_H // 16)} coded lines), Simple Profile, vop_quant "
+        f"{PHONE_MPEG4_QSCALE}, GOP "
+        f"{PHONE_MPEG4_GOP}, the wall's motion as 1MV / 4MV vectors, a video packet a row "
+        f"(mp4v / 0x20, {result['bytes']} B, written in {write_s:.1f} s; writer counts "
+        f"{totals}); size, count and rate as written; frames {PHONE_MPEG4_CHECKED} on the "
+        f"card equal the CPU's, their luma at {', '.join(f'{v:.4f}' for v in psnr.values())} "
+        f"dB PSNR against the renders (floor {PHONE_MPEG4_MIN_PSNR}); host decode {i_ms:.3f} ms the "
+        f"I-VOP ({len(samples[0])} B), "
+        f"{p_ms:.3f} ms a P-VOP ({len(samples[1])} B) (native); the card's conversion "
+        f"{convert_ms:.6f} ms device in {kernels} kernels; a frames() loop on the card "
+        f"{loop_ms:.3f} ms a frame")
+    return result
+
+
 def run_video_conversions(device, launches, folder: str, runs) -> dict:
     """The user's video runs, each through ``python -m hive_tpu_torch`` in
-    this process: the Motion JPEG phone clip with ``--estimate_pose
-    --estimate_depth`` (PnP odometry, its SIFT histograms in the ordered
-    kernel; DPT with the check weights, as phase 8 writes them) and, where
+    this process: the Motion JPEG and the MPEG-4 Part 2 phone clips with
+    ``--estimate_pose --estimate_depth`` (PnP odometry, its SIFT histograms
+    in the ordered kernel; DPT with the check weights, as phase 8 writes
+    them) and, where
     NVDEC opens, the Stray Scanner capture with its own poses: two
     classifications and one band update a fused frame, ``fg.glb``,
     ``bg.glb`` and ``metadata.json`` written, both meshes finite, the frames
@@ -4321,15 +4480,22 @@ def run_video_conversions(device, launches, folder: str, runs) -> dict:
                                          f"path's")
         with open(os.path.join(out, "profiling.json")) as f:
             profiling = json.load(f)
+        timing = profiling["timing"]
+        stages = {stage: value.get("total") if isinstance(value, dict) else value
+                  for stage, value in timing.items() if stage != "stages_overlapped"}
+        for part in ("integration", "mesh_extraction"):
+            stages[part] = timing.get("background_reconstruction", {}).get(part)
+        for part in ("background", "foreground"):
+            stages[f"mesh_compression_{part}"] = timing.get("mesh_compression", {}).get(part)
         results[name] = dict(wall_s=wall, per_frame_s=profiling["elapsed_time"]["per_frame"],
-                             load_dataset=profiling["timing"]["load_dataset"],
+                             load_dataset=timing["load_dataset"], stages=stages,
                              peak_bytes=int(torch.cuda.max_memory_allocated(device)),
                              ordered_hist_shapes=shapes)
         log(f"[video] {name}: {VIDEO_FRAMES} frames converted and meshed through the CLI on "
             f"the card in {wall:.1f} s ({results[name]['per_frame_s']} s a frame, "
             f"profiling.json); fg.glb, bg.glb and metadata.json written, meshes finite, the "
-            f"{VIDEO_FRAMES} frames' JPEG bytes equal the CPU path's; load_dataset "
-            f"{json.dumps(profiling['timing']['load_dataset'])}; launches "
+            f"{VIDEO_FRAMES} frames' JPEG bytes equal the CPU path's; stages (s) "
+            f"{json.dumps(stages)}; load_dataset {json.dumps(timing['load_dataset'])}; launches "
             f"{launches[f'video_{name}']}; ordered_hist calls (rows, entries, bins) {shapes}")
     return results
 
@@ -5565,6 +5731,8 @@ def main() -> int:
             launches_inpainted=launches["inpainted"][name],
             launches_fts=launches["fts"][name], launches_colmap_pose=launches["colmap_pose"][name],
             launches_pnp_pose=launches["pnp_pose"][name],
+            launches_video_phone=launches["video_phone"][name],
+            launches_video_phone_mpeg4=launches["video_phone_mpeg4"][name],
             launches_bench=launches["bench"][name], launches_shard=launches["shard"][name],
             launches_research=launches["research"][name],
             exact=True,
@@ -5607,9 +5775,11 @@ def main() -> int:
         replaces="hive_tpu/sfm.py:55", replaces_note="no TPU kernel: the histogram sums of "
         "cv2.SIFT_create(...).detectAndCompute, in OpenCV's sample order",
         launches=launches["video_phone"]["ordered_hist"],
+        launches_phone_mpeg4=launches["video_phone_mpeg4"]["ordered_hist"],
         launches_pnp_pose=launches["pnp_pose"]["ordered_hist"], exact=True,
         **ordered[360], orientation=ordered[36],
         shapes_phone=video["runs"]["phone"]["ordered_hist_shapes"],
+        shapes_phone_mpeg4=video["runs"]["phone_mpeg4"]["ordered_hist_shapes"],
         shapes_pnp_pose=pnp_run["ordered_hist_shapes"]))
     log("[shard] summary " + json.dumps(shards))
     log("[convert] summary " + json.dumps(conversion))

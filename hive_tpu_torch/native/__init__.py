@@ -1,19 +1,24 @@
 """Native (C++) host code, loaded via ctypes: the extraction weld, the
 QEM decimation, the JPEG scan decodes (baseline and progressive), the PNG
-unfilter and Telea's inpainting.
+unfilter, Telea's inpainting and the MPEG-4 Part 2 VOP decode and encode.
 
 Counterpart of ``hive_tpu/native`` (``src/weld.cpp`` and
 ``src/qem_decimate.cpp`` are copies of the JAX package's, built with the same
 flags, so both packages decimate a mesh to the same bits);
 ``src/jpeg_decode.cpp`` and ``src/png_unfilter.cpp`` are the port's own, in
 place of the libjpeg and zlib-based decoders of Pillow, which the JAX
-package reads its frames with; ``src/telea_inpaint.cpp`` computes what
+package reads its frames with (both share FFmpeg's simple IDCT,
+``src/simple_idct.h``, with ``src/mpeg4_decode.cpp``, the macroblock layer
+of MPEG-4 Part 2 video as FFmpeg's ``mpeg4`` decoder reads it, which has no
+Python fallback: :mod:`hive_tpu_torch.video.mpeg4` raises without the
+library); ``src/telea_inpaint.cpp`` computes what
 OpenCV's ``cv2.inpaint(..., INPAINT_TELEA)`` computes, and is built with
 ``-ffp-contract=off`` so that no fused multiply-add rounds its sums
 differently from OpenCV's build. The shared library
 builds on demand with g++ the first time it is needed, into
-``hive_tpu_torch/_build/``. Callers fall back to numpy when no toolchain is
-available. This is host code, not a device kernel.
+``hive_tpu_torch/_build/``. Other callers fall back to numpy when no
+toolchain is available (:func:`build_error` says why it is not). This is
+host code, not a device kernel.
 """
 
 from __future__ import annotations
@@ -30,8 +35,10 @@ _SRC_DIR = os.path.join(_NATIVE_DIR, "src")
 _BUILD_DIR = os.path.join(os.path.dirname(_NATIVE_DIR), "_build")
 _LIB_PATH = os.path.join(_BUILD_DIR, "libhive_native.so")
 
-_SOURCES = ["jpeg_decode.cpp", "png_unfilter.cpp", "qem_decimate.cpp", "telea_inpaint.cpp",
-            "weld.cpp"]
+_SOURCES = ["jpeg_decode.cpp", "mpeg4_decode.cpp", "png_unfilter.cpp", "qem_decimate.cpp",
+            "telea_inpaint.cpp", "weld.cpp"]
+# Headers the sources include: a change to one rebuilds the library too.
+_HEADERS = ["simple_idct.h"]
 # Flags beyond the common ones, per source.
 _EXTRA_FLAGS = {"telea_inpaint.cpp": ["-ffp-contract=off"]}
 _FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17"]
@@ -39,6 +46,7 @@ _FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17"]
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _build_failed = False
+_build_error = ""
 
 
 def _needs_rebuild() -> bool:
@@ -47,20 +55,28 @@ def _needs_rebuild() -> bool:
 
     lib_mtime = os.path.getmtime(_LIB_PATH)
     return any(os.path.getmtime(os.path.join(_SRC_DIR, src)) > lib_mtime
-               for src in _SOURCES)
+               for src in _SOURCES + _HEADERS)
 
 
 def _run(command) -> bool:
+    global _build_error
     logging.info(f"Building native library: {' '.join(command)}")
     try:
         result = subprocess.run(command, capture_output=True, text=True, timeout=300)
     except (OSError, subprocess.TimeoutExpired) as exc:
+        _build_error = f"{' '.join(command)} did not run: {exc}"
         logging.warning(f"Native build failed to run: {exc}")
         return False
     if result.returncode != 0:
+        _build_error = f"{' '.join(command)} failed:\n{result.stderr}"
         logging.warning(f"Native build failed:\n{result.stderr}")
         return False
     return True
+
+
+def build_error() -> str:
+    """Why :func:`get_native_lib` gave None: the failed build or load."""
+    return _build_error or "the native library was not built"
 
 
 def _build() -> bool:
@@ -86,6 +102,8 @@ def _build() -> bool:
     try:
         os.rename(tmp_path, _LIB_PATH)
     except OSError as exc:
+        global _build_error
+        _build_error = f"moving the built library into place failed: {exc}"
         logging.warning(f"Could not move the built library into place: {exc}")
         return False
 
@@ -97,7 +115,7 @@ def get_native_lib() -> Optional[ctypes.CDLL]:
 
     Returns ``None`` when unavailable (callers must fall back to Python).
     """
-    global _lib, _build_failed
+    global _lib, _build_failed, _build_error
 
     with _lock:
         if _lib is not None:
@@ -113,6 +131,7 @@ def get_native_lib() -> Optional[ctypes.CDLL]:
         try:
             lib = ctypes.CDLL(_LIB_PATH)
         except OSError as exc:
+            _build_error = f"loading {_LIB_PATH} failed: {exc}"
             logging.warning(f"Could not load native library: {exc}")
             _build_failed = True
             return None
@@ -172,6 +191,19 @@ def get_native_lib() -> Optional[ctypes.CDLL]:
             ct.POINTER(ct.c_int64), ct.POINTER(ct.c_uint8), ct.POINTER(ct.c_uint8),
             ct.c_int64, ct.c_int64, ct.c_int64, ct.c_int32, ct.c_int32, ct.c_int32,
             ct.c_int32, ct.POINTER(ct.c_void_p),
+        ]
+
+        lib.hive_mpeg4_decode_vop.restype = ct.c_int
+        lib.hive_mpeg4_decode_vop.argtypes = [
+            ct.c_char_p, ct.c_int64, ct.c_int64, ct.POINTER(ct.c_int32),
+            ct.POINTER(ct.c_void_p), ct.POINTER(ct.c_void_p), ct.POINTER(ct.c_int64),
+        ]
+
+        lib.hive_mpeg4_encode_vop.restype = ct.c_int64
+        lib.hive_mpeg4_encode_vop.argtypes = [
+            ct.POINTER(ct.c_int32), ct.POINTER(ct.c_void_p), ct.POINTER(ct.c_void_p),
+            ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_int32, ct.c_int32,
+            ct.c_char_p, ct.c_int64, ct.c_void_p, ct.c_int64, ct.POINTER(ct.c_int64),
         ]
 
         lib.hive_png_unfilter.restype = ct.c_int

@@ -14,6 +14,8 @@
 #include <cstring>
 #include <vector>
 
+#include "simple_idct.h"
+
 namespace {
 
 // Natural (row-major) index of the k-th coefficient in zigzag order.
@@ -159,68 +161,16 @@ void idct_islow(const int64_t* coef, uint8_t* out, int64_t out_stride) {
     }
 }
 
-// FFmpeg's simple IDCT: cosines x sqrt(2) x 2^14, and the pass shifts.
-const int32_t kW1 = 22725, kW2 = 21407, kW3 = 19266, kW4 = 16383, kW5 = 12873, kW6 = 8867,
-              kW7 = 4520;
-const int kRowShift = 11, kColShift = 20;
-
-// One 8-point pass over c[0], c[stride], ... with the even part's rounding
-// in a0; the eight sums before the shift, in output order, as FFmpeg's
-// unsigned arithmetic wraps them to 32 bits.
-void simple_1d(const int32_t* c, int stride, uint32_t a0, int32_t* out) {
-    const uint32_t c1 = c[stride], c2 = c[2 * stride], c3 = c[3 * stride],
-                   c4 = c[4 * stride], c5 = c[5 * stride], c6 = c[6 * stride],
-                   c7 = c[7 * stride];
-    uint32_t a1 = a0 + kW6 * c2, a2 = a0 - kW6 * c2, a3 = a0 - kW2 * c2;
-    a0 += kW2 * c2;
-    const uint32_t b0 = kW1 * c1 + kW3 * c3 + kW5 * c5 + kW7 * c7;
-    const uint32_t b1 = kW3 * c1 - kW7 * c3 - kW1 * c5 - kW5 * c7;
-    const uint32_t b2 = kW5 * c1 - kW1 * c3 + kW7 * c5 + kW3 * c7;
-    const uint32_t b3 = kW7 * c1 - kW5 * c3 + kW3 * c5 - kW1 * c7;
-    a0 += kW4 * c4 + kW6 * c6;
-    a1 += -kW4 * c4 - kW2 * c6;
-    a2 += -kW4 * c4 + kW2 * c6;
-    a3 += kW4 * c4 - kW6 * c6;
-    out[0] = static_cast<int32_t>(a0 + b0);
-    out[1] = static_cast<int32_t>(a1 + b1);
-    out[2] = static_cast<int32_t>(a2 + b2);
-    out[3] = static_cast<int32_t>(a3 + b3);
-    out[4] = static_cast<int32_t>(a3 - b3);
-    out[5] = static_cast<int32_t>(a2 - b2);
-    out[6] = static_cast<int32_t>(a1 - b1);
-    out[7] = static_cast<int32_t>(a0 - b0);
-}
-
 // Dequantised natural-order coefficients -> 8x8 pixels at `out`. FFmpeg
 // keeps the block in int16 (the DC clipped, the AC wrapped) and starts its
 // DC predictor at 1024, the level shift; the row pass takes a DC-only
 // shortcut and stores int16, the column pass clips to [0, 255].
 void idct_simple(const int64_t* coef, uint8_t* out, int64_t out_stride) {
-    int32_t block[64], sums[8];
+    int32_t block[64];
     for (int k = 1; k < 64; ++k) block[k] = static_cast<int16_t>(coef[k]);
     const int64_t dc = coef[0] + 1024;
     block[0] = dc < -32768 ? -32768 : (dc > 32767 ? 32767 : static_cast<int32_t>(dc));
-    for (int r = 0; r < 8; ++r) {
-        int32_t* row = block + r * 8;
-        bool dc_only = true;
-        for (int k = 1; k < 8; ++k) dc_only &= row[k] == 0;
-        if (dc_only) {
-            const int32_t v = static_cast<int16_t>(row[0] * 8);
-            for (int k = 0; k < 8; ++k) row[k] = v;
-            continue;
-        }
-        simple_1d(row, 1, kW4 * static_cast<uint32_t>(row[0]) + (1u << (kRowShift - 1)), sums);
-        for (int k = 0; k < 8; ++k) row[k] = static_cast<int16_t>(sums[k] >> kRowShift);
-    }
-    for (int c = 0; c < 8; ++c) {
-        const int32_t* col = block + c;
-        simple_1d(col, 8, kW4 * static_cast<uint32_t>(col[0] + (1 << (kColShift - 1)) / kW4),
-                  sums);
-        for (int r = 0; r < 8; ++r) {
-            const int32_t v = sums[r] >> kColShift;
-            out[r * out_stride + c] = static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
-        }
-    }
+    simple_idct::put(block, out, out_stride);
 }
 
 }  // namespace

@@ -3,8 +3,9 @@
 :class:`VideoCapture` puts the port's pieces together: the demuxer
 (:mod:`.mp4`) for the codec, sizes, rate, frame selection and samples; for
 H.264, NVDEC on a CUDA device (:mod:`.nvdec`) or the I_PCM reader on the
-CPU (:mod:`.h264_pcm`); for Motion JPEG, the host decoder (:mod:`.mjpeg`)
-on any device, its planes then moved to the device; the conversion of
+CPU (:mod:`.h264_pcm`); for Motion JPEG (:mod:`.mjpeg`) and MPEG-4 Part 2
+(:mod:`.mpeg4`), the host decoders on any device, their planes then moved
+to the device; the conversion of
 OpenCV's FFmpeg backend (:mod:`.color`) for BGR, on the device; and
 OpenCV's own rotation by the display matrix (``CAP_PROP_ORIENTATION_AUTO``,
 on by default), which turns the frames and swaps the reported width and
@@ -21,16 +22,19 @@ import torch
 from hive_tpu_torch import get_device
 from hive_tpu_torch.image_processing import (ROTATE_90_CLOCKWISE, ROTATE_90_COUNTERCLOCKWISE,
                                              ROTATE_180, rotate)
-from hive_tpu_torch.video import color, h264_pcm, mjpeg, mp4
+from hive_tpu_torch.video import color, h264_pcm, mjpeg, mp4, mpeg4
 
 # OpenCV's rotation_angle -> the cv2.rotate it applies to each frame.
 _AUTO_ROTATION = {90: ROTATE_90_CLOCKWISE, 180: ROTATE_180, 270: ROTATE_90_COUNTERCLOCKWISE}
 
 
 class VideoCapture:
-    """An H.264 or Motion JPEG MP4 read on ``device`` (default ``cuda:0``).
-    H.264 decodes through NVDEC on a CUDA device and through the I_PCM
-    reader on the CPU; Motion JPEG decodes on the host for every device.
+    """An H.264, Motion JPEG or MPEG-4 Part 2 MP4 read on ``device``
+    (default ``cuda:0``). H.264 decodes through NVDEC on a CUDA device and
+    through the I_PCM reader on the CPU; Motion JPEG and MPEG-4 Part 2
+    decode on the host for every device. An MPEG-4 N-VOP (``vop_coded`` 0)
+    gives no frame, as in cv2, so it is left out of the frames and the
+    count.
 
     :ivar width, height: ``CAP_PROP_FRAME_WIDTH`` / ``HEIGHT``.
     :ivar fps: ``CAP_PROP_FPS``.
@@ -48,6 +52,14 @@ class VideoCapture:
             width, height = header["width"], header["height"]
             # JPEG is full range, its matrix BT.601: swscale's default.
             self.full_range, self.matrix = True, color.UNSPECIFIED
+        elif self.codec == mp4.MPEG4:
+            with open(self.path, "rb") as f:
+                headers, self._coded = mpeg4.scan_track(
+                    self.track.config, len(self.track.sizes),
+                    lambda i, n: self._sample(i, f, n))
+            width, height = headers.width, headers.height
+            # yuv420p, limited range, BT.601: swscale's default, as for H.264.
+            self.full_range, self.matrix = False, color.UNSPECIFIED
         else:
             self.length_size, sps_units, self.pps_units = mp4.parse_avcc(self.track.config)
             self.sps_units = sps_units or [unit for unit in self._nal_units(0)
@@ -64,6 +76,8 @@ class VideoCapture:
             self._open_nvdec()
         self.fps = self.track.fps
         self.segments = self.track.segments()
+        if self.codec == mp4.MPEG4:
+            self.segments = [segment[self._coded[segment]] for segment in self.segments]
         self.frame_count = sum(len(segment) for segment in self.segments)
 
     def _open_nvdec(self) -> None:
@@ -84,12 +98,14 @@ class VideoCapture:
                 f"NVDEC on {self.device} does not decode the 8-bit 4:2:0 H.264 video "
                 f"{self.path} at its size ({caps}) (ROADMAP.md Queue 1 item 9b).")
 
-    def _sample(self, sample: int, f=None) -> bytes:
+    def _sample(self, sample: int, f=None, limit: Optional[int] = None) -> bytes:
+        """Sample ``sample``'s bytes, or its first ``limit``."""
         if f is None:
             with open(self.path, "rb") as f:
-                return self._sample(sample, f)
+                return self._sample(sample, f, limit)
         f.seek(int(self.track.offsets[sample]))
-        return f.read(int(self.track.sizes[sample]))
+        size = int(self.track.sizes[sample])
+        return f.read(size if limit is None else min(size, limit))
 
     def _nal_units(self, sample: int, f=None):
         return mp4.split_nal_units(self._sample(sample, f), self.length_size)
@@ -98,8 +114,20 @@ class VideoCapture:
         """(sample, planes) of the pictures that samples ``begin`` to the
         last of ``wanted`` decode to, in display order; ``begin`` is a sync
         sample at or before the first of ``wanted``. Motion JPEG decodes
-        the samples of ``wanted`` alone (each is a sync sample)."""
+        the samples of ``wanted`` alone (each is a sync sample); MPEG-4 Part
+        2 decodes each sample from ``begin`` in order (its pictures are in
+        display order) and gives only those of ``wanted``."""
         with open(self.path, "rb") as f:
+            if self.codec == mp4.MPEG4:
+                decoder = mpeg4.Mpeg4Decoder(self.track.config)
+                keep = set(wanted.tolist())
+                for sample in range(begin, int(wanted.max()) + 1):
+                    planes = decoder.decode(self._sample(sample, f))
+                    if planes is not None and sample in keep:
+                        yield sample, tuple(torch.from_numpy(np.ascontiguousarray(p))
+                                            .to(self.device) for p in planes)
+                return
+
             if self.codec == mp4.MJPEG:
                 for sample in wanted.tolist():
                     planes = mjpeg.decode_sample(self._sample(sample, f),

@@ -10,7 +10,10 @@ FFmpeg backend sees it: the ``moov`` sample tables (``stsd``, ``stts``,
   ``avcC`` put before each sync sample); Motion JPEG for ``jpeg``,
   ``mjpa`` and ``mp4v`` whose ``esds`` names JPEG (objectTypeIndication
   0x6C, what cv2's ``MJPG`` writer stores in an ``.mp4``), each sample one
-  JPEG and every sample a sync sample;
+  JPEG and every sample a sync sample; MPEG-4 Part 2 for ``mp4v`` whose
+  ``esds`` names it (objectTypeIndication 0x20, what cv2's default ``mp4v``
+  writer stores), its DecoderSpecificInfo (the VOS, VO and VOL headers) as
+  the track's ``config``;
 * the frame size after the SPS's cropping (1080 lines coded as 1088 read as
   1080) and after the display matrix's rotation, which OpenCV applies to
   the frames and to ``CAP_PROP_FRAME_WIDTH`` / ``HEIGHT``
@@ -26,10 +29,11 @@ FFmpeg backend sees it: the ``moov`` sample tables (``stsd``, ``stts``,
   track; an edit may repeat samples another one showed.
 
 Refused, naming the codec and the ROADMAP item: ``hvc1`` / ``hev1`` (HEVC),
-``mp4v`` of any other object type (MPEG-4 Part 2 is 0x20), ``mjpb`` and any
-other sample entry. The muxer (:func:`write_mp4`) writes the same boxes,
-for the I_PCM writer of :mod:`hive_tpu_torch.video.h264_pcm` and for Motion
-JPEG (:func:`mjpeg_entry`).
+``mp4v`` of any other object type, ``mjpb`` and any other sample entry.
+The muxer (:func:`write_mp4`) writes the same boxes, for the I_PCM writer
+of :mod:`hive_tpu_torch.video.h264_pcm`, for Motion JPEG
+(:func:`mjpeg_entry`) and for the MPEG-4 Part 2 writer of
+:mod:`hive_tpu_torch.video.mpeg4`.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ HEVC_ITEM = "Queue 1 item 9c"
 OTHER_CODEC_ITEM = "Queue 1 item 9d"
 
 # The codecs the port decodes, and the sample entries that carry them.
-H264, MJPEG = "h264", "mjpeg"
+H264, MJPEG, MPEG4 = "h264", "mjpeg", "mpeg4"
 _H264_ENTRIES = (b"avc1", b"avc3")
 _MJPEG_ENTRIES = (b"jpeg", b"mjpa")
 # ISO/IEC 14496-1 objectTypeIndication values of an mp4v entry's esds.
@@ -75,8 +79,8 @@ def _refuse_codec(fourcc: bytes, oti: Optional[int] = None) -> UnsupportedVideoE
     item = HEVC_ITEM if fourcc in (b"hvc1", b"hev1") else OTHER_CODEC_ITEM
     return UnsupportedVideoError(
         f"The video's codec is {name} ({entry}); hive_tpu_torch decodes only H.264 (avc1 / "
-        f"avc3) and Motion JPEG (jpeg, mjpa, mp4v of objectTypeIndication 0x6C) so far "
-        f"(ROADMAP.md {item}).")
+        f"avc3), Motion JPEG (jpeg, mjpa, mp4v of objectTypeIndication 0x6C) and MPEG-4 "
+        f"Part 2 (mp4v of objectTypeIndication 0x20) so far (ROADMAP.md {item}).")
 
 
 def _descriptor(data: bytes, pos: int) -> Tuple[int, int, int]:
@@ -92,12 +96,13 @@ def _descriptor(data: bytes, pos: int) -> Tuple[int, int, int]:
     return tag, pos, size
 
 
-def esds_object_type(data: bytes, start: int) -> Optional[int]:
-    """The objectTypeIndication of the DecoderConfigDescriptor in an
-    ``esds`` box whose payload starts at ``start``; None without one."""
+def esds_decoder_config(data: bytes, start: int) -> Tuple[Optional[int], bytes]:
+    """(objectTypeIndication, DecoderSpecificInfo bytes) of the
+    DecoderConfigDescriptor in an ``esds`` box whose payload starts at
+    ``start``; (None, b"") without one, b"" without the specific info."""
     tag, pos, _ = _descriptor(data, start + 4)             # after version, flags
     if tag != 3:                                           # ES_Descriptor
-        return None
+        return None, b""
     flags = data[pos + 2]
     pos += 3                                               # ES_ID, flags
     if flags & 0x80:                                       # streamDependenceFlag
@@ -106,8 +111,16 @@ def esds_object_type(data: bytes, start: int) -> Optional[int]:
         pos += 1 + data[pos]
     if flags & 0x20:                                       # OCRstreamFlag
         pos += 2
-    tag, pos, _ = _descriptor(data, pos)
-    return data[pos] if tag == 4 else None                 # DecoderConfigDescriptor
+    tag, pos, size = _descriptor(data, pos)
+    if tag != 4:                                           # DecoderConfigDescriptor
+        return None, b""
+    oti, end = data[pos], pos + size
+    pos += 13                                              # OTI, stream type, buffer, rates
+    if pos < end:
+        tag, pos, size = _descriptor(data, pos)
+        if tag == 5:                                       # DecoderSpecificInfo
+            return oti, bytes(data[pos:pos + size])
+    return oti, b""
 
 
 def _boxes(data: bytes, start: int = 0, end: Optional[int] = None):
@@ -182,7 +195,7 @@ class VideoTrack:
     """The first video track of an MP4 file."""
 
     fourcc: bytes
-    codec: str                  # H264 or MJPEG
+    codec: str                  # H264, MJPEG or MPEG4
     coded_width: int            # the sample entry's width and height
     coded_height: int
     timescale: int
@@ -194,7 +207,7 @@ class VideoTrack:
     matrix: Tuple[int, ...]     # tkhd's nine 16.16 / 2.30 words
     edits: List[Tuple[int, int]] = field(default_factory=list)  # (duration, media_time)
     movie_timescale: int = 1000
-    config: bytes = b""         # the avcC record
+    config: bytes = b""         # the avcC record, or MPEG-4's DecoderSpecificInfo
     fps: float = 0.0
     has_ctts: bool = False
     dts_shift: int = 0          # FFmpeg's shift that makes dts + ctts >= dts
@@ -326,10 +339,10 @@ def _parse_trak(moov: bytes, s: int, e: int, movie_timescale: int) -> VideoTrack
         codec = MJPEG
     elif fourcc == b"mp4v":
         esds = _find(moov, [b"esds"], *children)
-        oti = esds_object_type(moov, esds[0]) if esds is not None else None
-        if oti != JPEG_OTI:
+        oti, config = esds_decoder_config(moov, esds[0]) if esds is not None else (None, b"")
+        if oti not in (JPEG_OTI, MPEG4_PART2_OTI):
             raise _refuse_codec(fourcc, oti)
-        codec = MJPEG
+        codec = MJPEG if oti == JPEG_OTI else MPEG4
     else:
         raise _refuse_codec(fourcc)
     coded_width, coded_height = struct.unpack_from(">HH", moov, entry + 8 + 24)
@@ -461,14 +474,24 @@ def avc1_entry(width: int, height: int, sps: bytes, pps: bytes) -> bytes:
 
 def _descriptor_bytes(tag: int, *payload: bytes) -> bytes:
     body = b"".join(payload)
-    return bytes([tag, len(body)]) + body          # sizes below 128 take one byte
+    size, groups = len(body), []
+    while True:                                    # 7 bits a byte, most significant first
+        groups.insert(0, size & 0x7F)
+        size >>= 7
+        if not size:
+            break
+    sizes = bytes([g | 0x80 for g in groups[:-1]] + groups[-1:])
+    return bytes([tag]) + sizes + body
 
 
-def mp4v_entry(width: int, height: int, object_type: int) -> bytes:
+def mp4v_entry(width: int, height: int, object_type: int, config: bytes = b"") -> bytes:
     """An ``mp4v`` visual sample entry whose ``esds`` names
-    ``object_type`` (its DecoderConfigDescriptor's objectTypeIndication)."""
-    config = _descriptor_bytes(4, bytes([object_type, 0x04 << 2 | 1]), bytes(11))
-    es = _descriptor_bytes(3, struct.pack(">HB", 1, 0), config, _descriptor_bytes(6, b"\x02"))
+    ``object_type`` (its DecoderConfigDescriptor's objectTypeIndication)
+    and carries ``config`` as its DecoderSpecificInfo (for MPEG-4 Part 2,
+    the VOS, VO and VOL headers)."""
+    specific = _descriptor_bytes(5, config) if config else b""
+    decoder = _descriptor_bytes(4, bytes([object_type, 0x04 << 2 | 1]), bytes(11), specific)
+    es = _descriptor_bytes(3, struct.pack(">HB", 1, 0), decoder, _descriptor_bytes(6, b"\x02"))
     return visual_entry(b"mp4v", width, height, full_box(b"esds", 0, 0, es))
 
 

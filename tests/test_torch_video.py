@@ -1,5 +1,6 @@
 """Video input of hive_tpu_torch (``hive_tpu_torch.video``) against cv2
-5.0.0, whose bundled FFmpeg decodes H.264 and Motion JPEG: the MP4
+5.0.0, whose bundled FFmpeg decodes H.264, Motion JPEG and MPEG-4 Part 2
+(the last in tests/test_torch_mpeg4.py): the MP4
 demuxer's sizes, rate, frame count and order, edit lists included; the
 I_PCM writer and the CPU reader (lossless, so the seeded planes come back
 exactly); Motion JPEG (cv2's own MJPG writer, and Pillow's 4:2:0, 4:2:2,
@@ -198,34 +199,48 @@ def test_rotate_equals_cv2(code, dtype, shape):
 
 def write_other_codec(path, fourcc, config_box):
     if fourcc == b"mp4v":
-        entry = mp4.mp4v_entry(64, 48, mp4.MPEG4_PART2_OTI)
+        entry = mp4.mp4v_entry(64, 48, MPEG2_OTI)
     else:
         entry = mp4.visual_entry(fourcc, 64, 48, mp4.box(config_box, bytes(23)))
     mp4.write_mp4(str(path), entry, [bytes(16)], width=64, height=48, timescale=30,
                   durations=[1])
 
 
+MPEG2_OTI = 0x61                   # MPEG-2 Main Profile video in an mp4v entry
+
+
 def test_hevc_and_mp4v_are_refused_by_name(tmp_path):
-    """HEVC (hvc1 / hev1), MPEG-4 Part 2 (mp4v of objectTypeIndication
-    0x20) and Motion JPEG B (mjpb), whether written by the port's muxer or
-    by cv2's own VideoWriter, are refused naming the codec and the ROADMAP
-    item, before any decode."""
+    """HEVC (hvc1 / hev1), an mp4v entry of an object type the port does
+    not decode (MPEG-2 video, objectTypeIndication 0x61) and Motion JPEG B
+    (mjpb) are refused naming the codec and the ROADMAP item, before any
+    decode. (mp4v of objectTypeIndication 0x20, MPEG-4 Part 2, decodes:
+    tests/test_torch_mpeg4.py.)"""
     for fourcc, item in ((b"hvc1", "Queue 1 item 9c"), (b"hev1", "Queue 1 item 9c"),
                          (b"mp4v", "Queue 1 item 9d"), (b"mjpb", "Queue 1 item 9d")):
         path = tmp_path / f"{fourcc.decode()}.mp4"
         write_other_codec(path, fourcc, b"hvcC")
-        name = {b"mp4v": r"MPEG-4 Part 2 \(mp4v\).*0x20", b"mjpb": "Motion JPEG B"}.get(
-            fourcc, "HEVC")
+        name = {b"mp4v": r"MPEG-2 video \(sample entry 'mp4v'.*0x61",
+                b"mjpb": "Motion JPEG B"}.get(fourcc, "HEVC")
         with pytest.raises(mp4.UnsupportedVideoError, match=f"{name}.*{item}"):
             VideoCapture(str(path), device="cpu")
 
+
+def test_cv2_mp4v_writer_file_decodes_as_cv2_reads_it(tmp_path):
+    """cv2's own VideoWriter with the mp4v fourcc (MPEG-4 Part 2,
+    objectTypeIndication 0x20), once refused: now read as cv2 reads it,
+    every frame equal."""
     path = str(tmp_path / "cv2.mp4")
     writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 30, (64, 48))
     for i in range(3):
         writer.write(np.full((48, 64, 3), 40 * i, np.uint8))
     writer.release()
-    with pytest.raises(mp4.UnsupportedVideoError, match=r"MPEG-4 Part 2 \(mp4v\).*item 9d"):
-        VideoCapture(path, device="cpu")
+    (width, height, fps), frames = cv2_read(path)
+    capture = VideoCapture(path, device="cpu")
+    assert capture.codec == mp4.MPEG4
+    assert (capture.width, capture.height, capture.fps, capture.frame_count) == \
+        (width, height, fps, len(frames)) == (64, 48, 30.0, 3)
+    for index, (got, want) in enumerate(zip(capture.frames(), frames)):
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"frame {index}")
 
 
 def test_more_than_one_edit_is_refused(tmp_path):

@@ -1,8 +1,10 @@
 """The video adaptors of hive_tpu_torch (``VideoAdaptor``,
 ``StrayScannerAdaptor``, ``DeviceOrientation``, ``get_dataset`` and the CLI on
-video inputs) against hive_tpu's on the same I_PCM H.264 and Motion JPEG
-fixtures, which hive_tpu reads through cv2 5.0.0 and the port through its
-own demuxer, CPU reader and Motion JPEG decoder: sizes, metadata, frame counts and rates equal; frames and
+video inputs) against hive_tpu's on the same I_PCM H.264, Motion JPEG and
+MPEG-4 Part 2 fixtures (the last tests/test_adaptors.py's own cv2-written
+video), which hive_tpu reads through cv2 5.0.0 and the port through its
+own demuxer, CPU reader and Motion JPEG and MPEG-4 decoders: sizes,
+metadata, frame counts and rates equal; frames and
 the JPEG bytes ``copy_frames`` writes equal; camera matrices and
 trajectories within 1e-12 (the same float64 operations; a bound, not
 equality, in case scipy's and numpy's orders ever differ); depth maps equal
@@ -32,6 +34,7 @@ from hive_tpu_torch.meshing.gltf import load_glb
 from hive_tpu_torch.options import COLMAPOptions, PipelineOptions, StorageOptions
 from hive_tpu_torch.pipeline import Pipeline
 from hive_tpu_torch.video import color, h264_pcm, mp4
+from tests.test_adaptors import make_video_dataset
 
 VOCAB = "colmap/vocab.bin"   # the packages' defaults differ; metadata.json holds it
 TRAJECTORY_TOL = 1e-12
@@ -301,6 +304,51 @@ def test_motion_jpeg_video_converts_with_pose_and_depth_like_hive_tpu(tmp_path, 
         (64, 48, 4, 30.0)
     for index in range(4):
         np.testing.assert_array_equal(ours.get_frame(index), theirs.get_frame(index))
+    outputs = {name: str(tmp_path / name) for name in ("ours", "theirs")}
+    binary = str(tmp_path / "no_colmap")
+    dataset_adaptors.get_dataset(
+        StorageOptions(dataset_path=video, output_path=outputs["ours"]),
+        COLMAPOptions(vocab_path=VOCAB, binary_path=binary),
+        PipelineOptions(estimate_pose=True, estimate_depth=True), resize_to=64, device="cpu")
+    jax_adaptors.get_dataset(
+        JaxStorageOptions(dataset_path=video, output_path=outputs["theirs"]),
+        JaxCOLMAPOptions(vocab_path=VOCAB, binary_path=binary),
+        JaxPipelineOptions(estimate_pose=True, estimate_depth=True), resize_to=64)
+    compare_converted(outputs["ours"], outputs["theirs"], depth_atol=1)
+
+
+def test_hive_tpu_mp4v_fixture_reads_and_converts_like_hive_tpu(tmp_path, monkeypatch):
+    """tests/test_adaptors.py's make_video_dataset video (cv2's mp4v writer:
+    MPEG-4 Part 2, 6 frames at 10 fps) through both packages' VideoAdaptor:
+    equal metadata and frame count, every frame, the JPEG bytes
+    copy_frames writes; then converted with ``--estimate_pose
+    --estimate_depth`` and no COLMAP binary, as the I_PCM and Motion JPEG
+    cases above (DPT at 64 x 96, depth within 1 mm)."""
+    from hive_tpu.ops import resize as jax_resize
+
+    def net_size(*args, **kwargs):
+        return 64, 96
+
+    monkeypatch.setattr(jax_resize, "keep_aspect_multiple_of", net_size)
+    monkeypatch.setattr(dataset_adaptors, "keep_aspect_multiple_of", net_size)
+    video = make_video_dataset(tmp_path / "data")
+    assert mp4.read_track(video).codec == mp4.MPEG4
+    ours = dataset_adaptors.VideoAdaptor(video, str(tmp_path / "a"),
+                                         colmap_options=COLMAPOptions(vocab_path=VOCAB),
+                                         device="cpu")
+    theirs = jax_adaptors.VideoAdaptor(video, str(tmp_path / "b"),
+                                       colmap_options=JaxCOLMAPOptions(vocab_path=VOCAB))
+    assert (ours.target_width, ours.target_height, ours.num_frames, ours.fps) == \
+        (theirs.target_width, theirs.target_height, theirs.num_frames, theirs.fps) == \
+        (64, 48, 6, 10.0)
+    assert ours.get_full_num_frames() == theirs.get_full_num_frames() == 6
+    assert metadata_json(ours, tmp_path, "ours") == metadata_json(theirs, tmp_path, "theirs")
+    for index in range(6):
+        np.testing.assert_array_equal(ours.get_frame(index), theirs.get_frame(index))
+    for adaptor, name in ((ours, "ours_rgb"), (theirs, "theirs_rgb")):
+        os.makedirs(tmp_path / name)
+        adaptor.copy_frames(str(tmp_path / name), file_extension="jpg")
+    same_files(str(tmp_path / "ours_rgb"), str(tmp_path / "theirs_rgb"))
     outputs = {name: str(tmp_path / name) for name in ("ours", "theirs")}
     binary = str(tmp_path / "no_colmap")
     dataset_adaptors.get_dataset(
