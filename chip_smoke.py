@@ -226,40 +226,49 @@ Phases (any failure raises and the script exits non-zero):
    hive_tpu_torch.pose_optimisation`` on the converted folder with no
    cached feature set: the extraction time, the pairs kept and the whole
    CLI's time logged;
-17. [video]: video and Stray Scanner inputs (host demuxing, JPEG and
-   MPEG-4 Part 2 decode, NVDEC, plain PyTorch; PnP's SIFT sums its histograms in the
-   ordered kernel). Three seeded I_PCM H.264 MP4s (640x480 x 30 frames in
-   display order, the same coded out of order with ``ctts``, 1920x1080 x 10
-   frames, cropped from 1088 lines): the demuxer's size, count and rate as
-   written, the CPU reader's planes equal to the seeded samples; through
-   NVDEC on the card the same planes exactly, or, where the card's machine
-   does not open NVDEC, the capture's refusal naming the call's CUresult
-   and ROADMAP item 9b (logged); the card's YUV -> BGR conversion equal to
-   the CPU's on the same planes (device ms, kernels, peak memory); the
-   card's rotation and uint8 resize equal to the CPU's at the phone clip's
-   (1920x1080 -> 640x360) and the Stray Scanner capture's (1920x1440,
-   turned to portrait, -> 480x640) shapes, timed. The phone clip: 30
-   1080p frames of phase 16's textured wall as Motion JPEG (the port's
-   ``encode_jpeg``, 4:2:0, in an ``mp4v`` / 0x6C track as cv2's MJPG
-   writer stores it): read on the card and the CPU alike (frames 0 and 29
-   equal), the host decode ms a frame, the card's conversion device ms,
-   then a user's run through ``python -m hive_tpu_torch`` in this process
-   with ``--estimate_pose --estimate_depth`` (PnP odometry, DPT with phase
-   8's check weights; ``--key_frame_threshold 1.0``, every frame fused, as
-   in the other CLI runs): two classifications and one band update a frame,
-   the ordered histogram launched, ``fg.glb``, ``bg.glb`` and
+17. [video]: video and Stray Scanner inputs (host demuxing; JPEG, MPEG-4
+   Part 2 and H.264 decode on the host; plain PyTorch; PnP's SIFT sums its
+   histograms in the ordered kernel). Three seeded I_PCM H.264 MP4s
+   (640x480 x 30 frames in display order, the same coded out of order
+   with ``ctts``, 1920x1080 x 10 frames, cropped from 1088 lines): the
+   demuxer's size, count and rate as written, ``H264Decoder``'s planes
+   equal to the seeded samples on the CPU and through the card's capture;
+   NVDEC's parser logged (not on the decode path, ROADMAP item 9b); the
+   card's YUV -> BGR conversion equal to the CPU's on the same planes
+   (device ms, kernels, peak memory). Three H.264 exerciser clips at VGA
+   (``video.h264.Exerciser``: every macroblock, slice, reference and
+   marking path the writer counts, written at least once over them, on
+   integer-made frames): each file, and its frames on the card and on the
+   CPU, hashing to the digests the tests hold to cv2 (the card's machine
+   has no cv2). The card's rotation and uint8
+   resize equal to the CPU's at the phone clip's (1920x1080 -> 640x360)
+   and the Stray Scanner capture's (1920x1440, turned to portrait, ->
+   480x640) shapes, timed. The phone clip: 30 1080p frames of phase 16's
+   textured wall as Motion JPEG (the port's ``encode_jpeg``, 4:2:0, in an
+   ``mp4v`` / 0x6C track as cv2's MJPG writer stores it): read on the card
+   and the CPU alike (frames 0 and 29 equal), the host decode ms a frame,
+   the card's conversion device ms. The same 30 renders as an MPEG-4 Part
+   2 phone clip (``video.mpeg4.write_mpeg4_mp4``: Simple Profile, what
+   cv2's default ``mp4v`` writer makes; an I-VOP every 12 frames, the
+   wall's motion as 1MV / 4MV vectors, a video packet a row, 1088 coded
+   lines) and as an H.264 one (``video.h264.write_h264_mp4``: CAVLC, an
+   IDR picture every 12 frames, the wall's motion to each of up to four
+   references, a slice a row, deblocking on): decoded on the host
+   (native), frames 0, 11, 12 and 29 on the card equal to the CPU's and
+   their luma above a stated PSNR against the renders, the intra and a P
+   picture's host decode ms, the card's conversion, a ``frames()`` loop.
+   A small CABAC clip refused by the CLI naming ROADMAP item 9f before
+   anything is written. Then the user's runs through ``python -m
+   hive_tpu_torch`` in this process: the three phone clips with
+   ``--estimate_pose --estimate_depth`` (PnP odometry, DPT with phase 8's
+   check weights; ``--key_frame_threshold 1.0``, every frame fused, as in
+   the other CLI runs) on their first 10 frames, and a 30-frame Stray
+   Scanner capture (1920x1440 H.264 written as the phone clip, 256x192
+   depth and confidence, the first pose rolled -90 degrees) with its own
+   poses: two classifications and one band update a frame, the ordered
+   histogram launched on the pose runs, ``fg.glb``, ``bg.glb`` and
    ``metadata.json`` written, finite meshes, the frames equal to the CPU
-   path's JPEG bytes. The same 30 frames as an MPEG-4 Part 2 phone clip
-   (``video.mpeg4.write_mpeg4_mp4``: Simple Profile, what cv2's default
-   ``mp4v`` writer makes; an I-VOP every 12 frames, the wall's motion as
-   1MV / 4MV vectors, a video packet a row, 1088 coded lines): decoded on
-   the host (native), frames 0, 11, 12 and 29 on the card equal to the
-   CPU's, the I-VOP's and a P-VOP's host decode ms, the card's conversion,
-   then the same CLI run and checks. Where NVDEC opens, also a 30-frame Stray Scanner
-   capture (1920x1440 H.264, 256x192 depth and confidence, the first pose
-   rolled -90 degrees) with its own poses, the same checks; where it does
-   not, a small H.264 clip and that capture refused by the CLI naming item
-   9b and the CUresult, before anything is written;
+   path's JPEG bytes;
 18. [eval]: the evaluation path and the player on phase 7's export (no
    kernel of its own: plain PyTorch and host code). ``bg.glb`` with each
    frame's ``fg.glb`` node rendered from the 30 ground-truth poses at
@@ -3971,6 +3980,44 @@ PHONE_JPEG_QUALITY = 90
 PHONE_MPEG4_QSCALE, PHONE_MPEG4_GOP, PHONE_MPEG4_RESYNC = 3, 12, 120
 PHONE_MPEG4_CHECKED = (0, 11, 12, 29)
 PHONE_MPEG4_MIN_PSNR = 45.0
+# The H.264 phone clip (video.h264.write_h264_mp4, MotionPlanner): CAVLC,
+# an IDR picture every 12 frames, up to four references, a slice a row,
+# deblocking on, QP PHONE_H264_QP; the frames whose card reads are held to
+# the CPU's (the first IDR picture, the last P picture of its GOP, the next
+# IDR picture, the last), and the least PSNR (dB) of their decoded luma
+# against the renders: sound builds read 45.94-46.14, the deblocking filter
+# left out 44.68-45.01 (tests/torch_h264_planted_faults.py). The writer
+# shares the decoder's prediction, so a prediction fault barely moves the
+# PSNR (a 6-tap filter of taps 21 / 19: 45.94-46.14); the exerciser clips'
+# digests (H264_EXERCISER_DIGESTS) catch those.
+PHONE_H264_QP, PHONE_H264_GOP, PHONE_H264_REFS = 22, 12, 4
+PHONE_H264_CHECKED = (0, 11, 12, 29)
+PHONE_H264_MIN_PSNR = 45.5
+# The phone clips' CLI runs convert their first PHONE_CLI_FRAMES frames
+# (their decode checks read all VIDEO_FRAMES); the Stray Scanner run all.
+PHONE_CLI_FRAMES = 10
+# The H.264 exerciser clips at VGA (video.h264.Exerciser, seeded, on the
+# integer-made frames of exerciser_planes, so that every host writes the
+# same bytes): (name, frames, write_h264_mp4 options, Exerciser options).
+# Together they write every syntax path the writer counts.
+H264_EXERCISER_CLIPS = (
+    ("out_of_order", 12, dict(reorder=True, constrained_intra=True, chroma_qp_offset=-3),
+     dict(gop=100)),
+    ("mmco_reset", 12, dict(restriction=0, num_ref_frames=3), dict(gop=8, reset=True, mmco=0.8)),
+    ("poc_type_2", 12, dict(poc_type=2, profile=100, second_chroma_qp_offset=4), dict(gop=7)),
+)
+# Each exerciser clip's SHA-256 (its first 16 hex digits): the file, and
+# the BGR frames cv2 5.0.0 reads from it, in order (tests/test_torch_h264.py
+# holds both to a fresh write and to cv2). On the card's host the writer
+# must write these bytes and the captures, card and CPU, must read these
+# frames: so the decoder built there gives FFmpeg's pixels, whatever fault
+# its own writer would share with it (a fault in a prediction or a filter
+# changes the written bytes, or the frames, or both).
+H264_EXERCISER_DIGESTS = {
+    "out_of_order": ("3c2e4d3c2b354cf4", "0e3ff8a1e6a8d97f"),
+    "mmco_reset": ("97cbf048cc5ebaa1", "68dd3e383958701a"),
+    "poc_type_2": ("61b3dce67ca32aba", "2c2a55386203c25b"),
+}
 
 
 def nvdec_caps_log() -> dict:
@@ -3991,10 +4038,11 @@ def nvdec_parser_log(folder: str) -> dict:
     """What NVDEC's parser reports for an I_PCM stream (1920x1080, cropped
     from 1088 lines), which checks the parser's structures even where the
     decoder cannot be made; logs only."""
-    from hive_tpu_torch.video import h264_pcm, mp4, nvdec
+    from hive_tpu_torch.video import h264, mp4, nvdec
 
     path = os.path.join(folder, "parser_check.mp4")
-    h264_pcm.write_pcm_mp4(path, video_planes(1, PHONE_W, PHONE_H, SEED))
+    h264.write_h264_mp4(path, video_planes(1, PHONE_W, PHONE_H, SEED),
+                        h264.PcmPlanner(PHONE_W, PHONE_H))
     track = mp4.read_track(path)
     length_size, sps, pps = mp4.parse_avcc(track.config)
     with open(path, "rb") as f:
@@ -4022,14 +4070,17 @@ def video_planes(num_frames: int, width: int, height: int, seed: int):
             for _ in range(num_frames)]
 
 
-def write_stray_capture(base: str, num_frames: int) -> None:
-    """A Stray Scanner capture at the app's sizes: rgb.mp4 (I_PCM, the
-    textured wall), uint16 millimetre depth and 0-2 confidence PNGs,
+def write_stray_capture(base: str, num_frames: int) -> dict:
+    """A Stray Scanner capture at the app's sizes: rgb.mp4 (H.264, the
+    textured wall: ``write_h264_mp4`` with the wall's motion, as the phone
+    clip), uint16 millimetre depth and 0-2 confidence PNGs,
     camera_matrix.csv and odometry.csv, the first pose rolled -90 degrees
-    (portrait)."""
+    (portrait). Returns the writer's counts."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from scipy.spatial.transform import Rotation
 
-    from hive_tpu_torch.video import color, h264_pcm
+    from hive_tpu_torch.video import color, h264
 
     os.makedirs(os.path.join(base, "depth"))
     os.makedirs(os.path.join(base, "confidence"))
@@ -4037,14 +4088,17 @@ def write_stray_capture(base: str, num_frames: int) -> None:
     K = wall_camera() * np.array([[STRAY_W / FEATURE_W], [STRAY_W / FEATURE_W], [1.0]])
     poses = wall_trajectory(num_frames)
 
-    class Frames:
-        def __len__(self):
-            return num_frames
+    def planes(i):
+        return color.rgb_to_yuv420(render_wall(texture, poses[i], K, STRAY_W, STRAY_H)[0])
 
-        def __getitem__(self, i):
-            return color.rgb_to_yuv420(render_wall(texture, poses[i], K, STRAY_W, STRAY_H)[0])
-
-    h264_pcm.write_pcm_mp4(os.path.join(base, "rgb.mp4"), Frames())
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        frames = list(pool.map(planes, range(num_frames)))
+    totals = h264.write_h264_mp4(
+        os.path.join(base, "rgb.mp4"), frames,
+        h264.MotionPlanner(STRAY_W, STRAY_H,
+                           lambda i, r: wall_motion_qpel(poses, K, i, r, STRAY_W, STRAY_H),
+                           gop=PHONE_H264_GOP, qp=PHONE_H264_QP, refs=PHONE_H264_REFS),
+        init_qp=PHONE_H264_QP, num_ref_frames=PHONE_H264_REFS, restriction=0)
     rng = np.random.default_rng(SEED)
     for i in range(num_frames):
         depth = np.full(STRAY_DEPTH_HW, 2000, np.uint16) + rng.integers(0, 5, STRAY_DEPTH_HW)
@@ -4058,57 +4112,46 @@ def write_stray_capture(base: str, num_frames: int) -> None:
             q = Rotation.from_euler("xyz", [0.0, 0.0, -np.pi / 2]).as_quat()
             f.write(", ".join(repr(float(x)) for x in (i / 30, i, 0.01 * i, 0.0, 0.0, *q))
                     + "\n")
+    return {name: value for name, value in totals.items() if name != "coverage"}
 
 
 def check_video(device, launches, tmp: str) -> dict:
     """[video]: the demuxer, the decoders and the conversion on the card, then
-    a user's plain video and Stray Scanner capture through the CLI."""
+    a user's plain videos and Stray Scanner capture through the CLI."""
     from hive_tpu_torch.image_processing import (ROTATE_90_CLOCKWISE, resize_linear_u8,
                                                  rotate)
-    from hive_tpu_torch.video import color, h264_pcm
+    from hive_tpu_torch.video import color, h264
     from hive_tpu_torch.video.capture import VideoCapture
 
     phase_start = time.perf_counter()
     folder = os.path.join(tmp, "video")
     os.makedirs(folder)
-    results, refusal = {}, None
+    results = {}
     for index, (name, count, width, height, options) in enumerate(VIDEO_FIXTURES):
         planes = video_planes(count, width, height, SEED + index)
         path = os.path.join(folder, f"{name}.mp4")
-        h264_pcm.write_pcm_mp4(path, planes, **options)
-        cpu = VideoCapture(path, device="cpu")
-        if (cpu.width, cpu.height, cpu.frame_count, cpu.fps) != (width, height, count, 30.0):
-            raise AssertionError(f"[video] the demuxer reads {name} as {cpu.width}x"
-                                 f"{cpu.height}, {cpu.frame_count} frames at {cpu.fps} fps")
+        h264.write_h264_mp4(path, planes, h264.PcmPlanner(width, height), **options)
+        cpu, card = VideoCapture(path, device="cpu"), VideoCapture(path, device=device)
+        for capture in (cpu, card):
+            if (capture.width, capture.height, capture.frame_count, capture.fps) != (
+                    width, height, count, 30.0):
+                raise AssertionError(f"[video] the demuxer reads {name} as {capture.width}x"
+                                     f"{capture.height}, {capture.frame_count} frames at "
+                                     f"{capture.fps} fps")
         start = time.perf_counter()
         decoded = list(cpu.planes())
         cpu_ms = 1e3 * (time.perf_counter() - start) / count
-        for got, want in zip(decoded, planes):
-            if not all(np.array_equal(g.numpy(), w) for g, w in zip(got, want)):
-                raise AssertionError(f"[video] the CPU reader's planes of {name} differ from "
-                                     f"the seeded samples")
-        try:
-            card = VideoCapture(path, device=device)
-        except NotImplementedError as e:
-            if "Queue 1 item 9b" not in str(e) or "CUresult" not in str(e):
-                raise
-            refusal = str(e)
-        else:
-            if (card.width, card.height, card.frame_count, card.fps) != (
-                    cpu.width, cpu.height, cpu.frame_count, cpu.fps):
-                raise AssertionError(f"[video] {name}: NVDEC's capture disagrees with the "
-                                     f"demuxer")
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            on_card = list(card.planes())
-            torch.cuda.synchronize()
-            results[f"{name}_nvdec_ms_per_frame"] = (
-                1e3 * (time.perf_counter() - start) / count)
-            if len(on_card) != count or not all(
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        on_card = list(card.planes())
+        torch.cuda.synchronize()
+        card_ms = 1e3 * (time.perf_counter() - start) / count
+        for source, got in (("CPU", decoded), ("card", on_card)):
+            if len(got) != count or not all(
                     np.array_equal(g.cpu().numpy(), w)
-                    for got, want in zip(on_card, planes) for g, w in zip(got, want)):
-                raise AssertionError(f"[video] NVDEC's planes of {name} differ from the "
-                                     f"seeded samples")
+                    for pictures, want in zip(got, planes) for g, w in zip(pictures, want)):
+                raise AssertionError(f"[video] the {source} capture's planes of {name} differ "
+                                     f"from the seeded samples")
         # The card's conversion against the CPU's on the same planes.
         torch.cuda.reset_peak_memory_stats(device)
         y, u, v = (torch.from_numpy(p) for p in planes[0])
@@ -4117,23 +4160,19 @@ def check_video(device, launches, tmp: str) -> dict:
             raise AssertionError(f"[video] the card's BGR of {name} differs from the CPU's")
         ms, kernels = device_profile(lambda: color.yuv420_to_bgr(*on_device), reps=10,
                                      warmup=2)
-        results[name] = dict(cpu_reader_ms_per_frame=cpu_ms, conversion_ms=ms,
-                             conversion_kernels=kernels,
+        results[name] = dict(cpu_ms_per_frame=cpu_ms, card_ms_per_frame=card_ms,
+                             conversion_ms=ms, conversion_kernels=kernels,
                              peak_bytes=int(torch.cuda.max_memory_allocated(device)))
-        log(f"[video] {name}: {count} frames {width}x{height} at 30 fps, the demuxer's "
-            f"properties and the CPU reader's planes exact ({cpu_ms:.3f} ms a frame on the "
-            f"host); NVDEC "
-            + (f"{results[f'{name}_nvdec_ms_per_frame']:.3f} ms a frame, planes exact"
-               if refusal is None else "refused (below)")
-            + f"; the card's conversion equals the CPU's, {ms:.6f} ms device in {kernels} "
-            f"kernels, peak {results[name]['peak_bytes']} B")
-    if refusal is not None:
-        log(f"[video] NVDEC does not open on this card: {refusal}")
-        parser = nvdec_parser_log(folder)
-        results["nvdec_parser"] = parser
-        log(f"[video] NVDEC's parser alone on a 1920x1080 I_PCM stream (coded 1088 lines): "
-            f"{parser}")
-    results["nvdec_refusal"] = refusal
+        log(f"[video] {name}: {count} I_PCM frames {width}x{height} at 30 fps, the demuxer's "
+            f"properties as written; H264Decoder's planes exact on the CPU ({cpu_ms:.3f} ms a "
+            f"frame) and through the card's capture (host decode, then the copy: "
+            f"{card_ms:.3f} ms a frame); the card's conversion equals the CPU's, {ms:.6f} ms "
+            f"device in {kernels} kernels, peak {results[name]['peak_bytes']} B")
+    parser = nvdec_parser_log(folder)
+    results["nvdec_parser"] = parser
+    log(f"[video] NVDEC's parser alone on a 1920x1080 I_PCM stream (coded 1088 lines; NVDEC is "
+        f"not on the decode path, ROADMAP item 9b): {parser}")
+    results["exerciser"] = check_h264_exerciser(device, folder)
 
     # The card's rotation and resize at the user runs' shapes, against the CPU.
     rng = np.random.default_rng(SEED)
@@ -4159,54 +4198,167 @@ def check_video(device, launches, tmp: str) -> dict:
             f"{ms:.6f} ms device in {kernels} kernels")
 
     # A user's plain video and Stray Scanner capture through the CLI: the
-    # phone clip as Motion JPEG and as MPEG-4 Part 2 (what cv2's mp4v writer
-    # makes), both of which decode on the host for every device; H.264
-    # inputs need NVDEC.
+    # phone clip as Motion JPEG, as MPEG-4 Part 2 (what cv2's mp4v writer
+    # makes) and as H.264, and the capture's H.264 rgb.mp4, all decoded on
+    # the host for every device; a CABAC clip refused.
     clip = os.path.join(folder, "phone.mp4")
     mpeg4_clip = os.path.join(folder, "phone_mpeg4.mp4")
+    h264_clip = os.path.join(folder, "phone_h264.mp4")
     stray = os.path.join(folder, "stray")
     results["mjpeg"] = check_mjpeg_clip(device, clip)
     results["mpeg4"] = check_mpeg4_clip(device, mpeg4_clip)
+    results["h264"] = check_h264_clip(device, h264_clip)
+    results["cabac_refusal"] = check_cabac_refusal(folder)
+    start = time.perf_counter()
+    results["stray_writer"] = write_stray_capture(stray, VIDEO_FRAMES)
+    log(f"[video] Stray Scanner capture written ({VIDEO_FRAMES} frames, rgb.mp4 H.264 "
+        f"{STRAY_W}x{STRAY_H}, {os.path.getsize(os.path.join(stray, 'rgb.mp4'))} B) in "
+        f"{time.perf_counter() - start:.1f} s; writer counts {results['stray_writer']}")
     pose_depth = ["--estimate_pose", "--estimate_depth", "--binary_path",
                   os.path.join(folder, "no_colmap")]
-    runs = [("phone", clip, pose_depth, (360, 640)),
-            ("phone_mpeg4", mpeg4_clip, pose_depth, (360, 640))]
-    if refusal is not None:
-        # Small H.264 inputs: the CLI must refuse both before converting anything.
-        h264_clip = os.path.join(folder, "phone_h264.mp4")
-        h264_pcm.write_pcm_mp4(h264_clip, video_planes(3, 64, 48, SEED))
-        os.makedirs(os.path.join(stray, "depth"))
-        os.makedirs(os.path.join(stray, "confidence"))
-        shutil.copy(h264_clip, os.path.join(stray, "rgb.mp4"))
-        for sub in ("depth", "confidence"):
-            write_png(os.path.join(stray, sub, "000000.png"), np.ones((4, 4), np.uint8))
-        for csv in ("camera_matrix.csv", "odometry.csv"):
-            with open(os.path.join(stray, csv), "w") as f:
-                f.write("0\n")
-        for name, source, extra in (("plain H.264 video", h264_clip,
-                                     ["--estimate_pose", "--estimate_depth"]),
-                                    ("Stray Scanner capture", stray, [])):
-            out = os.path.join(folder, f"converted_{len(name)}")
-            argv = ["hive_tpu_torch", "--dataset_path", source, "--output_path", out, *extra,
-                    "--webxr_path", out + "_webxr", "--log_file", out + ".log"]
-            try:
-                with mock.patch.object(sys, "argv", argv):
-                    runpy.run_module("hive_tpu_torch", run_name="__main__", alter_sys=True)
-            except NotImplementedError as e:
-                if "Queue 1 item 9b" not in str(e) or "CUresult" not in str(e):
-                    raise
-            else:
-                raise AssertionError(f"[video] the CLI converted a {name} without NVDEC")
-            if os.path.exists(out):
-                raise AssertionError(f"[video] the refused {name} left {out}")
-            log(f"[video] the CLI refuses a {name} on this card, naming ROADMAP item 9b and "
-                f"the CUresult, before writing anything")
-    else:
-        write_stray_capture(stray, VIDEO_FRAMES)
-        runs.append(("stray", stray, [], (640, 480)))
+    runs = [("phone", clip, pose_depth, (360, 640), PHONE_CLI_FRAMES),
+            ("phone_mpeg4", mpeg4_clip, pose_depth, (360, 640), PHONE_CLI_FRAMES),
+            ("phone_h264", h264_clip, pose_depth, (360, 640), PHONE_CLI_FRAMES),
+            ("stray", stray, [], (640, 480), VIDEO_FRAMES)]
     results["runs"] = run_video_conversions(device, launches, folder, runs)
     log(f"[video] the phase took {time.perf_counter() - phase_start:.1f} s")
     return results
+
+
+def check_h264_exerciser(device, folder: str) -> dict:
+    """The H.264 exerciser clips (H264_EXERCISER_CLIPS, 640x480): every
+    syntax path the writer counts written at least once over them, each
+    file the bytes of H264_EXERCISER_DIGESTS, and its frames read on the
+    card and on the CPU both the frames cv2 reads (by their digest)."""
+    from hive_tpu_torch.video.capture import VideoCapture
+
+    totals, result = {}, {}
+    for index, (name, count, _, _) in enumerate(H264_EXERCISER_CLIPS):
+        start = time.perf_counter()
+        path, stats = write_h264_exerciser(folder, index)
+        write_s = time.perf_counter() - start
+        want = H264_EXERCISER_DIGESTS[name]
+        got = (file_digest(path),
+               frames_digest(VideoCapture(path, device=device).frames()),
+               frames_digest(VideoCapture(path, device="cpu").frames()))
+        if got != (*want, want[1]):
+            raise AssertionError(f"[video] exerciser {name}: file / card frames / CPU frames "
+                                 f"digests {got}, not {want}: the writer or decoder built here "
+                                 f"is not the one the tests hold to cv2")
+        for key, value in stats.items():
+            if key != "coverage":
+                totals[key] = totals.get(key, 0) + value
+        result[name] = dict(write_s=write_s, bytes=os.path.getsize(path), digests=got[:2])
+    missing = [key for key, value in totals.items() if value == 0]
+    if missing:
+        raise AssertionError(f"[video] the exerciser clips wrote no {missing}")
+    result["counts"] = totals
+    log(f"[video] H.264 exerciser clips {[c[0] for c in H264_EXERCISER_CLIPS]} (640x480, "
+        f"CAVLC I and P): each file and its frames on the card and on the CPU hash to the "
+        f"digests of cv2's read; every path written ({totals})")
+    return result
+
+
+def write_h264_exerciser(folder: str, index: int) -> Tuple[str, dict]:
+    """Exerciser clip ``index`` of H264_EXERCISER_CLIPS written into
+    ``folder``: its path and the writer's counts."""
+    from hive_tpu_torch.video import h264
+
+    name, count, options, planner = H264_EXERCISER_CLIPS[index]
+    path = os.path.join(folder, f"exerciser_{name}.mp4")
+    stats = h264.write_h264_mp4(path, exerciser_planes(count, 640, 480, SEED + index),
+                                h264.Exerciser(640, 480, SEED + index, **planner), **options)
+    return path, stats
+
+
+def exerciser_planes(count: int, width: int, height: int, seed: int):
+    """``count`` 4:2:0 frames made by integer arithmetic alone, so every
+    host makes the same bytes: each plane a seeded grid of levels, one a
+    macroblock, blended bilinearly between them (smooth, so the deblocking
+    filter acts), with +-1 of seeded noise, its window sliding 4 luma
+    columns and 2 rows a frame."""
+    rng = np.random.default_rng(seed)
+
+    def upsample(grid, s):
+        f = np.arange(s)
+        rows = (grid[:, :-1, None] * (s - f) + grid[:, 1:, None] * f).reshape(len(grid), -1)
+        out = rows[:-1, None, :] * (s - f)[None, :, None] + rows[1:, None, :] * f[None, :, None]
+        return out.reshape(-1, rows.shape[1])
+
+    planes = []
+    for scale, h, w in ((16, height, width), (8, height // 2, width // 2),
+                        (8, height // 2, width // 2)):
+        grid = rng.integers(24, 232, (h // scale + count // 8 + 3, w // scale + count // 2 + 3))
+        canvas = upsample(grid.astype(np.int64), scale)
+        planes.append((canvas, scale * scale))
+    frames = []
+    for i in range(count):
+        frame = []
+        for k, (canvas, norm) in enumerate(planes):
+            dy, dx = (2 * i, 4 * i) if k == 0 else (i, 2 * i)
+            h, w = (height, width) if k == 0 else (height // 2, width // 2)
+            level = (canvas[dy:dy + h, dx:dx + w] + norm // 2) // norm
+            noise = rng.integers(-1, 2, (h, w))
+            frame.append(np.clip(level + noise, 0, 255).astype(np.uint8))
+        frames.append(tuple(frame))
+    return frames
+
+
+def file_digest(path: str) -> str:
+    """The first 16 hex digits of a file's SHA-256."""
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()[:16]
+
+
+def frames_digest(frames) -> str:
+    """The first 16 hex digits of the SHA-256 of frames' bytes, in order
+    (tensors on any device, or arrays)."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    for frame in frames:
+        frame = frame.cpu().numpy() if isinstance(frame, torch.Tensor) else frame
+        digest.update(np.ascontiguousarray(frame).tobytes())
+    return digest.hexdigest()[:16]
+
+
+def check_cabac_refusal(folder: str) -> dict:
+    """A small H.264 clip whose PPS says CABAC (what an iPhone writes): the
+    CLI refuses it naming ROADMAP Queue 1 item 9f before it writes
+    anything."""
+    from hive_tpu_torch.video import h264, mp4
+
+    source = os.path.join(folder, "cabac_source.mp4")
+    h264.write_h264_mp4(source, video_planes(3, 64, 48, SEED), h264.Exerciser(64, 48, SEED))
+    track = mp4.read_track(source)
+    _, sps, _ = mp4.parse_avcc(track.config)
+    with open(source, "rb") as f:
+        samples = []
+        for offset, size in zip(track.offsets, track.sizes):
+            f.seek(int(offset))
+            samples.append(f.read(int(size)))
+    clip = os.path.join(folder, "cabac.mp4")
+    mp4.write_mp4(clip, mp4.avc1_entry(64, 48, sps[0], h264.encode_pps(cabac=True)), samples,
+                  width=64, height=48, timescale=30, durations=[1] * len(samples),
+                  sync=[True, False, False])
+    out = os.path.join(folder, "cabac_converted")
+    argv = ["hive_tpu_torch", "--dataset_path", clip, "--output_path", out, "--estimate_pose",
+            "--estimate_depth", "--webxr_path", out + "_webxr", "--log_file", out + ".log"]
+    try:
+        with mock.patch.object(sys, "argv", argv):
+            runpy.run_module("hive_tpu_torch", run_name="__main__", alter_sys=True)
+    except mp4.UnsupportedVideoError as e:
+        if "CABAC" not in str(e) or "Queue 1 item 9f" not in str(e):
+            raise
+        message = str(e)
+    else:
+        raise AssertionError("[video] the CLI converted a CABAC clip")
+    if os.path.exists(out):
+        raise AssertionError(f"[video] the refused CABAC clip left {out}")
+    log(f"[video] the CLI refuses a CABAC H.264 clip before writing anything: {message}")
+    return dict(message=message)
 
 
 def write_phone_clip(path: str) -> float:
@@ -4282,17 +4434,13 @@ def check_mjpeg_clip(device, clip: str) -> dict:
     return result
 
 
-def wall_motion(poses: np.ndarray, K: np.ndarray, index: int, width: int,
-                height: int) -> np.ndarray:
-    """The wall's motion into frame ``index`` from the frame before, at the
-    centre of each 8x8 luma block: (mbh, mbw, 4, 2) half-pel vectors that
-    point into the previous frame, blocks in MPEG-4's order (top-left,
-    top-right, bottom-left, bottom-right)."""
+def wall_flow(poses: np.ndarray, K: np.ndarray, index: int, ref: int, us: np.ndarray,
+              vs: np.ndarray) -> np.ndarray:
+    """Where the wall's points seen at pixels (us, vs) of frame ``index``
+    lie in frame ``ref``, less (us, vs): (..., 2) pixels."""
     from hive_tpu_torch.geometric import pose_vec2mat
 
-    mbw, mbh = -(-width // 16), -(-height // 16)
-    vs, us = np.mgrid[0:2 * mbh, 0:2 * mbw].astype(np.float64) * 8 + 3.5
-    M, M_prev = pose_vec2mat(poses[index]), pose_vec2mat(poses[index - 1])
+    M, M_prev = pose_vec2mat(poses[index]), pose_vec2mat(poses[ref])
     R, t = M[:3, :3], M[:3, 3]
     rays = np.stack([(us - K[0, 2]) / K[0, 0], (vs - K[1, 2]) / K[1, 1], np.ones_like(us)], -1)
     origin, world = -R.T @ t, rays @ R
@@ -4300,30 +4448,63 @@ def wall_motion(poses: np.ndarray, K: np.ndarray, index: int, width: int,
     seen = points @ M_prev[:3, :3].T + M_prev[:3, 3]
     u_prev = K[0, 0] * seen[..., 0] / seen[..., 2] + K[0, 2]
     v_prev = K[1, 1] * seen[..., 1] / seen[..., 2] + K[1, 2]
-    field = np.rint(2 * np.stack([u_prev - us, v_prev - vs], -1)).astype(np.int32)
+    return np.stack([u_prev - us, v_prev - vs], -1)
+
+
+def wall_motion(poses: np.ndarray, K: np.ndarray, index: int, width: int,
+                height: int) -> np.ndarray:
+    """The wall's motion into frame ``index`` from the frame before, at the
+    centre of each 8x8 luma block: (mbh, mbw, 4, 2) half-pel vectors that
+    point into the previous frame, blocks in MPEG-4's order (top-left,
+    top-right, bottom-left, bottom-right)."""
+    mbw, mbh = -(-width // 16), -(-height // 16)
+    vs, us = np.mgrid[0:2 * mbh, 0:2 * mbw].astype(np.float64) * 8 + 3.5
+    field = np.rint(2 * wall_flow(poses, K, index, index - 1, us, vs)).astype(np.int32)
     return field.reshape(mbh, 2, mbw, 2, 2).transpose(0, 2, 1, 3, 4).reshape(mbh, mbw, 4, 2)
+
+
+def wall_motion_qpel(poses: np.ndarray, K: np.ndarray, index: int, ref: int, width: int,
+                     height: int) -> np.ndarray:
+    """The wall's motion into frame ``index`` from frame ``ref`` at each
+    macroblock's centre: (mbh, mbw, 2) quarter-sample vectors (H.264's)
+    that point into frame ``ref``."""
+    mbw, mbh = -(-width // 16), -(-height // 16)
+    vs, us = np.mgrid[0:mbh, 0:mbw].astype(np.float64) * 16 + 7.5
+    return np.rint(4 * wall_flow(poses, K, index, ref, us, vs)).astype(np.int32)
+
+
+_PHONE_RENDERS: list = []
+
+
+def phone_renders() -> Tuple[list, np.ndarray, np.ndarray]:
+    """The phone clip's VIDEO_FRAMES 1920x1080 wall renders as (Y, U, V)
+    planes (rendered once, on host threads), its poses and intrinsics."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hive_tpu_torch.video import color
+
+    texture, K = wall_texture(), wall_camera() * np.array([[3.0], [3.0], [1.0]])
+    poses = wall_trajectory(VIDEO_FRAMES)
+    if not _PHONE_RENDERS:
+        def planes(i):
+            return color.rgb_to_yuv420(render_wall(texture, poses[i], K, PHONE_W, PHONE_H)[0])
+
+        with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+            _PHONE_RENDERS.extend(pool.map(planes, range(VIDEO_FRAMES)))
+    return _PHONE_RENDERS, poses, K
 
 
 def write_mpeg4_phone_clip(path: str) -> Tuple[float, dict, list]:
     """The phone clip as MPEG-4 Part 2 Simple Profile (``write_mpeg4_mp4``):
-    the same VIDEO_FRAMES 1920x1080 wall renders as the Motion JPEG clip (on
-    host threads), an I-VOP every PHONE_MPEG4_GOP frames, the wall's motion
-    as the motion field, 4MV on every other macroblock, a video packet
-    every row. Returns the seconds it took, the writer's counts and the
-    rendered (Y, U, V) planes it coded."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from hive_tpu_torch.video import color, mpeg4
+    the same VIDEO_FRAMES 1920x1080 wall renders as the Motion JPEG clip
+    (``phone_renders``), an I-VOP every PHONE_MPEG4_GOP frames, the wall's
+    motion as the motion field, 4MV on every other macroblock, a video
+    packet every row. Returns the seconds it took, the writer's counts and
+    the rendered (Y, U, V) planes it coded."""
+    from hive_tpu_torch.video import mpeg4
 
     start = time.perf_counter()
-    texture, K = wall_texture(), wall_camera() * np.array([[3.0], [3.0], [1.0]])
-    poses = wall_trajectory(VIDEO_FRAMES)
-
-    def planes(i):
-        return color.rgb_to_yuv420(render_wall(texture, poses[i], K, PHONE_W, PHONE_H)[0])
-
-    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
-        frames = list(pool.map(planes, range(VIDEO_FRAMES)))
+    frames, poses, K = phone_renders()
     mbw, mbh = -(-PHONE_W // 16), -(-PHONE_H // 16)
     four_mv = np.zeros((mbh, mbw), bool)
     four_mv[:, ::2] = True
@@ -4331,6 +4512,27 @@ def write_mpeg4_phone_clip(path: str) -> Tuple[float, dict, list]:
         path, frames, qscale=PHONE_MPEG4_QSCALE, gop=PHONE_MPEG4_GOP,
         motion=lambda i: wall_motion(poses, K, i, PHONE_W, PHONE_H), four_mv=four_mv,
         resync_every=PHONE_MPEG4_RESYNC)
+    return time.perf_counter() - start, totals, frames
+
+
+def write_h264_phone_clip(path: str) -> Tuple[float, dict, list]:
+    """The phone clip as H.264 (``write_h264_mp4``, ``MotionPlanner``): the
+    same renders, an IDR picture every PHONE_H264_GOP frames (I_NxN with
+    seeded 4x4 modes, I_16x16 on every fifth macroblock), P pictures of
+    16x16 partitions with the wall's motion to each of up to
+    PHONE_H264_REFS references, a slice a row, deblocking on. Returns the
+    seconds it took, the writer's counts and the rendered planes."""
+    from hive_tpu_torch.video import h264
+
+    start = time.perf_counter()
+    frames, poses, K = phone_renders()
+    totals = h264.write_h264_mp4(
+        path, frames,
+        h264.MotionPlanner(PHONE_W, PHONE_H,
+                           lambda i, r: wall_motion_qpel(poses, K, i, r, PHONE_W, PHONE_H),
+                           gop=PHONE_H264_GOP, qp=PHONE_H264_QP, refs=PHONE_H264_REFS),
+        init_qp=PHONE_H264_QP, num_ref_frames=PHONE_H264_REFS, restriction=0)
+    totals.pop("coverage")
     return time.perf_counter() - start, totals, frames
 
 
@@ -4416,16 +4618,103 @@ def check_mpeg4_clip(device, clip: str) -> dict:
     return result
 
 
+def check_h264_clip(device, clip: str) -> dict:
+    """The H.264 phone clip read on the card against the CPU: the demuxer's
+    size, count and rate, frames PHONE_H264_CHECKED equal, and their
+    decoded Y planes at least PHONE_H264_MIN_PSNR against the renders the
+    clip was written from (both captures decode on this host; with the
+    exerciser clips' digests, this holds the decoder built here to the
+    picture); the capture's open ms, the host decode (native) ms of the IDR
+    picture and of a P picture, the card's 4:2:0 -> BGR conversion device
+    ms and kernels, and a ``frames()`` loop's ms a frame on the card."""
+    from hive_tpu_torch.video import color, h264, mp4
+    from hive_tpu_torch.video.capture import VideoCapture
+
+    write_s, totals, rendered = write_h264_phone_clip(clip)
+    start = time.perf_counter()
+    card = VideoCapture(clip, device=device)
+    open_ms = 1e3 * (time.perf_counter() - start)
+    cpu = VideoCapture(clip, device="cpu")
+    expected = (PHONE_W, PHONE_H, VIDEO_FRAMES, 30.0, mp4.H264)
+    for capture in (card, cpu):
+        got = (capture.width, capture.height, capture.frame_count, capture.fps, capture.codec)
+        if got != expected:
+            raise AssertionError(f"[video] the H.264 clip reads as {got}, not {expected}")
+    for index in PHONE_H264_CHECKED:
+        if not torch.equal(card.frame(index).cpu(), cpu.frame(index)):
+            raise AssertionError(f"[video] the H.264 clip's frame {index} on the card "
+                                 f"differs from the CPU's")
+    psnr = {}
+    for index in PHONE_H264_CHECKED:
+        y = next(card.planes(index, index + 1))[0].cpu().numpy()
+        psnr[index] = psnr_db(y, rendered[index][0])
+        if not psnr[index] >= PHONE_H264_MIN_PSNR:
+            raise AssertionError(f"[video] the H.264 clip's frame {index} decodes "
+                                 f"{psnr[index]:.3f} dB PSNR against the luma it was "
+                                 f"written from, under {PHONE_H264_MIN_PSNR} dB: the "
+                                 f"decoder is wrong on this host")
+    units = [card._nal_units(k) for k in range(2)]
+
+    def fresh():
+        decoder = h264.H264Decoder()
+        decoder.decode(card.sps_units + card.pps_units)
+        return decoder
+
+    idr_ms = host_ms(lambda: fresh().decode(units[0]), reps=3)
+    after_idr = fresh()
+    first = after_idr.decode(units[0])
+    p_ms = host_ms(lambda: _decode_copy(after_idr, units[1]), reps=3)
+    if first is None or not first.idr:
+        raise AssertionError("[video] the H.264 clip does not start with an IDR picture")
+    planes = [torch.from_numpy(np.ascontiguousarray(p)).to(device)
+              for p in (first.y, first.u, first.v)]
+    convert_ms, kernels = device_profile(lambda: color.planes_to_bgr(planes, False), reps=10,
+                                         warmup=2)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in card.frames():
+        pass
+    torch.cuda.synchronize()
+    loop_ms = 1e3 * (time.perf_counter() - start) / VIDEO_FRAMES
+    result = dict(write_s=write_s, bytes=os.path.getsize(clip), writer=totals,
+                  luma_psnr_db=psnr, idr_bytes=sum(map(len, units[0])),
+                  p_bytes=sum(map(len, units[1])), idr_decode_ms=idr_ms, p_decode_ms=p_ms,
+                  open_ms=open_ms, conversion_ms=convert_ms, conversion_kernels=kernels,
+                  frames_loop_ms=loop_ms)
+    log(f"[video] H.264 phone clip: {VIDEO_FRAMES} frames {PHONE_W}x{PHONE_H} "
+        f"({16 * -(-PHONE_H // 16)} coded lines), CAVLC, QP {PHONE_H264_QP}, an IDR picture every "
+        f"{PHONE_H264_GOP}, up to {PHONE_H264_REFS} references, the wall's motion as 16x16 "
+        f"vectors, a slice a row, deblocking on ({result['bytes']} B, written in {write_s:.1f} "
+        f"s; writer counts {totals}); size, count and rate as written; frames "
+        f"{PHONE_H264_CHECKED} on the card equal the CPU's, their luma at "
+        f"{', '.join(f'{v:.4f}' for v in psnr.values())} dB PSNR against the renders (floor "
+        f"{PHONE_H264_MIN_PSNR}); host decode {idr_ms:.3f} ms the IDR picture "
+        f"({result['idr_bytes']} B), {p_ms:.3f} ms a P picture ({result['p_bytes']} B) "
+        f"(native, one thread); opening the capture (every sample's headers read) "
+        f"{open_ms:.3f} ms; the card's conversion {convert_ms:.6f} ms device in {kernels} "
+        f"kernels; a frames() loop on the card {loop_ms:.3f} ms a frame")
+    return result
+
+
+def _decode_copy(decoder, units):
+    """Decode ``units`` on a copy of ``decoder``, whose buffer stays as it is."""
+    import copy
+
+    trial = copy.copy(decoder)
+    trial.refs = list(decoder.refs)
+    return trial.decode(units)
+
+
 def run_video_conversions(device, launches, folder: str, runs) -> dict:
     """The user's video runs, each through ``python -m hive_tpu_torch`` in
-    this process: the Motion JPEG and the MPEG-4 Part 2 phone clips with
+    this process: the Motion JPEG, MPEG-4 Part 2 and H.264 phone clips with
     ``--estimate_pose --estimate_depth`` (PnP odometry, its SIFT histograms
     in the ordered kernel; DPT with the check weights, as phase 8 writes
-    them) and, where
-    NVDEC opens, the Stray Scanner capture with its own poses: two
-    classifications and one band update a fused frame, ``fg.glb``,
-    ``bg.glb`` and ``metadata.json`` written, both meshes finite, the frames
-    equal to the CPU path's."""
+    them) on their first PHONE_CLI_FRAMES frames, and the Stray Scanner
+    capture (H.264) with its own poses on all of them: two classifications
+    and one band update a fused frame, ``fg.glb``, ``bg.glb`` and
+    ``metadata.json`` written, both meshes finite, the frames equal to the
+    CPU path's."""
     from hive_tpu_torch.dataset_adaptors import VideoAdaptorBase
     from hive_tpu_torch.image_processing import ROTATE_90_CLOCKWISE
     from hive_tpu_torch.io import HiveDataset
@@ -4434,13 +4723,13 @@ def run_video_conversions(device, launches, folder: str, runs) -> dict:
     os.makedirs(weights)
     write_dpt_weights(weights)
     results = {}
-    for name, source, extra, size in runs:
+    for name, source, extra, size, frames in runs:
         out = os.path.join(folder, f"{name}_converted")
         # Every frame a key frame, as in the other CLI runs: the clip's camera
         # moves 1 cm a frame, which the default threshold fuses once.
         argv = ["hive_tpu_torch", "--dataset_path", source, "--output_path", out, *extra,
-                "--key_frame_threshold", "1.0", "--webxr_path", out + "_webxr",
-                "--log_file", out + ".log"]
+                "--num_frames", str(frames), "--key_frame_threshold", "1.0",
+                "--webxr_path", out + "_webxr", "--log_file", out + ".log"]
         reset_launch_counts()
         start = time.perf_counter()
         with mock.patch.dict(os.environ, {"WEIGHTS_PATH": weights}), \
@@ -4449,7 +4738,7 @@ def run_video_conversions(device, launches, folder: str, runs) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
         launches[f"video_{name}"] = main_launch_counts()
-        check_launches(f"the {name} CLI run", launches[f"video_{name}"], VIDEO_FRAMES)
+        check_launches(f"the {name} CLI run", launches[f"video_{name}"], frames)
         if "--estimate_pose" in extra and launches[f"video_{name}"]["ordered_hist"] == 0:
             raise AssertionError(f"the {name} CLI run's PnP launched no ordered_hist")
         for written in ("mesh/fg.glb", "mesh/bg.glb", "metadata.json"):
@@ -4466,11 +4755,11 @@ def run_video_conversions(device, launches, folder: str, runs) -> dict:
         os.makedirs(cpu_frames)
         VideoAdaptorBase.extract_video(
             os.path.join(source, "rgb.mp4") if name == "stray" else source, cpu_frames,
-            VIDEO_FRAMES, target_resolution=size,
+            frames, target_resolution=size,
             rotation=ROTATE_90_CLOCKWISE if name == "stray" else None, file_extension="jpg",
             device="cpu")
         compared = sorted(os.listdir(cpu_frames))
-        if len(compared) != VIDEO_FRAMES:
+        if len(compared) != frames:
             raise AssertionError(f"[video] {name}: the CPU path wrote {len(compared)} frames")
         for frame in compared:
             with open(os.path.join(cpu_frames, frame), "rb") as f, \
@@ -4491,10 +4780,10 @@ def run_video_conversions(device, launches, folder: str, runs) -> dict:
                              load_dataset=timing["load_dataset"], stages=stages,
                              peak_bytes=int(torch.cuda.max_memory_allocated(device)),
                              ordered_hist_shapes=shapes)
-        log(f"[video] {name}: {VIDEO_FRAMES} frames converted and meshed through the CLI on "
+        log(f"[video] {name}: {frames} frames converted and meshed through the CLI on "
             f"the card in {wall:.1f} s ({results[name]['per_frame_s']} s a frame, "
             f"profiling.json); fg.glb, bg.glb and metadata.json written, meshes finite, the "
-            f"{VIDEO_FRAMES} frames' JPEG bytes equal the CPU path's; stages (s) "
+            f"{frames} frames' JPEG bytes equal the CPU path's; stages (s) "
             f"{json.dumps(stages)}; load_dataset {json.dumps(timing['load_dataset'])}; launches "
             f"{launches[f'video_{name}']}; ordered_hist calls (rows, entries, bins) {shapes}")
     return results
@@ -5662,7 +5951,7 @@ def main() -> int:
     log(f"[device] NVIDIA_DRIVER_CAPABILITIES={os.environ.get('NVIDIA_DRIVER_CAPABILITIES')}; "
         f"cuvidGetDecoderCaps, 8-bit 4:2:0 at {STRAY_W}x{STRAY_H}: {nvdec_caps_log()}")
 
-    start = time.perf_counter()
+    script_start = start = time.perf_counter()
     cuda_build.build(["classify_blocks", "band_update", "band_sampler", "tile_gather",
                       "patch_gather", "fused_band", "ordered_hist"])
     log(f"[build] all seven kernels in {time.perf_counter() - start:.1f} s")
@@ -5680,36 +5969,73 @@ def main() -> int:
     check_band_update_states(device)
     sampler = check_sampler(device, frames)
     launches = {}
+    phase_seconds = {"to_integration": time.perf_counter() - script_start}
     check_integration(device, frames, launches)
     check_sparse_vs_dense(device)
     del frames
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="hive_tum_") as tmp:
         e2e = os.path.join(tmp, "e2e")
+        phase_start = time.perf_counter()
         main_path, main_profiling = run_main_path(device, launches, keep=e2e)
+        phase_seconds["e2e"] = time.perf_counter() - phase_start
+        phase_start = time.perf_counter()
         shards = check_shards(device, launches, e2e, tmp, smi)
+        phase_seconds["shard"] = time.perf_counter() - phase_start
+        phase_start = time.perf_counter()
         conversion, conversion_profiling = run_conversion(device, launches, main_profiling, tmp)
+        phase_seconds["convert"] = time.perf_counter() - phase_start
+        phase_start = time.perf_counter()
         dpt_results = check_dpt(device)
+        phase_seconds["dpt"] = time.perf_counter() - phase_start
+        phase_start = time.perf_counter()
         depth_run = run_depth_conversion(device, launches, conversion_profiling, tmp)
+        phase_seconds["estimate_depth"] = time.perf_counter() - phase_start
+        phase_start = time.perf_counter()
         segmenters = check_segmenters(device, os.path.join(tmp, "tum"))
+        phase_seconds["segment"] = time.perf_counter() - phase_start
+        phase_start = time.perf_counter()
         segmented_run = run_segmented_conversion(device, launches, conversion_profiling, tmp)
+        phase_seconds["maskrcnn_run"] = time.perf_counter() - phase_start
+        phase_start = time.perf_counter()
         lama_results = check_lama(device, os.path.join(tmp, "tum"))
+        phase_seconds["lama"] = time.perf_counter() - phase_start
+        phase_start = time.perf_counter()
         inpainted_run = run_inpainting_conversion(device, launches, conversion_profiling, tmp)
+        phase_seconds["inpaint_run"] = time.perf_counter() - phase_start
+        phase_start = time.perf_counter()
         pose_results = {"small": check_pose_small(device), "user": run_pose_optimise(device)}
+        phase_seconds["pose"] = time.perf_counter() - phase_start
+        phase_start = time.perf_counter()
         fts_run = run_fts_conversion(device, launches, conversion_profiling, tmp)
+        phase_seconds["fts"] = time.perf_counter() - phase_start
+        phase_start = time.perf_counter()
         colmap_run = run_colmap_pose_conversion(device, launches, conversion_profiling, tmp)
+        phase_seconds["colmap"] = time.perf_counter() - phase_start
         probes = {"band_sampler": sampler,
                   "tile_gather": check_tile_gather(device),
                   "patch_gather": check_patch_gather(device),
                   "fused_band": check_fused_band(device)}
         floor = launch_floor_ms(device)
+        phase_start = time.perf_counter()
         features = check_features(device)
+        phase_seconds["features"] = time.perf_counter() - phase_start
+        phase_start = time.perf_counter()
         pnp_run = run_pnp_pose_conversion(device, launches, conversion_profiling, colmap_run,
                                           tmp)
+        phase_seconds["pnp"] = time.perf_counter() - phase_start
+        phase_start = time.perf_counter()
         video = check_video(device, launches, tmp)
+        phase_seconds["video"] = time.perf_counter() - phase_start
+        phase_start = time.perf_counter()
         evaluation = check_eval(device, tmp, e2e)
+        phase_seconds["eval"] = time.perf_counter() - phase_start
+        phase_start = time.perf_counter()
         research = check_research(device, launches, tmp)
+        phase_seconds["research"] = time.perf_counter() - phase_start
+    phase_start = time.perf_counter()
     entry_points = run_entry_points(device, launches)
+    phase_seconds["entry_points"] = time.perf_counter() - phase_start
 
     # Times, errors and bounds are the main path's own (its largest call);
     # "bench" holds the same at the TSDF bench shape.
@@ -5733,6 +6059,8 @@ def main() -> int:
             launches_pnp_pose=launches["pnp_pose"][name],
             launches_video_phone=launches["video_phone"][name],
             launches_video_phone_mpeg4=launches["video_phone_mpeg4"][name],
+            launches_video_phone_h264=launches["video_phone_h264"][name],
+            launches_video_stray=launches["video_stray"][name],
             launches_bench=launches["bench"][name], launches_shard=launches["shard"][name],
             launches_research=launches["research"][name],
             exact=True,
@@ -5776,10 +6104,12 @@ def main() -> int:
         "cv2.SIFT_create(...).detectAndCompute, in OpenCV's sample order",
         launches=launches["video_phone"]["ordered_hist"],
         launches_phone_mpeg4=launches["video_phone_mpeg4"]["ordered_hist"],
+        launches_phone_h264=launches["video_phone_h264"]["ordered_hist"],
         launches_pnp_pose=launches["pnp_pose"]["ordered_hist"], exact=True,
         **ordered[360], orientation=ordered[36],
         shapes_phone=video["runs"]["phone"]["ordered_hist_shapes"],
         shapes_phone_mpeg4=video["runs"]["phone_mpeg4"]["ordered_hist_shapes"],
+        shapes_phone_h264=video["runs"]["phone_h264"]["ordered_hist_shapes"],
         shapes_pnp_pose=pnp_run["ordered_hist_shapes"]))
     log("[shard] summary " + json.dumps(shards))
     log("[convert] summary " + json.dumps(conversion))
@@ -5792,6 +6122,8 @@ def main() -> int:
     log("[video] summary " + json.dumps(video))
     log("[eval] summary " + json.dumps(evaluation))
     log("[research] summary " + json.dumps(research))
+    log(f"[phases] seconds {json.dumps(phase_seconds)}; the script "
+        f"{time.perf_counter() - script_start:.1f} s from the build")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -27,11 +27,10 @@ counterpart of :296-329, through :mod:`hive_tpu_torch.sfm`).
 
 Videos (a plain ``.mp4``, a StrayScanner capture's ``rgb.mp4``) are read
 by :class:`hive_tpu_torch.video.capture.VideoCapture` as ``cv2.VideoCapture``
-reads them: H.264 in MP4, decoded through NVDEC on a CUDA device (a device
-whose NVDEC does not open refuses the video, ROADMAP.md Queue 1 item 9b) or
-through the I_PCM reader on the CPU; Motion JPEG and MPEG-4 Part 2 (what
-cv2's own writer makes), decoded on the host for every device; rotated and
-resized on the device
+reads them: H.264 (CAVLC I and P slices, ROADMAP.md Queue 1 item 9f; what a
+phone or Stray Scanner writes with CABAC or B slices is refused by name),
+Motion JPEG and MPEG-4 Part 2 (what cv2's own writer makes) in MP4, each
+decoded on the host for every device; rotated and resized on the device
 (``image_processing.rotate`` / ``resize_linear_u8``, cv2's bytes) and
 written as ``cv2.imwrite`` writes JPEGs (quality 95). StrayScanner depth is
 rotated and resized as float32 as cv2 does it
@@ -674,15 +673,15 @@ class UnrealAdaptor(DatasetAdaptor):
 class VideoAdaptorBase(DatasetAdaptor, ABC):
     """Shared machinery for video-file-backed datasets. The video is read
     by :class:`hive_tpu_torch.video.capture.VideoCapture` on ``device``:
-    demuxed on the host; H.264 decoded through NVDEC on a CUDA device (the
-    I_PCM reader on the CPU), Motion JPEG and MPEG-4 Part 2 decoded on the
-    host and moved to the device; converted to BGR, rotated and resized on
-    the device; only the final uint8 frames reach the host, to be encoded.
+    demuxed and decoded on the host (H.264, Motion JPEG and MPEG-4 Part 2
+    alike, one path for every device; the wanted pictures' planes moved to
+    the device); converted to BGR, rotated and resized on the device; only
+    the final uint8 frames reach the host, to be encoded.
 
-    :param device: where the frames are converted, rotated and resized
-        (and H.264 decoded); default ``cuda:0``. On a CUDA device that
-        NVDEC does not open, the adaptor refuses H.264 video, naming the
-        call's ``CUresult`` (ROADMAP.md Queue 1 item 9b).
+    :param device: where the frames are converted, rotated and resized;
+        default ``cuda:0``. An H.264 stream outside the decoded subset is
+        refused when the capture opens, naming the feature (ROADMAP.md
+        Queue 1 item 9f).
     """
 
     def __init__(self, base_path: File, output_path: File, video_path: Union[str, Path],

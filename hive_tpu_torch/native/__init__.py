@@ -1,6 +1,7 @@
 """Native (C++) host code, loaded via ctypes: the extraction weld, the
 QEM decimation, the JPEG scan decodes (baseline and progressive), the PNG
-unfilter, Telea's inpainting and the MPEG-4 Part 2 VOP decode and encode.
+unfilter, Telea's inpainting, the MPEG-4 Part 2 VOP decode and encode and
+the H.264 slice decode, deblocking and encode.
 
 Counterpart of ``hive_tpu/native`` (``src/weld.cpp`` and
 ``src/qem_decimate.cpp`` are copies of the JAX package's, built with the same
@@ -35,7 +36,7 @@ _SRC_DIR = os.path.join(_NATIVE_DIR, "src")
 _BUILD_DIR = os.path.join(os.path.dirname(_NATIVE_DIR), "_build")
 _LIB_PATH = os.path.join(_BUILD_DIR, "libhive_native.so")
 
-_SOURCES = ["jpeg_decode.cpp", "mpeg4_decode.cpp", "png_unfilter.cpp", "qem_decimate.cpp",
+_SOURCES = ["h264_decode.cpp", "jpeg_decode.cpp", "mpeg4_decode.cpp", "png_unfilter.cpp", "qem_decimate.cpp",
             "telea_inpaint.cpp", "weld.cpp"]
 # Headers the sources include: a change to one rebuilds the library too.
 _HEADERS = ["simple_idct.h"]
@@ -204,6 +205,28 @@ def get_native_lib() -> Optional[ctypes.CDLL]:
             ct.POINTER(ct.c_int32), ct.POINTER(ct.c_void_p), ct.POINTER(ct.c_void_p),
             ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_int32, ct.c_int32,
             ct.c_char_p, ct.c_int64, ct.c_void_p, ct.c_int64, ct.POINTER(ct.c_int64),
+        ]
+
+        lib.hive_h264_mb_state_bytes.restype = ct.c_int
+        lib.hive_h264_mb_state_bytes.argtypes = []
+        lib.hive_h264_stat_counts.restype = ct.c_int
+        lib.hive_h264_stat_counts.argtypes = [ct.POINTER(ct.c_int32)]
+        lib.hive_h264_decode_slice.restype = ct.c_int
+        lib.hive_h264_decode_slice.argtypes = [
+            ct.c_char_p, ct.c_int64, ct.c_int64, ct.POINTER(ct.c_int32),
+            ct.POINTER(ct.c_void_p), ct.POINTER(ct.c_int32), ct.POINTER(ct.c_void_p),
+            ct.c_void_p, ct.POINTER(ct.c_int64),
+        ]
+        lib.hive_h264_deblock.restype = ct.c_int
+        lib.hive_h264_deblock.argtypes = [
+            ct.POINTER(ct.c_int32), ct.c_void_p, ct.POINTER(ct.c_void_p),
+        ]
+        lib.hive_h264_encode_slice.restype = ct.c_int64
+        lib.hive_h264_encode_slice.argtypes = [
+            ct.POINTER(ct.c_int32), ct.POINTER(ct.c_void_p), ct.POINTER(ct.c_void_p),
+            ct.POINTER(ct.c_int32), ct.POINTER(ct.c_void_p), ct.c_void_p, ct.c_void_p,
+            ct.c_void_p, ct.c_char_p, ct.c_int64, ct.c_void_p, ct.c_int64,
+            ct.POINTER(ct.c_int64),
         ]
 
         lib.hive_png_unfilter.restype = ct.c_int

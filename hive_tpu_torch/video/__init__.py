@@ -1,6 +1,8 @@
-"""Video input: an MP4 demuxer (:mod:`.mp4`), H.264 decode on the card
-through NVDEC (:mod:`.nvdec`), the I_PCM subset of H.264 both ways for the
-CPU (:mod:`.h264_pcm`), Motion JPEG decode on the host (:mod:`.mjpeg`), the
-YUV to BGR conversions of OpenCV's FFmpeg backend (:mod:`.color`), and
-:class:`.capture.VideoCapture`, which puts them together as
+"""Video input: an MP4 demuxer (:mod:`.mp4`), H.264 decode on the host
+(:mod:`.h264`, CAVLC I and P slices, with ``native/src/h264_decode.cpp``),
+H.264's bit I/O (:mod:`.h264_pcm`), Motion JPEG and
+MPEG-4 Part 2 decode on the host (:mod:`.mjpeg`, :mod:`.mpeg4`), NVDEC's
+bindings (:mod:`.nvdec`, not on the decode path: ROADMAP Queue 1 item
+9b), the YUV to BGR conversions of OpenCV's FFmpeg backend (:mod:`.color`),
+and :class:`.capture.VideoCapture`, which puts them together as
 ``cv2.VideoCapture`` reads a file."""

@@ -1,11 +1,10 @@
 """Reading an MP4 video as ``cv2.VideoCapture`` reads it.
 
 :class:`VideoCapture` puts the port's pieces together: the demuxer
-(:mod:`.mp4`) for the codec, sizes, rate, frame selection and samples; for
-H.264, NVDEC on a CUDA device (:mod:`.nvdec`) or the I_PCM reader on the
-CPU (:mod:`.h264_pcm`); for Motion JPEG (:mod:`.mjpeg`) and MPEG-4 Part 2
-(:mod:`.mpeg4`), the host decoders on any device, their planes then moved
-to the device; the conversion of
+(:mod:`.mp4`) for the codec, sizes, rate, frame selection and samples; the
+host decoders of H.264 (:mod:`.h264`), Motion JPEG (:mod:`.mjpeg`) and
+MPEG-4 Part 2 (:mod:`.mpeg4`) on any device, the wanted pictures' planes
+then moved to the device; the conversion of
 OpenCV's FFmpeg backend (:mod:`.color`) for BGR, on the device; and
 OpenCV's own rotation by the display matrix (``CAP_PROP_ORIENTATION_AUTO``,
 on by default), which turns the frames and swaps the reported width and
@@ -22,7 +21,7 @@ import torch
 from hive_tpu_torch import get_device
 from hive_tpu_torch.image_processing import (ROTATE_90_CLOCKWISE, ROTATE_90_COUNTERCLOCKWISE,
                                              ROTATE_180, rotate)
-from hive_tpu_torch.video import color, h264_pcm, mjpeg, mp4, mpeg4
+from hive_tpu_torch.video import color, h264, mjpeg, mp4, mpeg4
 
 # OpenCV's rotation_angle -> the cv2.rotate it applies to each frame.
 _AUTO_ROTATION = {90: ROTATE_90_CLOCKWISE, 180: ROTATE_180, 270: ROTATE_90_COUNTERCLOCKWISE}
@@ -30,11 +29,12 @@ _AUTO_ROTATION = {90: ROTATE_90_CLOCKWISE, 180: ROTATE_180, 270: ROTATE_90_COUNT
 
 class VideoCapture:
     """An H.264, Motion JPEG or MPEG-4 Part 2 MP4 read on ``device``
-    (default ``cuda:0``). H.264 decodes through NVDEC on a CUDA device and
-    through the I_PCM reader on the CPU; Motion JPEG and MPEG-4 Part 2
-    decode on the host for every device. An MPEG-4 N-VOP (``vop_coded`` 0)
-    gives no frame, as in cv2, so it is left out of the frames and the
-    count.
+    (default ``cuda:0``). Each codec decodes on the host for every device,
+    in one path (NVDEC, :mod:`.nvdec`, is not used): H.264 in the CAVLC I
+    and P subset of :mod:`.h264`, whose headers are all read, and whatever
+    it refuses refused, when the capture opens. An MPEG-4 N-VOP
+    (``vop_coded`` 0) gives no frame, as in cv2, so it is left out of the
+    frames and the count.
 
     :ivar width, height: ``CAP_PROP_FRAME_WIDTH`` / ``HEIGHT``.
     :ivar fps: ``CAP_PROP_FPS``.
@@ -61,42 +61,24 @@ class VideoCapture:
             # yuv420p, limited range, BT.601: swscale's default, as for H.264.
             self.full_range, self.matrix = False, color.UNSPECIFIED
         else:
-            self.length_size, sps_units, self.pps_units = mp4.parse_avcc(self.track.config)
-            self.sps_units = sps_units or [unit for unit in self._nal_units(0)
-                                           if unit[0] & 0x1F == h264_pcm.NAL_SPS]
-            if not self.sps_units:
-                raise ValueError(f"{self.path} carries no H.264 sequence parameter set")
-            self.sps = h264_pcm.parse_sps(h264_pcm.unescape(self.sps_units[0]))
+            self.length_size, self.sps_units, self.pps_units = mp4.parse_avcc(
+                self.track.config)
+            with open(self.path, "rb") as f:
+                self.sps, self.reorder, idr = h264.scan_track(
+                    self.sps_units + self.pps_units, len(self.track.sizes),
+                    lambda i: self._nal_units(i, f))
+            self._idr = np.zeros(len(self.track.sizes), bool)
+            self._idr[idr] = True
             width, height = self.sps["width"], self.sps["height"]
             self.full_range, self.matrix = self.sps["full_range"], self.sps["matrix"]
         self.rotation = self.track.rotation
         self.width, self.height = (height, width) if self.rotation in (90, 270) else (width,
                                                                                       height)
-        if self.device.type == "cuda" and self.codec == mp4.H264:
-            self._open_nvdec()
         self.fps = self.track.fps
         self.segments = self.track.segments()
         if self.codec == mp4.MPEG4:
             self.segments = [segment[self._coded[segment]] for segment in self.segments]
         self.frame_count = sum(len(segment) for segment in self.segments)
-
-    def _open_nvdec(self) -> None:
-        """Refuse the video at once when NVDEC does not open on the device
-        or does not decode its size."""
-        from hive_tpu_torch.video import nvdec
-
-        try:
-            caps = nvdec.decoder_caps(self.device, nvdec.H264, 16 * self.sps["mbs_w"],
-                                      16 * self.sps["mbs_h"])
-        except nvdec.NvdecError as e:
-            raise NotImplementedError(
-                f"Decoding the video {self.path} on {self.device} needs NVDEC, which did not "
-                f"open here: {e} (ROADMAP.md Queue 1 item 9b). hive_tpu_torch decodes video "
-                f"on the CPU (device='cpu') only in the I_PCM subset of H.264.") from e
-        if not caps["fits"]:
-            raise NotImplementedError(
-                f"NVDEC on {self.device} does not decode the 8-bit 4:2:0 H.264 video "
-                f"{self.path} at its size ({caps}) (ROADMAP.md Queue 1 item 9b).")
 
     def _sample(self, sample: int, f=None, limit: Optional[int] = None) -> bytes:
         """Sample ``sample``'s bytes, or its first ``limit``."""
@@ -111,12 +93,12 @@ class VideoCapture:
         return mp4.split_nal_units(self._sample(sample, f), self.length_size)
 
     def _planes(self, begin: int, wanted: np.ndarray) -> Iterator[Tuple[int, tuple]]:
-        """(sample, planes) of the pictures that samples ``begin`` to the
-        last of ``wanted`` decode to, in display order; ``begin`` is a sync
-        sample at or before the first of ``wanted``. Motion JPEG decodes
-        the samples of ``wanted`` alone (each is a sync sample); MPEG-4 Part
-        2 decodes each sample from ``begin`` in order (its pictures are in
-        display order) and gives only those of ``wanted``."""
+        """(sample, planes) of the pictures of ``wanted`` that samples
+        ``begin`` to the last of ``wanted`` decode to, in display order;
+        ``begin`` is a sync sample (for H.264, an IDR picture) at or before
+        the first of ``wanted``. Motion JPEG decodes the samples of
+        ``wanted`` alone (each is a sync sample); MPEG-4 Part 2 and H.264
+        decode each sample from ``begin`` in order."""
         with open(self.path, "rb") as f:
             if self.codec == mp4.MPEG4:
                 decoder = mpeg4.Mpeg4Decoder(self.track.config)
@@ -136,36 +118,25 @@ class VideoCapture:
                                         .to(self.device) for p in planes)
                 return
 
-            end = int(wanted.max()) + 1
-
-            def units(sample):
-                nal_units = self._nal_units(sample, f)
-                if sample == begin or self.track.sync[sample]:
-                    nal_units = self.sps_units + self.pps_units + nal_units
-                return nal_units
-
-            if self.device.type == "cuda":
-                from hive_tpu_torch.video.nvdec import NvdecDecoder
-
-                with NvdecDecoder(self.device) as decoder:
-                    for sample, *planes in decoder.decode_all(
-                            (mp4.annex_b(units(s)), s) for s in range(begin, end)):
-                        yield sample, tuple(planes)
-                return
-
-            decoder = h264_pcm.PcmDecoder()
+            # H.264: each sample from ``begin`` (an IDR picture) in decode
+            # order, the pictures put in display order; only the wanted ones
+            # move to the device.
+            decoder = h264.H264Decoder()
+            decoder.decode(self.sps_units + self.pps_units)
+            keep = set(wanted.tolist())
 
             def pictures():
-                for sample in range(begin, end):
-                    picture = decoder.decode(units(sample))
+                for sample in range(begin, int(wanted.max()) + 1):
+                    picture = decoder.decode(self._nal_units(sample, f))
                     if picture is not None:
                         picture.sample = sample
                         yield picture
 
-            reorder = self.sps["reorder"]
-            for picture in h264_pcm.display_order(pictures(), reorder):
-                yield picture.sample, tuple(torch.from_numpy(p) for p in
-                                            (picture.y, picture.u, picture.v))
+            for picture in h264.display_order(pictures(), self.reorder):
+                if picture.sample in keep:
+                    yield picture.sample, tuple(
+                        torch.from_numpy(np.ascontiguousarray(p)).to(self.device)
+                        for p in (picture.y, picture.u, picture.v))
 
     def to_bgr(self, *planes: torch.Tensor) -> torch.Tensor:
         """A picture's planes (Y, U, V, or Y alone) as the BGR frame cv2
@@ -177,7 +148,8 @@ class VideoCapture:
     def planes(self, start: int = 0, stop: Optional[int] = None) -> Iterator[tuple]:
         """The uint8 planes (Y, U, V, or Y alone) of frames ``start`` to
         ``stop - 1`` on the device, each edit's frames decoded from the
-        sync sample at or before the first of them."""
+        sync sample (for H.264, the IDR picture) at or before the first of
+        them."""
         stop = self.frame_count if stop is None else min(stop, self.frame_count)
         first = 0
         for segment in self.segments:
@@ -191,7 +163,8 @@ class VideoCapture:
     def _segment_planes(self, wanted: np.ndarray) -> Iterable[tuple]:
         """The planes of ``wanted`` (samples of one edit, in display
         order)."""
-        syncs = np.flatnonzero(self.track.sync[:int(wanted.min()) + 1])
+        starts = self._idr if self.codec == mp4.H264 else self.track.sync
+        syncs = np.flatnonzero(starts[:int(wanted.min()) + 1])
         begin = int(syncs[-1]) if len(syncs) else 0
         keep = set(wanted.tolist())
         for sample, picture in self._planes(begin, wanted):

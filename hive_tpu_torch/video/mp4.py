@@ -30,8 +30,8 @@ FFmpeg backend sees it: the ``moov`` sample tables (``stsd``, ``stts``,
 
 Refused, naming the codec and the ROADMAP item: ``hvc1`` / ``hev1`` (HEVC),
 ``mp4v`` of any other object type, ``mjpb`` and any other sample entry.
-The muxer (:func:`write_mp4`) writes the same boxes, for the I_PCM writer
-of :mod:`hive_tpu_torch.video.h264_pcm`, for Motion JPEG
+The muxer (:func:`write_mp4`) writes the same boxes, for the H.264 writer
+of :mod:`hive_tpu_torch.video.h264`, for Motion JPEG
 (:func:`mjpeg_entry`) and for the MPEG-4 Part 2 writer of
 :mod:`hive_tpu_torch.video.mpeg4`.
 """
@@ -430,8 +430,8 @@ def split_nal_units(sample: bytes, length_size: int) -> List[bytes]:
     while pos + length_size <= len(sample):
         n = int.from_bytes(sample[pos:pos + length_size], "big")
         pos += length_size
-        if pos + n > len(sample):
-            raise ValueError("a NAL unit overruns its sample")
+        if n == 0 or pos + n > len(sample):
+            raise ValueError("corrupt H.264 sample: a NAL unit length past its end")
         units.append(sample[pos:pos + n])
         pos += n
     return units

@@ -1,5 +1,7 @@
-"""H.264 decode on the card through NVDEC: the driver's ``libnvcuvid.so.1``
-by ``ctypes``.
+"""NVDEC bindings: NVIDIA's ``libnvcuvid.so.1`` by ``ctypes``, kept for
+codecs the host decoders do not read (HEVC, ROADMAP.md Queue 1 items 9b and
+9c). :class:`~hive_tpu_torch.video.capture.VideoCapture` does not use them:
+H.264 decodes on the host (:mod:`.h264`) for every device.
 
 The parser (``cuvidCreateVideoParser`` / ``cuvidParseVideoData``) reads an
 Annex-B stream and calls back: at each sequence header (the decoder is made

@@ -90,8 +90,8 @@ def test_blocked_import_check_covers_the_video_modules():
     """The JAX-blocked import above walks the video input's modules too:
     none may need cv2, Pillow or imageio, which the card's machine lacks."""
     modules = set(_port_modules())
-    for name in ("video.mp4", "video.h264_pcm", "video.nvdec", "video.color",
-                 "video.capture", "video.mjpeg"):
+    for name in ("video.mp4", "video.h264_pcm", "video.h264", "video.mpeg4", "video.nvdec",
+                 "video.color", "video.capture", "video.mjpeg"):
         assert f"hive_tpu_torch.{name}" in modules, name
 
 
@@ -1142,11 +1142,12 @@ def test_video_conversion_resize_and_rotation_on_card_equal_cpu():
 
 @pytest.mark.cuda
 def test_nvdec_decodes_the_seeded_planes_or_refuses_by_name(tmp_path):
-    """Through NVDEC the planes are the seeded samples of I_PCM streams (in
-    order, out of order, cropped); where NVDEC does not open on the card's
-    machine, the capture refuses, naming the call, its CUresult and ROADMAP
-    item 9b."""
-    from hive_tpu_torch.video import h264_pcm
+    """The card's capture gives the seeded samples of I_PCM streams (in
+    order, out of order, cropped), decoded on the host (H264Decoder) as
+    for the CPU; NVDEC, which is no longer on that path, either decodes the
+    same planes or refuses, naming the call and its CUresult (ROADMAP item
+    9b)."""
+    from hive_tpu_torch.video import h264, mp4, nvdec
     from hive_tpu_torch.video.capture import VideoCapture
 
     if not torch.cuda.is_available():
@@ -1160,14 +1161,24 @@ def test_nvdec_decodes_the_seeded_planes_or_refuses_by_name(tmp_path):
                    rng.integers(0, 256, (height // 2, width // 2), dtype=np.uint8))
                   for _ in range(7)]
         path = str(tmp_path / f"{name}.mp4")
-        h264_pcm.write_pcm_mp4(path, planes, **options)
-        try:
-            capture = VideoCapture(path, device="cuda:0")
-        except NotImplementedError as e:
-            assert "Queue 1 item 9b" in str(e) and "CUresult" in str(e), str(e)
-            continue
+        h264.write_h264_mp4(path, planes, h264.PcmPlanner(width, height), **options)
+        capture = VideoCapture(path, device="cuda:0")
         got = list(capture.planes())
         assert len(got) == len(planes)
         for decoded, want in zip(got, planes):
+            for plane, expected in zip(decoded, want):
+                assert plane.device.type == "cuda"
+                np.testing.assert_array_equal(plane.cpu().numpy(), expected)
+        units = [capture.sps_units + capture.pps_units + capture._nal_units(k)
+                 for k in range(len(planes))]
+        try:
+            with nvdec.NvdecDecoder("cuda:0") as decoder:
+                through = list(decoder.decode_all((mp4.annex_b(u), k) for k, u in
+                                                  enumerate(units)))
+        except nvdec.NvdecError as e:
+            assert "CUresult" in str(e), str(e)
+            continue
+        assert len(through) == len(planes)
+        for (_, *decoded), want in zip(through, planes):
             for plane, expected in zip(decoded, want):
                 np.testing.assert_array_equal(plane.cpu().numpy(), expected)

@@ -1,14 +1,15 @@
-"""Video input of hive_tpu_torch (``hive_tpu_torch.video``) against cv2
-5.0.0, whose bundled FFmpeg decodes H.264, Motion JPEG and MPEG-4 Part 2
-(the last in tests/test_torch_mpeg4.py): the MP4
-demuxer's sizes, rate, frame count and order, edit lists included; the
-I_PCM writer and the CPU reader (lossless, so the seeded planes come back
-exactly); Motion JPEG (cv2's own MJPG writer, and Pillow's 4:2:0, 4:2:2,
-4:4:4 and grey JPEGs muxed by the port) through FFmpeg's simple IDCT; the
-YUV -> BGR conversions; the uint8 resize and the rotation; the codecs and
-layouts refused by name. All of them are exact: no tolerance is stated
-because none is needed (FFmpeg's x86 SIMD IDCT gives its C simple IDCT's
-pixels here)."""
+"""Video input of hive_tpu_torch (``hive_tpu_torch.video``) against cv2 5.0.0,
+whose bundled FFmpeg decodes H.264, Motion JPEG and MPEG-4 Part 2 (the last
+in tests/test_torch_mpeg4.py): the MP4 demuxer's sizes, rate, frame count
+and order, edit lists included; the I_PCM writer and the H.264 decoder
+(lossless, so the seeded planes come back exactly; the decoder's other
+macroblock types and P slices against cv2 here too, the rest in
+tests/test_torch_h264.py); Motion JPEG (cv2's own MJPG writer, and Pillow's
+4:2:0, 4:2:2, 4:4:4 and grey JPEGs muxed by the port) through FFmpeg's
+simple IDCT; the YUV -> BGR conversions; the uint8 resize and the rotation;
+the codecs and layouts refused by name. All of them are exact: no tolerance
+is stated because none is needed (FFmpeg's x86 SIMD IDCT gives its C simple
+IDCT's pixels here)."""
 
 import io
 import struct
@@ -20,7 +21,7 @@ import torch
 from PIL import Image
 
 from hive_tpu_torch.image_processing import resize_linear_u8, rotate
-from hive_tpu_torch.video import color, h264_pcm, mjpeg, mp4
+from hive_tpu_torch.video import color, h264, h264_pcm, mjpeg, mp4
 from hive_tpu_torch.video.capture import VideoCapture
 
 
@@ -37,7 +38,9 @@ def write_clip(path, num_frames=6, width=64, height=48, seed=0, **options):
     frames = seeded_planes(num_frames, width, height, seed)
     frames[1][0][:] = 0            # long zero runs: emulation prevention
     frames[2][1][:, ::3] = 3
-    h264_pcm.write_pcm_mp4(str(path), frames, **options)
+    idr_every = options.pop("idr_every", None)
+    h264.write_h264_mp4(str(path), frames, h264.PcmPlanner(width, height, idr_every),
+                        **options)
     return frames
 
 
@@ -153,7 +156,8 @@ def test_colour_conversion_equals_cv2(tmp_path, full_range, matrix):
     y[1] = triples[:, 2:].reshape(64, 64, 2, 2).transpose(0, 2, 1, 3).reshape(128, 128)
     frames = [(y[i], u[i], v[i]) for i in range(2)]
     path = tmp_path / "colour.mp4"
-    h264_pcm.write_pcm_mp4(str(path), frames, full_range=full_range, matrix=matrix)
+    h264.write_h264_mp4(str(path), frames, h264.PcmPlanner(128, 128), full_range=full_range,
+                        matrix=matrix)
     _, want = cv2_read(path)
     for (yi, ui, vi), expected in zip(frames, want):
         got = color.yuv420_to_bgr(torch.from_numpy(yi), torch.from_numpy(ui),
@@ -437,45 +441,77 @@ def test_motion_jpeg_refusals_name_the_layout(tmp_path):
         VideoCapture(str(path), device="cpu")
 
 
-def slice_nal(first_mb_type, later_mb_type=None, slice_type=7, width=32, height=16):
-    """An IDR slice whose first (and optionally second) macroblock has the
-    given mb_type: the reader must name it."""
-    y, u, v = seeded_planes(1, width, height)[0]
-    nal = h264_pcm.encode_picture(y, u, v, idr=True, reference=True, frame_num=0, poc=0)
-    rbsp = bytearray(h264_pcm.unescape(nal))
-    bits = h264_pcm.BitWriter().ue(0).ue(slice_type).ue(0).u(h264_pcm.LOG2_MAX_FRAME_NUM, 0)
-    bits.ue(0).u(h264_pcm.LOG2_MAX_POC_LSB, 0).u(1, 0).u(1, 0).se(0).ue(1).ue(first_mb_type)
-    header = bits.align(False)
-    old = len(h264_pcm.BitWriter().ue(0).ue(7).ue(0).u(h264_pcm.LOG2_MAX_FRAME_NUM, 0).ue(0)
-              .u(h264_pcm.LOG2_MAX_POC_LSB, 0).u(1, 0).u(1, 0).se(0).ue(1).ue(25)
-              .align(False))
-    rbsp[1:1 + old] = header
-    if later_mb_type is not None:
-        position = 1 + len(header) + 384
-        rbsp[position:position + 2] = h264_pcm.BitWriter().ue(later_mb_type).align(False)[:2] \
-            .ljust(2, b"\x00")
-    return bytes([rbsp[0]]) + h264_pcm.escape(np.frombuffer(bytes(rbsp[1:]), np.uint8)).tobytes()
+# mb_type of an I slice -> (the writer's plan kind, its 16x16 prediction mode).
+MB_TYPE_PLANS = {0: (h264.PLAN_I4, 2), 25: (h264.PLAN_PCM, 2),
+                 **{t: (h264.PLAN_I16, (t - 1) % 4) for t in range(1, 25)}}
+
+
+def write_mb_types(path, first_mb_type, later_mb_type=None, width=32, height=32):
+    """Two I pictures (an IDR picture, then a non-IDR one) whose first
+    macroblock has the given mb_type and the others ``later_mb_type`` (or
+    the first's); the writer's counts."""
+    mbs_w, mbs_h = width // 16, height // 16
+    rng = np.random.default_rng(first_mb_type)
+
+    def plan(index, dpb):
+        records = []
+        for a in range(mbs_w * mbs_h):
+            mb_type = later_mb_type if a and later_mb_type is not None else first_mb_type
+            kind, mode = MB_TYPE_PLANS[mb_type]
+            records.append(h264.plan_record(kind, 26, i16_mode=mode,
+                                            i4_modes=rng.integers(0, 9, 16)))
+        return h264.PicturePlan(h264.I_SLICE, np.stack(records),
+                                [h264.SlicePlan(0, mbs_w * mbs_h)], idr=index == 0)
+
+    frames = [(y, u, v) for y, u, v in seeded_planes(2, width, height)]
+    return h264.write_h264_mp4(str(path), frames, plan)
 
 
 @pytest.mark.parametrize("first,later,name", [(0, None, "I_NxN"),
                                               (1, None, "I_16x16_0_0_0"),
                                               (25, 0, "I_NxN"), (25, 13, "I_16x16_0_0_15")])
-def test_cpu_reader_refuses_other_macroblocks_by_name(first, later, name):
-    decoder = h264_pcm.PcmDecoder()
-    decoder.decode([h264_pcm.encode_sps(32, 16), h264_pcm.encode_pps()])
-    with pytest.raises(h264_pcm.UnsupportedStreamError, match=f"type {name}:.*I_PCM subset"):
-        decoder.decode([slice_nal(first, later)])
+def test_cpu_reader_refuses_other_macroblocks_by_name(tmp_path, first, later, name):
+    """Macroblocks of the named type (after an I_PCM one where two are
+    given), which the I_PCM reader refused: the H.264 decoder now decodes
+    them, on the CPU as on the card, to cv2's frames."""
+    path = tmp_path / "clip.mp4"
+    stats = write_mb_types(path, first, later)
+    kind, mode = MB_TYPE_PLANS[later if later is not None else first]
+    assert stats["i_pcm" if kind == h264.PLAN_PCM else
+                 f"i16x16_mode_{mode}" if kind == h264.PLAN_I16 else "i4x4_mode_2"] > 0, name
+    _, frames = cv2_read(path)
+    got = [f.numpy() for f in VideoCapture(str(path), device="cpu").frames()]
+    assert len(got) == len(frames) == 2
+    for frame, want in zip(got, frames):
+        np.testing.assert_array_equal(frame, want)
 
 
-def test_cpu_reader_refuses_p_slices_and_cabac():
-    decoder = h264_pcm.PcmDecoder()
-    decoder.decode([h264_pcm.encode_sps(32, 16), h264_pcm.encode_pps()])
-    with pytest.raises(h264_pcm.UnsupportedStreamError, match="P slices"):
-        decoder.decode([slice_nal(25, slice_type=5)])
+def test_cpu_reader_refuses_p_slices_and_cabac(tmp_path):
+    """P slices now decode to cv2's frames; CABAC is refused by name,
+    citing ROADMAP Queue 1 item 9f."""
+    path = tmp_path / "clip.mp4"
+    h264.write_h264_mp4(str(path), seeded_planes(6, 64, 48), h264.Exerciser(64, 48, 2, gop=10))
+    assert {t for t in h264_slice_types(path)} == {h264.I_SLICE, h264.P_SLICE}
+    _, frames = cv2_read(path)
+    got = [f.numpy() for f in VideoCapture(str(path), device="cpu").frames()]
+    assert len(got) == len(frames) == 6
+    for frame, want in zip(got, frames):
+        np.testing.assert_array_equal(frame, want)
+    decoder = h264.H264Decoder()
+    decoder.decode([h264.encode_sps(32, 16), h264.encode_pps()])
     bits = h264_pcm.BitWriter().ue(0).ue(0).u(1, 1)
     cabac = h264_pcm.nal_unit(3, h264_pcm.NAL_PPS, np.frombuffer(bits.align(True), np.uint8))
-    with pytest.raises(h264_pcm.UnsupportedStreamError, match="CABAC"):
+    with pytest.raises(mp4.UnsupportedVideoError, match="CABAC.*Queue 1 item 9f"):
         decoder.decode([cabac])
+
+
+def h264_slice_types(path):
+    """The slice types of an H.264 MP4's pictures, in decode order."""
+    capture = VideoCapture(str(path), device="cpu")
+    decoder = h264.H264Decoder(pixels=False)
+    decoder.decode(capture.sps_units + capture.pps_units)
+    return [t for k in range(len(capture.track.sizes))
+            for t in decoder.decode(capture._nal_units(k)).slice_types]
 
 
 def test_emulation_prevention_round_trips():
@@ -491,7 +527,7 @@ def test_emulation_prevention_round_trips():
 
 
 def test_sps_parse_reads_the_written_fields():
-    sps = h264_pcm.parse_sps(h264_pcm.unescape(
-        h264_pcm.encode_sps(1920, 1080, reorder=True, full_range=True, matrix=1)))
+    sps = h264.parse_sps(h264_pcm.unescape(
+        h264.encode_sps(1920, 1080, reorder=1, full_range=True, matrix=1)))
     assert (sps["width"], sps["height"], sps["mbs_h"]) == (1920, 1080, 68)
     assert (sps["full_range"], sps["matrix"], sps["reorder"]) == (True, 1, 1)

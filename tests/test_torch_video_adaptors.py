@@ -1,9 +1,9 @@
 """The video adaptors of hive_tpu_torch (``VideoAdaptor``,
 ``StrayScannerAdaptor``, ``DeviceOrientation``, ``get_dataset`` and the CLI on
-video inputs) against hive_tpu's on the same I_PCM H.264, Motion JPEG and
-MPEG-4 Part 2 fixtures (the last tests/test_adaptors.py's own cv2-written
-video), which hive_tpu reads through cv2 5.0.0 and the port through its
-own demuxer, CPU reader and Motion JPEG and MPEG-4 decoders: sizes,
+video inputs) against hive_tpu's on the same I_PCM and CAVLC I / P H.264,
+Motion JPEG and MPEG-4 Part 2 fixtures (the last tests/test_adaptors.py's
+own cv2-written video), which hive_tpu reads through cv2 5.0.0 and the port
+through its own demuxer and H.264, Motion JPEG and MPEG-4 decoders: sizes,
 metadata, frame counts and rates equal; frames and
 the JPEG bytes ``copy_frames`` writes equal; camera matrices and
 trajectories within 1e-12 (the same float64 operations; a bound, not
@@ -33,7 +33,7 @@ from hive_tpu_torch.image_codecs import encode_jpeg
 from hive_tpu_torch.meshing.gltf import load_glb
 from hive_tpu_torch.options import COLMAPOptions, PipelineOptions, StorageOptions
 from hive_tpu_torch.pipeline import Pipeline
-from hive_tpu_torch.video import color, h264_pcm, mp4
+from hive_tpu_torch.video import color, h264, mp4
 from tests.test_adaptors import make_video_dataset
 
 VOCAB = "colmap/vocab.bin"   # the packages' defaults differ; metadata.json holds it
@@ -64,7 +64,16 @@ def scene_frames(num_frames, width, height, seed=2):
 
 
 def make_video(path, num_frames=6, width=64, height=48, **options):
-    h264_pcm.write_pcm_mp4(str(path), scene_frames(num_frames, width, height), **options)
+    h264.write_h264_mp4(str(path), scene_frames(num_frames, width, height),
+                        h264.PcmPlanner(width, height), **options)
+    return str(path)
+
+
+def make_cavlc_video(path, num_frames=6, width=64, height=48, seed=5):
+    """The same scene as CAVLC H.264 with I and P slices (the seeded
+    exerciser's mix of macroblock types, references and slices)."""
+    h264.write_h264_mp4(str(path), scene_frames(num_frames, width, height),
+                        h264.Exerciser(width, height, seed, gop=4))
     return str(path)
 
 
@@ -77,15 +86,16 @@ def make_mjpeg_video(path, num_frames=6, width=64, height=48):
     return str(path)
 
 
-def make_stray(base, num_frames=5, width=96, height=72, depth_hw=(24, 32), roll_deg=-90.0):
-    """A Stray Scanner capture at the app's 4:3 proportions: rgb.mp4, uint16
-    millimetre depth and 0-2 confidence PNGs, camera_matrix.csv and
-    odometry.csv (timestamp, frame, x, y, z, qx, qy, qz, qw), the first pose
-    rolled by ``roll_deg``."""
+def make_stray(base, num_frames=5, width=96, height=72, depth_hw=(24, 32), roll_deg=-90.0,
+               writer=make_video):
+    """A Stray Scanner capture at the app's 4:3 proportions: rgb.mp4 (I_PCM,
+    or ``writer``'s), uint16 millimetre depth and 0-2 confidence PNGs,
+    camera_matrix.csv and odometry.csv (timestamp, frame, x, y, z, qx, qy,
+    qz, qw), the first pose rolled by ``roll_deg``."""
     rng = np.random.default_rng(4)
     os.makedirs(pjoin(base, "depth"))
     os.makedirs(pjoin(base, "confidence"))
-    make_video(pjoin(base, "rgb.mp4"), num_frames, width, height)
+    writer(pjoin(base, "rgb.mp4"), num_frames, width, height)
     for i in range(num_frames):
         depth = 1500 + rng.integers(-20, 20, depth_hw)
         cv2.imwrite(pjoin(base, "depth", f"{i:06d}.png"), depth.astype(np.uint16))
@@ -388,3 +398,95 @@ def test_cli_converts_and_meshes_a_stray_capture_like_hive_tpu(tmp_path):
         for attribute in ("faces", "vertices", "vertex_colors"):
             np.testing.assert_array_equal(getattr(got, attribute), getattr(want, attribute))
     shutil.rmtree(paths["ours"])
+
+
+def test_cavlc_video_converts_with_pose_and_depth_like_hive_tpu(tmp_path, monkeypatch):
+    """A CAVLC H.264 clip of I and P slices with ``--estimate_pose
+    --estimate_depth`` and no COLMAP binary, as the CLI runs a phone's clip
+    on the card: the adaptor's sizes, metadata, frames and the JPEG bytes
+    copy_frames writes, then the converted folders, as for Motion JPEG
+    above (DPT at 64 x 96, depth within 1 mm)."""
+    from hive_tpu.ops import resize as jax_resize
+
+    def net_size(*args, **kwargs):
+        return 64, 96
+
+    monkeypatch.setattr(jax_resize, "keep_aspect_multiple_of", net_size)
+    monkeypatch.setattr(dataset_adaptors, "keep_aspect_multiple_of", net_size)
+    video = make_cavlc_video(tmp_path / "clip.mp4", num_frames=5)
+    ours = dataset_adaptors.VideoAdaptor(video, str(tmp_path / "a"), resize_to=64,
+                                         colmap_options=COLMAPOptions(vocab_path=VOCAB),
+                                         device="cpu")
+    theirs = jax_adaptors.VideoAdaptor(video, str(tmp_path / "b"), resize_to=64,
+                                       colmap_options=JaxCOLMAPOptions(vocab_path=VOCAB))
+    assert (ours.target_width, ours.target_height, ours.num_frames, ours.fps) == \
+        (theirs.target_width, theirs.target_height, theirs.num_frames, theirs.fps) == \
+        (64, 48, 5, 30.0)
+    assert metadata_json(ours, tmp_path, "ours") == metadata_json(theirs, tmp_path, "theirs")
+    for index in range(5):
+        np.testing.assert_array_equal(ours.get_frame(index), theirs.get_frame(index))
+    for adaptor, name in ((ours, "ours_rgb"), (theirs, "theirs_rgb")):
+        os.makedirs(tmp_path / name)
+        adaptor.copy_frames(str(tmp_path / name), file_extension="jpg")
+    same_files(str(tmp_path / "ours_rgb"), str(tmp_path / "theirs_rgb"))
+    outputs = {name: str(tmp_path / name) for name in ("ours", "theirs")}
+    binary = str(tmp_path / "no_colmap")
+    dataset_adaptors.get_dataset(
+        StorageOptions(dataset_path=video, output_path=outputs["ours"]),
+        COLMAPOptions(vocab_path=VOCAB, binary_path=binary),
+        PipelineOptions(estimate_pose=True, estimate_depth=True), resize_to=64, device="cpu")
+    jax_adaptors.get_dataset(
+        JaxStorageOptions(dataset_path=video, output_path=outputs["theirs"]),
+        JaxCOLMAPOptions(vocab_path=VOCAB, binary_path=binary),
+        JaxPipelineOptions(estimate_pose=True, estimate_depth=True), resize_to=64)
+    compare_converted(outputs["ours"], outputs["theirs"], depth_atol=1)
+
+
+def test_cli_converts_and_meshes_a_cavlc_stray_capture_like_hive_tpu(tmp_path):
+    """A Stray Scanner capture whose rgb.mp4 is CAVLC H.264 with P slices
+    (what the app writes is H.264; its CABAC is refused): both CLIs give
+    equal converted folders and an equal ``bg.glb``."""
+    base = make_stray(tmp_path / "stray", num_frames=4, roll_deg=-90.0, writer=make_cavlc_video)
+    paths = {name: str(tmp_path / name) for name in ("ours", "theirs")}
+
+    def args(path):
+        return ["--dataset_path", base, "--output_path", path, "--key_frame_threshold", "1.0",
+                "--sdf_max_voxels", "200000", "--background_only", "--disable_scaling",
+                "--vocab_path", VOCAB, "--webxr_path", path + "_webxr", "--log_file",
+                path + ".log"]
+
+    with mock.patch.object(sys, "argv", ["hive", *args(paths["theirs"])]):
+        JaxPipeline.from_command_line().run(compress=False)
+    Pipeline.from_command_line(args(paths["ours"]), device="cpu").run(compress=False)
+    compare_converted(paths["ours"], paths["theirs"])
+    ours = load_glb(pjoin(paths["ours"], "mesh", "bg.glb"))
+    theirs = jax_load_glb(pjoin(paths["theirs"], "mesh", "bg.glb"))
+    assert ours.node_names == theirs.node_names
+    for name in ours.node_names:
+        got, want = ours.geometry[name], theirs.geometry[name]
+        assert len(want.faces) > 0
+        for attribute in ("faces", "vertices", "vertex_colors"):
+            np.testing.assert_array_equal(getattr(got, attribute), getattr(want, attribute))
+
+
+def test_cli_refuses_a_cabac_video_before_writing_anything(tmp_path):
+    """A CABAC clip (an iPhone's entropy coder): the port's CLI refuses it
+    naming ROADMAP Queue 1 item 9f, before its output folder exists."""
+    source = make_cavlc_video(tmp_path / "source.mp4", num_frames=3)
+    track = mp4.read_track(source)
+    _, sps, _ = mp4.parse_avcc(track.config)
+    with open(source, "rb") as f:
+        samples = []
+        for offset, size in zip(track.offsets, track.sizes):
+            f.seek(int(offset))
+            samples.append(f.read(int(size)))
+    clip = str(tmp_path / "cabac.mp4")
+    mp4.write_mp4(clip, mp4.avc1_entry(64, 48, sps[0], h264.encode_pps(cabac=True)), samples,
+                  width=64, height=48, timescale=30, durations=[1] * 3, sync=[True, False, False])
+    out = str(tmp_path / "out")
+    with pytest.raises(mp4.UnsupportedVideoError, match="CABAC.*Queue 1 item 9f"):
+        Pipeline.from_command_line(["--dataset_path", clip, "--output_path", out,
+                                    "--estimate_pose", "--estimate_depth", "--webxr_path",
+                                    out + "_webxr", "--log_file", out + ".log"],
+                                   device="cpu").run()
+    assert not os.path.exists(out)

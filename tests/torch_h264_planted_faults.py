@@ -1,0 +1,113 @@
+"""What chip_smoke.py's H.264 checks see of planted decoder faults.
+
+    python tests/torch_h264_planted_faults.py --work DIR   # a few minutes a variant, one at a time
+
+The card's machine has no cv2, so ``chip_smoke.py`` holds the H.264
+decoder built there by two means: the 1080p phone clip's luma PSNR against
+the renders it was written from (``PHONE_H264_MIN_PSNR``), and the VGA
+exerciser clips' digests (``H264_EXERCISER_DIGESTS``: the written file and
+cv2's frames). The writer rebuilds its references with the port's own
+decoder and shares its prediction code, so a fault in the decoder is
+mostly written into the stream too and hides from a PSNR. This script
+copies ``hive_tpu_torch`` and ``chip_smoke.py`` into ``DIR`` once per
+variant, plants one fault in the copy's ``native/src/h264_decode.cpp`` (the
+sound copy plants none), builds it, and prints for each: the phone clip's
+PSNR on ``PHONE_H264_CHECKED``, how many of its 30 frames cv2 reads
+otherwise than the port, and whether each exerciser clip's file and frames
+keep their digests. Not a test: the readings are written down in PERF.md.
+"""
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join("hive_tpu_torch", "native", "src", "h264_decode.cpp")
+
+# name -> (text of h264_decode.cpp, its replacement); None: the sound build.
+VARIANTS = {
+    "sound": None,
+    "deblocking_off": ("for (int mx = 0; mx < mbw; ++mx) deblock_mb(st, mbw, mx, my, planes);",
+                       "for (int mx = 0; mx < mbw; ++mx) (void)planes;"),
+    "six_tap_21_19": ("return a - 5 * b + 20 * cc + 20 * d - 5 * e + f;",
+                      "return a - 5 * b + 21 * cc + 19 * d - 5 * e + f;"),
+    "chroma_qp_offset_ignored": ("return kChromaQp[clip3(0, 51, qp + offset)];",
+                                 "return kChromaQp[clip3(0, 51, qp)];"),
+}
+
+CHILD = r"""
+import json, os, sys, tempfile
+sys.path.insert(0, os.getcwd())
+import cv2
+import numpy as np
+import chip_smoke as cs
+from hive_tpu_torch.video.capture import VideoCapture
+
+def cv2_frames(path):
+    capture, frames = cv2.VideoCapture(path), []
+    while True:
+        ok, frame = capture.read()
+        if not ok:
+            return frames
+        frames.append(frame)
+
+out = {}
+with tempfile.TemporaryDirectory() as folder:
+    clip = os.path.join(folder, "phone.mp4")
+    _, _, rendered = cs.write_h264_phone_clip(clip)
+    capture = VideoCapture(clip, device="cpu")
+    out["psnr"] = {i: cs.psnr_db(next(capture.planes(i, i + 1))[0].numpy(), rendered[i][0])
+                   for i in cs.PHONE_H264_CHECKED}
+    ours = [f.numpy() for f in capture.frames()]
+    theirs = cv2_frames(clip)
+    out["phone_frames_unlike_cv2"] = sum(not np.array_equal(a, b) for a, b in zip(ours, theirs))
+    out["phone_frames"] = [len(ours), len(theirs)]
+    for index, (name, *_) in enumerate(cs.H264_EXERCISER_CLIPS):
+        path, _ = cs.write_h264_exerciser(folder, index)
+        frames = [f.numpy() for f in VideoCapture(path, device="cpu").frames()]
+        want = cs.H264_EXERCISER_DIGESTS[name]
+        out[name] = dict(file_held=cs.file_digest(path) == want[0],
+                         frames_held=cs.frames_digest(frames) == want[1],
+                         frames_unlike_cv2=sum(not np.array_equal(a, b) for a, b in
+                                               zip(frames, cv2_frames(path))))
+print(json.dumps(out))
+"""
+
+
+def prepare(work: str, name: str) -> str:
+    """A copy of the package and the script with ``name``'s fault planted."""
+    root = os.path.join(work, name)
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(os.path.join(REPO, "hive_tpu_torch"), os.path.join(root, "hive_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), root)
+    if VARIANTS[name] is not None:
+        old, new = VARIANTS[name]
+        path = os.path.join(root, SOURCE)
+        with open(path) as f:
+            text = f.read()
+        if text.count(old) != 1:
+            raise SystemExit(f"{name}: the text to change is not in {SOURCE} once")
+        with open(path, "w") as f:
+            f.write(text.replace(old, new))
+    return root
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--work", required=True, help="a folder for the copies")
+    parser.add_argument("--only", nargs="*", default=list(VARIANTS), choices=list(VARIANTS))
+    args = parser.parse_args()
+    for name in args.only:
+        child = subprocess.run([sys.executable, "-c", CHILD], cwd=prepare(args.work, name),
+                               stdout=subprocess.PIPE, text=True)
+        if child.returncode:
+            raise SystemExit(f"{name}: exit {child.returncode}")
+        print(name, child.stdout.strip().splitlines()[-1], flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -24,7 +24,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from hive_tpu_torch.video import color, h264_pcm  # noqa: E402
+from hive_tpu_torch.video import color, h264  # noqa: E402
 
 SIDE = 1024
 FRAMES = 16
@@ -87,7 +87,9 @@ def main():
             for name, seed in (("ordered", None), ("shuffled", 7)):
                 frames = sweep_frames(seed)
                 path = os.path.join(tmp, f"{name}.mp4")
-                h264_pcm.write_pcm_mp4(path, frames, full_range=full_range, matrix=matrix)
+                height, width = frames[0][0].shape
+                h264.write_h264_mp4(path, frames, h264.PcmPlanner(width, height),
+                                    full_range=full_range, matrix=matrix)
                 tables.append(triple_table(frames, decode(path)))
             layouts = int((tables[0] != tables[1]).any(-1).sum())
             ours = port_table(full_range, color.UNSPECIFIED if matrix is None else matrix)
