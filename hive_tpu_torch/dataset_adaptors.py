@@ -27,8 +27,9 @@ counterpart of :296-329, through :mod:`hive_tpu_torch.sfm`).
 
 Videos (a plain ``.mp4``, a StrayScanner capture's ``rgb.mp4``) are read
 by :class:`hive_tpu_torch.video.capture.VideoCapture` as ``cv2.VideoCapture``
-reads them: H.264 (CAVLC I and P slices, ROADMAP.md Queue 1 item 9f; what a
-phone or Stray Scanner writes with CABAC or B slices is refused by name),
+reads them: H.264 (I and P slices, CAVLC or CABAC, the 8x8 transform and
+scaling matrices, as phones and Stray Scanner write them; B slices and the
+rest of ROADMAP.md Queue 1 item 9f are refused by name),
 Motion JPEG and MPEG-4 Part 2 (what cv2's own writer makes) in MP4, each
 decoded on the host for every device; rotated and resized on the device
 (``image_processing.rotate`` / ``resize_linear_u8``, cv2's bytes) and

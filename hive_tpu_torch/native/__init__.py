@@ -1,7 +1,8 @@
 """Native (C++) host code, loaded via ctypes: the extraction weld, the
 QEM decimation, the JPEG scan decodes (baseline and progressive), the PNG
 unfilter, Telea's inpainting, the MPEG-4 Part 2 VOP decode and encode and
-the H.264 slice decode, deblocking and encode.
+the H.264 slice decode (CAVLC and CABAC), deblocking and encode, with
+its constant tables in ``src/h264_tables.h``.
 
 Counterpart of ``hive_tpu/native`` (``src/weld.cpp`` and
 ``src/qem_decimate.cpp`` are copies of the JAX package's, built with the same
@@ -39,7 +40,7 @@ _LIB_PATH = os.path.join(_BUILD_DIR, "libhive_native.so")
 _SOURCES = ["h264_decode.cpp", "jpeg_decode.cpp", "mpeg4_decode.cpp", "png_unfilter.cpp", "qem_decimate.cpp",
             "telea_inpaint.cpp", "weld.cpp"]
 # Headers the sources include: a change to one rebuilds the library too.
-_HEADERS = ["simple_idct.h"]
+_HEADERS = ["h264_tables.h", "simple_idct.h"]
 # Flags beyond the common ones, per source.
 _EXTRA_FLAGS = {"telea_inpaint.cpp": ["-ffp-contract=off"]}
 _FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17"]

@@ -1,33 +1,43 @@
-// H.264 (ITU-T H.264 | ISO/IEC 14496-10) macroblock layer for CAVLC I and P
-// slices of 8-bit 4:2:0 frame pictures, both ways: one slice's macroblocks
-// decoded below its header as the standard specifies (and so as FFmpeg's
-// h264 decoder, and cv2.VideoCapture, decode them), the picture's
-// deblocking, and the matching encode, which writes the test fixtures.
+// H.264 (ITU-T H.264 | ISO/IEC 14496-10) macroblock layer for I and P
+// slices of 8-bit 4:2:0 frame pictures, CAVLC or CABAC, both ways: one
+// slice's macroblocks decoded below its header as the standard specifies
+// (and so as FFmpeg's h264 decoder, and cv2.VideoCapture, decode them), the
+// picture's deblocking, and the matching encode, which writes the test
+// fixtures.
 //
 // The Python side (hive_tpu_torch/video/h264.py) parses the parameter sets
-// and slice headers, refuses what this file does not decode, keeps the
-// decoded picture buffer (POC, reference marking, reference lists) and the
-// per-picture macroblock state this file reads and writes (MbState, one a
-// macroblock, zeroed for each picture). hive_h264_decode_slice takes the
-// slice's RBSP from the bit after its header: mb_skip_run, mb_type,
-// intra 4x4 / 16x16 / chroma prediction modes, I_PCM samples, P partitions
-// and sub-partitions with ref_idx te(v) and motion vector differences,
-// coded_block_pattern me(v), mb_qp_delta, and the CAVLC residual
+// and slice headers (the scaling lists resolved), refuses what this file
+// does not decode, keeps the decoded picture buffer (POC, reference
+// marking, reference lists) and the per-picture macroblock state this file
+// reads and writes (MbState, one a macroblock, zeroed for each picture).
+// hive_h264_decode_slice takes the slice's RBSP from the bit after its
+// header: mb_skip_run or mb_skip_flag, mb_type, transform_size_8x8_flag,
+// intra 4x4 / 8x8 / 16x16 / chroma prediction modes, I_PCM samples, P
+// partitions and sub-partitions with ref_idx and motion vector
+// differences, coded_block_pattern, mb_qp_delta and the residual: CAVLC
 // (coeff_token with nC from the neighbours, trailing ones, level_prefix /
-// level_suffix with suffixLength adaptation, total_zeros, run_before); then
-// reconstruction: intra prediction (8.3), median and directional motion
+// level_suffix with suffixLength adaptation, total_zeros, run_before; an
+// 8x8 block as four interleaved 4x4 scans) or CABAC (9.3: the arithmetic
+// decoding engine, each element's binarisation and ctxIdxInc, the
+// significance map, coeff_abs_level_minus1 and the bypass bins, I_PCM's
+// re-initialisation); then reconstruction: intra prediction (8.3, the 8x8
+// modes with their reference sample filter), median and directional motion
 // vector prediction and P_Skip (8.4.1), quarter-sample luma and
 // eighth-sample chroma interpolation with clamped reference coordinates
-// (8.4.2.2), flat dequantisation, the 4x4 inverse transform and the luma /
-// chroma DC transforms (8.5). hive_h264_deblock filters the whole picture
-// once its slices are decoded (8.7): bS 0-4 (reference pictures compared by
-// picture, not by index), alpha / beta / tc0 from the tables, each slice's
-// disable_deblocking_filter_idc (0, 1, 2) and offsets, I_PCM at qP 0.
+// (8.4.2.2), dequantisation with the scaling matrices (LevelScale4x4 and
+// LevelScale8x8), the 4x4 and 8x8 inverse transforms and the luma / chroma
+// DC transforms (8.5). hive_h264_deblock filters the whole picture once its
+// slices are decoded (8.7): bS 0-4 (reference pictures compared by picture,
+// not by index; an 8x8 transform block's coefficients count for its four
+// 4x4 blocks), alpha / beta / tc0 from the tables, each slice's
+// disable_deblocking_filter_idc (0, 1, 2) and offsets, I_PCM at qP 0, and
+// no internal 4-sample luma edges in a macroblock of 8x8 transforms.
 //
 // The VLC tables are those of the standard (Tables 9-5, 9-7, 9-8, 9-9, 9-10
-// and 9-4); every coeff_token, total_zeros and run_before codeword the
-// encoder writes is counted, and the tests hold streams that use each of
-// them to cv2 5.0.0's decode. This is host code, not a device kernel.
+// and 9-4), the CABAC and 8x8 tables those of h264_tables.h; every VLC
+// codeword and every CABAC context the encoder writes is counted, and the
+// tests hold streams that use each of them to cv2 5.0.0's decode. This is
+// host code, not a device kernel.
 
 #include <algorithm>
 #include <cstdint>
@@ -35,7 +45,11 @@
 #include <cstring>
 #include <vector>
 
+#include "h264_tables.h"
+
 namespace {
+
+using namespace h264;
 
 // ---------------------------------------------------------------------------
 // Tables.
@@ -158,7 +172,22 @@ inline int dq_class(int p) {
     const int r = p >> 2, c = p & 3;
     return (r & 1) == 0 && (c & 1) == 0 ? 0 : ((r & 1) && (c & 1) ? 1 : 2);
 }
+// The class of raster position p of an 8x8 block in normAdjust8x8 (8.5.9).
+inline int norm8x8_class(int p) {
+    const int i = p >> 3, j = p & 7;
+    if (i % 4 == 0 && j % 4 == 0) return 0;
+    if (i % 2 == 1 && j % 2 == 1) return 1;
+    if (i % 4 == 2 && j % 4 == 2) return 2;
+    if ((i % 4 == 0 && j % 2 == 1) || (i % 2 == 1 && j % 4 == 0)) return 3;
+    if ((i % 4 == 0 && j % 4 == 2) || (i % 4 == 2 && j % 4 == 0)) return 4;
+    return 5;
+}
 inline int clip3(int lo, int hi, int v) { return v < lo ? lo : (v > hi ? hi : v); }
+// The luma 4x4 blocks (raster bits) of 8x8 block b8.
+inline uint16_t mask8(int b8) { return static_cast<uint16_t>(0x33 << (8 * (b8 >> 1) + 2 * (b8 & 1))); }
+// A scaled coefficient kept to 25 bits: a conforming stream's are 16 bits
+// (8.5.12.1); a corrupt one's cannot overflow the transforms.
+inline int scaled(int64_t v) { return static_cast<int>(std::max<int64_t>(-(1 << 24), std::min<int64_t>(1 << 24, v))); }
 inline uint8_t clip1(int v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v)); }
 inline int chroma_qp(int qp, int offset) { return kChromaQp[clip3(0, 51, qp + offset)]; }
 inline int mid(int a, int b, int c) {
@@ -322,6 +351,13 @@ struct MbState {
     int8_t ref_idx[16];
     int8_t i4mode[16];      // Intra4x4PredMode per 4x4 block (raster), -1 otherwise
     uint8_t nnz[24];        // TotalCoeff per luma 4x4 block (raster), Cb, Cr 4x4 blocks
+    uint8_t mvd[16][2];     // |mvd| per 4x4 block (clamped to 127), for CABAC's ctxIdxInc
+    uint32_t cbf;           // coded_block_flag (CABAC): luma 4x4 blocks (raster) bits 0-15,
+                            // luma DC 16, chroma DC 17-18, chroma AC 19-26 (Cb, then Cr)
+    uint16_t nonzero;       // luma 4x4 blocks (raster) of a transform block with coefficients
+    int8_t t8x8;            // transform_size_8x8_flag
+    int8_t chroma_mode;     // intra_chroma_pred_mode
+    uint8_t cbp;            // coded_block_pattern (I_PCM: 0x2F)
 };
 
 enum Status {
@@ -342,12 +378,16 @@ enum Status {
     kErrOverlap = -14,
     kErrGolomb = -15,
     kErrMissing = -16,
+    kErrCabac = -17,
 };
 
 // The slice's parameters (params[] of the entry points).
 struct Params {
     int mbw, mbh, slice, first_mb, slice_type, qp, num_ref, cqp_offset[2], constrained_intra;
-    int lf_idc, lf_alpha, lf_beta, mb_count;
+    int lf_idc, lf_alpha, lf_beta, mb_count, cabac, cabac_init_idc, t8x8_mode;
+    // The scaling lists in raster order: 4x4 Intra Y, Cb, Cr, Inter Y, Cb,
+    // Cr; 8x8 Intra Y, Inter Y.
+    int w4[6][16], w8[2][64];
 };
 
 Params make_params(const int32_t* p) {
@@ -366,6 +406,11 @@ Params make_params(const int32_t* p) {
     c.lf_alpha = p[11];
     c.lf_beta = p[12];
     c.mb_count = p[13];
+    c.cabac = p[14];
+    c.cabac_init_idc = p[15];
+    c.t8x8_mode = p[16];
+    std::memcpy(c.w4, p + 17, sizeof(c.w4));
+    std::memcpy(c.w8, p + 17 + 6 * 16, sizeof(c.w8));
     return c;
 }
 
@@ -375,7 +420,11 @@ bool valid(const Params& c) {
            (c.slice_type == 0 || c.slice_type == 2) &&
            c.qp >= 0 && c.qp <= 51 && c.num_ref >= (c.slice_type == 0 ? 1 : 0) && c.num_ref <= 32 &&
            std::abs(c.cqp_offset[0]) <= 12 && std::abs(c.cqp_offset[1]) <= 12 && c.lf_idc >= 0 &&
-           c.lf_idc <= 2 && std::abs(c.lf_alpha) <= 12 && std::abs(c.lf_beta) <= 12;
+           c.lf_idc <= 2 && std::abs(c.lf_alpha) <= 12 && std::abs(c.lf_beta) <= 12 &&
+           (c.cabac == 0 || c.cabac == 1) && c.cabac_init_idc >= 0 && c.cabac_init_idc <= 2 &&
+           (c.t8x8_mode == 0 || c.t8x8_mode == 1) &&
+           std::all_of(&c.w4[0][0], &c.w4[0][0] + 96, [](int v) { return v > 0 && v < 256; }) &&
+           std::all_of(&c.w8[0][0], &c.w8[0][0] + 128, [](int v) { return v > 0 && v < 256; });
 }
 
 // A neighbour's motion: ref -2 not available, -1 intra (or not predicted).
@@ -396,6 +445,10 @@ struct Codec {
     MbState* cur = nullptr;
     uint16_t done = 0;           // the current macroblock's 4x4 blocks with motion
     bool avail_a = false, avail_b = false, avail_c = false, avail_d = false;  // for intra
+    // LevelScale4x4 and LevelScale8x8 (8.5.9) of each scaling list (Params'
+    // order), qP % 6 and raster position.
+    int32_t ls4[6][6][16], ls8[2][6][64];
+    int8_t ref8[4] = {0, 0, 0, 0};  // the current macroblock's ref_idx per 8x8, as parsed
 
     Codec(const Params& p, const uint8_t* const* r, const int32_t* ids, uint8_t* const* out,
           MbState* s)
@@ -403,7 +456,18 @@ struct Codec {
         for (int k = 0; k < 3; ++k) pic[k] = out[k];
         ys = 16 * c.mbw;
         cs = 8 * c.mbw;
+        for (int m = 0; m < 6; ++m) {
+            for (int l = 0; l < 6; ++l)
+                for (int q = 0; q < 16; ++q) ls4[l][m][q] = c.w4[l][q] * kDequant[m][dq_class(q)];
+            for (int l = 0; l < 2; ++l)
+                for (int q = 0; q < 64; ++q)
+                    ls8[l][m][q] = c.w8[l][q] * kNormAdjust8x8[m][norm8x8_class(q)];
+        }
     }
+
+    // The LevelScale4x4 of component k (0 Y, 1 Cb, 2 Cr), intra or inter.
+    const int32_t* list4(int k, bool intra) const { return &ls4[(intra ? 0 : 3) + k][0][0]; }
+    const int32_t* list8(bool intra) const { return &ls8[intra ? 0 : 1][0][0]; }
 
     void start_mb(int a) {
         addr = a;
@@ -416,6 +480,7 @@ struct Codec {
         cur->lf_alpha = static_cast<int8_t>(c.lf_alpha);
         cur->lf_beta = static_cast<int8_t>(c.lf_beta);
         std::memset(cur->i4mode, -1, 16);
+        std::memset(ref8, 0, sizeof(ref8));
         done = 0;
         auto usable = [&](int x, int y) {
             int lx = 0, ly = 0;
@@ -461,6 +526,100 @@ struct Codec {
         const int na = a ? a->nnz[16 + 4 * k + (ay >> 3) * 2 + (ax >> 3)] : 0;
         const int nb = b ? b->nnz[16 + 4 * k + (by2 >> 3) * 2 + (bx2 >> 3)] : 0;
         return a && b ? (na + nb + 1) >> 1 : (a ? na : (b ? nb : 0));
+    }
+
+    // -- CABAC's ctxIdxInc from the neighbours (9.3.3.1.1) ---------------------------
+    MbState* mb_a() const {
+        int lx = 0, ly = 0;
+        return neighbour(-1, 0, &lx, &ly);
+    }
+    MbState* mb_b() const {
+        int lx = 0, ly = 0;
+        return neighbour(0, -1, &lx, &ly);
+    }
+    int skip_inc() const {
+        const MbState *a = mb_a(), *b = mb_b();
+        return (a && a->kind != kSkip) + (b && b->kind != kSkip);
+    }
+    int mb_type_i_inc() const {  // I slices: neighbours not I_NxN
+        const MbState *a = mb_a(), *b = mb_b();
+        return (a && a->kind != kI4x4) + (b && b->kind != kI4x4);
+    }
+    int t8x8_inc() const {
+        const MbState *a = mb_a(), *b = mb_b();
+        return (a && a->t8x8) + (b && b->t8x8);
+    }
+    int chroma_mode_inc() const {
+        auto cond = [](const MbState* m) { return m && m->kind <= kI16x16 && m->chroma_mode; };
+        return cond(mb_a()) + cond(mb_b());
+    }
+    // coded_block_pattern's luma bin of 8x8 block b8, the bins so far `luma`.
+    int cbp_luma_inc(int b8, int luma) const {
+        auto cond = [&](int x, int y) {
+            int lx = 0, ly = 0;
+            const MbState* m = neighbour(x, y, &lx, &ly);
+            if (!m) return 0;
+            const int n8 = (ly >> 3) * 2 + (lx >> 3);
+            return ((m == cur ? luma : m->cbp) >> n8 & 1) ? 0 : 1;
+        };
+        const int x = 8 * (b8 & 1), y = 8 * (b8 >> 1);
+        return cond(x - 1, y) + 2 * cond(x, y - 1);
+    }
+    int cbp_chroma_inc(int bin) const {
+        auto cond = [&](const MbState* m) {
+            return m && (bin ? (m->cbp >> 4) == 2 : (m->cbp >> 4) != 0);
+        };
+        return cond(mb_a()) + 2 * cond(mb_b()) + 4 * bin;
+    }
+    // coded_block_flag's condTermFlagN of bit `bit` of the neighbour m.
+    int cbf_cond(const MbState* m, int bit) const {
+        if (!m) return cur->kind <= kIPCM;
+        if (m->kind == kIPCM) return 1;
+        return m->cbf >> bit & 1;
+    }
+    // Of the luma 4x4 block (bx, by), the luma DC, chroma DC k, chroma AC
+    // block (bx, by) of component k.
+    int cbf_luma_inc(int bx, int by) const {
+        int ax = 0, ay = 0, bx2 = 0, by2 = 0;
+        const MbState* a = neighbour(4 * bx - 1, 4 * by, &ax, &ay);
+        const MbState* b = neighbour(4 * bx, 4 * by - 1, &bx2, &by2);
+        return cbf_cond(a, (ay >> 2) * 4 + (ax >> 2)) + 2 * cbf_cond(b, (by2 >> 2) * 4 + (bx2 >> 2));
+    }
+    int cbf_dc_inc(int bit) const { return cbf_cond(mb_a(), bit) + 2 * cbf_cond(mb_b(), bit); }
+    int cbf_chroma_ac_inc(int k, int bx, int by) const {
+        int ax = 0, ay = 0, bx2 = 0, by2 = 0;
+        const MbState* a = neighbour(8 * bx - 1, 8 * by, &ax, &ay);
+        const MbState* b = neighbour(8 * bx, 8 * by - 1, &bx2, &by2);
+        return cbf_cond(a, 19 + 4 * k + (ay >> 3) * 2 + (ax >> 3)) +
+               2 * cbf_cond(b, 19 + 4 * k + (by2 >> 3) * 2 + (bx2 >> 3));
+    }
+    // ref_idx_l0 of the partition at (x, y): neighbours with ref_idx > 0.
+    int ref_idx_inc(int x, int y) const {
+        auto cond = [&](int px, int py) {
+            int lx = 0, ly = 0;
+            const MbState* m = neighbour(px, py, &lx, &ly);
+            if (!m) return 0;
+            if (m == cur) return ref8[(ly >> 3) * 2 + (lx >> 3)] > 0 ? 1 : 0;
+            return m->kind == kInter && m->ref_idx[(ly >> 2) * 4 + (lx >> 2)] > 0 ? 1 : 0;
+        };
+        return cond(x - 1, y) + 2 * cond(x, y - 1);
+    }
+    // mvd_l0 component `comp` of the partition at (x, y).
+    int mvd_inc(int x, int y, int comp) const {
+        auto absmvd = [&](int px, int py) {
+            int lx = 0, ly = 0;
+            const MbState* m = neighbour(px, py, &lx, &ly);
+            return m ? m->mvd[(ly >> 2) * 4 + (lx >> 2)][comp] : 0;
+        };
+        const int sum = absmvd(x - 1, y) + absmvd(x, y - 1);
+        return sum < 3 ? 0 : (sum > 32 ? 2 : 1);
+    }
+    void set_mvd(int x, int y, int w, int h, int dx, int dy) {
+        for (int by = y >> 2; by < (y + h) >> 2; ++by)
+            for (int bx = x >> 2; bx < (x + w) >> 2; ++bx) {
+                cur->mvd[by * 4 + bx][0] = static_cast<uint8_t>(std::min(127, std::abs(dx)));
+                cur->mvd[by * 4 + bx][1] = static_cast<uint8_t>(std::min(127, std::abs(dy)));
+            }
     }
 
     // predIntra4x4PredMode of 4x4 block (bx, by) (8.3.1.1).
@@ -740,6 +899,118 @@ struct Codec {
             }
     }
 
+    // Intra sample availability of 8x8 block b8: left, top, top-right, top-left.
+    void i8_avail(int b8, bool* l, bool* t, bool* tr, bool* tl) const {
+        const int bx = b8 & 1, by = b8 >> 1;
+        *l = bx || avail_a;
+        *t = by || avail_b;
+        *tl = bx ? (by || avail_b) : (by ? avail_a : avail_d);
+        *tr = by ? !bx : (bx ? avail_c : avail_b);
+    }
+
+    // Intra_8x8 prediction of 8x8 block b8 (8.3.2.2): the reference
+    // samples filtered, then mode `mode` (numbered as the 4x4 modes).
+    void pred8x8(int b8, int mode) {
+        bool l, t, tr, tl;
+        i8_avail(b8, &l, &t, &tr, &tl);
+        uint8_t* p = pic[0] + (16 * mby + 8 * (b8 >> 1)) * ys + 16 * mbx + 8 * (b8 & 1);
+        int T[16] = {0}, L[8] = {0}, Q = 0;
+        if (t)
+            for (int i = 0; i < 16; ++i) T[i] = i < 8 || tr ? p[-ys + i] : T[7];
+        if (l)
+            for (int j = 0; j < 8; ++j) L[j] = p[j * ys - 1];
+        if (tl) Q = p[-ys - 1];
+        int top[17] = {0}, left[8] = {0};  // top[0] the corner, top[1 + x] p'[x, -1]
+        int* f = top + 1;
+        if (t) {
+            f[0] = tl ? (Q + 2 * T[0] + T[1] + 2) >> 2 : (3 * T[0] + T[1] + 2) >> 2;
+            for (int x = 1; x < 15; ++x) f[x] = (T[x - 1] + 2 * T[x] + T[x + 1] + 2) >> 2;
+            f[15] = (T[14] + 3 * T[15] + 2) >> 2;
+        }
+        if (tl)
+            top[0] = t && l ? (T[0] + 2 * Q + L[0] + 2) >> 2
+                     : t   ? (3 * Q + T[0] + 2) >> 2
+                     : l   ? (3 * Q + L[0] + 2) >> 2 : Q;
+        if (l) {
+            left[0] = tl ? (Q + 2 * L[0] + L[1] + 2) >> 2 : (3 * L[0] + L[1] + 2) >> 2;
+            for (int y = 1; y < 7; ++y) left[y] = (L[y - 1] + 2 * L[y] + L[y + 1] + 2) >> 2;
+            left[7] = (L[6] + 3 * L[7] + 2) >> 2;
+        }
+        // p'[x, y] for x == -1 or y == -1.
+        auto P = [&](int x, int y) { return y < 0 ? top[1 + x] : left[y]; };
+        auto f3 = [](int a, int b, int cc) { return (a + 2 * b + cc + 2) >> 2; };
+        int dc = 128;
+        if (mode == 2) {
+            int st_ = 0, sl = 0;
+            for (int i = 0; i < 8; ++i) {
+                st_ += f[i];
+                sl += left[i];
+            }
+            dc = t && l ? (st_ + sl + 8) >> 4 : l ? (sl + 4) >> 3 : t ? (st_ + 4) >> 3 : 128;
+        }
+        for (int y = 0; y < 8; ++y)
+            for (int x = 0; x < 8; ++x) {
+                int v;
+                switch (mode) {
+                    case 0: v = P(x, -1); break;
+                    case 1: v = P(-1, y); break;
+                    case 2: v = dc; break;
+                    case 3:
+                        v = x == 7 && y == 7 ? (P(14, -1) + 3 * P(15, -1) + 2) >> 2
+                                             : f3(P(x + y, -1), P(x + y + 1, -1), P(x + y + 2, -1));
+                        break;
+                    case 4:
+                        v = x > y   ? f3(P(x - y - 2, -1), P(x - y - 1, -1), P(x - y, -1))
+                            : x < y ? f3(P(-1, y - x - 2), P(-1, y - x - 1), P(-1, y - x))
+                                    : f3(P(0, -1), P(-1, -1), P(-1, 0));
+                        break;
+                    case 5: {
+                        const int z = 2 * x - y, k = x - (y >> 1);
+                        if (z >= 0 && !(z & 1))
+                            v = (P(k - 1, -1) + P(k, -1) + 1) >> 1;
+                        else if (z > 0)
+                            v = f3(P(k - 2, -1), P(k - 1, -1), P(k, -1));
+                        else if (z == -1)
+                            v = f3(P(-1, 0), P(-1, -1), P(0, -1));
+                        else
+                            v = f3(P(-1, y - 2 * x - 1), P(-1, y - 2 * x - 2), P(-1, y - 2 * x - 3));
+                        break;
+                    }
+                    case 6: {
+                        const int z = 2 * y - x, k = y - (x >> 1);
+                        if (z >= 0 && !(z & 1))
+                            v = (P(-1, k - 1) + P(-1, k) + 1) >> 1;
+                        else if (z > 0)
+                            v = f3(P(-1, k - 2), P(-1, k - 1), P(-1, k));
+                        else if (z == -1)
+                            v = f3(P(-1, 0), P(-1, -1), P(0, -1));
+                        else
+                            v = f3(P(x - 2 * y - 1, -1), P(x - 2 * y - 2, -1), P(x - 2 * y - 3, -1));
+                        break;
+                    }
+                    case 7: {
+                        const int k = x + (y >> 1);
+                        v = (y & 1) ? f3(P(k, -1), P(k + 1, -1), P(k + 2, -1))
+                                    : (P(k, -1) + P(k + 1, -1) + 1) >> 1;
+                        break;
+                    }
+                    default: {
+                        const int z = x + 2 * y, k = y + (x >> 1);
+                        if (z > 13)
+                            v = P(-1, 7);
+                        else if (z == 13)
+                            v = (P(-1, 6) + 3 * P(-1, 7) + 2) >> 2;
+                        else if (z & 1)
+                            v = f3(P(-1, k), P(-1, k + 1), P(-1, k + 2));
+                        else
+                            v = (P(-1, k) + P(-1, k + 1) + 1) >> 1;
+                        break;
+                    }
+                }
+                p[y * ys + x] = static_cast<uint8_t>(v);
+            }
+    }
+
     void pred16x16(int mode) {
         uint8_t* p = pic[0] + 16 * mby * ys + 16 * mbx;
         const bool l = avail_a, t = avail_b;
@@ -825,12 +1096,18 @@ struct Codec {
     }
 
     // -- residual (8.5) ------------------------------------------------------------
-    // coef: raster levels of one 4x4 block; dc: the already scaled DC, or
-    // none (INT32_MIN: the block's own). Adds the block's residual to dst.
-    static void idct_add(uint8_t* dst, int stride, const int32_t* coef, int qp, int32_t dc) {
+    // coef: raster levels of one 4x4 block; ls: its list's LevelScale4x4;
+    // dc: the already scaled DC, or none (INT32_MIN: the block's own). Adds
+    // the block's residual to dst.
+    static void idct_add(uint8_t* dst, int stride, const int32_t* coef, int qp, const int32_t* ls,
+                         int32_t dc) {
         int d[16];
-        const int shift = qp / 6, m = qp % 6;
-        for (int p = 0; p < 16; ++p) d[p] = (coef[p] * kDequant[m][dq_class(p)]) << shift;
+        const int q6 = qp / 6;
+        const int32_t* s = ls + 16 * (qp % 6);
+        for (int p = 0; p < 16; ++p) {
+            const int64_t v = int64_t(coef[p]) * s[p];
+            d[p] = scaled(q6 >= 4 ? v * (1 << (q6 - 4)) : (v + (1 << (3 - q6))) >> (4 - q6));
+        }
         if (dc != INT32_MIN) d[0] = dc;
         int t[16];
         for (int i = 0; i < 4; ++i) {
@@ -851,8 +1128,51 @@ struct Codec {
         }
     }
 
-    // Luma DC of Intra16x16 (8.5.10): levels c (raster) -> scaled dcY (raster).
-    static void luma_dc(const int32_t* c, int qp, int32_t* out) {
+    // The 8x8 inverse transform of one row or column (8.5.13.2), in place.
+    static void idct8_1d(int* x, int s) {
+        const int d0 = x[0], d1 = x[s], d2 = x[2 * s], d3 = x[3 * s], d4 = x[4 * s],
+                  d5 = x[5 * s], d6 = x[6 * s], d7 = x[7 * s];
+        const int a0 = d0 + d4, a4 = d0 - d4, a2 = (d2 >> 1) - d6, a6 = d2 + (d6 >> 1);
+        const int b0 = a0 + a6, b2 = a4 + a2, b4 = a4 - a2, b6 = a0 - a6;
+        const int a1 = -d3 + d5 - d7 - (d7 >> 1), a3 = d1 + d7 - d3 - (d3 >> 1);
+        const int a5 = -d1 + d7 + d5 + (d5 >> 1), a7 = d3 + d5 + d1 + (d1 >> 1);
+        const int b1 = a1 + (a7 >> 2), b7 = a7 - (a1 >> 2), b3 = a3 + (a5 >> 2), b5 = (a3 >> 2) - a5;
+        x[0] = b0 + b7;
+        x[s] = b2 + b5;
+        x[2 * s] = b4 + b3;
+        x[3 * s] = b6 + b1;
+        x[4 * s] = b6 - b1;
+        x[5 * s] = b4 - b3;
+        x[6 * s] = b2 - b5;
+        x[7 * s] = b0 - b7;
+    }
+
+    // coef: raster levels of one 8x8 block; ls: its LevelScale8x8. Adds
+    // the block's residual to dst (8.5.13).
+    static void idct8_add(uint8_t* dst, int stride, const int32_t* coef, int qp, const int32_t* ls) {
+        int d[64];
+        const int q6 = qp / 6;
+        const int32_t* s = ls + 64 * (qp % 6);
+        for (int p = 0; p < 64; ++p) {
+            const int64_t v = int64_t(coef[p]) * s[p];
+            d[p] = scaled(q6 >= 6 ? v * (1 << (q6 - 6)) : (v + (1 << (5 - q6))) >> (6 - q6));
+        }
+        for (int i = 0; i < 8; ++i) idct8_1d(d + 8 * i, 1);
+        for (int j = 0; j < 8; ++j) idct8_1d(d + j, 8);
+        for (int i = 0; i < 8; ++i)
+            for (int j = 0; j < 8; ++j)
+                dst[i * stride + j] = clip1(dst[i * stride + j] + ((d[8 * i + j] + 32) >> 6));
+    }
+
+    // Luma DC of Intra16x16 (8.5.10): levels c (raster) -> scaled dcY
+    // (raster); scale: LevelScale4x4(qP % 6, 0, 0) of the Intra Y list.
+    // FFmpeg's x86 code for this step (ff_h264_luma_dc_dequant_idct_sse2,
+    // which cv2 runs) takes a multiplier scale << (qP / 6 + 2) above 32767
+    // as (it >> 7) << 7 with its rounding halved: exact where qP / 6 >= 5,
+    // off by a unit now and then below that when the scaling list's DC
+    // weight makes the multiplier odd above bit 6. The port rounds as cv2
+    // does there.
+    static void luma_dc(const int32_t* c, int qp, int scale, int32_t* out) {
         int f[16], t[16];
         for (int i = 0; i < 4; ++i) {
             const int* r = c + 4 * i;
@@ -868,18 +1188,23 @@ struct Codec {
             f[8 + j] = a - b - cc + d;
             f[12 + j] = a - b + cc - d;
         }
-        const int scale = 16 * kDequant[qp % 6][0];
-        for (int p = 0; p < 16; ++p)
-            out[p] = qp >= 36 ? (f[p] * scale) << (qp / 6 - 6)
-                              : (f[p] * scale + (1 << (5 - qp / 6))) >> (6 - qp / 6);
+        const int64_t qmul = int64_t(scale) << (qp / 6 + 2);
+        for (int p = 0; p < 16; ++p) {
+            const int64_t v = int64_t(f[p]) * scale;
+            if (qmul > 32767 && qp < 30)
+                out[p] = scaled((int64_t(f[p]) * static_cast<int16_t>(qmul >> 7) + 1) >> 1);
+            else
+                out[p] = scaled(qp >= 36 ? v * (1 << (qp / 6 - 6))
+                                         : (v + (1 << (5 - qp / 6))) >> (6 - qp / 6));
+        }
     }
 
-    // Chroma DC (8.5.11): levels c[4] -> scaled dcC[4].
-    static void chroma_dc(const int32_t* c, int qp, int32_t* out) {
+    // Chroma DC (8.5.11): levels c[4] -> scaled dcC[4]; scale as luma_dc's,
+    // of the component's list.
+    static void chroma_dc(const int32_t* c, int qp, int scale, int32_t* out) {
         const int f[4] = {c[0] + c[1] + c[2] + c[3], c[0] - c[1] + c[2] - c[3],
                           c[0] + c[1] - c[2] - c[3], c[0] - c[1] - c[2] + c[3]};
-        const int scale = 16 * kDequant[qp % 6][0];
-        for (int p = 0; p < 4; ++p) out[p] = ((f[p] * scale) << (qp / 6)) >> 5;
+        for (int p = 0; p < 4; ++p) out[p] = scaled((int64_t(f[p]) * scale * (1 << (qp / 6))) >> 5);
     }
 
     // The macroblock's coefficients as parsed or chosen.
@@ -888,18 +1213,39 @@ struct Codec {
         int32_t luma_dc[16];      // Intra16x16 DC levels, raster
         int32_t chroma_dc[2][4];
         int32_t chroma_ac[2][4][16];
+        int32_t luma8[4][64];     // 8x8 blocks, raster position
         void clear() { std::memset(this, 0, sizeof(*this)); }
     };
 
     void add_chroma_residual(const Residual& res, int cbp_chroma) {
         if (!cbp_chroma) return;
+        const bool intra = cur->kind <= kIPCM;
         for (int k = 0; k < 2; ++k) {
             const int qpc = chroma_qp(cur->qp, c.cqp_offset[k]);
+            const int32_t* ls = list4(1 + k, intra);
             int32_t dc[4];
-            chroma_dc(res.chroma_dc[k], qpc, dc);
+            chroma_dc(res.chroma_dc[k], qpc, ls[16 * (qpc % 6)], dc);
             uint8_t* p = pic[1 + k] + 8 * mby * cs + 8 * mbx;
             for (int b = 0; b < 4; ++b)
-                idct_add(p + 4 * (b >> 1) * cs + 4 * (b & 1), cs, res.chroma_ac[k][b], qpc, dc[b]);
+                idct_add(p + 4 * (b >> 1) * cs + 4 * (b & 1), cs, res.chroma_ac[k][b], qpc, ls,
+                         dc[b]);
+        }
+    }
+
+    // The luma residual of an inter macroblock (4x4 or 8x8 transforms).
+    void add_inter_luma_residual(const Residual& res, int cbp) {
+        for (int b8 = 0; b8 < 4; ++b8) {
+            if (!(cbp >> b8 & 1)) continue;
+            uint8_t* p = pic[0] + (16 * mby + 8 * (b8 >> 1)) * ys + 16 * mbx + 8 * (b8 & 1);
+            if (cur->t8x8) {
+                idct8_add(p, ys, res.luma8[b8], cur->qp, list8(false));
+                continue;
+            }
+            for (int k = 0; k < 4; ++k) {
+                const int b = (2 * (b8 >> 1) + (k >> 1)) * 4 + 2 * (b8 & 1) + (k & 1);
+                idct_add(pic[0] + (16 * mby + 4 * (b >> 2)) * ys + 16 * mbx + 4 * (b & 3), ys,
+                         res.luma[b], cur->qp, list4(0, false), INT32_MIN);
+            }
         }
     }
 
@@ -931,19 +1277,342 @@ void sub_part(int t, int k, int* x, int* y, int* w, int* h) {
 }
 
 // ---------------------------------------------------------------------------
+// CABAC (9.3).
+// ---------------------------------------------------------------------------
+
+// The contexts' states (pStateIdx << 1 | valMPS) initialised for a slice
+// (9.3.1.1): I slices from the I table, P slices from cabac_init_idc's.
+void init_contexts(uint8_t* state, int slice_type, int init_idc, int qp) {
+    const int8_t(*t)[2] = slice_type == 2 ? kCabacInitI : kCabacInitP[init_idc];
+    const int q = clip3(0, 51, qp);
+    for (int k = 0; k < 1024; ++k) {
+        const int pre = clip3(1, 126, ((t[k][0] * q) >> 4) + t[k][1]);
+        state[k] = static_cast<uint8_t>(pre <= 63 ? (63 - pre) << 1 : (pre - 64) << 1 | 1);
+    }
+}
+
+// The arithmetic decoding engine (9.3.1.2, 9.3.3.2). Reading stops at
+// `limit` (the slice's end plus the reader's slack): past it the engine
+// reads zeros and sets `over`.
+struct CabacDecoder {
+    static constexpr bool kEncode = false;
+    Reader* r;
+    int64_t limit;
+    bool over = false;
+    uint32_t range = 510, offset = 0;
+    uint8_t state[1024];
+
+    uint32_t bits(int n) {
+        if (r->pos + n > limit) {
+            over = true;
+            return 0;
+        }
+        return r->get(n);
+    }
+    void start() {
+        range = 510;
+        offset = bits(9);
+    }
+    void renorm() {
+        if (range < 256) {
+            const int n = __builtin_clz(range) - 23;
+            range <<= n;
+            offset = (offset << n) | bits(n);
+        }
+    }
+    int decision(int ctx, int = 0) {
+        uint8_t& s = state[ctx];
+        int p = s >> 1, mps = s & 1, bin;
+        const uint32_t lps = kRangeTabLPS[p][(range >> 6) & 3];
+        range -= lps;
+        if (offset >= range) {
+            bin = !mps;
+            offset -= range;
+            range = lps;
+            if (!p) mps = !mps;
+            p = kTransIdxLPS[p];
+        } else {
+            bin = mps;
+            p = kTransIdxMPS[p];
+        }
+        s = static_cast<uint8_t>(p << 1 | mps);
+        renorm();
+        return bin;
+    }
+    int bypass(int = 0) {
+        offset = (offset << 1) | bits(1);
+        if (offset >= range) {
+            offset -= range;
+            return 1;
+        }
+        return 0;
+    }
+    int terminate(int = 0) {
+        range -= 2;
+        if (offset >= range) return 1;
+        renorm();
+        return 0;
+    }
+};
+
+// The arithmetic encoding engine (9.3.4.2 - 9.3.4.5); `cover` counts each
+// context's decisions.
+struct CabacEncoder {
+    static constexpr bool kEncode = true;
+    Writer* w;
+    int64_t* cover = nullptr;
+    uint32_t low = 0, range = 510;
+    int outstanding = 0;
+    bool first = true;
+    uint8_t state[1024];
+
+    void start() {
+        low = 0;
+        range = 510;
+        outstanding = 0;
+        first = true;
+    }
+    void put_bit(int b) {
+        if (first)
+            first = false;
+        else
+            w->put(1, b);
+        for (; outstanding > 0; --outstanding) w->put(1, !b);
+    }
+    void renorm() {
+        while (range < 256) {
+            if (low < 256) {
+                put_bit(0);
+            } else if (low >= 512) {
+                low -= 512;
+                put_bit(1);
+            } else {
+                low -= 256;
+                ++outstanding;
+            }
+            range <<= 1;
+            low <<= 1;
+        }
+    }
+    int decision(int ctx, int bin) {
+        if (cover) ++cover[ctx];
+        uint8_t& s = state[ctx];
+        int p = s >> 1, mps = s & 1;
+        const uint32_t lps = kRangeTabLPS[p][(range >> 6) & 3];
+        range -= lps;
+        if (bin != mps) {
+            low += range;
+            range = lps;
+            if (!p) mps = !mps;
+            p = kTransIdxLPS[p];
+        } else {
+            p = kTransIdxMPS[p];
+        }
+        s = static_cast<uint8_t>(p << 1 | mps);
+        renorm();
+        return bin;
+    }
+    int bypass(int bin) {
+        low <<= 1;
+        if (bin) low += range;
+        if (low >= 1024) {
+            put_bit(1);
+            low -= 1024;
+        } else if (low < 512) {
+            put_bit(0);
+        } else {
+            low -= 512;
+            ++outstanding;
+        }
+        return bin;
+    }
+    // A 1 ends the arithmetic code (EncodeFlush): its last bit written is
+    // the rbsp_stop_one_bit, or comes before I_PCM's alignment.
+    int terminate(int bin) {
+        range -= 2;
+        if (!bin) {
+            renorm();
+            return 0;
+        }
+        low += range;
+        range = 2;
+        renorm();
+        put_bit((low >> 9) & 1);
+        w->put(2, ((low >> 7) & 3) | 1);
+        return 1;
+    }
+};
+
+// Each syntax element's binarisation and contexts (9.3.2, 9.3.3.1), for
+// the decoder and the encoder alike: each takes the value to encode
+// (ignored when decoding) and returns the value coded. On a corrupt stream
+// the unbounded codes give kBad.
+const int kBad = INT32_MIN;
+
+template <class E>
+struct CabacSyntax {
+    E e;
+    Codec* k;
+
+    int d(int ctx, int bin) { return e.decision(ctx, bin); }
+    int skip(int v) { return d(11 + k->skip_inc(), v); }
+    // The mb_type of an intra macroblock: 0 I_NxN, 1-24 I_16x16, 25 I_PCM;
+    // of an I slice (prefix ctxIdxOffset 3) or the suffix in a P slice (17).
+    int mb_type_i(int v, bool islice) {
+        const int base = islice ? 3 : 17;
+        if (!d(islice ? 3 + k->mb_type_i_inc() : 17, v != 0)) return 0;
+        if (e.terminate(v == 25)) return 25;
+        const int t = v - 1;
+        int out = 1 + 12 * d(base + (islice ? 3 : 1), t >= 12);
+        if (d(base + (islice ? 4 : 2), (t / 4) % 3 != 0))
+            out += 4 + 4 * d(base + (islice ? 5 : 2), (t / 4) % 3 == 2);
+        out += 2 * d(base + (islice ? 6 : 3), (t % 4) >> 1);
+        return out + d(base + (islice ? 7 : 3), t & 1);
+    }
+    // The mb_type of a P slice: 0-3 P_L0_16x16, P_L0_L0_16x8, P_L0_L0_8x16,
+    // P_8x8; 5 + the intra mb_type.
+    int mb_type_p(int v) {
+        if (d(14, v >= 5)) return 5 + mb_type_i(v - 5, false);
+        if (!d(15, v == 1 || v == 2)) return 3 * d(16, v == 3);
+        return 2 - d(17, v == 1);
+    }
+    int sub_mb_type(int v) {
+        if (d(21, v == 0)) return 0;
+        if (!d(22, v >= 2)) return 1;
+        return d(23, v == 2) ? 2 : 3;
+    }
+    int ref_idx(int v, int inc, int max) {
+        int n = 0;
+        while (d(54 + (n == 0 ? inc : (n == 1 ? 4 : 5)), v > n))
+            if (++n > max) return kBad;
+        return n;
+    }
+    // The suffix of UEGk (9.3.2.3), bypass bins.
+    int ueg(int v, int k_) {
+        int n = 0;
+        while (e.bypass(v >= n + (1 << k_))) {
+            n += 1 << k_;
+            if (++k_ > 24) return kBad;
+        }
+        const int rest = v - n;
+        while (k_--) n += e.bypass(rest >> k_ & 1) << k_;
+        return n;
+    }
+    int mvd(int v, int comp, int inc) {
+        const int base = comp ? 47 : 40, a = std::abs(v);
+        if (!d(base + inc, a != 0)) return 0;
+        int n = 1;
+        while (n < 9 && d(base + std::min(n + 2, 6), a > n)) ++n;
+        if (n == 9) {
+            const int s = ueg(a - 9, 3);
+            if (s == kBad) return kBad;
+            n += s;
+        }
+        return e.bypass(v < 0) ? -n : n;
+    }
+    int qp_delta(int v, int inc) {
+        const int code = v > 0 ? 2 * v - 1 : -2 * v;
+        int n = 0;
+        while (d(60 + (n == 0 ? inc : (n == 1 ? 2 : 3)), code > n))
+            if (++n > 52) return kBad;
+        return (n & 1) ? (n + 1) / 2 : -(n / 2);
+    }
+    // prev_intra*_pred_mode_flag and rem_intra*_pred_mode: -1 the predicted
+    // mode, else the remainder.
+    int pred_mode(int v) {
+        if (d(68, v < 0)) return -1;
+        int rem = d(69, v & 1);
+        rem |= d(69, v >> 1 & 1) << 1;
+        return rem | d(69, v >> 2 & 1) << 2;
+    }
+    int chroma_mode(int v) {
+        if (!d(64 + k->chroma_mode_inc(), v > 0)) return 0;
+        if (!d(67, v > 1)) return 1;
+        return d(67, v > 2) ? 3 : 2;
+    }
+    int cbp(int v) {
+        int luma = 0;
+        for (int b8 = 0; b8 < 4; ++b8) luma |= d(73 + k->cbp_luma_inc(b8, luma), v >> b8 & 1) << b8;
+        int chroma = 0;
+        if (d(77 + k->cbp_chroma_inc(0), (v >> 4) != 0))
+            chroma = 1 + d(77 + k->cbp_chroma_inc(1), (v >> 4) == 2);
+        return luma | chroma << 4;
+    }
+    int t8x8(int v) { return d(399 + k->t8x8_inc(), v); }
+
+    // residual_block_cabac (7.3.5.3.3): the block's levels in scan order,
+    // coef[0..max) (read or written), of ctxBlockCat `cat` with
+    // coded_block_flag's ctxIdxInc `cbf_inc` (none for cat 5). Returns the
+    // count of nonzero levels, or kBad.
+    int block(int cat, int cbf_inc, int32_t* coef, int max) {
+        static const int kSigOffset[5] = {0, 15, 29, 44, 47}, kAbsOffset[5] = {0, 10, 20, 30, 39};
+        int last = -1;
+        if (E::kEncode) {
+            for (int i = 0; i < max; ++i)
+                if (coef[i]) last = i;
+        } else {
+            std::memset(coef, 0, sizeof(int32_t) * max);
+        }
+        if (cat != 5 && !d(85 + 4 * cat + cbf_inc, last >= 0)) return 0;
+        const int sig = cat == 5 ? 402 : 105 + kSigOffset[cat];
+        const int lst = cat == 5 ? 417 : 166 + kSigOffset[cat];
+        const int abs_base = cat == 5 ? 426 : 227 + kAbsOffset[cat];
+        int pos[64], n = 0, i = 0;
+        for (; i < max - 1; ++i) {
+            const int inc = cat == 5 ? kSig8x8Inc[i] : (cat == 3 ? std::min(i, 2) : i);
+            if (!d(sig + inc, E::kEncode && coef[i] != 0)) continue;
+            pos[n++] = i;
+            const int linc = cat == 5 ? kLast8x8Inc[i] : (cat == 3 ? std::min(i, 2) : i);
+            if (d(lst + linc, i == last)) break;
+        }
+        if (i == max - 1) pos[n++] = i;
+        int gt1 = 0, eq1 = 0;
+        for (int j = n - 1; j >= 0; --j) {
+            const int a = E::kEncode ? std::abs(coef[pos[j]]) - 1 : 0;
+            int v = 0;
+            if (d(abs_base + (gt1 ? 0 : std::min(4, 1 + eq1)), a > 0)) {
+                const int inc = 5 + std::min(4 - (cat == 3), gt1);
+                v = 1;
+                while (v < 14 && d(abs_base + inc, a > v)) ++v;
+                if (v == 14) {
+                    const int s = ueg(a - 14, 0);
+                    if (s == kBad) return kBad;
+                    v += s;
+                }
+            }
+            if (v)
+                ++gt1;
+            else
+                ++eq1;
+            const int negative = e.bypass(E::kEncode && coef[pos[j]] < 0);
+            if (!E::kEncode) coef[pos[j]] = negative ? -(v + 1) : v + 1;
+        }
+        return n;
+    }
+};
+
+// ---------------------------------------------------------------------------
 // The decoder.
 // ---------------------------------------------------------------------------
 
 struct Decoder : Codec {
     Reader& r;
     int qp_prev;
+    bool qp_delta_nonzero = false;  // the previous macroblock's mb_qp_delta (CABAC)
     Residual res;
+    CabacSyntax<CabacDecoder> syn;
 
     Decoder(const Params& p, const uint8_t* const* refs_, const int32_t* ids, uint8_t* const* out,
             MbState* s, Reader& rd)
-        : Codec(p, refs_, ids, out, s), r(rd), qp_prev(p.qp) {}
+        : Codec(p, refs_, ids, out, s), r(rd), qp_prev(p.qp) {
+        syn.k = this;
+        syn.e.r = &r;
+        syn.e.limit = r.size_bits + 8 * kSlack;
+    }
 
-    int run() {
+    int run() { return c.cabac ? run_cabac() : run_cavlc(); }
+
+    int run_cavlc() {
         const int total = c.mbw * c.mbh;
         int a = c.first_mb;
         bool more = true;
@@ -954,18 +1623,36 @@ struct Decoder : Codec {
                 if (r.overrun()) return kErrOverrun;
                 if (skip > total - a) return kErrSliceEnd;
                 for (int64_t k = 0; k < skip; ++k) {
-                    const int status = decode_skip(a++);
+                    int status = begin(a++);
+                    if (!status) status = decode_skip();
                     if (status) return status;
                 }
                 if (skip > 0 && !r.more_rbsp()) break;
             }
             if (a >= total) return kErrSliceEnd;
-            const int status = decode_mb(a++);
+            int status = begin(a++);
+            if (!status) status = decode_mb();
             if (status) return status;
             if (r.overrun()) return kErrOverrun;
             more = r.more_rbsp();
         }
         return kOk;
+    }
+
+    int run_cabac() {
+        r.pos = (r.pos + 7) & ~int64_t(7);  // cabac_alignment_one_bit
+        init_contexts(syn.e.state, c.slice_type, c.cabac_init_idc, c.qp);
+        syn.e.start();
+        const int total = c.mbw * c.mbh;
+        for (int a = c.first_mb;; ++a) {
+            if (a >= total) return kErrSliceEnd;
+            int status = begin(a);
+            if (!status) status = c.slice_type == 0 && syn.skip(0) ? decode_skip() : decode_mb_cabac();
+            if (status) return status;
+            if (syn.e.over) return kErrOverrun;
+            if (syn.e.terminate()) break;  // end_of_slice_flag
+        }
+        return syn.e.over ? kErrOverrun : kOk;
     }
 
     int begin(int a) {
@@ -974,9 +1661,7 @@ struct Decoder : Codec {
         return kOk;
     }
 
-    int decode_skip(int a) {
-        const int status = begin(a);
-        if (status) return status;
+    int decode_skip() {
         if (!refs[0]) return kErrMissing;
         int mx, my;
         skip_mv(&mx, &my);
@@ -984,6 +1669,7 @@ struct Decoder : Codec {
         cur->kind = kSkip;
         cur->qp = static_cast<int8_t>(qp_prev);
         set_lf_qp(qp_prev);
+        qp_delta_nonzero = false;
         predict_inter(0, 0, 16, 16, 0, mx, my);
         return kOk;
     }
@@ -994,9 +1680,16 @@ struct Decoder : Codec {
         return v < 0 || v >= c.num_ref ? -1 : static_cast<int>(v);
     }
 
-    int decode_mb(int a) {
-        int status = begin(a);
-        if (status) return status;
+    // An intra mode: `rem` -1 the predicted one.
+    static int intra_mode(int pred, int rem) { return rem < 0 ? pred : (rem < pred ? rem : rem + 1); }
+
+    void set_i8mode(int b8, int mode) {
+        for (int k = 0; k < 4; ++k)
+            cur->i4mode[(2 * (b8 >> 1) + (k >> 1)) * 4 + 2 * (b8 & 1) + (k & 1)] =
+                static_cast<int8_t>(mode);
+    }
+
+    int decode_mb() {
         int64_t mb_type = r.ue();
         if (mb_type < 0) return kErrGolomb;
         bool intra = true;
@@ -1014,83 +1707,51 @@ struct Decoder : Codec {
             cur->kind = mb_type == 0 ? kI4x4 : kI16x16;
             set_intra_motion();
             if (cur->kind == kI4x4) {
-                for (int k = 0; k < 16; ++k) {
-                    const int bx = kBlkX[k], by = kBlkY[k];
-                    const int pred = pred_i4mode(bx, by);
-                    int mode = pred;
-                    if (!r.get1()) {
-                        const int rem = static_cast<int>(r.get(3));
-                        mode = rem < pred ? rem : rem + 1;
-                    }
-                    cur->i4mode[by * 4 + bx] = static_cast<int8_t>(mode);
+                if (c.t8x8_mode) cur->t8x8 = static_cast<int8_t>(r.get1());
+                for (int k = 0; k < (cur->t8x8 ? 4 : 16); ++k) {
+                    const int bx = cur->t8x8 ? 2 * (k & 1) : kBlkX[k];
+                    const int by = cur->t8x8 ? 2 * (k >> 1) : kBlkY[k];
+                    const int rem = r.get1() ? -1 : static_cast<int>(r.get(3));
+                    const int mode = intra_mode(pred_i4mode(bx, by), rem);
+                    if (cur->t8x8)
+                        set_i8mode(k, mode);
+                    else
+                        cur->i4mode[by * 4 + bx] = static_cast<int8_t>(mode);
                 }
             }
             const int64_t chroma_mode = r.ue();
             if (chroma_mode < 0 || chroma_mode > 3) return kErrIntraMode;
             if (r.overrun()) return kErrOverrun;
-            int i16mode = 0;
+            cur->chroma_mode = static_cast<int8_t>(chroma_mode);
             if (cur->kind == kI16x16) {
-                const int t = static_cast<int>(mb_type) - 1;
-                i16mode = t % 4;
-                cbp = ((t / 4) % 3) << 4 | (t >= 12 ? 15 : 0);
+                cbp = i16_cbp(static_cast<int>(mb_type));
             } else {
                 const int64_t code = r.ue();
                 if (code < 0 || code > 47) return kErrCbp;
                 cbp = kGolombToIntraCbp[code];
             }
-            status = read_qp_and_residual(cbp);
+            int status = read_qp_and_residual(cbp);
             if (status) return status;
-            // Reconstruction.
-            static const int kChromaToI16[4] = {2, 1, 0, 3};
-            if (!i16_mode_ok(kChromaToI16[chroma_mode], avail_a, avail_b, avail_d))
-                return kErrIntraMode;
-            if (cur->kind == kI4x4) {
-                for (int k = 0; k < 16; ++k) {
-                    const int bx = kBlkX[k], by = kBlkY[k], b = by * 4 + bx;
-                    bool l, t, tr, tl;
-                    i4_avail(bx, by, &l, &t, &tr, &tl);
-                    if (!i4_mode_ok(cur->i4mode[b], l, t, tl)) return kErrIntraMode;
-                    pred4x4(bx, by, cur->i4mode[b]);
-                    if (cbp >> (b >> 3 << 1 | (b & 3) >> 1) & 1)
-                        idct_add(pic[0] + (16 * mby + 4 * by) * ys + 16 * mbx + 4 * bx, ys,
-                                 res.luma[b], cur->qp, INT32_MIN);
-                }
-            } else {
-                if (!i16_mode_ok(i16mode, avail_a, avail_b, avail_d)) return kErrIntraMode;
-                pred16x16(i16mode);
-                int32_t dc[16];
-                luma_dc(res.luma_dc, cur->qp, dc);
-                for (int b = 0; b < 16; ++b)
-                    idct_add(pic[0] + (16 * mby + 4 * (b >> 2)) * ys + 16 * mbx + 4 * (b & 3), ys,
-                             res.luma[b], cur->qp, dc[b]);
-            }
-            pred_chroma(static_cast<int>(chroma_mode));
-            add_chroma_residual(res, cbp >> 4);
-            return kOk;
+            return reconstruct_intra(static_cast<int>(mb_type), cbp);
         }
 
         // Inter.
         cur->kind = kInter;
+        int sub[4] = {0, 0, 0, 0};
         if (mb_type < 3) {
             const int n = mb_type == 0 ? 1 : 2;
             int refs_[2] = {0, 0};
             for (int k = 0; k < n; ++k)
                 if (c.num_ref > 1 && (refs_[k] = ref_idx()) < 0) return kErrRefIdx;
             for (int k = 0; k < n; ++k) {
-                const int* p = kParts[mb_type][k];
                 const int64_t dx = r.se(), dy = r.se();
                 if (dx == INT64_MIN || dy == INT64_MIN) return kErrGolomb;
                 if (r.overrun()) return kErrOverrun;
-                if (!refs[3 * refs_[k]]) return kErrMissing;
-                int mx, my;
-                pred_mv(p[0], p[1], p[2], p[3], refs_[k], &mx, &my);
-                mx = static_cast<int16_t>(mx + dx);
-                my = static_cast<int16_t>(my + dy);
-                set_motion(p[0], p[1], p[2], p[3], refs_[k], mx, my);
-                predict_inter(p[0], p[1], p[2], p[3], refs_[k], mx, my);
+                const int status = inter_part(kParts[mb_type][k], refs_[k], dx, dy);
+                if (status) return status;
             }
         } else {
-            int sub[4], refs_[4] = {0, 0, 0, 0};
+            int refs_[4] = {0, 0, 0, 0};
             for (int k = 0; k < 4; ++k) {
                 const int64_t t = r.ue();
                 if (t < 0 || t > 3) return kErrSubMbType;
@@ -1099,34 +1760,86 @@ struct Decoder : Codec {
             if (mb_type == 3 && c.num_ref > 1)
                 for (int k = 0; k < 4; ++k)
                     if ((refs_[k] = ref_idx()) < 0) return kErrRefIdx;
-            for (int k = 0; k < 4; ++k) {
-                if (!refs[3 * refs_[k]]) return kErrMissing;
+            for (int k = 0; k < 4; ++k)
                 for (int j = 0; j < kSubParts[sub[k]]; ++j) {
-                    int x, y, w, h;
-                    sub_part(sub[k], j, &x, &y, &w, &h);
-                    x += 8 * (k & 1);
-                    y += 8 * (k >> 1);
                     const int64_t dx = r.se(), dy = r.se();
                     if (dx == INT64_MIN || dy == INT64_MIN) return kErrGolomb;
                     if (r.overrun()) return kErrOverrun;
-                    int mx, my;
-                    pred_mv(x, y, w, h, refs_[k], &mx, &my);
-                    mx = static_cast<int16_t>(mx + dx);
-                    my = static_cast<int16_t>(my + dy);
-                    set_motion(x, y, w, h, refs_[k], mx, my);
-                    predict_inter(x, y, w, h, refs_[k], mx, my);
+                    int part[4];
+                    sub_part(sub[k], j, &part[0], &part[1], &part[2], &part[3]);
+                    part[0] += 8 * (k & 1);
+                    part[1] += 8 * (k >> 1);
+                    const int status = inter_part(part, refs_[k], dx, dy);
+                    if (status) return status;
                 }
-            }
         }
         const int64_t code = r.ue();
         if (code < 0 || code > 47) return kErrCbp;
         cbp = kGolombToInterCbp[code];
-        status = read_qp_and_residual(cbp);
+        if ((cbp & 15) && c.t8x8_mode && !(sub[0] | sub[1] | sub[2] | sub[3]))
+            cur->t8x8 = static_cast<int8_t>(r.get1());
+        const int status = read_qp_and_residual(cbp);
         if (status) return status;
-        for (int b = 0; b < 16; ++b)
-            if (cbp >> (b >> 3 << 1 | (b & 3) >> 1) & 1)
+        add_inter_luma_residual(res, cbp);
+        add_chroma_residual(res, cbp >> 4);
+        return kOk;
+    }
+
+    // coded_block_pattern of I_16x16 mb_type t.
+    static int i16_cbp(int t) { return ((t - 1) / 4 % 3) << 4 | (t >= 13 ? 15 : 0); }
+
+    // One partition (x, y, w, h) with its reference and vector difference:
+    // the prediction into the picture.
+    int inter_part(const int* p, int ref, int64_t dx, int64_t dy) {
+        if (!refs[3 * ref]) return kErrMissing;
+        int mx, my;
+        pred_mv(p[0], p[1], p[2], p[3], ref, &mx, &my);
+        mx = static_cast<int16_t>(mx + dx);
+        my = static_cast<int16_t>(my + dy);
+        set_motion(p[0], p[1], p[2], p[3], ref, mx, my);
+        predict_inter(p[0], p[1], p[2], p[3], ref, mx, my);
+        return kOk;
+    }
+
+    // Intra prediction and the residual, once the macroblock is parsed.
+    int reconstruct_intra(int mb_type, int cbp) {
+        static const int kChromaToI16[4] = {2, 1, 0, 3};
+        if (!i16_mode_ok(kChromaToI16[cur->chroma_mode], avail_a, avail_b, avail_d))
+            return kErrIntraMode;
+        if (cur->kind == kI4x4 && cur->t8x8) {
+            for (int b8 = 0; b8 < 4; ++b8) {
+                bool l, t, tr, tl;
+                i8_avail(b8, &l, &t, &tr, &tl);
+                const int mode = cur->i4mode[(2 * (b8 >> 1)) * 4 + 2 * (b8 & 1)];
+                if (!i4_mode_ok(mode, l, t, tl)) return kErrIntraMode;
+                pred8x8(b8, mode);
+                if (cbp >> b8 & 1)
+                    idct8_add(pic[0] + (16 * mby + 8 * (b8 >> 1)) * ys + 16 * mbx + 8 * (b8 & 1), ys,
+                              res.luma8[b8], cur->qp, list8(true));
+            }
+        } else if (cur->kind == kI4x4) {
+            for (int k = 0; k < 16; ++k) {
+                const int bx = kBlkX[k], by = kBlkY[k], b = by * 4 + bx;
+                bool l, t, tr, tl;
+                i4_avail(bx, by, &l, &t, &tr, &tl);
+                if (!i4_mode_ok(cur->i4mode[b], l, t, tl)) return kErrIntraMode;
+                pred4x4(bx, by, cur->i4mode[b]);
+                if (cbp >> (b >> 3 << 1 | (b & 3) >> 1) & 1)
+                    idct_add(pic[0] + (16 * mby + 4 * by) * ys + 16 * mbx + 4 * bx, ys,
+                             res.luma[b], cur->qp, list4(0, true), INT32_MIN);
+            }
+        } else {
+            const int i16mode = (mb_type - 1) % 4;
+            if (!i16_mode_ok(i16mode, avail_a, avail_b, avail_d)) return kErrIntraMode;
+            pred16x16(i16mode);
+            int32_t dc[16];
+            const int32_t* ls = list4(0, true);
+            luma_dc(res.luma_dc, cur->qp, ls[16 * (cur->qp % 6)], dc);
+            for (int b = 0; b < 16; ++b)
                 idct_add(pic[0] + (16 * mby + 4 * (b >> 2)) * ys + 16 * mbx + 4 * (b & 3), ys,
-                         res.luma[b], cur->qp, INT32_MIN);
+                         res.luma[b], cur->qp, ls, dc[b]);
+        }
+        pred_chroma(cur->chroma_mode);
         add_chroma_residual(res, cbp >> 4);
         return kOk;
     }
@@ -1146,6 +1859,10 @@ struct Decoder : Codec {
         set_lf_qp(0);
         set_intra_motion();
         std::memset(cur->nnz, 16, 24);
+        cur->cbf = ~0u;
+        cur->nonzero = 0xFFFF;
+        cur->cbp = 0x2F;
+        qp_delta_nonzero = false;
         return kOk;
     }
 
@@ -1159,6 +1876,7 @@ struct Decoder : Codec {
         }
         qp_prev = qp;
         cur->qp = static_cast<int8_t>(qp);
+        cur->cbp = static_cast<uint8_t>(cbp);
         set_lf_qp(qp);
         if (r.overrun()) return kErrOverrun;
         int32_t levels[16];
@@ -1181,8 +1899,15 @@ struct Decoder : Codec {
             } else {
                 int status = read_block(luma_nc(bx, by), 16, levels, &total);
                 if (status) return status;
-                for (int i = 0; i < 16; ++i) res.luma[b][kZigzag[i]] = levels[i];
+                if (cur->t8x8) {
+                    // An 8x8 block as four interleaved 4x4 scans (7.3.5.3.1).
+                    for (int i = 0; i < 16; ++i) res.luma8[k >> 2][kZigzag8x8[4 * i + (k & 3)]] = levels[i];
+                    if (total) cur->nonzero |= mask8(k >> 2);
+                } else {
+                    for (int i = 0; i < 16; ++i) res.luma[b][kZigzag[i]] = levels[i];
+                }
             }
+            if (total && !cur->t8x8) cur->nonzero |= uint16_t(1) << b;
             cur->nnz[b] = static_cast<uint8_t>(total);
         }
         const int cbp_chroma = cbp >> 4;
@@ -1262,6 +1987,156 @@ struct Decoder : Codec {
         }
         return kOk;
     }
+
+    // -- CABAC ------------------------------------------------------------------------
+    int decode_mb_cabac() {
+        const bool p_slice = c.slice_type == 0;
+        int mb_type = p_slice ? syn.mb_type_p(0) : syn.mb_type_i(0, true);
+        const bool intra = !p_slice || mb_type >= 5;
+        if (p_slice && intra) mb_type -= 5;
+        res.clear();
+        if (intra && mb_type == 25) {
+            const int status = decode_pcm();
+            syn.e.start();
+            return status;
+        }
+        int cbp;
+        if (intra) {
+            cur->kind = mb_type == 0 ? kI4x4 : kI16x16;
+            set_intra_motion();
+            if (cur->kind == kI4x4) {
+                if (c.t8x8_mode) cur->t8x8 = static_cast<int8_t>(syn.t8x8(0));
+                for (int k = 0; k < (cur->t8x8 ? 4 : 16); ++k) {
+                    const int bx = cur->t8x8 ? 2 * (k & 1) : kBlkX[k];
+                    const int by = cur->t8x8 ? 2 * (k >> 1) : kBlkY[k];
+                    const int mode = intra_mode(pred_i4mode(bx, by), syn.pred_mode(0));
+                    if (cur->t8x8)
+                        set_i8mode(k, mode);
+                    else
+                        cur->i4mode[by * 4 + bx] = static_cast<int8_t>(mode);
+                }
+            }
+            cur->chroma_mode = static_cast<int8_t>(syn.chroma_mode(0));
+            cbp = cur->kind == kI16x16 ? i16_cbp(mb_type) : syn.cbp(0);
+            const int status = cabac_residual(cbp);
+            if (status) return status;
+            return reconstruct_intra(mb_type, cbp);
+        }
+        cur->kind = kInter;
+        int sub[4] = {0, 0, 0, 0};
+        if (mb_type < 3) {
+            const int n = mb_type == 0 ? 1 : 2;
+            int refs_[2] = {0, 0};
+            for (int k = 0; k < n && c.num_ref > 1; ++k) {
+                const int* p = kParts[mb_type][k];
+                refs_[k] = syn.ref_idx(0, ref_idx_inc(p[0], p[1]), c.num_ref - 1);
+                if (refs_[k] == kBad) return kErrRefIdx;
+                for (int b8 = 0; b8 < 4; ++b8)
+                    if (8 * (b8 & 1) >= p[0] && 8 * (b8 & 1) < p[0] + p[2] &&
+                        8 * (b8 >> 1) >= p[1] && 8 * (b8 >> 1) < p[1] + p[3])
+                        ref8[b8] = static_cast<int8_t>(refs_[k]);
+            }
+            for (int k = 0; k < n; ++k) {
+                const int status = cabac_part(kParts[mb_type][k], refs_[k]);
+                if (status) return status;
+            }
+        } else {
+            int refs_[4] = {0, 0, 0, 0};
+            for (int k = 0; k < 4; ++k) sub[k] = syn.sub_mb_type(0);
+            for (int k = 0; k < 4 && c.num_ref > 1; ++k) {
+                refs_[k] = syn.ref_idx(0, ref_idx_inc(8 * (k & 1), 8 * (k >> 1)), c.num_ref - 1);
+                if (refs_[k] == kBad) return kErrRefIdx;
+                ref8[k] = static_cast<int8_t>(refs_[k]);
+            }
+            for (int k = 0; k < 4; ++k)
+                for (int j = 0; j < kSubParts[sub[k]]; ++j) {
+                    int part[4];
+                    sub_part(sub[k], j, &part[0], &part[1], &part[2], &part[3]);
+                    part[0] += 8 * (k & 1);
+                    part[1] += 8 * (k >> 1);
+                    const int status = cabac_part(part, refs_[k]);
+                    if (status) return status;
+                }
+        }
+        cbp = syn.cbp(0);
+        if ((cbp & 15) && c.t8x8_mode && !(sub[0] | sub[1] | sub[2] | sub[3]))
+            cur->t8x8 = static_cast<int8_t>(syn.t8x8(0));
+        const int status = cabac_residual(cbp);
+        if (status) return status;
+        add_inter_luma_residual(res, cbp);
+        add_chroma_residual(res, cbp >> 4);
+        return kOk;
+    }
+
+    int cabac_part(const int* p, int ref) {
+        const int dx = syn.mvd(0, 0, mvd_inc(p[0], p[1], 0));
+        const int dy = syn.mvd(0, 1, mvd_inc(p[0], p[1], 1));
+        if (dx == kBad || dy == kBad) return kErrCabac;
+        set_mvd(p[0], p[1], p[2], p[3], dx, dy);
+        return inter_part(p, ref, dx, dy);
+    }
+
+    int cabac_residual(int cbp) {
+        int qp = qp_prev;
+        const bool prev_nonzero = qp_delta_nonzero;
+        qp_delta_nonzero = false;
+        if (cbp || cur->kind == kI16x16) {
+            const int delta = syn.qp_delta(0, prev_nonzero);
+            if (delta == kBad || delta < -26 || delta > 25) return kErrQpDelta;
+            qp = (qp_prev + delta + 52) % 52;
+            qp_delta_nonzero = delta != 0;
+        }
+        qp_prev = qp;
+        cur->qp = static_cast<int8_t>(qp);
+        cur->cbp = static_cast<uint8_t>(cbp);
+        set_lf_qp(qp);
+        int32_t lv[64];
+        if (cur->kind == kI16x16) {
+            const int n = syn.block(0, cbf_dc_inc(16), lv, 16);
+            if (n == kBad) return kErrCabac;
+            if (n) cur->cbf |= 1u << 16;
+            for (int i = 0; i < 16; ++i) res.luma_dc[kZigzag[i]] = lv[i];
+        }
+        for (int b8 = 0; b8 < 4; ++b8) {
+            if (!(cbp >> b8 & 1)) continue;
+            if (cur->t8x8) {
+                if (syn.block(5, 0, lv, 64) == kBad) return kErrCabac;
+                for (int i = 0; i < 64; ++i) res.luma8[b8][kZigzag8x8[i]] = lv[i];
+                cur->cbf |= mask8(b8);
+                cur->nonzero |= mask8(b8);
+                continue;
+            }
+            for (int k = 4 * b8; k < 4 * b8 + 4; ++k) {
+                const int bx = kBlkX[k], by = kBlkY[k], b = by * 4 + bx;
+                const bool i16 = cur->kind == kI16x16;
+                const int n = syn.block(i16 ? 1 : 2, cbf_luma_inc(bx, by), lv, i16 ? 15 : 16);
+                if (n == kBad) return kErrCabac;
+                for (int i = 0; i < (i16 ? 15 : 16); ++i) res.luma[b][kZigzag[i + i16]] = lv[i];
+                if (n) {
+                    cur->cbf |= 1u << b;
+                    cur->nonzero |= uint16_t(1) << b;
+                }
+                cur->nnz[b] = static_cast<uint8_t>(n);
+            }
+        }
+        if (cbp >> 4)
+            for (int k = 0; k < 2; ++k) {
+                const int n = syn.block(3, cbf_dc_inc(17 + k), lv, 4);
+                if (n == kBad) return kErrCabac;
+                if (n) cur->cbf |= 1u << (17 + k);
+                for (int i = 0; i < 4; ++i) res.chroma_dc[k][i] = lv[i];
+            }
+        if (cbp >> 4 == 2)
+            for (int k = 0; k < 2; ++k)
+                for (int b = 0; b < 4; ++b) {
+                    const int n = syn.block(4, cbf_chroma_ac_inc(k, b & 1, b >> 1), lv, 15);
+                    if (n == kBad) return kErrCabac;
+                    for (int i = 0; i < 15; ++i) res.chroma_ac[k][b][kZigzag[i + 1]] = lv[i];
+                    if (n) cur->cbf |= 1u << (19 + 4 * k + b);
+                    cur->nnz[16 + 4 * k + b] = static_cast<uint8_t>(n);
+                }
+        return kOk;
+    }
 };
 
 // ---------------------------------------------------------------------------
@@ -1270,7 +2145,7 @@ struct Decoder : Codec {
 
 int boundary_strength(const MbState& p, int pb, const MbState& q, int qb, bool mb_edge) {
     if (p.kind <= kIPCM || q.kind <= kIPCM) return mb_edge ? 4 : 3;
-    if (p.nnz[pb] || q.nnz[qb]) return 2;
+    if ((p.nonzero >> pb & 1) || (q.nonzero >> qb & 1)) return 2;
     if (p.ref_pic[pb] != q.ref_pic[qb]) return 1;
     if (std::abs(p.mv[pb][0] - q.mv[qb][0]) >= 4 || std::abs(p.mv[pb][1] - q.mv[qb][1]) >= 4)
         return 1;
@@ -1362,7 +2237,7 @@ void deblock_mb(const MbState* st, int mbw, int mx, int my, uint8_t* const* pic)
         const int step_y = dir == 0 ? 1 : ys, along_y = dir == 0 ? ys : 1;
         uint8_t* y0 = pic[0] + 16 * my * ys + 16 * mx;
         for (int e = 0; e < 4; ++e) {
-            if (e == 0 && !outer) continue;
+            if ((e == 0 && !outer) || (q.t8x8 && (e & 1))) continue;
             const MbState& p = e == 0 ? p_mb : q;
             const int qp_av = (p.lf_qp[0] + q.lf_qp[0] + 1) >> 1;
             for (int k = 0; k < 4; ++k) {
@@ -1395,9 +2270,12 @@ void deblock_mb(const MbState* st, int mbw, int mx, int my, uint8_t* const* pic)
 // Plan record per macroblock (int32): kind (0 I4x4, 1 I16x16, 2 I_PCM, 3
 // P16x16, 4 P16x8, 5 P8x16, 6 P8x8, 7 P8x8ref0, 8 P_Skip), the 16x16 mode,
 // the chroma mode, QP, sub_mb_type[4], ref_idx[4] (per 8x8; partitions take
-// their first 8x8's), the 4x4 modes [16] (raster), motion vectors [16][2]
-// (raster 4x4 blocks; partitions take their first block's).
-const int kPlanInts = 60;
+// their first 8x8's), the 4x4 modes [16] (raster; an 8x8 block takes its
+// first 4x4 block's), motion vectors [16][2] (raster 4x4 blocks; partitions
+// take their first block's), then whether to use the 8x8 transform where
+// the PPS allows it and the macroblock may (I_NxN; inter macroblocks with
+// no partition below 8x8 and luma coefficients), and three unused.
+const int kPlanInts = 64;
 // Kind 9 is I4x4 whose luma levels are given (levels[], 16 a 4x4 block in
 // raster order, each block's in scan order) instead of quantised: the
 // probes that read single VLC codewords back from another decoder.
@@ -1405,7 +2283,9 @@ enum PlanKind { kPlanI4 = 0, kPlanI16, kPlanPcm, kPlanP16, kPlanP16x8, kPlanP8x1
                 kPlanP8x8Ref0, kPlanSkip, kPlanI4Levels };
 
 // Counts the encoder returns, in this order (h264.py STAT_NAMES), then
-// coverage: coeff_token (5 x 68), total_zeros (15 x 16 + 3 x 4), run_before (7 x 15).
+// coverage: coeff_token (5 x 68), total_zeros (15 x 16 + 3 x 4), run_before
+// (7 x 15), and the CABAC contexts' decisions (4 x 1024: the I slices'
+// table, then cabac_init_idc 0-2's).
 enum Stat {
     kStatI4Mode = 0,           // 9
     kStatI16Mode = 9,          // 4
@@ -1423,11 +2303,25 @@ enum Stat {
     kStatLevelPrefix15,
     kStatSuffixLength6,
     kStatCbpChromaAc,
+    kStatI8Mode,               // 9
+    kStatT8Inter = kStatI8Mode + 9,
+    kStatCavlc8x8,
+    kStatCabacPcm,
     kNumStats,
 };
 const int kCoverToken = kNumStats, kCoverZeros = kCoverToken + 5 * 68,
           kCoverDcZeros = kCoverZeros + 15 * 16, kCoverRun = kCoverDcZeros + 3 * 4,
-          kStatsTotal = kCoverRun + 7 * 15;
+          kCoverCtx = kCoverRun + 7 * 15, kStatsTotal = kCoverCtx + 4 * 1024;
+
+// The forward 8x8 integer transform's basis (8.5.13 inverted), rows.
+const int kFwd8[8][8] = {
+    {8, 8, 8, 8, 8, 8, 8, 8},         {12, 10, 6, 3, -3, -6, -10, -12},
+    {8, 4, -4, -8, -8, -4, 4, 8},     {10, -3, -12, -6, 6, 12, 3, -10},
+    {8, -8, -8, 8, 8, -8, -8, 8},     {6, -12, 3, 10, -10, -3, 12, -6},
+    {4, -8, 8, -4, -4, 8, -8, 4},     {3, -6, 10, -12, 12, -10, 6, -3},
+};
+// Each row's squared norm.
+const int kFwd8Norm[8] = {512, 578, 320, 578, 512, 578, 320, 578};
 
 struct Encoder : Codec {
     Writer w;
@@ -1436,15 +2330,22 @@ struct Encoder : Codec {
     const int32_t* forced;
     int64_t* stats;
     int qp_prev;
+    bool qp_delta_nonzero = false;
     Residual res;
+    CabacSyntax<CabacEncoder> syn;
 
     Encoder(const Params& p, const uint8_t* const* refs_, const int32_t* ids, uint8_t* const* out,
             MbState* s, const uint8_t* const* source, const int32_t* pl, const int32_t* lv,
             int64_t* st_)
         : Codec(p, refs_, ids, out, s), src(source), plan(pl), forced(lv), stats(st_),
-          qp_prev(p.qp) {}
+          qp_prev(p.qp) {
+        syn.k = this;
+        syn.e.w = &w;
+        syn.e.cover = stats + kCoverCtx + 1024 * (c.slice_type == 2 ? 0 : 1 + c.cabac_init_idc);
+    }
 
     int run() {
+        if (c.cabac) return run_cabac();
         int skip = 0;
         const int end = std::min(c.first_mb + c.mb_count, c.mbw * c.mbh);
         for (int a = c.first_mb; a < end; ++a) {
@@ -1471,6 +2372,28 @@ struct Encoder : Codec {
         return kOk;
     }
 
+    int run_cabac() {
+        while (w.count) w.put(1, 1);  // cabac_alignment_one_bit
+        init_contexts(syn.e.state, c.slice_type, c.cabac_init_idc, c.qp);
+        syn.e.start();
+        const int end = std::min(c.first_mb + c.mb_count, c.mbw * c.mbh);
+        for (int a = c.first_mb; a < end; ++a) {
+            const int32_t* pl = plan + int64_t(a) * kPlanInts;
+            start_mb(a);
+            const bool skip = c.slice_type == 0 && pl[0] == kPlanSkip;
+            if (c.slice_type == 0) syn.skip(skip);
+            if (skip) {
+                encode_skip();
+            } else {
+                const int status = encode_mb(pl);
+                if (status) return status;
+            }
+            syn.e.terminate(a == end - 1);  // end_of_slice_flag
+        }
+        if (w.count) w.put(8 - w.count, 0);
+        return kOk;
+    }
+
     void encode_skip() {
         int mx, my;
         skip_mv(&mx, &my);
@@ -1478,6 +2401,7 @@ struct Encoder : Codec {
         cur->kind = kSkip;
         cur->qp = static_cast<int8_t>(qp_prev);
         set_lf_qp(qp_prev);
+        qp_delta_nonzero = false;
         predict_inter(0, 0, 16, 16, 0, mx, my);
         ++stats[kStatSkip];
         count_outside(0, 0, 16, 16, mx, my);
@@ -1513,8 +2437,17 @@ struct Encoder : Codec {
     }
 
     int encode_pcm() {
-        w.ue(c.slice_type == 0 ? 30 : 25);
-        if (w.count) w.put(8 - w.count, 0);
+        if (c.cabac) {
+            if (c.slice_type == 0)
+                syn.mb_type_p(5 + 25);
+            else
+                syn.mb_type_i(25, true);
+            if (w.count) w.put(8 - w.count, 0);  // pcm_alignment_zero_bit
+            ++stats[kStatCabacPcm];
+        } else {
+            w.ue(c.slice_type == 0 ? 30 : 25);
+            if (w.count) w.put(8 - w.count, 0);
+        }
         for (int y = 0; y < 16; ++y) {
             const uint8_t* s = src[0] + (16 * mby + y) * ys + 16 * mbx;
             for (int x = 0; x < 16; ++x) w.put(8, s[x]);
@@ -1526,11 +2459,16 @@ struct Encoder : Codec {
                 for (int x = 0; x < 8; ++x) w.put(8, s[x]);
                 std::memcpy(pic[k] + (8 * mby + y) * cs + 8 * mbx, s, 8);
             }
+        if (c.cabac) syn.e.start();
         cur->kind = kIPCM;
         cur->qp = static_cast<int8_t>(qp_prev);
         set_lf_qp(0);
         set_intra_motion();
         std::memset(cur->nnz, 16, 24);
+        cur->cbf = ~0u;
+        cur->nonzero = 0xFFFF;
+        cur->cbp = 0x2F;
+        qp_delta_nonzero = false;
         ++stats[kStatPcm];
         return kOk;
     }
@@ -1556,31 +2494,64 @@ struct Encoder : Codec {
         }
     }
     // A level bounded so that its code needs at most level_prefix 15 and its
-    // dequantised value (times `gain`) stays in 16 bits.
-    static int bound(int level, int qp, int cls, int gain) {
-        const int scale = (kDequant[qp % 6][cls] << (qp / 6)) * gain;
+    // dequantised value (times `gain`) stays in 16 bits; `weight` the
+    // scaling list's entry (16: flat).
+    static int bound(int level, int qp, int cls, int gain, int weight = 16) {
+        const int scale = (((kDequant[qp % 6][cls] * weight) << (qp / 6)) >> 4) * gain;
         const int lim = std::min(2047, std::max(1, 32000 / std::max(1, scale)));
         return clip3(-lim, lim, level);
     }
-    static int quant(int v, int qp, int cls, bool intra, int extra_shift = 0) {
+    static int quant(int v, int qp, int cls, bool intra, int extra_shift = 0, int weight = 16) {
         const int qbits = 15 + qp / 6 + extra_shift;
         const int64_t f = (int64_t(1) << qbits) / (intra ? 3 : 6);
-        const int64_t mag = (int64_t(std::abs(v)) * kQuant[qp % 6][cls] + f) >> qbits;
+        const int64_t mult = (int64_t(kQuant[qp % 6][cls]) * 16 + weight / 2) / weight;
+        const int64_t mag = (int64_t(std::abs(v)) * mult + f) >> qbits;
         return v < 0 ? -static_cast<int>(mag) : static_cast<int>(mag);
     }
-    // Residual of the 4x4 block at dst (prediction) against s; levels raster.
+    // Residual of the 4x4 block at p (prediction) against s, with the
+    // scaling list `weights` (raster); levels raster.
     void block_levels(const uint8_t* s, int ss, const uint8_t* p, int ps, int qp, bool intra,
-                      int32_t* levels, int* dc_coef) {
+                      const int* weights, int32_t* levels, int* dc_coef) {
         int diff[16], coef[16];
         for (int i = 0; i < 4; ++i)
             for (int j = 0; j < 4; ++j) diff[4 * i + j] = s[i * ss + j] - p[i * ps + j];
         fdct(diff, coef);
         for (int k = 0; k < 16; ++k)
-            levels[k] = bound(quant(coef[k], qp, dq_class(k), intra), qp, dq_class(k), 1);
+            levels[k] = bound(quant(coef[k], qp, dq_class(k), intra, 0, weights[k]), qp,
+                              dq_class(k), 1, weights[k]);
         if (dc_coef) {
             *dc_coef = coef[0];
             levels[0] = 0;
         }
+    }
+    // The same for an 8x8 block, in integers (so that every host writes the
+    // same levels): level = 4096 * 64 * Y / (|row i|^2 |row j|^2
+    // LevelScale8x8 2^(qP / 6)), Y the forward transform, rounded with the
+    // intra or inter dead zone.
+    void block_levels8(const uint8_t* s, int ss, const uint8_t* p, int ps, int qp, bool intra,
+                       const int32_t* ls, int32_t* levels) {
+        int64_t diff[64], t[64];
+        for (int i = 0; i < 8; ++i)
+            for (int j = 0; j < 8; ++j) diff[8 * i + j] = s[i * ss + j] - p[i * ps + j];
+        for (int i = 0; i < 8; ++i)
+            for (int j = 0; j < 8; ++j) {
+                int64_t v = 0;
+                for (int k = 0; k < 8; ++k) v += kFwd8[i][k] * diff[8 * k + j];
+                t[8 * i + j] = v;
+            }
+        const int32_t* scale = ls + 64 * (qp % 6);
+        const int dz = intra ? 3 : 6;
+        for (int i = 0; i < 8; ++i)
+            for (int j = 0; j < 8; ++j) {
+                int64_t y = 0;
+                for (int k = 0; k < 8; ++k) y += t[8 * i + k] * kFwd8[j][k];
+                const int64_t num = 262144 * std::abs(y);
+                const int64_t den = (int64_t(kFwd8Norm[i]) * kFwd8Norm[j] * scale[8 * i + j]) << (qp / 6);
+                const int64_t mag = (dz * num + den) / (dz * den);
+                const int64_t lim = std::min<int64_t>(2047, std::max<int64_t>(1, 32000 * 64 / ((int64_t(scale[8 * i + j]) << (qp / 6)))));
+                const int level = static_cast<int>(std::min(mag, lim));
+                levels[8 * i + j] = y < 0 ? -level : level;
+            }
     }
 
     static bool any(const int32_t* v, int n) {
@@ -1589,21 +2560,98 @@ struct Encoder : Codec {
         return false;
     }
 
+    // -- conformance: a stream's inverse transforms stay in 16 bits ---------------------
+    // (8.5.12.2, 8.5.13.2; FFmpeg keeps the intermediate values, and the
+    // DC with its rounding, in 16 bits). A block whose levels would leave
+    // them is scaled down until it does not.
+    static bool fits16(int64_t v) { return v >= -32768 && v <= 32767; }
+    // One 1-D inverse transform in place; false when a value, or the sum of
+    // the magnitudes of the terms that make it (so any partial sum, in
+    // whatever order an implementation adds), leaves 16 bits.
+    static bool idct4_fits(int64_t* x, int s) {
+        const int64_t x0 = x[0], x1 = x[s], x2 = x[2 * s], x3 = x[3 * s];
+        const int64_t e = x0 + x2, f = x0 - x2, g = (x1 >> 1) - x3, h = x1 + (x3 >> 1);
+        x[0] = e + h;
+        x[s] = f + g;
+        x[2 * s] = f - g;
+        x[3 * s] = e - h;
+        const int64_t m = std::abs(x0) + std::abs(x2) + std::abs(x1) + std::abs(x3);
+        return fits16(m);
+    }
+    static bool idct8_fits(int64_t* x, int s) {
+        int64_t m = 0;
+        for (int k = 0; k < 8; ++k) m += std::abs(x[k * s]) + (std::abs(x[k * s]) >> 1);
+        int d[8];
+        for (int k = 0; k < 8; ++k) d[k] = static_cast<int>(x[k * s]);
+        idct8_1d(d, 1);
+        for (int k = 0; k < 8; ++k) x[k * s] = d[k];
+        return fits16(m);
+    }
+    // Whether the 4x4 block of raster levels `coef` (DC `dc` as idct_add's),
+    // or the 8x8 block, decodes within 16 bits.
+    static bool conforms4(const int32_t* coef, int qp, const int32_t* ls, int32_t dc) {
+        int64_t d[16];
+        const int q6 = qp / 6;
+        const int32_t* s = ls + 16 * (qp % 6);
+        for (int p = 0; p < 16; ++p) {
+            const int64_t v = int64_t(coef[p]) * s[p];
+            d[p] = q6 >= 4 ? v * (1 << (q6 - 4)) : (v + (1 << (3 - q6))) >> (4 - q6);
+            if (!fits16(d[p])) return false;
+        }
+        if (dc != INT32_MIN) d[0] = dc;
+        if (!fits16(d[0] + 32)) return false;
+        for (int i = 0; i < 4; ++i)
+            if (!idct4_fits(d + 4 * i, 1)) return false;
+        for (int j = 0; j < 4; ++j)
+            if (!idct4_fits(d + j, 4)) return false;
+        return true;
+    }
+    static bool conforms8(const int32_t* coef, int qp, const int32_t* ls) {
+        int64_t d[64];
+        const int q6 = qp / 6;
+        const int32_t* s = ls + 64 * (qp % 6);
+        for (int p = 0; p < 64; ++p) {
+            const int64_t v = int64_t(coef[p]) * s[p];
+            d[p] = q6 >= 6 ? v * (1 << (q6 - 6)) : (v + (1 << (5 - q6))) >> (6 - q6);
+            if (!fits16(d[p])) return false;
+        }
+        if (!fits16(d[0] + 32)) return false;
+        for (int i = 0; i < 8; ++i)
+            if (!idct8_fits(d + 8 * i, 1)) return false;
+        for (int j = 0; j < 8; ++j)
+            if (!idct8_fits(d + j, 8)) return false;
+        return true;
+    }
+    static void conform4(int32_t* coef, int qp, const int32_t* ls, int32_t dc) {
+        while (!conforms4(coef, qp, ls, dc))
+            for (int p = 0; p < 16; ++p) coef[p] = coef[p] * 7 / 8;
+    }
+    static void conform8(int32_t* coef, int qp, const int32_t* ls) {
+        while (!conforms8(coef, qp, ls))
+            for (int p = 0; p < 64; ++p) coef[p] = coef[p] * 7 / 8;
+    }
+
     // Chroma residual of the prediction in the picture: levels into res; cbp chroma.
     int chroma_levels(int qp, bool intra) {
         int cbp = 0;
         for (int k = 0; k < 2; ++k) {
             const int qpc = chroma_qp(qp, c.cqp_offset[k]);
+            const int* weights = c.w4[(intra ? 0 : 3) + 1 + k];
             int dcs[4];
             for (int b = 0; b < 4; ++b) {
                 const int off = (8 * mby + 4 * (b >> 1)) * cs + 8 * mbx + 4 * (b & 1);
-                block_levels(src[1 + k] + off, cs, pic[1 + k] + off, cs, qpc, intra,
+                block_levels(src[1 + k] + off, cs, pic[1 + k] + off, cs, qpc, intra, weights,
                              res.chroma_ac[k][b], &dcs[b]);
             }
             const int f[4] = {dcs[0] + dcs[1] + dcs[2] + dcs[3], dcs[0] - dcs[1] + dcs[2] - dcs[3],
                               dcs[0] + dcs[1] - dcs[2] - dcs[3], dcs[0] - dcs[1] - dcs[2] + dcs[3]};
             for (int b = 0; b < 4; ++b)
-                res.chroma_dc[k][b] = bound(quant(f[b], qpc, 0, intra, 1), qpc, 0, 2);
+                res.chroma_dc[k][b] =
+                    bound(quant(f[b], qpc, 0, intra, 1, weights[0]), qpc, 0, 2, weights[0]);
+            const int32_t* ls = list4(1 + k, intra);
+            int32_t dc[4];
+            chroma_dc(res.chroma_dc[k], qpc, ls[16 * (qpc % 6)], dc);
+            for (int b = 0; b < 4; ++b) conform4(res.chroma_ac[k][b], qpc, ls, dc[b]);
             if (any(res.chroma_dc[k], 4)) cbp = std::max(cbp, 1);
             for (int b = 0; b < 4; ++b)
                 if (any(res.chroma_ac[k][b], 16)) cbp = 2;
@@ -1617,9 +2665,37 @@ struct Encoder : Codec {
         int delta = qp - qp_prev;
         if (delta > 25) delta -= 52;
         if (delta < -26) delta += 52;
-        w.se(delta);
+        if (c.cabac)
+            syn.qp_delta(delta, qp_delta_nonzero);
+        else
+            w.se(delta);
         if (delta) ++stats[kStatQpDelta];
+        qp_delta_nonzero = delta != 0;
         qp_prev = qp;
+    }
+
+    // The intra mode syntax of an I_NxN macroblock: the flag and the 16 4x4
+    // or four 8x8 modes.
+    void write_nxn_modes() {
+        if (c.t8x8_mode) {
+            if (c.cabac)
+                syn.t8x8(cur->t8x8);
+            else
+                w.put(1, cur->t8x8);
+        }
+        for (int k = 0; k < (cur->t8x8 ? 4 : 16); ++k) {
+            const int bx = cur->t8x8 ? 2 * (k & 1) : kBlkX[k];
+            const int by = cur->t8x8 ? 2 * (k >> 1) : kBlkY[k];
+            const int pred = pred_i4mode(bx, by), mode = cur->i4mode[by * 4 + bx];
+            const int rem = mode == pred ? -1 : (mode < pred ? mode : mode - 1);
+            if (c.cabac) {
+                syn.pred_mode(rem);
+            } else {
+                w.put(1, rem < 0);
+                if (rem >= 0) w.put(3, rem);
+            }
+            ++stats[(cur->t8x8 ? kStatI8Mode : kStatI4Mode) + mode];
+        }
     }
 
     int encode_intra(int kind, const int32_t* pl, int qp) {
@@ -1628,9 +2704,30 @@ struct Encoder : Codec {
         set_intra_motion();
         int chroma_mode = pl[2] & 3;
         if (!i16_mode_ok(kChromaToI16[chroma_mode], avail_a, avail_b, avail_d)) chroma_mode = 0;
+        cur->chroma_mode = static_cast<int8_t>(chroma_mode);
+        cur->t8x8 = static_cast<int8_t>(kind == kPlanI4 && c.t8x8_mode && pl[60]);
         int cbp_luma = 0, i16mode = 0;
         int32_t dc_levels[16] = {0};
-        if (cur->kind == kI4x4) {
+        if (cur->t8x8) {
+            for (int b8 = 0; b8 < 4; ++b8) {
+                bool l, t, tr, tl;
+                i8_avail(b8, &l, &t, &tr, &tl);
+                int mode = pl[12 + 8 * (b8 >> 1) + 2 * (b8 & 1)] % 9;
+                if (!i4_mode_ok(mode, l, t, tl)) mode = 2;
+                for (int k = 0; k < 4; ++k)
+                    cur->i4mode[(2 * (b8 >> 1) + (k >> 1)) * 4 + 2 * (b8 & 1) + (k & 1)] =
+                        static_cast<int8_t>(mode);
+                pred8x8(b8, mode);
+                const int off = (16 * mby + 8 * (b8 >> 1)) * ys + 16 * mbx + 8 * (b8 & 1);
+                block_levels8(src[0] + off, ys, pic[0] + off, ys, qp, true, list8(true),
+                              res.luma8[b8]);
+                conform8(res.luma8[b8], qp, list8(true));
+                if (any(res.luma8[b8], 64)) {
+                    cbp_luma |= 1 << b8;
+                    idct8_add(pic[0] + off, ys, res.luma8[b8], qp, list8(true));
+                }
+            }
+        } else if (cur->kind == kI4x4) {
             for (int k = 0; k < 16; ++k) {
                 const int bx = kBlkX[k], by = kBlkY[k], b = by * 4 + bx;
                 bool l, t, tr, tl;
@@ -1645,12 +2742,13 @@ struct Encoder : Codec {
                     for (int i = 0; i < 16; ++i)
                         res.luma[b][kZigzag[i]] = clip3(-2047, 2047, given[i]);
                 } else {
-                    block_levels(src[0] + off, ys, pic[0] + off, ys, qp, true, res.luma[b],
-                                 nullptr);
+                    block_levels(src[0] + off, ys, pic[0] + off, ys, qp, true, c.w4[0],
+                                 res.luma[b], nullptr);
+                    conform4(res.luma[b], qp, list4(0, true), INT32_MIN);
                 }
                 if (any(res.luma[b], 16)) {
                     cbp_luma |= 1 << (k >> 2);
-                    idct_add(pic[0] + off, ys, res.luma[b], qp, INT32_MIN);
+                    idct_add(pic[0] + off, ys, res.luma[b], qp, list4(0, true), INT32_MIN);
                 }
             }
         } else {
@@ -1660,7 +2758,8 @@ struct Encoder : Codec {
             int dcs[16];
             for (int b = 0; b < 16; ++b) {
                 const int off = (16 * mby + 4 * (b >> 2)) * ys + 16 * mbx + 4 * (b & 3);
-                block_levels(src[0] + off, ys, pic[0] + off, ys, qp, true, res.luma[b], &dcs[b]);
+                block_levels(src[0] + off, ys, pic[0] + off, ys, qp, true, c.w4[0], res.luma[b],
+                             &dcs[b]);
                 if (any(res.luma[b], 16)) cbp_luma = 15;
             }
             int t[16], f[16];
@@ -1679,8 +2778,16 @@ struct Encoder : Codec {
                 f[12 + j] = (a - b + cc - d) / 2;
             }
             for (int p = 0; p < 16; ++p)
-                dc_levels[p] = bound(quant(f[p], qp, 0, true, 1), qp, 0, 4);
+                dc_levels[p] = bound(quant(f[p], qp, 0, true, 1, c.w4[0][0]), qp, 0, 4, c.w4[0][0]);
             std::memcpy(res.luma_dc, dc_levels, sizeof(dc_levels));
+            const int32_t* ls = list4(0, true);
+            int32_t dc[16];
+            luma_dc(res.luma_dc, qp, ls[16 * (qp % 6)], dc);
+            cbp_luma = 0;
+            for (int b = 0; b < 16; ++b) {
+                conform4(res.luma[b], qp, ls, dc[b]);
+                if (any(res.luma[b], 16)) cbp_luma = 15;
+            }
             if (!cbp_luma)
                 for (int b = 0; b < 16; ++b) std::memset(res.luma[b], 0, sizeof(res.luma[b]));
         }
@@ -1688,39 +2795,48 @@ struct Encoder : Codec {
         const int cbp_chroma = chroma_levels(qp, true);
         const int cbp = cbp_chroma << 4 | cbp_luma;
         // Syntax.
-        const int offset = c.slice_type == 0 ? 5 : 0;
-        if (cur->kind == kI4x4) {
-            w.ue(offset);
-            for (int k = 0; k < 16; ++k) {
-                const int b = kBlkY[k] * 4 + kBlkX[k];
-                const int pred = pred_i4mode(kBlkX[k], kBlkY[k]), mode = cur->i4mode[b];
-                if (mode == pred) {
-                    w.put(1, 1);
-                } else {
-                    w.put(1, 0);
-                    w.put(3, mode < pred ? mode : mode - 1);
-                }
-                ++stats[kStatI4Mode + mode];
-            }
+        const int i16_type = 1 + i16mode + 4 * cbp_chroma + (cbp_luma ? 12 : 0);
+        const int mb_type = cur->kind == kI4x4 ? 0 : i16_type;
+        if (c.cabac) {
+            if (c.slice_type == 0)
+                syn.mb_type_p(5 + mb_type);
+            else
+                syn.mb_type_i(mb_type, true);
         } else {
-            w.ue(offset + 1 + i16mode + 4 * cbp_chroma + (cbp_luma ? 12 : 0));
-            ++stats[kStatI16Mode + i16mode];
+            w.ue((c.slice_type == 0 ? 5 : 0) + mb_type);
         }
-        w.ue(chroma_mode);
+        if (cur->kind == kI4x4)
+            write_nxn_modes();
+        else
+            ++stats[kStatI16Mode + i16mode];
+        if (c.cabac)
+            syn.chroma_mode(chroma_mode);
+        else
+            w.ue(chroma_mode);
         ++stats[kStatChromaMode + chroma_mode];
-        if (cur->kind == kI4x4) w.ue(tables().intra_cbp_code[cbp]);
+        if (cur->kind == kI4x4) {
+            if (c.cabac)
+                syn.cbp(cbp);
+            else
+                w.ue(tables().intra_cbp_code[cbp]);
+        }
+        cur->cbp = static_cast<uint8_t>(cbp);
         const bool coded = cbp || cur->kind == kI16x16;
-        if (coded) write_qp(qp);
+        if (coded)
+            write_qp(qp);
+        else
+            qp_delta_nonzero = false;
         cur->qp = static_cast<int8_t>(qp_prev);
         set_lf_qp(qp_prev);
         write_residual(cbp);
         // Reconstruct what is not yet: the Intra16x16 luma and the chroma.
         if (cur->kind == kI16x16) {
             int32_t dc[16];
-            luma_dc(res.luma_dc, qp, dc);
+            const int32_t* ls = list4(0, true);
+            luma_dc(res.luma_dc, qp, ls[16 * (qp % 6)], dc);
             for (int b = 0; b < 16; ++b)
                 idct_add(pic[0] + (16 * mby + 4 * (b >> 2)) * ys + 16 * mbx + 4 * (b & 3), ys,
-                         res.luma[b], qp, dc[b]);
+                         res.luma[b], qp, ls, dc[b]);
         }
         add_chroma_residual(res, cbp_chroma);
         if (cbp_chroma == 2) ++stats[kStatCbpChromaAc];
@@ -1736,6 +2852,8 @@ struct Encoder : Codec {
         struct Part { int x, y, w, h, ref, mx, my, dx, dy; };
         Part parts[16];
         int n = 0, sub[4] = {0, 0, 0, 0};
+        // CABAC has no P_8x8ref0: it writes P_8x8 with its zero references.
+        const bool ref0 = kind == kPlanP8x8Ref0 && !c.cabac;
         if (kind <= kPlanP8x16) {
             const int t = kind - kPlanP16;
             for (int k = 0; k < (t ? 2 : 1); ++k) {
@@ -1758,7 +2876,7 @@ struct Encoder : Codec {
                     parts[n++] = {x, y, ww, h, ref_of(k), mvs[2 * b], mvs[2 * b + 1], 0, 0};
                 }
             }
-            ++stats[kind == kPlanP8x8 ? kStatP8x8 : kStatP8x8Ref0];
+            ++stats[ref0 ? kStatP8x8Ref0 : kStatP8x8];
         }
         for (int k = 0; k < n; ++k) {
             Part& p = parts[k];
@@ -1773,51 +2891,99 @@ struct Encoder : Codec {
             count_outside(p.x, p.y, p.w, p.h, p.mx, p.my);
             if (p.ref) ++stats[kStatRefIdxNonzero];
         }
+        const bool no_small = !(sub[0] | sub[1] | sub[2] | sub[3]);
+        bool t8 = c.t8x8_mode && no_small && pl[60];
         int cbp_luma = 0;
-        for (int k = 0; k < 16; ++k) {
-            const int b = kBlkY[k] * 4 + kBlkX[k];
-            const int off = (16 * mby + 4 * kBlkY[k]) * ys + 16 * mbx + 4 * kBlkX[k];
-            block_levels(src[0] + off, ys, pic[0] + off, ys, qp, false, res.luma[b], nullptr);
-            if (any(res.luma[b], 16)) cbp_luma |= 1 << (k >> 2);
+        for (int b8 = 0; b8 < 4; ++b8) {
+            if (t8) {
+                const int off = (16 * mby + 8 * (b8 >> 1)) * ys + 16 * mbx + 8 * (b8 & 1);
+                block_levels8(src[0] + off, ys, pic[0] + off, ys, qp, false, list8(false),
+                              res.luma8[b8]);
+                conform8(res.luma8[b8], qp, list8(false));
+                if (any(res.luma8[b8], 64)) cbp_luma |= 1 << b8;
+                continue;
+            }
+            for (int k = 4 * b8; k < 4 * b8 + 4; ++k) {
+                const int b = kBlkY[k] * 4 + kBlkX[k];
+                const int off = (16 * mby + 4 * kBlkY[k]) * ys + 16 * mbx + 4 * kBlkX[k];
+                block_levels(src[0] + off, ys, pic[0] + off, ys, qp, false, c.w4[3], res.luma[b],
+                             nullptr);
+                conform4(res.luma[b], qp, list4(0, false), INT32_MIN);
+                if (any(res.luma[b], 16)) cbp_luma |= 1 << b8;
+            }
         }
         for (int k = 0; k < 16; ++k)
             if (!(cbp_luma >> (k >> 2) & 1)) std::memset(res.luma[kBlkY[k] * 4 + kBlkX[k]], 0, 64);
+        for (int b8 = 0; b8 < 4; ++b8)
+            if (!(cbp_luma >> b8 & 1)) std::memset(res.luma8[b8], 0, sizeof(res.luma8[b8]));
+        t8 = t8 && cbp_luma;
+        cur->t8x8 = static_cast<int8_t>(t8);
+        if (t8) ++stats[kStatT8Inter];
         const int cbp_chroma = chroma_levels(qp, false);
         const int cbp = cbp_chroma << 4 | cbp_luma;
         // Syntax.
-        if (kind <= kPlanP8x16) {
-            w.ue(kind - kPlanP16);
-            if (c.num_ref > 1)
-                for (int k = 0; k < n; ++k) te(parts[k].ref);
-            for (int k = 0; k < n; ++k) {
-                w.se(parts[k].dx);
-                w.se(parts[k].dy);
+        if (c.cabac) {
+            syn.mb_type_p(kind <= kPlanP8x16 ? kind - kPlanP16 : 3);
+            if (kind > kPlanP8x16)
+                for (int k = 0; k < 4; ++k) syn.sub_mb_type(sub[k]);
+            if (c.num_ref > 1) {
+                const int count = kind <= kPlanP8x16 ? n : 4;
+                for (int k = 0; k < count; ++k) {
+                    const int x = kind <= kPlanP8x16 ? parts[k].x : 8 * (k & 1);
+                    const int y = kind <= kPlanP8x16 ? parts[k].y : 8 * (k >> 1);
+                    const int ref = kind <= kPlanP8x16 ? parts[k].ref : ref_of(k);
+                    syn.ref_idx(ref, ref_idx_inc(x, y), c.num_ref - 1);
+                    for (int b8 = 0; b8 < 4; ++b8) {
+                        const int w8 = kind <= kPlanP8x16 ? parts[k].w : 8;
+                        const int h8 = kind <= kPlanP8x16 ? parts[k].h : 8;
+                        if (8 * (b8 & 1) >= x && 8 * (b8 & 1) < x + w8 && 8 * (b8 >> 1) >= y &&
+                            8 * (b8 >> 1) < y + h8)
+                            ref8[b8] = static_cast<int8_t>(ref);
+                    }
+                }
             }
+            for (int k = 0; k < n; ++k) {
+                const Part& p = parts[k];
+                syn.mvd(p.dx, 0, mvd_inc(p.x, p.y, 0));
+                syn.mvd(p.dy, 1, mvd_inc(p.x, p.y, 1));
+                set_mvd(p.x, p.y, p.w, p.h, p.dx, p.dy);
+            }
+            syn.cbp(cbp);
+            if ((cbp & 15) && c.t8x8_mode && no_small) syn.t8x8(t8);
         } else {
-            w.ue(kind == kPlanP8x8 ? 3 : 4);
-            for (int k = 0; k < 4; ++k) w.ue(sub[k]);
-            if (kind == kPlanP8x8 && c.num_ref > 1)
-                for (int k = 0; k < 4; ++k) te(ref_of(k));
+            if (kind <= kPlanP8x16) {
+                w.ue(kind - kPlanP16);
+                if (c.num_ref > 1)
+                    for (int k = 0; k < n; ++k) te(parts[k].ref);
+            } else {
+                w.ue(ref0 ? 4 : 3);
+                for (int k = 0; k < 4; ++k) w.ue(sub[k]);
+                if (!ref0 && c.num_ref > 1)
+                    for (int k = 0; k < 4; ++k) te(ref_of(k));
+            }
             for (int k = 0; k < n; ++k) {
                 w.se(parts[k].dx);
                 w.se(parts[k].dy);
             }
+            w.ue(tables().inter_cbp_code[cbp]);
+            if ((cbp & 15) && c.t8x8_mode && no_small) w.put(1, t8);
         }
-        w.ue(tables().inter_cbp_code[cbp]);
-        if (cbp) write_qp(qp);
+        cur->cbp = static_cast<uint8_t>(cbp);
+        if (cbp)
+            write_qp(qp);
+        else
+            qp_delta_nonzero = false;
         cur->qp = static_cast<int8_t>(qp_prev);
         set_lf_qp(qp_prev);
         write_residual(cbp);
-        for (int b = 0; b < 16; ++b)
-            if (cbp >> (b >> 3 << 1 | (b & 3) >> 1) & 1)
-                idct_add(pic[0] + (16 * mby + 4 * (b >> 2)) * ys + 16 * mbx + 4 * (b & 3), ys,
-                         res.luma[b], qp, INT32_MIN);
+        add_inter_luma_residual(res, cbp);
         add_chroma_residual(res, cbp_chroma);
         if (cbp_chroma == 2) ++stats[kStatCbpChromaAc];
         return kOk;
     }
 
     void write_residual(int cbp) {
+        if (c.cabac) return write_residual_cabac(cbp);
         int32_t levels[16];
         if (cur->kind == kI16x16) {
             for (int i = 0; i < 16; ++i) levels[i] = res.luma_dc[kZigzag[i]];
@@ -1833,6 +2999,10 @@ struct Encoder : Codec {
             if (cur->kind == kI16x16) {
                 for (int i = 0; i < 15; ++i) levels[i] = res.luma[b][kZigzag[i + 1]];
                 total = write_block(luma_nc(bx, by), 15, levels);
+            } else if (cur->t8x8) {
+                for (int i = 0; i < 16; ++i) levels[i] = res.luma8[k >> 2][kZigzag8x8[4 * i + (k & 3)]];
+                total = write_block(luma_nc(bx, by), 16, levels);
+                if ((k & 3) == 0) ++stats[kStatCavlc8x8];
             } else {
                 for (int i = 0; i < 16; ++i) levels[i] = res.luma[b][kZigzag[i]];
                 total = write_block(luma_nc(bx, by), 16, levels);
@@ -1847,6 +3017,40 @@ struct Encoder : Codec {
                     for (int i = 0; i < 15; ++i) levels[i] = res.chroma_ac[k][b][kZigzag[i + 1]];
                     cur->nnz[16 + 4 * k + b] =
                         static_cast<uint8_t>(write_block(chroma_nc(k, b & 1, b >> 1), 15, levels));
+                }
+    }
+
+    void write_residual_cabac(int cbp) {
+        int32_t lv[64];
+        if (cur->kind == kI16x16) {
+            for (int i = 0; i < 16; ++i) lv[i] = res.luma_dc[kZigzag[i]];
+            if (syn.block(0, cbf_dc_inc(16), lv, 16)) cur->cbf |= 1u << 16;
+        }
+        for (int b8 = 0; b8 < 4; ++b8) {
+            if (!(cbp >> b8 & 1)) continue;
+            if (cur->t8x8) {
+                for (int i = 0; i < 64; ++i) lv[i] = res.luma8[b8][kZigzag8x8[i]];
+                syn.block(5, 0, lv, 64);
+                cur->cbf |= mask8(b8);
+                continue;
+            }
+            for (int k = 4 * b8; k < 4 * b8 + 4; ++k) {
+                const int bx = kBlkX[k], by = kBlkY[k], b = by * 4 + bx;
+                const bool i16 = cur->kind == kI16x16;
+                for (int i = 0; i < (i16 ? 15 : 16); ++i) lv[i] = res.luma[b][kZigzag[i + i16]];
+                if (syn.block(i16 ? 1 : 2, cbf_luma_inc(bx, by), lv, i16 ? 15 : 16))
+                    cur->cbf |= 1u << b;
+            }
+        }
+        if (cbp >> 4)
+            for (int k = 0; k < 2; ++k)
+                if (syn.block(3, cbf_dc_inc(17 + k), res.chroma_dc[k], 4)) cur->cbf |= 1u << (17 + k);
+        if (cbp >> 4 == 2)
+            for (int k = 0; k < 2; ++k)
+                for (int b = 0; b < 4; ++b) {
+                    for (int i = 0; i < 15; ++i) lv[i] = res.chroma_ac[k][b][kZigzag[i + 1]];
+                    if (syn.block(4, cbf_chroma_ac_inc(k, b & 1, b >> 1), lv, 15))
+                        cur->cbf |= 1u << (19 + 4 * k + b);
                 }
     }
 

@@ -1,5 +1,6 @@
-"""H.264 video (ITU-T H.264), CAVLC I and P slices, both ways, as FFmpeg's
-``h264`` decoder, and so ``cv2.VideoCapture``, reads it.
+"""H.264 video (ITU-T H.264), I and P slices of the Baseline, Main and High
+profiles (CAVLC or CABAC, the 8x8 transform, scaling matrices), both ways,
+as FFmpeg's ``h264`` decoder, and so ``cv2.VideoCapture``, reads it.
 
 **The reader** (:class:`H264Decoder`) parses every sequence and picture
 parameter set field and each slice header here (:func:`parse_sps`,
@@ -9,8 +10,9 @@ sliding window and by memory management control operations 1-6 (long-term
 references included), the P reference list (short-term pictures by
 descending PicNum, then long-term ones by ascending LongTermPicNum, then
 the slice's modification commands); and it decodes each slice's
-macroblocks in one native call (``native/src/h264_decode.cpp``: CAVLC,
-intra and inter prediction, the transforms), then deblocks the picture in
+macroblocks in one native call (``native/src/h264_decode.cpp``: CAVLC or
+CABAC, intra and inter prediction, the transforms with the scaling lists
+this module resolves), then deblocks the picture in
 one more. There is no numpy decoder beside the native one: without a C++
 toolchain it raises, naming the failed build. H.264 decoding is exact by
 specification, so the planes equal FFmpeg's bit for bit; what the port
@@ -19,25 +21,28 @@ deep as the VUI's ``max_num_reorder_frames``, flushed at each IDR picture
 and at each memory management control operation 5.
 
 Refused by name before any picture is decoded (:func:`scan_track`), naming
-ROADMAP Queue 1 item 9f (:class:`~hive_tpu_torch.video.mp4.UnsupportedVideoError`):
-CABAC; B, SP and SI slices; weighted prediction; the 8x8 transform and
-scaling matrices; fields and MBAFF (``frame_mbs_only_flag`` 0); chroma other
-than 4:2:0; depths above 8 bits; the lossless transform bypass; POC type 1;
-slice groups (FMO); redundant pictures; data partitioning and the
-extension NAL units (types 2-4, 20, 21); a gap in ``frame_num``; a change
-of picture size within the stream; and POCs whose order the VUI's reorder
-depth (absent: 0) cannot put right, where FFmpeg's heuristics would grow
-its buffer or drop pictures.
+the ROADMAP Queue 1 item that will lift it
+(:class:`~hive_tpu_torch.video.mp4.UnsupportedVideoError`): B slices and
+weighted prediction (9f-3); fields and MBAFF (``frame_mbs_only_flag`` 0,
+9f-4); and (9f) SP and SI slices; chroma other than 4:2:0; depths above 8
+bits; the lossless transform bypass; POC type 1; slice groups (FMO);
+redundant pictures; data partitioning and the extension NAL units (types
+2-4, 20, 21); a gap in ``frame_num``; a change of picture size within the
+stream; and POCs whose order the VUI's reorder depth (absent: 0) cannot put
+right, where FFmpeg's heuristics would grow its buffer or drop pictures.
 
 **The writer** (:func:`write_h264_mp4`) makes such files from uint8 4:2:0
 planes, for the tests and ``chip_smoke.py``: a planner (:class:`Exerciser`,
 seeded choices of every path above, :class:`MotionPlanner`, a motion
-field, or :class:`PcmPlanner`, every macroblock I_PCM) decides each picture's type, slices, marking, reference list
-commands and each macroblock's type, modes, partitions, references,
-motion vectors and QP; the native encoder quantises the true difference
-to the target planes. It rebuilds its references with this module's own
-decoder, so nothing drifts, and returns counts of each syntax path it
-wrote.
+field, or :class:`PcmPlanner`, every macroblock I_PCM) decides each
+picture's type, slices, marking, reference list commands and each
+macroblock's type, transform size, modes, partitions, references, motion
+vectors and QP; the native encoder quantises the true difference to the
+target planes, with CAVLC or CABAC (each slice's ``cabac_init_idc``) and
+the SPS's and PPS's scaling lists (explicit, default or fallen back). It
+rebuilds its references with this module's own decoder, so nothing drifts,
+and returns counts of each syntax path it wrote and of each CABAC context
+it coded.
 """
 
 from __future__ import annotations
@@ -54,19 +59,21 @@ from hive_tpu_torch.video.h264_pcm import (LOG2_MAX_POC_LSB, NAL_IDR, NAL_PPS, N
                                            NAL_SPS, BitReader, BitWriter, nal_unit, unescape)
 from hive_tpu_torch.video.mp4 import UnsupportedVideoError
 
-ITEM = "Queue 1 item 9f"
 P_SLICE, I_SLICE = 0, 2
 SLICE_NAMES = ("P", "B", "I", "SP", "SI")
 HIGH_PROFILES = (100, 110, 122, 244, 44, 83, 86, 118, 128, 138, 139, 134, 135)
 # The subset decoded, named in the refusals.
-SUBSET = ("CAVLC I and P slices of 8-bit 4:2:0 frame pictures (POC types 0 and 2, the 4x4 "
-          "transform, flat quantisation)")
+SUBSET = ("I and P slices of 8-bit 4:2:0 frame pictures, CAVLC or CABAC (POC types 0 and 2, "
+          "the 4x4 and 8x8 transforms, scaling matrices)")
 
 
-def _refuse(what: str) -> UnsupportedVideoError:
+def _refuse(what: str, item: str = "9f") -> UnsupportedVideoError:
+    """The refusal of a feature outside the subset, naming the ROADMAP
+    Queue 1 item that will lift it: 9f-3 (B slices, weighted prediction),
+    9f-4 (fields, MBAFF) or 9f (the rest)."""
     return UnsupportedVideoError(
         f"The H.264 video uses {what}; hive_tpu_torch decodes only {SUBSET} (ROADMAP.md "
-        f"{ITEM}).")
+        f"Queue 1 item {item}).")
 
 
 def more_rbsp_data(rbsp: bytes, pos: int) -> bool:
@@ -90,7 +97,7 @@ def parse_sps(rbsp: bytes) -> dict:
     r = BitReader(rbsp, 8)
     sps = dict(profile=r.u(8), constraints=r.u(8), level=r.u(8), id=r.ue(), chroma_format=1,
                separate_planes=0, bit_depth=8, bit_depth_chroma=8, transform_bypass=0,
-               scaling_matrices=False, full_range=False, matrix=2, reorder=None,
+               scaling=None, full_range=False, matrix=2, reorder=None,
                max_dec_frame_buffering=None, vui=False)
     if sps["profile"] in HIGH_PROFILES:
         sps["chroma_format"] = r.ue()
@@ -100,14 +107,8 @@ def parse_sps(rbsp: bytes) -> dict:
         sps["bit_depth_chroma"] = 8 + r.ue()
         sps["transform_bypass"] = r.u(1)
         if r.u(1):
-            sps["scaling_matrices"] = True
-            for i in range(8 if sps["chroma_format"] != 3 else 12):
-                if r.u(1):
-                    last = following = 8
-                    for _ in range(16 if i < 6 else 64):
-                        if following:
-                            following = (last + r.se() + 256) % 256
-                        last = following or last
+            sps["scaling"] = [_read_scaling_list(r, 16 if i < 6 else 64) if r.u(1) else None
+                              for i in range(8 if sps["chroma_format"] != 3 else 12)]
     sps["log2_max_frame_num"] = r.ue() + 4
     sps["poc_type"] = r.ue()
     if sps["poc_type"] == 0:
@@ -163,6 +164,89 @@ def parse_sps(rbsp: bytes) -> dict:
     return sps
 
 
+# The default scaling lists (Tables 7-3, 7-4) in the order they are coded
+# (zig-zag scan index): 4x4 intra, 4x4 inter, 8x8 intra, 8x8 inter.
+DEFAULT_4X4 = ((6, 13, 13, 20, 20, 20, 28, 28, 28, 28, 32, 32, 32, 37, 37, 42),
+               (10, 14, 14, 20, 20, 20, 24, 24, 24, 24, 27, 27, 27, 30, 30, 34))
+DEFAULT_8X8 = ((6, 10, 10, 13, 11, 13, 16, 16, 16, 16, 18, 18, 18, 18, 18, 23, 23, 23, 23, 23,
+                23, 25, 25, 25, 25, 25, 25, 25, 27, 27, 27, 27, 27, 27, 27, 27, 29, 29, 29, 29,
+                29, 29, 29, 31, 31, 31, 31, 31, 31, 33, 33, 33, 33, 33, 36, 36, 36, 36, 38, 38,
+                38, 40, 40, 42),
+               (9, 13, 13, 15, 13, 15, 17, 17, 17, 17, 19, 19, 19, 19, 19, 21, 21, 21, 21, 21,
+                21, 22, 22, 22, 22, 22, 22, 22, 24, 24, 24, 24, 24, 24, 24, 24, 25, 25, 25, 25,
+                25, 25, 25, 27, 27, 27, 27, 27, 27, 28, 28, 28, 28, 28, 30, 30, 30, 30, 32, 32,
+                32, 33, 33, 35))
+DEFAULT_LISTS = (DEFAULT_4X4[0],) * 3 + (DEFAULT_4X4[1],) * 3 + DEFAULT_8X8
+# The frame zig-zag scans: scan index -> raster position.
+ZIGZAG_4X4 = (0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15)
+ZIGZAG_8X8 = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41,
+              34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23,
+              30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63)
+
+
+def _read_scaling_list(r: BitReader, size: int):
+    """scaling_list() (7.3.2.1.1.1): the list in scan order, or "default"
+    (useDefaultScalingMatrixFlag)."""
+    last = following = 8
+    values = []
+    for j in range(size):
+        if following:
+            following = (last + r.se() + 256) % 256
+            if j == 0 and following == 0:
+                return "default"
+        values.append(following or last)
+        last = values[-1]
+    return tuple(values)
+
+
+def _write_scaling_list(w: BitWriter, values) -> None:
+    """scaling_list(): "default", or the values in scan order (a run of the
+    last value to the end coded by a nextScale of 0)."""
+    if values == "default":
+        w.se(-8)
+        return
+    last = 8
+    for j, value in enumerate(values):
+        if j and all(v == last for v in values[j:]):
+            w.se((-last + 128) % 256 - 128)
+            return
+        w.se((value - last + 128) % 256 - 128)
+        last = value
+
+
+def _fall_back(entries: Sequence, base: Sequence) -> List[Tuple[int, ...]]:
+    """The eight lists of a parameter set's entries (None: absent), by
+    fall-back rule A (``base`` the default lists) or B (``base`` the
+    sequence's lists) of Table 7-2."""
+    out: List[Tuple[int, ...]] = []
+    for i in range(8):
+        entry = entries[i] if i < len(entries) else None
+        if entry is None:
+            out.append(tuple(base[i]) if i in (0, 3, 6, 7) else out[i - 1])
+        else:
+            out.append(DEFAULT_LISTS[i] if entry == "default" else tuple(entry))
+    return out
+
+
+def scaling_lists(sps: dict, pps: dict) -> Tuple[np.ndarray, np.ndarray]:
+    """The picture's scaling lists in raster order: the six 4x4 lists
+    (Intra Y, Cb, Cr, Inter Y, Cb, Cr) and the two 8x8 ones (Intra Y,
+    Inter Y); flat 16 where neither parameter set has a matrix."""
+    if sps["scaling"] is None:
+        lists = [(16,) * 16] * 6 + [(16,) * 64] * 2
+    else:
+        lists = _fall_back(sps["scaling"], DEFAULT_LISTS)
+    if pps.get("scaling") is not None:
+        lists = _fall_back(pps["scaling"], DEFAULT_LISTS if sps["scaling"] is None else lists)
+    w4 = np.zeros((6, 16), np.int32)
+    w8 = np.zeros((2, 64), np.int32)
+    for i in range(6):
+        w4[i, list(ZIGZAG_4X4)] = lists[i]
+    for i in range(2):
+        w8[i, list(ZIGZAG_8X8)] = lists[6 + i]
+    return w4, w8
+
+
 def _skip_hrd(r: BitReader) -> None:
     count = r.ue() + 1
     r.u(8)
@@ -182,23 +266,19 @@ def check_sps(sps: dict) -> None:
         raise _refuse(f"{max(sps['bit_depth'], sps['bit_depth_chroma'])}-bit samples")
     if sps["transform_bypass"]:
         raise _refuse("the lossless transform bypass (qpprime_y_zero_transform_bypass_flag)")
-    if sps["scaling_matrices"]:
-        raise _refuse("scaling matrices (seq_scaling_matrix_present_flag)")
     if sps["poc_type"] == 1:
         raise _refuse("pic_order_cnt_type 1")
     if sps["poc_type"] > 2:
         raise ValueError(f"corrupt H.264 SPS: pic_order_cnt_type {sps['poc_type']}")
     if not sps["frame_mbs_only"]:
-        raise _refuse("fields or MBAFF (frame_mbs_only_flag 0)")
+        raise _refuse("fields or MBAFF (frame_mbs_only_flag 0)", "9f-4")
 
 
 def parse_pps(rbsp: bytes) -> dict:
-    """Every field of a picture parameter set; CABAC is refused as soon as
-    it is read."""
+    """Every field of a picture parameter set, its scaling lists as
+    :func:`parse_sps` reads them (None: no pic_scaling_matrix_present_flag)."""
     r = BitReader(rbsp, 8)
-    pps = dict(id=r.ue(), sps_id=r.ue(), cabac=r.u(1))
-    if pps["cabac"]:
-        raise _refuse("CABAC (entropy_coding_mode_flag 1)")
+    pps = dict(id=r.ue(), sps_id=r.ue(), cabac=r.u(1), scaling=None)
     pps["bottom_field_poc"] = r.u(1)
     pps["slice_groups"] = r.ue() + 1
     if pps["slice_groups"] > 1:
@@ -213,30 +293,24 @@ def parse_pps(rbsp: bytes) -> dict:
     pps["deblocking_control"] = r.u(1)
     pps["constrained_intra"] = r.u(1)
     pps["redundant_pic_cnt"] = r.u(1)
-    pps["transform_8x8"] = pps["pic_scaling_matrices"] = 0
+    pps["transform_8x8"] = 0
     pps["second_chroma_qp_offset"] = pps["chroma_qp_offset"]
     if more_rbsp_data(rbsp, r.pos):
         pps["transform_8x8"] = r.u(1)
-        pps["pic_scaling_matrices"] = r.u(1)
-        if pps["pic_scaling_matrices"]:
-            return pps                             # refused by check_pps
+        if r.u(1):
+            pps["scaling"] = [_read_scaling_list(r, 16 if i < 6 else 64) if r.u(1) else None
+                              for i in range(6 + 2 * pps["transform_8x8"])]
         pps["second_chroma_qp_offset"] = r.se()
     return pps
 
 
 def check_pps(pps: dict) -> None:
-    if pps["cabac"]:
-        raise _refuse("CABAC (entropy_coding_mode_flag 1)")
     if pps["slice_groups"] > 1:
         raise _refuse(f"slice groups (FMO, {pps['slice_groups']} groups)")
     if pps["weighted_pred"]:
-        raise _refuse("weighted prediction (weighted_pred_flag 1)")
+        raise _refuse("weighted prediction (weighted_pred_flag 1)", "9f-3")
     if pps["redundant_pic_cnt"]:
         raise _refuse("redundant pictures (redundant_pic_cnt_present_flag 1)")
-    if pps["transform_8x8"]:
-        raise _refuse("the 8x8 transform (transform_8x8_mode_flag 1)")
-    if pps["pic_scaling_matrices"]:
-        raise _refuse("scaling matrices (pic_scaling_matrix_present_flag)")
     if not 0 <= pps["init_qp"] <= 51 or max(abs(pps["chroma_qp_offset"]),
                                              abs(pps["second_chroma_qp_offset"])) > 12:
         raise ValueError("corrupt H.264 PPS: pic_init_qp or chroma_qp_index_offset out of range")
@@ -258,6 +332,7 @@ class SliceHeader:
     no_output_of_prior_pics: int = 0
     long_term_reference: int = 0
     mmco: Optional[List[Tuple[int, ...]]] = None   # None: sliding window
+    cabac_init_idc: int = 0
     qp_delta: int = 0
     lf_idc: int = 0
     alpha_div2: int = 0
@@ -284,7 +359,7 @@ def parse_slice_header(rbsp: bytes, sps_table: dict, pps_table: dict) -> SliceHe
         raise ValueError(f"corrupt H.264 slice header: slice_type {slice_type}")
     sh.slice_type = slice_type % 5
     if sh.slice_type not in (P_SLICE, I_SLICE):
-        raise _refuse(f"{SLICE_NAMES[sh.slice_type]} slices")
+        raise _refuse(f"{SLICE_NAMES[sh.slice_type]} slices", "9f-3" if sh.slice_type == 1 else "9f")
     sh.pps_id = r.ue()
     if sh.pps_id not in pps_table:
         raise ValueError(f"an H.264 slice refers to PPS {sh.pps_id}, which the stream lacks")
@@ -336,6 +411,10 @@ def parse_slice_header(rbsp: bytes, sps_table: dict, pps_table: dict) -> SliceHe
                 sh.mmco.append((op, *args))
                 if len(sh.mmco) > 66:
                     raise ValueError("corrupt H.264 slice header: too many marking operations")
+    if pps["cabac"] and sh.slice_type == P_SLICE:
+        sh.cabac_init_idc = r.ue()
+        if sh.cabac_init_idc > 2:
+            raise ValueError(f"corrupt H.264 slice header: cabac_init_idc {sh.cabac_init_idc}")
     sh.qp_delta = r.se()
     if not 0 <= pps["init_qp"] + sh.qp_delta <= 51:
         raise ValueError("corrupt H.264 slice header: slice QP out of range")
@@ -380,6 +459,8 @@ def write_slice_header(sh: SliceHeader, sps: dict, pps: dict) -> BitWriter:
                     for a in args:
                         w.ue(a)
                 w.ue(0)
+    if pps["cabac"] and sh.slice_type == P_SLICE:
+        w.ue(sh.cabac_init_idc)
     w.se(sh.qp_delta)
     if pps["deblocking_control"]:
         w.ue(sh.lf_idc)
@@ -388,20 +469,35 @@ def write_slice_header(sh: SliceHeader, sps: dict, pps: dict) -> BitWriter:
     return w
 
 
+def _write_matrix(w: BitWriter, entries: Sequence) -> None:
+    """The scaling lists' present flags and lists (None: absent)."""
+    for entry in entries:
+        w.u(1, entry is not None)
+        if entry is not None:
+            _write_scaling_list(w, entry)
+
+
 def encode_sps(width: int, height: int, *, profile: int = 66, poc_type: int = 0,
                num_ref_frames: int = 1, reorder: Optional[int] = None,
                log2_max_frame_num: int = 8, full_range: bool = False,
-               matrix: Optional[int] = None) -> bytes:
+               matrix: Optional[int] = None, scaling: Optional[Sequence] = None) -> bytes:
     """A sequence parameter set: Baseline (constraint set 1: Constrained
     Baseline), Main or High ``profile``, level 5.1, cropped to ``width`` x
-    ``height``; ``reorder`` None writes no bitstream restriction."""
+    ``height``; ``reorder`` None writes no bitstream restriction;
+    ``scaling`` the eight scaling lists of a High profile's
+    seq_scaling_matrix (each None: absent, "default", or the values in scan
+    order), None for none."""
     if width % 2 or height % 2:
         raise ValueError(f"4:2:0 needs an even frame size, not {width}x{height}")
+    if scaling is not None and profile not in HIGH_PROFILES:
+        raise ValueError("scaling matrices need a High profile")
     mbs_w, mbs_h = -(-width // 16), -(-height // 16)
     constraints = {66: 0b11000000, 77: 0b01000000}.get(profile, 0)
     w = BitWriter().u(8, profile).u(8, constraints).u(8, 51).ue(0)
     if profile in HIGH_PROFILES:
-        w.ue(1).ue(0).ue(0).u(1, 0).u(1, 0)
+        w.ue(1).ue(0).ue(0).u(1, 0).u(1, scaling is not None)
+        if scaling is not None:
+            _write_matrix(w, scaling)
     w.ue(log2_max_frame_num - 4).ue(poc_type)
     if poc_type == 0:
         w.ue(LOG2_MAX_POC_LSB - 4)
@@ -428,15 +524,21 @@ def encode_sps(width: int, height: int, *, profile: int = 66, poc_type: int = 0,
 
 def encode_pps(*, num_ref_default: int = 1, init_qp: int = 26, chroma_qp_offset: int = 0,
                second_chroma_qp_offset: Optional[int] = None, constrained_intra: bool = False,
-               cabac: bool = False) -> bytes:
-    """A picture parameter set: CAVLC (or, to be refused, CABAC), one slice
-    group, deblocking control present; ``second_chroma_qp_offset`` writes
-    the High profile extension (no 8x8 transform, no scaling matrices)."""
+               cabac: bool = False, transform_8x8: bool = False,
+               scaling: Optional[Sequence] = None) -> bytes:
+    """A picture parameter set: CAVLC or CABAC, one slice group, deblocking
+    control present; the High profile extension, when
+    ``second_chroma_qp_offset``, ``transform_8x8`` or ``scaling`` (the six
+    or, with the 8x8 transform, eight scaling lists, as
+    :func:`encode_sps`'s) asks for it."""
     w = BitWriter().ue(0).ue(0).u(1, cabac).u(1, 0).ue(0).ue(num_ref_default - 1).ue(0)
     w.u(1, 0).u(2, 0).se(init_qp - 26).se(0).se(chroma_qp_offset).u(1, 1)
     w.u(1, constrained_intra).u(1, 0)
-    if second_chroma_qp_offset is not None:
-        w.u(1, 0).u(1, 0).se(second_chroma_qp_offset)
+    if second_chroma_qp_offset is not None or transform_8x8 or scaling is not None:
+        w.u(1, transform_8x8).u(1, scaling is not None)
+        if scaling is not None:
+            _write_matrix(w, list(scaling)[:6 + 2 * transform_8x8])
+        w.se(chroma_qp_offset if second_chroma_qp_offset is None else second_chroma_qp_offset)
     return nal_unit(3, NAL_PPS, np.frombuffer(w.align(True), np.uint8))
 
 
@@ -452,7 +554,8 @@ _STATUS = {-1: "bad arguments", -2: "a slice that runs past its end",
            "that are not available", -11: "a ref_idx past the reference list",
            -12: "a sub_mb_type out of range", -13: "macroblocks past the picture's end",
            -14: "a macroblock decoded twice", -15: "an Exp-Golomb code too long",
-           -16: "a reference picture that is missing"}
+           -16: "a reference picture that is missing",
+           -17: "a CABAC code longer than any value it may hold"}
 
 
 def _lib():
@@ -478,16 +581,38 @@ STAT_NAMES = tuple([f"i4x4_mode_{m}" for m in range(9)] + [f"i16x16_mode_{m}" fo
                    + [f"sub_{s}" for s in ("8x8", "8x4", "4x8", "4x4")]
                    + ["p_skip", "skip_runs", "intra_in_p", "mb_qp_delta", "mv_outside",
                       "ref_idx_nonzero", "level_prefix_14", "level_prefix_15",
-                      "suffix_length_6", "chroma_ac"])
+                      "suffix_length_6", "chroma_ac"]
+                   + [f"i8x8_mode_{m}" for m in range(9)]
+                   + ["transform_8x8_inter", "cavlc_8x8_blocks", "cabac_i_pcm"])
 # The coverage counters: coeff_token for nC 0-1, 2-3, 4-7, 8+ and chroma DC
 # ([TotalCoeff * 4 + TrailingOnes]), total_zeros of 4x4 blocks and of
 # chroma DC ([TotalCoeff - 1][total_zeros]), run_before ([min(zerosLeft,
-# 7) - 1][run_before]).
+# 7) - 1][run_before]), and the decisions coded in each CABAC context
+# ([table][ctxIdx]: the I slices' table, then cabac_init_idc 0, 1, 2).
 COVERAGE_SHAPES = (("coeff_token", (5, 68)), ("total_zeros", (15, 16)),
-                   ("chroma_dc_total_zeros", (3, 4)), ("run_before", (7, 15)))
-PLAN_INTS = 60
+                   ("chroma_dc_total_zeros", (3, 4)), ("run_before", (7, 15)),
+                   ("cabac_contexts", (4, 1024)))
+PLAN_INTS = 64
 (PLAN_I4, PLAN_I16, PLAN_PCM, PLAN_P16, PLAN_P16X8, PLAN_P8X16, PLAN_P8X8, PLAN_P8X8REF0,
  PLAN_SKIP, PLAN_I4_LEVELS) = range(10)
+
+
+def cabac_contexts_reachable() -> np.ndarray:
+    """The (table, ctxIdx) pairs ((4, 1024) bools: the I slices' table, then
+    cabac_init_idc 0-2's) that the I and P slices of progressive 4:2:0
+    pictures can read: mb_type of I slices (3-10) in I slices, mb_skip_flag,
+    the P mb_type prefix and suffix, sub_mb_type, mvd_l0 and ref_idx_l0
+    (11-23, 40-59) in P slices; in both mb_qp_delta, the intra modes,
+    coded_block_pattern, coded_block_flag, the significance maps and levels
+    of ctxBlockCat 0-4 (60-69, 73-275) and the 8x8 transform's flag and
+    blocks in frames (399-435). The rest belong to SI, B, field or 4:4:4
+    coding."""
+    reach = np.zeros((4, 1024), bool)
+    for first, end in ((3, 11), (60, 70), (73, 276), (399, 436)):
+        reach[0, first:end] = True
+    for first, end in ((11, 24), (40, 70), (73, 276), (399, 436)):
+        reach[1:, first:end] = True
+    return reach
 
 
 def stat_counts() -> int:
@@ -508,12 +633,16 @@ def coverage(stats: np.ndarray) -> Dict[str, np.ndarray]:
     return out
 
 
-def _params(sps: dict, pps: dict, sh: SliceHeader, slice_num: int, num_ref: int,
-            mb_count: int = 0) -> np.ndarray:
-    return np.array([sps["mbs_w"], sps["mbs_h"], slice_num, sh.first_mb, sh.slice_type,
+def _params(sps: dict, pps: dict, weights: np.ndarray, sh: SliceHeader, slice_num: int,
+            num_ref: int, mb_count: int = 0) -> np.ndarray:
+    """The native calls' slice parameters (``Params`` in h264_decode.cpp);
+    ``weights`` the pair's scaling lists (:meth:`H264Decoder.weights`)."""
+    head = np.array([sps["mbs_w"], sps["mbs_h"], slice_num, sh.first_mb, sh.slice_type,
                      pps["init_qp"] + sh.qp_delta, num_ref, pps["chroma_qp_offset"],
                      pps["second_chroma_qp_offset"], pps["constrained_intra"], sh.lf_idc,
-                     2 * sh.alpha_div2, 2 * sh.beta_div2, mb_count], np.int32)
+                     2 * sh.alpha_div2, 2 * sh.beta_div2, mb_count, pps["cabac"],
+                     sh.cabac_init_idc, pps["transform_8x8"]], np.int32)
+    return np.concatenate([head, weights])
 
 
 def _int32p(a: np.ndarray):
@@ -558,6 +687,7 @@ class H264Decoder:
         self.sps: Dict[int, dict] = {}
         self.pps: Dict[int, dict] = {}
         self.refs: List[_Ref] = []
+        self._weights: Dict[Tuple[int, int], np.ndarray] = {}
         self.max_long_term_idx: Optional[int] = None
         self.prev_poc_msb = self.prev_poc_lsb = 0
         self.prev_frame_num = self.prev_frame_num_offset = 0
@@ -569,6 +699,7 @@ class H264Decoder:
     # -- parameter sets -------------------------------------------------------
     def _parameter_set(self, nal: bytes) -> None:
         rbsp = unescape(nal)
+        self._weights.clear()
         if nal[0] & 0x1F == NAL_SPS:
             sps = parse_sps(rbsp)
             check_sps(sps)
@@ -577,6 +708,14 @@ class H264Decoder:
             pps = parse_pps(rbsp)
             check_pps(pps)
             self.pps[pps["id"]] = pps
+
+    def weights(self, sps: dict, pps: dict) -> np.ndarray:
+        """The (SPS, PPS) pair's scaling lists (:func:`scaling_lists`),
+        flattened: resolved once until the next parameter set arrives."""
+        key = (sps["id"], pps["id"])
+        if key not in self._weights:
+            self._weights[key] = np.concatenate([w.ravel() for w in scaling_lists(sps, pps)])
+        return self._weights[key]
 
     # -- access units ---------------------------------------------------------
     def decode(self, nal_units: Iterable[bytes]) -> Optional[Picture]:
@@ -727,8 +866,9 @@ class H264Decoder:
                 refs.extend(entry.planes if entry is not None else (None,) * 3)
                 ids.append(entry.id if entry is not None else -1)
         error = ctypes.c_int64(0)
+        params = _params(sps, pps, self.weights(sps, pps), sh, number, n)
         status = lib.hive_h264_decode_slice(
-            rbsp, len(rbsp), sh.bit_pos, _int32p(_params(sps, pps, sh, number, n)),
+            rbsp, len(rbsp), sh.bit_pos, _int32p(params),
             _pointers(*refs) if refs else None,
             _int32p(np.asarray(ids or [0], np.int32)), _pointers(*planes), state.ctypes.data,
             ctypes.byref(error))
@@ -873,6 +1013,7 @@ class SlicePlan:
     beta_div2: int = 0
     num_ref: Optional[int] = None               # None: the PPS's default
     modifications: List[Tuple[int, int]] = field(default_factory=list)
+    cabac_init_idc: int = 0
 
 
 @dataclass
@@ -910,14 +1051,17 @@ class DpbView:
 def plan_record(kind: int, qp: int, *, i16_mode: int = 2, chroma_mode: int = 0,
                 sub: Sequence[int] = (0, 0, 0, 0), refs: Sequence[int] = (0, 0, 0, 0),
                 i4_modes: Optional[Sequence[int]] = None,
-                mvs: Optional[np.ndarray] = None) -> np.ndarray:
-    """One macroblock's plan record (see ``kPlanInts`` in h264_decode.cpp)."""
+                mvs: Optional[np.ndarray] = None, t8x8: bool = False) -> np.ndarray:
+    """One macroblock's plan record (see ``kPlanInts`` in h264_decode.cpp);
+    ``t8x8`` asks for the 8x8 transform where the PPS and the macroblock
+    allow it (an 8x8 block's intra mode is its first 4x4 block's)."""
     rec = np.zeros(PLAN_INTS, np.int32)
     rec[0], rec[1], rec[2], rec[3] = kind, i16_mode, chroma_mode, qp
     rec[4:8], rec[8:12] = sub, refs
     rec[12:28] = 2 if i4_modes is None else i4_modes
     if mvs is not None:
         rec[28:60] = np.broadcast_to(np.asarray(mvs, np.int32), (16, 2)).reshape(-1)
+    rec[60] = t8x8
     return rec
 
 
@@ -930,13 +1074,23 @@ class Exerciser:
     disable_deblocking_filter_idc with offsets, mb_qp_delta, and motion
     vectors far outside the picture. ``gop``: an IDR picture every that
     many; ``mmco``: the share of reference pictures marked adaptively
-    (long-term pictures, MMCO 1-4 and 6; 5 with ``reset``), 0 for none."""
+    (long-term pictures, MMCO 1-4 and 6; 5 with ``reset``), 0 for none;
+    ``t8x8``: the share of macroblocks that ask for the 8x8 transform;
+    ``init_idcs``: each slice's cabac_init_idc drawn from these (one value
+    is every slice's, and draws nothing). No slice that filters across its
+    edges (disable_deblocking_filter_idc 0) follows one that does not
+    filter at all (1): it becomes 2, since FFmpeg's frame threads, which
+    cv2 runs, report the rows of a slice without deblocking done before
+    the slice below filters their last lines, and a later picture may
+    predict from them in either state."""
 
     def __init__(self, width: int, height: int, seed: int, *, gop: int = 8, qp: int = 28,
-                 mmco: float = 0.4, reset: bool = False):
+                 mmco: float = 0.4, reset: bool = False, t8x8: float = 0.0,
+                 init_idcs: Sequence[int] = (0,)):
         self.mbw, self.mbh = -(-width // 16), -(-height // 16)
         self.rng = np.random.default_rng(seed)
         self.gop, self.qp, self.mmco, self.reset = gop, qp, mmco, reset
+        self.t8x8, self.init_idcs = t8x8, tuple(init_idcs)
         self.count = 0
 
     def _slices(self, n: int) -> List[SlicePlan]:
@@ -956,6 +1110,11 @@ class Exerciser:
             slices.append(SlicePlan(first, end - first, qp_delta=int(rng.integers(-3, 4)),
                                     lf_idc=lf, alpha_div2=int(offsets[0]),
                                     beta_div2=int(offsets[1])))
+            slices[-1].cabac_init_idc = (int(rng.choice(self.init_idcs))
+                                         if len(self.init_idcs) > 1 else self.init_idcs[0])
+        for k, s in enumerate(slices):
+            if s.lf_idc == 0 and any(p.lf_idc == 1 for p in slices[:k]):
+                s.lf_idc = 2
         return slices
 
     def __call__(self, index: int, dpb: DpbView) -> PicturePlan:
@@ -1000,7 +1159,8 @@ class Exerciser:
         return plan_record(kind, qp, i16_mode=int(rng.integers(0, 4)),
                            chroma_mode=int(rng.integers(0, 4)),
                            sub=rng.integers(0, 4, size=4), refs=rng.integers(0, num_ref, size=4),
-                           i4_modes=rng.integers(0, 9, size=16), mvs=mvs)
+                           i4_modes=rng.integers(0, 9, size=16), mvs=mvs,
+                           t8x8=bool(self.t8x8 and rng.random() < self.t8x8))
 
     def _modifications(self, dpb: DpbView, num_ref: int) -> List[Tuple[int, int]]:
         """Commands that put a random order of the references first."""
@@ -1097,12 +1257,15 @@ class MotionPlanner:
     P pictures of P_L0_16x16 macroblocks, ref_idx cycling over up to
     ``refs`` references, each with ``motion(index, ref_index)``'s
     quarter-sample vector ((mbh, mbw, 2), pointing into the display frame
-    ``ref_index``); a slice a macroblock row, deblocking on."""
+    ``ref_index``); a slice a macroblock row, deblocking on. With
+    ``t8x8``, every I_NxN macroblock but every third, and every P one, asks
+    for the 8x8 transform (the writer's PPS must allow it)."""
 
     def __init__(self, width: int, height: int, motion: Callable[[int, int], np.ndarray], *,
-                 gop: int = 12, qp: int = 24, refs: int = 4):
+                 gop: int = 12, qp: int = 24, refs: int = 4, t8x8: bool = False):
         self.mbw, self.mbh = -(-width // 16), -(-height // 16)
         self.motion, self.gop, self.qp, self.refs = motion, gop, qp, refs
+        self.t8x8 = t8x8
         self.rng = np.random.default_rng(0)
 
     def __call__(self, index: int, dpb: DpbView) -> PicturePlan:
@@ -1117,11 +1280,14 @@ class MotionPlanner:
             mbs[:, 2] = self.rng.integers(0, 4, size=n)
             mbs[:, 12:28] = self.rng.integers(0, 9, size=(n, 16))
             mbs[:, 3] = self.qp
+            if self.t8x8:
+                mbs[:, 60] = np.arange(n) % 3 != 0
             return PicturePlan(I_SLICE, mbs, slices, idr=True)
         available = min(self.refs, len(dpb.short_terms))
         ref = (np.arange(n) % available).astype(np.int32)
         mbs[:, 0] = PLAN_P16
         mbs[:, 3] = self.qp
+        mbs[:, 60] = self.t8x8
         mbs[:, 8:12] = ref[:, None]
         for r in range(available):
             field_ = np.asarray(self.motion(index, dpb.short_terms[r][1]), np.int32).reshape(n, 2)
@@ -1152,9 +1318,10 @@ def write_h264_mp4(path: str, frames: Sequence[Tuple[np.ndarray, np.ndarray, np.
                    log2_max_frame_num: int = 8, full_range: bool = False,
                    matrix: Optional[int] = None, fps: Tuple[int, int] = (30, 1),
                    rotation: int = 0, edit_frames: Optional[int] = None,
-                   edits: Sequence[Tuple[int, int]] = ()) -> dict:
+                   edits: Sequence[Tuple[int, int]] = (), cabac: bool = False,
+                   transform_8x8: bool = False, scaling: Optional[dict] = None) -> dict:
     """Write ``frames`` (uint8 Y, U, V planes in display order, an even
-    size; may be lazy) as a CAVLC H.264 MP4 at ``fps`` = (timescale, frame
+    size; may be lazy) as an H.264 MP4 at ``fps`` = (timescale, frame
     duration), e.g. (30, 1) or (30000, 1001), each picture as
     ``planner(display index, DpbView)`` plans it (:class:`Exerciser`,
     :class:`MotionPlanner`, :class:`PcmPlanner`).
@@ -1163,10 +1330,14 @@ def write_h264_mp4(path: str, frames: Sequence[Tuple[np.ndarray, np.ndarray, np.
     non-reference pictures) with ``ctts``, an edit list that starts at
     the first frame, and ``max_num_reorder_frames`` 1; otherwise
     ``restriction``, if given, is the VUI's reorder depth. The SPS and PPS
-    options are :func:`encode_sps` and :func:`encode_pps`'s. ``rotation``
-    is the display matrix's clockwise rotation; ``edit_frames`` starts the
-    track's one edit that many frames into the media, or ``edits`` gives
-    the edit list itself ((duration, media time) in timescale units).
+    options are :func:`encode_sps` and :func:`encode_pps`'s: ``cabac`` the
+    entropy coder (each slice's cabac_init_idc is its plan's),
+    ``transform_8x8`` the PPS's flag, ``scaling`` a dict whose "sps" and
+    "pps" entries, where present, are the parameter sets' scaling lists.
+    ``rotation`` is the display matrix's clockwise rotation; ``edit_frames``
+    starts the track's one edit that many frames into the media, or
+    ``edits`` gives the edit list itself ((duration, media time) in
+    timescale units).
     Returns the counts of :data:`STAT_NAMES` over the file, the VLC
     coverage (``coverage``) and counts of the picture-level paths."""
     height, width = frames[0][0].shape
@@ -1179,14 +1350,16 @@ def write_h264_mp4(path: str, frames: Sequence[Tuple[np.ndarray, np.ndarray, np.
         order = [0]
         for k in range(1, n, 2):
             order += [k + 1, k] if k + 1 < n else [k]
+    scaling = scaling or {}
     sps_unit = encode_sps(width, height, profile=profile, poc_type=poc_type,
                           num_ref_frames=num_ref_frames, reorder=1 if reorder else restriction,
                           log2_max_frame_num=log2_max_frame_num, full_range=full_range,
-                          matrix=matrix)
+                          matrix=matrix, scaling=scaling.get("sps"))
     pps_unit = encode_pps(num_ref_default=num_ref_default, init_qp=init_qp,
                           chroma_qp_offset=chroma_qp_offset,
                           second_chroma_qp_offset=second_chroma_qp_offset,
-                          constrained_intra=constrained_intra)
+                          constrained_intra=constrained_intra, cabac=cabac,
+                          transform_8x8=transform_8x8, scaling=scaling.get("pps"))
     decoder = H264Decoder()
     decoder.decode([sps_unit, pps_unit])
     sps, pps = decoder.sps[0], decoder.pps[0]
@@ -1259,6 +1432,7 @@ def write_h264_mp4(path: str, frames: Sequence[Tuple[np.ndarray, np.ndarray, np.
                                  modifications=list(s.modifications),
                                  long_term_reference=int(plan.long_term_reference),
                                  mmco=plan.mmco, qp_delta=s.qp_delta, lf_idc=s.lf_idc,
+                                 cabac_init_idc=s.cabac_init_idc,
                                  alpha_div2=s.alpha_div2 if s.lf_idc != 1 else 0,
                                  beta_div2=s.beta_div2 if s.lf_idc != 1 else 0)
                 refs, ids, num_ref = [], [], 0
@@ -1275,7 +1449,8 @@ def write_h264_mp4(path: str, frames: Sequence[Tuple[np.ndarray, np.ndarray, np.
                 header = write_slice_header(sh, sps, pps)
                 prefix = np.packbits(np.array(header.bits + [0] * (-len(header.bits) % 8),
                                               np.uint8)).tobytes()
-                params = _params(sps, pps, sh, number, num_ref, s.count)
+                params = _params(sps, pps, decoder.weights(sps, pps), sh, number, num_ref,
+                                 s.count)
                 capacity = 1024 + 1600 * s.count
                 out = np.empty(capacity, np.uint8)
                 size = lib.hive_h264_encode_slice(

@@ -1,15 +1,18 @@
-"""H.264 CAVLC I and P video in hive_tpu_torch (``hive_tpu_torch.video.h264``,
+"""H.264 I and P video in hive_tpu_torch (``hive_tpu_torch.video.h264``,
 ``native/src/h264_decode.cpp``) against cv2 5.0.0, whose bundled FFmpeg
 decodes it: the writer's files, one per stream layout (Baseline, Main and
 High profiles, POC types 0 and 2, pictures out of order with ``ctts`` and
 edit lists, constrained intra prediction, chroma QP offsets, one to four
 reference frames, long-term references and every memory management
-control operation, ``frame_num`` wrapping, cropping), each with the
-seeded exerciser's mix of every macroblock path; single CAVLC codewords
-read back from cv2 (one probe macroblock each, for the table entries real
-residuals seldom reach); each feature the reader refuses by name before
-any decode; damaged samples; a seek; and the digests by which
-chip_smoke.py holds the card's host, which has no cv2, to cv2's frames.
+control operation, ``frame_num`` wrapping, cropping; CAVLC, and CABAC and
+the 8x8 transform beside them), each with the seeded exerciser's mix of
+every macroblock path; single CAVLC codewords read back from cv2 (one
+probe macroblock each, for the table entries real residuals seldom
+reach); each feature the reader refuses by name before any decode, and
+those it no longer refuses read as cv2 reads them; damaged samples; a
+seek; and the digests by which chip_smoke.py holds the card's host, which
+has no cv2, to cv2's frames. CABAC, the 8x8 transform and scaling
+matrices in depth: tests/test_torch_h264_cabac.py.
 Every comparison is exact, to the bit: the properties, the frame count and every frame
 ``VideoCapture(device="cpu")`` returns equal what ``cv2.VideoCapture``
 returns (H.264 decoding is exact by specification)."""
@@ -43,6 +46,10 @@ CASES = {
     "low_qp": (dict(init_qp=14), dict(qp=14, gop=5), 8, (W, H)),
     "high_qp": (dict(init_qp=44), dict(qp=44), 8, (W, H)),
     "cropped": (dict(full_range=True, matrix=1), dict(), 8, (102, 58)),
+    "cavlc_transform_8x8": (dict(profile=100, transform_8x8=True),
+                            dict(t8x8=0.6), N, (W, H)),
+    "cabac_transform_8x8": (dict(profile=100, cabac=True, transform_8x8=True),
+                            dict(t8x8=0.6, init_idcs=(0, 1, 2)), N, (W, H)),
 }
 
 
@@ -291,13 +298,9 @@ def write_units(path, sps, pps, samples, width=64, height=48):
 
 
 PARAMETER_SET_REFUSALS = {
-    "cabac": (None, dict(cabac=1), r"CABAC \(entropy_coding_mode_flag 1\)"),
     "slice_groups": (None, dict(groups=1), r"slice groups \(FMO"),
     "weighted_prediction": (None, dict(weighted=1), "weighted prediction"),
     "redundant_pictures": (None, dict(redundant=1), "redundant pictures"),
-    "transform_8x8": (None, dict(t8x8=1), r"the 8x8 transform"),
-    "pps_scaling_matrices": (None, dict(t8x8=0, scaling=1), "scaling matrices"),
-    "sps_scaling_matrices": (dict(profile=100, scaling=1), None, "scaling matrices"),
     "chroma_4_2_2": (dict(profile=122, chroma_format=2), None, "chroma format 4:2:2"),
     "monochrome": (dict(profile=100, chroma_format=0), None, "chroma format 4:0:0"),
     "10_bit": (dict(profile=110, bit_depth=2), None, "10-bit samples"),
@@ -322,6 +325,38 @@ def test_parameter_set_features_are_refused_by_name(tmp_path, case, monkeypatch)
     monkeypatch.setattr(h264.H264Decoder, "_decode_slice", None)
     with pytest.raises(mp4.UnsupportedVideoError, match=f"{name}.*Queue 1 item 9f"):
         VideoCapture(str(path), device="cpu")
+
+
+# What the reader refused by name until it decoded CABAC, the 8x8 transform
+# and scaling matrices: each parameter set feature's stream (write_h264_mp4
+# options, Exerciser options) now reads as cv2 reads it.
+PARAMETER_SET_FEATURES = {
+    "cabac": (dict(profile=77, cabac=True), dict(init_idcs=(0, 1, 2))),
+    "transform_8x8": (dict(profile=100, transform_8x8=True), dict(t8x8=0.6)),
+    "pps_scaling_matrices": (dict(profile=100, transform_8x8=True, scaling=dict(
+        pps=[tuple(range(8, 24)), None, "default", None, None, tuple(range(40, 24, -1)),
+             tuple(range(10, 74)), None])), dict(t8x8=0.6)),
+    "sps_scaling_matrices": (dict(profile=100, scaling=dict(
+        sps=["default", tuple(range(20, 36)), None, tuple(range(30, 14, -1)), None, None, None,
+             None])), dict()),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PARAMETER_SET_FEATURES))
+def test_parameter_set_features_once_refused_read_as_cv2(tmp_path, case):
+    """CABAC, the 8x8 transform and PPS and SPS scaling matrices, which the
+    reader refused by name before it decoded them: a stream of each reads
+    as cv2 reads it, and its parameter sets say so."""
+    options, planner = PARAMETER_SET_FEATURES[case]
+    path = tmp_path / f"{case}.mp4"
+    h264.write_h264_mp4(str(path), scene_planes(8, 64, 48),
+                        h264.Exerciser(64, 48, 3, gop=5, **planner), **options)
+    capture, _ = assert_reads_as_cv2(path, count=8)
+    sps = h264.parse_sps(h264_pcm.unescape(capture.sps_units[0]))
+    pps = h264.parse_pps(h264_pcm.unescape(capture.pps_units[0]))
+    assert {"cabac": pps["cabac"], "transform_8x8": pps["transform_8x8"],
+            "pps_scaling_matrices": pps["scaling"] is not None,
+            "sps_scaling_matrices": sps["scaling"] is not None}[case]
 
 
 def test_stream_features_are_refused_by_name(tmp_path, monkeypatch):
@@ -365,13 +400,15 @@ def test_stream_features_are_refused_by_name(tmp_path, monkeypatch):
     refused("a change of picture size", changed, "size")
 
 
-def test_cabac_clip_is_refused_before_anything_is_read(tmp_path):
-    """A CABAC PPS (what an iPhone writes) in an otherwise decodable file."""
-    sps, _, samples = stream_units(tmp_path)
+def test_cabac_clip_reads_as_cv2(tmp_path):
+    """A CABAC clip (what an iPhone writes; refused until the reader decoded
+    CABAC), Main profile with P slices: read as cv2 reads it."""
     path = tmp_path / "cabac.mp4"
-    write_units(path, sps, h264.encode_pps(cabac=True), samples)
-    with pytest.raises(mp4.UnsupportedVideoError, match="CABAC.*Queue 1 item 9f"):
-        VideoCapture(str(path), device="cpu")
+    h264.write_h264_mp4(str(path), scene_planes(6, 64, 48),
+                        h264.Exerciser(64, 48, 3, gop=10), profile=77,
+                        cabac=True)
+    capture, _ = assert_reads_as_cv2(path, count=6)
+    assert h264.parse_pps(h264_pcm.unescape(capture.pps_units[0]))["cabac"] == 1
 
 
 # ---------------------------------------------------------------------------

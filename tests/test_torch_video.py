@@ -487,22 +487,28 @@ def test_cpu_reader_refuses_other_macroblocks_by_name(tmp_path, first, later, na
 
 
 def test_cpu_reader_refuses_p_slices_and_cabac(tmp_path):
-    """P slices now decode to cv2's frames; CABAC is refused by name,
-    citing ROADMAP Queue 1 item 9f."""
-    path = tmp_path / "clip.mp4"
-    h264.write_h264_mp4(str(path), seeded_planes(6, 64, 48), h264.Exerciser(64, 48, 2, gop=10))
-    assert {t for t in h264_slice_types(path)} == {h264.I_SLICE, h264.P_SLICE}
-    _, frames = cv2_read(path)
-    got = [f.numpy() for f in VideoCapture(str(path), device="cpu").frames()]
-    assert len(got) == len(frames) == 6
-    for frame, want in zip(got, frames):
-        np.testing.assert_array_equal(frame, want)
+    """P slices and CABAC (the refusals this test once held) now decode to
+    cv2's frames; weighted prediction is refused by name, citing ROADMAP
+    Queue 1 item 9f-3."""
+    for cabac in (False, True):
+        path = tmp_path / f"clip_{cabac}.mp4"
+        h264.write_h264_mp4(str(path), seeded_planes(6, 64, 48),
+                            h264.Exerciser(64, 48, 2, gop=10), cabac=cabac,
+                            profile=77 if cabac else 66)
+        assert {t for t in h264_slice_types(path)} == {h264.I_SLICE, h264.P_SLICE}
+        _, frames = cv2_read(path)
+        got = [f.numpy() for f in VideoCapture(str(path), device="cpu").frames()]
+        assert len(got) == len(frames) == 6
+        for frame, want in zip(got, frames):
+            np.testing.assert_array_equal(frame, want)
     decoder = h264.H264Decoder()
     decoder.decode([h264.encode_sps(32, 16), h264.encode_pps()])
-    bits = h264_pcm.BitWriter().ue(0).ue(0).u(1, 1)
-    cabac = h264_pcm.nal_unit(3, h264_pcm.NAL_PPS, np.frombuffer(bits.align(True), np.uint8))
-    with pytest.raises(mp4.UnsupportedVideoError, match="CABAC.*Queue 1 item 9f"):
-        decoder.decode([cabac])
+    bits = h264_pcm.BitWriter().ue(0).ue(0).u(1, 1).u(1, 0).ue(0).ue(0).ue(0).u(1, 1).u(2, 0)
+    bits.se(0).se(0).se(0).u(1, 1).u(1, 0).u(1, 0)
+    weighted = h264_pcm.nal_unit(3, h264_pcm.NAL_PPS, np.frombuffer(bits.align(True), np.uint8))
+    with pytest.raises(mp4.UnsupportedVideoError,
+                       match=r"weighted prediction.*Queue 1 item 9f-3\)"):
+        decoder.decode([weighted])
 
 
 def h264_slice_types(path):

@@ -444,7 +444,7 @@ def test_cavlc_video_converts_with_pose_and_depth_like_hive_tpu(tmp_path, monkey
 
 def test_cli_converts_and_meshes_a_cavlc_stray_capture_like_hive_tpu(tmp_path):
     """A Stray Scanner capture whose rgb.mp4 is CAVLC H.264 with P slices
-    (what the app writes is H.264; its CABAC is refused): both CLIs give
+    (the app writes CABAC: tests/test_torch_h264_cabac.py): both CLIs give
     equal converted folders and an equal ``bg.glb``."""
     base = make_stray(tmp_path / "stray", num_frames=4, roll_deg=-90.0, writer=make_cavlc_video)
     paths = {name: str(tmp_path / name) for name in ("ours", "theirs")}
@@ -469,22 +469,27 @@ def test_cli_converts_and_meshes_a_cavlc_stray_capture_like_hive_tpu(tmp_path):
             np.testing.assert_array_equal(getattr(got, attribute), getattr(want, attribute))
 
 
-def test_cli_refuses_a_cabac_video_before_writing_anything(tmp_path):
-    """A CABAC clip (an iPhone's entropy coder): the port's CLI refuses it
-    naming ROADMAP Queue 1 item 9f, before its output folder exists."""
+def test_cli_refuses_a_b_slice_video_before_writing_anything(tmp_path):
+    """A clip whose second picture is a B slice (ROADMAP Queue 1 item 9f-3;
+    until CABAC decoded, a CABAC clip was the refused one): the port's CLI
+    refuses it naming the item, before its output folder exists."""
+    import chip_smoke
+
     source = make_cavlc_video(tmp_path / "source.mp4", num_frames=3)
     track = mp4.read_track(source)
-    _, sps, _ = mp4.parse_avcc(track.config)
+    length, sps, pps = mp4.parse_avcc(track.config)
     with open(source, "rb") as f:
         samples = []
         for offset, size in zip(track.offsets, track.sizes):
             f.seek(int(offset))
-            samples.append(f.read(int(size)))
-    clip = str(tmp_path / "cabac.mp4")
-    mp4.write_mp4(clip, mp4.avc1_entry(64, 48, sps[0], h264.encode_pps(cabac=True)), samples,
+            samples.append(mp4.split_nal_units(f.read(int(size)), length))
+    samples[1] = [chip_smoke.as_b_slice(samples[1][0], sps[0], pps[0])] + samples[1][1:]
+    clip = str(tmp_path / "b_slice.mp4")
+    mp4.write_mp4(clip, mp4.avc1_entry(64, 48, sps[0], pps[0]),
+                  [b"".join(len(u).to_bytes(4, "big") + u for u in s) for s in samples],
                   width=64, height=48, timescale=30, durations=[1] * 3, sync=[True, False, False])
     out = str(tmp_path / "out")
-    with pytest.raises(mp4.UnsupportedVideoError, match="CABAC.*Queue 1 item 9f"):
+    with pytest.raises(mp4.UnsupportedVideoError, match="B slices.*Queue 1 item 9f-3"):
         Pipeline.from_command_line(["--dataset_path", clip, "--output_path", out,
                                     "--estimate_pose", "--estimate_depth", "--webxr_path",
                                     out + "_webxr", "--log_file", out + ".log"],

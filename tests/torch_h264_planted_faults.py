@@ -3,18 +3,21 @@
     python tests/torch_h264_planted_faults.py --work DIR   # a few minutes a variant, one at a time
 
 The card's machine has no cv2, so ``chip_smoke.py`` holds the H.264
-decoder built there by two means: the 1080p phone clip's luma PSNR against
-the renders it was written from (``PHONE_H264_MIN_PSNR``), and the VGA
-exerciser clips' digests (``H264_EXERCISER_DIGESTS``: the written file and
-cv2's frames). The writer rebuilds its references with the port's own
-decoder and shares its prediction code, so a fault in the decoder is
-mostly written into the stream too and hides from a PSNR. This script
-copies ``hive_tpu_torch`` and ``chip_smoke.py`` into ``DIR`` once per
-variant, plants one fault in the copy's ``native/src/h264_decode.cpp`` (the
-sound copy plants none), builds it, and prints for each: the phone clip's
-PSNR on ``PHONE_H264_CHECKED``, how many of its 30 frames cv2 reads
-otherwise than the port, and whether each exerciser clip's file and frames
-keep their digests. Not a test: the readings are written down in PERF.md.
+decoder built there by three means: the 1080p CAVLC phone clip's luma PSNR
+against the renders it was written from (``PHONE_H264_MIN_PSNR``), the
+1920x1440 Stray Scanner capture's (High profile, CABAC, the 8x8 transform;
+``STRAY_MIN_PSNR``), and the VGA exerciser clips' digests
+(``H264_EXERCISER_DIGESTS``: the written file and cv2's frames). The
+writer rebuilds its references with the port's own decoder and shares its
+prediction code, so a fault in the decoder is mostly written into the
+stream too and hides from a PSNR. This script copies ``hive_tpu_torch``
+and ``chip_smoke.py`` into ``DIR`` once per variant, plants one fault in
+the copy (``native/src/h264_decode.cpp`` or ``video/h264.py``; the sound
+copy plants none), builds it, and prints for each: the phone clip's and
+the Stray capture's PSNR on their checked frames, how many of their 30
+frames cv2 reads otherwise than the port, and whether each exerciser
+clip's file and frames keep their digests. Not a test: the readings are
+written down in PERF.md.
 """
 
 import argparse
@@ -25,17 +28,37 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join("hive_tpu_torch", "native", "src", "h264_decode.cpp")
+DECODER = os.path.join("hive_tpu_torch", "native", "src", "h264_decode.cpp")
+READER = os.path.join("hive_tpu_torch", "video", "h264.py")
+FLAT = "[(16,) * 16] * 6 + [(16,) * 64] * 2"
 
-# name -> (text of h264_decode.cpp, its replacement); None: the sound build.
+# name -> [(file, its text, the replacement), ...]; None: the sound build.
 VARIANTS = {
     "sound": None,
-    "deblocking_off": ("for (int mx = 0; mx < mbw; ++mx) deblock_mb(st, mbw, mx, my, planes);",
-                       "for (int mx = 0; mx < mbw; ++mx) (void)planes;"),
-    "six_tap_21_19": ("return a - 5 * b + 20 * cc + 20 * d - 5 * e + f;",
-                      "return a - 5 * b + 21 * cc + 19 * d - 5 * e + f;"),
-    "chroma_qp_offset_ignored": ("return kChromaQp[clip3(0, 51, qp + offset)];",
-                                 "return kChromaQp[clip3(0, 51, qp)];"),
+    "deblocking_off": [(DECODER,
+                        "for (int mx = 0; mx < mbw; ++mx) deblock_mb(st, mbw, mx, my, planes);",
+                        "for (int mx = 0; mx < mbw; ++mx) (void)planes;")],
+    "six_tap_21_19": [(DECODER, "return a - 5 * b + 20 * cc + 20 * d - 5 * e + f;",
+                       "return a - 5 * b + 21 * cc + 19 * d - 5 * e + f;")],
+    "chroma_qp_offset_ignored": [(DECODER, "return kChromaQp[clip3(0, 51, qp + offset)];",
+                                  "return kChromaQp[clip3(0, 51, qp)];")],
+    # n of ctxIdx 60 (mb_qp_delta's first bin) in the cabac_init_idc 1 table
+    # one more than Table 9-15's.
+    "cabac_init_idc_1_entry": [(DECODER,
+                                "const int pre = clip3(1, 126, ((t[k][0] * q) >> 4) + t[k][1]);",
+                                "const int pre = clip3(1, 126, ((t[k][0] * q) >> 4) + t[k][1] + "
+                                "(slice_type == 0 && init_idc == 1 && k == 60));")],
+    "internal_8x8_edges_filtered": [(DECODER,
+                                     "if ((e == 0 && !outer) || (q.t8x8 && (e & 1))) continue;",
+                                     "if (e == 0 && !outer) continue;")],
+    "intra_8x8_unfiltered": [(DECODER,
+                              "auto P = [&](int x, int y) { return y < 0 ? top[1 + x] : left[y]; };",
+                              "auto P = [&](int x, int y) { return y < 0 ? (x < 0 ? Q : T[x]) : "
+                              "L[y]; };")],
+    "fall_back_a_flat": [(READER, 'lists = _fall_back(sps["scaling"], DEFAULT_LISTS)',
+                          f'lists = _fall_back(sps["scaling"], {FLAT})'),
+                         (READER, 'DEFAULT_LISTS if sps["scaling"] is None else lists',
+                          f'{FLAT} if sps["scaling"] is None else lists')],
 }
 
 CHILD = r"""
@@ -65,6 +88,16 @@ with tempfile.TemporaryDirectory() as folder:
     theirs = cv2_frames(clip)
     out["phone_frames_unlike_cv2"] = sum(not np.array_equal(a, b) for a, b in zip(ours, theirs))
     out["phone_frames"] = [len(ours), len(theirs)]
+    stray = os.path.join(folder, "stray")
+    _, rendered = cs.write_stray_capture(stray, cs.VIDEO_FRAMES)
+    video = os.path.join(stray, "rgb.mp4")
+    capture = VideoCapture(video, device="cpu")
+    out["stray_psnr"] = {i: cs.psnr_db(next(capture.planes(i, i + 1))[0].numpy(), rendered[i])
+                         for i in cs.STRAY_CHECKED}
+    ours = [f.numpy() for f in capture.frames()]
+    theirs = cv2_frames(video)
+    out["stray_frames_unlike_cv2"] = sum(not np.array_equal(a, b) for a, b in zip(ours, theirs))
+    out["stray_frames"] = [len(ours), len(theirs)]
     for index, (name, *_) in enumerate(cs.H264_EXERCISER_CLIPS):
         path, _ = cs.write_h264_exerciser(folder, index)
         frames = [f.numpy() for f in VideoCapture(path, device="cpu").frames()]
@@ -84,13 +117,12 @@ def prepare(work: str, name: str) -> str:
     shutil.copytree(os.path.join(REPO, "hive_tpu_torch"), os.path.join(root, "hive_tpu_torch"),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     shutil.copy(os.path.join(REPO, "chip_smoke.py"), root)
-    if VARIANTS[name] is not None:
-        old, new = VARIANTS[name]
-        path = os.path.join(root, SOURCE)
+    for source, old, new in VARIANTS[name] or ():
+        path = os.path.join(root, source)
         with open(path) as f:
             text = f.read()
         if text.count(old) != 1:
-            raise SystemExit(f"{name}: the text to change is not in {SOURCE} once")
+            raise SystemExit(f"{name}: the text to change is not in {source} once")
         with open(path, "w") as f:
             f.write(text.replace(old, new))
     return root
