@@ -61,9 +61,10 @@ Phases (any failure raises and the script exits non-zero):
 6a. [shard]: the multi-device layer (``--num_devices``) split k ways on
    this one card (a mesh that names it k times), every number labelled as
    k shards on one card beside the card's name and power limit, none a
-   multi-card one. The bench integration split 2 and 4 ways in both
-   placements: states bit-identical to the unsplit kernel path (and, for
-   the cyclic splits, to their plain paths), two classification launches
+   multi-card one. The bench integration split 2 ways in both placements
+   (a 4-way split is left out, for the script's time): states
+   bit-identical to the unsplit kernel path (and, for the cyclic splits,
+   to their plain paths), two classification launches
    per frame and shard, and (cyclic) one band update; on bench frame 0
    each slab's classification and band update bit-exact against their
    plain versions. The e2e dataset of phase 6 through ``fusion.tsdf_fusion``
@@ -237,12 +238,13 @@ Phases (any failure raises and the script exits non-zero):
    equal to the seeded samples on the CPU and through the card's capture;
    NVDEC's parser logged (not on the decode path, ROADMAP item 9b); the
    card's YUV -> BGR conversion equal to the CPU's on the same planes
-   (device ms, kernels, peak memory). Seven H.264 exerciser clips at VGA
+   (device ms, kernels, peak memory). Ten H.264 exerciser clips at VGA
    (``video.h264.Exerciser``: every macroblock, slice, reference and
    marking path the writer counts, written at least once over them, on
-   integer-made frames; four High profile clips, CABAC with each
-   cabac_init_idc and CAVLC, with the 8x8 transform and scaling lists,
-   coding every CABAC context I and P slices can read under each of the
+   integer-made frames; six High profile clips, CABAC with each
+   cabac_init_idc and CAVLC, with the 8x8 transform and scaling lists;
+   three with B pictures, each direct mode and weighted prediction;
+   coding every CABAC context I, P and B slices can read under each of the
    four tables): each file, and its frames on the card and on the CPU,
    hashing to the digests the tests hold to cv2 (the card's machine has no
    cv2). The card's rotation and uint8
@@ -256,20 +258,25 @@ Phases (any failure raises and the script exits non-zero):
    2 phone clip (``video.mpeg4.write_mpeg4_mp4``: Simple Profile, what
    cv2's default ``mp4v`` writer makes; an I-VOP every 12 frames, the
    wall's motion as 1MV / 4MV vectors, a video packet a row, 1088 coded
-   lines) and as an H.264 one (``video.h264.write_h264_mp4``: CAVLC, an
+   lines) and as two H.264 ones (``video.h264.write_h264_mp4``: CAVLC, an
    IDR picture every 12 frames, the wall's motion to each of up to four
-   references, a slice a row, deblocking on): decoded on the host
-   (native), frames 0, 11, 12 and 29 on the card equal to the CPU's and
-   their luma above a stated PSNR against the renders, the intra and a P
-   picture's host decode ms, the card's conversion, a ``frames()`` loop.
-   A small clip with a B slice refused by the CLI naming ROADMAP item
-   9f-3 before anything is written. The Stray Scanner capture's rgb.mp4
+   references, a slice a row, deblocking on; and as x264 codes a clip at
+   its defaults: High profile, CABAC, the 8x8 transform, P pictures with
+   explicit weights and 2-3 B pictures between them in a pyramid, spatial
+   direct, implicit B weights, max_num_reorder_frames 2): decoded on the
+   host (native), frames 0, 11, 12 and 29 on the card equal to the CPU's
+   and their luma above a stated PSNR against the renders, the intra, a P
+   and (x264's) a reference and a non-reference B picture's host decode
+   ms, the card's conversion, a ``frames()`` loop. A small clip whose SPS
+   codes fields refused by the CLI naming ROADMAP item 9f-4 before
+   anything is written. The Stray Scanner capture's rgb.mp4
    coded as the app codes it (High profile, CABAC, the 8x8 transform,
    1920x1440): frames 0, 11, 12 and 29 on the card equal to the CPU's,
    their luma above STRAY_MIN_PSNR against the renders, its IDR and a P
    picture's host decode ms beside the card's name and power limit. Then
    the user's runs through ``python -m
-   hive_tpu_torch`` in this process: the three phone clips with
+   hive_tpu_torch`` in this process: the Motion JPEG, MPEG-4 and x264-shaped
+   H.264 phone clips with
    ``--estimate_pose --estimate_depth`` (PnP odometry, DPT with phase 8's
    check weights; ``--key_frame_threshold 1.0``, every frame fused, as in
    the other CLI runs) on their first 10 frames, and the 30-frame Stray
@@ -1479,7 +1486,9 @@ def run_main_path(device, launches, keep: str):
 # The multi-device layer, split k ways on one card.
 # ---------------------------------------------------------------------------
 
-SHARD_SPLITS = (2, 4)
+# The bench integration's splits (a 4-way one is left out for the script's
+# time, under its 1200 s).
+SHARD_SPLITS = (2,)
 SHARD_TRACED_FRAMES = 8
 # The split pose optimisation (float64, pose-optimise's 178k correspondences,
 # POSE_SHARD_EPOCHS epochs, no plateau or early stop) against the unsplit
@@ -1585,7 +1594,7 @@ def check_shards(device, launches, e2e: str, tmp: str, smi: str) -> dict:
     label = f"on one card ({smi})"
     out = {"card": smi, "device_count": torch.cuda.device_count()}
 
-    # Bench-shape integration, split 2 and 4 ways in both placements.
+    # Bench-shape integration, split SHARD_SPLITS ways in both placements.
     frames = bench_frames(device)
     depths, colors, K, poses = frames
     bounds = np.array([[-2.0, 2.0], [-2.0, 2.0], [0.0, 4.0]], np.float32)
@@ -4016,6 +4025,22 @@ PHONE_MPEG4_MIN_PSNR = 45.0
 PHONE_H264_QP, PHONE_H264_GOP, PHONE_H264_REFS = 22, 12, 4
 PHONE_H264_CHECKED = (0, 11, 12, 29)
 PHONE_H264_MIN_PSNR = 45.5
+# The phone clip as x264 codes it at its defaults (as ffmpeg runs it): High
+# profile, CABAC, the 8x8 transform, an IDR picture every PHONE_H264_GOP
+# frames, PHONE_H264_BFRAMES B pictures between anchors in a pyramid
+# (bframes 3, b-pyramid normal: GopStructure), spatial direct, implicit B
+# weights (weighted_bipred_idc 2), explicit P weights (weightp), up to
+# PHONE_H264_REFS references, max_num_reorder_frames 2; otherwise the CAVLC
+# clip's settings. Frames PHONE_H264_B_CHECKED (the IDR picture, a
+# reference B, a non-reference B, the last P) are held to the CPU's and to
+# the least luma PSNR PHONE_H264_B_MIN_PSNR against the renders: a sound
+# build reads 46.5899 / 47.0849 / 47.2492 / 46.9674 dB, and the faults only
+# B slices reach (temporal direct's scale, implicit weights, bS over list 0
+# alone) read within 0.007 dB of it (tests/torch_h264_planted_faults.py):
+# the B exerciser clips' digests catch those.
+PHONE_H264_BFRAMES = 3
+PHONE_H264_B_CHECKED = (0, 2, 3, 29)
+PHONE_H264_B_MIN_PSNR = 46.5
 # The Stray Scanner capture's rgb.mp4 (High profile, CABAC, the 8x8
 # transform, as the app writes it; otherwise the H.264 phone clip's
 # settings): the frames whose card reads are held to the CPU's, and the
@@ -4034,10 +4059,10 @@ PHONE_CLI_FRAMES = 10
 # exerciser_planes' noise). Together they write every syntax path the
 # writer counts, and (the High profile clips: CABAC with cabac_init_idc 0,
 # 1 and 2, and CAVLC, each with the 8x8 transform on half the macroblocks
-# and scaling lists) code every CABAC context that I and P slices of
-# progressive 4:2:0 pictures can read, under each of the four tables
-# (video.h264.cabac_contexts_reachable). Their scaling lists: explicit
-# ones (a run of equal values at the end coded by a nextScale of 0),
+# and scaling lists, B pictures in some) code every CABAC context that I, P
+# and B slices of progressive 4:2:0 pictures can read, under each of the
+# four tables (video.h264.cabac_contexts_reachable). Their scaling lists:
+# explicit ones (a run of equal values at the end coded by a nextScale of 0),
 # default ones (useDefaultScalingMatrixFlag), and absent ones under fall-back
 # rule A (each of the eight lists in some clip: SPS lists, or PPS lists
 # without SPS lists) and rule B (each of the eight: PPS lists beside SPS
@@ -4080,6 +4105,20 @@ H264_EXERCISER_CLIPS = (
          pps=[scaling_list(16, 51), None, scaling_list(16, 53), None, scaling_list(16, 55), None,
               scaling_list(64, 57), None])),
      dict(H264_HIGH_PLANNER, qp=26), 24),
+    # B pictures (ROADMAP item 9f-3): each B type and sub-type, both direct
+    # modes with and without direct_8x8_inference, weighted_bipred_idc 0, 1
+    # and 2, explicit P weights, B references (a pyramid), list 1's
+    # modification, long-term references in list 1, list 1 starting as list
+    # 0 (B anchors, all references in the past), and CABAC's B contexts
+    # under each cabac_init_idc.
+    ("b_cavlc_explicit", 12,
+     dict(profile=77, weighted_pred=True, weighted_bipred=1, num_ref_frames=4),
+     dict(gop=12, bframes=3, pyramid=True, weights=0.8, mmco=0.6, b_anchors=0.3), 1),
+    ("b_cabac_implicit", 12,
+     dict(H264_HIGH, cabac=True, weighted_bipred=2, direct_8x8_inference=False),
+     dict(H264_HIGH_PLANNER, gop=12, bframes=2, pyramid=True, init_idcs=(0, 1, 2), qp=26), 24),
+    ("b_cavlc_8x8_default", 12, dict(H264_HIGH, weighted_pred=True),
+     dict(H264_HIGH_PLANNER, gop=12, bframes=3, weights=0.5, spatial=0.3, qp=26), 24),
 )
 # Each exerciser clip's SHA-256 (its first 16 hex digits): the file, and
 # the BGR frames cv2 5.0.0 reads from it, in order (tests/test_torch_h264.py
@@ -4096,6 +4135,9 @@ H264_EXERCISER_DIGESTS = {
     "cabac_fall_back_b": ("4006ff8f91c0e905", "b5fd7ec725fc5c77"),
     "cabac_fall_back_a": ("55ee6b764787d553", "e41adf81eab337c5"),
     "cavlc_8x8": ("a143bc0ff73a6def", "d2266a2004ef9618"),
+    "b_cavlc_explicit": ("61048b4597001fdf", "4a6eca4e593279ac"),
+    "b_cabac_implicit": ("1d3648cd3920b43b", "cc6b5627e9341aa2"),
+    "b_cavlc_8x8_default": ("aad380a94f83fc6c", "e30902d5c65db71f"),
 }
 
 
@@ -4205,13 +4247,13 @@ def check_stray_capture(device, base: str, rendered: dict) -> dict:
     least STRAY_MIN_PSNR against the renders; the host decode (native) ms
     of its 1920x1440 IDR picture and of a P picture, beside the card's
     name and power limit."""
-    from hive_tpu_torch.video import h264, h264_pcm, mp4
+    from hive_tpu_torch.video import h264, h264_bits, mp4
     from hive_tpu_torch.video.capture import VideoCapture
 
     video = os.path.join(base, "rgb.mp4")
     card, cpu = VideoCapture(video, device=device), VideoCapture(video, device="cpu")
-    sps = h264.parse_sps(h264_pcm.unescape(card.sps_units[0]))
-    pps = h264.parse_pps(h264_pcm.unescape(card.pps_units[0]))
+    sps = h264.parse_sps(h264_bits.unescape(card.sps_units[0]))
+    pps = h264.parse_pps(h264_bits.unescape(card.pps_units[0]))
     coding = (sps["profile"], pps["cabac"], pps["transform_8x8"])
     if coding != (100, 1, 1):
         raise AssertionError(f"[video] the Stray capture is (profile, CABAC, 8x8) {coding}")
@@ -4232,7 +4274,7 @@ def check_stray_capture(device, base: str, rendered: dict) -> dict:
                                  f"{psnr[index]:.3f} dB PSNR against the luma it was written "
                                  f"from, under {STRAY_MIN_PSNR} dB: the decoder is wrong on "
                                  f"this host")
-    units, _, idr_ms, p_ms = h264_decode_ms(card)
+    units, _, (idr_ms, p_ms) = h264_decode_ms(card)
     result = dict(luma_psnr_db=psnr, idr_bytes=sum(map(len, units[0])),
                   p_bytes=sum(map(len, units[1])), idr_decode_ms=idr_ms, p_decode_ms=p_ms)
     log(f"[video] Stray capture rgb.mp4 (High profile, CABAC, the 8x8 transform, "
@@ -4328,16 +4370,19 @@ def check_video(device, launches, tmp: str) -> dict:
 
     # A user's plain video and Stray Scanner capture through the CLI: the
     # phone clip as Motion JPEG, as MPEG-4 Part 2 (what cv2's mp4v writer
-    # makes) and as H.264, and the capture's H.264 rgb.mp4, all decoded on
-    # the host for every device; a clip of B slices refused.
+    # makes) and as H.264 (CAVLC, and as x264 codes it, with B pictures),
+    # and the capture's H.264 rgb.mp4, all decoded on the host for every
+    # device; a clip of fields refused.
     clip = os.path.join(folder, "phone.mp4")
     mpeg4_clip = os.path.join(folder, "phone_mpeg4.mp4")
     h264_clip = os.path.join(folder, "phone_h264.mp4")
+    h264_b_clip = os.path.join(folder, "phone_h264_b.mp4")
     stray = os.path.join(folder, "stray")
     results["mjpeg"] = check_mjpeg_clip(device, clip)
     results["mpeg4"] = check_mpeg4_clip(device, mpeg4_clip)
     results["h264"] = check_h264_clip(device, h264_clip)
-    results["b_slice_refusal"] = check_b_slice_refusal(folder)
+    results["h264_b"] = check_h264_b_clip(device, h264_b_clip)
+    results["field_refusal"] = check_field_refusal(folder)
     start = time.perf_counter()
     results["stray_writer"], rendered = write_stray_capture(stray, VIDEO_FRAMES)
     log(f"[video] Stray Scanner capture written ({VIDEO_FRAMES} frames, rgb.mp4 H.264 High "
@@ -4349,7 +4394,7 @@ def check_video(device, launches, tmp: str) -> dict:
                   os.path.join(folder, "no_colmap")]
     runs = [("phone", clip, pose_depth, (360, 640), PHONE_CLI_FRAMES),
             ("phone_mpeg4", mpeg4_clip, pose_depth, (360, 640), PHONE_CLI_FRAMES),
-            ("phone_h264", h264_clip, pose_depth, (360, 640), PHONE_CLI_FRAMES),
+            ("phone_h264_b", h264_b_clip, pose_depth, (360, 640), PHONE_CLI_FRAMES),
             ("stray", stray, [], (640, 480), VIDEO_FRAMES)]
     results["runs"] = run_video_conversions(device, launches, folder, runs)
     log(f"[video] the phase took {time.perf_counter() - phase_start:.1f} s")
@@ -4359,7 +4404,7 @@ def check_video(device, launches, tmp: str) -> dict:
 def check_h264_exerciser(device, folder: str) -> dict:
     """The H.264 exerciser clips (H264_EXERCISER_CLIPS, 640x480): every
     syntax path the writer counts written at least once over them, and every
-    CABAC context that I and P slices can read coded under each of the four
+    CABAC context that I, P and B slices can read coded under each of the four
     tables; each file the bytes of H264_EXERCISER_DIGESTS, and its frames
     read on the card and on the CPU both the frames cv2 reads (by their
     digest)."""
@@ -4396,7 +4441,8 @@ def check_h264_exerciser(device, folder: str) -> dict:
     result["counts"] = totals
     result["contexts_read"] = int(reachable.sum())
     log(f"[video] H.264 exerciser clips {[c[0] for c in H264_EXERCISER_CLIPS]} (640x480; "
-        f"CAVLC and CABAC, I and P, the 8x8 transform, scaling lists): each file and its "
+        f"CAVLC and CABAC, I, P and B, the 8x8 transform, scaling lists, weighted prediction): "
+        f"each file and its "
         f"frames on the card and on the CPU hash to the digests of cv2's read; every path "
         f"written ({totals}); all {result['contexts_read']} reachable (table, ctxIdx) CABAC "
         f"contexts coded, the least {int(contexts[reachable].min())} times")
@@ -4480,59 +4526,50 @@ def frames_digest(frames) -> str:
     return digest.hexdigest()[:16]
 
 
-def as_b_slice(unit: bytes, sps: bytes, pps: bytes) -> bytes:
-    """A slice NAL unit whose header says B (slice_type 1), its data kept."""
-    from hive_tpu_torch.video import h264, h264_pcm
+def field_sps(width: int, height: int) -> bytes:
+    """A Baseline SPS of ``width`` x ``height`` (multiples of 16 and 32)
+    whose pictures are fields (frame_mbs_only_flag 0)."""
+    from hive_tpu_torch.video import h264_bits
 
-    rbsp = h264_pcm.unescape(unit)
-    sps_fields = h264.parse_sps(h264_pcm.unescape(sps))
-    pps_fields = h264.parse_pps(h264_pcm.unescape(pps))
-    sh = h264.parse_slice_header(rbsp, {0: sps_fields}, {0: pps_fields})
-    bits = np.unpackbits(np.frombuffer(rbsp[1:], np.uint8))[sh.bit_pos - 8:].tolist()
-    sh.slice_type = 1
-    body = h264.write_slice_header(sh, sps_fields, pps_fields).bits + bits
-    body += [0] * (-len(body) % 8)
-    return bytes([unit[0]]) + h264_pcm.escape(np.packbits(np.array(body, np.uint8))).tobytes()
+    w = h264_bits.BitWriter().u(8, 66).u(8, 0).u(8, 51).ue(0).ue(4).ue(0).ue(12).ue(1).u(1, 0)
+    w.ue(width // 16 - 1).ue(height // 32 - 1).u(1, 0).u(1, 0).u(1, 1).u(1, 0).u(1, 0)
+    return h264_bits.nal_unit(3, h264_bits.NAL_SPS, np.frombuffer(w.align(True), np.uint8))
 
 
-def check_b_slice_refusal(folder: str) -> dict:
-    """A small H.264 clip whose second picture's slice says B: the CLI
-    refuses it when the capture opens, naming B slices and ROADMAP Queue 1
-    item 9f-3, before it writes anything."""
+def check_field_refusal(folder: str) -> dict:
+    """A small H.264 clip whose SPS codes fields: the CLI refuses it when the
+    capture opens, naming fields and ROADMAP Queue 1 item 9f-4, before it
+    writes anything."""
     from hive_tpu_torch.video import h264, mp4
 
-    source = os.path.join(folder, "b_slice_source.mp4")
-    h264.write_h264_mp4(source, video_planes(3, 64, 48, SEED),
-                        h264.Exerciser(64, 48, SEED, gop=3, mmco=0))
+    source = os.path.join(folder, "field_source.mp4")
+    h264.write_h264_mp4(source, video_planes(3, 64, 64, SEED),
+                        h264.Exerciser(64, 64, SEED, gop=3, mmco=0))
     track = mp4.read_track(source)
-    length, sps, pps = mp4.parse_avcc(track.config)
+    length, _, pps = mp4.parse_avcc(track.config)
     with open(source, "rb") as f:
         samples = []
         for offset, size in zip(track.offsets, track.sizes):
             f.seek(int(offset))
-            samples.append(mp4.split_nal_units(f.read(int(size)), length))
-    samples[1] = [as_b_slice(samples[1][0], sps[0], pps[0])] + samples[1][1:]
-    clip = os.path.join(folder, "b_slice.mp4")
-    mp4.write_mp4(clip, mp4.avc1_entry(64, 48, sps[0], pps[0]),
-                  [b"".join(len(u).to_bytes(4, "big") + u for u in s) for s in samples],
-                  width=64, height=48, timescale=30, durations=[1] * len(samples),
-                  sync=[True, False, False])
-    out = os.path.join(folder, "b_slice_converted")
+            samples.append(f.read(int(size)))
+    clip = os.path.join(folder, "fields.mp4")
+    mp4.write_mp4(clip, mp4.avc1_entry(64, 64, field_sps(64, 64), pps[0]), samples, width=64,
+                  height=64, timescale=30, durations=[1] * len(samples), sync=[True, False, False])
+    out = os.path.join(folder, "fields_converted")
     argv = ["hive_tpu_torch", "--dataset_path", clip, "--output_path", out, "--estimate_pose",
             "--estimate_depth", "--webxr_path", out + "_webxr", "--log_file", out + ".log"]
     try:
         with mock.patch.object(sys, "argv", argv):
             runpy.run_module("hive_tpu_torch", run_name="__main__", alter_sys=True)
     except mp4.UnsupportedVideoError as e:
-        if "B slices" not in str(e) or "Queue 1 item 9f-3" not in str(e):
+        if "fields or MBAFF" not in str(e) or "Queue 1 item 9f-4" not in str(e):
             raise
         message = str(e)
     else:
-        raise AssertionError("[video] the CLI converted a clip of B slices")
+        raise AssertionError("[video] the CLI converted a clip of fields")
     if os.path.exists(out):
-        raise AssertionError(f"[video] the refused B-slice clip left {out}")
-    log(f"[video] the CLI refuses an H.264 clip with a B slice before writing anything: "
-        f"{message}")
+        raise AssertionError(f"[video] the refused field clip left {out}")
+    log(f"[video] the CLI refuses an H.264 clip of fields before writing anything: {message}")
     return dict(message=message)
 
 
@@ -4711,6 +4748,110 @@ def write_h264_phone_clip(path: str) -> Tuple[float, dict, list]:
     return time.perf_counter() - start, totals, frames
 
 
+def write_h264_b_phone_clip(path: str) -> Tuple[float, dict, list]:
+    """The phone clip as x264 codes it at its defaults
+    (``write_h264_mp4``, ``MotionPlanner`` with B pictures): the same
+    renders, High profile, CABAC, the 8x8 transform, an IDR picture every
+    PHONE_H264_GOP frames, PHONE_H264_BFRAMES B pictures between anchors in
+    a pyramid (B_Bi_16x16 with the wall's motion to both lists' first two
+    references, B_Direct_16x16 on every fourth macroblock), spatial direct,
+    implicit B weights, explicit P weights, a slice a row, deblocking on,
+    max_num_reorder_frames 2. Returns the seconds it took, the writer's
+    counts and the rendered planes."""
+    from hive_tpu_torch.video import h264
+
+    start = time.perf_counter()
+    frames, poses, K = phone_renders()
+    totals = h264.write_h264_mp4(
+        path, frames,
+        h264.MotionPlanner(PHONE_W, PHONE_H,
+                           lambda i, r: wall_motion_qpel(poses, K, i, r, PHONE_W, PHONE_H),
+                           gop=PHONE_H264_GOP, qp=PHONE_H264_QP, refs=PHONE_H264_REFS,
+                           t8x8=True, bframes=PHONE_H264_BFRAMES, pyramid=True,
+                           p_weights=True),
+        init_qp=PHONE_H264_QP, num_ref_frames=PHONE_H264_REFS, profile=100, cabac=True,
+        transform_8x8=True, weighted_pred=True, weighted_bipred=2)
+    totals.pop("coverage")
+    return time.perf_counter() - start, totals, frames
+
+
+def check_h264_b_clip(device, clip: str) -> dict:
+    """The x264-shaped H.264 phone clip read on the card against the CPU:
+    its coding (High profile, CABAC, the 8x8 transform, explicit P and
+    implicit B weights, a reorder depth of 2, B pictures, references among
+    them), the demuxer's size, count and rate, frames PHONE_H264_B_CHECKED
+    equal and their decoded luma at least PHONE_H264_B_MIN_PSNR against the
+    renders; the host decode (native) ms of its IDR picture, a P picture,
+    a reference B and a non-reference B picture beside the card's name and
+    power limit, and a ``frames()`` loop's ms a frame on the card."""
+    from hive_tpu_torch.video import h264, h264_bits, mp4
+    from hive_tpu_torch.video.capture import VideoCapture
+
+    write_s, totals, rendered = write_h264_b_phone_clip(clip)
+    card, cpu = VideoCapture(clip, device=device), VideoCapture(clip, device="cpu")
+    sps = h264.parse_sps(h264_bits.unescape(card.sps_units[0]))
+    pps = h264.parse_pps(h264_bits.unescape(card.pps_units[0]))
+    coding = (sps["profile"], pps["cabac"], pps["transform_8x8"], pps["weighted_pred"],
+              pps["weighted_bipred"], card.reorder)
+    if coding != (100, 1, 1, 1, 2, 2) or not totals["b_pictures"] or \
+            not totals["b_reference_pictures"]:
+        raise AssertionError(f"[video] the x264-shaped clip is (profile, CABAC, 8x8, weighted_pred, "
+                             f"weighted_bipred_idc, reorder) {coding}, B pictures "
+                             f"{totals['b_pictures']} ({totals['b_reference_pictures']} "
+                             f"references)")
+    expected = (PHONE_W, PHONE_H, VIDEO_FRAMES, 30.0, mp4.H264)
+    for capture in (card, cpu):
+        got = (capture.width, capture.height, capture.frame_count, capture.fps, capture.codec)
+        if got != expected:
+            raise AssertionError(f"[video] the x264-shaped clip reads as {got}, not {expected}")
+    psnr = {}
+    for index in PHONE_H264_B_CHECKED:
+        if not torch.equal(card.frame(index).cpu(), cpu.frame(index)):
+            raise AssertionError(f"[video] the x264-shaped clip's frame {index} on the card "
+                                 f"differs from the CPU's")
+        y = next(card.planes(index, index + 1))[0].cpu().numpy()
+        psnr[index] = psnr_db(y, rendered[index][0])
+        if not psnr[index] >= PHONE_H264_B_MIN_PSNR:
+            raise AssertionError(f"[video] the x264-shaped clip's frame {index} decodes "
+                                 f"{psnr[index]:.3f} dB PSNR against the luma it was written "
+                                 f"from, under {PHONE_H264_B_MIN_PSNR} dB: the decoder is wrong "
+                                 f"on this host")
+    units, first, ms = h264_decode_ms(card, 4)
+    kinds = []
+    decoder = h264.H264Decoder(pixels=False)
+    decoder.decode(card.sps_units + card.pps_units)
+    for unit in units:
+        picture = decoder.decode(unit)
+        kinds.append(("I" if picture.idr else h264.SLICE_NAMES[picture.slice_types[0]])
+                     + ("" if unit[0][0] >> 5 else " non-reference"))
+    if kinds != ["I", "P", "B", "B non-reference"]:
+        raise AssertionError(f"[video] the x264-shaped clip's first pictures are {kinds}")
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in card.frames():
+        pass
+    torch.cuda.synchronize()
+    loop_ms = 1e3 * (time.perf_counter() - start) / VIDEO_FRAMES
+    names = ("idr", "p", "b_reference", "b_non_reference")
+    result = dict(write_s=write_s, bytes=os.path.getsize(clip), writer=totals,
+                  luma_psnr_db=psnr, frames_loop_ms=loop_ms,
+                  **{f"{name}_bytes": sum(map(len, u)) for name, u in zip(names, units)},
+                  **{f"{name}_decode_ms": value for name, value in zip(names, ms)})
+    log(f"[video] x264-shaped H.264 phone clip: {VIDEO_FRAMES} frames {PHONE_W}x{PHONE_H}, High "
+        f"profile, CABAC, the 8x8 transform, QP {PHONE_H264_QP}, an IDR picture every "
+        f"{PHONE_H264_GOP}, {PHONE_H264_BFRAMES} B pictures between anchors in a pyramid, spatial "
+        f"direct, implicit B and explicit P weights, max_num_reorder_frames 2 "
+        f"({result['bytes']} B, written in {write_s:.1f} s; writer counts {totals}); size, "
+        f"count and rate as written; frames {PHONE_H264_B_CHECKED} on the card equal the CPU's, "
+        f"their luma at {', '.join(f'{v:.4f}' for v in psnr.values())} dB PSNR against the "
+        f"renders (floor {PHONE_H264_B_MIN_PSNR}); host decode "
+        + ", ".join(f"{value:.3f} ms the {name.replace('_', ' ')} picture "
+                    f"({result[name + '_bytes']} B)" for name, value in zip(names, ms))
+        + f" (native, one thread) on {nvidia_smi_line()}; a frames() loop on the card "
+        f"{loop_ms:.3f} ms a frame")
+    return result
+
+
 def psnr_db(got: np.ndarray, want: np.ndarray) -> float:
     """PSNR of uint8 ``got`` against ``want``, in dB."""
     error = np.mean((got.astype(np.float64) - want.astype(np.float64)) ** 2)
@@ -4828,7 +4969,7 @@ def check_h264_clip(device, clip: str) -> dict:
                                  f"{psnr[index]:.3f} dB PSNR against the luma it was "
                                  f"written from, under {PHONE_H264_MIN_PSNR} dB: the "
                                  f"decoder is wrong on this host")
-    units, first, idr_ms, p_ms = h264_decode_ms(card)
+    units, first, (idr_ms, p_ms) = h264_decode_ms(card)
     if first is None or not first.idr:
         raise AssertionError("[video] the H.264 clip does not start with an IDR picture")
     planes = [torch.from_numpy(np.ascontiguousarray(p)).to(device)
@@ -4861,30 +5002,30 @@ def check_h264_clip(device, clip: str) -> dict:
     return result
 
 
-def h264_decode_ms(capture) -> tuple:
-    """The host decode (native, one thread) of an H.264 capture's first two
-    samples, an IDR and a P picture: their NAL units, the decoded IDR
-    picture, and the ms of each, best of 3."""
+def h264_decode_ms(capture, count: int = 2) -> tuple:
+    """The host decode (native, one thread) of an H.264 capture's first
+    ``count`` samples in decode order (an IDR picture, then a P picture, and
+    in x264's layout a reference and a non-reference B picture): their NAL
+    units, the decoded IDR picture, and the ms of each given the pictures
+    before it, best of 3."""
     import copy
 
     from hive_tpu_torch.video import h264
 
-    units = [capture._nal_units(k) for k in range(2)]
+    units = [capture._nal_units(k) for k in range(count)]
+    decoder = h264.H264Decoder()
+    decoder.decode(capture.sps_units + capture.pps_units)
+    first, ms = None, []
+    for unit in units:
+        def decode_one(before=decoder, unit=unit):
+            trial = copy.copy(before)
+            trial.refs = list(before.refs)
+            return trial.decode(unit)
 
-    def fresh():
-        decoder = h264.H264Decoder()
-        decoder.decode(capture.sps_units + capture.pps_units)
-        return decoder
-
-    def decode_p():
-        trial = copy.copy(after_idr)
-        trial.refs = list(after_idr.refs)
-        return trial.decode(units[1])
-
-    idr_ms = host_ms(lambda: fresh().decode(units[0]), reps=3)
-    after_idr = fresh()
-    first = after_idr.decode(units[0])
-    return units, first, idr_ms, host_ms(decode_p, reps=3)
+        ms.append(host_ms(decode_one, reps=3))
+        picture = decoder.decode(unit)
+        first = first or picture
+    return units, first, ms
 
 
 def run_video_conversions(device, launches, folder: str, runs) -> dict:
@@ -6259,7 +6400,7 @@ def main() -> int:
             launches_pnp_pose=launches["pnp_pose"][name],
             launches_video_phone=launches["video_phone"][name],
             launches_video_phone_mpeg4=launches["video_phone_mpeg4"][name],
-            launches_video_phone_h264=launches["video_phone_h264"][name],
+            launches_video_phone_h264_b=launches["video_phone_h264_b"][name],
             launches_video_stray=launches["video_stray"][name],
             launches_bench=launches["bench"][name], launches_shard=launches["shard"][name],
             launches_research=launches["research"][name],
@@ -6304,12 +6445,12 @@ def main() -> int:
         "cv2.SIFT_create(...).detectAndCompute, in OpenCV's sample order",
         launches=launches["video_phone"]["ordered_hist"],
         launches_phone_mpeg4=launches["video_phone_mpeg4"]["ordered_hist"],
-        launches_phone_h264=launches["video_phone_h264"]["ordered_hist"],
+        launches_phone_h264_b=launches["video_phone_h264_b"]["ordered_hist"],
         launches_pnp_pose=launches["pnp_pose"]["ordered_hist"], exact=True,
         **ordered[360], orientation=ordered[36],
         shapes_phone=video["runs"]["phone"]["ordered_hist_shapes"],
         shapes_phone_mpeg4=video["runs"]["phone_mpeg4"]["ordered_hist_shapes"],
-        shapes_phone_h264=video["runs"]["phone_h264"]["ordered_hist_shapes"],
+        shapes_phone_h264_b=video["runs"]["phone_h264_b"]["ordered_hist_shapes"],
         shapes_pnp_pose=pnp_run["ordered_hist_shapes"]))
     log("[shard] summary " + json.dumps(shards))
     log("[convert] summary " + json.dumps(conversion))

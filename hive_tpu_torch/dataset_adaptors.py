@@ -27,9 +27,10 @@ counterpart of :296-329, through :mod:`hive_tpu_torch.sfm`).
 
 Videos (a plain ``.mp4``, a StrayScanner capture's ``rgb.mp4``) are read
 by :class:`hive_tpu_torch.video.capture.VideoCapture` as ``cv2.VideoCapture``
-reads them: H.264 (I and P slices, CAVLC or CABAC, the 8x8 transform and
-scaling matrices, as phones and Stray Scanner write them; B slices and the
-rest of ROADMAP.md Queue 1 item 9f are refused by name),
+reads them: H.264 (I, P and B slices, CAVLC or CABAC, the 8x8 transform,
+scaling matrices and weighted prediction, as phones, Stray Scanner and
+x264 write them; fields, MBAFF and the rest of ROADMAP.md Queue 1 items
+9f-4 and 9f are refused by name),
 Motion JPEG and MPEG-4 Part 2 (what cv2's own writer makes) in MP4, each
 decoded on the host for every device; rotated and resized on the device
 (``image_processing.rotate`` / ``resize_linear_u8``, cv2's bytes) and
@@ -681,8 +682,8 @@ class VideoAdaptorBase(DatasetAdaptor, ABC):
 
     :param device: where the frames are converted, rotated and resized;
         default ``cuda:0``. An H.264 stream outside the decoded subset is
-        refused when the capture opens, naming the feature (ROADMAP.md
-        Queue 1 item 9f).
+        refused when the capture opens, naming the feature and its ROADMAP.md
+        Queue 1 item (9f-4 for fields and MBAFF, 9f for the rest).
     """
 
     def __init__(self, base_path: File, output_path: File, video_path: Union[str, Path],

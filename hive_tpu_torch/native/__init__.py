@@ -1,7 +1,7 @@
 """Native (C++) host code, loaded via ctypes: the extraction weld, the
 QEM decimation, the JPEG scan decodes (baseline and progressive), the PNG
 unfilter, Telea's inpainting, the MPEG-4 Part 2 VOP decode and encode and
-the H.264 slice decode (CAVLC and CABAC), deblocking and encode, with
+the H.264 slice decode (I, P and B slices, CAVLC and CABAC), deblocking and encode, with
 its constant tables in ``src/h264_tables.h``.
 
 Counterpart of ``hive_tpu/native`` (``src/weld.cpp`` and
@@ -213,10 +213,12 @@ def get_native_lib() -> Optional[ctypes.CDLL]:
         lib.hive_h264_stat_counts.restype = ct.c_int
         lib.hive_h264_stat_counts.argtypes = [ct.POINTER(ct.c_int32)]
         lib.hive_h264_decode_slice.restype = ct.c_int
+        lib.hive_h264_param_ints.restype = ct.c_int
+        lib.hive_h264_param_ints.argtypes = []
         lib.hive_h264_decode_slice.argtypes = [
             ct.c_char_p, ct.c_int64, ct.c_int64, ct.POINTER(ct.c_int32),
-            ct.POINTER(ct.c_void_p), ct.POINTER(ct.c_int32), ct.POINTER(ct.c_void_p),
-            ct.c_void_p, ct.POINTER(ct.c_int64),
+            ct.POINTER(ct.c_void_p), ct.POINTER(ct.c_int32), ct.c_void_p,
+            ct.POINTER(ct.c_void_p), ct.c_void_p, ct.POINTER(ct.c_int64),
         ]
         lib.hive_h264_deblock.restype = ct.c_int
         lib.hive_h264_deblock.argtypes = [
@@ -225,8 +227,8 @@ def get_native_lib() -> Optional[ctypes.CDLL]:
         lib.hive_h264_encode_slice.restype = ct.c_int64
         lib.hive_h264_encode_slice.argtypes = [
             ct.POINTER(ct.c_int32), ct.POINTER(ct.c_void_p), ct.POINTER(ct.c_void_p),
-            ct.POINTER(ct.c_int32), ct.POINTER(ct.c_void_p), ct.c_void_p, ct.c_void_p,
-            ct.c_void_p, ct.c_char_p, ct.c_int64, ct.c_void_p, ct.c_int64,
+            ct.POINTER(ct.c_int32), ct.c_void_p, ct.POINTER(ct.c_void_p), ct.c_void_p,
+            ct.c_void_p, ct.c_void_p, ct.c_char_p, ct.c_int64, ct.c_void_p, ct.c_int64,
             ct.POINTER(ct.c_int64),
         ]
 

@@ -1,4 +1,4 @@
-// H.264 (ITU-T H.264 | ISO/IEC 14496-10) macroblock layer for I and P
+// H.264 (ITU-T H.264 | ISO/IEC 14496-10) macroblock layer for I, P and B
 // slices of 8-bit 4:2:0 frame pictures, CAVLC or CABAC, both ways: one
 // slice's macroblocks decoded below its header as the standard specifies
 // (and so as FFmpeg's h264 decoder, and cv2.VideoCapture, decode them), the
@@ -6,30 +6,36 @@
 // fixtures.
 //
 // The Python side (hive_tpu_torch/video/h264.py) parses the parameter sets
-// and slice headers (the scaling lists resolved), refuses what this file
-// does not decode, keeps the decoded picture buffer (POC, reference
-// marking, reference lists) and the per-picture macroblock state this file
-// reads and writes (MbState, one a macroblock, zeroed for each picture).
+// and slice headers (the scaling lists and the prediction weight tables
+// resolved), refuses what this file does not decode, keeps the decoded
+// picture buffer (POC, reference marking, reference lists 0 and 1) and the
+// per-picture macroblock state this file reads and writes (MbState, one a
+// macroblock, zeroed for each picture; a reference picture's is kept as
+// the co-located picture's motion for B slices' direct prediction).
 // hive_h264_decode_slice takes the slice's RBSP from the bit after its
 // header: mb_skip_run or mb_skip_flag, mb_type, transform_size_8x8_flag,
-// intra 4x4 / 8x8 / 16x16 / chroma prediction modes, I_PCM samples, P
-// partitions and sub-partitions with ref_idx and motion vector
-// differences, coded_block_pattern, mb_qp_delta and the residual: CAVLC
-// (coeff_token with nC from the neighbours, trailing ones, level_prefix /
-// level_suffix with suffixLength adaptation, total_zeros, run_before; an
-// 8x8 block as four interleaved 4x4 scans) or CABAC (9.3: the arithmetic
-// decoding engine, each element's binarisation and ctxIdxInc, the
-// significance map, coeff_abs_level_minus1 and the bypass bins, I_PCM's
-// re-initialisation); then reconstruction: intra prediction (8.3, the 8x8
-// modes with their reference sample filter), median and directional motion
-// vector prediction and P_Skip (8.4.1), quarter-sample luma and
-// eighth-sample chroma interpolation with clamped reference coordinates
-// (8.4.2.2), dequantisation with the scaling matrices (LevelScale4x4 and
+// intra 4x4 / 8x8 / 16x16 / chroma prediction modes, I_PCM samples, P and
+// B partitions and sub-partitions with ref_idx and motion vector
+// differences of each list, coded_block_pattern, mb_qp_delta and the
+// residual: CAVLC (coeff_token with nC from the neighbours, trailing ones,
+// level_prefix / level_suffix with suffixLength adaptation, total_zeros,
+// run_before; an 8x8 block as four interleaved 4x4 scans) or CABAC (9.3:
+// the arithmetic decoding engine, each element's binarisation and
+// ctxIdxInc, the significance map, coeff_abs_level_minus1 and the bypass
+// bins, I_PCM's re-initialisation); then reconstruction: intra prediction
+// (8.3, the 8x8 modes with their reference sample filter), median and
+// directional motion vector prediction, P_Skip, and B_Skip / B_Direct's
+// spatial and temporal direct prediction with and without
+// direct_8x8_inference (8.4.1), quarter-sample luma and eighth-sample
+// chroma interpolation with clamped reference coordinates (8.4.2.2), the
+// default, explicit and implicit weighted sample prediction (8.4.2.3),
+// dequantisation with the scaling matrices (LevelScale4x4 and
 // LevelScale8x8), the 4x4 and 8x8 inverse transforms and the luma / chroma
 // DC transforms (8.5). hive_h264_deblock filters the whole picture once its
 // slices are decoded (8.7): bS 0-4 (reference pictures compared by picture,
-// not by index; an 8x8 transform block's coefficients count for its four
-// 4x4 blocks), alpha / beta / tc0 from the tables, each slice's
+// not by index, and a block's pair of lists against the other's either way
+// round; an 8x8 transform block's coefficients count for its four 4x4
+// blocks), alpha / beta / tc0 from the tables, each slice's
 // disable_deblocking_filter_idc (0, 1, 2) and offsets, I_PCM at qP 0, and
 // no internal 4-sample luma edges in a macroblock of 8x8 transforms.
 //
@@ -339,25 +345,27 @@ enum Kind : int8_t { kI4x4 = 0, kI16x16 = 1, kIPCM = 2, kInter = 3, kSkip = 4 };
 
 // One macroblock of the picture being decoded, kept by the caller between
 // the slices of the picture (zeroed for each picture) for the neighbours'
-// lookups and the deblocking.
+// lookups and the deblocking, and then as a co-located macroblock.
 struct MbState {
     int32_t slice;          // slice number (1 up); 0 while not decoded
-    int32_t ref_pic[16];    // the referenced picture's id per 4x4 block (raster), -1 intra
-    int16_t mv[16][2];      // quarter-sample motion vectors per 4x4 block
+    int32_t ref_pic[2][16]; // the referenced picture's id per list and 4x4 block (raster), -1 none
+    int16_t mv[2][16][2];   // quarter-sample motion vectors per list and 4x4 block (0: list unused)
     int8_t kind;
     int8_t qp;              // QP_Y
     int8_t lf_qp[3];        // qP of the deblocking for Y, Cb, Cr (0 and QPc(0) for I_PCM)
     int8_t lf_idc, lf_alpha, lf_beta;  // the slice's deblocking controls, offsets doubled
-    int8_t ref_idx[16];
+    int8_t ref_idx[2][16];  // ref_idx per list and 4x4 block, -1 where the list is unused
     int8_t i4mode[16];      // Intra4x4PredMode per 4x4 block (raster), -1 otherwise
     uint8_t nnz[24];        // TotalCoeff per luma 4x4 block (raster), Cb, Cr 4x4 blocks
-    uint8_t mvd[16][2];     // |mvd| per 4x4 block (clamped to 127), for CABAC's ctxIdxInc
+    uint8_t mvd[2][16][2];  // |mvd| per list and 4x4 block (clamped to 127), for CABAC's ctxIdxInc
     uint32_t cbf;           // coded_block_flag (CABAC): luma 4x4 blocks (raster) bits 0-15,
                             // luma DC 16, chroma DC 17-18, chroma AC 19-26 (Cb, then Cr)
     uint16_t nonzero;       // luma 4x4 blocks (raster) of a transform block with coefficients
     int8_t t8x8;            // transform_size_8x8_flag
     int8_t chroma_mode;     // intra_chroma_pred_mode
     uint8_t cbp;            // coded_block_pattern (I_PCM: 0x2F)
+    uint8_t direct8;        // the 8x8 blocks predicted in direct mode (bits 0-3)
+    uint8_t direct16;       // B_Skip or B_Direct_16x16
 };
 
 enum Status {
@@ -388,7 +396,19 @@ struct Params {
     // The scaling lists in raster order: 4x4 Intra Y, Cb, Cr, Inter Y, Cb,
     // Cr; 8x8 Intra Y, Inter Y.
     int w4[6][16], w8[2][64];
+    // B slices: num_ref_idx_l1_active, direct_spatial_mv_pred_flag,
+    // direct_8x8_inference_flag. Weighted prediction: 0 default, 1 explicit
+    // (weights[]), 2 implicit; the explicit table's log2 denominators.
+    int num_ref1, direct_spatial, direct_8x8, weight_mode, luma_denom, chroma_denom;
+    // PicOrderCnt of the picture and of each entry of lists 0 and 1, and
+    // whether each entry is a long-term reference.
+    int cur_poc, poc[2][32], long_term[2][32];
+    // The explicit weights: per list and ref_idx, luma weight and offset,
+    // Cb's, Cr's.
+    int weights[2][32][6];
 };
+
+const int kParamHead = 17, kParamInts = kParamHead + 6 * 16 + 2 * 64 + 6 + 1 + 4 * 32 + 2 * 32 * 6;
 
 Params make_params(const int32_t* p) {
     Params c;
@@ -409,22 +429,43 @@ Params make_params(const int32_t* p) {
     c.cabac = p[14];
     c.cabac_init_idc = p[15];
     c.t8x8_mode = p[16];
-    std::memcpy(c.w4, p + 17, sizeof(c.w4));
-    std::memcpy(c.w8, p + 17 + 6 * 16, sizeof(c.w8));
+    const int32_t* q = p + kParamHead;
+    std::memcpy(c.w4, q, sizeof(c.w4));
+    q += 6 * 16;
+    std::memcpy(c.w8, q, sizeof(c.w8));
+    q += 2 * 64;
+    c.num_ref1 = q[0];
+    c.direct_spatial = q[1];
+    c.direct_8x8 = q[2];
+    c.weight_mode = q[3];
+    c.luma_denom = q[4];
+    c.chroma_denom = q[5];
+    c.cur_poc = q[6];
+    q += 7;
+    std::memcpy(c.poc, q, sizeof(c.poc));
+    q += 2 * 32;
+    std::memcpy(c.long_term, q, sizeof(c.long_term));
+    q += 2 * 32;
+    std::memcpy(c.weights, q, sizeof(c.weights));
     return c;
 }
 
 bool valid(const Params& c) {
+    const bool b = c.slice_type == 1;
     return c.mbw > 0 && c.mbh > 0 && c.mbw <= 1024 && c.mbh <= 1024 && c.slice > 0 &&
            c.first_mb >= 0 && c.first_mb < c.mbw * c.mbh &&
-           (c.slice_type == 0 || c.slice_type == 2) &&
-           c.qp >= 0 && c.qp <= 51 && c.num_ref >= (c.slice_type == 0 ? 1 : 0) && c.num_ref <= 32 &&
+           (c.slice_type == 0 || c.slice_type == 1 || c.slice_type == 2) &&
+           c.qp >= 0 && c.qp <= 51 && c.num_ref >= (c.slice_type == 2 ? 0 : 1) && c.num_ref <= 32 &&
+           c.num_ref1 >= (b ? 1 : 0) && c.num_ref1 <= (b ? 32 : 0) &&
            std::abs(c.cqp_offset[0]) <= 12 && std::abs(c.cqp_offset[1]) <= 12 && c.lf_idc >= 0 &&
            c.lf_idc <= 2 && std::abs(c.lf_alpha) <= 12 && std::abs(c.lf_beta) <= 12 &&
            (c.cabac == 0 || c.cabac == 1) && c.cabac_init_idc >= 0 && c.cabac_init_idc <= 2 &&
-           (c.t8x8_mode == 0 || c.t8x8_mode == 1) &&
+           (c.t8x8_mode == 0 || c.t8x8_mode == 1) && c.weight_mode >= 0 && c.weight_mode <= 2 &&
+           c.luma_denom >= 0 && c.luma_denom <= 7 && c.chroma_denom >= 0 && c.chroma_denom <= 7 &&
            std::all_of(&c.w4[0][0], &c.w4[0][0] + 96, [](int v) { return v > 0 && v < 256; }) &&
-           std::all_of(&c.w8[0][0], &c.w8[0][0] + 128, [](int v) { return v > 0 && v < 256; });
+           std::all_of(&c.w8[0][0], &c.w8[0][0] + 128, [](int v) { return v > 0 && v < 256; }) &&
+           std::all_of(&c.weights[0][0][0], &c.weights[0][0][0] + 2 * 32 * 6,
+                       [](int v) { return v >= -128 && v <= 128; });
 }
 
 // A neighbour's motion: ref -2 not available, -1 intra (or not predicted).
@@ -432,12 +473,120 @@ struct Motion {
     int ref, x, y;
 };
 
+// The prediction of an inter macroblock as parsed or chosen: its shape,
+// each partition's or sub-macroblock's lists (bit 0 list 0, bit 1 list 1;
+// 0 direct), reference indices and, per (sub-)partition in decoding order,
+// motion vector differences.
+struct MbPred {
+    int shape = 0;            // 0 16x16, 1 16x8, 2 8x16, 3 8x8 (sub-macroblocks)
+    int mode[4] = {1, 1, 1, 1};
+    int sub[4] = {0, 0, 0, 0};  // sub-partitions: 0 8x8, 1 8x4, 2 4x8, 3 4x4
+    int ref[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+    int mvd[2][16][2] = {};
+    bool ref0 = false;        // P_8x8ref0
+    bool direct16 = false;    // B_Skip, B_Direct_16x16
+    int groups() const { return shape == 0 ? 1 : (shape < 3 ? 2 : 4); }
+};
+
+// The partitions of P macroblock types 0-2 as (x, y, w, h).
+const int kParts[3][2][4] = {{{0, 0, 16, 16}, {0, 0, 0, 0}},
+                             {{0, 0, 16, 8}, {0, 8, 16, 8}},
+                             {{0, 0, 8, 16}, {8, 0, 8, 16}}};
+const int kSubParts[4] = {1, 2, 2, 4};
+// Sub-partition k of sub-partition shape t inside its 8x8: (x, y, w, h).
+void sub_part(int t, int k, int* x, int* y, int* w, int* h) {
+    *w = t == 0 || t == 1 ? 8 : 4;
+    *h = t == 0 || t == 2 ? 8 : 4;
+    *x = t == 2 || t == 3 ? 4 * (k & 1) : 0;
+    *y = t == 1 ? 4 * k : (t == 3 ? 4 * (k >> 1) : 0);
+}
+// The lists of each partition of B mb_types 4-21 (Table 7-14), in pairs.
+const uint8_t kBPairs[9][2] = {{1, 1}, {2, 2}, {1, 2}, {2, 1}, {1, 3}, {2, 3}, {3, 1}, {3, 2}, {3, 3}};
+
+// A B macroblock's prediction from its mb_type 0-22 (Table 7-14).
+MbPred b_mb_pred(int t) {
+    MbPred m;
+    if (t == 0) {
+        m.shape = 3;
+        m.direct16 = true;
+        std::fill(m.mode, m.mode + 4, 0);
+    } else if (t < 4) {
+        m.mode[0] = t;
+    } else if (t < 22) {
+        m.shape = t % 2 ? 2 : 1;
+        m.mode[0] = kBPairs[(t - 4) / 2][0];
+        m.mode[1] = kBPairs[(t - 4) / 2][1];
+    } else {
+        m.shape = 3;
+    }
+    return m;
+}
+// A B macroblock's mb_type from its prediction.
+int b_mb_type(const MbPred& m) {
+    if (m.direct16) return 0;
+    if (m.shape == 0) return m.mode[0];
+    if (m.shape == 3) return 22;
+    for (int p = 0; p < 9; ++p)
+        if (kBPairs[p][0] == m.mode[0] && kBPairs[p][1] == m.mode[1]) return 4 + 2 * p + (m.shape == 2);
+    return -1;
+}
+// Sub-macroblock k's lists and shape from its B sub_mb_type 0-12 (Table 7-18), and back.
+void b_sub(MbPred* m, int k, int t) {
+    m->mode[k] = t == 0 ? 0 : (t < 4 ? t : (t < 10 ? 1 + (t - 4) / 2 : t - 9));
+    m->sub[k] = t < 4 ? 0 : (t < 10 ? 1 + (t - 4) % 2 : 3);
+}
+int b_sub_type(const MbPred& m, int k) {
+    const int mode = m.mode[k], sub = m.sub[k];
+    if (!mode) return 0;
+    return sub == 0 ? mode : (sub < 3 ? 4 + 2 * (mode - 1) + sub - 1 : 9 + mode);
+}
+
+// A (sub-)partition: luma position and size in the macroblock, and the
+// partition or sub-macroblock it belongs to.
+struct Rect {
+    int x, y, w, h, group;
+};
+// The (sub-)partitions of a macroblock's prediction in decoding order (a
+// direct sub-macroblock as one 8x8); their count.
+int pred_rects(const MbPred& m, Rect* out) {
+    int n = 0;
+    if (m.shape < 3) {
+        for (int k = 0; k < m.groups(); ++k) {
+            const int* p = kParts[m.shape][k];
+            out[n++] = {p[0], p[1], p[2], p[3], k};
+        }
+        return n;
+    }
+    for (int k = 0; k < 4; ++k) {
+        if (!m.mode[k]) {
+            out[n++] = {8 * (k & 1), 8 * (k >> 1), 8, 8, k};
+            continue;
+        }
+        for (int j = 0; j < kSubParts[m.sub[k]]; ++j) {
+            int x, y, w, h;
+            sub_part(m.sub[k], j, &x, &y, &w, &h);
+            out[n++] = {x + 8 * (k & 1), y + 8 * (k >> 1), w, h, k};
+        }
+    }
+    return n;
+}
+// The 8x8 blocks (bits) of partition or sub-macroblock k of shape `shape`.
+inline int group_blocks(int shape, int k) {
+    return shape == 0 ? 15 : (shape == 1 ? 3 << (2 * k) : (shape == 2 ? 5 << k : 1 << k));
+}
+// The top-left luma sample of partition or sub-macroblock k of shape `shape`.
+inline void group_origin(int shape, int k, int* x, int* y) {
+    *x = shape == 2 ? 8 * k : (shape == 3 ? 8 * (k & 1) : 0);
+    *y = shape == 1 ? 8 * k : (shape == 3 ? 8 * (k >> 1) : 0);
+}
+
 // What the decoder and the encoder share: the picture, its state, the
 // neighbours, prediction and reconstruction.
 struct Codec {
     Params c;
-    const uint8_t* const* refs;  // 3 planes per reference index
-    const int32_t* ref_ids;
+    const uint8_t* const* refs[2];  // 3 planes per reference index, lists 0 and 1
+    const int32_t* ref_ids[2];      // an id per reference index naming its picture
+    const MbState* col;             // the state of RefPicList1[0] (B slices)
     uint8_t* pic[3];
     int ys, cs;                  // luma and chroma strides (the coded width)
     MbState* st;
@@ -448,11 +597,26 @@ struct Codec {
     // LevelScale4x4 and LevelScale8x8 (8.5.9) of each scaling list (Params'
     // order), qP % 6 and raster position.
     int32_t ls4[6][6][16], ls8[2][6][64];
-    int8_t ref8[4] = {0, 0, 0, 0};  // the current macroblock's ref_idx per 8x8, as parsed
+    int8_t ref8[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};  // the current macroblock's ref_idx per 8x8, as parsed
+    // Temporal direct's scale of each refIdxL0 (256: the vector itself) and
+    // the implicit weight w0 of each (refIdxL0, refIdxL1).
+    int temporal_scale[32];
+    int implicit_w0[32][32];
+    // Spatial direct's reference indices and vectors of the macroblock (8.4.1.2.2).
+    bool spatial_done = false;
+    int spatial_ref[2], spatial_mv[2][2];
+    // The encoder's counts of direct prediction's cases: a co-located block
+    // intra, predicted from its list 1, zero (spatial), a list 0 index
+    // above 0 (temporal).
+    int64_t* direct_counts = nullptr;
 
-    Codec(const Params& p, const uint8_t* const* r, const int32_t* ids, uint8_t* const* out,
-          MbState* s)
-        : c(p), refs(r), ref_ids(ids), st(s) {
+    Codec(const Params& p, const uint8_t* const* r, const int32_t* ids, const MbState* colocated,
+          uint8_t* const* out, MbState* s)
+        : c(p), col(colocated), st(s) {
+        refs[0] = r;
+        refs[1] = r ? r + 3 * c.num_ref : nullptr;
+        ref_ids[0] = ids;
+        ref_ids[1] = ids + c.num_ref;
         for (int k = 0; k < 3; ++k) pic[k] = out[k];
         ys = 16 * c.mbw;
         cs = 8 * c.mbw;
@@ -463,11 +627,33 @@ struct Codec {
                 for (int q = 0; q < 64; ++q)
                     ls8[l][m][q] = c.w8[l][q] * kNormAdjust8x8[m][norm8x8_class(q)];
         }
+        for (int r0 = 0; r0 < 32; ++r0) {
+            const int dsf = dist_scale(c.poc[0][r0], c.poc[1][0]);
+            temporal_scale[r0] = c.long_term[0][r0] || dsf == kNoScale ? 256 : dsf;
+            for (int r1 = 0; r1 < 32; ++r1) {
+                const int w = dist_scale(c.poc[0][r0], c.poc[1][r1]);
+                const bool plain = c.long_term[0][r0] || c.long_term[1][r1] || w == kNoScale ||
+                                   (w >> 2) < -64 || (w >> 2) > 128;
+                implicit_w0[r0][r1] = plain ? 32 : 64 - (w >> 2);
+            }
+        }
+    }
+
+    // DistScaleFactor (8.4.1.2.3) of the current picture between the
+    // pictures of POC poc0 and poc1; kNoScale where they have one POC.
+    static constexpr int kNoScale = INT32_MIN;
+    int dist_scale(int poc0, int poc1) const {
+        const int td = clip3(-128, 127, poc1 - poc0);
+        if (!td) return kNoScale;
+        const int tb = clip3(-128, 127, c.cur_poc - poc0);
+        const int tx = (16384 + std::abs(td / 2)) / td;
+        return clip3(-1024, 1023, (tb * tx + 32) >> 6);
     }
 
     // The LevelScale4x4 of component k (0 Y, 1 Cb, 2 Cr), intra or inter.
     const int32_t* list4(int k, bool intra) const { return &ls4[(intra ? 0 : 3) + k][0][0]; }
     const int32_t* list8(bool intra) const { return &ls8[intra ? 0 : 1][0][0]; }
+    int num_ref(int l) const { return l ? c.num_ref1 : c.num_ref; }
 
     void start_mb(int a) {
         addr = a;
@@ -480,8 +666,11 @@ struct Codec {
         cur->lf_alpha = static_cast<int8_t>(c.lf_alpha);
         cur->lf_beta = static_cast<int8_t>(c.lf_beta);
         std::memset(cur->i4mode, -1, 16);
+        std::memset(cur->ref_idx, -1, sizeof(cur->ref_idx));
+        std::fill(&cur->ref_pic[0][0], &cur->ref_pic[0][0] + 32, -1);
         std::memset(ref8, 0, sizeof(ref8));
         done = 0;
+        spatial_done = false;
         auto usable = [&](int x, int y) {
             int lx = 0, ly = 0;
             const MbState* m = neighbour(x, y, &lx, &ly);
@@ -545,6 +734,10 @@ struct Codec {
         const MbState *a = mb_a(), *b = mb_b();
         return (a && a->kind != kI4x4) + (b && b->kind != kI4x4);
     }
+    int mb_type_b_inc() const {  // B slices: neighbours neither B_Skip nor B_Direct_16x16
+        const MbState *a = mb_a(), *b = mb_b();
+        return (a && !a->direct16) + (b && !b->direct16);
+    }
     int t8x8_inc() const {
         const MbState *a = mb_a(), *b = mb_b();
         return (a && a->t8x8) + (b && b->t8x8);
@@ -593,32 +786,35 @@ struct Codec {
         return cbf_cond(a, 19 + 4 * k + (ay >> 3) * 2 + (ax >> 3)) +
                2 * cbf_cond(b, 19 + 4 * k + (by2 >> 3) * 2 + (bx2 >> 3));
     }
-    // ref_idx_l0 of the partition at (x, y): neighbours with ref_idx > 0.
-    int ref_idx_inc(int x, int y) const {
+    // ref_idx_lX of the partition at (x, y): neighbours with ref_idx > 0,
+    // not predicted in direct mode.
+    int ref_idx_inc(int l, int x, int y) const {
         auto cond = [&](int px, int py) {
             int lx = 0, ly = 0;
             const MbState* m = neighbour(px, py, &lx, &ly);
             if (!m) return 0;
-            if (m == cur) return ref8[(ly >> 3) * 2 + (lx >> 3)] > 0 ? 1 : 0;
-            return m->kind == kInter && m->ref_idx[(ly >> 2) * 4 + (lx >> 2)] > 0 ? 1 : 0;
+            const int b8 = (ly >> 3) * 2 + (lx >> 3);
+            if (m == cur) return ref8[l][b8] > 0 ? 1 : 0;
+            return m->kind == kInter && !(m->direct8 >> b8 & 1) &&
+                           m->ref_idx[l][(ly >> 2) * 4 + (lx >> 2)] > 0 ? 1 : 0;
         };
         return cond(x - 1, y) + 2 * cond(x, y - 1);
     }
-    // mvd_l0 component `comp` of the partition at (x, y).
-    int mvd_inc(int x, int y, int comp) const {
+    // mvd_lX component `comp` of the partition at (x, y).
+    int mvd_inc(int l, int x, int y, int comp) const {
         auto absmvd = [&](int px, int py) {
             int lx = 0, ly = 0;
             const MbState* m = neighbour(px, py, &lx, &ly);
-            return m ? m->mvd[(ly >> 2) * 4 + (lx >> 2)][comp] : 0;
+            return m ? m->mvd[l][(ly >> 2) * 4 + (lx >> 2)][comp] : 0;
         };
         const int sum = absmvd(x - 1, y) + absmvd(x, y - 1);
         return sum < 3 ? 0 : (sum > 32 ? 2 : 1);
     }
-    void set_mvd(int x, int y, int w, int h, int dx, int dy) {
-        for (int by = y >> 2; by < (y + h) >> 2; ++by)
-            for (int bx = x >> 2; bx < (x + w) >> 2; ++bx) {
-                cur->mvd[by * 4 + bx][0] = static_cast<uint8_t>(std::min(127, std::abs(dx)));
-                cur->mvd[by * 4 + bx][1] = static_cast<uint8_t>(std::min(127, std::abs(dy)));
+    void set_mvd(int l, const Rect& p, int dx, int dy) {
+        for (int by = p.y >> 2; by < (p.y + p.h) >> 2; ++by)
+            for (int bx = p.x >> 2; bx < (p.x + p.w) >> 2; ++bx) {
+                cur->mvd[l][by * 4 + bx][0] = static_cast<uint8_t>(std::min(127, std::abs(dx)));
+                cur->mvd[l][by * 4 + bx][1] = static_cast<uint8_t>(std::min(127, std::abs(dy)));
             }
     }
 
@@ -646,20 +842,22 @@ struct Codec {
     }
 
     // -- motion vector prediction (8.4.1) --------------------------------------
-    Motion motion_at(int x, int y) const {
+    // The motion of list l at luma position (x, y): ref -2 not available, -1
+    // intra or the list unused (its vector then 0).
+    Motion motion_at(int l, int x, int y) const {
         int lx = 0, ly = 0;
         const MbState* m = neighbour(x, y, &lx, &ly);
         const int b = (ly >> 2) * 4 + (lx >> 2);
         if (!m || (m == cur && !(done >> b & 1))) return {-2, 0, 0};
         if (m->kind <= kIPCM) return {-1, 0, 0};
-        return {m->ref_idx[b], m->mv[b][0], m->mv[b][1]};
+        return {m->ref_idx[l][b], m->mv[l][b][0], m->mv[l][b][1]};
     }
 
     // mvpLX of the partition at (x, y), w x h luma samples, with ref_idx ref.
-    void pred_mv(int x, int y, int w, int h, int ref, int* mx, int* my) const {
-        const Motion a = motion_at(x - 1, y), b = motion_at(x, y - 1);
-        Motion cc = motion_at(x + w, y - 1);
-        if (cc.ref == -2) cc = motion_at(x - 1, y - 1);
+    void pred_mv(int l, int x, int y, int w, int h, int ref, int* mx, int* my) const {
+        const Motion a = motion_at(l, x - 1, y), b = motion_at(l, x, y - 1);
+        Motion cc = motion_at(l, x + w, y - 1);
+        if (cc.ref == -2) cc = motion_at(l, x - 1, y - 1);
         if (w == 16 && h == 8) {
             if (y == 0 && b.ref == ref) return void((*mx = b.x, *my = b.y));
             if (y == 8 && a.ref == ref) return void((*mx = a.x, *my = a.y));
@@ -681,42 +879,250 @@ struct Codec {
 
     // P_Skip's motion vector (8.4.1.1).
     void skip_mv(int* mx, int* my) const {
-        const Motion a = motion_at(-1, 0), b = motion_at(0, -1);
+        const Motion a = motion_at(0, -1, 0), b = motion_at(0, 0, -1);
         if (a.ref == -2 || b.ref == -2 || (a.ref == 0 && !a.x && !a.y) ||
             (b.ref == 0 && !b.x && !b.y)) {
             *mx = *my = 0;
             return;
         }
-        pred_mv(0, 0, 16, 16, 0, mx, my);
+        pred_mv(0, 0, 0, 16, 16, 0, mx, my);
     }
 
-    void set_motion(int x, int y, int w, int h, int ref, int mx, int my) {
+    // Both lists' motion of the blocks of (x, y, w, h) (ref -1: list unused).
+    void set_motion(int x, int y, int w, int h, const int* ref, const int (*mv)[2]) {
         for (int by = y >> 2; by < (y + h) >> 2; ++by)
             for (int bx = x >> 2; bx < (x + w) >> 2; ++bx) {
                 const int b = by * 4 + bx;
-                cur->ref_idx[b] = static_cast<int8_t>(ref);
-                cur->ref_pic[b] = ref_ids[ref];
-                cur->mv[b][0] = static_cast<int16_t>(mx);
-                cur->mv[b][1] = static_cast<int16_t>(my);
+                for (int l = 0; l < 2; ++l) {
+                    cur->ref_idx[l][b] = static_cast<int8_t>(ref[l]);
+                    cur->ref_pic[l][b] = ref[l] >= 0 ? ref_ids[l][ref[l]] : -1;
+                    cur->mv[l][b][0] = static_cast<int16_t>(ref[l] >= 0 ? mv[l][0] : 0);
+                    cur->mv[l][b][1] = static_cast<int16_t>(ref[l] >= 0 ? mv[l][1] : 0);
+                }
                 done |= uint16_t(1) << b;
             }
     }
 
-    // -- inter prediction (8.4.2.2) ----------------------------------------------
-    // The partition at (x, y), w x h luma samples of the macroblock, from
-    // reference `ref` moved by (mx, my) quarter samples, into the picture.
-    void predict_inter(int x, int y, int w, int h, int ref, int mx, int my) {
-        const int W = 16 * c.mbw, H = 16 * c.mbh;
-        const int px = 16 * mbx + x, py = 16 * mby + y;
-        luma_mc(pic[0] + py * ys + px, refs[3 * ref], W, H, px + (mx >> 2), py + (my >> 2), mx & 3,
-                my & 3, w, h);
-        for (int k = 1; k < 3; ++k)
-            chroma_mc(pic[k] + (py / 2) * cs + px / 2, refs[3 * ref + k], W / 2, H / 2,
-                      px / 2 + (mx >> 3), py / 2 + (my >> 3), mx & 7, my & 7, w / 2, h / 2);
+    // Spatial direct's reference indices and vectors of the macroblock
+    // (8.4.1.2.2), from its neighbours A, B and C (or D).
+    void spatial_pred() {
+        for (int l = 0; l < 2; ++l) {
+            const Motion a = motion_at(l, -1, 0), b = motion_at(l, 0, -1);
+            Motion cc = motion_at(l, 16, -1);
+            if (cc.ref == -2) cc = motion_at(l, -1, -1);
+            auto min_positive = [](int p, int q) { return p >= 0 && q >= 0 ? std::min(p, q) : std::max(p, q); };
+            spatial_ref[l] = std::max(-1, min_positive(a.ref, min_positive(b.ref, cc.ref)));
+            spatial_mv[l][0] = spatial_mv[l][1] = 0;
+            if (spatial_ref[l] >= 0)
+                pred_mv(l, 0, 0, 16, 16, spatial_ref[l], &spatial_mv[l][0], &spatial_mv[l][1]);
+        }
+        if (spatial_ref[0] < 0 && spatial_ref[1] < 0) spatial_ref[0] = spatial_ref[1] = 0;
+        spatial_done = true;
     }
 
-    void luma_mc(uint8_t* dst, const uint8_t* ref, int W, int H, int x, int y, int fx, int fy,
-                 int w, int h) const {
+    // The lowest index of list 0 naming picture `id` (MapColToList0); 0, as
+    // FFmpeg takes, where list 0 does not hold it.
+    int map_col_to_list0(int id) const {
+        for (int i = 0; i < c.num_ref; ++i)
+            if (ref_ids[0][i] == id) return i;
+        return 0;
+    }
+
+    // The motion of 8x8 block b8 predicted in direct mode (8.4.1.2): spatial
+    // or temporal, from the co-located 4x4 blocks (the corners with
+    // direct_8x8_inference_flag).
+    int direct8(int b8) {
+        if (!col || !refs[1][0]) return kErrMissing;
+        const MbState& cm = col[addr];
+        if (c.direct_spatial && !spatial_done) spatial_pred();
+        for (int k = 0; k < 4; ++k) {
+            const int bx = 2 * (b8 & 1) + (k & 1), by = 2 * (b8 >> 1) + (k >> 1);
+            const int cb = c.direct_8x8 ? 12 * (b8 >> 1) + 3 * (b8 & 1) : by * 4 + bx;
+            // mvCol and refIdxCol: list 0's where the co-located block uses
+            // it, else list 1's; none for an intra macroblock.
+            const bool intra = cm.kind <= kIPCM;
+            const int l_col = cm.ref_idx[0][cb] >= 0 ? 0 : 1;
+            const int ref_col = intra ? -1 : cm.ref_idx[l_col][cb];
+            const int mvc[2] = {intra ? 0 : cm.mv[l_col][cb][0], intra ? 0 : cm.mv[l_col][cb][1]};
+            int ref[2], mv[2][2];
+            bool zeroed = false;  // a vector colZeroFlag set to 0
+            if (c.direct_spatial) {
+                const bool col_zero = !c.long_term[1][0] && ref_col == 0 && std::abs(mvc[0]) <= 1 &&
+                                      std::abs(mvc[1]) <= 1;
+                for (int l = 0; l < 2; ++l) {
+                    ref[l] = spatial_ref[l];
+                    const bool zero = ref[l] < 0 || (ref[l] == 0 && col_zero);
+                    zeroed = zeroed || (ref[l] == 0 && col_zero && (spatial_mv[l][0] || spatial_mv[l][1]));
+                    mv[l][0] = zero ? 0 : spatial_mv[l][0];
+                    mv[l][1] = zero ? 0 : spatial_mv[l][1];
+                }
+            } else {
+                ref[0] = ref_col < 0 ? 0 : map_col_to_list0(cm.ref_pic[l_col][cb]);
+                ref[1] = 0;
+                const int scale = temporal_scale[ref[0]];
+                for (int j = 0; j < 2; ++j) {
+                    mv[0][j] = (scale * mvc[j] + 128) >> 8;
+                    mv[1][j] = mv[0][j] - mvc[j];
+                }
+            }
+            if ((ref[0] >= 0 && !refs[0][3 * ref[0]]) || (ref[1] >= 0 && !refs[1][3 * ref[1]]))
+                return kErrMissing;
+            if (direct_counts) {
+                direct_counts[0] += intra;
+                direct_counts[1] += !intra && l_col == 1;
+                direct_counts[2] += zeroed;
+                direct_counts[3] += !c.direct_spatial && ref[0] > 0;
+            }
+            set_motion(4 * bx, 4 * by, 4, 4, ref, mv);
+        }
+        cur->direct8 |= static_cast<uint8_t>(1 << b8);
+        return kOk;
+    }
+
+    // The motion of each (sub-)partition of `m` in decoding order, with the
+    // differences parsed, or (encode) the vectors `target` wanted, whose
+    // differences it fills in.
+    int derive(MbPred& m, const int (*target)[16][2] = nullptr) {
+        Rect parts[16];
+        const int n = pred_rects(m, parts);
+        for (int i = 0; i < n; ++i) {
+            const Rect& p = parts[i];
+            const int g = p.group;
+            if (!m.mode[g]) {
+                const int status = direct8(g);
+                if (status) return status;
+                continue;
+            }
+            int ref[2] = {-1, -1}, mv[2][2] = {{0, 0}, {0, 0}};
+            for (int l = 0; l < 2; ++l) {
+                if (!(m.mode[g] >> l & 1)) continue;
+                ref[l] = m.ref[l][g];
+                if (ref[l] < 0 || ref[l] >= num_ref(l) || !refs[l][3 * ref[l]]) return kErrMissing;
+                int px, py;
+                pred_mv(l, p.x, p.y, p.w, p.h, ref[l], &px, &py);
+                if (target) {
+                    mv[l][0] = target[l][i][0];
+                    mv[l][1] = target[l][i][1];
+                    m.mvd[l][i][0] = mv[l][0] - px;
+                    m.mvd[l][i][1] = mv[l][1] - py;
+                } else {
+                    mv[l][0] = static_cast<int16_t>(px + m.mvd[l][i][0]);
+                    mv[l][1] = static_cast<int16_t>(py + m.mvd[l][i][1]);
+                }
+            }
+            set_motion(p.x, p.y, p.w, p.h, ref, mv);
+        }
+        cur->direct16 = m.direct16;
+        return kOk;
+    }
+
+    // Whether transform_size_8x8_flag may follow an inter macroblock's
+    // coded_block_pattern: no partition below 8x8, direct ones inferred so.
+    bool no_sub8x8(const MbPred& m) const {
+        for (int k = 0; k < 4; ++k)
+            if (m.shape == 3 && (m.mode[k] ? m.sub[k] != 0 : !c.direct_8x8)) return false;
+        return true;
+    }
+
+    // -- inter prediction (8.4.2) ------------------------------------------------
+    // The prediction of every (sub-)partition of `m` into the picture, each
+    // direct 8x8 block whole where its four 4x4 blocks move alike.
+    void predict_mb(const MbPred& m) {
+        Rect parts[16];
+        const int n = pred_rects(m, parts);
+        for (int i = 0; i < n; ++i) {
+            const Rect& p = parts[i];
+            if (m.mode[p.group]) {
+                predict(p.x, p.y, p.w, p.h);
+                continue;
+            }
+            const int b = (p.y >> 2) * 4 + (p.x >> 2);
+            bool alike = true;
+            for (int k : {1, 4, 5})
+                for (int l = 0; l < 2; ++l)
+                    alike = alike && cur->ref_idx[l][b + k] == cur->ref_idx[l][b] &&
+                            cur->mv[l][b + k][0] == cur->mv[l][b][0] &&
+                            cur->mv[l][b + k][1] == cur->mv[l][b][1];
+            if (alike) {
+                predict(p.x, p.y, 8, 8);
+                continue;
+            }
+            for (int k = 0; k < 4; ++k) predict(p.x + 4 * (k & 1), p.y + 4 * (k >> 1), 4, 4);
+        }
+    }
+
+    // The block at (x, y), w x h luma samples, whose motion is uniform: each
+    // list's prediction from its reference (8.4.2.2), then their weighted
+    // sum (8.4.2.3) into the picture.
+    void predict(int x, int y, int w, int h) {
+        const int W = 16 * c.mbw, H = 16 * c.mbh;
+        const int px = 16 * mbx + x, py = 16 * mby + y;
+        const int b = (y >> 2) * 4 + (x >> 2);
+        uint8_t tmp[2][3][256];
+        int refn[2];
+        for (int l = 0; l < 2; ++l) {
+            refn[l] = cur->ref_idx[l][b];
+            if (refn[l] < 0) continue;
+            const int mx = cur->mv[l][b][0], my = cur->mv[l][b][1];
+            const uint8_t* const* r = refs[l] + 3 * refn[l];
+            luma_mc(tmp[l][0], 16, r[0], W, H, px + (mx >> 2), py + (my >> 2), mx & 3, my & 3, w, h);
+            for (int k = 1; k < 3; ++k)
+                chroma_mc(tmp[l][k], 8, r[k], W / 2, H / 2, px / 2 + (mx >> 3), py / 2 + (my >> 3),
+                          mx & 7, my & 7, w / 2, h / 2);
+        }
+        for (int k = 0; k < 3; ++k) {
+            uint8_t* dst = k ? pic[k] + (py / 2) * cs + px / 2 : pic[0] + py * ys + px;
+            weigh(dst, k ? cs : ys, refn[0] >= 0 ? tmp[0][k] : nullptr,
+                  refn[1] >= 0 ? tmp[1][k] : nullptr, k ? 8 : 16, k ? w / 2 : w, k ? h / 2 : h, k,
+                  refn);
+        }
+    }
+
+    // The weighted sample prediction (8.4.2.3) of component k from the list
+    // 0 and list 1 predictions p0, p1 (null: the list unused): default
+    // (averaging), explicit (each list's weight and offset of its ref_idx)
+    // or implicit (w0 and w1 = 64 - w0 of the pair, log2 denominator 5).
+    void weigh(uint8_t* dst, int stride, const uint8_t* p0, const uint8_t* p1, int ps, int w, int h,
+               int k, const int* refn) const {
+        const bool bi = p0 && p1;
+        const int mode = c.weight_mode == 2 && !bi ? 0 : c.weight_mode;
+        if (mode == 0) {
+            for (int r = 0; r < h; ++r)
+                for (int q = 0; q < w; ++q)
+                    dst[r * stride + q] = bi ? static_cast<uint8_t>((p0[r * ps + q] + p1[r * ps + q] + 1) >> 1)
+                                             : (p0 ? p0 : p1)[r * ps + q];
+            return;
+        }
+        if (!bi) {
+            const int l = p0 ? 0 : 1, logwd = k ? c.chroma_denom : c.luma_denom;
+            const int* wt = c.weights[l][refn[l]];
+            const int wgt = wt[2 * k], off = wt[2 * k + 1], round = logwd ? 1 << (logwd - 1) : 0;
+            const uint8_t* p = p0 ? p0 : p1;
+            for (int r = 0; r < h; ++r)
+                for (int q = 0; q < w; ++q)
+                    dst[r * stride + q] = clip1(((p[r * ps + q] * wgt + round) >> logwd) + off);
+            return;
+        }
+        int logwd, w0, w1, off;
+        if (mode == 2) {
+            logwd = 5;
+            w0 = implicit_w0[refn[0]][refn[1]];
+            w1 = 64 - w0;
+            off = 0;
+        } else {
+            logwd = k ? c.chroma_denom : c.luma_denom;
+            w0 = c.weights[0][refn[0]][2 * k];
+            w1 = c.weights[1][refn[1]][2 * k];
+            off = (c.weights[0][refn[0]][2 * k + 1] + c.weights[1][refn[1]][2 * k + 1] + 1) >> 1;
+        }
+        for (int r = 0; r < h; ++r)
+            for (int q = 0; q < w; ++q)
+                dst[r * stride + q] = clip1(
+                    ((p0[r * ps + q] * w0 + p1[r * ps + q] * w1 + (1 << logwd)) >> (logwd + 1)) + off);
+    }
+
+    void luma_mc(uint8_t* dst, int ds, const uint8_t* ref, int W, int H, int x, int y, int fx,
+                 int fy, int w, int h) const {
         uint8_t win[21][21];
         for (int r = 0; r < h + 5; ++r) {
             const uint8_t* row = ref + clip3(0, H - 1, y - 2 + r) * W;
@@ -724,7 +1130,7 @@ struct Codec {
         }
         if (!fx && !fy) {
             for (int r = 0; r < h; ++r)
-                for (int k = 0; k < w; ++k) dst[r * ys + k] = win[r + 2][k + 2];
+                for (int k = 0; k < w; ++k) dst[r * ds + k] = win[r + 2][k + 2];
             return;
         }
         auto tap = [](int a, int b, int cc, int d, int e, int f) {
@@ -770,18 +1176,18 @@ struct Codec {
                     case 14: v = (jj[r][k] + s + 1) >> 1; break;        // q
                     default: v = (m + s + 1) >> 1; break;               // r
                 }
-                dst[r * ys + k] = static_cast<uint8_t>(v);
+                dst[r * ds + k] = static_cast<uint8_t>(v);
             }
     }
 
-    void chroma_mc(uint8_t* dst, const uint8_t* ref, int W, int H, int x, int y, int fx, int fy,
-                   int w, int h) const {
+    void chroma_mc(uint8_t* dst, int ds, const uint8_t* ref, int W, int H, int x, int y, int fx,
+                   int fy, int w, int h) const {
         for (int r = 0; r < h; ++r) {
             const uint8_t* r0 = ref + clip3(0, H - 1, y + r) * W;
             const uint8_t* r1 = ref + clip3(0, H - 1, y + r + 1) * W;
             for (int k = 0; k < w; ++k) {
                 const int x0 = clip3(0, W - 1, x + k), x1 = clip3(0, W - 1, x + k + 1);
-                dst[r * cs + k] = static_cast<uint8_t>(
+                dst[r * ds + k] = static_cast<uint8_t>(
                     ((8 - fx) * (8 - fy) * r0[x0] + fx * (8 - fy) * r0[x1] +
                      (8 - fx) * fy * r1[x0] + fx * fy * r1[x1] + 32) >> 6);
             }
@@ -1254,27 +1660,7 @@ struct Codec {
         cur->lf_qp[1] = static_cast<int8_t>(chroma_qp(qp_y, c.cqp_offset[0]));
         cur->lf_qp[2] = static_cast<int8_t>(chroma_qp(qp_y, c.cqp_offset[1]));
     }
-
-    void set_intra_motion() {
-        for (int b = 0; b < 16; ++b) {
-            cur->ref_idx[b] = -1;
-            cur->ref_pic[b] = -1;
-        }
-    }
 };
-
-// The partitions of P macroblock types 0-2 as (x, y, w, h).
-const int kParts[3][2][4] = {{{0, 0, 16, 16}, {0, 0, 0, 0}},
-                             {{0, 0, 16, 8}, {0, 8, 16, 8}},
-                             {{0, 0, 8, 16}, {8, 0, 8, 16}}};
-const int kSubParts[4] = {1, 2, 2, 4};
-// Sub-partition k of sub_mb_type t inside its 8x8: (x, y, w, h).
-void sub_part(int t, int k, int* x, int* y, int* w, int* h) {
-    *w = t == 0 || t == 1 ? 8 : 4;
-    *h = t == 0 || t == 2 ? 8 : 4;
-    *x = t == 2 || t == 3 ? 4 * (k & 1) : 0;
-    *y = t == 1 ? 4 * k : (t == 3 ? 4 * (k >> 1) : 0);
-}
 
 // ---------------------------------------------------------------------------
 // CABAC (9.3).
@@ -1455,12 +1841,13 @@ struct CabacSyntax {
     Codec* k;
 
     int d(int ctx, int bin) { return e.decision(ctx, bin); }
-    int skip(int v) { return d(11 + k->skip_inc(), v); }
+    int skip(int v) { return d((k->c.slice_type == 1 ? 24 : 11) + k->skip_inc(), v); }
     // The mb_type of an intra macroblock: 0 I_NxN, 1-24 I_16x16, 25 I_PCM;
-    // of an I slice (prefix ctxIdxOffset 3) or the suffix in a P slice (17).
-    int mb_type_i(int v, bool islice) {
-        const int base = islice ? 3 : 17;
-        if (!d(islice ? 3 + k->mb_type_i_inc() : 17, v != 0)) return 0;
+    // of an I slice (prefix ctxIdxOffset 3), or the suffix in a P slice
+    // (17) or a B slice (32).
+    int mb_type_i(int v, int base) {
+        const bool islice = base == 3;
+        if (!d(islice ? 3 + k->mb_type_i_inc() : base, v != 0)) return 0;
         if (e.terminate(v == 25)) return 25;
         const int t = v - 1;
         int out = 1 + 12 * d(base + (islice ? 3 : 1), t >= 12);
@@ -1472,14 +1859,43 @@ struct CabacSyntax {
     // The mb_type of a P slice: 0-3 P_L0_16x16, P_L0_L0_16x8, P_L0_L0_8x16,
     // P_8x8; 5 + the intra mb_type.
     int mb_type_p(int v) {
-        if (d(14, v >= 5)) return 5 + mb_type_i(v - 5, false);
+        if (d(14, v >= 5)) return 5 + mb_type_i(v - 5, 17);
         if (!d(15, v == 1 || v == 2)) return 3 * d(16, v == 3);
         return 2 - d(17, v == 1);
+    }
+    // The mb_type of a B slice (Table 9-37): 0-22 (Table 7-14); 23 + the
+    // intra mb_type. Bins 3 on: four bits, a fifth for types 12-21.
+    int mb_type_b(int v) {
+        if (!d(27 + k->mb_type_b_inc(), v != 0)) return 0;
+        if (!d(30, v >= 3)) return 1 + d(32, v == 2);
+        const int code = v >= 23 ? 13 : (v == 22 ? 15 : (v == 11 ? 14 : (v < 11 ? v - 3 : (v + 4) >> 1)));
+        int bits = d(31, code >> 3 & 1) << 3;
+        bits |= d(32, code >> 2 & 1) << 2;
+        bits |= d(32, code >> 1 & 1) << 1;
+        bits |= d(32, code & 1);
+        if (bits < 8) return bits + 3;
+        if (bits == 13) return 23 + mb_type_i(v - 23, 32);
+        if (bits == 14) return 11;
+        if (bits == 15) return 22;
+        return ((bits << 1) | d(32, (v + 4) & 1)) - 4;
     }
     int sub_mb_type(int v) {
         if (d(21, v == 0)) return 0;
         if (!d(22, v >= 2)) return 1;
         return d(23, v == 2) ? 2 : 3;
+    }
+    // A B slice's sub_mb_type 0-12 (Table 9-38).
+    int sub_mb_type_b(int v) {
+        if (!d(36, v != 0)) return 0;
+        if (!d(37, v >= 3)) return 1 + d(39, v == 2);
+        int type = 3;
+        if (d(38, v >= 7)) {
+            if (d(39, v >= 11)) return 11 + d(39, v == 12);
+            type = 7;
+        }
+        const int rest = v - type;
+        type += 2 * d(39, rest >> 1 & 1);
+        return type + d(39, rest & 1);
     }
     int ref_idx(int v, int inc, int max) {
         int n = 0;
@@ -1602,9 +2018,9 @@ struct Decoder : Codec {
     Residual res;
     CabacSyntax<CabacDecoder> syn;
 
-    Decoder(const Params& p, const uint8_t* const* refs_, const int32_t* ids, uint8_t* const* out,
-            MbState* s, Reader& rd)
-        : Codec(p, refs_, ids, out, s), r(rd), qp_prev(p.qp) {
+    Decoder(const Params& p, const uint8_t* const* refs_, const int32_t* ids, const MbState* colocated,
+            uint8_t* const* out, MbState* s, Reader& rd)
+        : Codec(p, refs_, ids, colocated, out, s), r(rd), qp_prev(p.qp) {
         syn.k = this;
         syn.e.r = &r;
         syn.e.limit = r.size_bits + 8 * kSlack;
@@ -1617,7 +2033,7 @@ struct Decoder : Codec {
         int a = c.first_mb;
         bool more = true;
         while (more) {
-            if (c.slice_type == 0) {
+            if (c.slice_type != 2) {
                 const int64_t skip = r.ue();
                 if (skip < 0) return kErrGolomb;
                 if (r.overrun()) return kErrOverrun;
@@ -1647,7 +2063,7 @@ struct Decoder : Codec {
         for (int a = c.first_mb;; ++a) {
             if (a >= total) return kErrSliceEnd;
             int status = begin(a);
-            if (!status) status = c.slice_type == 0 && syn.skip(0) ? decode_skip() : decode_mb_cabac();
+            if (!status) status = c.slice_type != 2 && syn.skip(0) ? decode_skip() : decode_mb_cabac();
             if (status) return status;
             if (syn.e.over) return kErrOverrun;
             if (syn.e.terminate()) break;  // end_of_slice_flag
@@ -1661,23 +2077,32 @@ struct Decoder : Codec {
         return kOk;
     }
 
+    // P_Skip (list 0's ref_idx 0, its vector predicted) or B_Skip (direct).
     int decode_skip() {
-        if (!refs[0]) return kErrMissing;
-        int mx, my;
-        skip_mv(&mx, &my);
-        set_motion(0, 0, 16, 16, 0, mx, my);
+        MbPred m;
+        if (c.slice_type == 1) {
+            m = b_mb_pred(0);
+            const int status = derive(m);
+            if (status) return status;
+        } else {
+            if (!refs[0][0]) return kErrMissing;
+            int ref[2] = {0, -1}, mv[2][2] = {{0, 0}, {0, 0}};
+            skip_mv(&mv[0][0], &mv[0][1]);
+            set_motion(0, 0, 16, 16, ref, mv);
+        }
         cur->kind = kSkip;
         cur->qp = static_cast<int8_t>(qp_prev);
         set_lf_qp(qp_prev);
         qp_delta_nonzero = false;
-        predict_inter(0, 0, 16, 16, 0, mx, my);
+        predict_mb(m);
         return kOk;
     }
 
-    int ref_idx() {
-        if (c.num_ref == 2) return !r.get1();
+    // ref_idx_lX, te(v).
+    int read_ref(int l) {
+        if (num_ref(l) == 2) return !r.get1();
         const int64_t v = r.ue();
-        return v < 0 || v >= c.num_ref ? -1 : static_cast<int>(v);
+        return v < 0 || v >= num_ref(l) ? -1 : static_cast<int>(v);
     }
 
     // An intra mode: `rem` -1 the predicted one.
@@ -1692,20 +2117,15 @@ struct Decoder : Codec {
     int decode_mb() {
         int64_t mb_type = r.ue();
         if (mb_type < 0) return kErrGolomb;
-        bool intra = true;
-        if (c.slice_type == 0) {
-            if (mb_type < 5)
-                intra = false;
-            else
-                mb_type -= 5;
-        }
+        const int inter_types = c.slice_type == 0 ? 5 : (c.slice_type == 1 ? 23 : 0);
+        const bool intra = mb_type >= inter_types;
+        if (intra) mb_type -= inter_types;
         if (intra && mb_type > 25) return kErrMbType;
         res.clear();
         int cbp = 0;
         if (intra && mb_type == 25) return decode_pcm();
         if (intra) {
             cur->kind = mb_type == 0 ? kI4x4 : kI16x16;
-            set_intra_motion();
             if (cur->kind == kI4x4) {
                 if (c.t8x8_mode) cur->t8x8 = static_cast<int8_t>(r.get1());
                 for (int k = 0; k < (cur->t8x8 ? 4 : 16); ++k) {
@@ -1737,48 +2157,46 @@ struct Decoder : Codec {
 
         // Inter.
         cur->kind = kInter;
-        int sub[4] = {0, 0, 0, 0};
-        if (mb_type < 3) {
-            const int n = mb_type == 0 ? 1 : 2;
-            int refs_[2] = {0, 0};
-            for (int k = 0; k < n; ++k)
-                if (c.num_ref > 1 && (refs_[k] = ref_idx()) < 0) return kErrRefIdx;
-            for (int k = 0; k < n; ++k) {
+        MbPred m;
+        if (c.slice_type == 1) {
+            m = b_mb_pred(static_cast<int>(mb_type));
+        } else {
+            m.shape = std::min(3, static_cast<int>(mb_type));
+            m.ref0 = mb_type == 4;
+        }
+        if (m.shape == 3 && !m.direct16)
+            for (int k = 0; k < 4; ++k) {
+                const int64_t t = r.ue();
+                if (t < 0 || t > (c.slice_type == 1 ? 12 : 3)) return kErrSubMbType;
+                if (c.slice_type == 1)
+                    b_sub(&m, k, static_cast<int>(t));
+                else
+                    m.sub[k] = static_cast<int>(t);
+            }
+        for (int l = 0; l < 2; ++l)
+            for (int g = 0; g < m.groups(); ++g)
+                if ((m.mode[g] >> l & 1) && num_ref(l) > 1 && !m.ref0 &&
+                    (m.ref[l][g] = read_ref(l)) < 0)
+                    return kErrRefIdx;
+        Rect parts[16];
+        const int n = pred_rects(m, parts);
+        for (int l = 0; l < 2; ++l)
+            for (int i = 0; i < n; ++i) {
+                if (!(m.mode[parts[i].group] >> l & 1)) continue;
                 const int64_t dx = r.se(), dy = r.se();
                 if (dx == INT64_MIN || dy == INT64_MIN) return kErrGolomb;
                 if (r.overrun()) return kErrOverrun;
-                const int status = inter_part(kParts[mb_type][k], refs_[k], dx, dy);
-                if (status) return status;
+                m.mvd[l][i][0] = static_cast<int>(std::max<int64_t>(-65536, std::min<int64_t>(65536, dx)));
+                m.mvd[l][i][1] = static_cast<int>(std::max<int64_t>(-65536, std::min<int64_t>(65536, dy)));
             }
-        } else {
-            int refs_[4] = {0, 0, 0, 0};
-            for (int k = 0; k < 4; ++k) {
-                const int64_t t = r.ue();
-                if (t < 0 || t > 3) return kErrSubMbType;
-                sub[k] = static_cast<int>(t);
-            }
-            if (mb_type == 3 && c.num_ref > 1)
-                for (int k = 0; k < 4; ++k)
-                    if ((refs_[k] = ref_idx()) < 0) return kErrRefIdx;
-            for (int k = 0; k < 4; ++k)
-                for (int j = 0; j < kSubParts[sub[k]]; ++j) {
-                    const int64_t dx = r.se(), dy = r.se();
-                    if (dx == INT64_MIN || dy == INT64_MIN) return kErrGolomb;
-                    if (r.overrun()) return kErrOverrun;
-                    int part[4];
-                    sub_part(sub[k], j, &part[0], &part[1], &part[2], &part[3]);
-                    part[0] += 8 * (k & 1);
-                    part[1] += 8 * (k >> 1);
-                    const int status = inter_part(part, refs_[k], dx, dy);
-                    if (status) return status;
-                }
-        }
+        int status = derive(m);
+        if (status) return status;
+        predict_mb(m);
         const int64_t code = r.ue();
         if (code < 0 || code > 47) return kErrCbp;
         cbp = kGolombToInterCbp[code];
-        if ((cbp & 15) && c.t8x8_mode && !(sub[0] | sub[1] | sub[2] | sub[3]))
-            cur->t8x8 = static_cast<int8_t>(r.get1());
-        const int status = read_qp_and_residual(cbp);
+        if ((cbp & 15) && c.t8x8_mode && no_sub8x8(m)) cur->t8x8 = static_cast<int8_t>(r.get1());
+        status = read_qp_and_residual(cbp);
         if (status) return status;
         add_inter_luma_residual(res, cbp);
         add_chroma_residual(res, cbp >> 4);
@@ -1787,19 +2205,6 @@ struct Decoder : Codec {
 
     // coded_block_pattern of I_16x16 mb_type t.
     static int i16_cbp(int t) { return ((t - 1) / 4 % 3) << 4 | (t >= 13 ? 15 : 0); }
-
-    // One partition (x, y, w, h) with its reference and vector difference:
-    // the prediction into the picture.
-    int inter_part(const int* p, int ref, int64_t dx, int64_t dy) {
-        if (!refs[3 * ref]) return kErrMissing;
-        int mx, my;
-        pred_mv(p[0], p[1], p[2], p[3], ref, &mx, &my);
-        mx = static_cast<int16_t>(mx + dx);
-        my = static_cast<int16_t>(my + dy);
-        set_motion(p[0], p[1], p[2], p[3], ref, mx, my);
-        predict_inter(p[0], p[1], p[2], p[3], ref, mx, my);
-        return kOk;
-    }
 
     // Intra prediction and the residual, once the macroblock is parsed.
     int reconstruct_intra(int mb_type, int cbp) {
@@ -1857,7 +2262,6 @@ struct Decoder : Codec {
         cur->kind = kIPCM;
         cur->qp = static_cast<int8_t>(qp_prev);
         set_lf_qp(0);
-        set_intra_motion();
         std::memset(cur->nnz, 16, 24);
         cur->cbf = ~0u;
         cur->nonzero = 0xFFFF;
@@ -1990,10 +2394,11 @@ struct Decoder : Codec {
 
     // -- CABAC ------------------------------------------------------------------------
     int decode_mb_cabac() {
-        const bool p_slice = c.slice_type == 0;
-        int mb_type = p_slice ? syn.mb_type_p(0) : syn.mb_type_i(0, true);
-        const bool intra = !p_slice || mb_type >= 5;
-        if (p_slice && intra) mb_type -= 5;
+        const int inter_types = c.slice_type == 0 ? 5 : (c.slice_type == 1 ? 23 : 0);
+        int mb_type = c.slice_type == 0 ? syn.mb_type_p(0)
+                                        : (c.slice_type == 1 ? syn.mb_type_b(0) : syn.mb_type_i(0, 3));
+        const bool intra = mb_type >= inter_types;
+        if (intra) mb_type -= inter_types;
         res.clear();
         if (intra && mb_type == 25) {
             const int status = decode_pcm();
@@ -2003,7 +2408,6 @@ struct Decoder : Codec {
         int cbp;
         if (intra) {
             cur->kind = mb_type == 0 ? kI4x4 : kI16x16;
-            set_intra_motion();
             if (cur->kind == kI4x4) {
                 if (c.t8x8_mode) cur->t8x8 = static_cast<int8_t>(syn.t8x8(0));
                 for (int k = 0; k < (cur->t8x8 ? 4 : 16); ++k) {
@@ -2023,57 +2427,53 @@ struct Decoder : Codec {
             return reconstruct_intra(mb_type, cbp);
         }
         cur->kind = kInter;
-        int sub[4] = {0, 0, 0, 0};
-        if (mb_type < 3) {
-            const int n = mb_type == 0 ? 1 : 2;
-            int refs_[2] = {0, 0};
-            for (int k = 0; k < n && c.num_ref > 1; ++k) {
-                const int* p = kParts[mb_type][k];
-                refs_[k] = syn.ref_idx(0, ref_idx_inc(p[0], p[1]), c.num_ref - 1);
-                if (refs_[k] == kBad) return kErrRefIdx;
-                for (int b8 = 0; b8 < 4; ++b8)
-                    if (8 * (b8 & 1) >= p[0] && 8 * (b8 & 1) < p[0] + p[2] &&
-                        8 * (b8 >> 1) >= p[1] && 8 * (b8 >> 1) < p[1] + p[3])
-                        ref8[b8] = static_cast<int8_t>(refs_[k]);
+        MbPred m;
+        if (c.slice_type == 1)
+            m = b_mb_pred(mb_type);
+        else
+            m.shape = mb_type;
+        if (m.shape == 3 && !m.direct16)
+            for (int k = 0; k < 4; ++k) {
+                if (c.slice_type == 1)
+                    b_sub(&m, k, syn.sub_mb_type_b(0));
+                else
+                    m.sub[k] = syn.sub_mb_type(0);
             }
-            for (int k = 0; k < n; ++k) {
-                const int status = cabac_part(kParts[mb_type][k], refs_[k]);
-                if (status) return status;
-            }
-        } else {
-            int refs_[4] = {0, 0, 0, 0};
-            for (int k = 0; k < 4; ++k) sub[k] = syn.sub_mb_type(0);
-            for (int k = 0; k < 4 && c.num_ref > 1; ++k) {
-                refs_[k] = syn.ref_idx(0, ref_idx_inc(8 * (k & 1), 8 * (k >> 1)), c.num_ref - 1);
-                if (refs_[k] == kBad) return kErrRefIdx;
-                ref8[k] = static_cast<int8_t>(refs_[k]);
-            }
-            for (int k = 0; k < 4; ++k)
-                for (int j = 0; j < kSubParts[sub[k]]; ++j) {
-                    int part[4];
-                    sub_part(sub[k], j, &part[0], &part[1], &part[2], &part[3]);
-                    part[0] += 8 * (k & 1);
-                    part[1] += 8 * (k >> 1);
-                    const int status = cabac_part(part, refs_[k]);
-                    if (status) return status;
+        for (int l = 0; l < 2; ++l)
+            for (int g = 0; g < m.groups(); ++g) {
+                if (!(m.mode[g] >> l & 1)) continue;
+                if (num_ref(l) > 1) {
+                    int x, y;
+                    group_origin(m.shape, g, &x, &y);
+                    m.ref[l][g] = syn.ref_idx(0, ref_idx_inc(l, x, y), num_ref(l) - 1);
+                    if (m.ref[l][g] == kBad) return kErrRefIdx;
                 }
-        }
+                for (int b8 = 0; b8 < 4; ++b8)
+                    if (group_blocks(m.shape, g) >> b8 & 1) ref8[l][b8] = static_cast<int8_t>(m.ref[l][g]);
+            }
+        Rect parts[16];
+        const int n = pred_rects(m, parts);
+        for (int l = 0; l < 2; ++l)
+            for (int i = 0; i < n; ++i) {
+                const Rect& p = parts[i];
+                if (!(m.mode[p.group] >> l & 1)) continue;
+                const int dx = syn.mvd(0, 0, mvd_inc(l, p.x, p.y, 0));
+                const int dy = syn.mvd(0, 1, mvd_inc(l, p.x, p.y, 1));
+                if (dx == kBad || dy == kBad) return kErrCabac;
+                set_mvd(l, p, dx, dy);
+                m.mvd[l][i][0] = dx;
+                m.mvd[l][i][1] = dy;
+            }
+        int status = derive(m);
+        if (status) return status;
+        predict_mb(m);
         cbp = syn.cbp(0);
-        if ((cbp & 15) && c.t8x8_mode && !(sub[0] | sub[1] | sub[2] | sub[3]))
-            cur->t8x8 = static_cast<int8_t>(syn.t8x8(0));
-        const int status = cabac_residual(cbp);
+        if ((cbp & 15) && c.t8x8_mode && no_sub8x8(m)) cur->t8x8 = static_cast<int8_t>(syn.t8x8(0));
+        status = cabac_residual(cbp);
         if (status) return status;
         add_inter_luma_residual(res, cbp);
         add_chroma_residual(res, cbp >> 4);
         return kOk;
-    }
-
-    int cabac_part(const int* p, int ref) {
-        const int dx = syn.mvd(0, 0, mvd_inc(p[0], p[1], 0));
-        const int dy = syn.mvd(0, 1, mvd_inc(p[0], p[1], 1));
-        if (dx == kBad || dy == kBad) return kErrCabac;
-        set_mvd(p[0], p[1], p[2], p[3], dx, dy);
-        return inter_part(p, ref, dx, dy);
     }
 
     int cabac_residual(int cbp) {
@@ -2143,13 +2543,24 @@ struct Decoder : Codec {
 // Deblocking (8.7).
 // ---------------------------------------------------------------------------
 
+// Whether two vectors differ by 4 or more quarter samples in a component.
+inline bool far(const int16_t* a, const int16_t* b) {
+    return std::abs(a[0] - b[0]) >= 4 || std::abs(a[1] - b[1]) >= 4;
+}
+
+// bS of the edge between 4x4 blocks pb of p and qb of q (8.7.2.1): their
+// reference pictures compared as pictures, a list unused as none; where the
+// lists pair off straight or crossed, bS 1 only if the vectors differ both
+// ways.
 int boundary_strength(const MbState& p, int pb, const MbState& q, int qb, bool mb_edge) {
     if (p.kind <= kIPCM || q.kind <= kIPCM) return mb_edge ? 4 : 3;
     if ((p.nonzero >> pb & 1) || (q.nonzero >> qb & 1)) return 2;
-    if (p.ref_pic[pb] != q.ref_pic[qb]) return 1;
-    if (std::abs(p.mv[pb][0] - q.mv[qb][0]) >= 4 || std::abs(p.mv[pb][1] - q.mv[qb][1]) >= 4)
-        return 1;
-    return 0;
+    const int p0 = p.ref_pic[0][pb], p1 = p.ref_pic[1][pb], q0 = q.ref_pic[0][qb], q1 = q.ref_pic[1][qb];
+    const bool straight = p0 != q0 || p1 != q1 || far(p.mv[0][pb], q.mv[0][qb]) ||
+                          far(p.mv[1][pb], q.mv[1][qb]);
+    if (!straight) return 0;
+    if (p0 != q1 || p1 != q0) return 1;
+    return far(p.mv[0][pb], q.mv[1][qb]) || far(p.mv[1][pb], q.mv[0][qb]) ? 1 : 0;
 }
 
 // Filter `n` lines across an edge: q0 of line k at base + k * along, p0
@@ -2267,20 +2678,24 @@ void deblock_mb(const MbState* st, int mbw, int mx, int my, uint8_t* const* pic)
 // The encoder (the test fixtures).
 // ---------------------------------------------------------------------------
 
-// Plan record per macroblock (int32): kind (0 I4x4, 1 I16x16, 2 I_PCM, 3
-// P16x16, 4 P16x8, 5 P8x16, 6 P8x8, 7 P8x8ref0, 8 P_Skip), the 16x16 mode,
-// the chroma mode, QP, sub_mb_type[4], ref_idx[4] (per 8x8; partitions take
-// their first 8x8's), the 4x4 modes [16] (raster; an 8x8 block takes its
-// first 4x4 block's), motion vectors [16][2] (raster 4x4 blocks; partitions
-// take their first block's), then whether to use the 8x8 transform where
-// the PPS allows it and the macroblock may (I_NxN; inter macroblocks with
-// no partition below 8x8 and luma coefficients), and three unused.
-const int kPlanInts = 64;
+// Plan record per macroblock (int32): [0] kind (0 I4x4, 1 I16x16, 2 I_PCM,
+// 3 16x16, 4 16x8, 5 8x16, 6 8x8, 7 P8x8ref0, 8 P_Skip or B_Skip, 10
+// B_Direct_16x16), [1] the 16x16 mode, [2] the chroma mode, [3] QP, [4:8]
+// sub_mb_type per 8x8 (P's 0-3, B's 0-12), [8:12] ref_idx_l0 per 8x8
+// (partitions take their first 8x8's), [12:28] the 4x4 modes (raster; an
+// 8x8 block takes its first 4x4 block's), [28:60] list 0's motion vectors
+// (raster 4x4 blocks; partitions take their first block's), [60] whether
+// to use the 8x8 transform where the PPS allows it and the macroblock may
+// (I_NxN; inter macroblocks with no partition below 8x8 and luma
+// coefficients), [61:63] the lists of a B 16x16 macroblock's or each 16x8 /
+// 8x16 partition's prediction (1 list 0, 2 list 1, 3 both), [64:68]
+// ref_idx_l1 per 8x8, [68:100] list 1's motion vectors; the rest unused.
+const int kPlanInts = 128;
 // Kind 9 is I4x4 whose luma levels are given (levels[], 16 a 4x4 block in
 // raster order, each block's in scan order) instead of quantised: the
 // probes that read single VLC codewords back from another decoder.
 enum PlanKind { kPlanI4 = 0, kPlanI16, kPlanPcm, kPlanP16, kPlanP16x8, kPlanP8x16, kPlanP8x8,
-                kPlanP8x8Ref0, kPlanSkip, kPlanI4Levels };
+                kPlanP8x8Ref0, kPlanSkip, kPlanI4Levels, kPlanDirect };
 
 // Counts the encoder returns, in this order (h264.py STAT_NAMES), then
 // coverage: coeff_token (5 x 68), total_zeros (15 x 16 + 3 x 4), run_before
@@ -2307,6 +2722,15 @@ enum Stat {
     kStatT8Inter = kStatI8Mode + 9,
     kStatCavlc8x8,
     kStatCabacPcm,
+    kStatB16x16,               // B_16x16, B 16x8, B 8x16, B_8x8, B_Direct_16x16, B_Skip
+    kStatBSub = kStatB16x16 + 6,  // 13
+    kStatPred = kStatBSub + 13,   // 3: a B partition's list 0, list 1, both
+    kStatIntraInB = kStatPred + 3,
+    kStatRefIdxL1Nonzero,
+    kStatDirectColIntra,
+    kStatDirectColList1,
+    kStatDirectColZero,
+    kStatDirectRefMapped,
     kNumStats,
 };
 const int kCoverToken = kNumStats, kCoverZeros = kCoverToken + 5 * 68,
@@ -2334,14 +2758,15 @@ struct Encoder : Codec {
     Residual res;
     CabacSyntax<CabacEncoder> syn;
 
-    Encoder(const Params& p, const uint8_t* const* refs_, const int32_t* ids, uint8_t* const* out,
-            MbState* s, const uint8_t* const* source, const int32_t* pl, const int32_t* lv,
-            int64_t* st_)
-        : Codec(p, refs_, ids, out, s), src(source), plan(pl), forced(lv), stats(st_),
+    Encoder(const Params& p, const uint8_t* const* refs_, const int32_t* ids,
+            const MbState* colocated, uint8_t* const* out, MbState* s,
+            const uint8_t* const* source, const int32_t* pl, const int32_t* lv, int64_t* st_)
+        : Codec(p, refs_, ids, colocated, out, s), src(source), plan(pl), forced(lv), stats(st_),
           qp_prev(p.qp) {
         syn.k = this;
         syn.e.w = &w;
         syn.e.cover = stats + kCoverCtx + 1024 * (c.slice_type == 2 ? 0 : 1 + c.cabac_init_idc);
+        direct_counts = stats + kStatDirectColIntra;
     }
 
     int run() {
@@ -2351,12 +2776,13 @@ struct Encoder : Codec {
         for (int a = c.first_mb; a < end; ++a) {
             const int32_t* pl = plan + int64_t(a) * kPlanInts;
             start_mb(a);
-            if (c.slice_type == 0 && pl[0] == kPlanSkip) {
-                encode_skip();
+            if (c.slice_type != 2 && pl[0] == kPlanSkip) {
+                const int status = encode_skip();
+                if (status) return status;
                 ++skip;
                 continue;
             }
-            if (c.slice_type == 0) {
+            if (c.slice_type != 2) {
                 w.ue(skip);
                 if (skip) ++stats[kStatSkipRuns];
                 skip = 0;
@@ -2380,41 +2806,53 @@ struct Encoder : Codec {
         for (int a = c.first_mb; a < end; ++a) {
             const int32_t* pl = plan + int64_t(a) * kPlanInts;
             start_mb(a);
-            const bool skip = c.slice_type == 0 && pl[0] == kPlanSkip;
-            if (c.slice_type == 0) syn.skip(skip);
-            if (skip) {
-                encode_skip();
-            } else {
-                const int status = encode_mb(pl);
-                if (status) return status;
-            }
+            const bool skip = c.slice_type != 2 && pl[0] == kPlanSkip;
+            if (c.slice_type != 2) syn.skip(skip);
+            const int status = skip ? encode_skip() : encode_mb(pl);
+            if (status) return status;
             syn.e.terminate(a == end - 1);  // end_of_slice_flag
         }
         if (w.count) w.put(8 - w.count, 0);
         return kOk;
     }
 
-    void encode_skip() {
-        int mx, my;
-        skip_mv(&mx, &my);
-        set_motion(0, 0, 16, 16, 0, mx, my);
+    // P_Skip or B_Skip.
+    int encode_skip() {
+        MbPred m;
+        if (c.slice_type == 1) {
+            m = b_mb_pred(0);
+            const int status = derive(m);
+            if (status) return status;
+            ++stats[kStatB16x16 + 5];
+        } else {
+            int ref[2] = {0, -1}, mv[2][2] = {{0, 0}, {0, 0}};
+            skip_mv(&mv[0][0], &mv[0][1]);
+            set_motion(0, 0, 16, 16, ref, mv);
+            ++stats[kStatSkip];
+        }
         cur->kind = kSkip;
         cur->qp = static_cast<int8_t>(qp_prev);
         set_lf_qp(qp_prev);
         qp_delta_nonzero = false;
-        predict_inter(0, 0, 16, 16, 0, mx, my);
-        ++stats[kStatSkip];
-        count_outside(0, 0, 16, 16, mx, my);
+        predict_mb(m);
+        count_outside(0, 0, 16, 16);
+        return kOk;
     }
 
-    void count_outside(int x, int y, int w_, int h, int mx, int my) {
-        const int px = 16 * mbx + x + (mx >> 2), py = 16 * mby + y + (my >> 2);
-        if (px < 0 || py < 0 || px + w_ > 16 * c.mbw || py + h > 16 * c.mbh)
-            ++stats[kStatMvOutside];
+    // Counts a vector of the blocks of (x, y, w, h) that points outside the picture.
+    void count_outside(int x, int y, int w_, int h) {
+        const int b = (y >> 2) * 4 + (x >> 2);
+        for (int l = 0; l < 2; ++l) {
+            if (cur->ref_idx[l][b] < 0) continue;
+            const int px = 16 * mbx + x + (cur->mv[l][b][0] >> 2);
+            const int py = 16 * mby + y + (cur->mv[l][b][1] >> 2);
+            if (px < 0 || py < 0 || px + w_ > 16 * c.mbw || py + h > 16 * c.mbh)
+                ++stats[kStatMvOutside];
+        }
     }
 
-    void te(int v) {
-        if (c.num_ref == 2)
+    void te(int l, int v) {
+        if (num_ref(l) == 2)
             w.put(1, !v);
         else
             w.ue(v);
@@ -2422,32 +2860,38 @@ struct Encoder : Codec {
 
     int encode_mb(const int32_t* pl) {
         int kind = pl[0];
-        const bool p_slice = c.slice_type == 0;
         if (kind == kPlanI4Levels && !forced) return kErrArguments;
-        if (!p_slice && kind > kPlanPcm && kind != kPlanI4Levels) kind = kPlanI16;
+        if (c.slice_type == 2 && kind > kPlanPcm && kind != kPlanI4Levels) kind = kPlanI16;
+        if (c.slice_type == 0 && kind == kPlanDirect) kind = kPlanP16;
         res.clear();
         const int target_qp = clip3(std::max(0, qp_prev - 26), std::min(51, qp_prev + 25), pl[3]);
         cur->qp = static_cast<int8_t>(target_qp);
         if (kind <= kPlanPcm || kind == kPlanI4Levels) {
-            if (p_slice) ++stats[kStatIntraInP];
+            if (c.slice_type != 2) ++stats[c.slice_type == 0 ? kStatIntraInP : kStatIntraInB];
             if (kind == kPlanPcm) return encode_pcm();
             return encode_intra(kind, pl, target_qp);
         }
         return encode_inter(kind, pl, target_qp);
     }
 
-    int encode_pcm() {
+    // The mb_type of an intra macroblock (0-25) in this slice.
+    void write_intra_mb_type(int mb_type) {
         if (c.cabac) {
             if (c.slice_type == 0)
-                syn.mb_type_p(5 + 25);
+                syn.mb_type_p(5 + mb_type);
+            else if (c.slice_type == 1)
+                syn.mb_type_b(23 + mb_type);
             else
-                syn.mb_type_i(25, true);
-            if (w.count) w.put(8 - w.count, 0);  // pcm_alignment_zero_bit
-            ++stats[kStatCabacPcm];
+                syn.mb_type_i(mb_type, 3);
         } else {
-            w.ue(c.slice_type == 0 ? 30 : 25);
-            if (w.count) w.put(8 - w.count, 0);
+            w.ue((c.slice_type == 0 ? 5 : (c.slice_type == 1 ? 23 : 0)) + mb_type);
         }
+    }
+
+    int encode_pcm() {
+        write_intra_mb_type(25);
+        if (w.count) w.put(8 - w.count, 0);  // pcm_alignment_zero_bit
+        if (c.cabac) ++stats[kStatCabacPcm];
         for (int y = 0; y < 16; ++y) {
             const uint8_t* s = src[0] + (16 * mby + y) * ys + 16 * mbx;
             for (int x = 0; x < 16; ++x) w.put(8, s[x]);
@@ -2463,7 +2907,6 @@ struct Encoder : Codec {
         cur->kind = kIPCM;
         cur->qp = static_cast<int8_t>(qp_prev);
         set_lf_qp(0);
-        set_intra_motion();
         std::memset(cur->nnz, 16, 24);
         cur->cbf = ~0u;
         cur->nonzero = 0xFFFF;
@@ -2701,7 +3144,6 @@ struct Encoder : Codec {
     int encode_intra(int kind, const int32_t* pl, int qp) {
         static const int kChromaToI16[4] = {2, 1, 0, 3};
         cur->kind = kind == kPlanI16 ? kI16x16 : kI4x4;
-        set_intra_motion();
         int chroma_mode = pl[2] & 3;
         if (!i16_mode_ok(kChromaToI16[chroma_mode], avail_a, avail_b, avail_d)) chroma_mode = 0;
         cur->chroma_mode = static_cast<int8_t>(chroma_mode);
@@ -2797,14 +3239,7 @@ struct Encoder : Codec {
         // Syntax.
         const int i16_type = 1 + i16mode + 4 * cbp_chroma + (cbp_luma ? 12 : 0);
         const int mb_type = cur->kind == kI4x4 ? 0 : i16_type;
-        if (c.cabac) {
-            if (c.slice_type == 0)
-                syn.mb_type_p(5 + mb_type);
-            else
-                syn.mb_type_i(mb_type, true);
-        } else {
-            w.ue((c.slice_type == 0 ? 5 : 0) + mb_type);
-        }
+        write_intra_mb_type(mb_type);
         if (cur->kind == kI4x4)
             write_nxn_modes();
         else
@@ -2845,53 +3280,66 @@ struct Encoder : Codec {
 
     int encode_inter(int kind, const int32_t* pl, int qp) {
         cur->kind = kInter;
-        const int32_t* mvs = pl + 28;
-        auto ref_of = [&](int k8) {
-            return kind == kPlanP8x8Ref0 ? 0 : std::min(pl[8 + k8], c.num_ref - 1);
-        };
-        struct Part { int x, y, w, h, ref, mx, my, dx, dy; };
-        Part parts[16];
-        int n = 0, sub[4] = {0, 0, 0, 0};
-        // CABAC has no P_8x8ref0: it writes P_8x8 with its zero references.
-        const bool ref0 = kind == kPlanP8x8Ref0 && !c.cabac;
-        if (kind <= kPlanP8x16) {
-            const int t = kind - kPlanP16;
-            for (int k = 0; k < (t ? 2 : 1); ++k) {
-                const int* p = kParts[t][k];
-                const int b = (p[1] >> 2) * 4 + (p[0] >> 2);
-                parts[n++] = {p[0], p[1], p[2], p[3], ref_of((p[1] >> 3) * 2 + (p[0] >> 3)),
-                              mvs[2 * b], mvs[2 * b + 1], 0, 0};
-            }
-            ++stats[kStatP16x16 + t];
+        const bool b_slice = c.slice_type == 1;
+        MbPred m;
+        if (kind == kPlanDirect) {
+            m = b_mb_pred(0);
+        } else if (kind <= kPlanP8x16) {
+            m.shape = kind - kPlanP16;
+            for (int k = 0; k < m.groups(); ++k)
+                m.mode[k] = b_slice ? clip3(1, 3, pl[61 + k]) : 1;
         } else {
+            m.shape = 3;
             for (int k = 0; k < 4; ++k) {
-                sub[k] = pl[4 + k] & 3;
-                ++stats[kStatSub + sub[k]];
-                for (int j = 0; j < kSubParts[sub[k]]; ++j) {
-                    int x, y, ww, h;
-                    sub_part(sub[k], j, &x, &y, &ww, &h);
-                    x += 8 * (k & 1);
-                    y += 8 * (k >> 1);
-                    const int b = (y >> 2) * 4 + (x >> 2);
-                    parts[n++] = {x, y, ww, h, ref_of(k), mvs[2 * b], mvs[2 * b + 1], 0, 0};
-                }
+                if (b_slice)
+                    b_sub(&m, k, std::abs(pl[4 + k]) % 13);
+                else
+                    m.sub[k] = pl[4 + k] & 3;
             }
-            ++stats[ref0 ? kStatP8x8Ref0 : kStatP8x8];
+            // CABAC has no P_8x8ref0: it writes P_8x8 with its zero references.
+            m.ref0 = kind == kPlanP8x8Ref0 && !c.cabac && !b_slice;
         }
-        for (int k = 0; k < n; ++k) {
-            Part& p = parts[k];
-            p.mx = clip3(-8192, 8191, p.mx);
-            p.my = clip3(-2048, 2047, p.my);
-            int px, py;
-            pred_mv(p.x, p.y, p.w, p.h, p.ref, &px, &py);
-            p.dx = p.mx - px;
-            p.dy = p.my - py;
-            set_motion(p.x, p.y, p.w, p.h, p.ref, p.mx, p.my);
-            predict_inter(p.x, p.y, p.w, p.h, p.ref, p.mx, p.my);
-            count_outside(p.x, p.y, p.w, p.h, p.mx, p.my);
-            if (p.ref) ++stats[kStatRefIdxNonzero];
+        int target[2][16][2];
+        Rect parts[16];
+        const int n = pred_rects(m, parts);
+        for (int l = 0; l < 2; ++l) {
+            for (int g = 0; g < m.groups(); ++g) {
+                int x, y;
+                group_origin(m.shape, g, &x, &y);
+                const int b8 = (y >> 3) * 2 + (x >> 3);
+                m.ref[l][g] = kind == kPlanP8x8Ref0 && !b_slice ? 0
+                              : std::min(std::max(0, pl[(l ? 64 : 8) + b8]), num_ref(l) - 1);
+                if (m.ref[l][g] < 0) m.ref[l][g] = 0;
+            }
+            for (int i = 0; i < n; ++i) {
+                const int b = (parts[i].y >> 2) * 4 + (parts[i].x >> 2);
+                const int32_t* mv = pl + (l ? 68 : 28) + 2 * b;
+                target[l][i][0] = clip3(-8192, 8191, mv[0]);
+                target[l][i][1] = clip3(-2048, 2047, mv[1]);
+            }
         }
-        const bool no_small = !(sub[0] | sub[1] | sub[2] | sub[3]);
+        const int status = derive(m, target);
+        if (status) return status;
+        predict_mb(m);
+        for (int i = 0; i < n; ++i) {
+            const Rect& p = parts[i];
+            count_outside(p.x, p.y, p.w, p.h);
+            if (!m.mode[p.group]) continue;
+            if ((m.mode[p.group] & 1) && m.ref[0][p.group]) ++stats[kStatRefIdxNonzero];
+            if ((m.mode[p.group] & 2) && m.ref[1][p.group]) ++stats[kStatRefIdxL1Nonzero];
+            if (b_slice) ++stats[kStatPred + m.mode[p.group] - 1];
+        }
+        if (b_slice) {
+            ++stats[kStatB16x16 + (m.direct16 ? 4 : m.shape)];
+            if (m.shape == 3 && !m.direct16)
+                for (int k = 0; k < 4; ++k) ++stats[kStatBSub + b_sub_type(m, k)];
+        } else if (m.shape < 3) {
+            ++stats[kStatP16x16 + m.shape];
+        } else {
+            for (int k = 0; k < 4; ++k) ++stats[kStatSub + m.sub[k]];
+            ++stats[m.ref0 ? kStatP8x8Ref0 : kStatP8x8];
+        }
+        const bool no_small = no_sub8x8(m);
         bool t8 = c.t8x8_mode && no_small && pl[60];
         int cbp_luma = 0;
         for (int b8 = 0; b8 < 4; ++b8) {
@@ -2921,50 +3369,53 @@ struct Encoder : Codec {
         if (t8) ++stats[kStatT8Inter];
         const int cbp_chroma = chroma_levels(qp, false);
         const int cbp = cbp_chroma << 4 | cbp_luma;
-        // Syntax.
+        // Syntax: mb_type, sub_mb_types, each list's ref_idx, each list's mvds.
         if (c.cabac) {
-            syn.mb_type_p(kind <= kPlanP8x16 ? kind - kPlanP16 : 3);
-            if (kind > kPlanP8x16)
-                for (int k = 0; k < 4; ++k) syn.sub_mb_type(sub[k]);
-            if (c.num_ref > 1) {
-                const int count = kind <= kPlanP8x16 ? n : 4;
-                for (int k = 0; k < count; ++k) {
-                    const int x = kind <= kPlanP8x16 ? parts[k].x : 8 * (k & 1);
-                    const int y = kind <= kPlanP8x16 ? parts[k].y : 8 * (k >> 1);
-                    const int ref = kind <= kPlanP8x16 ? parts[k].ref : ref_of(k);
-                    syn.ref_idx(ref, ref_idx_inc(x, y), c.num_ref - 1);
-                    for (int b8 = 0; b8 < 4; ++b8) {
-                        const int w8 = kind <= kPlanP8x16 ? parts[k].w : 8;
-                        const int h8 = kind <= kPlanP8x16 ? parts[k].h : 8;
-                        if (8 * (b8 & 1) >= x && 8 * (b8 & 1) < x + w8 && 8 * (b8 >> 1) >= y &&
-                            8 * (b8 >> 1) < y + h8)
-                            ref8[b8] = static_cast<int8_t>(ref);
-                    }
+            if (b_slice)
+                syn.mb_type_b(b_mb_type(m));
+            else
+                syn.mb_type_p(m.shape);
+            if (m.shape == 3 && !m.direct16)
+                for (int k = 0; k < 4; ++k) {
+                    if (b_slice)
+                        syn.sub_mb_type_b(b_sub_type(m, k));
+                    else
+                        syn.sub_mb_type(m.sub[k]);
                 }
-            }
-            for (int k = 0; k < n; ++k) {
-                const Part& p = parts[k];
-                syn.mvd(p.dx, 0, mvd_inc(p.x, p.y, 0));
-                syn.mvd(p.dy, 1, mvd_inc(p.x, p.y, 1));
-                set_mvd(p.x, p.y, p.w, p.h, p.dx, p.dy);
-            }
+            for (int l = 0; l < 2; ++l)
+                for (int g = 0; g < m.groups(); ++g) {
+                    if (!(m.mode[g] >> l & 1)) continue;
+                    if (num_ref(l) > 1) {
+                        int x, y;
+                        group_origin(m.shape, g, &x, &y);
+                        syn.ref_idx(m.ref[l][g], ref_idx_inc(l, x, y), num_ref(l) - 1);
+                    }
+                    for (int b8 = 0; b8 < 4; ++b8)
+                        if (group_blocks(m.shape, g) >> b8 & 1) ref8[l][b8] = static_cast<int8_t>(m.ref[l][g]);
+                }
+            for (int l = 0; l < 2; ++l)
+                for (int i = 0; i < n; ++i) {
+                    const Rect& p = parts[i];
+                    if (!(m.mode[p.group] >> l & 1)) continue;
+                    syn.mvd(m.mvd[l][i][0], 0, mvd_inc(l, p.x, p.y, 0));
+                    syn.mvd(m.mvd[l][i][1], 1, mvd_inc(l, p.x, p.y, 1));
+                    set_mvd(l, p, m.mvd[l][i][0], m.mvd[l][i][1]);
+                }
             syn.cbp(cbp);
             if ((cbp & 15) && c.t8x8_mode && no_small) syn.t8x8(t8);
         } else {
-            if (kind <= kPlanP8x16) {
-                w.ue(kind - kPlanP16);
-                if (c.num_ref > 1)
-                    for (int k = 0; k < n; ++k) te(parts[k].ref);
-            } else {
-                w.ue(ref0 ? 4 : 3);
-                for (int k = 0; k < 4; ++k) w.ue(sub[k]);
-                if (!ref0 && c.num_ref > 1)
-                    for (int k = 0; k < 4; ++k) te(ref_of(k));
-            }
-            for (int k = 0; k < n; ++k) {
-                w.se(parts[k].dx);
-                w.se(parts[k].dy);
-            }
+            w.ue(b_slice ? b_mb_type(m) : (m.ref0 ? 4 : m.shape));
+            if (m.shape == 3 && !m.direct16)
+                for (int k = 0; k < 4; ++k) w.ue(b_slice ? b_sub_type(m, k) : m.sub[k]);
+            for (int l = 0; l < 2; ++l)
+                for (int g = 0; g < m.groups(); ++g)
+                    if ((m.mode[g] >> l & 1) && num_ref(l) > 1 && !m.ref0) te(l, m.ref[l][g]);
+            for (int l = 0; l < 2; ++l)
+                for (int i = 0; i < n; ++i) {
+                    if (!(m.mode[parts[i].group] >> l & 1)) continue;
+                    w.se(m.mvd[l][i][0]);
+                    w.se(m.mvd[l][i][1]);
+                }
             w.ue(tables().inter_cbp_code[cbp]);
             if ((cbp & 15) && c.t8x8_mode && no_small) w.put(1, t8);
         }
@@ -3151,24 +3602,29 @@ extern "C" int hive_h264_stat_counts(int32_t* named) {
     return kStatsTotal;
 }
 
+// The count of int32 a slice's parameters take (params[] below).
+extern "C" int hive_h264_param_ints() { return kParamInts; }
+
 // Decode one slice's macroblocks.
 //
 // data, size: the slice NAL unit's RBSP (emulation prevention removed);
 // bit_pos: the first bit after the slice header.
-// params: width and height in macroblocks, the slice's number in the
-//   picture (1 up), first_mb_in_slice, slice type (0 P, 2 I), SliceQP_Y,
-//   num_ref_idx_l0_active, chroma_qp_index_offset for Cb and Cr,
-//   constrained_intra_pred_flag, disable_deblocking_filter_idc,
-//   FilterOffsetA, FilterOffsetB, (unused).
-// refs: Y, U, V of each entry of RefPicList0 at the coded size (null: no
-//   picture there); ref_ids: an id per entry naming its picture.
+// params: Params' fields in order (make_params): width and height in
+//   macroblocks, the slice's number in the picture (1 up),
+//   first_mb_in_slice, slice type (0 P, 1 B, 2 I), SliceQP_Y,
+//   num_ref_idx_l0_active, ..., the scaling lists, then B slices' and
+//   weighted prediction's fields.
+// refs: Y, U, V of each entry of RefPicList0, then of RefPicList1, at the
+//   coded size (null: no picture there); ref_ids: an id per entry naming
+//   its picture.
+// colocated: the MbState array of RefPicList1[0] (B slices; else null).
 // out: the picture's Y, U, V at the coded size; state: its MbState array.
 // error_pos: the bit where decoding stopped.
 // Returns 0, or a negative status (Status above).
 extern "C" int hive_h264_decode_slice(const uint8_t* data, int64_t size, int64_t bit_pos,
                                       const int32_t* params, const uint8_t* const* refs,
-                                      const int32_t* ref_ids, uint8_t* const* out, uint8_t* state,
-                                      int64_t* error_pos) {
+                                      const int32_t* ref_ids, const uint8_t* colocated,
+                                      uint8_t* const* out, uint8_t* state, int64_t* error_pos) {
     const Params c = make_params(params);
     *error_pos = bit_pos;
     if (!valid(c) || size < 0 || bit_pos < 0 || bit_pos > 8 * size) return kErrArguments;
@@ -3181,7 +3637,8 @@ extern "C" int hive_h264_decode_slice(const uint8_t* data, int64_t size, int64_t
             break;
         }
     Reader r{buf.data(), 8 * size, bit_pos, end};
-    Decoder d(c, refs, ref_ids, out, reinterpret_cast<MbState*>(state), r);
+    Decoder d(c, refs, ref_ids, reinterpret_cast<const MbState*>(colocated), out,
+              reinterpret_cast<MbState*>(state), r);
     const int status = d.run();
     *error_pos = r.pos;
     return status;
@@ -3204,8 +3661,8 @@ extern "C" int hive_h264_deblock(const int32_t* params, const uint8_t* state,
 // slice header, prefix_bits long) into `out`, with the slice's trailing bits.
 //
 // params: as hive_h264_decode_slice's, params[13] the macroblock count.
-// source: the picture's Y, U, V at the coded size. refs, ref_ids: as the
-// decoder's. recon: the picture as the decoder rebuilds it before
+// source: the picture's Y, U, V at the coded size. refs, ref_ids,
+// colocated: as the decoder's. recon: the picture as the decoder rebuilds it before
 // deblocking; state: its MbState array. plan: kPlanInts int32 a macroblock
 // of the picture (see kPlanInts).
 // levels: null, or 256 int32 a macroblock for plan kind 9 (see kPlanI4Levels).
@@ -3214,18 +3671,19 @@ extern "C" int hive_h264_deblock(const int32_t* params, const uint8_t* state,
 // small.
 extern "C" int64_t hive_h264_encode_slice(const int32_t* params, const uint8_t* const* source,
                                           const uint8_t* const* refs, const int32_t* ref_ids,
-                                          uint8_t* const* recon, uint8_t* state,
+                                          const uint8_t* colocated, uint8_t* const* recon,
+                                          uint8_t* state,
                                           const int32_t* plan, const int32_t* levels,
                                           const uint8_t* prefix,
                                           int64_t prefix_bits, uint8_t* out, int64_t capacity,
                                           int64_t* stats) {
     const Params c = make_params(params);
     if (!valid(c) || c.mb_count < 1) return kErrArguments;
-    if (c.slice_type == 0)
-        for (int k = 0; k < c.num_ref; ++k)
-            if (!refs[3 * k]) return kErrMissing;
-    Encoder e(c, refs, ref_ids, recon, reinterpret_cast<MbState*>(state), source, plan, levels,
-              stats);
+    for (int k = 0; k < c.num_ref + c.num_ref1; ++k)
+        if (c.slice_type != 2 && !refs[3 * k]) return kErrMissing;
+    if (c.slice_type == 1 && !colocated) return kErrMissing;
+    Encoder e(c, refs, ref_ids, reinterpret_cast<const MbState*>(colocated), recon,
+              reinterpret_cast<MbState*>(state), source, plan, levels, stats);
     for (int64_t i = 0; i < prefix_bits; ++i) e.w.put(1, (prefix[i >> 3] >> (7 - (i & 7))) & 1);
     const int status = e.run();
     if (status < 0) return status;

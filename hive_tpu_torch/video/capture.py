@@ -30,10 +30,10 @@ _AUTO_ROTATION = {90: ROTATE_90_CLOCKWISE, 180: ROTATE_180, 270: ROTATE_90_COUNT
 class VideoCapture:
     """An H.264, Motion JPEG or MPEG-4 Part 2 MP4 read on ``device``
     (default ``cuda:0``). Each codec decodes on the host for every device,
-    in one path (NVDEC, :mod:`.nvdec`, is not used): H.264 in the I and P
+    in one path (NVDEC, :mod:`.nvdec`, is not used): H.264 in the I, P and B
     subset of :mod:`.h264` (CAVLC or CABAC, the 8x8 transform, scaling
-    matrices), whose headers are all read, and whatever it refuses
-    refused, when the capture opens. An MPEG-4 N-VOP
+    matrices, weighted prediction), whose headers are all read, and
+    whatever it refuses refused, when the capture opens. An MPEG-4 N-VOP
     (``vop_coded`` 0) gives no frame, as in cv2, so it is left out of the
     frames and the count.
 

@@ -1,48 +1,57 @@
-"""H.264 video (ITU-T H.264), I and P slices of the Baseline, Main and High
-profiles (CAVLC or CABAC, the 8x8 transform, scaling matrices), both ways,
-as FFmpeg's ``h264`` decoder, and so ``cv2.VideoCapture``, reads it.
+"""H.264 video (ITU-T H.264), I, P and B slices of the Baseline, Main and
+High profiles (CAVLC or CABAC, the 8x8 transform, scaling matrices,
+weighted prediction), both ways, as FFmpeg's ``h264`` decoder, and so
+``cv2.VideoCapture``, reads it.
 
 **The reader** (:class:`H264Decoder`) parses every sequence and picture
 parameter set field and each slice header here (:func:`parse_sps`,
-:func:`parse_pps`, :func:`parse_slice_header`); it keeps the decoded picture
-buffer: POC types 0 and 2, ``frame_num`` and its wrap, reference marking by
-sliding window and by memory management control operations 1-6 (long-term
-references included), the P reference list (short-term pictures by
-descending PicNum, then long-term ones by ascending LongTermPicNum, then
-the slice's modification commands); and it decodes each slice's
-macroblocks in one native call (``native/src/h264_decode.cpp``: CAVLC or
-CABAC, intra and inter prediction, the transforms with the scaling lists
-this module resolves), then deblocks the picture in
-one more. There is no numpy decoder beside the native one: without a C++
-toolchain it raises, naming the failed build. H.264 decoding is exact by
-specification, so the planes equal FFmpeg's bit for bit; what the port
-copies from FFmpeg is the output order (:func:`display_order`): a buffer as
-deep as the VUI's ``max_num_reorder_frames``, flushed at each IDR picture
-and at each memory management control operation 5.
+:func:`parse_pps`, :func:`parse_slice_header`, the prediction weight table
+among it); it keeps the decoded picture buffer: POC types 0 and 2,
+``frame_num`` and its wrap, reference marking by sliding window and by
+memory management control operations 1-6 (long-term references included),
+the reference lists (P: short-term pictures by descending PicNum; B: list 0
+the short-term pictures before the picture by descending POC, then those
+after it by ascending POC, list 1 the other way round, its first two
+entries swapped where it equals list 0; then long-term ones by ascending
+LongTermPicNum; then each list's modification commands), and each
+reference picture's macroblock state, which B slices' direct prediction
+reads as the co-located picture; and it decodes each slice's macroblocks
+in one native call (``native/src/h264_decode.cpp``: CAVLC or CABAC, intra
+and inter prediction with spatial and temporal direct modes and default,
+explicit or implicit weights, the transforms with the scaling lists this
+module resolves), then deblocks the picture in one more. There is no numpy
+decoder beside the native one: without a C++ toolchain it raises, naming
+the failed build. H.264 decoding is exact by specification, so the planes
+equal FFmpeg's bit for bit; what the port copies from FFmpeg is the output
+order (:func:`display_order`: a buffer as deep as the VUI's
+``max_num_reorder_frames``, flushed at each IDR picture and at each memory
+management control operation 5) and, in temporal direct prediction, the
+list 0 index 0 it takes for a co-located reference that list 0 lacks.
 
 Refused by name before any picture is decoded (:func:`scan_track`), naming
 the ROADMAP Queue 1 item that will lift it
-(:class:`~hive_tpu_torch.video.mp4.UnsupportedVideoError`): B slices and
-weighted prediction (9f-3); fields and MBAFF (``frame_mbs_only_flag`` 0,
-9f-4); and (9f) SP and SI slices; chroma other than 4:2:0; depths above 8
-bits; the lossless transform bypass; POC type 1; slice groups (FMO);
-redundant pictures; data partitioning and the extension NAL units (types
-2-4, 20, 21); a gap in ``frame_num``; a change of picture size within the
-stream; and POCs whose order the VUI's reorder depth (absent: 0) cannot put
-right, where FFmpeg's heuristics would grow its buffer or drop pictures.
+(:class:`~hive_tpu_torch.video.mp4.UnsupportedVideoError`): fields and
+MBAFF (``frame_mbs_only_flag`` 0, 9f-4); and (9f) SP and SI slices; chroma
+other than 4:2:0; depths above 8 bits; the lossless transform bypass; POC
+type 1; slice groups (FMO); redundant pictures; data partitioning and the
+extension NAL units (types 2-4, 20, 21); a gap in ``frame_num``; a change
+of picture size within the stream; and POCs whose order the VUI's reorder
+depth (absent: 0) cannot put right, where FFmpeg's heuristics would grow
+its buffer or drop pictures.
 
 **The writer** (:func:`write_h264_mp4`) makes such files from uint8 4:2:0
 planes, for the tests and ``chip_smoke.py``: a planner (:class:`Exerciser`,
 seeded choices of every path above, :class:`MotionPlanner`, a motion
 field, or :class:`PcmPlanner`, every macroblock I_PCM) decides each
-picture's type, slices, marking, reference list commands and each
-macroblock's type, transform size, modes, partitions, references, motion
-vectors and QP; the native encoder quantises the true difference to the
-target planes, with CAVLC or CABAC (each slice's ``cabac_init_idc``) and
-the SPS's and PPS's scaling lists (explicit, default or fallen back). It
-rebuilds its references with this module's own decoder, so nothing drifts,
-and returns counts of each syntax path it wrote and of each CABAC context
-it coded.
+picture's type, slices, marking, reference list commands, direct mode and
+weights, and each macroblock's type, transform size, modes, partitions,
+lists, references, motion vectors and QP, and may order the pictures
+(B pictures after the later pictures they predict from); the native
+encoder quantises the true difference to the target planes, with CAVLC or
+CABAC (each slice's ``cabac_init_idc``) and the SPS's and PPS's scaling
+lists (explicit, default or fallen back). It rebuilds its references with
+this module's own decoder, so nothing drifts, and returns counts of each
+syntax path it wrote and of each CABAC context it coded.
 """
 
 from __future__ import annotations
@@ -55,22 +64,22 @@ from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence,
 import numpy as np
 
 from hive_tpu_torch.video import mp4
-from hive_tpu_torch.video.h264_pcm import (LOG2_MAX_POC_LSB, NAL_IDR, NAL_PPS, NAL_SLICE,
-                                           NAL_SPS, BitReader, BitWriter, nal_unit, unescape)
+from hive_tpu_torch.video.h264_bits import (LOG2_MAX_POC_LSB, NAL_IDR, NAL_PPS, NAL_SLICE,
+                                            NAL_SPS, BitReader, BitWriter, nal_unit, unescape)
 from hive_tpu_torch.video.mp4 import UnsupportedVideoError
 
-P_SLICE, I_SLICE = 0, 2
+P_SLICE, B_SLICE, I_SLICE = 0, 1, 2
 SLICE_NAMES = ("P", "B", "I", "SP", "SI")
 HIGH_PROFILES = (100, 110, 122, 244, 44, 83, 86, 118, 128, 138, 139, 134, 135)
 # The subset decoded, named in the refusals.
-SUBSET = ("I and P slices of 8-bit 4:2:0 frame pictures, CAVLC or CABAC (POC types 0 and 2, "
-          "the 4x4 and 8x8 transforms, scaling matrices)")
+SUBSET = ("I, P and B slices of 8-bit 4:2:0 frame pictures, CAVLC or CABAC (POC types 0 and 2, "
+          "the 4x4 and 8x8 transforms, scaling matrices, weighted prediction)")
 
 
 def _refuse(what: str, item: str = "9f") -> UnsupportedVideoError:
     """The refusal of a feature outside the subset, naming the ROADMAP
-    Queue 1 item that will lift it: 9f-3 (B slices, weighted prediction),
-    9f-4 (fields, MBAFF) or 9f (the rest)."""
+    Queue 1 item that will lift it: 9f-4 (fields, MBAFF) or 9f (the
+    rest)."""
     return UnsupportedVideoError(
         f"The H.264 video uses {what}; hive_tpu_torch decodes only {SUBSET} (ROADMAP.md "
         f"Queue 1 item {item}).")
@@ -284,7 +293,7 @@ def parse_pps(rbsp: bytes) -> dict:
     if pps["slice_groups"] > 1:
         return pps                                 # refused by check_pps
     pps["num_ref_idx_default"] = r.ue() + 1
-    r.ue()
+    pps["num_ref_idx_default_l1"] = r.ue() + 1
     pps["weighted_pred"] = r.u(1)
     pps["weighted_bipred"] = r.u(2)
     pps["init_qp"] = 26 + r.se()
@@ -307,13 +316,41 @@ def parse_pps(rbsp: bytes) -> dict:
 def check_pps(pps: dict) -> None:
     if pps["slice_groups"] > 1:
         raise _refuse(f"slice groups (FMO, {pps['slice_groups']} groups)")
-    if pps["weighted_pred"]:
-        raise _refuse("weighted prediction (weighted_pred_flag 1)", "9f-3")
+    if pps["weighted_bipred"] == 3:
+        raise ValueError("corrupt H.264 PPS: weighted_bipred_idc 3")
     if pps["redundant_pic_cnt"]:
         raise _refuse("redundant pictures (redundant_pic_cnt_present_flag 1)")
     if not 0 <= pps["init_qp"] <= 51 or max(abs(pps["chroma_qp_offset"]),
                                              abs(pps["second_chroma_qp_offset"])) > 12:
         raise ValueError("corrupt H.264 PPS: pic_init_qp or chroma_qp_index_offset out of range")
+
+
+@dataclass
+class PredWeights:
+    """A slice's pred_weight_table (7.3.3.2): the log2 denominators and, per
+    list and reference index, the luma (weight, offset) and the chroma
+    ((Cb weight, offset), (Cr weight, offset)), each None where its flag is
+    0 (the default weight, no offset)."""
+
+    luma_denom: int = 0
+    chroma_denom: int = 0
+    lists: List[List[Tuple[Optional[Tuple[int, int]],
+                           Optional[Tuple[Tuple[int, int], Tuple[int, int]]]]]] = \
+        field(default_factory=lambda: [[], []])
+
+    def table(self) -> np.ndarray:
+        """(2, 32, 6) int32: per list and ref_idx the luma weight and offset,
+        Cb's and Cr's, defaults where absent."""
+        out = np.zeros((2, 32, 6), np.int32)
+        out[:, :, 0] = 1 << self.luma_denom
+        out[:, :, 2] = out[:, :, 4] = 1 << self.chroma_denom
+        for l, entries in enumerate(self.lists):
+            for i, (luma, chroma) in enumerate(entries):
+                if luma is not None:
+                    out[l, i, 0:2] = luma
+                if chroma is not None:
+                    out[l, i, 2:4], out[l, i, 4:6] = chroma
+        return out
 
 
 @dataclass
@@ -327,8 +364,12 @@ class SliceHeader:
     idr_pic_id: int = 0
     poc_lsb: int = 0
     delta_poc_bottom: int = 0
-    num_ref_override: Optional[int] = None
+    direct_spatial: int = 0
+    num_ref_override: Optional[int] = None      # list 0's (with the override flag)
+    num_ref_override_l1: Optional[int] = None
     modifications: List[Tuple[int, int]] = field(default_factory=list)
+    modifications_l1: List[Tuple[int, int]] = field(default_factory=list)
+    weights: Optional[PredWeights] = None
     no_output_of_prior_pics: int = 0
     long_term_reference: int = 0
     mmco: Optional[List[Tuple[int, ...]]] = None   # None: sliding window
@@ -347,6 +388,47 @@ class SliceHeader:
         return self.num_ref_override if self.num_ref_override is not None else \
             pps["num_ref_idx_default"]
 
+    def num_ref_l1(self, pps: dict) -> int:
+        return self.num_ref_override_l1 if self.num_ref_override_l1 is not None else \
+            pps["num_ref_idx_default_l1"]
+
+    def weighted(self, pps: dict) -> bool:
+        """Whether the slice carries a pred_weight_table (explicit weights)."""
+        return bool(pps["weighted_pred"]) if self.slice_type == P_SLICE else \
+            self.slice_type == B_SLICE and pps["weighted_bipred"] == 1
+
+
+def _read_modifications(r: BitReader) -> List[Tuple[int, int]]:
+    """ref_pic_list_modification() of one list: its commands."""
+    commands: List[Tuple[int, int]] = []
+    if r.u(1):
+        while True:
+            idc = r.ue()
+            if idc == 3:
+                break
+            if idc > 2:
+                raise ValueError(f"corrupt H.264 slice header: modification_of_pic_nums_idc {idc}")
+            commands.append((idc, r.ue()))
+            if len(commands) > 33:
+                raise ValueError("corrupt H.264 slice header: too many list modifications")
+    return commands
+
+
+def _read_weights(r: BitReader, lists: int, counts: Sequence[int]) -> PredWeights:
+    """pred_weight_table() (7.3.3.2) of ``lists`` lists of ``counts`` entries."""
+    weights = PredWeights(r.ue(), r.ue(), [[], []])
+    if max(weights.luma_denom, weights.chroma_denom) > 7:
+        raise ValueError("corrupt H.264 slice header: a log2 weight denominator above 7")
+    for l in range(lists):
+        for _ in range(counts[l]):
+            luma = (r.se(), r.se()) if r.u(1) else None
+            chroma = ((r.se(), r.se()), (r.se(), r.se())) if r.u(1) else None
+            values = list(luma or ()) + [v for pair in chroma or () for v in pair]
+            if any(not -128 <= v <= 127 for v in values):
+                raise ValueError("corrupt H.264 slice header: a weight or offset out of range")
+            weights.lists[l].append((luma, chroma))
+    return weights
+
 
 def parse_slice_header(rbsp: bytes, sps_table: dict, pps_table: dict) -> SliceHeader:
     """A slice header (7.3.3); refuses, by name, slice types and parameter
@@ -358,8 +440,8 @@ def parse_slice_header(rbsp: bytes, sps_table: dict, pps_table: dict) -> SliceHe
     if slice_type > 9:
         raise ValueError(f"corrupt H.264 slice header: slice_type {slice_type}")
     sh.slice_type = slice_type % 5
-    if sh.slice_type not in (P_SLICE, I_SLICE):
-        raise _refuse(f"{SLICE_NAMES[sh.slice_type]} slices", "9f-3" if sh.slice_type == 1 else "9f")
+    if sh.slice_type not in (P_SLICE, B_SLICE, I_SLICE):
+        raise _refuse(f"{SLICE_NAMES[sh.slice_type]} slices")
     sh.pps_id = r.ue()
     if sh.pps_id not in pps_table:
         raise ValueError(f"an H.264 slice refers to PPS {sh.pps_id}, which the stream lacks")
@@ -370,7 +452,7 @@ def parse_slice_header(rbsp: bytes, sps_table: dict, pps_table: dict) -> SliceHe
     sps = sps_table[pps["sps_id"]]
     check_sps(sps)
     if sh.idr and sh.slice_type != I_SLICE:
-        raise ValueError("corrupt H.264 stream: an IDR picture with P slices")
+        raise ValueError("corrupt H.264 stream: an IDR picture with P or B slices")
     sh.frame_num = r.u(sps["log2_max_frame_num"])
     if sh.idr:
         sh.idr_pic_id = r.ue()
@@ -378,22 +460,22 @@ def parse_slice_header(rbsp: bytes, sps_table: dict, pps_table: dict) -> SliceHe
         sh.poc_lsb = r.u(sps["log2_max_poc_lsb"])
         if pps["bottom_field_poc"]:
             sh.delta_poc_bottom = r.se()
-    if sh.slice_type == P_SLICE:
+    if sh.slice_type == B_SLICE:
+        sh.direct_spatial = r.u(1)
+    if sh.slice_type != I_SLICE:
         if r.u(1):
             sh.num_ref_override = r.ue() + 1
-        if r.u(1):
-            while True:
-                idc = r.ue()
-                if idc == 3:
-                    break
-                if idc > 2:
-                    raise ValueError(f"corrupt H.264 slice header: modification_of_pic_nums_idc "
-                                     f"{idc}")
-                sh.modifications.append((idc, r.ue()))
-                if len(sh.modifications) > 33:
-                    raise ValueError("corrupt H.264 slice header: too many list modifications")
-        if not 1 <= sh.num_ref(pps) <= 32:
-            raise ValueError("corrupt H.264 slice header: num_ref_idx_l0_active out of range")
+            if sh.slice_type == B_SLICE:
+                sh.num_ref_override_l1 = r.ue() + 1
+        sh.modifications = _read_modifications(r)
+        if sh.slice_type == B_SLICE:
+            sh.modifications_l1 = _read_modifications(r)
+        if not 1 <= sh.num_ref(pps) <= 32 or not 1 <= sh.num_ref_l1(pps) <= 32:
+            raise ValueError("corrupt H.264 slice header: num_ref_idx_active out of range")
+        if sh.weighted(pps):
+            b = sh.slice_type == B_SLICE
+            sh.weights = _read_weights(r, 2 if b else 1,
+                                       (sh.num_ref(pps), sh.num_ref_l1(pps) if b else 0))
     if sh.ref_idc:
         if sh.idr:
             sh.no_output_of_prior_pics = r.u(1)
@@ -411,7 +493,7 @@ def parse_slice_header(rbsp: bytes, sps_table: dict, pps_table: dict) -> SliceHe
                 sh.mmco.append((op, *args))
                 if len(sh.mmco) > 66:
                     raise ValueError("corrupt H.264 slice header: too many marking operations")
-    if pps["cabac"] and sh.slice_type == P_SLICE:
+    if pps["cabac"] and sh.slice_type != I_SLICE:
         sh.cabac_init_idc = r.ue()
         if sh.cabac_init_idc > 2:
             raise ValueError(f"corrupt H.264 slice header: cabac_init_idc {sh.cabac_init_idc}")
@@ -431,23 +513,50 @@ def parse_slice_header(rbsp: bytes, sps_table: dict, pps_table: dict) -> SliceHe
     return sh
 
 
+def _write_modifications(w: BitWriter, commands: Sequence[Tuple[int, int]]) -> None:
+    w.u(1, bool(commands))
+    if commands:
+        for idc, value in commands:
+            w.ue(idc).ue(value)
+        w.ue(3)
+
+
 def write_slice_header(sh: SliceHeader, sps: dict, pps: dict) -> BitWriter:
-    """The slice header's bits (after the NAL header byte)."""
+    """The slice header's bits (after the NAL header byte); a slice whose
+    PPS asks for a pred_weight_table and that has none writes the default
+    one."""
     w = BitWriter().ue(sh.first_mb).ue(sh.slice_type).ue(sh.pps_id)
     w.u(sps["log2_max_frame_num"], sh.frame_num)
     if sh.idr:
         w.ue(sh.idr_pic_id)
     if sps["poc_type"] == 0:
         w.u(sps["log2_max_poc_lsb"], sh.poc_lsb)
-    if sh.slice_type == P_SLICE:
-        w.u(1, sh.num_ref_override is not None)
-        if sh.num_ref_override is not None:
-            w.ue(sh.num_ref_override - 1)
-        w.u(1, bool(sh.modifications))
-        if sh.modifications:
-            for idc, value in sh.modifications:
-                w.ue(idc).ue(value)
-            w.ue(3)
+    if sh.slice_type == B_SLICE:
+        w.u(1, sh.direct_spatial)
+    if sh.slice_type != I_SLICE:
+        override = sh.num_ref_override is not None or sh.num_ref_override_l1 is not None
+        w.u(1, override)
+        if override:
+            w.ue(sh.num_ref(pps) - 1)
+            if sh.slice_type == B_SLICE:
+                w.ue(sh.num_ref_l1(pps) - 1)
+        _write_modifications(w, sh.modifications)
+        if sh.slice_type == B_SLICE:
+            _write_modifications(w, sh.modifications_l1)
+        if sh.weighted(pps):
+            weights = sh.weights or PredWeights()
+            w.ue(weights.luma_denom).ue(weights.chroma_denom)
+            counts = (sh.num_ref(pps), sh.num_ref_l1(pps))
+            for l in range(2 if sh.slice_type == B_SLICE else 1):
+                entries = list(weights.lists[l]) + [(None, None)] * counts[l]
+                for luma, chroma in entries[:counts[l]]:
+                    w.u(1, luma is not None)
+                    if luma is not None:
+                        w.se(luma[0]).se(luma[1])
+                    w.u(1, chroma is not None)
+                    if chroma is not None:
+                        for weight, offset in chroma:
+                            w.se(weight).se(offset)
     if sh.ref_idc:
         if sh.idr:
             w.u(1, sh.no_output_of_prior_pics).u(1, sh.long_term_reference)
@@ -459,7 +568,7 @@ def write_slice_header(sh: SliceHeader, sps: dict, pps: dict) -> BitWriter:
                     for a in args:
                         w.ue(a)
                 w.ue(0)
-    if pps["cabac"] and sh.slice_type == P_SLICE:
+    if pps["cabac"] and sh.slice_type != I_SLICE:
         w.ue(sh.cabac_init_idc)
     w.se(sh.qp_delta)
     if pps["deblocking_control"]:
@@ -480,7 +589,8 @@ def _write_matrix(w: BitWriter, entries: Sequence) -> None:
 def encode_sps(width: int, height: int, *, profile: int = 66, poc_type: int = 0,
                num_ref_frames: int = 1, reorder: Optional[int] = None,
                log2_max_frame_num: int = 8, full_range: bool = False,
-               matrix: Optional[int] = None, scaling: Optional[Sequence] = None) -> bytes:
+               matrix: Optional[int] = None, scaling: Optional[Sequence] = None,
+               direct_8x8_inference: bool = True) -> bytes:
     """A sequence parameter set: Baseline (constraint set 1: Constrained
     Baseline), Main or High ``profile``, level 5.1, cropped to ``width`` x
     ``height``; ``reorder`` None writes no bitstream restriction;
@@ -501,7 +611,7 @@ def encode_sps(width: int, height: int, *, profile: int = 66, poc_type: int = 0,
     w.ue(log2_max_frame_num - 4).ue(poc_type)
     if poc_type == 0:
         w.ue(LOG2_MAX_POC_LSB - 4)
-    w.ue(num_ref_frames).u(1, 0).ue(mbs_w - 1).ue(mbs_h - 1).u(1, 1).u(1, 1)
+    w.ue(num_ref_frames).u(1, 0).ue(mbs_w - 1).ue(mbs_h - 1).u(1, 1).u(1, direct_8x8_inference)
     crop_right, crop_bottom = (16 * mbs_w - width) // 2, (16 * mbs_h - height) // 2
     cropped = bool(crop_right or crop_bottom)
     w.u(1, cropped)
@@ -522,17 +632,21 @@ def encode_sps(width: int, height: int, *, profile: int = 66, poc_type: int = 0,
     return nal_unit(3, NAL_SPS, np.frombuffer(w.align(True), np.uint8))
 
 
-def encode_pps(*, num_ref_default: int = 1, init_qp: int = 26, chroma_qp_offset: int = 0,
-               second_chroma_qp_offset: Optional[int] = None, constrained_intra: bool = False,
-               cabac: bool = False, transform_8x8: bool = False,
-               scaling: Optional[Sequence] = None) -> bytes:
+def encode_pps(*, num_ref_default: int = 1, num_ref_default_l1: int = 1, init_qp: int = 26,
+               chroma_qp_offset: int = 0, second_chroma_qp_offset: Optional[int] = None,
+               constrained_intra: bool = False, cabac: bool = False, transform_8x8: bool = False,
+               scaling: Optional[Sequence] = None, weighted_pred: bool = False,
+               weighted_bipred: int = 0) -> bytes:
     """A picture parameter set: CAVLC or CABAC, one slice group, deblocking
-    control present; the High profile extension, when
-    ``second_chroma_qp_offset``, ``transform_8x8`` or ``scaling`` (the six
-    or, with the 8x8 transform, eight scaling lists, as
-    :func:`encode_sps`'s) asks for it."""
-    w = BitWriter().ue(0).ue(0).u(1, cabac).u(1, 0).ue(0).ue(num_ref_default - 1).ue(0)
-    w.u(1, 0).u(2, 0).se(init_qp - 26).se(0).se(chroma_qp_offset).u(1, 1)
+    control present, each list's default reference count, P slices'
+    explicit weights (``weighted_pred``) and B slices' weights
+    (``weighted_bipred``: 0 default, 1 explicit, 2 implicit); the High
+    profile extension, when ``second_chroma_qp_offset``, ``transform_8x8``
+    or ``scaling`` (the six or, with the 8x8 transform, eight scaling lists,
+    as :func:`encode_sps`'s) asks for it."""
+    w = BitWriter().ue(0).ue(0).u(1, cabac).u(1, 0).ue(0).ue(num_ref_default - 1)
+    w.ue(num_ref_default_l1 - 1)
+    w.u(1, weighted_pred).u(2, weighted_bipred).se(init_qp - 26).se(0).se(chroma_qp_offset).u(1, 1)
     w.u(1, constrained_intra).u(1, 0)
     if second_chroma_qp_offset is not None or transform_8x8 or scaling is not None:
         w.u(1, transform_8x8).u(1, scaling is not None)
@@ -566,6 +680,8 @@ def _lib():
         raise RuntimeError(f"H.264 video decodes in hive_tpu_torch's native library "
                            f"(native/src/h264_decode.cpp, built with g++), which is not "
                            f"available: {native.build_error()}")
+    if lib.hive_h264_param_ints() != PARAM_INTS:
+        raise RuntimeError("the native H.264 decoder's slice parameters do not match _params")
     return lib
 
 
@@ -583,7 +699,12 @@ STAT_NAMES = tuple([f"i4x4_mode_{m}" for m in range(9)] + [f"i16x16_mode_{m}" fo
                       "ref_idx_nonzero", "level_prefix_14", "level_prefix_15",
                       "suffix_length_6", "chroma_ac"]
                    + [f"i8x8_mode_{m}" for m in range(9)]
-                   + ["transform_8x8_inter", "cavlc_8x8_blocks", "cabac_i_pcm"])
+                   + ["transform_8x8_inter", "cavlc_8x8_blocks", "cabac_i_pcm"]
+                   + ["b_16x16", "b_16x8", "b_8x16", "b_8x8", "b_direct_16x16", "b_skip"]
+                   + [f"b_sub_{t}" for t in range(13)]
+                   + ["pred_l0", "pred_l1", "pred_bi", "intra_in_b", "ref_idx_l1_nonzero",
+                      "direct_col_intra", "direct_col_list1", "direct_col_zero",
+                      "direct_ref_mapped"])
 # The coverage counters: coeff_token for nC 0-1, 2-3, 4-7, 8+ and chroma DC
 # ([TotalCoeff * 4 + TrailingOnes]), total_zeros of 4x4 blocks and of
 # chroma DC ([TotalCoeff - 1][total_zeros]), run_before ([min(zerosLeft,
@@ -592,25 +713,29 @@ STAT_NAMES = tuple([f"i4x4_mode_{m}" for m in range(9)] + [f"i16x16_mode_{m}" fo
 COVERAGE_SHAPES = (("coeff_token", (5, 68)), ("total_zeros", (15, 16)),
                    ("chroma_dc_total_zeros", (3, 4)), ("run_before", (7, 15)),
                    ("cabac_contexts", (4, 1024)))
-PLAN_INTS = 64
+# The int32 a slice's parameters take (``kParamInts`` in h264_decode.cpp).
+PARAM_INTS = 17 + 6 * 16 + 2 * 64 + 7 + 4 * 32 + 2 * 32 * 6
+PLAN_INTS = 128
 (PLAN_I4, PLAN_I16, PLAN_PCM, PLAN_P16, PLAN_P16X8, PLAN_P8X16, PLAN_P8X8, PLAN_P8X8REF0,
- PLAN_SKIP, PLAN_I4_LEVELS) = range(10)
+ PLAN_SKIP, PLAN_I4_LEVELS, PLAN_DIRECT) = range(11)
+# A B partition's lists (plan_record's ``modes``): list 0, list 1, both.
+PRED_L0, PRED_L1, PRED_BI = 1, 2, 3
 
 
 def cabac_contexts_reachable() -> np.ndarray:
     """The (table, ctxIdx) pairs ((4, 1024) bools: the I slices' table, then
-    cabac_init_idc 0-2's) that the I and P slices of progressive 4:2:0
-    pictures can read: mb_type of I slices (3-10) in I slices, mb_skip_flag,
-    the P mb_type prefix and suffix, sub_mb_type, mvd_l0 and ref_idx_l0
-    (11-23, 40-59) in P slices; in both mb_qp_delta, the intra modes,
-    coded_block_pattern, coded_block_flag, the significance maps and levels
-    of ctxBlockCat 0-4 (60-69, 73-275) and the 8x8 transform's flag and
-    blocks in frames (399-435). The rest belong to SI, B, field or 4:4:4
-    coding."""
+    cabac_init_idc 0-2's) that the I, P and B slices of progressive 4:2:0
+    pictures can read: mb_type of I slices (3-10) in I slices; mb_skip_flag,
+    the P mb_type prefix and suffix, sub_mb_type, the B slices' mb_skip_flag,
+    mb_type and sub_mb_type, mvd_lX and ref_idx_lX (11-59) in P and B
+    slices; in all, mb_qp_delta, the intra modes, coded_block_pattern,
+    coded_block_flag, the significance maps and levels of ctxBlockCat 0-4
+    (60-69, 73-275) and the 8x8 transform's flag and blocks in frames
+    (399-435). The rest belong to SI, field or 4:4:4 coding."""
     reach = np.zeros((4, 1024), bool)
     for first, end in ((3, 11), (60, 70), (73, 276), (399, 436)):
         reach[0, first:end] = True
-    for first, end in ((11, 24), (40, 70), (73, 276), (399, 436)):
+    for first, end in ((11, 70), (73, 276), (399, 436)):
         reach[1:, first:end] = True
     return reach
 
@@ -634,15 +759,29 @@ def coverage(stats: np.ndarray) -> Dict[str, np.ndarray]:
 
 
 def _params(sps: dict, pps: dict, weights: np.ndarray, sh: SliceHeader, slice_num: int,
-            num_ref: int, mb_count: int = 0) -> np.ndarray:
+            lists: Sequence[Sequence[Optional["_Ref"]]] = ((), ()), poc: int = 0,
+            mb_count: int = 0) -> np.ndarray:
     """The native calls' slice parameters (``Params`` in h264_decode.cpp);
-    ``weights`` the pair's scaling lists (:meth:`H264Decoder.weights`)."""
+    ``weights`` the pair's scaling lists (:meth:`H264Decoder.weights`),
+    ``lists`` the slice's reference lists, ``poc`` the picture's POC."""
     head = np.array([sps["mbs_w"], sps["mbs_h"], slice_num, sh.first_mb, sh.slice_type,
-                     pps["init_qp"] + sh.qp_delta, num_ref, pps["chroma_qp_offset"],
+                     pps["init_qp"] + sh.qp_delta, len(lists[0]), pps["chroma_qp_offset"],
                      pps["second_chroma_qp_offset"], pps["constrained_intra"], sh.lf_idc,
                      2 * sh.alpha_div2, 2 * sh.beta_div2, mb_count, pps["cabac"],
                      sh.cabac_init_idc, pps["transform_8x8"]], np.int32)
-    return np.concatenate([head, weights])
+    b = sh.slice_type == B_SLICE
+    mode = 1 if sh.weighted(pps) else (2 if b and pps["weighted_bipred"] == 2 else 0)
+    table = sh.weights or PredWeights()
+    pocs, long_term = np.zeros((2, 32), np.int32), np.zeros((2, 32), np.int32)
+    for l, entries in enumerate(lists):
+        for i, entry in enumerate(entries):
+            if entry is not None:
+                pocs[l, i], long_term[l, i] = entry.poc, entry.long_term is not None
+    tail = np.array([len(lists[1]), sh.direct_spatial, sps["direct_8x8_inference"], mode,
+                     table.luma_denom if mode == 1 else 0, table.chroma_denom if mode == 1 else 0,
+                     poc], np.int32)
+    wtab = table.table() if mode == 1 else np.zeros((2, 32, 6), np.int32)
+    return np.concatenate([head, weights, tail, pocs.ravel(), long_term.ravel(), wtab.ravel()])
 
 
 def _int32p(a: np.ndarray):
@@ -668,12 +807,17 @@ class Picture:
     slice_types: Tuple[int, ...] = ()
 
 
-@dataclass
+@dataclass(eq=False)
 class _Ref:
+    """A reference picture: its planes and macroblock state (the
+    co-located motion of B slices' direct prediction), as decoded."""
+
     id: int
     frame_num: int
     planes: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]
     long_term: Optional[int] = None     # LongTermFrameIdx
+    poc: int = 0
+    state: Optional[np.ndarray] = None
 
 
 class H264Decoder:
@@ -769,7 +913,7 @@ class H264Decoder:
                               f"{first.frame_num})")
         poc = self._poc(first, sps)
 
-        planes = None
+        planes = state = None
         if self.pixels:
             mbs_w, mbs_h = size
             planes = (np.empty((16 * mbs_h, 16 * mbs_w), np.uint8),
@@ -779,13 +923,13 @@ class H264Decoder:
             state = np.zeros(mbs_w * mbs_h * lib.hive_h264_mb_state_bytes(), np.uint8)
             for number, (rbsp, sh) in enumerate(slices, 1):
                 self._decode_slice(lib, rbsp, sh, sps, self.pps[sh.pps_id], number, state,
-                                   planes)
+                                   planes, poc)
             status = lib.hive_h264_deblock(_int32p(np.array(size, np.int32)),
                                            state.ctypes.data, _pointers(*planes))
             if status:
                 raise ValueError("corrupt H.264 picture: its slices leave macroblocks "
                                  "undecoded")
-        reset = self._mark(first, sps, planes)
+        reset = self._mark(first, sps, planes, poc, state)
         if reset:
             poc = 0
         picture = Picture(poc, first.idr, reset, slice_types=tuple(sh.slice_type
@@ -825,59 +969,87 @@ class H264Decoder:
         return 2 * (offset + sh.frame_num) - (0 if sh.ref_idc else 1)
 
     # -- reference lists (8.2.4) ------------------------------------------------
-    def ref_list(self, sh: SliceHeader, sps: dict, pps: dict) -> List[Optional[_Ref]]:
-        """RefPicList0 of a P slice."""
+    def initial_lists(self, slice_type: int, frame_num: int, poc: int,
+                      max_frame_num: int) -> List[List[_Ref]]:
+        """The initial reference lists, before truncation and modification
+        (8.2.4.2): P's list 0, or B's lists 0 and 1."""
+        def pic_num(ref):
+            return ref.frame_num - max_frame_num if ref.frame_num > frame_num else ref.frame_num
+
+        shorts = [r for r in self.refs if r.long_term is None]
+        longs = sorted((r for r in self.refs if r.long_term is not None), key=lambda r: r.long_term)
+        if slice_type == P_SLICE:
+            return [sorted(shorts, key=pic_num, reverse=True) + longs]
+        before = sorted((r for r in shorts if r.poc <= poc), key=lambda r: r.poc, reverse=True)
+        after = sorted((r for r in shorts if r.poc > poc), key=lambda r: r.poc)
+        lists = [before + after + longs, after + before + longs]
+        if len(lists[1]) > 1 and all(a is b for a, b in zip(*lists)):
+            lists[1][0], lists[1][1] = lists[1][1], lists[1][0]
+        return lists
+
+    def ref_lists(self, sh: SliceHeader, sps: dict, pps: dict,
+                  poc: int) -> List[List[Optional[_Ref]]]:
+        """The slice's reference lists (RefPicList0, and RefPicList1 of a B
+        slice): the initial lists cut or padded (None) to the active counts,
+        then each list's modification commands applied."""
         max_frame_num = 1 << sps["log2_max_frame_num"]
 
         def pic_num(ref):
             return ref.frame_num - max_frame_num if ref.frame_num > sh.frame_num else ref.frame_num
 
-        shorts = sorted((r for r in self.refs if r.long_term is None), key=pic_num, reverse=True)
-        longs = sorted((r for r in self.refs if r.long_term is not None), key=lambda r: r.long_term)
-        n = sh.num_ref(pps)
-        entries: List[Optional[_Ref]] = (shorts + longs + [None] * n)[:n]
-        pred = sh.frame_num
-        for index, (idc, value) in enumerate(sh.modifications):
-            if idc < 2:
-                no_wrap = pred - (value + 1) if idc == 0 else pred + (value + 1)
-                no_wrap %= max_frame_num
-                pred = no_wrap
-                number = no_wrap - max_frame_num if no_wrap > sh.frame_num else no_wrap
-                found = [r for r in shorts if pic_num(r) == number]
-                what = f"short-term picture {number}"
-            else:
-                found = [r for r in longs if r.long_term == value]
-                what = f"long-term picture {value}"
-            if not found:
-                raise ValueError(f"corrupt H.264 slice: its list modification names the {what}, "
-                                 f"which is not a reference")
-            entries = (entries[:index] + found + [r for r in entries[index:]
-                                                  if r is not found[0]])[:n]
-            entries += [None] * (n - len(entries))
-        return entries
+        shorts = [r for r in self.refs if r.long_term is None]
+        longs = [r for r in self.refs if r.long_term is not None]
+        out = []
+        for l, init in enumerate(self.initial_lists(sh.slice_type, sh.frame_num, poc,
+                                                    max_frame_num)):
+            n = sh.num_ref_l1(pps) if l else sh.num_ref(pps)
+            entries: List[Optional[_Ref]] = (init + [None] * n)[:n]
+            pred = sh.frame_num
+            for index, (idc, value) in enumerate(sh.modifications_l1 if l else sh.modifications):
+                if idc < 2:
+                    no_wrap = pred - (value + 1) if idc == 0 else pred + (value + 1)
+                    no_wrap %= max_frame_num
+                    pred = no_wrap
+                    number = no_wrap - max_frame_num if no_wrap > sh.frame_num else no_wrap
+                    found = [r for r in shorts if pic_num(r) == number]
+                    what = f"short-term picture {number}"
+                else:
+                    found = [r for r in longs if r.long_term == value]
+                    what = f"long-term picture {value}"
+                if not found:
+                    raise ValueError(f"corrupt H.264 slice: its list modification names the "
+                                     f"{what}, which is not a reference")
+                entries = (entries[:index] + found + [r for r in entries[index:]
+                                                      if r is not found[0]])[:n]
+                entries += [None] * (n - len(entries))
+            out.append(entries)
+        return out
 
     def _decode_slice(self, lib, rbsp: bytes, sh: SliceHeader, sps: dict, pps: dict,
-                      number: int, state: np.ndarray, planes) -> None:
-        refs, ids, n = [], [], 0
-        if sh.slice_type == P_SLICE:
-            entries = self.ref_list(sh, sps, pps)
-            n = len(entries)
+                      number: int, state: np.ndarray, planes, poc: int) -> None:
+        lists = self.ref_lists(sh, sps, pps, poc) if sh.slice_type != I_SLICE else []
+        refs, ids = [], []
+        for entries in lists:
             for entry in entries:
                 refs.extend(entry.planes if entry is not None else (None,) * 3)
                 ids.append(entry.id if entry is not None else -1)
+        colocated = lists[1][0] if sh.slice_type == B_SLICE else None
         error = ctypes.c_int64(0)
-        params = _params(sps, pps, self.weights(sps, pps), sh, number, n)
+        params = _params(sps, pps, self.weights(sps, pps), sh, number,
+                         (lists + [(), ()])[:2], poc)
         status = lib.hive_h264_decode_slice(
             rbsp, len(rbsp), sh.bit_pos, _int32p(params),
             _pointers(*refs) if refs else None,
-            _int32p(np.asarray(ids or [0], np.int32)), _pointers(*planes), state.ctypes.data,
-            ctypes.byref(error))
+            _int32p(np.asarray(ids or [0], np.int32)),
+            colocated.state.ctypes.data if colocated is not None else None,
+            _pointers(*planes), state.ctypes.data, ctypes.byref(error))
         if status:
             raise ValueError(f"corrupt H.264 slice: {_STATUS.get(status, status)} (bit "
                              f"{error.value} of {8 * len(rbsp)})")
 
     # -- reference marking (8.2.5) ----------------------------------------------
-    def _mark(self, sh: SliceHeader, sps: dict, planes) -> bool:
+    def _mark(self, sh: SliceHeader, sps: dict, planes, poc: int = 0,
+              state: Optional[np.ndarray] = None) -> bool:
         """Mark the decoded picture; whether it held an MMCO 5."""
         max_frame_num = 1 << sps["log2_max_frame_num"]
         reset = False
@@ -887,7 +1059,7 @@ class H264Decoder:
         if not sh.ref_idc:
             return False
         self._ids += 1
-        current = _Ref(self._ids, sh.frame_num, planes)
+        current = _Ref(self._ids, sh.frame_num, planes, poc=poc, state=state)
         if sh.idr:
             self.refs = []
             if sh.long_term_reference:
@@ -931,7 +1103,7 @@ class H264Decoder:
                     self.refs = [r for r in self.refs if r.long_term != args[0]]
                     current.long_term = args[0]
         if reset:
-            current.frame_num = 0
+            current.frame_num = current.poc = 0
             self.prev_frame_num = 0
             self.prev_frame_num_offset = 0
             self.prev_poc_msb = self.prev_poc_lsb = 0
@@ -1014,6 +1186,10 @@ class SlicePlan:
     num_ref: Optional[int] = None               # None: the PPS's default
     modifications: List[Tuple[int, int]] = field(default_factory=list)
     cabac_init_idc: int = 0
+    num_ref_l1: Optional[int] = None            # B slices
+    modifications_l1: List[Tuple[int, int]] = field(default_factory=list)
+    direct_spatial: int = 1
+    weights: Optional[PredWeights] = None       # None: the default table, where the PPS asks
 
 
 @dataclass
@@ -1039,22 +1215,74 @@ class DpbView:
     """What a planner may read of the writer's decoder before a picture:
     its frame_num and the reference pictures, short-term ones by
     descending PicNum (what ref_idx 0, 1, ... name without modification),
-    long-term ones as (LongTermFrameIdx, display index)."""
+    long-term ones as (LongTermFrameIdx, display index); and a B picture's
+    initial lists 0 and 1 as display indices."""
 
     frame_num: int
     max_frame_num: int
     short_terms: List[Tuple[int, int]]          # (PicNum, display index)
     long_terms: List[Tuple[int, int]]
     max_num_ref_frames: int
+    b_lists: Tuple[List[int], List[int]] = ((), ())
+
+
+class GopStructure:
+    """The pictures of a clip with B pictures, as x264 codes them: an IDR
+    picture every ``gop``, then anchors (P pictures) every ``bframes`` + 1
+    pictures and on each GOP's last, the B pictures between two anchors
+    coded after the later one; with ``pyramid``, the middle B picture of
+    each run of two or more is a reference, coded first."""
+
+    def __init__(self, gop: int, bframes: int, pyramid: bool = False):
+        self.gop, self.bframes, self.pyramid = gop, bframes, pyramid
+
+    def role(self, index: int, n: int) -> str:
+        """"idr", "anchor", "b_reference" or "b" of display index ``index``."""
+        start = index - index % self.gop
+        end = min(start + self.gop, n) - 1
+        if index == start:
+            return "idr"
+        if (index - start) % (self.bframes + 1) == 0 or index == end:
+            return "anchor"
+        before = index - (index - start) % (self.bframes + 1)
+        after = min(before + self.bframes + 1, end)
+        middle = before + (after - before) // 2
+        return "b_reference" if self.pyramid and after - before > 2 and index == middle else "b"
+
+    def decode_order(self, n: int) -> List[int]:
+        """Display indices in decode order."""
+        order: List[int] = []
+        pending: List[int] = []
+        for index in range(n):
+            role = self.role(index, n)
+            if role in ("idr", "anchor"):
+                order.append(index)
+                order += sorted(pending, key=lambda k: self.role(k, n) != "b_reference")
+                pending = []
+            else:
+                pending.append(index)
+        return order + pending
+
+
+def reorder_depth(order: Sequence[int]) -> int:
+    """max_num_reorder_frames of pictures coded in ``order`` (display
+    indices): the most pictures that precede one in decode order and follow
+    it in display order."""
+    return max((sum(j > k for j in order[:i]) for i, k in enumerate(order)), default=0)
 
 
 def plan_record(kind: int, qp: int, *, i16_mode: int = 2, chroma_mode: int = 0,
                 sub: Sequence[int] = (0, 0, 0, 0), refs: Sequence[int] = (0, 0, 0, 0),
                 i4_modes: Optional[Sequence[int]] = None,
-                mvs: Optional[np.ndarray] = None, t8x8: bool = False) -> np.ndarray:
+                mvs: Optional[np.ndarray] = None, t8x8: bool = False,
+                modes: Sequence[int] = (PRED_L0, PRED_L0), refs_l1: Sequence[int] = (0, 0, 0, 0),
+                mvs_l1: Optional[np.ndarray] = None) -> np.ndarray:
     """One macroblock's plan record (see ``kPlanInts`` in h264_decode.cpp);
     ``t8x8`` asks for the 8x8 transform where the PPS and the macroblock
-    allow it (an 8x8 block's intra mode is its first 4x4 block's)."""
+    allow it (an 8x8 block's intra mode is its first 4x4 block's); in B
+    slices, ``modes`` the lists of a 16x16 macroblock or of each 16x8 / 8x16
+    partition, ``sub`` B sub_mb_types 0-12, ``refs_l1`` and ``mvs_l1`` list
+    1's."""
     rec = np.zeros(PLAN_INTS, np.int32)
     rec[0], rec[1], rec[2], rec[3] = kind, i16_mode, chroma_mode, qp
     rec[4:8], rec[8:12] = sub, refs
@@ -1062,7 +1290,34 @@ def plan_record(kind: int, qp: int, *, i16_mode: int = 2, chroma_mode: int = 0,
     if mvs is not None:
         rec[28:60] = np.broadcast_to(np.asarray(mvs, np.int32), (16, 2)).reshape(-1)
     rec[60] = t8x8
+    rec[61:63] = modes
+    rec[64:68] = refs_l1
+    if mvs_l1 is not None:
+        rec[68:100] = np.broadcast_to(np.asarray(mvs_l1, np.int32), (16, 2)).reshape(-1)
     return rec
+
+
+def random_weights(rng: np.random.Generator, counts: Sequence[int], bipred: bool) -> PredWeights:
+    """A seeded pred_weight_table for lists of ``counts`` entries, weights
+    within half their default of it, small offsets. B slices' (``bipred``)
+    denominators stay below 6: with both weights at most 1.5 x 32 their
+    sums stay in the 16 bits that FFmpeg's x86 averaging keeps, which then
+    equals 8.4.2.3's."""
+    top = 6 if bipred else 8
+    weights = PredWeights(int(rng.integers(0, top)), int(rng.integers(0, top)), [[], []])
+
+    def pair(denom):
+        span = max(1, (1 << denom) // 2)
+        weight = int(np.clip((1 << denom) + rng.integers(-span, span + 1), -128, 127))
+        return weight, int(rng.integers(-12, 13))
+
+    for l, count in enumerate(counts):
+        for _ in range(count):
+            luma = pair(weights.luma_denom) if rng.random() < 0.7 else None
+            chroma = (pair(weights.chroma_denom), pair(weights.chroma_denom)) \
+                if rng.random() < 0.5 else None
+            weights.lists[l].append((luma, chroma))
+    return weights
 
 
 class Exerciser:
@@ -1082,16 +1337,40 @@ class Exerciser:
     filter at all (1): it becomes 2, since FFmpeg's frame threads, which
     cv2 runs, report the rows of a slice without deblocking done before
     the slice below filters their last lines, and a later picture may
-    predict from them in either state."""
+    predict from them in either state.
+
+    With ``bframes``, pictures follow a :class:`GopStructure` (``pyramid``:
+    B references): B pictures of every B macroblock type and sub-type
+    (B_Skip, B_Direct_16x16, each partition's list 0, list 1 or both, each
+    sub_mb_type, B_Direct_8x8 among them), both lists' counts and
+    modifications drawn once a picture (FFmpeg maps a co-located picture's
+    references through its last slice's lists), each slice's direct mode
+    spatial with probability ``spatial``, and a fifth of the vectors within
+    a quarter sample of zero (spatial direct's colZeroFlag); ``b_anchors``:
+    the share of P anchors coded as B pictures instead, whose references
+    all precede them (list 1 starts as list 0, its first two entries
+    swapped). ``weights``: the share of P and B slices with a drawn
+    pred_weight_table (where the writer's PPS asks for tables; the others
+    write the default one)."""
 
     def __init__(self, width: int, height: int, seed: int, *, gop: int = 8, qp: int = 28,
                  mmco: float = 0.4, reset: bool = False, t8x8: float = 0.0,
-                 init_idcs: Sequence[int] = (0,)):
+                 init_idcs: Sequence[int] = (0,), bframes: int = 0, pyramid: bool = False,
+                 spatial: float = 0.5, weights: float = 0.0, b_anchors: float = 0.0):
         self.mbw, self.mbh = -(-width // 16), -(-height // 16)
         self.rng = np.random.default_rng(seed)
         self.gop, self.qp, self.mmco, self.reset = gop, qp, mmco, reset
         self.t8x8, self.init_idcs = t8x8, tuple(init_idcs)
+        self.structure = GopStructure(gop, bframes, pyramid) if bframes else None
+        self.spatial, self.weights, self.b_anchors = spatial, weights, b_anchors
         self.count = 0
+        self.n = 0
+
+    def decode_order(self, n: int) -> Optional[List[int]]:
+        """The order the pictures are coded in (display indices), for
+        :func:`write_h264_mp4`; None: display order."""
+        self.n = n
+        return self.structure.decode_order(n) if self.structure else None
 
     def _slices(self, n: int) -> List[SlicePlan]:
         rng = self.rng
@@ -1118,6 +1397,8 @@ class Exerciser:
         return slices
 
     def __call__(self, index: int, dpb: DpbView) -> PicturePlan:
+        if self.structure:
+            return self._with_b(index, dpb)
         rng = self.rng
         n = self.mbw * self.mbh
         idr = index % self.gop == 0
@@ -1138,6 +1419,8 @@ class Exerciser:
                 s.num_ref = most if rng.random() < 0.5 else int(rng.integers(1, most + 1))
                 if rng.random() < 0.5:
                     s.modifications = self._modifications(dpb, s.num_ref)
+                if self.weights and rng.random() < self.weights:
+                    s.weights = random_weights(rng, (s.num_ref, 0), False)
         for a in range(n):
             qp = int(np.clip(self.qp + rng.integers(-6, 7), 12, 45)) if rng.random() < 0.3 \
                 else self.qp
@@ -1161,6 +1444,81 @@ class Exerciser:
                            sub=rng.integers(0, 4, size=4), refs=rng.integers(0, num_ref, size=4),
                            i4_modes=rng.integers(0, 9, size=16), mvs=mvs,
                            t8x8=bool(self.t8x8 and rng.random() < self.t8x8))
+
+    def _with_b(self, index: int, dpb: DpbView) -> PicturePlan:
+        """A picture of a clip with B pictures."""
+        rng = self.rng
+        n = self.mbw * self.mbh
+        role = self.structure.role(index, self.n)
+        refs_available = len(dpb.short_terms) + len(dpb.long_terms)
+        if role == "idr":
+            slice_type = I_SLICE
+        elif role == "anchor":
+            slice_type = P_SLICE if rng.random() < 0.85 else I_SLICE
+            if self.b_anchors and slice_type == P_SLICE and rng.random() < self.b_anchors:
+                slice_type = B_SLICE
+        else:
+            slice_type = B_SLICE
+        plan = PicturePlan(slice_type, np.zeros((n, PLAN_INTS), np.int32), self._slices(n),
+                           idr=role == "idr", reference=role != "b")
+        if role == "idr":
+            plan.long_term_reference = bool(self.mmco and dpb.max_num_ref_frames >= 3
+                                            and (index == 0 or rng.random() < 0.3))
+        elif plan.reference and dpb.max_num_ref_frames >= 3 and rng.random() < self.mmco:
+            plan.mmco = self._mmco(dpb)
+        counts = [0, 0]
+        modifications: List[List[Tuple[int, int]]] = [[], []]
+        if slice_type != I_SLICE:
+            most = min(4, refs_available)
+            for l in range(2 if slice_type == B_SLICE else 1):
+                counts[l] = most if rng.random() < 0.5 else int(rng.integers(1, most + 1))
+                if rng.random() < 0.4:
+                    modifications[l] = self._modifications(dpb, counts[l])
+        for s in plan.slices:
+            if slice_type != I_SLICE:
+                s.num_ref, s.modifications = counts[0], list(modifications[0])
+            if slice_type == B_SLICE:
+                s.num_ref_l1, s.modifications_l1 = counts[1], list(modifications[1])
+                s.direct_spatial = int(rng.random() < self.spatial)
+            if slice_type != I_SLICE and rng.random() < self.weights:
+                s.weights = random_weights(rng, counts, slice_type == B_SLICE)
+        for a in range(n):
+            qp = int(np.clip(self.qp + rng.integers(-6, 7), 12, 45)) if rng.random() < 0.3 \
+                else self.qp
+            plan.mbs[a] = self._mb_b(slice_type, qp, max(1, counts[0]), max(1, counts[1]))
+        return plan
+
+    def _mb_b(self, slice_type: int, qp: int, num_ref: int, num_ref_l1: int) -> np.ndarray:
+        """A macroblock of a clip with B pictures (in any slice type)."""
+        rng = self.rng
+        kinds = (PLAN_I4, PLAN_I16, PLAN_PCM, PLAN_P16, PLAN_P16X8, PLAN_P8X16, PLAN_P8X8,
+                 PLAN_P8X8REF0, PLAN_SKIP, PLAN_DIRECT)
+        if slice_type == B_SLICE:
+            weights = [1, 1, 0.2, 3, 1.5, 1.5, 2.5, 0, 2, 2]
+        elif slice_type == P_SLICE:
+            weights = [1.5, 1, 0.2, 3, 1.5, 1.5, 2, 0.7, 2.5, 0]
+        else:
+            weights = [3, 2, 0.3, 0, 0, 0, 0, 0, 0, 0]
+        kind = kinds[int(rng.choice(len(kinds), p=np.array(weights) / sum(weights)))]
+        mvs = []
+        for _ in range(2):
+            field_ = np.zeros((16, 2), np.int32)
+            if rng.random() < 0.2:
+                field_[:] = rng.integers(-1, 2, size=2)
+            else:
+                span = 64 if rng.random() < 0.8 else 4 * 80
+                field_[:] = rng.integers(-span, span + 1, size=2)
+                field_ += rng.integers(-6, 7, size=(16, 2))
+                field_[:, 1] = np.clip(field_[:, 1], -2048, 2047)
+            mvs.append(field_)
+        return plan_record(kind, qp, i16_mode=int(rng.integers(0, 4)),
+                           chroma_mode=int(rng.integers(0, 4)),
+                           sub=rng.integers(0, 13 if slice_type == B_SLICE else 4, size=4),
+                           refs=rng.integers(0, num_ref, size=4),
+                           i4_modes=rng.integers(0, 9, size=16), mvs=mvs[0],
+                           t8x8=bool(self.t8x8 and rng.random() < self.t8x8),
+                           modes=rng.integers(1, 4, size=2),
+                           refs_l1=rng.integers(0, num_ref_l1, size=4), mvs_l1=mvs[1])
 
     def _modifications(self, dpb: DpbView, num_ref: int) -> List[Tuple[int, int]]:
         """Commands that put a random order of the references first."""
@@ -1259,14 +1617,30 @@ class MotionPlanner:
     quarter-sample vector ((mbh, mbw, 2), pointing into the display frame
     ``ref_index``); a slice a macroblock row, deblocking on. With
     ``t8x8``, every I_NxN macroblock but every third, and every P one, asks
-    for the 8x8 transform (the writer's PPS must allow it)."""
+    for the 8x8 transform (the writer's PPS must allow it).
+
+    With ``bframes``, x264's layout (:class:`GopStructure`, ``pyramid``):
+    B pictures whose macroblocks are B_Direct_16x16 on every fourth
+    (spatial direct, x264's default) and B_Bi_16x16 on the rest, their (list 0, list 1) reference indices cycling over (0, 0),
+    (0, 1), (1, 0) with the motion to each (so implicit weights differ from
+    the average); ``p_weights``: each P slice's pred_weight_table gives
+    reference r > 0 a luma weight of 64 - r and an offset of r over 2^6."""
 
     def __init__(self, width: int, height: int, motion: Callable[[int, int], np.ndarray], *,
-                 gop: int = 12, qp: int = 24, refs: int = 4, t8x8: bool = False):
+                 gop: int = 12, qp: int = 24, refs: int = 4, t8x8: bool = False,
+                 bframes: int = 0, pyramid: bool = False, p_weights: bool = False):
         self.mbw, self.mbh = -(-width // 16), -(-height // 16)
         self.motion, self.gop, self.qp, self.refs = motion, gop, qp, refs
         self.t8x8 = t8x8
         self.rng = np.random.default_rng(0)
+        self.structure = GopStructure(gop, bframes, pyramid) if bframes else None
+        self.p_weights = p_weights
+        self.n = 0
+
+    def decode_order(self, n: int) -> Optional[List[int]]:
+        """As :meth:`Exerciser.decode_order`."""
+        self.n = n
+        return self.structure.decode_order(n) if self.structure else None
 
     def __call__(self, index: int, dpb: DpbView) -> PicturePlan:
         n = self.mbw * self.mbh
@@ -1283,11 +1657,14 @@ class MotionPlanner:
             if self.t8x8:
                 mbs[:, 60] = np.arange(n) % 3 != 0
             return PicturePlan(I_SLICE, mbs, slices, idr=True)
+        mbs[:, 3] = self.qp
+        mbs[:, 60] = self.t8x8
+        role = self.structure.role(index, self.n) if self.structure else "anchor"
+        if role != "anchor":
+            return self._b_picture(index, dpb, mbs, slices, role)
         available = min(self.refs, len(dpb.short_terms))
         ref = (np.arange(n) % available).astype(np.int32)
         mbs[:, 0] = PLAN_P16
-        mbs[:, 3] = self.qp
-        mbs[:, 60] = self.t8x8
         mbs[:, 8:12] = ref[:, None]
         for r in range(available):
             field_ = np.asarray(self.motion(index, dpb.short_terms[r][1]), np.int32).reshape(n, 2)
@@ -1295,7 +1672,30 @@ class MotionPlanner:
             mbs[chosen, 28:60] = np.tile(field_[chosen], 16)
         for s in slices:
             s.num_ref = available
+            if self.p_weights:
+                s.weights = PredWeights(6, 6, [[((64 - r, r // 2), None) if r else (None, None)
+                                                for r in range(available)], []])
         return PicturePlan(P_SLICE, mbs, slices)
+
+    def _b_picture(self, index: int, dpb: DpbView, mbs: np.ndarray, slices: List[SlicePlan],
+                   role: str) -> PicturePlan:
+        n = len(mbs)
+        counts = [min(2, len(entries)) for entries in dpb.b_lists]
+        pairs = np.array([(0, 0), (0, 1), (1, 0)], np.int32)[np.arange(n) % 3]
+        pairs = np.minimum(pairs, np.array(counts, np.int32) - 1)
+        mbs[:, 0] = PLAN_P16
+        mbs[::4, 0] = PLAN_DIRECT
+        mbs[:, 61] = PRED_BI
+        mbs[:, 8:12] = pairs[:, :1]
+        mbs[:, 64:68] = pairs[:, 1:]
+        for l, column in ((0, 28), (1, 68)):
+            for r in range(counts[l]):
+                field_ = np.asarray(self.motion(index, dpb.b_lists[l][r]), np.int32).reshape(n, 2)
+                chosen = pairs[:, l] == r
+                mbs[chosen, column:column + 32] = np.tile(field_[chosen], 16)
+        for s in slices:
+            s.num_ref, s.num_ref_l1 = counts
+        return PicturePlan(B_SLICE, mbs, slices, reference=role == "b_reference")
 
 
 def _coded_planes(planes, mbs_w: int, mbs_h: int):
@@ -1315,51 +1715,67 @@ def write_h264_mp4(path: str, frames: Sequence[Tuple[np.ndarray, np.ndarray, np.
                    restriction: Optional[int] = None, init_qp: int = 26,
                    chroma_qp_offset: int = 0, second_chroma_qp_offset: Optional[int] = None,
                    constrained_intra: bool = False, num_ref_default: int = 1,
+                   num_ref_default_l1: int = 1,
                    log2_max_frame_num: int = 8, full_range: bool = False,
                    matrix: Optional[int] = None, fps: Tuple[int, int] = (30, 1),
                    rotation: int = 0, edit_frames: Optional[int] = None,
                    edits: Sequence[Tuple[int, int]] = (), cabac: bool = False,
-                   transform_8x8: bool = False, scaling: Optional[dict] = None) -> dict:
+                   transform_8x8: bool = False, scaling: Optional[dict] = None,
+                   weighted_pred: bool = False, weighted_bipred: int = 0,
+                   direct_8x8_inference: bool = True) -> dict:
     """Write ``frames`` (uint8 Y, U, V planes in display order, an even
     size; may be lazy) as an H.264 MP4 at ``fps`` = (timescale, frame
     duration), e.g. (30, 1) or (30000, 1001), each picture as
     ``planner(display index, DpbView)`` plans it (:class:`Exerciser`,
-    :class:`MotionPlanner`, :class:`PcmPlanner`).
+    :class:`MotionPlanner`, :class:`PcmPlanner`), in the planner's
+    ``decode_order(n)`` where it gives one (B pictures).
 
     ``reorder``: code the frames 0, 2, 1, 4, 3, ... (the odd ones
-    non-reference pictures) with ``ctts``, an edit list that starts at
-    the first frame, and ``max_num_reorder_frames`` 1; otherwise
-    ``restriction``, if given, is the VUI's reorder depth. The SPS and PPS
-    options are :func:`encode_sps` and :func:`encode_pps`'s: ``cabac`` the
-    entropy coder (each slice's cabac_init_idc is its plan's),
-    ``transform_8x8`` the PPS's flag, ``scaling`` a dict whose "sps" and
-    "pps" entries, where present, are the parameter sets' scaling lists.
-    ``rotation`` is the display matrix's clockwise rotation; ``edit_frames``
-    starts the track's one edit that many frames into the media, or
-    ``edits`` gives the edit list itself ((duration, media time) in
-    timescale units).
+    non-reference pictures). Pictures out of display order get ``ctts``, an
+    edit list that starts at the first frame, and a
+    ``max_num_reorder_frames`` as deep as the order needs (at least
+    ``restriction``); otherwise ``restriction``, if given, is the VUI's
+    reorder depth. The SPS and PPS options are :func:`encode_sps` and
+    :func:`encode_pps`'s: ``cabac`` the entropy coder (each slice's
+    cabac_init_idc is its plan's), ``transform_8x8`` the PPS's flag,
+    ``scaling`` a dict whose "sps" and "pps" entries, where present, are
+    the parameter sets' scaling lists, ``weighted_pred`` and
+    ``weighted_bipred`` the weighted prediction (each slice's table is its
+    plan's). ``rotation`` is the display matrix's clockwise rotation;
+    ``edit_frames`` starts the track's one edit that many frames into the
+    media, or ``edits`` gives the edit list itself ((duration, media time)
+    in timescale units).
     Returns the counts of :data:`STAT_NAMES` over the file, the VLC
     coverage (``coverage``) and counts of the picture-level paths."""
     height, width = frames[0][0].shape
     n = len(frames)
     mbs_w, mbs_h = -(-width // 16), -(-height // 16)
-    if reorder and poc_type != 0:
-        raise ValueError("pictures out of order need POC type 0")
     order = list(range(n))
+    planned = getattr(planner, "decode_order", None)
+    planned = planned(n) if planned is not None else None
     if reorder:
         order = [0]
         for k in range(1, n, 2):
             order += [k + 1, k] if k + 1 < n else [k]
+    elif planned is not None:
+        order = list(planned)
+    reordered = order != list(range(n))
+    if reordered and poc_type != 0:
+        raise ValueError("pictures out of order need POC type 0")
     scaling = scaling or {}
     sps_unit = encode_sps(width, height, profile=profile, poc_type=poc_type,
-                          num_ref_frames=num_ref_frames, reorder=1 if reorder else restriction,
+                          num_ref_frames=num_ref_frames,
+                          reorder=max(reorder_depth(order), restriction or 0) if reordered
+                          else restriction,
                           log2_max_frame_num=log2_max_frame_num, full_range=full_range,
-                          matrix=matrix, scaling=scaling.get("sps"))
-    pps_unit = encode_pps(num_ref_default=num_ref_default, init_qp=init_qp,
-                          chroma_qp_offset=chroma_qp_offset,
+                          matrix=matrix, scaling=scaling.get("sps"),
+                          direct_8x8_inference=direct_8x8_inference)
+    pps_unit = encode_pps(num_ref_default=num_ref_default, num_ref_default_l1=num_ref_default_l1,
+                          init_qp=init_qp, chroma_qp_offset=chroma_qp_offset,
                           second_chroma_qp_offset=second_chroma_qp_offset,
                           constrained_intra=constrained_intra, cabac=cabac,
-                          transform_8x8=transform_8x8, scaling=scaling.get("pps"))
+                          transform_8x8=transform_8x8, scaling=scaling.get("pps"),
+                          weighted_pred=weighted_pred, weighted_bipred=weighted_bipred)
     decoder = H264Decoder()
     decoder.decode([sps_unit, pps_unit])
     sps, pps = decoder.sps[0], decoder.pps[0]
@@ -1370,33 +1786,41 @@ def write_h264_mp4(path: str, frames: Sequence[Tuple[np.ndarray, np.ndarray, np.
                             "slices", "multi_slice_pictures", "lf_idc_0", "lf_idc_1", "lf_idc_2",
                             "lf_offsets", "num_ref_1", "num_ref_2", "num_ref_3", "num_ref_4",
                             "modifications", "long_term_modifications", "long_term_idr",
-                            "mmco_1", "mmco_2", "mmco_3", "mmco_4", "mmco_5", "mmco_6"), 0)
+                            "mmco_1", "mmco_2", "mmco_3", "mmco_4", "mmco_5", "mmco_6",
+                            "b_pictures", "b_reference_pictures", "spatial_direct_slices",
+                            "temporal_direct_slices", "p_weight_tables", "b_weight_tables",
+                            "b_slices_default_weights", "b_slices_explicit_weights",
+                            "b_slices_implicit_weights", "l1_modifications",
+                            "long_term_in_list1", "list1_swapped"), 0)
     max_frame_num = 1 << log2_max_frame_num
     sync: List[bool] = []
     display_of: Dict[int, int] = {}                 # decoder picture id -> display index
     timescale, duration = fps
     # Decode times are the decode index; composition times the display
-    # index, one frame later when reordered (ctts stays >= 0).
-    delay = 1 if reorder else 0
-    cts_offsets = [(k + delay - i) * duration for i, k in enumerate(order)] if reorder else None
+    # index, as many frames later as the order needs (ctts stays >= 0).
+    delay = max(i - k for i, k in enumerate(order))
+    cts_offsets = [(k + delay - i) * duration for i, k in enumerate(order)] if reordered \
+        else None
     if edit_frames is not None:
         edits = [((n - edit_frames) * duration, (edit_frames + delay) * duration)]
-    elif reorder and not edits:
+    elif reordered and not edits:
         edits = [(n * duration, delay * duration)]
 
-    def dpb_view() -> DpbView:
+    def dpb_view(poc: int) -> DpbView:
         frame_num = 0 if not decoder.refs else (decoder.prev_ref_frame_num + 1) % max_frame_num
         shorts = sorted(((r.frame_num - max_frame_num if r.frame_num > frame_num else r.frame_num,
                           display_of[r.id]) for r in decoder.refs if r.long_term is None),
                         reverse=True)
         longs = sorted((r.long_term, display_of[r.id]) for r in decoder.refs
                        if r.long_term is not None)
-        return DpbView(frame_num, max_frame_num, shorts, longs, num_ref_frames)
+        lists = decoder.initial_lists(B_SLICE, frame_num, poc, max_frame_num)
+        return DpbView(frame_num, max_frame_num, shorts, longs, num_ref_frames,
+                       tuple([display_of[r.id] for r in entries] for entries in lists))
 
     def samples() -> Iterator[bytes]:
         idr_count, idr_display, previous_reference = 0, 0, True
         for i, k in enumerate(order):
-            view = dpb_view()
+            view = dpb_view(2 * (k - idr_display))
             plan = planner(k, view)
             if i == 0 and not plan.idr:
                 raise ValueError("an H.264 stream starts with an IDR picture")
@@ -1420,42 +1844,63 @@ def write_h264_mp4(path: str, frames: Sequence[Tuple[np.ndarray, np.ndarray, np.
             levels = None if plan.levels is None else np.ascontiguousarray(plan.levels, np.int32)
             recon = tuple(np.zeros_like(p) for p in source)
             state = np.zeros(mbs_w * mbs_h * state_bytes, np.uint8)
+            b = plan.slice_type == B_SLICE
             units = []
             for number, s in enumerate(plan.slices, 1):
                 sh = SliceHeader(nal_type, ref_idc, first_mb=s.first_mb,
                                  slice_type=plan.slice_type, frame_num=view.frame_num,
                                  idr_pic_id=idr_count % 65536,
                                  poc_lsb=(2 * (k - idr_display)) % (1 << LOG2_MAX_POC_LSB),
-                                 num_ref_override=s.num_ref
-                                 if plan.slice_type == P_SLICE and s.num_ref is not None
-                                 and s.num_ref != num_ref_default else None,
+                                 direct_spatial=s.direct_spatial if b else 0,
                                  modifications=list(s.modifications),
+                                 modifications_l1=list(s.modifications_l1) if b else [],
+                                 weights=s.weights,
                                  long_term_reference=int(plan.long_term_reference),
                                  mmco=plan.mmco, qp_delta=s.qp_delta, lf_idc=s.lf_idc,
                                  cabac_init_idc=s.cabac_init_idc,
                                  alpha_div2=s.alpha_div2 if s.lf_idc != 1 else 0,
                                  beta_div2=s.beta_div2 if s.lf_idc != 1 else 0)
-                refs, ids, num_ref = [], [], 0
-                if plan.slice_type == P_SLICE:
-                    entries = decoder.ref_list(sh, sps, pps)
-                    num_ref = len(entries)
-                    for entry in entries:
-                        refs.extend(entry.planes)
-                        ids.append(entry.id)
-                    counts[f"num_ref_{min(num_ref, 4)}"] += 1
+                counts_wanted = (s.num_ref or num_ref_default,
+                                 s.num_ref_l1 or num_ref_default_l1)
+                if plan.slice_type == P_SLICE and counts_wanted[0] != num_ref_default or \
+                        b and counts_wanted != (num_ref_default, num_ref_default_l1):
+                    sh.num_ref_override = counts_wanted[0]
+                    sh.num_ref_override_l1 = counts_wanted[1] if b else None
+                poc = decoder._poc(sh, sps)
+                lists: List[List[Optional[_Ref]]] = [[], []]
+                refs, ids = [], []
+                if plan.slice_type != I_SLICE:
+                    lists = decoder.ref_lists(sh, sps, pps, poc) + [[]]
+                    for entries in lists:
+                        for entry in entries:
+                            refs.extend(entry.planes)
+                            ids.append(entry.id)
+                    counts[f"num_ref_{min(len(lists[0]), 4)}"] += 1
                     counts["modifications"] += bool(sh.modifications)
                     counts["long_term_modifications"] += any(idc == 2 for idc, _ in
                                                              sh.modifications)
+                    counts["p_weight_tables" if not b else "b_weight_tables"] += \
+                        sh.weighted(pps) and s.weights is not None
+                if b:
+                    counts["spatial_direct_slices" if sh.direct_spatial
+                           else "temporal_direct_slices"] += 1
+                    counts[("b_slices_default_weights", "b_slices_explicit_weights",
+                            "b_slices_implicit_weights")[pps["weighted_bipred"]]] += 1
+                    counts["l1_modifications"] += bool(sh.modifications_l1)
+                    sides = {r.poc > poc for r in decoder.refs if r.long_term is None}
+                    counts["list1_swapped"] += len(decoder.refs) > 1 and len(sides) <= 1
+                    counts["long_term_in_list1"] += any(e.long_term is not None for e in lists[1])
                 header = write_slice_header(sh, sps, pps)
                 prefix = np.packbits(np.array(header.bits + [0] * (-len(header.bits) % 8),
                                               np.uint8)).tobytes()
-                params = _params(sps, pps, decoder.weights(sps, pps), sh, number, num_ref,
+                params = _params(sps, pps, decoder.weights(sps, pps), sh, number, lists[:2], poc,
                                  s.count)
                 capacity = 1024 + 1600 * s.count
                 out = np.empty(capacity, np.uint8)
                 size = lib.hive_h264_encode_slice(
                     _int32p(params), _pointers(*source), _pointers(*refs) if refs else None,
-                    _int32p(np.asarray(ids or [0], np.int32)), _pointers(*recon),
+                    _int32p(np.asarray(ids or [0], np.int32)),
+                    lists[1][0].state.ctypes.data if b else None, _pointers(*recon),
                     state.ctypes.data, plan.mbs.ctypes.data,
                     levels.ctypes.data if levels is not None else None,
                     bytes([ref_idc << 5 | nal_type])
@@ -1472,7 +1917,9 @@ def write_h264_mp4(path: str, frames: Sequence[Tuple[np.ndarray, np.ndarray, np.
             idr_count += plan.idr
             counts["pictures"] += 1
             counts["idr"] += plan.idr
-            counts["i_pictures" if plan.slice_type == I_SLICE else "p_pictures"] += 1
+            counts[("p_pictures", "b_pictures", "i_pictures")[plan.slice_type]] += 1
+            if b and ref_idc:
+                counts["b_reference_pictures"] += 1
             counts["non_reference"] += not ref_idc
             counts["slices"] += len(plan.slices)
             counts["multi_slice_pictures"] += len(plan.slices) > 1

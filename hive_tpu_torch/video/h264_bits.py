@@ -1,8 +1,5 @@
 """H.264's bit I/O: the exp-Golomb writer and reader, emulation prevention
-and NAL units, which :mod:`.h264`'s reader and writer share. The I_PCM
-streams this module's name recalls are written by
-:func:`~hive_tpu_torch.video.h264.write_h264_mp4` with a
-:class:`~hive_tpu_torch.video.h264.PcmPlanner`.
+and NAL units, which :mod:`.h264`'s reader and writer share.
 """
 
 from __future__ import annotations

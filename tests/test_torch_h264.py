@@ -1,18 +1,20 @@
-"""H.264 I and P video in hive_tpu_torch (``hive_tpu_torch.video.h264``,
+"""H.264 I, P and B video in hive_tpu_torch (``hive_tpu_torch.video.h264``,
 ``native/src/h264_decode.cpp``) against cv2 5.0.0, whose bundled FFmpeg
 decodes it: the writer's files, one per stream layout (Baseline, Main and
 High profiles, POC types 0 and 2, pictures out of order with ``ctts`` and
 edit lists, constrained intra prediction, chroma QP offsets, one to four
 reference frames, long-term references and every memory management
 control operation, ``frame_num`` wrapping, cropping; CAVLC, and CABAC and
-the 8x8 transform beside them), each with the seeded exerciser's mix of
+the 8x8 transform beside them; B pictures with each weighted prediction),
+each with the seeded exerciser's mix of
 every macroblock path; single CAVLC codewords read back from cv2 (one
 probe macroblock each, for the table entries real residuals seldom
 reach); each feature the reader refuses by name before any decode, and
 those it no longer refuses read as cv2 reads them; damaged samples; a
 seek; and the digests by which chip_smoke.py holds the card's host, which
 has no cv2, to cv2's frames. CABAC, the 8x8 transform and scaling
-matrices in depth: tests/test_torch_h264_cabac.py.
+matrices in depth: tests/test_torch_h264_cabac.py; B slices and weighted
+prediction: tests/test_torch_h264_bslices.py.
 Every comparison is exact, to the bit: the properties, the frame count and every frame
 ``VideoCapture(device="cpu")`` returns equal what ``cv2.VideoCapture``
 returns (H.264 decoding is exact by specification)."""
@@ -24,7 +26,7 @@ import pytest
 
 import chip_smoke
 from hive_tpu_torch import native
-from hive_tpu_torch.video import h264, h264_pcm, mp4
+from hive_tpu_torch.video import h264, h264_bits, mp4
 from hive_tpu_torch.video.capture import VideoCapture
 from tests.test_torch_mpeg4 import assert_reads_as_cv2, scene_planes
 
@@ -50,6 +52,14 @@ CASES = {
                             dict(t8x8=0.6), N, (W, H)),
     "cabac_transform_8x8": (dict(profile=100, cabac=True, transform_8x8=True),
                             dict(t8x8=0.6, init_idcs=(0, 1, 2)), N, (W, H)),
+    "b_pyramid_default_weights": (dict(profile=77), dict(bframes=3, pyramid=True, gop=12), N,
+                                  (W, H)),
+    "b_explicit_weights": (dict(profile=77, weighted_pred=True, weighted_bipred=1),
+                           dict(bframes=2, weights=0.8, mmco=0.6, b_anchors=0.5), N, (W, H)),
+    "b_cabac_implicit_weights": (dict(profile=100, cabac=True, transform_8x8=True,
+                                      weighted_bipred=2, direct_8x8_inference=False),
+                                 dict(bframes=2, pyramid=True, t8x8=0.5, init_idcs=(0, 1, 2)),
+                                 N, (W, H)),
 }
 
 
@@ -78,11 +88,13 @@ def test_writer_files_read_as_cv2_reads_them(written, case):
 
 def test_writer_files_write_every_path(written):
     """Over the cases, the writer wrote each macroblock path (modes,
-    partitions, sub-partitions, skips, intra in P slices, QP deltas,
-    vectors past the picture, nonzero ref_idx, long level codes) and each
+    partitions, sub-partitions, skips, intra in P and B slices, QP deltas,
+    vectors past the picture, nonzero ref_idx, long level codes, every B
+    type and sub-type, each direct mode's co-located cases) and each
     picture path (slices, deblocking controls, reference counts, list
     modifications, long-term references, MMCO 1-6, non-reference
-    pictures); and every chroma DC codeword."""
+    pictures, B references, each weighted prediction); and every chroma DC
+    codeword."""
     totals = {}
     for case, (_, stats) in written.items():
         for name, value in stats.items():
@@ -227,8 +239,8 @@ def test_motion_planner_clip_reads_as_cv2(tmp_path):
 # ---------------------------------------------------------------------------
 
 def sps_unit(*, profile=66, chroma_format=1, bit_depth=0, bypass=0, scaling=0, poc_type=0,
-             frame_mbs_only=1):
-    w = h264_pcm.BitWriter().u(8, profile).u(8, 0).u(8, 51).ue(0)
+             frame_mbs_only=1, mbaff=0):
+    w = h264_bits.BitWriter().u(8, profile).u(8, 0).u(8, 51).ue(0)
     if profile in h264.HIGH_PROFILES:
         w.ue(chroma_format).ue(bit_depth).ue(bit_depth).u(1, bypass).u(1, scaling)
         if scaling:
@@ -240,13 +252,13 @@ def sps_unit(*, profile=66, chroma_format=1, bit_depth=0, bypass=0, scaling=0, p
         w.u(1, 1).se(0).se(0).ue(0)
     w.ue(1).u(1, 0).ue(3).ue(2 if frame_mbs_only else 1).u(1, frame_mbs_only)
     if not frame_mbs_only:
-        w.u(1, 0)
+        w.u(1, mbaff)
     w.u(1, 1).u(1, 0).u(1, 0)
-    return h264_pcm.nal_unit(3, h264_pcm.NAL_SPS, np.frombuffer(w.align(True), np.uint8))
+    return h264_bits.nal_unit(3, h264_bits.NAL_SPS, np.frombuffer(w.align(True), np.uint8))
 
 
 def pps_unit(*, cabac=0, groups=0, weighted=0, redundant=0, t8x8=None, scaling=0):
-    w = h264_pcm.BitWriter().ue(0).ue(0).u(1, cabac).u(1, 0).ue(groups)
+    w = h264_bits.BitWriter().ue(0).ue(0).u(1, cabac).u(1, 0).ue(groups)
     if groups:
         w.ue(0).ue(0).ue(0)
     w.ue(0).ue(0).u(1, weighted).u(2, 0).se(0).se(0).se(0).u(1, 1).u(1, 0).u(1, redundant)
@@ -255,7 +267,7 @@ def pps_unit(*, cabac=0, groups=0, weighted=0, redundant=0, t8x8=None, scaling=0
         if scaling:
             w.u(6, 0)
         w.se(0)
-    return h264_pcm.nal_unit(3, h264_pcm.NAL_PPS, np.frombuffer(w.align(True), np.uint8))
+    return h264_bits.nal_unit(3, h264_bits.NAL_PPS, np.frombuffer(w.align(True), np.uint8))
 
 
 def stream_units(tmp_path, **options):
@@ -275,9 +287,9 @@ def stream_units(tmp_path, **options):
 
 def rewrite(unit, sps, pps, **changes):
     """A slice NAL unit with header fields changed, its data kept."""
-    rbsp = h264_pcm.unescape(unit)
-    sps_fields, pps_fields = h264.parse_sps(h264_pcm.unescape(sps)), \
-        h264.parse_pps(h264_pcm.unescape(pps))
+    rbsp = h264_bits.unescape(unit)
+    sps_fields, pps_fields = h264.parse_sps(h264_bits.unescape(sps)), \
+        h264.parse_pps(h264_bits.unescape(pps))
     sh = h264.parse_slice_header(rbsp, {0: sps_fields}, {0: pps_fields})
     bits = np.unpackbits(np.frombuffer(rbsp[1:], np.uint8))[sh.bit_pos - 8:].tolist()
     for name, value in changes.items():
@@ -287,7 +299,7 @@ def rewrite(unit, sps, pps, **changes):
     while body[-1] == 0:
         body.pop()
     body.extend([0] * (-len(body) % 8))
-    return bytes([unit[0]]) + h264_pcm.escape(np.packbits(np.array(body, np.uint8))).tobytes()
+    return bytes([unit[0]]) + h264_bits.escape(np.packbits(np.array(body, np.uint8))).tobytes()
 
 
 def write_units(path, sps, pps, samples, width=64, height=48):
@@ -299,7 +311,6 @@ def write_units(path, sps, pps, samples, width=64, height=48):
 
 PARAMETER_SET_REFUSALS = {
     "slice_groups": (None, dict(groups=1), r"slice groups \(FMO"),
-    "weighted_prediction": (None, dict(weighted=1), "weighted prediction"),
     "redundant_pictures": (None, dict(redundant=1), "redundant pictures"),
     "chroma_4_2_2": (dict(profile=122, chroma_format=2), None, "chroma format 4:2:2"),
     "monochrome": (dict(profile=100, chroma_format=0), None, "chroma format 4:0:0"),
@@ -307,13 +318,15 @@ PARAMETER_SET_REFUSALS = {
     "transform_bypass": (dict(profile=244, bypass=1), None, "transform bypass"),
     "poc_type_1": (dict(poc_type=1), None, "pic_order_cnt_type 1"),
     "fields": (dict(frame_mbs_only=0), None, r"fields or MBAFF"),
+    "mbaff": (dict(frame_mbs_only=0, mbaff=1), None, r"fields or MBAFF"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(PARAMETER_SET_REFUSALS))
 def test_parameter_set_features_are_refused_by_name(tmp_path, case, monkeypatch):
     """Each refused feature of the SPS or PPS: refused when the capture
-    opens, naming it and ROADMAP Queue 1 item 9f, no slice decoded."""
+    opens, naming it and ROADMAP Queue 1 item 9f (9f-4 for fields and
+    MBAFF), no slice decoded."""
     sps_options, pps_options, name = PARAMETER_SET_REFUSALS[case]
     sps, pps, samples = stream_units(tmp_path)
     if sps_options is not None:
@@ -327,9 +340,10 @@ def test_parameter_set_features_are_refused_by_name(tmp_path, case, monkeypatch)
         VideoCapture(str(path), device="cpu")
 
 
-# What the reader refused by name until it decoded CABAC, the 8x8 transform
-# and scaling matrices: each parameter set feature's stream (write_h264_mp4
-# options, Exerciser options) now reads as cv2 reads it.
+# What the reader refused by name until it decoded CABAC, the 8x8 transform,
+# scaling matrices and weighted prediction: each parameter set feature's
+# stream (write_h264_mp4 options, Exerciser options) now reads as cv2 reads
+# it.
 PARAMETER_SET_FEATURES = {
     "cabac": (dict(profile=77, cabac=True), dict(init_idcs=(0, 1, 2))),
     "transform_8x8": (dict(profile=100, transform_8x8=True), dict(t8x8=0.6)),
@@ -339,35 +353,40 @@ PARAMETER_SET_FEATURES = {
     "sps_scaling_matrices": (dict(profile=100, scaling=dict(
         sps=["default", tuple(range(20, 36)), None, tuple(range(30, 14, -1)), None, None, None,
              None])), dict()),
+    "weighted_prediction": (dict(profile=77, weighted_pred=True, weighted_bipred=1),
+                            dict(weights=1.0, bframes=1)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(PARAMETER_SET_FEATURES))
 def test_parameter_set_features_once_refused_read_as_cv2(tmp_path, case):
-    """CABAC, the 8x8 transform and PPS and SPS scaling matrices, which the
-    reader refused by name before it decoded them: a stream of each reads
-    as cv2 reads it, and its parameter sets say so."""
+    """CABAC, the 8x8 transform, PPS and SPS scaling matrices and weighted
+    prediction, which the reader refused by name before it decoded them: a
+    stream of each reads as cv2 reads it, and its parameter sets say so."""
     options, planner = PARAMETER_SET_FEATURES[case]
     path = tmp_path / f"{case}.mp4"
     h264.write_h264_mp4(str(path), scene_planes(8, 64, 48),
                         h264.Exerciser(64, 48, 3, gop=5, **planner), **options)
     capture, _ = assert_reads_as_cv2(path, count=8)
-    sps = h264.parse_sps(h264_pcm.unescape(capture.sps_units[0]))
-    pps = h264.parse_pps(h264_pcm.unescape(capture.pps_units[0]))
+    sps = h264.parse_sps(h264_bits.unescape(capture.sps_units[0]))
+    pps = h264.parse_pps(h264_bits.unescape(capture.pps_units[0]))
     assert {"cabac": pps["cabac"], "transform_8x8": pps["transform_8x8"],
             "pps_scaling_matrices": pps["scaling"] is not None,
-            "sps_scaling_matrices": sps["scaling"] is not None}[case]
+            "sps_scaling_matrices": sps["scaling"] is not None,
+            "weighted_prediction": pps["weighted_pred"] and pps["weighted_bipred"] == 1}[case]
 
 
 def test_stream_features_are_refused_by_name(tmp_path, monkeypatch):
-    """B, SP and SI slices, data partitioning and extension NAL units, a
+    """SP and SI slices, a field SPS (what refused B slices here until the
+    reader decoded them), data partitioning and extension NAL units, a
     frame_num gap, POCs out of order without a reorder depth, and a change
     of size, each in a later sample: refused when the capture opens (every
-    sample's headers are read first), naming it and item 9f."""
+    sample's headers are read first), naming it and item 9f (9f-4 for
+    fields)."""
     sps, pps, samples = stream_units(tmp_path, restriction=None)
     p = next(k for k, s in enumerate(samples) if h264.parse_slice_header(
-        h264_pcm.unescape(s[0]), {0: h264.parse_sps(h264_pcm.unescape(sps))},
-        {0: h264.parse_pps(h264_pcm.unescape(pps))}).slice_type == h264.P_SLICE)
+        h264_bits.unescape(s[0]), {0: h264.parse_sps(h264_bits.unescape(sps))},
+        {0: h264.parse_pps(h264_bits.unescape(pps))}).slice_type == h264.P_SLICE)
     monkeypatch.setattr(h264.H264Decoder, "_decode_slice", None)
 
     def refused(name, changed, case):
@@ -376,19 +395,22 @@ def test_stream_features_are_refused_by_name(tmp_path, monkeypatch):
         with pytest.raises(mp4.UnsupportedVideoError, match=f"{name}.*Queue 1 item 9f"):
             VideoCapture(str(path), device="cpu")
 
-    for slice_type, name in ((1, "B slices"), (3, "SP slices"), (4, "SI slices")):
+    for slice_type, name in ((3, "SP slices"), (4, "SI slices")):
         changed = list(samples)
         changed[p] = [rewrite(changed[p][0], sps, pps, slice_type=slice_type)] + changed[p][1:]
         refused(name, changed, name.split()[0])
+    changed = list(samples)
+    changed[p] = [sps_unit(frame_mbs_only=0)] + changed[p]
+    refused("fields or MBAFF", changed, "fields")
     for nal_type, name in ((2, "data partitioning"), (20, "multiview extensions")):
         changed = list(samples)
         changed[2] = [bytes([0x60 | nal_type, 0x80])] + changed[2]
         refused(name, changed, f"nal_{nal_type}")
     changed = list(samples)
     last = len(changed) - 1
-    sh = h264.parse_slice_header(h264_pcm.unescape(changed[last][0]),
-                                 {0: h264.parse_sps(h264_pcm.unescape(sps))},
-                                 {0: h264.parse_pps(h264_pcm.unescape(pps))})
+    sh = h264.parse_slice_header(h264_bits.unescape(changed[last][0]),
+                                 {0: h264.parse_sps(h264_bits.unescape(sps))},
+                                 {0: h264.parse_pps(h264_bits.unescape(pps))})
     changed[last] = [rewrite(u, sps, pps, frame_num=(sh.frame_num + 2) % 256)
                      for u in changed[last]]
     refused("a gap in frame_num", changed, "gap")
@@ -408,7 +430,7 @@ def test_cabac_clip_reads_as_cv2(tmp_path):
                         h264.Exerciser(64, 48, 3, gop=10), profile=77,
                         cabac=True)
     capture, _ = assert_reads_as_cv2(path, count=6)
-    assert h264.parse_pps(h264_pcm.unescape(capture.pps_units[0]))["cabac"] == 1
+    assert h264.parse_pps(h264_bits.unescape(capture.pps_units[0]))["cabac"] == 1
 
 
 # ---------------------------------------------------------------------------
@@ -448,11 +470,11 @@ def test_bit_flips_decode_or_are_refused_as_corrupt(tmp_path):
     for k, sample in enumerate(samples):
         decoder = decoder_before(sps, pps, samples, k)
         for _ in range(30):
-            unit = np.frombuffer(h264_pcm.unescape(sample[0]), np.uint8).copy()
+            unit = np.frombuffer(h264_bits.unescape(sample[0]), np.uint8).copy()
             first = int(rng.integers(40, 8 * len(unit)))
             for bit in range(first, min(first + int(rng.choice([1, 1, 9, 64])), 8 * len(unit))):
                 unit[bit >> 3] ^= 0x80 >> (bit & 7)
-            damaged = bytes([unit[0]]) + h264_pcm.escape(unit[1:]).tobytes()
+            damaged = bytes([unit[0]]) + h264_bits.escape(unit[1:]).tobytes()
             try:
                 picture = copy.deepcopy(decoder).decode([damaged] + sample[1:])
             except mp4.UnsupportedVideoError:

@@ -4,7 +4,7 @@ cv2 5.0.0: CABAC (each cabac_init_idc, I_PCM, several slices a picture),
 the 8x8 transform (CAVLC's interleaved scans, intra 8x8 prediction, the
 deblocking of 8x8 blocks) and scaling matrices (explicit, default, each
 fall-back rule), every frame bit-equal to cv2's; every CABAC context the
-I and P slices of progressive 4:2:0 pictures can read coded by
+I, P and B slices of progressive 4:2:0 pictures can read coded by
 chip_smoke.py's exerciser clips under each of the four tables; the
 tables equal to those of cv2's libavcodec; damaged CABAC slices; a seek;
 the refusals of what stays undecoded, each naming its ROADMAP item; and a
@@ -28,7 +28,7 @@ from hive_tpu.pipeline import Pipeline as JaxPipeline
 from hive_tpu_torch import native
 from hive_tpu_torch.meshing.gltf import load_glb
 from hive_tpu_torch.pipeline import Pipeline
-from hive_tpu_torch.video import h264, h264_pcm, mp4
+from hive_tpu_torch.video import h264, h264_bits, mp4
 from hive_tpu_torch.video.capture import VideoCapture
 from tests.test_torch_h264 import (CORRUPT, decoder_before, pps_unit, rewrite, sps_unit,
                                    write_units)
@@ -124,16 +124,17 @@ def chip_smoke_high_clips(tmp_path_factory):
 
 def test_chip_smoke_clips_code_every_reachable_context(chip_smoke_high_clips):
     """Over chip_smoke.py's High profile exerciser clips (CABAC with
-    cabac_init_idc 0, 1, 2, and CAVLC), every CABAC context that I and P
-    slices of progressive 4:2:0 pictures can read is coded under each of
-    the four tables (the I slices' and each cabac_init_idc's), and no other;
-    so a wrong (m, n) anywhere in those tables changes a digest."""
-    assert len(chip_smoke_high_clips) == 4
+    cabac_init_idc 0, 1, 2, and CAVLC; B pictures in two), every CABAC
+    context that I, P and B slices of progressive 4:2:0 pictures can read
+    is coded under each of the four tables (the I slices' and each
+    cabac_init_idc's), and no other; so a wrong (m, n) anywhere in those
+    tables changes a digest."""
+    assert len(chip_smoke_high_clips) == 6
     coded = sum(stats["coverage"]["cabac_contexts"] for _, stats in chip_smoke_high_clips)
     reachable = h264.cabac_contexts_reachable()
     assert [(t, int(c)) for t, c in zip(*np.nonzero(reachable & (coded == 0)))] == []
     assert not coded[~reachable].any()
-    assert reachable.sum() == 8 + 10 + 203 + 37 + 3 * (13 + 30 + 203 + 37)
+    assert reachable.sum() == 8 + 10 + 203 + 37 + 3 * (13 + 16 + 30 + 203 + 37)
 
 
 def test_chip_smoke_clips_write_each_scaling_list_path():
@@ -268,11 +269,11 @@ def test_bit_flipped_cabac_slices_decode_or_are_refused_as_corrupt(tmp_path):
     for k, sample in enumerate(samples):
         decoder = decoder_before(sps, pps, samples, k)
         for _ in range(30):
-            unit = np.frombuffer(h264_pcm.unescape(sample[0]), np.uint8).copy()
+            unit = np.frombuffer(h264_bits.unescape(sample[0]), np.uint8).copy()
             first = int(rng.integers(40, 8 * len(unit)))
             for bit in range(first, min(first + int(rng.choice([1, 1, 9, 64])), 8 * len(unit))):
                 unit[bit >> 3] ^= 0x80 >> (bit & 7)
-            damaged = bytes([unit[0]]) + h264_pcm.escape(unit[1:]).tobytes()
+            damaged = bytes([unit[0]]) + h264_bits.escape(unit[1:]).tobytes()
             try:
                 picture = copy.deepcopy(decoder).decode([damaged] + sample[1:])
             except mp4.UnsupportedVideoError:
@@ -314,11 +315,12 @@ def test_without_the_native_library_a_cabac_clip_raises_naming_the_build(tmp_pat
 
 
 # What stays refused, each naming the ROADMAP item that will lift it:
-# (slice type or SPS / PPS options, the name, the item).
+# (slice type or SPS / PPS options, the name, the item). B slices and
+# weighted prediction (9f-3) decode now: tests/test_torch_h264_bslices.py.
 STILL_REFUSED = {
-    "b_slices": (dict(slice_type=1), "B slices", "9f-3"),
+    "si_slices": (dict(slice_type=4), "SI slices", "9f"),
     "sp_slices": (dict(slice_type=3), "SP slices", "9f"),
-    "weighted_prediction": (dict(pps=dict(weighted=1)), "weighted prediction", "9f-3"),
+    "mbaff": (dict(sps=dict(frame_mbs_only=0, mbaff=1)), "fields or MBAFF", "9f-4"),
     "fields": (dict(sps=dict(frame_mbs_only=0)), "fields or MBAFF", "9f-4"),
     "chroma_4_2_2": (dict(sps=dict(profile=122, chroma_format=2)), "chroma format 4:2:2", "9f"),
 }
@@ -326,9 +328,8 @@ STILL_REFUSED = {
 
 @pytest.mark.parametrize("case", sorted(STILL_REFUSED))
 def test_still_refused_features_name_their_roadmap_item(tmp_path, case, monkeypatch):
-    """B slices and weighted prediction (9f-3), fields (9f-4) and the rest
-    (9f): refused when the capture opens, before any slice is decoded,
-    each naming its item."""
+    """Fields and MBAFF (9f-4) and the rest (9f): refused when the capture
+    opens, before any slice is decoded, each naming its item."""
     change, name, item = STILL_REFUSED[case]
     sps, pps, samples = cabac_units(tmp_path)
     samples = list(samples)

@@ -90,7 +90,7 @@ def test_blocked_import_check_covers_the_video_modules():
     """The JAX-blocked import above walks the video input's modules too:
     none may need cv2, Pillow or imageio, which the card's machine lacks."""
     modules = set(_port_modules())
-    for name in ("video.mp4", "video.h264_pcm", "video.h264", "video.mpeg4", "video.nvdec",
+    for name in ("video.mp4", "video.h264_bits", "video.h264", "video.mpeg4", "video.nvdec",
                  "video.color", "video.capture", "video.mjpeg"):
         assert f"hive_tpu_torch.{name}" in modules, name
 

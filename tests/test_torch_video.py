@@ -21,7 +21,7 @@ import torch
 from PIL import Image
 
 from hive_tpu_torch.image_processing import resize_linear_u8, rotate
-from hive_tpu_torch.video import color, h264, h264_pcm, mjpeg, mp4
+from hive_tpu_torch.video import color, h264, h264_bits, mjpeg, mp4
 from hive_tpu_torch.video.capture import VideoCapture
 
 
@@ -488,8 +488,9 @@ def test_cpu_reader_refuses_other_macroblocks_by_name(tmp_path, first, later, na
 
 def test_cpu_reader_refuses_p_slices_and_cabac(tmp_path):
     """P slices and CABAC (the refusals this test once held) now decode to
-    cv2's frames; weighted prediction is refused by name, citing ROADMAP
-    Queue 1 item 9f-3."""
+    cv2's frames, and so does a weighted prediction PPS (refused until B
+    slices decoded); redundant pictures are refused by name, citing ROADMAP
+    Queue 1 item 9f."""
     for cabac in (False, True):
         path = tmp_path / f"clip_{cabac}.mp4"
         h264.write_h264_mp4(str(path), seeded_planes(6, 64, 48),
@@ -503,12 +504,17 @@ def test_cpu_reader_refuses_p_slices_and_cabac(tmp_path):
             np.testing.assert_array_equal(frame, want)
     decoder = h264.H264Decoder()
     decoder.decode([h264.encode_sps(32, 16), h264.encode_pps()])
-    bits = h264_pcm.BitWriter().ue(0).ue(0).u(1, 1).u(1, 0).ue(0).ue(0).ue(0).u(1, 1).u(2, 0)
-    bits.se(0).se(0).se(0).u(1, 1).u(1, 0).u(1, 0)
-    weighted = h264_pcm.nal_unit(3, h264_pcm.NAL_PPS, np.frombuffer(bits.align(True), np.uint8))
+
+    def pps(weighted, redundant):
+        bits = h264_bits.BitWriter().ue(0).ue(0).u(1, 1).u(1, 0).ue(0).ue(0).ue(0)
+        bits.u(1, weighted).u(2, 0).se(0).se(0).se(0).u(1, 1).u(1, 0).u(1, redundant)
+        return h264_bits.nal_unit(3, h264_bits.NAL_PPS, np.frombuffer(bits.align(True), np.uint8))
+
+    decoder.decode([pps(1, 0)])
+    assert decoder.pps[0]["weighted_pred"] == 1
     with pytest.raises(mp4.UnsupportedVideoError,
-                       match=r"weighted prediction.*Queue 1 item 9f-3\)"):
-        decoder.decode([weighted])
+                       match=r"redundant pictures.*Queue 1 item 9f\)"):
+        decoder.decode([pps(1, 1)])
 
 
 def h264_slice_types(path):
@@ -526,14 +532,14 @@ def test_emulation_prevention_round_trips():
     rng = np.random.default_rng(3)
     for _ in range(300):
         data = rng.choice(np.array([0, 0, 0, 1, 2, 3, 4, 255], np.uint8), rng.integers(1, 60))
-        escaped = h264_pcm.escape(data).tobytes()
+        escaped = h264_bits.escape(data).tobytes()
         for k in range(len(escaped) - 2):
             assert escaped[k:k + 2] != b"\x00\x00" or escaped[k + 2] >= 3, escaped
-        assert h264_pcm.unescape(b"\x65" + escaped)[1:] == data.tobytes()
+        assert h264_bits.unescape(b"\x65" + escaped)[1:] == data.tobytes()
 
 
 def test_sps_parse_reads_the_written_fields():
-    sps = h264.parse_sps(h264_pcm.unescape(
+    sps = h264.parse_sps(h264_bits.unescape(
         h264.encode_sps(1920, 1080, reorder=1, full_range=True, matrix=1)))
     assert (sps["width"], sps["height"], sps["mbs_h"]) == (1920, 1080, 68)
     assert (sps["full_range"], sps["matrix"], sps["reorder"]) == (True, 1, 1)

@@ -470,26 +470,25 @@ def test_cli_converts_and_meshes_a_cavlc_stray_capture_like_hive_tpu(tmp_path):
 
 
 def test_cli_refuses_a_b_slice_video_before_writing_anything(tmp_path):
-    """A clip whose second picture is a B slice (ROADMAP Queue 1 item 9f-3;
-    until CABAC decoded, a CABAC clip was the refused one): the port's CLI
-    refuses it naming the item, before its output folder exists."""
+    """A clip the port refuses, whose SPS codes fields (ROADMAP Queue 1 item
+    9f-4; until B slices decoded, a clip with a B slice was the refused one,
+    and before that a CABAC clip): the port's CLI refuses it naming the
+    item, before its output folder exists."""
     import chip_smoke
 
-    source = make_cavlc_video(tmp_path / "source.mp4", num_frames=3)
+    source = make_cavlc_video(tmp_path / "source.mp4", num_frames=3, height=64)
     track = mp4.read_track(source)
-    length, sps, pps = mp4.parse_avcc(track.config)
+    length, _, pps = mp4.parse_avcc(track.config)
     with open(source, "rb") as f:
         samples = []
         for offset, size in zip(track.offsets, track.sizes):
             f.seek(int(offset))
-            samples.append(mp4.split_nal_units(f.read(int(size)), length))
-    samples[1] = [chip_smoke.as_b_slice(samples[1][0], sps[0], pps[0])] + samples[1][1:]
-    clip = str(tmp_path / "b_slice.mp4")
-    mp4.write_mp4(clip, mp4.avc1_entry(64, 48, sps[0], pps[0]),
-                  [b"".join(len(u).to_bytes(4, "big") + u for u in s) for s in samples],
-                  width=64, height=48, timescale=30, durations=[1] * 3, sync=[True, False, False])
+            samples.append(f.read(int(size)))
+    clip = str(tmp_path / "fields.mp4")
+    mp4.write_mp4(clip, mp4.avc1_entry(64, 64, chip_smoke.field_sps(64, 64), pps[0]), samples,
+                  width=64, height=64, timescale=30, durations=[1] * 3, sync=[True, False, False])
     out = str(tmp_path / "out")
-    with pytest.raises(mp4.UnsupportedVideoError, match="B slices.*Queue 1 item 9f-3"):
+    with pytest.raises(mp4.UnsupportedVideoError, match="fields or MBAFF.*Queue 1 item 9f-4"):
         Pipeline.from_command_line(["--dataset_path", clip, "--output_path", out,
                                     "--estimate_pose", "--estimate_depth", "--webxr_path",
                                     out + "_webxr", "--log_file", out + ".log"],

@@ -3,8 +3,9 @@
     python tests/torch_h264_planted_faults.py --work DIR   # a few minutes a variant, one at a time
 
 The card's machine has no cv2, so ``chip_smoke.py`` holds the H.264
-decoder built there by three means: the 1080p CAVLC phone clip's luma PSNR
+decoder built there by four means: the 1080p CAVLC phone clip's luma PSNR
 against the renders it was written from (``PHONE_H264_MIN_PSNR``), the
+x264-shaped 1080p phone clip's (B pictures; ``PHONE_H264_B_MIN_PSNR``), the
 1920x1440 Stray Scanner capture's (High profile, CABAC, the 8x8 transform;
 ``STRAY_MIN_PSNR``), and the VGA exerciser clips' digests
 (``H264_EXERCISER_DIGESTS``: the written file and cv2's frames). The
@@ -13,11 +14,12 @@ prediction code, so a fault in the decoder is mostly written into the
 stream too and hides from a PSNR. This script copies ``hive_tpu_torch``
 and ``chip_smoke.py`` into ``DIR`` once per variant, plants one fault in
 the copy (``native/src/h264_decode.cpp`` or ``video/h264.py``; the sound
-copy plants none), builds it, and prints for each: the phone clip's and
+copy plants none), builds it, and prints for each: the phone clips' and
 the Stray capture's PSNR on their checked frames, how many of their 30
 frames cv2 reads otherwise than the port, and whether each exerciser
-clip's file and frames keep their digests. Not a test: the readings are
-written down in PERF.md.
+clip's file and frames keep their digests. ``--clips`` names the rendered
+clips to read (the 1080p and 1920x1440 ones take most of the time). Not a
+test: the readings are written down in PERF.md.
 """
 
 import argparse
@@ -59,6 +61,17 @@ VARIANTS = {
                           f'lists = _fall_back(sps["scaling"], {FLAT})'),
                          (READER, 'DEFAULT_LISTS if sps["scaling"] is None else lists',
                           f'{FLAT} if sps["scaling"] is None else lists')],
+    # Faults only B slices reach: temporal direct's DistScaleFactor one
+    # more; implicit weights taken as the default average; the bS rule
+    # comparing list 0 alone.
+    "temporal_scale_plus_one": [(DECODER, "const int scale = temporal_scale[ref[0]];",
+                                 "const int scale = temporal_scale[ref[0]] + 1;")],
+    "implicit_weights_default": [(DECODER,
+                                  "implicit_w0[r0][r1] = plain ? 32 : 64 - (w >> 2);",
+                                  "implicit_w0[r0][r1] = plain ? 32 : 32;")],
+    "bs_list0_only": [(DECODER, "    if (!straight) return 0;\n    if (p0 != q1 || p1 != q0) return 1;",
+                       "    return p0 != q0 || far(p.mv[0][pb], q.mv[0][qb]) ? 1 : 0;\n"
+                       "    if (!straight) return 0;\n    if (p0 != q1 || p1 != q0) return 1;")],
 }
 
 CHILD = r"""
@@ -77,27 +90,31 @@ def cv2_frames(path):
             return frames
         frames.append(frame)
 
+def clip_readings(out, name, path, rendered, checked):
+    capture = VideoCapture(path, device="cpu")
+    out[name + "_psnr"] = {i: cs.psnr_db(next(capture.planes(i, i + 1))[0].numpy(),
+                                         rendered[i]) for i in checked}
+    ours = [f.numpy() for f in capture.frames()]
+    theirs = cv2_frames(path)
+    out[name + "_frames_unlike_cv2"] = sum(not np.array_equal(a, b) for a, b in zip(ours, theirs))
+    out[name + "_frames"] = [len(ours), len(theirs)]
+
 out = {}
 with tempfile.TemporaryDirectory() as folder:
-    clip = os.path.join(folder, "phone.mp4")
-    _, _, rendered = cs.write_h264_phone_clip(clip)
-    capture = VideoCapture(clip, device="cpu")
-    out["psnr"] = {i: cs.psnr_db(next(capture.planes(i, i + 1))[0].numpy(), rendered[i][0])
-                   for i in cs.PHONE_H264_CHECKED}
-    ours = [f.numpy() for f in capture.frames()]
-    theirs = cv2_frames(clip)
-    out["phone_frames_unlike_cv2"] = sum(not np.array_equal(a, b) for a, b in zip(ours, theirs))
-    out["phone_frames"] = [len(ours), len(theirs)]
-    stray = os.path.join(folder, "stray")
-    _, rendered = cs.write_stray_capture(stray, cs.VIDEO_FRAMES)
-    video = os.path.join(stray, "rgb.mp4")
-    capture = VideoCapture(video, device="cpu")
-    out["stray_psnr"] = {i: cs.psnr_db(next(capture.planes(i, i + 1))[0].numpy(), rendered[i])
-                         for i in cs.STRAY_CHECKED}
-    ours = [f.numpy() for f in capture.frames()]
-    theirs = cv2_frames(video)
-    out["stray_frames_unlike_cv2"] = sum(not np.array_equal(a, b) for a, b in zip(ours, theirs))
-    out["stray_frames"] = [len(ours), len(theirs)]
+    for clip in sys.argv[1].split(","):
+        path = os.path.join(folder, clip + ".mp4")
+        if clip == "phone":
+            _, _, frames = cs.write_h264_phone_clip(path)
+            clip_readings(out, clip, path, {i: f[0] for i, f in enumerate(frames)},
+                          cs.PHONE_H264_CHECKED)
+        elif clip == "phone_b":
+            _, _, frames = cs.write_h264_b_phone_clip(path)
+            clip_readings(out, clip, path, {i: f[0] for i, f in enumerate(frames)},
+                          cs.PHONE_H264_B_CHECKED)
+        elif clip == "stray":
+            stray = os.path.join(folder, "stray")
+            _, rendered = cs.write_stray_capture(stray, cs.VIDEO_FRAMES)
+            clip_readings(out, clip, os.path.join(stray, "rgb.mp4"), rendered, cs.STRAY_CHECKED)
     for index, (name, *_) in enumerate(cs.H264_EXERCISER_CLIPS):
         path, _ = cs.write_h264_exerciser(folder, index)
         frames = [f.numpy() for f in VideoCapture(path, device="cpu").frames()]
@@ -132,10 +149,13 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--work", required=True, help="a folder for the copies")
     parser.add_argument("--only", nargs="*", default=list(VARIANTS), choices=list(VARIANTS))
+    parser.add_argument("--clips", default="phone,phone_b,stray",
+                        help="the rendered clips to read besides the exerciser clips: any of "
+                        "phone, phone_b, stray, comma-separated")
     args = parser.parse_args()
     for name in args.only:
-        child = subprocess.run([sys.executable, "-c", CHILD], cwd=prepare(args.work, name),
-                               stdout=subprocess.PIPE, text=True)
+        child = subprocess.run([sys.executable, "-c", CHILD, args.clips],
+                               cwd=prepare(args.work, name), stdout=subprocess.PIPE, text=True)
         if child.returncode:
             raise SystemExit(f"{name}: exit {child.returncode}")
         print(name, child.stdout.strip().splitlines()[-1], flush=True)
