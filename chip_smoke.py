@@ -43,7 +43,8 @@ Phases (any failure raises and the script exits non-zero):
    ``profiling.json`` must carry the foreground roll-ups (count >= 30), a
    native QEM decimation far below the triangulated face count, and
    ``fg.glb`` compressed by quantization (``bg.glb``'s 284 MB host
-   quantize is left out of this run; [research]'s runs check it). The
+   quantize is left out of this run and the video runs; the TUM and
+   [research] runs check it). The
    foreground stage runs on host
    threads beside the background stage and launches nothing on the card.
    Kernel launch counts are reset just before and read just
@@ -230,7 +231,7 @@ Phases (any failure raises and the script exits non-zero):
    cached feature set: the extraction time, the pairs kept and the whole
    CLI's time logged;
 17. [video]: video and Stray Scanner inputs (host demuxing; JPEG, MPEG-4
-   Part 2 and H.264 decode on the host; plain PyTorch; PnP's SIFT sums its
+   Part 2, H.264 and HEVC decode on the host; plain PyTorch; PnP's SIFT sums its
    histograms in the ordered kernel). Three seeded I_PCM H.264 MP4s
    (640x480 x 30 frames in display order, the same coded out of order
    with ``ctts``, 1920x1080 x 10 frames, cropped from 1088 lines): the
@@ -246,8 +247,10 @@ Phases (any failure raises and the script exits non-zero):
    three with B pictures, each direct mode and weighted prediction;
    coding every CABAC context I, P and B slices can read under each of the
    four tables): each file, and its frames on the card and on the CPU,
-   hashing to the digests the tests hold to cv2 (the card's machine has no
-   cv2). The card's rotation and uint8
+   hashing to the digests the tests hold to cv2 (cv2 5.0.0 is not on the
+   card's machine); the same for four HEVC exerciser clips at VGA
+   (``video.hevc.Exerciser``: intra pictures with CTBs of 16, 32 and 64,
+   every syntax path and context of an I slice). The card's rotation and uint8
    resize equal to the CPU's at the phone clip's (1920x1080 -> 640x360)
    and the Stray Scanner capture's (1920x1440, turned to portrait, ->
    480x640) shapes, timed. The phone clip: 30 1080p frames of phase 16's
@@ -267,25 +270,28 @@ Phases (any failure raises and the script exits non-zero):
    host (native), frames 0, 11, 12 and 29 on the card equal to the CPU's
    and their luma above a stated PSNR against the renders, the intra, a P
    and (x264's) a reference and a non-reference B picture's host decode
-   ms, the card's conversion, a ``frames()`` loop. A small clip whose SPS
-   codes fields refused by the CLI naming ROADMAP item 9f-4 before
-   anything is written. The Stray Scanner capture's rgb.mp4
+   ms, the card's conversion, a ``frames()`` loop; and the first 12
+   renders as all-intra HEVC (CTB 64, SAO, deblocking, four slices): frames
+   0, 5, 6 and 11 card = CPU and above PHONE_HEVC_MIN_PSNR, an intra
+   picture's host decode ms. A small clip whose SPS codes fields, and an
+   HEVC clip with a P slice, refused by the CLI naming ROADMAP items 9f-4
+   and 9c-2 before anything is written. The Stray Scanner capture's rgb.mp4
    coded as the app codes it (High profile, CABAC, the 8x8 transform,
    1920x1440): frames 0, 11, 12 and 29 on the card equal to the CPU's,
    their luma above STRAY_MIN_PSNR against the renders, its IDR and a P
    picture's host decode ms beside the card's name and power limit. Then
    the user's runs through ``python -m
-   hive_tpu_torch`` in this process: the Motion JPEG, MPEG-4 and x264-shaped
-   H.264 phone clips with
+   hive_tpu_torch`` in this process: the Motion JPEG, MPEG-4, x264-shaped
+   H.264 and HEVC phone clips with
    ``--estimate_pose --estimate_depth`` (PnP odometry, DPT with phase 8's
    check weights; ``--key_frame_threshold 1.0``, every frame fused, as in
-   the other CLI runs) on their first 10 frames, and the 30-frame Stray
+   the other CLI runs) on their first PHONE_CLI_FRAMES frames, and the 30-frame Stray
    Scanner capture (that rgb.mp4, 256x192 depth and confidence, the first
    pose rolled -90 degrees) with its own
    poses: two classifications and one band update a frame, the ordered
    histogram launched on the pose runs, ``fg.glb``, ``bg.glb`` and
-   ``metadata.json`` written, finite meshes, the frames equal to the CPU
-   path's JPEG bytes;
+   ``metadata.json`` written (``bg.glb`` unquantized, as in the e2e run),
+   finite meshes, the frames equal to the CPU path's JPEG bytes;
 18. [eval]: the evaluation path and the player on phase 7's export (no
    kernel of its own: plain PyTorch and host code). ``bg.glb`` with each
    frame's ``fg.glb`` node rendered from the 30 ground-truth poses at
@@ -931,6 +937,21 @@ def main_launch_counts() -> dict:
             "classify_refine": cb.refine_launches, "ordered_hist": ordered_hist.launches}
 
 
+def without_bg_quantize():
+    """A patch of ``Pipeline._compress_mesh`` that leaves ``bg.glb``
+    unquantized (the foreground's meshes are compressed as usual): the e2e
+    and video CLI runs take it for the script's time limit."""
+    from hive_tpu_torch.pipeline import Pipeline
+
+    compress = Pipeline._compress_mesh
+
+    def compress_foreground(self, path):
+        if os.path.basename(path) != "bg.glb":
+            compress(self, path)
+
+    return mock.patch.object(Pipeline, "_compress_mesh", compress_foreground)
+
+
 def check_launches(path: str, counts: dict, frames: int, shards: int = 1) -> None:
     """Exactly one launch of each classification pass per frame and shard
     of the volume's rows, and the band update launched (once per frame and
@@ -1408,20 +1429,14 @@ def run_main_path(device, launches, keep: str):
     for the [eval] phase."""
     from hive_tpu_torch.meshing.gltf import load_glb
     from hive_tpu_torch.ops import tsdf_sparse
-    from hive_tpu_torch.pipeline import Pipeline
 
     check = MainPathCheck(device)
-    compress = Pipeline._compress_mesh
 
-    def compress_foreground(self, path):
-        # The 284 MB bg.glb's host quantize took 48.7-60.4 s of this run on
-        # the H100 machines' hosts: it is left out here, so this run's
-        # elapsed_time.per_frame leaves it out, its mesh_compression
-        # background time is of nothing, and [eval] renders the unquantized
-        # bg.glb. The TUM, video and [research] runs quantize theirs.
-        if os.path.basename(path) != "bg.glb":
-            compress(self, path)
-
+    # The 284 MB bg.glb's host quantize took 48.7-60.4 s of this run on the
+    # H100 machines' hosts: it is left out here, so this run's
+    # elapsed_time.per_frame leaves it out, its mesh_compression background
+    # time is of nothing, and [eval] renders the unquantized bg.glb. The TUM
+    # and [research] runs quantize theirs.
     with tempfile.TemporaryDirectory(prefix="hive_smoke_") as tmp:
         dataset = os.path.join(tmp, "synthetic")
         start = time.perf_counter()
@@ -1441,7 +1456,7 @@ def run_main_path(device, launches, keep: str):
                 mock.patch.object(tsdf_sparse, "classify_pass1", check.pass1), \
                 mock.patch.object(tsdf_sparse, "classify_refine", check.refine), \
                 mock.patch.object(tsdf_sparse, "band_update", check.update), \
-                mock.patch.object(Pipeline, "_compress_mesh", compress_foreground):
+                without_bg_quantize():
             runpy.run_module("hive_tpu_torch", run_name="__main__", alter_sys=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
@@ -4051,8 +4066,9 @@ PHONE_H264_B_MIN_PSNR = 46.5
 STRAY_CHECKED = (0, 11, 12, 29)
 STRAY_MIN_PSNR = 46.4
 # The phone clips' CLI runs convert their first PHONE_CLI_FRAMES frames
-# (their decode checks read all VIDEO_FRAMES); the Stray Scanner run all.
-PHONE_CLI_FRAMES = 10
+# (their decode checks read all VIDEO_FRAMES; cut from 10 for the script's
+# time limit when the HEVC run joined); the Stray Scanner run all.
+PHONE_CLI_FRAMES = 5
 # The H.264 exerciser clips at VGA (video.h264.Exerciser, seeded, on the
 # integer-made frames of exerciser_planes, so that every host writes the
 # same bytes): (name, frames, write_h264_mp4 options, Exerciser options,
@@ -4139,6 +4155,65 @@ H264_EXERCISER_DIGESTS = {
     "b_cabac_implicit": ("1d3648cd3920b43b", "cc6b5627e9341aa2"),
     "b_cavlc_8x8_default": ("aad380a94f83fc6c", "e30902d5c65db71f"),
 }
+
+
+# The HEVC exerciser clips at VGA (video.hevc.Exerciser, seeded, on the
+# integer-made frames of exerciser_planes): (name, frames, write_hevc_mp4
+# options, Exerciser options, exerciser_planes' noise). Together they write
+# every syntax path the writer counts (every intra mode at each transform
+# block size, NxN, the DST and each DCT size, transform skip, sign hiding,
+# transquant bypass, PCM with the loop filter on and off, cu_qp_delta and
+# the chroma QP offsets, SAO band offsets and each edge class, deblocking
+# with offsets and off across slices, several slices a picture, CTBs of 16,
+# 32 and 64, IDR, CRA and trailing pictures, hev1 with in-band parameter
+# sets), code every CABAC context an I slice can read
+# (video.hevc.contexts_reachable), and take each loop filter decision the
+# decoder counts.
+HEVC_EXERCISER_CLIPS = (
+    ("ctb64_tools", 4,
+     dict(ctb_log2=6, max_tb_log2=5, max_depth_intra=3, pcm=(8, 8, 3, 5, False),
+          sign_hiding=True, transform_skip=True, transquant_bypass=True, cu_qp_delta_depth=2,
+          cb_qp_offset=3, cr_qp_offset=-2, slice_chroma_offsets=True,
+          deblocking=(True, False, 2, -1), init_qp=30),
+     dict(ctb_log2=6, max_slices=4, slice_options=("qp", "sao", "deblocking", "across", "chroma")),
+     24),
+    ("ctb32_pcm_unfiltered", 4,
+     dict(ctb_log2=5, max_tb_log2=4, max_depth_intra=1, pcm=(7, 5, 3, 4, True),
+          transquant_bypass=True, across_slices=False, deblocking=(False, False, -3, 4),
+          sign_hiding=True),
+     dict(ctb_log2=5, max_slices=3, knobs=dict(pcm=150)), 1),
+    ("ctb16_slices", 18,
+     dict(ctb_log2=4, max_tb_log2=4, max_depth_intra=2, log2_max_poc_lsb=4, transform_skip=True,
+          cu_qp_delta_depth=1, deblocking=(True, False, 0, 0), fourcc=b"hev1", in_band=True),
+     dict(ctb_log2=4, max_slices=5, idr_every=17, cra=0.3, knobs=dict(transform_skip=500)), 24),
+    ("ctb64_smooth", 3, dict(ctb_log2=6, max_tb_log2=5, max_depth_intra=0),
+     dict(ctb_log2=6, max_slices=1, qp=36, knobs=dict(split_cu=150, split_tu=100, nxn=100)), 1),
+)
+# Each HEVC exerciser clip's SHA-256 (its first 16 hex digits): the file,
+# and the BGR frames cv2 5.0.0 reads from it (tests/test_torch_hevc_intra.py
+# holds both to a fresh write and to cv2), as H264_EXERCISER_DIGESTS.
+HEVC_EXERCISER_DIGESTS = {
+    "ctb64_tools": ("22b82b3d3d477e2e", "2bc21b23a1c551dd"),
+    "ctb32_pcm_unfiltered": ("d7490de8d266ff88", "d3bdaf0c3acdb79e"),
+    "ctb16_slices": ("698d21c942e68f38", "fb1a6517351379ac"),
+    "ctb64_smooth": ("4cf464021b87bf6e", "9a3b10c3fae811be"),
+}
+# The HEVC phone clip (video.hevc.write_hevc_mp4, IntraPlanner): the first
+# PHONE_HEVC_FRAMES renders as all-intra Main profile HEVC, CTB 64, 16x16
+# coding units with the intra mode nearest each, transform units of up to
+# 16x16, QP PHONE_HEVC_QP, SAO (an edge class a CTB) and deblocking on,
+# PHONE_HEVC_SLICES slices a picture; the frames whose card reads are held
+# to the CPU's, and the least PSNR (dB) of their decoded luma against the
+# renders: a sound build read 47.0964-47.1076 on these four frames of 12 on
+# an H100's host; the planted faults (tests/torch_hevc_planted_faults.py
+# --clips phone, readings in PERF.md) raise it with the edge filters
+# skipped, move it by under 0.01 dB with SAO's diagonal classes swapped
+# and leave it with sign hiding's parity inverted and strong smoothing's
+# threshold at 9 (the clip uses neither): the floor stops gross faults, the
+# exerciser clips' digests these.
+PHONE_HEVC_QP, PHONE_HEVC_SLICES, PHONE_HEVC_FRAMES = 24, 4, 12
+PHONE_HEVC_CHECKED = (0, 5, 6, 11)
+PHONE_HEVC_MIN_PSNR = 47.0
 
 
 def nvdec_caps_log() -> dict:
@@ -4344,6 +4419,7 @@ def check_video(device, launches, tmp: str) -> dict:
     log(f"[video] NVDEC's parser alone on a 1920x1080 I_PCM stream (coded 1088 lines; NVDEC is "
         f"not on the decode path, ROADMAP item 9b): {parser}")
     results["exerciser"] = check_h264_exerciser(device, folder)
+    results["hevc_exerciser"] = check_hevc_exerciser(device, folder)
 
     # The card's rotation and resize at the user runs' shapes, against the CPU.
     rng = np.random.default_rng(SEED)
@@ -4370,19 +4446,23 @@ def check_video(device, launches, tmp: str) -> dict:
 
     # A user's plain video and Stray Scanner capture through the CLI: the
     # phone clip as Motion JPEG, as MPEG-4 Part 2 (what cv2's mp4v writer
-    # makes) and as H.264 (CAVLC, and as x264 codes it, with B pictures),
-    # and the capture's H.264 rgb.mp4, all decoded on the host for every
-    # device; a clip of fields refused.
+    # makes), as H.264 (CAVLC, and as x264 codes it, with B pictures) and as
+    # all-intra HEVC, and the capture's H.264 rgb.mp4, all decoded on the
+    # host for every device; a clip of fields and an HEVC clip with a P
+    # slice refused.
     clip = os.path.join(folder, "phone.mp4")
     mpeg4_clip = os.path.join(folder, "phone_mpeg4.mp4")
     h264_clip = os.path.join(folder, "phone_h264.mp4")
     h264_b_clip = os.path.join(folder, "phone_h264_b.mp4")
+    hevc_clip = os.path.join(folder, "phone_hevc.mp4")
     stray = os.path.join(folder, "stray")
     results["mjpeg"] = check_mjpeg_clip(device, clip)
     results["mpeg4"] = check_mpeg4_clip(device, mpeg4_clip)
     results["h264"] = check_h264_clip(device, h264_clip)
     results["h264_b"] = check_h264_b_clip(device, h264_b_clip)
+    results["hevc"] = check_hevc_clip(device, hevc_clip)
     results["field_refusal"] = check_field_refusal(folder)
+    results["hevc_refusal"] = check_hevc_refusal(folder)
     start = time.perf_counter()
     results["stray_writer"], rendered = write_stray_capture(stray, VIDEO_FRAMES)
     log(f"[video] Stray Scanner capture written ({VIDEO_FRAMES} frames, rgb.mp4 H.264 High "
@@ -4395,6 +4475,7 @@ def check_video(device, launches, tmp: str) -> dict:
     runs = [("phone", clip, pose_depth, (360, 640), PHONE_CLI_FRAMES),
             ("phone_mpeg4", mpeg4_clip, pose_depth, (360, 640), PHONE_CLI_FRAMES),
             ("phone_h264_b", h264_b_clip, pose_depth, (360, 640), PHONE_CLI_FRAMES),
+            ("phone_hevc", hevc_clip, pose_depth, (360, 640), PHONE_CLI_FRAMES),
             ("stray", stray, [], (640, 480), VIDEO_FRAMES)]
     results["runs"] = run_video_conversions(device, launches, folder, runs)
     log(f"[video] the phase took {time.perf_counter() - phase_start:.1f} s")
@@ -4447,6 +4528,116 @@ def check_h264_exerciser(device, folder: str) -> dict:
         f"written ({totals}); all {result['contexts_read']} reachable (table, ctxIdx) CABAC "
         f"contexts coded, the least {int(contexts[reachable].min())} times")
     return result
+
+
+def check_hevc_exerciser(device, folder: str) -> dict:
+    """The HEVC exerciser clips (HEVC_EXERCISER_CLIPS, 640x480): every path
+    the writer counts written at least once over them, every context an I
+    slice can read coded; each file the bytes of HEVC_EXERCISER_DIGESTS, and
+    its frames read on the card and on the CPU both the frames cv2 reads (by
+    their digest)."""
+    from hive_tpu_torch.video import hevc
+    from hive_tpu_torch.video.capture import VideoCapture
+
+    totals, result = {}, {}
+    contexts = np.zeros(hevc.NUM_CONTEXTS, np.int64)
+    for index, (name, count, *_) in enumerate(HEVC_EXERCISER_CLIPS):
+        start = time.perf_counter()
+        path, stats = write_hevc_exerciser(folder, index)
+        write_s = time.perf_counter() - start
+        want = HEVC_EXERCISER_DIGESTS.get(name)
+        got = (file_digest(path),
+               frames_digest(VideoCapture(path, device=device).frames()),
+               frames_digest(VideoCapture(path, device="cpu").frames()))
+        if want is None or got != (*want, want[1]):
+            raise AssertionError(f"[video] HEVC exerciser {name}: file / card frames / CPU "
+                                 f"frames digests {got}, not {want}: the writer or decoder "
+                                 f"built here is not the one the tests hold to cv2")
+        for key, value in stats.items():
+            if key != "contexts":
+                totals[key] = totals.get(key, 0) + value
+        contexts += stats["contexts"]
+        result[name] = dict(write_s=write_s, bytes=os.path.getsize(path), digests=got[:2])
+    missing = [key for key, value in totals.items() if value == 0]
+    if missing:
+        raise AssertionError(f"[video] the HEVC exerciser clips wrote no {missing}")
+    reachable = hevc.contexts_reachable()
+    unread = [int(ctx) for ctx in np.flatnonzero(reachable & (contexts == 0))]
+    if unread:
+        raise AssertionError(f"[video] the HEVC exerciser clips coded no decision in the "
+                             f"contexts {unread}")
+    result["counts"] = totals
+    result["contexts_read"] = int(reachable.sum())
+    log(f"[video] HEVC exerciser clips {[c[0] for c in HEVC_EXERCISER_CLIPS]} (640x480, "
+        f"all-intra Main profile, CTBs of 16, 32 and 64): each file and its frames on the card "
+        f"and on the CPU hash to the digests of cv2's read; every path written; all "
+        f"{result['contexts_read']} reachable contexts coded, the least "
+        f"{int(contexts[reachable].min())} times")
+    return result
+
+
+def write_hevc_exerciser(folder: str, index: int) -> Tuple[str, dict]:
+    """HEVC exerciser clip ``index`` of HEVC_EXERCISER_CLIPS written into
+    ``folder``: its path and the writer's counts."""
+    from hive_tpu_torch.video import hevc
+
+    name, count, options, planner, noise = HEVC_EXERCISER_CLIPS[index]
+    path = os.path.join(folder, f"hevc_exerciser_{name}.mp4")
+    stats = hevc.write_hevc_mp4(path, exerciser_planes(count, 640, 480, SEED + 50 + index, noise),
+                                hevc.Exerciser(640, 480, SEED + 50 + index, **planner),
+                                **options)
+    return path, stats
+
+
+def write_hevc_p_slice_clip(folder: str) -> str:
+    """A 64x64 HEVC clip whose second picture's slice says P (its header
+    rewritten): the port refuses it, naming ROADMAP item 9c-2."""
+    from hive_tpu_torch.video import hevc, mp4
+
+    source = os.path.join(folder, "hevc_intra_source.mp4")
+    hevc.write_hevc_mp4(source, video_planes(2, 64, 64, SEED), hevc.IntraPlanner(64, 64))
+    track = mp4.read_track(source)
+    length, units = hevc.parse_hvcc(track.config)
+    decoder = hevc.HevcDecoder(pixels=False)
+    decoder.decode(units)
+    samples = []
+    with open(source, "rb") as f:
+        for i, (offset, size) in enumerate(zip(track.offsets, track.sizes)):
+            f.seek(int(offset))
+            nals = mp4.split_nal_units(f.read(int(size)), length)
+            if i == 1:
+                nals = [hevc.with_slice_type(nals[0], decoder.sps, decoder.pps, hevc.P_SLICE)]
+            samples.append(b"".join(len(u).to_bytes(4, "big") + u for u in nals))
+    clip = os.path.join(folder, "hevc_p_slice.mp4")
+    entry = mp4.visual_entry(b"hvc1", 64, 64, mp4.box(b"hvcC", track.config))
+    mp4.write_mp4(clip, entry, samples, width=64, height=64, timescale=30, durations=[1, 1],
+                  sync=[True, False])
+    return clip
+
+
+def check_hevc_refusal(folder: str) -> dict:
+    """The HEVC clip with a P slice: the CLI refuses it when the capture
+    opens, naming P slices and ROADMAP Queue 1 item 9c-2, before it writes
+    anything."""
+    from hive_tpu_torch.video import mp4
+
+    clip = write_hevc_p_slice_clip(folder)
+    out = os.path.join(folder, "hevc_p_converted")
+    argv = ["hive_tpu_torch", "--dataset_path", clip, "--output_path", out, "--estimate_pose",
+            "--estimate_depth", "--webxr_path", out + "_webxr", "--log_file", out + ".log"]
+    try:
+        with mock.patch.object(sys, "argv", argv):
+            runpy.run_module("hive_tpu_torch", run_name="__main__", alter_sys=True)
+    except mp4.UnsupportedVideoError as e:
+        if "P slices" not in str(e) or "Queue 1 item 9c-2" not in str(e):
+            raise
+        message = str(e)
+    else:
+        raise AssertionError("[video] the CLI converted an HEVC clip with a P slice")
+    if os.path.exists(out):
+        raise AssertionError(f"[video] the refused HEVC clip left {out}")
+    log(f"[video] the CLI refuses an HEVC clip with a P slice before writing anything: {message}")
+    return dict(message=message)
 
 
 def write_h264_exerciser(folder: str, index: int) -> Tuple[str, dict]:
@@ -5002,6 +5193,81 @@ def check_h264_clip(device, clip: str) -> dict:
     return result
 
 
+def write_hevc_phone_clip(path: str) -> Tuple[float, dict, list]:
+    """The phone clip as all-intra HEVC (``write_hevc_mp4``,
+    ``IntraPlanner``): the first PHONE_HEVC_FRAMES renders, CTB 64, 16x16 coding units with the
+    intra mode nearest each, QP PHONE_HEVC_QP, SAO and deblocking on,
+    PHONE_HEVC_SLICES slices a picture, an IDR picture then CRA pictures.
+    Returns the seconds it took, the writer's counts and the rendered
+    planes."""
+    from hive_tpu_torch.video import hevc
+
+    start = time.perf_counter()
+    frames = phone_renders()[0][:PHONE_HEVC_FRAMES]
+    totals = hevc.write_hevc_mp4(
+        path, frames, hevc.IntraPlanner(PHONE_W, PHONE_H, qp=PHONE_HEVC_QP,
+                                        slices=PHONE_HEVC_SLICES, cra_every=1),
+        ctb_log2=6, max_tb_log2=4, max_depth_intra=1, init_qp=PHONE_HEVC_QP)
+    totals.pop("contexts")
+    return time.perf_counter() - start, {k: v for k, v in totals.items() if v}, frames
+
+
+def check_hevc_clip(device, clip: str) -> dict:
+    """The HEVC phone clip read on the card against the CPU: the demuxer's
+    size, count and rate, frames PHONE_HEVC_CHECKED equal, and their decoded
+    Y planes at least PHONE_HEVC_MIN_PSNR against the renders; the capture's
+    open ms, the host decode (native, one thread) ms of an intra picture,
+    and a ``frames()`` loop's ms a frame on the card."""
+    from hive_tpu_torch.video import hevc, mp4
+    from hive_tpu_torch.video.capture import VideoCapture
+
+    write_s, totals, rendered = write_hevc_phone_clip(clip)
+    start = time.perf_counter()
+    card = VideoCapture(clip, device=device)
+    open_ms = 1e3 * (time.perf_counter() - start)
+    cpu = VideoCapture(clip, device="cpu")
+    expected = (PHONE_W, PHONE_H, PHONE_HEVC_FRAMES, 30.0, mp4.HEVC)
+    for capture in (card, cpu):
+        got = (capture.width, capture.height, capture.frame_count, capture.fps, capture.codec)
+        if got != expected:
+            raise AssertionError(f"[video] the HEVC clip reads as {got}, not {expected}")
+    psnr = {}
+    for index in PHONE_HEVC_CHECKED:
+        if not torch.equal(card.frame(index).cpu(), cpu.frame(index)):
+            raise AssertionError(f"[video] the HEVC clip's frame {index} on the card differs "
+                                 f"from the CPU's")
+        y = next(card.planes(index, index + 1))[0].cpu().numpy()
+        psnr[index] = psnr_db(y, rendered[index][0])
+        if not psnr[index] >= PHONE_HEVC_MIN_PSNR:
+            raise AssertionError(f"[video] the HEVC clip's frame {index} decodes "
+                                 f"{psnr[index]:.4f} dB PSNR against the luma it was written "
+                                 f"from, under {PHONE_HEVC_MIN_PSNR} dB: the decoder is wrong "
+                                 f"on this host")
+    units = card._nal_units(1)
+    decoder = hevc.HevcDecoder()
+    decoder.decode(card.parameter_sets)
+    decode_ms = host_ms(lambda: decoder.decode(units), reps=3)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in card.frames():
+        pass
+    torch.cuda.synchronize()
+    loop_ms = 1e3 * (time.perf_counter() - start) / PHONE_HEVC_FRAMES
+    result = dict(write_s=write_s, bytes=os.path.getsize(clip), writer=totals,
+                  luma_psnr_db=psnr, picture_bytes=sum(map(len, units)),
+                  intra_decode_ms=decode_ms, open_ms=open_ms, frames_loop_ms=loop_ms)
+    log(f"[video] HEVC phone clip: {PHONE_HEVC_FRAMES} frames {PHONE_W}x{PHONE_H}, all-intra "
+        f"Main profile, CTB 64, QP {PHONE_HEVC_QP}, SAO and deblocking on, {PHONE_HEVC_SLICES} "
+        f"slices a picture ({result['bytes']} B, written in {write_s:.1f} s; writer counts "
+        f"{totals}); size, count and rate as written; frames {PHONE_HEVC_CHECKED} on the card "
+        f"equal the CPU's, their luma at {', '.join(f'{v:.4f}' for v in psnr.values())} dB PSNR "
+        f"against the renders (floor {PHONE_HEVC_MIN_PSNR}); host decode {decode_ms:.3f} ms an "
+        f"intra picture ({result['picture_bytes']} B; native, one thread); opening the capture "
+        f"(every sample's headers read) {open_ms:.3f} ms; a frames() loop on the card "
+        f"{loop_ms:.3f} ms a frame")
+    return result
+
+
 def h264_decode_ms(capture, count: int = 2) -> tuple:
     """The host decode (native, one thread) of an H.264 capture's first
     ``count`` samples in decode order (an IDR picture, then a P picture, and
@@ -5030,7 +5296,7 @@ def h264_decode_ms(capture, count: int = 2) -> tuple:
 
 def run_video_conversions(device, launches, folder: str, runs) -> dict:
     """The user's video runs, each through ``python -m hive_tpu_torch`` in
-    this process: the Motion JPEG, MPEG-4 Part 2 and H.264 phone clips with
+    this process: the Motion JPEG, MPEG-4 Part 2, H.264 and HEVC phone clips with
     ``--estimate_pose --estimate_depth`` (PnP odometry, its SIFT histograms
     in the ordered kernel; DPT with the check weights, as phase 8 writes
     them) on their first PHONE_CLI_FRAMES frames, and the Stray Scanner
@@ -5055,8 +5321,11 @@ def run_video_conversions(device, launches, folder: str, runs) -> dict:
                 "--webxr_path", out + "_webxr", "--log_file", out + ".log"]
         reset_launch_counts()
         start = time.perf_counter()
+        # The bg.glb quantize (17-24 s a run on an H100's host) is left out
+        # for the script's time limit: the TUM and [research] runs keep it.
         with mock.patch.dict(os.environ, {"WEIGHTS_PATH": weights}), \
-                mock.patch.object(sys, "argv", argv), recording_ordered_hist_shapes([]) as shapes:
+                mock.patch.object(sys, "argv", argv), recording_ordered_hist_shapes([]) as shapes, \
+                without_bg_quantize():
             runpy.run_module("hive_tpu_torch", run_name="__main__", alter_sys=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
@@ -6401,6 +6670,7 @@ def main() -> int:
             launches_video_phone=launches["video_phone"][name],
             launches_video_phone_mpeg4=launches["video_phone_mpeg4"][name],
             launches_video_phone_h264_b=launches["video_phone_h264_b"][name],
+            launches_video_phone_hevc=launches["video_phone_hevc"][name],
             launches_video_stray=launches["video_stray"][name],
             launches_bench=launches["bench"][name], launches_shard=launches["shard"][name],
             launches_research=launches["research"][name],
@@ -6446,6 +6716,7 @@ def main() -> int:
         launches=launches["video_phone"]["ordered_hist"],
         launches_phone_mpeg4=launches["video_phone_mpeg4"]["ordered_hist"],
         launches_phone_h264_b=launches["video_phone_h264_b"]["ordered_hist"],
+        launches_phone_hevc=launches["video_phone_hevc"]["ordered_hist"],
         launches_pnp_pose=launches["pnp_pose"]["ordered_hist"], exact=True,
         **ordered[360], orientation=ordered[36],
         shapes_phone=video["runs"]["phone"]["ordered_hist_shapes"],

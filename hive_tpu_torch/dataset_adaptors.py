@@ -30,7 +30,9 @@ by :class:`hive_tpu_torch.video.capture.VideoCapture` as ``cv2.VideoCapture``
 reads them: H.264 (I, P and B slices, CAVLC or CABAC, the 8x8 transform,
 scaling matrices and weighted prediction, as phones, Stray Scanner and
 x264 write them; fields, MBAFF and the rest of ROADMAP.md Queue 1 items
-9f-4 and 9f are refused by name),
+9f-4 and 9f are refused by name), HEVC Main profile intra pictures
+(``hvc1`` / ``hev1``; P and B slices, 9c-2, the coding tools of 9c-3, and
+Main 10 and the range extensions, 9c-4, are refused by name),
 Motion JPEG and MPEG-4 Part 2 (what cv2's own writer makes) in MP4, each
 decoded on the host for every device; rotated and resized on the device
 (``image_processing.rotate`` / ``resize_linear_u8``, cv2's bytes) and
@@ -675,15 +677,18 @@ class UnrealAdaptor(DatasetAdaptor):
 class VideoAdaptorBase(DatasetAdaptor, ABC):
     """Shared machinery for video-file-backed datasets. The video is read
     by :class:`hive_tpu_torch.video.capture.VideoCapture` on ``device``:
-    demuxed and decoded on the host (H.264, Motion JPEG and MPEG-4 Part 2
-    alike, one path for every device; the wanted pictures' planes moved to
+    demuxed and decoded on the host (H.264, HEVC, Motion JPEG and MPEG-4 Part
+    2 alike, one path for every device; the wanted pictures' planes moved to
     the device); converted to BGR, rotated and resized on the device; only
     the final uint8 frames reach the host, to be encoded.
 
     :param device: where the frames are converted, rotated and resized;
-        default ``cuda:0``. An H.264 stream outside the decoded subset is
-        refused when the capture opens, naming the feature and its ROADMAP.md
-        Queue 1 item (9f-4 for fields and MBAFF, 9f for the rest).
+        default ``cuda:0``. An H.264 or HEVC stream outside the decoded
+        subset is refused when the capture opens, naming the feature and its
+        ROADMAP.md Queue 1 item (H.264: 9f-4 for fields and MBAFF, 9f for the
+        rest; HEVC: 9c-2 for P and B slices, 9c-3 for scaling lists, tiles,
+        WPP and dependent slices, 9c-4 for Main 10 and the range
+        extensions).
     """
 
     def __init__(self, base_path: File, output_path: File, video_path: Union[str, Path],

@@ -2,7 +2,9 @@
 QEM decimation, the JPEG scan decodes (baseline and progressive), the PNG
 unfilter, Telea's inpainting, the MPEG-4 Part 2 VOP decode and encode and
 the H.264 slice decode (I, P and B slices, CAVLC and CABAC), deblocking and encode, with
-its constant tables in ``src/h264_tables.h``.
+its constant tables in ``src/h264_tables.h``, and the HEVC intra picture decode (deblocking
+and SAO included) and encode, with its tables in ``src/hevc_tables.h``; both codecs share
+the CABAC engine of ``src/cabac.h``.
 
 Counterpart of ``hive_tpu/native`` (``src/weld.cpp`` and
 ``src/qem_decimate.cpp`` are copies of the JAX package's, built with the same
@@ -37,10 +39,10 @@ _SRC_DIR = os.path.join(_NATIVE_DIR, "src")
 _BUILD_DIR = os.path.join(os.path.dirname(_NATIVE_DIR), "_build")
 _LIB_PATH = os.path.join(_BUILD_DIR, "libhive_native.so")
 
-_SOURCES = ["h264_decode.cpp", "jpeg_decode.cpp", "mpeg4_decode.cpp", "png_unfilter.cpp", "qem_decimate.cpp",
-            "telea_inpaint.cpp", "weld.cpp"]
+_SOURCES = ["h264_decode.cpp", "hevc_decode.cpp", "jpeg_decode.cpp", "mpeg4_decode.cpp",
+            "png_unfilter.cpp", "qem_decimate.cpp", "telea_inpaint.cpp", "weld.cpp"]
 # Headers the sources include: a change to one rebuilds the library too.
-_HEADERS = ["h264_tables.h", "simple_idct.h"]
+_HEADERS = ["cabac.h", "h264_tables.h", "hevc_tables.h", "simple_idct.h"]
 # Flags beyond the common ones, per source.
 _EXTRA_FLAGS = {"telea_inpaint.cpp": ["-ffp-contract=off"]}
 _FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17"]
@@ -230,6 +232,23 @@ def get_native_lib() -> Optional[ctypes.CDLL]:
             ct.POINTER(ct.c_int32), ct.c_void_p, ct.POINTER(ct.c_void_p), ct.c_void_p,
             ct.c_void_p, ct.c_void_p, ct.c_char_p, ct.c_int64, ct.c_void_p, ct.c_int64,
             ct.POINTER(ct.c_int64),
+        ]
+
+        for name in ("hive_hevc_param_ints", "hive_hevc_slice_ints"):
+            getattr(lib, name).restype = ct.c_int
+            getattr(lib, name).argtypes = []
+        lib.hive_hevc_stat_counts.restype = ct.c_int
+        lib.hive_hevc_stat_counts.argtypes = [ct.POINTER(ct.c_int32), ct.POINTER(ct.c_int32)]
+        lib.hive_hevc_decode_picture.restype = ct.c_int
+        lib.hive_hevc_decode_picture.argtypes = [
+            ct.c_void_p, ct.c_int, ct.c_void_p, ct.POINTER(ct.c_void_p), ct.c_void_p,
+            ct.POINTER(ct.c_void_p), ct.c_void_p,
+        ]
+        lib.hive_hevc_encode_picture.restype = ct.c_int64
+        lib.hive_hevc_encode_picture.argtypes = [
+            ct.c_void_p, ct.c_int, ct.c_void_p, ct.c_void_p, ct.c_uint64,
+            ct.POINTER(ct.c_void_p), ct.POINTER(ct.c_void_p), ct.POINTER(ct.c_void_p),
+            ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_int64, ct.c_void_p, ct.c_void_p,
         ]
 
         lib.hive_png_unfilter.restype = ct.c_int

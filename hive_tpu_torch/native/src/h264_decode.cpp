@@ -51,6 +51,7 @@
 #include <cstring>
 #include <vector>
 
+#include "cabac.h"
 #include "h264_tables.h"
 
 namespace {
@@ -1677,157 +1678,10 @@ void init_contexts(uint8_t* state, int slice_type, int init_idc, int qp) {
     }
 }
 
-// The arithmetic decoding engine (9.3.1.2, 9.3.3.2). Reading stops at
-// `limit` (the slice's end plus the reader's slack): past it the engine
-// reads zeros and sets `over`.
-struct CabacDecoder {
-    static constexpr bool kEncode = false;
-    Reader* r;
-    int64_t limit;
-    bool over = false;
-    uint32_t range = 510, offset = 0;
-    uint8_t state[1024];
-
-    uint32_t bits(int n) {
-        if (r->pos + n > limit) {
-            over = true;
-            return 0;
-        }
-        return r->get(n);
-    }
-    void start() {
-        range = 510;
-        offset = bits(9);
-    }
-    void renorm() {
-        if (range < 256) {
-            const int n = __builtin_clz(range) - 23;
-            range <<= n;
-            offset = (offset << n) | bits(n);
-        }
-    }
-    int decision(int ctx, int = 0) {
-        uint8_t& s = state[ctx];
-        int p = s >> 1, mps = s & 1, bin;
-        const uint32_t lps = kRangeTabLPS[p][(range >> 6) & 3];
-        range -= lps;
-        if (offset >= range) {
-            bin = !mps;
-            offset -= range;
-            range = lps;
-            if (!p) mps = !mps;
-            p = kTransIdxLPS[p];
-        } else {
-            bin = mps;
-            p = kTransIdxMPS[p];
-        }
-        s = static_cast<uint8_t>(p << 1 | mps);
-        renorm();
-        return bin;
-    }
-    int bypass(int = 0) {
-        offset = (offset << 1) | bits(1);
-        if (offset >= range) {
-            offset -= range;
-            return 1;
-        }
-        return 0;
-    }
-    int terminate(int = 0) {
-        range -= 2;
-        if (offset >= range) return 1;
-        renorm();
-        return 0;
-    }
-};
-
-// The arithmetic encoding engine (9.3.4.2 - 9.3.4.5); `cover` counts each
-// context's decisions.
-struct CabacEncoder {
-    static constexpr bool kEncode = true;
-    Writer* w;
-    int64_t* cover = nullptr;
-    uint32_t low = 0, range = 510;
-    int outstanding = 0;
-    bool first = true;
-    uint8_t state[1024];
-
-    void start() {
-        low = 0;
-        range = 510;
-        outstanding = 0;
-        first = true;
-    }
-    void put_bit(int b) {
-        if (first)
-            first = false;
-        else
-            w->put(1, b);
-        for (; outstanding > 0; --outstanding) w->put(1, !b);
-    }
-    void renorm() {
-        while (range < 256) {
-            if (low < 256) {
-                put_bit(0);
-            } else if (low >= 512) {
-                low -= 512;
-                put_bit(1);
-            } else {
-                low -= 256;
-                ++outstanding;
-            }
-            range <<= 1;
-            low <<= 1;
-        }
-    }
-    int decision(int ctx, int bin) {
-        if (cover) ++cover[ctx];
-        uint8_t& s = state[ctx];
-        int p = s >> 1, mps = s & 1;
-        const uint32_t lps = kRangeTabLPS[p][(range >> 6) & 3];
-        range -= lps;
-        if (bin != mps) {
-            low += range;
-            range = lps;
-            if (!p) mps = !mps;
-            p = kTransIdxLPS[p];
-        } else {
-            p = kTransIdxMPS[p];
-        }
-        s = static_cast<uint8_t>(p << 1 | mps);
-        renorm();
-        return bin;
-    }
-    int bypass(int bin) {
-        low <<= 1;
-        if (bin) low += range;
-        if (low >= 1024) {
-            put_bit(1);
-            low -= 1024;
-        } else if (low < 512) {
-            put_bit(0);
-        } else {
-            low -= 512;
-            ++outstanding;
-        }
-        return bin;
-    }
-    // A 1 ends the arithmetic code (EncodeFlush): its last bit written is
-    // the rbsp_stop_one_bit, or comes before I_PCM's alignment.
-    int terminate(int bin) {
-        range -= 2;
-        if (!bin) {
-            renorm();
-            return 0;
-        }
-        low += range;
-        range = 2;
-        renorm();
-        put_bit((low >> 9) & 1);
-        w->put(2, ((low >> 7) & 3) | 1);
-        return 1;
-    }
-};
+// The arithmetic decoding and encoding engines (cabac.h), on this file's
+// bit reader and writer.
+using CabacDecoder = cabac::Decoder<Reader>;
+using CabacEncoder = cabac::Encoder<Writer>;
 
 // Each syntax element's binarisation and contexts (9.3.2, 9.3.3.1), for
 // the decoder and the encoder alike: each takes the value to encode

@@ -2,8 +2,8 @@
 
 :class:`VideoCapture` puts the port's pieces together: the demuxer
 (:mod:`.mp4`) for the codec, sizes, rate, frame selection and samples; the
-host decoders of H.264 (:mod:`.h264`), Motion JPEG (:mod:`.mjpeg`) and
-MPEG-4 Part 2 (:mod:`.mpeg4`) on any device, the wanted pictures' planes
+host decoders of H.264 (:mod:`.h264`), HEVC (:mod:`.hevc`), Motion JPEG
+(:mod:`.mjpeg`) and MPEG-4 Part 2 (:mod:`.mpeg4`) on any device, the wanted pictures' planes
 then moved to the device; the conversion of
 OpenCV's FFmpeg backend (:mod:`.color`) for BGR, on the device; and
 OpenCV's own rotation by the display matrix (``CAP_PROP_ORIENTATION_AUTO``,
@@ -21,19 +21,21 @@ import torch
 from hive_tpu_torch import get_device
 from hive_tpu_torch.image_processing import (ROTATE_90_CLOCKWISE, ROTATE_90_COUNTERCLOCKWISE,
                                              ROTATE_180, rotate)
-from hive_tpu_torch.video import color, h264, mjpeg, mp4, mpeg4
+from hive_tpu_torch.video import color, h264, hevc, mjpeg, mp4, mpeg4
+from hive_tpu_torch.video.h264_bits import display_order
 
 # OpenCV's rotation_angle -> the cv2.rotate it applies to each frame.
 _AUTO_ROTATION = {90: ROTATE_90_CLOCKWISE, 180: ROTATE_180, 270: ROTATE_90_COUNTERCLOCKWISE}
 
 
 class VideoCapture:
-    """An H.264, Motion JPEG or MPEG-4 Part 2 MP4 read on ``device``
+    """An H.264, HEVC, Motion JPEG or MPEG-4 Part 2 MP4 read on ``device``
     (default ``cuda:0``). Each codec decodes on the host for every device,
     in one path (NVDEC, :mod:`.nvdec`, is not used): H.264 in the I, P and B
     subset of :mod:`.h264` (CAVLC or CABAC, the 8x8 transform, scaling
-    matrices, weighted prediction), whose headers are all read, and
-    whatever it refuses refused, when the capture opens. An MPEG-4 N-VOP
+    matrices, weighted prediction) and HEVC in the Main profile intra
+    subset of :mod:`.hevc`, whose headers are all read, and whatever they
+    refuse refused, when the capture opens. An MPEG-4 N-VOP
     (``vop_coded`` 0) gives no frame, as in cv2, so it is left out of the
     frames and the count.
 
@@ -62,12 +64,17 @@ class VideoCapture:
             # yuv420p, limited range, BT.601: swscale's default, as for H.264.
             self.full_range, self.matrix = False, color.UNSPECIFIED
         else:
-            self.length_size, self.sps_units, self.pps_units = mp4.parse_avcc(
-                self.track.config)
+            if self.codec == mp4.HEVC:
+                self.length_size, self.parameter_sets = hevc.parse_hvcc(self.track.config)
+                scan = hevc.scan_track
+            else:
+                self.length_size, self.sps_units, self.pps_units = mp4.parse_avcc(
+                    self.track.config)
+                self.parameter_sets = self.sps_units + self.pps_units
+                scan = h264.scan_track
             with open(self.path, "rb") as f:
-                self.sps, self.reorder, idr = h264.scan_track(
-                    self.sps_units + self.pps_units, len(self.track.sizes),
-                    lambda i: self._nal_units(i, f))
+                self.sps, self.reorder, idr = scan(self.parameter_sets, len(self.track.sizes),
+                                                   lambda i: self._nal_units(i, f))
             self._idr = np.zeros(len(self.track.sizes), bool)
             self._idr[idr] = True
             width, height = self.sps["width"], self.sps["height"]
@@ -96,10 +103,11 @@ class VideoCapture:
     def _planes(self, begin: int, wanted: np.ndarray) -> Iterator[Tuple[int, tuple]]:
         """(sample, planes) of the pictures of ``wanted`` that samples
         ``begin`` to the last of ``wanted`` decode to, in display order;
-        ``begin`` is a sync sample (for H.264, an IDR picture) at or before
-        the first of ``wanted``. Motion JPEG decodes the samples of
-        ``wanted`` alone (each is a sync sample); MPEG-4 Part 2 and H.264
-        decode each sample from ``begin`` in order."""
+        ``begin`` is a sync sample (for H.264, an IDR picture; for HEVC, an
+        IRAP picture) at or before the first of ``wanted``. Motion JPEG
+        decodes the samples of ``wanted`` alone (each is a sync sample);
+        MPEG-4 Part 2, H.264 and HEVC decode each sample from ``begin`` in
+        order."""
         with open(self.path, "rb") as f:
             if self.codec == mp4.MPEG4:
                 decoder = mpeg4.Mpeg4Decoder(self.track.config)
@@ -119,11 +127,11 @@ class VideoCapture:
                                         .to(self.device) for p in planes)
                 return
 
-            # H.264: each sample from ``begin`` (an IDR picture) in decode
-            # order, the pictures put in display order; only the wanted ones
-            # move to the device.
-            decoder = h264.H264Decoder()
-            decoder.decode(self.sps_units + self.pps_units)
+            # H.264 and HEVC: each sample from ``begin`` (an IDR or IRAP
+            # picture) in decode order, the pictures put in display order;
+            # only the wanted ones move to the device.
+            decoder = hevc.HevcDecoder() if self.codec == mp4.HEVC else h264.H264Decoder()
+            decoder.decode(self.parameter_sets)
             keep = set(wanted.tolist())
 
             def pictures():
@@ -133,7 +141,7 @@ class VideoCapture:
                         picture.sample = sample
                         yield picture
 
-            for picture in h264.display_order(pictures(), self.reorder):
+            for picture in display_order(pictures(), self.reorder):
                 if picture.sample in keep:
                     yield picture.sample, tuple(
                         torch.from_numpy(np.ascontiguousarray(p)).to(self.device)
@@ -149,8 +157,8 @@ class VideoCapture:
     def planes(self, start: int = 0, stop: Optional[int] = None) -> Iterator[tuple]:
         """The uint8 planes (Y, U, V, or Y alone) of frames ``start`` to
         ``stop - 1`` on the device, each edit's frames decoded from the
-        sync sample (for H.264, the IDR picture) at or before the first of
-        them."""
+        sync sample (for H.264, the IDR picture; for HEVC, the IRAP picture)
+        at or before the first of them."""
         stop = self.frame_count if stop is None else min(stop, self.frame_count)
         first = 0
         for segment in self.segments:
@@ -164,7 +172,7 @@ class VideoCapture:
     def _segment_planes(self, wanted: np.ndarray) -> Iterable[tuple]:
         """The planes of ``wanted`` (samples of one edit, in display
         order)."""
-        starts = self._idr if self.codec == mp4.H264 else self.track.sync
+        starts = self._idr if self.codec in (mp4.H264, mp4.HEVC) else self.track.sync
         syncs = np.flatnonzero(starts[:int(wanted.min()) + 1])
         begin = int(syncs[-1]) if len(syncs) else 0
         keep = set(wanted.tolist())

@@ -23,7 +23,7 @@ module resolves), then deblocks the picture in one more. There is no numpy
 decoder beside the native one: without a C++ toolchain it raises, naming
 the failed build. H.264 decoding is exact by specification, so the planes
 equal FFmpeg's bit for bit; what the port copies from FFmpeg is the output
-order (:func:`display_order`: a buffer as deep as the VUI's
+order (:func:`.h264_bits.display_order`: a buffer as deep as the VUI's
 ``max_num_reorder_frames``, flushed at each IDR picture and at each memory
 management control operation 5) and, in temporal direct prediction, the
 list 0 index 0 it takes for a co-located reference that list 0 lacks.
@@ -57,7 +57,6 @@ syntax path it wrote and of each CABAC context it coded.
 from __future__ import annotations
 
 import ctypes
-import heapq
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
@@ -65,7 +64,8 @@ import numpy as np
 
 from hive_tpu_torch.video import mp4
 from hive_tpu_torch.video.h264_bits import (LOG2_MAX_POC_LSB, NAL_IDR, NAL_PPS, NAL_SLICE,
-                                            NAL_SPS, BitReader, BitWriter, nal_unit, unescape)
+                                            NAL_SPS, BitReader, BitWriter, nal_unit, out_of_order,
+                                            unescape)
 from hive_tpu_torch.video.mp4 import UnsupportedVideoError
 
 P_SLICE, B_SLICE, I_SLICE = 0, 1, 2
@@ -806,6 +806,11 @@ class Picture:
     sample: int = -1            # the MP4 sample it came from, if the caller says
     slice_types: Tuple[int, ...] = ()
 
+    @property
+    def flush(self) -> bool:
+        """Whether the output flushes before it (:func:`.h264_bits.display_order`)."""
+        return self.idr or self.reset
+
 
 @dataclass(eq=False)
 class _Ref:
@@ -822,9 +827,10 @@ class _Ref:
 
 class H264Decoder:
     """Decodes access units (lists of NAL units, emulation prevention still
-    in) in decode order with :meth:`decode`; :func:`display_order` puts the
-    pictures in display order. With ``pixels`` False it reads only the
-    headers and keeps the buffer's bookkeeping (:func:`scan_track`)."""
+    in) in decode order with :meth:`decode`;
+    :func:`.h264_bits.display_order` puts the pictures in display order.
+    With ``pixels`` False it reads only the headers and keeps the buffer's
+    bookkeeping (:func:`scan_track`)."""
 
     def __init__(self, pixels: bool = True):
         self.pixels = pixels
@@ -1117,29 +1123,12 @@ class H264Decoder:
         return reset
 
 
-def display_order(pictures: Iterable[Picture], reorder: Optional[int]) -> Iterator[Picture]:
-    """Pictures in display order, as FFmpeg outputs them: a buffer of
-    ``reorder`` pictures (the VUI's ``max_num_reorder_frames``; absent, 0)
-    ordered by POC, flushed at each IDR picture or MMCO 5 and at the end."""
-    heap: list = []
-    count = 0
-    for picture in pictures:
-        if picture.idr or picture.reset:
-            while heap:
-                yield heapq.heappop(heap)[2]
-        heapq.heappush(heap, (picture.poc, count, picture))
-        count += 1
-        if len(heap) > (reorder or 0):
-            yield heapq.heappop(heap)[2]
-    while heap:
-        yield heapq.heappop(heap)[2]
-
-
 def scan_track(parameter_sets: List[bytes], num_samples: int,
                read: Callable[[int], List[bytes]]) -> Tuple[dict, Optional[int], List[int]]:
-    """The stream's first SPS, its reorder depth for :func:`display_order`
-    and the samples that hold IDR pictures, after reading every sample's
-    headers in decode order (``read(i)``: the NAL units of sample ``i``):
+    """The stream's first SPS, its reorder depth for
+    :func:`.h264_bits.display_order` and the samples that hold IDR pictures,
+    after reading every sample's headers in decode order (``read(i)``: the
+    NAL units of sample ``i``):
     refuses, before any picture is decoded, what the decoder does not
     decode, frame_num gaps included, and POCs that the reorder depth cannot
     put in order."""
@@ -1157,17 +1146,12 @@ def scan_track(parameter_sets: List[bytes], num_samples: int,
         raise ValueError("the H.264 stream carries no sequence parameter set")
     sps = next(iter(decoder.sps.values()))
     reorder = sps["reorder"]
-    last = None
-    for picture in display_order(pictures, reorder):
-        if picture.idr or picture.reset:
-            last = None
-        if last is not None and picture.poc <= last:
-            raise _refuse("pictures whose POCs the stream's reorder depth ("
-                          + ("no bitstream_restriction in the VUI" if reorder is None
-                             else f"max_num_reorder_frames {reorder}")
-                          + ") does not put in order, where FFmpeg's output heuristics "
-                          "would grow its buffer or drop pictures")
-        last = picture.poc
+    if out_of_order(pictures, reorder):
+        raise _refuse("pictures whose POCs the stream's reorder depth ("
+                      + ("no bitstream_restriction in the VUI" if reorder is None
+                         else f"max_num_reorder_frames {reorder}")
+                      + ") does not put in order, where FFmpeg's output heuristics "
+                      "would grow its buffer or drop pictures")
     return sps, reorder, idr
 
 

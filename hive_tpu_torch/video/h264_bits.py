@@ -1,10 +1,13 @@
 """H.264's bit I/O: the exp-Golomb writer and reader, emulation prevention
-and NAL units, which :mod:`.h264`'s reader and writer share.
+and NAL units, which :mod:`.h264`'s reader and writer share; and what
+:mod:`.hevc` shares with it: the same bit I/O and the output order
+(:func:`display_order`).
 """
 
 from __future__ import annotations
 
-from typing import List
+import heapq
+from typing import Iterable, Iterator, List, Optional
 
 import numpy as np
 
@@ -114,3 +117,41 @@ def unescape(nal: bytes) -> bytes:
 
 def nal_unit(ref_idc: int, nal_type: int, rbsp: np.ndarray) -> bytes:
     return bytes([(ref_idc << 5) | nal_type]) + escape(rbsp).tobytes()
+
+
+# ---------------------------------------------------------------------------
+# Output order.
+# ---------------------------------------------------------------------------
+
+def display_order(pictures: Iterable, reorder: Optional[int]) -> Iterator:
+    """Pictures (each with ``poc`` and ``flush``) in display order, as FFmpeg
+    outputs them: a buffer of ``reorder`` pictures (absent, 0) ordered by
+    POC, flushed before each picture whose ``flush`` is set (H.264: an IDR
+    picture or MMCO 5; HEVC: an IRAP picture with NoRaslOutputFlag) and at
+    the end."""
+    heap: list = []
+    count = 0
+    for picture in pictures:
+        if picture.flush:
+            while heap:
+                yield heapq.heappop(heap)[2]
+        heapq.heappush(heap, (picture.poc, count, picture))
+        count += 1
+        if len(heap) > (reorder or 0):
+            yield heapq.heappop(heap)[2]
+    while heap:
+        yield heapq.heappop(heap)[2]
+
+
+def out_of_order(pictures: Iterable, reorder: Optional[int]) -> bool:
+    """Whether :func:`display_order` with ``reorder`` leaves two pictures
+    between flushes out of POC order: a stream whose output order the
+    reorder depth does not give."""
+    last = None
+    for picture in display_order(pictures, reorder):
+        if picture.flush:
+            last = None
+        if last is not None and picture.poc <= last:
+            return True
+        last = picture.poc
+    return False

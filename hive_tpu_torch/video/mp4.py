@@ -7,7 +7,9 @@ FFmpeg backend sees it: the ``moov`` sample tables (``stsd``, ``stts``,
 
 * the codec, by sample entry: H.264 for ``avc1`` / ``avc3`` (each sample's
   length-prefixed NAL units as an Annex-B access unit, the SPS and PPS from
-  ``avcC`` put before each sync sample); Motion JPEG for ``jpeg``,
+  ``avcC`` put before each sync sample); HEVC for ``hvc1`` / ``hev1`` (the
+  ``hvcC`` record's NAL length size and VPS / SPS / PPS arrays; ``hev1``
+  may carry parameter sets in its samples too); Motion JPEG for ``jpeg``,
   ``mjpa`` and ``mp4v`` whose ``esds`` names JPEG (objectTypeIndication
   0x6C, what cv2's ``MJPG`` writer stores in an ``.mp4``), each sample one
   JPEG and every sample a sync sample; MPEG-4 Part 2 for ``mp4v`` whose
@@ -28,10 +30,11 @@ FFmpeg backend sees it: the ``moov`` sample tables (``stsd``, ``stts``,
   media_time + segment duration)``; leading empty edits only delay the
   track; an edit may repeat samples another one showed.
 
-Refused, naming the codec and the ROADMAP item: ``hvc1`` / ``hev1`` (HEVC),
-``mp4v`` of any other object type, ``mjpb`` and any other sample entry.
-The muxer (:func:`write_mp4`) writes the same boxes, for the H.264 writer
-of :mod:`hive_tpu_torch.video.h264`, for Motion JPEG
+Refused, naming the codec and the ROADMAP item: ``mp4v`` of any other
+object type, ``mjpb`` and any other sample entry. The muxer
+(:func:`write_mp4`) writes the same boxes, for the H.264 writer of
+:mod:`hive_tpu_torch.video.h264`, the HEVC writer of
+:mod:`hive_tpu_torch.video.hevc`, for Motion JPEG
 (:func:`mjpeg_entry`) and for the MPEG-4 Part 2 writer of
 :mod:`hive_tpu_torch.video.mpeg4`.
 """
@@ -45,19 +48,18 @@ from typing import BinaryIO, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-# The ROADMAP items of what the port does not decode yet.
-HEVC_ITEM = "Queue 1 item 9c"
+# The ROADMAP item of the codecs the port does not decode yet.
 OTHER_CODEC_ITEM = "Queue 1 item 9d"
 
 # The codecs the port decodes, and the sample entries that carry them.
-H264, MJPEG, MPEG4 = "h264", "mjpeg", "mpeg4"
+H264, HEVC, MJPEG, MPEG4 = "h264", "hevc", "mjpeg", "mpeg4"
 _H264_ENTRIES = (b"avc1", b"avc3")
+_HEVC_ENTRIES = (b"hvc1", b"hev1")
 _MJPEG_ENTRIES = (b"jpeg", b"mjpa")
 # ISO/IEC 14496-1 objectTypeIndication values of an mp4v entry's esds.
 JPEG_OTI, MPEG4_PART2_OTI = 0x6C, 0x20
 
-CODEC_NAMES = {b"hvc1": "HEVC (H.265)", b"hev1": "HEVC (H.265)",
-               b"mp4v": "MPEG-4 Part 2 (mp4v)", b"av01": "AV1", b"vp09": "VP9",
+CODEC_NAMES = {b"mp4v": "MPEG-4 Part 2 (mp4v)", b"av01": "AV1", b"vp09": "VP9",
                b"mjpb": "Motion JPEG B", b"apch": "ProRes", b"apcn": "ProRes"}
 _OTI_NAMES = {0x21: "H.264 in an mp4v entry", 0x6A: "MPEG-1 video", 0x6D: "PNG",
               **{oti: "MPEG-2 video" for oti in range(0x60, 0x66)}}
@@ -76,11 +78,11 @@ def _refuse_codec(fourcc: bytes, oti: Optional[int] = None) -> UnsupportedVideoE
         name = _OTI_NAMES.get(oti, name)
         entry += (", no objectTypeIndication" if oti is None
                   else f", objectTypeIndication 0x{oti:02X}")
-    item = HEVC_ITEM if fourcc in (b"hvc1", b"hev1") else OTHER_CODEC_ITEM
     return UnsupportedVideoError(
         f"The video's codec is {name} ({entry}); hive_tpu_torch decodes only H.264 (avc1 / "
-        f"avc3), Motion JPEG (jpeg, mjpa, mp4v of objectTypeIndication 0x6C) and MPEG-4 "
-        f"Part 2 (mp4v of objectTypeIndication 0x20) so far (ROADMAP.md {item}).")
+        f"avc3), HEVC (hvc1 / hev1), Motion JPEG (jpeg, mjpa, mp4v of objectTypeIndication "
+        f"0x6C) and MPEG-4 Part 2 (mp4v of objectTypeIndication 0x20) so far (ROADMAP.md "
+        f"{OTHER_CODEC_ITEM}).")
 
 
 def _descriptor(data: bytes, pos: int) -> Tuple[int, int, int]:
@@ -207,7 +209,7 @@ class VideoTrack:
     matrix: Tuple[int, ...]     # tkhd's nine 16.16 / 2.30 words
     edits: List[Tuple[int, int]] = field(default_factory=list)  # (duration, media_time)
     movie_timescale: int = 1000
-    config: bytes = b""         # the avcC record, or MPEG-4's DecoderSpecificInfo
+    config: bytes = b""         # the avcC or hvcC record, or MPEG-4's DecoderSpecificInfo
     fps: float = 0.0
     has_ctts: bool = False
     dts_shift: int = 0          # FFmpeg's shift that makes dts + ctts >= dts
@@ -335,6 +337,12 @@ def _parse_trak(moov: bytes, s: int, e: int, movie_timescale: int) -> VideoTrack
         if avcc is None:
             raise ValueError("the H.264 sample entry has no avcC box")
         config = moov[avcc[0]:avcc[1]]
+    elif fourcc in _HEVC_ENTRIES:
+        codec = HEVC
+        hvcc = _find(moov, [b"hvcC"], *children)
+        if hvcc is None:
+            raise ValueError("the HEVC sample entry has no hvcC box")
+        config = moov[hvcc[0]:hvcc[1]]
     elif fourcc in _MJPEG_ENTRIES:
         codec = MJPEG
     elif fourcc == b"mp4v":

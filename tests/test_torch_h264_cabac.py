@@ -177,9 +177,10 @@ def libavcodec():
 
 
 def header_tables():
-    path = pjoin(os.path.dirname(native.__file__), "src", "h264_tables.h")
-    with open(path) as f:
-        text = f.read()
+    text = ""
+    for name in ("h264_tables.h", "cabac.h"):
+        with open(pjoin(os.path.dirname(native.__file__), "src", name)) as f:
+            text += f.read()
     out = {}
     for name, body in re.findall(r"const \w+ (\w+)(?:\[\d+\])+ = \{(.*?)\};", text, re.S):
         out[name] = np.array([int(v) for v in re.findall(r"-?\d+", body)])
