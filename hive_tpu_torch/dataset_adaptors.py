@@ -30,8 +30,9 @@ by :class:`hive_tpu_torch.video.capture.VideoCapture` as ``cv2.VideoCapture``
 reads them: H.264 (I, P and B slices, CAVLC or CABAC, the 8x8 transform,
 scaling matrices and weighted prediction, as phones, Stray Scanner and
 x264 write them; fields, MBAFF and the rest of ROADMAP.md Queue 1 items
-9f-4 and 9f are refused by name), HEVC Main profile intra pictures
-(``hvc1`` / ``hev1``; P and B slices, 9c-2, the coding tools of 9c-3, and
+9f-4 and 9f are refused by name), HEVC Main profile I, P and B pictures
+(``hvc1`` / ``hev1``, as phones and x265 write them; a change of picture
+size or an output order that leaves POCs unsorted, 9c-2b, the coding tools of 9c-3, and
 Main 10 and the range extensions, 9c-4, are refused by name),
 Motion JPEG and MPEG-4 Part 2 (what cv2's own writer makes) in MP4, each
 decoded on the host for every device; rotated and resized on the device
@@ -686,9 +687,9 @@ class VideoAdaptorBase(DatasetAdaptor, ABC):
         default ``cuda:0``. An H.264 or HEVC stream outside the decoded
         subset is refused when the capture opens, naming the feature and its
         ROADMAP.md Queue 1 item (H.264: 9f-4 for fields and MBAFF, 9f for the
-        rest; HEVC: 9c-2 for P and B slices, 9c-3 for scaling lists, tiles,
-        WPP and dependent slices, 9c-4 for Main 10 and the range
-        extensions).
+        rest; HEVC: 9c-2b for a change of picture size or unsorted output, 9c-3
+        for scaling lists, tiles, WPP and dependent slices, 9c-4 for Main
+        10 and the range extensions).
     """
 
     def __init__(self, base_path: File, output_path: File, video_path: Union[str, Path],

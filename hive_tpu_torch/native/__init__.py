@@ -2,8 +2,8 @@
 QEM decimation, the JPEG scan decodes (baseline and progressive), the PNG
 unfilter, Telea's inpainting, the MPEG-4 Part 2 VOP decode and encode and
 the H.264 slice decode (I, P and B slices, CAVLC and CABAC), deblocking and encode, with
-its constant tables in ``src/h264_tables.h``, and the HEVC intra picture decode (deblocking
-and SAO included) and encode, with its tables in ``src/hevc_tables.h``; both codecs share
+its constant tables in ``src/h264_tables.h``, and the HEVC picture decode (I, P and B
+slices, deblocking and SAO included) and encode, with its tables in ``src/hevc_tables.h``; both codecs share
 the CABAC engine of ``src/cabac.h``.
 
 Counterpart of ``hive_tpu/native`` (``src/weld.cpp`` and
@@ -234,7 +234,7 @@ def get_native_lib() -> Optional[ctypes.CDLL]:
             ct.POINTER(ct.c_int64),
         ]
 
-        for name in ("hive_hevc_param_ints", "hive_hevc_slice_ints"):
+        for name in ("hive_hevc_param_ints", "hive_hevc_slice_ints", "hive_hevc_col_ints"):
             getattr(lib, name).restype = ct.c_int
             getattr(lib, name).argtypes = []
         lib.hive_hevc_stat_counts.restype = ct.c_int
@@ -242,13 +242,15 @@ def get_native_lib() -> Optional[ctypes.CDLL]:
         lib.hive_hevc_decode_picture.restype = ct.c_int
         lib.hive_hevc_decode_picture.argtypes = [
             ct.c_void_p, ct.c_int, ct.c_void_p, ct.POINTER(ct.c_void_p), ct.c_void_p,
-            ct.POINTER(ct.c_void_p), ct.c_void_p,
+            ct.POINTER(ct.c_void_p), ct.POINTER(ct.c_void_p), ct.c_int, ct.c_void_p, ct.c_void_p,
+            ct.c_void_p,
         ]
         lib.hive_hevc_encode_picture.restype = ct.c_int64
         lib.hive_hevc_encode_picture.argtypes = [
             ct.c_void_p, ct.c_int, ct.c_void_p, ct.c_void_p, ct.c_uint64,
             ct.POINTER(ct.c_void_p), ct.POINTER(ct.c_void_p), ct.POINTER(ct.c_void_p),
             ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_int64, ct.c_void_p, ct.c_void_p,
+            ct.POINTER(ct.c_void_p), ct.c_int, ct.c_void_p,
         ]
 
         lib.hive_png_unfilter.restype = ct.c_int

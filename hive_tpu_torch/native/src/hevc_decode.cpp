@@ -1,36 +1,53 @@
-// HEVC (ITU-T H.265 | ISO/IEC 23008-2) Main profile intra pictures, both
-// ways: one picture's slice segments decoded below their headers as the
+// HEVC (ITU-T H.265 | ISO/IEC 23008-2) Main profile I, P and B pictures,
+// both ways: one picture's slice segments decoded below their headers as the
 // standard specifies (and so as FFmpeg's hevc decoder, and cv2.VideoCapture,
 // decode them), its deblocking and sample adaptive offset, and the matching
 // encode, which writes the test fixtures.
 //
 // The Python side (hive_tpu_torch/video/hevc.py) parses the parameter sets
-// and slice segment headers, refuses what this file does not decode (P and
-// B slices, scaling lists, tiles, WPP, dependent slice segments, depths above
-// 8 bits, chroma other than 4:2:0), and hands hive_hevc_decode_picture each
-// slice's RBSP from the byte after its header. Per coding tree unit: sao()
-// with its merges; the coding quadtree (split_cu_flag's context from the
-// neighbours' depths); each coding unit's cu_transquant_bypass_flag,
-// part_mode (2Nx2N / NxN at the smallest coding block), pcm_flag and its
-// samples, the luma modes by their most probable mode list (8.4.2) and the
-// chroma mode (mode 4: the luma mode; a mode equal to the luma one becomes
-// 34); the transform tree (split_transform_flag, cbf_cb / cbf_cr / cbf_luma,
-// the 4x4 luma blocks' chroma coded with the fourth), cu_qp_delta with the
-// quantisation group's prediction (8.6.1), and residual_coding (9.3.4.2):
-// the last position, coded sub-blocks, the diagonal, horizontal and
-// vertical scans (by intra mode for 4x4 blocks and 8x8 luma), sig_coeff_flag,
-// greater1 / greater2 with their context sets, sign data hiding,
-// coeff_abs_level_remaining with its Rice parameter, transform_skip_flag.
-// Reconstruction: flat dequantisation and the chroma QP table, the 4x4 DST
-// of intra luma, the DCT from 4 to 32 (clipped to 16 bits between its
-// stages), transform skip and transquant bypass; intra sample prediction
-// (8.4.4.2): reference sample availability in z-scan order and by slice,
-// substitution, the [1 2 1] filter and strong intra smoothing, planar, DC,
-// the 33 angles with the inverse-angle projection, the DC / horizontal /
-// vertical edge filters of luma below 32x32. Then the picture's deblocking
-// (8.7.2: transform and coding block edges on the 8x8 grid, bS 2, the strong
-// and normal luma filters, chroma on its 8x8 grid, each slice's disable flag,
-// offsets and slice_loop_filter_across_slices_enabled_flag, PCM with
+// and slice segment headers, refuses what this file does not decode
+// (scaling lists, tiles, WPP, dependent slice
+// segments, depths above 8 bits, chroma other than 4:2:0), keeps the decoded
+// picture buffer and builds each slice's reference picture lists, and hands
+// hive_hevc_decode_picture each slice's RBSP from the byte after its header,
+// the reference pictures' planes and the collocated picture's motion field.
+// Per coding tree unit: sao() with its merges; the coding quadtree
+// (split_cu_flag's context from the neighbours' depths); each coding unit's
+// cu_transquant_bypass_flag, cu_skip_flag, pred_mode_flag and part_mode
+// (2Nx2N / NxN intra; 2NxN, Nx2N, NxN and the four AMP parts inter). Intra:
+// pcm_flag and its samples, the luma modes by their most probable mode list
+// (8.4.2; an inter neighbour counts as DC) and the chroma mode (mode 4: the
+// luma mode; a mode equal to the luma one becomes 34). Inter (8.5.3): each
+// prediction unit's merge_idx (the spatial candidates with the parallel
+// merge level and singleMCLFlag, the temporal one, the combined
+// bi-predictive and zero ones; 8x4 / 4x8 bi-prediction cut to list 0) or its
+// inter_pred_idc, ref_idx, mvd and mvp flag (AMVP: the spatial candidates,
+// scaled by POC distance where they name another picture, then the temporal
+// one from the collocated picture's 16x16 field, with its long-term rules),
+// its samples interpolated (8-tap luma, 4-tap chroma, 14-bit intermediates,
+// reference samples clamped to the picture) and weighted (default or
+// explicit), then rqt_root_cbf. The transform tree (split_transform_flag
+// with interSplitFlag and each prediction mode's depth, cbf_cb / cbf_cr /
+// cbf_luma, inferred at an inter tree's root, the 4x4 luma blocks' chroma
+// coded with the fourth), cu_qp_delta with the quantisation group's
+// prediction (8.6.1), and residual_coding (9.3.4.2): the last position, coded
+// sub-blocks, the diagonal, horizontal and vertical scans (by intra mode for
+// 4x4 blocks and 8x8 luma), sig_coeff_flag, greater1 / greater2 with their
+// context sets, sign data hiding, coeff_abs_level_remaining with its Rice
+// parameter, transform_skip_flag. Reconstruction: flat dequantisation and
+// the chroma QP table, the 4x4 DST of intra luma, the DCT from 4 to 32
+// (clipped to 16 bits between its stages), transform skip and transquant
+// bypass; intra sample prediction (8.4.4.2): reference sample availability
+// in z-scan order and by slice, substitution, the [1 2 1] filter and strong
+// intra smoothing, planar, DC, the 33 angles with the inverse-angle
+// projection, the DC / horizontal / vertical edge filters of luma below
+// 32x32. The contexts of P and B slices take initType 1 or 2 as
+// cabac_init_flag swaps them. Then the picture's deblocking (8.7.2:
+// transform, coding and prediction block edges on the 8x8 grid; bS 2 by an
+// intra block, 1 by a luma block with coefficients, different references or
+// vectors 4 quarter samples apart; the strong and normal luma filters,
+// chroma at bS 2 on its 8x8 grid, each slice's disable flag, offsets and
+// slice_loop_filter_across_slices_enabled_flag, PCM with
 // pcm_loop_filter_disabled_flag and transquant bypass left alone) and SAO
 // (8.7.3: band offset and the four edge classes on the deblocked picture),
 // both run CTB by CTB in the order of FFmpeg's decoder, whose departures
@@ -38,7 +55,8 @@
 //
 // The encoder (hive_hevc_encode_picture) codes the same syntax through the
 // same functions with cabac::Encoder: a plan decides each choice (seeded
-// choices of every path above, or the best intra mode for a real picture),
+// choices of every path above, or for a real picture the best intra mode
+// and the merge candidate or searched vector nearest the target),
 // quantises the true difference to the target and reconstructs exactly as
 // the decoder does. It counts each path it writes and each context it
 // codes. This is host code, not a device kernel.
@@ -116,13 +134,32 @@ enum Param {
     kWidth, kHeight, kCtbLog2, kMinCbLog2, kMinTbLog2, kMaxTbLog2, kMaxDepthIntra,
     kPcmEnabled, kPcmBitsY, kPcmBitsC, kPcmMinLog2, kPcmMaxLog2, kPcmNoFilter,
     kSaoEnabled, kStrongSmoothing, kSignHiding, kTransformSkip, kQpDeltaEnabled,
-    kQpDeltaDepth, kCbOffset, kCrOffset, kBypassEnabled, kParamInts
+    kQpDeltaDepth, kCbOffset, kCrOffset, kBypassEnabled,
+    kMaxDepthInter, kAmpEnabled, kParMrgLevel, kPoc, kParamInts
 };
 
+// Each slice's parameters: the I slice's, then what P and B slices add and,
+// for each list and each of its kMaxRefs entries, kRefInts (RefEntry).
+const int kMaxRefs = 16, kRefInts = 9;
 enum SliceParam {
     kSliceAddr, kSliceQp, kSaoLuma, kSaoChroma, kSliceCbOffset, kSliceCrOffset, kDeblockOff,
-    kBetaDiv2, kTcDiv2, kAcross, kSliceCtbs, kSliceInts
+    kBetaDiv2, kTcDiv2, kAcross, kSliceCtbs,
+    kSliceType, kNumRefL0, kNumRefL1, kMvdL1Zero, kInitType, kTmvp, kColFromL0, kColRefIdx,
+    kMaxMerge, kWeighted, kLumaDenom, kChromaDenom, kSliceRefs,
+    kSliceInts = kSliceRefs + 2 * kMaxRefs * kRefInts
 };
+enum SliceType { kSliceB = 0, kSliceP = 1, kSliceI = 2 };
+
+// The motion field a picture leaves for the temporal candidates of later
+// ones (8.5.3.2.8): one record of kColInts per 16x16 block, its top-left
+// 4x4 block's prediction flags (0: intra), the two vectors, the POC of each
+// list's reference picture and whether it was a long-term reference.
+enum ColField { kColFlags, kColMv0x, kColMv0y, kColMv1x, kColMv1y, kColPoc0, kColPoc1, kColLt0,
+                kColLt1, kColInts };
+
+// PartMode (Table 7-10).
+enum Part { kPart2Nx2N, kPart2NxN, kPartNx2N, kPartNxN, kPart2NxnU, kPart2NxnD, kPartnLx2N,
+            kPartnRx2N };
 
 enum Status {
     kOk = 0,
@@ -135,9 +172,20 @@ enum Status {
     kErrShort = -7,
 };
 
+// One entry of a reference picture list: the picture's slot among the
+// reference planes passed in, its POC, whether it is a long-term reference,
+// and its explicit weights and offsets (luma, Cb, Cr; 8.5.3.3.4.3).
+struct RefEntry {
+    int slot, poc, lt, w[3], o[3];
+};
+
 struct Slice {
     int addr, qp, sao_luma, sao_chroma, cb_offset, cr_offset, deblock_off, beta, tc, across;
     int ctbs;   // the encoder's count of CTUs; the decoder reads end_of_slice_segment_flag
+    int type, nref[2], mvd_l1_zero, init_type, tmvp, col_from_l0, col_ref, max_merge, weighted;
+    int denom[2];                     // luma_log2_weight_denom, ChromaLog2WeightDenom
+    bool no_backward;                 // NoBackwardPredFlag (8.5.3.2.9)
+    RefEntry ref[2][kMaxRefs];
 };
 
 // What the encoder counts (hevc.py's STAT_NAMES), then each context's
@@ -167,9 +215,20 @@ enum Stat {
     kStatCsbfZero,
     kStatChromaTb4At3,
     kStatCuQpPred,
+    // P and B slices.
+    kStatSkip, kStatIntraInInter,
+    kStatPart2NxN, kStatPartNx2N, kStatPartNxN, kStatPart2NxnU, kStatPart2NxnD, kStatPartnLx2N,
+    kStatPartnRx2N,
+    kStatMergeIdx, kStatAmvp = kStatMergeIdx + 5, kStatPredL0, kStatPredL1, kStatPredBi,
+    kStatBiTo8x4, kStatMvp1, kStatMvdL1Zero, kStatRefIdx1, kStatRefIdxBypass, kStatMvdEscape,
+    kStatMergeTemporal, kStatMergeCombined, kStatMergeZero, kStatAmvpTemporal, kStatTmvpScaled,
+    kStatAmvpScaled, kStatWeightedUni, kStatWeightedBi, kStatRootCbf0, kStatInterSplit,
+    kStatCbfLumaInferred, kStatMcFracBoth, kStatMcOutside, kStatSingleMcl, kStatMerExcluded,
+    kStatInterBypass,
     kStatNamed,
+    // Each context's decisions under each initType.
     kStatContexts = kStatNamed,
-    kStatTotal = kStatNamed + kNumContexts,
+    kStatTotal = kStatNamed + 3 * kNumContexts,
 };
 
 // What the decoder's loop filters count.
@@ -191,11 +250,51 @@ struct SaoParams {
     int8_t offset[3][5];   // SaoOffsetVal
 };
 
+// A prediction unit's motion (8.5.3): the vectors (quarter luma samples)
+// and reference indices of lists 0 and 1, and its prediction flags (bit l:
+// list l used; 0: an intra block).
+struct Mv {
+    int x = 0, y = 0;
+    bool operator==(const Mv& o) const { return x == o.x && y == o.y; }
+    bool operator!=(const Mv& o) const { return !(*this == o); }
+};
+
+struct Mvf {
+    Mv mv[2];
+    int8_t ref[2] = {0, 0};
+    uint8_t pf = 0;
+};
+
+// The same motion vectors and reference indices (of the lists used).
+inline bool same_motion(const Mvf& a, const Mvf& b) {
+    if (a.pf != b.pf) return false;
+    for (int l = 0; l < 2; ++l)
+        if ((a.pf >> l & 1) && (a.mv[l] != b.mv[l] || a.ref[l] != b.ref[l])) return false;
+    return true;
+}
+
+// A vector of 16 bits, as uLX wraps it (8.5.3.2.1).
+inline int wrap16(int v) { return static_cast<int16_t>(static_cast<uint16_t>(v)); }
+
+// The scaling of a vector by the ratio of two POC distances (8-179 to 8-183).
+inline Mv scale_mv(Mv mv, int td, int tb) {
+    td = clip3(-128, 127, td);
+    tb = clip3(-128, 127, tb);
+    const int tx = (16384 + std::abs(td) / 2) / td;
+    const int f = clip3(-4096, 4095, (tb * tx + 32) >> 6);
+    auto one = [&](int v) {
+        const int p = f * v;
+        return clip3(-32768, 32767, sign(p) * ((std::abs(p) + 127) >> 8));
+    };
+    return Mv{one(mv.x), one(mv.y)};
+}
+
 struct Picture {
     int w, h, ctb_log2, ctbs_w, ctbs_h, w4, h4;
     uint8_t* plane[3];
     int stride[3];
-    std::vector<uint8_t> ipm, depth, flags;
+    std::vector<uint8_t> ipm, depth, flags, skip, cbf;
+    std::vector<Mvf> mvf;
     std::vector<int8_t> qp;
     std::vector<uint32_t> zs;          // z-scan order of each 4x4 block
     std::vector<int> slice_of;         // slice index of each CTB (-1: not decoded)
@@ -215,6 +314,9 @@ struct Picture {
         ipm.assign(w4 * h4, 1);
         depth.assign(w4 * h4, 0);
         flags.assign(w4 * h4, 0);
+        skip.assign(w4 * h4, 0);
+        cbf.assign(w4 * h4, 0);
+        mvf.assign(w4 * h4, Mvf{});
         qp.assign(w4 * h4, 0);
         zs.resize(w4 * h4);
         const int per = ctb_log2 - 2;
@@ -237,10 +339,12 @@ struct Picture {
         return slice_of[ctb_at(xn, yn)] == slice_of[ctb_at(xc, yc)];
     }
     template <class T>
-    void fill4(std::vector<T>& a, int x0, int y0, int size, T v) {
-        const int n = std::max(1, size >> 2);
-        for (int j = 0; j < n && (y0 >> 2) + j < h4; ++j)
-            for (int i = 0; i < n && (x0 >> 2) + i < w4; ++i) a[at4(x0, y0) + j * w4 + i] = v;
+    void fill4(std::vector<T>& a, int x0, int y0, int size, T v) { fill4(a, x0, y0, size, size, v); }
+    template <class T>
+    void fill4(std::vector<T>& a, int x0, int y0, int width, int height, T v) {
+        const int nw = std::max(1, width >> 2), nh = std::max(1, height >> 2);
+        for (int j = 0; j < nh && (y0 >> 2) + j < h4; ++j)
+            for (int i = 0; i < nw && (x0 >> 2) + i < w4; ++i) a[at4(x0, y0) + j * w4 + i] = v;
     }
     void mark_edges(int x0, int y0, int size) {
         const int n = std::max(1, size >> 2);
@@ -484,6 +588,60 @@ struct Recon {
     }
 };
 
+// Motion compensation (8.5.3.3.3): the luma (8-tap, quarter samples) or
+// chroma (4-tap, eighth samples) interpolation of a w x h block at (x0, y0)
+// of a pw x ph reference plane displaced by (mvx, mvy), at 14 bits, each
+// reference sample's coordinates clamped to the picture.
+void interpolate(const uint8_t* ref, int pw, int ph, int x0, int y0, int w, int h, int mvx, int mvy,
+                 bool chroma, int16_t* out, int64_t* stats) {
+    const int frac_bits = chroma ? 3 : 2, taps = chroma ? 4 : 8, before = taps / 2 - 1;
+    const int fx = mvx & ((1 << frac_bits) - 1), fy = mvy & ((1 << frac_bits) - 1);
+    const int xi = x0 + (mvx >> frac_bits) - before, yi = y0 + (mvy >> frac_bits) - before;
+    const int ww = w + taps - 1, wh = h + taps - 1;
+    uint8_t win[(64 + 7) * (64 + 7)];
+    if (stats) {
+        if (xi < 0 || yi < 0 || xi + ww > pw || yi + wh > ph) ++stats[kStatMcOutside];
+        if (fx && fy && !chroma) ++stats[kStatMcFracBoth];
+    }
+    for (int j = 0; j < wh; ++j) {
+        const uint8_t* row = ref + static_cast<size_t>(clip3(0, ph - 1, yi + j)) * pw;
+        for (int i = 0; i < ww; ++i) win[j * ww + i] = row[clip3(0, pw - 1, xi + i)];
+    }
+    auto tap = [&](int f, int k) { return chroma ? kChromaFilter[f][k] : kLumaFilter[f][k]; };
+    if (!fx && !fy) {
+        for (int j = 0; j < h; ++j)
+            for (int i = 0; i < w; ++i) out[j * w + i] = static_cast<int16_t>(win[(j + before) * ww + i + before] << 6);
+    } else if (!fy) {
+        for (int j = 0; j < h; ++j)
+            for (int i = 0; i < w; ++i) {
+                int v = 0;
+                for (int k = 0; k < taps; ++k) v += tap(fx, k) * win[(j + before) * ww + i + k];
+                out[j * w + i] = static_cast<int16_t>(v);
+            }
+    } else if (!fx) {
+        for (int j = 0; j < h; ++j)
+            for (int i = 0; i < w; ++i) {
+                int v = 0;
+                for (int k = 0; k < taps; ++k) v += tap(fy, k) * win[(j + k) * ww + i + before];
+                out[j * w + i] = static_cast<int16_t>(v);
+            }
+    } else {
+        int16_t tmp[(64 + 7) * 64];
+        for (int j = 0; j < wh; ++j)
+            for (int i = 0; i < w; ++i) {
+                int v = 0;
+                for (int k = 0; k < taps; ++k) v += tap(fx, k) * win[j * ww + i + k];
+                tmp[j * w + i] = static_cast<int16_t>(v);
+            }
+        for (int j = 0; j < h; ++j)
+            for (int i = 0; i < w; ++i) {
+                int v = 0;
+                for (int k = 0; k < taps; ++k) v += tap(fy, k) * tmp[(j + k) * w + i];
+                out[j * w + i] = static_cast<int16_t>(v >> 6);
+            }
+    }
+}
+
 // The scan of a transform block (7.4.9.11): by intra mode for 4x4 blocks
 // and 8x8 luma.
 int scan_idx(int log2, int c, int mode) {
@@ -503,10 +661,20 @@ struct TuNode {
     int32_t coeff[3];           // index into CuPlan::levels, -1: none
 };
 
+// A prediction unit's choices: merge and its index, or the lists
+// (inter_pred_idc: 1 L0, 2 L1, 3 both), each list's reference index, the
+// vector wanted and the predictor chosen (mvp_lX_flag).
+struct PuPlan {
+    int merge = 0, merge_idx = 0, pf = 1, ref[2] = {0, 0}, mvp[2] = {0, 0};
+    Mv mv[2];
+};
+
 struct CuPlan {
     int bypass, nxn, pcm, chroma_mode;
     int modes[4];
     int qp_delta;               // coded when a transform unit has a coefficient
+    int intra = 1, skip = 0, part = kPart2Nx2N, root = 0;
+    PuPlan pu[4];
     std::vector<TuNode> nodes;  // pre-order
     std::vector<int32_t> levels;
     size_t cursor = 0;
@@ -527,11 +695,42 @@ struct Rng {
 
 // The plan's knobs (hevc.py's KNOBS).
 enum Knob {
-    kKnobBest,           // 1: the best intra mode by SAD (a real picture), 0: seeded
+    kKnobBest,           // 1: the best intra mode / motion by SAD (a real picture), 0: seeded
     kKnobSplitCu, kKnobBypass, kKnobPcm, kKnobNxN, kKnobSplitTu, kKnobTs, kKnobQpDelta,
     kKnobDeadZone, kKnobChroma4, kKnobMaxLevel,
+    // P and B slices: the shares (per mille) of inter coding units, skipped
+    // ones, parts other than 2Nx2N, AMP parts among those, merged prediction
+    // units and bi-prediction; the vectors' range (quarter samples) and the
+    // best-motion search's (whole samples).
+    kKnobInter, kKnobSkip, kKnobPart, kKnobAmp, kKnobMerge, kKnobBi, kKnobMvRange, kKnobSearch,
     kKnobInts
 };
+
+// The prediction units of a coding unit of `size` in PartMode `part`:
+// (x, y, w, h) of each, relative to the coding unit; returns their count.
+int pu_boxes(int part, int size, int boxes[4][4]) {
+    const int half = size >> 1, quarter = size >> 2;
+    int n = 0;
+    auto box = [&](int x, int y, int w, int h) {
+        boxes[n][0] = x;
+        boxes[n][1] = y;
+        boxes[n][2] = w;
+        boxes[n++][3] = h;
+    };
+    switch (part) {
+        case kPart2Nx2N: box(0, 0, size, size); break;
+        case kPart2NxN: box(0, 0, size, half); box(0, half, size, half); break;
+        case kPartNx2N: box(0, 0, half, size); box(half, 0, half, size); break;
+        case kPart2NxnU: box(0, 0, size, quarter); box(0, quarter, size, size - quarter); break;
+        case kPart2NxnD: box(0, 0, size, size - quarter); box(0, size - quarter, size, quarter); break;
+        case kPartnLx2N: box(0, 0, quarter, size); box(quarter, 0, size - quarter, size); break;
+        case kPartnRx2N: box(0, 0, size - quarter, size); box(size - quarter, 0, quarter, size); break;
+        default:
+            box(0, 0, half, half); box(half, 0, half, half);
+            box(0, half, half, half); box(half, half, half, half);
+    }
+    return n;
+}
 
 // ---------------------------------------------------------------------------
 // The coding tree layer, for the decoder (E = cabac::Decoder) and the
@@ -553,11 +752,20 @@ struct Coder {
     Rng* rng = nullptr;
     CuPlan plan;
 
+    // P and B slices: the reference pictures' planes (three a slot), the
+    // collocated picture's motion field (kColInts a 16x16 block; null: no
+    // temporal candidates).
+    const uint8_t* const* refs = nullptr;
+    const int32_t* col = nullptr;
+
     int min_cb, min_tb, max_tb, qg_log2;
     // Quantisation group state (8.6.1).
     int qp_prev, qp_pred = 0, qp_y, qp_delta_val = 0;
     bool qp_delta_coded = false;
     int cu_chroma_mode = 1, cu_bypass = 0;
+    // The coding unit's prediction mode, PartMode, whether its first
+    // prediction unit merges, and interSplitFlag's condition.
+    bool cu_intra = true, cu_merge0 = false, cu_inter_split = false;
     int status = kOk;
 
     Coder(Picture& pic_, const int32_t* p_, const Slice& s_, int index)
@@ -578,10 +786,15 @@ struct Coder {
         return out;
     }
 
+    void count(int k) {
+        if (stats) ++stats[k];
+    }
+
     void init_contexts() {
         const int qp = clip3(0, 51, s.qp);
+        const uint8_t* init = kInitValues[s.init_type];
         for (int k = 0; k < kNumContexts; ++k) {
-            const int m = (kInitValues[k] >> 4) * 5 - 45, n = ((kInitValues[k] & 15) << 3) - 16;
+            const int m = (init[k] >> 4) * 5 - 45, n = ((init[k] & 15) << 3) - 16;
             const int pre = clip3(1, 126, ((m * qp) >> 4) + n);
             e.state[k] = static_cast<uint8_t>(pre <= 63 ? (63 - pre) << 1 : (pre - 64) << 1 | 1);
         }
@@ -654,7 +867,10 @@ struct Coder {
             int inc = 0;
             if (pic.available(x0, y0, x0 - 1, y0) && depth_at(x0 - 1, y0) > depth) ++inc;
             if (pic.available(x0, y0, x0, y0 - 1) && depth_at(x0, y0 - 1) > depth) ++inc;
-            split = bin(kCtxSplitCu + inc, kEnc ? rng->chance(knobs[kKnobSplitCu]) : 0);
+            int want = 0;
+            if (kEnc)   // a real picture's inter units are 16x16
+                want = knobs[kKnobBest] && s.type != kSliceI ? log2 > 4 : rng->chance(knobs[kKnobSplitCu]);
+            split = bin(kCtxSplitCu + inc, want);
         } else {
             split = log2 > min_cb;
         }
@@ -721,24 +937,60 @@ struct Coder {
 
         if (kEnc) plan_cu(x0, y0, log2);
         cu_bypass = p[kBypassEnabled] ? bin(kCtxBypass, kEnc ? plan.bypass : 0) : 0;
-        int nxn = 0;
-        if (log2 == min_cb) nxn = !bin(kCtxPartMode, kEnc ? !plan.nxn : 0);
+        int skip = 0;
+        if (s.type != kSliceI) {
+            int inc = 0;
+            if (pic.available(x0, y0, x0 - 1, y0) && pic.skip[pic.at4(x0 - 1, y0)]) ++inc;
+            if (pic.available(x0, y0, x0, y0 - 1) && pic.skip[pic.at4(x0, y0 - 1)]) ++inc;
+            skip = bin(kCtxSkip + inc, kEnc ? plan.skip : 0);
+        }
+        pic.fill4(pic.skip, x0, y0, size, static_cast<uint8_t>(skip));
+        int intra = 1;
+        if (!skip && s.type != kSliceI) intra = bin(kCtxPredMode, kEnc ? plan.intra : 0);
+        cu_intra = intra && !skip;
+        int part = kPart2Nx2N;
+        if (!skip && (!intra || log2 == min_cb)) part = part_mode(intra, log2);
+        const int nxn = intra && part == kPartNxN;
         int pcm = 0;
-        if (!nxn && p[kPcmEnabled] && log2 >= p[kPcmMinLog2] && log2 <= p[kPcmMaxLog2])
+        if (cu_intra && !nxn && p[kPcmEnabled] && log2 >= p[kPcmMinLog2] && log2 <= p[kPcmMaxLog2])
             pcm = e.terminate(kEnc ? plan.pcm : 0);
         if (kEnc) {
             stats[kStatBypass] += cu_bypass;
             stats[kStatNxN] += nxn;
+            if (s.type != kSliceI && cu_intra) ++stats[kStatIntraInInter];
+            if (!cu_intra && cu_bypass) ++stats[kStatInterBypass];
         }
         uint8_t cu_flags = 0;
         if (pcm) cu_flags |= kFlagPcm | (p[kPcmNoFilter] ? kFlagNoFilter : 0);
         if (cu_bypass) cu_flags |= kFlagNoFilter;
         pic.fill4(pic.flags, x0, y0, size, cu_flags);
         pic.mark_edges(x0, y0, size);
-        if (pcm) {
+        if (!cu_intra) {
+            // Inter: the prediction units, then the residual's quadtree.
+            pic.fill4(pic.ipm, x0, y0, size, uint8_t(1));
+            if (skip) {
+                count(kStatSkip);
+                prediction_unit(x0, y0, log2, depth, 0, x0, y0, size, size, kPart2Nx2N, true);
+            } else {
+                if (kEnc && part != kPart2Nx2N) ++stats[kStatPart2NxN + part - 1];
+                int boxes[4][4];
+                const int n = pu_boxes(part, size, boxes);
+                for (int i = 0; i < n && !status; ++i)
+                    prediction_unit(x0, y0, log2, depth, i, x0 + boxes[i][0], y0 + boxes[i][1], boxes[i][2],
+                                    boxes[i][3], part, false);
+                int root = 1;
+                if (!(part == kPart2Nx2N && cu_merge0)) root = bin(kCtxRqtRootCbf, kEnc ? plan.root : 0);
+                if (kEnc && !root) ++stats[kStatRootCbf0];
+                cu_inter_split = p[kMaxDepthInter] == 0 && part != kPart2Nx2N;
+                if (root)
+                    transform_tree(x0, y0, x0, y0, log2, 0, 0, 0, p[kMaxDepthInter], 0, 0);
+            }
+        } else if (pcm) {
+            pic.fill4(pic.mvf, x0, y0, size, Mvf{});
             pcm_samples(x0, y0, log2);
             pic.fill4(pic.ipm, x0, y0, size, uint8_t(1));
         } else {
+            pic.fill4(pic.mvf, x0, y0, size, Mvf{});
             const int parts = nxn ? 4 : 1, pb = nxn ? size >> 1 : size;
             int prev[4], mode[4], mpm_want[4] = {}, rem_want[4] = {};
             if (kEnc) {
@@ -790,10 +1042,376 @@ struct Coder {
                 cu_chroma_mode = 34;
                 if (kEnc) ++stats[kStatChroma34];
             }
+            cu_inter_split = false;
             transform_tree(x0, y0, x0, y0, log2, 0, 0, nxn, p[kMaxDepthIntra] + nxn, 0, 0);
         }
         pic.fill4(pic.qp, x0, y0, size, static_cast<int8_t>(qp_y));
         qp_prev = qp_y;
+    }
+
+    // part_mode (9.3.3.7, Table 9-43; FFmpeg's contexts: the AMP bin after
+    // the first two takes the fourth).
+    int part_mode(int intra, int log2) {
+        const int v = kEnc ? plan.part : 0;
+        if (bin(kCtxPartMode, v == kPart2Nx2N)) return kPart2Nx2N;
+        if (intra) return kPartNxN;
+        if (log2 == min_cb) {
+            if (bin(kCtxPartModeInter, v == kPart2NxN)) return kPart2NxN;
+            if (log2 == 3) return kPartNx2N;
+            return bin(kCtxPartModeInter + 1, v == kPartNx2N) ? kPartNx2N : kPartNxN;
+        }
+        const bool horizontal = v == kPart2NxN || v == kPart2NxnU || v == kPart2NxnD;
+        if (!p[kAmpEnabled]) return bin(kCtxPartModeInter, horizontal) ? kPart2NxN : kPartNx2N;
+        if (bin(kCtxPartModeInter, horizontal)) {
+            if (bin(kCtxPartModeInter + 2, v == kPart2NxN)) return kPart2NxN;
+            return byp(v == kPart2NxnD) ? kPart2NxnD : kPart2NxnU;
+        }
+        if (bin(kCtxPartModeInter + 2, v == kPartNx2N)) return kPartNx2N;
+        return byp(v == kPartnRx2N) ? kPartnRx2N : kPartnLx2N;
+    }
+
+    // --- Inter prediction (7.3.8.6, 8.5.3) ----------------------------------------
+
+    // The prediction unit at (xp, yp), w x h, of the coding unit at (xc, yc)
+    // of size 1 << log2: its syntax, its motion derived and stored, and its
+    // samples predicted into the planes.
+    void prediction_unit(int xc, int yc, int log2, int depth, int idx, int xp, int yp, int w, int h,
+                         int part, bool skip) {
+        const PuPlan* want = kEnc ? &plan.pu[idx] : nullptr;
+        int merge = skip;
+        if (!skip) merge = bin(kCtxMergeFlag, kEnc ? want->merge : 0);
+        if (idx == 0) cu_merge0 = merge;
+        Mvf m;
+        if (merge) {
+            int k = 0;
+            const int v = kEnc ? want->merge_idx : 0;
+            while (k < s.max_merge - 1 && (k ? byp(k < v) : bin(kCtxMergeIdx, k < v))) ++k;
+            const int kind = merge_candidate(xc, yc, log2, xp, yp, w, h, idx, part, k, m);
+            if (kEnc) {
+                ++stats[kStatMergeIdx + k];
+                if (kind) ++stats[kStatMergeTemporal + kind - 1];
+            }
+        } else {
+            int pf = 1;
+            if (s.type == kSliceB) {
+                const int v = kEnc ? want->pf : 0;
+                if (w + h != 12 && bin(kCtxInterPred + depth, v == 3))
+                    pf = 3;
+                else
+                    pf = bin(kCtxInterPred + 4, v == 2) ? 2 : 1;
+            }
+            Mv mvd[2];
+            int flag[2] = {0, 0};
+            m.pf = static_cast<uint8_t>(pf);
+            for (int l = 0; l < 2; ++l) {
+                if (!(pf >> l & 1)) continue;
+                int k = 0;
+                const int v = kEnc ? want->ref[l] : 0;
+                while (k < s.nref[l] - 1 && (k < 2 ? bin(kCtxRefIdx + k, k < v) : byp(k < v))) ++k;
+                m.ref[l] = static_cast<int8_t>(k);
+                if (kEnc) {
+                    if (k) ++stats[kStatRefIdx1];
+                    if (k > 2) ++stats[kStatRefIdxBypass];
+                }
+                Mv cand[2];
+                if (kEnc) {
+                    // The planner's vector less the predictor it picked.
+                    amvp(xc, yc, log2, xp, yp, w, h, idx, l, k, cand);
+                    mvd[l] = Mv{want->mv[l].x - cand[want->mvp[l]].x, want->mv[l].y - cand[want->mvp[l]].y};
+                }
+                if (l == 1 && s.mvd_l1_zero && pf == 3) {
+                    if (kEnc && mvd[1] != Mv{}) status = kErrArgs;
+                    mvd[1] = Mv{};
+                    count(kStatMvdL1Zero);
+                } else {
+                    mvd_coding(mvd[l]);
+                }
+                flag[l] = bin(kCtxMvpFlag, kEnc ? want->mvp[l] : 0);
+                if (kEnc && flag[l]) ++stats[kStatMvp1];
+            }
+            for (int l = 0; l < 2; ++l) {
+                if (!(pf >> l & 1)) continue;
+                Mv cand[2];
+                amvp(xc, yc, log2, xp, yp, w, h, idx, l, m.ref[l], cand);
+                m.mv[l] = Mv{wrap16(cand[flag[l]].x + mvd[l].x), wrap16(cand[flag[l]].y + mvd[l].y)};
+            }
+            if (kEnc) {
+                ++stats[kStatAmvp];
+                ++stats[kStatPredL0 + pf - 1];
+            }
+        }
+        pic.fill4(pic.mvf, xp, yp, w, h, m);
+        predict_pu(xp, yp, w, h, m);
+    }
+
+    void mvd_coding(Mv& mvd) {
+        int v[2] = {mvd.x, mvd.y}, g0[2], g1[2] = {0, 0};
+        for (int k = 0; k < 2; ++k) g0[k] = bin(kCtxMvdGt0, kEnc ? v[k] != 0 : 0);
+        for (int k = 0; k < 2; ++k)
+            if (g0[k]) g1[k] = bin(kCtxMvdGt1, kEnc ? std::abs(v[k]) > 1 : 0);
+        for (int k = 0; k < 2; ++k) {
+            if (!g0[k]) {
+                v[k] = 0;
+                continue;
+            }
+            int a = 1;
+            if (g1[k]) {
+                a = 2 + exp_golomb(1, kEnc ? std::abs(v[k]) - 2 : 0);
+                if (kEnc) ++stats[kStatMvdEscape];
+            }
+            v[k] = byp(kEnc ? v[k] < 0 : 0) ? -a : a;
+        }
+        mvd = Mv{v[0], v[1]};
+    }
+
+    // k-th order Exp-Golomb, bypass (9.3.3.3).
+    int exp_golomb(int k, int v) {
+        if (kEnc) {
+            int rest = v;
+            while (rest >= (1 << k)) {
+                byp(1);
+                rest -= 1 << k;
+                ++k;
+            }
+            byp(0);
+            bits(k, rest);
+            return v;
+        }
+        int out = 0;
+        while (byp(0)) {
+            out += 1 << k;
+            if (++k > 30) {
+                status = kErrCoefficient;
+                return 0;
+            }
+        }
+        return out + bits(k, 0);
+    }
+
+    const Mvf& motion(int x, int y) const { return pic.mvf[pic.at4(x, y)]; }
+    int ref_poc(int l, int idx) const { return s.ref[l][idx].poc; }
+
+    // 6.4.2: the availability of a prediction block's neighbour (xn, yn).
+    bool pb_available(int xc, int yc, int nc, int xp, int yp, int w, int h, int idx, int xn, int yn) const {
+        bool avail;
+        if (xc <= xn && yc <= yn && xn < xc + nc && yn < yc + nc)
+            avail = !((w << 1) == nc && (h << 1) == nc && idx == 1 && yc + h <= yn && xc + w > xn);
+        else
+            avail = pic.available(xp, yp, xn, yn);
+        return avail && motion(xn, yn).pf != 0;
+    }
+
+    // The merge candidate merge_idx (8.5.3.2.2 - 8.5.3.2.5) into `out`;
+    // returns its kind: 0 spatial, 1 temporal, 2 combined bi-predictive, 3
+    // zero.
+    int merge_candidate(int xc, int yc, int log2, int xp, int yp, int w, int h, int idx, int part,
+                        int merge_idx, Mvf& out) {
+        const int nc = 1 << log2, w_orig = w, h_orig = h;
+        const int mer = p[kParMrgLevel];
+        if (mer > 2 && nc == 8) {       // singleMCLFlag
+            xp = xc;
+            yp = yc;
+            w = h = nc;
+            idx = 0;
+            count(kStatSingleMcl);
+        }
+        Mvf list[5];
+        int kinds[5] = {}, n = 0;
+        auto same_mer = [&](int xn, int yn) {
+            const bool same = (xp >> mer) == (xn >> mer) && (yp >> mer) == (yn >> mer);
+            if (same && pic.available(xp, yp, xn, yn) && motion(xn, yn).pf) count(kStatMerExcluded);
+            return same;
+        };
+        auto avail = [&](int xn, int yn) {
+            return !same_mer(xn, yn) && pb_available(xc, yc, nc, xp, yp, w, h, idx, xn, yn);
+        };
+        const int xa1 = xp - 1, ya1 = yp + h - 1, xb1 = xp + w - 1, yb1 = yp - 1;
+        const bool a1 = avail(xa1, ya1) && !(idx == 1 && (part == kPartNx2N || part == kPartnLx2N ||
+                                                          part == kPartnRx2N));
+        if (a1) list[n++] = motion(xa1, ya1);
+        const bool b1 = avail(xb1, yb1) && !(idx == 1 && (part == kPart2NxN || part == kPart2NxnU ||
+                                                          part == kPart2NxnD));
+        if (b1 && !(a1 && same_motion(motion(xa1, ya1), motion(xb1, yb1)))) list[n++] = motion(xb1, yb1);
+        const int xb0 = xp + w, yb0 = yp - 1;
+        if (avail(xb0, yb0) && !(b1 && same_motion(motion(xb1, yb1), motion(xb0, yb0))))
+            list[n++] = motion(xb0, yb0);
+        const int xa0 = xp - 1, ya0 = yp + h;
+        if (avail(xa0, ya0) && !(a1 && same_motion(motion(xa1, ya1), motion(xa0, ya0))))
+            list[n++] = motion(xa0, ya0);
+        const int xb2 = xp - 1, yb2 = yp - 1;
+        if (n != 4 && avail(xb2, yb2) && !(a1 && same_motion(motion(xa1, ya1), motion(xb2, yb2))) &&
+            !(b1 && same_motion(motion(xb1, yb1), motion(xb2, yb2))))
+            list[n++] = motion(xb2, yb2);
+        if (s.tmvp && n <= merge_idx) {
+            Mvf c;
+            if (temporal(xp, yp, w, h, 0, 0, c.mv[0])) c.pf |= 1;
+            if (s.type == kSliceB && temporal(xp, yp, w, h, 0, 1, c.mv[1])) c.pf |= 2;
+            if (c.pf) {
+                kinds[n] = 1;
+                list[n++] = c;
+            }
+        }
+        const int orig = n, max = s.max_merge;
+        if (s.type == kSliceB && orig > 1 && orig < max && n <= merge_idx) {
+            static const int kL0[12] = {0, 1, 0, 2, 1, 2, 0, 3, 1, 3, 2, 3};
+            static const int kL1[12] = {1, 0, 2, 0, 2, 1, 3, 0, 3, 1, 3, 2};
+            for (int k = 0; k < orig * (orig - 1) && n < max; ++k) {
+                const Mvf &a = list[kL0[k]], &b = list[kL1[k]];
+                if ((a.pf & 1) && (b.pf & 2) &&
+                    (ref_poc(0, a.ref[0]) != ref_poc(1, b.ref[1]) || a.mv[0] != b.mv[1])) {
+                    Mvf c;
+                    c.pf = 3;
+                    c.mv[0] = a.mv[0];
+                    c.ref[0] = a.ref[0];
+                    c.mv[1] = b.mv[1];
+                    c.ref[1] = b.ref[1];
+                    kinds[n] = 2;
+                    list[n++] = c;
+                }
+            }
+        }
+        const int refs = s.type == kSliceP ? s.nref[0] : std::min(s.nref[0], s.nref[1]);
+        for (int zero = 0; n < max; ++zero) {
+            Mvf c;
+            c.pf = s.type == kSliceP ? 1 : 3;
+            c.ref[0] = c.ref[1] = static_cast<int8_t>(zero < refs ? zero : 0);
+            kinds[n] = 3;
+            list[n++] = c;
+        }
+        out = list[merge_idx];
+        if (out.pf == 3 && w_orig + h_orig == 12) {
+            out.pf = 1;
+            count(kStatBiTo8x4);
+        }
+        return kinds[merge_idx];
+    }
+
+    // The collocated vector of list X's refIdx for the block at (x, y) of the
+    // collocated picture's field (8.5.3.2.9): false when none.
+    bool col_vector(int x, int y, int ref_idx, int X, Mv& out) {
+        const int w16 = (pic.w + 15) >> 4;
+        const int32_t* c = col + (static_cast<size_t>(y >> 4) * w16 + (x >> 4)) * kColInts;
+        const int pf = c[kColFlags];
+        if (!pf) return false;
+        const int list = !(pf & 1) ? 1 : (pf == 1 ? 0 : (s.no_backward ? X : s.col_from_l0));
+        const RefEntry& cur = s.ref[X][ref_idx];
+        if (cur.lt != c[kColLt0 + list]) return false;
+        const Mv mv{c[kColMv0x + 2 * list], c[kColMv0y + 2 * list]};
+        const int col_poc = s.ref[s.col_from_l0 ? 0 : 1][s.col_ref].poc;
+        const int col_diff = col_poc - c[kColPoc0 + list], cur_diff = p[kPoc] - cur.poc;
+        if (cur.lt || col_diff == cur_diff || !col_diff) {
+            out = mv;
+        } else {
+            out = scale_mv(mv, col_diff, cur_diff);
+            count(kStatTmvpScaled);
+        }
+        return true;
+    }
+
+    // The temporal luma vector predictor (8.5.3.2.8): the collocated
+    // picture's bottom-right block, else its central one, at 16x16
+    // granularity.
+    bool temporal(int xp, int yp, int w, int h, int ref_idx, int X, Mv& out) {
+        if (!col) return false;
+        const int x = xp + w, y = yp + h;
+        if ((yp >> pic.ctb_log2) == (y >> pic.ctb_log2) && y < pic.h && x < pic.w &&
+            col_vector(x & ~15, y & ~15, ref_idx, X, out))
+            return true;
+        return col_vector((xp + (w >> 1)) & ~15, (yp + (h >> 1)) & ~15, ref_idx, X, out);
+    }
+
+    // The two predictors of list X's vector to reference ref_idx
+    // (8.5.3.2.6, 8.5.3.2.7).
+    void amvp(int xc, int yc, int log2, int xp, int yp, int w, int h, int idx, int X, int ref_idx,
+              Mv* out) {
+        const int nc = 1 << log2, cur_poc = ref_poc(X, ref_idx), cur_lt = s.ref[X][ref_idx].lt;
+        auto avail = [&](int xn, int yn) { return pb_available(xc, yc, nc, xp, yp, w, h, idx, xn, yn); };
+        auto same_picture = [&](const Mvf& m, int l, Mv& mv) {
+            if (!(m.pf >> l & 1) || ref_poc(l, m.ref[l]) != cur_poc) return false;
+            mv = m.mv[l];
+            return true;
+        };
+        auto scaled = [&](const Mvf& m, int l, Mv& mv) {
+            if (!(m.pf >> l & 1) || s.ref[l][m.ref[l]].lt != cur_lt) return false;
+            mv = m.mv[l];
+            const int poc = ref_poc(l, m.ref[l]);
+            if (!cur_lt && poc != cur_poc) {
+                mv = scale_mv(mv, p[kPoc] - poc ? p[kPoc] - poc : 1, p[kPoc] - cur_poc);
+                count(kStatAmvpScaled);
+            }
+            return true;
+        };
+        const int xa[2] = {xp - 1, xp - 1}, ya[2] = {yp + h, yp + h - 1};
+        const bool av_a[2] = {avail(xa[0], ya[0]), avail(xa[1], ya[1])};
+        const bool is_scaled = av_a[0] || av_a[1];
+        bool found_a = false, found_b = false;
+        Mv mva, mvb;
+        for (int k = 0; k < 2 && !found_a; ++k)
+            if (av_a[k]) found_a = same_picture(motion(xa[k], ya[k]), X, mva) || same_picture(motion(xa[k], ya[k]), !X, mva);
+        for (int k = 0; k < 2 && !found_a; ++k)
+            if (av_a[k]) found_a = scaled(motion(xa[k], ya[k]), X, mva) || scaled(motion(xa[k], ya[k]), !X, mva);
+        const int xb[3] = {xp + w, xp + w - 1, xp - 1}, yb[3] = {yp - 1, yp - 1, yp - 1};
+        const bool av_b[3] = {avail(xb[0], yb[0]), avail(xb[1], yb[1]), avail(xb[2], yb[2])};
+        for (int k = 0; k < 3 && !found_b; ++k)
+            if (av_b[k]) found_b = same_picture(motion(xb[k], yb[k]), X, mvb) || same_picture(motion(xb[k], yb[k]), !X, mvb);
+        if (!is_scaled) {
+            if (found_b) {
+                found_a = true;
+                mva = mvb;
+            }
+            found_b = false;
+            for (int k = 0; k < 3 && !found_b; ++k)
+                if (av_b[k]) found_b = scaled(motion(xb[k], yb[k]), X, mvb) || scaled(motion(xb[k], yb[k]), !X, mvb);
+        }
+        int n = 0;
+        if (found_a) out[n++] = mva;
+        if (found_b && !(found_a && mva == mvb)) out[n++] = mvb;
+        if (n < 2 && s.tmvp) {
+            Mv mv;
+            if (temporal(xp, yp, w, h, ref_idx, X, mv)) {
+                out[n++] = mv;
+                count(kStatAmvpTemporal);
+            }
+        }
+        while (n < 2) out[n++] = Mv{};
+    }
+
+    // The weighted sample prediction of a prediction unit (8.5.3.3.4):
+    // default, or explicit where the slice's PPS asks for it.
+    // With `luma`, only the luma prediction, into `luma` (stride w).
+    void predict_pu(int xp, int yp, int w, int h, const Mvf& m, uint8_t* luma = nullptr) {
+        static thread_local int16_t pred[2][64 * 64];
+        for (int c = 0; c < (luma ? 1 : 3); ++c) {
+            const int sh = c ? 1 : 0, bw = w >> sh, bh = h >> sh, xc = xp >> sh, yc = yp >> sh;
+            for (int l = 0; l < 2; ++l)
+                if (m.pf >> l & 1)
+                    interpolate(refs[3 * s.ref[l][m.ref[l]].slot + c], pic.w >> sh, pic.h >> sh, xc, yc, bw, bh,
+                                m.mv[l].x, m.mv[l].y, c > 0, pred[l], stats);
+            const int stride = luma ? w : pic.stride[c];
+            uint8_t* out = luma ? luma : pic.plane[c] + yc * stride + xc;
+            const int shift = s.denom[c > 0] + 6;
+            if (m.pf == 3) {
+                const RefEntry &r0 = s.ref[0][m.ref[0]], &r1 = s.ref[1][m.ref[1]];
+                if (s.weighted) count(kStatWeightedBi);
+                for (int y = 0; y < bh; ++y)
+                    for (int x = 0; x < bw; ++x) {
+                        const int a = pred[0][y * bw + x], b = pred[1][y * bw + x];
+                        out[y * stride + x] = static_cast<uint8_t>(clip1(
+                            s.weighted ? (a * r0.w[c] + b * r1.w[c] + ((r0.o[c] + r1.o[c] + 1) << shift)) >> (shift + 1)
+                                       : (a + b + 64) >> 7));
+                    }
+            } else {
+                const int l = m.pf == 1 ? 0 : 1;
+                const RefEntry& r = s.ref[l][m.ref[l]];
+                if (s.weighted) count(kStatWeightedUni);
+                for (int y = 0; y < bh; ++y)
+                    for (int x = 0; x < bw; ++x) {
+                        const int a = pred[l][y * bw + x];
+                        out[y * stride + x] = static_cast<uint8_t>(clip1(
+                            s.weighted ? ((a * r.w[c] + (1 << (shift - 1))) >> shift) + r.o[c] : (a + 32) >> 6));
+                    }
+            }
+        }
     }
 
     // pcm_alignment_zero_bit, pcm_sample(), then the arithmetic engine
@@ -837,10 +1455,12 @@ struct Coder {
         if (status) return;
         const TuNode* node = kEnc ? &plan.nodes[plan.cursor++] : nullptr;
         int split;
-        if (log2 <= max_tb && log2 > min_tb && depth < max_depth && !(intra_split && depth == 0))
+        if (log2 <= max_tb && log2 > min_tb && depth < max_depth && !(intra_split && depth == 0)) {
             split = bin(kCtxSplitTf + 5 - log2, kEnc ? node->split : 0);
-        else
-            split = log2 > max_tb || (intra_split && depth == 0);
+        } else {
+            split = log2 > max_tb || ((intra_split || cu_inter_split) && depth == 0);
+            if (kEnc && cu_inter_split && depth == 0 && log2 <= max_tb) ++stats[kStatInterSplit];
+        }
         int cb = 0, cr = 0;
         if (log2 > 2) {
             if (depth == 0 || parent_cb) cb = bin(kCtxCbfChroma + depth, kEnc ? node->cbf_cb : 0);
@@ -856,7 +1476,13 @@ struct Coder {
                                intra_split, max_depth, cb, cr);
             return;
         }
-        const int luma = bin(kCtxCbfLuma + (depth == 0), kEnc ? node->cbf_luma : 0);
+        int luma = 1;
+        if (cu_intra || depth || cb || cr)
+            luma = bin(kCtxCbfLuma + (depth == 0), kEnc ? node->cbf_luma : 0);
+        else if (kEnc && !node->cbf_luma)
+            status = kErrCoefficient;       // a plan whose inferred cbf_luma has no coefficient
+        else
+            count(kStatCbfLumaInferred);
         transform_unit(x0, y0, xb, yb, log2, blk, luma, cb, cr, node);
     }
 
@@ -867,7 +1493,9 @@ struct Coder {
 
     void transform_unit(int x0, int y0, int xb, int yb, int log2, int blk, int luma, int cb, int cr,
                         const TuNode* node) {
-        const int mode = pic.ipm[pic.at4(x0, y0)];
+        // Inter blocks are predicted already; their scan is the diagonal.
+        const int mode = cu_intra ? pic.ipm[pic.at4(x0, y0)] : -1;
+        pic.fill4(pic.cbf, x0, y0, 1 << log2, static_cast<uint8_t>(luma));
         if ((luma || cb || cr) && p[kQpDeltaEnabled] && !qp_delta_coded) {
             const int v = kEnc ? plan.qp_delta : 0;
             int a = std::abs(v), k = 0;
@@ -908,19 +1536,20 @@ struct Coder {
             if (kEnc && val) ++stats[kStatQpDelta];
         }
         pic.mark_edges(x0, y0, 1 << log2);
-        rec.predict(0, x0, y0, log2, mode);
+        const int cmode = cu_intra ? cu_chroma_mode : -1;
+        if (cu_intra) rec.predict(0, x0, y0, log2, mode);
         if (luma) block(0, x0, y0, log2, mode, node);
         if (log2 > 2) {
-            rec.predict(1, x0 >> 1, y0 >> 1, log2 - 1, cu_chroma_mode);
-            if (cb) block(1, x0 >> 1, y0 >> 1, log2 - 1, cu_chroma_mode, node);
-            rec.predict(2, x0 >> 1, y0 >> 1, log2 - 1, cu_chroma_mode);
-            if (cr) block(2, x0 >> 1, y0 >> 1, log2 - 1, cu_chroma_mode, node);
+            if (cu_intra) rec.predict(1, x0 >> 1, y0 >> 1, log2 - 1, cmode);
+            if (cb) block(1, x0 >> 1, y0 >> 1, log2 - 1, cmode, node);
+            if (cu_intra) rec.predict(2, x0 >> 1, y0 >> 1, log2 - 1, cmode);
+            if (cr) block(2, x0 >> 1, y0 >> 1, log2 - 1, cmode, node);
         } else if (blk == 3) {
             if (kEnc) ++stats[kStatChromaTb4At3];
-            rec.predict(1, xb >> 1, yb >> 1, 2, cu_chroma_mode);
-            if (cb) block(1, xb >> 1, yb >> 1, 2, cu_chroma_mode, node);
-            rec.predict(2, xb >> 1, yb >> 1, 2, cu_chroma_mode);
-            if (cr) block(2, xb >> 1, yb >> 1, 2, cu_chroma_mode, node);
+            if (cu_intra) rec.predict(1, xb >> 1, yb >> 1, 2, cmode);
+            if (cb) block(1, xb >> 1, yb >> 1, 2, cmode, node);
+            if (cu_intra) rec.predict(2, xb >> 1, yb >> 1, 2, cmode);
+            if (cr) block(2, xb >> 1, yb >> 1, 2, cmode, node);
         }
     }
 
@@ -939,7 +1568,7 @@ struct Coder {
         residual_coding(level, log2, c, scan_idx(log2, c, mode));
         if (status) return;
         const int qp = c ? chroma_qp(c) : qp_y;
-        residual(level, log2, qp, c == 0 && log2 == 2, ts, cu_bypass, res, kEnc ? stats : nullptr);
+        residual(level, log2, qp, cu_intra && c == 0 && log2 == 2, ts, cu_bypass, res, kEnc ? stats : nullptr);
         rec.add(c, xc, yc, log2, res);
     }
 
@@ -1165,6 +1794,9 @@ struct Coder {
     // --- The encoder's plan of a coding unit -------------------------------------
 
     void plan_cu(int x0, int y0, int log2);
+    void plan_pu(int xc, int yc, int log2, int idx, int xp, int yp, int w, int h, int part);
+    void best_pu(int xc, int yc, int log2, int idx, int xp, int yp, int w, int h, int part, Mvf& m);
+    int luma_sad(int xp, int yp, int w, int h, const Mvf& m);
     void plan_tree(int x0, int y0, int xb, int yb, int log2, int depth, int blk, int intra_split,
                    int max_depth, int qp, const int* modes);
     int plan_block(int c, int xc, int yc, int log2, int mode, int qp, TuNode& node);
@@ -1178,18 +1810,58 @@ void Coder<E>::plan_cu(int x0, int y0, int log2) {
     plan = CuPlan{};
     const bool best = knobs[kKnobBest] != 0;
     plan.bypass = p[kBypassEnabled] && rng->chance(knobs[kKnobBypass]);
+    if (s.type != kSliceI) plan.intra = best ? 0 : !rng->chance(knobs[kKnobInter]);
+    auto plan_qp = [&] {
+        const int range = knobs[kKnobQpDelta];
+        plan.qp_delta = qp_delta_coded ? qp_delta_val : 0;
+        if (!qp_delta_coded && range) {
+            // Keep the QP at or above 0 and at most 51 without the wrap.
+            const int lo = std::max({-range, -qp_pred, -26}), hi = std::min({range, 51 - qp_pred, 25});
+            plan.qp_delta = lo + rng->below(hi - lo + 1);
+        }
+        return wrap_qp(qp_pred + plan.qp_delta);
+    };
+    cu_bypass = plan.bypass;
+    if (!plan.intra) {
+        const int qp = plan_qp();
+        cu_intra = false;
+        const int size = 1 << log2;
+        plan.skip = !best && rng->chance(knobs[kKnobSkip]);
+        if (!plan.skip && !best && rng->chance(knobs[kKnobPart])) {
+            int choices[8], n = 0;
+            choices[n++] = kPart2NxN;
+            choices[n++] = kPartNx2N;
+            if (log2 == min_cb && log2 > 3) choices[n++] = kPartNxN;
+            plan.part = choices[rng->below(n)];
+            if (p[kAmpEnabled] && log2 > min_cb && rng->chance(knobs[kKnobAmp])) plan.part = kPart2NxnU + rng->below(4);
+        }
+        int boxes[4][4];
+        const int parts = pu_boxes(plan.part, size, boxes);
+        for (int i = 0; i < parts; ++i)
+            plan_pu(x0, y0, log2, i, x0 + boxes[i][0], y0 + boxes[i][1], boxes[i][2], boxes[i][3], plan.part);
+        pic.fill4(pic.ipm, x0, y0, size, uint8_t(1));
+        if (plan.skip) return;
+        cu_inter_split = p[kMaxDepthInter] == 0 && plan.part != kPart2Nx2N;
+        const int saved_qp = qp_y;
+        qp_y = qp;
+        plan_tree(x0, y0, x0, y0, log2, 0, 0, 0, p[kMaxDepthInter], qp, nullptr);
+        qp_y = saved_qp;
+        plan.root = !plan.levels.empty();
+        if (!plan.root) {
+            plan.nodes.clear();
+            // A merged 2Nx2N unit without a residual is a skipped one.
+            if (plan.part == kPart2Nx2N && plan.pu[0].merge) plan.skip = 1;
+        }
+        plan.cursor = 0;
+        return;
+    }
+    cu_intra = true;
     plan.nxn = log2 == min_cb && log2 > min_tb && rng->chance(knobs[kKnobNxN]);
+    plan.part = plan.nxn ? kPartNxN : kPart2Nx2N;
     plan.pcm = !plan.nxn && p[kPcmEnabled] && log2 >= p[kPcmMinLog2] && log2 <= p[kPcmMaxLog2] &&
                rng->chance(knobs[kKnobPcm]);
     if (plan.pcm) return;
-    const int range = knobs[kKnobQpDelta];
-    plan.qp_delta = qp_delta_coded ? qp_delta_val : 0;
-    if (!qp_delta_coded && range) {
-        // Keep the QP at or above 0 and at most 51 without the wrap.
-        const int lo = std::max({-range, -qp_pred, -26}), hi = std::min({range, 51 - qp_pred, 25});
-        plan.qp_delta = lo + rng->below(hi - lo + 1);
-    }
-    const int qp = wrap_qp(qp_pred + plan.qp_delta);
+    const int qp = plan_qp();
     const int parts = plan.nxn ? 4 : 1, pb = (1 << log2) >> plan.nxn;
     for (int i = 0; i < parts; ++i) {
         const int xp = x0 + (i & 1) * pb, yp = y0 + (i >> 1) * pb;
@@ -1199,15 +1871,183 @@ void Coder<E>::plan_cu(int x0, int y0, int log2) {
     static const int kChromaModes[4] = {0, 26, 10, 1};
     cu_chroma_mode = plan.chroma_mode == 4 ? plan.modes[0] : kChromaModes[plan.chroma_mode];
     if (plan.chroma_mode != 4 && cu_chroma_mode == plan.modes[0]) cu_chroma_mode = 34;
-    cu_bypass = plan.bypass;
     // The modes as the prediction reads them.
     for (int i = 0; i < parts; ++i)
         pic.fill4(pic.ipm, x0 + (i & 1) * pb, y0 + (i >> 1) * pb, pb, static_cast<uint8_t>(plan.modes[i]));
+    pic.fill4(pic.mvf, x0, y0, 1 << log2, Mvf{});
+    cu_inter_split = false;
     const int saved_qp = qp_y;
     qp_y = qp;
     plan_tree(x0, y0, x0, y0, log2, 0, 0, plan.nxn, p[kMaxDepthIntra] + plan.nxn, qp, plan.modes);
     qp_y = saved_qp;
     plan.cursor = 0;
+}
+
+// One prediction unit's choices, seeded or (kKnobBest) the nearest
+// prediction; its motion stored and its samples predicted, as the decoder
+// will.
+template <class E>
+void Coder<E>::plan_pu(int xc, int yc, int log2, int idx, int xp, int yp, int w, int h, int part) {
+    PuPlan& pu = plan.pu[idx];
+    pu = PuPlan{};
+    Mvf m;
+    if (knobs[kKnobBest]) {
+        best_pu(xc, yc, log2, idx, xp, yp, w, h, part, m);
+    } else {
+        pu.merge = plan.skip || rng->chance(knobs[kKnobMerge]);
+        if (pu.merge) {
+            pu.merge_idx = rng->below(s.max_merge);
+            merge_candidate(xc, yc, log2, xp, yp, w, h, idx, part, pu.merge_idx, m);
+        } else {
+            pu.pf = 1;
+            if (s.type == kSliceB)
+                pu.pf = (w + h != 12 && rng->chance(knobs[kKnobBi])) ? 3 : 1 + rng->below(2);
+            m.pf = static_cast<uint8_t>(pu.pf);
+            const int range = knobs[kKnobMvRange];
+            for (int l = 0; l < 2; ++l) {
+                if (!(pu.pf >> l & 1)) continue;
+                pu.ref[l] = rng->below(s.nref[l]);
+                pu.mvp[l] = rng->below(2);
+                Mv cand[2];
+                amvp(xc, yc, log2, xp, yp, w, h, idx, l, pu.ref[l], cand);
+                Mv mv = cand[pu.mvp[l]];
+                if (!(l == 1 && s.mvd_l1_zero && pu.pf == 3)) {
+                    const int pick = rng->below(4);
+                    if (pick == 1) {
+                        mv = Mv{mv.x + rng->below(9) - 4, mv.y + rng->below(9) - 4};
+                    } else if (pick > 1) {
+                        mv = Mv{rng->below(2 * range + 1) - range, rng->below(2 * range + 1) - range};
+                        if (pick == 3) mv = Mv{mv.x & ~3, mv.y & ~3};
+                    }
+                }
+                pu.mv[l] = mv;
+                m.mv[l] = mv;
+                m.ref[l] = static_cast<int8_t>(pu.ref[l]);
+            }
+        }
+    }
+    pic.fill4(pic.mvf, xp, yp, w, h, m);
+    predict_pu(xp, yp, w, h, m);
+}
+
+// The luma SAD of the prediction `m` of the block at (xp, yp) against the
+// target.
+template <class E>
+int Coder<E>::luma_sad(int xp, int yp, int w, int h, const Mvf& m) {
+    const int stride = pic.stride[0];
+    uint8_t out[64 * 64];
+    predict_pu(xp, yp, w, h, m, out);
+    int sad = 0;
+    for (int y = 0; y < h; ++y)
+        for (int x = 0; x < w; ++x) sad += std::abs(out[y * w + x] - src[0][(yp + y) * stride + xp + x]);
+    return sad;
+}
+
+// The prediction of a real picture's unit nearest the target: each merge
+// candidate, and a search of each list's first reference around its first
+// predictor and the zero vector (whole samples within kKnobSearch, then
+// half and quarter samples), with both lists' best together in B slices;
+// each by SAD plus a rough count of its bits.
+template <class E>
+void Coder<E>::best_pu(int xc, int yc, int log2, int idx, int xp, int yp, int w, int h, int part, Mvf& m) {
+    PuPlan& pu = plan.pu[idx];
+    const int lambda = 4;
+    int best_cost = INT32_MAX;
+    for (int k = 0; k < s.max_merge; ++k) {
+        Mvf c;
+        merge_candidate(xc, yc, log2, xp, yp, w, h, idx, part, k, c);
+        const int cost = luma_sad(xp, yp, w, h, c) + lambda * (1 + k);
+        if (cost < best_cost) {
+            best_cost = cost;
+            m = c;
+            pu = PuPlan{};
+            pu.merge = 1;
+            pu.merge_idx = k;
+        }
+    }
+    auto mv_bits = [](Mv d) {
+        auto one = [](int v) { return v ? 2 * (32 - __builtin_clz(std::abs(v))) + 1 : 1; };
+        return one(d.x) + one(d.y);
+    };
+    const int lists = s.type == kSliceB ? 2 : 1, search = knobs[kKnobSearch];
+    Mv found[2], pred[2];
+    int found_cost[2] = {INT32_MAX, INT32_MAX}, flag[2] = {0, 0};
+    for (int l = 0; l < lists; ++l) {
+        Mv cand[2];
+        amvp(xc, yc, log2, xp, yp, w, h, idx, l, 0, cand);
+        Mvf c;
+        c.pf = static_cast<uint8_t>(1 << l);
+        auto cost_of = [&](Mv mv, int& which) {
+            c.mv[l] = mv;
+            const int a = mv_bits(Mv{mv.x - cand[0].x, mv.y - cand[0].y});
+            const int b = mv_bits(Mv{mv.x - cand[1].x, mv.y - cand[1].y});
+            which = b < a;
+            return luma_sad(xp, yp, w, h, c) + lambda * (2 + std::min(a, b));
+        };
+        int which = 0;
+        Mv centre{(cand[0].x + 2) & ~3, (cand[0].y + 2) & ~3};
+        Mv best_mv{};
+        int best = cost_of(best_mv, which);
+        int best_which = which;
+        for (const Mv& start : {Mv{}, centre}) {
+            for (int dy = -search; dy <= search; ++dy)
+                for (int dx = -search; dx <= search; ++dx) {
+                    const Mv mv{start.x + 4 * dx, start.y + 4 * dy};
+                    const int cost = cost_of(mv, which);
+                    if (cost < best) {
+                        best = cost;
+                        best_mv = mv;
+                        best_which = which;
+                    }
+                }
+        }
+        for (int step : {2, 1}) {
+            const Mv around = best_mv;
+            for (int dy = -step; dy <= step; dy += step)
+                for (int dx = -step; dx <= step; dx += step) {
+                    if (!dx && !dy) continue;
+                    const Mv mv{around.x + dx, around.y + dy};
+                    const int cost = cost_of(mv, which);
+                    if (cost < best) {
+                        best = cost;
+                        best_mv = mv;
+                        best_which = which;
+                    }
+                }
+        }
+        found[l] = best_mv;
+        found_cost[l] = best;
+        flag[l] = best_which;
+        pred[l] = cand[best_which];
+        if (best < best_cost) {
+            best_cost = best;
+            m = Mvf{};
+            m.pf = static_cast<uint8_t>(1 << l);
+            m.mv[l] = best_mv;
+            pu = PuPlan{};
+            pu.pf = 1 << l;
+            pu.mv[l] = best_mv;
+            pu.mvp[l] = best_which;
+        }
+    }
+    if (lists == 2 && w + h != 12 && !s.mvd_l1_zero) {
+        Mvf c;
+        c.pf = 3;
+        c.mv[0] = found[0];
+        c.mv[1] = found[1];
+        const int bits = mv_bits(Mv{found[0].x - pred[0].x, found[0].y - pred[0].y}) +
+                         mv_bits(Mv{found[1].x - pred[1].x, found[1].y - pred[1].y});
+        const int cost = luma_sad(xp, yp, w, h, c) + lambda * (3 + bits);
+        if (cost < best_cost && found_cost[0] != INT32_MAX) {
+            m = c;
+            pu = PuPlan{};
+            pu.pf = 3;
+            pu.mv[0] = found[0];
+            pu.mv[1] = found[1];
+            pu.mvp[0] = flag[0];
+            pu.mvp[1] = flag[1];
+        }
+    }
 }
 
 template <class E>
@@ -1219,7 +2059,7 @@ void Coder<E>::plan_tree(int x0, int y0, int xb, int yb, int log2, int depth, in
     if (log2 <= max_tb && log2 > min_tb && depth < max_depth && !(intra_split && depth == 0))
         split = knobs[kKnobBest] ? log2 > 4 : rng->chance(knobs[kKnobSplitTu]);
     else
-        split = log2 > max_tb || (intra_split && depth == 0);
+        split = log2 > max_tb || ((intra_split || cu_inter_split) && depth == 0);
     plan.nodes[at].split = static_cast<int8_t>(split);
     if (split) {
         const int half = 1 << (log2 - 1);
@@ -1236,19 +2076,19 @@ void Coder<E>::plan_tree(int x0, int y0, int xb, int yb, int log2, int depth, in
         return;
     }
     TuNode& node = plan.nodes[at];
-    const int mode = pic.ipm[pic.at4(x0, y0)];
+    const int mode = cu_intra ? pic.ipm[pic.at4(x0, y0)] : -1, cmode = cu_intra ? cu_chroma_mode : -1;
     pic.mark_edges(x0, y0, 1 << log2);
     node.cbf_luma = static_cast<int8_t>(plan_block(0, x0, y0, log2, mode, qp, plan.nodes[at]));
     if (log2 > 2) {
-        plan_block(1, x0 >> 1, y0 >> 1, log2 - 1, cu_chroma_mode, qp, plan.nodes[at]);
-        plan_block(2, x0 >> 1, y0 >> 1, log2 - 1, cu_chroma_mode, qp, plan.nodes[at]);
+        plan_block(1, x0 >> 1, y0 >> 1, log2 - 1, cmode, qp, plan.nodes[at]);
+        plan_block(2, x0 >> 1, y0 >> 1, log2 - 1, cmode, qp, plan.nodes[at]);
     } else if (blk == 3) {
         // The 8x8 node's chroma, coded with its fourth 4x4 luma block: its
         // flags belong to the parent node (the cbf of a log2 2 node is the
         // parent's).
         TuNode& parent = plan.nodes[at - 4];
-        plan_block(1, xb >> 1, yb >> 1, 2, cu_chroma_mode, qp, parent);
-        plan_block(2, xb >> 1, yb >> 1, 2, cu_chroma_mode, qp, parent);
+        plan_block(1, xb >> 1, yb >> 1, 2, cmode, qp, parent);
+        plan_block(2, xb >> 1, yb >> 1, 2, cmode, qp, parent);
         plan.nodes[at].cbf_cb = parent.cbf_cb;
         plan.nodes[at].cbf_cr = parent.cbf_cr;
         plan.nodes[at].coeff[1] = parent.coeff[1];
@@ -1263,7 +2103,7 @@ void Coder<E>::plan_tree(int x0, int y0, int xb, int yb, int log2, int depth, in
 template <class E>
 int Coder<E>::plan_block(int c, int xc, int yc, int log2, int mode, int qp_luma, TuNode& node) {
     const int n = 1 << log2, stride = pic.stride[c];
-    rec.predict(c, xc, yc, log2, mode);
+    if (cu_intra) rec.predict(c, xc, yc, log2, mode);
     const uint8_t* pred = pic.plane[c] + yc * stride + xc;
     const uint8_t* target = src[c] + yc * stride + xc;
     int32_t diff[32 * 32], level[32 * 32], res[32 * 32];
@@ -1272,7 +2112,7 @@ int Coder<E>::plan_block(int c, int xc, int yc, int log2, int mode, int qp_luma,
     const int qp = c ? chroma_qp_map(clip3(0, 57, qp_luma + (c == 1 ? p[kCbOffset] + s.cb_offset
                                                                       : p[kCrOffset] + s.cr_offset)))
                      : qp_luma;
-    const bool dst = c == 0 && log2 == 2;
+    const bool dst = cu_intra && c == 0 && log2 == 2;
     const int ts = p[kTransformSkip] && !cu_bypass && log2 == 2 && rng->chance(knobs[kKnobTs]);
     // Integer arithmetic only, so that every host writes the same levels.
     // A level L dequantises to d = L * gain with gain = 2 * levelScale *
@@ -1407,19 +2247,51 @@ struct LoopFilter {
     bool no_filter(int x, int y) const { return pic.flags[pic.at4(x, y)] & kFlagNoFilter; }
 
     // bS of the edge left of (vertical) or above (horizontal) the 4-sample
-    // segment at (x, y) on the 8x8 grid: 2 for a transform or coding block
-    // edge (every block is intra), 0 elsewhere.
+    // segment at (x, y) on the 8x8 grid (8.7.2.4), as FFmpeg derives it: at
+    // a transform or coding block edge, 2 next to an intra block, else 1
+    // next to a luma block with coefficients, else the motion's; inside an
+    // inter transform block, the motion's (0 within a prediction unit); 0
+    // elsewhere.
     int bs(int x, int y, bool vertical) const {
         if (vertical ? (x == 0 || (x & 7)) : (y == 0 || (y & 7))) return 0;
-        if (!(pic.flags[pic.at4(x, y)] & (vertical ? kFlagEdgeV : kFlagEdgeH))) return 0;
-        const Slice& q = slice_at(x, y);
-        if (q.deblock_off) return 0;
+        const bool edge = pic.flags[pic.at4(x, y)] & (vertical ? kFlagEdgeV : kFlagEdgeH);
+        const Mvf& q = pic.mvf[pic.at4(x, y)];
+        if (!edge && !q.pf) return 0;
+        const Slice& qs = slice_at(x, y);
+        if (qs.deblock_off) return 0;
         const int xp = vertical ? x - 1 : x, yp = vertical ? y : y - 1;
-        if (!q.across && pic.slice_of[pic.ctb_at(xp, yp)] != pic.slice_of[pic.ctb_at(x, y)]) {
+        if (edge && !qs.across && pic.slice_of[pic.ctb_at(xp, yp)] != pic.slice_of[pic.ctb_at(x, y)]) {
             count(kLfSkippedEdge);
             return 0;
         }
-        return 2;
+        const Mvf& pm = pic.mvf[pic.at4(xp, yp)];
+        if (edge) {
+            if (!q.pf || !pm.pf) return 2;
+            if (pic.cbf[pic.at4(x, y)] || pic.cbf[pic.at4(xp, yp)]) return 1;
+        }
+        return motion_bs(qs, q, slice_at(xp, yp), pm);
+    }
+
+    // bS 1 for different reference pictures, a different number of
+    // vectors, or vectors at least 4 quarter samples apart; else 0.
+    static int motion_bs(const Slice& qs, const Mvf& q, const Slice& ps, const Mvf& pm) {
+        auto far = [](Mv a, Mv b) { return std::abs(a.x - b.x) >= 4 || std::abs(a.y - b.y) >= 4; };
+        if (q.pf == 3 && pm.pf == 3) {
+            const int q0 = qs.ref[0][q.ref[0]].poc, q1 = qs.ref[1][q.ref[1]].poc;
+            const int p0 = ps.ref[0][pm.ref[0]].poc, p1 = ps.ref[1][pm.ref[1]].poc;
+            if (q0 == p0 && q0 == q1 && p0 == p1)
+                return (far(q.mv[0], pm.mv[0]) || far(q.mv[1], pm.mv[1])) &&
+                       (far(q.mv[0], pm.mv[1]) || far(q.mv[1], pm.mv[0]));
+            if (p0 == q0 && p1 == q1) return far(q.mv[0], pm.mv[0]) || far(q.mv[1], pm.mv[1]);
+            if (p1 == q0 && p0 == q1) return far(q.mv[0], pm.mv[1]) || far(q.mv[1], pm.mv[0]);
+            return 1;
+        }
+        if (q.pf != 3 && pm.pf != 3) {
+            const int lq = q.pf == 1 ? 0 : 1, lp = pm.pf == 1 ? 0 : 1;
+            if (qs.ref[lq][q.ref[lq]].poc != ps.ref[lp][pm.ref[lp]].poc) return 1;
+            return far(q.mv[lq], pm.mv[lp]);
+        }
+        return 1;
     }
     int vbs_at(int x, int y) const { return x < pic.w && y < pic.h ? vbs[pic.at4(x, y)] : 0; }
     int hbs_at(int x, int y) const { return x < pic.w && y < pic.h ? hbs[pic.at4(x, y)] : 0; }
@@ -1699,6 +2571,9 @@ struct LoopFilter {
 
 bool valid_params(const int32_t* p) {
     const int ctb = p[kCtbLog2];
+    if (p[kMaxDepthInter] < 0 || p[kMaxDepthInter] > ctb - p[kMinTbLog2] || p[kParMrgLevel] < 2 ||
+        p[kParMrgLevel] > ctb)
+        return false;
     return p[kWidth] > 0 && p[kHeight] > 0 && ctb >= 4 && ctb <= 6 && p[kMinCbLog2] >= 3 &&
            p[kMinCbLog2] <= ctb && p[kMinTbLog2] >= 2 && p[kMinTbLog2] < p[kMinCbLog2] &&
            p[kMaxTbLog2] <= std::min(ctb, 5) && p[kMaxTbLog2] >= p[kMinTbLog2] &&
@@ -1708,14 +2583,85 @@ bool valid_params(const int32_t* p) {
                                 p[kPcmBitsC] <= 8 && p[kPcmMinLog2] >= 3 && p[kPcmMaxLog2] <= std::min(ctb, 5)));
 }
 
-std::vector<Slice> read_slices(int num, const int32_t* sp) {
+// The slices' parameters, or an empty vector when one is out of range
+// (`slots`: the reference pictures passed in).
+std::vector<Slice> read_slices(int num, const int32_t* sp, int slots) {
     std::vector<Slice> out(num);
     for (int i = 0; i < num; ++i) {
-        const int32_t* q = sp + i * kSliceInts;
-        out[i] = Slice{q[kSliceAddr], q[kSliceQp], q[kSaoLuma], q[kSaoChroma], q[kSliceCbOffset],
-                       q[kSliceCrOffset], q[kDeblockOff], q[kBetaDiv2], q[kTcDiv2], q[kAcross], q[kSliceCtbs]};
+        const int32_t* q = sp + static_cast<size_t>(i) * kSliceInts;
+        Slice& s = out[i];
+        s.addr = q[kSliceAddr];
+        s.qp = q[kSliceQp];
+        s.sao_luma = q[kSaoLuma];
+        s.sao_chroma = q[kSaoChroma];
+        s.cb_offset = q[kSliceCbOffset];
+        s.cr_offset = q[kSliceCrOffset];
+        s.deblock_off = q[kDeblockOff];
+        s.beta = q[kBetaDiv2];
+        s.tc = q[kTcDiv2];
+        s.across = q[kAcross];
+        s.ctbs = q[kSliceCtbs];
+        s.type = q[kSliceType];
+        s.nref[0] = s.type == kSliceI ? 0 : q[kNumRefL0];
+        s.nref[1] = s.type == kSliceB ? q[kNumRefL1] : 0;
+        s.mvd_l1_zero = q[kMvdL1Zero];
+        s.init_type = q[kInitType];
+        s.tmvp = q[kTmvp];
+        s.col_from_l0 = q[kColFromL0];
+        s.col_ref = q[kColRefIdx];
+        s.max_merge = q[kMaxMerge];
+        s.weighted = q[kWeighted];
+        s.denom[0] = q[kLumaDenom];
+        s.denom[1] = q[kChromaDenom];
+        if (s.type < 0 || s.type > 2 || s.init_type < 0 || s.init_type > 2 || s.nref[0] < 0 ||
+            s.nref[0] > kMaxRefs || s.nref[1] < 0 || s.nref[1] > kMaxRefs ||
+            (s.type != kSliceI && (s.nref[0] < 1 || (s.type == kSliceB && s.nref[1] < 1) ||
+                                   s.max_merge < 1 || s.max_merge > 5 || s.denom[0] < 0 || s.denom[0] > 7 ||
+                                   s.denom[1] < 0 || s.denom[1] > 7)))
+            return {};
+        for (int l = 0; l < 2; ++l)
+            for (int k = 0; k < kMaxRefs; ++k) {
+                const int32_t* r = q + kSliceRefs + (l * kMaxRefs + k) * kRefInts;
+                RefEntry& e = s.ref[l][k];
+                e = RefEntry{r[0], r[1], r[2], {r[3], r[5], r[7]}, {r[4], r[6], r[8]}};
+                if (k < s.nref[l] && (e.slot < 0 || e.slot >= slots)) return {};
+            }
+        if (s.type != kSliceI && s.tmvp &&
+            (s.col_ref < 0 || s.col_ref >= s.nref[s.col_from_l0 ? 0 : 1]))
+            return {};
     }
     return out;
+}
+
+// NoBackwardPredFlag of each slice (8.5.3.2.9): no reference picture after
+// the current one.
+void set_no_backward(std::vector<Slice>& slices, int poc) {
+    for (Slice& s : slices) {
+        s.no_backward = true;
+        for (int l = 0; l < 2; ++l)
+            for (int k = 0; k < s.nref[l]; ++k) s.no_backward &= s.ref[l][k].poc <= poc;
+    }
+}
+
+// The picture's motion field for the temporal candidates of later pictures
+// (ColField), each 16x16 block's top-left 4x4 block's.
+void export_field(const Picture& pic, const std::vector<Slice>& slices, int32_t* field) {
+    const int w16 = (pic.w + 15) >> 4, h16 = (pic.h + 15) >> 4;
+    for (int y = 0; y < h16; ++y)
+        for (int x = 0; x < w16; ++x) {
+            const Mvf& m = pic.mvf[pic.at4(x << 4, y << 4)];
+            const Slice& s = slices[pic.slice_of[pic.ctb_at(x << 4, y << 4)]];
+            int32_t* f = field + (static_cast<size_t>(y) * w16 + x) * kColInts;
+            for (int k = 0; k < kColInts; ++k) f[k] = 0;
+            f[kColFlags] = m.pf;
+            for (int l = 0; l < 2; ++l) {
+                if (!(m.pf >> l & 1)) continue;
+                f[kColMv0x + 2 * l] = m.mv[l].x;
+                f[kColMv0y + 2 * l] = m.mv[l].y;
+                f[kColPoc0 + l] = s.ref[l][m.ref[l]].poc;
+                f[kColLt0 + l] = s.ref[l][m.ref[l]].lt;
+            }
+        }
 }
 
 }  // namespace
@@ -1731,16 +2677,24 @@ int hive_hevc_stat_counts(int32_t* named, int32_t* filter_stats) {
     return kStatTotal;
 }
 
+int hive_hevc_col_ints() { return kColInts; }
+
 // Decode one picture's slice segments (each slice's RBSP from the byte
 // after its header, kPadding zero bytes after its end) into the coded
-// planes, then deblock and apply SAO. `filter_stats` (kLfStats, may be
-// null) counts the loop filters' decisions. Returns 0, or a Status.
+// planes, then deblock and apply SAO. P and B slices read the `slots`
+// reference pictures' planes (`refs`, three a slot) and the collocated
+// picture's motion field (`col`, may be null); `field` (may be null)
+// receives this picture's. `filter_stats` (kLfStats, may be null) counts
+// the loop filters' decisions. Returns 0, or a Status.
 int hive_hevc_decode_picture(const int32_t* params, int num_slices, const int32_t* slice_params,
                              const uint8_t* const* data, const int64_t* sizes, uint8_t* const* planes,
+                             const uint8_t* const* refs, int slots, const int32_t* col, int32_t* field,
                              int64_t* filter_stats) {
     if (!valid_params(params) || num_slices < 1) return kErrArgs;
     Picture pic(params, planes);
-    const std::vector<Slice> slices = read_slices(num_slices, slice_params);
+    std::vector<Slice> slices = read_slices(num_slices, slice_params, refs ? slots : 0);
+    if (slices.empty()) return kErrArgs;
+    set_no_backward(slices, params[kPoc]);
     const int total = pic.ctbs_w * pic.ctbs_h;
     std::vector<uint8_t> decoded(total, 0);
     for (int k = 0; k < num_slices; ++k) {
@@ -1748,6 +2702,9 @@ int hive_hevc_decode_picture(const int32_t* params, int num_slices, const int32_
         if (s.addr < 0 || s.addr >= total || decoded[s.addr]) return kErrArgs;
         Reader r{data[k], sizes[k] * 8, 0};
         Coder<cabac::Decoder<Reader>> cd(pic, params, s, k);
+        if (s.type != kSliceI && s.tmvp && !col) return kErrArgs;
+        cd.refs = refs;
+        cd.col = s.tmvp ? col : nullptr;
         cd.e.r = &r;
         cd.e.limit = sizes[k] * 8 + 8 * 8;
         cd.init_contexts();
@@ -1769,6 +2726,7 @@ int hive_hevc_decode_picture(const int32_t* params, int num_slices, const int32_
     }
     for (int k = 0; k < total; ++k)
         if (!decoded[k]) return kErrShort;
+    if (field) export_field(pic, slices, field);
     if (filter_stats)
         LoopFilter<true>{pic, params, slices, filter_stats, {}, {}, {}, {}}.run();
     else
@@ -1782,16 +2740,20 @@ int hive_hevc_decode_picture(const int32_t* params, int num_slices, const int32_
 // (capacity bytes) back to back, their sizes to `sizes`. `recon` receives
 // the reconstruction before the loop filters. `stats` (kStatTotal) counts
 // the paths and contexts written. `sao` gives each CTB's SAO parameters
-// (type[c] -1 / -2 for a merge left / up). Returns the bytes written, or a
+// (type[c] -1 / -2 for a merge left / up). P and B slices read `refs`,
+// `slots` and `col` as the decoder does. Returns the bytes written, or a
 // Status.
 int64_t hive_hevc_encode_picture(const int32_t* params, int num_slices, const int32_t* slice_params,
                                  const int32_t* knobs, uint64_t seed, const uint8_t* const* source,
                                  uint8_t* const* recon, const uint8_t* const* headers,
                                  const int64_t* header_bytes, const int8_t* sao, uint8_t* out,
-                                 int64_t capacity, int64_t* sizes, int64_t* stats) {
+                                 int64_t capacity, int64_t* sizes, int64_t* stats,
+                                 const uint8_t* const* refs, int slots, const int32_t* col) {
     if (!valid_params(params) || num_slices < 1) return kErrArgs;
     Picture pic(params, recon);
-    const std::vector<Slice> slices = read_slices(num_slices, slice_params);
+    std::vector<Slice> slices = read_slices(num_slices, slice_params, refs ? slots : 0);
+    if (slices.empty()) return kErrArgs;
+    set_no_backward(slices, params[kPoc]);
     const int total = pic.ctbs_w * pic.ctbs_h;
     Rng rng{seed};
     int64_t written = 0;
@@ -1803,8 +2765,11 @@ int64_t hive_hevc_encode_picture(const int32_t* params, int num_slices, const in
         Writer w;
         w.bytes.assign(headers[k], headers[k] + header_bytes[k]);
         Coder<cabac::Encoder<Writer>> cd(pic, params, s, k);
+        if (s.type != kSliceI && s.tmvp && !col) return kErrArgs;
+        cd.refs = refs;
+        cd.col = s.tmvp ? col : nullptr;
         cd.e.w = &w;
-        cd.e.cover = stats + kStatContexts;
+        cd.e.cover = stats + kStatContexts + s.init_type * kNumContexts;
         cd.stats = stats;
         cd.rec.stats = stats;
         cd.src = source;

@@ -33,11 +33,15 @@ class VideoCapture:
     (default ``cuda:0``). Each codec decodes on the host for every device,
     in one path (NVDEC, :mod:`.nvdec`, is not used): H.264 in the I, P and B
     subset of :mod:`.h264` (CAVLC or CABAC, the 8x8 transform, scaling
-    matrices, weighted prediction) and HEVC in the Main profile intra
-    subset of :mod:`.hevc`, whose headers are all read, and whatever they
-    refuse refused, when the capture opens. An MPEG-4 N-VOP
+    matrices, weighted prediction) and HEVC in the Main profile subset of
+    :mod:`.hevc` (I, P and B slices), whose headers are all read, and
+    whatever they refuse refused, when the capture opens. An MPEG-4 N-VOP
     (``vop_coded`` 0) gives no frame, as in cv2, so it is left out of the
-    frames and the count.
+    frames and the count; so is an HEVC picture with pic_output_flag 0, a
+    RASL picture FFmpeg drops (one that leads the stream's first IRAP
+    picture) and one an IDR or BLA picture's no_output_of_prior_pics_flag
+    drops before it is output, and a seek decodes from an IRAP picture whose
+    wanted leading pictures decode.
 
     :ivar width, height: ``CAP_PROP_FRAME_WIDTH`` / ``HEIGHT``.
     :ivar fps: ``CAP_PROP_FPS``.
@@ -73,8 +77,13 @@ class VideoCapture:
                 self.parameter_sets = self.sps_units + self.pps_units
                 scan = h264.scan_track
             with open(self.path, "rb") as f:
-                self.sps, self.reorder, idr = scan(self.parameter_sets, len(self.track.sizes),
-                                                   lambda i: self._nal_units(i, f))
+                scanned = scan(self.parameter_sets, len(self.track.sizes),
+                               lambda i: self._nal_units(i, f))
+            self.sps, self.reorder, idr = scanned[:3]
+            if self.codec == mp4.HEVC:
+                # The samples that give a frame, and the IRAP sample each RASL
+                # picture leads.
+                self._coded, self._leads = scanned[3:]
             self._idr = np.zeros(len(self.track.sizes), bool)
             self._idr[idr] = True
             width, height = self.sps["width"], self.sps["height"]
@@ -84,7 +93,7 @@ class VideoCapture:
                                                                                       height)
         self.fps = self.track.fps
         self.segments = self.track.segments()
-        if self.codec == mp4.MPEG4:
+        if self.codec in (mp4.MPEG4, mp4.HEVC):
             self.segments = [segment[self._coded[segment]] for segment in self.segments]
         self.frame_count = sum(len(segment) for segment in self.segments)
 
@@ -128,7 +137,8 @@ class VideoCapture:
                 return
 
             # H.264 and HEVC: each sample from ``begin`` (an IDR or IRAP
-            # picture) in decode order, the pictures put in display order;
+            # picture) in decode order, the pictures put in display order
+            # (HEVC: FFmpeg's output order, which scan_track found sorted);
             # only the wanted ones move to the device.
             decoder = hevc.HevcDecoder() if self.codec == mp4.HEVC else h264.H264Decoder()
             decoder.decode(self.parameter_sets)
@@ -141,7 +151,9 @@ class VideoCapture:
                         picture.sample = sample
                         yield picture
 
-            for picture in display_order(pictures(), self.reorder):
+            ordered = (hevc.output_order(pictures(), self.sps) if self.codec == mp4.HEVC
+                       else display_order(pictures(), self.reorder))
+            for picture in ordered:
                 if picture.sample in keep:
                     yield picture.sample, tuple(
                         torch.from_numpy(np.ascontiguousarray(p)).to(self.device)
@@ -174,6 +186,11 @@ class VideoCapture:
         order)."""
         starts = self._idr if self.codec in (mp4.H264, mp4.HEVC) else self.track.sync
         syncs = np.flatnonzero(starts[:int(wanted.min()) + 1])
+        if self.codec == mp4.HEVC:
+            # Not an IRAP picture whose wanted RASL pictures a decode from it
+            # would drop.
+            while len(syncs) > 1 and np.isin(self._leads[wanted], syncs[-1]).any():
+                syncs = syncs[:-1]
         begin = int(syncs[-1]) if len(syncs) else 0
         keep = set(wanted.tolist())
         for sample, picture in self._planes(begin, wanted):

@@ -1,8 +1,8 @@
 """NVDEC bindings: NVIDIA's ``libnvcuvid.so.1`` by ``ctypes``, kept for
 when the card's machine opens NVDEC (ROADMAP.md Queue 1 item 9b).
 :class:`~hive_tpu_torch.video.capture.VideoCapture` does not use them: H.264
-(:mod:`.h264`) and HEVC (:mod:`.hevc`, intra pictures so far, item 9c) decode
-on the host for every device.
+(:mod:`.h264`) and HEVC (:mod:`.hevc`, I, P and B pictures) decode on the
+host for every device.
 
 The parser (``cuvidCreateVideoParser`` / ``cuvidParseVideoData``) reads an
 Annex-B stream and calls back: at each sequence header (the decoder is made

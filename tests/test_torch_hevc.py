@@ -173,27 +173,15 @@ def write_units(path, units, samples, fourcc=b"hvc1"):
                   sync=[True] + [False] * (len(samples) - 1))
 
 
-def slice_rewrite(units, samples, slice_type=None, nal=None):
-    """The second sample's slice with another slice type or NAL unit type."""
-    decoder = hevc.HevcDecoder(pixels=False)
-    decoder.decode(units)
-    unit = samples[1][0]
-    if slice_type is not None:
-        unit = hevc.with_slice_type(unit, decoder.sps, decoder.pps, slice_type)
-    if nal is not None:
-        unit = bytes([nal << 1, unit[1]]) + unit[2:]
-    return [samples[0], [unit]]
-
-
 def refusal_clip(tmp_path, case, fourcc=b"hvc1"):
     units, samples = intra_units(tmp_path)
     vps, sps, pps = units
-    if case == "p_slice":
-        samples = slice_rewrite(units, samples, slice_type=hevc.P_SLICE)
-    elif case == "b_slice":
-        samples = slice_rewrite(units, samples, slice_type=hevc.B_SLICE)
-    elif case == "rasl":
-        samples = slice_rewrite(units, samples, nal=hevc.RASL_N)
+    if case == "tiles":
+        pps = hevc.encode_pps(tiles=True)
+    elif case == "chroma_444":
+        sps = hevc.encode_sps(64, 48, chroma_format=3)
+    elif case == "range_extension":
+        sps = hevc.encode_sps(64, 48, range_extension=True)
     elif case == "main10":
         sps = hevc.encode_sps(64, 48, bit_depth=10)
     elif case == "chroma_422":
@@ -216,9 +204,9 @@ def refusal_clip(tmp_path, case, fourcc=b"hvc1"):
 
 
 REFUSALS = {
-    "p_slice": ("P slices", "9c-2"),
-    "b_slice": ("B slices", "9c-2"),
-    "rasl": (r"leading pictures \(NAL unit type 8", "9c-2"),
+    "tiles": (r"tiles \(tiles_enabled_flag\)", "9c-3"),
+    "chroma_444": ("chroma format 4:4:4", "9c-4"),
+    "range_extension": ("SPS extensions", "9c-4"),
     "main10": ("10-bit samples", "9c-4"),
     "chroma_422": ("chroma format 4:2:2", "9c-4"),
     "scaling_lists": ("scaling lists", "9c-3"),
@@ -230,10 +218,10 @@ REFUSALS = {
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_features_outside_the_subset_are_refused_by_sub_item(tmp_path, case, monkeypatch):
-    """Inter slices and leading pictures (9c-2), scaling lists, WPP and
-    dependent slices (9c-3), Main 10 and other chroma formats (9c-4): each
-    refused when the capture opens, before any picture is decoded, naming
-    its ROADMAP sub-item."""
+    """Scaling lists, tiles, WPP, dependent slices and a left crop off the
+    64-sample grid (9c-3), Main 10, other chroma formats and the range
+    extension (9c-4): each refused when the capture opens, before any
+    picture is decoded, naming its ROADMAP sub-item."""
     name, item = REFUSALS[case]
     path = refusal_clip(tmp_path, case)
     monkeypatch.setattr(hevc, "_lib", None)
@@ -285,8 +273,9 @@ FFMPEG_OTHER_INIT = {19: 139, 49: 139, 50: 139, 51: 139, 52: 139, 135: 141, 136:
 
 def test_tables_equal_those_of_cv2s_libavcodec():
     """hevc_tables.h's tables appear in the libavcodec cv2 5.0.0 loads, as
-    FFmpeg lays them out: the I slices' context initValues inside
-    init_values[0], the 32x32 transform matrix (int8), the tC and beta
+    FFmpeg lays them out: the contexts' initValues of each initType in
+    its rows of init_values (those of I slices where the rest hold CNU in
+    the first), the 32x32 transform matrix (int8), the tC and beta
     tables, the intra angles and inverse angles (int32), ctxIdxMap and the
     level scales."""
     found = glob.glob(pjoin(os.path.dirname(os.path.dirname(cv2.__file__)), "opencv_python.libs",
@@ -296,18 +285,31 @@ def test_tables_equal_those_of_cv2s_libavcodec():
     with open(found[0], "rb") as f:
         lib = f.read()
     tables = header_tables()
+    values = tables["kInitValues"].reshape(3, hevc.NUM_CONTEXTS)
+    assert len(FFMPEG_INIT_INDEX) == hevc.INTRA_CONTEXTS
+    # The contexts P and B slices add, at FFmpeg's indices: cu_skip_flag,
+    # pred_mode_flag, part_mode's bins after the first, merge_flag,
+    # merge_idx, inter_pred_idc, ref_idx, abs_mvd_greater0 / 1, mvp_lx_flag
+    # and rqt_root_cbf (no_residual_data_flag).
+    inter_index = [6, 7, 8, 12, 14, 15, 16, 20, 21, 22, 23, 24, 25, 26, 27, 28, 31, 34, 35, 36]
     init = np.full(167, 154, np.uint8)
-    init[FFMPEG_INIT_INDEX] = tables["kInitValues"]
+    init[FFMPEG_INIT_INDEX] = values[0, :hevc.INTRA_CONTEXTS]
     init[list(FFMPEG_OTHER_INIT)] = list(FFMPEG_OTHER_INIT.values())
-    assert len(tables["kInitValues"]) == len(FFMPEG_INIT_INDEX) == hevc.NUM_CONTEXTS
-    for name, data in (("init", init.tobytes()),
-                       ("transform", tables["kTransform"].astype(np.int8).tobytes()),
+    at = lib.find(init.tobytes())
+    assert at >= 0
+    for init_type in range(3):
+        # FFmpeg's rows of init_values are HEVC_CONTEXTS (199) apart.
+        row = np.frombuffer(lib[at + 199 * init_type:at + 199 * init_type + 167], np.uint8)
+        np.testing.assert_array_equal(row[FFMPEG_INIT_INDEX + inter_index], values[init_type])
+    for name, data in (("transform", tables["kTransform"].astype(np.int8).tobytes()),
                        ("tc", tables["kTc"].astype(np.uint8).tobytes()),
                        ("beta", tables["kBeta"].astype(np.uint8).tobytes()),
                        ("angle", tables["kIntraPredAngle"].astype(np.int32).tobytes()),
                        ("inv_angle", tables["kInvAngle"].astype(np.int32).tobytes()),
                        ("ctx_idx_map", tables["kCtxIdxMap"].astype(np.uint8).tobytes()),
-                       ("level_scale", tables["kLevelScale"].astype(np.uint8).tobytes())):
+                       ("level_scale", tables["kLevelScale"].astype(np.uint8).tobytes()),
+                       ("luma_filter", tables["kLumaFilter"][8:].astype(np.int8).tobytes()),
+                       ("chroma_filter", tables["kChromaFilter"][4:].astype(np.int8).tobytes())):
         assert lib.find(data) >= 0, name
     # The DST and the chroma QP table are the standard's (FFmpeg computes
     # the DST in code): the DST-VII basis 256 / 3 sin(pi (2k + 1)(n + 1) / 9),

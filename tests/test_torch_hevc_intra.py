@@ -19,7 +19,9 @@ from hive_tpu_torch.video import hevc, mp4
 from hive_tpu_torch.video.capture import VideoCapture
 from tests.test_torch_mpeg4 import assert_reads_as_cv2, cv2_read, scene_planes
 
-CLIPS = chip_smoke.HEVC_EXERCISER_CLIPS
+# The all-intra clips (the first of HEVC_EXERCISER_CLIPS; the P and B ones
+# are tests/test_torch_hevc_inter.py's).
+CLIPS = tuple(c for c in chip_smoke.HEVC_EXERCISER_CLIPS if "inter" not in c[3])
 
 
 @pytest.fixture(scope="module")
@@ -44,19 +46,25 @@ def test_exerciser_clips_read_as_cv2_and_hash_to_their_digests(exercisers, index
 
 
 def test_exerciser_clips_write_every_path_and_context(exercisers):
-    """Over the exerciser clips every path the writer counts is written
-    (each of the 35 luma modes at 4x4, 8x8, 16x16 and 32x32 among them),
-    and every context an I slice can read is coded."""
-    totals, contexts = {}, np.zeros(hevc.NUM_CONTEXTS, np.int64)
+    """Over the exerciser clips every path of I slices the writer counts is
+    written (each of the 35 luma modes at 4x4, 8x8, 16x16 and 32x32 among
+    them), and every context an I slice can read is coded."""
+    totals, contexts = {}, np.zeros((3, hevc.NUM_CONTEXTS), np.int64)
     for _, stats in exercisers:
         for name, value in stats.items():
             if name != "contexts":
                 totals[name] = totals.get(name, 0) + value
         contexts += stats["contexts"]
-    assert [name for name, value in totals.items() if value == 0] == []
-    reach = hevc.contexts_reachable()
-    assert np.flatnonzero(reach & (contexts == 0)).tolist() == []
-    assert reach.sum() == hevc.NUM_CONTEXTS - 2
+    intra = set(hevc.INTRA_STAT_NAMES) | {"pictures", "idr_w_radl", "idr_n_lp", "cra", "trail_r",
+                                          "trail_n", "slices", "multi_slice_pictures",
+                                          "slice_qp_varies", "slice_sao_off",
+                                          "slice_chroma_offsets", "deblocking_override",
+                                          "deblocking_off_slices", "deblocking_offsets",
+                                          "across_off", "poc_msb_wrap", "sao_ctbs"}
+    assert [name for name, value in totals.items() if value == 0 and name in intra] == []
+    reach = hevc.contexts_reachable()[0]
+    assert np.flatnonzero(reach & (contexts[0] == 0)).tolist() == []
+    assert reach.sum() == hevc.INTRA_CONTEXTS - 2 and not contexts[1:].any()
 
 
 def test_exerciser_clips_take_every_loop_filter_decision(exercisers):

@@ -1,6 +1,7 @@
 """Video input of hive_tpu_torch (``hive_tpu_torch.video``) against cv2 5.0.0,
 whose bundled FFmpeg decodes H.264, HEVC, Motion JPEG and MPEG-4 Part 2 (HEVC
-in tests/test_torch_hevc.py and tests/test_torch_hevc_intra.py, MPEG-4 Part 2
+in tests/test_torch_hevc.py, tests/test_torch_hevc_intra.py and
+tests/test_torch_hevc_inter.py, MPEG-4 Part 2
 in tests/test_torch_mpeg4.py): the MP4 demuxer's sizes, rate, frame count
 and order, edit lists included; the I_PCM writer and the H.264 decoder
 (lossless, so the seeded planes come back exactly; the decoder's other
@@ -215,25 +216,25 @@ MPEG2_OTI = 0x61                   # MPEG-2 Main Profile video in an mp4v entry
 
 
 def test_hevc_and_mp4v_are_refused_by_name(tmp_path):
-    """HEVC (hvc1 / hev1) outside the intra subset decoded so far (a P
-    slice, ROADMAP sub-item 9c-2; Main 10, 9c-4: tests/test_torch_hevc.py
-    refuses each feature), an mp4v entry of an object type the port does not
-    decode (MPEG-2 video, objectTypeIndication 0x61) and Motion JPEG B
-    (mjpb) are refused naming the feature or codec and the ROADMAP item,
-    before any decode. (HEVC intra pictures decode:
-    tests/test_torch_hevc_intra.py; mp4v of objectTypeIndication 0x20,
+    """HEVC (hvc1 / hev1) outside the subset decoded so far (tiles, ROADMAP
+    sub-item 9c-3; Main 10, 9c-4: tests/test_torch_hevc.py refuses each
+    feature), an mp4v entry of an object type the port does not decode
+    (MPEG-2 video, objectTypeIndication 0x61) and Motion JPEG B (mjpb) are
+    refused naming the feature or codec and the ROADMAP item, before any
+    decode. (HEVC I, P and B pictures decode: tests/test_torch_hevc_intra.py,
+    tests/test_torch_hevc_inter.py; mp4v of objectTypeIndication 0x20,
     MPEG-4 Part 2: tests/test_torch_mpeg4.py.)"""
     from tests.test_torch_hevc import refusal_clip
 
-    for fourcc, item in ((b"hvc1", "Queue 1 item 9c-2"), (b"hev1", "Queue 1 item 9c-4"),
+    for fourcc, item in ((b"hvc1", "Queue 1 item 9c-3"), (b"hev1", "Queue 1 item 9c-4"),
                          (b"mp4v", "Queue 1 item 9d"), (b"mjpb", "Queue 1 item 9d")):
         if fourcc in (b"hvc1", b"hev1"):
-            path = refusal_clip(tmp_path, "p_slice" if fourcc == b"hvc1" else "main10", fourcc)
+            path = refusal_clip(tmp_path, "tiles" if fourcc == b"hvc1" else "main10", fourcc)
         else:
             path = tmp_path / f"{fourcc.decode()}.mp4"
             write_other_codec(path, fourcc, b"hvcC")
         name = {b"mp4v": r"MPEG-2 video \(sample entry 'mp4v'.*0x61",
-                b"mjpb": "Motion JPEG B", b"hvc1": "HEVC video uses P slices",
+                b"mjpb": "Motion JPEG B", b"hvc1": "HEVC video uses tiles",
                 b"hev1": "HEVC video uses 10-bit samples"}[fourcc]
         with pytest.raises(mp4.UnsupportedVideoError, match=f"{name}.*{item}"):
             VideoCapture(str(path), device="cpu")

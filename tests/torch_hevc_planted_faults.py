@@ -4,18 +4,19 @@
     python tests/torch_hevc_planted_faults.py --work DIR --clips phone   # and the 1080p clip
 
 The card's machine has no cv2, so ``chip_smoke.py`` holds the HEVC decoder
-built there by two means: the 1080p all-intra phone clip's luma PSNR
-against the renders it was written from (``PHONE_HEVC_MIN_PSNR``) and the
-VGA exerciser clips' digests (``HEVC_EXERCISER_DIGESTS``: the written file
-and cv2's frames). The writer shares the decoder's prediction and
+built there by digests (the written file and cv2's frames) of the 1080p
+x265-shaped phone clip (``PHONE_HEVC_DIGESTS``) and of the VGA exerciser
+clips (``HEVC_EXERCISER_DIGESTS``), and by the phone clip's luma PSNR
+against the renders it was written from (``PHONE_HEVC_MIN_PSNR``). The writer shares the decoder's prediction and
 residual coding, so a fault there is mostly written into the stream too and
 hides from a PSNR. This script copies ``hive_tpu_torch`` and
 ``chip_smoke.py`` into ``DIR`` once per variant, plants one fault in the
-copy of ``native/src/hevc_decode.cpp`` (the sound copy plants none; the
+copy of ``native/src/hevc_decode.cpp`` or ``hevc_tables.h`` (the sound copy plants none; the
 ``loop_filter_counting`` copy makes the loop filters count their decisions
-on every decode, which changes no output), builds it, and prints for each: with ``--clips phone``, the phone clip's PSNR on
-its checked frames and the host ms to decode its second picture (the mean
-of 10); whether each exerciser clip's file and frames keep
+on every decode, which changes no output), builds it, and prints for each:
+with ``--clips phone``, whether the phone clip's file and frames keep their
+digests, its PSNR on its checked frames and the host ms to decode its IDR,
+a P, a reference B and a non-reference B picture (best of 3); whether each exerciser clip's file and frames keep
 their digests; and, where cv2 is installed, how many frames cv2 reads
 otherwise than the port. Not a test: the readings are written down in
 PERF.md.
@@ -29,6 +30,7 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DECODER = os.path.join("hive_tpu_torch", "native", "src", "hevc_decode.cpp")
+TABLES = os.path.join("hive_tpu_torch", "native", "src", "hevc_tables.h")
 
 # name -> [(file, its text, the replacement), ...]; None: the sound build.
 VARIANTS = {
@@ -55,6 +57,28 @@ VARIANTS = {
                                       "std::abs(corner + right - 2 * line[3 * n]) < 9 &&"),
                                      (DECODER, "std::abs(corner + bottom - 2 * line[n]) < 8) {",
                                       "std::abs(corner + bottom - 2 * line[n]) < 9) {")],
+    # The quarter-sample luma filter's centre taps 58, 17 as 57, 18 (Table
+    # 8-11; the sum stays 64).
+    "interpolation_tap": [(TABLES, "{-1, 4, -10, 58, 17, -5, 1, 0}",
+                           "{-1, 4, -10, 57, 18, -5, 1, 0}")],
+    # The merge list's first two spatial candidates in the order B1, A1
+    # (8.5.3.2.2 puts A1 first).
+    "merge_order_b1_a1": [(DECODER, "        if (a1) list[n++] = motion(xa1, ya1);\n", ""),
+                          (DECODER, "motion(xb1, yb1)))) list[n++] = motion(xb1, yb1);\n",
+                           "motion(xb1, yb1)))) list[n++] = motion(xb1, yb1);\n"
+                           "        if (a1) list[n++] = motion(xa1, ya1);\n")],
+    # The collocated vector scaled by the inverse ratio (td and tb swapped,
+    # 8-179 to 8-183).
+    "tmvp_scaling_swapped": [(DECODER, "out = scale_mv(mv, col_diff, cur_diff);",
+                              "out = scale_mv(mv, cur_diff, col_diff);")],
+    # bS 1 only for vectors more than 4 quarter samples apart (8.7.2.4 says
+    # at least 4).
+    "inter_bs_threshold": [(DECODER, "return std::abs(a.x - b.x) >= 4 || std::abs(a.y - b.y) >= 4;",
+                            "return std::abs(a.x - b.x) > 4 || std::abs(a.y - b.y) > 4;")],
+    # Explicit uni-prediction weights without their rounding offset
+    # (8-252 adds 2^(log2WD - 1) before the shift).
+    "weighted_rounding_dropped": [(DECODER, "((a * r.w[c] + (1 << (shift - 1))) >> shift)",
+                                   "((a * r.w[c]) >> shift)")],
     # Not a fault: the loop filters count their decisions on every decode,
     # not only when the caller asks; read for what counting costs the
     # phone clip's decode.
@@ -93,12 +117,13 @@ with tempfile.TemporaryDirectory() as folder:
         path = os.path.join(folder, "phone.mp4")
         _, _, frames = cs.write_hevc_phone_clip(path)
         capture = VideoCapture(path, device="cpu")
+        want = cs.PHONE_HEVC_DIGESTS
+        out["phone_file_held"] = cs.file_digest(path) == want[0]
+        out["phone_frames_held"] = cs.frames_digest(list(capture.frames())) == want[1]
         out["phone_psnr"] = {i: cs.psnr_db(next(capture.planes(i, i + 1))[0].numpy(), frames[i][0])
                              for i in cs.PHONE_HEVC_CHECKED}
-        decoder = hevc.HevcDecoder()
-        decoder.decode(capture.parameter_sets)
-        units = capture._nal_units(1)
-        out["phone_decode_ms"] = cs.host_ms(lambda: decoder.decode(units), reps=10)
+        out["phone_decode_ms"] = dict(zip(("idr", "p", "b_reference", "b"),
+                                          cs.hevc_decode_ms(capture)[1]))
     for index, (name, *_) in enumerate(cs.HEVC_EXERCISER_CLIPS):
         try:
             path, _ = cs.write_hevc_exerciser(folder, index)
